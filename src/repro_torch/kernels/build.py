@@ -1,0 +1,117 @@
+"""Build the port's CUDA sources with nvcc and load them with ctypes.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface, is compiled for
+``sm_90a`` into ``build/repro_torch/<name>-<hash>.so`` under the
+repository root at first use (keyed by a hash of the source and the
+flags, so an edited source rebuilds), and is loaded with ``ctypes``.
+Nothing here runs at import time.  :func:`build` starts one ``nvcc`` per
+source, all at once, and waits for them together.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Dict, Iterable
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# ctypes signature of each library's C entry point (c_void_p for every
+# pointer and the stream, c_int for every int).
+_P, _I = ctypes.c_void_p, ctypes.c_int
+SIGNATURES = {
+    "sd_fused": ("sd_fused_launch", [_P, _P, _P, _P, _I] + [_I] * 22 + [_P]),
+}
+
+
+@dataclass
+class Built:
+    """A loaded kernel library and what building it reported."""
+    name: str
+    path: Path
+    lib: ctypes.CDLL
+    seconds: float          # nvcc wall time (0.0 when the .so was cached)
+    ptxas: str              # nvcc's -Xptxas -v report (registers, smem)
+
+    @property
+    def fn(self):
+        return getattr(self.lib, SIGNATURES[self.name][0])
+
+
+_LOADED: Dict[str, Built] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path("/usr/local/cuda/bin/nvcc")
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
+                       "build the port's kernels")
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{tag[:16]}.so"
+
+
+def _load(name: str, path: Path, seconds: float, ptxas: str) -> Built:
+    lib = ctypes.CDLL(str(path))
+    sym, argtypes = SIGNATURES[name]
+    fn = getattr(lib, sym)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return Built(name, path, lib, seconds, ptxas)
+
+
+def build(names: Iterable[str]) -> Dict[str, Built]:
+    """Build (in parallel) and load every named source not loaded yet;
+    raises with nvcc's output when one fails."""
+    names = [n for n in dict.fromkeys(names) if n not in _LOADED]
+    procs = {}
+    t0 = time.perf_counter()
+    for name in names:
+        if name not in SIGNATURES:
+            raise KeyError(f"unknown kernel source {name!r}")
+        out = _target(name)
+        if out.exists():
+            _LOADED[name] = _load(name, out, 0.0, "")
+            continue
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT,
+                                        text=True), tmp, out)
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"--- nvcc {name} (rc {proc.returncode}) ---\n"
+                          f"{log}")
+            continue
+        os.replace(tmp, out)
+        _LOADED[name] = _load(name, out, time.perf_counter() - t0, log)
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return {n: _LOADED[n] for n in names}
+
+
+def load(name: str) -> Built:
+    """The loaded library for ``csrc/<name>.cu``, built at first use."""
+    if name not in _LOADED:
+        build([name])
+    return _LOADED[name]

@@ -33,3 +33,9 @@ def multi_device_run():
             f"--- stderr ---\n{out.stderr[-4000:]}")
         return out.stdout
     return run
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc; skips with the "
+        "reason where there is none")

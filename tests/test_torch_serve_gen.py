@@ -1,0 +1,126 @@
+"""The port's generative server on the CPU (``--device cpu``).
+
+Closed bucket ladder, zero cell rebuilds after ``warmup`` (checkpoint
+swaps included, asserted by the scheduler on every launch), grouped
+outputs equal to per-request ``apply``, and the CLI's pointers to later
+slices.  Weights swapped in from the JAX package serve the JAX
+package's outputs.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.launch.serve_gen import reduced_spec as j_reduced_spec
+from repro.models.generative import GenerativeModel as JModel
+from repro_torch.convert import params_from_numpy
+from repro_torch.launch.batching import pow2_bucket, pow2_floor, take_group
+from repro_torch.launch.serve_gen import (GenServer, main, reduced_specs,
+                                          serve_async)
+from repro_torch.serving import ContinuousScheduler
+
+
+def _server(**kw):
+    return GenServer(nets=sorted(reduced_specs()), specs=reduced_specs(),
+                     device="cpu", **kw)
+
+
+def test_dryrun_cli_cpu():
+    results, stats = main(["--dryrun", "--device", "cpu"])
+    assert stats["served"] == 4 and stats["shed"] == 0
+    assert stats["compile_cache"] == [
+        "('dcgan-dryrun', 2, 'float32')", "('segnet-dryrun', 2, 'float32')"]
+    assert results[0].shape == (16, 16, 3)
+    assert results[2].shape == (8, 8, 3)
+    _, stats = main(["--dryrun", "--device", "cpu", "--sched", "drain",
+                     "--dtype", "bfloat16"])
+    assert stats["requests"] == 4
+
+
+def test_bucket_ladder_is_closed():
+    assert [pow2_bucket(n, 16) for n in (1, 2, 3, 5, 9, 16, 40)] == \
+        [1, 2, 4, 8, 16, 16, 16]
+    assert pow2_floor(12) == 8
+    server = _server(max_batch=12)              # clamped to a power of 2
+    assert server.max_batch == 8 and server.buckets() == [1, 2, 4, 8]
+    assert {server.bucket(n) for n in range(1, 40)} == set(server.buckets())
+
+
+def test_take_group_fifo_by_key():
+    q = ["a1", "b1", "a2", "a3", "b2"]
+    group, rest = take_group(q, lambda r: r[0], 2)
+    assert group == ["a1", "a2"] and rest == ["b1", "a3", "b2"]
+
+
+def test_warmup_then_zero_rebuilds_across_swap():
+    server = _server(max_batch=4)
+    assert server.warmup() == 2 * len(server.buckets())
+    built = server.compile_count
+    sched = ContinuousScheduler(server)
+    latents = {}
+    for i, net in enumerate(("dcgan-dryrun", "segnet-dryrun") * 3):
+        latents[i] = server.random_requests(net, 1, seed=i)[0].latent
+        sched.submit(net, latents[i], rid=i)
+    model, _ = server.model("dcgan-dryrun")
+    new = model.init(torch.Generator().manual_seed(7))
+    sched.swap_checkpoint("dcgan-dryrun", new)
+    results = sched.run()
+    assert len(results) == 6 and sched.swaps_applied == 1
+    assert server.compile_count == built          # no cell rebuilt
+    assert server.model("dcgan-dryrun")[1] is new
+    for rid in (0, 2, 4):                         # served on the new weights
+        torch.testing.assert_close(
+            results[rid], model.apply(new, latents[rid][None])[0],
+            rtol=1e-5, atol=1e-5)
+
+
+def test_grouped_outputs_equal_per_request_apply():
+    server = _server(max_batch=8)
+    reqs = server.random_requests("dcgan-dryrun", 5, seed=3)
+    grouped = server.run_group("dcgan-dryrun", [r.latent for r in reqs])
+    assert grouped.shape == (5, 16, 16, 3)        # padding cropped
+    model, params = server.model("dcgan-dryrun")
+    for r, y in zip(reqs, grouped):
+        single = model.apply(params, r.latent[None])[0]
+        torch.testing.assert_close(y, single, rtol=1e-5, atol=1e-5)
+    results, stats = serve_async(server, reqs)
+    assert stats["launches"] == 1 and stats["served"] == 5
+    for r in reqs:
+        torch.testing.assert_close(results[r.rid], grouped[r.rid])
+
+
+def test_segnet_head_is_logits_and_fused_backend_matches():
+    ref = _server(max_batch=2, backend="torch")
+    fused = _server(max_batch=2, backend="fused")
+    reqs = ref.random_requests("segnet-dryrun", 2)
+    a = ref.run_group("segnet-dryrun", [r.latent for r in reqs])
+    b = fused.run_group("segnet-dryrun", [r.latent for r in reqs])
+    torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    assert ref.model("segnet-dryrun")[0].final_tanh is False
+    assert fused.model("segnet-dryrun")[0].engine.backend == "fused"
+
+
+@pytest.mark.parametrize("flags", [["--dp", "2"], ["--dtype", "int8"],
+                                   ["--calib", "8"], ["--pretune"],
+                                   ["--backend", "winograd"]])
+def test_later_slices_point_to_roadmap(flags):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        main(["--dryrun", "--device", "cpu", *flags])
+
+
+def test_swapped_in_reference_weights_serve_reference_outputs():
+    jm = JModel(j_reduced_spec(), "sd_kernel", engine_backend="xla")
+    jp = jm.init(jax.random.PRNGKey(0))
+    z = np.random.RandomState(5).randn(3, 16).astype(np.float32)
+    ref = np.asarray(jm.apply(jp, jnp.asarray(z)))
+    server = _server(max_batch=4, backend="fused")
+    spec = server.model("dcgan-dryrun")[0].spec
+    server.swap_checkpoint("dcgan-dryrun", params_from_numpy(
+        jax.tree_util.tree_map(np.asarray, jp), "cpu", spec=spec))
+    results, stats = serve_async(
+        server, [r for r in server.random_requests("dcgan-dryrun", 3)])
+    out = server.run_group("dcgan-dryrun", list(torch.from_numpy(z)))
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-5)
+    assert stats["served"] == 3
