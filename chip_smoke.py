@@ -2,8 +2,11 @@
 
 Drives ``repro_torch`` only (never JAX, never the JAX package ``repro``):
 
-1. builds the fused split-deconv kernel (K1, ``src/repro_torch/kernels/
-   csrc/sd_fused.cu``) with nvcc for sm_90a and prints its registers and
+1. builds the port's three kernels with nvcc for sm_90a, one nvcc per
+   source, all at once (``src/repro_torch/kernels/csrc/``: K1
+   ``sd_fused.cu``, the fused split deconv; K2 ``sd_conv.cu``, the
+   stride-1 conv of the SD backward's input grad; K3
+   ``sd_filter_grad.cu``, its filter grad) and prints their registers and
    shared memory;
 2. holds K1 against its plain PyTorch version ``sd_fused_ref`` on the 22
    deconv layers of the paper's six networks (batch 4, f32, TF32 off,
@@ -18,7 +21,18 @@ Drives ``repro_torch`` only (never JAX, never the JAX package ``repro``):
    same model on the plain ``torch`` backend (and, for two requests, the
    ``native`` model on the CPU);
 4. runs each of the six paper networks once at batch 1 through K1
-   against the plain backend.
+   against the plain backend;
+5. trains: holds K2 and K3 against their plain versions (``sd_conv_ref``,
+   ``sd_filter_grad_ref``) on the backward of the 22 paper layers at
+   batch 4 and on odd geometries (``op > pad_hi``, asymmetric pads,
+   forced ragged tiles), same f32 gate; times K2, K3, their plain
+   versions and cuDNN's ``convolution_backward`` per DCGAN layer at batch
+   16; then takes full-width DCGAN GAN steps (batch 16, discriminator
+   3/64/128/256, AdamW) through ``repro_torch.launch.train_gen`` with
+   the generator on the fused backend, and checks K1/K2/K3 launches of
+   3/3/3 per generator step and 3/0/0 per discriminator step, finite
+   losses, the first generator step's grads against the ``torch``
+   backend (``1e-4`` relative), and the trained generator's output.
 
 Every printed number carries the card's name and power limit.  The line
 before the last is ``{"kernels": [...]}``; the last is ``{"ok": true,
@@ -31,6 +45,7 @@ or the repository's ``src/repro_torch`` is not beside this file.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -45,6 +60,8 @@ PEAK_BYTES = 3.35e12     # H100 SXM HBM3
 SERVE_REQUESTS = 48
 BUCKET = 16
 SEED = 0
+GAN_STEPS = 6
+SOURCES = ("sd_fused", "sd_conv", "sd_filter_grad")
 
 
 def _card_line() -> str:
@@ -127,6 +144,328 @@ def _gate_err(out, ref, rel: float, floor_one: bool) -> tuple:
     return d, tol
 
 
+def _train_phase(dev, tag: str, randn) -> dict:
+    """Phase 5: K2 and K3 against their plain versions on the backward of
+    every paper layer and the odd geometries; K2, K3, their plain
+    versions and cuDNN's backward timed per DCGAN layer at batch 16;
+    then full-width DCGAN GAN steps on the card through train_gen.
+    Returns the two kernels' records and the training report."""
+    import torch
+    import repro_torch.kernels.sd_conv as K
+    from repro_torch import sd
+    from repro_torch.core.accounting import BENCHMARKS, LayerSpec
+    from repro_torch.core.deconv import same_deconv_pads
+    from repro_torch.data import GANLatentPipeline
+    from repro_torch.kernels.autotune import FilterGradPlan, KernelPlan
+    from repro_torch.launch import train_gen
+    from repro_torch.models.generative import GenerativeModel
+    from repro_torch.optim import adamw_init
+    from repro_torch.sd.grad import split_cotangent
+
+    def case(layer, batch, pad, op=0):
+        p = sd.plan((layer.k, layer.k, layer.cin, layer.cout), layer.s,
+                    pad, backend="fused", output_padding=op, device=dev)
+        x = randn(batch, *layer.in_hw, layer.cin)
+        w = randn(layer.k, layer.k, layer.cin, layer.cout,
+                  scale=1.0 / (layer.k * layer.k * layer.cin) ** 0.5)
+        dy = randn(batch, *p.out_shape(layer.in_hw), layer.cout)
+        ws = sd.split_weights(p, w)
+        k2 = dict(x=split_cotangent(p, dy),
+                  w=ws.flip(0, 1).transpose(-1, -2).contiguous(),
+                  pad=tuple((k - 1, k - 1) for k in p.kt),
+                  out_start=p.pi, out_size=tuple(layer.in_hw))
+        k3 = dict(x=x, dy1=k2["x"], kt=p.kt,
+                  pad=tuple((q, q) for q in p.pi))
+        return p, x, dy, k2, k3
+
+    def k2_call(a, plan=None):
+        return K.sd_conv(a["x"], a["w"], pad=a["pad"],
+                         out_start=a["out_start"], out_size=a["out_size"],
+                         plan=plan)
+
+    def k2_ref(a):
+        return K.sd_conv_ref(a["x"], a["w"], a["pad"], a["out_start"],
+                             a["out_size"])
+
+    def k3_call(a, plan=None):
+        return K.sd_filter_grad(a["x"], a["dy1"], a["kt"], pad=a["pad"],
+                                plan=plan)
+
+    def k3_ref(a):
+        return K.sd_filter_grad_ref(a["x"], a["dy1"], a["kt"], a["pad"])
+
+    err = {"sd_conv": 0.0, "sd_filter_grad": 0.0}
+    failures = []
+
+    def gate(name, label, out, ref):
+        torch.cuda.synchronize()
+        d, tol = _gate_err(out, ref, F32_GATE, True)
+        err[name] = max(err[name], d)
+        ok = d <= tol and tuple(out.shape) == tuple(ref.shape)
+        print(f"  {label} {name} {tuple(out.shape)} max|d| {d:.3e} tol "
+              f"{tol:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"{label} {name}")
+
+    print(f"check: K2 vs sd_conv_ref and K3 vs sd_filter_grad_ref on each "
+          f"layer's backward (dx, dw), f32, batch 4, gate "
+          f"{F32_GATE}*max(1,max|ref|) {tag}")
+    for net, fn in BENCHMARKS.items():
+        for l in fn().deconv_layers():
+            _, _, _, a2, a3 = case(l, 4, same_deconv_pads(l.k, l.s))
+            gate("sd_conv", f"{net}/{l.name}", k2_call(a2), k2_ref(a2))
+            gate("sd_filter_grad", f"{net}/{l.name}", k3_call(a3),
+                 k3_ref(a3))
+    # op > pad_hi, per-dim op, asymmetric pads, then forced ragged tiles
+    # (K2: a 3x5 tile, 7-channel Cin steps; K3: 32-position chunks, and
+    # one single chunk).
+    odd = [(LayerSpec("deconv", 3, 2, k=4, s=2, in_hw=(5, 6)), 2, 0, 1,
+            None, None),
+           (LayerSpec("deconv", 3, 2, k=4, s=2, in_hw=(5, 6)), 2, 1, (1, 0),
+            None, None),
+           (LayerSpec("deconv", 3, 2, k=5, s=2, in_hw=(6, 7)), 1,
+            ((1, 3), (0, 2)), 0, None, None),
+           (LayerSpec("deconv", 40, 24, k=5, s=2, in_hw=(13, 11)), 3, 2, 1,
+            KernelPlan(th=3, tw=5, tcin=7, tc=16),
+            FilterGradPlan(tco=16, chunk=32)),
+           (LayerSpec("deconv", 70, 5, k=5, s=2, in_hw=(9, 10)), 2, 1, 1,
+            KernelPlan(th=2, tw=3, tcin=8, tc=32),
+            FilterGradPlan(tco=32, chunk=10 ** 6))]
+    for l, batch, padv, op, t2, t3 in odd:
+        _, _, _, a2, a3 = case(l, batch, padv, op)
+        label = f"odd {l.in_hw} cin{l.cin} k{l.k} p{padv} op{op}"
+        gate("sd_conv", label, k2_call(a2, t2), k2_ref(a2))
+        gate("sd_filter_grad", label, k3_call(a3, t3), k3_ref(a3))
+        if t3 is not None:
+            same = torch.equal(k3_call(a3, t3), k3_call(a3, t3))
+            print(f"  {label} sd_filter_grad run twice: "
+                  f"{'bit-identical' if same else 'DIFFERS'}")
+            if not same:
+                failures.append(f"{label} K3 not deterministic")
+    if failures:
+        raise SystemExit(f"chip_smoke: backward kernels disagree with their "
+                         f"plain versions on {failures}")
+
+    print(f"time: DCGAN backward at batch {BUCKET}, f32, CUDA events: median "
+          f"[min, max] of 7 rounds of 20 warm launches, kernel / plain / "
+          f"cuDNN convolution_backward (one gradient requested) in turns "
+          f"{tag}")
+    per_layer = []
+    for l in BENCHMARKS["dcgan"]().deconv_layers():
+        p, x, dy, a2, a3 = case(l, BUCKET, same_deconv_pads(l.k, l.s))
+        gate("sd_conv", f"dcgan/{l.name} b{BUCKET}", k2_call(a2), k2_ref(a2))
+        gate("sd_filter_grad", f"dcgan/{l.name} b{BUCKET}", k3_call(a3),
+             k3_ref(a3))
+        # Library yardstick: cuDNN's backward of the same-size
+        # transposed conv (NCHW, crop 2 + output_padding 1 -> in*s),
+        # asked for dx only or dw only.
+        g_cf = dy.permute(0, 3, 1, 2).contiguous()
+        x_cf = x.permute(0, 3, 1, 2).contiguous()
+        w_cf = torch.randn(l.cin, l.cout, l.k, l.k, device=dev)
+        geo = ([l.s, l.s], [2, 2], [1, 1], True, [1, 1], 1)
+
+        def lib(mask, g_cf=g_cf, x_cf=x_cf, w_cf=w_cf, geo=geo):
+            return torch.ops.aten.convolution_backward(
+                g_cf, x_cf, w_cf, None, *geo, mask)
+
+        assert lib([True, False, False])[0].shape == x_cf.shape
+        t = _time_ms({
+            "k2": lambda a2=a2: k2_call(a2),
+            "k2_plain": lambda a2=a2: k2_ref(a2),
+            "lib_dx": lambda: lib([True, False, False]),
+            "k3": lambda a3=a3: k3_call(a3),
+            "k3_plain": lambda a3=a3: k3_ref(a3),
+            "lib_dw": lambda: lib([False, True, False])})
+        useful = 2.0 * BUCKET * l.macs()
+        o1h, o1w = a2["x"].shape[1:3]
+        kt2 = p.kt[0] * p.kt[1]
+        nco = a2["x"].shape[-1]
+        kernel_ops = {"sd_conv": 2.0 * BUCKET * l.in_hw[0] * l.in_hw[1]
+                      * kt2 * nco * l.cin,
+                      "sd_filter_grad": 2.0 * BUCKET * o1h * o1w * kt2
+                      * nco * l.cin}
+        moved = {"sd_conv": [a2["x"], a2["w"], x],
+                 "sd_filter_grad": [x, a3["dy1"], a2["w"]]}
+        for name, tk, tp, tl in (("sd_conv", "k2", "k2_plain", "lib_dx"),
+                                 ("sd_filter_grad", "k3", "k3_plain",
+                                  "lib_dw")):
+            nbytes = sum(u.numel() * u.element_size() for u in moved[name])
+            t_ops = useful / PEAK_F32_FLOPS * 1e3
+            t_bytes = nbytes / PEAK_BYTES * 1e3
+            ms, lo, hi = t[tk]
+            rec = {"kernel": name, "layer": f"dcgan/{l.name}", "ms": ms,
+                   "ms_min": lo, "ms_max": hi, "plain_ms": t[tp][0],
+                   "library_ms": t[tl][0],
+                   "bound_ms": max(t_ops, t_bytes),
+                   "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                   "flops": useful, "kernel_flops": kernel_ops[name],
+                   "bytes": nbytes}
+            per_layer.append(rec)
+            print(f"  dcgan/{l.name} {'K2 dx' if name == 'sd_conv' else 'K3 dw'}"
+                  f": {ms:.4f} ms [{lo:.4f}, {hi:.4f}], plain "
+                  f"{rec['plain_ms']:.4f} ms, cuDNN {rec['library_ms']:.4f} "
+                  f"ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}, "
+                  f"useful {useful / 1e9:.3f} GFLOP; the kernel does "
+                  f"{kernel_ops[name] / 1e9:.3f}), "
+                  f"{useful / ms / 1e9:.1f} useful TFLOP/s; sm clock, power, "
+                  f"temperature {_clocks()} {tag}")
+    if failures:
+        raise SystemExit(f"chip_smoke: backward kernels disagree at batch "
+                         f"{BUCKET} on {failures}")
+
+    # ---- full-width DCGAN GAN steps through train_gen --------------------
+    gen, disc = train_gen.make_gan(False, "sd_kernel", dev)
+    ref_gen = GenerativeModel(gen.spec, "sd_kernel", engine_backend="torch",
+                              device=dev)
+    assert gen.engine.backend == "fused"
+    gp = train_gen.trainable(gen.init(torch.Generator().manual_seed(SEED)))
+    dp = train_gen.trainable(disc.init(torch.Generator().manual_seed(SEED + 1)))
+    g_opt, d_opt = adamw_init(gp), adamw_init(dp)
+    pipe = GANLatentPipeline(z_dim=gen.spec.layers[0].cin,
+                             global_batch=BUCKET, seed=SEED)
+    z0 = pipe.batch(0).to(dev)
+    # The gate holds the generator's grads J_G^T c, with c the
+    # discriminator's cotangent on the samples fixed from the torch
+    # backend in float64 (train_gen.grad_check).  The full step's grads
+    # also cross the discriminator's LeakyReLU kinks, where a
+    # pre-activation within f32 rounding of 0 may take the other slope
+    # than in f64 and move every generator grad with no fault anywhere
+    # (tests/test_torch_train.py::test_full_step_grads_cross_a_kink).
+    # They are printed beside the gate, with native F.conv_transpose2d's
+    # full step and the discriminator's sign flips as the witness.
+    native = GenerativeModel(gen.spec, "native", device=dev)
+    errs = {"fused": train_gen.grad_check(gen, ref_gen, disc, gp, dp, z0),
+            "torch": train_gen.grad_check(ref_gen, ref_gen, disc, gp, dp,
+                                          z0)}
+    g64 = train_gen.generator_grads(
+        ref_gen, disc, train_gen.trainable(train_gen.double(gp)),
+        train_gen.double(dp), z0.double())[1]
+    for name, model in (("fused", gen), ("torch", ref_gen),
+                        ("native", native)):
+        errs[f"{name}, full step"] = train_gen.rel_errs(
+            train_gen.generator_grads(model, disc, gp, dp, z0)[1], g64)
+    for leaf in errs["fused"]:
+        print(f"  grad {leaf}: max|d|/max|ref| "
+              + ", ".join(f"{k} {v[leaf]:.2e}" for k, v in errs.items()))
+    worst = {k: max(v.values()) for k, v in errs.items()}
+    with torch.no_grad():
+        kinks = train_gen.kink_flips(
+            disc, dp, native.apply(gp, z0),
+            native.apply(train_gen.double(gp), z0.double()))
+    ok = worst["fused"] <= F32_GATE
+    print(f"train: first generator step's grads J_G^T c, f32 vs the torch "
+          f"backend in f64 on the card: worst leaf max|d|/max|ref| fused "
+          f"(K1/K2/K3) {worst['fused']:.3e} (gate {F32_GATE}), torch "
+          f"backend {worst['torch']:.3e}; the full step against its f64 "
+          f"twin: fused {worst['fused, full step']:.3e}, torch "
+          f"{worst['torch, full step']:.3e}, native F.conv_transpose2d "
+          f"{worst['native, full step']:.3e}; discriminator pre-activations "
+          f"whose sign differs between native's f32 and f64 samples, per "
+          f"conv (count, max|a64| among them, max|a32 - a64|): {kinks} "
+          f"{'ok' if ok else 'FAIL'} {tag}")
+    worst = worst["fused"]
+    if not ok:
+        raise SystemExit("chip_smoke: training grads through the kernels "
+                         "disagree with the torch backend")
+
+    names = ("K1", "K2", "K3")
+
+    def counts():
+        return (K.SD_FUSED_LAUNCHES, K.SD_CONV_LAUNCHES,
+                K.SD_FILTER_GRAD_LAUNCHES)
+
+    def zero():
+        K.SD_FUSED_LAUNCHES = K.SD_CONV_LAUNCHES = \
+            K.SD_FILTER_GRAD_LAUNCHES = 0
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero()
+    step_ms, d_hist, g_hist = [], [], []
+    for step in range(GAN_STEPS):
+        z = pipe.batch(step).to(dev)
+        real = pipe.images(step, disc.img_hw).to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        c0 = counts()
+        dl = train_gen.d_step(gen, disc, gp, dp, d_opt, z, real)
+        c1 = counts()
+        gl = train_gen.g_step(gen, disc, gp, dp, g_opt, z)
+        c2 = counts()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        d_hist.append(dl.item())
+        g_hist.append(gl.item())
+        per_d = tuple(b - a for a, b in zip(c0, c1))
+        per_g = tuple(b - a for a, b in zip(c1, c2))
+        print(f"  GAN step {step}: d_loss {d_hist[-1]:.4f} g_loss "
+              f"{g_hist[-1]:.4f}, {step_ms[-1]:.3f} ms host clock; launches "
+              f"D step {dict(zip(names, per_d))}, G step "
+              f"{dict(zip(names, per_g))}")
+        if per_d != (3, 0, 0) or per_g != (3, 3, 3):
+            raise SystemExit("chip_smoke: a GAN step did not run K1 3 (D), "
+                             "K1/K2/K3 3/3/3 (G)")
+    launches = dict(zip(("sd_fused", "sd_conv", "sd_filter_grad"), counts()))
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    if not all(map(math.isfinite, d_hist + g_hist)):
+        raise SystemExit("chip_smoke: a GAN loss is not finite")
+    with torch.no_grad():
+        zf = pipe.batch(GAN_STEPS).to(dev)
+        out, ref = gen.apply(gp, zf), ref_gen.apply(gp, zf)
+    d, tol = _gate_err(out, ref, F32_GATE, True)
+    ok = (d <= tol and bool(torch.isfinite(out).all())
+          and tuple(out.shape) == (BUCKET, 64, 64, 3))
+    print(f"  trained generator out {tuple(out.shape)} finite, vs torch "
+          f"backend max|d| {d:.3e} tol {tol:.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("chip_smoke: the trained generator's output is "
+                         "wrong")
+    med = sorted(step_ms)[len(step_ms) // 2]
+    z = pipe.batch(0).to(dev)
+    real = pipe.images(0, disc.img_hw).to(dev)
+    breakdown = _device_breakdown(lambda: (
+        train_gen.d_step(gen, disc, gp, dp, d_opt, z, real),
+        train_gen.g_step(gen, disc, gp, dp, g_opt, z)))
+    print(f"train: {GAN_STEPS} full-width DCGAN GAN steps (batch {BUCKET}, "
+          f"D {disc.channels}, f32, AdamW): median {med:.3f} ms per step "
+          f"[{min(step_ms):.3f}, {max(step_ms):.3f}] host clock, "
+          f"synchronised; peak memory {peak_mib:.1f} MiB; launches in the "
+          f"run {launches} {tag}")
+    if breakdown is None:
+        print("  device time per kernel: not measured (the profiler "
+              "reported no device time)")
+    else:
+        busy, wall, top = breakdown
+        print(f"  profiler, one GAN step: device busy {busy:.3f} ms of "
+              f"{wall:.3f} ms wall {tag}")
+        for name, ms_k, calls in top:
+            print(f"    {ms_k:.4f} ms in {calls} call(s): {name[:90]}")
+    kernels = []
+    for name, src, line in (("sd_conv", "sd_conv.cu", 186),
+                            ("sd_filter_grad", "sd_filter_grad.cu", 524)):
+        recs = [r for r in per_layer if r["kernel"] == name]
+        tot = {k: sum(r[k] for r in recs)
+               for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                         "flops", "bytes")}
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": f"src/repro/kernels/sd_conv.py:{line}",
+            "launches": launches[name], "max_abs_err": err[name],
+            "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+            "bound_ms": tot["bound_ms"],
+            "bound_by": ("operations" if tot["flops"] / PEAK_F32_FLOPS
+                         >= tot["bytes"] / PEAK_BYTES else "bytes"),
+            "library_ms": tot["library_ms"]})
+    return {"kernels": kernels, "per_layer": per_layer,
+            "k1_launches": launches["sd_fused"],
+            "train": {"step_ms": step_ms, "median_step_ms": med,
+                      "d_loss": d_hist, "g_loss": g_hist,
+                      "peak_mib": peak_mib, "grad_rel_err": worst,
+                      "kink_flips": kinks,
+                      "device": breakdown}}
+
+
 def main(json_path: str = "") -> int:
     t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(HERE, "src", "repro_torch")):
@@ -162,12 +501,16 @@ def main(json_path: str = "") -> int:
           f"{torch.cuda.device_count()} device(s) visible")
 
     # ---- 1. build ------------------------------------------------------
-    built = build(["sd_fused"])["sd_fused"]
-    print(f"build: nvcc sd_fused.cu for sm_90a in {built.seconds:.2f} s "
-          f"(host clock) {tag}")
-    for line in built.ptxas.splitlines():
-        if any(k in line for k in ("registers", "smem", "Compiling entry")):
-            print(f"  ptxas: {line.strip()}")
+    builds = build(SOURCES)
+    for name in SOURCES:
+        print(f"build: nvcc {name}.cu for sm_90a in "
+              f"{builds[name].seconds:.2f} s (host clock, the {len(SOURCES)} "
+              f"sources in parallel) {tag}")
+        for line in builds[name].ptxas.splitlines():
+            if any(k in line for k in ("registers", "smem",
+                                       "Compiling entry")):
+                print(f"  ptxas: {line.strip()}")
+    built = builds["sd_fused"]
 
     # ---- 2. per-layer check against the plain version ------------------
     gen = torch.Generator().manual_seed(SEED)
@@ -417,6 +760,9 @@ def main(json_path: str = "") -> int:
         if not ok:
             raise SystemExit(f"chip_smoke: {net} failed")
 
+    # ---- 5. train full-width DCGAN through K1, K2 and K3 ----------------
+    train = _train_phase(dev, tag, randn)
+
     if "jax" in sys.modules or "repro" in sys.modules:
         raise SystemExit("chip_smoke: JAX or the JAX package was imported")
     total = {k: sum(r[k] for r in per_layer)
@@ -428,17 +774,21 @@ def main(json_path: str = "") -> int:
         "name": "sd_fused", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/sd_fused.cu",
         "replaces": "src/repro/kernels/sd_conv.py:352",
-        "launches": launches, "max_abs_err": max_err,
+        "launches": train["k1_launches"], "launches_serve": launches,
+        "max_abs_err": max_err,
         "ms": total["ms"], "plain_ms": total["plain_ms"],
         "bound_ms": total["bound_ms"], "bound_by": bound_by,
-        "library_ms": total["library_ms"]}]
-    report = {"card": card, "kernels": kernels, "per_layer": per_layer,
+        "library_ms": total["library_ms"]}] + train["kernels"]
+    report = {"card": card, "kernels": kernels,
+              "per_layer": per_layer + train["per_layer"],
+              "train": train["train"],
               "serve": {k: stats[k] for k in
                         ("served", "launches", "req_per_s", "wall_s",
                          "latency_ms")},
-              "peak_mib": peak_mib, "nvcc_s": built.seconds,
+              "peak_mib": peak_mib,
+              "nvcc_s": {n: builds[n].seconds for n in SOURCES},
               "batch_host_ms": host_ms, "batch_device": breakdown,
-              "ptxas": built.ptxas}
+              "ptxas": {n: builds[n].ptxas for n in SOURCES}}
     if json_path:
         os.makedirs(os.path.dirname(os.path.abspath(json_path)),
                     exist_ok=True)
@@ -446,8 +796,10 @@ def main(json_path: str = "") -> int:
             json.dump(report, f, indent=1)
     elapsed = time.perf_counter() - t_start
     print(f"total {elapsed:.1f} s host clock (limit {TIME_LIMIT_S} s) {tag}")
-    print("(ms/plain_ms/bound_ms/library_ms below: sum over DCGAN's three "
-          f"deconv layers at batch {BUCKET}) {tag}")
+    print("(below: ms/plain_ms/bound_ms/library_ms summed over DCGAN's "
+          f"three deconv layers at batch {BUCKET}; launches counted in the "
+          f"{GAN_STEPS}-step training run, K1's serving-run count as "
+          f"launches_serve) {tag}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -236,6 +236,25 @@ def depth_to_space(y: torch.Tensor, stride) -> torch.Tensor:
         b, *[n * si for n, si in zip(space, s)], cout)
 
 
+def space_to_depth(x: torch.Tensor, stride) -> torch.Tensor:
+    """Inverse pixel-shuffle: (B, *(s*S), C) -> (B, *S, prod(s)*C),
+    n-major (the adjoint of :func:`depth_to_space`, used by the SD
+    backward)."""
+    rank = x.ndim - 2
+    s = _ntuple(stride, rank)
+    b = x.shape[0]
+    space = x.shape[1:1 + rank]
+    c = x.shape[-1]
+    shape = []
+    for n, si in zip(space, s):
+        shape += [n // si, si]
+    x = x.reshape(b, *shape, c)
+    perm = ([0] + [1 + 2 * i for i in range(rank)]
+            + [2 + 2 * i for i in range(rank)] + [1 + 2 * rank])
+    return x.permute(perm).reshape(
+        b, *[n // si for n, si in zip(space, s)], math.prod(s) * c)
+
+
 def crop_interleaved(ps: torch.Tensor, pk, pads,
                      out_space) -> torch.Tensor:
     """P_K + user-padding crop of the interleaved output; zero-extends
@@ -256,6 +275,18 @@ def conv_valid(xp: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Stride-1 VALID channels-last conv, any rank."""
     rank = w.ndim - 2
     return _from_cf(_CONV[rank](_to_cf(xp), _filter_oi(w)))
+
+
+def conv_valid_filter_grad(xp: torch.Tensor,
+                           dy1: torch.Tensor) -> torch.Tensor:
+    """Gradient of ``y1 = conv_valid(xp, w)`` w.r.t. ``w``, any rank: a
+    VALID stride-1 conv with the batch and channel axes exchanged (``xp``
+    as ``Cin`` maps of ``B`` channels, ``dy1`` as the filter bank).
+    xp: (B, *S, Cin), dy1: (B, *O1, Co) -> (*KT, Cin, Co)."""
+    rank = xp.ndim - 2
+    lhs = xp.movedim(-1, 0).movedim(1, -1)          # (Cin, *S, B)
+    rhs = dy1.movedim(0, rank)                      # (*O1, B, Co)
+    return conv_valid(lhs, rhs).movedim(0, rank)    # (*KT, Cin, Co)
 
 
 def sd_deconv_presplit(x: torch.Tensor, ws: torch.Tensor, kernel,

@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.core.accounting import LayerSpec, NetworkSpec
 from repro_torch.core.deconv import _ntuple, same_deconv_pads
+from repro_torch.device import resolve_device
 from repro_torch.sd import functional as sd_functional
 from repro_torch.sd.plan import DeconvPlan, plan as make_plan, resolve_backend
 
@@ -34,25 +35,32 @@ def fold_scale_ocmajor(ws_ocmajor: torch.Tensor, scale: torch.Tensor,
     return ws_ocmajor * scale.to(ws_ocmajor.dtype).repeat_interleave(phases)
 
 
+def _versions(leaves) -> tuple:
+    return tuple(None if t is None else t._version for t in leaves)
+
+
 class SDEngine:
     """Per-network cache of presplit, BN-folded deconv plans.
 
     ``backend``: ``"fused"`` (the CUDA kernel; its plain version for CPU
     tensors), ``"torch"`` (grouped conv + pixel shuffle), or ``"auto"``
-    (fused on a CUDA ``device``, torch on the CPU)."""
+    (fused on a CUDA ``device``, torch on the CPU).  ``device=None`` is
+    the card, as everywhere in the port (raises without one)."""
 
     def __init__(self, spec: NetworkSpec, backend: str = "auto",
                  device=None):
         self.spec = spec
-        self.device = torch.device(device) if device is not None else None
-        self.backend = resolve_backend(backend, self.device or "cpu")
+        self.device = resolve_device(device)
+        self.backend = resolve_backend(backend, self.device)
         self._plans: Dict[str, DeconvPlan] = {}
         self._bound: Optional[Params] = None
         self._bound_leaves: Optional[tuple] = None
+        self._bound_versions: Optional[tuple] = None
 
     def _plan_leaves(self, params: Params) -> Optional[tuple]:
-        """The tensors the plans depend on, compared by identity in
-        :meth:`bound_to` (held strongly, so ids cannot be reused)."""
+        """The tensors the plans depend on, compared by identity and by
+        ``_version`` in :meth:`bound_to` (held strongly, so ids cannot
+        be reused)."""
         leaves = []
         for layer in self.spec.layers:
             if layer.kind != "deconv":
@@ -96,15 +104,22 @@ class SDEngine:
         self._plans = self.build_plans(params)
         self._bound = params
         self._bound_leaves = self._plan_leaves(params)
+        self._bound_versions = _versions(self._bound_leaves)
         return self
 
     def bound_to(self, params: Params) -> bool:
+        """True when the cached plans were split from exactly these
+        tensors in their current state.  Identity alone is not enough in
+        PyTorch: an optimizer step that updates a filter in place keeps
+        the tensor but bumps its ``_version``, and the plans must then be
+        split again."""
         if self._bound is None or self._bound_leaves is None:
             return False
         leaves = self._plan_leaves(params)
         return (leaves is not None
                 and len(leaves) == len(self._bound_leaves)
-                and all(a is b for a, b in zip(leaves, self._bound_leaves)))
+                and all(a is b for a, b in zip(leaves, self._bound_leaves))
+                and _versions(leaves) == self._bound_versions)
 
     def plans_for_batch(self, batch: int) -> Dict[str, DeconvPlan]:
         """The cached bound plans for a launch at ``batch``.  Tiles are

@@ -1,4 +1,6 @@
-"""Tile plans for the fused split-deconv kernel on Hopper.
+"""Tile plans for the port's kernels on Hopper: the fused split-deconv
+kernel (K1) and the SD backward's stride-1 conv (K2) and filter grad
+(K3).
 
 The JAX package sizes its Pallas tiles against an 8 MiB VMEM model; on
 the H100 the limit is the shared memory one block can use (227 KB) and,
@@ -99,3 +101,105 @@ def heuristic_plan(geom: FusedGeom) -> KernelPlan:
         raise ValueError(f"no tile of {geom} fits {SMEM_BUDGET} bytes of "
                          "shared memory")
     return plan
+
+
+# ---------------------------------------------------------------------------
+# The SD backward's kernels: K2 (stride-1 conv, the input grad) and K3
+# (the filter grad).  Counterparts of the reference's ``tag="dx"`` /
+# ``tag="dw"`` ConvGeom keys; heuristic only, like K1's.
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ConvGeom:
+    """What K2 launches: unpadded input ``h x w x cin``, ``co`` output
+    channels, ``(kth, ktw)`` taps, output window ``out_h x out_w``."""
+    h: int
+    w: int
+    cin: int
+    co: int
+    kth: int
+    ktw: int
+    out_h: int
+    out_w: int
+
+    def as_fused(self) -> FusedGeom:
+        """K2 is K1's block without the interleave: K1's geometry at
+        stride 1 with no residual crop (same staging, same shared
+        memory)."""
+        return FusedGeom(h=self.h, w=self.w, cin=self.cin, nc=self.co,
+                         kth=self.kth, ktw=self.ktw, sh=1, sw=1,
+                         out_h=self.out_h, out_w=self.out_w)
+
+
+def conv_plan(geom: ConvGeom) -> KernelPlan:
+    """K2's tile: K1's heuristic on :meth:`ConvGeom.as_fused` (``tc`` is
+    the output-channel tile, ``th x tw`` the output positions).
+    ``tcin`` is never padded up: DCGAN d3's dx contracts over 12 phase
+    channels in one chunk of 12."""
+    return heuristic_plan(geom.as_fused())
+
+
+DW_TCI = 64                    # K3: input channels per block (fixed)
+DW_MK = 32                     # K3: positions of M staged per step
+DW_TILE_CO = (16, 32, 64)      # K3: output channels per block
+DW_MIN_CHUNK = 4 * DW_MK       # K3: least positions one block reduces
+SMS = 132                      # H100 SXM streaming multiprocessors
+
+
+@dataclass(frozen=True)
+class FilterGradGeom:
+    """What K3 launches: input ``b x h x w x cin`` (unpadded), cotangent
+    ``b x o1h x o1w x nco``, taps ``(kth, ktw)``."""
+    b: int
+    h: int
+    w: int
+    cin: int
+    nco: int
+    kth: int
+    ktw: int
+    o1h: int
+    o1w: int
+
+    @property
+    def m(self) -> int:
+        """Length of the reduction: every position of the cotangent."""
+        return self.b * self.o1h * self.o1w
+
+
+@dataclass(frozen=True)
+class FilterGradPlan:
+    """K3's tile: ``tco`` output channels per block (64 input channels,
+    ``tco/4 * 16`` threads) and ``chunk`` positions of M per block;
+    ``ceil(M / chunk)`` chunks are summed by the reduce pass."""
+    tco: int
+    chunk: int
+
+
+def dw_threads(plan: FilterGradPlan) -> int:
+    return DW_TCI // MICRO * plan.tco // MICRO
+
+
+def dw_splits(geom: FilterGradGeom, plan: FilterGradPlan) -> int:
+    return -(-geom.m // plan.chunk)
+
+
+def filter_grad_plan(geom: FilterGradGeom) -> FilterGradPlan:
+    """Untuned default.  Channel tile: the smallest of
+    :data:`DW_TILE_CO` that holds all output channels, else the largest.
+    Split of the reduction: enough chunks that the blocks hold about 1024
+    threads per SM (so narrow outputs, a few blocks per tap, still fill
+    the card), but no chunk shorter than :data:`DW_MIN_CHUNK`; chunks
+    are whole steps of :data:`DW_MK`.  Shared memory is fixed at
+    ``4 * DW_MK * (DW_TCI + tco)`` bytes (16 KB at most), far inside
+    a block's 227 KB, so unlike the TPU's ``_dw_fit_channels`` nothing
+    needs clamping."""
+    tco = next((t for t in DW_TILE_CO if t >= geom.nco), DW_TILE_CO[-1])
+    plan = FilterGradPlan(tco=tco, chunk=DW_MK)
+    base = (geom.kth * geom.ktw * -(-geom.cin // DW_TCI)
+            * -(-geom.nco // tco))
+    want = -(-SMS * 1024 // (dw_threads(plan) * base))
+    most = max(1, geom.m // DW_MIN_CHUNK)
+    splits = max(1, min(want, most))
+    chunk = -(-geom.m // splits)
+    chunk = -(-chunk // DW_MK) * DW_MK
+    return FilterGradPlan(tco=tco, chunk=chunk)

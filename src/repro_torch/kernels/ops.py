@@ -1,4 +1,4 @@
-"""Deconv-level wrapper around the fused split-deconv kernel.
+"""Deconv-level wrappers around the port's kernels.
 
 :func:`sd_deconv_presplit_fused` turns a transposed-conv geometry
 (kernel, stride, padding, output_padding) into what the kernel is
@@ -8,6 +8,9 @@ reads), the low-side crop ``P_K + pad_lo`` (split inside
 s`` whole conv rows and a residual ``r = crop % s``) and the final
 output shape.  The kernel writes each output element once; no padded or
 uncropped copy exists.
+
+:func:`sd_input_grad_fused` and :func:`sd_filter_grad_fused` are the SD
+backward's two convolutions on K2 and K3 (see :mod:`repro_torch.sd.grad`).
 """
 
 from __future__ import annotations
@@ -19,8 +22,8 @@ import torch
 from repro_torch.core.deconv import (_check_output_padding, _check_padding,
                                      _ntuple, _pads_nd, deconv_output_shape,
                                      sd_geometry)
-from repro_torch.kernels.autotune import KernelPlan
-from repro_torch.kernels.sd_conv import sd_fused
+from repro_torch.kernels.autotune import FilterGradPlan, KernelPlan
+from repro_torch.kernels.sd_conv import sd_conv, sd_filter_grad, sd_fused
 
 
 def sd_deconv_presplit_fused(x: torch.Tensor, ws_ocmajor: torch.Tensor,
@@ -48,3 +51,40 @@ def sd_deconv_presplit_fused(x: torch.Tensor, ws_ocmajor: torch.Tensor,
     return sd_fused(x, ws_ocmajor, s, bias=bias, act=act,
                     pad=((pih, pih), (piw, piw)), crop=crop,
                     out_space=tuple(out_space), plan=plan)
+
+
+# ---------------------------------------------------------------------------
+# Backward convolutions (the SD training path, see repro_torch.sd.grad)
+# ---------------------------------------------------------------------------
+
+sd_conv2d_valid = sd_conv   # the reference's name for K2's entry point
+
+
+def sd_input_grad_fused(dy1: torch.Tensor, ws: torch.Tensor, pi, space,
+                        plan: Optional[KernelPlan] = None) -> torch.Tensor:
+    """Gradient of ``y1 = conv_valid(pad(x, P_I), ws)`` w.r.t. ``x`` on
+    K2: a FULL stride-1 conv of ``dy1`` with the split filters rotated
+    180 degrees and their in/out channels swapped.  The FULL-conv pad
+    ``K_T - 1`` is masked reads and the pad^T crop is the launch's output
+    window, so ``dx`` is written once at its final shape.  The rotation
+    and swap are a copy of the filters here (``K_T^2 * Cin * N*Co``
+    values, small beside the activations), not reversed indexing in the
+    kernel.
+
+    dy1: (B, O1h, O1w, N*Co); ws: (KTh, KTw, Cin, N*Co) split filters;
+    returns dx: (B, *space, Cin)."""
+    kth, ktw = ws.shape[0], ws.shape[1]
+    w_t = ws.flip(0, 1).transpose(-1, -2).contiguous()
+    return sd_conv(dy1, w_t, pad=((kth - 1, kth - 1), (ktw - 1, ktw - 1)),
+                   out_start=tuple(pi), out_size=tuple(space), plan=plan)
+
+
+def sd_filter_grad_fused(x: torch.Tensor, dy1: torch.Tensor, kt, pi,
+                         plan: Optional[FilterGradPlan] = None
+                         ) -> torch.Tensor:
+    """Gradient of ``y1 = conv_valid(pad(x, P_I), ws)`` w.r.t. ``ws`` on
+    K3, the ``P_I`` pad applied in the kernel (no padded copy of ``x``).
+    x: (B, H, W, Cin) unpadded; dy1: (B, O1h, O1w, N*Co); returns dws:
+    (KTh, KTw, Cin, N*Co)."""
+    return sd_filter_grad(x, dy1, tuple(kt),
+                          pad=tuple((p, p) for p in pi), plan=plan)

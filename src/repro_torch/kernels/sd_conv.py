@@ -1,6 +1,6 @@
-"""The fused split-deconv kernel (K1) and its plain PyTorch version.
+"""The port's split-deconv kernels and their plain PyTorch versions.
 
-:func:`sd_fused` has the contract of the TPU kernel ``sd_fused_pallas``
+K1, :func:`sd_fused`, has the contract of the TPU kernel ``sd_fused_pallas``
 (``src/repro/kernels/sd_conv.py``): split stride-1 conv over the
 logically ``P_I``-zero-padded input, ``sh x sw`` pixel-shuffle of the
 oc-major phase channels, per-oc bias, linear/relu/tanh and the low-side
@@ -8,6 +8,14 @@ crop, written once in final output geometry.  On a CUDA tensor it
 launches the CUDA kernel ``csrc/sd_fused.cu`` (built at first use) or
 raises; on a CPU tensor it runs :func:`sd_fused_ref`, the same function
 in plain PyTorch.  ``SD_FUSED_LAUNCHES`` counts kernel launches.
+
+The SD backward's two kernels follow the same rule (a CUDA tensor
+launches the kernel or raises; a CPU tensor runs the plain version):
+K2, :func:`sd_conv` (``csrc/sd_conv.cu``, contract of ``sd_conv_pallas``:
+a stride-1 VALID conv with in-kernel pad and an output window), and K3,
+:func:`sd_filter_grad` (``csrc/sd_filter_grad.cu``, contract of
+``sd_filter_grad_pallas``).  Their counters are ``SD_CONV_LAUNCHES`` and
+``SD_FILTER_GRAD_LAUNCHES``.  Both take f32 only so far.
 """
 
 from __future__ import annotations
@@ -19,8 +27,12 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.deconv import conv_valid, crop_interleaved
-from repro_torch.kernels.autotune import (FusedGeom, KernelPlan,
+from repro_torch.core.deconv import (conv_valid, conv_valid_filter_grad,
+                                     crop_interleaved)
+from repro_torch.kernels.autotune import (DW_TCI, ConvGeom, FilterGradGeom,
+                                          FilterGradPlan, FusedGeom,
+                                          KernelPlan, conv_plan,
+                                          dw_splits, filter_grad_plan,
                                           heuristic_plan, smem_bytes,
                                           SMEM_BUDGET)
 
@@ -29,6 +41,8 @@ ACTS = {"linear": 0, "relu": 1, "tanh": 2}
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 SD_FUSED_LAUNCHES = 0      # kernel launches; the plain version never counts
+SD_CONV_LAUNCHES = 0
+SD_FILTER_GRAD_LAUNCHES = 0
 
 
 def _pair(s) -> Tuple[int, int]:
@@ -197,3 +211,182 @@ def sd_fused(x: torch.Tensor, ws_ocmajor: torch.Tensor, s, *,
         raise RuntimeError(f"sd_fused kernel launch failed: CUDA error {err}")
     SD_FUSED_LAUNCHES += 1
     return y
+
+
+# ---------------------------------------------------------------------------
+# K2: stride-1 VALID conv with in-kernel pad and an output window
+# ---------------------------------------------------------------------------
+
+def _conv_window(x_shape, w_shape, pad, out_start, out_size):
+    """Size of the output window ``(out_start, out_size)`` (default: the
+    whole conv output over the padded input), checked to lie inside the
+    conv output."""
+    (plo_h, phi_h), (plo_w, phi_w) = pad
+    full = (x_shape[1] + plo_h + phi_h - w_shape[0] + 1,
+            x_shape[2] + plo_w + phi_w - w_shape[1] + 1)
+    size = tuple(out_size) if out_size is not None else full
+    if min(pad[0] + pad[1]) < 0 or any(
+            o < 0 or o + n > f for o, n, f in zip(out_start, size, full)):
+        raise ValueError(f"output window {tuple(out_start)}+{size} is not "
+                         f"inside the conv output {full} (pad {pad})")
+    return size
+
+
+def sd_conv_ref(x: torch.Tensor, w: torch.Tensor,
+                pad: Tuple[PadPair, PadPair] = ((0, 0), (0, 0)),
+                out_start: Tuple[int, int] = (0, 0),
+                out_size: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`sd_conv`: ``F.pad``, ``F.conv2d``
+    in f32, the window slice, cast to ``x.dtype``."""
+    oh, ow = _conv_window(x.shape, w.shape, pad, out_start, out_size)
+    (plo_h, phi_h), (plo_w, phi_w) = pad
+    xp = F.pad(x.float(), (0, 0, plo_w, phi_w, plo_h, phi_h))
+    y = conv_valid(xp, w.float())
+    (sh, sw) = out_start
+    return y[:, sh:sh + oh, sw:sw + ow].to(x.dtype)
+
+
+def _check_f32(name: str, *ts: torch.Tensor) -> None:
+    for t in ts:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} kernel takes float32, got {t.dtype} "
+                            "(the int8 pair comes with the int8 slice)")
+        if t.device != ts[0].device:
+            raise ValueError(f"{name} operands must share one device")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} operands must be contiguous")
+
+
+def sd_conv(x: torch.Tensor, w: torch.Tensor, *,
+            pad: Tuple[PadPair, PadPair] = ((0, 0), (0, 0)),
+            out_start: Tuple[int, int] = (0, 0),
+            out_size: Optional[Tuple[int, int]] = None,
+            plan: Optional[KernelPlan] = None) -> torch.Tensor:
+    """Stride-1 VALID conv over the logically zero-padded input (K2).
+
+    x: (B, H, W, Cin) unpadded; ``pad`` is applied in the kernel by
+    masked reads.  w: (KTh, KTw, Cin, Co), rectangular allowed.
+    ``out_start``/``out_size`` select a window of the conv output (in
+    padded-input coordinates; default the whole output), so a crop
+    after the conv folds into the launch.  Returns (B, *out_size, Co).
+    ``plan``: the tile (``tc`` = output channels per block); default
+    :func:`~repro_torch.kernels.autotune.conv_plan`.
+    """
+    global SD_CONV_LAUNCHES
+    if x.ndim != 4 or w.ndim != 4 or w.shape[2] != x.shape[3]:
+        raise ValueError(f"shapes x {tuple(x.shape)}, w {tuple(w.shape)} "
+                         "are not (B,H,W,Cin), (KTh,KTw,Cin,Co)")
+    oh, ow = _conv_window(x.shape, w.shape, pad, out_start, out_size)
+    if x.device.type == "cpu":
+        return sd_conv_ref(x, w, pad, out_start, (oh, ow))
+    if x.device.type != "cuda":
+        raise ValueError(f"sd_conv runs on cuda or cpu, not {x.device}")
+    _check_f32("sd_conv", x, w)
+    b, h, wd, cin = x.shape
+    kth, ktw, _, co = w.shape
+    geom = ConvGeom(h=h, w=wd, cin=cin, co=co, kth=kth, ktw=ktw, out_h=oh,
+                    out_w=ow)
+    plan = plan if plan is not None else conv_plan(geom)
+    smem = smem_bytes(geom.as_fused(), plan)
+    if smem > SMEM_BUDGET:
+        raise ValueError(f"tile {plan} needs {smem} bytes of shared memory; "
+                         f"a block has {SMEM_BUDGET}")
+    y = torch.empty((b, oh, ow, co), dtype=x.dtype, device=x.device)
+    if y.numel() == 0:
+        return y
+    tiles = -(-oh // plan.th) * -(-ow // plan.tw)
+    if tiles > 65535 or b > 65535:
+        raise ValueError(f"{tiles} spatial tiles x batch {b} exceed the "
+                         "grid's limits; use a larger tile")
+    from repro_torch.kernels.build import load
+    fn = load("sd_conv").fn
+    (plo_h, _), (plo_w, _) = pad
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), b, h, wd, cin,
+                 co, kth, ktw, plo_h, plo_w, out_start[0], out_start[1],
+                 oh, ow, plan.th, plan.tw, plan.tcin, plan.tc,
+                 ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"sd_conv kernel launch failed: CUDA error {err}")
+    SD_CONV_LAUNCHES += 1
+    return y
+
+
+# ---------------------------------------------------------------------------
+# K3: the filter gradient, P_I pad in the kernel, deterministic split-M
+# ---------------------------------------------------------------------------
+
+def _filter_grad_geom(x_shape, dy_shape, kt, pad) -> FilterGradGeom:
+    b, h, wd, cin = x_shape
+    (plo_h, phi_h), (plo_w, phi_w) = pad
+    o1h, o1w = h + plo_h + phi_h - kt[0] + 1, wd + plo_w + phi_w - kt[1] + 1
+    if (len(dy_shape) != 4 or tuple(dy_shape[:3]) != (b, o1h, o1w)
+            or min(pad[0] + pad[1]) < 0):
+        raise ValueError(f"dy1 {tuple(dy_shape)} does not match x "
+                         f"{tuple(x_shape)} padded by {pad} under {kt} taps "
+                         f"(expected (B, {o1h}, {o1w}, NCo))")
+    return FilterGradGeom(b=b, h=h, w=wd, cin=cin, nco=dy_shape[3],
+                          kth=kt[0], ktw=kt[1], o1h=o1h, o1w=o1w)
+
+
+def sd_filter_grad_ref(x: torch.Tensor, dy1: torch.Tensor, kt,
+                       pad: Tuple[PadPair, PadPair] = ((0, 0), (0, 0))
+                       ) -> torch.Tensor:
+    """Plain PyTorch version of :func:`sd_filter_grad`: ``F.pad`` and the
+    batch/channel-exchanged VALID conv, in f32, cast to ``dy1.dtype``."""
+    _filter_grad_geom(x.shape, dy1.shape, _pair(kt), pad)
+    (plo_h, phi_h), (plo_w, phi_w) = pad
+    xp = F.pad(x.float(), (0, 0, plo_w, phi_w, plo_h, phi_h))
+    return conv_valid_filter_grad(xp, dy1.float()).to(dy1.dtype)
+
+
+def sd_filter_grad(x: torch.Tensor, dy1: torch.Tensor, kt, *,
+                   pad: Tuple[PadPair, PadPair] = ((0, 0), (0, 0)),
+                   plan: Optional[FilterGradPlan] = None) -> torch.Tensor:
+    """Gradient of ``y1 = conv_valid(pad(x), ws)`` w.r.t. ``ws`` (K3).
+
+    x: (B, H, W, Cin) *unpadded* (``pad`` is applied in the kernel);
+    dy1: (B, O1h, O1w, NCo) with ``O1 = H + pad - KT + 1`` per dim; kt:
+    ``(KTh, KTw)``.  Returns dws: (KTh, KTw, Cin, NCo).  ``plan``: the
+    channel tile and reduction chunk; default
+    :func:`~repro_torch.kernels.autotune.filter_grad_plan`.
+    """
+    global SD_FILTER_GRAD_LAUNCHES
+    kt = _pair(kt)
+    geom = _filter_grad_geom(x.shape, dy1.shape, kt, pad)
+    if x.device.type == "cpu":
+        return sd_filter_grad_ref(x, dy1, kt, pad)
+    if x.device.type != "cuda":
+        raise ValueError(f"sd_filter_grad runs on cuda or cpu, not "
+                         f"{x.device}")
+    _check_f32("sd_filter_grad", x, dy1)
+    plan = plan if plan is not None else filter_grad_plan(geom)
+    out = torch.empty((*kt, geom.cin, geom.nco), dtype=torch.float32,
+                      device=x.device)
+    if out.numel() == 0:
+        return out
+    if geom.m == 0:
+        return out.zero_()
+    splits = dw_splits(geom, plan)
+    nci = -(-geom.cin // DW_TCI)
+    if splits > 65535 or kt[0] * kt[1] * nci > 65535:
+        raise ValueError(f"{splits} chunks or {kt[0] * kt[1] * nci} "
+                         "tap tiles exceed the grid's limits")
+    part = (torch.empty((splits, *out.shape), dtype=torch.float32,
+                        device=x.device) if splits > 1 else None)
+    from repro_torch.kernels.build import load
+    fn = load("sd_filter_grad").fn
+    (plo_h, _), (plo_w, _) = pad
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), dy1.data_ptr(),
+                 None if part is None else part.data_ptr(), out.data_ptr(),
+                 geom.b, geom.h, geom.w, geom.cin, geom.nco, kt[0], kt[1],
+                 plo_h, plo_w, geom.o1h, geom.o1w, plan.tco, plan.chunk,
+                 ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"sd_filter_grad kernel launch failed: CUDA "
+                           f"error {err}")
+    SD_FILTER_GRAD_LAUNCHES += 1
+    return out

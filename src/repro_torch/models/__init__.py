@@ -1,5 +1,6 @@
 """Generative networks of the paper, in PyTorch."""
 
-from repro_torch.models.generative import IMPLS, GenerativeModel, build
+from repro_torch.models.generative import (IMPLS, DCGANDiscriminator,
+                                          GenerativeModel, build)
 
-__all__ = ["IMPLS", "GenerativeModel", "build"]
+__all__ = ["IMPLS", "DCGANDiscriminator", "GenerativeModel", "build"]

@@ -8,7 +8,11 @@ implementation is chosen by name from :data:`IMPLS`:
 * ``sd_kernel`` — the presplit-once engine (:class:`SDEngine`): filters
   are split and BN-folded once at bind, and every forward runs the
   fused kernel (or the grouped-conv ``torch`` backend) with bias and
-  activation in the epilogue.
+  activation in the epilogue.  When autograd is recording and a deconv
+  filter requires grad, each deconv instead runs the differentiable
+  :func:`repro_torch.sd.conv_transpose` on the engine's backend (on
+  ``fused``: K1 forward, K2 + K3 backward), with scale and bias applied
+  outside, as the reference does for traced params.
 
 Parameters stay a plain dict in the reference's layout (fc ``(in, out)``,
 filters ``(*K, Cin, Cout)``, per-channel ``scale``/``b``), so weights
@@ -18,7 +22,7 @@ carry across from the JAX package unchanged (:mod:`repro_torch.convert`).
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 from torch import nn
@@ -28,7 +32,7 @@ from repro_torch.core.deconv import (conv_nd, native_deconv,
                                      same_deconv_pads, sd_deconv)
 from repro_torch.device import resolve_device
 from repro_torch.engine.planner import SDEngine
-from repro_torch.sd import DeconvPlan, execute
+from repro_torch.sd import DeconvPlan, conv_transpose, execute
 
 Params = Dict[str, Any]
 
@@ -59,6 +63,7 @@ class GenerativeModel(nn.Module):
         self._engine = (SDEngine(spec, backend=engine_backend,
                                  device=self.device)
                         if self._deconv is None else None)
+        self._fplans: Dict[str, DeconvPlan] = {}   # differentiable path
 
     # ---- params ----------------------------------------------------------
     def init(self, generator: torch.Generator,
@@ -117,8 +122,28 @@ class GenerativeModel(nn.Module):
                 h = torch.relu(h)
         return torch.tanh(h) if self.final_tanh else h
 
+    def _functional_plan(self, layer) -> DeconvPlan:
+        """Geometry-only plan of one deconv for the differentiable path
+        (cached: it holds no tensors).  Linear: scale, bias and the
+        activation are applied outside, where autograd sees them."""
+        if layer.name not in self._fplans:
+            self._fplans[layer.name] = self._engine.layer_plan(layer,
+                                                               "linear")
+        return self._fplans[layer.name]
+
+    def _differentiable(self, params: Params) -> bool:
+        """Autograd is recording and some deconv filter requires grad:
+        the bound engine's pre-split filters would cut the graph."""
+        return torch.is_grad_enabled() and any(
+            params[l.name]["w"].requires_grad
+            for l in self.spec.deconv_layers())
+
     def apply(self, params: Params, x: torch.Tensor) -> torch.Tensor:
-        if self._engine is not None:
+        if self._engine is not None and self._differentiable(params):
+            def step(layer, p, h):
+                h = conv_transpose(self._functional_plan(layer), h, p["w"])
+                return h * p["scale"] + p["b"], False
+        elif self._engine is not None:
             if not self._engine.bound_to(params):
                 self._engine.bind(params)        # foreign params: rebind
 
@@ -167,3 +192,56 @@ def build(name: str, deconv_impl: str = "sd", engine_backend: str = "auto",
                          f"{sorted(BENCHMARKS)}")
     return GenerativeModel(BENCHMARKS[name](), deconv_impl=deconv_impl,
                            engine_backend=engine_backend, device=device)
+
+
+class DCGANDiscriminator:
+    """The DCGAN discriminator the GAN trainer pits against the
+    generator: 4x4 stride-2 convs with TF ``SAME`` pads, LeakyReLU 0.2,
+    and a logit head.  Params in the reference's layout: ``c{i}``
+    ``{"w": (4, 4, cin, cout), "b": (cout,)}`` and ``head`` ``{"w":
+    (feat, 1), "b": (1,)}``."""
+
+    CHANNELS = (3, 64, 128, 256)
+
+    def __init__(self, img_hw=(64, 64), channels=CHANNELS, device=None):
+        self.img_hw = tuple(img_hw)
+        self.channels = tuple(channels)
+        self.device = resolve_device(device)
+
+    def init(self, generator: torch.Generator) -> Params:
+        """Random f32 params from ``generator`` (a CPU generator), moved
+        to the discriminator's device."""
+        params: Params = {}
+        for i, (cin, cout) in enumerate(zip(self.channels[:-1],
+                                            self.channels[1:])):
+            w = torch.randn((4, 4, cin, cout), generator=generator)
+            params[f"c{i}"] = {"w": w / math.sqrt(16 * cin),
+                               "b": torch.zeros(cout)}
+        down = 2 ** (len(self.channels) - 1)
+        feat = (self.channels[-1] * (self.img_hw[0] // down)
+                * (self.img_hw[1] // down))
+        params["head"] = {
+            "w": torch.randn((feat, 1), generator=generator)
+            / math.sqrt(feat),
+            "b": torch.zeros(1)}
+        return {k: {n: t.to(self.device) for n, t in v.items()}
+                for k, v in params.items()}
+
+    def pre_activations(self, params: Params, x: torch.Tensor
+                        ) -> List[torch.Tensor]:
+        """Each conv's output before its LeakyReLU, for NHWC images
+        ``x``."""
+        out, h = [], x
+        for i in range(len(self.channels) - 1):
+            if out:
+                h = torch.nn.functional.leaky_relu(out[-1], 0.2)
+            p = params[f"c{i}"]
+            out.append(conv_nd(h, p["w"], 2, "SAME") + p["b"])
+        return out
+
+    def apply(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        """Logits (B, 1) for NHWC images ``x``."""
+        h = torch.nn.functional.leaky_relu(
+            self.pre_activations(params, x)[-1], 0.2)
+        h = h.reshape(h.shape[0], -1)
+        return h @ params["head"]["w"] + params["head"]["b"]

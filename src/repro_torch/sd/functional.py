@@ -1,6 +1,10 @@
-"""The presplit-once deployment entry point, forward only.
+"""Split-deconvolution entry points: the differentiable transposed conv
+and the presplit-once deployment path.
 
-:func:`execute` runs a *bound* plan: pre-split (scale-folded) filters,
+:func:`conv_transpose` is the training form: a geometry-only plan plus
+the raw filter, split on every call, differentiable in ``x``, ``w`` and
+``b`` through :mod:`repro_torch.sd.grad` (on a ``fused`` plan the
+forward is K1 and the backward K2 + K3).  :func:`execute` runs a *bound* plan: pre-split (scale-folded) filters,
 bias and activation in the epilogue, no splitting on the hot path.  The
 ``"fused"`` backend is one launch of the fused CUDA kernel (or its plain
 version for a CPU tensor); ``"torch"`` is the grouped stride-1 conv +
@@ -13,8 +17,9 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.deconv import sd_deconv_presplit
+from repro_torch.core.deconv import sd_deconv_presplit, split_filters
 from repro_torch.kernels.sd_conv import _apply_act
+from repro_torch.sd.grad import conv_transpose_vjp
 from repro_torch.sd.plan import DeconvPlan, to_ocmajor
 
 
@@ -44,3 +49,44 @@ def execute(plan: DeconvPlan, x: torch.Tensor) -> torch.Tensor:
         raise ValueError("execute() needs a bound plan; call "
                          "plan.bind(w, scale, bias) once offline")
     return _run_presplit(plan, x, plan.ws, plan.layout, plan.bias, plan.act)
+
+
+class _ConvTranspose(torch.autograd.Function):
+    """Forward: split ``w``, run the plan's backend with no epilogue, add
+    ``b``.  Backward: :func:`conv_transpose_vjp`; ``db`` is reduced in
+    f32 over the batch and every spatial axis."""
+
+    @staticmethod
+    def forward(ctx, plan, x, w, b):
+        ctx.plan = plan
+        ctx.save_for_backward(x, w, b)
+        ws = split_filters(w, plan.stride)
+        y = _run_presplit(plan, x, ws, "nmajor", None, "linear")
+        return y if b is None else y + b.to(y.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, b = ctx.saved_tensors
+        dx, dw = conv_transpose_vjp(ctx.plan, x, w, dy)
+        db = (dy.float().sum(dim=tuple(range(dy.ndim - 1))).to(b.dtype)
+              if b is not None else None)
+        return None, dx, dw, db
+
+
+def conv_transpose(plan: DeconvPlan, x: torch.Tensor, w: torch.Tensor,
+                   b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Transposed convolution of ``x`` with the raw filter ``w`` (``(*K,
+    Cin, Cout)``) through the split layout, differentiable in ``x``, ``w``
+    and ``b``.  ``plan`` must be geometry-only; no activation is applied
+    (compose it outside)."""
+    if plan.bound:
+        raise ValueError("conv_transpose takes a geometry-only plan plus "
+                         "the raw filter; use execute(plan, x) for bound "
+                         "plans")
+    return _ConvTranspose.apply(plan, x, w, b)
+
+
+def split_weights(plan: DeconvPlan, w: torch.Tensor) -> torch.Tensor:
+    """The offline filter transform for ``plan`` (n-major layout);
+    differentiable (a pad and a permutation)."""
+    return split_filters(w, plan.stride)

@@ -9,7 +9,8 @@ scale folded in) and ``bias`` as plain tensor attributes.
 Backends: ``"torch"`` runs the grouped stride-1 conv + pixel shuffle in
 plain PyTorch (the twin of the reference's ``"xla"``) from n-major
 filters; ``"fused"`` runs the fused CUDA kernel from oc-major filters.
-``"auto"`` means fused for a CUDA device and torch for the CPU.
+``"auto"`` means fused for a CUDA device and torch for the CPU; with no
+device named it means the card (and raises without one).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 from repro_torch.core.deconv import (_check_output_padding, _check_padding,
                                      _ntuple, _pads_nd, deconv_output_shape,
                                      sd_geometry, split_filters)
+from repro_torch.device import resolve_device
 from repro_torch.kernels.autotune import KernelPlan
 
 BACKENDS = ("fused", "torch")
@@ -30,9 +32,11 @@ BACKENDS = ("fused", "torch")
 
 def resolve_backend(backend: str, device=None) -> str:
     """``"auto"`` -> ``"fused"`` on a CUDA device, ``"torch"`` on the
-    CPU; explicit backends are validated."""
+    CPU; no ``device`` means the card (:func:`resolve_device`, which
+    raises without one).  Explicit backends are validated."""
     if backend == "auto":
-        return "fused" if torch.device(device).type == "cuda" else "torch"
+        dev = resolve_device(None) if device is None else torch.device(device)
+        return "fused" if dev.type == "cuda" else "torch"
     if backend not in BACKENDS:
         raise ValueError(f"unknown SD backend {backend!r}; "
                          f"choose from {('auto',) + BACKENDS}")
@@ -134,8 +138,8 @@ def plan(filter_shape: Sequence[int], stride, padding=0,
     """Compute the split layout for a deconv filter shape ``(*K, C_in,
     C_out)`` (its length sets the rank).  Padding and output_padding are
     validated exactly like :mod:`repro_torch.core.deconv`.  ``backend=
-    "auto"`` resolves against ``device`` (default: the CPU unless a card
-    is named).  Only float plans exist in this port so far."""
+    "auto"`` resolves against ``device`` (default: the card, raising
+    without one).  Only float plans exist in this port so far."""
     if dtype == "int8":
         raise NotImplementedError(
             "int8 plans come with the port's int8 slice (K1's quant "
@@ -152,8 +156,7 @@ def plan(filter_shape: Sequence[int], stride, padding=0,
     op = _ntuple(output_padding, rank)
     _check_padding(k, padding)
     _check_output_padding(op, st)
-    resolved = resolve_backend(backend, device if device is not None
-                               else "cpu")
+    resolved = resolve_backend(backend, device)
     if resolved == "fused" and rank != 2:
         raise NotImplementedError(
             f"the fused backend covers rank 2 so far; rank {rank} comes "

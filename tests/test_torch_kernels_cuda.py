@@ -1,4 +1,4 @@
-"""The fused split-deconv CUDA kernel against its plain version, on the card.
+"""The port's CUDA kernels K1, K2 and K3 against their plain versions.
 
 Marked ``cuda``: each test decides inside itself whether a card is
 present and skips, with the reason, where there is none.  On a machine
@@ -112,3 +112,95 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
         K.sd_fused(x, ws.bfloat16(), 2)
     with pytest.raises(ValueError, match="contiguous"):
         K.sd_fused(x.transpose(1, 2), ws, 2)
+
+
+# ---------------------------------------------------------------------------
+# K2 (stride-1 conv, the SD backward's input grad) and K3 (filter grad)
+# ---------------------------------------------------------------------------
+
+def _backward_case(layer, dev, batch=2, seed=0):
+    """x, split filters and the split cotangent dy1 of one paper layer."""
+    from repro_torch.sd.grad import split_cotangent
+    g = torch.Generator().manual_seed(seed)
+    p = sd.plan((layer.k, layer.k, layer.cin, layer.cout), layer.s,
+                same_deconv_pads(layer.k, layer.s), backend="fused",
+                device=dev)
+    x = torch.randn(batch, *layer.in_hw, layer.cin, generator=g)
+    w = torch.randn(layer.k, layer.k, layer.cin, layer.cout, generator=g)
+    w /= (layer.k * layer.k * layer.cin) ** 0.5
+    dy = torch.randn(batch, *p.out_shape(layer.in_hw), layer.cout,
+                     generator=g)
+    dy1 = split_cotangent(p, dy.to(dev))
+    return x.to(dev), sd.split_weights(p, w.to(dev)), dy1, p
+
+
+def _k2_pair(dy1, ws, p, space, plan=None):
+    kt, pi = p.kt, p.pi
+    w_t = ws.flip(0, 1).transpose(-1, -2).contiguous()
+    geo = dict(pad=tuple((k - 1, k - 1) for k in kt), out_start=pi,
+               out_size=tuple(space))
+    before = K.SD_CONV_LAUNCHES
+    out = K.sd_conv(dy1, w_t, plan=plan, **geo)
+    assert K.SD_CONV_LAUNCHES == before + 1
+    ref = K.sd_conv_ref(dy1, w_t, **geo)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape
+    return out, ref
+
+
+def _k3_pair(x, dy1, p, plan=None):
+    geo = dict(pad=tuple((q, q) for q in p.pi))
+    before = K.SD_FILTER_GRAD_LAUNCHES
+    out = K.sd_filter_grad(x, dy1, p.kt, plan=plan, **geo)
+    assert K.SD_FILTER_GRAD_LAUNCHES == before + 1
+    ref = K.sd_filter_grad_ref(x, dy1, p.kt, **geo)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape
+    return out, ref
+
+
+def _gate(out, ref):
+    tol = 1e-4 * max(1.0, ref.abs().max().item())
+    assert (out - ref).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("net,layer", PAPER_LAYERS[:3] + PAPER_LAYERS[-2:],
+                         ids=[f"{n}/{l.name}" for n, l in
+                              PAPER_LAYERS[:3] + PAPER_LAYERS[-2:]])
+def test_backward_kernels_on_paper_layers(dev, net, layer):
+    x, ws, dy1, p = _backward_case(layer, dev)
+    _gate(*_k2_pair(dy1, ws, p, layer.in_hw))
+    _gate(*_k3_pair(x, dy1, p))
+
+
+def test_backward_kernels_ragged_tiles(dev):
+    from repro_torch.kernels.autotune import FilterGradPlan
+    from repro_torch.core.accounting import LayerSpec
+    layer = LayerSpec("deconv", 70, 5, k=5, s=2, in_hw=(13, 11), name="odd")
+    x, ws, dy1, p = _backward_case(layer, dev, batch=3, seed=4)
+    _gate(*_k2_pair(dy1, ws, p, layer.in_hw,
+                    KernelPlan(th=3, tw=5, tcin=7, tc=16)))
+    for plan in (FilterGradPlan(tco=16, chunk=32),     # many chunks
+                 FilterGradPlan(tco=32, chunk=10 ** 6)):   # one chunk
+        _gate(*_k3_pair(x, dy1, p, plan))
+    # K3 is deterministic: two runs agree bit for bit.
+    a, _ = _k3_pair(x, dy1, p)
+    b, _ = _k3_pair(x, dy1, p)
+    assert torch.equal(a, b)
+
+
+def test_training_step_runs_the_three_kernels(dev):
+    from repro_torch.launch import train_gen
+    from repro_torch.optim import adamw_init
+    gen, disc = train_gen.make_gan(True, "sd_kernel", dev)
+    gp = train_gen.trainable(gen.init(torch.Generator().manual_seed(0)))
+    dp = train_gen.trainable(disc.init(torch.Generator().manual_seed(1)))
+    g_opt = adamw_init(gp)
+    z = torch.randn(4, 32, generator=torch.Generator().manual_seed(2))
+    counts = (K.SD_FUSED_LAUNCHES, K.SD_CONV_LAUNCHES,
+              K.SD_FILTER_GRAD_LAUNCHES)
+    loss = train_gen.g_step(gen, disc, gp, dp, g_opt, z.to(dev))
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss)
+    assert (K.SD_FUSED_LAUNCHES - counts[0], K.SD_CONV_LAUNCHES - counts[1],
+            K.SD_FILTER_GRAD_LAUNCHES - counts[2]) == (2, 2, 2)

@@ -1,8 +1,8 @@
 """The port stands alone: no JAX, no JAX package.
 
 A fresh interpreter with ``jax`` and ``repro`` made unimportable imports
-``repro_torch``, serves the CPU dryrun and imports ``chip_smoke`` (without
-running it); and without CUDA the port's default device raises instead
+``repro_torch``, serves the CPU dryrun, takes two small GAN training
+steps on the CPU and imports ``chip_smoke`` (without running it); and without CUDA the port's default device raises instead
 of falling back to the CPU.
 """
 
@@ -24,6 +24,10 @@ import repro_torch
 from repro_torch.launch import serve_gen
 results, stats = serve_gen.main(["--dryrun", "--device", "cpu"])
 assert stats["served"] == 4, stats
+from repro_torch.launch import train_gen
+d_hist, g_hist = train_gen.main(["--steps", "2", "--small", "--device",
+                                 "cpu", "--deconv-impl", "sd_kernel"])
+assert len(g_hist) == 2, g_hist
 sys.path.insert(0, {repo!r})
 import chip_smoke
 assert callable(chip_smoke.main)
