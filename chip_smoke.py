@@ -2,12 +2,12 @@
 
 Drives ``repro_torch`` only (never JAX, never the JAX package ``repro``):
 
-1. builds the port's three kernels with nvcc for sm_90a, one nvcc per
+1. builds the port's four kernels with nvcc for sm_90a, one nvcc per
    source, all at once (``src/repro_torch/kernels/csrc/``: K1
    ``sd_fused.cu``, the fused split deconv; K2 ``sd_conv.cu``, the
    stride-1 conv of the SD backward's input grad; K3
-   ``sd_filter_grad.cu``, its filter grad) and prints their registers and
-   shared memory;
+   ``sd_filter_grad.cu``, its filter grad; K4 ``sd_wino.cu``, the
+   Winograd split deconv) and prints their registers and shared memory;
 2. holds K1 against its plain PyTorch version ``sd_fused_ref`` on the 22
    deconv layers of the paper's six networks (batch 4, f32, TF32 off,
    ``max|d| <= 1e-4 * max(1, max|y_ref|)``), on an ``output_padding >
@@ -32,7 +32,21 @@ Drives ``repro_torch`` only (never JAX, never the JAX package ``repro``):
    the generator on the fused backend, and checks K1/K2/K3 launches of
    3/3/3 per generator step and 3/0/0 per discriminator step, finite
    losses, the first generator step's grads against the ``torch``
-   backend (``1e-4`` relative), and the trained generator's output.
+   backend (``1e-4`` relative), and the trained generator's output;
+6. winograd: holds K4 against its plain version ``sd_wino_ref`` on the 22
+   paper layers (batch 4, f32, the K1 gates) and on the reference's odd
+   geometries (k5/s3, k6/s3, k7/s4, k5/s4, k2/s2, ``op > pad_hi``,
+   asymmetric pads, forced ragged tiles), then on DCGAN's layers in
+   bf16, and against K1 on the same split filters at the reference's
+   ``tolerance(K_T) * max(1, max|y_K1|)``; times K4, its plain version,
+   K1 and ``F.conv_transpose2d`` per DCGAN layer at batch 16; serves 48
+   full-width DCGAN requests through ``GenServer(backend="winograd")``
+   and checks 3 K4 and 0 K1 launches per batch, finite outputs, and, on
+   the same weights, the winograd model on the CPU (``sd_wino_ref``, the
+   K1 f32 gate), the ``torch`` backend and the fused server's model
+   within ``tolerance((3, 3)) * max|ref|``.  K4's ``bound_ms`` counts the
+   work its algorithm needs (transform-domain products and transforms);
+   ``useful_bound_ms`` beside it is the direct deconv's, K1's bound.
 
 Every printed number carries the card's name and power limit.  The line
 before the last is ``{"kernels": [...]}``; the last is ``{"ok": true,
@@ -61,7 +75,7 @@ SERVE_REQUESTS = 48
 BUCKET = 16
 SEED = 0
 GAN_STEPS = 6
-SOURCES = ("sd_fused", "sd_conv", "sd_filter_grad")
+SOURCES = ("sd_fused", "sd_conv", "sd_filter_grad", "sd_wino")
 
 
 def _card_line() -> str:
@@ -466,6 +480,317 @@ def _train_phase(dev, tag: str, randn) -> dict:
                       "device": breakdown}}
 
 
+def _wino_phase(dev, tag, randn) -> dict:
+    """Phase 6: K4 against its plain version and against K1 on every
+    paper layer and the odd geometries, f32 and bf16; K4, plain, K1 and
+    cuDNN timed per DCGAN layer at batch 16; then full-width DCGAN served
+    through ``GenServer(backend="winograd")``.  Returns K4's record, the
+    per-layer times and the serving report."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    import repro_torch.kernels.sd_conv as K
+    from repro_torch import sd
+    from repro_torch.core.accounting import BENCHMARKS
+    from repro_torch.core.deconv import same_deconv_pads
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import winograd as W
+    from repro_torch.kernels.autotune import KernelPlan
+    from repro_torch.launch.serve_gen import GenServer, serve_async
+    from repro_torch.models.generative import GenerativeModel
+
+    def plans(wshape, s, pad, act, op=0, tile=None, dtype=torch.float32,
+              scale_on=True):
+        w = randn(*wshape, scale=1.0 / (wshape[0] * wshape[1]
+                                        * wshape[2]) ** 0.5)
+        scale = randn(wshape[-1], scale=0.1) + 1.0 if scale_on else None
+        bias = randn(wshape[-1], scale=0.1)
+        args = (w.to(dtype), None if scale is None else scale.to(dtype),
+                bias)
+        pw = sd.plan(w.shape, s, pad, backend="winograd", act=act,
+                     output_padding=op, tile=tile).bind(*args)
+        pf = sd.plan(w.shape, s, pad, backend="fused", act=act,
+                     output_padding=op).bind(*args)
+        return pw, pf
+
+    def geo(p, x):
+        return dict(bias=p.bias, act=p.act,
+                    pad=((p.pi[0],) * 2, (p.pi[1],) * 2),
+                    crop=(p.pk[0] + p.padding[0][0],
+                          p.pk[1] + p.padding[1][0]),
+                    out_space=p.out_shape(x.shape[1:3]))
+
+    def k4(x, p):
+        return ops.sd_deconv_presplit_wino(
+            x, p.ws, p.kernel, p.stride, p.padding,
+            output_padding=p.output_padding, bias=p.bias, act=p.act,
+            plan=p.tile)
+
+    err = {"plain": 0.0, "k1": 0.0}
+    failures = []
+
+    def check(label, x, pw, pf, bf16=False):
+        out = k4(x, pw)
+        ref = W.sd_wino_ref(x, pw.ws, pw.kt, pw.stride, **geo(pw, x))
+        torch.cuda.synchronize()
+        d, tol = _gate_err(out, ref, BF16_GATE if bf16 else F32_GATE,
+                           not bf16)
+        ok = (d <= tol and tuple(out.shape) == tuple(ref.shape)
+              and out.dtype == x.dtype)
+        line = f"  {label} {tuple(out.shape)} max|d| {d:.3e} tol {tol:.3e}"
+        if not bf16:
+            err["plain"] = max(err["plain"], d)
+            y1 = sd.execute(pf, x)
+            torch.cuda.synchronize()
+            d1, tol1 = _gate_err(out, y1, W.tolerance(pw.kt), True)
+            err["k1"] = max(err["k1"], d1 / max(1.0, y1.abs().max().item()))
+            ok = ok and d1 <= tol1
+            line += f"; vs K1 max|d| {d1:.3e} tol {tol1:.3e}"
+        print(f"{line} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(label)
+
+    print(f"check: K4 vs sd_wino_ref (gate {F32_GATE}*max(1,max|ref|)) and "
+          f"vs K1 on the same split filters (gate tolerance(K_T)*max(1,"
+          f"max|y_K1|)), f32, batch 4 {tag}")
+    for net, fn in BENCHMARKS.items():
+        layers = fn().layers
+        for i, l in enumerate(layers):
+            if l.kind != "deconv":
+                continue
+            act = "linear" if i == len(layers) - 1 else "relu"
+            pw, pf = plans((l.k, l.k, l.cin, l.cout), l.s,
+                           same_deconv_pads(l.k, l.s), act)
+            check(f"{net}/{l.name} F(2,{pw.kt[0]})",
+                  randn(4, *l.in_hw, l.cin), pw, pf)
+    # The reference's odd geometries (tests/test_winograd.py), op >
+    # pad_hi, asymmetric pads, a mixed F(2,3) x F(1,1) kernel, and forced
+    # ragged tiles (rows rounded up to whole tiles, a residual crop row,
+    # ragged Cin steps and channel tiles, F(2,5) on an odd tile).
+    odd = [((2, 7, 6, 4), (5, 5, 4, 3), 3, 2, 0, None),
+           ((2, 7, 6, 4), (6, 6, 4, 3), 3, "same", 0, None),
+           ((2, 7, 6, 4), (7, 7, 4, 3), 4, 3, 0, None),
+           ((2, 7, 6, 4), (5, 5, 4, 3), 4, "same", 0, None),
+           ((2, 7, 6, 4), (2, 2, 4, 3), 2, 0, 0, None),
+           ((2, 5, 6, 3), (4, 4, 3, 2), 2, 0, 1, None),
+           ((1, 6, 7, 3), (5, 5, 3, 2), 2, ((1, 3), (0, 2)), 0, None),
+           ((1, 5, 6, 3), (5, 2, 3, 2), 2, ((2, 2), (0, 1)), 0, None),
+           ((3, 13, 11, 40), (5, 5, 40, 24), 2, 2, 1,
+            KernelPlan(th=3, tw=4, tcin=7, tc=16)),
+           ((2, 9, 10, 70), (3, 3, 70, 5), 2, 1, 1,
+            KernelPlan(th=2, tw=3, tcin=8, tc=4)),
+           ((2, 9, 7, 12), (5, 5, 12, 6), 1, 2, 0,
+            KernelPlan(th=3, tw=1, tcin=5, tc=8))]
+    for sx, sw_, st, padv, op, tile in odd:
+        pad = same_deconv_pads(sw_[0], st) if padv == "same" else padv
+        pw, pf = plans(sw_, st, pad, "tanh", op, tile, scale_on=False)
+        check(f"odd {sx} k{sw_[:2]} s{st} p{padv} op{op} tile {tile}",
+              randn(*sx), pw, pf)
+    dcgan = [(i, l) for i, l in enumerate(BENCHMARKS["dcgan"]().layers)
+             if l.kind == "deconv"]
+    print(f"check: K4 vs sd_wino_ref, bf16 in/out (bf16 transformed "
+          f"filters), f32 accumulation, batch 4, gate "
+          f"{BF16_GATE}*max|ref| {tag}")
+    for i, l in dcgan:
+        pw, pf = plans((l.k, l.k, l.cin, l.cout), l.s,
+                       same_deconv_pads(l.k, l.s),
+                       "linear" if i == 3 else "relu", dtype=torch.bfloat16)
+        check(f"dcgan/{l.name} bf16", randn(4, *l.in_hw, l.cin).bfloat16(),
+              pw, pf, bf16=True)
+    if failures:
+        raise SystemExit(f"chip_smoke: K4 disagrees on {failures}")
+
+    print(f"time: DCGAN layers at batch {BUCKET}, f32, CUDA events: median "
+          f"[min, max] of 7 rounds of 20 warm launches, K4 / plain / K1 / "
+          f"conv_transpose2d in turns {tag}")
+    per_layer = []
+    for i, l in dcgan:
+        pw, pf = plans((l.k, l.k, l.cin, l.cout), l.s,
+                       same_deconv_pads(l.k, l.s),
+                       "linear" if i == 3 else "relu")
+        x = randn(BUCKET, *l.in_hw, l.cin)
+        g = geo(pw, x)
+        x_cf = x.permute(0, 3, 1, 2).contiguous()
+        w_t = torch.randn(l.cin, l.cout, l.k, l.k, device=dev)
+        lib = lambda: F.conv_transpose2d(                 # noqa: E731
+            x_cf, w_t, pw.bias, stride=l.s, padding=2, output_padding=1)
+        assert lib().shape[2:] == k4(x, pw).shape[1:3]
+        t = _time_ms({
+            "k4": lambda: k4(x, pw),
+            "plain": lambda: W.sd_wino_ref(x, pw.ws, pw.kt, pw.stride, **g),
+            "k1": lambda: sd.execute(pf, x),
+            "lib": lib})
+        y = k4(x, pw)
+        ref = W.sd_wino_ref(x, pw.ws, pw.kt, pw.stride, **g)
+        torch.cuda.synchronize()
+        d, tol = _gate_err(y, ref, F32_GATE, True)
+        err["plain"] = max(err["plain"], d)
+        print(f"  dcgan/{l.name} batch {BUCKET} vs sd_wino_ref max|d| "
+              f"{d:.3e} tol {tol:.3e} {'ok' if d <= tol else 'FAIL'}")
+        if not (d <= tol and y.shape == ref.shape):
+            raise SystemExit(f"chip_smoke: K4 disagrees with sd_wino_ref "
+                             f"on dcgan/{l.name} at batch {BUCKET}")
+        lg = W.wino_launch_geometry(x.shape, pw.ws.shape, pw.kt, pw.stride,
+                                    g["pad"], g["crop"], g["out_space"])
+        flops = 2.0 * BUCKET * l.macs()
+        tiles = BUCKET * lg.nh * lg.nth * lg.nw * lg.ntw
+        # What K4's algorithm must do for this output: F(m, K_T) tiles of
+        # m x m conv rows; per tile, alpha_h*alpha_w products per input
+        # and phase channel, the input transform B^T d B per input channel
+        # and the output transform A^T M A per phase channel (their
+        # nonzero matrix entries).
+        (at_h, _, bt_h), (at_w, _, bt_w) = (
+            W.winograd_matrices(W.output_tile(t), t) for t in pw.kt)
+        ah, aw = bt_h.shape[0], bt_w.shape[0]
+        n_tiles = (BUCKET * -(-y.shape[1] // (l.s * lg.mh))
+                   * -(-y.shape[2] // (l.s * lg.mw)))
+        nc = pw.ws.shape[-1]
+        wino_macs = n_tiles * ah * aw * l.cin * nc
+        transform_macs = n_tiles * (
+            l.cin * (np.count_nonzero(bt_h) * aw
+                     + ah * np.count_nonzero(bt_w))
+            + nc * (np.count_nonzero(at_h) * aw
+                    + lg.mh * np.count_nonzero(at_w)))
+        nbytes = sum(a.numel() * a.element_size()
+                     for a in (x, pw.ws, pw.bias, y))
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        t_ops = 2.0 * (wino_macs + transform_macs) / PEAK_F32_FLOPS * 1e3
+        t_useful = flops / PEAK_F32_FLOPS * 1e3
+        ms, lo, hi = t["k4"]
+        rec = {"layer": f"dcgan/{l.name}", "ms": ms, "ms_min": lo,
+               "ms_max": hi, "plain_ms": t["plain"][0], "k1_ms": t["k1"][0],
+               "library_ms": t["lib"][0], "bound_ms": max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "useful_bound_ms": max(t_useful, t_bytes),
+               "flops": flops, "wino_macs": wino_macs,
+               "transform_macs": int(transform_macs),
+               "max_abs_err": d, "launched_tiles": tiles, "bytes": nbytes,
+               "tile": str(lg.plan), "launches_per_batch": 1}
+        per_layer.append(rec)
+        print(f"  dcgan/{l.name} {tuple(x.shape)}->{tuple(y.shape)} tile "
+              f"{lg.plan}, grid {-(-nc // lg.plan.tc)} x "
+              f"{lg.nh * lg.nw} x {BUCKET}: K4 {ms:.4f} ms [{lo:.4f}, "
+              f"{hi:.4f}], plain {rec['plain_ms']:.4f} ms, K1 "
+              f"{rec['k1_ms']:.4f} ms, conv_transpose2d "
+              f"{rec['library_ms']:.4f} ms; bound {rec['bound_ms']:.4f} ms "
+              f"({rec['bound_by']}; K4's {wino_macs / 1e9:.3f} G "
+              f"transform-domain products + {transform_macs / 1e9:.3f} G "
+              f"transform MACs, {2 * wino_macs / ms / 1e9:.1f} TFLOP/s of "
+              f"products), useful-work bound {rec['useful_bound_ms']:.4f} "
+              f"ms ({flops / 2e9:.3f} G direct MACs); sm clock, power, "
+              f"temperature {_clocks()} {tag}")
+
+    # ---- serve full-width DCGAN on the winograd backend ----------------
+    server = GenServer(nets=("dcgan",), device=dev, max_batch=BUCKET,
+                       seed=SEED, backend="winograd")
+    built_cells = server.warmup()
+    reqs = server.random_requests("dcgan", SERVE_REQUESTS, seed=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    W.SD_WINO_LAUNCHES = 0
+    K.SD_FUSED_LAUNCHES = 0
+    results, stats = serve_async(server, reqs)
+    torch.cuda.synchronize()
+    launches, k1_launches = W.SD_WINO_LAUNCHES, K.SD_FUSED_LAUNCHES
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    lat = stats["latency_ms"]
+    print(f"serve winograd: {stats['served']} DCGAN requests (full width, "
+          f"f32) in {stats['wall_s']:.4f} s host clock: "
+          f"{stats['req_per_s']:.1f} req/s, p50 {lat['p50']} ms, p95 "
+          f"{lat['p95']} ms, {stats['launches']} launches, "
+          f"{stats['compiles']} cells ({built_cells} built in warmup), peak "
+          f"memory {peak_mib:.1f} MiB {tag}")
+    print(f"  K4 launches in the serving run: {launches} (3 deconv layers x "
+          f"{stats['launches']} batches); K1 launches: {k1_launches}")
+    if launches != 3 * stats["launches"] or launches == 0 or k1_launches:
+        raise SystemExit("chip_smoke: the winograd server did not run K4 "
+                         "(and only K4) once per deconv layer per batch")
+    if stats["served"] != SERVE_REQUESTS or stats["shed"]:
+        raise SystemExit(f"chip_smoke: served {stats['served']} of "
+                         f"{SERVE_REQUESTS}, shed {stats['shed']}")
+    model, params = server.model("dcgan")
+    fused = GenerativeModel(model.spec, "sd_kernel", engine_backend="fused",
+                            device=dev)
+    z = torch.stack([r.latent for r in reqs])
+    out = torch.stack([results[r.rid] for r in reqs])
+    with torch.no_grad():
+        ref = fused.apply(params, z)
+        ref_t = GenerativeModel(model.spec, "sd_kernel",
+                                engine_backend="torch",
+                                device=dev).apply(params, z)
+        # K4's plain version end to end: the same model on the CPU,
+        # where every winograd layer runs sd_wino_ref.
+        cpu_params = {k: {n: t.cpu() for n, t in v.items()}
+                      for k, v in params.items()}
+        ref_p = GenerativeModel(model.spec, "sd_kernel",
+                                engine_backend="winograd",
+                                device="cpu").apply(cpu_params, z.cpu())
+    finite = bool(torch.isfinite(out).all())
+    ok = finite and tuple(out.shape) == (SERVE_REQUESTS, 64, 64, 3)
+    print(f"  outputs {tuple(out.shape)} finite={finite}; on the same "
+          f"weights {tag}:")
+    for label, r, rel, floor_one, gate in (
+            ("winograd model on the CPU (sd_wino_ref)", ref_p.to(dev),
+             F32_GATE, True, f"{F32_GATE}*max(1,max|ref|)"),
+            ("torch backend on the card (direct conv)", ref_t,
+             W.tolerance((3, 3)), False, "tolerance((3, 3))*max|ref|"),
+            ("fused server's model (K1)", ref, W.tolerance((3, 3)), False,
+             "tolerance((3, 3))*max|ref|")):
+        d, tol = _gate_err(out, r, rel, floor_one)
+        ok = ok and d <= tol
+        print(f"    vs {label} max|d| {d:.3e} tol {tol:.3e} ({gate}) "
+              f"{'ok' if d <= tol else 'FAIL'}")
+    if not ok:
+        raise SystemExit("chip_smoke: winograd-served outputs are wrong")
+    full = [r.latent for r in reqs[:BUCKET]]
+    host = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        server.run_group("dcgan", full)
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+    host_ms = sorted(host)[len(host) // 2]
+    breakdown = _device_breakdown(lambda: server.run_group("dcgan", full))
+    print(f"batch winograd: one DCGAN batch of {BUCKET} through run_group: "
+          f"{host_ms:.3f} ms host clock (median of 10, synchronised) {tag}")
+    if breakdown is None:
+        print("  device time per kernel: not measured (the profiler "
+              "reported no device time)")
+    else:
+        busy, wall, top = breakdown
+        print(f"  profiler: device busy {busy:.3f} ms of {wall:.3f} ms wall "
+              f"(idle share {1 - busy / wall:.3f}) {tag}")
+        for name, ms_k, calls in top:
+            print(f"    {ms_k:.4f} ms in {calls} call(s): {name[:90]}")
+
+    tot = {k: sum(r[k] for r in per_layer)
+           for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                     "useful_bound_ms", "wino_macs", "transform_macs",
+                     "bytes")}
+    kernel = {
+        "name": "sd_wino", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/sd_wino.cu",
+        "replaces": "src/repro/kernels/winograd.py:268",
+        "launches": launches, "max_abs_err": err["plain"],
+        "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+        "bound_ms": tot["bound_ms"],
+        "bound_by": ("operations" if 2.0 * (tot["wino_macs"]
+                                            + tot["transform_macs"])
+                     / PEAK_F32_FLOPS >= tot["bytes"] / PEAK_BYTES
+                     else "bytes"),
+        "useful_bound_ms": tot["useful_bound_ms"],
+        "library_ms": tot["library_ms"], "wino_macs": tot["wino_macs"],
+        "transform_macs": tot["transform_macs"],
+        "max_rel_err_vs_k1": err["k1"]}
+    return {"kernel": kernel, "per_layer": per_layer,
+            "serve": {k: stats[k] for k in ("served", "launches",
+                                            "req_per_s", "wall_s",
+                                            "latency_ms")},
+            "peak_mib": peak_mib, "batch_host_ms": host_ms,
+            "batch_device": breakdown}
+
+
 def main(json_path: str = "") -> int:
     t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(HERE, "src", "repro_torch")):
@@ -763,6 +1088,9 @@ def main(json_path: str = "") -> int:
     # ---- 5. train full-width DCGAN through K1, K2 and K3 ----------------
     train = _train_phase(dev, tag, randn)
 
+    # ---- 6. serve full-width DCGAN through K4 (Winograd) ----------------
+    wino = _wino_phase(dev, tag, randn)
+
     if "jax" in sys.modules or "repro" in sys.modules:
         raise SystemExit("chip_smoke: JAX or the JAX package was imported")
     total = {k: sum(r[k] for r in per_layer)
@@ -778,10 +1106,14 @@ def main(json_path: str = "") -> int:
         "max_abs_err": max_err,
         "ms": total["ms"], "plain_ms": total["plain_ms"],
         "bound_ms": total["bound_ms"], "bound_by": bound_by,
-        "library_ms": total["library_ms"]}] + train["kernels"]
+        "library_ms": total["library_ms"]}] + train["kernels"] + \
+        [wino["kernel"]]
     report = {"card": card, "kernels": kernels,
               "per_layer": per_layer + train["per_layer"],
               "train": train["train"],
+              "winograd": {k: wino[k] for k in ("per_layer", "serve",
+                                                "peak_mib", "batch_host_ms",
+                                                "batch_device")},
               "serve": {k: stats[k] for k in
                         ("served", "launches", "req_per_s", "wall_s",
                          "latency_ms")},
@@ -799,7 +1131,7 @@ def main(json_path: str = "") -> int:
     print("(below: ms/plain_ms/bound_ms/library_ms summed over DCGAN's "
           f"three deconv layers at batch {BUCKET}; launches counted in the "
           f"{GAN_STEPS}-step training run, K1's serving-run count as "
-          f"launches_serve) {tag}")
+          f"launches_serve; K4's in the winograd serving run) {tag}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

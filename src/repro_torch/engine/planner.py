@@ -42,10 +42,14 @@ def _versions(leaves) -> tuple:
 class SDEngine:
     """Per-network cache of presplit, BN-folded deconv plans.
 
-    ``backend``: ``"fused"`` (the CUDA kernel; its plain version for CPU
-    tensors), ``"torch"`` (grouped conv + pixel shuffle), or ``"auto"``
-    (fused on a CUDA ``device``, torch on the CPU).  ``device=None`` is
-    the card, as everywhere in the port (raises without one)."""
+    ``backend``: ``"fused"`` (the CUDA kernel K1; its plain version for
+    CPU tensors), ``"winograd"`` (K4 pinned on every deconv layer; a
+    layer outside its envelope raises at plan time), ``"torch"``
+    (grouped conv + pixel shuffle), or ``"auto"`` (fused on a CUDA
+    ``device``, torch on the CPU).  The reference's measured per-layer
+    choice between fused and winograd (``autotune.best_algo``, armed by
+    ``pretune``) waits for measured tiles.  ``device=None`` is the card,
+    as everywhere in the port (raises without one)."""
 
     def __init__(self, spec: NetworkSpec, backend: str = "auto",
                  device=None):

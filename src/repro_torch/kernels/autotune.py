@@ -1,6 +1,6 @@
 """Tile plans for the port's kernels on Hopper: the fused split-deconv
-kernel (K1) and the SD backward's stride-1 conv (K2) and filter grad
-(K3).
+kernel (K1), the SD backward's stride-1 conv (K2) and filter grad (K3),
+and the Winograd split conv (K4, :func:`wino_plan`).
 
 The JAX package sizes its Pallas tiles against an 8 MiB VMEM model; on
 the H100 the limit is the shared memory one block can use (227 KB) and,
@@ -203,3 +203,98 @@ def filter_grad_plan(geom: FilterGradGeom) -> FilterGradPlan:
     chunk = -(-geom.m // splits)
     chunk = -(-chunk // DW_MK) * DW_MK
     return FilterGradPlan(tco=tco, chunk=chunk)
+
+
+# ---------------------------------------------------------------------------
+# K4, the Winograd split conv.  Counterpart of the reference's
+# ``algo="wino"`` VMEM model (``vmem_plan_bytes``); heuristic only.
+# ---------------------------------------------------------------------------
+
+WINO_TILE_CHANNELS = (16, 32)  # K4: phase channels per block
+WINO_ITEMS = 2 * THREADS       # K4: MICRO x MICRO (tile, channel) register
+#                                tiles per block, two per thread
+
+
+@dataclass(frozen=True)
+class WinoGeom(FusedGeom):
+    """What K4 launches: K1's geometry read as F(m, K_T) per dim, ``m =
+    1`` for a 1-tap dim and 2 otherwise."""
+
+    @property
+    def mh(self) -> int:
+        return 1 if self.kth == 1 else 2
+
+    @property
+    def mw(self) -> int:
+        return 1 if self.ktw == 1 else 2
+
+    @property
+    def alphas(self) -> int:
+        """Points of the transform domain, ``alpha_h * alpha_w``."""
+        return (self.mh + self.kth - 1) * (self.mw + self.ktw - 1)
+
+
+def wino_tiles(geom: WinoGeom, plan: KernelPlan):
+    """``(nth, ntw)``: Winograd tiles per block, the ``th (+1 for the
+    residual crop)`` conv rows rounded up to whole ``m``-tiles."""
+    rh = plan.th + (1 if geom.res_h else 0)
+    rw = plan.tw + (1 if geom.res_w else 0)
+    return -(-rh // geom.mh), -(-rw // geom.mw)
+
+
+def wino_items(geom: WinoGeom, plan: KernelPlan) -> int:
+    """Register tiles of one block: ``alpha_h*alpha_w`` transform points
+    x tiles (padded to MICRO) / MICRO x ``tc`` / MICRO."""
+    nth, ntw = wino_tiles(geom, plan)
+    tp = -(-nth * ntw // MICRO)
+    return geom.alphas * tp * (plan.tc // MICRO)
+
+
+def wino_smem_bytes(geom: WinoGeom, plan: KernelPlan) -> int:
+    """Dynamic shared memory of one K4 block, all f32: the staged input
+    band ``(tcin, plane)`` (the tiles' rows plus the ``K_T - 1`` halo,
+    plane odd as in K1, rounded up to a float4), the ``V`` scratch
+    ``(alpha_h*alpha_w, tcin, tiles)`` and the transformed filter block
+    ``(alpha_h*alpha_w, tcin, tc)``; after the Cin loop the same memory
+    holds the accumulators ``(alpha_h*alpha_w, tiles, tc)`` for the
+    epilogue's ``A^T M A``.  ``tiles`` is padded to a multiple of
+    MICRO."""
+    nth, ntw = wino_tiles(geom, plan)
+    tp = -(-nth * ntw // MICRO) * MICRO
+    plane = ((nth * geom.mh + geom.kth - 1)
+             * (ntw * geom.mw + geom.ktw - 1)) | 1
+    band = -(-plan.tcin * plane // MICRO) * MICRO
+    stage = band + geom.alphas * plan.tcin * (tp + plan.tc)
+    return 4 * max(stage, geom.alphas * tp * plan.tc)
+
+
+def wino_plan(geom: WinoGeom) -> KernelPlan:
+    """Untuned default for K4.  Channel tile: 16 when the layer has no
+    more phase channels, else 32.  Tiles: as many as
+    :data:`WINO_ITEMS` register tiles allow at that channel tile,
+    ``2^j x`` the rest (square-ish, no larger than the output needs);
+    ``th``/``tw`` are the conv rows those tiles write.  ``tcin``: up to
+    32 input channels per step, halved until the block fits
+    :data:`SMEM_TARGET` (never past :data:`SMEM_BUDGET`)."""
+    tc = WINO_TILE_CHANNELS[0] if geom.nc <= WINO_TILE_CHANNELS[0] \
+        else WINO_TILE_CHANNELS[-1]
+    tiles = MICRO * (WINO_ITEMS // (geom.alphas * (tc // MICRO)))
+    eh, ew = (1 if geom.res_h else 0), (1 if geom.res_w else 0)
+    rows_h = -(-geom.out_h // geom.sh)
+    rows_w = -(-geom.out_w // geom.sw)
+    need_h = -(-(rows_h + eh) // geom.mh)
+    need_w = -(-(rows_w + ew) // geom.mw)
+    nth = max(1, min(need_h, 1 << (math.isqrt(tiles).bit_length() - 1)))
+    ntw = max(1, min(need_w, tiles // nth))
+    nth = max(1, min(need_h, tiles // ntw))
+    th = max(1, min(rows_h, nth * geom.mh - eh))
+    tw = max(1, min(rows_w, ntw * geom.mw - ew))
+    tcin = min(32, geom.cin)
+    plan = KernelPlan(th=th, tw=tw, tcin=tcin, tc=tc)
+    while tcin > 1 and wino_smem_bytes(geom, plan) > SMEM_TARGET:
+        tcin = max(1, tcin // 2)
+        plan = KernelPlan(th=th, tw=tw, tcin=tcin, tc=tc)
+    if (wino_smem_bytes(geom, plan) > SMEM_BUDGET
+            or wino_items(geom, plan) > WINO_ITEMS):
+        raise ValueError(f"no K4 tile of {geom} fits a block")
+    return plan

@@ -32,6 +32,7 @@ SIGNATURES = {
     "sd_fused": ("sd_fused_launch", [_P, _P, _P, _P, _I] + [_I] * 22 + [_P]),
     "sd_conv": ("sd_conv_launch", [_P] * 3 + [_I] * 17 + [_P]),
     "sd_filter_grad": ("sd_filter_grad_launch", [_P] * 4 + [_I] * 13 + [_P]),
+    "sd_wino": ("sd_wino_launch", [_P] * 5 + [_I] * 27 + [_P]),
 }
 
 

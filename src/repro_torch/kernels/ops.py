@@ -7,7 +7,8 @@ reads), the low-side crop ``P_K + pad_lo`` (split inside
 :func:`~repro_torch.kernels.sd_conv.launch_geometry` into ``q = crop //
 s`` whole conv rows and a residual ``r = crop % s``) and the final
 output shape.  The kernel writes each output element once; no padded or
-uncropped copy exists.
+uncropped copy exists.  :func:`sd_deconv_presplit_wino` does the same
+for K4 from the Winograd-transformed filters.
 
 :func:`sd_input_grad_fused` and :func:`sd_filter_grad_fused` are the SD
 backward's two convolutions on K2 and K3 (see :mod:`repro_torch.sd.grad`).
@@ -24,6 +25,24 @@ from repro_torch.core.deconv import (_check_output_padding, _check_padding,
                                      sd_geometry)
 from repro_torch.kernels.autotune import FilterGradPlan, KernelPlan
 from repro_torch.kernels.sd_conv import sd_conv, sd_filter_grad, sd_fused
+from repro_torch.kernels.winograd import sd_wino
+
+
+def _deconv_launch(x_shape, kernel, stride, padding, output_padding):
+    """``(s, K_T, pad, crop, out_space)`` of a 2-D transposed conv's
+    fused launch: the ``P_I`` pad per side, the low-side crop ``P_K +
+    pad_lo`` and the final output shape."""
+    s = _ntuple(stride, 2)
+    op = _ntuple(output_padding, 2)
+    k = _ntuple(kernel, 2)
+    _check_padding(k, padding)
+    _check_output_padding(op, s)
+    pads = _pads_nd(padding, 2)
+    kt, pk, pi = sd_geometry(k, s)
+    out_space = tuple(deconv_output_shape(x_shape[1:3], k, s, padding,
+                                          output_padding))
+    crop = tuple(pki + lo for pki, (lo, _) in zip(pk, pads))
+    return s, kt, tuple((p, p) for p in pi), crop, out_space
 
 
 def sd_deconv_presplit_fused(x: torch.Tensor, ws_ocmajor: torch.Tensor,
@@ -35,22 +54,34 @@ def sd_deconv_presplit_fused(x: torch.Tensor, ws_ocmajor: torch.Tensor,
                              ) -> torch.Tensor:
     """2-D transposed conv from pre-split oc-major filters in one fused
     launch: x (B, H, W, Cin), ws_ocmajor (KTh, KTw, Cin, Cout*sh*sw)."""
-    s = _ntuple(stride, 2)
-    op = _ntuple(output_padding, 2)
-    k = _ntuple(kernel, 2)
-    _check_padding(k, padding)
-    _check_output_padding(op, s)
-    pads = _pads_nd(padding, 2)
-    _, pk, (pih, piw) = sd_geometry(k, s)
-    out_space = deconv_output_shape(x.shape[1:3], k, s, padding,
-                                    output_padding)
+    s, _, pad, crop, out_space = _deconv_launch(x.shape, kernel, stride,
+                                                padding, output_padding)
     if any(o == 0 for o in out_space):
         cout = ws_ocmajor.shape[-1] // (s[0] * s[1])
         return x.new_zeros((x.shape[0], *out_space, cout))
-    crop = tuple(pki + lo for pki, (lo, _) in zip(pk, pads))
-    return sd_fused(x, ws_ocmajor, s, bias=bias, act=act,
-                    pad=((pih, pih), (piw, piw)), crop=crop,
-                    out_space=tuple(out_space), plan=plan)
+    return sd_fused(x, ws_ocmajor, s, bias=bias, act=act, pad=pad,
+                    crop=crop, out_space=out_space, plan=plan)
+
+
+def sd_deconv_presplit_wino(x: torch.Tensor, u: torch.Tensor, kernel,
+                            stride, padding=0, *, output_padding=0,
+                            bias: Optional[torch.Tensor] = None,
+                            act: str = "linear",
+                            plan: Optional[KernelPlan] = None
+                            ) -> torch.Tensor:
+    """2-D transposed conv from *pre-transformed* Winograd filters in one
+    K4 launch: x (B, H, W, Cin), u the oc-major split filters after
+    :func:`~repro_torch.kernels.winograd.transform_filters`, ``(alpha_h,
+    alpha_w, Cin, Cout*sh*sw)``.  The launch is
+    :func:`sd_deconv_presplit_fused`'s: ``P_I`` pad, crop ``P_K +
+    pad_lo``, final output shape."""
+    s, kt, pad, crop, out_space = _deconv_launch(x.shape, kernel, stride,
+                                                 padding, output_padding)
+    if any(o == 0 for o in out_space):
+        cout = u.shape[-1] // (s[0] * s[1])
+        return x.new_zeros((x.shape[0], *out_space, cout))
+    return sd_wino(x, u, kt, s, bias=bias, act=act, pad=pad, crop=crop,
+                   out_space=out_space, plan=plan)
 
 
 # ---------------------------------------------------------------------------

@@ -75,10 +75,21 @@ def sd_fused_ref(x: torch.Tensor, ws_ocmajor: torch.Tensor, s, *,
     """Plain PyTorch version of :func:`sd_fused`: ``F.pad``, ``F.conv2d``
     in f32, the oc-major interleave, crop (zero-extended past the
     support), bias, activation, cast to ``x.dtype``."""
-    sh, sw = _pair(s)
     (plo_h, phi_h), (plo_w, phi_w) = pad
     xp = F.pad(x.float(), (0, 0, plo_w, phi_w, plo_h, phi_h))
     y = conv_valid(xp, ws_ocmajor.float())      # (B, Hc, Wc, Cout*sh*sw)
+    return shuffle_epilogue(y, s, bias, act, crop, out_space, x.dtype)
+
+
+def shuffle_epilogue(y: torch.Tensor, s, bias: Optional[torch.Tensor],
+                     act: str, crop: Tuple[int, int],
+                     out_space: Optional[Tuple[int, int]],
+                     dtype: torch.dtype) -> torch.Tensor:
+    """The fused kernels' tail in plain PyTorch, from the f32 split-conv
+    output ``y`` (B, Hc, Wc, Cout*sh*sw) with oc-major phase channels:
+    interleave, crop (zero-extended past the support), bias, activation,
+    cast to ``dtype``."""
+    sh, sw = _pair(s)
     b, hc, wc, nc = y.shape
     cout = nc // (sh * sw)
     y = y.reshape(b, hc, wc, cout, sh, sw).permute(0, 1, 4, 2, 5, 3)
@@ -89,7 +100,7 @@ def sd_fused_ref(x: torch.Tensor, ws_ocmajor: torch.Tensor, s, *,
                          out_space)
     if bias is not None:
         y = y + bias.float()
-    return _apply_act(y, act).to(x.dtype)
+    return _apply_act(y, act).to(dtype)
 
 
 @dataclass(frozen=True)

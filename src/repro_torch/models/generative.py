@@ -7,7 +7,8 @@ implementation is chosen by name from :data:`IMPLS`:
 * ``sd``        — split deconvolution, filters split on every call,
 * ``sd_kernel`` — the presplit-once engine (:class:`SDEngine`): filters
   are split and BN-folded once at bind, and every forward runs the
-  fused kernel (or the grouped-conv ``torch`` backend) with bias and
+  fused kernel K1 (``engine_backend="fused"``), the Winograd kernel K4
+  (``"winograd"``) or the grouped-conv ``torch`` backend, with bias and
   activation in the epilogue.  When autograd is recording and a deconv
   filter requires grad, each deconv instead runs the differentiable
   :func:`repro_torch.sd.conv_transpose` on the engine's backend (on

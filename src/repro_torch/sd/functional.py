@@ -7,8 +7,12 @@ the raw filter, split on every call, differentiable in ``x``, ``w`` and
 forward is K1 and the backward K2 + K3).  :func:`execute` runs a *bound* plan: pre-split (scale-folded) filters,
 bias and activation in the epilogue, no splitting on the hot path.  The
 ``"fused"`` backend is one launch of the fused CUDA kernel (or its plain
-version for a CPU tensor); ``"torch"`` is the grouped stride-1 conv +
-pixel shuffle + crop in plain PyTorch.
+version for a CPU tensor); ``"winograd"`` one launch of K4 from the
+filters ``bind`` transformed (``conv_transpose`` transforms the freshly
+split filters in the call; its backward is the plain torch formulation,
+as in the reference, which sends only ``"fused"`` to the kernels);
+``"torch"`` is the grouped stride-1 conv + pixel shuffle + crop in plain
+PyTorch.
 """
 
 from __future__ import annotations
@@ -27,6 +31,15 @@ def _run_presplit(plan: DeconvPlan, x: torch.Tensor, ws: torch.Tensor,
                   layout: str, bias: Optional[torch.Tensor],
                   act: str) -> torch.Tensor:
     """Dispatch pre-split filters to the plan's backend."""
+    if plan.backend == "winograd":
+        from repro_torch.kernels import ops
+        from repro_torch.kernels.winograd import transform_filters
+        u = ws if layout == "wino" else transform_filters(
+            to_ocmajor(ws, plan.stride))
+        return ops.sd_deconv_presplit_wino(
+            x, u, plan.kernel, plan.stride, plan.padding,
+            output_padding=plan.output_padding, bias=bias, act=act,
+            plan=plan.tile)
     if plan.backend == "fused":
         from repro_torch.kernels import ops
         ws_oc = ws if layout == "ocmajor" else to_ocmajor(ws, plan.stride)

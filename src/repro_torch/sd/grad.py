@@ -17,8 +17,9 @@ and channel axes exchanged), ``unsplit_filters``, and pad^T.
 A ``fused`` plan (rank 2) runs the two convolutions on the hand-written
 kernels: K2 for ``dx`` (the FULL-conv pad is masked reads and pad^T is
 the launch's output window) and K3 for ``dw`` (``P_I`` applied in the
-kernel).  A ``torch`` plan, and every rank-3 plan, runs the
-``F.conv``-based formulations below.
+kernel).  A ``torch`` or ``winograd`` plan, and every rank-3 plan, runs
+the ``F.conv``-based formulations below (the reference, too, sends only
+``fused`` plans to its backward kernels).
 """
 
 from __future__ import annotations

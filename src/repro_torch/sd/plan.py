@@ -8,7 +8,10 @@ scale folded in) and ``bias`` as plain tensor attributes.
 
 Backends: ``"torch"`` runs the grouped stride-1 conv + pixel shuffle in
 plain PyTorch (the twin of the reference's ``"xla"``) from n-major
-filters; ``"fused"`` runs the fused CUDA kernel from oc-major filters.
+filters; ``"fused"`` runs the fused CUDA kernel K1 from oc-major
+filters; ``"winograd"`` runs K4, the F(2,r) Winograd kernel, from
+oc-major filters transformed at bind (layout ``"wino"``; rank 2, per-dim
+taps <= 5, float only).
 ``"auto"`` means fused for a CUDA device and torch for the CPU; with no
 device named it means the card (and raises without one).
 """
@@ -26,8 +29,10 @@ from repro_torch.core.deconv import (_check_output_padding, _check_padding,
                                      sd_geometry, split_filters)
 from repro_torch.device import resolve_device
 from repro_torch.kernels.autotune import KernelPlan
+from repro_torch.kernels.winograd import (MAX_TAPS, supported,
+                                          transform_filters)
 
-BACKENDS = ("fused", "torch")
+BACKENDS = ("fused", "torch", "winograd")
 
 
 def resolve_backend(backend: str, device=None) -> str:
@@ -108,7 +113,8 @@ class DeconvPlan:
         return self.ws is not None
 
     def _bound_layout(self) -> str:
-        return "ocmajor" if self.backend == "fused" else "nmajor"
+        return {"fused": "ocmajor", "winograd": "wino"}.get(self.backend,
+                                                            "nmajor")
 
     def bind(self, w: torch.Tensor, scale: Optional[torch.Tensor] = None,
              bias: Optional[torch.Tensor] = None,
@@ -117,7 +123,9 @@ class DeconvPlan:
         bound plan.  ``scale`` (folded inference-BN gamma) multiplies the
         split filters' output channels: n-major channel ``n*Cout + oc``,
         so the per-oc scale is *tiled* over the phase blocks.  Filters
-        are stored in the layout this plan's backend consumes."""
+        are stored in the layout this plan's backend consumes; for
+        ``"winograd"`` that is oc-major through the filter transform
+        ``U = G g G^T``, once here, like the split and the fold."""
         if tuple(w.shape) != (*self.kernel, self.cin, self.cout):
             raise ValueError(f"filter shape {tuple(w.shape)} does not match "
                              f"plan {(*self.kernel, self.cin, self.cout)}")
@@ -125,8 +133,10 @@ class DeconvPlan:
         if scale is not None:
             ws = ws * scale.to(ws.dtype).tile(self.phases)
         layout = self._bound_layout()
-        ws = to_ocmajor(ws, self.stride) if layout == "ocmajor" \
+        ws = to_ocmajor(ws, self.stride) if layout in ("ocmajor", "wino") \
             else ws.contiguous()
+        if layout == "wino":
+            ws = transform_filters(ws)
         return replace(self, ws=ws, bias=bias, layout=layout,
                        act=self.act if act is None else act)
 
@@ -139,12 +149,14 @@ def plan(filter_shape: Sequence[int], stride, padding=0,
     C_out)`` (its length sets the rank).  Padding and output_padding are
     validated exactly like :mod:`repro_torch.core.deconv`.  ``backend=
     "auto"`` resolves against ``device`` (default: the card, raising
-    without one).  Only float plans exist in this port so far."""
-    if dtype == "int8":
+    without one).  Only float plans exist in this port so far; a
+    winograd plan outside its envelope raises the reference's
+    ``ValueError``."""
+    if dtype == "int8" and backend != "winograd":
         raise NotImplementedError(
             "int8 plans come with the port's int8 slice (K1's quant "
             "branch); see ROADMAP.md")
-    if dtype != "native":
+    if dtype not in ("native", "int8"):
         raise ValueError(f"unknown plan dtype {dtype!r}")
     dims = tuple(int(d) for d in filter_shape)
     if len(dims) not in (3, 4, 5):
@@ -157,6 +169,18 @@ def plan(filter_shape: Sequence[int], stride, padding=0,
     _check_padding(k, padding)
     _check_output_padding(op, st)
     resolved = resolve_backend(backend, device)
+    if resolved == "winograd":
+        kt = sd_geometry(k, st)[0]
+        if not supported(kt, dtype):
+            raise ValueError(
+                f"winograd backend does not support this geometry: "
+                f"subfilter taps {kt} (rank {rank}, dtype {dtype!r}); "
+                f"requires rank <= 2, 1 <= taps <= {MAX_TAPS}, float "
+                f"dtype — use backend='fused' for this layer")
+        if rank == 1:
+            raise NotImplementedError(
+                "the winograd backend's 1-D lowering comes with the rank "
+                "slice (ROADMAP.md item 11) — use backend='torch'")
     if resolved == "fused" and rank != 2:
         raise NotImplementedError(
             f"the fused backend covers rank 2 so far; rank {rank} comes "

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels K1, K2 and K3 against their plain versions.
+"""The port's CUDA kernels K1, K2, K3 and K4 against their plain versions.
 
 Marked ``cuda``: each test decides inside itself whether a card is
 present and skips, with the reason, where there is none.  On a machine
@@ -10,7 +10,10 @@ with an NVIDIA GPU and nvcc:
 f32 gate ``max|d| <= 1e-4 * max(1, max|y_ref|)`` with TF32 off (the
 kernel accumulates in plain f32 FMA, the plain version through cuDNN in
 another order); bf16 gate ``1e-2 * max|y_ref|`` (both accumulate in f32,
-so the difference is the bf16 rounding of the output).
+so the difference is the bf16 rounding of the output).  K4 (Winograd)
+is held to the same gates against its plain version ``sd_wino_ref``,
+and against K1 on the same split filters at the reference's
+``tolerance(K_T) * max(1, max|y_K1|)``.
 """
 
 import pytest
@@ -204,3 +207,137 @@ def test_training_step_runs_the_three_kernels(dev):
     assert torch.isfinite(loss)
     assert (K.SD_FUSED_LAUNCHES - counts[0], K.SD_CONV_LAUNCHES - counts[1],
             K.SD_FILTER_GRAD_LAUNCHES - counts[2]) == (2, 2, 2)
+
+
+# ---------------------------------------------------------------------------
+# K4: the Winograd split conv
+# ---------------------------------------------------------------------------
+
+def _wino_pair(x, p):
+    """K4 through the deconv wrapper and its plain version, on a bound
+    winograd plan."""
+    from repro_torch.kernels import winograd as W
+    geo = dict(bias=p.bias, act=p.act,
+               pad=((p.pi[0],) * 2, (p.pi[1],) * 2),
+               crop=(p.pk[0] + p.padding[0][0], p.pk[1] + p.padding[1][0]),
+               out_space=p.out_shape(x.shape[1:3]))
+    before = W.SD_WINO_LAUNCHES
+    out = ops.sd_deconv_presplit_wino(
+        x, p.ws, p.kernel, p.stride, p.padding,
+        output_padding=p.output_padding, bias=p.bias, act=p.act,
+        plan=p.tile)
+    assert W.SD_WINO_LAUNCHES == before + 1
+    ref = W.sd_wino_ref(x, p.ws, p.kt, p.stride, **geo)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape and out.dtype == x.dtype
+    return out.float(), ref.float()
+
+
+@pytest.mark.parametrize("net,layer", PAPER_LAYERS,
+                         ids=[f"{n}/{l.name}" for n, l in PAPER_LAYERS])
+def test_wino_paper_layers_f32(dev, net, layer):
+    """K4 vs its plain version (1e-4 gate), and vs K1 on the same split
+    filters at the reference's tolerance(K_T)."""
+    from repro_torch.kernels.winograd import tolerance
+    g = torch.Generator().manual_seed(layer.cin + layer.cout)
+    x = torch.randn(2, *layer.in_hw, layer.cin, generator=g).to(dev)
+    w = torch.randn(layer.k, layer.k, layer.cin, layer.cout, generator=g)
+    w = (w / (layer.k * layer.k * layer.cin) ** 0.5).to(dev)
+    bias = (torch.randn(layer.cout, generator=g) * 0.1).to(dev)
+    pads = same_deconv_pads(layer.k, layer.s)
+    pw = sd.plan(w.shape, layer.s, pads, backend="winograd",
+                 act="relu").bind(w, bias=bias)
+    pf = sd.plan(w.shape, layer.s, pads, backend="fused",
+                 act="relu").bind(w, bias=bias)
+    out, ref = _wino_pair(x, pw)
+    _gate(out, ref)
+    k1 = sd.execute(pf, x)
+    torch.cuda.synchronize()
+    assert (out - k1).abs().max().item() <= \
+        tolerance(pw.kt) * max(1.0, k1.abs().max().item())
+
+
+@pytest.mark.parametrize("act", ["linear", "relu", "tanh"])
+def test_wino_dcgan_layers_bf16(dev, act):
+    for _, layer in PAPER_LAYERS[:3]:
+        g = torch.Generator().manual_seed(layer.cout)
+        x = torch.randn(2, *layer.in_hw, layer.cin, generator=g)
+        w = torch.randn(layer.k, layer.k, layer.cin, layer.cout, generator=g)
+        w /= (layer.k * layer.k * layer.cin) ** 0.5
+        p = sd.plan(w.shape, layer.s, same_deconv_pads(layer.k, layer.s),
+                    backend="winograd", act=act).bind(
+                        w.to(dev, torch.bfloat16),
+                        bias=(0.1 * torch.randn(layer.cout, generator=g)
+                              ).to(dev))
+        assert p.ws.dtype == torch.bfloat16
+        out, ref = _wino_pair(x.to(dev, torch.bfloat16), p)
+        assert (out - ref).abs().max().item() <= \
+            1e-2 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("sx,sw,s,pad,op,tile", [
+    ((2, 5, 6, 3), (4, 4, 3, 2), 2, 0, 1, None),          # op > pad_hi
+    ((1, 6, 7, 3), (5, 5, 3, 2), 2, ((1, 3), (0, 2)), 0, None),
+    ((2, 7, 6, 4), (5, 5, 4, 3), 3, 2, 0, None),          # k5/s3
+    ((2, 7, 6, 4), (6, 6, 4, 3), 3, 2, 2, None),          # k6/s3
+    ((2, 7, 6, 4), (7, 7, 4, 3), 4, 3, 0, None),          # k7/s4
+    ((2, 7, 6, 4), (2, 2, 4, 3), 2, 0, 0, None),          # taps 1
+    ((1, 5, 6, 3), (5, 2, 3, 2), 2, ((2, 2), (0, 1)), 0, None),
+    ((3, 13, 11, 40), (5, 5, 40, 24), 2, 2, 1,
+     KernelPlan(th=3, tw=4, tcin=7, tc=16)),              # ragged tiles
+    ((2, 9, 10, 70), (3, 3, 70, 5), 2, 1, 1,
+     KernelPlan(th=2, tw=3, tcin=8, tc=4)),               # tcin ragged
+    ((2, 9, 7, 12), (5, 5, 12, 6), 1, 2, 0,
+     KernelPlan(th=3, tw=1, tcin=5, tc=8)),               # F(2,5), odd
+])
+def test_wino_odd_geometries(dev, sx, sw, s, pad, op, tile):
+    from repro_torch.kernels.winograd import tolerance
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(sx, generator=g).to(dev)
+    w = (torch.randn(sw, generator=g) * 0.2).to(dev)
+    bias = torch.randn(sw[-1], generator=g).to(dev)
+    p = sd.plan(w.shape, s, pad, backend="winograd", act="tanh",
+                output_padding=op, tile=tile).bind(w, bias=bias)
+    out, ref = _wino_pair(x, p)
+    assert (out - ref).abs().max().item() <= 1e-4
+    k1 = sd.execute(sd.plan(w.shape, s, pad, backend="fused", act="tanh",
+                            output_padding=op).bind(w, bias=bias), x)
+    assert (out - k1).abs().max().item() <= tolerance(p.kt)
+
+
+def test_wino_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    from repro_torch.kernels.winograd import sd_wino, transform_filters
+    x = torch.randn(1, 4, 4, 3, device=dev)
+    u = transform_filters(torch.randn(2, 2, 3, 8, device=dev))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        sd_wino(x.to(torch.int8), u.to(torch.int8), (2, 2), 2)
+    with pytest.raises(TypeError, match="dtype"):
+        sd_wino(x, u.bfloat16(), (2, 2), 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        sd_wino(x.transpose(1, 2), u, (2, 2), 2)
+    with pytest.raises(ValueError, match="shapes"):
+        sd_wino(x, u, (3, 3), 2)
+    with pytest.raises(ValueError, match="unsupported"):
+        sd_wino(x, u, (6, 6), 2)
+
+
+def test_wino_server_runs_k4_only(dev):
+    """A winograd server launches K4 once per deconv layer and K1 never,
+    and serves what the fused server serves (tolerance((3, 3)))."""
+    from repro_torch.kernels import winograd as W
+    from repro_torch.kernels.winograd import tolerance
+    from repro_torch.launch.serve_gen import GenServer, reduced_specs
+    specs = reduced_specs()
+    wino = GenServer(nets=("dcgan-dryrun",), specs=specs, device=dev,
+                     backend="winograd", max_batch=4)
+    fused = GenServer(nets=("dcgan-dryrun",), specs=specs, device=dev,
+                      backend="fused", max_batch=4)
+    zs = [r.latent for r in wino.random_requests("dcgan-dryrun", 4)]
+    ref = fused.run_group("dcgan-dryrun", zs)
+    k1, k4 = K.SD_FUSED_LAUNCHES, W.SD_WINO_LAUNCHES
+    out = wino.run_group("dcgan-dryrun", zs)
+    torch.cuda.synchronize()
+    assert (K.SD_FUSED_LAUNCHES - k1, W.SD_WINO_LAUNCHES - k4) == (0, 2)
+    assert torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= \
+        tolerance((3, 3)) * ref.abs().max().item()

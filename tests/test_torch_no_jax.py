@@ -1,9 +1,10 @@
 """The port stands alone: no JAX, no JAX package.
 
 A fresh interpreter with ``jax`` and ``repro`` made unimportable imports
-``repro_torch``, serves the CPU dryrun, takes two small GAN training
-steps on the CPU and imports ``chip_smoke`` (without running it); and without CUDA the port's default device raises instead
-of falling back to the CPU.
+``repro_torch``, serves the CPU dryrun (on the default and on the
+winograd backend), takes two small GAN training steps on the CPU and
+imports ``chip_smoke`` (without running it); and without CUDA the port's
+default device raises instead of falling back to the CPU.
 """
 
 import os
@@ -23,6 +24,9 @@ sys.modules["repro"] = None
 import repro_torch
 from repro_torch.launch import serve_gen
 results, stats = serve_gen.main(["--dryrun", "--device", "cpu"])
+assert stats["served"] == 4, stats
+results, stats = serve_gen.main(["--dryrun", "--device", "cpu",
+                                 "--backend", "winograd"])
 assert stats["served"] == 4, stats
 from repro_torch.launch import train_gen
 d_hist, g_hist = train_gen.main(["--steps", "2", "--small", "--device",

@@ -104,7 +104,7 @@ def test_segnet_head_is_logits_and_fused_backend_matches():
 
 @pytest.mark.parametrize("flags", [["--dp", "2"], ["--dtype", "int8"],
                                    ["--calib", "8"], ["--pretune"],
-                                   ["--backend", "winograd"]])
+                                   ["--mp", "2"]])
 def test_later_slices_point_to_roadmap(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         main(["--dryrun", "--device", "cpu", *flags])
