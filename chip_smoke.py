@@ -2,12 +2,13 @@
 
 Drives ``repro_torch`` only (never JAX, never the JAX package ``repro``):
 
-1. builds the port's four kernels with nvcc for sm_90a, one nvcc per
-   source, all at once (``src/repro_torch/kernels/csrc/``: K1
+1. builds the port's five kernel sources with nvcc for sm_90a, one nvcc
+   per source, all at once (``src/repro_torch/kernels/csrc/``: K1
    ``sd_fused.cu``, the fused split deconv; K2 ``sd_conv.cu``, the
    stride-1 conv of the SD backward's input grad; K3
    ``sd_filter_grad.cu``, its filter grad; K4 ``sd_wino.cu``, the
-   Winograd split deconv) and prints their registers and shared memory;
+   Winograd split deconv; K1's int8 branch ``sd_fused_int8.cu``) and
+   prints their registers and shared memory;
 2. holds K1 against its plain PyTorch version ``sd_fused_ref`` on the 22
    deconv layers of the paper's six networks (batch 4, f32, TF32 off,
    ``max|d| <= 1e-4 * max(1, max|y_ref|)``), on an ``output_padding >
@@ -46,7 +47,24 @@ Drives ``repro_torch`` only (never JAX, never the JAX package ``repro``):
    K1 f32 gate), the ``torch`` backend and the fused server's model
    within ``tolerance((3, 3)) * max|ref|``.  K4's ``bound_ms`` counts the
    work its algorithm needs (transform-domain products and transforms);
-   ``useful_bound_ms`` beside it is the direct deconv's, K1's bound.
+   ``useful_bound_ms`` beside it is the direct deconv's, K1's bound;
+7. int8: holds K1's int8 branch (``sd_fused_int8.cu``) against its plain
+   version (``sd_fused_ref`` on the int8 pair, exact sums) on the 22
+   paper layers and odd geometries (Cin not a multiple of 4, ``op >
+   pad_hi``, asymmetric pads, forced ragged tiles) at batch 4 and on
+   DCGAN's layers at batch 16, at two gates: bit-identical at unit
+   scale, zero bias and linear act; ``1e-6 * max(1, max|y_ref|)`` with
+   per-sample activation scales, folded-BN filter scales, bias and
+   relu/tanh; times K1 int8, its plain version, float K1 and
+   ``F.conv_transpose2d`` (f32, a yardstick) per DCGAN layer at batch
+   16; serves 48 full-width DCGAN requests through
+   ``GenServer(dtype="int8")`` and checks 3 K1-int8 and 0 float-K1
+   launches per batch, finite outputs, the int8 ``torch`` backend on the
+   card within ``1e-3 * max(1, max|ref|)`` and the float fused server's
+   model within 0.05 of max|ref| with SSIM >= 0.99; times a batch of 16
+   on the int8 and the float server in turns.  K1 int8's ``bound_ms`` is
+   at the int8 tensor cores' peak, ``useful_bound_ms`` at the CUDA
+   cores' dp4a rate the kernel runs on.
 
 Every printed number carries the card's name and power limit.  The line
 before the last is ``{"kernels": [...]}``; the last is ``{"ok": true,
@@ -75,7 +93,20 @@ SERVE_REQUESTS = 48
 BUCKET = 16
 SEED = 0
 GAN_STEPS = 6
-SOURCES = ("sd_fused", "sd_conv", "sd_filter_grad", "sd_wino")
+SOURCES = ("sd_fused", "sd_conv", "sd_filter_grad", "sd_wino",
+           "sd_fused_int8")
+# K1's int8 branch.  bound_ms: the H100 SXM's dense int8 tensor-core peak
+# (NVIDIA data sheet, 1,979 TOP/s); useful_bound_ms: the CUDA cores' dp4a
+# rate the kernel runs on, derived (not a data-sheet figure) as 64 dp4a
+# per SM per clock (the CUDA C programming guide's rate of 32-bit integer
+# multiply-adds for compute capability 9.0) x 4 int8 MACs x 2 operations
+# x 132 SMs x 1.98 GHz boost clock.
+PEAK_INT8_OPS = 1979e12
+DP4A_OPS = 64 * 4 * 2 * 132 * 1.98e9
+INT8_EXACT_GATE = 1e-6   # K1 int8 vs its plain version, rel. max(1, max|ref|)
+INT8_SERVE_GATE = 1e-3   # served vs the int8 torch backend (tests/test_quant.py:116)
+INT8_VS_F32 = 0.05       # max|d|/max|ref| vs the float server (:134)
+SSIM_GATE = 0.99         # vs the float server (benchmarks/quant_bench.py)
 
 
 def _card_line() -> str:
@@ -791,6 +822,307 @@ def _wino_phase(dev, tag, randn) -> dict:
             "batch_device": breakdown}
 
 
+def _int8_phase(dev, tag, randn) -> dict:
+    """Phase 7: K1's int8 branch against its plain version (exact sums)
+    at two gates on the 22 paper layers and the odd geometries at batch
+    4, and on DCGAN's layers at batch 16; K1 int8, plain, float K1 and
+    ``F.conv_transpose2d`` timed per DCGAN layer at batch 16; then
+    full-width DCGAN served through ``GenServer(dtype="int8")``.  Returns
+    K1 int8's record, the per-layer times and the serving report."""
+    import torch
+    import torch.nn.functional as F
+    import repro_torch.kernels.sd_conv as K
+    from repro_torch import sd
+    from repro_torch.core.accounting import BENCHMARKS
+    from repro_torch.core.deconv import same_deconv_pads
+    from repro_torch.core.quant import quantize_act
+    from repro_torch.core.ssim import ssim
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.autotune import FusedGeom, KernelPlan, smem_bytes
+    from repro_torch.launch.serve_gen import GenServer, serve_async
+    from repro_torch.models.generative import GenerativeModel
+
+    def case(sx, wshape, s, pad, act, op=0, tile=None):
+        """f32 input and weights, the int8 plan (BN scale folded, bias),
+        the per-sample quantized input and the combined (B, NC) scale."""
+        x = randn(*sx)
+        w = randn(*wshape, scale=1.0 / (wshape[0] * wshape[1]
+                                        * wshape[2]) ** 0.5)
+        gamma = randn(wshape[-1], scale=0.1) + 1.0
+        bias = randn(wshape[-1], scale=0.1)
+        p = sd.plan(w.shape, s, pad, backend="fused", act=act,
+                    output_padding=op, tile=tile, dtype="int8",
+                    device=dev).bind(w, gamma, bias)
+        xq, sxs = quantize_act(x)
+        comb = (sxs[:, None] * p.wscale[None, :]).contiguous()
+        return x, w, gamma, bias, p, xq, comb
+
+    def geo(p, xq):
+        return dict(pad=((p.pi[0],) * 2, (p.pi[1],) * 2),
+                    crop=(p.pk[0] + p.padding[0][0],
+                          p.pk[1] + p.padding[1][0]),
+                    out_space=p.out_shape(xq.shape[1:3]))
+
+    def k1q(xq, p, comb, bias, act):
+        return ops.sd_deconv_presplit_fused(
+            xq, p.ws, p.kernel, p.stride, p.padding,
+            output_padding=p.output_padding, bias=bias, act=act,
+            scale=comb, plan=p.tile)
+
+    def plain(xq, p, comb, bias, act):
+        return K.sd_fused_ref(xq, p.ws, p.stride, bias=bias, act=act,
+                              scale=comb, **geo(p, xq))
+
+    err = {"unit": 0.0, "scaled": 0.0}
+    failures = []
+
+    def check(label, xq, p, comb, acts):
+        """(a) unit scale, zero bias, linear: bit-identical; (b) the real
+        scales, the plan's bias, each act in ``acts``: within
+        INT8_EXACT_GATE * max(1, max|ref|)."""
+        ones, zero = torch.ones_like(comb), torch.zeros_like(p.bias)
+        out, ref = k1q(xq, p, ones, zero, "linear"), \
+            plain(xq, p, ones, zero, "linear")
+        torch.cuda.synchronize()
+        n_diff = int((out != ref).sum())
+        d = (out - ref).abs().max().item()
+        err["unit"] = max(err["unit"], d)
+        ok = n_diff == 0 and out.shape == ref.shape \
+            and out.dtype == torch.float32
+        line = (f"  {label} {tuple(xq.shape)}->{tuple(out.shape)} unit "
+                f"scale: {n_diff} elements differ (max|d| {d:.3e})")
+        for act in acts:
+            out, ref = k1q(xq, p, comb, p.bias, act), \
+                plain(xq, p, comb, p.bias, act)
+            torch.cuda.synchronize()
+            d, tol = _gate_err(out, ref, INT8_EXACT_GATE, True)
+            err["scaled"] = max(err["scaled"], d)
+            ok = ok and d <= tol
+            line += f"; {act} max|d| {d:.3e} tol {tol:.3e}"
+        print(f"{line} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(label)
+
+    print(f"check: K1 int8 vs sd_fused_ref on the int8 pair (exact sums), "
+          f"batch 4: (a) unit scale, zero bias, linear: bit-identical; (b) "
+          f"per-sample scales, folded-BN wscale, bias, relu and tanh: gate "
+          f"{INT8_EXACT_GATE}*max(1,max|ref|) {tag}")
+    for net, fn in BENCHMARKS.items():
+        for l in fn().deconv_layers():
+            _, _, _, _, p, xq, comb = case(
+                (4, *l.in_hw, l.cin), (l.k, l.k, l.cin, l.cout), l.s,
+                same_deconv_pads(l.k, l.s), "relu")
+            check(f"{net}/{l.name}", xq, p, comb, ("relu", "tanh"))
+    # Cin not a multiple of 4 (tail words), op > pad_hi, asymmetric pads,
+    # forced ragged tiles and ragged Cin steps.
+    odd = [((2, 5, 6, 7), (4, 4, 7, 2), 2, 0, 1, None),
+           ((2, 5, 6, 3), (4, 4, 3, 2), 2, 1, (1, 0), None),
+           ((1, 6, 7, 5), (5, 5, 5, 2), 2, ((1, 3), (0, 2)), 0, None),
+           ((3, 13, 11, 40), (5, 5, 40, 24), 2, 2, 1,
+            KernelPlan(th=3, tw=2, tcin=12, tc=32)),
+           ((2, 9, 10, 70), (3, 3, 70, 5), 2, 1, 1,
+            KernelPlan(th=2, tw=3, tcin=9, tc=16)),
+           ((2, 9, 7, 6), (5, 5, 6, 6), 1, 2, 0,
+            KernelPlan(th=3, tw=1, tcin=5, tc=16))]
+    for sx, sw_, st, padv, op, tile in odd:
+        _, _, _, _, p, xq, comb = case(sx, sw_, st, padv, "relu", op, tile)
+        check(f"odd k{sw_[:2]} s{st} p{padv} op{op} tile {tile}", xq, p,
+              comb, ("relu", "tanh"))
+    if failures:
+        raise SystemExit(f"chip_smoke: K1 int8 disagrees with its plain "
+                         f"version on {failures}")
+
+    dcgan = [(i, l) for i, l in enumerate(BENCHMARKS["dcgan"]().layers)
+             if l.kind == "deconv"]
+    print(f"time: DCGAN layers at batch {BUCKET}, CUDA events: median "
+          f"[min, max] of 7 rounds of 20 warm launches, K1 int8 / plain / "
+          f"K1 f32 / conv_transpose2d f32 (TF32 off; a float yardstick, no "
+          f"single PyTorch call computes this int8 function) in turns; "
+          f"bound at the dense int8 tensor-core peak (NVIDIA H100 SXM data "
+          f"sheet), useful_bound at the CUDA cores' dp4a rate (derived: 64 "
+          f"dp4a per SM per clock x 132 SMs x 1.98 GHz) {tag}")
+    per_layer = []
+    for i, l in dcgan:
+        act = "linear" if i == 3 else "relu"
+        x, w, gamma, bias, p, xq, comb = case(
+            (BUCKET, *l.in_hw, l.cin), (l.k, l.k, l.cin, l.cout), l.s,
+            same_deconv_pads(l.k, l.s), act)
+        check(f"dcgan/{l.name} batch {BUCKET}", xq, p, comb,
+              (act, "tanh") if act == "relu" else ("relu", "tanh"))
+        if failures:
+            raise SystemExit(f"chip_smoke: K1 int8 disagrees with its "
+                             f"plain version on {failures}")
+        pf = sd.plan(w.shape, l.s, same_deconv_pads(l.k, l.s),
+                     backend="fused", act=act, device=dev).bind(
+                         w, gamma, bias)
+        x_cf = x.permute(0, 3, 1, 2).contiguous()
+        w_t = torch.randn(l.cin, l.cout, l.k, l.k, device=dev)
+        lib = lambda: F.conv_transpose2d(                 # noqa: E731
+            x_cf, w_t, bias, stride=l.s, padding=2, output_padding=1)
+        y = k1q(xq, p, comb, p.bias, act)
+        assert lib().shape[2:] == y.shape[1:3]
+        t = _time_ms({
+            "k1q": lambda: k1q(xq, p, comb, p.bias, act),
+            "plain": lambda: plain(xq, p, comb, p.bias, act),
+            "k1": lambda: sd.execute(pf, x),
+            "lib": lib})
+        macs = BUCKET * l.macs()
+        nbytes = (xq.numel() + p.ws.numel() + 4 * comb.numel()
+                  + 4 * y.numel())
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        t_ops = 2.0 * macs / PEAK_INT8_OPS * 1e3
+        t_dp4a = 2.0 * macs / DP4A_OPS * 1e3
+        g = K.launch_geometry(xq.shape, p.ws.shape, p.stride,
+                              geo(p, xq)["pad"], geo(p, xq)["crop"],
+                              geo(p, xq)["out_space"], dtype="int8")
+        smem = smem_bytes(FusedGeom(
+            *l.in_hw, l.cin, p.ws.shape[-1], p.kt[0], p.kt[1], l.s, l.s,
+            g.out_h, g.out_w, g.res_h, g.res_w, dtype="int8"), g.plan)
+        # The events above time 20 back-to-back wrapper calls, which the
+        # host bounds where a launch is shorter than its Python (d3); the
+        # profiler reads the kernel's own device time of one call.
+        bd = _device_breakdown(lambda: k1q(xq, p, comb, p.bias, act))
+        dev_ms = None if bd is None else bd[0]
+        ms, lo, hi = t["k1q"]
+        rec = {"layer": f"dcgan/{l.name}", "ms": ms, "device_ms": dev_ms,
+               "ms_min": lo,
+               "ms_max": hi, "plain_ms": t["plain"][0],
+               "k1_f32_ms": t["k1"][0], "library_ms": t["lib"][0],
+               "bound_ms": max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "useful_bound_ms": max(t_dp4a, t_bytes), "macs": macs,
+               "bytes": nbytes, "tile": str(g.plan), "smem_bytes": smem,
+               "launches_per_batch": 1}
+        per_layer.append(rec)
+        print(f"  dcgan/{l.name} {tuple(xq.shape)}->{tuple(y.shape)} tile "
+              f"{g.plan}, grid {-(-p.ws.shape[-1] // g.plan.tc)} x "
+              f"{g.nh * g.nw} x {BUCKET} blocks, {smem} B dynamic shared "
+              f"memory per block: K1 int8 {ms:.4f} ms [{lo:.4f}, "
+              f"{hi:.4f}] ({2 * macs / ms / 1e9:.1f} TOP/s; device time of "
+              f"one call in the profiler "
+              f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}"
+              f"), plain "
+              f"{rec['plain_ms']:.4f} ms, K1 f32 {rec['k1_f32_ms']:.4f} ms, "
+              f"conv_transpose2d f32 {rec['library_ms']:.4f} ms; bound "
+              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}; int8 tensor "
+              f"cores {PEAK_INT8_OPS / 1e12:.0f} TOP/s), useful_bound "
+              f"{rec['useful_bound_ms']:.4f} ms (dp4a on the CUDA cores "
+              f"{DP4A_OPS / 1e12:.1f} TOP/s); sm clock, power, temperature "
+              f"{_clocks()} {tag}")
+
+    # ---- serve full-width DCGAN through the int8 server ----------------
+    server = GenServer(nets=("dcgan",), device=dev, max_batch=BUCKET,
+                       seed=SEED, dtype="int8")
+    built_cells = server.warmup()
+    reqs = server.random_requests("dcgan", SERVE_REQUESTS, seed=1)
+    torch.cuda.synchronize()
+    K.SD_FUSED_INT8_LAUNCHES = 0
+    K.SD_FUSED_LAUNCHES = 0
+    results, stats = serve_async(server, reqs)
+    torch.cuda.synchronize()
+    launches, k1_launches = K.SD_FUSED_INT8_LAUNCHES, K.SD_FUSED_LAUNCHES
+    lat = stats["latency_ms"]
+    print(f"serve int8: {stats['served']} DCGAN requests (full width, "
+          f"int8 execution, f32 IO) in {stats['wall_s']:.4f} s host clock: "
+          f"{stats['req_per_s']:.1f} req/s, p50 {lat['p50']} ms, p95 "
+          f"{lat['p95']} ms, {stats['launches']} launches, "
+          f"{stats['compiles']} cells ({built_cells} built in warmup) {tag}")
+    print(f"  K1 int8 launches in the serving run: {launches} (3 deconv "
+          f"layers x {stats['launches']} batches); K1 f32 launches: "
+          f"{k1_launches}")
+    if launches != 3 * stats["launches"] or launches == 0 or k1_launches:
+        raise SystemExit("chip_smoke: the int8 server did not run K1's int8 "
+                         "branch (and only it) once per deconv layer per "
+                         "batch")
+    if stats["served"] != SERVE_REQUESTS or stats["shed"]:
+        raise SystemExit(f"chip_smoke: served {stats['served']} of "
+                         f"{SERVE_REQUESTS}, shed {stats['shed']}")
+    model, params = server.model("dcgan")
+    z = torch.stack([r.latent for r in reqs])
+    out = torch.stack([results[r.rid] for r in reqs])
+    with torch.no_grad():
+        ref_t = GenerativeModel(model.spec, "sd_kernel",
+                                engine_backend="torch", device=dev,
+                                engine_dtype="int8").apply(params, z)
+        ref_f = GenerativeModel(model.spec, "sd_kernel",
+                                engine_backend="fused",
+                                device=dev).apply(params, z)
+    finite = bool(torch.isfinite(out).all())
+    ok = finite and tuple(out.shape) == (SERVE_REQUESTS, 64, 64, 3)
+    d, tol = _gate_err(out, ref_t, INT8_SERVE_GATE, True)
+    n_over = int(((out - ref_t).abs() > 1e-5).sum())
+    ok = ok and d <= tol
+    rel = ((out - ref_f).abs().max() / ref_f.abs().max()).item()
+    s_val = ssim(out, ref_f, data_range=2.0).item()
+    ok = ok and rel < INT8_VS_F32 and s_val >= SSIM_GATE
+    print(f"  outputs {tuple(out.shape)} finite={finite}; on the same "
+          f"weights {tag}:")
+    print(f"    vs the int8 torch backend on the card (exact sums) max|d| "
+          f"{d:.3e} tol {tol:.3e} ({INT8_SERVE_GATE}*max(1,max|ref|)); "
+          f"{n_over} of {out.numel()} elements differ by more than 1e-5 "
+          f"{'ok' if d <= tol else 'FAIL'}")
+    print(f"    vs the float fused server's model: max|d|/max|ref| "
+          f"{rel:.4e} (gate < {INT8_VS_F32}), SSIM {s_val:.6f} (gate >= "
+          f"{SSIM_GATE}, data_range 2.0) "
+          f"{'ok' if rel < INT8_VS_F32 and s_val >= SSIM_GATE else 'FAIL'}")
+    if not ok:
+        raise SystemExit("chip_smoke: int8-served outputs are wrong")
+
+    # ---- one batch of 16: int8 vs float fused, in turns ----------------
+    f32 = GenServer(nets=("dcgan",), device=dev, max_batch=BUCKET,
+                    seed=SEED)
+    f32.warmup()
+    full = [r.latent for r in reqs[:BUCKET]]
+    host = {"int8": [], "f32": []}
+    for r in range(10):
+        for name in (("int8", "f32") if r % 2 == 0 else ("f32", "int8")):
+            srv = server if name == "int8" else f32
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            srv.run_group("dcgan", full)
+            torch.cuda.synchronize()
+            host[name].append((time.perf_counter() - t0) * 1e3)
+    host_ms = {k: sorted(v)[len(v) // 2] for k, v in host.items()}
+    breakdown = {k: _device_breakdown(lambda s=s: s.run_group("dcgan", full))
+                 for k, s in (("int8", server), ("f32", f32))}
+    print(f"batch int8: one DCGAN batch of {BUCKET} through run_group: int8 "
+          f"{host_ms['int8']:.3f} ms, f32 fused {host_ms['f32']:.3f} ms host "
+          f"clock (median of 10, synchronised, in turns) {tag}")
+    for name, bd in breakdown.items():
+        if bd is None:
+            print(f"  {name}: device time per kernel: not measured (the "
+                  "profiler reported no device time)")
+            continue
+        busy, wall, top = bd
+        print(f"  {name} profiler: device busy {busy:.3f} ms of {wall:.3f} "
+              f"ms wall (idle share {1 - busy / wall:.3f}) {tag}")
+        for kname, ms_k, calls in top:
+            print(f"    {ms_k:.4f} ms in {calls} call(s): {kname[:90]}")
+
+    tot = {k: sum(r[k] for r in per_layer)
+           for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                     "useful_bound_ms", "k1_f32_ms", "macs", "bytes")}
+    kernel = {
+        "name": "sd_fused_int8", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/sd_fused_int8.cu",
+        "replaces": "src/repro/kernels/sd_conv.py:352",
+        "launches": launches, "max_abs_err": err["scaled"],
+        "max_abs_err_unit_scale": err["unit"],
+        "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+        "bound_ms": tot["bound_ms"],
+        "bound_by": ("operations" if 2.0 * tot["macs"] / PEAK_INT8_OPS
+                     >= tot["bytes"] / PEAK_BYTES else "bytes"),
+        "useful_bound_ms": tot["useful_bound_ms"],
+        "library_ms": None, "f32_library_ms": tot["library_ms"],
+        "k1_f32_ms": tot["k1_f32_ms"]}
+    return {"kernel": kernel, "per_layer": per_layer,
+            "serve": {k: stats[k] for k in ("served", "launches",
+                                            "req_per_s", "wall_s",
+                                            "latency_ms")},
+            "vs_torch_max_abs": d, "vs_f32_rel": rel, "ssim": s_val,
+            "batch_host_ms": host_ms, "batch_device": breakdown}
+
+
 def main(json_path: str = "") -> int:
     t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(HERE, "src", "repro_torch")):
@@ -832,7 +1164,7 @@ def main(json_path: str = "") -> int:
               f"{builds[name].seconds:.2f} s (host clock, the {len(SOURCES)} "
               f"sources in parallel) {tag}")
         for line in builds[name].ptxas.splitlines():
-            if any(k in line for k in ("registers", "smem",
+            if any(k in line for k in ("registers", "smem", "spill",
                                        "Compiling entry")):
                 print(f"  ptxas: {line.strip()}")
     built = builds["sd_fused"]
@@ -1091,6 +1423,9 @@ def main(json_path: str = "") -> int:
     # ---- 6. serve full-width DCGAN through K4 (Winograd) ----------------
     wino = _wino_phase(dev, tag, randn)
 
+    # ---- 7. serve int8 DCGAN through K1's int8 branch --------------------
+    int8 = _int8_phase(dev, tag, randn)
+
     if "jax" in sys.modules or "repro" in sys.modules:
         raise SystemExit("chip_smoke: JAX or the JAX package was imported")
     total = {k: sum(r[k] for r in per_layer)
@@ -1107,13 +1442,14 @@ def main(json_path: str = "") -> int:
         "ms": total["ms"], "plain_ms": total["plain_ms"],
         "bound_ms": total["bound_ms"], "bound_by": bound_by,
         "library_ms": total["library_ms"]}] + train["kernels"] + \
-        [wino["kernel"]]
+        [wino["kernel"], int8["kernel"]]
     report = {"card": card, "kernels": kernels,
               "per_layer": per_layer + train["per_layer"],
               "train": train["train"],
               "winograd": {k: wino[k] for k in ("per_layer", "serve",
                                                 "peak_mib", "batch_host_ms",
                                                 "batch_device")},
+              "int8": {k: v for k, v in int8.items() if k != "kernel"},
               "serve": {k: stats[k] for k in
                         ("served", "launches", "req_per_s", "wall_s",
                          "latency_ms")},
@@ -1131,7 +1467,8 @@ def main(json_path: str = "") -> int:
     print("(below: ms/plain_ms/bound_ms/library_ms summed over DCGAN's "
           f"three deconv layers at batch {BUCKET}; launches counted in the "
           f"{GAN_STEPS}-step training run, K1's serving-run count as "
-          f"launches_serve; K4's in the winograd serving run) {tag}")
+          f"launches_serve; K4's in the winograd serving run, K1 int8's in "
+          f"the int8 serving run) {tag}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

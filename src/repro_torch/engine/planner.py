@@ -6,6 +6,12 @@ and, per deconv layer, builds a bound plan: the geometry from
 call with the inference-BN scale folded into the split filters and the
 bias and activation kept for the epilogue.  :meth:`SDEngine.run` executes
 a layer from its cached plan; nothing offline happens on the hot path.
+
+``dtype="int8"`` binds int8 plans (filters quantized per split output
+channel at bind, activations per sample on the hot path).  Every
+:meth:`SDEngine.bind` bumps :attr:`SDEngine.generation`, so a holder of
+a snapshot of the plans (the server's cells) can tell that they were
+rebuilt.
 """
 
 from __future__ import annotations
@@ -19,7 +25,8 @@ from repro_torch.core.accounting import LayerSpec, NetworkSpec
 from repro_torch.core.deconv import _ntuple, same_deconv_pads
 from repro_torch.device import resolve_device
 from repro_torch.sd import functional as sd_functional
-from repro_torch.sd.plan import DeconvPlan, plan as make_plan, resolve_backend
+from repro_torch.sd.plan import (DTYPES, DeconvPlan, plan as make_plan,
+                                 resolve_backend)
 
 Params = Dict[str, Any]
 
@@ -49,13 +56,19 @@ class SDEngine:
     ``device``, torch on the CPU).  The reference's measured per-layer
     choice between fused and winograd (``autotune.best_algo``, armed by
     ``pretune``) waits for measured tiles.  ``device=None`` is the card,
-    as everywhere in the port (raises without one)."""
+    as everywhere in the port (raises without one).  ``dtype``:
+    ``"native"`` or ``"int8"`` (the plans' execution dtype)."""
 
     def __init__(self, spec: NetworkSpec, backend: str = "auto",
-                 device=None):
+                 device=None, dtype: str = "native"):
+        if dtype not in DTYPES:
+            raise ValueError(f"unknown engine dtype {dtype!r}; choose from "
+                             f"{DTYPES}")
         self.spec = spec
         self.device = resolve_device(device)
         self.backend = resolve_backend(backend, self.device)
+        self.dtype = dtype
+        self.generation = 0          # bumped by every bind
         self._plans: Dict[str, DeconvPlan] = {}
         self._bound: Optional[Params] = None
         self._bound_leaves: Optional[tuple] = None
@@ -76,21 +89,27 @@ class SDEngine:
         return tuple(leaves)
 
     # ---- offline phase ---------------------------------------------------
-    def layer_plan(self, layer: LayerSpec, act: str) -> DeconvPlan:
+    def layer_plan(self, layer: LayerSpec, act: str,
+                   dtype: Optional[str] = None) -> DeconvPlan:
         """Geometry-only plan for one deconv layer (tile chosen at call
-        time from the launch geometry)."""
+        time from the launch geometry).  ``dtype`` overrides the engine's
+        (the models' differentiable path asks an int8 engine for float
+        plans: int8 plans are inference-only)."""
         rank = layer.rank
         kernel = (layer.k,) * rank
         stride = (layer.s,) * rank
         pads = (same_deconv_pads(kernel, stride)
                 if layer.padding == "same" else layer.pad)
         return make_plan((*kernel, layer.cin, layer.cout), stride, pads,
-                         backend=self.backend, act=act)
+                         backend=self.backend, act=act,
+                         dtype=self.dtype if dtype is None else dtype)
 
+    @torch.no_grad()
     def build_plans(self, params: Params) -> Dict[str, DeconvPlan]:
         """Bound plans for every deconv layer.  The epilogue activation
         is relu for every deconv that is not the net's last layer and
-        linear for the last (the model applies the final tanh)."""
+        linear for the last (the model applies the final tanh).  Built
+        without autograd: bound plans are data, never part of a graph."""
         layers = self.spec.layers
         plans: Dict[str, DeconvPlan] = {}
         for i, layer in enumerate(layers):
@@ -109,6 +128,7 @@ class SDEngine:
         self._bound = params
         self._bound_leaves = self._plan_leaves(params)
         self._bound_versions = _versions(self._bound_leaves)
+        self.generation += 1
         return self
 
     def bound_to(self, params: Params) -> bool:

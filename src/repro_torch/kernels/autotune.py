@@ -15,6 +15,12 @@ times ``tc`` phase channels: ``tc / MICRO`` threads along the channels,
 the rest along the positions, each thread a ``MICRO x MICRO`` register
 tile.  ``tcin`` input channels are staged in shared memory per step of
 the block's own loop over Cin.
+
+A geometry carries its operand dtype (``dtype``: ``""`` for float,
+``"int8"`` for K1's quant branch), so the float and the int8 launch of
+one layer are distinct geometries (a geometry is its own tile key), and
+the int8 branch's shared memory is modelled at one byte per staged
+value.
 """
 
 from __future__ import annotations
@@ -44,8 +50,9 @@ class KernelPlan:
 class FusedGeom:
     """What the fused kernel launches: unpadded input ``h x w x cin``,
     ``nc = Cout*sh*sw`` phase channels, ``(kth, ktw)`` taps, interleave
-    ``(sh, sw)``, final output ``out_h x out_w`` and the residual crop
-    ``(res_h, res_w)``."""
+    ``(sh, sw)``, final output ``out_h x out_w``, the residual crop
+    ``(res_h, res_w)`` and the operand dtype (``""`` float, ``"int8"``
+    the quant branch)."""
     h: int
     w: int
     cin: int
@@ -58,6 +65,7 @@ class FusedGeom:
     out_w: int
     res_h: int = 0
     res_w: int = 0
+    dtype: str = ""
 
 
 def band_plane(geom: FusedGeom, plan: KernelPlan) -> int:
@@ -70,10 +78,13 @@ def band_plane(geom: FusedGeom, plan: KernelPlan) -> int:
 
 
 def smem_bytes(geom: FusedGeom, plan: KernelPlan) -> int:
-    """Dynamic shared memory of one block: the f32 filter block
-    ``(kth, ktw, tcin, tc)`` and the f32 input band ``(tcin, plane)``."""
-    filt = geom.kth * geom.ktw * plan.tcin * plan.tc
-    return 4 * (filt + plan.tcin * band_plane(geom, plan))
+    """Dynamic shared memory of one block: the filter block ``(kth, ktw,
+    tcin, tc)`` and the input band ``(tcin, plane)``, f32 words; int8
+    launches stage both as int8 packed four input channels to a 32-bit
+    word (``ceil(tcin / 4)`` words per position, the tail zero-filled)."""
+    words = -(-plan.tcin // 4) if geom.dtype == "int8" else plan.tcin
+    filt = geom.kth * geom.ktw * words * plan.tc
+    return 4 * (filt + words * band_plane(geom, plan))
 
 
 def heuristic_plan(geom: FusedGeom) -> KernelPlan:
@@ -81,8 +92,9 @@ def heuristic_plan(geom: FusedGeom) -> KernelPlan:
     :data:`TILE_CHANNELS` that holds all phase channels, else the
     largest.  Position tile: as square as the block's ``THREADS / (tc /
     MICRO) * MICRO`` positions allow, no larger than the output needs.
-    ``tcin``: up to 32 input channels per step, halved until the block
-    fits :data:`SMEM_TARGET` (and never past :data:`SMEM_BUDGET`)."""
+    ``tcin``: up to 32 input channels per step (64 for int8, whose
+    staging is 4x smaller), halved until the block fits
+    :data:`SMEM_TARGET` (and never past :data:`SMEM_BUDGET`)."""
     tc = next((t for t in TILE_CHANNELS if t >= geom.nc), TILE_CHANNELS[-1])
     positions = THREADS // (tc // MICRO) * MICRO
     eh, ew = (1 if geom.res_h else 0), (1 if geom.res_w else 0)
@@ -92,7 +104,7 @@ def heuristic_plan(geom: FusedGeom) -> KernelPlan:
     th = max(1, min(need_h, side - eh))
     tw = max(1, min(need_w, positions // (th + eh) - ew))
     th = max(1, min(need_h, positions // (tw + ew) - eh))
-    tcin = min(32, geom.cin)
+    tcin = min(64 if geom.dtype == "int8" else 32, geom.cin)
     plan = KernelPlan(th=th, tw=tw, tcin=tcin, tc=tc)
     while tcin > 1 and smem_bytes(geom, plan) > SMEM_TARGET:
         tcin = max(1, tcin // 2)

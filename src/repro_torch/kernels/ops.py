@@ -24,7 +24,8 @@ from repro_torch.core.deconv import (_check_output_padding, _check_padding,
                                      _ntuple, _pads_nd, deconv_output_shape,
                                      sd_geometry)
 from repro_torch.kernels.autotune import FilterGradPlan, KernelPlan
-from repro_torch.kernels.sd_conv import sd_conv, sd_filter_grad, sd_fused
+from repro_torch.kernels.sd_conv import (quant_contract, sd_conv,
+                                         sd_filter_grad, sd_fused)
 from repro_torch.kernels.winograd import sd_wino
 
 
@@ -50,17 +51,28 @@ def sd_deconv_presplit_fused(x: torch.Tensor, ws_ocmajor: torch.Tensor,
                              output_padding=0,
                              bias: Optional[torch.Tensor] = None,
                              act: str = "linear",
+                             scale: Optional[torch.Tensor] = None,
+                             out_dtype: Optional[torch.dtype] = None,
                              plan: Optional[KernelPlan] = None
                              ) -> torch.Tensor:
     """2-D transposed conv from pre-split oc-major filters in one fused
-    launch: x (B, H, W, Cin), ws_ocmajor (KTh, KTw, Cin, Cout*sh*sw)."""
+    launch: x (B, H, W, Cin), ws_ocmajor (KTh, KTw, Cin, Cout*sh*sw).
+
+    An int8 ``(x, ws_ocmajor)`` pair with the combined dequant ``scale``
+    (B, Cout*sh*sw) runs K1's int8 branch and returns f32 (see
+    :func:`~repro_torch.kernels.sd_conv.sd_fused`)."""
     s, _, pad, crop, out_space = _deconv_launch(x.shape, kernel, stride,
                                                 padding, output_padding)
     if any(o == 0 for o in out_space):
+        # Degenerate geometry: nothing to launch.  An int8 launch would
+        # have written its dequantized f32.
+        quant = quant_contract(x, ws_ocmajor, scale, out_dtype)
         cout = ws_ocmajor.shape[-1] // (s[0] * s[1])
-        return x.new_zeros((x.shape[0], *out_space, cout))
+        return x.new_zeros((x.shape[0], *out_space, cout),
+                           dtype=torch.float32 if quant else x.dtype)
     return sd_fused(x, ws_ocmajor, s, bias=bias, act=act, pad=pad,
-                    crop=crop, out_space=out_space, plan=plan)
+                    crop=crop, out_space=out_space, plan=plan, scale=scale,
+                    out_dtype=out_dtype)
 
 
 def sd_deconv_presplit_wino(x: torch.Tensor, u: torch.Tensor, kernel,

@@ -9,6 +9,23 @@ launches the CUDA kernel ``csrc/sd_fused.cu`` (built at first use) or
 raises; on a CPU tensor it runs :func:`sd_fused_ref`, the same function
 in plain PyTorch.  ``SD_FUSED_LAUNCHES`` counts kernel launches.
 
+K1's int8 branch takes an int8 ``(x, ws)`` pair and the combined dequant
+``scale`` (B, Cout*sh*sw) of the dynamic path: int8 x int8 tap GEMMs
+accumulated exactly in int32, the scale applied per phase channel
+before the interleave, K1's epilogue, f32 output.  On a CUDA tensor it
+launches ``csrc/sd_fused_int8.cu`` (counted by
+``SD_FUSED_INT8_LAUNCHES``, never by ``SD_FUSED_LAUNCHES``); its plain
+version is :func:`sd_fused_ref` on the int8 pair, which sums exactly
+(:func:`exact_conv_valid`) and rounds the sum to f32 once, where the
+kernel does.  The calibrated half of the branch (a static ``(1, NC)``
+scale row, the requantizing int8 output) raises; see ROADMAP.md.
+
+A kernel's output carries no autograd graph, so the forward wrappers
+(K1 here, K4 in :mod:`~repro_torch.kernels.winograd`) raise when an
+operand on the card requires grad while grad mode is on
+(:func:`check_no_grad`); the differentiable path is
+:func:`repro_torch.sd.conv_transpose`.
+
 The SD backward's two kernels follow the same rule (a CUDA tensor
 launches the kernel or raises; a CPU tensor runs the plain version):
 K2, :func:`sd_conv` (``csrc/sd_conv.cu``, contract of ``sd_conv_pallas``:
@@ -21,6 +38,7 @@ a stride-1 VALID conv with in-kernel pad and an output window), and K3,
 from __future__ import annotations
 
 import ctypes
+import itertools
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -39,8 +57,11 @@ from repro_torch.kernels.autotune import (DW_TCI, ConvGeom, FilterGradGeom,
 PadPair = Tuple[int, int]
 ACTS = {"linear": 0, "relu": 1, "tanh": 2}
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+INT32_MAX_SUM = 2 ** 31    # the int8 branch's int32 accumulator must stay below
+_LATER = "see ROADMAP.md for the slice that brings it"
 
 SD_FUSED_LAUNCHES = 0      # kernel launches; the plain version never counts
+SD_FUSED_INT8_LAUNCHES = 0
 SD_CONV_LAUNCHES = 0
 SD_FILTER_GRAD_LAUNCHES = 0
 
@@ -59,6 +80,80 @@ def _apply_act(y: torch.Tensor, act: str) -> torch.Tensor:
     raise ValueError(f"unknown act {act!r}")
 
 
+def check_no_grad(name: str, *ts: Optional[torch.Tensor]) -> None:
+    """Raise when grad mode is on and an operand requires grad: the
+    kernel's output would carry no graph, and the caller's backward would
+    silently miss this layer."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in ts):
+        raise RuntimeError(
+            f"{name}: an operand requires grad under grad mode, but the "
+            "kernel's output has no autograd graph; train through "
+            "repro_torch.sd.conv_transpose, or run under torch.no_grad()")
+
+
+def exact_conv_valid(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """Stride-1 VALID channels-last conv of integer-valued operands (int8
+    codes), any rank, exact: one f64 GEMM per tap, every product and
+    partial sum an integer below 2^53.  xq (B, *S, Cin), wq (*KT, Cin, N)
+    -> (B, *(S - KT + 1), N) f64 holding the int32 sums."""
+    rank = wq.ndim - 2
+    out = [n - k + 1 for n, k in zip(xq.shape[1:1 + rank], wq.shape[:rank])]
+    xd, wd = xq.double(), wq.double()
+    y = xd.new_zeros((xq.shape[0], *out, wq.shape[-1]))
+    for tap in itertools.product(*(range(k) for k in wq.shape[:rank])):
+        win = tuple(slice(t, t + o) for t, o in zip(tap, out))
+        y += xd[(slice(None),) + win] @ wd[tap]
+    return y
+
+
+def quant_contract(x, ws, scale, out_dtype) -> bool:
+    """Check the launch against K1's contract on any device; True for an
+    int8 launch.  The int8 branch takes an int8 pair, the dynamic (B,
+    Cout*sh*sw) f32 scale and f32 output, and refuses a geometry whose
+    exact sum could overflow its int32 accumulator; the calibrated path
+    (a static (1, NC) row for a batch, int8 output) is a later slice."""
+    quant = x.dtype == torch.int8 or ws.dtype == torch.int8
+    if not quant:
+        if scale is not None:
+            raise ValueError("scale requires an int8 (x, ws) pair")
+        if out_dtype is not None and out_dtype != x.dtype:
+            raise ValueError(f"a float launch writes {x.dtype}, not "
+                             f"{out_dtype}")
+        return False
+    if x.dtype != torch.int8 or ws.dtype != torch.int8:
+        raise TypeError(f"the int8 branch takes an int8 (x, ws) pair, got "
+                        f"{x.dtype} and {ws.dtype}")
+    if out_dtype == torch.int8:
+        raise NotImplementedError(
+            "int8 output (the chained, requantizing epilogue) comes with "
+            f"the calibrated int8 slice; {_LATER}")
+    if out_dtype not in (None, torch.float32):
+        raise TypeError(f"the int8 branch writes float32, not {out_dtype}")
+    if scale is None:
+        raise ValueError("an int8 launch needs the combined dequant scale "
+                         "(B, Cout*sh*sw)")
+    nc, b = ws.shape[-1], x.shape[0]
+    if scale.ndim != 2 or scale.shape[1] != nc:
+        raise ValueError(f"scale {tuple(scale.shape)} is not (B, {nc})")
+    if scale.shape[0] != b:
+        if scale.shape[0] == 1:
+            raise NotImplementedError(
+                "a static (1, NC) scale row (calibrated int8) comes with "
+                f"the calibrated int8 slice; {_LATER}")
+        raise ValueError(f"scale has {scale.shape[0]} rows for batch {b}")
+    if scale.dtype != torch.float32:
+        raise TypeError(f"scale must be float32, got {scale.dtype}")
+    if scale.device != x.device or not scale.is_contiguous():
+        raise ValueError("scale must be contiguous on the input's device")
+    terms = x.shape[-1] * ws.shape[0] * ws.shape[1]
+    if terms * 127 * 127 >= INT32_MAX_SUM:
+        raise ValueError(
+            f"an int8 split conv over Cin x taps = {terms} products of up "
+            "to 127^2 can reach 2^31: the int32 accumulator would overflow")
+    return True
+
+
 def _full_space(x_shape, ws_shape, s, pad):
     (sh, sw), (_, h, wd, _) = _pair(s), x_shape
     (plo_h, phi_h), (plo_w, phi_w) = pad
@@ -70,12 +165,21 @@ def sd_fused_ref(x: torch.Tensor, ws_ocmajor: torch.Tensor, s, *,
                  bias: Optional[torch.Tensor] = None, act: str = "linear",
                  pad: Tuple[PadPair, PadPair] = ((0, 0), (0, 0)),
                  crop: Tuple[int, int] = (0, 0),
-                 out_space: Optional[Tuple[int, int]] = None
+                 out_space: Optional[Tuple[int, int]] = None,
+                 scale: Optional[torch.Tensor] = None
                  ) -> torch.Tensor:
     """Plain PyTorch version of :func:`sd_fused`: ``F.pad``, ``F.conv2d``
     in f32, the oc-major interleave, crop (zero-extended past the
-    support), bias, activation, cast to ``x.dtype``."""
+    support), bias, activation, cast to ``x.dtype``.  On an int8 pair:
+    the exact sums (:func:`exact_conv_valid`), rounded to f32 once,
+    times ``scale[b, c]`` per phase channel before the interleave, then
+    the same epilogue in f32."""
     (plo_h, phi_h), (plo_w, phi_w) = pad
+    if x.dtype == torch.int8:
+        xp = F.pad(x, (0, 0, plo_w, phi_w, plo_h, phi_h))
+        y = exact_conv_valid(xp, ws_ocmajor).float() * scale[:, None, None]
+        return shuffle_epilogue(y, s, bias, act, crop, out_space,
+                                torch.float32)
     xp = F.pad(x.float(), (0, 0, plo_w, phi_w, plo_h, phi_h))
     y = conv_valid(xp, ws_ocmajor.float())      # (B, Hc, Wc, Cout*sh*sw)
     return shuffle_epilogue(y, s, bias, act, crop, out_space, x.dtype)
@@ -125,7 +229,8 @@ class LaunchGeometry:
 
 
 def launch_geometry(x_shape, ws_shape, s, pad, crop, out_space,
-                    plan: Optional[KernelPlan] = None) -> LaunchGeometry:
+                    plan: Optional[KernelPlan] = None,
+                    dtype: str = "") -> LaunchGeometry:
     sh, sw = _pair(s)
     _, h, wd, cin = x_shape
     kth, ktw, _, nc = ws_shape
@@ -135,7 +240,8 @@ def launch_geometry(x_shape, ws_shape, s, pad, crop, out_space,
     q_w, res_w = crop[1] // sw, crop[1] % sw
     sh_h, sh_w = min(q_h, plo_h), min(q_w, plo_w)
     geom = FusedGeom(h=h, w=wd, cin=cin, nc=nc, kth=kth, ktw=ktw, sh=sh,
-                     sw=sw, out_h=oh, out_w=ow, res_h=res_h, res_w=res_w)
+                     sw=sw, out_h=oh, out_w=ow, res_h=res_h, res_w=res_w,
+                     dtype=dtype)
     plan = plan if plan is not None else heuristic_plan(geom)
     if smem_bytes(geom, plan) > SMEM_BUDGET:
         raise ValueError(f"tile {plan} needs {smem_bytes(geom, plan)} bytes "
@@ -147,9 +253,9 @@ def launch_geometry(x_shape, ws_shape, s, pad, crop, out_space,
 
 
 def _check_cuda_operands(x, ws, bias, sh, sw):
-    if x.dtype not in DTYPES:
-        raise TypeError(f"sd_fused kernel takes float32 or bfloat16 input, "
-                        f"got {x.dtype} (the int8 branch is not ported)")
+    if x.dtype not in DTYPES and x.dtype != torch.int8:
+        raise TypeError(f"sd_fused kernel takes float32, bfloat16 or int8 "
+                        f"input, got {x.dtype}")
     if ws.dtype != x.dtype:
         raise TypeError(f"filter dtype {ws.dtype} != input dtype {x.dtype}")
     if x.ndim != 4 or ws.ndim != 4 or ws.shape[2] != x.shape[3]:
@@ -170,7 +276,9 @@ def sd_fused(x: torch.Tensor, ws_ocmajor: torch.Tensor, s, *,
              pad: Tuple[PadPair, PadPair] = ((0, 0), (0, 0)),
              crop: Tuple[int, int] = (0, 0),
              out_space: Optional[Tuple[int, int]] = None,
-             plan: Optional[KernelPlan] = None) -> torch.Tensor:
+             plan: Optional[KernelPlan] = None,
+             scale: Optional[torch.Tensor] = None,
+             out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Fused SD, zero-copy: split-filter conv + interleaved write.
 
     x: (B, H, W, Cin) unpadded; ``pad`` (the ``P_I`` halo) is applied in
@@ -180,27 +288,36 @@ def sd_fused(x: torch.Tensor, ws_ocmajor: torch.Tensor, s, *,
     coordinates.  out_space: final output spatial shape (rows past the
     shuffled support come out as ``act(bias)``); defaults to the
     uncropped interleave.  Returns (B, *out_space, Cout) in ``x.dtype``.
+
+    int8 branch: ``x`` and ``ws_ocmajor`` int8 and ``scale`` the f32
+    combined dequant scale (B, Cout*sh*sw), oc-major like the filters
+    (sample ``b``'s activation scale times each phase channel's filter
+    scale); returns f32.  ``out_dtype``: f32 or None; int8 output and a
+    static (1, NC) scale row raise (the calibrated slice).
     """
-    global SD_FUSED_LAUNCHES
+    global SD_FUSED_LAUNCHES, SD_FUSED_INT8_LAUNCHES
     sh, sw = _pair(s)
     if act not in ACTS:
         raise ValueError(f"unknown act {act!r}")
     if out_space is None:
         out_space = _full_space(x.shape, ws_ocmajor.shape, s, pad)
+    quant = quant_contract(x, ws_ocmajor, scale, out_dtype)
     if x.device.type == "cpu":
         return sd_fused_ref(x, ws_ocmajor, s, bias=bias, act=act, pad=pad,
-                            crop=crop, out_space=out_space)
+                            crop=crop, out_space=out_space, scale=scale)
     if x.device.type != "cuda":
         raise ValueError(f"sd_fused runs on cuda or cpu, not {x.device}")
+    check_no_grad("sd_fused", x, ws_ocmajor, bias, scale)
     cout = ws_ocmajor.shape[-1] // (sh * sw)
     if bias is None:
         bias = torch.zeros(cout, device=x.device)
     bias = bias.float().contiguous()
     _check_cuda_operands(x, ws_ocmajor, bias, sh, sw)
     g = launch_geometry(x.shape, ws_ocmajor.shape, (sh, sw), pad, crop,
-                        out_space, plan)
+                        out_space, plan, dtype="int8" if quant else "")
     b, h, wd, cin = x.shape
-    y = torch.empty((b, g.out_h, g.out_w, cout), dtype=x.dtype,
+    y = torch.empty((b, g.out_h, g.out_w, cout),
+                    dtype=torch.float32 if quant else x.dtype,
                     device=x.device)
     if y.numel() == 0:
         return y
@@ -208,8 +325,23 @@ def sd_fused(x: torch.Tensor, ws_ocmajor: torch.Tensor, s, *,
         raise ValueError(f"{g.nh * g.nw} spatial tiles exceed the grid's "
                          "y limit; use a larger tile")
     from repro_torch.kernels.build import load
-    fn = load("sd_fused").fn
     p = g.plan
+    if quant:
+        fn = load("sd_fused_int8").fn
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = fn(x.data_ptr(), ws_ocmajor.data_ptr(), scale.data_ptr(),
+                     bias.data_ptr(), y.data_ptr(), b, h, wd, cin, cout,
+                     ws_ocmajor.shape[0], ws_ocmajor.shape[1], sh, sw,
+                     g.q_h, g.q_w, g.plo_h, g.plo_w, g.res_h, g.res_w,
+                     g.out_h, g.out_w, p.th, p.tw, p.tcin, p.tc, ACTS[act],
+                     ctypes.c_void_p(stream))
+        if err != 0:
+            raise RuntimeError(f"sd_fused int8 kernel launch failed: CUDA "
+                               f"error {err}")
+        SD_FUSED_INT8_LAUNCHES += 1
+        return y
+    fn = load("sd_fused").fn
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), ws_ocmajor.data_ptr(), bias.data_ptr(),

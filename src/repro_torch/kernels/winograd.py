@@ -47,7 +47,7 @@ from repro_torch.kernels.autotune import (SMEM_BUDGET, WINO_ITEMS,
                                           wino_plan, wino_smem_bytes,
                                           wino_tiles)
 from repro_torch.kernels.sd_conv import (ACTS, DTYPES, PadPair,
-                                         _full_space, _pair,
+                                         _full_space, _pair, check_no_grad,
                                          shuffle_epilogue)
 
 # Output tile per dim: m = 2 suits the small K_T the split produces
@@ -341,6 +341,7 @@ def sd_wino(x: torch.Tensor, u: torch.Tensor, kt, s, *,
                            crop=crop, out_space=out_space)
     if x.device.type != "cuda":
         raise ValueError(f"sd_wino runs on cuda or cpu, not {x.device}")
+    check_no_grad("sd_wino", x, u, bias)
     cout = u.shape[-1] // (sh * sw)
     if bias is None:
         bias = torch.zeros(cout, device=x.device)

@@ -13,13 +13,19 @@ Two loops share this machinery: the async continuous-batching scheduler
 (:meth:`GenServer.serve`, ``--sched drain``).  Runs on the card unless
 ``--device cpu`` is given.  ``--backend winograd`` serves every deconv
 layer on K4, the Winograd kernel (one server has one backend, so the
-cell key does not name it).
+cell key does not name it).  ``--dtype int8`` serves through int8
+engine plans (per-channel filter quantization at bind, per-sample
+activation quantization and the dequant epilogue on the hot path, K1's
+int8 branch on ``fused``); latents, params and outputs stay f32 and the
+cell key says ``int8``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve_gen --nets dcgan \\
       --requests 32 --max-batch 16
   PYTHONPATH=src python -m repro_torch.launch.serve_gen --dryrun --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve_gen --dryrun \\
       --device cpu --backend winograd
+  PYTHONPATH=src python -m repro_torch.launch.serve_gen --dryrun \\
+      --device cpu --dtype int8
 """
 
 from __future__ import annotations
@@ -36,7 +42,8 @@ from repro_torch.device import describe_device, resolve_device
 from repro_torch.launch.batching import pow2_bucket, pow2_floor, take_group
 from repro_torch.models.generative import GenerativeModel
 
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "int8": "int8"}
 _LATER = "not ported yet; see ROADMAP.md for the slice that brings it"
 
 
@@ -67,15 +74,24 @@ def reduced_specs() -> Dict[str, NetworkSpec]:
 
 
 class GenServer:
-    """Slot-based batched generative inference service on SDEngine."""
+    """Slot-based batched generative inference service on SDEngine.
 
-    def __init__(self, nets=("dcgan",), dtype: torch.dtype = torch.float32,
+    ``dtype="int8"`` selects the int8 serving path: the engines bind int8
+    plans while latents, params and outputs stay f32 (int8 is an
+    execution dtype, not an IO dtype), and the cell key says ``int8``,
+    so float and int8 cells of one ``(net, bucket)`` coexist."""
+
+    def __init__(self, nets=("dcgan",), dtype=torch.float32,
                  backend: str = "auto", max_batch: int = 16, seed: int = 0,
                  specs: Optional[Dict[str, NetworkSpec]] = None,
                  device=None):
         self.device = resolve_device(device)
+        self.engine_dtype = "native"
+        if dtype in ("int8", torch.int8):
+            self.engine_dtype, dtype = "int8", torch.float32
         self.dtype = dtype
-        self.dtype_name = str(dtype).replace("torch.", "")
+        self.dtype_name = ("int8" if self.engine_dtype == "int8"
+                           else str(dtype).replace("torch.", ""))
         self.backend = backend
         # The cap is also the group-size bound, so it must itself be a
         # power of two (else a full group would overflow its bucket).
@@ -97,23 +113,32 @@ class GenServer:
         if net not in self._models:
             m = GenerativeModel(self._specs[net], deconv_impl="sd_kernel",
                                 engine_backend=self.backend,
-                                device=self.device)
+                                device=self.device,
+                                engine_dtype=self.engine_dtype)
             gen = torch.Generator().manual_seed(self.seed)
             self._models[net] = (m, m.init(gen, dtype=self.dtype))
         return self._models[net]
 
     def _serving_args(self, net: str, bucket: int):
         """(non-deconv params, bound plans) for one cell, cached per
-        (net, bucket) and keyed on the live params object."""
+        (net, bucket).  The engine is first made to hold plans split from
+        the live params in their current state (``bound_to`` compares
+        identity and ``_version``, so an in-place update rebinds); the
+        snapshot is keyed on the params object and on the engine's plan
+        generation, so it follows every rebind."""
         model, params = self.model(net)
+        engine = model.engine
+        if not engine.bound_to(params):
+            engine.bind(params)
         key = (net, bucket)
         cached = self._serving.get(key)
-        if cached is None or cached[0] is not params:
+        if (cached is None or cached[0] is not params
+                or cached[1] != engine.generation):
             deconv = {l.name for l in model.spec.deconv_layers()}
             lean = {k: v for k, v in params.items() if k not in deconv}
-            self._serving[key] = (params, lean,
-                                  model.engine.plans_for_batch(bucket))
-        _, lean, plans = self._serving[key]
+            self._serving[key] = (params, engine.generation, lean,
+                                  engine.plans_for_batch(bucket))
+        _, _, lean, plans = self._serving[key]
         return lean, plans
 
     def buckets(self) -> List[int]:
@@ -269,8 +294,8 @@ def main(argv=None):
     ap.add_argument("--pretune", action="store_true")
     args = ap.parse_args(argv)
     for flag, later in (("--dp/--mp", args.dp != 1 or args.mp != 1),
-                        ("--dtype int8", args.dtype == "int8"),
-                        ("--calib", args.calib != 0),
+                        ("--calib (the calibrated int8 chain)",
+                         args.calib != 0),
                         ("--pretune", args.pretune)):
         if later:
             raise NotImplementedError(f"{flag}: {_LATER}")

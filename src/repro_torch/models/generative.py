@@ -9,11 +9,14 @@ implementation is chosen by name from :data:`IMPLS`:
   are split and BN-folded once at bind, and every forward runs the
   fused kernel K1 (``engine_backend="fused"``), the Winograd kernel K4
   (``"winograd"``) or the grouped-conv ``torch`` backend, with bias and
-  activation in the epilogue.  When autograd is recording and a deconv
-  filter requires grad, each deconv instead runs the differentiable
+  activation in the epilogue; ``engine_dtype="int8"`` binds int8 plans
+  (the dynamic int8 path, K1's int8 branch on ``fused``).  When autograd
+  is recording and any param leaf or the input requires grad, each
+  deconv instead runs the differentiable
   :func:`repro_torch.sd.conv_transpose` on the engine's backend (on
-  ``fused``: K1 forward, K2 + K3 backward), with scale and bias applied
-  outside, as the reference does for traced params.
+  ``fused``: K1 forward, K2 + K3 backward) with float plans, scale and
+  bias applied outside, as the reference does for traced params (an int8
+  engine trains in float).
 
 Parameters stay a plain dict in the reference's layout (fc ``(in, out)``,
 filters ``(*K, Cin, Cout)``, per-channel ``scale``/``b``), so weights
@@ -50,11 +53,16 @@ class GenerativeModel(nn.Module):
 
     def __init__(self, spec: NetworkSpec, deconv_impl: str = "sd",
                  final_tanh: Optional[bool] = None,
-                 engine_backend: str = "auto", device=None):
+                 engine_backend: str = "auto", device=None,
+                 engine_dtype: str = "native"):
         super().__init__()
         if deconv_impl not in IMPLS:
             raise ValueError(f"unknown deconv impl {deconv_impl!r}; "
                              f"choose from {sorted(IMPLS)}")
+        if engine_dtype != "native" and IMPLS[deconv_impl] is not None:
+            raise ValueError(f"engine_dtype={engine_dtype!r} needs the "
+                             f"engine impl 'sd_kernel'; {deconv_impl!r} is "
+                             "a plain executor")
         self.spec = spec
         self.deconv_impl = deconv_impl
         self.device = resolve_device(device)
@@ -62,7 +70,7 @@ class GenerativeModel(nn.Module):
             else final_tanh
         self._deconv = IMPLS[deconv_impl]
         self._engine = (SDEngine(spec, backend=engine_backend,
-                                 device=self.device)
+                                 device=self.device, dtype=engine_dtype)
                         if self._deconv is None else None)
         self._fplans: Dict[str, DeconvPlan] = {}   # differentiable path
 
@@ -124,23 +132,25 @@ class GenerativeModel(nn.Module):
         return torch.tanh(h) if self.final_tanh else h
 
     def _functional_plan(self, layer) -> DeconvPlan:
-        """Geometry-only plan of one deconv for the differentiable path
-        (cached: it holds no tensors).  Linear: scale, bias and the
+        """Geometry-only float plan of one deconv for the differentiable
+        path (cached: it holds no tensors).  Linear: scale, bias and the
         activation are applied outside, where autograd sees them."""
         if layer.name not in self._fplans:
-            self._fplans[layer.name] = self._engine.layer_plan(layer,
-                                                               "linear")
+            self._fplans[layer.name] = self._engine.layer_plan(
+                layer, "linear", dtype="native")
         return self._fplans[layer.name]
 
-    def _differentiable(self, params: Params) -> bool:
-        """Autograd is recording and some deconv filter requires grad:
-        the bound engine's pre-split filters would cut the graph."""
-        return torch.is_grad_enabled() and any(
-            params[l.name]["w"].requires_grad
-            for l in self.spec.deconv_layers())
+    @staticmethod
+    def _differentiable(params: Params, x: torch.Tensor) -> bool:
+        """Autograd is recording and some param leaf or the input requires
+        grad: the bound engine's plans (a kernel's output, pre-split
+        filters) would cut the graph."""
+        return torch.is_grad_enabled() and (x.requires_grad or any(
+            t.requires_grad for p in params.values() if isinstance(p, dict)
+            for t in p.values() if isinstance(t, torch.Tensor)))
 
     def apply(self, params: Params, x: torch.Tensor) -> torch.Tensor:
-        if self._engine is not None and self._differentiable(params):
+        if self._engine is not None and self._differentiable(params, x):
             def step(layer, p, h):
                 h = conv_transpose(self._functional_plan(layer), h, p["w"])
                 return h * p["scale"] + p["b"], False

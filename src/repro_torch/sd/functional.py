@@ -13,6 +13,10 @@ split filters in the call; its backward is the plain torch formulation,
 as in the reference, which sends only ``"fused"`` to the kernels);
 ``"torch"`` is the grouped stride-1 conv + pixel shuffle + crop in plain
 PyTorch.
+
+A bound int8 plan runs :func:`_run_presplit_int8`: activations quantized
+per sample, int8 x int8 sums, the combined dequant scale applied per
+(sample, phase channel) before the interleave, f32 out.
 """
 
 from __future__ import annotations
@@ -22,7 +26,8 @@ from typing import Optional
 import torch
 
 from repro_torch.core.deconv import sd_deconv_presplit, split_filters
-from repro_torch.kernels.sd_conv import _apply_act
+from repro_torch.core.quant import quantize_act
+from repro_torch.kernels.sd_conv import _apply_act, exact_conv_valid
 from repro_torch.sd.grad import conv_transpose_vjp
 from repro_torch.sd.plan import DeconvPlan, to_ocmajor
 
@@ -56,11 +61,57 @@ def _run_presplit(plan: DeconvPlan, x: torch.Tensor, ws: torch.Tensor,
     return _apply_act(y, act)
 
 
+def _run_presplit_int8(plan: DeconvPlan, x: torch.Tensor) -> torch.Tensor:
+    """The dynamic int8 path of a bound int8 plan (reference:
+    ``repro.sd.functional._run_presplit_int8`` without calibration).
+
+    The f32 input is quantized per sample (:func:`quantize_act`, so the
+    zero rows of a padded bucket never touch a real sample), the split
+    conv sums int8 x int8 exactly, and ``comb = sx[:, None] *
+    wscale[None, :]`` dequantizes each (sample, phase channel) sum before
+    the interleave.  ``fused``: K1's int8 branch on the card, its plain
+    version on the CPU.  ``torch``: the n-major grouped conv summed
+    exactly (:func:`exact_conv_valid`, where the reference's xla path
+    convolves f32-cast operands), rounded to f32 once and dequantized
+    per n-major channel before the pixel shuffle.  Output f32."""
+    if x.dtype == torch.int8:
+        raise ValueError("int8 input requires a calibrated plan (sx_in); "
+                         "the dynamic path has no scale for it")
+    xq, sx = quantize_act(x)
+    comb = sx[:, None] * plan.wscale.float()[None, :]
+    if plan.backend == "fused":
+        from repro_torch.kernels import ops
+        if plan.layout != "ocmajor":
+            raise ValueError("the fused int8 branch consumes oc-major "
+                             "filters")
+        return ops.sd_deconv_presplit_fused(
+            xq, plan.ws, plan.kernel, plan.stride, plan.padding,
+            output_padding=plan.output_padding, bias=plan.bias,
+            act=plan.act, scale=comb.contiguous(), plan=plan.tile)
+    if plan.backend != "torch" or plan.layout != "nmajor":
+        raise ValueError(f"int8 plans run on the fused or torch backend, "
+                         f"not {plan.backend!r} ({plan.layout})")
+    lead = (comb.shape[0],) + (1,) * plan.rank
+
+    def conv_fn(xp, wsq):
+        return exact_conv_valid(xp, wsq).float() * comb.reshape(
+            *lead, comb.shape[1])
+
+    y = sd_deconv_presplit(xq, plan.ws, plan.kernel, plan.stride,
+                           plan.padding, conv_fn=conv_fn,
+                           output_padding=plan.output_padding)
+    if plan.bias is not None:
+        y = y + plan.bias.float()
+    return _apply_act(y, plan.act)
+
+
 def execute(plan: DeconvPlan, x: torch.Tensor) -> torch.Tensor:
     """Run a bound plan (the hot path of the engine)."""
     if not plan.bound:
         raise ValueError("execute() needs a bound plan; call "
                          "plan.bind(w, scale, bias) once offline")
+    if plan.dtype == "int8":
+        return _run_presplit_int8(plan, x)
     return _run_presplit(plan, x, plan.ws, plan.layout, plan.bias, plan.act)
 
 
@@ -96,6 +147,11 @@ def conv_transpose(plan: DeconvPlan, x: torch.Tensor, w: torch.Tensor,
         raise ValueError("conv_transpose takes a geometry-only plan plus "
                          "the raw filter; use execute(plan, x) for bound "
                          "plans")
+    if plan.dtype == "int8":
+        raise ValueError(
+            "int8 plans are inference-only: quantization is not usefully "
+            "differentiable; bind() the plan and use sd.execute, or build "
+            "a dtype='native' plan to train")
     return _ConvTranspose.apply(plan, x, w, b)
 
 

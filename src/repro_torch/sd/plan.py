@@ -1,10 +1,18 @@
 """DeconvPlan: the split layout of one transposed convolution.
 
-The port of ``repro.sd.plan`` (float plans only).  A plan holds the
-static geometry (kernel, stride, padding, output_padding, channels,
-backend, epilogue activation, filter layout, kernel tile); a *bound*
-plan also holds the pre-split filters ``ws`` (with any per-channel
-scale folded in) and ``bias`` as plain tensor attributes.
+The port of ``repro.sd.plan``.  A plan holds the static geometry
+(kernel, stride, padding, output_padding, channels, backend, epilogue
+activation, filter layout, kernel tile, execution dtype); a *bound* plan
+also holds the pre-split filters ``ws`` (with any per-channel scale
+folded in) and ``bias`` as plain tensor attributes.
+
+``dtype="int8"`` plans (``fused`` and ``torch`` backends) run the
+dynamic int8 path: ``bind`` folds the BN scale into the split filters
+and then quantizes them per split output channel, so ``ws`` holds int8
+codes and ``wscale`` the per-channel dequant scales in ``ws``'s channel
+order; ``execute`` quantizes activations per sample.  int8 plans are
+inference-only.  The calibrated chain (static activation scales,
+``with_chain``) is a later slice (ROADMAP.md).
 
 Backends: ``"torch"`` runs the grouped stride-1 conv + pixel shuffle in
 plain PyTorch (the twin of the reference's ``"xla"``) from n-major
@@ -27,12 +35,14 @@ import torch
 from repro_torch.core.deconv import (_check_output_padding, _check_padding,
                                      _ntuple, _pads_nd, deconv_output_shape,
                                      sd_geometry, split_filters)
+from repro_torch.core.quant import quantize_channelwise
 from repro_torch.device import resolve_device
 from repro_torch.kernels.autotune import KernelPlan
 from repro_torch.kernels.winograd import (MAX_TAPS, supported,
                                           transform_filters)
 
 BACKENDS = ("fused", "torch", "winograd")
+DTYPES = ("native", "int8")
 
 
 def resolve_backend(backend: str, device=None) -> str:
@@ -65,7 +75,8 @@ def to_ocmajor(ws: torch.Tensor, s, phases: Optional[int] = None
 @dataclass(frozen=True)
 class DeconvPlan:
     """Split layout of one transposed convolution (see module doc).
-    ``ws``/``bias`` are set only on a bound plan."""
+    ``ws``/``bias`` (and, on an int8 plan, ``wscale``) are set only on a
+    bound plan."""
     kernel: Tuple[int, ...]
     stride: Tuple[int, ...]
     padding: Tuple[Tuple[int, int], ...]
@@ -76,8 +87,10 @@ class DeconvPlan:
     layout: str = "nmajor"
     tile: Optional[KernelPlan] = None
     output_padding: Tuple[int, ...] = None  # normalised in plan()
+    dtype: str = "native"                  # "native" | "int8"
     ws: Optional[torch.Tensor] = None
     bias: Optional[torch.Tensor] = None
+    wscale: Optional[torch.Tensor] = None   # int8: per split channel, f32
 
     def __post_init__(self):
         if self.output_padding is None:
@@ -125,20 +138,39 @@ class DeconvPlan:
         so the per-oc scale is *tiled* over the phase blocks.  Filters
         are stored in the layout this plan's backend consumes; for
         ``"winograd"`` that is oc-major through the filter transform
-        ``U = G g G^T``, once here, like the split and the fold."""
+        ``U = G g G^T``, once here, like the split and the fold.
+
+        An int8 plan folds the scale *first*, on the f32 split filters,
+        then quantizes them per split output channel
+        (:func:`~repro_torch.core.quant.quantize_channelwise`): ``ws`` is
+        int8 and ``wscale`` carries filter magnitude and BN gamma, in
+        ``ws``'s channel order (n-major ``phase*Cout + oc``, relaid to
+        oc-major ``oc*phases + phase`` with the filters)."""
         if tuple(w.shape) != (*self.kernel, self.cin, self.cout):
             raise ValueError(f"filter shape {tuple(w.shape)} does not match "
                              f"plan {(*self.kernel, self.cin, self.cout)}")
         ws = split_filters(w, self.stride)
         if scale is not None:
             ws = ws * scale.to(ws.dtype).tile(self.phases)
+        wscale = None
+        if self.dtype == "int8":
+            ws, wscale = quantize_channelwise(ws, axis=-1)
         layout = self._bound_layout()
         ws = to_ocmajor(ws, self.stride) if layout in ("ocmajor", "wino") \
             else ws.contiguous()
+        if wscale is not None and layout == "ocmajor":
+            wscale = wscale.reshape(self.phases, self.cout).t().reshape(-1)
         if layout == "wino":
             ws = transform_filters(ws)
-        return replace(self, ws=ws, bias=bias, layout=layout,
+        return replace(self, ws=ws, bias=bias, layout=layout, wscale=wscale,
                        act=self.act if act is None else act)
+
+    def with_chain(self, sx_in=None, sx_out=None, chain_out: bool = False):
+        """Static calibrated activation scales and the chained int8
+        output: the calibrated int8 slice, not ported yet."""
+        raise NotImplementedError(
+            "calibrated int8 plans (with_chain: static sx_in/sx_out, int8 "
+            "output) come with the calibrated int8 slice; see ROADMAP.md")
 
 
 def plan(filter_shape: Sequence[int], stride, padding=0,
@@ -149,15 +181,13 @@ def plan(filter_shape: Sequence[int], stride, padding=0,
     C_out)`` (its length sets the rank).  Padding and output_padding are
     validated exactly like :mod:`repro_torch.core.deconv`.  ``backend=
     "auto"`` resolves against ``device`` (default: the card, raising
-    without one).  Only float plans exist in this port so far; a
-    winograd plan outside its envelope raises the reference's
+    without one).  ``dtype="int8"`` requests the dynamic int8 path
+    (``fused`` and ``torch`` backends, rank 2 on ``fused``); a winograd
+    plan outside its envelope, int8 included, raises the reference's
     ``ValueError``."""
-    if dtype == "int8" and backend != "winograd":
-        raise NotImplementedError(
-            "int8 plans come with the port's int8 slice (K1's quant "
-            "branch); see ROADMAP.md")
-    if dtype not in ("native", "int8"):
-        raise ValueError(f"unknown plan dtype {dtype!r}")
+    if dtype not in DTYPES:
+        raise ValueError(f"unknown plan dtype {dtype!r}; choose from "
+                         f"{DTYPES}")
     dims = tuple(int(d) for d in filter_shape)
     if len(dims) not in (3, 4, 5):
         raise ValueError(f"filter_shape {filter_shape!r} must have "
@@ -187,4 +217,4 @@ def plan(filter_shape: Sequence[int], stride, padding=0,
             "with its slice (see ROADMAP.md) — use backend='torch'")
     return DeconvPlan(kernel=k, stride=st, padding=_pads_nd(padding, rank),
                       cin=cin, cout=cout, backend=resolved, act=act,
-                      tile=tile, output_padding=op)
+                      tile=tile, output_padding=op, dtype=dtype)

@@ -13,7 +13,12 @@ another order); bf16 gate ``1e-2 * max|y_ref|`` (both accumulate in f32,
 so the difference is the bf16 rounding of the output).  K4 (Winograd)
 is held to the same gates against its plain version ``sd_wino_ref``,
 and against K1 on the same split filters at the reference's
-``tolerance(K_T) * max(1, max|y_K1|)``.
+``tolerance(K_T) * max(1, max|y_K1|)``.  K1's int8 branch is held to its
+plain version (``sd_fused_ref`` on the int8 pair, exact sums) at two
+gates: bit-identical at unit scale, zero bias and linear act, and
+``1e-6 * max(1, max|y_ref|)`` with real per-sample scales, folded-BN
+filter scales, bias and relu/tanh.  K1 and K4 refuse an operand that
+requires grad under grad mode.
 """
 
 import pytest
@@ -110,7 +115,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
     x = torch.randn(1, 4, 4, 3, device=dev)
     ws = torch.randn(2, 2, 3, 8, device=dev)
     with pytest.raises(TypeError, match="int8"):
-        K.sd_fused(x.to(torch.int8), ws.to(torch.int8), 2)
+        K.sd_fused(x.to(torch.int8), ws, 2)
     with pytest.raises(TypeError, match="dtype"):
         K.sd_fused(x, ws.bfloat16(), 2)
     with pytest.raises(ValueError, match="contiguous"):
@@ -341,3 +346,152 @@ def test_wino_server_runs_k4_only(dev):
     assert torch.isfinite(out).all()
     assert (out - ref).abs().max().item() <= \
         tolerance((3, 3)) * ref.abs().max().item()
+
+
+
+# ---------------------------------------------------------------------------
+# K1's int8 branch (dynamic per-sample scales, f32 out) and the grad guard
+# ---------------------------------------------------------------------------
+
+INT8_REL = 1e-6
+
+
+def _int8_case(dev, sx, sw, s, pad, act, op=0, tile=None, seed=0):
+    """(xq, int8 fused plan, comb): the activation quantized per sample,
+    the plan bound with a folded BN scale and bias, and the combined
+    (B, NC) oc-major dequant scale."""
+    from repro_torch.core.quant import quantize_act
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(sx, generator=g)
+    w = torch.randn(sw, generator=g) / (sw[0] * sw[1] * sw[2]) ** 0.5
+    gamma = torch.rand(sw[-1], generator=g) + 0.5
+    bias = torch.randn(sw[-1], generator=g) * 0.1
+    p = sd.plan(w.shape, s, pad, backend="fused", act=act,
+                output_padding=op, tile=tile, dtype="int8",
+                device=dev).bind(w.to(dev), gamma.to(dev), bias.to(dev))
+    xq, sxs = quantize_act(x.to(dev))
+    return xq, p, (sxs[:, None] * p.wscale[None, :]).contiguous()
+
+
+def _int8_pair(xq, p, comb, bias, act):
+    geo = dict(pad=((p.pi[0],) * 2, (p.pi[1],) * 2),
+               crop=(p.pk[0] + p.padding[0][0], p.pk[1] + p.padding[1][0]),
+               out_space=p.out_shape(xq.shape[1:3]))
+    before = (K.SD_FUSED_INT8_LAUNCHES, K.SD_FUSED_LAUNCHES)
+    out = ops.sd_deconv_presplit_fused(
+        xq, p.ws, p.kernel, p.stride, p.padding,
+        output_padding=p.output_padding, bias=bias, act=act, scale=comb,
+        plan=p.tile)
+    assert (K.SD_FUSED_INT8_LAUNCHES, K.SD_FUSED_LAUNCHES) == \
+        (before[0] + 1, before[1])
+    ref = K.sd_fused_ref(xq, p.ws, p.stride, bias=bias, act=act,
+                         scale=comb, **geo)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape and out.dtype == torch.float32
+    return out, ref
+
+
+def _int8_gates(xq, p, comb):
+    """(a) unit scale, zero bias, linear: bit-identical; (b) the real
+    scales, the plan's bias and act: within 1e-6 * max(1, max|ref|)."""
+    ones = torch.ones_like(comb)
+    zero = torch.zeros_like(p.bias)
+    out, ref = _int8_pair(xq, p, ones, zero, "linear")
+    assert torch.equal(out, ref)
+    out, ref = _int8_pair(xq, p, comb, p.bias, p.act)
+    assert (out - ref).abs().max().item() <= \
+        INT8_REL * max(1.0, ref.abs().max().item())
+
+
+@pytest.mark.parametrize("net,layer", PAPER_LAYERS,
+                         ids=[f"{n}/{l.name}" for n, l in PAPER_LAYERS])
+def test_int8_paper_layers(dev, net, layer):
+    for act in ("relu", "tanh"):
+        _int8_gates(*_int8_case(dev, (4, *layer.in_hw, layer.cin),
+                                (layer.k, layer.k, layer.cin, layer.cout),
+                                layer.s, same_deconv_pads(layer.k, layer.s),
+                                act))
+
+
+@pytest.mark.parametrize("sx,sw,s,pad,op,tile", [
+    ((2, 5, 6, 7), (4, 4, 7, 2), 2, 0, 1, None),      # Cin 7, op > pad_hi
+    ((1, 6, 7, 5), (5, 5, 5, 2), 2, ((1, 3), (0, 2)), 0, None),
+    ((3, 13, 11, 40), (5, 5, 40, 24), 2, 2, 1,
+     KernelPlan(th=3, tw=2, tcin=12, tc=32)),          # ragged tiles
+    ((2, 9, 10, 70), (3, 3, 70, 5), 2, 1, 1,
+     KernelPlan(th=2, tw=3, tcin=9, tc=16)),           # tcin 9: tail words
+    ((16, 8, 8, 256), (5, 5, 256, 128), 2, 2, 1, None),   # DCGAN d1, b16
+])
+def test_int8_odd_geometries(dev, sx, sw, s, pad, op, tile):
+    _int8_gates(*_int8_case(dev, sx, sw, s, pad, "relu", op, tile, seed=3))
+
+
+def test_int8_wrapper_refusals(dev):
+    xq = torch.randint(-127, 128, (2, 4, 4, 8), dtype=torch.int8,
+                       device=dev)
+    ws = torch.randint(-127, 128, (3, 3, 8, 12), dtype=torch.int8,
+                       device=dev)
+    scale = torch.rand(2, 12, device=dev)
+    geo = dict(pad=((2, 2), (2, 2)), crop=(1, 1), out_space=(8, 8))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        K.sd_fused(xq, ws, 2, scale=scale[:1], **geo)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        K.sd_fused(xq, ws, 2, scale=scale, out_dtype=torch.int8, **geo)
+    with pytest.raises(TypeError, match="int8"):
+        K.sd_fused(xq, ws.float(), 2, scale=scale, **geo)
+    with pytest.raises(TypeError, match="float32"):
+        K.sd_fused(xq, ws, 2, scale=scale.double(), **geo)
+    with pytest.raises(ValueError, match="device"):
+        K.sd_fused(xq, ws, 2, scale=scale.cpu(), **geo)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.sd_fused(xq, ws, 2, scale=scale.t().contiguous().t(), **geo)
+    with pytest.raises(ValueError, match="overflow"):
+        K.sd_fused(torch.zeros((1, 3, 3, 15_000), dtype=torch.int8,
+                               device=dev),
+                   torch.zeros((3, 3, 15_000, 4), dtype=torch.int8,
+                               device=dev),
+                   2, scale=torch.ones(1, 4, device=dev),
+                   pad=((2, 2), (2, 2)))
+
+
+def test_kernels_refuse_grad_operands(dev):
+    """A kernel's output has no graph: under grad mode an operand that
+    requires grad raises instead of returning a detached tensor."""
+    from repro_torch.kernels.winograd import sd_wino, transform_filters
+    x = torch.randn(1, 4, 4, 3, device=dev, requires_grad=True)
+    ws = torch.randn(2, 2, 3, 8, device=dev)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        K.sd_fused(x, ws, 2)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        K.sd_fused(x.detach(), ws.requires_grad_(True), 2)
+    u = transform_filters(ws.detach())
+    with pytest.raises(RuntimeError, match="requires grad"):
+        sd_wino(x, u, (2, 2), 2)
+    with torch.no_grad():
+        assert K.sd_fused(x, ws, 2).grad_fn is None
+        assert sd_wino(x, u, (2, 2), 2).grad_fn is None
+
+
+def test_int8_server_runs_int8_k1_only(dev):
+    """An int8 server launches K1's int8 branch once per deconv layer and
+    float K1 never; its outputs are the card's int8 torch backend's
+    (1e-3 * max(1, max|ref|), the reference's fused-vs-xla gate)."""
+    from repro_torch.launch.serve_gen import GenServer, reduced_specs
+    from repro_torch.models.generative import GenerativeModel
+    specs = reduced_specs()
+    server = GenServer(nets=("dcgan-dryrun",), specs=specs, device=dev,
+                       backend="fused", max_batch=4, dtype="int8")
+    zs = [r.latent for r in server.random_requests("dcgan-dryrun", 4)]
+    before = (K.SD_FUSED_INT8_LAUNCHES, K.SD_FUSED_LAUNCHES)
+    out = server.run_group("dcgan-dryrun", zs)
+    torch.cuda.synchronize()
+    assert (K.SD_FUSED_INT8_LAUNCHES - before[0],
+            K.SD_FUSED_LAUNCHES - before[1]) == (2, 0)
+    model, params = server.model("dcgan-dryrun")
+    ref_m = GenerativeModel(model.spec, "sd_kernel", engine_backend="torch",
+                            device=dev, engine_dtype="int8")
+    with torch.no_grad():
+        ref = ref_m.apply(params, torch.stack(zs))
+    assert torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= \
+        1e-3 * max(1.0, ref.abs().max().item())

@@ -2,9 +2,10 @@
 
 A fresh interpreter with ``jax`` and ``repro`` made unimportable imports
 ``repro_torch``, serves the CPU dryrun (on the default and on the
-winograd backend), takes two small GAN training steps on the CPU and
-imports ``chip_smoke`` (without running it); and without CUDA the port's
-default device raises instead of falling back to the CPU.
+winograd backend, and in int8), takes two small GAN training steps on
+the CPU and imports ``chip_smoke`` (without running it); and without
+CUDA the port's default device raises instead of falling back to the
+CPU.
 """
 
 import os
@@ -28,6 +29,10 @@ assert stats["served"] == 4, stats
 results, stats = serve_gen.main(["--dryrun", "--device", "cpu",
                                  "--backend", "winograd"])
 assert stats["served"] == 4, stats
+results, stats = serve_gen.main(["--dryrun", "--device", "cpu",
+                                 "--dtype", "int8"])
+assert stats["served"] == 4, stats
+assert "int8" in stats["compile_cache"][0], stats
 from repro_torch.launch import train_gen
 d_hist, g_hist = train_gen.main(["--steps", "2", "--small", "--device",
                                  "cpu", "--deconv-impl", "sd_kernel"])

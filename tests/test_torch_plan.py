@@ -94,8 +94,13 @@ def test_plan_contract():
     assert tsd.resolve_backend("auto", "cuda") == "fused"
     with pytest.raises(ValueError, match="unknown SD backend"):
         tsd.plan((4, 4, 3, 2), 2, 1, backend="xla")
-    with pytest.raises(NotImplementedError, match="int8"):
-        tsd.plan((4, 4, 3, 2), 2, 1, dtype="int8")
+    assert tsd.plan((4, 4, 3, 2), 2, 1, backend="fused",
+                    dtype="int8").dtype == "int8"
+    with pytest.raises(ValueError, match="unknown plan dtype"):
+        tsd.plan((4, 4, 3, 2), 2, 1, backend="fused", dtype="int4")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tsd.plan((4, 4, 3, 2), 2, 1, backend="fused",
+                 dtype="int8").with_chain(sx_in=0.1)
     with pytest.raises(NotImplementedError, match="rank 2"):
         tsd.plan((4, 3, 2), 2, 1, backend="fused")
     with pytest.raises(ValueError, match="output_padding"):

@@ -4,7 +4,8 @@ Closed bucket ladder, zero cell rebuilds after ``warmup`` (checkpoint
 swaps included, asserted by the scheduler on every launch), grouped
 outputs equal to per-request ``apply``, and the CLI's pointers to later
 slices.  Weights swapped in from the JAX package serve the JAX
-package's outputs.
+package's outputs.  After an in-place update of the live params, the
+float and the int8 server serve the updated weights.
 """
 
 import jax
@@ -17,8 +18,9 @@ from repro.launch.serve_gen import reduced_spec as j_reduced_spec
 from repro.models.generative import GenerativeModel as JModel
 from repro_torch.convert import params_from_numpy
 from repro_torch.launch.batching import pow2_bucket, pow2_floor, take_group
-from repro_torch.launch.serve_gen import (GenServer, main, reduced_specs,
-                                          serve_async)
+from repro_torch.launch.serve_gen import (GenRequest, GenServer, main,
+                                          reduced_specs, serve_async)
+from repro_torch.models.generative import GenerativeModel
 from repro_torch.serving import ContinuousScheduler
 
 
@@ -102,7 +104,8 @@ def test_segnet_head_is_logits_and_fused_backend_matches():
     assert fused.model("segnet-dryrun")[0].engine.backend == "fused"
 
 
-@pytest.mark.parametrize("flags", [["--dp", "2"], ["--dtype", "int8"],
+@pytest.mark.parametrize("flags", [["--dp", "2"],
+                                   ["--dtype", "int8", "--calib", "8"],
                                    ["--calib", "8"], ["--pretune"],
                                    ["--mp", "2"]])
 def test_later_slices_point_to_roadmap(flags):
@@ -124,3 +127,42 @@ def test_swapped_in_reference_weights_serve_reference_outputs():
     out = server.run_group("dcgan-dryrun", list(torch.from_numpy(z)))
     np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-5)
     assert stats["served"] == 3
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+@pytest.mark.parametrize("order", ["update_then_serve", "apply_then_serve"])
+def test_in_place_update_serves_live_weights(dtype, order):
+    """After an in-place update of every layer's ``w`` (as the port's
+    ``adamw_update`` does), the server's next batches run the updated
+    weights: the cell snapshot is refreshed when the engine is not bound
+    to the live params, and follows the engine's plan generation when
+    something else (here ``model.apply``) rebound it first.  Reference:
+    a fresh model on the live params (``native`` for f32; the int8
+    engine's own ``apply``, which binds, for int8)."""
+    net = "dcgan-dryrun"
+    server = _server(max_batch=4, backend="fused",
+                     dtype="int8" if dtype == "int8" else torch.float32)
+    latents = [r.latent for r in server.random_requests(net, 3, seed=4)]
+    server.run_group(net, latents)                  # snapshot the cell
+    model, params = server.model(net)
+    with torch.no_grad():
+        for p in params.values():
+            p["w"].mul_(0.5)
+    z = torch.stack(latents)
+    if order == "apply_then_serve":
+        with torch.no_grad():
+            model.apply(params, z)                  # rebinds the engine
+    ref_model = (GenerativeModel(model.spec, "native", device="cpu")
+                 if dtype == "float32" else
+                 GenerativeModel(model.spec, "sd_kernel",
+                                 engine_backend="fused", device="cpu",
+                                 engine_dtype="int8"))
+    with torch.no_grad():
+        ref = ref_model.apply(params, z)
+    tol = 1e-5 * max(1.0, ref.abs().max().item())
+    out = server.run_group(net, latents)
+    assert (out - ref).abs().max().item() <= tol
+    results, _ = serve_async(server, [GenRequest(i, net, zi)
+                                      for i, zi in enumerate(latents)])
+    served = torch.stack([results[i] for i in range(len(latents))])
+    assert (served - ref).abs().max().item() <= tol

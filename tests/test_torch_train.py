@@ -13,7 +13,9 @@ it had to repair first.
   (it used to serve stale split filters), ``sd.plan(backend="auto")``
   and ``SDEngine`` with no device mean the card (they used to pick the
   CPU), and ``sd_kernel`` params that require grad get the native
-  model's grads, also after an AdamW step.
+  model's grads, also after an AdamW step; and frozen deconv filters
+  (or a latent that alone requires grad) keep the graph where the card's
+  kernels return tensors without one.
 """
 
 import jax
@@ -271,3 +273,40 @@ def test_sd_kernel_grads_equal_native_across_an_adamw_step(backend):
         with torch.no_grad():        # the engine path, after the update
             torch.testing.assert_close(m.apply(p, z), ref.apply(p, z),
                                        rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("backend", ["fused", "winograd"])
+@pytest.mark.parametrize("case", ["deconv_w_frozen", "only_z"])
+def test_frozen_filters_keep_the_graph(backend, case, monkeypatch):
+    """On the card K1/K4 return fresh tensors with no ``grad_fn``; detach
+    their plain versions the same way here.  With the deconv filters
+    frozen (fc, scale and bias train) or with only the latent requiring
+    grad, the model must still take the differentiable path, so
+    ``backward`` works and the grads equal ``native``'s (1e-4
+    relative).  It used to take that path only when a deconv ``w``
+    required grad."""
+    import repro_torch.kernels.sd_conv as K
+    import repro_torch.kernels.winograd as W
+    for mod, name in ((K, "sd_fused_ref"), (W, "sd_wino_ref")):
+        plain = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _f=plain, **k:
+                            _f(*a, **k).detach())
+    spec = train_gen.small_spec()
+    m = GenerativeModel(spec, "sd_kernel", engine_backend=backend,
+                        device="cpu")
+    ref = GenerativeModel(spec, "native", device="cpu")
+    p = m.init(torch.Generator().manual_seed(0))
+    z = torch.randn(3, 32, generator=torch.Generator().manual_seed(2))
+    if case == "deconv_w_frozen":
+        deconv = {l.name for l in spec.deconv_layers()}
+        leaves = [t.requires_grad_(True) for k in sorted(p)
+                  for n, t in sorted(p[k].items())
+                  if not (k in deconv and n == "w")]
+    else:
+        leaves = [z.requires_grad_(True)]
+    grads = []
+    for model in (m, ref):
+        loss = torch.mean(torch.tanh(model.apply(p, z)) ** 2)
+        grads.append(torch.autograd.grad(loss, leaves))
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
