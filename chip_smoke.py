@@ -2,13 +2,14 @@
 
 Drives ``repro_torch`` only (never JAX, never the JAX package ``repro``):
 
-1. builds the port's five kernel sources with nvcc for sm_90a, one nvcc
+1. builds the port's six kernel sources with nvcc for sm_90a, one nvcc
    per source, all at once (``src/repro_torch/kernels/csrc/``: K1
    ``sd_fused.cu``, the fused split deconv; K2 ``sd_conv.cu``, the
-   stride-1 conv of the SD backward's input grad; K3
-   ``sd_filter_grad.cu``, its filter grad; K4 ``sd_wino.cu``, the
-   Winograd split deconv; K1's int8 branch ``sd_fused_int8.cu``) and
-   prints their registers and shared memory;
+   stride-1 conv of the SD backward's input grad and of the 3-D
+   lowering; K3 ``sd_filter_grad.cu``, its filter grad; K4
+   ``sd_wino.cu``, the Winograd split deconv; K1's int8 branch
+   ``sd_fused_int8.cu``; K2's int8 pair ``sd_conv_int8.cu``) and prints
+   their registers and shared memory;
 2. holds K1 against its plain PyTorch version ``sd_fused_ref`` on the 22
    deconv layers of the paper's six networks (batch 4, f32, TF32 off,
    ``max|d| <= 1e-4 * max(1, max|y_ref|)``), on an ``output_padding >
@@ -64,7 +65,24 @@ Drives ``repro_torch`` only (never JAX, never the JAX package ``repro``):
    model within 0.05 of max|ref| with SSIM >= 0.99; times a batch of 16
    on the int8 and the float server in turns.  K1 int8's ``bound_ms`` is
    at the int8 tensor cores' peak, ``useful_bound_ms`` at the CUDA
-   cores' dp4a rate the kernel runs on.
+   cores' dp4a rate the kernel runs on;
+8. 3-D: holds K2's int8 pair (``sd_conv_int8.cu``) against its plain
+   version (``sd_conv_ref`` on the int8 pair, exact int32 sums) at
+   VoxGAN's three tap-conv shapes at batch 16, at codes of +-127 and on
+   odd geometries (Cin 3, 5, 70; ragged windows; forced tiles):
+   bit-identical; holds the 3-D lowering (one K2 or K2-int8 launch per
+   depth tap, then the torch interleave) against the ``torch`` backend
+   on each full-width VoxGAN layer at batch 16, f32 within ``1e-5 *
+   max(1, max|ref|)`` (TF32 off) and int8 exactly; times each tap conv
+   (K2 int8, K2 f32, plain, ``F.conv2d`` f32 as a yardstick) and each
+   whole layer (fused f32, fused int8, ``torch``,
+   ``F.conv_transpose3d``); serves 48 full-width VoxGAN requests through
+   ``GenServer`` in f32 and in int8 and checks 2 K2 (or K2-int8)
+   launches per deconv layer per batch and nothing else, finite outputs,
+   the same model on the card's ``torch`` backend (f32 ``1e-4``, int8
+   ``1e-6``, relative to ``max(1, max|ref|)``) and int8 within 0.05 of
+   max|ref| of the f32 server; times a batch of 16 in f32 and int8 in
+   turns.
 
 Every printed number carries the card's name and power limit.  The line
 before the last is ``{"kernels": [...]}``; the last is ``{"ok": true,
@@ -94,7 +112,7 @@ BUCKET = 16
 SEED = 0
 GAN_STEPS = 6
 SOURCES = ("sd_fused", "sd_conv", "sd_filter_grad", "sd_wino",
-           "sd_fused_int8")
+           "sd_fused_int8", "sd_conv_int8")
 # K1's int8 branch.  bound_ms: the H100 SXM's dense int8 tensor-core peak
 # (NVIDIA data sheet, 1,979 TOP/s); useful_bound_ms: the CUDA cores' dp4a
 # rate the kernel runs on, derived (not a data-sheet figure) as 64 dp4a
@@ -107,6 +125,7 @@ INT8_EXACT_GATE = 1e-6   # K1 int8 vs its plain version, rel. max(1, max|ref|)
 INT8_SERVE_GATE = 1e-3   # served vs the int8 torch backend (tests/test_quant.py:116)
 INT8_VS_F32 = 0.05       # max|d|/max|ref| vs the float server (:134)
 SSIM_GATE = 0.99         # vs the float server (benchmarks/quant_bench.py)
+ND_F32_GATE = 1e-5       # the 3-D lowering vs the torch backend (TF32 off)
 
 
 def _card_line() -> str:
@@ -1123,6 +1142,357 @@ def _int8_phase(dev, tag, randn) -> dict:
             "batch_host_ms": host_ms, "batch_device": breakdown}
 
 
+def _nd_phase(dev, tag, randn) -> dict:
+    """Phase 8: the 3-D serving path.  (a) K2's int8 pair against its
+    plain version at VoxGAN's three tap-conv shapes at batch 16, at codes
+    of +-127 and at odd geometries: bit-identical; (b) the 3-D lowering
+    (one K2 launch per depth tap) against the ``torch`` backend on each
+    VoxGAN layer at batch 16, f32 within ``1e-5 * max(1, max|ref|)``
+    (TF32 off), int8 exact; (c) each tap conv timed as K2 int8 / K2 f32 /
+    plain / ``F.conv2d`` f32, and each whole layer against
+    ``F.conv_transpose3d``; (d) 48 full-width VoxGAN requests served in
+    f32 and in int8 and held against the same model on the ``torch``
+    backend.  Returns K2-int8's record, K2's 3-D serving launches and the
+    reports."""
+    import torch
+    import torch.nn.functional as F
+    import repro_torch.kernels.sd_conv as K
+    from repro_torch import sd
+    from repro_torch.core.accounting import WORKLOADS
+    from repro_torch.core.deconv import same_deconv_pads
+    from repro_torch.kernels.autotune import (ConvGeom, KernelPlan,
+                                              conv_plan, smem_bytes)
+    from repro_torch.launch.serve_gen import GenServer, serve_async
+    from repro_torch.models.generative import GenerativeModel
+
+    gen = torch.Generator().manual_seed(SEED + 8)
+    layers = WORKLOADS["voxgan"]().deconv_layers()
+    pads = same_deconv_pads((4,) * 3, (2,) * 3)
+
+    def codes(*shape):
+        return torch.randint(-127, 128, shape, generator=gen,
+                             dtype=torch.int8).to(dev)
+
+    def tap_shapes(l, batch):
+        """(x, w) shapes of one depth tap's K2 launch of layer ``l``: the
+        depth-padded input's ``D_out`` slices folded into the batch."""
+        p = sd.plan((4, 4, 4, l.cin, l.cout), 2, pads, backend="fused",
+                    device=dev)
+        od = l.in_hw[0] + 2 * p.pi[0] - p.kt[0] + 1
+        return ((batch * od, *l.in_hw[1:], l.cin),
+                (*p.kt[1:], l.cin, p.phases * l.cout),
+                ((p.pi[1],) * 2, (p.pi[2],) * 2))
+
+    # ---- (a) K2 int8 bit-identical to its plain version ----------------
+    print(f"check: K2 int8 vs sd_conv_ref on the int8 pair (exact int32 "
+          f"sums), gate 0 elements different {tag}")
+    cases = []
+    for l in layers:
+        sx, sw_, pad = tap_shapes(l, BUCKET)
+        cases.append((f"voxgan/{l.name} tap conv, batch {BUCKET} x D_out",
+                      codes(*sx), codes(*sw_), pad, (0, 0), None, None))
+    sx, sw_, pad = tap_shapes(layers[0], 2)
+    full = torch.full(sx, 127, dtype=torch.int8, device=dev)
+    full[..., 1::2] = -127
+    cases.append(("voxgan/up1 tap conv, codes at +-127", full,
+                  torch.full(sw_, -127, dtype=torch.int8, device=dev), pad,
+                  (0, 0), None, None))
+    odd = [((2, 5, 6, 3), (3, 3, 3, 5), ((2, 1), (0, 2)), (0, 0), None,
+            KernelPlan(th=2, tw=3, tcin=3, tc=16)),
+           ((2, 7, 6, 5), (2, 3, 5, 20), ((1, 1), (1, 1)), (1, 2), (5, 3),
+            KernelPlan(th=3, tw=2, tcin=2, tc=16)),
+           ((3, 11, 13, 5), (2, 2, 5, 8), ((1, 1), (1, 1)), (0, 0), None,
+            None),
+           ((1, 9, 10, 70), (3, 3, 70, 33), ((1, 1), (1, 1)), (0, 0), None,
+            KernelPlan(th=4, tw=3, tcin=9, tc=32))]
+    for sx, sw_, pad, start, size, tile in odd:
+        cases.append((f"odd Cin {sx[-1]} pad {pad} window {start}+{size} "
+                      f"tile {tile}", codes(*sx), codes(*sw_), pad, start,
+                      size, tile))
+    failures, max_err = [], 0.0
+    for label, xq, wq, pad, start, size, tile in cases:
+        out = K.sd_conv(xq, wq, pad=pad, out_start=start, out_size=size,
+                        plan=tile)
+        ref = K.sd_conv_ref(xq, wq, pad, start, size)
+        torch.cuda.synchronize()
+        n_diff = int((out != ref).sum()) if out.shape == ref.shape else -1
+        if n_diff >= 0:
+            max_err = max(max_err, (out - ref).abs().max().item())
+        ok = n_diff == 0 and out.dtype == torch.int32
+        print(f"  {label} {tuple(xq.shape)} x {tuple(wq.shape)} -> "
+              f"{tuple(out.shape)} int32: {n_diff} elements differ "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(label)
+    if failures:
+        raise SystemExit(f"chip_smoke: K2 int8 disagrees with its plain "
+                         f"version on {failures}")
+
+    # ---- (b) the 3-D lowering against the torch backend ----------------
+    print(f"check: the 3-D lowering (one K2 launch per depth tap) vs the "
+          f"torch backend at batch {BUCKET}: f32 gate "
+          f"{ND_F32_GATE}*max(1,max|ref|) (TF32 off), int8 exact {tag}")
+    bound = {}
+    for i, l in enumerate(layers):
+        act = "linear" if i == len(layers) - 1 else "relu"
+        x = randn(BUCKET, *l.in_hw, l.cin)
+        w = randn(4, 4, 4, l.cin, l.cout, scale=1.0 / (64 * l.cin) ** 0.5)
+        gamma = randn(l.cout, scale=0.1) + 1.0
+        bias = randn(l.cout, scale=0.1)
+        for dtype, counter in (("native", "SD_CONV_LAUNCHES"),
+                               ("int8", "SD_CONV_INT8_LAUNCHES")):
+            pf, pt = (sd.plan(w.shape, 2, pads, backend=b, act=act,
+                              dtype=dtype, device=dev).bind(w, gamma, bias)
+                      for b in ("fused", "torch"))
+            before = getattr(K, counter)
+            out = sd.execute(pf, x)
+            n = getattr(K, counter) - before
+            ref = sd.execute(pt, x)
+            torch.cuda.synchronize()
+            if dtype == "int8":
+                d = (out - ref).abs().max().item()
+                ok = bool(torch.equal(out, ref))
+                gate = "exact"
+            else:
+                d, tol = _gate_err(out, ref, ND_F32_GATE, True)
+                ok = d <= tol
+                gate = f"tol {tol:.3e}"
+            ok = ok and n == pf.kt[0] and out.shape == ref.shape
+            print(f"  voxgan/{l.name} {dtype} {tuple(x.shape)}->"
+                  f"{tuple(out.shape)}: {n} {'K2 int8' if dtype == 'int8' else 'K2'} "
+                  f"launches, max|d| {d:.3e} {gate} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"voxgan/{l.name} {dtype}")
+            bound[(l.name, dtype)] = (x, pf, pt, w, bias)
+    if failures:
+        raise SystemExit(f"chip_smoke: the 3-D lowering disagrees with the "
+                         f"torch backend on {failures}")
+
+    # ---- (c) timing -----------------------------------------------------
+    print(f"time: VoxGAN tap convs (each layer makes 2 such launches) at "
+          f"batch {BUCKET}, CUDA events: median [min, max] of 7 rounds of "
+          f"20 warm launches, K2 int8 / K2 f32 / plain (exact f64 tap "
+          f"GEMMs) / F.conv2d f32 (TF32 off; a float yardstick, no single "
+          f"PyTorch call computes this int8 conv) in turns; bound at the "
+          f"dense int8 tensor-core peak, useful_bound at the dp4a rate "
+          f"{tag}")
+    per_tap = []
+    for l, (label, xq, wq, pad, _, _, _) in zip(layers, cases):
+        xf, wf = xq.float(), wq.float()
+        x_cf = xf.permute(0, 3, 1, 2).contiguous()
+        w_cf = wf.permute(3, 2, 0, 1).contiguous()
+        lib = lambda: F.conv2d(x_cf, w_cf, padding=1)      # noqa: E731
+        y = K.sd_conv(xq, wq, pad=pad)
+        assert lib().shape[2:] == y.shape[1:3]
+        t = _time_ms({"k2q": lambda: K.sd_conv(xq, wq, pad=pad),
+                      "k2": lambda: K.sd_conv(xf, wf, pad=pad),
+                      "plain": lambda: K.sd_conv_ref(xq, wq, pad),
+                      "lib": lib})
+        bd = _device_breakdown(lambda: K.sd_conv(xq, wq, pad=pad))
+        bdf = _device_breakdown(lambda: K.sd_conv(xf, wf, pad=pad))
+        macs = y.numel() * wq.shape[0] * wq.shape[1] * wq.shape[2]
+        nbytes = xq.numel() + wq.numel() + 4 * y.numel()
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        t_ops = 2.0 * macs / PEAK_INT8_OPS * 1e3
+        geom = ConvGeom(h=xq.shape[1], w=xq.shape[2], cin=xq.shape[3],
+                        co=wq.shape[3], kth=wq.shape[0], ktw=wq.shape[1],
+                        out_h=y.shape[1], out_w=y.shape[2], dtype="int8")
+        plan = conv_plan(geom)
+        ms, lo, hi = t["k2q"]
+        rec = {"layer": f"voxgan/{l.name} tap", "x": list(xq.shape),
+               "w": list(wq.shape), "ms": ms, "ms_min": lo, "ms_max": hi,
+               "device_ms": None if bd is None else bd[0],
+               "k2_f32_ms": t["k2"][0],
+               "k2_f32_device_ms": None if bdf is None else bdf[0],
+               "plain_ms": t["plain"][0], "library_ms": None,
+               "f32_library_ms": t["lib"][0],
+               "bound_ms": max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "useful_bound_ms": max(2.0 * macs / DP4A_OPS * 1e3, t_bytes),
+               "macs": macs, "bytes": nbytes, "tile": str(plan),
+               "smem_bytes": smem_bytes(geom.as_fused(), plan),
+               "launches_per_batch": 2}
+        per_tap.append(rec)
+        dev_txt = ("not measured" if rec["device_ms"] is None
+                   else f"{rec['device_ms']:.4f} ms")
+        devf_txt = ("not measured" if rec["k2_f32_device_ms"] is None
+                    else f"{rec['k2_f32_device_ms']:.4f} ms")
+        print(f"  voxgan/{l.name} tap {tuple(xq.shape)}x{tuple(wq.shape)}->"
+              f"{tuple(y.shape)} tile {plan}, grid "
+              f"{-(-wq.shape[3] // plan.tc)} x "
+              f"{-(-y.shape[1] // plan.th) * -(-y.shape[2] // plan.tw)} x "
+              f"{xq.shape[0]} blocks, {rec['smem_bytes']} B dynamic shared "
+              f"memory: K2 int8 {ms:.4f} ms [{lo:.4f}, {hi:.4f}] "
+              f"({2 * macs / ms / 1e9:.1f} TOP/s; device time of one call "
+              f"{dev_txt}), K2 f32 {rec['k2_f32_ms']:.4f} ms (device time of "
+              f"one call {devf_txt}), plain {rec['plain_ms']:.4f} ms, "
+              f"F.conv2d f32 {rec['f32_library_ms']:.4f} ms; bound "
+              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}; int8 tensor "
+              f"cores {PEAK_INT8_OPS / 1e12:.0f} TOP/s), useful_bound "
+              f"{rec['useful_bound_ms']:.4f} ms (dp4a "
+              f"{DP4A_OPS / 1e12:.1f} TOP/s); sm clock, power, temperature "
+              f"{_clocks()} {tag}")
+    print(f"time: whole VoxGAN layers at batch {BUCKET} (bound plans: BN "
+          f"scale, bias, act; int8 includes the per-sample quantization), "
+          f"CUDA events, median of 7 rounds in turns: fused f32 (2 K2 "
+          f"launches) / fused int8 (2 K2-int8 launches) / torch backend f32 "
+          f"/ F.conv_transpose3d f32 (cuDNN, TF32 off, a yardstick) {tag}")
+    per_layer = []
+    for l in layers:
+        x, pf, pt, w, bias = bound[(l.name, "native")]
+        pq = bound[(l.name, "int8")][1]
+        x_cf = x.permute(0, 4, 1, 2, 3).contiguous()
+        w_cf = w.permute(3, 4, 0, 1, 2).contiguous()
+        lib = lambda: F.conv_transpose3d(                  # noqa: E731
+            x_cf, w_cf, bias, stride=2, padding=1)
+        assert lib().shape[2:] == sd.execute(pf, x).shape[1:4]
+        t = _time_ms({"f32": lambda: sd.execute(pf, x),
+                      "int8": lambda: sd.execute(pq, x),
+                      "torch": lambda: sd.execute(pt, x), "lib": lib})
+        rec = {"layer": f"voxgan/{l.name}", "x": list(x.shape),
+               "fused_f32_ms": t["f32"][0], "fused_int8_ms": t["int8"][0],
+               "torch_ms": t["torch"][0], "library_ms": t["lib"][0]}
+        per_layer.append(rec)
+        print(f"  voxgan/{l.name} {tuple(x.shape)}: fused f32 "
+              f"{rec['fused_f32_ms']:.4f} ms, fused int8 "
+              f"{rec['fused_int8_ms']:.4f} ms, torch {rec['torch_ms']:.4f} "
+              f"ms, conv_transpose3d {rec['library_ms']:.4f} ms {tag}")
+
+    # ---- (d) serve full-width VoxGAN in f32 and int8 --------------------
+    names = ("SD_FUSED_LAUNCHES", "SD_FUSED_INT8_LAUNCHES",
+             "SD_CONV_LAUNCHES", "SD_CONV_INT8_LAUNCHES",
+             "SD_FILTER_GRAD_LAUNCHES")
+    from repro_torch.kernels import winograd as W
+    serve, servers = {}, {}
+    for dtype, counter in (("f32", "SD_CONV_LAUNCHES"),
+                           ("int8", "SD_CONV_INT8_LAUNCHES")):
+        server = GenServer(nets=("voxgan",), device=dev, max_batch=BUCKET,
+                           seed=SEED, backend="fused",
+                           dtype="int8" if dtype == "int8" else torch.float32)
+        built_cells = server.warmup()
+        reqs = server.random_requests("voxgan", SERVE_REQUESTS, seed=1)
+        torch.cuda.synchronize()
+        for n in names:
+            setattr(K, n, 0)
+        W.SD_WINO_LAUNCHES = 0
+        results, stats = serve_async(server, reqs)
+        torch.cuda.synchronize()
+        counts = {n: getattr(K, n) for n in names}
+        counts["SD_WINO_LAUNCHES"] = W.SD_WINO_LAUNCHES
+        lat = stats["latency_ms"]
+        print(f"serve voxgan {dtype}: {stats['served']} VoxGAN requests "
+              f"(full width, 64->32->16->1 channels, 4^3 -> 32^3 voxels, "
+              f"{'int8 execution, ' if dtype == 'int8' else ''}f32 IO) in "
+              f"{stats['wall_s']:.4f} s host clock: "
+              f"{stats['req_per_s']:.1f} req/s, p50 {lat['p50']} ms, p95 "
+              f"{lat['p95']} ms, {stats['launches']} launches, "
+              f"{stats['compiles']} cells ({built_cells} built in warmup) "
+              f"{tag}")
+        want = 3 * 2 * stats["launches"]
+        print(f"  launches in the serving run: {counts} (want {counter} = 3 "
+              f"layers x 2 depth taps x {stats['launches']} batches, every "
+              f"other 0)")
+        if counts[counter] != want or want == 0 or any(
+                v for n, v in counts.items() if n != counter):
+            raise SystemExit(f"chip_smoke: the {dtype} VoxGAN server did "
+                             f"not run {counter} (and only it) twice per "
+                             "deconv layer per batch")
+        if stats["served"] != SERVE_REQUESTS or stats["shed"]:
+            raise SystemExit(f"chip_smoke: served {stats['served']} of "
+                             f"{SERVE_REQUESTS}, shed {stats['shed']}")
+        model, params = server.model("voxgan")
+        z = torch.stack([r.latent for r in reqs])
+        out = torch.stack([results[r.rid] for r in reqs])
+        ref_m = GenerativeModel(model.spec, "sd_kernel",
+                                engine_backend="torch", device=dev,
+                                engine_dtype="int8" if dtype == "int8"
+                                else "native")
+        with torch.no_grad():       # the served batches of 16, in order
+            ref = torch.cat([ref_m.apply(params, z[i:i + BUCKET])
+                             for i in range(0, SERVE_REQUESTS, BUCKET)])
+        finite = bool(torch.isfinite(out).all())
+        rel = F32_GATE if dtype == "f32" else INT8_EXACT_GATE
+        d, tol = _gate_err(out, ref, rel, True)
+        n_diff = int((out != ref).sum())
+        ok = finite and d <= tol and tuple(out.shape) == (
+            SERVE_REQUESTS, 32, 32, 32, 1)
+        print(f"  outputs {tuple(out.shape)} finite={finite}; vs the same "
+              f"model on the {dtype} torch backend on the card (the served "
+              f"batches of {BUCKET}): max|d| {d:.3e} tol {tol:.3e} "
+              f"({rel}*max(1,max|ref|)), {n_diff} of {out.numel()} elements "
+              f"differ {'ok' if ok else 'FAIL'} {tag}")
+        if not ok:
+            raise SystemExit(f"chip_smoke: {dtype}-served VoxGAN outputs "
+                             "are wrong")
+        serve[dtype] = {k: stats[k] for k in ("served", "launches",
+                                              "req_per_s", "wall_s",
+                                              "latency_ms")}
+        serve[dtype].update(launches_by_counter=counts, vs_torch_max_abs=d,
+                            elements_differ=n_diff, out=out)
+        servers[dtype] = (server, reqs)
+    a, b = serve["int8"].pop("out"), serve["f32"].pop("out")
+    int8_vs_f32 = ((a - b).abs().max() / b.abs().max()).item()
+    ok = int8_vs_f32 < INT8_VS_F32
+    print(f"  int8 served vs the f32 server on the same weights and "
+          f"latents: max|d|/max|ref| {int8_vs_f32:.4e} (gate < "
+          f"{INT8_VS_F32}) {'ok' if ok else 'FAIL'} {tag}")
+    if not ok:
+        raise SystemExit("chip_smoke: int8 VoxGAN strays from f32")
+
+    # ---- one batch of 16: int8 vs f32, in turns -------------------------
+    full = [r.latent for r in servers["f32"][1][:BUCKET]]
+    host = {"f32": [], "int8": []}
+    for r in range(10):
+        for name in (("int8", "f32") if r % 2 == 0 else ("f32", "int8")):
+            srv = servers[name][0]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            srv.run_group("voxgan", full)
+            torch.cuda.synchronize()
+            host[name].append((time.perf_counter() - t0) * 1e3)
+    host_ms = {k: sorted(v)[len(v) // 2] for k, v in host.items()}
+    breakdown = {k: _device_breakdown(
+        lambda s=servers[k][0]: s.run_group("voxgan", full))
+        for k in ("f32", "int8")}
+    print(f"batch voxgan: one VoxGAN batch of {BUCKET} through run_group: "
+          f"f32 {host_ms['f32']:.3f} ms, int8 {host_ms['int8']:.3f} ms host "
+          f"clock (median of 10, synchronised, in turns) {tag}")
+    for name, bd in breakdown.items():
+        if bd is None:
+            print(f"  {name}: device time per kernel: not measured (the "
+                  "profiler reported no device time)")
+            continue
+        busy, wall, top = bd
+        print(f"  {name} profiler: device busy {busy:.3f} ms of {wall:.3f} "
+              f"ms wall (idle share {1 - busy / wall:.3f}) {tag}")
+        for kname, ms_k, calls in top:
+            print(f"    {ms_k:.4f} ms in {calls} call(s): {kname[:90]}")
+
+    tot = {k: sum(r[k] for r in per_tap)
+           for k in ("ms", "plain_ms", "f32_library_ms", "bound_ms",
+                     "useful_bound_ms", "k2_f32_ms", "macs", "bytes")}
+    kernel = {
+        "name": "sd_conv_int8", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/sd_conv_int8.cu",
+        "replaces": "src/repro/kernels/sd_conv.py:186",
+        "launches": serve["int8"]["launches_by_counter"][
+            "SD_CONV_INT8_LAUNCHES"],
+        "max_abs_err": max_err,
+        "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+        "bound_ms": tot["bound_ms"],
+        "bound_by": ("operations" if 2.0 * tot["macs"] / PEAK_INT8_OPS
+                     >= tot["bytes"] / PEAK_BYTES else "bytes"),
+        "useful_bound_ms": tot["useful_bound_ms"],
+        "library_ms": None, "f32_library_ms": tot["f32_library_ms"],
+        "k2_f32_ms": tot["k2_f32_ms"]}
+    return {"kernel": kernel,
+            "k2_launches_serve_3d": serve["f32"]["launches_by_counter"][
+                "SD_CONV_LAUNCHES"],
+            "per_tap": per_tap, "per_layer": per_layer, "serve": serve,
+            "int8_vs_f32_rel": int8_vs_f32, "batch_host_ms": host_ms,
+            "batch_device": breakdown}
+
+
 def main(json_path: str = "") -> int:
     t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(HERE, "src", "repro_torch")):
@@ -1426,6 +1796,9 @@ def main(json_path: str = "") -> int:
     # ---- 7. serve int8 DCGAN through K1's int8 branch --------------------
     int8 = _int8_phase(dev, tag, randn)
 
+    # ---- 8. serve VoxGAN (3-D) through K2 and K2's int8 pair -------------
+    nd = _nd_phase(dev, tag, randn)
+
     if "jax" in sys.modules or "repro" in sys.modules:
         raise SystemExit("chip_smoke: JAX or the JAX package was imported")
     total = {k: sum(r[k] for r in per_layer)
@@ -1442,7 +1815,10 @@ def main(json_path: str = "") -> int:
         "ms": total["ms"], "plain_ms": total["plain_ms"],
         "bound_ms": total["bound_ms"], "bound_by": bound_by,
         "library_ms": total["library_ms"]}] + train["kernels"] + \
-        [wino["kernel"], int8["kernel"]]
+        [wino["kernel"], int8["kernel"], nd["kernel"]]
+    for k in kernels:
+        if k["name"] == "sd_conv":
+            k["launches_serve_3d"] = nd["k2_launches_serve_3d"]
     report = {"card": card, "kernels": kernels,
               "per_layer": per_layer + train["per_layer"],
               "train": train["train"],
@@ -1450,6 +1826,7 @@ def main(json_path: str = "") -> int:
                                                 "peak_mib", "batch_host_ms",
                                                 "batch_device")},
               "int8": {k: v for k, v in int8.items() if k != "kernel"},
+              "nd": {k: v for k, v in nd.items() if k != "kernel"},
               "serve": {k: stats[k] for k in
                         ("served", "launches", "req_per_s", "wall_s",
                          "latency_ms")},
@@ -1468,7 +1845,10 @@ def main(json_path: str = "") -> int:
           f"three deconv layers at batch {BUCKET}; launches counted in the "
           f"{GAN_STEPS}-step training run, K1's serving-run count as "
           f"launches_serve; K4's in the winograd serving run, K1 int8's in "
-          f"the int8 serving run) {tag}")
+          f"the int8 serving run; K2's f32 VoxGAN serving run as "
+          f"launches_serve_3d; K2 int8's ms/plain_ms/bound_ms summed over "
+          f"VoxGAN's three tap convs at batch {BUCKET}, its launches in the "
+          f"int8 VoxGAN serving run) {tag}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,9 +2,10 @@
 
 A copy of the JAX package's ``core/accounting.py`` specs (the port keeps
 its own copy and imports nothing of ``repro``): ``LayerSpec`` /
-``NetworkSpec`` with their MAC and parameter accounting, and the six
-paper networks of Section 5.1, whose 22 deconv layers all run through
-the split-deconv kernel.
+``NetworkSpec`` with their MAC and parameter accounting, the six paper
+networks of Section 5.1 (:data:`BENCHMARKS`, 22 deconv layers), and the
+N-D workloads beyond the paper (:data:`WORKLOADS` adds the 1-D
+``wavegan``, the 3-D ``voxgan`` and the 2-D ``segnet``).
 """
 
 from __future__ import annotations
@@ -256,3 +257,55 @@ def fst() -> NetworkSpec:
 
 BENCHMARKS = {"dcgan": dcgan, "artgan": artgan, "sngan": sngan,
               "gpgan": gpgan, "mde": mde, "fst": fst}
+
+
+# ---------------------------------------------------------------------------
+# N-D workloads beyond the paper: the same split-deconv substrate applied
+# to audio (1-D), volumetric generation (3-D) and dense segmentation
+# decoding.  They are not among the paper's six benchmarks (BENCHMARKS
+# stays exactly the paper's set); models and servers look nets up in
+# WORKLOADS.
+# ---------------------------------------------------------------------------
+
+def wavegan() -> NetworkSpec:
+    """WaveGAN-style 1-D audio generator (Donahue et al.), scaled to a
+    1024-sample clip: 25-tap stride-4 transposed convs (K % s == 1, so
+    the SD expansion is (4*7/25)^1 = 1.12x)."""
+    return NetworkSpec("WaveGAN", [
+        LayerSpec("fc", 100, 16 * 64, name="project"),
+        LayerSpec("deconv", 64, 32, k=25, s=4, in_hw=(16,), name="up1"),
+        LayerSpec("deconv", 32, 16, k=25, s=4, in_hw=(64,), name="up2"),
+        LayerSpec("deconv", 16, 1, k=25, s=4, in_hw=(256,),
+                  name="to_audio"),
+    ], note="1-D audio synthesis; final tanh = waveform in [-1, 1]")
+
+
+def voxgan() -> NetworkSpec:
+    """3D-GAN-style voxel generator (Wu et al.), 4^3 -> 32^3 occupancy
+    grid via 4x4x4 stride-2 transposed convs (K % s == 0: SD is
+    expansion-free in every dim)."""
+    return NetworkSpec("VoxGAN", [
+        LayerSpec("fc", 64, 4 ** 3 * 64, name="project"),
+        LayerSpec("deconv", 64, 32, k=4, s=2, in_hw=(4, 4, 4), name="up1"),
+        LayerSpec("deconv", 32, 16, k=4, s=2, in_hw=(8, 8, 8), name="up2"),
+        LayerSpec("deconv", 16, 1, k=4, s=2, in_hw=(16, 16, 16),
+                  name="to_vox"),
+    ], note="3-D volumetric generation; final tanh = occupancy in [-1, 1]")
+
+
+def segnet() -> NetworkSpec:
+    """SegNet-style encoder-decoder segmentation head: strided conv
+    encoder, deconv decoder back to input resolution, dense per-pixel
+    class logits (``final_tanh=False``)."""
+    return NetworkSpec("SegNet", [
+        LayerSpec("conv", 3, 32, k=3, s=2, in_hw=(32, 32), name="e1"),
+        LayerSpec("conv", 32, 64, k=3, s=2, in_hw=(16, 16), name="e2"),
+        LayerSpec("deconv", 64, 32, k=4, s=2, in_hw=(8, 8), name="d1"),
+        LayerSpec("deconv", 32, 16, k=4, s=2, in_hw=(16, 16), name="d2"),
+        LayerSpec("conv", 16, 21, k=3, s=1, in_hw=(32, 32), name="logits"),
+    ], note="2-D dense prediction; 21-class (VOC-sized) logit head",
+        final_tanh=False)
+
+
+WORKLOADS = {**BENCHMARKS, "wavegan": wavegan, "voxgan": voxgan,
+             "segnet": segnet}

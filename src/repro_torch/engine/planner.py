@@ -49,8 +49,8 @@ def _versions(leaves) -> tuple:
 class SDEngine:
     """Per-network cache of presplit, BN-folded deconv plans.
 
-    ``backend``: ``"fused"`` (the CUDA kernel K1; its plain version for
-    CPU tensors), ``"winograd"`` (K4 pinned on every deconv layer; a
+    ``backend``: ``"fused"`` (the CUDA kernel K1; for a 3-D net one K2
+    launch per depth tap; their plain versions for CPU tensors), ``"winograd"`` (K4 pinned on every deconv layer; a
     layer outside its envelope raises at plan time), ``"torch"``
     (grouped conv + pixel shuffle), or ``"auto"`` (fused on a CUDA
     ``device``, torch on the CPU).  The reference's measured per-layer

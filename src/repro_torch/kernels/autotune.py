@@ -17,10 +17,10 @@ tile.  ``tcin`` input channels are staged in shared memory per step of
 the block's own loop over Cin.
 
 A geometry carries its operand dtype (``dtype``: ``""`` for float,
-``"int8"`` for K1's quant branch), so the float and the int8 launch of
-one layer are distinct geometries (a geometry is its own tile key), and
-the int8 branch's shared memory is modelled at one byte per staged
-value.
+``"int8"`` for K1's quant branch and K2's int8 pair), so the float and
+the int8 launch of one layer are distinct geometries (a geometry is its
+own tile key), and the int8 launches' shared memory is modelled at one
+byte per staged value.
 """
 
 from __future__ import annotations
@@ -124,7 +124,9 @@ def heuristic_plan(geom: FusedGeom) -> KernelPlan:
 @dataclass(frozen=True)
 class ConvGeom:
     """What K2 launches: unpadded input ``h x w x cin``, ``co`` output
-    channels, ``(kth, ktw)`` taps, output window ``out_h x out_w``."""
+    channels, ``(kth, ktw)`` taps, output window ``out_h x out_w``, and
+    the operand dtype (``""`` f32, ``"int8"`` the int8 pair; the
+    reference's ``ConvGeom(dtype="int8")`` key)."""
     h: int
     w: int
     cin: int
@@ -133,19 +135,23 @@ class ConvGeom:
     ktw: int
     out_h: int
     out_w: int
+    dtype: str = ""
 
     def as_fused(self) -> FusedGeom:
         """K2 is K1's block without the interleave: K1's geometry at
         stride 1 with no residual crop (same staging, same shared
-        memory)."""
+        memory; the int8 pair stages packed int8 as K1's int8 branch
+        does)."""
         return FusedGeom(h=self.h, w=self.w, cin=self.cin, nc=self.co,
                          kth=self.kth, ktw=self.ktw, sh=1, sw=1,
-                         out_h=self.out_h, out_w=self.out_w)
+                         out_h=self.out_h, out_w=self.out_w,
+                         dtype=self.dtype)
 
 
 def conv_plan(geom: ConvGeom) -> KernelPlan:
     """K2's tile: K1's heuristic on :meth:`ConvGeom.as_fused` (``tc`` is
-    the output-channel tile, ``th x tw`` the output positions).
+    the output-channel tile, ``th x tw`` the output positions; an int8
+    geometry starts ``tcin`` at 64, its staging being 4x smaller).
     ``tcin`` is never padded up: DCGAN d3's dx contracts over 12 phase
     channels in one chunk of 12."""
     return heuristic_plan(geom.as_fused())

@@ -10,6 +10,11 @@ output shape.  The kernel writes each output element once; no padded or
 uncropped copy exists.  :func:`sd_deconv_presplit_wino` does the same
 for K4 from the Winograd-transformed filters.
 
+:func:`sd_deconv_presplit_fused_3d` is the 3-D lowering: depth folded
+into the batch, one K2 launch per depth tap (K2's int8 pair on int8
+operands), the taps summed outside the kernel, then ``depth_to_space``
+and the epilogue in stock torch ops.
+
 :func:`sd_input_grad_fused` and :func:`sd_filter_grad_fused` are the SD
 backward's two convolutions on K2 and K3 (see :mod:`repro_torch.sd.grad`).
 """
@@ -21,10 +26,12 @@ from typing import Optional
 import torch
 
 from repro_torch.core.deconv import (_check_output_padding, _check_padding,
-                                     _ntuple, _pads_nd, deconv_output_shape,
+                                     _ntuple, _pads_nd, crop_interleaved,
+                                     deconv_output_shape, depth_to_space,
                                      sd_geometry)
 from repro_torch.kernels.autotune import FilterGradPlan, KernelPlan
-from repro_torch.kernels.sd_conv import (quant_contract, sd_conv,
+from repro_torch.kernels.sd_conv import (_apply_act, check_no_grad,
+                                         quant_contract, sd_conv,
                                          sd_filter_grad, sd_fused)
 from repro_torch.kernels.winograd import sd_wino
 
@@ -94,6 +101,78 @@ def sd_deconv_presplit_wino(x: torch.Tensor, u: torch.Tensor, kernel,
         return x.new_zeros((x.shape[0], *out_space, cout))
     return sd_wino(x, u, kt, s, bias=bias, act=act, pad=pad, crop=crop,
                    out_space=out_space, plan=plan)
+
+
+def sd_deconv_presplit_fused_3d(x: torch.Tensor, ws_nmajor: torch.Tensor,
+                                kernel, stride, padding=0, *,
+                                output_padding=0,
+                                bias: Optional[torch.Tensor] = None,
+                                act: str = "linear",
+                                scale: Optional[torch.Tensor] = None,
+                                out_dtype: Optional[torch.dtype] = None,
+                                plan: Optional[KernelPlan] = None
+                                ) -> torch.Tensor:
+    """3-D transposed conv from pre-split n-major filters, depth folded
+    into the batch (reference: ``ops.sd_deconv_presplit_fused_3d``).
+
+    x: (B, D, H, W, Cin); ws_nmajor: (KT_d, KT_h, KT_w, Cin, N*Cout),
+    ``N = s_d*s_h*s_w``.  Each depth tap ``td`` of the split stride-1
+    conv is a 2-D conv of a shifted band of depth slices, so it runs as
+    one K2 launch with ``(B * D_out)`` as the batch and the H/W ``P_I``
+    pads applied in the kernel; only the depth pad is made real in
+    memory.  The taps are summed outside the kernel, in order, then the
+    3-D interleave (``depth_to_space``), crop, bias and activation run
+    as stock torch ops.
+
+    int8 (an int8 ``(x, ws_nmajor)`` pair with the dynamic n-major (B,
+    N*Cout) ``scale``): each tap is K2's int8 pair, exact int32, summed
+    in int32; the sum is cast once to f32 and dequantized per (sample,
+    n-major phase channel) before the interleave; output f32.  The
+    static (1, NC) scale row and int8 output raise (the calibrated
+    slice), as in K1."""
+    s = _ntuple(stride, 3)
+    k = _ntuple(kernel, 3)
+    pads = _pads_nd(padding, 3)
+    op = _ntuple(output_padding, 3)
+    _check_padding(k, padding)
+    _check_output_padding(op, s)
+    (ktd, kth, ktw), pk, pi = sd_geometry(k, s)
+    if x.ndim != 5 or tuple(ws_nmajor.shape[:3]) != (ktd, kth, ktw) \
+            or ws_nmajor.shape[3] != x.shape[-1]:
+        raise ValueError(f"shapes x {tuple(x.shape)}, ws "
+                         f"{tuple(ws_nmajor.shape)} are not (B,D,H,W,Cin), "
+                         f"({ktd},{kth},{ktw},Cin,N*Cout)")
+    quant = quant_contract(x, ws_nmajor, scale, out_dtype)
+    if x.device.type == "cuda":
+        # K2's output carries no graph: the differentiable path is
+        # repro_torch.sd.conv_transpose.
+        check_no_grad("sd_deconv_presplit_fused_3d", x, ws_nmajor)
+    out_space = deconv_output_shape(x.shape[1:4], k, s, padding,
+                                    output_padding)
+    xp = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, 0, pi[0], pi[0]))
+    b, dp, h, wd, cin = xp.shape
+    od = dp - ktd + 1
+    oh1, ow1 = h + 2 * pi[1] - kth + 1, wd + 2 * pi[2] - ktw + 1
+    nco = ws_nmajor.shape[-1]
+    hw_pad = ((pi[1], pi[1]), (pi[2], pi[2]))
+    terms = cin * ktd * kth * ktw if quant else None
+    acc = None
+    for td in range(ktd):
+        xs = xp[:, td:td + od].reshape(b * od, h, wd, cin)
+        y2 = sd_conv(xs, ws_nmajor[td], pad=hw_pad, plan=plan,
+                     sum_terms=terms)
+        if not quant:                    # int8 taps stay exact int32
+            y2 = y2.float()
+        acc = y2 if acc is None else acc.add_(y2)
+    y = acc.reshape(b, od, oh1, ow1, nco)
+    if quant:
+        # Dequant before the interleave: n-major phase channels carry
+        # distinct scales (per-sample activation x per-channel filter).
+        y = y.float() * scale.reshape(b, 1, 1, 1, nco)
+    out = crop_interleaved(depth_to_space(y, s), pk, pads, out_space)
+    if bias is not None:
+        out = out + bias.float()
+    return _apply_act(out, act).to(torch.float32 if quant else x.dtype)
 
 
 # ---------------------------------------------------------------------------

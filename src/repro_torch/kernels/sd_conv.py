@@ -32,13 +32,23 @@ K2, :func:`sd_conv` (``csrc/sd_conv.cu``, contract of ``sd_conv_pallas``:
 a stride-1 VALID conv with in-kernel pad and an output window), and K3,
 :func:`sd_filter_grad` (``csrc/sd_filter_grad.cu``, contract of
 ``sd_filter_grad_pallas``).  Their counters are ``SD_CONV_LAUNCHES`` and
-``SD_FILTER_GRAD_LAUNCHES``.  Both take f32 only so far.
+``SD_FILTER_GRAD_LAUNCHES``.  Both take f32.
+
+K2's int8 pair: :func:`sd_conv` on an int8 ``(x, w)`` pair returns the
+exact int32 conv, the caller owning the dequant.  On a CUDA tensor it
+launches ``csrc/sd_conv_int8.cu`` (counted by ``SD_CONV_INT8_LAUNCHES``,
+never by ``SD_CONV_LAUNCHES``); its plain version is :func:`sd_conv_ref`
+on the int8 pair (:func:`exact_conv_valid` over the padded, windowed
+input).  Its caller is the 3-D lowering
+(:func:`~repro_torch.kernels.ops.sd_deconv_presplit_fused_3d`), one
+launch per depth tap.
 """
 
 from __future__ import annotations
 
 import ctypes
 import itertools
+import math
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -63,6 +73,7 @@ _LATER = "see ROADMAP.md for the slice that brings it"
 SD_FUSED_LAUNCHES = 0      # kernel launches; the plain version never counts
 SD_FUSED_INT8_LAUNCHES = 0
 SD_CONV_LAUNCHES = 0
+SD_CONV_INT8_LAUNCHES = 0
 SD_FILTER_GRAD_LAUNCHES = 0
 
 
@@ -107,12 +118,23 @@ def exact_conv_valid(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def check_int32_terms(terms: int, what: str) -> None:
+    """Refuse an exact int8 sum of ``terms`` products of up to 127^2 that
+    could reach 2^31, the int32 accumulator's limit."""
+    if terms * 127 * 127 >= INT32_MAX_SUM:
+        raise ValueError(
+            f"{what} sums {terms} products of up to 127^2, which can reach "
+            "2^31: the int32 accumulator would overflow")
+
+
 def quant_contract(x, ws, scale, out_dtype) -> bool:
     """Check the launch against K1's contract on any device; True for an
     int8 launch.  The int8 branch takes an int8 pair, the dynamic (B,
     Cout*sh*sw) f32 scale and f32 output, and refuses a geometry whose
     exact sum could overflow its int32 accumulator; the calibrated path
-    (a static (1, NC) row for a batch, int8 output) is a later slice."""
+    (a static (1, NC) row for a batch, int8 output) is a later slice.
+    Any rank: ``ws`` is ``(*KT, Cin, NC)`` and every tap counts toward
+    the sum."""
     quant = x.dtype == torch.int8 or ws.dtype == torch.int8
     if not quant:
         if scale is not None:
@@ -146,11 +168,8 @@ def quant_contract(x, ws, scale, out_dtype) -> bool:
         raise TypeError(f"scale must be float32, got {scale.dtype}")
     if scale.device != x.device or not scale.is_contiguous():
         raise ValueError("scale must be contiguous on the input's device")
-    terms = x.shape[-1] * ws.shape[0] * ws.shape[1]
-    if terms * 127 * 127 >= INT32_MAX_SUM:
-        raise ValueError(
-            f"an int8 split conv over Cin x taps = {terms} products of up "
-            "to 127^2 can reach 2^31: the int32 accumulator would overflow")
+    check_int32_terms(x.shape[-1] * math.prod(ws.shape[:-2]),
+                      "an int8 split conv over Cin x taps")
     return True
 
 
@@ -380,31 +399,60 @@ def sd_conv_ref(x: torch.Tensor, w: torch.Tensor,
                 out_start: Tuple[int, int] = (0, 0),
                 out_size: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Plain PyTorch version of :func:`sd_conv`: ``F.pad``, ``F.conv2d``
-    in f32, the window slice, cast to ``x.dtype``."""
+    in f32, the window slice, cast to ``x.dtype``.  On an int8 pair: the
+    zero-padded input cut to the window's rows and columns, summed
+    exactly (:func:`exact_conv_valid`), int32 out."""
     oh, ow = _conv_window(x.shape, w.shape, pad, out_start, out_size)
     (plo_h, phi_h), (plo_w, phi_w) = pad
+    (sh, sw) = out_start
+    if x.dtype == torch.int8:
+        xp = F.pad(x, (0, 0, plo_w, phi_w, plo_h, phi_h))
+        xp = xp[:, sh:sh + oh + w.shape[0] - 1, sw:sw + ow + w.shape[1] - 1]
+        return exact_conv_valid(xp, w).to(torch.int32)
     xp = F.pad(x.float(), (0, 0, plo_w, phi_w, plo_h, phi_h))
     y = conv_valid(xp, w.float())
-    (sh, sw) = out_start
     return y[:, sh:sh + oh, sw:sw + ow].to(x.dtype)
 
 
-def _check_f32(name: str, *ts: torch.Tensor) -> None:
+def _check_operands(name: str, dtype: torch.dtype, *ts: torch.Tensor
+                    ) -> None:
     for t in ts:
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} kernel takes float32, got {t.dtype} "
-                            "(the int8 pair comes with the int8 slice)")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} kernel takes {dtype}, got {t.dtype}")
         if t.device != ts[0].device:
             raise ValueError(f"{name} operands must share one device")
         if not t.is_contiguous():
             raise ValueError(f"{name} operands must be contiguous")
 
 
+def _conv_int8_contract(x: torch.Tensor, w: torch.Tensor,
+                        sum_terms: Optional[int]) -> bool:
+    """True for K2's int8 pair, checked on any device: both operands
+    int8, and the whole int32 sum (``sum_terms`` products, default this
+    launch's ``Cin * KTh * KTw``; the 3-D lowering adds its depth taps
+    outside the kernel) below 2^31."""
+    if x.dtype != torch.int8 and w.dtype != torch.int8:
+        if sum_terms is not None:
+            raise ValueError("sum_terms bounds an int8 pair's int32 sum")
+        return False
+    if x.dtype != torch.int8 or w.dtype != torch.int8:
+        raise TypeError(f"K2's int8 branch takes an int8 (x, w) pair, got "
+                        f"{x.dtype} and {w.dtype}")
+    own = x.shape[3] * w.shape[0] * w.shape[1]
+    terms = own if sum_terms is None else int(sum_terms)
+    if terms < own:
+        raise ValueError(f"sum_terms {terms} is below this launch's own "
+                         f"Cin x taps = {own}")
+    check_int32_terms(terms, "an int8 conv over Cin x taps")
+    return True
+
+
 def sd_conv(x: torch.Tensor, w: torch.Tensor, *,
             pad: Tuple[PadPair, PadPair] = ((0, 0), (0, 0)),
             out_start: Tuple[int, int] = (0, 0),
             out_size: Optional[Tuple[int, int]] = None,
-            plan: Optional[KernelPlan] = None) -> torch.Tensor:
+            plan: Optional[KernelPlan] = None,
+            sum_terms: Optional[int] = None) -> torch.Tensor:
     """Stride-1 VALID conv over the logically zero-padded input (K2).
 
     x: (B, H, W, Cin) unpadded; ``pad`` is applied in the kernel by
@@ -414,27 +462,38 @@ def sd_conv(x: torch.Tensor, w: torch.Tensor, *,
     after the conv folds into the launch.  Returns (B, *out_size, Co).
     ``plan``: the tile (``tc`` = output channels per block); default
     :func:`~repro_torch.kernels.autotune.conv_plan`.
+
+    An int8 ``(x, w)`` pair returns the exact int32 conv (the halo is
+    the int8 zero); ``sum_terms`` is the number of int8 products in each
+    element's whole sum when the caller adds several launches (the 3-D
+    lowering: ``Cin * KT_d * KT_h * KT_w``), and a sum that could reach
+    2^31 raises.  Operands that require grad under grad mode raise on
+    the card (:func:`check_no_grad`): the int8 branch is inference-only.
     """
-    global SD_CONV_LAUNCHES
+    global SD_CONV_LAUNCHES, SD_CONV_INT8_LAUNCHES
     if x.ndim != 4 or w.ndim != 4 or w.shape[2] != x.shape[3]:
         raise ValueError(f"shapes x {tuple(x.shape)}, w {tuple(w.shape)} "
                          "are not (B,H,W,Cin), (KTh,KTw,Cin,Co)")
     oh, ow = _conv_window(x.shape, w.shape, pad, out_start, out_size)
+    quant = _conv_int8_contract(x, w, sum_terms)
     if x.device.type == "cpu":
         return sd_conv_ref(x, w, pad, out_start, (oh, ow))
     if x.device.type != "cuda":
         raise ValueError(f"sd_conv runs on cuda or cpu, not {x.device}")
-    _check_f32("sd_conv", x, w)
+    if quant:
+        check_no_grad("sd_conv", x, w)
+    _check_operands("sd_conv", torch.int8 if quant else torch.float32, x, w)
     b, h, wd, cin = x.shape
     kth, ktw, _, co = w.shape
     geom = ConvGeom(h=h, w=wd, cin=cin, co=co, kth=kth, ktw=ktw, out_h=oh,
-                    out_w=ow)
+                    out_w=ow, dtype="int8" if quant else "")
     plan = plan if plan is not None else conv_plan(geom)
     smem = smem_bytes(geom.as_fused(), plan)
     if smem > SMEM_BUDGET:
         raise ValueError(f"tile {plan} needs {smem} bytes of shared memory; "
                          f"a block has {SMEM_BUDGET}")
-    y = torch.empty((b, oh, ow, co), dtype=x.dtype, device=x.device)
+    y = torch.empty((b, oh, ow, co),
+                    dtype=torch.int32 if quant else x.dtype, device=x.device)
     if y.numel() == 0:
         return y
     tiles = -(-oh // plan.th) * -(-ow // plan.tw)
@@ -442,7 +501,7 @@ def sd_conv(x: torch.Tensor, w: torch.Tensor, *,
         raise ValueError(f"{tiles} spatial tiles x batch {b} exceed the "
                          "grid's limits; use a larger tile")
     from repro_torch.kernels.build import load
-    fn = load("sd_conv").fn
+    fn = load("sd_conv_int8" if quant else "sd_conv").fn
     (plo_h, _), (plo_w, _) = pad
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -451,8 +510,12 @@ def sd_conv(x: torch.Tensor, w: torch.Tensor, *,
                  oh, ow, plan.th, plan.tw, plan.tcin, plan.tc,
                  ctypes.c_void_p(stream))
     if err != 0:
-        raise RuntimeError(f"sd_conv kernel launch failed: CUDA error {err}")
-    SD_CONV_LAUNCHES += 1
+        raise RuntimeError(f"sd_conv{' int8' if quant else ''} kernel launch "
+                           f"failed: CUDA error {err}")
+    if quant:
+        SD_CONV_INT8_LAUNCHES += 1
+    else:
+        SD_CONV_LAUNCHES += 1
     return y
 
 
@@ -503,7 +566,7 @@ def sd_filter_grad(x: torch.Tensor, dy1: torch.Tensor, kt, *,
     if x.device.type != "cuda":
         raise ValueError(f"sd_filter_grad runs on cuda or cpu, not "
                          f"{x.device}")
-    _check_f32("sd_filter_grad", x, dy1)
+    _check_operands("sd_filter_grad", torch.float32, x, dy1)
     plan = plan if plan is not None else filter_grad_plan(geom)
     out = torch.empty((*kt, geom.cin, geom.nco), dtype=torch.float32,
                       device=x.device)

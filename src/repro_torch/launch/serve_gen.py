@@ -17,7 +17,9 @@ cell key does not name it).  ``--dtype int8`` serves through int8
 engine plans (per-channel filter quantization at bind, per-sample
 activation quantization and the dequant epilogue on the hot path, K1's
 int8 branch on ``fused``); latents, params and outputs stay f32 and the
-cell key says ``int8``.
+cell key says ``int8``.  ``--nets`` takes any workload of
+``core/accounting.py``; the 3-D ``voxgan`` runs each deconv layer as one
+K2 launch per depth tap (K2's int8 pair under ``--dtype int8``).
 
   PYTHONPATH=src python -m repro_torch.launch.serve_gen --nets dcgan \\
       --requests 32 --max-batch 16
@@ -26,6 +28,8 @@ cell key says ``int8``.
       --device cpu --backend winograd
   PYTHONPATH=src python -m repro_torch.launch.serve_gen --dryrun \\
       --device cpu --dtype int8
+  PYTHONPATH=src python -m repro_torch.launch.serve_gen --nets voxgan \\
+      --dtype int8
 """
 
 from __future__ import annotations
@@ -37,7 +41,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.core.accounting import BENCHMARKS, LayerSpec, NetworkSpec
+from repro_torch.core.accounting import WORKLOADS, LayerSpec, NetworkSpec
 from repro_torch.device import describe_device, resolve_device
 from repro_torch.launch.batching import pow2_bucket, pow2_floor, take_group
 from repro_torch.models.generative import GenerativeModel
@@ -56,13 +60,22 @@ class GenRequest:
 
 
 def reduced_specs() -> Dict[str, NetworkSpec]:
-    """Tiny 2-D specs for ``--dryrun`` (a generator and a segmentation
-    decoder with a mid-net conv and a logit head)."""
+    """Tiny specs for ``--dryrun``: a 2-D generator, a 3-D voxel
+    generator and a 2-D segmentation decoder with a mid-net conv and a
+    logit head (the reference's set; its 1-D ``wavegan-dryrun`` comes
+    with the rank-1 slice)."""
     return {
         "dcgan-dryrun": NetworkSpec("DCGAN-dryrun", [
             LayerSpec("fc", 16, 4 * 4 * 32, name="project"),
             LayerSpec("deconv", 32, 16, k=5, s=2, in_hw=(4, 4), name="d1"),
             LayerSpec("deconv", 16, 3, k=5, s=2, in_hw=(8, 8), name="d2"),
+        ]),
+        "voxgan-dryrun": NetworkSpec("VoxGAN-dryrun", [
+            LayerSpec("fc", 8, 2 ** 3 * 8, name="project"),
+            LayerSpec("deconv", 8, 4, k=4, s=2, in_hw=(2, 2, 2),
+                      name="up1"),
+            LayerSpec("deconv", 4, 1, k=4, s=2, in_hw=(4, 4, 4),
+                      name="to_vox"),
         ]),
         "segnet-dryrun": NetworkSpec("SegNet-dryrun", [
             LayerSpec("conv", 3, 8, k=3, s=2, in_hw=(8, 8), name="e1"),
@@ -100,7 +113,7 @@ class GenServer:
         self._specs = dict(specs or {})
         for n in nets:
             if n not in self._specs:
-                self._specs[n] = BENCHMARKS[n]()
+                self._specs[n] = WORKLOADS[n]()
         self._models: Dict[str, Tuple[GenerativeModel, Any]] = {}
         self._serving: Dict[Tuple, Tuple[Any, Any, Any]] = {}
         self._compiled: Dict[Tuple, Any] = {}
@@ -275,7 +288,7 @@ def main(argv=None):
         description="Serve the paper's generators through the port.")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--nets", default="dcgan",
-                    help=f"comma list from {tuple(BENCHMARKS)}")
+                    help=f"comma list from {tuple(WORKLOADS)}")
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--max-batch", type=int, default=16)
     ap.add_argument("--backend", default="auto",
@@ -287,7 +300,7 @@ def main(argv=None):
                     help="per-request deadline; the async scheduler sheds "
                          "requests it cannot meet")
     ap.add_argument("--dryrun", action="store_true",
-                    help="2 requests per reduced 2-D spec (smoke test)")
+                    help="2 requests per reduced spec (smoke test)")
     ap.add_argument("--dp", type=int, default=1)
     ap.add_argument("--mp", type=int, default=1)
     ap.add_argument("--calib", type=int, default=0)

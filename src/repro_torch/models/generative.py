@@ -7,8 +7,9 @@ implementation is chosen by name from :data:`IMPLS`:
 * ``sd``        — split deconvolution, filters split on every call,
 * ``sd_kernel`` — the presplit-once engine (:class:`SDEngine`): filters
   are split and BN-folded once at bind, and every forward runs the
-  fused kernel K1 (``engine_backend="fused"``), the Winograd kernel K4
-  (``"winograd"``) or the grouped-conv ``torch`` backend, with bias and
+  fused kernel K1 (``engine_backend="fused"``; for a 3-D net one K2
+  launch per depth tap), the Winograd kernel K4 (``"winograd"``) or the
+  grouped-conv ``torch`` backend, with bias and
   activation in the epilogue; ``engine_dtype="int8"`` binds int8 plans
   (the dynamic int8 path, K1's int8 branch on ``fused``).  When autograd
   is recording and any param leaf or the input requires grad, each
@@ -31,7 +32,7 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 from torch import nn
 
-from repro_torch.core.accounting import BENCHMARKS, NetworkSpec
+from repro_torch.core.accounting import WORKLOADS, NetworkSpec
 from repro_torch.core.deconv import (conv_nd, native_deconv,
                                      same_deconv_pads, sd_deconv)
 from repro_torch.device import resolve_device
@@ -196,12 +197,14 @@ class GenerativeModel(nn.Module):
 
 def build(name: str, deconv_impl: str = "sd", engine_backend: str = "auto",
           device=None) -> GenerativeModel:
-    """Factory over the paper's six networks: ``build("dcgan",
-    "sd_kernel", device="cuda")``."""
-    if name not in BENCHMARKS:
-        raise ValueError(f"unknown network {name!r}; choose from "
-                         f"{sorted(BENCHMARKS)}")
-    return GenerativeModel(BENCHMARKS[name](), deconv_impl=deconv_impl,
+    """Factory over :data:`~repro_torch.core.accounting.WORKLOADS` (the
+    paper's six networks plus the N-D workloads): ``build("dcgan",
+    "sd_kernel", device="cuda")``.  Rank 1 (``wavegan``) runs on the
+    ``torch`` backend only so far; ``fused`` raises at plan time."""
+    if name not in WORKLOADS:
+        raise ValueError(f"unknown workload {name!r}; choose from "
+                         f"{sorted(WORKLOADS)}")
+    return GenerativeModel(WORKLOADS[name](), deconv_impl=deconv_impl,
                            engine_backend=engine_backend, device=device)
 
 

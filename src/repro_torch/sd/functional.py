@@ -12,7 +12,10 @@ filters ``bind`` transformed (``conv_transpose`` transforms the freshly
 split filters in the call; its backward is the plain torch formulation,
 as in the reference, which sends only ``"fused"`` to the kernels);
 ``"torch"`` is the grouped stride-1 conv + pixel shuffle + crop in plain
-PyTorch.
+PyTorch.  A rank-3 ``"fused"`` plan runs the depth-folded lowering, one
+K2 launch per depth tap
+(:func:`~repro_torch.kernels.ops.sd_deconv_presplit_fused_3d`); its
+backward is the plain torch formulation, as in the reference.
 
 A bound int8 plan runs :func:`_run_presplit_int8`: activations quantized
 per sample, int8 x int8 sums, the combined dequant scale applied per
@@ -47,6 +50,16 @@ def _run_presplit(plan: DeconvPlan, x: torch.Tensor, ws: torch.Tensor,
             plan=plan.tile)
     if plan.backend == "fused":
         from repro_torch.kernels import ops
+        if plan.rank == 3:
+            # Depth folded into the batch, one K2 launch per depth tap,
+            # then the torch interleave: consumes n-major filters.
+            if layout != "nmajor":
+                raise ValueError("the 3-D fused lowering consumes n-major "
+                                 "filters")
+            return ops.sd_deconv_presplit_fused_3d(
+                x, ws, plan.kernel, plan.stride, plan.padding,
+                output_padding=plan.output_padding, bias=bias, act=act,
+                plan=plan.tile)
         ws_oc = ws if layout == "ocmajor" else to_ocmajor(ws, plan.stride)
         return ops.sd_deconv_presplit_fused(
             x, ws_oc, plan.kernel, plan.stride, plan.padding,
@@ -73,12 +86,25 @@ def _run_presplit_int8(plan: DeconvPlan, x: torch.Tensor) -> torch.Tensor:
     version on the CPU.  ``torch``: the n-major grouped conv summed
     exactly (:func:`exact_conv_valid`, where the reference's xla path
     convolves f32-cast operands), rounded to f32 once and dequantized
-    per n-major channel before the pixel shuffle.  Output f32."""
+    per n-major channel before the pixel shuffle.  Rank 3 on ``fused``:
+    the depth-folded lowering with K2's int8 pair per depth tap, from
+    n-major filters and the n-major scale; the per-sample quantization
+    runs here, over each sample's whole volume, before the lowering
+    folds depth into the batch.  Output f32."""
     if x.dtype == torch.int8:
         raise ValueError("int8 input requires a calibrated plan (sx_in); "
                          "the dynamic path has no scale for it")
     xq, sx = quantize_act(x)
     comb = sx[:, None] * plan.wscale.float()[None, :]
+    if plan.backend == "fused" and plan.rank == 3:
+        from repro_torch.kernels import ops
+        if plan.layout != "nmajor":
+            raise ValueError("the 3-D fused int8 lowering consumes n-major "
+                             "filters")
+        return ops.sd_deconv_presplit_fused_3d(
+            xq, plan.ws, plan.kernel, plan.stride, plan.padding,
+            output_padding=plan.output_padding, bias=plan.bias,
+            act=plan.act, scale=comb.contiguous(), plan=plan.tile)
     if plan.backend == "fused":
         from repro_torch.kernels import ops
         if plan.layout != "ocmajor":

@@ -82,7 +82,7 @@ def conv_transpose_vjp(plan: DeconvPlan, x: torch.Tensor, w: torch.Tensor,
     space = tuple(x.shape[1:1 + rank])
     ws = split_filters(w, plan.stride)
     dy1 = split_cotangent(plan, dy)
-    if plan.backend == "fused":
+    if plan.backend == "fused" and plan.rank == 2:
         from repro_torch.kernels import ops
         dx = ops.sd_input_grad_fused(dy1, ws.to(dy1.dtype), pi, space)
         dws = ops.sd_filter_grad_fused(x.contiguous(), dy1, kt, pi)

@@ -17,7 +17,9 @@ inference-only.  The calibrated chain (static activation scales,
 Backends: ``"torch"`` runs the grouped stride-1 conv + pixel shuffle in
 plain PyTorch (the twin of the reference's ``"xla"``) from n-major
 filters; ``"fused"`` runs the fused CUDA kernel K1 from oc-major
-filters; ``"winograd"`` runs K4, the F(2,r) Winograd kernel, from
+filters at rank 2, and at rank 3 the depth-folded lowering (one K2
+launch per depth tap, then the torch interleave) from n-major filters;
+``"winograd"`` runs K4, the F(2,r) Winograd kernel, from
 oc-major filters transformed at bind (layout ``"wino"``; rank 2, per-dim
 taps <= 5, float only).
 ``"auto"`` means fused for a CUDA device and torch for the CPU; with no
@@ -126,8 +128,15 @@ class DeconvPlan:
         return self.ws is not None
 
     def _bound_layout(self) -> str:
-        return {"fused": "ocmajor", "winograd": "wino"}.get(self.backend,
-                                                            "nmajor")
+        """The filter layout this plan's execution path consumes:
+        oc-major for K1 (rank 2), n-major for the torch backend and for
+        the rank-3 fused lowering (its interleave is ``depth_to_space``),
+        the transformed filters for K4."""
+        if self.backend == "winograd":
+            return "wino"
+        if self.backend == "fused" and self.rank == 2:
+            return "ocmajor"
+        return "nmajor"
 
     def bind(self, w: torch.Tensor, scale: Optional[torch.Tensor] = None,
              bias: Optional[torch.Tensor] = None,
@@ -182,7 +191,8 @@ def plan(filter_shape: Sequence[int], stride, padding=0,
     validated exactly like :mod:`repro_torch.core.deconv`.  ``backend=
     "auto"`` resolves against ``device`` (default: the card, raising
     without one).  ``dtype="int8"`` requests the dynamic int8 path
-    (``fused`` and ``torch`` backends, rank 2 on ``fused``); a winograd
+    (``fused`` and ``torch`` backends; ranks 2 and 3 on ``fused``, as
+    float plans); a winograd
     plan outside its envelope, int8 included, raises the reference's
     ``ValueError``."""
     if dtype not in DTYPES:
@@ -211,10 +221,11 @@ def plan(filter_shape: Sequence[int], stride, padding=0,
             raise NotImplementedError(
                 "the winograd backend's 1-D lowering comes with the rank "
                 "slice (ROADMAP.md item 11) — use backend='torch'")
-    if resolved == "fused" and rank != 2:
+    if resolved == "fused" and rank == 1:
         raise NotImplementedError(
-            f"the fused backend covers rank 2 so far; rank {rank} comes "
-            "with its slice (see ROADMAP.md) — use backend='torch'")
+            "the fused backend covers rank 2 and rank 3 so far; rank 1 "
+            "comes with its slice (see ROADMAP.md item 11) — use "
+            "backend='torch'")
     return DeconvPlan(kernel=k, stride=st, padding=_pads_nd(padding, rank),
                       cin=cin, cout=cout, backend=resolved, act=act,
                       tile=tile, output_padding=op, dtype=dtype)

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels K1, K2, K3 and K4 against their plain versions.
+"""The port's CUDA kernels K1, K2 (f32 and its int8 pair), K3 and K4
+against their plain versions.
 
 Marked ``cuda``: each test decides inside itself whether a card is
 present and skips, with the reason, where there is none.  On a machine
@@ -17,14 +18,17 @@ and against K1 on the same split filters at the reference's
 plain version (``sd_fused_ref`` on the int8 pair, exact sums) at two
 gates: bit-identical at unit scale, zero bias and linear act, and
 ``1e-6 * max(1, max|y_ref|)`` with real per-sample scales, folded-BN
-filter scales, bias and relu/tanh.  K1 and K4 refuse an operand that
-requires grad under grad mode.
+filter scales, bias and relu/tanh.  K2's int8 pair is bit-identical to
+its plain version (exact int32 sums); the 3-D lowering (one K2 launch
+per depth tap) equals the card's ``torch`` backend within ``1e-5 *
+max(1, max|y_ref|)`` in f32 and exactly in int8.  K1, K4 and the 3-D
+lowering refuse an operand that requires grad under grad mode.
 """
 
 import pytest
 import torch
 
-from repro_torch.core.accounting import BENCHMARKS
+from repro_torch.core.accounting import BENCHMARKS, WORKLOADS
 from repro_torch.core.deconv import same_deconv_pads
 from repro_torch import sd
 import repro_torch.kernels.sd_conv as K
@@ -495,3 +499,122 @@ def test_int8_server_runs_int8_k1_only(dev):
     assert torch.isfinite(out).all()
     assert (out - ref).abs().max().item() <= \
         1e-3 * max(1.0, ref.abs().max().item())
+
+
+# ---------------------------------------------------------------------------
+# K2's int8 pair and the 3-D lowering (one K2 launch per depth tap).
+# ---------------------------------------------------------------------------
+
+VOXGAN_LAYERS = [l for l in WORKLOADS["voxgan"]().deconv_layers()]
+
+
+@pytest.mark.parametrize("sx,sw,pad,start,size,tile", [
+    ((6, 4, 4, 64), (2, 2, 64, 256), ((1, 1), (1, 1)), (0, 0), None, None),
+    ((6, 8, 8, 32), (2, 2, 32, 128), ((1, 1), (1, 1)), (0, 0), None, None),
+    ((6, 16, 16, 16), (2, 2, 16, 8), ((1, 1), (1, 1)), (0, 0), None, None),
+    ((2, 5, 6, 3), (3, 3, 3, 5), ((2, 1), (0, 2)), (0, 0), None,
+     KernelPlan(th=2, tw=3, tcin=3, tc=16)),
+    ((2, 7, 6, 5), (2, 3, 5, 20), ((1, 1), (1, 1)), (1, 2), (5, 3),
+     KernelPlan(th=3, tw=2, tcin=2, tc=16)),
+    ((1, 9, 10, 70), (3, 3, 70, 33), ((1, 1), (1, 1)), (0, 0), None,
+     KernelPlan(th=4, tw=3, tcin=9, tc=32)),
+])
+def test_k2_int8_bit_identical_to_plain(dev, sx, sw, pad, start, size,
+                                        tile):
+    """K2's int8 pair against its plain version (exact sums): VoxGAN's
+    three tap convs (batch 6 x D_out), odd Cin, ragged windows, forced
+    tiles, codes at +-127; 0 elements may differ."""
+    g = torch.Generator().manual_seed(sum(sx))
+    xq = torch.randint(-127, 128, sx, generator=g, dtype=torch.int8)
+    wq = torch.randint(-127, 128, sw, generator=g, dtype=torch.int8)
+    xq.view(-1)[::7] = 127
+    wq.view(-1)[::5] = -127
+    xq, wq = xq.to(dev), wq.to(dev)
+    before = K.SD_CONV_INT8_LAUNCHES, K.SD_CONV_LAUNCHES
+    out = K.sd_conv(xq, wq, pad=pad, out_start=start, out_size=size,
+                    plan=tile)
+    assert (K.SD_CONV_INT8_LAUNCHES, K.SD_CONV_LAUNCHES) == (
+        before[0] + 1, before[1])
+    ref = K.sd_conv_ref(xq, wq, pad, start, size)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.int32 and out.shape == ref.shape
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("layer", VOXGAN_LAYERS,
+                         ids=[l.name for l in VOXGAN_LAYERS])
+@pytest.mark.parametrize("dtype", ["native", "int8"])
+def test_fused_3d_matches_torch_backend(dev, layer, dtype):
+    """Each full-width VoxGAN layer (batch 2): the lowering makes KT_d = 2
+    K2 (or K2-int8) launches and equals the torch backend on the card
+    within 1e-5 * max(1, max|ref|) in f32 (TF32 off), exactly in int8."""
+    g = torch.Generator().manual_seed(layer.cin)
+    x = torch.randn(2, *layer.in_hw, layer.cin, generator=g).to(dev)
+    w = (torch.randn(4, 4, 4, layer.cin, layer.cout, generator=g)
+         / (64 * layer.cin) ** 0.5).to(dev)
+    scale = (1 + 0.1 * torch.randn(layer.cout, generator=g)).to(dev)
+    bias = (0.1 * torch.randn(layer.cout, generator=g)).to(dev)
+    pads = same_deconv_pads((4,) * 3, (2,) * 3)
+    pf, pt = (sd.plan(w.shape, 2, pads, backend=b, act="relu", dtype=dtype,
+                      device=dev).bind(w, scale, bias)
+              for b in ("fused", "torch"))
+    counter = "SD_CONV_INT8_LAUNCHES" if dtype == "int8" else \
+        "SD_CONV_LAUNCHES"
+    before = getattr(K, counter)
+    out = sd.execute(pf, x)
+    assert getattr(K, counter) - before == 2
+    ref = sd.execute(pt, x)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape == (2, *(2 * n for n in layer.in_hw),
+                                      layer.cout)
+    if dtype == "int8":
+        assert torch.equal(out, ref)
+    else:
+        assert (out - ref).abs().max().item() <= \
+            1e-5 * max(1.0, ref.abs().max().item())
+
+
+def test_fused_3d_refuses_grad_operands(dev):
+    """K2's output has no graph: the 3-D lowering raises for an operand
+    that requires grad under grad mode (int8 tensors cannot require
+    grad)."""
+    x = torch.randn(1, 2, 2, 2, 4, device=dev, requires_grad=True)
+    ws = torch.randn(2, 2, 2, 4, 8, device=dev)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        ops.sd_deconv_presplit_fused_3d(x, ws, 4, 2, 1)
+    with torch.no_grad():
+        assert ops.sd_deconv_presplit_fused_3d(x, ws, 4, 2, 1).grad_fn \
+            is None
+
+
+def test_voxgan_server_runs_k2_per_depth_tap(dev):
+    """The dryrun VoxGAN served on the card in f32 and int8: 2 layers x 2
+    depth taps of K2 (or K2-int8) per batch and nothing of K1; outputs
+    equal the torch backend's (f32 1e-5 * max(1, max|ref|), int8 exact)."""
+    from repro_torch.launch.serve_gen import GenServer, reduced_specs
+    from repro_torch.models.generative import GenerativeModel
+    spec = reduced_specs()["voxgan-dryrun"]
+    for dtype, counter in (("native", "SD_CONV_LAUNCHES"),
+                           ("int8", "SD_CONV_INT8_LAUNCHES")):
+        server = GenServer(nets=("voxgan-dryrun",),
+                           specs={"voxgan-dryrun": spec}, device=dev,
+                           backend="fused", max_batch=4,
+                           dtype="int8" if dtype == "int8" else torch.float32)
+        zs = [r.latent for r in server.random_requests("voxgan-dryrun", 4)]
+        before = (getattr(K, counter), K.SD_FUSED_LAUNCHES,
+                  K.SD_FUSED_INT8_LAUNCHES)
+        out = server.run_group("voxgan-dryrun", zs)
+        torch.cuda.synchronize()
+        assert (getattr(K, counter) - before[0], K.SD_FUSED_LAUNCHES
+                - before[1], K.SD_FUSED_INT8_LAUNCHES - before[2]) == (4, 0, 0)
+        model, params = server.model("voxgan-dryrun")
+        ref_m = GenerativeModel(spec, "sd_kernel", engine_backend="torch",
+                                device=dev, engine_dtype=dtype)
+        with torch.no_grad():
+            ref = ref_m.apply(params, torch.stack(zs))
+        assert torch.isfinite(out).all()
+        if dtype == "int8":
+            assert torch.equal(out, ref)
+        else:
+            assert (out - ref).abs().max().item() <= \
+                1e-5 * max(1.0, ref.abs().max().item())

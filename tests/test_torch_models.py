@@ -83,5 +83,11 @@ def test_device_defaults_to_cuda():
             default_device()
         with pytest.raises(RuntimeError):
             build("dcgan")
-    with pytest.raises(ValueError, match="unknown network"):
-        build("wavegan", device="cpu")
+    with pytest.raises(ValueError, match="unknown workload"):
+        build("nope", device="cpu")
+    # build() looks nets up in WORKLOADS; rank 1 on fused points to the
+    # roadmap when the engine binds.
+    assert build("voxgan", device="cpu").spec.name == "VoxGAN"
+    m = build("wavegan", "sd_kernel", engine_backend="fused", device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        m.init(torch.Generator().manual_seed(0))

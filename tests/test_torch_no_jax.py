@@ -2,7 +2,9 @@
 
 A fresh interpreter with ``jax`` and ``repro`` made unimportable imports
 ``repro_torch``, serves the CPU dryrun (on the default and on the
-winograd backend, and in int8), takes two small GAN training steps on
+winograd backend, and in int8 on the torch and the fused backend; on
+``fused`` the 3-D ``voxgan-dryrun`` cell runs the depth-folded lowering on
+K2's int8 pair), takes two small GAN training steps on
 the CPU and imports ``chip_smoke`` (without running it); and without
 CUDA the port's default device raises instead of falling back to the
 CPU.
@@ -25,14 +27,17 @@ sys.modules["repro"] = None
 import repro_torch
 from repro_torch.launch import serve_gen
 results, stats = serve_gen.main(["--dryrun", "--device", "cpu"])
-assert stats["served"] == 4, stats
+assert stats["served"] == 6, stats
 results, stats = serve_gen.main(["--dryrun", "--device", "cpu",
                                  "--backend", "winograd"])
 assert stats["served"] == 4, stats
 results, stats = serve_gen.main(["--dryrun", "--device", "cpu",
                                  "--dtype", "int8"])
-assert stats["served"] == 4, stats
+assert stats["served"] == 6, stats
 assert "int8" in stats["compile_cache"][0], stats
+results, stats = serve_gen.main(["--dryrun", "--device", "cpu",
+                                 "--backend", "fused", "--dtype", "int8"])
+assert stats["served"] == 6, stats
 from repro_torch.launch import train_gen
 d_hist, g_hist = train_gen.main(["--steps", "2", "--small", "--device",
                                  "cpu", "--deconv-impl", "sd_kernel"])

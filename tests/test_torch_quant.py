@@ -574,9 +574,10 @@ def test_zero_padded_rows_do_not_perturb_real_samples(backend):
 
 def test_serve_gen_dryrun_int8_cpu():
     results, stats = main(["--dryrun", "--device", "cpu", "--dtype", "int8"])
-    assert stats["served"] == 4 and stats["shed"] == 0
+    assert stats["served"] == 6 and stats["shed"] == 0
     assert stats["compile_cache"] == [
-        "('dcgan-dryrun', 2, 'int8')", "('segnet-dryrun', 2, 'int8')"]
+        "('dcgan-dryrun', 2, 'int8')", "('segnet-dryrun', 2, 'int8')",
+        "('voxgan-dryrun', 2, 'int8')"]
     assert results[0].dtype == torch.float32 and results[0].shape == (16, 16,
                                                                       3)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

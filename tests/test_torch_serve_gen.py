@@ -31,14 +31,16 @@ def _server(**kw):
 
 def test_dryrun_cli_cpu():
     results, stats = main(["--dryrun", "--device", "cpu"])
-    assert stats["served"] == 4 and stats["shed"] == 0
+    assert stats["served"] == 6 and stats["shed"] == 0
     assert stats["compile_cache"] == [
-        "('dcgan-dryrun', 2, 'float32')", "('segnet-dryrun', 2, 'float32')"]
+        "('dcgan-dryrun', 2, 'float32')", "('segnet-dryrun', 2, 'float32')",
+        "('voxgan-dryrun', 2, 'float32')"]
     assert results[0].shape == (16, 16, 3)
     assert results[2].shape == (8, 8, 3)
+    assert results[4].shape == (8, 8, 8, 1)
     _, stats = main(["--dryrun", "--device", "cpu", "--sched", "drain",
                      "--dtype", "bfloat16"])
-    assert stats["requests"] == 4
+    assert stats["requests"] == 6
 
 
 def test_bucket_ladder_is_closed():
@@ -58,7 +60,7 @@ def test_take_group_fifo_by_key():
 
 def test_warmup_then_zero_rebuilds_across_swap():
     server = _server(max_batch=4)
-    assert server.warmup() == 2 * len(server.buckets())
+    assert server.warmup() == 3 * len(server.buckets())
     built = server.compile_count
     sched = ContinuousScheduler(server)
     latents = {}
