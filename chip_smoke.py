@@ -82,7 +82,24 @@ Drives ``repro_torch`` only (never JAX, never the JAX package ``repro``):
    the same model on the card's ``torch`` backend (f32 ``1e-4``, int8
    ``1e-6``, relative to ``max(1, max|ref|)``) and int8 within 0.05 of
    max|ref| of the f32 server; times a batch of 16 in f32 and int8 in
-   turns.
+   turns;
+9. the calibrated int8 chain: holds K1's int8 branch with a static (1,
+   NC) scale row, int8 output on DCGAN d1/d2 (relu) and f32 output on d3
+   at batch 16, and on an odd geometry, on scales that saturate codes at
+   +-127, bit-identical to its plain version (and prints how many codes
+   saturated), and its int8-out epilogue against an exact numpy
+   restatement (int64 sums, one f32 cast, ``* comb``, interleave, ``+
+   bias``, relu, round half to even, clamp); serves 48 full-width DCGAN
+   requests through ``GenServer(dtype="int8", calib=64)`` (calibration
+   cache in a temporary file) and checks 3 K1-int8 launches per batch and
+   nothing else, the chained codes and the output against the card's
+   int8 ``torch`` backend with the same scales (codes exact, output
+   ``1e-3 * max(1, max|ref|)``) and the float server (SSIM >= 0.99,
+   max|d| <= 0.05 max|ref|); profiles one calibrated batch (3 K1-int8
+   launches, 0 ``quantize_act`` calls, int8 leaving d1 and d2); times
+   each layer's static-row launch against the dynamic one and a batch
+   calibrated / dynamic / f32 in turns; serves 48 calibrated VoxGAN
+   requests, held exactly to the ``torch`` backend.
 
 Every printed number carries the card's name and power limit.  The line
 before the last is ``{"kernels": [...]}``; the last is ``{"ok": true,
@@ -1493,6 +1510,503 @@ def _nd_phase(dev, tag, randn) -> dict:
             "batch_device": breakdown}
 
 
+def _np_chain_epilogue(xq, ws_oc, s, pad, crop, out_space, comb, bias,
+                       act, out_int8):
+    """K1 int8 restated exactly in numpy: int64 tap sums over the
+    zero-padded input, one f32 cast, ``* comb`` per oc-major phase
+    channel (a (1, NC) row broadcasts), interleave, crop (zero-extended),
+    ``+ bias`` in f32, act, and for int8 output ``rint`` (half to even)
+    and a clamp to +-127."""
+    import numpy as np
+    (plo_h, phi_h), (plo_w, phi_w) = pad
+    xp = np.pad(xq.astype(np.int64), ((0, 0), (plo_h, phi_h),
+                                      (plo_w, phi_w), (0, 0)))
+    kth, ktw, _, nc = ws_oc.shape
+    oh, ow = xp.shape[1] - kth + 1, xp.shape[2] - ktw + 1
+    acc = np.zeros((xq.shape[0], oh, ow, nc), np.int64)
+    for a in range(kth):
+        for c in range(ktw):
+            acc += np.tensordot(xp[:, a:a + oh, c:c + ow],
+                                ws_oc[a, c].astype(np.int64), axes=1)
+    y = acc.astype(np.float32) * comb[:, None, None, :]
+    b, cout = y.shape[0], nc // (s * s)
+    y = y.reshape(b, oh, ow, cout, s, s).transpose(0, 1, 4, 2, 5, 3)
+    y = y.reshape(b, oh * s, ow * s, cout)
+    out = np.zeros((b, *out_space, cout), np.float32)
+    src = y[:, crop[0]:crop[0] + out_space[0], crop[1]:crop[1] + out_space[1]]
+    out[:, :src.shape[1], :src.shape[2]] = src
+    out = out + bias
+    if act == "relu":
+        out = np.maximum(out, np.float32(0))
+    if out_int8:
+        return np.clip(np.rint(out), -127, 127).astype(np.int8)
+    return out
+
+
+def _chain_phase(dev, tag, randn) -> dict:
+    """Phase 9: the calibrated int8 chain.  (a) K1 int8 with a static
+    (1, NC) row, int8 out on DCGAN d1/d2 (relu) and f32 out on d3, batch
+    16, and on an odd geometry, on scales that saturate codes:
+    bit-identical to its plain version; (b) the int8-out epilogue against
+    an exact numpy restatement; (c) 48 DCGAN requests served through
+    ``GenServer(dtype="int8", calib=64)`` (calibration cache in a
+    temporary file) against the card's int8 torch backend with the same
+    scales and against the float server; (d) one profiled calibrated
+    batch: 3 K1-int8 launches, no ``quantize_act``, int8 between layers;
+    (e) per layer, the static-row launch against the dynamic one, and the
+    host ms of a batch calibrated / dynamic / f32, in turns; (f) 48
+    VoxGAN requests served calibrated, held exactly to the torch
+    backend.  Returns K1 int8's record for this path and the reports."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    import repro_torch.kernels.sd_conv as K
+    import repro_torch.sd.functional as SF
+    from repro_torch import sd
+    from repro_torch.core.accounting import BENCHMARKS
+    from repro_torch.core.deconv import same_deconv_pads
+    from repro_torch.core.quant import (quantize_act, quantize_static,
+                                        scale_from_amax)
+    from repro_torch.core.ssim import ssim
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import winograd as W
+    from repro_torch.kernels.autotune import KernelPlan
+    from repro_torch.launch.serve_gen import GenServer, serve_async
+    from repro_torch.models.generative import GenerativeModel
+
+    names = ("SD_FUSED_LAUNCHES", "SD_FUSED_INT8_LAUNCHES",
+             "SD_CONV_LAUNCHES", "SD_CONV_INT8_LAUNCHES",
+             "SD_FILTER_GRAD_LAUNCHES")
+
+    def zero_counts():
+        for n in names:
+            setattr(K, n, 0)
+        W.SD_WINO_LAUNCHES = 0
+
+    def counts():
+        out = {n: getattr(K, n) for n in names}
+        out["SD_WINO_LAUNCHES"] = W.SD_WINO_LAUNCHES
+        return out
+
+    def geo(p, xq):
+        return dict(pad=((p.pi[0],) * 2, (p.pi[1],) * 2),
+                    crop=(p.pk[0] + p.padding[0][0],
+                          p.pk[1] + p.padding[1][0]),
+                    out_space=p.out_shape(xq.shape[1:3]))
+
+    def k1q(xq, p, comb, bias, act, out_dtype):
+        return ops.sd_deconv_presplit_fused(
+            xq, p.ws, p.kernel, p.stride, p.padding,
+            output_padding=p.output_padding, bias=bias, act=act,
+            scale=comb, out_dtype=out_dtype, plan=p.tile)
+
+    def chained_case(sx, wshape, s, pad, act, chain, op=0, tile=None):
+        """An int8 plan, the static input codes, and the static row and
+        bias of a calibrated launch: ``sx_in`` from the input's amax;
+        chained, ``sx_out`` at half the static f32 output's amax, so the
+        top codes saturate, folded into row and bias."""
+        x = randn(*sx)
+        w = randn(*wshape, scale=1.0 / (wshape[0] * wshape[1]
+                                        * wshape[2]) ** 0.5)
+        gamma = randn(wshape[-1], scale=0.1) + 1.0
+        bias = randn(wshape[-1], scale=0.1)
+        p = sd.plan(w.shape, s, pad, backend="fused", act=act,
+                    output_padding=op, tile=tile, dtype="int8",
+                    device=dev).bind(w, gamma, bias)
+        sx_in = scale_from_amax(x.abs().max())
+        xq = quantize_static(x, sx_in)
+        row = (torch.tensor(sx_in, device=dev) * p.wscale)[None, :]
+        bias_l = p.bias
+        if chain:
+            y = K.sd_fused_ref(xq, p.ws, p.stride, bias=p.bias, act=act,
+                               scale=row, **geo(p, xq))
+            sn = torch.tensor(0.5 * scale_from_amax(y.abs().max()),
+                              device=dev)
+            row, bias_l = row / sn, p.bias / sn
+        return x, p, xq, row.contiguous(), bias_l, sx_in
+
+    # ---- (a) K1 int8, static row, bit-identical to its plain version ----
+    print(f"check: K1 int8 with a static (1, NC) row vs sd_fused_ref, "
+          f"DCGAN at batch {BUCKET} (d1/d2 relu, int8 out; d3 linear, f32 "
+          f"out) and an odd geometry, on scales that saturate codes: gate "
+          f"0 elements different {tag}")
+    dcgan = [(i, l) for i, l in enumerate(BENCHMARKS["dcgan"]().layers)
+             if l.kind == "deconv"]
+    cases = []
+    for i, l in dcgan:
+        chain = i < 3
+        cases.append((f"dcgan/{l.name}", (BUCKET, *l.in_hw, l.cin),
+                      (l.k, l.k, l.cin, l.cout), l.s,
+                      same_deconv_pads(l.k, l.s),
+                      "relu" if chain else "linear", chain, 0, None))
+    cases.append(("odd k5 s2 p2 op1 tile 3x2/12/32",
+                  (3, 13, 11, 40), (5, 5, 40, 24), 2, 2, "linear", True, 1,
+                  KernelPlan(th=3, tw=2, tcin=12, tc=32)))
+    failures, checked, max_err = [], {}, 0.0
+    for label, sx, wshape, s, pad, act, chain, op, tile in cases:
+        x, p, xq, row, bias_l, sx_in = chained_case(
+            sx, wshape, s, pad, act, chain, op, tile)
+        od = torch.int8 if chain else None
+        out = k1q(xq, p, row, bias_l, act, od)
+        ref = K.sd_fused_ref(xq, p.ws, p.stride, bias=bias_l, act=act,
+                             scale=row, out_dtype=od, **geo(p, xq))
+        torch.cuda.synchronize()
+        same = out.shape == ref.shape and out.dtype == ref.dtype
+        n_diff = int((out != ref).sum()) if same else -1
+        if same:
+            max_err = max(max_err,
+                          (out.float() - ref.float()).abs().max().item())
+        sat = int((out.abs() == 127).sum()) if chain else 0
+        ok = n_diff == 0 and (sat > 0 or not chain)
+        sat_txt = (f"{sat} of {out.numel()} codes saturated at +-127"
+                   if chain else "f32 values, no codes")
+        print(f"  {label} {tuple(xq.shape)}->{tuple(out.shape)} "
+              f"{'int8' if chain else 'f32'} out, {act}: {n_diff} elements "
+              f"differ; {sat_txt} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(label)
+        checked[label] = (x, p, xq, row, bias_l, act, od, sx_in)
+    if failures:
+        raise SystemExit(f"chip_smoke: K1 int8 (static row, int8 out) "
+                         f"disagrees with its plain version on {failures}")
+
+    # ---- (b) the int8-out epilogue against an exact restatement ---------
+    print(f"check: K1 int8's int8-out epilogue vs an exact numpy "
+          f"restatement (int64 sums, one f32 cast, * comb, interleave, + "
+          f"bias, relu, round half to even, clamp), first 4 samples: gate "
+          f"0 elements different {tag}")
+    for label in ("dcgan/d1", "dcgan/d2"):
+        _, p, xq, row, bias_l, act, od, _ = checked[label]
+        g = geo(p, xq)
+        out = k1q(xq[:4], p, row, bias_l, act, od).cpu().numpy()
+        want = _np_chain_epilogue(
+            xq[:4].cpu().numpy(), p.ws.cpu().numpy(), p.stride[0], g["pad"],
+            g["crop"], g["out_space"], row.cpu().numpy(),
+            bias_l.cpu().numpy(), act, True)
+        n_diff = int((out != want).sum())
+        print(f"  {label}: {n_diff} of {out.size} codes differ, "
+              f"{int((np.abs(want) == 127).sum())} saturated "
+              f"{'ok' if n_diff == 0 else 'FAIL'}")
+        if n_diff:
+            failures.append(label)
+    if failures:
+        raise SystemExit(f"chip_smoke: K1 int8's int8-out epilogue "
+                         f"disagrees with its exact restatement on "
+                         f"{failures}")
+
+    # ---- (c) serve calibrated, chained int8 DCGAN -----------------------
+    cache_dir = tempfile.mkdtemp(prefix="chip_smoke_calib_")
+    old_env = os.environ.get("REPRO_TORCH_SD_CALIB_CACHE")
+    os.environ["REPRO_TORCH_SD_CALIB_CACHE"] = os.path.join(
+        cache_dir, "sd_calib.json")
+    try:
+        server = GenServer(nets=("dcgan",), device=dev, max_batch=BUCKET,
+                           seed=SEED, dtype="int8", calib=64)
+        built_cells = server.warmup()
+        with open(os.environ["REPRO_TORCH_SD_CALIB_CACHE"]) as f:
+            saved = sorted(json.load(f)["scales"])
+        reqs = server.random_requests("dcgan", SERVE_REQUESTS, seed=1)
+        torch.cuda.synchronize()
+        zero_counts()
+        results, stats = serve_async(server, reqs)
+        torch.cuda.synchronize()
+        served_counts = counts()
+    finally:
+        if old_env is None:
+            os.environ.pop("REPRO_TORCH_SD_CALIB_CACHE", None)
+        else:
+            os.environ["REPRO_TORCH_SD_CALIB_CACHE"] = old_env
+        shutil.rmtree(cache_dir, ignore_errors=True)
+    launches = served_counts["SD_FUSED_INT8_LAUNCHES"]
+    lat = stats["latency_ms"]
+    model, params = server.model("dcgan")
+    scales = {n: p.sx_in.item() for n, p in model.engine.plans().items()}
+    print(f"serve calibrated int8: {stats['served']} DCGAN requests (full "
+          f"width, calibrated on 64 latents: sx {scales}; d1 -> d2 -> d3 "
+          f"int8 between layers, f32 IO) in {stats['wall_s']:.4f} s host "
+          f"clock: {stats['req_per_s']:.1f} req/s, p50 {lat['p50']} ms, p95 "
+          f"{lat['p95']} ms, {stats['launches']} launches, "
+          f"{stats['compiles']} cells ({built_cells} built in warmup); "
+          f"scales saved in a temporary cache under {saved} {tag}")
+    want = 3 * stats["launches"]
+    print(f"  launches in the serving run: {served_counts} (want "
+          f"SD_FUSED_INT8_LAUNCHES = 3 deconv layers x {stats['launches']} "
+          f"batches, every other 0)")
+    if launches != want or want == 0 or any(
+            v for n, v in served_counts.items()
+            if n != "SD_FUSED_INT8_LAUNCHES"):
+        raise SystemExit("chip_smoke: the calibrated server did not run "
+                         "K1's int8 branch (and only it) once per deconv "
+                         "layer per batch")
+    if stats["served"] != SERVE_REQUESTS or stats["shed"]:
+        raise SystemExit(f"chip_smoke: served {stats['served']} of "
+                         f"{SERVE_REQUESTS}, shed {stats['shed']}")
+    z = torch.stack([r.latent for r in reqs])
+    out = torch.stack([results[r.rid] for r in reqs])
+    plans = model.engine.plans()
+    ref_t = GenerativeModel(model.spec, "sd_kernel", engine_backend="torch",
+                            device=dev, engine_dtype="int8")
+    ref_t.engine.set_calibration(scales)
+    with torch.no_grad():
+        ref_t.engine.bind(params)
+        tplans = ref_t.engine.plans()
+        ref = ref_t.apply(params, z)
+        ref_f = GenerativeModel(model.spec, "sd_kernel",
+                                engine_backend="fused",
+                                device=dev).apply(params, z)
+        # the chained codes, layer by layer, on the served batches of 16
+        h = z @ params["project"]["w"] + params["project"]["b"]
+        h = torch.relu(h.reshape(SERVE_REQUESTS, *dcgan[0][1].in_hw,
+                                 dcgan[0][1].cin))
+        ht, code_diff = h, {}
+        for _, l in dcgan[:2]:
+            h = torch.cat([sd.execute(plans[l.name], h[j:j + BUCKET])
+                           for j in range(0, SERVE_REQUESTS, BUCKET)])
+            ht = sd.execute(tplans[l.name], ht)
+            code_diff[l.name] = (str(h.dtype).replace("torch.", ""),
+                                 int((h != ht).sum()), h.numel())
+    finite = bool(torch.isfinite(out).all())
+    d, tol = _gate_err(out, ref, INT8_SERVE_GATE, True)
+    rel = ((out - ref_f).abs().max() / ref_f.abs().max()).item()
+    s_val = ssim(out, ref_f, data_range=2.0).item()
+    codes_ok = all(dt == "int8" and n == 0 for dt, n, _ in
+                   code_diff.values())
+    ok = (finite and tuple(out.shape) == (SERVE_REQUESTS, 64, 64, 3)
+          and d <= tol and codes_ok and rel <= INT8_VS_F32
+          and s_val >= SSIM_GATE)
+    print(f"  outputs {tuple(out.shape)} finite={finite}; on the same "
+          f"weights and scales {tag}:")
+    print(f"    chained codes vs the card's int8 torch backend (exact sums): "
+          + ", ".join(f"{k} {dt}, {n} of {m} differ"
+                      for k, (dt, n, m) in code_diff.items())
+          + f"; final output max|d| {d:.3e} tol {tol:.3e} "
+          f"({INT8_SERVE_GATE}*max(1,max|ref|))")
+    print(f"    vs the float fused server's model: max|d|/max|ref| "
+          f"{rel:.4e} (gate <= {INT8_VS_F32}), SSIM {s_val:.6f} (gate >= "
+          f"{SSIM_GATE}, data_range 2.0) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("chip_smoke: calibrated int8 outputs are wrong")
+
+    # ---- (d) one profiled calibrated batch ------------------------------
+    full = [r.latent for r in reqs[:BUCKET]]
+    seen, quant_calls = [], []
+    real_fused, real_qa = ops.sd_fused, SF.quantize_act
+
+    def recording_fused(x, *a, **kw):
+        y = real_fused(x, *a, **kw)
+        seen.append((str(x.dtype).replace("torch.", ""),
+                     str(y.dtype).replace("torch.", "")))
+        return y
+
+    def counting_qa(x):
+        quant_calls.append(tuple(x.shape))
+        return real_qa(x)
+
+    ops.sd_fused, SF.quantize_act = recording_fused, counting_qa
+    try:
+        torch.cuda.synchronize()
+        zero_counts()
+        bd_cal = _device_breakdown(lambda: server.run_group("dcgan", full))
+        prof_counts = counts()
+    finally:
+        ops.sd_fused, SF.quantize_act = real_fused, real_qa
+    others = {n: v for n, v in prof_counts.items()
+              if n != "SD_FUSED_INT8_LAUNCHES"}
+    ok = (prof_counts["SD_FUSED_INT8_LAUNCHES"] == 3 and not quant_calls
+          and seen == [("int8", "int8"), ("int8", "int8"),
+                       ("int8", "float32")]
+          and not any(others.values()))
+    print(f"profile: one calibrated DCGAN batch of {BUCKET}: "
+          f"{prof_counts['SD_FUSED_INT8_LAUNCHES']} K1-int8 launches (other "
+          f"counters {others}), {len(quant_calls)} quantize_act calls; K1 "
+          f"launches (input -> output dtype): {seen} "
+          f"{'ok' if ok else 'FAIL'} {tag}")
+    if bd_cal is None:
+        print("  device time per kernel: not measured (the profiler "
+              "reported no device time)")
+    else:
+        busy, wall, top = bd_cal
+        print(f"  profiler: device busy {busy:.3f} ms of {wall:.3f} ms wall "
+              f"(idle share {1 - busy / wall:.3f}) {tag}")
+        for kname, ms_k, calls in top:
+            print(f"    {ms_k:.4f} ms in {calls} call(s): {kname[:90]}")
+    if not ok:
+        raise SystemExit("chip_smoke: a calibrated batch did not run 3 K1 "
+                         "int8 launches with int8 between layers and no "
+                         "per-sample quantization")
+
+    # ---- (e) timing: static row vs dynamic, and a batch in turns --------
+    print(f"time: DCGAN layers at batch {BUCKET}, CUDA events: median "
+          f"[min, max] of 7 rounds of 20 warm launches in turns: K1 int8 "
+          f"with the static row (int8 out on d1/d2) / K1 int8 dynamic (B, NC) "
+          f"scale, f32 out / plain version of the static launch; bound at "
+          f"the dense int8 tensor-core peak, useful_bound at the dp4a rate "
+          f"{tag}")
+    per_layer = []
+    for i, l in dcgan:
+        _, p, xq, row, bias_l, act, od, _ = checked[f"dcgan/{l.name}"]
+        x_dyn = randn(*xq.shape)
+        xq_d, sxs = quantize_act(x_dyn)
+        comb_d = (sxs[:, None] * p.wscale[None, :]).contiguous()
+        g = geo(p, xq)
+        t = _time_ms({
+            "static": lambda: k1q(xq, p, row, bias_l, act, od),
+            "dynamic": lambda: k1q(xq_d, p, comb_d, p.bias, act, None),
+            "plain": lambda: K.sd_fused_ref(xq, p.ws, p.stride, bias=bias_l,
+                                            act=act, scale=row,
+                                            out_dtype=od, **g)})
+        # one profiled call each; the profiler has come back without
+        # device time on a first call, so each gets a second chance
+        bd_s, bd_d = (_device_breakdown(f) or _device_breakdown(f) for f in (
+            lambda: k1q(xq, p, row, bias_l, act, od),
+            lambda: k1q(xq_d, p, comb_d, p.bias, act, None)))
+        y = k1q(xq, p, row, bias_l, act, od)
+        macs = BUCKET * l.macs()
+        nbytes = (xq.numel() + p.ws.numel() + 4 * row.numel()
+                  + 4 * bias_l.numel() + y.numel() * y.element_size())
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        t_ops = 2.0 * macs / PEAK_INT8_OPS * 1e3
+        ms, lo, hi = t["static"]
+        lg = K.launch_geometry(xq.shape, p.ws.shape, p.stride, g["pad"],
+                               g["crop"], g["out_space"], dtype="int8",
+                               qout=od is not None)
+        rec = {"layer": f"dcgan/{l.name}", "out": str(y.dtype),
+               "ms": ms, "ms_min": lo, "ms_max": hi,
+               "device_ms": None if bd_s is None else bd_s[0],
+               "dynamic_ms": t["dynamic"][0],
+               "dynamic_device_ms": None if bd_d is None else bd_d[0],
+               "plain_ms": t["plain"][0], "library_ms": None,
+               "bound_ms": max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "useful_bound_ms": max(2.0 * macs / DP4A_OPS * 1e3, t_bytes),
+               "macs": macs, "bytes": nbytes, "tile": str(lg.plan),
+               "geom": lg.geom.key(), "launches_per_batch": 1}
+        per_layer.append(rec)
+        dev_s = ("not measured" if rec["device_ms"] is None
+                 else f"{rec['device_ms']:.4f} ms")
+        dev_d = ("not measured" if rec["dynamic_device_ms"] is None
+                 else f"{rec['dynamic_device_ms']:.4f} ms")
+        print(f"  dcgan/{l.name} {tuple(xq.shape)}->{tuple(y.shape)} "
+              f"{rec['out'].replace('torch.', '')} out, tile {lg.plan}: "
+              f"static row {ms:.4f} ms [{lo:.4f}, {hi:.4f}] (device time of "
+              f"one call {dev_s}), dynamic {rec['dynamic_ms']:.4f} ms (device "
+              f"time of one call {dev_d}), plain {rec['plain_ms']:.4f} ms; "
+              f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}, "
+              f"{nbytes} bytes), useful_bound {rec['useful_bound_ms']:.4f} ms "
+              f"(dp4a); sm clock, power, temperature {_clocks()} {tag}")
+
+    dyn = GenServer(nets=("dcgan",), device=dev, max_batch=BUCKET,
+                    seed=SEED, dtype="int8")
+    f32 = GenServer(nets=("dcgan",), device=dev, max_batch=BUCKET,
+                    seed=SEED)
+    servers = {"calibrated": server, "dynamic": dyn, "f32": f32}
+    for srv in (dyn, f32):
+        srv.warmup()
+    host = {k: [] for k in servers}
+    order = list(servers)
+    for r in range(10):
+        for name in (order if r % 2 == 0 else order[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            servers[name].run_group("dcgan", full)
+            torch.cuda.synchronize()
+            host[name].append((time.perf_counter() - t0) * 1e3)
+    host_ms = {k: sorted(v)[len(v) // 2] for k, v in host.items()}
+    breakdown = {k: (bd_cal if k == "calibrated" else _device_breakdown(
+        lambda s=s: s.run_group("dcgan", full)))
+        for k, s in servers.items()}
+    print(f"batch calibrated: one DCGAN batch of {BUCKET} through run_group, "
+          f"host clock (median of 10, synchronised, in turns): calibrated "
+          f"int8 {host_ms['calibrated']:.3f} ms, dynamic int8 "
+          f"{host_ms['dynamic']:.3f} ms, f32 {host_ms['f32']:.3f} ms {tag}")
+    for name, bd in breakdown.items():
+        if bd is None:
+            print(f"  {name}: device time: not measured")
+            continue
+        busy, wall, _ = bd
+        print(f"  {name} profiler: device busy {busy:.3f} ms of {wall:.3f} "
+              f"ms wall (idle share {1 - busy / wall:.3f}) {tag}")
+
+    # ---- (f) serve calibrated, chained int8 VoxGAN ----------------------
+    cache_dir = tempfile.mkdtemp(prefix="chip_smoke_calib_")
+    os.environ["REPRO_TORCH_SD_CALIB_CACHE"] = os.path.join(
+        cache_dir, "sd_calib.json")
+    try:
+        vox = GenServer(nets=("voxgan",), device=dev, max_batch=BUCKET,
+                        seed=SEED, backend="fused", dtype="int8", calib=64)
+        vox.warmup()
+        vreqs = vox.random_requests("voxgan", SERVE_REQUESTS, seed=1)
+        torch.cuda.synchronize()
+        zero_counts()
+        vres, vstats = serve_async(vox, vreqs)
+        torch.cuda.synchronize()
+        vcounts = counts()
+    finally:
+        if old_env is None:
+            os.environ.pop("REPRO_TORCH_SD_CALIB_CACHE", None)
+        else:
+            os.environ["REPRO_TORCH_SD_CALIB_CACHE"] = old_env
+        shutil.rmtree(cache_dir, ignore_errors=True)
+    vmodel, vparams = vox.model("voxgan")
+    vz = torch.stack([r.latent for r in vreqs])
+    vout = torch.stack([vres[r.rid] for r in vreqs])
+    vref_m = GenerativeModel(vmodel.spec, "sd_kernel",
+                             engine_backend="torch", device=dev,
+                             engine_dtype="int8")
+    vref_m.engine.set_calibration(
+        {n: p.sx_in.item() for n, p in vmodel.engine.plans().items()})
+    with torch.no_grad():
+        vref = torch.cat([vref_m.apply(vparams, vz[j:j + BUCKET])
+                          for j in range(0, SERVE_REQUESTS, BUCKET)])
+    vwant = 3 * 2 * vstats["launches"]
+    n_diff = int((vout != vref).sum())
+    chained = [n for n, p in vmodel.engine.plans().items() if p.chain_out]
+    ok = (vcounts["SD_CONV_INT8_LAUNCHES"] == vwant and vwant > 0
+          and not any(v for n, v in vcounts.items()
+                      if n != "SD_CONV_INT8_LAUNCHES")
+          and vstats["served"] == SERVE_REQUESTS and not vstats["shed"]
+          and bool(torch.isfinite(vout).all()) and n_diff == 0
+          and tuple(vout.shape) == (SERVE_REQUESTS, 32, 32, 32, 1))
+    vlat = vstats["latency_ms"]
+    print(f"serve calibrated voxgan: {vstats['served']} VoxGAN requests "
+          f"(full width, int8 calibrated on 64 latents, chained layers "
+          f"{chained}) in {vstats['wall_s']:.4f} s host clock: "
+          f"{vstats['req_per_s']:.1f} req/s, p50 {vlat['p50']} ms, p95 "
+          f"{vlat['p95']} ms; launches {vcounts} (want "
+          f"SD_CONV_INT8_LAUNCHES = 3 layers x 2 taps x "
+          f"{vstats['launches']} batches); vs the card's int8 torch "
+          f"backend with the same scales: {n_diff} of "
+          f"{vout.numel()} elements differ (gate exact) "
+          f"{'ok' if ok else 'FAIL'} {tag}")
+    if not ok:
+        raise SystemExit("chip_smoke: calibrated VoxGAN serving failed")
+
+    tot = {k: sum(r[k] for r in per_layer)
+           for k in ("ms", "plain_ms", "bound_ms", "useful_bound_ms",
+                     "dynamic_ms", "macs", "bytes")}
+    record = {
+        "launches": launches, "max_abs_err": max_err, "ms": tot["ms"],
+        "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+        "bound_by": ("operations" if 2.0 * tot["macs"] / PEAK_INT8_OPS
+                     >= tot["bytes"] / PEAK_BYTES else "bytes"),
+        "useful_bound_ms": tot["useful_bound_ms"], "library_ms": None,
+        "ms_dynamic_same_rounds": tot["dynamic_ms"]}
+    return {"record": record, "per_layer": per_layer,
+            "scales": scales, "code_diff": code_diff,
+            "serve": {k: stats[k] for k in ("served", "launches",
+                                            "req_per_s", "wall_s",
+                                            "latency_ms")},
+            "serve_counts": served_counts, "profile_counts": prof_counts,
+            "quantize_act_calls": len(quant_calls), "k1_io_dtypes": seen,
+            "vs_torch_max_abs": d, "vs_f32_rel": rel, "ssim": s_val,
+            "batch_host_ms": host_ms, "batch_device": breakdown,
+            "voxgan": {"serve": {k: vstats[k] for k in (
+                "served", "launches", "req_per_s", "wall_s",
+                "latency_ms")}, "counts": vcounts,
+                "elements_differ": n_diff, "chained": chained}}
+
+
 def main(json_path: str = "") -> int:
     t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(HERE, "src", "repro_torch")):
@@ -1799,6 +2313,9 @@ def main(json_path: str = "") -> int:
     # ---- 8. serve VoxGAN (3-D) through K2 and K2's int8 pair -------------
     nd = _nd_phase(dev, tag, randn)
 
+    # ---- 9. serve calibrated, chained int8 DCGAN and VoxGAN --------------
+    chain = _chain_phase(dev, tag, randn)
+
     if "jax" in sys.modules or "repro" in sys.modules:
         raise SystemExit("chip_smoke: JAX or the JAX package was imported")
     total = {k: sum(r[k] for r in per_layer)
@@ -1819,6 +2336,14 @@ def main(json_path: str = "") -> int:
     for k in kernels:
         if k["name"] == "sd_conv":
             k["launches_serve_3d"] = nd["k2_launches_serve_3d"]
+        if k["name"] == "sd_fused_int8":
+            # complete since the calibrated half: the main numbers are
+            # phase 9's (static row, int8 out), phase 7's kept beside them
+            dyn = {f"{n}_dynamic": k[n] for n in (
+                "launches", "ms", "plain_ms", "bound_ms", "useful_bound_ms")}
+            k.update(chain["record"], **dyn, complete=True,
+                     max_abs_err=max(k["max_abs_err"],
+                                     chain["record"]["max_abs_err"]))
     report = {"card": card, "kernels": kernels,
               "per_layer": per_layer + train["per_layer"],
               "train": train["train"],
@@ -1827,6 +2352,7 @@ def main(json_path: str = "") -> int:
                                                 "batch_device")},
               "int8": {k: v for k, v in int8.items() if k != "kernel"},
               "nd": {k: v for k, v in nd.items() if k != "kernel"},
+              "chain": {k: v for k, v in chain.items() if k != "record"},
               "serve": {k: stats[k] for k in
                         ("served", "launches", "req_per_s", "wall_s",
                          "latency_ms")},
@@ -1844,8 +2370,11 @@ def main(json_path: str = "") -> int:
     print("(below: ms/plain_ms/bound_ms/library_ms summed over DCGAN's "
           f"three deconv layers at batch {BUCKET}; launches counted in the "
           f"{GAN_STEPS}-step training run, K1's serving-run count as "
-          f"launches_serve; K4's in the winograd serving run, K1 int8's in "
-          f"the int8 serving run; K2's f32 VoxGAN serving run as "
+          f"launches_serve; K4's in the winograd serving run; K1 int8's "
+          f"launches and ms/plain_ms/bound_ms from phase 9 (the calibrated "
+          f"serving run; the static-row launches summed over DCGAN's three "
+          f"layers), phase 7's dynamic ones as *_dynamic; K2's f32 VoxGAN "
+          f"serving run as "
           f"launches_serve_3d; K2 int8's ms/plain_ms/bound_ms summed over "
           f"VoxGAN's three tap convs at batch {BUCKET}, its launches in the "
           f"int8 VoxGAN serving run) {tag}")

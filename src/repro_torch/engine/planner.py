@@ -8,7 +8,11 @@ bias and activation kept for the epilogue.  :meth:`SDEngine.run` executes
 a layer from its cached plan; nothing offline happens on the hot path.
 
 ``dtype="int8"`` binds int8 plans (filters quantized per split output
-channel at bind, activations per sample on the hot path).  Every
+channel at bind, activations per sample on the hot path).
+:meth:`SDEngine.set_calibration` installs static per-layer activation
+scales on an int8 engine: each calibrated layer quantizes its input
+against its static scale, and each pair of consecutive deconv layers
+chains (the first writes int8 codes for the second).  Every
 :meth:`SDEngine.bind` bumps :attr:`SDEngine.generation`, so a holder of
 a snapshot of the plans (the server's cells) can tell that they were
 rebuilt.
@@ -24,6 +28,7 @@ import torch
 from repro_torch.core.accounting import LayerSpec, NetworkSpec
 from repro_torch.core.deconv import _ntuple, same_deconv_pads
 from repro_torch.device import resolve_device
+from repro_torch.kernels.sd_conv import CHAIN_ACTS
 from repro_torch.sd import functional as sd_functional
 from repro_torch.sd.plan import (DTYPES, DeconvPlan, plan as make_plan,
                                  resolve_backend)
@@ -73,6 +78,7 @@ class SDEngine:
         self._bound: Optional[Params] = None
         self._bound_leaves: Optional[tuple] = None
         self._bound_versions: Optional[tuple] = None
+        self._calib: Optional[Dict[str, float]] = None
 
     def _plan_leaves(self, params: Params) -> Optional[tuple]:
         """The tensors the plans depend on, compared by identity and by
@@ -90,36 +96,92 @@ class SDEngine:
 
     # ---- offline phase ---------------------------------------------------
     def layer_plan(self, layer: LayerSpec, act: str,
-                   dtype: Optional[str] = None) -> DeconvPlan:
+                   dtype: Optional[str] = None,
+                   qout: bool = False) -> DeconvPlan:
         """Geometry-only plan for one deconv layer (tile chosen at call
         time from the launch geometry).  ``dtype`` overrides the engine's
         (the models' differentiable path asks an int8 engine for float
-        plans: int8 plans are inference-only)."""
+        plans: int8 plans are inference-only).  ``qout`` asks for a
+        chained layer, whose launch writes int8: its tile is picked per
+        launch from ``FusedGeom(qout=True)`` (keyed ``_q8out``), so here
+        it only refuses a layer that cannot chain, as ``with_chain``
+        would after the bind."""
+        dtype = self.dtype if dtype is None else dtype
+        if qout and (dtype != "int8" or act not in CHAIN_ACTS):
+            raise ValueError(f"layer {layer.name!r} cannot write int8: "
+                             f"dtype {dtype!r}, act {act!r}")
         rank = layer.rank
         kernel = (layer.k,) * rank
         stride = (layer.s,) * rank
         pads = (same_deconv_pads(kernel, stride)
                 if layer.padding == "same" else layer.pad)
         return make_plan((*kernel, layer.cin, layer.cout), stride, pads,
-                         backend=self.backend, act=act,
-                         dtype=self.dtype if dtype is None else dtype)
+                         backend=self.backend, act=act, dtype=dtype)
+
+    def _chain_next(self) -> Dict[str, str]:
+        """Chaining wiring from the installed calibration (reference
+        ``SDEngine._chain_next``): each deconv layer's name mapped to the
+        next layer's when the two are consecutive in the spec, both
+        deconv and both calibrated, the pairs whose inter-layer tensor
+        crosses device memory as int8.  A conv between them (segnet)
+        breaks the chain; the last layer has no successor, so its f32
+        output feeds the model's tanh."""
+        out: Dict[str, str] = {}
+        if not self._calib or self.dtype != "int8":
+            return out
+        layers = self.spec.layers
+        for i, layer in enumerate(layers[:-1]):
+            nxt = layers[i + 1]
+            if (layer.kind == "deconv" and nxt.kind == "deconv"
+                    and layer.name in self._calib
+                    and nxt.name in self._calib):
+                out[layer.name] = nxt.name
+        return out
 
     @torch.no_grad()
     def build_plans(self, params: Params) -> Dict[str, DeconvPlan]:
         """Bound plans for every deconv layer.  The epilogue activation
         is relu for every deconv that is not the net's last layer and
-        linear for the last (the model applies the final tanh).  Built
-        without autograd: bound plans are data, never part of a graph."""
+        linear for the last (the model applies the final tanh).  With a
+        calibration installed (int8 engines), calibrated layers get their
+        static ``sx_in`` and consecutive deconv pairs chain
+        (:meth:`set_calibration`).  Built without autograd: bound plans
+        are data, never part of a graph."""
         layers = self.spec.layers
+        calib = self._calib if self.dtype == "int8" else None
+        chain_next = self._chain_next()
         plans: Dict[str, DeconvPlan] = {}
         for i, layer in enumerate(layers):
             if layer.kind != "deconv":
                 continue
             p = params[layer.name]
             act = "linear" if i == len(layers) - 1 else "relu"
-            plans[layer.name] = self.layer_plan(layer, act).bind(
+            tgt = chain_next.get(layer.name)
+            bound = self.layer_plan(layer, act, qout=tgt is not None).bind(
                 p["w"], scale=p.get("scale"), bias=p["b"].float())
+            if calib and layer.name in calib:
+                bound = bound.with_chain(
+                    sx_in=calib[layer.name],
+                    sx_out=calib[tgt] if tgt is not None else None,
+                    chain_out=tgt is not None)
+            plans[layer.name] = bound
         return plans
+
+    def set_calibration(self, scales: Optional[Dict[str, float]]
+                        ) -> "SDEngine":
+        """Install static per-layer activation scales, ``{layer name:
+        input amax / 127}`` as ``GenerativeModel.calibrate`` returns them
+        or ``core.quant.load_calib`` reads them; ``None`` clears them
+        (back to dynamic per-sample scales).  A float engine raises.
+        Rebinds when params are bound (which bumps :attr:`generation`,
+        so a server's cells follow), and every later bind, a checkpoint
+        swap's included, keeps the calibration."""
+        if scales is not None and self.dtype != "int8":
+            raise ValueError("calibration applies to int8 engines only")
+        self._calib = dict(scales) if scales is not None else None
+        if self._bound is not None:
+            self.bind(self._bound)
+        return self
 
     def bind(self, params: Params) -> "SDEngine":
         """Build and cache all layer plans from ``params`` (once per

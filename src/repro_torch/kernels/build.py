@@ -30,7 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "sd_fused": ("sd_fused_launch", [_P, _P, _P, _P, _I] + [_I] * 22 + [_P]),
-    "sd_fused_int8": ("sd_fused_int8_launch", [_P] * 5 + [_I] * 22 + [_P]),
+    "sd_fused_int8": ("sd_fused_int8_launch", [_P] * 5 + [_I] * 24 + [_P]),
     "sd_conv": ("sd_conv_launch", [_P] * 3 + [_I] * 17 + [_P]),
     "sd_conv_int8": ("sd_conv_int8_launch", [_P] * 3 + [_I] * 17 + [_P]),
     "sd_filter_grad": ("sd_filter_grad_launch", [_P] * 4 + [_I] * 13 + [_P]),

@@ -1,29 +1,43 @@
 // Fused split-deconvolution kernel for Hopper (sm_90a), int8 branch.
 //
 // Replaces the quant branch of the Pallas TPU kernel `sd_fused_pallas`
-// (src/repro/kernels/sd_conv.py, body `_sd_fused_body` with quant=True)
-// for a dynamic per-sample scale and f32 output: in one launch, the
-// split stride-1 conv of int8 activations with int8 oc-major split
-// filters over the logically P_I-zero-padded input, accumulated exactly
-// in int32; the dequant by the combined (sample, phase channel) scale
-// BEFORE the interleave; then the sh x sw pixel-shuffle, per-oc bias,
-// linear/relu/tanh and the P_K + user-padding crop, written once as f32
-// in final output geometry.
+// (src/repro/kernels/sd_conv.py, body `_sd_fused_body` with quant=True,
+// :284-349): in one launch, the split stride-1 conv of int8 activations
+// with int8 oc-major split filters over the logically P_I-zero-padded
+// input, accumulated exactly in int32; the dequant by the combined
+// (sample, phase channel) scale BEFORE the interleave; then the sh x sw
+// pixel-shuffle, per-oc bias, linear/relu/tanh and the P_K +
+// user-padding crop, written once in final output geometry.
 //
 //   acc[b, v, u, c] = sum_{th, tw, ic} xq[b, v + th, u + tw, ic]
 //                                      * wq[th, tw, ic, c]        (int32)
-//   y[b, oy, ox, oc] = act(bias[oc] + RN_f32(acc[b, v, u, c]) * scale[b, c])
+//   r = act(bias[oc] + RN_f32(acc[b, v, u, c]) * scale[b * sstride + c])
+//   y[b, oy, ox, oc] = r                          (f32 output), or
+//   y[b, oy, ox, oc] = int8(clamp(rint(r), -127, 127))   (int8 output)
 //   with c = oc*sh*sw + py*sw + px, oy + crop_h = sh*v + py and
 //   ox + crop_w = sw*u + px.
 //
-// The scale column is the phase channel c of the conv output, not the
-// interleaved position: each (phase, oc) split filter has its own filter
-// scale.  The sum is exact (the wrapper refuses Cin*KTh*KTw*127^2 >=
-// 2^31), and it is rounded to f32 once, by __int2float_rn; the multiply
-// and the bias add are __fmul_rn / __fadd_rn, so nvcc cannot contract
-// them into an FMA and the result is the plain version's
-// (`sd_fused_ref` on an int8 pair) rounding for rounding: bit-identical
-// for linear and relu, within tanhf's ulps for tanh.
+// The scale row has a batch stride: NC for the dynamic (B, NC) scale of
+// per-sample activation scales, 0 for the calibrated path's static
+// (1, NC) row, which every sample reads in place (the TPU kernel binds
+// it with a batch-independent index map).  The scale column is the phase
+// channel c of the conv output, not the interleaved position: each
+// (phase, oc) split filter has its own filter scale.
+//
+// int8 output is the chained epilogue of the calibrated path: the caller
+// has folded the next layer's 1/sx into scale and bias, so the activated
+// value is already in the next layer's code units; it is rounded half to
+// even (rintf), clamped to +-127 in float (never a wrapping cast) and
+// written as int8, so the inter-layer tensor crosses device memory as
+// int8.  act is linear or relu there (the wrapper refuses tanh, which
+// does not commute with the scale).
+//
+// The sum is exact (the wrapper refuses Cin*KTh*KTw*127^2 >= 2^31), and
+// it is rounded to f32 once, by __int2float_rn; the multiply and the
+// bias add are __fmul_rn / __fadd_rn, so nvcc cannot contract them into
+// an FMA and the result is the plain version's (`sd_fused_ref` on an
+// int8 pair) rounding for rounding: bit-identical for linear and relu,
+// f32 or int8 out, within tanhf's ulps for tanh.
 //
 // What bounds it on the H100: each staged int8 feeds hundreds of
 // multiply-adds at DCGAN's widths, so it is bound by arithmetic.  This
@@ -42,10 +56,10 @@
 //     tile and runs one __dp4a per (position, channel, word);
 //   * the epilogue dequantizes each register with its sample's scale
 //     row, then maps it to its interleaved, cropped output element, adds
-//     bias, applies the activation and masks the ragged edge as K1 does.
-// int8 mma/wgmma, TMA and cp.async are later work, as is the calibrated
-// path (a static (1, NC) scale row and the requantizing int8-out
-// epilogue), which the wrapper refuses.
+//     bias, applies the activation, requantizes for int8 output and
+//     masks the ragged edge as K1 does.  The output type is a template
+//     parameter; an int8 output is a quarter of the f32 output's bytes.
+// int8 mma/wgmma, TMA and cp.async are later work.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -62,15 +76,24 @@ struct Geom {
   int OH, OW;
   int th, tw, rh, rw, tcin, tcw, nw, bw, plane;
   int act;  // 0 linear, 1 relu, 2 tanh
+  int sstride;  // scale row's batch stride: NC, or 0 for a static row
 };
 
-template <int TX>
+__device__ __forceinline__ void store(float* p, float r) { *p = r; }
+
+// Round half to even, then clamp in float: never a wrapping cast.
+__device__ __forceinline__ void store(int8_t* p, float r) {
+  *p = static_cast<int8_t>(
+      static_cast<int>(fminf(fmaxf(rintf(r), -127.f), 127.f)));
+}
+
+template <int TX, typename OutT>
 __global__ void __launch_bounds__(kThreads)
 sd_fused_int8_kernel(const int8_t* __restrict__ x,
                      const int8_t* __restrict__ ws,
                      const float* __restrict__ scale,
                      const float* __restrict__ bias,
-                     float* __restrict__ y, Geom g) {
+                     OutT* __restrict__ y, Geom g) {
   constexpr int TY = kThreads / TX;   // threads along conv positions
   constexpr int TC = TX * kMicro;     // phase channels per block
   extern __shared__ __align__(16) int smem[];
@@ -180,8 +203,9 @@ sd_fused_int8_kernel(const int8_t* __restrict__ x,
   }
 
   // Epilogue: dequantize phase channel c with this sample's scale row
-  // (before the interleave), then K1's interleave, bias, act and crop.
-  const float* srow = scale + (long long)b * g.NC;
+  // (before the interleave; a static row has stride 0), then K1's
+  // interleave, bias, act and crop, and the requantization for int8 out.
+  const float* srow = scale + (long long)b * g.sstride;
   const int ss = g.sh * g.sw;
 #pragma unroll
   for (int i = 0; i < kMicro; ++i) {
@@ -202,14 +226,14 @@ sd_fused_int8_kernel(const int8_t* __restrict__ x,
       r = __fadd_rn(r, bias[oc]);
       if (g.act == 1) r = fmaxf(r, 0.f);
       else if (g.act == 2) r = tanhf(r);
-      y[(((long long)b * g.OH + oy) * g.OW + ox) * g.Cout + oc] = r;
+      store(y + (((long long)b * g.OH + oy) * g.OW + ox) * g.Cout + oc, r);
     }
   }
 }
 
-template <int TX>
+template <int TX, typename OutT>
 cudaError_t launch(const int8_t* x, const int8_t* ws, const float* scale,
-                   const float* bias, float* y, const Geom& g, int nh,
+                   const float* bias, OutT* y, const Geom& g, int nh,
                    cudaStream_t stream) {
   constexpr int TC = TX * kMicro;
   const size_t smem =
@@ -217,28 +241,43 @@ cudaError_t launch(const int8_t* x, const int8_t* ws, const float* scale,
                      (size_t)g.tcw * g.plane);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        sd_fused_int8_kernel<TX>,
+        sd_fused_int8_kernel<TX, OutT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
   const dim3 grid((g.NC + TC - 1) / TC, nh * g.nw, g.B);
-  sd_fused_int8_kernel<TX><<<grid, kThreads, smem, stream>>>(
+  sd_fused_int8_kernel<TX, OutT><<<grid, kThreads, smem, stream>>>(
       x, ws, scale, bias, y, g);
   return cudaGetLastError();
+}
+
+template <typename OutT>
+cudaError_t dispatch(const int8_t* x, const int8_t* ws, const float* scale,
+                     const float* bias, void* y, const Geom& g, int nh,
+                     int tc, cudaStream_t s) {
+  OutT* yo = static_cast<OutT*>(y);
+  switch (tc) {
+    case 16: return launch<4>(x, ws, scale, bias, yo, g, nh, s);
+    case 32: return launch<8>(x, ws, scale, bias, yo, g, nh, s);
+    case 64: return launch<16>(x, ws, scale, bias, yo, g, nh, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // x (B, H, W, Cin) int8, ws (KTh, KTw, Cin, Cout*sh*sw) int8 oc-major,
-// scale (B, Cout*sh*sw) f32 oc-major, bias (Cout,) f32, y (B, OH, OW,
-// Cout) f32.  Returns cudaGetLastError() after the launch (0 on
-// success).
+// scale f32 oc-major rows of Cout*sh*sw, row b at scale + b * sstride
+// (sstride Cout*sh*sw for a (B, NC) scale, 0 for a static (1, NC) row),
+// bias (Cout,) f32, y (B, OH, OW, Cout) f32, or int8 when out_int8 is 1
+// (act linear or relu only).  Returns cudaGetLastError() after the
+// launch (0 on success).
 extern "C" int sd_fused_int8_launch(
     const void* x, const void* ws, const void* scale, const void* bias,
     void* y, int B, int H, int W, int Cin, int Cout, int KTh, int KTw,
     int sh, int sw, int q_h, int q_w, int plo_h, int plo_w, int res_h,
     int res_w, int OH, int OW, int th, int tw, int tcin, int tc, int act,
-    void* stream) {
+    int sstride, int out_int8, void* stream) {
   Geom g;
   g.B = B; g.H = H; g.W = W; g.Cin = Cin; g.Cout = Cout;
   g.NC = Cout * sh * sw;
@@ -255,19 +294,16 @@ extern "C" int sd_fused_int8_launch(
   g.bw = g.rw + KTw - 1;
   g.plane = ((g.rh + KTh - 1) * g.bw) | 1;
   g.act = act;
+  g.sstride = sstride;
   if (g.rh * g.rw > kThreads * kMicro / (tc / kMicro) || tcin < 1 ||
-      act < 0 || act > 2)
+      act < 0 || act > 2 || (out_int8 && act == 2) ||
+      (sstride != 0 && sstride != g.NC))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int8_t* xi = static_cast<const int8_t*>(x);
   const int8_t* wi = static_cast<const int8_t*>(ws);
   const float* sc = static_cast<const float*>(scale);
   const float* bi = static_cast<const float*>(bias);
-  float* yo = static_cast<float*>(y);
-  switch (tc) {
-    case 16: return (int)launch<4>(xi, wi, sc, bi, yo, g, nh, s);
-    case 32: return (int)launch<8>(xi, wi, sc, bi, yo, g, nh, s);
-    case 64: return (int)launch<16>(xi, wi, sc, bi, yo, g, nh, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return (int)(out_int8 ? dispatch<int8_t>(xi, wi, sc, bi, y, g, nh, tc, s)
+                        : dispatch<float>(xi, wi, sc, bi, y, g, nh, tc, s));
 }

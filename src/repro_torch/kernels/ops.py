@@ -13,7 +13,8 @@ for K4 from the Winograd-transformed filters.
 :func:`sd_deconv_presplit_fused_3d` is the 3-D lowering: depth folded
 into the batch, one K2 launch per depth tap (K2's int8 pair on int8
 operands), the taps summed outside the kernel, then ``depth_to_space``
-and the epilogue in stock torch ops.
+and the epilogue in stock torch ops (for a chained int8 layer, the
+requantization too, as the reference's lowering does it in XLA ops).
 
 :func:`sd_input_grad_fused` and :func:`sd_filter_grad_fused` are the SD
 backward's two convolutions on K2 and K3 (see :mod:`repro_torch.sd.grad`).
@@ -31,7 +32,7 @@ from repro_torch.core.deconv import (_check_output_padding, _check_padding,
                                      sd_geometry)
 from repro_torch.kernels.autotune import FilterGradPlan, KernelPlan
 from repro_torch.kernels.sd_conv import (_apply_act, check_no_grad,
-                                         quant_contract, sd_conv,
+                                         quant_contract, requantize, sd_conv,
                                          sd_filter_grad, sd_fused)
 from repro_torch.kernels.winograd import sd_wino
 
@@ -66,17 +67,17 @@ def sd_deconv_presplit_fused(x: torch.Tensor, ws_ocmajor: torch.Tensor,
     launch: x (B, H, W, Cin), ws_ocmajor (KTh, KTw, Cin, Cout*sh*sw).
 
     An int8 ``(x, ws_ocmajor)`` pair with the combined dequant ``scale``
-    (B, Cout*sh*sw) runs K1's int8 branch and returns f32 (see
-    :func:`~repro_torch.kernels.sd_conv.sd_fused`)."""
+    ((B, Cout*sh*sw), or a static (1, Cout*sh*sw) row) runs K1's int8
+    branch and returns f32, or int8 for ``out_dtype=torch.int8`` (the
+    chained epilogue; see :func:`~repro_torch.kernels.sd_conv.sd_fused`)."""
     s, _, pad, crop, out_space = _deconv_launch(x.shape, kernel, stride,
                                                 padding, output_padding)
     if any(o == 0 for o in out_space):
-        # Degenerate geometry: nothing to launch.  An int8 launch would
-        # have written its dequantized f32.
-        quant = quant_contract(x, ws_ocmajor, scale, out_dtype)
+        # Degenerate geometry: nothing to launch.
+        qdtype = quant_contract(x, ws_ocmajor, scale, out_dtype, act)
         cout = ws_ocmajor.shape[-1] // (s[0] * s[1])
         return x.new_zeros((x.shape[0], *out_space, cout),
-                           dtype=torch.float32 if quant else x.dtype)
+                           dtype=qdtype or x.dtype)
     return sd_fused(x, ws_ocmajor, s, bias=bias, act=act, pad=pad,
                     crop=crop, out_space=out_space, plan=plan, scale=scale,
                     out_dtype=out_dtype)
@@ -124,12 +125,14 @@ def sd_deconv_presplit_fused_3d(x: torch.Tensor, ws_nmajor: torch.Tensor,
     3-D interleave (``depth_to_space``), crop, bias and activation run
     as stock torch ops.
 
-    int8 (an int8 ``(x, ws_nmajor)`` pair with the dynamic n-major (B,
-    N*Cout) ``scale``): each tap is K2's int8 pair, exact int32, summed
-    in int32; the sum is cast once to f32 and dequantized per (sample,
-    n-major phase channel) before the interleave; output f32.  The
-    static (1, NC) scale row and int8 output raise (the calibrated
-    slice), as in K1."""
+    int8 (an int8 ``(x, ws_nmajor)`` pair with the n-major ``scale``,
+    (B, N*Cout) or a static (1, N*Cout) row broadcast over the batch):
+    each tap is K2's int8 pair, exact int32, summed in int32; the sum is
+    cast once to f32 and dequantized per (sample, n-major phase channel)
+    before the interleave, then crop, bias and act; output f32, or for
+    ``out_dtype=torch.int8`` (a chained layer, linear or relu) rounded
+    half to even and clamped to +-127 into int8, the reference's order
+    (``src/repro/kernels/ops.py:450-463``)."""
     s = _ntuple(stride, 3)
     k = _ntuple(kernel, 3)
     pads = _pads_nd(padding, 3)
@@ -142,7 +145,8 @@ def sd_deconv_presplit_fused_3d(x: torch.Tensor, ws_nmajor: torch.Tensor,
         raise ValueError(f"shapes x {tuple(x.shape)}, ws "
                          f"{tuple(ws_nmajor.shape)} are not (B,D,H,W,Cin), "
                          f"({ktd},{kth},{ktw},Cin,N*Cout)")
-    quant = quant_contract(x, ws_nmajor, scale, out_dtype)
+    qdtype = quant_contract(x, ws_nmajor, scale, out_dtype, act)
+    quant = qdtype is not None
     if x.device.type == "cuda":
         # K2's output carries no graph: the differentiable path is
         # repro_torch.sd.conv_transpose.
@@ -167,12 +171,16 @@ def sd_deconv_presplit_fused_3d(x: torch.Tensor, ws_nmajor: torch.Tensor,
     y = acc.reshape(b, od, oh1, ow1, nco)
     if quant:
         # Dequant before the interleave: n-major phase channels carry
-        # distinct scales (per-sample activation x per-channel filter).
-        y = y.float() * scale.reshape(b, 1, 1, 1, nco)
+        # distinct scales (per-sample activation x per-channel filter; a
+        # static row broadcasts over the batch).
+        y = y.float() * scale.reshape(-1, 1, 1, 1, nco)
     out = crop_interleaved(depth_to_space(y, s), pk, pads, out_space)
     if bias is not None:
         out = out + bias.float()
-    return _apply_act(out, act).to(torch.float32 if quant else x.dtype)
+    out = _apply_act(out, act)
+    if qdtype == torch.int8:
+        return requantize(out)
+    return out.to(qdtype or x.dtype)
 
 
 # ---------------------------------------------------------------------------

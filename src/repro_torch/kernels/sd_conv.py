@@ -10,15 +10,19 @@ raises; on a CPU tensor it runs :func:`sd_fused_ref`, the same function
 in plain PyTorch.  ``SD_FUSED_LAUNCHES`` counts kernel launches.
 
 K1's int8 branch takes an int8 ``(x, ws)`` pair and the combined dequant
-``scale`` (B, Cout*sh*sw) of the dynamic path: int8 x int8 tap GEMMs
-accumulated exactly in int32, the scale applied per phase channel
-before the interleave, K1's epilogue, f32 output.  On a CUDA tensor it
-launches ``csrc/sd_fused_int8.cu`` (counted by
-``SD_FUSED_INT8_LAUNCHES``, never by ``SD_FUSED_LAUNCHES``); its plain
-version is :func:`sd_fused_ref` on the int8 pair, which sums exactly
-(:func:`exact_conv_valid`) and rounds the sum to f32 once, where the
-kernel does.  The calibrated half of the branch (a static ``(1, NC)``
-scale row, the requantizing int8 output) raises; see ROADMAP.md.
+``scale``: (B, Cout*sh*sw) on the dynamic path, or one static (1,
+Cout*sh*sw) row on the calibrated path, which the kernel reads in place
+for every sample.  int8 x int8 tap GEMMs accumulated exactly in int32,
+the scale applied per phase channel before the interleave, K1's
+epilogue, f32 output; or, with ``out_dtype=torch.int8`` (the chained
+epilogue: linear or relu, the next layer's ``1/sx`` already folded into
+scale and bias), the activated value rounded half to even and clamped to
++-127 into int8.  On a CUDA tensor it launches ``csrc/sd_fused_int8.cu``
+(counted by ``SD_FUSED_INT8_LAUNCHES``, never by
+``SD_FUSED_LAUNCHES``); its plain version is :func:`sd_fused_ref` on the
+int8 pair, which sums exactly (:func:`exact_conv_valid`) and rounds the
+sum to f32 once, where the kernel does, then takes the kernel's steps in
+its order.
 
 A kernel's output carries no autograd graph, so the forward wrappers
 (K1 here, K4 in :mod:`~repro_torch.kernels.winograd`) raise when an
@@ -68,7 +72,7 @@ PadPair = Tuple[int, int]
 ACTS = {"linear": 0, "relu": 1, "tanh": 2}
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 INT32_MAX_SUM = 2 ** 31    # the int8 branch's int32 accumulator must stay below
-_LATER = "see ROADMAP.md for the slice that brings it"
+CHAIN_ACTS = ("linear", "relu")   # commute with a positive scale
 
 SD_FUSED_LAUNCHES = 0      # kernel launches; the plain version never counts
 SD_FUSED_INT8_LAUNCHES = 0
@@ -127,14 +131,16 @@ def check_int32_terms(terms: int, what: str) -> None:
             "2^31: the int32 accumulator would overflow")
 
 
-def quant_contract(x, ws, scale, out_dtype) -> bool:
-    """Check the launch against K1's contract on any device; True for an
-    int8 launch.  The int8 branch takes an int8 pair, the dynamic (B,
-    Cout*sh*sw) f32 scale and f32 output, and refuses a geometry whose
-    exact sum could overflow its int32 accumulator; the calibrated path
-    (a static (1, NC) row for a batch, int8 output) is a later slice.
-    Any rank: ``ws`` is ``(*KT, Cin, NC)`` and every tap counts toward
-    the sum."""
+def quant_contract(x, ws, scale, out_dtype, act: str = "linear"
+                   ) -> Optional[torch.dtype]:
+    """Check the launch against K1's contract on any device: None for a
+    float launch, else the dtype the int8 launch writes.  The int8 branch
+    takes an int8 pair and the f32 combined scale, (B, Cout*sh*sw) or a
+    static (1, Cout*sh*sw) row; it writes f32, or int8 (``out_dtype``,
+    the chained epilogue) with a linear or relu ``act``; it refuses a
+    geometry whose exact sum could overflow its int32 accumulator.  Any
+    rank: ``ws`` is ``(*KT, Cin, NC)`` and every tap counts toward the
+    sum."""
     quant = x.dtype == torch.int8 or ws.dtype == torch.int8
     if not quant:
         if scale is not None:
@@ -142,27 +148,25 @@ def quant_contract(x, ws, scale, out_dtype) -> bool:
         if out_dtype is not None and out_dtype != x.dtype:
             raise ValueError(f"a float launch writes {x.dtype}, not "
                              f"{out_dtype}")
-        return False
+        return None
     if x.dtype != torch.int8 or ws.dtype != torch.int8:
         raise TypeError(f"the int8 branch takes an int8 (x, ws) pair, got "
                         f"{x.dtype} and {ws.dtype}")
-    if out_dtype == torch.int8:
-        raise NotImplementedError(
-            "int8 output (the chained, requantizing epilogue) comes with "
-            f"the calibrated int8 slice; {_LATER}")
-    if out_dtype not in (None, torch.float32):
-        raise TypeError(f"the int8 branch writes float32, not {out_dtype}")
+    if out_dtype not in (None, torch.float32, torch.int8):
+        raise TypeError(f"the int8 branch writes float32 or int8, not "
+                        f"{out_dtype}")
+    if out_dtype == torch.int8 and act not in CHAIN_ACTS:
+        raise ValueError(f"int8 output cannot fold the next layer's scale "
+                         f"through act {act!r}; only {CHAIN_ACTS} commute "
+                         "with a positive scale")
     if scale is None:
         raise ValueError("an int8 launch needs the combined dequant scale "
-                         "(B, Cout*sh*sw)")
+                         "(B, Cout*sh*sw) or (1, Cout*sh*sw)")
     nc, b = ws.shape[-1], x.shape[0]
     if scale.ndim != 2 or scale.shape[1] != nc:
-        raise ValueError(f"scale {tuple(scale.shape)} is not (B, {nc})")
-    if scale.shape[0] != b:
-        if scale.shape[0] == 1:
-            raise NotImplementedError(
-                "a static (1, NC) scale row (calibrated int8) comes with "
-                f"the calibrated int8 slice; {_LATER}")
+        raise ValueError(f"scale {tuple(scale.shape)} is not (B, {nc}) or "
+                         f"(1, {nc})")
+    if scale.shape[0] not in (1, b):
         raise ValueError(f"scale has {scale.shape[0]} rows for batch {b}")
     if scale.dtype != torch.float32:
         raise TypeError(f"scale must be float32, got {scale.dtype}")
@@ -170,7 +174,7 @@ def quant_contract(x, ws, scale, out_dtype) -> bool:
         raise ValueError("scale must be contiguous on the input's device")
     check_int32_terms(x.shape[-1] * math.prod(ws.shape[:-2]),
                       "an int8 split conv over Cin x taps")
-    return True
+    return torch.float32 if out_dtype is None else out_dtype
 
 
 def _full_space(x_shape, ws_shape, s, pad):
@@ -185,20 +189,23 @@ def sd_fused_ref(x: torch.Tensor, ws_ocmajor: torch.Tensor, s, *,
                  pad: Tuple[PadPair, PadPair] = ((0, 0), (0, 0)),
                  crop: Tuple[int, int] = (0, 0),
                  out_space: Optional[Tuple[int, int]] = None,
-                 scale: Optional[torch.Tensor] = None
+                 scale: Optional[torch.Tensor] = None,
+                 out_dtype: Optional[torch.dtype] = None
                  ) -> torch.Tensor:
     """Plain PyTorch version of :func:`sd_fused`: ``F.pad``, ``F.conv2d``
     in f32, the oc-major interleave, crop (zero-extended past the
     support), bias, activation, cast to ``x.dtype``.  On an int8 pair:
     the exact sums (:func:`exact_conv_valid`), rounded to f32 once,
-    times ``scale[b, c]`` per phase channel before the interleave, then
-    the same epilogue in f32."""
+    times ``scale[b, c]`` per phase channel before the interleave (a
+    static (1, NC) row broadcasts over the batch), then the same
+    epilogue in f32, and for ``out_dtype=torch.int8`` the kernel's round
+    half to even and clamp to +-127 (:func:`shuffle_epilogue`)."""
     (plo_h, phi_h), (plo_w, phi_w) = pad
     if x.dtype == torch.int8:
         xp = F.pad(x, (0, 0, plo_w, phi_w, plo_h, phi_h))
         y = exact_conv_valid(xp, ws_ocmajor).float() * scale[:, None, None]
         return shuffle_epilogue(y, s, bias, act, crop, out_space,
-                                torch.float32)
+                                out_dtype or torch.float32)
     xp = F.pad(x.float(), (0, 0, plo_w, phi_w, plo_h, phi_h))
     y = conv_valid(xp, ws_ocmajor.float())      # (B, Hc, Wc, Cout*sh*sw)
     return shuffle_epilogue(y, s, bias, act, crop, out_space, x.dtype)
@@ -211,7 +218,8 @@ def shuffle_epilogue(y: torch.Tensor, s, bias: Optional[torch.Tensor],
     """The fused kernels' tail in plain PyTorch, from the f32 split-conv
     output ``y`` (B, Hc, Wc, Cout*sh*sw) with oc-major phase channels:
     interleave, crop (zero-extended past the support), bias, activation,
-    cast to ``dtype``."""
+    cast to ``dtype``; an int8 ``dtype`` is K1 int8's chained epilogue,
+    round half to even and clamp to +-127 in f32 before the cast."""
     sh, sw = _pair(s)
     b, hc, wc, nc = y.shape
     cout = nc // (sh * sw)
@@ -223,7 +231,15 @@ def shuffle_epilogue(y: torch.Tensor, s, bias: Optional[torch.Tensor],
                          out_space)
     if bias is not None:
         y = y + bias.float()
-    return _apply_act(y, act).to(dtype)
+    y = _apply_act(y, act)
+    return requantize(y) if dtype == torch.int8 else y.to(dtype)
+
+
+def requantize(y: torch.Tensor) -> torch.Tensor:
+    """The chained epilogue's requantization of an f32 value already in
+    the next layer's code units: round half to even, clamp to +-127
+    (never a wrapping cast), int8."""
+    return torch.clamp(torch.round(y), -127.0, 127.0).to(torch.int8)
 
 
 @dataclass(frozen=True)
@@ -245,11 +261,12 @@ class LaunchGeometry:
     nh: int
     nw: int
     plan: KernelPlan
+    geom: FusedGeom             # what the tile was picked for (its key)
 
 
 def launch_geometry(x_shape, ws_shape, s, pad, crop, out_space,
                     plan: Optional[KernelPlan] = None,
-                    dtype: str = "") -> LaunchGeometry:
+                    dtype: str = "", qout: bool = False) -> LaunchGeometry:
     sh, sw = _pair(s)
     _, h, wd, cin = x_shape
     kth, ktw, _, nc = ws_shape
@@ -260,7 +277,7 @@ def launch_geometry(x_shape, ws_shape, s, pad, crop, out_space,
     sh_h, sh_w = min(q_h, plo_h), min(q_w, plo_w)
     geom = FusedGeom(h=h, w=wd, cin=cin, nc=nc, kth=kth, ktw=ktw, sh=sh,
                      sw=sw, out_h=oh, out_w=ow, res_h=res_h, res_w=res_w,
-                     dtype=dtype)
+                     dtype=dtype, qout=qout)
     plan = plan if plan is not None else heuristic_plan(geom)
     if smem_bytes(geom, plan) > SMEM_BUDGET:
         raise ValueError(f"tile {plan} needs {smem_bytes(geom, plan)} bytes "
@@ -268,7 +285,8 @@ def launch_geometry(x_shape, ws_shape, s, pad, crop, out_space,
     return LaunchGeometry(
         q_h=q_h - sh_h, q_w=q_w - sh_w, plo_h=plo_h - sh_h,
         plo_w=plo_w - sh_w, res_h=res_h, res_w=res_w, out_h=oh, out_w=ow,
-        nh=-(-oh // (plan.th * sh)), nw=-(-ow // (plan.tw * sw)), plan=plan)
+        nh=-(-oh // (plan.th * sh)), nw=-(-ow // (plan.tw * sw)), plan=plan,
+        geom=geom)
 
 
 def _check_cuda_operands(x, ws, bias, sh, sw):
@@ -309,10 +327,13 @@ def sd_fused(x: torch.Tensor, ws_ocmajor: torch.Tensor, s, *,
     uncropped interleave.  Returns (B, *out_space, Cout) in ``x.dtype``.
 
     int8 branch: ``x`` and ``ws_ocmajor`` int8 and ``scale`` the f32
-    combined dequant scale (B, Cout*sh*sw), oc-major like the filters
+    combined dequant scale, oc-major like the filters: (B, Cout*sh*sw)
     (sample ``b``'s activation scale times each phase channel's filter
-    scale); returns f32.  ``out_dtype``: f32 or None; int8 output and a
-    static (1, NC) scale row raise (the calibrated slice).
+    scale), or a static (1, Cout*sh*sw) row that every sample reads in
+    place (the kernel is handed a batch stride of 0).  ``out_dtype``:
+    f32 (or None), or int8 for the chained epilogue (linear or relu;
+    ``scale`` and ``bias`` carry the next layer's ``1/sx``): round half
+    to even, clamp to +-127, int8 out.
     """
     global SD_FUSED_LAUNCHES, SD_FUSED_INT8_LAUNCHES
     sh, sw = _pair(s)
@@ -320,10 +341,12 @@ def sd_fused(x: torch.Tensor, ws_ocmajor: torch.Tensor, s, *,
         raise ValueError(f"unknown act {act!r}")
     if out_space is None:
         out_space = _full_space(x.shape, ws_ocmajor.shape, s, pad)
-    quant = quant_contract(x, ws_ocmajor, scale, out_dtype)
+    qdtype = quant_contract(x, ws_ocmajor, scale, out_dtype, act)
+    quant = qdtype is not None
     if x.device.type == "cpu":
         return sd_fused_ref(x, ws_ocmajor, s, bias=bias, act=act, pad=pad,
-                            crop=crop, out_space=out_space, scale=scale)
+                            crop=crop, out_space=out_space, scale=scale,
+                            out_dtype=qdtype)
     if x.device.type != "cuda":
         raise ValueError(f"sd_fused runs on cuda or cpu, not {x.device}")
     check_no_grad("sd_fused", x, ws_ocmajor, bias, scale)
@@ -333,11 +356,11 @@ def sd_fused(x: torch.Tensor, ws_ocmajor: torch.Tensor, s, *,
     bias = bias.float().contiguous()
     _check_cuda_operands(x, ws_ocmajor, bias, sh, sw)
     g = launch_geometry(x.shape, ws_ocmajor.shape, (sh, sw), pad, crop,
-                        out_space, plan, dtype="int8" if quant else "")
+                        out_space, plan, dtype="int8" if quant else "",
+                        qout=qdtype == torch.int8)
     b, h, wd, cin = x.shape
     y = torch.empty((b, g.out_h, g.out_w, cout),
-                    dtype=torch.float32 if quant else x.dtype,
-                    device=x.device)
+                    dtype=qdtype if quant else x.dtype, device=x.device)
     if y.numel() == 0:
         return y
     if g.nh * g.nw > 65535:
@@ -354,7 +377,8 @@ def sd_fused(x: torch.Tensor, ws_ocmajor: torch.Tensor, s, *,
                      ws_ocmajor.shape[0], ws_ocmajor.shape[1], sh, sw,
                      g.q_h, g.q_w, g.plo_h, g.plo_w, g.res_h, g.res_w,
                      g.out_h, g.out_w, p.th, p.tw, p.tcin, p.tc, ACTS[act],
-                     ctypes.c_void_p(stream))
+                     0 if scale.shape[0] == 1 else scale.shape[1],
+                     int(qdtype == torch.int8), ctypes.c_void_p(stream))
         if err != 0:
             raise RuntimeError(f"sd_fused int8 kernel launch failed: CUDA "
                                f"error {err}")

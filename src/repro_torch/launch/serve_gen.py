@@ -17,7 +17,12 @@ cell key does not name it).  ``--dtype int8`` serves through int8
 engine plans (per-channel filter quantization at bind, per-sample
 activation quantization and the dequant epilogue on the hot path, K1's
 int8 branch on ``fused``); latents, params and outputs stay f32 and the
-cell key says ``int8``.  ``--nets`` takes any workload of
+cell key says ``int8``.  ``--calib N`` (with ``--dtype int8``) first
+calibrates each net on N latents: static activation scales replace the
+per-sample quantization, and consecutive deconv layers pass int8 codes
+(K1's int8 output); the scales are saved under ``"<net>/max"`` in
+``$REPRO_TORCH_SD_CALIB_CACHE`` (default
+``~/.cache/repro_torch/sd_calib.json``).  ``--nets`` takes any workload of
 ``core/accounting.py``; the 3-D ``voxgan`` runs each deconv layer as one
 K2 launch per depth tap (K2's int8 pair under ``--dtype int8``).
 
@@ -30,6 +35,8 @@ K2 launch per depth tap (K2's int8 pair under ``--dtype int8``).
       --device cpu --dtype int8
   PYTHONPATH=src python -m repro_torch.launch.serve_gen --nets voxgan \\
       --dtype int8
+  PYTHONPATH=src python -m repro_torch.launch.serve_gen --dtype int8 \\
+      --calib 64
 """
 
 from __future__ import annotations
@@ -92,16 +99,24 @@ class GenServer:
     ``dtype="int8"`` selects the int8 serving path: the engines bind int8
     plans while latents, params and outputs stay f32 (int8 is an
     execution dtype, not an IO dtype), and the cell key says ``int8``,
-    so float and int8 cells of one ``(net, bucket)`` coexist."""
+    so float and int8 cells of one ``(net, bucket)`` coexist.
+
+    ``calib=N`` (int8 only) calibrates each net once, on N latents from
+    the server's seed, when the net's model is built and before any of
+    its cells runs; the scales are saved under ``"<net>/max"`` in the
+    port's calibration cache (``core.quant.calib_cache_path``)."""
 
     def __init__(self, nets=("dcgan",), dtype=torch.float32,
                  backend: str = "auto", max_batch: int = 16, seed: int = 0,
                  specs: Optional[Dict[str, NetworkSpec]] = None,
-                 device=None):
+                 device=None, calib: int = 0):
         self.device = resolve_device(device)
         self.engine_dtype = "native"
         if dtype in ("int8", torch.int8):
             self.engine_dtype, dtype = "int8", torch.float32
+        self.calib = int(calib)
+        if self.calib and self.engine_dtype != "int8":
+            raise ValueError("calib applies to int8 serving only")
         self.dtype = dtype
         self.dtype_name = ("int8" if self.engine_dtype == "int8"
                            else str(dtype).replace("torch.", ""))
@@ -129,7 +144,11 @@ class GenServer:
                                 device=self.device,
                                 engine_dtype=self.engine_dtype)
             gen = torch.Generator().manual_seed(self.seed)
-            self._models[net] = (m, m.init(gen, dtype=self.dtype))
+            params = m.init(gen, dtype=self.dtype)
+            if self.calib > 0:
+                m.calibrate(params, n=self.calib, seed=self.seed,
+                            save_key=f"{net}/max")
+            self._models[net] = (m, params)
         return self._models[net]
 
     def _serving_args(self, net: str, bucket: int):
@@ -303,15 +322,19 @@ def main(argv=None):
                     help="2 requests per reduced spec (smoke test)")
     ap.add_argument("--dp", type=int, default=1)
     ap.add_argument("--mp", type=int, default=1)
-    ap.add_argument("--calib", type=int, default=0)
+    ap.add_argument("--calib", type=int, default=0, metavar="N",
+                    help="int8 only: calibrate static activation scales "
+                         "on N latents per net and chain int8 activations "
+                         "between consecutive deconv layers (0 = dynamic "
+                         "per-sample scales)")
     ap.add_argument("--pretune", action="store_true")
     args = ap.parse_args(argv)
     for flag, later in (("--dp/--mp", args.dp != 1 or args.mp != 1),
-                        ("--calib (the calibrated int8 chain)",
-                         args.calib != 0),
                         ("--pretune", args.pretune)):
         if later:
             raise NotImplementedError(f"{flag}: {_LATER}")
+    if args.calib and args.dtype != "int8":
+        ap.error("--calib requires --dtype int8")
 
     if args.dryrun:
         specs = reduced_specs()
@@ -333,7 +356,7 @@ def main(argv=None):
 
     server = GenServer(nets=nets, dtype=DTYPES[args.dtype],
                        backend=args.backend, max_batch=args.max_batch,
-                       specs=specs, device=args.device)
+                       specs=specs, device=args.device, calib=args.calib)
     requests: List[GenRequest] = []
     for i, net in enumerate(nets):
         for r in server.random_requests(net, n_requests, seed=i + 1):

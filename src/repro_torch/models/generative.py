@@ -11,8 +11,10 @@ implementation is chosen by name from :data:`IMPLS`:
   launch per depth tap), the Winograd kernel K4 (``"winograd"``) or the
   grouped-conv ``torch`` backend, with bias and
   activation in the epilogue; ``engine_dtype="int8"`` binds int8 plans
-  (the dynamic int8 path, K1's int8 branch on ``fused``).  When autograd
-  is recording and any param leaf or the input requires grad, each
+  (the dynamic int8 path, K1's int8 branch on ``fused``), and
+  :meth:`GenerativeModel.calibrate` turns them into the calibrated chain
+  (static activation scales, int8 between consecutive deconvs).  When
+  autograd is recording and any param leaf or the input requires grad, each
   deconv instead runs the differentiable
   :func:`repro_torch.sd.conv_transpose` on the engine's backend (on
   ``fused``: K1 forward, K2 + K3 backward) with float plans, scale and
@@ -35,6 +37,7 @@ from torch import nn
 from repro_torch.core.accounting import WORKLOADS, NetworkSpec
 from repro_torch.core.deconv import (conv_nd, native_deconv,
                                      same_deconv_pads, sd_deconv)
+from repro_torch.core.quant import amax_stat, save_calib, scale_from_amax
 from repro_torch.device import resolve_device
 from repro_torch.engine.planner import SDEngine
 from repro_torch.sd import DeconvPlan, conv_transpose, execute
@@ -182,6 +185,58 @@ class GenerativeModel(nn.Module):
 
     def forward(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         return self.apply(params, x)
+
+    # ---- static activation calibration -----------------------------------
+    @torch.no_grad()
+    def calibrate(self, params: Params, n: int = 64, seed: int = 0,
+                  policy: str = "max", pct: float = 99.9,
+                  save_key: Optional[str] = None,
+                  path: Optional[str] = None,
+                  latents: Optional[torch.Tensor] = None
+                  ) -> Dict[str, float]:
+        """Calibrate static per-layer activation scales for the chained
+        int8 path and install them on the engine (reference
+        ``GenerativeModel.calibrate``).
+
+        Runs ``latents`` (default: ``n`` unit-normal latents from
+        ``torch.Generator(device).manual_seed(seed)``) through the float
+        differentiable forward on the engine's backend and records, per
+        deconv layer, :func:`~repro_torch.core.quant.amax_stat` of that
+        layer's input.  Returns ``{layer: amax / 127}``, installs it with
+        :meth:`~repro_torch.engine.SDEngine.set_calibration` (binding a
+        never-bound engine to ``params``) and, with ``save_key``, writes
+        it to the port's calibration cache (``path``, else
+        ``$REPRO_TORCH_SD_CALIB_CACHE``, else
+        ``~/.cache/repro_torch/sd_calib.json``)."""
+        engine = self._engine
+        if engine is None or engine.dtype != "int8":
+            raise ValueError("calibrate() needs an int8 engine impl "
+                             "(deconv_impl='sd_kernel', "
+                             "engine_dtype='int8')")
+        if latents is None:
+            gen = torch.Generator(self.device).manual_seed(seed)
+            x = torch.randn(self.input_shape(int(n)), generator=gen,
+                            device=self.device)
+        else:
+            x = torch.as_tensor(latents, dtype=torch.float32,
+                                device=self.device)
+        stats: Dict[str, torch.Tensor] = {}
+
+        def step(layer, p, h):
+            # The layer's INPUT statistic, then the float deconv, so that
+            # later layers see the unquantized model's activations.
+            stats[layer.name] = amax_stat(h, policy, pct)
+            h = conv_transpose(self._functional_plan(layer), h, p["w"])
+            return h * p["scale"] + p["b"], False
+
+        self._forward(params, x, step)
+        scales = {name: scale_from_amax(v) for name, v in stats.items()}
+        if save_key is not None:
+            save_calib(save_key, scales, path)
+        engine.set_calibration(scales)
+        if not engine.bound_to(params):
+            engine.bind(params)
+        return scales
 
     # ---- convenience -----------------------------------------------------
     @property

@@ -18,8 +18,9 @@ K2 launch per depth tap
 backward is the plain torch formulation, as in the reference.
 
 A bound int8 plan runs :func:`_run_presplit_int8`: activations quantized
-per sample, int8 x int8 sums, the combined dequant scale applied per
-(sample, phase channel) before the interleave, f32 out.
+per sample (or against a calibrated static scale), int8 x int8 sums, the
+combined dequant scale applied per (sample, phase channel) before the
+interleave, f32 out (int8 out on a chained layer).
 """
 
 from __future__ import annotations
@@ -29,8 +30,9 @@ from typing import Optional
 import torch
 
 from repro_torch.core.deconv import sd_deconv_presplit, split_filters
-from repro_torch.core.quant import quantize_act
-from repro_torch.kernels.sd_conv import _apply_act, exact_conv_valid
+from repro_torch.core.quant import quantize_act, quantize_static
+from repro_torch.kernels.sd_conv import (_apply_act, exact_conv_valid,
+                                         requantize)
 from repro_torch.sd.grad import conv_transpose_vjp
 from repro_torch.sd.plan import DeconvPlan, to_ocmajor
 
@@ -75,45 +77,61 @@ def _run_presplit(plan: DeconvPlan, x: torch.Tensor, ws: torch.Tensor,
 
 
 def _run_presplit_int8(plan: DeconvPlan, x: torch.Tensor) -> torch.Tensor:
-    """The dynamic int8 path of a bound int8 plan (reference:
-    ``repro.sd.functional._run_presplit_int8`` without calibration).
+    """The int8 path of a bound int8 plan (reference:
+    ``repro.sd.functional._run_presplit_int8``).
 
-    The f32 input is quantized per sample (:func:`quantize_act`, so the
-    zero rows of a padded bucket never touch a real sample), the split
-    conv sums int8 x int8 exactly, and ``comb = sx[:, None] *
-    wscale[None, :]`` dequantizes each (sample, phase channel) sum before
-    the interleave.  ``fused``: K1's int8 branch on the card, its plain
-    version on the CPU.  ``torch``: the n-major grouped conv summed
-    exactly (:func:`exact_conv_valid`, where the reference's xla path
-    convolves f32-cast operands), rounded to f32 once and dequantized
-    per n-major channel before the pixel shuffle.  Rank 3 on ``fused``:
-    the depth-folded lowering with K2's int8 pair per depth tap, from
-    n-major filters and the n-major scale; the per-sample quantization
-    runs here, over each sample's whole volume, before the lowering
-    folds depth into the batch.  Output f32."""
-    if x.dtype == torch.int8:
-        raise ValueError("int8 input requires a calibrated plan (sx_in); "
-                         "the dynamic path has no scale for it")
-    xq, sx = quantize_act(x)
-    comb = sx[:, None] * plan.wscale.float()[None, :]
-    if plan.backend == "fused" and plan.rank == 3:
-        from repro_torch.kernels import ops
-        if plan.layout != "nmajor":
-            raise ValueError("the 3-D fused int8 lowering consumes n-major "
-                             "filters")
-        return ops.sd_deconv_presplit_fused_3d(
-            xq, plan.ws, plan.kernel, plan.stride, plan.padding,
-            output_padding=plan.output_padding, bias=plan.bias,
-            act=plan.act, scale=comb.contiguous(), plan=plan.tile)
+    Dynamic (``plan.sx_in`` unset): the f32 input is quantized per sample
+    (:func:`quantize_act`, so the zero rows of a padded bucket never
+    touch a real sample) and ``comb = sx[:, None] * wscale[None, :]``
+    dequantizes each (sample, phase channel) sum before the interleave.
+    Calibrated (``sx_in`` set): an f32 input is quantized against the
+    static scale (:func:`quantize_static`, no reduction anywhere), an
+    int8 input (the previous layer's chained output) is consumed as it
+    is, and ``comb = (sx_in * wscale)[None, :]`` is one static row.
+    With ``chain_out``, ``comb / sx_out`` and ``bias / sx_out`` fold the
+    next layer's scale into the epilogue, which writes int8 codes.
+
+    ``fused``: K1's int8 branch on the card, its plain version on the
+    CPU; rank 3, the depth-folded lowering with K2's int8 pair per depth
+    tap, from n-major filters and the n-major scale (quantization runs
+    here, over each sample's whole volume).  ``torch``: the n-major
+    grouped conv summed exactly (:func:`exact_conv_valid`, where the
+    reference's xla path convolves f32-cast operands), rounded to f32
+    once, dequantized per n-major channel before the pixel shuffle, then
+    bias, act and, chained, the same round and clamp as the kernel.
+    Output f32, or int8 with ``chain_out``."""
+    wscale = plan.wscale.float()
+    if plan.sx_in is not None:
+        sx = plan.sx_in.float()
+        xq = x if x.dtype == torch.int8 else quantize_static(x, sx)
+        comb = (sx * wscale)[None, :]
+    else:
+        if x.dtype == torch.int8:
+            raise ValueError("int8 input requires a calibrated plan "
+                             "(sx_in); the dynamic path has no scale for "
+                             "it")
+        xq, sx = quantize_act(x)
+        comb = sx[:, None] * wscale[None, :]
+    bias, out_dtype = plan.bias, None
+    if plan.chain_out:
+        sn = plan.sx_out.float()
+        comb = comb / sn
+        if bias is not None:
+            bias = bias.float() / sn
+        out_dtype = torch.int8
     if plan.backend == "fused":
         from repro_torch.kernels import ops
-        if plan.layout != "ocmajor":
-            raise ValueError("the fused int8 branch consumes oc-major "
-                             "filters")
-        return ops.sd_deconv_presplit_fused(
-            xq, plan.ws, plan.kernel, plan.stride, plan.padding,
-            output_padding=plan.output_padding, bias=plan.bias,
-            act=plan.act, scale=comb.contiguous(), plan=plan.tile)
+        if plan.rank == 3:
+            fn, layout = ops.sd_deconv_presplit_fused_3d, "nmajor"
+        else:
+            fn, layout = ops.sd_deconv_presplit_fused, "ocmajor"
+        if plan.layout != layout:
+            raise ValueError(f"the rank-{plan.rank} fused int8 path "
+                             f"consumes {layout} filters")
+        return fn(xq, plan.ws, plan.kernel, plan.stride, plan.padding,
+                  output_padding=plan.output_padding, bias=bias,
+                  act=plan.act, scale=comb.contiguous(),
+                  out_dtype=out_dtype, plan=plan.tile)
     if plan.backend != "torch" or plan.layout != "nmajor":
         raise ValueError(f"int8 plans run on the fused or torch backend, "
                          f"not {plan.backend!r} ({plan.layout})")
@@ -126,9 +144,10 @@ def _run_presplit_int8(plan: DeconvPlan, x: torch.Tensor) -> torch.Tensor:
     y = sd_deconv_presplit(xq, plan.ws, plan.kernel, plan.stride,
                            plan.padding, conv_fn=conv_fn,
                            output_padding=plan.output_padding)
-    if plan.bias is not None:
-        y = y + plan.bias.float()
-    return _apply_act(y, plan.act)
+    if bias is not None:
+        y = y + bias.float()
+    y = _apply_act(y, plan.act)
+    return requantize(y) if out_dtype is not None else y
 
 
 def execute(plan: DeconvPlan, x: torch.Tensor) -> torch.Tensor:

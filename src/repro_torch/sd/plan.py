@@ -11,8 +11,10 @@ dynamic int8 path: ``bind`` folds the BN scale into the split filters
 and then quantizes them per split output channel, so ``ws`` holds int8
 codes and ``wscale`` the per-channel dequant scales in ``ws``'s channel
 order; ``execute`` quantizes activations per sample.  int8 plans are
-inference-only.  The calibrated chain (static activation scales,
-``with_chain``) is a later slice (ROADMAP.md).
+inference-only.  :meth:`DeconvPlan.with_chain` makes an int8 plan
+calibrated: a static input scale ``sx_in`` replaces the per-sample
+quantization, and ``chain_out`` with the next layer's ``sx_out`` makes
+the layer write int8 codes for that layer (the chained epilogue).
 
 Backends: ``"torch"`` runs the grouped stride-1 conv + pixel shuffle in
 plain PyTorch (the twin of the reference's ``"xla"``) from n-major
@@ -40,6 +42,7 @@ from repro_torch.core.deconv import (_check_output_padding, _check_padding,
 from repro_torch.core.quant import quantize_channelwise
 from repro_torch.device import resolve_device
 from repro_torch.kernels.autotune import KernelPlan
+from repro_torch.kernels.sd_conv import CHAIN_ACTS
 from repro_torch.kernels.winograd import (MAX_TAPS, supported,
                                           transform_filters)
 
@@ -93,6 +96,9 @@ class DeconvPlan:
     ws: Optional[torch.Tensor] = None
     bias: Optional[torch.Tensor] = None
     wscale: Optional[torch.Tensor] = None   # int8: per split channel, f32
+    sx_in: Optional[torch.Tensor] = None    # calibrated: 0-d f32 scales
+    sx_out: Optional[torch.Tensor] = None
+    chain_out: bool = False                 # int8 output for the next layer
 
     def __post_init__(self):
         if self.output_padding is None:
@@ -174,12 +180,35 @@ class DeconvPlan:
         return replace(self, ws=ws, bias=bias, layout=layout, wscale=wscale,
                        act=self.act if act is None else act)
 
-    def with_chain(self, sx_in=None, sx_out=None, chain_out: bool = False):
-        """Static calibrated activation scales and the chained int8
-        output: the calibrated int8 slice, not ported yet."""
-        raise NotImplementedError(
-            "calibrated int8 plans (with_chain: static sx_in/sx_out, int8 "
-            "output) come with the calibrated int8 slice; see ROADMAP.md")
+    def with_chain(self, sx_in=None, sx_out=None,
+                   chain_out: bool = False) -> "DeconvPlan":
+        """Attach static calibrated activation scales (reference
+        ``DeconvPlan.with_chain``).  ``sx_in``: the input's static scale;
+        execution quantizes an f32 input against it with no amax
+        reduction, or consumes an int8 input, the previous layer's chained
+        output.  ``sx_out`` with ``chain_out=True``: fold ``1/sx_out``
+        into the epilogue and write int8.  Only linear and relu commute
+        with a positive scale, so a tanh layer can head a chain but never
+        emit one.  Scales are kept as 0-d f32 tensors (on the filters'
+        device once bound)."""
+        if self.dtype != "int8":
+            raise ValueError("activation chaining requires an int8 plan")
+        if chain_out:
+            if sx_out is None:
+                raise ValueError("chain_out requires sx_out")
+            if self.act not in CHAIN_ACTS:
+                raise ValueError(
+                    f"chain_out cannot fold 1/sx_out through act "
+                    f"{self.act!r}; only linear/relu commute with a "
+                    "positive scale")
+        dev = self.ws.device if self.ws is not None else None
+
+        def _sc(v):
+            return None if v is None else torch.as_tensor(
+                v, dtype=torch.float32, device=dev)
+
+        return replace(self, sx_in=_sc(sx_in), sx_out=_sc(sx_out),
+                       chain_out=bool(chain_out))
 
 
 def plan(filter_shape: Sequence[int], stride, padding=0,
@@ -190,9 +219,10 @@ def plan(filter_shape: Sequence[int], stride, padding=0,
     C_out)`` (its length sets the rank).  Padding and output_padding are
     validated exactly like :mod:`repro_torch.core.deconv`.  ``backend=
     "auto"`` resolves against ``device`` (default: the card, raising
-    without one).  ``dtype="int8"`` requests the dynamic int8 path
-    (``fused`` and ``torch`` backends; ranks 2 and 3 on ``fused``, as
-    float plans); a winograd
+    without one).  ``dtype="int8"`` requests the int8 path, dynamic or,
+    after :meth:`DeconvPlan.with_chain`, calibrated (``fused`` and
+    ``torch`` backends; ranks 2 and 3 on ``fused``, as float plans); a
+    winograd
     plan outside its envelope, int8 included, raises the reference's
     ``ValueError``."""
     if dtype not in DTYPES:

@@ -21,7 +21,11 @@ gates: bit-identical at unit scale, zero bias and linear act, and
 filter scales, bias and relu/tanh.  K2's int8 pair is bit-identical to
 its plain version (exact int32 sums); the 3-D lowering (one K2 launch
 per depth tap) equals the card's ``torch`` backend within ``1e-5 *
-max(1, max|y_ref|)`` in f32 and exactly in int8.  K1, K4 and the 3-D
+max(1, max|y_ref|)`` in f32 and exactly in int8.  K1 int8's calibrated
+half (a static (1, NC) scale row, int8 output) is bit-identical to its
+plain version on saturating scales, and the calibrated servers (DCGAN on
+K1 int8, VoxGAN on K2 int8) chain int8 between layers and equal the
+card's int8 ``torch`` backend.  K1, K4 and the 3-D
 lowering refuse an operand that requires grad under grad mode.
 """
 
@@ -437,10 +441,18 @@ def test_int8_wrapper_refusals(dev):
                        device=dev)
     scale = torch.rand(2, 12, device=dev)
     geo = dict(pad=((2, 2), (2, 2)), crop=(1, 1), out_space=(8, 8))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        K.sd_fused(xq, ws, 2, scale=scale[:1], **geo)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        K.sd_fused(xq, ws, 2, scale=scale, out_dtype=torch.int8, **geo)
+    # the static row and int8 output launch and equal the plain version
+    row = K.sd_fused(xq, ws, 2, scale=scale[:1], **geo)
+    assert torch.equal(row, K.sd_fused_ref(xq.cpu(), ws.cpu(), 2,
+                                           scale=scale[:1].cpu(),
+                                           **geo).to(dev))
+    q = K.sd_fused(xq, ws, 2, scale=scale, out_dtype=torch.int8, **geo)
+    assert q.dtype == torch.int8 and torch.equal(
+        q.cpu(), K.sd_fused_ref(xq.cpu(), ws.cpu(), 2, scale=scale.cpu(),
+                                out_dtype=torch.int8, **geo))
+    with pytest.raises(ValueError, match="tanh"):
+        K.sd_fused(xq, ws, 2, scale=scale, act="tanh",
+                   out_dtype=torch.int8, **geo)
     with pytest.raises(TypeError, match="int8"):
         K.sd_fused(xq, ws.float(), 2, scale=scale, **geo)
     with pytest.raises(TypeError, match="float32"):
@@ -496,6 +508,88 @@ def test_int8_server_runs_int8_k1_only(dev):
                             device=dev, engine_dtype="int8")
     with torch.no_grad():
         ref = ref_m.apply(params, torch.stack(zs))
+    assert torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= \
+        1e-3 * max(1.0, ref.abs().max().item())
+
+
+# ---------------------------------------------------------------------------
+# K1's int8 branch, calibrated: the static (1, NC) row and int8 output
+# ---------------------------------------------------------------------------
+
+DCGAN_LAYERS = BENCHMARKS["dcgan"]().deconv_layers()
+
+
+@pytest.mark.parametrize("sx,sw,s,pad,op,tile,act,out_int8", [
+    ((16, 8, 8, 256), (5, 5, 256, 128), 2, 2, 1, None, "relu", True),
+    ((16, 16, 16, 128), (5, 5, 128, 64), 2, 2, 1, None, "relu", True),
+    ((16, 32, 32, 64), (5, 5, 64, 3), 2, 2, 1, None, "linear", False),
+    ((3, 13, 11, 40), (5, 5, 40, 24), 2, 2, 1,
+     KernelPlan(th=3, tw=2, tcin=12, tc=32), "linear", True),
+    ((2, 9, 10, 70), (3, 3, 70, 5), 2, 1, 1,
+     KernelPlan(th=2, tw=3, tcin=9, tc=16), "relu", True),
+], ids=["dcgan-d1", "dcgan-d2", "dcgan-d3", "ragged", "tcin9"])
+def test_int8_static_row_bit_identical(dev, sx, sw, s, pad, op, tile, act,
+                                       out_int8):
+    """K1 int8 with a static (1, NC) row (read in place by every sample)
+    and, chained, int8 output: bit-identical to its plain version, with
+    scales that saturate part of the codes at +-127."""
+    xq, p, comb = _int8_case(dev, sx, sw, s, pad, act, op, tile, seed=5)
+    row = (comb[:1] * 2000).contiguous()       # next layer's code units
+    geo = dict(pad=((p.pi[0],) * 2, (p.pi[1],) * 2),
+               crop=(p.pk[0] + p.padding[0][0], p.pk[1] + p.padding[1][0]),
+               out_space=p.out_shape(xq.shape[1:3]))
+    out_dtype = torch.int8 if out_int8 else None
+    before = K.SD_FUSED_INT8_LAUNCHES
+    out = ops.sd_deconv_presplit_fused(
+        xq, p.ws, p.kernel, p.stride, p.padding,
+        output_padding=p.output_padding, bias=p.bias * 50, act=act,
+        scale=row, out_dtype=out_dtype, plan=p.tile)
+    assert K.SD_FUSED_INT8_LAUNCHES == before + 1
+    ref = K.sd_fused_ref(xq, p.ws, p.stride, bias=p.bias * 50, act=act,
+                         scale=row, out_dtype=out_dtype, **geo)
+    torch.cuda.synchronize()
+    assert out.dtype == ref.dtype == (torch.int8 if out_int8
+                                      else torch.float32)
+    assert torch.equal(out, ref)
+    if out_int8:
+        assert int((out.abs() == 127).sum()) > 0
+
+
+def test_calibrated_server_chains_k1_int8(dev, tmp_path, monkeypatch):
+    """The dryrun DCGAN served calibrated on the card: 2 K1-int8 launches
+    per batch and no float K1, d1 writes int8 for d2, and the outputs
+    equal the card's int8 torch backend with the same scales within
+    1e-3 * max(1, max|ref|) (the chained codes agree exactly)."""
+    from repro_torch.launch.serve_gen import GenServer, reduced_specs
+    from repro_torch.models.generative import GenerativeModel
+    monkeypatch.setenv("REPRO_TORCH_SD_CALIB_CACHE",
+                       str(tmp_path / "sd_calib.json"))
+    spec = reduced_specs()["dcgan-dryrun"]
+    server = GenServer(nets=("dcgan-dryrun",), specs={"dcgan-dryrun": spec},
+                       device=dev, backend="fused", max_batch=4,
+                       dtype="int8", calib=8)
+    zs = [r.latent for r in server.random_requests("dcgan-dryrun", 4)]
+    model, params = server.model("dcgan-dryrun")
+    plans = model.engine.plans()
+    assert plans["d1"].chain_out and not plans["d2"].chain_out
+    before = (K.SD_FUSED_INT8_LAUNCHES, K.SD_FUSED_LAUNCHES)
+    out = server.run_group("dcgan-dryrun", zs)
+    torch.cuda.synchronize()
+    assert (K.SD_FUSED_INT8_LAUNCHES - before[0],
+            K.SD_FUSED_LAUNCHES - before[1]) == (2, 0)
+    ref_m = GenerativeModel(spec, "sd_kernel", engine_backend="torch",
+                            device=dev, engine_dtype="int8")
+    ref_m.engine.set_calibration({n: p.sx_in.item()
+                                  for n, p in model.engine.plans().items()})
+    z = torch.stack(zs)
+    with torch.no_grad():
+        ref = ref_m.apply(params, z)
+        h = z @ params["project"]["w"] + params["project"]["b"]
+        h = torch.relu(h.reshape(4, 4, 4, 32))
+        codes = sd.execute(plans["d1"], h)
+        codes_ref = sd.execute(ref_m.engine.plans()["d1"], h)
+    assert codes.dtype == torch.int8 and torch.equal(codes, codes_ref)
     assert torch.isfinite(out).all()
     assert (out - ref).abs().max().item() <= \
         1e-3 * max(1.0, ref.abs().max().item())
@@ -618,3 +712,32 @@ def test_voxgan_server_runs_k2_per_depth_tap(dev):
         else:
             assert (out - ref).abs().max().item() <= \
                 1e-5 * max(1.0, ref.abs().max().item())
+
+
+def test_calibrated_voxgan_server_equals_torch_backend(dev, tmp_path,
+                                                       monkeypatch):
+    """The dryrun VoxGAN served calibrated on the card: 4 K2-int8
+    launches per batch, the up1 -> to_vox tensor int8, outputs equal to
+    the card's int8 torch backend with the same scales, exactly."""
+    from repro_torch.launch.serve_gen import GenServer, reduced_specs
+    from repro_torch.models.generative import GenerativeModel
+    monkeypatch.setenv("REPRO_TORCH_SD_CALIB_CACHE",
+                       str(tmp_path / "sd_calib.json"))
+    spec = reduced_specs()["voxgan-dryrun"]
+    server = GenServer(nets=("voxgan-dryrun",),
+                       specs={"voxgan-dryrun": spec}, device=dev,
+                       backend="fused", max_batch=4, dtype="int8", calib=8)
+    zs = [r.latent for r in server.random_requests("voxgan-dryrun", 4)]
+    model, params = server.model("voxgan-dryrun")
+    assert model.engine.plans()["up1"].chain_out
+    before = K.SD_CONV_INT8_LAUNCHES
+    out = server.run_group("voxgan-dryrun", zs)
+    torch.cuda.synchronize()
+    assert K.SD_CONV_INT8_LAUNCHES - before == 4
+    ref_m = GenerativeModel(spec, "sd_kernel", engine_backend="torch",
+                            device=dev, engine_dtype="int8")
+    ref_m.engine.set_calibration({n: p.sx_in.item()
+                                  for n, p in model.engine.plans().items()})
+    with torch.no_grad():
+        ref = ref_m.apply(params, torch.stack(zs))
+    assert torch.isfinite(out).all() and torch.equal(out, ref)

@@ -188,21 +188,33 @@ def test_k2_int8_contract():
 
 def test_fused_3d_int8_contract():
     """The lowering refuses a 3-D sum that only its depth taps push past
-    2^31 (Cin x 2 x 2 x 2), and the calibrated half of the contract."""
+    2^31 (Cin x 2 x 2 x 2), takes the calibrated half of the contract (a
+    static row, int8 out) and refuses int8 out through tanh."""
     cin = 20_000                         # Cin*4*127^2 < 2^31 <= Cin*8*127^2
     xq = torch.zeros((1, 1, 1, 1, cin), dtype=torch.int8)
     ws = torch.zeros((2, 2, 2, cin, 8), dtype=torch.int8)
     with pytest.raises(ValueError, match="overflow"):
         ops.sd_deconv_presplit_fused_3d(xq, ws, 4, 2, 1,
                                         scale=torch.ones(1, 8))
-    xq = torch.zeros((2, 2, 2, 2, 4), dtype=torch.int8)
-    ws = torch.zeros((2, 2, 2, 4, 8), dtype=torch.int8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.sd_deconv_presplit_fused_3d(xq, ws, 4, 2, 1,
-                                        scale=torch.ones(1, 8))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.sd_deconv_presplit_fused_3d(xq, ws, 4, 2, 1,
-                                        scale=torch.ones(2, 8),
+    gen = torch.Generator().manual_seed(9)
+    xq = torch.randint(-127, 128, (2, 2, 2, 2, 4), generator=gen,
+                       dtype=torch.int8)
+    ws = torch.randint(-127, 128, (2, 2, 2, 4, 8), generator=gen,
+                       dtype=torch.int8)
+    # a static (1, NC) row is every sample's row
+    row = ops.sd_deconv_presplit_fused_3d(xq, ws, 4, 2, 1,
+                                          scale=torch.full((1, 8), 0.01))
+    assert torch.equal(row, ops.sd_deconv_presplit_fused_3d(
+        xq, ws, 4, 2, 1, scale=torch.full((2, 8), 0.01)))
+    # int8 out: round half to even and a saturating clamp of the f32 out
+    q = ops.sd_deconv_presplit_fused_3d(xq, ws, 4, 2, 1,
+                                        scale=torch.full((2, 8), 0.01),
+                                        out_dtype=torch.int8)
+    assert q.dtype == torch.int8 and torch.equal(q, K.requantize(row))
+    assert int((q.abs() == 127).sum()) > 0
+    with pytest.raises(ValueError, match="tanh"):
+        ops.sd_deconv_presplit_fused_3d(xq, ws, 4, 2, 1, act="tanh",
+                                        scale=torch.ones(1, 8),
                                         out_dtype=torch.int8)
     with pytest.raises(ValueError, match="scale"):
         ops.sd_deconv_presplit_fused_3d(xq.float(), ws.float(), 4, 2, 1,

@@ -4,7 +4,8 @@ A fresh interpreter with ``jax`` and ``repro`` made unimportable imports
 ``repro_torch``, serves the CPU dryrun (on the default and on the
 winograd backend, and in int8 on the torch and the fused backend; on
 ``fused`` the 3-D ``voxgan-dryrun`` cell runs the depth-folded lowering on
-K2's int8 pair), takes two small GAN training steps on
+K2's int8 pair; calibrated and chained, ``--calib``, with its cache in a
+temporary directory), takes two small GAN training steps on
 the CPU and imports ``chip_smoke`` (without running it); and without
 CUDA the port's default device raises instead of falling back to the
 CPU.
@@ -38,6 +39,10 @@ assert "int8" in stats["compile_cache"][0], stats
 results, stats = serve_gen.main(["--dryrun", "--device", "cpu",
                                  "--backend", "fused", "--dtype", "int8"])
 assert stats["served"] == 6, stats
+results, stats = serve_gen.main(["--dryrun", "--device", "cpu",
+                                 "--backend", "fused", "--dtype", "int8",
+                                 "--calib", "4"])
+assert stats["served"] == 6, stats
 from repro_torch.launch import train_gen
 d_hist, g_hist = train_gen.main(["--steps", "2", "--small", "--device",
                                  "cpu", "--deconv-impl", "sd_kernel"])
@@ -53,13 +58,15 @@ print("NO_JAX_OK")
 """
 
 
-def test_port_runs_with_jax_unimportable():
-    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+def test_port_runs_with_jax_unimportable(tmp_path):
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+               REPRO_TORCH_SD_CALIB_CACHE=str(tmp_path / "sd_calib.json"))
     out = subprocess.run([sys.executable, "-c", CODE.format(repo=REPO)],
                          capture_output=True, text=True, env=env, cwd=REPO,
                          timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "NO_JAX_OK" in out.stdout
+    assert (tmp_path / "sd_calib.json").exists()
 
 
 def test_sources_import_nothing_of_jax():

@@ -98,9 +98,10 @@ def test_plan_contract():
                     dtype="int8").dtype == "int8"
     with pytest.raises(ValueError, match="unknown plan dtype"):
         tsd.plan((4, 4, 3, 2), 2, 1, backend="fused", dtype="int4")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsd.plan((4, 4, 3, 2), 2, 1, backend="fused",
-                 dtype="int8").with_chain(sx_in=0.1)
+    chained = tsd.plan((4, 4, 3, 2), 2, 1, backend="fused", act="relu",
+                       dtype="int8").with_chain(sx_in=0.1, sx_out=0.2,
+                                                chain_out=True)
+    assert chained.chain_out and chained.sx_out.dtype == torch.float32
     with pytest.raises(NotImplementedError, match="rank 2"):
         tsd.plan((4, 3, 2), 2, 1, backend="fused")
     with pytest.raises(ValueError, match="output_padding"):

@@ -176,11 +176,15 @@ def test_plan_int8_contract():
         tsd.conv_transpose(p, torch.ones(1, 6, 6, 8), torch.ones(4, 4, 8, 6))
     with pytest.raises(ValueError, match="winograd"):
         tsd.plan((5, 5, 8, 6), 2, 2, backend="winograd", dtype="int8")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        p.with_chain(sx_in=0.1)
+    assert p.with_chain(sx_in=0.1).sx_in.item() == np.float32(0.1)
     bound = p.bind(torch.randn(4, 4, 8, 6))
     with pytest.raises(ValueError, match="calibrated"):
         tsd.execute(bound, torch.zeros(1, 6, 6, 8, dtype=torch.int8))
+    # a calibrated plan consumes int8 codes, the previous layer's output
+    codes = torch.randint(-127, 128, (1, 6, 6, 8), dtype=torch.int8)
+    c = bound.with_chain(sx_in=0.1)
+    assert torch.equal(tsd.execute(c, codes),
+                       tsd.execute(c, codes.float() * c.sx_in))
 
 
 def test_geom_key_and_smem_distinct_per_dtype():
@@ -479,10 +483,13 @@ def test_wrapper_refusals():
     y = K.sd_fused(xq, ws, 2, scale=scale, **geo)
     assert y.dtype == torch.float32 and y.shape == (2, 8, 8, 3)
     assert K.SD_FUSED_INT8_LAUNCHES == before        # plain version
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        K.sd_fused(xq, ws, 2, scale=scale[:1], **geo)     # static row
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        K.sd_fused(xq, ws, 2, scale=scale, out_dtype=torch.int8, **geo)
+    # a static (1, NC) row is every sample's row
+    row = K.sd_fused(xq, ws, 2, scale=scale[:1], **geo)
+    assert torch.equal(row, K.sd_fused(xq, ws, 2, scale=scale[:1].repeat(
+        2, 1), **geo))
+    # int8 out: the f32 epilogue's value, rounded half to even, clamped
+    q = K.sd_fused(xq, ws, 2, scale=scale, out_dtype=torch.int8, **geo)
+    assert q.dtype == torch.int8 and torch.equal(q, K.requantize(y))
     with pytest.raises(TypeError):
         K.sd_fused(xq, ws.float(), 2, scale=scale, **geo)
     with pytest.raises(TypeError):
@@ -572,7 +579,9 @@ def test_zero_padded_rows_do_not_perturb_real_samples(backend):
     assert torch.equal(tsd.execute(p, x), tsd.execute(p, xp)[:2])
 
 
-def test_serve_gen_dryrun_int8_cpu():
+def test_serve_gen_dryrun_int8_cpu(tmp_path, monkeypatch):
+    monkeypatch.setenv("REPRO_TORCH_SD_CALIB_CACHE",
+                       str(tmp_path / "sd_calib.json"))
     results, stats = main(["--dryrun", "--device", "cpu", "--dtype", "int8"])
     assert stats["served"] == 6 and stats["shed"] == 0
     assert stats["compile_cache"] == [
@@ -580,9 +589,11 @@ def test_serve_gen_dryrun_int8_cpu():
         "('voxgan-dryrun', 2, 'int8')"]
     assert results[0].dtype == torch.float32 and results[0].shape == (16, 16,
                                                                       3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(["--dryrun", "--device", "cpu", "--dtype", "int8", "--calib",
-              "8"])
+    calibrated, stats = main(["--dryrun", "--device", "cpu", "--dtype",
+                              "int8", "--calib", "8"])
+    assert stats["served"] == 6 and stats["shed"] == 0
+    assert calibrated[0].shape == results[0].shape
+    assert (tmp_path / "sd_calib.json").exists()
 
 
 def test_int8_and_f32_cells_coexist():

@@ -8,6 +8,8 @@ package's outputs.  After an in-place update of the live params, the
 float and the int8 server serve the updated weights.
 """
 
+import json
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -106,13 +108,35 @@ def test_segnet_head_is_logits_and_fused_backend_matches():
     assert fused.model("segnet-dryrun")[0].engine.backend == "fused"
 
 
-@pytest.mark.parametrize("flags", [["--dp", "2"],
-                                   ["--dtype", "int8", "--calib", "8"],
-                                   ["--calib", "8"], ["--pretune"],
+@pytest.mark.parametrize("flags", [["--dp", "2"], ["--pretune"],
                                    ["--mp", "2"]])
 def test_later_slices_point_to_roadmap(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         main(["--dryrun", "--device", "cpu", *flags])
+
+
+@pytest.mark.parametrize("case", ["serves the three reduced specs",
+                                  "exits without --dtype int8"])
+def test_calib_cli(case, tmp_path, monkeypatch, capsys):
+    cache = tmp_path / "sd_calib.json"
+    monkeypatch.setenv("REPRO_TORCH_SD_CALIB_CACHE", str(cache))
+    if case == "exits without --dtype int8":
+        with pytest.raises(SystemExit) as e:
+            main(["--dryrun", "--device", "cpu", "--calib", "8"])
+        assert e.value.code == 2
+        assert "--calib requires --dtype int8" in capsys.readouterr().err
+        assert not cache.exists()
+        return
+    results, stats = main(["--dryrun", "--device", "cpu", "--dtype", "int8",
+                           "--calib", "8"])
+    assert stats["served"] == 6 and stats["shed"] == 0
+    assert stats["compile_cache"] == [
+        "('dcgan-dryrun', 2, 'int8')", "('segnet-dryrun', 2, 'int8')",
+        "('voxgan-dryrun', 2, 'int8')"]
+    assert all(torch.isfinite(r).all() for r in results.values())
+    saved = json.loads(cache.read_text())["scales"]
+    assert sorted(saved) == ["dcgan-dryrun/max", "segnet-dryrun/max",
+                             "voxgan-dryrun/max"]
 
 
 def test_swapped_in_reference_weights_serve_reference_outputs():
