@@ -1869,8 +1869,7 @@ def _chain_phase(dev, tag, randn) -> dict:
         t_ops = 2.0 * macs / PEAK_INT8_OPS * 1e3
         ms, lo, hi = t["static"]
         lg = K.launch_geometry(xq.shape, p.ws.shape, p.stride, g["pad"],
-                               g["crop"], g["out_space"], dtype="int8",
-                               qout=od is not None)
+                               g["crop"], g["out_space"], dtype="int8")
         rec = {"layer": f"dcgan/{l.name}", "out": str(y.dtype),
                "ms": ms, "ms_min": lo, "ms_max": hi,
                "device_ms": None if bd_s is None else bd_s[0],
@@ -1881,7 +1880,7 @@ def _chain_phase(dev, tag, randn) -> dict:
                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                "useful_bound_ms": max(2.0 * macs / DP4A_OPS * 1e3, t_bytes),
                "macs": macs, "bytes": nbytes, "tile": str(lg.plan),
-               "geom": lg.geom.key(), "launches_per_batch": 1}
+               "launches_per_batch": 1}
         per_layer.append(rec)
         dev_s = ("not measured" if rec["device_ms"] is None
                  else f"{rec['device_ms']:.4f} ms")

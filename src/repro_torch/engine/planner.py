@@ -28,7 +28,6 @@ import torch
 from repro_torch.core.accounting import LayerSpec, NetworkSpec
 from repro_torch.core.deconv import _ntuple, same_deconv_pads
 from repro_torch.device import resolve_device
-from repro_torch.kernels.sd_conv import CHAIN_ACTS
 from repro_torch.sd import functional as sd_functional
 from repro_torch.sd.plan import (DTYPES, DeconvPlan, plan as make_plan,
                                  resolve_backend)
@@ -96,27 +95,19 @@ class SDEngine:
 
     # ---- offline phase ---------------------------------------------------
     def layer_plan(self, layer: LayerSpec, act: str,
-                   dtype: Optional[str] = None,
-                   qout: bool = False) -> DeconvPlan:
+                   dtype: Optional[str] = None) -> DeconvPlan:
         """Geometry-only plan for one deconv layer (tile chosen at call
         time from the launch geometry).  ``dtype`` overrides the engine's
         (the models' differentiable path asks an int8 engine for float
-        plans: int8 plans are inference-only).  ``qout`` asks for a
-        chained layer, whose launch writes int8: its tile is picked per
-        launch from ``FusedGeom(qout=True)`` (keyed ``_q8out``), so here
-        it only refuses a layer that cannot chain, as ``with_chain``
-        would after the bind."""
-        dtype = self.dtype if dtype is None else dtype
-        if qout and (dtype != "int8" or act not in CHAIN_ACTS):
-            raise ValueError(f"layer {layer.name!r} cannot write int8: "
-                             f"dtype {dtype!r}, act {act!r}")
+        plans: int8 plans are inference-only)."""
         rank = layer.rank
         kernel = (layer.k,) * rank
         stride = (layer.s,) * rank
         pads = (same_deconv_pads(kernel, stride)
                 if layer.padding == "same" else layer.pad)
         return make_plan((*kernel, layer.cin, layer.cout), stride, pads,
-                         backend=self.backend, act=act, dtype=dtype)
+                         backend=self.backend, act=act,
+                         dtype=self.dtype if dtype is None else dtype)
 
     def _chain_next(self) -> Dict[str, str]:
         """Chaining wiring from the installed calibration (reference
@@ -157,7 +148,7 @@ class SDEngine:
             p = params[layer.name]
             act = "linear" if i == len(layers) - 1 else "relu"
             tgt = chain_next.get(layer.name)
-            bound = self.layer_plan(layer, act, qout=tgt is not None).bind(
+            bound = self.layer_plan(layer, act).bind(
                 p["w"], scale=p.get("scale"), bias=p["b"].float())
             if calib and layer.name in calib:
                 bound = bound.with_chain(

@@ -20,10 +20,7 @@ A geometry carries its operand dtype (``dtype``: ``""`` for float,
 ``"int8"`` for K1's quant branch and K2's int8 pair), so the float and
 the int8 launch of one layer are distinct geometries (a geometry is its
 own tile key), and the int8 launches' shared memory is modelled at one
-byte per staged value.  K1 int8's chained launches, which write int8
-(``qout``), are geometries of their own too, keyed ``_q8out`` as in the
-reference; their shared memory is the f32-output launch's, since the
-output goes from registers straight to device memory.
+byte per staged value.
 """
 
 from __future__ import annotations
@@ -54,9 +51,8 @@ class FusedGeom:
     """What the fused kernel launches: unpadded input ``h x w x cin``,
     ``nc = Cout*sh*sw`` phase channels, ``(kth, ktw)`` taps, interleave
     ``(sh, sw)``, final output ``out_h x out_w``, the residual crop
-    ``(res_h, res_w)``, the operand dtype (``""`` float, ``"int8"`` the
-    quant branch) and ``qout``, an int8 launch that writes int8 (the
-    chained epilogue of the calibrated path)."""
+    ``(res_h, res_w)`` and the operand dtype (``""`` float, ``"int8"``
+    the quant branch)."""
     h: int
     w: int
     cin: int
@@ -70,20 +66,6 @@ class FusedGeom:
     res_h: int = 0
     res_w: int = 0
     dtype: str = ""
-    qout: bool = False
-
-    def key(self) -> str:
-        """The geometry as a tile-cache key; the reference's suffixes
-        ``_int8`` and ``_q8out`` (its ``ConvGeom.key``) mark the int8
-        launch and its int8 output."""
-        base = (f"h{self.h}w{self.w}_ci{self.cin}_nc{self.nc}"
-                f"_kt{self.kth}x{self.ktw}_s{self.sh}x{self.sw}"
-                f"_o{self.out_h}x{self.out_w}_r{self.res_h}x{self.res_w}")
-        if self.dtype:
-            base += f"_{self.dtype}"
-        if self.qout:
-            base += "_q8out"
-        return base
 
 
 def band_plane(geom: FusedGeom, plan: KernelPlan) -> int:

@@ -261,12 +261,11 @@ class LaunchGeometry:
     nh: int
     nw: int
     plan: KernelPlan
-    geom: FusedGeom             # what the tile was picked for (its key)
 
 
 def launch_geometry(x_shape, ws_shape, s, pad, crop, out_space,
                     plan: Optional[KernelPlan] = None,
-                    dtype: str = "", qout: bool = False) -> LaunchGeometry:
+                    dtype: str = "") -> LaunchGeometry:
     sh, sw = _pair(s)
     _, h, wd, cin = x_shape
     kth, ktw, _, nc = ws_shape
@@ -277,7 +276,7 @@ def launch_geometry(x_shape, ws_shape, s, pad, crop, out_space,
     sh_h, sh_w = min(q_h, plo_h), min(q_w, plo_w)
     geom = FusedGeom(h=h, w=wd, cin=cin, nc=nc, kth=kth, ktw=ktw, sh=sh,
                      sw=sw, out_h=oh, out_w=ow, res_h=res_h, res_w=res_w,
-                     dtype=dtype, qout=qout)
+                     dtype=dtype)
     plan = plan if plan is not None else heuristic_plan(geom)
     if smem_bytes(geom, plan) > SMEM_BUDGET:
         raise ValueError(f"tile {plan} needs {smem_bytes(geom, plan)} bytes "
@@ -285,8 +284,7 @@ def launch_geometry(x_shape, ws_shape, s, pad, crop, out_space,
     return LaunchGeometry(
         q_h=q_h - sh_h, q_w=q_w - sh_w, plo_h=plo_h - sh_h,
         plo_w=plo_w - sh_w, res_h=res_h, res_w=res_w, out_h=oh, out_w=ow,
-        nh=-(-oh // (plan.th * sh)), nw=-(-ow // (plan.tw * sw)), plan=plan,
-        geom=geom)
+        nh=-(-oh // (plan.th * sh)), nw=-(-ow // (plan.tw * sw)), plan=plan)
 
 
 def _check_cuda_operands(x, ws, bias, sh, sw):
@@ -356,8 +354,7 @@ def sd_fused(x: torch.Tensor, ws_ocmajor: torch.Tensor, s, *,
     bias = bias.float().contiguous()
     _check_cuda_operands(x, ws_ocmajor, bias, sh, sw)
     g = launch_geometry(x.shape, ws_ocmajor.shape, (sh, sw), pad, crop,
-                        out_space, plan, dtype="int8" if quant else "",
-                        qout=qdtype == torch.int8)
+                        out_space, plan, dtype="int8" if quant else "")
     b, h, wd, cin = x.shape
     y = torch.empty((b, g.out_h, g.out_w, cout),
                     dtype=qdtype if quant else x.dtype, device=x.device)

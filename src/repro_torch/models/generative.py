@@ -144,6 +144,13 @@ class GenerativeModel(nn.Module):
                 layer, "linear", dtype="native")
         return self._fplans[layer.name]
 
+    def _float_step(self, layer, p: Params, h: torch.Tensor):
+        """One deconv layer on the differentiable float path: the
+        functional plan's deconv, then scale and bias outside it (the
+        activation is the forward's, so the flag is False)."""
+        h = conv_transpose(self._functional_plan(layer), h, p["w"])
+        return h * p["scale"] + p["b"], False
+
     @staticmethod
     def _differentiable(params: Params, x: torch.Tensor) -> bool:
         """Autograd is recording and some param leaf or the input requires
@@ -155,9 +162,7 @@ class GenerativeModel(nn.Module):
 
     def apply(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         if self._engine is not None and self._differentiable(params, x):
-            def step(layer, p, h):
-                h = conv_transpose(self._functional_plan(layer), h, p["w"])
-                return h * p["scale"] + p["b"], False
+            step = self._float_step
         elif self._engine is not None:
             if not self._engine.bound_to(params):
                 self._engine.bind(params)        # foreign params: rebind
@@ -226,8 +231,7 @@ class GenerativeModel(nn.Module):
             # The layer's INPUT statistic, then the float deconv, so that
             # later layers see the unquantized model's activations.
             stats[layer.name] = amax_stat(h, policy, pct)
-            h = conv_transpose(self._functional_plan(layer), h, p["w"])
-            return h * p["scale"] + p["b"], False
+            return self._float_step(layer, p, h)
 
         self._forward(params, x, step)
         scales = {name: scale_from_amax(v) for name, v in stats.items()}

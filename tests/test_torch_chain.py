@@ -48,7 +48,6 @@ from repro_torch.core import quant as tq
 from repro_torch.core.accounting import LayerSpec, NetworkSpec
 from repro_torch.core.deconv import same_deconv_pads
 from repro_torch.kernels import ops
-from repro_torch.kernels.autotune import FusedGeom
 from repro_torch.launch.serve_gen import GenServer, reduced_specs
 from repro_torch.models.generative import GenerativeModel
 
@@ -427,7 +426,7 @@ def _int8_model(spec, backend="torch"):
 def test_engine_chains_consecutive_deconvs_only(backend):
     """d1 -> d2 -> d3 chain; the last deconv never chains out but
     consumes int8; each chained layer's output scale is the next one's
-    input scale; chained launches are ``_q8out`` geometries."""
+    input scale."""
     m, params = _int8_model(_narrow_dcgan(), backend)
     m.calibrate(params, n=4, seed=0)
     plans = m.engine.plans()
@@ -439,12 +438,6 @@ def test_engine_chains_consecutive_deconvs_only(backend):
     assert last.sx_in is not None
     for a, b in zip(names[:-1], names[1:]):
         assert plans[a].sx_out.item() == plans[b].sx_in.item()
-    for l in m.spec.deconv_layers():
-        p = plans[l.name]
-        g = FusedGeom(*l.in_hw, l.cin, p.phases * l.cout, *p.kt, l.s, l.s,
-                      *p.out_shape(l.in_hw), dtype="int8",
-                      qout=p.chain_out)
-        assert ("_q8out" in g.key()) == (l.name != names[-1])
     # the chained tensors are int8 between layers, f32 at the end
     seen = []
     h = torch.from_numpy(_latents(m, 2, 7))
@@ -455,8 +448,11 @@ def test_engine_chains_consecutive_deconvs_only(backend):
             h = tsd.execute(plans[name], h)
             seen.append(h.dtype)
     assert seen == [torch.int8, torch.int8, torch.float32]
-    with pytest.raises(ValueError, match="cannot write int8"):
-        m.engine.layer_plan(m.spec.deconv_layers()[-1], "tanh", qout=True)
+    # a tanh head cannot chain out: with_chain is the one check
+    tanh = m.engine.layer_plan(m.spec.deconv_layers()[-1], "tanh").bind(
+        params[names[-1]]["w"], bias=params[names[-1]]["b"])
+    with pytest.raises(ValueError, match="chain_out cannot fold"):
+        tanh.with_chain(sx_in=1.0, sx_out=1.0, chain_out=True)
 
 
 def test_intervening_conv_breaks_the_chain():

@@ -44,6 +44,7 @@ from repro_torch.core.ssim import ssim as t_ssim
 from repro_torch.kernels import ops
 from repro_torch.kernels.autotune import (FusedGeom, KernelPlan,
                                           heuristic_plan, smem_bytes)
+from repro_torch.launch import serve_gen
 from repro_torch.launch.serve_gen import GenServer, main, reduced_specs
 from repro_torch.models.generative import GenerativeModel
 from repro_torch.sd.functional import _run_presplit_int8
@@ -589,10 +590,23 @@ def test_serve_gen_dryrun_int8_cpu(tmp_path, monkeypatch):
         "('voxgan-dryrun', 2, 'int8')"]
     assert results[0].dtype == torch.float32 and results[0].shape == (16, 16,
                                                                       3)
-    calibrated, stats = main(["--dryrun", "--device", "cpu", "--dtype",
-                              "int8", "--calib", "8"])
-    assert stats["served"] == 6 and stats["shed"] == 0
-    assert calibrated[0].shape == results[0].shape
+    # --calib reaches the calibrated engines (test_calib_cli serves them)
+    seen = []
+
+    class Stop(Exception):
+        pass
+
+    def stop(server, requests, **kw):
+        seen.append(server)
+        raise Stop
+
+    monkeypatch.setattr(serve_gen, "serve_async", stop)
+    with pytest.raises(Stop):
+        main(["--dryrun", "--device", "cpu", "--dtype", "int8", "--calib",
+              "8"])
+    plans = seen[0].model("dcgan-dryrun")[0].engine.plans()
+    assert plans["d1"].chain_out and plans["d1"].sx_out is not None
+    assert plans["d2"].sx_in is not None and not plans["d2"].chain_out
     assert (tmp_path / "sd_calib.json").exists()
 
 
