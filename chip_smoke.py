@@ -2,14 +2,15 @@
 
 Drives ``repro_torch`` only (never JAX, never the JAX package ``repro``):
 
-1. builds the port's six kernel sources with nvcc for sm_90a, one nvcc
+1. builds the port's seven kernel sources with nvcc for sm_90a, one nvcc
    per source, all at once (``src/repro_torch/kernels/csrc/``: K1
    ``sd_fused.cu``, the fused split deconv; K2 ``sd_conv.cu``, the
    stride-1 conv of the SD backward's input grad and of the 3-D
    lowering; K3 ``sd_filter_grad.cu``, its filter grad; K4
    ``sd_wino.cu``, the Winograd split deconv; K1's int8 branch
-   ``sd_fused_int8.cu``; K2's int8 pair ``sd_conv_int8.cu``) and prints
-   their registers and shared memory;
+   ``sd_fused_int8.cu``; K2's int8 pair ``sd_conv_int8.cu``; K5
+   ``flash_attn.cu``, flash attention) and prints their registers and
+   shared memory;
 2. holds K1 against its plain PyTorch version ``sd_fused_ref`` on the 22
    deconv layers of the paper's six networks (batch 4, f32, TF32 off,
    ``max|d| <= 1e-4 * max(1, max|y_ref|)``), on an ``output_padding >
@@ -99,7 +100,26 @@ Drives ``repro_torch`` only (never JAX, never the JAX package ``repro``):
    launches, 0 ``quantize_act`` calls, int8 leaving d1 and d2); times
    each layer's static-row launch against the dynamic one and a batch
    calibrated / dynamic / f32 in turns; serves 48 calibrated VoxGAN
-   requests, held exactly to the ``torch`` backend.
+   requests, held exactly to the ``torch`` backend;
+10. K5 and dense LM serving: holds K5 (``flash_attn.cu``) against its
+   plain version ``flash_attention_ref`` at the serving shape (4 x 32 q /
+   8 kv heads x 4,080 x 160, bf16) and on D in (16, 64, 128, 160) x S in
+   (1, 63, 65, 2049) x causal and full x f32 and bf16 with grouped heads
+   (f32 within ``2e-5 * max(1, max|ref|)``, bf16 within ``1e-2 *
+   max|ref|``); times K5, its plain version and
+   ``F.scaled_dot_product_attention`` (a yardstick the port never calls)
+   in turns at the serving shape, device time from the profiler
+   (``bound_ms`` at the bf16 tensor cores, ``useful_bound_ms`` at the
+   CUDA cores); runs StableLM-2-12B widths at depth 2 in f32 through
+   ``prefill`` on K5 and on the plain scan (logits within ``1e-4 *
+   max(1, max|ref|)``, 8 greedy tokens each); serves 8 prompts of 4,080
+   tokens through ``repro_torch.launch.serve.serve`` on StableLM-2-12B
+   at 20 of its 40 layers (random f32 weights from seed 0, bf16
+   compute, 4 slots, ``max_len`` 4,096, 16 new tokens) and checks 20 K5
+   launches per prefill group and none in decode, finite logits and the
+   first group's prefill logits against the plain scan within ``5e-2 *
+   max|ref|``; prints prefill ms per group, decode ms per step, the
+   device-busy share of one prefill with K5's part, and peak memory.
 
 Every printed number carries the card's name and power limit.  The line
 before the last is ``{"kernels": [...]}``; the last is ``{"ok": true,
@@ -129,7 +149,7 @@ BUCKET = 16
 SEED = 0
 GAN_STEPS = 6
 SOURCES = ("sd_fused", "sd_conv", "sd_filter_grad", "sd_wino",
-           "sd_fused_int8", "sd_conv_int8")
+           "sd_fused_int8", "sd_conv_int8", "flash_attn")
 # K1's int8 branch.  bound_ms: the H100 SXM's dense int8 tensor-core peak
 # (NVIDIA data sheet, 1,979 TOP/s); useful_bound_ms: the CUDA cores' dp4a
 # rate the kernel runs on, derived (not a data-sheet figure) as 64 dp4a
@@ -143,6 +163,24 @@ INT8_SERVE_GATE = 1e-3   # served vs the int8 torch backend (tests/test_quant.py
 INT8_VS_F32 = 0.05       # max|d|/max|ref| vs the float server (:134)
 SSIM_GATE = 0.99         # vs the float server (benchmarks/quant_bench.py)
 ND_F32_GATE = 1e-5       # the 3-D lowering vs the torch backend (TF32 off)
+# Phase 10: K5 and dense LM serving.  StableLM-2-12B
+# (src/repro_torch/configs/stablelm_12b.py) at 20 of its 40 layers: the
+# f32 params (26.3 GB), their bf16 copy (13.2 GB) and the cache fit on
+# 80 GB, where 40 layers (48.5 + 24.2 GB) do not.
+PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense bf16 tensor cores (data sheet)
+K5_F32_GATE = 2e-5        # tests/test_flash_attn.py:30, rel. max(1, max|ref|)
+LM_BF16_GATE = 5e-2       # served logits vs the plain scan, rel. max|ref|
+                          # (bf16, tests/test_flash_attn.py:39)
+LM_ARCH = "stablelm-12b"
+LM_K5_SHAPE = (4, 32, 8, 4080, 160)   # B, H, Hkv, S, D of a prefill group
+LM_SERVE_LAYERS = 20
+LM_REQUESTS = 8
+LM_PROMPT_LEN = 4080
+LM_SLOTS = 4
+LM_MAX_NEW = 16
+LM_MAX_LEN = 4096         # StableLM-2's context length
+LM_GATE_LEN = 2080        # past 2,048: the prefill takes the blockwise branch
+LM_GATE_DECODE = 8
 
 
 def _card_line() -> str:
@@ -2006,6 +2044,293 @@ def _chain_phase(dev, tag, randn) -> dict:
                 "elements_differ": n_diff, "chained": chained}}
 
 
+def _lm_phase(dev, tag: str) -> dict:
+    """Phase 10: K5 and the dense LM serving path.  (b) K5 against its
+    plain version ``flash_attention_ref`` (TF32 off) at the serving shape
+    (bf16, grouped heads; the plain version one sample at a time) and on
+    D x S x causal x dtype cases with grouped heads: f32 within ``2e-5 *
+    max(1, max|ref|)``, bf16 within ``1e-2 * max|ref|`` of the plain
+    version in f32 on the same bf16 inputs; (c) at the serving shape, K5,
+    its plain version and ``F.scaled_dot_product_attention`` (a yardstick
+    the port never calls) in turns, device time from the profiler; (d)
+    StableLM-2-12B widths at depth 2 in f32: two 2,080-token prompts
+    through ``prefill`` with K5 and with the plain scan, last-token
+    logits within ``1e-4 * max(1, max|ref|)``, then 8 greedy decode
+    tokens from each; (e) StableLM-2-12B at 20 of its 40 layers (f32
+    params, bf16 compute) serving 8 prompts of 4,080 tokens through
+    ``launch/serve.serve`` with 4 slots and ``max_len`` 4,096: 20 K5
+    launches per prefill group and none in decode, finite logits, the
+    first group's prefill logits against the plain scan within ``5e-2 *
+    max|ref|``.  Returns K5's record and the reports."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    import repro_torch.kernels.flash_attn as FA
+    from repro_torch.configs import get
+    from repro_torch.launch.serve import random_prompts, serve
+    from repro_torch.models.lm import build_lm
+
+    gen = torch.Generator().manual_seed(SEED)
+
+    def qkv(b, h, hkv, s, d, dtype):
+        return tuple((torch.randn(b, n, s, d, generator=gen) * 0.5)
+                     .to(dev, dtype) for n in (h, hkv, hkv))
+
+    def plain(q, k, v, causal=True):
+        """The plain version one sample at a time (the serving shape's
+        f32 scores take 2.1 GB per sample)."""
+        return torch.cat([FA.flash_attention_ref(
+            q[i:i + 1], k[i:i + 1], v[i:i + 1], causal=causal)
+            for i in range(q.shape[0])])
+
+    # ---- (b) K5 against its plain version ------------------------------
+    print(f"check: K5 vs flash_attention_ref, TF32 off: f32 gate "
+          f"{K5_F32_GATE}*max(1,max|ref|), bf16 gate {BF16_GATE}*max|ref| "
+          f"(the plain version in f32 on the bf16 inputs) {tag}")
+    cases = [(*LM_K5_SHAPE, torch.bfloat16, True)]
+    for d in (16, 64, 128, 160):
+        for s in (1, 63, 65, 2049):
+            for causal in (True, False):
+                for dtype in (torch.float32, torch.bfloat16):
+                    cases.append((2, 4, 2, s, d, dtype, causal))
+    err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    failures = []
+    for b, h, hkv, s, d, dtype, causal in cases:
+        q, k, v = qkv(b, h, hkv, s, d, dtype)
+        out = FA.flash_attention(q, k, v, causal=causal)
+        ref = plain(q.float(), k.float(), v.float(), causal)
+        torch.cuda.synchronize()
+        floor = dtype == torch.float32
+        dmax, tol = _gate_err(out, ref, K5_F32_GATE if floor else BF16_GATE,
+                              floor)
+        err[dtype] = max(err[dtype], dmax)
+        ok = dmax <= tol and out.dtype == dtype and out.shape == q.shape
+        if (b, h, hkv, s, d) == LM_K5_SHAPE or not ok or s == 2049:
+            print(f"  ({b}, {h}/{hkv} heads, S {s}, D {d}) "
+                  f"{str(dtype)[6:]} {'causal' if causal else 'full'} "
+                  f"max|d| {dmax:.3e} tol {tol:.3e} "
+                  f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append((b, h, hkv, s, d, str(dtype), causal))
+    print(f"  {len(cases)} cases, D in (16, 64, 128, 160), S in (1, 63, 65, "
+          f"2049), causal and full, f32 and bf16, 4 q / 2 kv heads; max|d| "
+          f"f32 {err[torch.float32]:.3e}, bf16 {err[torch.bfloat16]:.3e}")
+    if failures:
+        raise SystemExit(f"chip_smoke: K5 disagrees with its plain version "
+                         f"on {failures}")
+
+    # ---- (c) timing at the serving shape --------------------------------
+    b, h, hkv, s, d = LM_K5_SHAPE
+    q, k, v = qkv(b, h, hkv, s, d, torch.bfloat16)
+    fns = {"k5": lambda: FA.flash_attention(q, k, v),
+           "plain": lambda: plain(q.float(), k.float(), v.float()),
+           "sdpa": lambda: F.scaled_dot_product_attention(
+               q, k, v, is_causal=True, enable_gqa=True)}
+    ev = _time_ms(fns, reps=5, iters=1)
+    dev_ms = {n: [] for n in fns}
+    for r in range(3):
+        for n in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            br = _device_breakdown(fns[n])
+            if br is not None:        # a profiled call may report nothing
+                dev_ms[n].append(br[0])
+    dev_ms = {n: sorted(x)[(len(x) - 1) // 2] if x else float("nan")
+              for n, x in dev_ms.items()}
+    flops = 2.0 * b * h * d * s * (s + 1)           # causal pairs only
+    nbytes = 2 * (2 * b * h * s * d + 2 * b * hkv * s * d)
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    useful = flops / PEAK_F32_FLOPS * 1e3
+    measured = {n: dev_ms[n] if math.isfinite(dev_ms[n]) else ev[n][0]
+                for n in fns}
+    print(f"time: K5 at the serving shape ({b}, {h} q / {hkv} kv heads, S "
+          f"{s}, D {d}, bf16, causal), in turns: device time from the "
+          f"profiler (median of the 3 profiled calls that report any) / "
+          f"CUDA events (median [min, max] of 5): {tag}")
+    for n, label in (("k5", "K5"), ("plain", "plain (per sample, f32)"),
+                     ("sdpa", "F.scaled_dot_product_attention")):
+        print(f"  {label}: {dev_ms[n]:.3f} ms device / {ev[n][0]:.3f} ms "
+              f"[{ev[n][1]:.3f}, {ev[n][2]:.3f}] events")
+    print(f"  bound {max(t_ops, t_bytes):.3f} ms "
+          f"({'operations' if t_ops >= t_bytes else 'bytes'}: {flops:.3e} "
+          f"at the 989 TFLOP/s bf16 tensor cores; {nbytes / 1e6:.1f} MB), "
+          f"useful bound at the 67 TFLOP/s CUDA cores {useful:.3f} ms; K5 "
+          f"at {flops / measured['k5'] / 1e9:.1f} TFLOP/s; sm clock, power, "
+          f"temperature {_clocks()} {tag}")
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    # ---- (d) path gate in f32 at StableLM-2-12B widths, depth 2 --------
+    cfg32 = dataclasses.replace(get(LM_ARCH), n_layers=2,
+                                compute_dtype="float32")
+    lm = build_lm(cfg32, device=dev)
+    scan = build_lm(cfg32, device=dev, attn_kernel=False)
+    params = lm.init(torch.Generator(device=dev).manual_seed(SEED))
+    toks = torch.tensor(random_prompts(cfg32.vocab_size, 2, LM_GATE_LEN,
+                                       seed=SEED), dtype=torch.int32,
+                        device=dev)
+    runs = {}
+    with torch.no_grad():
+        for name, m in (("k5", lm), ("scan", scan)):
+            FA.FLASH_ATTN_LAUNCHES = 0
+            cache = m.init_cache(2, LM_GATE_LEN + 16)
+            lg, cache = m.prefill(params, {"inputs": toks}, cache)
+            n_k5 = FA.FLASH_ATTN_LAUNCHES
+            out, t, logits = [], torch.argmax(lg, -1).to(torch.int32), [lg]
+            for _ in range(LM_GATE_DECODE):
+                out.append(t[:, 0].tolist())
+                lgd, cache = m.decode_step(params, {"inputs": t}, cache)
+                logits.append(lgd)
+                t = torch.argmax(lgd, -1).to(torch.int32)
+            runs[name] = (lg, n_k5, out, logits)
+    gate_d, tol = _gate_err(runs["k5"][0], runs["scan"][0], 1e-4, True)
+    ok = (gate_d <= tol and runs["k5"][1] == 2 and runs["scan"][1] == 0
+          and bool(torch.isfinite(runs["k5"][0]).all()))
+    print(f"path: {LM_ARCH} widths at depth 2, f32 compute, TF32 off, 2 "
+          f"prompts of {LM_GATE_LEN} tokens: prefill through K5 ("
+          f"{runs['k5'][1]} launches) vs the plain scan ({runs['scan'][1]}):"
+          f" last-token logits max|d| {gate_d:.3e} tol {tol:.3e} "
+          f"{'ok' if ok else 'FAIL'} {tag}")
+    for name in ("k5", "scan"):
+        print(f"  {LM_GATE_DECODE} greedy tokens ({name}): "
+              f"{[list(r) for r in zip(*runs[name][2])]}")
+    for i, (a, b_) in enumerate(zip(runs["k5"][2], runs["scan"][2])):
+        for row, (ta, tb) in enumerate(zip(a, b_)):
+            if ta != tb:
+                top2 = torch.topk(runs["scan"][3][i][row, 0], 2).values
+                margin = (top2[0] - top2[1]).item()
+                print(f"  token {i} of prompt {row} differs: {ta} vs {tb}, "
+                      f"the scan's top-2 margin {margin:.3e}")
+    if not ok:
+        raise SystemExit("chip_smoke: the LM prefill through K5 disagrees "
+                         "with the plain scan")
+    del lm, scan, params, runs, cache
+    torch.cuda.empty_cache()
+
+    # ---- (e) serve StableLM-2-12B at 20 of its 40 layers ---------------
+    cfg = dataclasses.replace(get(LM_ARCH), n_layers=LM_SERVE_LAYERS)
+    lm = build_lm(cfg, device=dev)
+    t0 = time.perf_counter()
+    params = lm.init(torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = lm.param_counts(params)[0]
+    prompts = random_prompts(cfg.vocab_size, LM_REQUESTS, LM_PROMPT_LEN,
+                             seed=SEED)
+    torch.cuda.reset_peak_memory_stats()
+    FA.FLASH_ATTN_LAUNCHES = 0
+    results, stats = serve(cfg, prompts, max_new=LM_MAX_NEW, slots=LM_SLOTS,
+                           max_len=LM_MAX_LEN, params=params, device=dev)
+    torch.cuda.synchronize()
+    launches = FA.FLASH_ATTN_LAUNCHES
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    groups = len(stats["prefill_ms"])
+    dec = sorted(stats["decode_ms"])
+    print(f"serve: {cfg.name} at {LM_SERVE_LAYERS} of "
+          f"{get(LM_ARCH).n_layers} layers (d_model "
+          f"{cfg.d_model}, {cfg.n_heads} q / {cfg.n_kv_heads} kv heads of "
+          f"{cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; "
+          f"{n_params / 1e9:.3f} B f32 params drawn in {init_s:.3f} s, "
+          f"{cfg.compute_dtype} compute): {len(results)} prompts of "
+          f"{LM_PROMPT_LEN} "
+          f"tokens, {LM_MAX_NEW} new tokens each, {LM_SLOTS} slots, max_len "
+          f"{LM_MAX_LEN}, in {stats['wall_s']:.3f} s host clock; peak "
+          f"memory {peak_gib:.2f} GiB {tag}")
+    print(f"  prefill per group of {LM_SLOTS} (host clock, ends in reading "
+          f"the tokens): {[round(x, 3) for x in stats['prefill_ms']]} ms; "
+          f"decode per step: median {dec[len(dec) // 2]:.3f} ms [min "
+          f"{dec[0]:.3f}, max {dec[-1]:.3f}] over {len(dec)} steps")
+    print(f"  K5 launches in the serving run: {launches} ({groups} prefill "
+          f"groups x {LM_SERVE_LAYERS} layers expected)")
+    ok = (launches == groups * LM_SERVE_LAYERS and groups == 2
+          and sorted(results) == list(range(LM_REQUESTS))
+          and all(len(t) == LM_MAX_NEW and all(0 <= x < cfg.vocab_size
+                                                for x in t)
+                  for t in results.values()))
+    if not ok:
+        raise SystemExit("chip_smoke: LM serving did not run K5 once per "
+                         "layer per prefill group, or its tokens are wrong")
+    p16 = lm._cast(params)
+    del params
+    scan = build_lm(cfg, device=dev, attn_kernel=False)
+    batch = {"inputs": torch.tensor(prompts[:LM_SLOTS], dtype=torch.int32,
+                                    device=dev)}
+    with torch.no_grad():
+        FA.FLASH_ATTN_LAUNCHES = 0
+        cache = lm.init_cache(LM_SLOTS, LM_MAX_LEN)
+        lg, cache = lm.prefill(p16, batch, cache)
+        n_prefill = FA.FLASH_ATTN_LAUNCHES
+        tok = torch.argmax(lg, -1).to(torch.int32)
+        FA.FLASH_ATTN_LAUNCHES = 0
+        lgd, cache = lm.decode_step(p16, {"inputs": tok}, cache)
+        torch.cuda.synchronize()
+        n_decode = FA.FLASH_ATTN_LAUNCHES
+        ref, _ = scan.prefill(p16, batch, scan.init_cache(LM_SLOTS,
+                                                          LM_MAX_LEN))
+    dmax, tol = _gate_err(lg, ref, LM_BF16_GATE, False)
+    finite = bool(torch.isfinite(lg).all() and torch.isfinite(lgd).all())
+    same = torch.equal(torch.argmax(lg, -1), torch.argmax(ref, -1))
+    print(f"  first group's prefill: {n_prefill} K5 launches, one decode "
+          f"step {n_decode}; logits finite={finite}; vs the plain scan on "
+          f"the same weights max|d| {dmax:.3e} tol {tol:.3e} "
+          f"({LM_BF16_GATE}*max|ref|), greedy tokens equal {same} {tag}")
+    if not (finite and dmax <= tol and n_prefill == LM_SERVE_LAYERS
+            and n_decode == 0):
+        raise SystemExit("chip_smoke: the served LM's prefill is wrong")
+    tok = torch.argmax(lgd, -1).to(torch.int32)
+    with torch.no_grad():
+        dbr = _device_breakdown(lambda: lm.decode_step(
+            p16, {"inputs": tok}, cache))
+    if dbr is None:
+        dbusy = dwall = float("nan")
+        print("  one decode step under the profiler: not measured")
+    else:
+        dbusy, dwall, dtop = dbr
+        print(f"  one decode step under the profiler: device busy "
+              f"{dbusy:.3f} ms of {dwall:.3f} ms wall (busy share "
+              f"{dbusy / dwall:.3f}) {tag}")
+        for name, ms_k, calls in dtop:
+            print(f"    {ms_k:.3f} ms in {calls} call(s): {name[:90]}")
+    del ref, cache
+    torch.cuda.empty_cache()
+    br = _device_breakdown(lambda: lm.prefill(
+        p16, batch, lm.init_cache(LM_SLOTS, LM_MAX_LEN)))
+    if br is None:
+        busy = wall = k5_ms = float("nan")
+        print("  one prefill under the profiler: not measured (no device "
+              "time reported)")
+    else:
+        busy, wall, top = br
+        k5_ms = sum(ms for name, ms, _ in top if "flash_attn" in name)
+        print(f"  one prefill under the profiler: device busy {busy:.3f} ms "
+              f"of {wall:.3f} ms wall (busy share {busy / wall:.3f}); K5 "
+              f"{k5_ms:.3f} ms ({k5_ms / busy:.3f} of busy) {tag}")
+        for name, ms_k, calls in top:
+            print(f"    {ms_k:.3f} ms in {calls} call(s): {name[:90]}")
+    del p16, lm, scan
+    torch.cuda.empty_cache()
+    record = {"name": "flash_attn", "route": "cuda",
+              "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
+              "replaces": "src/repro/kernels/flash_attn.py:81",
+              "launches": launches, "max_abs_err": err[torch.float32],
+              "max_abs_err_bf16": err[torch.bfloat16],
+              "ms": measured["k5"], "plain_ms": measured["plain"],
+              "bound_ms": max(t_ops, t_bytes),
+              "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+              "useful_bound_ms": useful, "library_ms": measured["sdpa"],
+              "ms_events": ev["k5"][0]}
+    report = {"k5_device_ms": dev_ms, "k5_events_ms": ev,
+              "path_gate_max_abs": gate_d,
+              "serve_gate_max_abs": dmax,
+              "serve": {"prefill_ms": stats["prefill_ms"],
+                        "decode_ms": stats["decode_ms"],
+                        "wall_s": stats["wall_s"], "peak_gib": peak_gib,
+                        "k5_launches": launches, "params": n_params},
+              "prefill_device": {"busy_ms": busy, "wall_ms": wall,
+                                 "k5_ms": k5_ms},
+              "decode_device": {"busy_ms": dbusy, "wall_ms": dwall}}
+    return {"kernel": record, "report": report}
+
+
 def main(json_path: str = "") -> int:
     t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(HERE, "src", "repro_torch")):
@@ -2315,6 +2640,10 @@ def main(json_path: str = "") -> int:
     # ---- 9. serve calibrated, chained int8 DCGAN and VoxGAN --------------
     chain = _chain_phase(dev, tag, randn)
 
+    # ---- 10. K5 and StableLM-2-12B serving with long prompts -------------
+    torch.cuda.empty_cache()
+    lm = _lm_phase(dev, tag)
+
     if "jax" in sys.modules or "repro" in sys.modules:
         raise SystemExit("chip_smoke: JAX or the JAX package was imported")
     total = {k: sum(r[k] for r in per_layer)
@@ -2331,7 +2660,7 @@ def main(json_path: str = "") -> int:
         "ms": total["ms"], "plain_ms": total["plain_ms"],
         "bound_ms": total["bound_ms"], "bound_by": bound_by,
         "library_ms": total["library_ms"]}] + train["kernels"] + \
-        [wino["kernel"], int8["kernel"], nd["kernel"]]
+        [wino["kernel"], int8["kernel"], nd["kernel"], lm["kernel"]]
     for k in kernels:
         if k["name"] == "sd_conv":
             k["launches_serve_3d"] = nd["k2_launches_serve_3d"]
@@ -2352,6 +2681,7 @@ def main(json_path: str = "") -> int:
               "int8": {k: v for k, v in int8.items() if k != "kernel"},
               "nd": {k: v for k, v in nd.items() if k != "kernel"},
               "chain": {k: v for k, v in chain.items() if k != "record"},
+              "lm": lm["report"],
               "serve": {k: stats[k] for k in
                         ("served", "launches", "req_per_s", "wall_s",
                          "latency_ms")},
@@ -2376,7 +2706,9 @@ def main(json_path: str = "") -> int:
           f"serving run as "
           f"launches_serve_3d; K2 int8's ms/plain_ms/bound_ms summed over "
           f"VoxGAN's three tap convs at batch {BUCKET}, its launches in the "
-          f"int8 VoxGAN serving run) {tag}")
+          f"int8 VoxGAN serving run; K5's ms/plain_ms/library_ms are device "
+          f"time at the serving shape {LM_K5_SHAPE} (B, H, Hkv, S, D) in "
+          f"bf16, its launches in phase 10's serving run) {tag}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,10 @@
 """Carry weights across from the JAX package.
 
 The port keeps the reference's parameter layout (fc ``(in, out)``,
-filters ``(*K, Cin, Cout)``, per-output-channel ``b`` and ``scale``), so
-converting is a checked copy: every array is validated against the
-layer's expected shape and copied to the device unchanged.
+filters ``(*K, Cin, Cout)``, per-output-channel ``b`` and ``scale``; the
+LM's tree with ``slots[j]`` stacked over the repeats), so converting is a
+checked copy: every array is validated against the expected shape and
+copied to the device unchanged.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from typing import Any, Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ArchConfig
 from repro_torch.core.accounting import LayerSpec, NetworkSpec
 from repro_torch.device import resolve_device
 
@@ -59,3 +61,61 @@ def params_from_numpy(np_params: Mapping[str, Mapping[str, Any]],
         out[name] = {k: torch.from_numpy(np.array(a, copy=True)).to(dev)
                      for k, a in arrs.items()}
     return out
+
+
+def _lm_shapes(cfg: ArchConfig) -> Dict[str, Any]:
+    """The dense decoder's parameter tree as shapes (the reference's
+    ``LM.init`` tree): ``embed``, ``head`` (unless tied), ``final_ln``
+    and ``slots[0]`` stacked over the ``n_layers`` repeats."""
+    from repro_torch.models.lm import unsupported
+    why = unsupported(cfg)
+    if why is not None:
+        raise NotImplementedError(f"{cfg.name}: {why} is not ported "
+                                  "(ROADMAP.md item 16)")
+    r, d, vp = cfg.n_layers, cfg.d_model, cfg.vocab_padded
+    hq, hk = cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
+    attn = {"wq": (r, d, hq), "wk": (r, d, hk), "wv": (r, d, hk),
+            "wo": (r, hq, d)}
+    if cfg.qkv_bias:
+        attn.update(bq=(r, hq), bk=(r, hk), bv=(r, hk))
+    tree: Dict[str, Any] = {
+        "embed": (vp, d), "final_ln": {"scale": (d,)},
+        "slots": [{"ln1": {"scale": (r, d)}, "attn": attn,
+                   "ln2": {"scale": (r, d)},
+                   "mlp": {"wg": (r, d, cfg.d_ff), "wu": (r, d, cfg.d_ff),
+                           "wd": (r, cfg.d_ff, d)}}]}
+    if not cfg.tie_embeddings:
+        tree["head"] = (d, vp)
+    return tree
+
+
+def lm_params_from_numpy(np_params: Mapping[str, Any], cfg: ArchConfig,
+                         device) -> Dict[str, Any]:
+    """The reference's ``LM.init`` tree (numpy arrays, or anything
+    ``np.asarray`` takes) -> the port's tree of tensors on ``device``.
+    Raises on a missing or extra leaf, a wrong shape or a non-float
+    array."""
+    dev = resolve_device(device)
+
+    def walk(tree, want, path):
+        if isinstance(want, dict):
+            if not isinstance(tree, Mapping) or set(tree) != set(want):
+                got = sorted(tree) if isinstance(tree, Mapping) else tree
+                raise ValueError(f"{path or 'params'}: keys {got} != "
+                                 f"expected {sorted(want)}")
+            return {k: walk(tree[k], want[k], f"{path}/{k}") for k in want}
+        if isinstance(want, list):
+            if not isinstance(tree, (list, tuple)) or len(tree) != len(want):
+                raise ValueError(f"{path}: expected a list of {len(want)} "
+                                 "slot(s)")
+            return [walk(t, w, f"{path}/{i}")
+                    for i, (t, w) in enumerate(zip(tree, want))]
+        a = np.asarray(tree)
+        if a.shape != want:
+            raise ValueError(f"{path}: shape {a.shape} != expected {want}")
+        if a.dtype.kind != "f":
+            raise TypeError(f"{path}: dtype {a.dtype}; expected floating "
+                            "point")
+        return torch.from_numpy(np.array(a, copy=True)).to(dev)
+
+    return walk(np_params, _lm_shapes(cfg), "")

@@ -26,8 +26,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # ctypes signature of each library's C entry point (c_void_p for every
-# pointer and the stream, c_int for every int).
-_P, _I = ctypes.c_void_p, ctypes.c_int
+# pointer and the stream, c_int for every int, c_longlong for every
+# 64-bit stride, c_float for every float).
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float
 SIGNATURES = {
     "sd_fused": ("sd_fused_launch", [_P, _P, _P, _P, _I] + [_I] * 22 + [_P]),
     "sd_fused_int8": ("sd_fused_int8_launch", [_P] * 5 + [_I] * 24 + [_P]),
@@ -35,6 +37,8 @@ SIGNATURES = {
     "sd_conv_int8": ("sd_conv_int8_launch", [_P] * 3 + [_I] * 17 + [_P]),
     "sd_filter_grad": ("sd_filter_grad_launch", [_P] * 4 + [_I] * 13 + [_P]),
     "sd_wino": ("sd_wino_launch", [_P] * 5 + [_I] * 27 + [_P]),
+    "flash_attn": ("flash_attn_launch",
+                   [_P] * 4 + [_I] * 8 + [_L] * 12 + [_F, _P]),
 }
 
 

@@ -1,1 +1,2 @@
-"""Entry points of the port: the generative server."""
+"""Entry points of the port: the generative server and trainer, and the
+LM server."""

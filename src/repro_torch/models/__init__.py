@@ -1,4 +1,5 @@
-"""Generative networks of the paper, in PyTorch."""
+"""Generative networks of the paper, in PyTorch; the dense LM of the
+scaffolding is in :mod:`repro_torch.models.lm`."""
 
 from repro_torch.models.generative import (IMPLS, DCGANDiscriminator,
                                           GenerativeModel, build)

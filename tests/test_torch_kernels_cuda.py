@@ -1,4 +1,4 @@
-"""The port's CUDA kernels K1, K2 (f32 and its int8 pair), K3 and K4
+"""The port's CUDA kernels K1, K2 (f32 and its int8 pair), K3, K4 and K5
 against their plain versions.
 
 Marked ``cuda``: each test decides inside itself whether a card is
@@ -26,7 +26,12 @@ half (a static (1, NC) scale row, int8 output) is bit-identical to its
 plain version on saturating scales, and the calibrated servers (DCGAN on
 K1 int8, VoxGAN on K2 int8) chain int8 between layers and equal the
 card's int8 ``torch`` backend.  K1, K4 and the 3-D
-lowering refuse an operand that requires grad under grad mode.
+lowering refuse an operand that requires grad under grad mode.  K5
+(flash attention) is held to ``flash_attention_ref`` at ``2e-5 * max(1,
+max|ref|)`` in f32 (``tests/test_flash_attn.py``'s tolerance) and ``1e-2
+* max|ref|`` in bf16 (the oracle in f32 on the bf16 inputs), on ragged
+sequences, grouped heads and D up to 256; the reduced LM's prefill
+through K5 matches the plain scan.
 """
 
 import pytest
@@ -741,3 +746,102 @@ def test_calibrated_voxgan_server_equals_torch_backend(dev, tmp_path,
     with torch.no_grad():
         ref = ref_m.apply(params, torch.stack(zs))
     assert torch.isfinite(out).all() and torch.equal(out, ref)
+
+
+# ---------------------------------------------------------------------------
+# K5: flash attention
+# ---------------------------------------------------------------------------
+
+K5_F32_GATE = 2e-5       # tests/test_flash_attn.py:30, rel. max(1, max|ref|)
+K5_BF16_GATE = 1e-2      # rel. max|ref|, the ref in f32 on the bf16 inputs
+
+
+def _k5_case(dev, b, h, hkv, s, d, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = ((torch.randn(b, n, s, d, generator=g) * 0.3).to(dev, dtype)
+               for n in (h, hkv, hkv))
+    return q, k, v
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,h,hkv,s,d", [
+    (1, 2, 2, 128, 32), (2, 4, 2, 1, 16), (2, 4, 2, 63, 64),
+    (1, 4, 1, 65, 128), (1, 4, 2, 2049, 160), (2, 2, 2, 200, 256),
+    (1, 3, 3, 97, 40)])
+def test_k5_matches_plain(dev, dtype, causal, b, h, hkv, s, d):
+    """K5 against flash_attention_ref on the same inputs (grouped heads
+    expanded for the oracle), ragged S, D up to 256."""
+    import repro_torch.kernels.flash_attn as FA
+    q, k, v = _k5_case(dev, b, h, hkv, s, d, dtype, seed=s + d)
+    before = FA.FLASH_ATTN_LAUNCHES
+    out = FA.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert FA.FLASH_ATTN_LAUNCHES == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    ref = FA.flash_attention_ref(q.float(), k.float(), v.float(),
+                                 causal=causal)
+    d_ = (out.float() - ref).abs().max().item()
+    m = ref.abs().max().item()
+    tol = K5_F32_GATE * max(1.0, m) if dtype == torch.float32 \
+        else K5_BF16_GATE * m
+    assert d_ <= tol, (d_, tol)
+
+
+def test_k5_reads_and_writes_bshd_views(dev):
+    """The LM's layout: (B, S, H, D) activations handed in as transposed
+    views; the output comes back with q's strides."""
+    import repro_torch.kernels.flash_attn as FA
+    g = torch.Generator().manual_seed(3)
+    q = torch.randn(2, 130, 8, 64, generator=g).to(dev)
+    k = torch.randn(2, 130, 2, 64, generator=g).to(dev)
+    v = torch.randn(2, 130, 2, 64, generator=g).to(dev)
+    out = FA.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2))
+    torch.cuda.synchronize()
+    assert out.stride() == q.transpose(1, 2).stride()
+    ref = FA.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                 v.transpose(1, 2))
+    assert (out - ref).abs().max().item() <= K5_F32_GATE * max(
+        1.0, ref.abs().max().item())
+
+
+def test_k5_refuses_what_it_does_not_take(dev):
+    import repro_torch.kernels.flash_attn as FA
+    q = torch.randn(1, 2, 8, 272, device=dev)
+    with pytest.raises(ValueError, match="head dim 272"):
+        FA.flash_attention(q, q, q)
+    q = torch.randn(1, 2, 8, 16, device=dev)
+    with pytest.raises(ValueError, match="tile"):
+        FA.flash_attention(q, q, q, bq=128, bk=128)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        FA.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(RuntimeError, match="requires grad"):
+        FA.flash_attention(q.requires_grad_(), q, q)
+
+
+def test_lm_prefill_through_k5_matches_the_scan(dev):
+    """Reduced StableLM-2-12B on the card, a 2,080-token prompt: one K5
+    launch per layer, last-token logits within 1e-4 * max(1, max|ref|)
+    of the same LM on the plain scan."""
+    import repro_torch.kernels.flash_attn as FA
+    from repro_torch.configs import get
+    from repro_torch.models.lm import build_lm
+    cfg = get("stablelm-12b").reduced()
+    lm = build_lm(cfg, device=dev)
+    scan = build_lm(cfg, device=dev, attn_kernel=False)
+    params = lm.init(torch.Generator(device=dev).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (2, 2080),
+                         generator=torch.Generator().manual_seed(1))
+    toks = toks.to(dev, torch.int32)
+    with torch.no_grad():
+        before = FA.FLASH_ATTN_LAUNCHES
+        out, _ = lm.prefill(params, {"inputs": toks},
+                            lm.init_cache(2, 2096))
+        torch.cuda.synchronize()
+        assert FA.FLASH_ATTN_LAUNCHES - before == cfg.n_layers
+        ref, _ = scan.prefill(params, {"inputs": toks},
+                              scan.init_cache(2, 2096))
+    assert (out - ref).abs().max().item() <= 1e-4 * max(
+        1.0, ref.abs().max().item())

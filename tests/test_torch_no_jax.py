@@ -6,7 +6,10 @@ winograd backend, and in int8 on the torch and the fused backend; on
 ``fused`` the 3-D ``voxgan-dryrun`` cell runs the depth-folded lowering on
 K2's int8 pair; calibrated and chained, ``--calib``, with its cache in a
 temporary directory), takes two small GAN training steps on
-the CPU and imports ``chip_smoke`` (without running it); and without
+the CPU, serves the reduced StableLM-2-12B through the LM server
+(``launch/serve.py``, whose K5 wrapper ``kernels/flash_attn.py`` and LM
+``models/lm.py`` import too) and imports ``chip_smoke`` (without running
+it); and without
 CUDA the port's default device raises instead of falling back to the
 CPU.
 """
@@ -47,6 +50,12 @@ from repro_torch.launch import train_gen
 d_hist, g_hist = train_gen.main(["--steps", "2", "--small", "--device",
                                  "cpu", "--deconv-impl", "sd_kernel"])
 assert len(g_hist) == 2, g_hist
+import repro_torch.kernels.flash_attn
+import repro_torch.models.lm
+from repro_torch.launch import serve
+lm_results = serve.main(["--arch", "stablelm-12b", "--reduced", "--device",
+                         "cpu", "--requests", "4"])
+assert sorted(lm_results) == [0, 1, 2, 3], lm_results
 sys.path.insert(0, {repo!r})
 import chip_smoke
 assert callable(chip_smoke.main)
