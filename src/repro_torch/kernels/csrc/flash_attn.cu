@@ -8,14 +8,15 @@
 //   s[i, j] = (scale * q[i]) . k[j]          scale = 1 / sqrt(D)
 //   o[i]    = sum_j softmax_j(s[i, :])[j] * v[j]
 //
-// with the causal mask aligned at the start (key j visible to query i
-// when j <= i; the serving prefill has Sq == Sk).  The running max, the
-// running sum and the accumulator are f32; the output is written once,
-// in the input's type.  Differences from the TPU kernel's contract:
+// with the causal mask (key j visible to query i when j <= i) taken only
+// for Sq == Sk, the TPU kernel's own validity condition.  The running
+// max, the running sum and the accumulator are f32; the output is
+// written once, in the input's type.  Differences from the TPU kernel's
+// contract:
 //   * k/v may carry Hkv heads with H % Hkv == 0 (grouped-query
 //     attention): q head h reads kv head h / (H / Hkv), so the caller
 //     never expands k/v;
-//   * any Sq, Sk >= 1: keys past Sk are masked and query rows past Sq are
+//   * any S >= 1: keys past Sk are masked and query rows past Sq are
 //     computed but never written, so no host-side padding copy is made;
 //   * any element strides over (batch, head, sequence), with the head dim
 //     unit-stride: the LM hands (B, S, H, D) activations in as transposed
@@ -268,7 +269,8 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o alike).  Strides are
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o alike); a causal
+// launch needs Sq == Sk.  Strides are
 // in elements, over (batch, head, sequence); the head dim is unit-stride.
 extern "C" int flash_attn_launch(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,
@@ -277,7 +279,8 @@ extern "C" int flash_attn_launch(
     long long vb, long long vh, long long vs, long long ob, long long oh,
     long long os, float scale, void* stream) {
   if (B < 1 || H < 1 || Hkv < 1 || H % Hkv != 0 || Sq < 1 || Sk < 1 ||
-      D < 1 || D > kMaxD || H > 65535 || B > 65535)
+      D < 1 || D > kMaxD || H > 65535 || B > 65535 ||
+      (causal && Sq != Sk))
     return (int)cudaErrorInvalidValue;
   Args a;
   a.H = H; a.Hkv = Hkv; a.Sq = Sq; a.Sk = Sk; a.D = D; a.causal = causal;

@@ -1,27 +1,25 @@
-"""K5: flash attention (forward), its plain PyTorch versions.
+"""K5: flash attention (forward) and its plain PyTorch version.
 
 :func:`flash_attention` has the contract of the TPU kernel
 ``flash_attention`` (``src/repro/kernels/flash_attn.py``): q/k/v ``(B, H,
 S, D)``, softmax attention with an online softmax (running max, sum and
-accumulator in f32), ``scale = 1/sqrt(D)`` applied to q, the causal mask
-aligned at the start (``kpos <= qpos``, which is the end-aligned mask of
-:func:`flash_attention_ref` when ``Sq == Sk``), tiles entirely above the
+accumulator in f32), ``scale = 1/sqrt(D)`` applied to q, a causal launch
+only for ``Sq == Sk`` (the TPU kernel's own validity note: its
+start-aligned mask is then the end-aligned one), tiles entirely above the
 diagonal skipped, the output in ``q.dtype``.  Beyond that contract it
 takes k/v with ``Hkv`` heads, ``H % Hkv == 0`` (q head ``h`` reads kv
-head ``h // (H // Hkv)``), any ``Sq, Sk >= 1`` (keys past ``Sk`` masked,
-rows past ``Sq`` never written, no padding copy), and any strides over
+head ``h // (H // Hkv)``), any ``S >= 1`` (keys past ``Sk`` masked, rows
+past ``Sq`` never written, no padding copy), and any strides over
 (batch, head, sequence) with a unit-stride head dim; the output has q's
 strides when q is dense (a transposed view of (B, S, H, D) activations),
 else it is contiguous.
 
 On a CUDA tensor it launches ``csrc/flash_attn.cu`` (built at first use;
 counted by ``FLASH_ATTN_LAUNCHES``) or raises; on a CPU tensor it runs
-:func:`flash_attention_blocked`, the kernel's schedule in plain PyTorch
-(query tiles, key tiles zero-padded and masked past ``Sk``, the causal
-sweep stopped at the diagonal tile).  :func:`flash_attention_ref` is the
-reference's oracle (``src/repro/kernels/ref.py`` ``flash_attention_ref``:
-full scores, end-aligned causal mask, optional window), used by the tests
-and ``chip_smoke.py`` and by nothing on the card's path.
+:func:`flash_attention_ref`, the reference's oracle
+(``src/repro/kernels/ref.py`` ``flash_attention_ref``: full f32 scores,
+end-aligned causal mask, optional window), which the tests and
+``chip_smoke.py`` also hold the kernel against.
 """
 
 from __future__ import annotations
@@ -31,7 +29,6 @@ import math
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.kernels.sd_conv import check_no_grad
 
@@ -73,56 +70,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)
 
 
-def flash_attention_blocked(q: torch.Tensor, k: torch.Tensor,
-                            v: torch.Tensor, *, causal: bool = True,
-                            bq: int = TILE[0], bk: int = TILE[1]
-                            ) -> torch.Tensor:
-    """The kernel's function and schedule in plain PyTorch: per query tile
-    of ``bq`` rows (the last one zero-padded), a sweep over key tiles of
-    ``bk`` (zero-padded past ``Sk`` and masked there), stopped for a
-    causal launch at the tile holding the query tile's last row; online
-    softmax with the TPU kernel's guard for rows with no visible key
-    yet; output ``acc / max(l, 1e-30)`` in ``q.dtype``."""
-    b, h, sq, d = q.shape
-    sk = k.shape[2]
-    k, v = _gqa_expand(q, k, v)
-    scale = 1.0 / math.sqrt(d)
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    ninf = float("-inf")
-    for q0 in range(0, sq, bq):
-        rows = min(bq, sq - q0)
-        qt = F.pad(q[:, :, q0:q0 + rows].float(), (0, 0, 0, bq - rows))
-        qt = qt * scale
-        qpos = q0 + torch.arange(bq, device=q.device)[:, None]
-        m = torch.full((b, h, bq), ninf, device=q.device)
-        l = torch.zeros((b, h, bq), device=q.device)
-        acc = torch.zeros((b, h, bq, d), device=q.device)
-        kend = min(sk, q0 + bq) if causal else sk
-        for k0 in range(0, kend, bk):
-            n = min(bk, sk - k0)
-            kt = F.pad(k[:, :, k0:k0 + n].float(), (0, 0, 0, bk - n))
-            vt = F.pad(v[:, :, k0:k0 + n].float(), (0, 0, 0, bk - n))
-            kpos = k0 + torch.arange(bk, device=q.device)[None, :]
-            s = qt @ kt.transpose(-1, -2)
-            msk = kpos >= sk
-            if causal:
-                msk = msk | (kpos > qpos)
-            s = s.masked_fill(msk, ninf)
-            m_new = torch.maximum(m, s.amax(-1))
-            safe = torch.where(torch.isfinite(m_new), m_new,
-                               torch.zeros_like(m_new))
-            p = torch.exp(s - safe[..., None])
-            corr = torch.where(torch.isfinite(m), torch.exp(m - safe),
-                               torch.zeros_like(m))
-            l = l * corr + p.sum(-1)
-            acc = acc * corr[..., None] + p @ vt
-            m = m_new
-        o = acc / torch.clamp_min(l, 1e-30)[..., None]
-        out[:, :, q0:q0 + rows] = o[:, :, :rows].to(q.dtype)
-    return out
-
-
-def _check_operands(q, k, v) -> None:
+def _check_operands(q, k, v, causal: bool) -> None:
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} are not (B, H, Sq, D), "
@@ -141,25 +89,29 @@ def _check_operands(q, k, v) -> None:
                         f"{v.dtype}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k, v must share one device")
+    if causal and sq != sk:
+        raise ValueError(f"a causal launch needs Sq == Sk, not {sq} and "
+                         f"{sk}")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, bq: int = TILE[0],
                     bk: int = TILE[1]) -> torch.Tensor:
-    """q: (B, H, Sq, D); k, v: (B, Hkv, Sk, D), ``H % Hkv == 0``.
+    """q: (B, H, Sq, D); k, v: (B, Hkv, Sk, D), ``H % Hkv == 0``, ``Sq ==
+    Sk`` when ``causal``.
 
     Returns (B, H, Sq, D) in ``q.dtype`` (q's strides when q is dense).
-    ``bq``/``bk``
-    are the tiles of the sweep: any positive sizes for the plain version
-    on the CPU, the kernel's own ``TILE`` on the card.  The kernel takes
-    float32 or bfloat16 and ``D <= MAX_HEAD_DIM``.
+    ``bq``/``bk`` are the TPU kernel's tiles: any positive sizes on the
+    CPU, where they do not change the result, the kernel's own ``TILE`` on
+    the card.  The kernel takes float32 or bfloat16 and ``D <=
+    MAX_HEAD_DIM``.
     """
     global FLASH_ATTN_LAUNCHES
-    _check_operands(q, k, v)
+    _check_operands(q, k, v, causal)
     if bq < 1 or bk < 1:
         raise ValueError(f"tiles ({bq}, {bk}) must be positive")
     if q.device.type == "cpu":
-        return flash_attention_blocked(q, k, v, causal=causal, bq=bq, bk=bk)
+        return flash_attention_ref(q, k, v, causal=causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not "
                          f"{q.device}")

@@ -10,8 +10,7 @@ Long-sequence attention (:func:`blockwise_attention`) calls K5,
 arguments are inside K5's contract (causal, no window, ``q_offset == 0``,
 every key valid, ``Sq == Sk``: the serving prefill), and otherwise runs
 the plain scan, a restatement of the reference's ``lax.scan``.  The
-choice depends on the arguments alone; ``kernel=False`` asks for the
-scan.
+choice depends on the arguments alone.
 """
 
 from __future__ import annotations
@@ -112,18 +111,18 @@ def _in_k5_contract(q, k, causal, window, q_offset, kv_len) -> bool:
 
 
 def blockwise_attention(q, k, v, *, causal: bool, window: Optional[int],
-                        q_offset, kv_len=None, block: int = 1024,
-                        kernel: bool = True) -> torch.Tensor:
+                        q_offset, kv_len=None,
+                        block: int = 1024) -> torch.Tensor:
     """Memory-efficient (flash-style) attention: running (max, sum, acc)
     over KV blocks, activations O(S·D) instead of O(S^2).
 
     q: (B,Sq,Hq,D); k,v: (B,Sk,Hkv,D); q_offset: absolute position of
     q[0] (for decode); kv_len: valid kv length (None = all).  Inside K5's
-    contract (and ``kernel``) the attention is one K5 launch on the
-    transposed views, returned in ``q.dtype``; otherwise the plain scan
-    over blocks of ``block`` keys, returned in f32 as the reference's.
+    contract the attention is one K5 launch on the transposed views,
+    returned in ``q.dtype``; otherwise the plain scan over blocks of
+    ``block`` keys, returned in f32 as the reference's.
     """
-    if kernel and _in_k5_contract(q, k, causal, window, q_offset, kv_len):
+    if _in_k5_contract(q, k, causal, window, q_offset, kv_len):
         o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                             v.transpose(1, 2), causal=True)
         return o.transpose(1, 2)
@@ -178,8 +177,8 @@ def _qkv(p, x, n_heads, n_kv, head_dim):
 def attention_cached(p: Params, x: torch.Tensor, cache: dict, pos: int, *,
                      n_heads: int, n_kv: int, head_dim: int,
                      rope_theta: float, window: Optional[int] = None,
-                     attn_block: int = 1024, use_rope: bool = True,
-                     attn_kernel: bool = True) -> Tuple[torch.Tensor, dict]:
+                     attn_block: int = 1024,
+                     use_rope: bool = True) -> Tuple[torch.Tensor, dict]:
     """Attention against a (possibly ring) KV cache.
 
     cache = {'k': (B, W, Hkv, D), 'v': ..., 'kpos': (W,) int32 absolute
@@ -220,7 +219,7 @@ def attention_cached(p: Params, x: torch.Tensor, cache: dict, pos: int, *,
         if s > 2048:
             o = blockwise_attention(q, k, v, causal=True, window=window,
                                     q_offset=0, kv_len=None,
-                                    block=attn_block, kernel=attn_kernel)
+                                    block=attn_block)
         else:
             o = _gqa_scores_combine(q, k, v, _causal_mask(
                 s, window, x.device)[None], x.dtype)

@@ -10,10 +10,9 @@ layout (``{"pos", "slots": [{"k", "v", "kpos"}]}``, ``pos`` a Python
 int here) and is updated in place.
 
 Long prompts (more than 2,048 tokens) attend through K5
-(:mod:`repro_torch.kernels.flash_attn`) unless the LM was built with
-``attn_kernel=False``, which takes the plain scan.  MoE, SSM/xLSTM,
-hybrid, VLM and encoder-decoder configs are not ported
-(ROADMAP.md item 16): :func:`build_lm` refuses them.
+(:mod:`repro_torch.kernels.flash_attn`).  MoE, SSM/xLSTM, hybrid, VLM and
+encoder-decoder configs are not ported (ROADMAP.md item 16):
+:func:`build_lm` refuses them.
 """
 
 from __future__ import annotations
@@ -48,8 +47,7 @@ def unsupported(cfg: ArchConfig) -> Optional[str]:
 
 
 class LM:
-    def __init__(self, cfg: ArchConfig, device: DeviceLike = None,
-                 attn_kernel: bool = True):
+    def __init__(self, cfg: ArchConfig, device: DeviceLike = None):
         why = unsupported(cfg)
         if why is not None:
             raise NotImplementedError(
@@ -59,7 +57,6 @@ class LM:
         self.pattern = cfg.pattern
         self.repeats = cfg.n_layers // len(cfg.pattern)
         self.device = resolve_device(device)
-        self.attn_kernel = attn_kernel
 
     # ------------------------------------------------------------------
     def init(self, generator: Optional[torch.Generator] = None) -> Params:
@@ -155,7 +152,7 @@ class LM:
             p["attn"], h, cache, pos, n_heads=cfg.n_heads,
             n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
             rope_theta=cfg.rope_theta, window=cfg.sliding_window,
-            attn_block=cfg.attn_block, attn_kernel=self.attn_kernel)
+            attn_block=cfg.attn_block)
         x = x + out
         return x + L.mlp(p["mlp"], L.rms_norm(p["ln2"], x))
 
@@ -205,6 +202,5 @@ def _tree_map(fn, tree):
     return fn(tree)
 
 
-def build_lm(cfg: ArchConfig, device: DeviceLike = None,
-             attn_kernel: bool = True) -> LM:
-    return LM(cfg, device=device, attn_kernel=attn_kernel)
+def build_lm(cfg: ArchConfig, device: DeviceLike = None) -> LM:
+    return LM(cfg, device=device)

@@ -4,10 +4,9 @@ Same inputs (numpy seeds), same weights (the reference's ``LM.init``
 carried over with ``lm_params_from_numpy``), both packages on the CPU:
 
 * K5's oracle ``flash_attention_ref`` and K5's contract on the CPU (the
-  kernel's schedule in plain PyTorch, ragged tiles masked as in the
-  kernel) against the reference's oracle and its Pallas kernel in
-  interpret mode, at the shapes of ``tests/test_flash_attn.py``, within
-  2e-5 (that file's tolerance);
+  wrapper's CPU path, the oracle) against the reference's oracle and its
+  Pallas kernel in interpret mode, at the shapes of
+  ``tests/test_flash_attn.py``, within 2e-5 (that file's tolerance);
 * ``blockwise_attention``'s plain scan with ``q_offset``, ``kv_len``,
   ``window`` and grouped heads within 1e-5, and its K5 dispatch;
 * ``rms_norm``, rope, ``attention_cached`` (prefill at S <= 2048 and S >
@@ -155,9 +154,9 @@ def test_k5_contract_bf16_matches_reference_kernel():
     (130, 16, 2, 2, 64, 64), (97, 160, 4, 2, 32, 16), (70, 8, 3, 3, 16, 64)])
 def test_k5_ragged_and_grouped_match_reference_oracle(causal, s, d, h, hkv,
                                                       bq, bk):
-    """Sequences the tiles do not divide (keys past Sk masked in the last
-    tile, rows past Sq dropped) and grouped kv heads, against the
-    reference's oracle on expanded k/v."""
+    """Sequences the kernel's tiles do not divide and grouped kv heads
+    through the wrapper's CPU path, against the reference's oracle on
+    expanded k/v."""
     q, k, v = _qkv(2, h, s, d, seed=s + d, hkv=hkv)
     g = h // hkv
     ref = j_flash_ref(jnp.asarray(q), jnp.asarray(np.repeat(k, g, 1)),
@@ -179,6 +178,9 @@ def test_k5_contract_refusals():
         FA.flash_attention(q, k.double(), v.double())
     with pytest.raises(ValueError, match="positive"):
         FA.flash_attention(q, k, v, bq=0)
+    with pytest.raises(ValueError, match="Sq == Sk"):
+        FA.flash_attention(q[:, :, :5], k, v)
+    FA.flash_attention(q[:, :, :5], k, v, causal=False)
 
 
 # ---------------------------------------------------------------------------
@@ -201,8 +203,9 @@ def _bshd(b, s, h, d, seed, hkv=None, sk=None):
     (False, None, 0, 33, 20, 40),
     (True, 9, 17, 35, 8, 40),
     (False, 5, 3, None, 12, 27)])
-def test_blockwise_scan_matches_reference(causal, window, q_offset, kv_len,
-                                          sq, sk):
+def test_blockwise_scan_matches_reference(monkeypatch, causal, window,
+                                          q_offset, kv_len, sq, sk):
+    monkeypatch.setattr(L, "_in_k5_contract", lambda *a: False)
     q, k, v = _bshd(2, sq, 4, 16, seed=sq + sk, hkv=2, sk=sk)
     ref = JL.blockwise_attention(jnp.asarray(q), jnp.asarray(k),
                                  jnp.asarray(v), causal=causal,
@@ -210,7 +213,7 @@ def test_blockwise_scan_matches_reference(causal, window, q_offset, kv_len,
                                  kv_len=kv_len, block=16)
     out = L.blockwise_attention(_t(q), _t(k), _t(v), causal=causal,
                                 window=window, q_offset=q_offset,
-                                kv_len=kv_len, block=16, kernel=False)
+                                kv_len=kv_len, block=16)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=SCAN_TOL,
                                atol=SCAN_TOL)
 
@@ -218,7 +221,7 @@ def test_blockwise_scan_matches_reference(causal, window, q_offset, kv_len,
 def test_blockwise_dispatch_depends_on_arguments_alone(monkeypatch):
     """Inside K5's contract (causal, no window, q_offset 0, all keys
     valid, Sq == Sk) blockwise_attention calls K5 (on the CPU its plain
-    version); outside it, or with kernel=False, it runs the scan."""
+    version); outside it, it runs the scan."""
     calls = []
     real = L.flash_attention
 
@@ -236,8 +239,7 @@ def test_blockwise_dispatch_depends_on_arguments_alone(monkeypatch):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=SCAN_TOL,
                                atol=SCAN_TOL)
     for kw in (dict(window=8, q_offset=0), dict(window=None, q_offset=3),
-               dict(window=None, q_offset=0, kv_len=60),
-               dict(window=None, q_offset=0, kernel=False)):
+               dict(window=None, q_offset=0, kv_len=60)):
         L.blockwise_attention(_t(q), _t(k), _t(v), causal=True, block=16,
                               **kw)
     L.blockwise_attention(_t(q), _t(k), _t(v), causal=False, window=None,
