@@ -101,17 +101,23 @@ Drives ``repro_torch`` only (never JAX, never the JAX package ``repro``):
    each layer's static-row launch against the dynamic one and a batch
    calibrated / dynamic / f32 in turns; serves 48 calibrated VoxGAN
    requests, held exactly to the ``torch`` backend;
-10. K5 and dense LM serving: holds K5 (``flash_attn.cu``) against its
-   plain version ``flash_attention_ref`` at the serving shape (4 x 32 q /
-   8 kv heads x 4,080 x 160, bf16 and f32) and on D in (16, 64, 128, 160)
-   x S in (1, 63, 65, 2049) x causal and full x f32 and bf16 with grouped
-   heads (f32 within ``2e-5 * max(1, max|ref|)``, bf16 within ``1e-2 *
-   max|ref|`` and element by element within ``2^-7 |ref| + 1e-4
-   max|ref|``); times K5, its plain version and
-   ``F.scaled_dot_product_attention`` (a yardstick the port never calls)
-   in turns at the serving shape, device time from the profiler
-   (``bound_ms`` at the bf16 tensor cores, ``useful_bound_ms`` at the
-   CUDA cores); runs StableLM-2-12B widths at depth 2 in f32 through
+10. K5 and dense LM serving: counts the HGMMA (tensor-core) and UTMALDG
+   (TMA load) instructions in the SASS of K5's bf16 kernel and fails if
+   either is 0; holds K5 (``flash_attn.cu``: bf16 on wgmma + TMA, f32 on
+   FFMA) against its plain version ``flash_attention_ref`` at the serving
+   shape (4 x 32 q / 8 kv heads x 4,080 x 160, bf16 and f32), on D in
+   (16, 40, 64, 128, 160, 256) x S in (1, 63, 65, 127, 128, 129, 255,
+   257, 2049) x causal and full x f32 and bf16 with grouped heads, and on
+   the serving grouping at S 300 (f32 within ``2e-5 * max(1,
+   max|ref|)``, bf16 within ``1e-2 * max|ref|`` and element by element
+   within ``2^-7 |ref| + 1e-4 max|ref|``); times K5 bf16, K5 f32 on the
+   same inputs, its plain version and ``F.scaled_dot_product_attention``
+   in bf16 and f32 (a yardstick the port never calls) in turns at the
+   serving shape,
+   device time from the profiler (``bound_ms`` at the useful work on the
+   bf16 tensor cores, ``bound_split_ms`` at the 1.5x of the split P,
+   ``bound_f32_ms`` at the CUDA cores), and fails if K5 bf16 takes more
+   than 5.2 ms there; runs StableLM-2-12B widths at depth 2 in f32 through
    ``prefill`` on K5 and on the plain scan (logits within ``1e-4 *
    max(1, max|ref|)``, 8 greedy tokens each); serves 8 prompts of 4,080
    tokens through ``repro_torch.launch.serve.serve`` on StableLM-2-12B
@@ -175,6 +181,10 @@ K5_F32_GATE = 2e-5        # tests/test_flash_attn.py:30, rel. max(1, max|ref|)
 # K5 in bf16, element by element: the kernel sums in f32 and rounds its
 # output once (at most 2^-8 |ref|), so |d| <= 2^-7 |ref| + 1e-4 max|ref|
 K5_BF16_REL, K5_BF16_FLOOR = 2.0 ** -7, 1e-4
+K5_SWEEP_D = (16, 40, 64, 128, 160, 256)
+# around both kernels' tiles: f32 (64, 64), bf16 (128, 64)
+K5_SWEEP_S = (1, 63, 65, 127, 128, 129, 255, 257, 2049)
+K5_BF16_MS_LIMIT = 5.2    # ms at LM_K5_SHAPE: 10x below the FFMA kernel's
 LM_BF16_GATE = 5e-2       # served logits vs the plain scan, rel. max|ref|
                           # (bf16, tests/test_flash_attn.py:39)
 LM_ARCH = "stablelm-12b"
@@ -2050,6 +2060,28 @@ def _chain_phase(dev, tag, randn) -> dict:
                 "elements_differ": n_diff, "chained": chained}}
 
 
+def _sass_counts(path, kernel: str) -> dict:
+    """Counts of tensor-core (HGMMA) and TMA-load (UTMALDG) instructions
+    in the SASS of every function of the library at ``path`` whose
+    (mangled) name holds ``kernel``, from ``cuobjdump -sass``."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                         text=True, timeout=300)
+    if out.returncode != 0:
+        raise SystemExit(f"chip_smoke: cuobjdump failed: {out.stderr}")
+    counts = {"functions": 0, "HGMMA": 0, "UTMALDG": 0}
+    inside = False
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+            counts["functions"] += inside
+        elif inside:
+            for op in ("HGMMA", "UTMALDG"):
+                counts[op] += f" {op}." in line or f" {op} " in line
+    return counts
+
+
 @contextlib.contextmanager
 def _plain_scan():
     """Hold ``blockwise_attention`` to its plain scan, the reference of
@@ -2064,15 +2096,17 @@ def _plain_scan():
 
 
 def _lm_phase(dev, tag: str) -> dict:
-    """Phase 10: K5 and the dense LM serving path.  (b) K5 against its
+    """Phase 10: K5 and the dense LM serving path.  (a) HGMMA and UTMALDG
+    in the SASS of K5's bf16 kernel; (b) K5 against its
     plain version ``flash_attention_ref`` (TF32 off) at the serving shape
     (bf16 and f32, grouped heads; the plain version one sample at a time)
     and on D x S x causal x dtype cases with grouped heads: f32 within
     ``2e-5 * max(1, max|ref|)``, bf16 within ``1e-2 * max|ref|`` of the
     plain version in f32 on the same bf16 inputs and, element by element,
-    within ``2^-7 |ref| + 1e-4 max|ref|``; (c) at the serving shape, K5,
-    its plain version and ``F.scaled_dot_product_attention`` (a yardstick
-    the port never calls) in turns, device time from the profiler; (d)
+    within ``2^-7 |ref| + 1e-4 max|ref|``; (c) at the serving shape, K5
+    bf16, K5 f32, its plain version and ``F.scaled_dot_product_attention``
+    (a yardstick the port never calls) in turns, device time from the
+    profiler, K5 bf16 at most ``K5_BF16_MS_LIMIT``; (d)
     StableLM-2-12B widths at depth 2 in f32: two 2,080-token prompts
     through ``prefill`` with K5 and with the plain scan, last-token
     logits within ``1e-4 * max(1, max|ref|)``, then 8 greedy decode
@@ -2091,7 +2125,20 @@ def _lm_phase(dev, tag: str) -> dict:
     from repro_torch.launch.serve import random_prompts, serve
     from repro_torch.models.lm import build_lm
 
+    from repro_torch.kernels.build import load
+
     gen = torch.Generator().manual_seed(SEED)
+    lib = load("flash_attn")
+    sass = _sass_counts(lib.path, "flash_attn_wgmma")
+    serial = (f"{lib.ptxas.count('C7515')} ptxas warnings that it "
+              f"serialized wgmma (C7515)" if lib.ptxas
+              else "ptxas's report not kept (a cached build)")
+    print(f"sass: K5 bf16 ({sass['functions']} instantiations of "
+          f"flash_attn_wgmma_kernel in {lib.path.name}): {sass['HGMMA']} "
+          f"HGMMA, {sass['UTMALDG']} UTMALDG instructions; {serial} {tag}")
+    if not (sass["functions"] and sass["HGMMA"] and sass["UTMALDG"]):
+        raise SystemExit("chip_smoke: K5's bf16 kernel has no HGMMA or no "
+                         "UTMALDG in its SASS")
 
     def qkv(b, h, hkv, s, d, dtype):
         return tuple((torch.randn(b, n, s, d, generator=gen) * 0.5)
@@ -2114,12 +2161,13 @@ def _lm_phase(dev, tag: str) -> dict:
                               f32)
         ok = dmax <= tol
         text = f"max|d| {dmax:.3e} tol {tol:.3e} ({dmax / tol:.3f} of it)"
+        worst = 0.0
         if not f32:
             lim = K5_BF16_REL * ref.abs() + K5_BF16_FLOOR * ref.abs().max()
             worst = ((out.float() - ref).abs() / lim).max().item()
             ok = ok and worst <= 1.0
             text += f"; element by element {worst:.3f} of its limit"
-        return ok, text, dmax
+        return ok, text, dmax, worst
 
     # ---- (b) K5 against its plain version ------------------------------
     print(f"check: K5 vs flash_attention_ref, TF32 off: f32 gate "
@@ -2129,20 +2177,24 @@ def _lm_phase(dev, tag: str) -> dict:
           f"inputs) {tag}")
     cases = [(*LM_K5_SHAPE, torch.bfloat16, True),
              (*LM_K5_SHAPE, torch.float32, True)]
-    for d in (16, 64, 128, 160):
-        for s in (1, 63, 65, 2049):
+    for d in K5_SWEEP_D:
+        for s in K5_SWEEP_S:
             for causal in (True, False):
                 for dtype in (torch.float32, torch.bfloat16):
                     cases.append((2, 4, 2, s, d, dtype, causal))
+    for dtype in (torch.float32, torch.bfloat16):     # the serving grouping
+        cases.append((1, 32, 8, 300, 160, dtype, True))
     err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    worst_share = 0.0
     failures = []
     for b, h, hkv, s, d, dtype, causal in cases:
         q, k, v = qkv(b, h, hkv, s, d, dtype)
         out = FA.flash_attention(q, k, v, causal=causal)
         ref = plain(q.float(), k.float(), v.float(), causal)
         torch.cuda.synchronize()
-        ok, text, dmax = gate(out, ref, dtype)
+        ok, text, dmax, share = gate(out, ref, dtype)
         err[dtype] = max(err[dtype], dmax)
+        worst_share = max(worst_share, share)
         ok = ok and out.dtype == dtype and out.shape == q.shape
         if (b, h, hkv, s, d) == LM_K5_SHAPE or not ok or s == 2049:
             print(f"  ({b}, {h}/{hkv} heads, S {s}, D {d}) "
@@ -2151,9 +2203,10 @@ def _lm_phase(dev, tag: str) -> dict:
         if not ok:
             failures.append((b, h, hkv, s, d, str(dtype), causal))
     print(f"  {len(cases)} cases: the serving shape in bf16 and f32; D in "
-          f"(16, 64, 128, 160), S in (1, 63, 65, 2049), causal and full, f32 "
-          f"and bf16, 4 q / 2 kv heads; max|d| "
-          f"f32 {err[torch.float32]:.3e}, bf16 {err[torch.bfloat16]:.3e}")
+          f"{K5_SWEEP_D}, S in {K5_SWEEP_S}, causal and full, f32 and bf16, "
+          f"4 q / 2 kv heads; 32 q / 8 kv heads at S 300, D 160; max|d| "
+          f"f32 {err[torch.float32]:.3e}, bf16 {err[torch.bfloat16]:.3e}; "
+          f"bf16 at most {worst_share:.3f} of the element limit")
     if failures:
         raise SystemExit(f"chip_smoke: K5 disagrees with its plain version "
                          f"on {failures}")
@@ -2161,11 +2214,15 @@ def _lm_phase(dev, tag: str) -> dict:
     # ---- (c) timing at the serving shape --------------------------------
     b, h, hkv, s, d = LM_K5_SHAPE
     q, k, v = qkv(b, h, hkv, s, d, torch.bfloat16)
+    q32, k32, v32 = q.float(), k.float(), v.float()
     fns = {"k5": lambda: FA.flash_attention(q, k, v),
-           "plain": lambda: plain(q.float(), k.float(), v.float()),
+           "k5_f32": lambda: FA.flash_attention(q32, k32, v32),
+           "plain": lambda: plain(q32, k32, v32),
            "sdpa": lambda: F.scaled_dot_product_attention(
-               q, k, v, is_causal=True, enable_gqa=True)}
-    ev = _time_ms(fns, reps=5, iters=1)
+               q, k, v, is_causal=True, enable_gqa=True),
+           "sdpa_f32": lambda: F.scaled_dot_product_attention(
+               q32, k32, v32, is_causal=True, enable_gqa=True)}
+    ev = _time_ms(fns, reps=5, iters=3)
     dev_ms = {n: [] for n in fns}
     for r in range(3):
         for n in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
@@ -2177,24 +2234,37 @@ def _lm_phase(dev, tag: str) -> dict:
     flops = 2.0 * b * h * d * s * (s + 1)           # causal pairs only
     nbytes = 2 * (2 * b * h * s * d + 2 * b * hkv * s * d)
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    useful = flops / PEAK_F32_FLOPS * 1e3
+    # the bf16 kernel's P.V runs twice (P = P_hi + P_lo): 1.5x the work
+    t_split = 1.5 * t_ops
+    # the f32 kernel: its useful work on the CUDA cores, twice the bytes
+    t_f32 = max(flops / PEAK_F32_FLOPS * 1e3, 2 * t_bytes)
     measured = {n: dev_ms[n] if math.isfinite(dev_ms[n]) else ev[n][0]
                 for n in fns}
     print(f"time: K5 at the serving shape ({b}, {h} q / {hkv} kv heads, S "
-          f"{s}, D {d}, bf16, causal), in turns: device time from the "
+          f"{s}, D {d}, causal), in turns: device time from the "
           f"profiler (median of the 3 profiled calls that report any) / "
-          f"CUDA events (median [min, max] of 5): {tag}")
-    for n, label in (("k5", "K5"), ("plain", "plain (per sample, f32)"),
-                     ("sdpa", "F.scaled_dot_product_attention")):
+          f"CUDA events over 3 calls (median [min, max] of 5; taken as the "
+          f"time where the profiler reports none): {tag}")
+    for n, label in (("k5", "K5 bf16 (wgmma + TMA)"),
+                     ("k5_f32", "K5 f32 (FFMA), the same inputs in f32"),
+                     ("plain", "plain (per sample, f32)"),
+                     ("sdpa", "F.scaled_dot_product_attention bf16"),
+                     ("sdpa_f32", "F.scaled_dot_product_attention f32")):
         print(f"  {label}: {dev_ms[n]:.3f} ms device / {ev[n][0]:.3f} ms "
               f"[{ev[n][1]:.3f}, {ev[n][2]:.3f}] events")
-    print(f"  bound {max(t_ops, t_bytes):.3f} ms "
+    print(f"  bound {max(t_ops, t_bytes):.3f} ms at the useful work "
           f"({'operations' if t_ops >= t_bytes else 'bytes'}: {flops:.3e} "
           f"at the 989 TFLOP/s bf16 tensor cores; {nbytes / 1e6:.1f} MB), "
-          f"useful bound at the 67 TFLOP/s CUDA cores {useful:.3f} ms; K5 "
-          f"at {flops / measured['k5'] / 1e9:.1f} TFLOP/s; sm clock, power, "
-          f"temperature {_clocks()} {tag}")
-    del q, k, v
+          f"{max(t_split, t_bytes):.3f} ms at the split's work (1.5x); f32 "
+          f"bound at the 67 TFLOP/s CUDA cores {t_f32:.3f} ms; K5 bf16 at "
+          f"{flops / measured['k5'] / 1e9:.1f} TFLOP/s useful, "
+          f"{max(t_split, t_bytes) / measured['k5']:.3f} of the split "
+          f"bound, {measured['k5'] / measured['sdpa']:.2f}x SDPA; sm clock, "
+          f"power, temperature {_clocks()} {tag}")
+    if measured["k5"] > K5_BF16_MS_LIMIT:
+        raise SystemExit(f"chip_smoke: K5 bf16 took {measured['k5']:.3f} ms "
+                         f"at the serving shape, over {K5_BF16_MS_LIMIT} ms")
+    del q, k, v, q32, k32, v32
     torch.cuda.empty_cache()
 
     # ---- (d) path gate in f32 at StableLM-2-12B widths, depth 2 --------
@@ -2351,7 +2421,9 @@ def _lm_phase(dev, tag: str) -> dict:
         k5_ms = sum(ms for name, ms, _ in top if "flash_attn" in name)
         print(f"  one prefill under the profiler: device busy {busy:.3f} ms "
               f"of {wall:.3f} ms wall (busy share {busy / wall:.3f}); K5 "
-              f"{k5_ms:.3f} ms ({k5_ms / busy:.3f} of busy) {tag}")
+              f"{k5_ms:.3f} ms ({k5_ms / busy:.3f} of busy, "
+              f"{k5_ms / LM_SERVE_LAYERS:.3f} ms per launch on the LM's "
+              f"(B, S, H, D) views) {tag}")
         for name, ms_k, calls in top:
             print(f"    {ms_k:.3f} ms in {calls} call(s): {name[:90]}")
     del params, lm
@@ -2364,8 +2436,11 @@ def _lm_phase(dev, tag: str) -> dict:
               "ms": measured["k5"], "plain_ms": measured["plain"],
               "bound_ms": max(t_ops, t_bytes),
               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-              "useful_bound_ms": useful, "library_ms": measured["sdpa"],
-              "ms_events": ev["k5"][0]}
+              "bound_split_ms": max(t_split, t_bytes),
+              "library_ms": measured["sdpa"], "ms_events": ev["k5"][0],
+              "ms_f32": measured["k5_f32"], "bound_f32_ms": t_f32,
+              "library_f32_ms": measured["sdpa_f32"],
+              "sass_bf16": sass}
     report = {"k5_device_ms": dev_ms, "k5_events_ms": ev,
               "path_gate_max_abs": gate_d,
               "serve_gate_max_abs": dmax,
@@ -2374,7 +2449,8 @@ def _lm_phase(dev, tag: str) -> dict:
                         "wall_s": stats["wall_s"], "peak_gib": peak_gib,
                         "k5_launches": launches, "params": n_params},
               "prefill_device": {"busy_ms": busy, "wall_ms": wall,
-                                 "k5_ms": k5_ms},
+                                 "k5_ms": k5_ms,
+                                 "k5_ms_per_launch": k5_ms / LM_SERVE_LAYERS},
               "decode_device": {"busy_ms": dbusy, "wall_ms": dwall}}
     return {"kernel": record, "report": report}
 
@@ -2756,7 +2832,10 @@ def main(json_path: str = "") -> int:
           f"VoxGAN's three tap convs at batch {BUCKET}, its launches in the "
           f"int8 VoxGAN serving run; K5's ms/plain_ms/library_ms are device "
           f"time at the serving shape {LM_K5_SHAPE} (B, H, Hkv, S, D) in "
-          f"bf16, its launches in phase 10's serving run) {tag}")
+          f"bf16 (CUDA events where the profiler reports none), ms_f32 the "
+          f"f32 kernel's on the same inputs, bound_ms at the useful work, "
+          f"bound_split_ms at the bf16 kernel's split P, its launches in "
+          f"phase 10's serving run) {tag}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

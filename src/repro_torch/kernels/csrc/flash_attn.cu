@@ -5,33 +5,80 @@
 // over (B, H, S, D) q/k/v with an online softmax, computed per query
 // tile against a sweep of key/value tiles
 //
-//   s[i, j] = (scale * q[i]) . k[j]          scale = 1 / sqrt(D)
+//   s[i, j] = scale * (q[i] . k[j])          scale = 1 / sqrt(D)
 //   o[i]    = sum_j softmax_j(s[i, :])[j] * v[j]
 //
 // with the causal mask (key j visible to query i when j <= i) taken only
 // for Sq == Sk, the TPU kernel's own validity condition.  The running
-// max, the running sum and the accumulator are f32; the output is
-// written once, in the input's type.  Differences from the TPU kernel's
-// contract:
+// max, the running sum and the accumulator are f32; tiles entirely above
+// the diagonal are skipped; rows with no visible key yet keep m = -inf
+// and contribute 0 (the TPU kernel's guard); the output divides by
+// max(l, 1e-30) and is written once, in the input's type.  Differences
+// from the TPU kernel's contract:
 //   * k/v may carry Hkv heads with H % Hkv == 0 (grouped-query
 //     attention): q head h reads kv head h / (H / Hkv), so the caller
 //     never expands k/v;
 //   * any S >= 1: keys past Sk are masked and query rows past Sq are
 //     computed but never written, so no host-side padding copy is made;
-//   * any element strides over (batch, head, sequence), with the head dim
+//   * strides over (batch, head, sequence), with the head dim
 //     unit-stride: the LM hands (B, S, H, D) activations in as transposed
 //     views and gets its output in the same layout.
 //
-// What bounds it on the H100: at the serving shape (B 4, H 32, S 4080,
-// D 160, bf16) a query tile does 2 * 64 * 64 * D multiply-adds per key
-// tile it reads, far above the card's bytes-to-operations balance, so
-// attention is bound by arithmetic: 989 TFLOP/s on the bf16 tensor
-// cores, 67 TFLOP/s on the CUDA cores this first kernel uses.  The
-// design is the FlashAttention schedule written for CUDA cores:
+// The dtype picks one of two kernels; neither falls back on the other.
+//
+// bf16, the serving dtype: `flash_attn_wgmma_kernel`, both products on
+// the tensor cores.  What bounds it on the H100: at the serving shape
+// (B 4, H 32, S 4080, D 160, causal) the useful work is 2 * B * H * D *
+// S * (S + 1) = 6.8e14 operations, 0.690 ms at the 989 TFLOP/s of the
+// bf16 tensor cores; the bytes (q, k, v read once, o written once, 0.2
+// GB) take 0.06 ms at 3.35 TB/s, so it is bound by operations.  P is
+// split in two (below), which makes the P.V product twice as long: 1.5x
+// the useful work, 1.035 ms at the same rate.  The design:
+//   * one block per (128 query rows, head, sample), 384 threads: two
+//     consumer warpgroups of 64 rows each and a producer warpgroup whose
+//     first warp issues every load (setmaxnreg moves registers from the
+//     producer, 24 a thread, to the consumers, 240);
+//   * q (once per block) and each tile of BK keys of k and v come in by
+//     TMA, four-dimensional tensor maps (D, S, H, B) over the caller's
+//     strides, built on the host per launch; rows past S and head dims
+//     past D arrive as zeros; kv head h / (H / Hkv) is a coordinate of
+//     the map, so grouped heads are read in place;
+//   * k/v tiles go through a ring of two stages with full and empty
+//     mbarriers, so the next tile's loads run under this tile's products;
+//     BK is 128 where q and two stages fit in shared memory (D <= 160:
+//     200 KB at D 160), else 64 (three or four stages measured no faster);
+//   * shared tiles are cut into blocks of 32 head dims (64 bytes a row)
+//     with the 64-byte swizzle, the one that divides D = 160; the TMA
+//     maps and every wgmma descriptor use that same swizzle;
+//   * S = Q K^T is `wgmma m64n{BK}k16` with both operands K-major from
+//     shared memory, k16 steps over D rounded up to 32, fully unrolled (a
+//     loop with a run-time count made ptxas serialize every wgmma of the
+//     kernel); the mask is applied only on a tile that crosses the
+//     diagonal or Sk (TMA's zero rows past Sk would score 0, not -inf);
+//   * softmax in f32 registers: one multiply by scale * log2(e), exp2f,
+//     the row max and sum over the four threads that share a row;
+//   * O += P V is `wgmma m64n64k16` per 64 head dims (n32 for an odd last
+//     block), A = P from registers (the score accumulator's layout is the
+//     A fragment's), B = V MN-major from shared memory (the descriptor's
+//     transpose bit);
+//   * P is split as p_hi = bf16(p), p_lo = bf16(p - p_hi) and both go
+//     through the same V tile into one f32 accumulator; l sums the
+//     unrounded p.  One bf16 rounding of P before P.V breaks the
+//     element-by-element gate (|d| <= 2^-7 |ref| + 1e-4 max|ref|) by 4x
+//     (causal) to 16x (full) in a CPU restatement of this schedule
+//     (tests/test_torch_lm.py::test_k5_bf16_needs_p_split); the pair
+//     carries p to 16 bits of mantissa and holds it, for 1.5x the tensor
+//     work;
+//   * the grid is one-dimensional, the longest query tiles (the last
+//     ones of a causal sweep) first over all heads and samples, so the
+//     tail of the launch is short tiles.
+//
+// f32, the precision path: `flash_attn_kernel`, the FlashAttention
+// schedule on the CUDA cores (67 TFLOP/s f32; TF32 tensor cores keep 10
+// mantissa bits and could not hold the 2e-5 f32 gate):
 //   * one block of 256 threads per (query tile of 64 rows, head, batch);
 //     the TPU grid's sequential kv axis is a loop inside the block, and
-//     for a causal launch it stops at the tile holding the diagonal:
-//     tiles entirely above it are skipped, not masked;
+//     for a causal launch it stops at the tile holding the diagonal;
 //   * the query tile is staged once in shared memory as f32, already
 //     multiplied by the scale; per step a 64-key tile of k and v is
 //     staged in f32 (rows of odd stride, so that 16 threads reading 16
@@ -40,14 +87,13 @@
 //     the score tile (plain FFMA over D) and the same 4 rows x ceil(D/16)
 //     head dims of the accumulator; a row's max and sum are reduced over
 //     its 16 threads, which share a half warp, with shuffles; the
-//     probabilities go through shared memory to the P.V product;
-//   * rows with no visible key yet keep m = -inf and contribute 0 (the
-//     TPU kernel's guard), and the output divides by max(l, 1e-30).
-// Tensor cores (mma/wgmma) and TMA staging are later work.
+//     probabilities go through shared memory to the P.V product.
 
+#include <cuda.h>            // CUtensorMap and its enums; no link to libcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -71,13 +117,7 @@ struct Args {
 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 
 // Stage rows [row0, row0 + 64) of one (batch, head) slice into shared
 // memory as f32 times `mul`, rows at or past `nrows` as zeros.  Warp w
@@ -267,11 +307,557 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
   return launch<T, 16>(q, k, v, o, a, B, s);
 }
 
+// ---------------------------------------------------------------------------
+// bf16: wgmma + TMA
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+constexpr int kBQ = 128;            // query rows per block, 64 per consumer
+constexpr int kCols = 32;           // head dims per swizzled block (64 B rows)
+constexpr int kRowBytes = kCols * 2;
+constexpr int kStages = 2;          // k/v ring depth
+constexpr int kThreads = 384;       // consumers: warps 0-7; producer: 8-11
+constexpr int kConsumers = 256;
+constexpr int kSmemMax = 232448 - 1024;   // the opt-in limit, less alignment
+
+struct Args {
+  int B, H, Hkv, Sq, Sk, D, causal, nq, pairs;
+  long long ob, oh, os;             // output strides in elements
+  float scale_log2;                 // scale * log2(e)
+};
+
+// The shape of one instantiation: NC = ceil(D / 32) blocks of 32 head
+// dims, and BK keys per tile: 128 where the q tile and two stages of k and
+// v fit in shared memory (D <= 160), else 64.
+template <int NC> struct Cfg {
+  static constexpr int q = NC * kBQ * kRowBytes;       // q tile bytes
+  static constexpr int BK =
+      q + 2 * kStages * NC * 128 * kRowBytes <= kSmemMax ? 128 : 64;
+  static constexpr int kv = NC * BK * kRowBytes;       // one k or v tile
+  static constexpr int bytes = q + 2 * kStages * kv;
+  static_assert(bytes <= kSmemMax, "tiles exceed shared memory");
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+               :: "r"(bar) : "memory");
+}
+
+// Wait until the phase of parity `parity` of the barrier has completed.
+// A wait still open after about 2^36 cycles (30 s or more) traps, so a
+// fault in the pipeline ends the launch with an error instead of hanging.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  long long start = 0;
+  for (;;) {
+    asm volatile("{\n\t.reg .pred p;\n\t"
+                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+                 "selp.u32 %0, 1, 0, p;\n\t}"
+                 : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (start == 0) start = clock64();
+    else if (clock64() - start > (1LL << 36)) __trap();
+  }
+}
+
+// One box of the map (32 head dims x its rows) into shared memory at
+// `dst`, counted on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int d0, int row,
+                                         int head, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
+         "r"(d0), "r"(row), "r"(head), "r"(batch)
+      : "memory");
+}
+
+// wgmma descriptor of a 64-byte-swizzled operand at shared address
+// `addr`: rows of 64 bytes, 8-row atoms of 512 bytes, `sbo` bytes from one
+// 8-row group to the next (along M/N for a K-major operand, along K for
+// an MN-major one) and, for an MN-major operand wider than one swizzle
+// block, `lbo` bytes from one 32-column block to the next (K-major
+// operands here never cross a block within a k16 step).
+__device__ __forceinline__ uint64_t desc64(uint32_t addr, uint32_t lbo,
+                                           uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (static_cast<uint64_t>(2) << 62);              // 64-byte swizzle
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// Pin a register's value at this point of the program: the compiler may
+// not move its reads or writes across the asynchronous products that use
+// it (called before the fence that opens them and after the wait that
+// closes them).
+__device__ __forceinline__ void keep(float& r) {
+  asm volatile("" : "+f"(r) :: "memory");
+}
+__device__ __forceinline__ void keep(uint32_t& r) {
+  asm volatile("" : "+r"(r) :: "memory");
+}
+template <int N> __device__ __forceinline__ void keep(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) keep(r[i]);
+}
+template <int N> __device__ __forceinline__ void keep(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) keep(r[i][j]);
+}
+
+// d (64 x 64, f32) = A (64 x 16) B^T (64 x 16) [+ d]: both bf16, K-major,
+// from shared memory.
+__device__ __forceinline__ void wgmma_qk(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %34, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n\t}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 128, f32) = A (64 x 16) B^T (128 x 16) [+ d]: both bf16, K-major,
+// from shared memory.
+__device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %66, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n\t}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 32, f32) += A (64 x 16, bf16 in registers) B (16 x 32, bf16,
+// MN-major in shared memory: the transpose bit).
+__device__ __forceinline__ void wgmma_pv(float (&d)[16], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %21, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n\t}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// The same over 64 columns, two swizzle blocks: d0 holds columns 0-31,
+// d1 columns 32-63.
+__device__ __forceinline__ void wgmma_pv(float (&d0)[16], float (&d1)[16],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %37, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n\t}"
+      : "+f"(d0[0]), "+f"(d0[1]), "+f"(d0[2]), "+f"(d0[3]), "+f"(d0[4]),
+        "+f"(d0[5]), "+f"(d0[6]), "+f"(d0[7]), "+f"(d0[8]), "+f"(d0[9]),
+        "+f"(d0[10]), "+f"(d0[11]), "+f"(d0[12]), "+f"(d0[13]),
+        "+f"(d0[14]), "+f"(d0[15]), "+f"(d1[0]), "+f"(d1[1]), "+f"(d1[2]),
+        "+f"(d1[3]), "+f"(d1[4]), "+f"(d1[5]), "+f"(d1[6]), "+f"(d1[7]),
+        "+f"(d1[8]), "+f"(d1[9]), "+f"(d1[10]), "+f"(d1[11]), "+f"(d1[12]),
+        "+f"(d1[13]), "+f"(d1[14]), "+f"(d1[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Accumulator layout of a wgmma m64nN tile: warp w of the warpgroup owns
+// rows 16w..16w+15; a lane holds, for each 8-column group j, elements
+// 4j+0/1 at row lane/4 and 4j+2/3 at row lane/4 + 8, columns 8j + 2
+// (lane % 4) + 0/1.
+template <int NC>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_attn_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
+                        __grid_constant__ const CUtensorMap tk,
+                        __grid_constant__ const CUtensorMap tv,
+                        __nv_bfloat16* __restrict__ o, const Args a) {
+  constexpr int BK = Cfg<NC>::BK;
+  constexpr int KVB = BK * kRowBytes;       // one 32-dim block of a k/v tile
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + 2 * kStages];
+  // swizzle atoms must sit on 512-byte boundaries; 1024 keeps it simple
+  const uint32_t sq = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sk = sq + Cfg<NC>::q;
+  const uint32_t sv = sk + kStages * Cfg<NC>::kv;
+  const uint32_t qbar = smem_addr(&bars[0]);
+  const uint32_t full0 = smem_addr(&bars[1]);              // + 8 * stage
+  const uint32_t empty0 = smem_addr(&bars[1 + kStages]);
+
+  // Longest query tiles first, over every head and sample.
+  const int hb = a.H * a.B;
+  const int qt = a.nq - 1 - static_cast<int>(blockIdx.x) / hb;
+  const int h = static_cast<int>(blockIdx.x) % hb % a.H;
+  const int b = static_cast<int>(blockIdx.x) % hb / a.H;
+  const int hk = h / (a.H / a.Hkv);
+  const int q0 = qt * kBQ;
+  const int kend = a.causal ? min(a.Sk, q0 + kBQ) : a.Sk;
+  const int ntiles = (kend + BK - 1) / BK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full0 + 8 * st, 1);
+      mbar_init(empty0 + 8 * st, kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= kConsumers / 32) {
+    // ---- producer: one thread issues every TMA load -------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (warp == kConsumers / 32 && lane == 0) {
+      mbar_expect_tx(qbar, Cfg<NC>::q);
+      for (int c = 0; c < NC; ++c)
+        tma_load(sq + c * kBQ * kRowBytes, &tq, qbar, c * kCols, q0, h, b);
+      for (int t = 0; t < ntiles; ++t) {
+        const int st = t % kStages;
+        if (t >= kStages) mbar_wait(empty0 + 8 * st, (t / kStages - 1) & 1);
+        const uint32_t full = full0 + 8 * st;
+        mbar_expect_tx(full, 2 * Cfg<NC>::kv);
+        const uint32_t ks = sk + st * Cfg<NC>::kv;
+        const uint32_t vs = sv + st * Cfg<NC>::kv;
+        for (int c = 0; c < NC; ++c) {
+          tma_load(ks + c * KVB, &tk, full, c * kCols, t * BK, hk, b);
+          tma_load(vs + c * KVB, &tv, full, c * kCols, t * BK, hk, b);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns rows q0 + 64 wg .. + 63 ---------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int wg = warp / 4;
+    const int first = q0 + 64 * wg;                  // warpgroup's first row
+    const int row0 = first + 16 * (warp % 4) + lane / 4;   // and row0 + 8
+    const int cq = 2 * (lane % 4);
+    const uint32_t qa = sq + wg * 64 * kRowBytes;
+
+    float acc[NC][16];
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int i = 0; i < 16; ++i) acc[c][i] = 0.f;
+    float s[BK / 2];
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    uint32_t phi[BK / 16][4], plo[BK / 16][4];
+
+    mbar_wait(qbar, 0);
+    for (int t = 0; t < ntiles; ++t) {
+      const int st = t % kStages;
+      const int k0 = t * BK;
+      mbar_wait(full0 + 8 * st, (t / kStages) & 1);
+      if (a.causal && k0 > first + 63) {     // above this warpgroup's diagonal
+        mbar_arrive(empty0 + 8 * st);
+        continue;
+      }
+      const uint32_t ks = sk + st * Cfg<NC>::kv;
+      const uint32_t vs = sv + st * Cfg<NC>::kv;
+
+      // S = Q K^T over D in k16 steps (two per 32-dim block)
+      keep(s);
+      wg_fence();
+#pragma unroll
+      for (int kd = 0; kd < 2 * NC; ++kd) {
+        const uint32_t off = (kd & 1) * 32;          // bytes into the row
+        wgmma_qk(s, desc64(qa + (kd >> 1) * kBQ * kRowBytes + off, 512, 512),
+                 desc64(ks + (kd >> 1) * KVB + off, 512, 512), kd);
+      }
+      wg_commit();
+      wg_wait();
+      keep(s);
+
+      if ((a.causal && k0 + BK - 1 > first) || k0 + BK > a.Sk) {
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) {
+          const int kpos = k0 + 8 * (i / 4) + cq + (i & 1);
+          const int qpos = row0 + 8 * ((i >> 1) & 1);
+          if (kpos >= a.Sk || (a.causal && kpos > qpos)) s[i] = -INFINITY;
+        }
+      }
+
+      // online softmax in the log2 domain: x = s * scale * log2(e)
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i)
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+      float safe[2], corr[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r] * a.scale_log2);
+        safe[r] = m_new == -INFINITY ? 0.f : m_new;
+        corr[r] = exp2f(m[r] - safe[r]);          // m = -inf: 0
+        m[r] = m_new;
+        l[r] *= corr[r];
+      }
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        const int r = (i >> 1) & 1;
+        const float p = exp2f(fmaf(s[i], a.scale_log2, -safe[r]));
+        l[r] += p;
+        s[i] = p;
+      }
+      // P as bf16 hi + lo, in the A-fragment layout: for keys 16kb..+15,
+      // registers (row, cols 0-7), (row + 8, 0-7), (row, 8-15), (row + 8,
+      // 8-15) are accumulator pairs 8kb + 0/1, 2/3, 4/5, 6/7
+#pragma unroll
+      for (int kb = 0; kb < BK / 16; ++kb)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float x = s[8 * kb + 2 * r], y = s[8 * kb + 2 * r + 1];
+          const __nv_bfloat162 hi = __floats2bfloat162_rn(x, y);
+          phi[kb][r] = *reinterpret_cast<const uint32_t*>(&hi);
+          plo[kb][r] = pack_bf16(x - __low2float(hi), y - __high2float(hi));
+        }
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int i = 0; i < 16; ++i) acc[c][i] *= corr[(i >> 1) & 1];
+
+      // O += P_hi V + P_lo V over the tile's keys in k16 steps, 64 head
+      // dims (two swizzle blocks, BK * 64 bytes apart) per wgmma
+#pragma unroll
+      for (int c = 0; c < NC; ++c) keep(acc[c]);
+      keep(phi);
+      keep(plo);
+      wg_fence();
+#pragma unroll
+      for (int kb = 0; kb < BK / 16; ++kb) {
+#pragma unroll
+        for (int c = 0; c < NC; c += 2) {
+          const uint64_t dv = desc64(vs + c * KVB + kb * 16 * kRowBytes,
+                                     KVB, 512);
+          if (c + 1 < NC) {
+            wgmma_pv(acc[c], acc[c + 1], phi[kb], dv);
+            wgmma_pv(acc[c], acc[c + 1], plo[kb], dv);
+          } else {
+            wgmma_pv(acc[c], phi[kb], dv);
+            wgmma_pv(acc[c], plo[kb], dv);
+          }
+        }
+      }
+      wg_commit();
+      wg_wait();
+#pragma unroll
+      for (int c = 0; c < NC; ++c) keep(acc[c]);
+      keep(phi);
+      keep(plo);
+      mbar_arrive(empty0 + 8 * st);
+    }
+
+    // o = acc / max(l, 1e-30), rows past Sq and dims past D not written
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qpos = row0 + 8 * r;
+      if (qpos >= a.Sq) continue;
+      const float denom = fmaxf(l[r], 1e-30f);
+      __nv_bfloat16* op = o + b * a.ob + h * a.oh + qpos * a.os;
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int col = c * kCols + 8 * j + cq;
+          const float x = acc[c][4 * j + 2 * r] / denom;
+          const float y = acc[c][4 * j + 2 * r + 1] / denom;
+          if (a.pairs && col + 1 < a.D) {
+            *reinterpret_cast<__nv_bfloat162*>(op + col) =
+                __floats2bfloat162_rn(x, y);
+          } else {
+            if (col < a.D) op[col] = __float2bfloat16_rn(x);
+            if (col + 1 < a.D) op[col + 1] = __float2bfloat16_rn(y);
+          }
+        }
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the CUDA driver that the runtime loaded.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The (D, S, heads, B) map of one operand, boxes of 32 dims x `rows`,
+// 64-byte swizzle, zeros out of bounds.  Strides in elements.
+CUresult make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int D,
+                  int S, int heads, int B, long long ss, long long sh,
+                  long long sb, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S,
+                              (cuuint64_t)heads, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2,
+                                 (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)kCols, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// q, k and v: base pointers and (batch, head, sequence) strides.
+struct Operands {
+  const void* ptr[3];
+  long long stride[3][3];
+};
+
+// Returns a cudaError_t, or 1000 + the CUresult with which
+// cuTensorMapEncodeTiled refused a tensor map.
+template <int NC>
+int launch(EncodeTiled enc, const Operands& in, void* o, const Args& a,
+           cudaStream_t stream) {
+  CUtensorMap maps[3];
+  const int rows[3] = {kBQ, Cfg<NC>::BK, Cfg<NC>::BK};
+  const int seq[3] = {a.Sq, a.Sk, a.Sk}, heads[3] = {a.H, a.Hkv, a.Hkv};
+  for (int i = 0; i < 3; ++i) {
+    const CUresult r = make_map(enc, &maps[i], in.ptr[i], a.D, seq[i],
+                                heads[i], a.B, in.stride[i][2],
+                                in.stride[i][1], in.stride[i][0], rows[i]);
+    if (r != CUDA_SUCCESS) return 1000 + (int)r;
+  }
+  const int smem = Cfg<NC>::bytes + 1024;   // + the 1024-byte alignment
+  auto kern = flash_attn_wgmma_kernel<NC>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long grid = (long long)a.nq * a.H * a.B;
+  if (grid > 2147483647LL) return (int)cudaErrorInvalidConfiguration;
+  kern<<<(unsigned)grid, kThreads, smem, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), a);
+  return (int)cudaGetLastError();
+}
+
+int dispatch(const Operands& in, void* o, int B, int H, int Hkv, int Sq,
+             int Sk, int D, int causal, long long ob, long long oh,
+             long long os, float scale, cudaStream_t stream) {
+  // TMA: 16-byte aligned bases, strides a positive multiple of 16 bytes
+  for (int i = 0; i < 3; ++i) {
+    if (reinterpret_cast<uintptr_t>(in.ptr[i]) % 16 != 0)
+      return (int)cudaErrorInvalidValue;
+    for (int j = 0; j < 3; ++j)
+      if (in.stride[i][j] <= 0 || in.stride[i][j] % 8 != 0)
+        return (int)cudaErrorInvalidValue;
+  }
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  Args a;
+  a.B = B; a.H = H; a.Hkv = Hkv; a.Sq = Sq; a.Sk = Sk; a.D = D;
+  a.causal = causal; a.nq = (Sq + kBQ - 1) / kBQ;
+  a.ob = ob; a.oh = oh; a.os = os;
+  a.pairs = ((ob | oh | os) % 2 == 0 &&
+             reinterpret_cast<uintptr_t>(o) % 4 == 0);
+  a.scale_log2 = scale * 1.4426950408889634f;
+  switch ((D + kCols - 1) / kCols) {
+    case 1: return launch<1>(enc, in, o, a, stream);
+    case 2: return launch<2>(enc, in, o, a, stream);
+    case 3: return launch<3>(enc, in, o, a, stream);
+    case 4: return launch<4>(enc, in, o, a, stream);
+    case 5: return launch<5>(enc, in, o, a, stream);
+    case 6: return launch<6>(enc, in, o, a, stream);
+    case 7: return launch<7>(enc, in, o, a, stream);
+    default: return launch<8>(enc, in, o, a, stream);
+  }
+}
+
+}  // namespace tc
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o alike); a causal
-// launch needs Sq == Sk.  Strides are
-// in elements, over (batch, head, sequence); the head dim is unit-stride.
+// dtype: 0 = float32 (the FFMA kernel), 1 = bfloat16 (the wgmma + TMA
+// kernel), q, k, v and o alike; a causal launch needs Sq == Sk.  Strides
+// are in elements, over (batch, head, sequence); the head dim is
+// unit-stride.  bf16 also needs q, k, v on 16-byte boundaries with every
+// stride a positive multiple of 8 elements (what a TMA map can describe).
+// Returns a cudaError_t, or 1000 + the CUresult with which
+// cuTensorMapEncodeTiled refused a tensor map.
 extern "C" int flash_attn_launch(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,
     int H, int Hkv, int Sq, int Sk, int D, int causal, long long qb,
@@ -282,6 +868,14 @@ extern "C" int flash_attn_launch(
       D < 1 || D > kMaxD || H > 65535 || B > 65535 ||
       (causal && Sq != Sk))
     return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    const tc::Operands in = {{q, k, v},
+                             {{qb, qh, qs}, {kb, kh, ks}, {vb, vh, vs}}};
+    return tc::dispatch(in, o, B, H, Hkv, Sq, Sk, D, causal, ob, oh, os,
+                        scale, s);
+  }
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
   Args a;
   a.H = H; a.Hkv = Hkv; a.Sq = Sq; a.Sk = Sk; a.D = D; a.causal = causal;
   a.qb = qb; a.qh = qh; a.qs = qs;
@@ -289,10 +883,5 @@ extern "C" int flash_attn_launch(
   a.vb = vb; a.vh = vh; a.vs = vs;
   a.ob = ob; a.oh = oh; a.os = os;
   a.scale = scale;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return (int)dispatch<float>(q, k, v, o, a, B, s);
-    case 1: return (int)dispatch<__nv_bfloat16>(q, k, v, o, a, B, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return (int)dispatch<float>(q, k, v, o, a, B, s);
 }

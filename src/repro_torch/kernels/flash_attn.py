@@ -15,7 +15,11 @@ strides when q is dense (a transposed view of (B, S, H, D) activations),
 else it is contiguous.
 
 On a CUDA tensor it launches ``csrc/flash_attn.cu`` (built at first use;
-counted by ``FLASH_ATTN_LAUNCHES``) or raises; on a CPU tensor it runs
+counted by ``FLASH_ATTN_LAUNCHES``) or raises: bf16 runs the tensor-core
+kernel (``wgmma`` fed by TMA, tile :data:`TILE`), which needs q, k and v
+on 16-byte boundaries with every stride over (batch, head, sequence) a
+multiple of 16 bytes; f32 runs the CUDA-core kernel (tile
+:data:`F32_TILE`), which takes any such strides.  On a CPU tensor it runs
 :func:`flash_attention_ref`, the reference's oracle
 (``src/repro/kernels/ref.py`` ``flash_attention_ref``: full f32 scores,
 end-aligned causal mask, optional window), which the tests and
@@ -32,9 +36,12 @@ import torch
 
 from repro_torch.kernels.sd_conv import check_no_grad
 
-TILE = (64, 64)            # the kernel's (query rows, keys) per step
-MAX_HEAD_DIM = 256         # the kernel's shared-memory staging holds D <= 256
+TILE = (128, 64)           # the bf16 kernel's (query rows, keys) per step
+F32_TILE = (64, 64)        # the f32 kernel's
+MAX_HEAD_DIM = 256         # the kernels' shared-memory staging holds D <= 256
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_TILES = {torch.float32: F32_TILE, torch.bfloat16: TILE}
+TMA_ALIGN = 16             # bytes: a TMA map's base and strides
 
 FLASH_ATTN_LAUNCHES = 0    # kernel launches; the plain versions never count
 
@@ -94,32 +101,59 @@ def _check_operands(q, k, v, causal: bool) -> None:
                          f"{sk}")
 
 
+def _tma_strides(name: str, t: torch.Tensor) -> tuple:
+    """t's (batch, head, sequence) strides as the bf16 kernel's TMA map
+    takes them, a size-1 dim's stride (never stepped over) replaced by a
+    valid one; raises where a map cannot describe t."""
+    if t.data_ptr() % TMA_ALIGN:
+        raise ValueError(f"the bf16 kernel reads {name} by TMA, which needs "
+                         f"a base on a {TMA_ALIGN}-byte boundary, not "
+                         f"{t.data_ptr():#x}")
+    unit = TMA_ALIGN // t.element_size()
+    (b, h, s, d), (sb, sh, ss) = t.shape, t.stride()[:3]
+    for dim, n, x in (("batch", b, sb), ("head", h, sh),
+                      ("sequence", s, ss)):
+        if n > 1 and (x <= 0 or x % unit):
+            raise ValueError(
+                f"the bf16 kernel reads {name} by TMA, which needs its "
+                f"{dim} stride to be a positive multiple of {TMA_ALIGN} "
+                f"bytes ({unit} elements), not {x}")
+    ss = ss if s > 1 else -(-d // unit) * unit
+    sh = sh if h > 1 else ss * s
+    sb = sb if b > 1 else sh * h
+    return sb, sh, ss
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, bq: int = TILE[0],
-                    bk: int = TILE[1]) -> torch.Tensor:
+                    causal: bool = True, bq: Optional[int] = None,
+                    bk: Optional[int] = None) -> torch.Tensor:
     """q: (B, H, Sq, D); k, v: (B, Hkv, Sk, D), ``H % Hkv == 0``, ``Sq ==
     Sk`` when ``causal``.
 
     Returns (B, H, Sq, D) in ``q.dtype`` (q's strides when q is dense).
     ``bq``/``bk`` are the TPU kernel's tiles: any positive sizes on the
-    CPU, where they do not change the result, the kernel's own ``TILE`` on
-    the card.  The kernel takes float32 or bfloat16 and ``D <=
-    MAX_HEAD_DIM``.
+    CPU, where they do not change the result; on the card the kernel's
+    own (``TILE`` for bfloat16, ``F32_TILE`` for float32), which is what
+    ``None`` picks.  The kernels take float32 or bfloat16 and ``D <=
+    MAX_HEAD_DIM``; bfloat16 also needs TMA-describable operands
+    (:func:`_tma_strides`).
     """
     global FLASH_ATTN_LAUNCHES
     _check_operands(q, k, v, causal)
-    if bq < 1 or bk < 1:
+    if (bq is not None and bq < 1) or (bk is not None and bk < 1):
         raise ValueError(f"tiles ({bq}, {bk}) must be positive")
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not "
                          f"{q.device}")
-    if (bq, bk) != TILE:
-        raise ValueError(f"the kernel's tile is {TILE}, not ({bq}, {bk})")
     if q.dtype not in DTYPES:
         raise TypeError(f"the kernel takes float32 or bfloat16, not "
                         f"{q.dtype}")
+    tile = _TILES[q.dtype]
+    if (bq or tile[0], bk or tile[1]) != tile:
+        raise ValueError(f"the {q.dtype} kernel's tile is {tile}, not "
+                         f"({bq}, {bk})")
     d = q.shape[-1]
     if d > MAX_HEAD_DIM:
         raise ValueError(f"head dim {d} exceeds the kernel's "
@@ -130,6 +164,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"{q.shape[0]} x {q.shape[1]} (batch x heads) "
                          "exceeds the grid's limit of 65535 each")
     check_no_grad("flash_attention", q, k, v)
+    if q.dtype == torch.bfloat16:
+        strides = [_tma_strides(n, t) for n, t in (("q", q), ("k", k),
+                                                   ("v", v))]
+    else:
+        strides = [t.stride()[:3] for t in (q, k, v)]
     out = torch.empty_like(q)       # q's strides when q is dense
     from repro_torch.kernels.build import load
     fn = load("flash_attn").fn
@@ -139,7 +178,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  DTYPES[q.dtype], b, h, hkv, sq, sk, d, int(causal),
-                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                 *strides[0], *strides[1], *strides[2],
                  *out.stride()[:3], ctypes.c_float(1.0 / math.sqrt(d)),
                  ctypes.c_void_p(stream))
     if err != 0:

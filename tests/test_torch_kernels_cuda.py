@@ -29,9 +29,10 @@ card's int8 ``torch`` backend.  K1, K4 and the 3-D
 lowering refuse an operand that requires grad under grad mode.  K5
 (flash attention) is held to ``flash_attention_ref`` at ``2e-5 * max(1,
 max|ref|)`` in f32 (``tests/test_flash_attn.py``'s tolerance) and ``1e-2
-* max|ref|`` in bf16 (the oracle in f32 on the bf16 inputs), on ragged
-sequences, grouped heads and D up to 256; the reduced LM's prefill
-through K5 matches the plain scan.
+* max|ref|`` in bf16 (the oracle in f32 on the bf16 inputs), and each
+bf16 element within ``2^-7 * |ref| + 1e-4 * max|ref|``, on ragged
+sequences around both kernels' tiles, grouped heads and D up to 256; the
+reduced LM's prefill through K5 matches the plain scan.
 """
 
 import pytest
@@ -772,10 +773,16 @@ def _k5_case(dev, b, h, hkv, s, d, dtype, seed):
 @pytest.mark.parametrize("b,h,hkv,s,d", [
     (1, 2, 2, 128, 32), (2, 4, 2, 1, 16), (2, 4, 2, 63, 64),
     (1, 4, 1, 65, 128), (1, 4, 2, 2049, 160), (2, 2, 2, 200, 256),
-    (1, 3, 3, 97, 40)])
+    (1, 3, 3, 97, 40),
+    # the bf16 kernel's 128-row query tile and 64-key tile at their edges
+    (1, 4, 2, 127, 64), (2, 4, 2, 128, 160), (1, 4, 2, 129, 40),
+    (1, 4, 1, 255, 128), (1, 2, 2, 257, 16),
+    # the serving grouping (32 q / 8 kv heads of 160), and D 256
+    (1, 32, 8, 300, 160), (1, 4, 2, 257, 256)])
 def test_k5_matches_plain(dev, dtype, causal, b, h, hkv, s, d):
     """K5 against flash_attention_ref on the same inputs (grouped heads
-    expanded for the oracle), ragged S, D up to 256."""
+    expanded for the oracle), ragged S around both kernels' tiles, D up
+    to 256."""
     import repro_torch.kernels.flash_attn as FA
     q, k, v = _k5_case(dev, b, h, hkv, s, d, dtype, seed=s + d)
     before = FA.FLASH_ATTN_LAUNCHES
@@ -813,6 +820,28 @@ def test_k5_reads_and_writes_bshd_views(dev):
         1.0, ref.abs().max().item())
 
 
+def test_k5_bf16_reads_and_writes_bshd_views(dev):
+    """The served LM's layout in bf16: the TMA maps walk (B, S, H, D)
+    activations through their transposed views (head stride below the
+    sequence stride), and the output comes back with q's strides."""
+    import repro_torch.kernels.flash_attn as FA
+    g = torch.Generator().manual_seed(4)
+    q, k, v = (torch.randn(2, 300, n, 160, generator=g).to(dev,
+                                                           torch.bfloat16)
+               for n in (8, 2, 2))
+    out = FA.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2))
+    torch.cuda.synchronize()
+    assert out.stride() == q.transpose(1, 2).stride()
+    ref = FA.flash_attention_ref(*(t.transpose(1, 2).float()
+                                   for t in (q, k, v)))
+    diff = (out.float() - ref).abs()
+    m = ref.abs().max().item()
+    assert diff.max().item() <= K5_BF16_GATE * m
+    assert (diff / (K5_BF16_REL * ref.abs() + K5_BF16_FLOOR * m)).max() \
+        .item() <= 1.0
+
+
 def test_k5_refuses_what_it_does_not_take(dev):
     import repro_torch.kernels.flash_attn as FA
     q = torch.randn(1, 2, 8, 272, device=dev)
@@ -820,7 +849,14 @@ def test_k5_refuses_what_it_does_not_take(dev):
         FA.flash_attention(q, q, q)
     q = torch.randn(1, 2, 8, 16, device=dev)
     with pytest.raises(ValueError, match="tile"):
-        FA.flash_attention(q, q, q, bq=128, bk=128)
+        FA.flash_attention(q, q, q, bq=32, bk=32)
+    with pytest.raises(ValueError, match="tile"):
+        FA.flash_attention(q.bfloat16(), q.bfloat16(), q.bfloat16(),
+                           bq=32, bk=32)
+    # bf16 operands go through TMA: a 40-byte row stride is refused
+    qb = torch.randn(1, 2, 8, 20, device=dev).bfloat16()
+    with pytest.raises(ValueError, match="sequence stride"):
+        FA.flash_attention(qb, qb, qb)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         FA.flash_attention(q.half(), q.half(), q.half())
     with pytest.raises(ValueError, match="Sq == Sk"):

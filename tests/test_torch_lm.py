@@ -183,6 +183,85 @@ def test_k5_contract_refusals():
     FA.flash_attention(q[:, :, :5], k, v, causal=False)
 
 
+def test_k5_bf16_tma_strides():
+    """The bf16 kernel's TMA maps: the LM's (B, S, H, D) views pass with
+    their own strides, a size-1 dim's stride is replaced by a valid one,
+    and what a map cannot describe is refused before any launch."""
+    x = torch.zeros(2, 300, 8, 160, dtype=torch.bfloat16)
+    assert FA._tma_strides("q", x.transpose(1, 2)) == (300 * 8 * 160, 160,
+                                                        8 * 160)
+    one = torch.zeros(1, 1, 5, 40, dtype=torch.bfloat16)[:, :, :1]
+    assert FA._tma_strides("k", one) == (40, 40, 40)
+    with pytest.raises(ValueError, match="sequence stride"):
+        FA._tma_strides("q", torch.zeros(1, 2, 8, 20, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="head stride"):
+        FA._tma_strides("v", torch.zeros(1, 4, 3, 20, dtype=torch.bfloat16)
+                        .transpose(1, 2)[..., :16])
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        FA._tma_strides("q", torch.zeros(1, 2, 8, 17, dtype=torch.bfloat16)
+                        [..., 1:])
+
+
+def _k5_bf16_schedule(q, k, v, causal, split):
+    """The bf16 kernel's arithmetic restated in torch on the CPU: blocks
+    of 128 query rows as two independent 64-row warpgroups, tiles of 128
+    keys, f32 scores of the bf16 inputs, one multiply by scale * log2(e)
+    and exp2, P split into bf16 hi + lo (``split``) or rounded once to
+    bf16, f32 sums, the output rounded once."""
+    _, h, sq, d = q.shape
+    g, sk, bk = h // k.shape[1], k.shape[2], 128
+    c = (1.0 / np.sqrt(d)) * np.log2(np.e)
+    kf, vf = (t.float().repeat_interleave(g, 1) for t in (k, v))
+    out = torch.empty(q.shape, dtype=torch.bfloat16)
+    for first in range(0, sq, 64):
+        rows = torch.arange(first, min(first + 64, sq))
+        m = torch.full((q.shape[0], h, len(rows)), -np.inf)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(q.shape[0], h, len(rows), d)
+        kend = min(sk, first // 128 * 128 + 128) if causal else sk
+        for k0 in range(0, kend, bk):
+            if causal and k0 > first + 63:
+                continue
+            keys = torch.arange(k0, min(k0 + bk, sk))
+            s = torch.einsum("bhqd,bhkd->bhqk", q[:, :, rows].float(),
+                             kf[:, :, keys])
+            if causal:
+                s = s.masked_fill(keys[None] > rows[:, None], -np.inf)
+            m_new = torch.maximum(m, s.amax(-1) * c)
+            safe = torch.where(torch.isinf(m_new), 0.0, m_new)
+            p = torch.exp2(s * c - safe[..., None])
+            corr = torch.exp2(m - safe)
+            l, m = l * corr + p.sum(-1), m_new
+            hi = p.bfloat16().float()
+            parts = (hi, (p - hi).bfloat16().float()) if split else (hi,)
+            acc = acc * corr[..., None] + sum(
+                torch.einsum("bhqk,bhkd->bhqd", x, vf[:, :, keys])
+                for x in parts)
+        out[:, :, rows] = (acc / l.clamp_min(1e-30)[..., None]).bfloat16()
+    return out
+
+
+@pytest.mark.parametrize("causal,d", [(True, 160), (False, 160),
+                                      (False, 16)])
+def test_k5_bf16_needs_p_split(causal, d):
+    """Why the bf16 kernel splits P: on its schedule, rounding P once to
+    bf16 before P.V breaks the element-by-element gate that the card
+    holds it to (2^-7 |ref| + 1e-4 max|ref|), and the hi/lo pair holds it
+    with the margin of the output's one rounding."""
+    gen = torch.Generator().manual_seed(d)
+    q, k, v = ((torch.randn(1, n, 257, d, generator=gen) * 0.5).bfloat16()
+               for n in (4, 2, 2))
+    ref = FA.flash_attention_ref(q.float(), k.float(), v.float(),
+                                 causal=causal)
+    lim = 2.0 ** -7 * ref.abs() + 1e-4 * ref.abs().max()
+    share = {split: ((_k5_bf16_schedule(q, k, v, causal, split).float()
+                      - ref).abs() / lim).max().item()
+             for split in (True, False)}
+    print(f"worst share of the element limit: split {share[True]:.3f}, "
+          f"one rounding {share[False]:.3f}")
+    assert share[True] <= 0.55 and share[False] > 2.0, share
+
+
 # ---------------------------------------------------------------------------
 # layers
 # ---------------------------------------------------------------------------
