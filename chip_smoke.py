@@ -10,14 +10,23 @@ Drives ``repro_torch`` only (never JAX, never the JAX package ``repro``):
    ``sd_wino.cu``, the Winograd split deconv; K1's int8 branch
    ``sd_fused_int8.cu``; K2's int8 pair ``sd_conv_int8.cu``; K5
    ``flash_attn.cu``, flash attention) and prints their registers and
-   shared memory;
+   shared memory, and counts the TF32 ``HMMA`` instructions in the SASS
+   of K1's float branch and K2, which share the 3xTF32 implicit-GEMM
+   mainloop ``sd_igemm.cuh`` (fails if either has none);
 2. holds K1 against its plain PyTorch version ``sd_fused_ref`` on the 22
    deconv layers of the paper's six networks (batch 4, f32, TF32 off,
    ``max|d| <= 1e-4 * max(1, max|y_ref|)``), on an ``output_padding >
-   pad_hi`` geometry and a many-tile geometry, then on DCGAN's three
-   layers in bf16 (``<= 1e-2 * max|y_ref|``); times K1, the plain version
-   and ``F.conv_transpose2d`` (cuDNN, a yardstick the port never calls)
-   per DCGAN layer at the serving bucket 16;
+   pad_hi`` geometry and on forced GEMM plans (ragged tiles, split-K
+   with an uneven last split, Cin 7 and 70), then on DCGAN's three
+   layers and two forced plans in bf16 (``<= 1e-2 * max|y_ref|``); runs
+   K1 twice on DCGAN d1 at batch 16 with split-K, bit-identical; times
+   K1, the plain version and ``F.conv_transpose2d`` (cuDNN, a yardstick
+   the port never calls) per DCGAN layer at the serving bucket 16, in
+   device time (the profiler, and CUDA events over calls queued behind
+   ``torch.cuda._sleep``) and in CUDA events over back-to-back calls,
+   prints each layer's GEMM plan, the useful-work FFMA bound and the
+   3xTF32 tensor-core bound, and fails if K1 takes more than
+   ``K1_D1_MS_LIMIT`` ms of device time on d1;
 3. serves 48 full-width DCGAN requests through ``GenServer`` on the card
    with the async scheduler, and checks that every batch ran K1 once per
    deconv layer, that every output is finite, and that it matches the
@@ -28,9 +37,12 @@ Drives ``repro_torch`` only (never JAX, never the JAX package ``repro``):
 5. trains: holds K2 and K3 against their plain versions (``sd_conv_ref``,
    ``sd_filter_grad_ref``) on the backward of the 22 paper layers at
    batch 4 and on odd geometries (``op > pad_hi``, asymmetric pads,
-   forced ragged tiles), same f32 gate; times K2, K3, their plain
-   versions and cuDNN's ``convolution_backward`` per DCGAN layer at batch
-   16; then takes full-width DCGAN GAN steps (batch 16, discriminator
+   forced ragged tiles and split-K plans, each run twice bit-identical),
+   same f32 gate; times K2, K3, their plain versions and cuDNN's
+   ``convolution_backward`` per DCGAN layer at batch 16 (K2 also in
+   device time, with its plan and tensor-core bound; K2 run twice on d1
+   with split-K, bit-identical), and fails if K2 takes more than
+   ``K2_D1_MS_LIMIT`` ms of device time on d1's dx; then takes full-width DCGAN GAN steps (batch 16, discriminator
    3/64/128/256, AdamW) through ``repro_torch.launch.train_gen`` with
    the generator on the fused backend, and checks K1/K2/K3 launches of
    3/3/3 per generator step and 3/0/0 per discriminator step, finite
@@ -172,6 +184,13 @@ INT8_SERVE_GATE = 1e-3   # served vs the int8 torch backend (tests/test_quant.py
 INT8_VS_F32 = 0.05       # max|d|/max|ref| vs the float server (:134)
 SSIM_GATE = 0.99         # vs the float server (benchmarks/quant_bench.py)
 ND_F32_GATE = 1e-5       # the 3-D lowering vs the torch backend (TF32 off)
+# K1's float branch and K2 in f32 run on the TF32 tensor cores in 3xTF32
+# (three products per multiply-add; bf16 one): their tensor-core bound is
+# that work at the H100 SXM's dense TF32 peak (NVIDIA data sheet).
+PEAK_TF32_FLOPS = 495e12
+K1_D1_MS_LIMIT = 0.13    # K1 f32 on DCGAN d1 at batch 16, device ms
+K2_D1_MS_LIMIT = 0.20    # K2 (dx) on DCGAN d1 at batch 16, device ms
+AHEAD_CYCLES = 4_000_000  # torch.cuda._sleep before a timed run of calls
 # Phase 10: K5 and dense LM serving.  StableLM-2-12B
 # (src/repro_torch/configs/stablelm_12b.py) at all 40 of its layers: the
 # weights are drawn leaf by leaf in f32 and rounded to bf16 at once (24.2
@@ -235,6 +254,47 @@ def _time_ms(fns: dict, reps: int = 7, iters: int = 20) -> dict:
             for name, v in runs.items()}
 
 
+def _ahead_ms(fn, calls: int = 20) -> float:
+    """Device ms per call of ``fn``: CUDA events around ``calls`` calls
+    queued behind ``torch.cuda._sleep``, so the card starts them only
+    once the host has queued them all and the host's time per call
+    (the wrapper's Python, a ctypes launch) is hidden.  The sleep is
+    lengthened until the start event is still pending when the last
+    call is queued."""
+    import torch
+    for _ in range(3):
+        fn()
+    cycles = AHEAD_CYCLES
+    while True:
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        ahead = not start.query()
+        torch.cuda.synchronize()
+        if ahead:
+            return start.elapsed_time(end) / calls
+        cycles *= 4
+
+
+def _device_ms(fn) -> tuple:
+    """(profiler ms, ahead ms) of one call of ``fn``: the device busy time
+    of a profiled call (every kernel it launches summed, the median of
+    3; None when the profiler reports no device time) and
+    :func:`_ahead_ms`."""
+    prof = [b[0] for b in (_device_breakdown(fn) for _ in range(3))
+            if b is not None]
+    return (sorted(prof)[len(prof) // 2] if prof else None, _ahead_ms(fn))
+
+
+def _ms_txt(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
 def _clocks() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
@@ -286,12 +346,15 @@ def _train_phase(dev, tag: str, randn) -> dict:
     then full-width DCGAN GAN steps on the card through train_gen.
     Returns the two kernels' records and the training report."""
     import torch
+    import torch.nn.functional as F
     import repro_torch.kernels.sd_conv as K
     from repro_torch import sd
     from repro_torch.core.accounting import BENCHMARKS, LayerSpec
-    from repro_torch.core.deconv import same_deconv_pads
+    from repro_torch.core.deconv import conv_valid, same_deconv_pads
     from repro_torch.data import GANLatentPipeline
-    from repro_torch.kernels.autotune import FilterGradPlan, KernelPlan
+    from repro_torch.kernels.autotune import (ConvGeom, FilterGradPlan,
+                                              GemmPlan, gemm_grid, gemm_plan,
+                                              gemm_smem_bytes)
     from repro_torch.launch import train_gen
     from repro_torch.models.generative import GenerativeModel
     from repro_torch.optim import adamw_init
@@ -351,9 +414,10 @@ def _train_phase(dev, tag: str, randn) -> dict:
             gate("sd_conv", f"{net}/{l.name}", k2_call(a2), k2_ref(a2))
             gate("sd_filter_grad", f"{net}/{l.name}", k3_call(a3),
                  k3_ref(a3))
-    # op > pad_hi, per-dim op, asymmetric pads, then forced ragged tiles
-    # (K2: a 3x5 tile, 7-channel Cin steps; K3: 32-position chunks, and
-    # one single chunk).
+    # op > pad_hi, per-dim op, asymmetric pads, then forced tiles (K2:
+    # GEMM tiles ragged in M, N and K, split-K with an uneven last split,
+    # a contraction of 5 * 4 phase channels (4-byte copies) and Co 70;
+    # K3: 32-position chunks, and one single chunk).
     odd = [(LayerSpec("deconv", 3, 2, k=4, s=2, in_hw=(5, 6)), 2, 0, 1,
             None, None),
            (LayerSpec("deconv", 3, 2, k=4, s=2, in_hw=(5, 6)), 2, 1, (1, 0),
@@ -361,10 +425,10 @@ def _train_phase(dev, tag: str, randn) -> dict:
            (LayerSpec("deconv", 3, 2, k=5, s=2, in_hw=(6, 7)), 1,
             ((1, 3), (0, 2)), 0, None, None),
            (LayerSpec("deconv", 40, 24, k=5, s=2, in_hw=(13, 11)), 3, 2, 1,
-            KernelPlan(th=3, tw=5, tcin=7, tc=16),
+            GemmPlan(16, 3),
             FilterGradPlan(tco=16, chunk=32)),
            (LayerSpec("deconv", 70, 5, k=5, s=2, in_hw=(9, 10)), 2, 1, 1,
-            KernelPlan(th=2, tw=3, tcin=8, tc=32),
+            GemmPlan(32, 7),
             FilterGradPlan(tco=32, chunk=10 ** 6))]
     for l, batch, padv, op, t2, t3 in odd:
         _, _, _, a2, a3 = case(l, batch, padv, op)
@@ -377,20 +441,54 @@ def _train_phase(dev, tag: str, randn) -> dict:
                   f"{'bit-identical' if same else 'DIFFERS'}")
             if not same:
                 failures.append(f"{label} K3 not deterministic")
+        if t2 is not None:
+            same = torch.equal(k2_call(a2, t2), k2_call(a2, t2))
+            print(f"  {label} sd_conv run twice with {t2}: "
+                  f"{'bit-identical' if same else 'DIFFERS'}")
+            if not same:
+                failures.append(f"{label} K2 not deterministic")
     if failures:
         raise SystemExit(f"chip_smoke: backward kernels disagree with their "
                          f"plain versions on {failures}")
 
     print(f"time: DCGAN backward at batch {BUCKET}, f32, CUDA events: median "
           f"[min, max] of 7 rounds of 20 warm launches, kernel / plain / "
-          f"cuDNN convolution_backward (one gradient requested) in turns "
-          f"{tag}")
+          f"cuDNN convolution_backward (one gradient requested) in turns; "
+          f"for K2 also device ms of one call (ahead: CUDA events over 20 "
+          f"calls queued behind torch.cuda._sleep; profiler: its kernels "
+          f"summed, median of 3) and the tc bound (its GEMM's 3xTF32 work "
+          f"at {PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s) {tag}")
     per_layer = []
     for l in BENCHMARKS["dcgan"]().deconv_layers():
         p, x, dy, a2, a3 = case(l, BUCKET, same_deconv_pads(l.k, l.s))
         gate("sd_conv", f"dcgan/{l.name} b{BUCKET}", k2_call(a2), k2_ref(a2))
         gate("sd_filter_grad", f"dcgan/{l.name} b{BUCKET}", k3_call(a3),
              k3_ref(a3))
+        geom = ConvGeom(h=a2["x"].shape[1], w=a2["x"].shape[2],
+                        cin=a2["x"].shape[3], co=l.cin, kth=p.kt[0],
+                        ktw=p.kt[1], out_h=l.in_hw[0],
+                        out_w=l.in_hw[1]).as_gemm(BUCKET)
+        plan = gemm_plan(geom)
+        if not per_layer:
+            # Split-K sums its partials in a fixed order: two runs agree.
+            split = plan if plan.splits > 1 else GemmPlan(64, 3)
+            same = torch.equal(k2_call(a2, split), k2_call(a2, split))
+            print(f"  dcgan/{l.name} sd_conv run twice with {split}: "
+                  f"{'bit-identical' if same else 'DIFFERS'}")
+            if not same:
+                failures.append(f"dcgan/{l.name} K2 not deterministic")
+            (plo_h, phi_h), (plo_w, phi_w) = a2["pad"]
+            (oh, ow), (sh, sw) = a2["out_size"], a2["out_start"]
+            ref64 = conv_valid(F.pad(a2["x"].double(), (
+                0, 0, plo_w, phi_w, plo_h, phi_h)), a2["w"].double())[
+                    :, sh:sh + oh, sw:sw + ow]
+            scale = max(1.0, ref64.abs().max().item())
+            prec = {n: (y_.double() - ref64).abs().max().item() / scale
+                    for n, y_ in (("k2", k2_call(a2)), ("plain", k2_ref(a2)))}
+            print(f"  precision: dcgan/{l.name} dx at batch {BUCKET} against "
+                  f"the f64 product: max|d| / max(1, max|ref|) K2 "
+                  f"{prec['k2']:.3e}, plain (cuDNN f32, TF32 off) "
+                  f"{prec['plain']:.3e} {tag}")
         # Library yardstick: cuDNN's backward of the same-size
         # transposed conv (NCHW, crop 2 + output_padding 1 -> in*s),
         # asked for dx only or dw only.
@@ -411,16 +509,25 @@ def _train_phase(dev, tag: str, randn) -> dict:
             "k3": lambda a3=a3: k3_call(a3),
             "k3_plain": lambda a3=a3: k3_ref(a3),
             "lib_dw": lambda: lib([False, True, False])})
+        dv = {"k2": _device_ms(lambda a2=a2: k2_call(a2)),
+              "k2_plain": _device_ms(lambda a2=a2: k2_ref(a2)),
+              "lib_dx": _device_ms(lambda: lib([True, False, False]))}
         useful = 2.0 * BUCKET * l.macs()
         o1h, o1w = a2["x"].shape[1:3]
         kt2 = p.kt[0] * p.kt[1]
         nco = a2["x"].shape[-1]
-        kernel_ops = {"sd_conv": 2.0 * BUCKET * l.in_hw[0] * l.in_hw[1]
-                      * kt2 * nco * l.cin,
+        kernel_ops = {"sd_conv": 2.0 * geom.m * geom.n * geom.k,
                       "sd_filter_grad": 2.0 * BUCKET * o1h * o1w * kt2
                       * nco * l.cin}
         moved = {"sd_conv": [a2["x"], a2["w"], x],
                  "sd_filter_grad": [x, a3["dy1"], a2["w"]]}
+        grid = gemm_grid(geom, plan)
+        print(f"  dcgan/{l.name} K2 launch: {plan}, GEMM M {geom.m} x N "
+              f"{geom.n} x K {geom.k}, grid {grid[0]} x {grid[1]} x "
+              f"{grid[2]} blocks of 128 threads"
+              f"{', then the ordered split sum' if grid[2] > 1 else ''}, "
+              f"{gemm_smem_bytes(geom, plan)} B dynamic shared memory per "
+              f"block")
         for name, tk, tp, tl in (("sd_conv", "k2", "k2_plain", "lib_dx"),
                                  ("sd_filter_grad", "k3", "k3_plain",
                                   "lib_dw")):
@@ -435,18 +542,45 @@ def _train_phase(dev, tag: str, randn) -> dict:
                    "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                    "flops": useful, "kernel_flops": kernel_ops[name],
                    "bytes": nbytes}
+            extra = ""
+            if name == "sd_conv":
+                # K2's record in device time; events kept beside it.
+                rec.update(
+                    ms=dv[tk][1], profiler_ms=dv[tk][0], events_ms=ms,
+                    events_ms_min=lo, events_ms_max=hi,
+                    plain_ms=dv[tp][1], plain_events_ms=t[tp][0],
+                    library_ms=dv[tl][1], library_profiler_ms=dv[tl][0],
+                    library_events_ms=t[tl][0], plan=str(plan),
+                    tc_bound_ms=max(3 * kernel_ops[name] / PEAK_TF32_FLOPS
+                                    * 1e3, t_bytes))
+                extra = (f"; device {rec['ms']:.4f} ms (profiler "
+                         f"{_ms_txt(dv[tk][0])}), plain "
+                         f"{rec['plain_ms']:.4f}, cuDNN "
+                         f"{rec['library_ms']:.4f} (profiler "
+                         f"{_ms_txt(dv[tl][0])}); tc bound "
+                         f"{rec['tc_bound_ms']:.4f} ms")
             per_layer.append(rec)
             print(f"  dcgan/{l.name} {'K2 dx' if name == 'sd_conv' else 'K3 dw'}"
                   f": {ms:.4f} ms [{lo:.4f}, {hi:.4f}], plain "
-                  f"{rec['plain_ms']:.4f} ms, cuDNN {rec['library_ms']:.4f} "
-                  f"ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}, "
+                  f"{t[tp][0]:.4f} ms, cuDNN {t[tl][0]:.4f} "
+                  f"ms (events){extra}, bound {rec['bound_ms']:.4f} ms "
+                  f"({rec['bound_by']}, "
                   f"useful {useful / 1e9:.3f} GFLOP; the kernel does "
                   f"{kernel_ops[name] / 1e9:.3f}), "
-                  f"{useful / ms / 1e9:.1f} useful TFLOP/s; sm clock, power, "
-                  f"temperature {_clocks()} {tag}")
+                  f"{useful / rec['ms'] / 1e9:.1f} useful TFLOP/s; sm clock, "
+                  f"power, temperature {_clocks()} {tag}")
     if failures:
         raise SystemExit(f"chip_smoke: backward kernels disagree at batch "
                          f"{BUCKET} on {failures}")
+    d1 = next(r for r in per_layer if r["kernel"] == "sd_conv")
+    gate_ms = d1["profiler_ms"] if d1["profiler_ms"] is not None else d1["ms"]
+    how = "profiler" if d1["profiler_ms"] is not None else "ahead events"
+    ok = gate_ms <= K2_D1_MS_LIMIT
+    print(f"gate: K2 dx on dcgan/d1 at batch {BUCKET}: {gate_ms:.4f} ms of "
+          f"device time ({how}), limit {K2_D1_MS_LIMIT} ms "
+          f"{'ok' if ok else 'FAIL'} {tag}")
+    if not ok:
+        raise SystemExit("chip_smoke: K2 on DCGAN d1 is over its time limit")
 
     # ---- full-width DCGAN GAN steps through train_gen --------------------
     gen, disc = train_gen.make_gan(False, "sd_kernel", dev)
@@ -592,6 +726,9 @@ def _train_phase(dev, tag: str, randn) -> dict:
             "bound_by": ("operations" if tot["flops"] / PEAK_F32_FLOPS
                          >= tot["bytes"] / PEAK_BYTES else "bytes"),
             "library_ms": tot["library_ms"]})
+        if name == "sd_conv":
+            kernels[-1].update({k: sum(r[k] for r in recs)
+                                for k in ("events_ms", "tc_bound_ms")})
     return {"kernels": kernels, "per_layer": per_layer,
             "k1_launches": launches["sd_fused"],
             "train": {"step_ms": step_ms, "median_step_ms": med,
@@ -1064,7 +1201,7 @@ def _int8_phase(dev, tag, randn) -> dict:
         t_dp4a = 2.0 * macs / DP4A_OPS * 1e3
         g = K.launch_geometry(xq.shape, p.ws.shape, p.stride,
                               geo(p, xq)["pad"], geo(p, xq)["crop"],
-                              geo(p, xq)["out_space"], dtype="int8")
+                              geo(p, xq)["out_space"])
         smem = smem_bytes(FusedGeom(
             *l.in_hw, l.cin, p.ws.shape[-1], p.kt[0], p.kt[1], l.s, l.s,
             g.out_h, g.out_w, g.res_h, g.res_w, dtype="int8"), g.plan)
@@ -1232,7 +1369,8 @@ def _nd_phase(dev, tag, randn) -> dict:
     from repro_torch.core.accounting import WORKLOADS
     from repro_torch.core.deconv import same_deconv_pads
     from repro_torch.kernels.autotune import (ConvGeom, KernelPlan,
-                                              conv_plan, smem_bytes)
+                                              conv_plan, gemm_plan,
+                                              smem_bytes)
     from repro_torch.launch.serve_gen import GenServer, serve_async
     from repro_torch.models.generative import GenerativeModel
 
@@ -1361,6 +1499,8 @@ def _nd_phase(dev, tag, randn) -> dict:
                       "lib": lib})
         bd = _device_breakdown(lambda: K.sd_conv(xq, wq, pad=pad))
         bdf = _device_breakdown(lambda: K.sd_conv(xf, wf, pad=pad))
+        ahead = {"k2": _ahead_ms(lambda: K.sd_conv(xf, wf, pad=pad)),
+                 "lib": _ahead_ms(lib)}
         macs = y.numel() * wq.shape[0] * wq.shape[1] * wq.shape[2]
         nbytes = xq.numel() + wq.numel() + 4 * y.numel()
         t_bytes = nbytes / PEAK_BYTES * 1e3
@@ -1369,6 +1509,7 @@ def _nd_phase(dev, tag, randn) -> dict:
                         co=wq.shape[3], kth=wq.shape[0], ktw=wq.shape[1],
                         out_h=y.shape[1], out_w=y.shape[2], dtype="int8")
         plan = conv_plan(geom)
+        f32_plan = gemm_plan(geom.as_gemm(xq.shape[0]))
         ms, lo, hi = t["k2q"]
         rec = {"layer": f"voxgan/{l.name} tap", "x": list(xq.shape),
                "w": list(wq.shape), "ms": ms, "ms_min": lo, "ms_max": hi,
@@ -1381,6 +1522,9 @@ def _nd_phase(dev, tag, randn) -> dict:
                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                "useful_bound_ms": max(2.0 * macs / DP4A_OPS * 1e3, t_bytes),
                "macs": macs, "bytes": nbytes, "tile": str(plan),
+               "k2_f32_plan": str(f32_plan),
+               "k2_f32_ahead_ms": ahead["k2"],
+               "f32_library_ahead_ms": ahead["lib"],
                "smem_bytes": smem_bytes(geom.as_fused(), plan),
                "launches_per_batch": 2}
         per_tap.append(rec)
@@ -1395,9 +1539,11 @@ def _nd_phase(dev, tag, randn) -> dict:
               f"{xq.shape[0]} blocks, {rec['smem_bytes']} B dynamic shared "
               f"memory: K2 int8 {ms:.4f} ms [{lo:.4f}, {hi:.4f}] "
               f"({2 * macs / ms / 1e9:.1f} TOP/s; device time of one call "
-              f"{dev_txt}), K2 f32 {rec['k2_f32_ms']:.4f} ms (device time of "
-              f"one call {devf_txt}), plain {rec['plain_ms']:.4f} ms, "
-              f"F.conv2d f32 {rec['f32_library_ms']:.4f} ms; bound "
+              f"{dev_txt}), K2 f32 ({f32_plan}) {rec['k2_f32_ms']:.4f} ms "
+              f"(device time of one call {devf_txt}, ahead events "
+              f"{ahead['k2']:.4f} ms), plain {rec['plain_ms']:.4f} ms, "
+              f"F.conv2d f32 {rec['f32_library_ms']:.4f} ms (ahead events "
+              f"{ahead['lib']:.4f} ms); bound "
               f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}; int8 tensor "
               f"cores {PEAK_INT8_OPS / 1e12:.0f} TOP/s), useful_bound "
               f"{rec['useful_bound_ms']:.4f} ms (dp4a "
@@ -1923,7 +2069,7 @@ def _chain_phase(dev, tag, randn) -> dict:
         t_ops = 2.0 * macs / PEAK_INT8_OPS * 1e3
         ms, lo, hi = t["static"]
         lg = K.launch_geometry(xq.shape, p.ws.shape, p.stride, g["pad"],
-                               g["crop"], g["out_space"], dtype="int8")
+                               g["crop"], g["out_space"])
         rec = {"layer": f"dcgan/{l.name}", "out": str(y.dtype),
                "ms": ms, "ms_min": lo, "ms_max": hi,
                "device_ms": None if bd_s is None else bd_s[0],
@@ -2061,24 +2207,28 @@ def _chain_phase(dev, tag, randn) -> dict:
 
 
 def _sass_counts(path, kernel: str) -> dict:
-    """Counts of tensor-core (HGMMA) and TMA-load (UTMALDG) instructions
-    in the SASS of every function of the library at ``path`` whose
-    (mangled) name holds ``kernel``, from ``cuobjdump -sass``."""
+    """Counts of tensor-core (HGMMA: wgmma; HMMA: mma.sync, and
+    HMMA_TF32 those of them on TF32 operands) and TMA-load (UTMALDG)
+    instructions in the SASS of every function of the library at
+    ``path`` whose (mangled) name holds ``kernel``, from ``cuobjdump
+    -sass``."""
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out = subprocess.run([tool, "-sass", str(path)], capture_output=True,
                          text=True, timeout=300)
     if out.returncode != 0:
         raise SystemExit(f"chip_smoke: cuobjdump failed: {out.stderr}")
-    counts = {"functions": 0, "HGMMA": 0, "UTMALDG": 0}
+    counts = {"functions": 0, "HGMMA": 0, "UTMALDG": 0, "HMMA": 0,
+              "HMMA_TF32": 0}
     inside = False
     for line in out.stdout.splitlines():
         if "Function :" in line:
             inside = kernel in line
             counts["functions"] += inside
         elif inside:
-            for op in ("HGMMA", "UTMALDG"):
+            for op in ("HGMMA", "UTMALDG", "HMMA"):
                 counts[op] += f" {op}." in line or f" {op} " in line
+            counts["HMMA_TF32"] += " HMMA." in line and ".TF32" in line
     return counts
 
 
@@ -2472,10 +2622,10 @@ def main(json_path: str = "") -> int:
     from repro_torch import sd
     from repro_torch.convert import params_from_numpy
     from repro_torch.core.accounting import BENCHMARKS
-    from repro_torch.core.deconv import same_deconv_pads
+    from repro_torch.core.deconv import conv_valid, same_deconv_pads
     from repro_torch.kernels import ops
-    from repro_torch.kernels.autotune import (FusedGeom, KernelPlan,
-                                              smem_bytes)
+    from repro_torch.kernels.autotune import (GemmPlan, gemm_grid,
+                                              gemm_smem_bytes)
     from repro_torch.kernels.build import build
     from repro_torch.launch.serve_gen import GenServer, serve_async
     from repro_torch.models.generative import GenerativeModel, build as mk
@@ -2500,6 +2650,15 @@ def main(json_path: str = "") -> int:
                                        "Compiling entry")):
                 print(f"  ptxas: {line.strip()}")
     built = builds["sd_fused"]
+    sass = {}
+    for name, label in (("sd_fused", "K1 float"), ("sd_conv", "K2 f32")):
+        sass[name] = _sass_counts(builds[name].path, "igemm_kernel")
+        print(f"sass: {label} ({sass[name]['functions']} instantiations of "
+              f"igemm_kernel in {builds[name].path.name}): "
+              f"{sass[name]['HMMA']} HMMA, {sass[name]['HMMA_TF32']} of them "
+              f"on TF32 operands (HMMA...TF32) {tag}")
+        if not (sass[name]["functions"] and sass[name]["HMMA_TF32"]):
+            raise SystemExit(f"chip_smoke: {label} has no TF32 HMMA")
 
     # ---- 2. per-layer check against the plain version ------------------
     gen = torch.Generator().manual_seed(SEED)
@@ -2551,12 +2710,16 @@ def main(json_path: str = "") -> int:
                   f"max|d| {d:.3e} tol {tol:.3e} {'ok' if ok else 'FAIL'}")
             if not ok:
                 failures.append(f"{net}/{l.name}")
-    # output_padding past the shuffled support (op > pad_hi), tanh, and a
-    # forced small tile so ragged tiles in both dims are exercised.
+    # output_padding past the shuffled support (op > pad_hi), tanh, and
+    # forced GEMM tiles: ragged in M, N and K, split-K with an uneven last
+    # split, Cin not a multiple of 4 (4-byte copies), stride 1.
     odd = [((2, 5, 6, 3), (4, 4, 3, 2), 2, 0, 1, None),
            ((2, 5, 6, 3), (4, 4, 3, 2), 2, 1, (1, 0), None),
            ((3, 13, 11, 40), (5, 5, 40, 24), 2, 2, 1,
-            KernelPlan(th=3, tw=2, tcin=16, tc=32))]
+            GemmPlan(32, 2)),
+           ((2, 9, 10, 70), (3, 3, 70, 5), 2, 1, 1,
+            GemmPlan(16, 5)),
+           ((1, 6, 7, 7), (5, 5, 7, 3), 1, 2, 0, GemmPlan(16, 3))]
     for sx, sw_, st, padv, op, tile in odd:
         x = randn(*sx)
         w = randn(*sw_, scale=0.2)
@@ -2586,14 +2749,40 @@ def main(json_path: str = "") -> int:
               f"{'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append(f"dcgan/{l.name} bf16")
+    # bf16 on forced tiles: Cin and N not multiples of 8 (element copies),
+    # split-K with an uneven last split.
+    for sx, sw_, st, padv, op, tile in odd[2:4]:
+        x = randn(*sx).bfloat16()
+        w = randn(*sw_, scale=0.2).bfloat16()
+        bias = randn(sw_[-1], scale=0.1)
+        p = sd.plan(w.shape, st, padv, backend="fused", act="tanh",
+                    output_padding=op, tile=tile, device=dev).bind(
+                        w, bias=bias)
+        out, ref = run_both(x, p)
+        d, tol = _gate_err(out, ref, BF16_GATE, False)
+        ok = d <= tol and out.dtype == torch.bfloat16
+        print(f"  odd {sx} k{sw_[0]} s{st} p{padv} op{op} bf16 tile {tile} "
+              f"max|d| {d:.3e} tol {tol:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"odd {sx} bf16")
     if failures:
         raise SystemExit(f"chip_smoke: kernel disagrees with its plain "
                          f"version on {failures}")
 
     # ---- timing at the serving bucket ----------------------------------
-    print(f"time: DCGAN layers at batch {BUCKET}, f32, CUDA events: "
-          f"median [min, max] of 7 rounds of 20 warm launches, K1 / plain / "
-          f"library in turns (inputs L2-resident) {tag}")
+    print(f"time: DCGAN layers at batch {BUCKET}, f32, K1 / plain / library "
+          f"in turns (inputs L2-resident): device ms of one call (ahead: "
+          f"CUDA events over 20 calls queued behind torch.cuda._sleep; "
+          f"profiler: the kernels of one profiled call summed, median of 3) "
+          f"and CUDA events over 20 back-to-back calls (median [min, max] "
+          f"of 7 rounds; the host's time per call included); bound: the "
+          f"useful work at the {PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s CUDA "
+          f"cores, tc bound: the work the kernel does (its GEMM, three "
+          f"products per multiply-add) at the "
+          f"{PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s TF32 tensor cores; bf16: "
+          f"one product at the {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s bf16 "
+          f"tensor cores, and beside it at the TF32 rate of the path the "
+          f"kernel takes {tag}")
     per_layer = []
     for i, l in dcgan_layers:
         act = "linear" if i == 3 else "relu"
@@ -2603,8 +2792,10 @@ def main(json_path: str = "") -> int:
                    pad=((pi[0], pi[0]), (pi[1], pi[1])),
                    crop=(pk[0] + p.padding[0][0], pk[1] + p.padding[1][0]),
                    out_space=p.out_shape(x.shape[1:3]))
-        kern = lambda: ops.sd_deconv_presplit_fused(     # noqa: E731
-            x, p.ws, p.kernel, p.stride, p.padding, bias=p.bias, act=p.act)
+        kern = lambda plan=None, x=x, ws=p.ws: (     # noqa: E731
+            ops.sd_deconv_presplit_fused(x, ws, p.kernel, p.stride,
+                                         p.padding, bias=p.bias, act=p.act,
+                                         plan=plan))
         plain = lambda: K.sd_fused_ref(x, p.ws, p.stride, **geo)  # noqa
         # Library yardstick: the same-size transposed conv in one cuDNN
         # call (NCHW, symmetric crop 2 + output_padding 1 -> in*s).
@@ -2613,39 +2804,94 @@ def main(json_path: str = "") -> int:
         lib = lambda: F.conv_transpose2d(                 # noqa: E731
             x_cf, w_t, p.bias, stride=l.s, padding=2, output_padding=1)
         assert lib().shape[2:] == kern().shape[1:3]
+        g = K.gemm_launch(x.shape, p.ws.shape, p.stride, geo["pad"],
+                          geo["crop"], geo["out_space"])
+        if not per_layer:
+            # Split-K sums its partials in a fixed order: two runs agree.
+            plan = g.plan if g.plan.splits > 1 else GemmPlan(64, 3)
+            same = torch.equal(kern(plan), kern(plan))
+            print(f"  dcgan/{l.name} K1 run twice with {plan}: "
+                  f"{'bit-identical' if same else 'DIFFERS'}")
+            if not same:
+                raise SystemExit("chip_smoke: K1 with split-K is not "
+                                 "deterministic")
+            (plo_h, phi_h), (plo_w, phi_w) = geo["pad"]
+            ref64 = K.shuffle_epilogue(
+                conv_valid(F.pad(x.double(), (0, 0, plo_w, phi_w, plo_h,
+                                              phi_h)), p.ws.double()),
+                p.stride, p.bias.double(), p.act, geo["crop"],
+                geo["out_space"], torch.float64)
+            scale = max(1.0, ref64.abs().max().item())
+            prec = {n: (y_.double() - ref64).abs().max().item() / scale
+                    for n, y_ in (("k1", kern()), ("plain", plain()))}
+            print(f"  precision: dcgan/{l.name} at batch {BUCKET} against "
+                  f"the f64 product: max|d| / max(1, max|ref|) K1 "
+                  f"{prec['k1']:.3e}, plain (cuDNN f32, TF32 off) "
+                  f"{prec['plain']:.3e} {tag}")
         t = _time_ms({"k1": kern, "plain": plain, "lib": lib})
-        (ms, ms_lo, ms_hi), plain_ms, lib_ms = t["k1"], t["plain"][0], \
-            t["lib"][0]
+        dv = {n: _device_ms(f) for n, f in (("k1", kern), ("plain", plain),
+                                            ("lib", lib))}
+        xb, wb = x.bfloat16(), p.ws.bfloat16()
+        dv["bf16"] = _device_ms(lambda: kern(None, xb, wb))
+        (ev, ev_lo, ev_hi) = t["k1"]
+        ms = dv["k1"][1]
         y = kern()
         flops = 2.0 * BUCKET * l.macs()
         nbytes = sum(t.numel() * t.element_size()
                      for t in (x, p.ws, p.bias, y))
         t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-        g = K.launch_geometry(x.shape, p.ws.shape, p.stride, geo["pad"],
-                              geo["crop"], geo["out_space"])
-        kt = p.kt
-        smem = smem_bytes(FusedGeom(
-            *l.in_hw, l.cin, p.ws.shape[-1], kt[0], kt[1], l.s, l.s,
-            g.out_h, g.out_w, g.res_h, g.res_w), g.plan)
-        print(f"  dcgan/{l.name} launch: tile {g.plan}, grid "
-              f"{-(-p.ws.shape[-1] // g.plan.tc)} x {g.nh * g.nw} x "
-              f"{BUCKET} blocks of 256 threads, {smem} B dynamic shared "
-              "memory per block")
+        kernel_flops = 2.0 * g.geom.m * g.geom.n * g.geom.k
+        t_tc = max(3 * kernel_flops / PEAK_TF32_FLOPS * 1e3, t_bytes)
+        grid = gemm_grid(g.geom, g.plan)
+        print(f"  dcgan/{l.name} launch: {g.plan}, GEMM M {g.geom.m} x N "
+              f"{g.geom.n} x K {g.geom.k}, grid {grid[0]} x {grid[1]} x "
+              f"{grid[2]} blocks of 128 threads"
+              f"{', then the ordered split sum' if grid[2] > 1 else ''}, "
+              f"{gemm_smem_bytes(g.geom, g.plan)} B dynamic shared memory "
+              f"per block")
         rec = {"layer": f"dcgan/{l.name}", "x": list(x.shape),
-               "y": list(y.shape), "ms": ms, "plain_ms": plain_ms,
-               "ms_min": ms_lo, "ms_max": ms_hi,
-               "plain_ms_range": list(t["plain"][1:]),
-               "library_ms_range": list(t["lib"][1:]),
-               "library_ms": lib_ms, "bound_ms": max(t_ops, t_bytes),
+               "y": list(y.shape), "plan": str(g.plan), "ms": ms,
+               "profiler_ms": dv["k1"][0], "events_ms": ev,
+               "events_ms_min": ev_lo, "events_ms_max": ev_hi,
+               "plain_ms": dv["plain"][1], "plain_events_ms": t["plain"][0],
+               "library_ms": dv["lib"][1],
+               "library_profiler_ms": dv["lib"][0],
+               "library_events_ms": t["lib"][0],
+               "bf16_ms": dv["bf16"][1], "bf16_profiler_ms": dv["bf16"][0],
+               "bound_ms": max(t_ops, t_bytes),
                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-               "flops": flops, "bytes": nbytes, "launches_per_batch": 1}
+               "tc_bound_ms": t_tc,
+               "bf16_tc_bound_ms": max(kernel_flops / PEAK_BF16_FLOPS * 1e3,
+                                       t_bytes / 2),
+               "bf16_tf32_path_bound_ms": max(
+                   kernel_flops / PEAK_TF32_FLOPS * 1e3, t_bytes / 2),
+               "flops": flops, "kernel_flops": kernel_flops,
+               "bytes": nbytes, "launches_per_batch": 1}
         per_layer.append(rec)
         print(f"  dcgan/{l.name} {tuple(x.shape)}->{tuple(y.shape)}: K1 "
-              f"{ms:.4f} ms [{ms_lo:.4f}, {ms_hi:.4f}], plain "
-              f"{plain_ms:.4f} ms, conv_transpose2d {lib_ms:.4f} ms, bound "
-              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}; "
-              f"{flops / ms / 1e9:.1f} TFLOP/s achieved; sm clock, power, "
-              f"temperature {_clocks()}) {tag}")
+              f"device {ms:.4f} ms (profiler {_ms_txt(dv['k1'][0])}), events "
+              f"{ev:.4f} [{ev_lo:.4f}, {ev_hi:.4f}]; plain device "
+              f"{rec['plain_ms']:.4f} / events {rec['plain_events_ms']:.4f}; "
+              f"conv_transpose2d device {rec['library_ms']:.4f} (profiler "
+              f"{_ms_txt(dv['lib'][0])}) / events "
+              f"{rec['library_events_ms']:.4f}; K1 bf16 device "
+              f"{rec['bf16_ms']:.4f} (profiler {_ms_txt(dv['bf16'][0])}); "
+              f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}, useful "
+              f"{flops / 1e9:.3f} GFLOP), tc bound {t_tc:.4f} ms (3 x "
+              f"{kernel_flops / 1e9:.3f} GFLOP; bf16 "
+              f"{rec['bf16_tc_bound_ms']:.4f}, on its TF32 path "
+              f"{rec['bf16_tf32_path_bound_ms']:.4f}); {flops / ms / 1e9:.1f} "
+              f"useful TFLOP/s; sm clock, power, temperature {_clocks()} "
+              f"{tag}")
+    d1 = per_layer[0]
+    gate_ms = d1["profiler_ms"] if d1["profiler_ms"] is not None else d1["ms"]
+    ok = gate_ms <= K1_D1_MS_LIMIT
+    how = "profiler" if d1["profiler_ms"] is not None else "ahead events"
+    print(f"gate: K1 f32 on dcgan/d1 at batch {BUCKET}: {gate_ms:.4f} ms of "
+          f"device time ({how}), limit {K1_D1_MS_LIMIT} ms "
+          f"{'ok' if ok else 'FAIL'} {tag}")
+    if not ok:
+        raise SystemExit("chip_smoke: K1 on DCGAN d1 is over its time limit")
 
     # ---- 3. serve full-width DCGAN through the port --------------------
     server = GenServer(nets=("dcgan",), device="cuda", max_batch=BUCKET,
@@ -2783,11 +3029,16 @@ def main(json_path: str = "") -> int:
         "max_abs_err": max_err,
         "ms": total["ms"], "plain_ms": total["plain_ms"],
         "bound_ms": total["bound_ms"], "bound_by": bound_by,
-        "library_ms": total["library_ms"]}] + train["kernels"] + \
+        "library_ms": total["library_ms"],
+        "events_ms": sum(r["events_ms"] for r in per_layer),
+        "tc_bound_ms": sum(r["tc_bound_ms"] for r in per_layer),
+        "sass_hmma_tf32": sass["sd_fused"]["HMMA_TF32"]}] + \
+        train["kernels"] + \
         [wino["kernel"], int8["kernel"], nd["kernel"], lm["kernel"]]
     for k in kernels:
         if k["name"] == "sd_conv":
             k["launches_serve_3d"] = nd["k2_launches_serve_3d"]
+            k["sass_hmma_tf32"] = sass["sd_conv"]["HMMA_TF32"]
         if k["name"] == "sd_fused_int8":
             # complete since the calibrated half: the main numbers are
             # phase 9's (static row, int8 out), phase 7's kept beside them
@@ -2821,7 +3072,10 @@ def main(json_path: str = "") -> int:
     elapsed = time.perf_counter() - t_start
     print(f"total {elapsed:.1f} s host clock (limit {TIME_LIMIT_S} s) {tag}")
     print("(below: ms/plain_ms/bound_ms/library_ms summed over DCGAN's "
-          f"three deconv layers at batch {BUCKET}; launches counted in the "
+          f"three deconv layers at batch {BUCKET} (K1's and K2's ms, plain_ms "
+          f"and library_ms are device time, ahead events, their events over "
+          f"back-to-back calls as events_ms; tc_bound_ms their 3xTF32 work "
+          f"at the TF32 tensor cores); launches counted in the "
           f"{GAN_STEPS}-step training run, K1's serving-run count as "
           f"launches_serve; K4's in the winograd serving run; K1 int8's "
           f"launches and ms/plain_ms/bound_ms from phase 9 (the calibrated "

@@ -1,26 +1,29 @@
-"""Tile plans for the port's kernels on Hopper: the fused split-deconv
-kernel (K1), the SD backward's stride-1 conv (K2) and filter grad (K3),
-and the Winograd split conv (K4, :func:`wino_plan`).
+"""Tile plans for the port's kernels on Hopper: the float stride-1 convs
+on the shared implicit-GEMM mainloop (K1's float branch and K2 in f32,
+:class:`GemmPlan`, :func:`gemm_plan`), the int8 branches of K1 and K2
+(:class:`KernelPlan`, :func:`heuristic_plan`, :func:`conv_plan`), the
+filter grad (K3, :func:`filter_grad_plan`) and the Winograd split conv
+(K4, :func:`wino_plan`).
 
 The JAX package sizes its Pallas tiles against an 8 MiB VMEM model; on
 the H100 the limit is the shared memory one block can use (227 KB) and,
-in practice, occupancy: smaller blocks let more of them share an SM.
-:func:`heuristic_plan` picks a tile from the launch geometry alone.
-Measuring and caching tiles comes later; :func:`estimate_ms` callers get
-``None`` until then.
+in practice, filling the 132 SMs.  Every plan here is a heuristic from
+the launch geometry alone; measuring and caching tiles comes later.
 
-A block of :data:`THREADS` threads computes ``(th + res_h>0) x (tw +
-res_w>0)`` conv positions (the extra row/col feeds the residual crop)
-times ``tc`` phase channels: ``tc / MICRO`` threads along the channels,
-the rest along the positions, each thread a ``MICRO x MICRO`` register
-tile.  ``tcin`` input channels are staged in shared memory per step of
-the block's own loop over Cin.
+A :class:`KernelPlan` block (K1 int8, K2 int8, K4) of :data:`THREADS`
+threads computes ``(th + res_h>0) x (tw + res_w>0)`` conv positions (the
+extra row/col feeds the residual crop) times ``tc`` phase channels:
+``tc / MICRO`` threads along the channels, the rest along the positions,
+each thread a ``MICRO x MICRO`` register tile.  ``tcin`` input channels
+are staged in shared memory per step of the block's own loop over Cin.
 
-A geometry carries its operand dtype (``dtype``: ``""`` for float,
-``"int8"`` for K1's quant branch and K2's int8 pair), so the float and
-the int8 launch of one layer are distinct geometries (a geometry is its
-own tile key), and the int8 launches' shared memory is modelled at one
-byte per staged value.
+A geometry carries its operand dtype (``dtype``: ``"int8"`` for K1's
+quant branch and K2's int8 pair, ``""`` for float: K4's
+:class:`WinoGeom` and the f32 :class:`ConvGeom` that
+:meth:`ConvGeom.as_gemm` turns into a GEMM), so the float and the int8
+launch of one layer are distinct geometries (a geometry is its own tile
+key).  :func:`smem_bytes` and :func:`heuristic_plan` size the int8
+blocks alone and refuse a float geometry.
 """
 
 from __future__ import annotations
@@ -77,24 +80,31 @@ def band_plane(geom: FusedGeom, plan: KernelPlan) -> int:
     return ((rh + geom.kth - 1) * (rw + geom.ktw - 1)) | 1
 
 
+def _require_int8(geom: FusedGeom) -> None:
+    if geom.dtype != "int8":
+        raise ValueError(f"a KernelPlan block of K1/K2 stages int8; {geom} "
+                         "is float (its launch takes a GemmPlan)")
+
+
 def smem_bytes(geom: FusedGeom, plan: KernelPlan) -> int:
-    """Dynamic shared memory of one block: the filter block ``(kth, ktw,
-    tcin, tc)`` and the input band ``(tcin, plane)``, f32 words; int8
-    launches stage both as int8 packed four input channels to a 32-bit
-    word (``ceil(tcin / 4)`` words per position, the tail zero-filled)."""
-    words = -(-plan.tcin // 4) if geom.dtype == "int8" else plan.tcin
+    """Dynamic shared memory of one int8 block: the filter block ``(kth,
+    ktw, tcin, tc)`` and the input band ``(tcin, plane)``, both int8
+    packed four input channels to a 32-bit word (``ceil(tcin / 4)``
+    words per position, the tail zero-filled)."""
+    _require_int8(geom)
+    words = -(-plan.tcin // 4)
     filt = geom.kth * geom.ktw * words * plan.tc
     return 4 * (filt + words * band_plane(geom, plan))
 
 
 def heuristic_plan(geom: FusedGeom) -> KernelPlan:
-    """Untuned default.  Channel tile: the smallest of
+    """Untuned default of an int8 block.  Channel tile: the smallest of
     :data:`TILE_CHANNELS` that holds all phase channels, else the
     largest.  Position tile: as square as the block's ``THREADS / (tc /
     MICRO) * MICRO`` positions allow, no larger than the output needs.
-    ``tcin``: up to 32 input channels per step (64 for int8, whose
-    staging is 4x smaller), halved until the block fits
-    :data:`SMEM_TARGET` (and never past :data:`SMEM_BUDGET`)."""
+    ``tcin``: up to 64 input channels per step, halved until the block
+    fits :data:`SMEM_TARGET` (and never past :data:`SMEM_BUDGET`)."""
+    _require_int8(geom)
     tc = next((t for t in TILE_CHANNELS if t >= geom.nc), TILE_CHANNELS[-1])
     positions = THREADS // (tc // MICRO) * MICRO
     eh, ew = (1 if geom.res_h else 0), (1 if geom.res_w else 0)
@@ -104,7 +114,7 @@ def heuristic_plan(geom: FusedGeom) -> KernelPlan:
     th = max(1, min(need_h, side - eh))
     tw = max(1, min(need_w, positions // (th + eh) - ew))
     th = max(1, min(need_h, positions // (tw + ew) - eh))
-    tcin = min(64 if geom.dtype == "int8" else 32, geom.cin)
+    tcin = min(64, geom.cin)
     plan = KernelPlan(th=th, tw=tw, tcin=tcin, tc=tc)
     while tcin > 1 and smem_bytes(geom, plan) > SMEM_TARGET:
         tcin = max(1, tcin // 2)
@@ -138,22 +148,26 @@ class ConvGeom:
     dtype: str = ""
 
     def as_fused(self) -> FusedGeom:
-        """K2 is K1's block without the interleave: K1's geometry at
-        stride 1 with no residual crop (same staging, same shared
-        memory; the int8 pair stages packed int8 as K1's int8 branch
-        does)."""
+        """K2's int8 pair is K1 int8's block without the interleave: K1's
+        geometry at stride 1 with no residual crop (same staging of
+        packed int8, same shared memory)."""
         return FusedGeom(h=self.h, w=self.w, cin=self.cin, nc=self.co,
                          kth=self.kth, ktw=self.ktw, sh=1, sw=1,
                          out_h=self.out_h, out_w=self.out_w,
                          dtype=self.dtype)
 
+    def as_gemm(self, batch: int) -> "GemmGeom":
+        """K2 in f32 as the implicit GEMM: ``batch * out_h * out_w``
+        output positions x ``co`` channels x ``kth * ktw * cin``."""
+        return GemmGeom(m=batch * self.out_h * self.out_w, n=self.co,
+                        k=self.kth * self.ktw * self.cin)
+
 
 def conv_plan(geom: ConvGeom) -> KernelPlan:
-    """K2's tile: K1's heuristic on :meth:`ConvGeom.as_fused` (``tc`` is
-    the output-channel tile, ``th x tw`` the output positions; an int8
-    geometry starts ``tcin`` at 64, its staging being 4x smaller).
-    ``tcin`` is never padded up: DCGAN d3's dx contracts over 12 phase
-    channels in one chunk of 12."""
+    """The tile of K2's int8 pair: K1's heuristic on
+    :meth:`ConvGeom.as_fused` (``tc`` is the output-channel tile, ``th x
+    tw`` the output positions; an int8 geometry starts ``tcin`` at 64,
+    its staging being 4x smaller).  K2 in f32 takes :func:`gemm_plan`."""
     return heuristic_plan(geom.as_fused())
 
 
@@ -316,3 +330,103 @@ def wino_plan(geom: WinoGeom) -> KernelPlan:
             or wino_items(geom, plan) > WINO_ITEMS):
         raise ValueError(f"no K4 tile of {geom} fits a block")
     return plan
+
+
+# ---------------------------------------------------------------------------
+# K1's float branch and K2 in f32: one implicit GEMM (csrc/sd_igemm.cuh),
+# M conv positions x N output (phase) channels x K = KTh*KTw*Cin, on the
+# tensor cores in 3xTF32 (bf16: one pass).
+# ---------------------------------------------------------------------------
+
+GEMM_BM = 64                   # GEMM rows (conv positions) per block
+GEMM_BK = 32                   # K per pipeline stage (both the kernel's)
+GEMM_BN = (16, 32, 64)         # GEMM columns per block
+GEMM_STAGES = 3                # cp.async ring depth (the kernel's kStages)
+GEMM_THREADS = 128             # 4 warps
+GEMM_MIN_SPLIT_TILES = 4       # least k-tiles (of GEMM_BK) one split sums
+GEMM_WAVES = 4                 # blocks wanted per SM (split-K fills to it)
+GRID_YZ_MAX = 65535            # grid.y (column tiles) and grid.z (splits)
+
+
+@dataclass(frozen=True)
+class GemmGeom:
+    """What the GEMM launches: ``m = B * positions``, ``n`` output (phase)
+    channels, ``k = KTh * KTw * Cin``, and the operand dtype (``""`` f32,
+    ``"bf16"``)."""
+    m: int
+    n: int
+    k: int
+    dtype: str = ""
+
+    @property
+    def itemsize(self) -> int:
+        return 2 if self.dtype == "bf16" else 4
+
+
+@dataclass(frozen=True)
+class GemmPlan:
+    """Tile of one GEMM launch: :data:`GEMM_BM` x ``bn`` outputs per
+    block, :data:`GEMM_BK` of the contraction per stage of the kernel's
+    :data:`GEMM_STAGES`-deep cp.async ring, and the contraction cut into
+    ``splits`` runs of whole k-tiles (split-K; the last may be shorter),
+    summed in split order by a second kernel."""
+    bn: int
+    splits: int
+
+
+def gemm_k_tiles(geom: GemmGeom) -> int:
+    return -(-geom.k // GEMM_BK)
+
+
+def gemm_split_tiles(geom: GemmGeom, plan: GemmPlan) -> int:
+    """k-tiles per split (the kernel's ``kt_per_split``)."""
+    return -(-gemm_k_tiles(geom) // plan.splits)
+
+
+def gemm_grid(geom: GemmGeom, plan: GemmPlan):
+    """``(row tiles, column tiles, splits)``: the GEMM kernel's grid."""
+    return (-(-geom.m // GEMM_BM), -(-geom.n // plan.bn), plan.splits)
+
+
+def gemm_smem_bytes(geom: GemmGeom, plan: GemmPlan) -> int:
+    """Dynamic shared memory of one block: three ints per tile row (its
+    sample's ``b*H`` and the input row / col of tap (0, 0)) and
+    :data:`GEMM_STAGES` of the A tile ``(GEMM_BM, GEMM_BK + pad)`` and the
+    B tile ``(GEMM_BK, bn + 8)``.  The row pads keep fragment loads free of
+    bank conflicts: 4 words for f32 A, 8 bf16 elements for bf16 A
+    (16-byte rows)."""
+    a_row = GEMM_BK + (8 if geom.dtype == "bf16" else 4)
+    stage = GEMM_BM * a_row + GEMM_BK * (plan.bn + 8)
+    return 3 * GEMM_BM * 4 + GEMM_STAGES * stage * geom.itemsize
+
+
+def check_gemm_plan(geom: GemmGeom, plan: GemmPlan) -> None:
+    """Raise ``ValueError`` for a plan the kernel does not take or that
+    exceeds the grid's or shared memory's limits."""
+    if plan.bn not in GEMM_BN or plan.splits < 1:
+        raise ValueError(f"{plan}: the kernel takes bn in {GEMM_BN} and "
+                         "splits >= 1")
+    _, nt, sp = gemm_grid(geom, plan)
+    if nt > GRID_YZ_MAX or sp > GRID_YZ_MAX:
+        raise ValueError(f"{plan} needs {nt} column tiles x {sp} splits; "
+                         f"the grid takes {GRID_YZ_MAX} of each")
+    if gemm_smem_bytes(geom, plan) > SMEM_BUDGET:
+        raise ValueError(f"{plan} needs {gemm_smem_bytes(geom, plan)} bytes "
+                         f"of shared memory; a block has {SMEM_BUDGET}")
+
+
+def gemm_plan(geom: GemmGeom) -> GemmPlan:
+    """Untuned default.  Column tile: the smallest of :data:`GEMM_BN`
+    that holds every column, else the largest.  Split-K where the output
+    tiles are fewer than :data:`GEMM_WAVES` blocks per SM (four 4-warp
+    blocks of a 3-stage ring fit an SM's shared memory, and the card
+    hides its latencies only with several resident): ``want = 4 * SMS //
+    tiles`` splits of ``k_tiles // want`` k-tiles each (none empty, at
+    least ``want`` of them), but none shorter than
+    :data:`GEMM_MIN_SPLIT_TILES`."""
+    bn = next((b for b in GEMM_BN if b >= geom.n), GEMM_BN[-1])
+    tiles = -(-geom.m // GEMM_BM) * -(-geom.n // bn)
+    want = max(1, GEMM_WAVES * SMS // tiles)
+    k_tiles = gemm_k_tiles(geom)
+    per = max(GEMM_MIN_SPLIT_TILES, k_tiles // want)
+    return GemmPlan(bn=bn, splits=-(-k_tiles // per))

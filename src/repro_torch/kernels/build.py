@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface, is compiled for
 ``sm_90a`` into ``build/repro_torch/<name>-<hash>.so`` under the
-repository root at first use (keyed by a hash of the source and the
-flags, so an edited source rebuilds), and is loaded with ``ctypes``.
+repository root at first use (keyed by a hash of the source, of every
+``csrc/*.cuh`` header and of the flags, so an edited source or header
+rebuilds), and is loaded with ``ctypes``.
 Nothing here runs at import time.  :func:`build` starts one ``nvcc`` per
 source, all at once, and waits for them together.
 """
@@ -31,9 +32,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 SIGNATURES = {
-    "sd_fused": ("sd_fused_launch", [_P, _P, _P, _P, _I] + [_I] * 22 + [_P]),
+    "sd_fused": ("sd_fused_launch", [_P] * 5 + [_I] * 21 + [_P]),
     "sd_fused_int8": ("sd_fused_int8_launch", [_P] * 5 + [_I] * 24 + [_P]),
-    "sd_conv": ("sd_conv_launch", [_P] * 3 + [_I] * 17 + [_P]),
+    "sd_conv": ("sd_conv_launch", [_P] * 4 + [_I] * 15 + [_P]),
     "sd_conv_int8": ("sd_conv_int8_launch", [_P] * 3 + [_I] * 17 + [_P]),
     "sd_filter_grad": ("sd_filter_grad_launch", [_P] * 4 + [_I] * 13 + [_P]),
     "sd_wino": ("sd_wino_launch", [_P] * 5 + [_I] * 27 + [_P]),
@@ -71,9 +72,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{tag[:16]}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def _load(name: str, path: Path, seconds: float, ptxas: str) -> Built:

@@ -22,7 +22,7 @@ backward's two convolutions on K2 and K3 (see :mod:`repro_torch.sd.grad`).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -30,7 +30,8 @@ from repro_torch.core.deconv import (_check_output_padding, _check_padding,
                                      _ntuple, _pads_nd, crop_interleaved,
                                      deconv_output_shape, depth_to_space,
                                      sd_geometry)
-from repro_torch.kernels.autotune import FilterGradPlan, KernelPlan
+from repro_torch.kernels.autotune import (FilterGradPlan, GemmPlan,
+                                          KernelPlan)
 from repro_torch.kernels.sd_conv import (_apply_act, check_no_grad,
                                          quant_contract, requantize, sd_conv,
                                          sd_filter_grad, sd_fused)
@@ -61,7 +62,7 @@ def sd_deconv_presplit_fused(x: torch.Tensor, ws_ocmajor: torch.Tensor,
                              act: str = "linear",
                              scale: Optional[torch.Tensor] = None,
                              out_dtype: Optional[torch.dtype] = None,
-                             plan: Optional[KernelPlan] = None
+                             plan: Optional[Union[GemmPlan, KernelPlan]] = None
                              ) -> torch.Tensor:
     """2-D transposed conv from pre-split oc-major filters in one fused
     launch: x (B, H, W, Cin), ws_ocmajor (KTh, KTw, Cin, Cout*sh*sw).
@@ -111,8 +112,8 @@ def sd_deconv_presplit_fused_3d(x: torch.Tensor, ws_nmajor: torch.Tensor,
                                 act: str = "linear",
                                 scale: Optional[torch.Tensor] = None,
                                 out_dtype: Optional[torch.dtype] = None,
-                                plan: Optional[KernelPlan] = None
-                                ) -> torch.Tensor:
+                                plan: Optional[Union[GemmPlan, KernelPlan]]
+                                = None) -> torch.Tensor:
     """3-D transposed conv from pre-split n-major filters, depth folded
     into the batch (reference: ``ops.sd_deconv_presplit_fused_3d``).
 
@@ -191,7 +192,7 @@ sd_conv2d_valid = sd_conv   # the reference's name for K2's entry point
 
 
 def sd_input_grad_fused(dy1: torch.Tensor, ws: torch.Tensor, pi, space,
-                        plan: Optional[KernelPlan] = None) -> torch.Tensor:
+                        plan: Optional[GemmPlan] = None) -> torch.Tensor:
     """Gradient of ``y1 = conv_valid(pad(x, P_I), ws)`` w.r.t. ``x`` on
     K2: a FULL stride-1 conv of ``dy1`` with the split filters rotated
     180 degrees and their in/out channels swapped.  The FULL-conv pad

@@ -9,6 +9,13 @@ launches the CUDA kernel ``csrc/sd_fused.cu`` (built at first use) or
 raises; on a CPU tensor it runs :func:`sd_fused_ref`, the same function
 in plain PyTorch.  ``SD_FUSED_LAUNCHES`` counts kernel launches.
 
+K1's float branch and K2 in f32 are one implicit GEMM on the tensor
+cores in 3xTF32 (``csrc/sd_igemm.cuh``; bf16 in one exact pass), tiled
+by a :class:`~repro_torch.kernels.autotune.GemmPlan`.  The integers K1
+is handed come from :func:`gemm_launch`; a plan with ``splits > 1``
+runs the split GEMM and then the ordered sum of its partials with the
+epilogue, and that call counts as one launch.
+
 K1's int8 branch takes an int8 ``(x, ws)`` pair and the combined dequant
 ``scale``: (B, Cout*sh*sw) on the dynamic path, or one static (1,
 Cout*sh*sw) row on the calibrated path, which the kernel reads in place
@@ -54,7 +61,7 @@ import ctypes
 import itertools
 import math
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -63,10 +70,11 @@ from repro_torch.core.deconv import (conv_valid, conv_valid_filter_grad,
                                      crop_interleaved)
 from repro_torch.kernels.autotune import (DW_TCI, ConvGeom, FilterGradGeom,
                                           FilterGradPlan, FusedGeom,
-                                          KernelPlan, conv_plan,
+                                          GemmGeom, GemmPlan, KernelPlan,
+                                          check_gemm_plan, conv_plan,
                                           dw_splits, filter_grad_plan,
-                                          heuristic_plan, smem_bytes,
-                                          SMEM_BUDGET)
+                                          gemm_plan, heuristic_plan,
+                                          smem_bytes, SMEM_BUDGET)
 
 PadPair = Tuple[int, int]
 ACTS = {"linear": 0, "relu": 1, "tanh": 2}
@@ -242,14 +250,26 @@ def requantize(y: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(y), -127.0, 127.0).to(torch.int8)
 
 
+def _crop_origin(s, pad, crop):
+    """``(q_h, q_w, plo_h, plo_w, res_h, res_w)``: the low-side crop ``c =
+    s*q + r`` as a ``q``-row band offset plus a static ``r``-row slice of
+    the interleaved output; the first ``min(q, P_I)`` padded rows are
+    never read, so the origin shifts by that much (``q``, ``plo`` after
+    the shift)."""
+    sh, sw = _pair(s)
+    (plo_h, _), (plo_w, _) = pad
+    q_h, res_h = crop[0] // sh, crop[0] % sh
+    q_w, res_w = crop[1] // sw, crop[1] % sw
+    sh_h, sh_w = min(q_h, plo_h), min(q_w, plo_w)
+    return q_h - sh_h, q_w - sh_w, plo_h - sh_h, plo_w - sh_w, res_h, res_w
+
+
 @dataclass(frozen=True)
 class LaunchGeometry:
-    """The integers the kernel is handed for one launch (all computed in
-    Python, so the CPU tests reach them).  The low-side crop ``c = s*q +
-    r`` becomes a ``q``-row band offset plus a static ``r``-row slice of
-    the interleaved tile; the first ``min(q, P_I)`` padded rows are never
-    read, so the origin shifts by that much (``q``, ``plo`` after the
-    shift)."""
+    """The integers K1's int8 branch is handed for one launch (all
+    computed in Python, so the CPU tests reach them): the crop origin of
+    :func:`_crop_origin`, the output shape and the ``nh x nw`` tiles of
+    its :class:`KernelPlan`."""
     q_h: int
     q_w: int
     plo_h: int
@@ -264,27 +284,72 @@ class LaunchGeometry:
 
 
 def launch_geometry(x_shape, ws_shape, s, pad, crop, out_space,
-                    plan: Optional[KernelPlan] = None,
-                    dtype: str = "") -> LaunchGeometry:
+                    plan: Optional[KernelPlan] = None) -> LaunchGeometry:
     sh, sw = _pair(s)
     _, h, wd, cin = x_shape
     kth, ktw, _, nc = ws_shape
-    (plo_h, _), (plo_w, _) = pad
     oh, ow = out_space
-    q_h, res_h = crop[0] // sh, crop[0] % sh
-    q_w, res_w = crop[1] // sw, crop[1] % sw
-    sh_h, sh_w = min(q_h, plo_h), min(q_w, plo_w)
+    q_h, q_w, plo_h, plo_w, res_h, res_w = _crop_origin(s, pad, crop)
     geom = FusedGeom(h=h, w=wd, cin=cin, nc=nc, kth=kth, ktw=ktw, sh=sh,
                      sw=sw, out_h=oh, out_w=ow, res_h=res_h, res_w=res_w,
-                     dtype=dtype)
+                     dtype="int8")
     plan = plan if plan is not None else heuristic_plan(geom)
     if smem_bytes(geom, plan) > SMEM_BUDGET:
         raise ValueError(f"tile {plan} needs {smem_bytes(geom, plan)} bytes "
                          f"of shared memory; a block has {SMEM_BUDGET}")
     return LaunchGeometry(
-        q_h=q_h - sh_h, q_w=q_w - sh_w, plo_h=plo_h - sh_h,
-        plo_w=plo_w - sh_w, res_h=res_h, res_w=res_w, out_h=oh, out_w=ow,
-        nh=-(-oh // (plan.th * sh)), nw=-(-ow // (plan.tw * sw)), plan=plan)
+        q_h=q_h, q_w=q_w, plo_h=plo_h, plo_w=plo_w, res_h=res_h,
+        res_w=res_w, out_h=oh, out_w=ow, nh=-(-oh // (plan.th * sh)),
+        nw=-(-ow // (plan.tw * sw)), plan=plan)
+
+
+@dataclass(frozen=True)
+class GemmLaunch:
+    """The integers K1's float branch is handed for one launch: the crop
+    origin of :func:`_crop_origin`, the output shape, the ``mh x mw``
+    conv positions per sample that the cropped output needs (``mh =
+    ceil((out_h + res_h) / sh)``; the GEMM's rows are ``B * mh * mw``),
+    the GEMM geometry and its :class:`GemmPlan`."""
+    q_h: int
+    q_w: int
+    plo_h: int
+    plo_w: int
+    res_h: int
+    res_w: int
+    out_h: int
+    out_w: int
+    mh: int
+    mw: int
+    geom: GemmGeom
+    plan: GemmPlan
+
+
+def gemm_launch(x_shape, ws_shape, s, pad, crop, out_space,
+                plan: Optional[GemmPlan] = None,
+                dtype: str = "") -> GemmLaunch:
+    sh, sw = _pair(s)
+    b, _, _, cin = x_shape
+    kth, ktw, _, nc = ws_shape
+    oh, ow = out_space
+    q_h, q_w, plo_h, plo_w, res_h, res_w = _crop_origin(s, pad, crop)
+    mh, mw = -(-(oh + res_h) // sh), -(-(ow + res_w) // sw)
+    geom = GemmGeom(m=b * mh * mw, n=nc, k=kth * ktw * cin, dtype=dtype)
+    plan = plan if plan is not None else gemm_plan(geom)
+    check_gemm_plan(geom, plan)
+    return GemmLaunch(q_h=q_h, q_w=q_w, plo_h=plo_h, plo_w=plo_w,
+                      res_h=res_h, res_w=res_w, out_h=oh, out_w=ow, mh=mh,
+                      mw=mw, geom=geom, plan=plan)
+
+
+def check_plan_type(what: str, plan, gemm: bool) -> None:
+    """The float fused kernels (K1's float branch, K2 in f32) take a
+    :class:`GemmPlan` (``gemm``), the int8 ones and K4 a
+    :class:`KernelPlan`; raise ``TypeError`` on the other.  ``what``
+    names the launch or plan in the message."""
+    want = GemmPlan if gemm else KernelPlan
+    if plan is not None and not isinstance(plan, want):
+        raise TypeError(f"{what} takes a {want.__name__}, got "
+                        f"{type(plan).__name__}")
 
 
 def _check_cuda_operands(x, ws, bias, sh, sw):
@@ -311,7 +376,7 @@ def sd_fused(x: torch.Tensor, ws_ocmajor: torch.Tensor, s, *,
              pad: Tuple[PadPair, PadPair] = ((0, 0), (0, 0)),
              crop: Tuple[int, int] = (0, 0),
              out_space: Optional[Tuple[int, int]] = None,
-             plan: Optional[KernelPlan] = None,
+             plan: Optional[Union[GemmPlan, KernelPlan]] = None,
              scale: Optional[torch.Tensor] = None,
              out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Fused SD, zero-copy: split-filter conv + interleaved write.
@@ -323,6 +388,12 @@ def sd_fused(x: torch.Tensor, ws_ocmajor: torch.Tensor, s, *,
     coordinates.  out_space: final output spatial shape (rows past the
     shuffled support come out as ``act(bias)``); defaults to the
     uncropped interleave.  Returns (B, *out_space, Cout) in ``x.dtype``.
+    ``plan``: a float launch's :class:`GemmPlan` (default
+    :func:`~repro_torch.kernels.autotune.gemm_plan`), an int8 launch's
+    :class:`KernelPlan` (default ``heuristic_plan``); the other type
+    raises ``TypeError``.  A float launch with ``splits > 1`` is two
+    kernels (the split GEMM, the ordered sum with the epilogue), counted
+    as one launch.
 
     int8 branch: ``x`` and ``ws_ocmajor`` int8 and ``scale`` the f32
     combined dequant scale, oc-major like the filters: (B, Cout*sh*sw)
@@ -341,6 +412,8 @@ def sd_fused(x: torch.Tensor, ws_ocmajor: torch.Tensor, s, *,
         out_space = _full_space(x.shape, ws_ocmajor.shape, s, pad)
     qdtype = quant_contract(x, ws_ocmajor, scale, out_dtype, act)
     quant = qdtype is not None
+    check_plan_type(f"sd_fused: a{'n int8' if quant else ' float'} launch",
+                    plan, gemm=not quant)
     if x.device.type == "cpu":
         return sd_fused_ref(x, ws_ocmajor, s, bias=bias, act=act, pad=pad,
                             crop=crop, out_space=out_space, scale=scale,
@@ -353,19 +426,19 @@ def sd_fused(x: torch.Tensor, ws_ocmajor: torch.Tensor, s, *,
         bias = torch.zeros(cout, device=x.device)
     bias = bias.float().contiguous()
     _check_cuda_operands(x, ws_ocmajor, bias, sh, sw)
-    g = launch_geometry(x.shape, ws_ocmajor.shape, (sh, sw), pad, crop,
-                        out_space, plan, dtype="int8" if quant else "")
     b, h, wd, cin = x.shape
-    y = torch.empty((b, g.out_h, g.out_w, cout),
+    y = torch.empty((b, *out_space, cout),
                     dtype=qdtype if quant else x.dtype, device=x.device)
     if y.numel() == 0:
         return y
-    if g.nh * g.nw > 65535:
-        raise ValueError(f"{g.nh * g.nw} spatial tiles exceed the grid's "
-                         "y limit; use a larger tile")
     from repro_torch.kernels.build import load
-    p = g.plan
     if quant:
+        g = launch_geometry(x.shape, ws_ocmajor.shape, (sh, sw), pad, crop,
+                            out_space, plan)
+        if g.nh * g.nw > 65535:
+            raise ValueError(f"{g.nh * g.nw} spatial tiles exceed the "
+                             "grid's y limit; use a larger tile")
+        p = g.plan
         fn = load("sd_fused_int8").fn
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -381,19 +454,35 @@ def sd_fused(x: torch.Tensor, ws_ocmajor: torch.Tensor, s, *,
                                f"error {err}")
         SD_FUSED_INT8_LAUNCHES += 1
         return y
+    g = gemm_launch(x.shape, ws_ocmajor.shape, (sh, sw), pad, crop,
+                    out_space, plan,
+                    dtype="bf16" if x.dtype == torch.bfloat16 else "")
+    p = g.plan
+    work = _split_workspace(g.geom, p, x.device)
     fn = load("sd_fused").fn
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), ws_ocmajor.data_ptr(), bias.data_ptr(),
-                 y.data_ptr(), DTYPES[x.dtype], b, h, wd, cin, cout,
+                 y.data_ptr(), None if work is None else work.data_ptr(),
+                 DTYPES[x.dtype], b, h, wd, cin, cout,
                  ws_ocmajor.shape[0], ws_ocmajor.shape[1], sh, sw,
                  g.q_h, g.q_w, g.plo_h, g.plo_w, g.res_h, g.res_w,
-                 g.out_h, g.out_w, p.th, p.tw, p.tcin, p.tc, ACTS[act],
-                 ctypes.c_void_p(stream))
+                 g.out_h, g.out_w, p.bn, p.splits,
+                 ACTS[act], ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"sd_fused kernel launch failed: CUDA error {err}")
-    SD_FUSED_LAUNCHES += 1
+    SD_FUSED_LAUNCHES += 1          # the GEMM and, split, its reduce: one
     return y
+
+
+def _split_workspace(geom: GemmGeom, plan: GemmPlan, device
+                     ) -> Optional[torch.Tensor]:
+    """The split-K partial slabs ``(splits, M, N)`` f32, or None for one
+    split (the GEMM kernel then runs the epilogue itself)."""
+    if plan.splits == 1:
+        return None
+    return torch.empty((plan.splits, geom.m, geom.n), dtype=torch.float32,
+                       device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -472,7 +561,7 @@ def sd_conv(x: torch.Tensor, w: torch.Tensor, *,
             pad: Tuple[PadPair, PadPair] = ((0, 0), (0, 0)),
             out_start: Tuple[int, int] = (0, 0),
             out_size: Optional[Tuple[int, int]] = None,
-            plan: Optional[KernelPlan] = None,
+            plan: Optional[Union[GemmPlan, KernelPlan]] = None,
             sum_terms: Optional[int] = None) -> torch.Tensor:
     """Stride-1 VALID conv over the logically zero-padded input (K2).
 
@@ -481,8 +570,12 @@ def sd_conv(x: torch.Tensor, w: torch.Tensor, *,
     ``out_start``/``out_size`` select a window of the conv output (in
     padded-input coordinates; default the whole output), so a crop
     after the conv folds into the launch.  Returns (B, *out_size, Co).
-    ``plan``: the tile (``tc`` = output channels per block); default
-    :func:`~repro_torch.kernels.autotune.conv_plan`.
+    ``plan``: in f32 a :class:`GemmPlan` (default
+    :func:`~repro_torch.kernels.autotune.gemm_plan`; with ``splits > 1``
+    the split GEMM and its ordered sum, counted as one launch), for the
+    int8 pair a :class:`KernelPlan` (default
+    :func:`~repro_torch.kernels.autotune.conv_plan`); the other type
+    raises ``TypeError``.
 
     An int8 ``(x, w)`` pair returns the exact int32 conv (the halo is
     the int8 zero); ``sum_terms`` is the number of int8 products in each
@@ -497,6 +590,8 @@ def sd_conv(x: torch.Tensor, w: torch.Tensor, *,
                          "are not (B,H,W,Cin), (KTh,KTw,Cin,Co)")
     oh, ow = _conv_window(x.shape, w.shape, pad, out_start, out_size)
     quant = _conv_int8_contract(x, w, sum_terms)
+    check_plan_type(f"sd_conv: a{'n int8' if quant else ' float'} launch",
+                    plan, gemm=not quant)
     if x.device.type == "cpu":
         return sd_conv_ref(x, w, pad, out_start, (oh, ow))
     if x.device.type != "cuda":
@@ -508,22 +603,40 @@ def sd_conv(x: torch.Tensor, w: torch.Tensor, *,
     kth, ktw, _, co = w.shape
     geom = ConvGeom(h=h, w=wd, cin=cin, co=co, kth=kth, ktw=ktw, out_h=oh,
                     out_w=ow, dtype="int8" if quant else "")
+    y = torch.empty((b, oh, ow, co),
+                    dtype=torch.int32 if quant else x.dtype, device=x.device)
+    if y.numel() == 0:
+        return y
+    from repro_torch.kernels.build import load
+    (plo_h, _), (plo_w, _) = pad
+    if not quant:
+        gg = geom.as_gemm(b)
+        plan = plan if plan is not None else gemm_plan(gg)
+        check_gemm_plan(gg, plan)
+        work = _split_workspace(gg, plan, x.device)
+        fn = load("sd_conv").fn
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(),
+                     None if work is None else work.data_ptr(), b, h, wd,
+                     cin, co, kth, ktw, plo_h, plo_w, out_start[0],
+                     out_start[1], oh, ow, plan.bn, plan.splits,
+                     ctypes.c_void_p(stream))
+        if err != 0:
+            raise RuntimeError(f"sd_conv kernel launch failed: CUDA error "
+                               f"{err}")
+        SD_CONV_LAUNCHES += 1       # the GEMM and, split, its reduce: one
+        return y
     plan = plan if plan is not None else conv_plan(geom)
     smem = smem_bytes(geom.as_fused(), plan)
     if smem > SMEM_BUDGET:
         raise ValueError(f"tile {plan} needs {smem} bytes of shared memory; "
                          f"a block has {SMEM_BUDGET}")
-    y = torch.empty((b, oh, ow, co),
-                    dtype=torch.int32 if quant else x.dtype, device=x.device)
-    if y.numel() == 0:
-        return y
     tiles = -(-oh // plan.th) * -(-ow // plan.tw)
     if tiles > 65535 or b > 65535:
         raise ValueError(f"{tiles} spatial tiles x batch {b} exceed the "
                          "grid's limits; use a larger tile")
-    from repro_torch.kernels.build import load
-    fn = load("sd_conv_int8" if quant else "sd_conv").fn
-    (plo_h, _), (plo_w, _) = pad
+    fn = load("sd_conv_int8").fn
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), b, h, wd, cin,
@@ -531,12 +644,9 @@ def sd_conv(x: torch.Tensor, w: torch.Tensor, *,
                  oh, ow, plan.th, plan.tw, plan.tcin, plan.tc,
                  ctypes.c_void_p(stream))
     if err != 0:
-        raise RuntimeError(f"sd_conv{' int8' if quant else ''} kernel launch "
-                           f"failed: CUDA error {err}")
-    if quant:
-        SD_CONV_INT8_LAUNCHES += 1
-    else:
-        SD_CONV_LAUNCHES += 1
+        raise RuntimeError(f"sd_conv int8 kernel launch failed: CUDA error "
+                           f"{err}")
+    SD_CONV_INT8_LAUNCHES += 1
     return y
 
 

@@ -12,10 +12,12 @@ a ``fused`` plan, whose kernels run their plain versions on CPU tensors:
   against ``_conv_valid_input_grad`` (with the pad^T crop) and
   ``_conv_valid_filter_grad``, at 1e-5;
 * ``torch.autograd.gradcheck`` of ``sd.conv_transpose`` in float64;
-* the tiles the kernels are handed (``conv_plan``, ``filter_grad_plan``)
+* the tiles the kernels are handed (``gemm_plan``, ``filter_grad_plan``)
   on every backward geometry of the paper layers, and the kernels'
-  blocking restated in numpy (each output written once, K3's chunks
-  summed in order) on ragged tiles.
+  blocking restated in numpy on ragged tiles: K2's implicit GEMM (the
+  halo read as zero, every ``(m, n, k)`` product taken once over the
+  tiles and splits, the splits summed in order), K3's chunks summed in
+  order.
 """
 
 import jax.numpy as jnp
@@ -33,6 +35,7 @@ from repro_torch.core.deconv import space_to_depth
 from repro_torch.kernels import autotune as A
 from repro_torch.kernels import ops
 from repro_torch.sd import grad as tgrad
+from _torch_igemm import gather_a, split_k_product
 
 GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -208,18 +211,24 @@ def _backward_geometries():
 @pytest.mark.parametrize("batch", [4, 16])
 def test_backward_tiles_fit_the_kernels(batch):
     """Every tile the heuristics give the paper layers' backward at the
-    batches chip_smoke runs fits the kernels: K2's positions fit its
-    block and its staging fits shared memory; K3's chunks cover the
-    reduction exactly once in whole steps, within the grid's limits."""
+    batches chip_smoke runs fits the kernels: K2's GEMM plan is one the
+    kernel takes, within shared memory and the grid's limits, with at
+    least one block per SM wherever the output tiles and the contraction
+    allow it; K3's chunks cover the reduction exactly once in whole
+    steps, within the grid's limits."""
     for name, layer, kt, pi, o1 in _backward_geometries():
         nco = layer.cout * layer.s ** 2
         cg = A.ConvGeom(h=o1[0], w=o1[1], cin=nco, co=layer.cin,
                         kth=kt[0], ktw=kt[1], out_h=layer.in_hw[0],
                         out_w=layer.in_hw[1])
-        cp = A.conv_plan(cg)
-        assert cp.th * cp.tw <= A.THREADS // (cp.tc // A.MICRO) * A.MICRO
-        assert cp.tc >= min(layer.cin, A.TILE_CHANNELS[-1]), name
-        assert A.smem_bytes(cg.as_fused(), cp) <= A.SMEM_BUDGET, name
+        gg = cg.as_gemm(batch)
+        cp = A.gemm_plan(gg)
+        A.check_gemm_plan(gg, cp)
+        assert cp.bn >= min(layer.cin, A.GEMM_BN[-1]), name
+        mt, nt, sp = A.gemm_grid(gg, cp)
+        assert mt * nt * sp >= A.SMS or A.gemm_split_tiles(
+            gg, cp) <= A.GEMM_MIN_SPLIT_TILES, name
+        assert (sp - 1) * A.gemm_split_tiles(gg, cp) < A.gemm_k_tiles(gg)
         g = A.FilterGradGeom(b=batch, h=layer.in_hw[0], w=layer.in_hw[1],
                              cin=layer.cin, nco=nco, kth=kt[0], ktw=kt[1],
                              o1h=o1[0], o1w=o1[1])
@@ -259,35 +268,17 @@ def test_split_cotangent_is_the_adjoint_of_the_forward_layout():
 # ---------------------------------------------------------------------------
 
 def _k2_restated(x, w, pad, out_start, out_size, plan):
-    """sd_conv.cu: block (batch, th x tw tile, tc channels) stages the
-    masked band ``os + tile*t - plo`` ... and writes its positions."""
-    b, h, wd, cin = x.shape
-    kth, ktw, _, co = w.shape
+    """sd_conv.cu on sd_igemm.cuh: the GEMM over ``B * OH * OW`` output
+    positions whose position (0, 0) reads input ``out_start - plo``, the
+    filters as a K x Co matrix, the splits summed in order; the epilogue
+    writes C[m, n] as y (B, OH, OW, Co)."""
+    b = x.shape[0]
+    kth, ktw, cin, co = w.shape
     oh, ow = out_size
-    y = np.zeros((b, oh, ow, co), np.float64)
-    hits = np.zeros(y.shape, np.int64)
-    for ti in range(-(-oh // plan.th)):
-        for tj in range(-(-ow // plan.tw)):
-            r0 = out_start[0] + ti * plan.th - pad[0][0]
-            c0 = out_start[1] + tj * plan.tw - pad[1][0]
-            band = np.zeros((b, plan.th + kth - 1, plan.tw + ktw - 1, cin))
-            rr = np.arange(band.shape[1]) + r0
-            cc = np.arange(band.shape[2]) + c0
-            ok_r, ok_c = (rr >= 0) & (rr < h), (cc >= 0) & (cc < wd)
-            band[:, ok_r[:, None] & ok_c[None, :]] = \
-                x[:, rr[ok_r]][:, :, cc[ok_c]].reshape(b, -1, cin)
-            for p in range(plan.th * plan.tw):
-                oy, ox = ti * plan.th + p // plan.tw, tj * plan.tw + p % plan.tw
-                if oy >= oh or ox >= ow:
-                    continue
-                win = band[:, p // plan.tw:p // plan.tw + kth,
-                           p % plan.tw:p % plan.tw + ktw]
-                for c0_ in range(0, co, plan.tc):
-                    sl = slice(c0_, min(co, c0_ + plan.tc))
-                    y[:, oy, ox, sl] = np.einsum("bhwi,hwio->bo", win,
-                                                 w[..., sl])
-                    hits[:, oy, ox, sl] += 1
-    return y, hits
+    a = gather_a(x, (kth, ktw), out_start[0] - pad[0][0],
+                 out_start[1] - pad[1][0], oh, ow)
+    c, _ = split_k_product(a, w.reshape(kth * ktw * cin, co), plan)
+    return c.reshape(b, oh, ow, co)
 
 
 def _k3_restated(x, dy1, kt, pad, plan):
@@ -322,9 +313,14 @@ def _k3_restated(x, dy1, kt, pad, plan):
 
 
 @pytest.mark.parametrize("seed,sx,kt,pad,plan", [
-    (0, (2, 6, 7, 5), (3, 3), ((2, 2), (2, 2)), A.KernelPlan(3, 2, 2, 16)),
-    (1, (1, 5, 6, 12), (3, 2), ((2, 2), (1, 1)), A.KernelPlan(2, 5, 7, 16)),
-    (2, (2, 9, 10, 20), (3, 3), ((2, 2), (2, 2)), None)])
+    (0, (2, 6, 7, 5), (3, 3), ((2, 2), (2, 2)), A.GemmPlan(16, 2)),
+    (1, (1, 5, 6, 12), (3, 2), ((2, 2), (1, 1)), A.GemmPlan(32, 3)),
+    (2, (2, 9, 10, 20), (3, 3), ((2, 2), (2, 2)), None),
+    (3, (1, 7, 9, 70), (3, 3), ((2, 2), (2, 2)), A.GemmPlan(64, 5)),
+    (4, (3, 4, 5, 7), (2, 2), ((1, 1), (1, 1)), A.GemmPlan(16, 1)),
+    (5, (2, 8, 6, 3), (3, 2), ((2, 2), (1, 1)), A.GemmPlan(32, 2)),
+    (6, (2, 9, 11, 24), (3, 3), ((2, 2), (2, 2)),
+     A.GemmPlan(64, 4))])
 def test_k2_blocking_restated(seed, sx, kt, pad, plan):
     rng = np.random.RandomState(seed)
     x = rng.randn(*sx)
@@ -333,10 +329,9 @@ def test_k2_blocking_restated(seed, sx, kt, pad, plan):
     out_start = tuple(p[0] for p in pad)
     out_size = tuple(f - o - 1 for f, o in zip(full, out_start))
     if plan is None:
-        plan = A.conv_plan(A.ConvGeom(sx[1], sx[2], sx[3], 40, *kt,
-                                      *out_size))
-    y, hits = _k2_restated(x, w, pad, out_start, out_size, plan)
-    assert (hits == 1).all()
+        plan = A.gemm_plan(A.ConvGeom(sx[1], sx[2], sx[3], 40, *kt,
+                                      *out_size).as_gemm(sx[0]))
+    y = _k2_restated(x, w, pad, out_start, out_size, plan)
     ref = K.sd_conv_ref(torch.from_numpy(x), torch.from_numpy(w), pad,
                         out_start, out_size)
     np.testing.assert_allclose(y, ref.numpy(), rtol=1e-5, atol=1e-4)

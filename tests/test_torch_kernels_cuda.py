@@ -8,29 +8,32 @@ with an NVIDIA GPU and nvcc:
     PYTHONPATH=src python -m pytest -q -p no:cacheprovider \\
         tests/test_torch_kernels_cuda.py
 
-f32 gate ``max|d| <= 1e-4 * max(1, max|y_ref|)`` with TF32 off (the
-kernel accumulates in plain f32 FMA, the plain version through cuDNN in
-another order); bf16 gate ``1e-2 * max|y_ref|`` (both accumulate in f32,
-so the difference is the bf16 rounding of the output).  K4 (Winograd)
-is held to the same gates against its plain version ``sd_wino_ref``,
-and against K1 on the same split filters at the reference's
-``tolerance(K_T) * max(1, max|y_K1|)``.  K1's int8 branch is held to its
-plain version (``sd_fused_ref`` on the int8 pair, exact sums) at two
-gates: bit-identical at unit scale, zero bias and linear act, and
-``1e-6 * max(1, max|y_ref|)`` with real per-sample scales, folded-BN
-filter scales, bias and relu/tanh.  K2's int8 pair is bit-identical to
-its plain version (exact int32 sums); the 3-D lowering (one K2 launch
-per depth tap) equals the card's ``torch`` backend within ``1e-5 *
-max(1, max|y_ref|)`` in f32 and exactly in int8.  K1 int8's calibrated
-half (a static (1, NC) scale row, int8 output) is bit-identical to its
-plain version on saturating scales, and the calibrated servers (DCGAN on
-K1 int8, VoxGAN on K2 int8) chain int8 between layers and equal the
-card's int8 ``torch`` backend.  K1, K4 and the 3-D
-lowering refuse an operand that requires grad under grad mode.  K5
-(flash attention) is held to ``flash_attention_ref`` at ``2e-5 * max(1,
-max|ref|)`` in f32 (``tests/test_flash_attn.py``'s tolerance) and ``1e-2
-* max|ref|`` in bf16 (the oracle in f32 on the bf16 inputs), and each
-bf16 element within ``2^-7 * |ref| + 1e-4 * max|ref|``, on ragged
+f32 gate ``max|d| <= 1e-4 * max(1, max|y_ref|)`` with TF32 off (K1's
+float branch and K2 run 3xTF32 on the tensor cores into f32
+accumulators, the plain version runs cuDNN in f32, in another order);
+bf16 gate ``1e-2 * max|y_ref|`` (both accumulate in f32, so the
+difference is the bf16 rounding of the output). K1 and K2 also run on
+forced GEMM plans (ragged M/N/K, split-K with 1, 2 and an uneven last
+split, Cin not a multiple of 4, bf16) and split-K twice, bit-identical.
+K4 (Winograd) is held to the same gates against its plain version
+``sd_wino_ref``, and against K1 on the same split filters at the
+reference's ``tolerance(K_T) * max(1, max|y_K1|)``. K1's int8 branch is
+held to its plain version (``sd_fused_ref`` on the int8 pair, exact
+sums) at two gates: bit-identical at unit scale, zero bias and linear
+act, and ``1e-6 * max(1, max|y_ref|)`` with real per-sample scales,
+folded-BN filter scales, bias and relu/tanh. K2's int8 pair is
+bit-identical to its plain version (exact int32 sums); the 3-D lowering
+(one K2 launch per depth tap) equals the card's ``torch`` backend within
+``1e-5 * max(1, max|y_ref|)`` in f32 and exactly in int8. K1 int8's
+calibrated half (a static (1, NC) scale row, int8 output) is
+bit-identical to its plain version on saturating scales, and the
+calibrated servers (DCGAN on K1 int8, VoxGAN on K2 int8) chain int8
+between layers and equal the card's int8 ``torch`` backend. K1, K4 and
+the 3-D lowering refuse an operand that requires grad under grad mode.
+K5 (flash attention) is held to ``flash_attention_ref`` at ``2e-5 *
+max(1, max|ref|)`` in f32 (``tests/test_flash_attn.py``'s tolerance) and
+``1e-2 * max|ref|`` in bf16 (the oracle in f32 on the bf16 inputs), and
+each bf16 element within ``2^-7 * |ref| + 1e-4 * max|ref|``, on ragged
 sequences around both kernels' tiles, grouped heads and D up to 256; the
 reduced LM's prefill through K5 matches the plain scan.
 """
@@ -43,7 +46,7 @@ from repro_torch.core.deconv import same_deconv_pads
 from repro_torch import sd
 import repro_torch.kernels.sd_conv as K
 from repro_torch.kernels import ops
-from repro_torch.kernels.autotune import KernelPlan
+from repro_torch.kernels.autotune import GemmPlan, KernelPlan
 
 pytestmark = pytest.mark.cuda
 
@@ -110,9 +113,9 @@ def test_dcgan_layers_bf16(dev, act):
     ((2, 5, 6, 3), (4, 4, 3, 2), 2, 0, 1, None),          # op > pad_hi
     ((1, 6, 7, 3), (5, 5, 3, 2), 2, ((1, 3), (0, 2)), 0, None),
     ((3, 13, 11, 40), (5, 5, 40, 24), 2, 2, 1,
-     KernelPlan(th=3, tw=2, tcin=16, tc=32)),              # ragged tiles
+     GemmPlan(32, 2)),       # ragged, split 2
     ((2, 9, 10, 70), (3, 3, 70, 5), 2, 1, 1,
-     KernelPlan(th=2, tw=3, tcin=8, tc=16)),              # tcin ragged
+     GemmPlan(16, 3)),       # Cin 70, K ragged
 ])
 def test_odd_geometries(dev, sx, sw, s, pad, op, tile):
     g = torch.Generator().manual_seed(1)
@@ -134,6 +137,73 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
         K.sd_fused(x, ws.bfloat16(), 2)
     with pytest.raises(ValueError, match="contiguous"):
         K.sd_fused(x.transpose(1, 2), ws, 2)
+
+
+# Forced GEMM plans of the float kernels (csrc/sd_igemm.cuh): (x shape, w
+# shape, stride, pad, output_padding, plan).
+GEMM_CASES = [
+    ((3, 13, 11, 40), (5, 5, 40, 24), 2, 2, 1,
+     GemmPlan(64, 1)),       # ragged M, N 96 of 2 x 64, K
+    ((2, 9, 10, 64), (3, 3, 64, 12), 2, 1, 1,
+     GemmPlan(16, 2)),       # split 2, N 48 of 16-tiles
+    ((2, 9, 10, 72), (4, 4, 72, 20), 2, 1, 0,
+     GemmPlan(32, 5)),       # 11 k-tiles in 5: uneven
+    ((1, 7, 6, 5), (5, 5, 5, 3), 1, 2, 0,
+     GemmPlan(16, 2)),       # Cin 5 (4-byte copies), s 1
+    ((2, 6, 7, 7), (4, 4, 7, 9), 2, 1, 0,
+     GemmPlan(64, 3)),       # Cin 7, N 36, 2 k-tiles
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("sx,sw,s,pad,op,plan", GEMM_CASES,
+                         ids=[f"{c[0]}-{c[5]}" for c in GEMM_CASES])
+def test_k1_forced_gemm_plans(dev, dtype, sx, sw, s, pad, op, plan):
+    g = torch.Generator().manual_seed(sum(sx))
+    x = torch.randn(sx, generator=g).to(dev, dtype)
+    w = (torch.randn(sw, generator=g) * 0.2).to(dev)
+    bias = torch.randn(sw[-1], generator=g).to(dev)
+    p = sd.plan(w.shape, s, pad, backend="fused", act="tanh",
+                output_padding=op, tile=plan, device=dev).bind(
+                    w.to(dtype), bias=bias)
+    out, ref = _pair(x, p)
+    if dtype == torch.float32:
+        assert (out - ref).abs().max().item() <= \
+            1e-4 * max(1.0, ref.abs().max().item())
+    else:
+        assert (out - ref).abs().max().item() <= \
+            1e-2 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("sx,sw,s,pad,op,plan", GEMM_CASES,
+                         ids=[f"{c[0]}-{c[5]}" for c in GEMM_CASES])
+def test_k2_forced_gemm_plans(dev, sx, sw, s, pad, op, plan):
+    """K2 on the same plans: the dx conv of the case's layer (contraction
+    over the sw[-1] * s^2 phase channels, Co = Cin)."""
+    from repro_torch.core.accounting import LayerSpec
+    layer = LayerSpec("deconv", sx[3], sw[3], k=sw[0], s=s, in_hw=sx[1:3],
+                      name="forced")
+    _, ws, dy1, p = _backward_case(layer, dev, batch=sx[0], seed=5)
+    _gate(*_k2_pair(dy1, ws, p, layer.in_hw, plan))
+
+
+def test_split_k_is_bit_identical(dev):
+    """Split-K sums its partials in a fixed order: two runs of K1 (f32
+    and bf16) and of K2 with splits > 1 agree bit for bit."""
+    layer = PAPER_LAYERS[0][1]                        # DCGAN d1
+    for dtype in (torch.float32, torch.bfloat16):
+        x, p = _layer(layer, dev, "relu", dtype, batch=4)
+        args = (x, p.ws, p.kernel, p.stride, p.padding)
+        plan = GemmPlan(64, 5)
+        a, b = (ops.sd_deconv_presplit_fused(
+            *args, output_padding=p.output_padding, bias=p.bias,
+            act="relu", plan=plan) for _ in range(2))
+        assert torch.equal(a, b)
+    _, ws, dy1, p = _backward_case(layer, dev, batch=4)
+    outs = [_k2_pair(dy1, ws, p, layer.in_hw, GemmPlan(64, 7))[0]
+            for _ in range(2)]
+    assert torch.equal(*outs)
 
 
 # ---------------------------------------------------------------------------
@@ -200,8 +270,7 @@ def test_backward_kernels_ragged_tiles(dev):
     from repro_torch.core.accounting import LayerSpec
     layer = LayerSpec("deconv", 70, 5, k=5, s=2, in_hw=(13, 11), name="odd")
     x, ws, dy1, p = _backward_case(layer, dev, batch=3, seed=4)
-    _gate(*_k2_pair(dy1, ws, p, layer.in_hw,
-                    KernelPlan(th=3, tw=5, tcin=7, tc=16)))
+    _gate(*_k2_pair(dy1, ws, p, layer.in_hw, GemmPlan(16, 5)))
     for plan in (FilterGradPlan(tco=16, chunk=32),     # many chunks
                  FilterGradPlan(tco=32, chunk=10 ** 6)):   # one chunk
         _gate(*_k3_pair(x, dy1, p, plan))

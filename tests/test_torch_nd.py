@@ -45,8 +45,9 @@ from repro_torch.core import quant as tq
 from repro_torch.core.accounting import WORKLOADS
 from repro_torch.core.deconv import same_deconv_pads
 from repro_torch.kernels import ops
-from repro_torch.kernels.autotune import (ConvGeom, KernelPlan, conv_plan,
-                                          smem_bytes)
+from repro_torch.kernels.autotune import (ConvGeom, GemmPlan, KernelPlan,
+                                          check_gemm_plan, conv_plan,
+                                          gemm_plan, smem_bytes)
 from repro_torch.launch.serve_gen import (GenServer, main, reduced_specs,
                                           serve_async)
 from repro_torch.models.generative import GenerativeModel
@@ -174,16 +175,26 @@ def test_k2_int8_contract():
         K.sd_conv(xq, wq.float())
     with pytest.raises(ValueError, match="sum_terms"):
         K.sd_conv(xq.float(), wq.float(), sum_terms=64)
-    # The int8 geometry is its own tile key; its staging is 4x smaller.
+    # The int8 geometry is its own tile key: the int8 pair stages packed
+    # int8 in a KernelPlan block, f32 runs the GEMM on a GemmPlan.
     f32 = ConvGeom(h=8, w=8, cin=32, co=128, kth=2, ktw=2, out_h=9, out_w=9)
     i8 = ConvGeom(h=8, w=8, cin=32, co=128, kth=2, ktw=2, out_h=9, out_w=9,
                   dtype="int8")
     plan = KernelPlan(th=8, tw=8, tcin=32, tc=64)
     assert f32 != i8
-    assert smem_bytes(i8.as_fused(), plan) * 4 == smem_bytes(
-        f32.as_fused(), plan)
-    assert conv_plan(i8).tcin == 32 and conv_plan(f32).tcin == 32
+    assert smem_bytes(i8.as_fused(), plan) == 4 * (
+        2 * 2 * 8 * 64 + 8 * ((9 * 9) | 1))     # a 32-bit word per 4 codes
+    assert conv_plan(i8).tcin == 32
     assert conv_plan(ConvGeom(4, 4, 64, 256, 2, 2, 5, 5, "int8")).tcin == 64
+    gg = f32.as_gemm(6)
+    assert (gg.m, gg.n, gg.k) == (6 * 9 * 9, 128, 2 * 2 * 32)
+    gp = gemm_plan(gg)
+    assert isinstance(gp, GemmPlan) and gp.bn == 64
+    check_gemm_plan(gg, gp)
+    with pytest.raises(TypeError, match="KernelPlan"):
+        K.sd_conv(xq, wq, plan=gp)
+    with pytest.raises(TypeError, match="GemmPlan"):
+        K.sd_conv(xq.float(), wq.float(), plan=plan)
 
 
 def test_fused_3d_int8_contract():

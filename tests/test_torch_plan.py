@@ -6,9 +6,11 @@ geometry, against the JAX reference.
 * ``sd_fused_ref`` reached through ``ops.sd_deconv_presplit_fused`` and
   the ``torch`` backend, on all 22 paper deconv layers, vs
   ``repro.sd.execute`` on ``backend="xla"`` (f32, ``rtol=atol=1e-5``);
-* the integers the CUDA kernel is handed (``launch_geometry``), checked
-  by restating the kernel's index arithmetic in numpy: every output
-  element written exactly once, with the reference's value.
+* the integers the CUDA kernel is handed (``gemm_launch``), checked by
+  restating the kernel's implicit GEMM in numpy (``_torch_igemm``): the
+  halo read as zero, every ``(m, n, k)`` product taken once over the
+  tiles and splits, every output element written exactly once, with the
+  reference's value; and ``gemm_plan`` on every paper layer.
 """
 
 import jax.numpy as jnp
@@ -24,10 +26,10 @@ import repro_torch.sd as tsd
 from repro_torch.core.deconv import split_filters
 from repro_torch.engine import fold_scale_ocmajor
 from repro_torch.kernels import ops
-from repro_torch.kernels.autotune import (FusedGeom, KernelPlan,
-                                          heuristic_plan, smem_bytes,
-                                          SMEM_TARGET)
-from repro_torch.kernels.sd_conv import launch_geometry, sd_fused
+from repro_torch.kernels import autotune as A
+from repro_torch.kernels.autotune import GemmPlan
+from repro_torch.kernels.sd_conv import gemm_launch, sd_fused
+from _torch_igemm import gather_a, shuffle_store, split_k_product
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 PAPER_LAYERS = [(net, l) for net, fn in BENCHMARKS.items()
@@ -114,48 +116,20 @@ def test_plan_contract():
 
 
 # ---------------------------------------------------------------------------
-# Launch geometry: the CUDA kernel's index arithmetic, restated in numpy.
+# Launch geometry: the CUDA kernel's implicit GEMM, restated in numpy.
 # ---------------------------------------------------------------------------
 
 def _emulate(x, ws, s, bias, act, pad, crop, out_space, plan=None):
-    """What ``csrc/sd_fused.cu`` computes, block by block, from the
-    integers ``launch_geometry`` hands it."""
-    g = launch_geometry(x.shape, ws.shape, s, pad, crop, out_space, plan)
+    """What ``csrc/sd_fused.cu`` computes, tile by tile and split by
+    split, from the integers ``gemm_launch`` hands it."""
+    g = gemm_launch(x.shape, ws.shape, s, pad, crop, out_space, plan)
+    a = gather_a(x, ws.shape[:2], g.q_h - g.plo_h, g.q_w - g.plo_w, g.mh,
+                 g.mw)
+    assert a.shape == (g.geom.m, g.geom.k)
+    c, _ = split_k_product(a, ws.reshape(g.geom.k, g.geom.n), g.plan)
     sh, sw = (s, s) if isinstance(s, int) else s
-    p = g.plan
-    b, h, wd, cin = x.shape
-    kth, ktw, _, nc = ws.shape
-    rh, rw = p.th + (g.res_h > 0), p.tw + (g.res_w > 0)
-    y = np.full((b, g.out_h, g.out_w, nc // (sh * sw)), np.nan)
-    for ti in range(g.nh):
-        for tj in range(g.nw):
-            xr0 = ti * p.th + g.q_h - g.plo_h
-            xc0 = tj * p.tw + g.q_w - g.plo_w
-            band = np.zeros((b, rh + kth - 1, rw + ktw - 1, cin))
-            for br in range(band.shape[1]):
-                for bc in range(band.shape[2]):
-                    if 0 <= xr0 + br < h and 0 <= xc0 + bc < wd:
-                        band[:, br, bc] = x[:, xr0 + br, xc0 + bc]
-            acc = sum(band[:, a:a + rh, c:c + rw] @ ws[a, c]
-                      for a in range(kth) for c in range(ktw))
-            for pr in range(rh):
-                for pc in range(rw):
-                    for ch in range(nc):
-                        oc, ph = divmod(ch, sh * sw)
-                        ly = pr * sh + ph // sw - g.res_h
-                        lx = pc * sw + ph % sw - g.res_w
-                        oy = ti * p.th * sh + ly
-                        ox = tj * p.tw * sw + lx
-                        if not (0 <= ly < p.th * sh and 0 <= lx < p.tw * sw
-                                and oy < g.out_h and ox < g.out_w):
-                            continue
-                        assert np.isnan(y[0, oy, ox, oc]), "written twice"
-                        r = acc[:, pr, pc, ch] + bias[oc]
-                        y[:, oy, ox, oc] = {"linear": r,
-                                            "relu": np.maximum(r, 0),
-                                            "tanh": np.tanh(r)}[act]
-    assert not np.isnan(y).any(), "output element never written"
-    return y
+    return shuffle_store(c, x.shape[0], g.mh, g.mw, (sh, sw),
+                         (g.res_h, g.res_w), (g.out_h, g.out_w), bias, act)
 
 
 # (x shape, w shape, stride, padding, output_padding, act, forced tile)
@@ -171,9 +145,18 @@ EMU = [
     ((1, 6, 7, 3), (5, 5, 3, 2), 2, ((1, 3), (0, 2)), 0, "linear",
      None),                                        # asymmetric pads
     ((2, 13, 11, 4), (5, 5, 4, 5), 2, 2, 1, "relu",
-     KernelPlan(th=3, tw=2, tcin=3, tc=16)),       # ragged tiles, tcin
+     GemmPlan(16, 2)),       # ragged M/N/K, split 2
     ((1, 9, 10, 3), (3, 3, 3, 2), 2, 1, 1, "linear",
-     KernelPlan(th=2, tw=3, tcin=2, tc=16)),       # mde-like k3/s2
+     GemmPlan(16, 1)),       # mde-like k3/s2
+    ((2, 9, 10, 70), (3, 3, 70, 5), 2, 1, 1, "tanh",
+     GemmPlan(32, 4)),       # Cin 70: uneven splits
+    ((3, 6, 5, 40), (5, 5, 40, 12), 2, 2, 1, "relu",
+     GemmPlan(64, 3)),       # Cin 40, N 48 < bn
+    ((1, 7, 8, 7), (4, 4, 7, 3), 2, 1, 0, "linear",
+     GemmPlan(16, 7)),       # Cin 7, more splits
+                                                   # than k-tiles
+    ((3, 9, 10, 12), (5, 5, 12, 8), 2, 2, 1, "relu",
+     GemmPlan(32, 3)),       # 5 ragged row tiles
 ]
 
 
@@ -190,27 +173,75 @@ def test_launch_geometry_emulated(case):
                                          bias=jnp.asarray(bias)),
         jnp.asarray(x)))
     tp = tsd.plan(w.shape, s, pad, backend="fused", act=act,
-                  output_padding=op).bind(torch.from_numpy(w),
-                                          bias=torch.from_numpy(bias))
+                  output_padding=op, tile=tile).bind(
+                      torch.from_numpy(w), bias=torch.from_numpy(bias))
     pads = tp.padding
     out = _emulate(x.astype(np.float64), tp.ws.double().numpy(), tp.stride,
                    bias, act, ((tp.pi[0],) * 2, (tp.pi[1],) * 2),
                    (tp.pk[0] + pads[0][0], tp.pk[1] + pads[1][0]),
-                   tp.out_shape(sx[1:3]), tile)
+                   tp.out_shape(sx[1:3]), tp.tile)
     np.testing.assert_allclose(out, ref, **TOL)
+    # the wrapper's plain version on the same launch (CPU tensors)
+    got = ops.sd_deconv_presplit_fused(
+        torch.from_numpy(x), tp.ws, tp.kernel, tp.stride, pads,
+        output_padding=op, bias=tp.bias, act=act, plan=tile)
+    np.testing.assert_allclose(got.numpy(), ref, **TOL)
 
 
-def test_heuristic_plan_fits_and_covers():
+@pytest.mark.parametrize("batch", [4, 16])
+def test_heuristic_plan_fits_and_covers(batch):
+    """``gemm_plan`` gives every paper layer's forward (K1's float
+    branch, f32 and bf16) a plan the kernel takes, within shared memory
+    and the grid's limits, with at least one block per SM wherever the
+    output tiles and the contraction allow it."""
     for net, layer in PAPER_LAYERS:
-        kt = -(-layer.k // layer.s)
-        oh, ow = layer.out_hw()
-        geom = FusedGeom(*layer.in_hw, layer.cin, layer.cout * layer.s ** 2,
-                         kt, kt, layer.s, layer.s, oh, ow, 1, 1)
-        plan = heuristic_plan(geom)
-        assert smem_bytes(geom, plan) <= SMEM_TARGET, (net, layer.name)
-        positions = 256 // (plan.tc // 4) * 4
-        assert (plan.th + 1) * (plan.tw + 1) <= positions
-        assert plan.tc >= min(geom.nc, 64)
+        pads = same_deconv_pads(layer.k, layer.s)
+        p = tsd.plan((layer.k, layer.k, layer.cin, layer.cout), layer.s,
+                     pads, backend="torch")
+        kt = p.kt
+        ws_shape = (*kt, layer.cin, layer.cout * p.phases)
+        for dtype in ("", "bf16"):
+            g = gemm_launch((batch, *layer.in_hw, layer.cin), ws_shape,
+                            p.stride, tuple((q, q) for q in p.pi),
+                            (p.pk[0] + pads[0][0], p.pk[1] + pads[1][0]),
+                            p.out_shape(layer.in_hw), dtype=dtype)
+            plan, geom = g.plan, g.geom
+            assert A.gemm_smem_bytes(geom, plan) <= A.SMEM_BUDGET
+            mt, nt, sp = A.gemm_grid(geom, plan)
+            assert nt <= A.GRID_YZ_MAX and sp <= A.GRID_YZ_MAX
+            assert plan.bn >= min(geom.n, A.GEMM_BN[-1])
+            assert mt * nt * sp >= A.SMS or A.gemm_split_tiles(
+                geom, plan) <= A.GEMM_MIN_SPLIT_TILES, (net, layer.name)
+            # every split sums at least one k-tile
+            assert (sp - 1) * A.gemm_split_tiles(geom, plan) < \
+                A.gemm_k_tiles(geom), (net, layer.name)
+
+
+def test_plan_types_follow_the_dtype():
+    """Float launches take a GemmPlan, int8 and winograd a KernelPlan;
+    the other type raises TypeError (plan, wrapper, any device)."""
+    kp = A.KernelPlan(th=2, tw=2, tcin=4, tc=16)
+    gp = GemmPlan(16, 1)
+    with pytest.raises(TypeError, match="GemmPlan"):
+        tsd.plan((4, 4, 3, 2), 2, 1, backend="fused", tile=kp)
+    with pytest.raises(TypeError, match="KernelPlan"):
+        tsd.plan((4, 4, 3, 2), 2, 1, backend="fused", dtype="int8", tile=gp)
+    with pytest.raises(TypeError, match="KernelPlan"):
+        tsd.plan((4, 4, 3, 2), 2, 1, backend="winograd", tile=gp)
+    assert tsd.plan((4, 4, 3, 2), 2, 1, backend="fused", tile=gp).tile == gp
+    x = torch.randn(1, 4, 4, 3)
+    with pytest.raises(TypeError, match="GemmPlan"):
+        sd_fused(x, torch.randn(2, 2, 3, 8), 2, plan=kp)
+    import repro_torch.kernels.sd_conv as K
+    with pytest.raises(TypeError, match="GemmPlan"):
+        K.sd_conv(x, torch.randn(3, 3, 3, 2), plan=kp)
+    xq = torch.zeros(1, 4, 4, 3, dtype=torch.int8)
+    with pytest.raises(TypeError, match="KernelPlan"):
+        K.sd_conv(xq, torch.zeros(3, 3, 3, 2, dtype=torch.int8), plan=gp)
+    for bad in (GemmPlan(24, 1), GemmPlan(128, 1), GemmPlan(16, 0),
+                GemmPlan(16, -1)):
+        with pytest.raises(ValueError, match="kernel takes"):
+            A.check_gemm_plan(A.GemmGeom(100, 10, 40), bad)
 
 
 def test_wrapper_cpu_is_plain_version_and_counts_nothing():

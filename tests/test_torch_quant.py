@@ -193,12 +193,17 @@ def test_geom_key_and_smem_distinct_per_dtype():
     i8 = dataclasses.replace(f32, dtype="int8")
     assert f32 != i8                 # distinct geometries, distinct tiles
     plan = KernelPlan(th=8, tw=8, tcin=32, tc=64)
-    # int8 stages four channels to a word: 4x less shared memory
-    assert smem_bytes(i8, plan) * 4 == smem_bytes(f32, plan)
+    # int8 stages four channels to a word: 8 words for 32 channels
+    assert smem_bytes(i8, plan) == 4 * (
+        3 * 3 * 8 * 64 + 8 * ((10 * 10) | 1))
     odd = KernelPlan(th=8, tw=8, tcin=7, tc=64)     # tail word zero-filled
     assert smem_bytes(i8, odd) == smem_bytes(
         i8, dataclasses.replace(odd, tcin=8))
-    assert heuristic_plan(i8).tcin == 64 and heuristic_plan(f32).tcin <= 32
+    assert heuristic_plan(i8).tcin == 64
+    # a float launch takes a GemmPlan: no KernelPlan block is sized for it
+    for fn in (lambda: smem_bytes(f32, plan), lambda: heuristic_plan(f32)):
+        with pytest.raises(ValueError, match="GemmPlan"):
+            fn()
 
 
 # ---------------------------------------------------------------------------
@@ -374,8 +379,7 @@ def _emulate_int8(xq, ws, scale, s, bias, act, pad, crop, out_space,
     register; the epilogue rounds the sum to f32, multiplies the scale of
     phase channel ``c`` (before the interleave), adds the bias in f32 and
     writes the interleaved, cropped element."""
-    g = K.launch_geometry(xq.shape, ws.shape, s, pad, crop, out_space, plan,
-                          dtype="int8")
+    g = K.launch_geometry(xq.shape, ws.shape, s, pad, crop, out_space, plan)
     sh, sw = s
     p = g.plan
     b, h, wd, cin = xq.shape
