@@ -12,7 +12,8 @@ Drives ``repro_torch`` only (never JAX, never the JAX package ``repro``):
    ``flash_attn.cu``, flash attention) and prints their registers and
    shared memory, and counts the TF32 ``HMMA`` instructions in the SASS
    of K1's float branch and K2, which share the 3xTF32 implicit-GEMM
-   mainloop ``sd_igemm.cuh`` (fails if either has none);
+   mainloop ``sd_igemm.cuh``, and of K3 and K4, which take its 3xTF32
+   arithmetic (fails if any has none);
 2. holds K1 against its plain PyTorch version ``sd_fused_ref`` on the 22
    deconv layers of the paper's six networks (batch 4, f32, TF32 off,
    ``max|d| <= 1e-4 * max(1, max|y_ref|)``), on an ``output_padding >
@@ -39,10 +40,12 @@ Drives ``repro_torch`` only (never JAX, never the JAX package ``repro``):
    batch 4 and on odd geometries (``op > pad_hi``, asymmetric pads,
    forced ragged tiles and split-K plans, each run twice bit-identical),
    same f32 gate; times K2, K3, their plain versions and cuDNN's
-   ``convolution_backward`` per DCGAN layer at batch 16 (K2 also in
-   device time, with its plan and tensor-core bound; K2 run twice on d1
-   with split-K, bit-identical), and fails if K2 takes more than
-   ``K2_D1_MS_LIMIT`` ms of device time on d1's dx; then takes full-width DCGAN GAN steps (batch 16, discriminator
+   ``convolution_backward`` per DCGAN layer at batch 16 in device time
+   and CUDA events, with each one's GEMM plan and tensor-core bound (K2
+   and K3 run twice on d1 with split-K, bit-identical; both against the
+   f64 product on d1 beside cuDNN f32), and fails if K2 takes more than
+   ``K2_D1_MS_LIMIT`` ms of device time on d1's dx or K3 more than
+   ``K3_D1_MS_LIMIT`` ms on d1's dw; then takes full-width DCGAN GAN steps (batch 16, discriminator
    3/64/128/256, AdamW) through ``repro_torch.launch.train_gen`` with
    the generator on the fused backend, and checks K1/K2/K3 launches of
    3/3/3 per generator step and 3/0/0 per discriminator step, finite
@@ -54,14 +57,19 @@ Drives ``repro_torch`` only (never JAX, never the JAX package ``repro``):
    asymmetric pads, forced ragged tiles), then on DCGAN's layers in
    bf16, and against K1 on the same split filters at the reference's
    ``tolerance(K_T) * max(1, max|y_K1|)``; times K4, its plain version,
-   K1 and ``F.conv_transpose2d`` per DCGAN layer at batch 16; serves 48
+   K1 and ``F.conv_transpose2d`` per DCGAN layer at batch 16 in device
+   time and CUDA events, with K4's plan and grid, holds K4, K1 and cuDNN
+   f32 against the f64 product on d1, and fails if K4 takes more than
+   ``K4_D1_MS_LIMIT`` ms of device time on d1; serves 48
    full-width DCGAN requests through ``GenServer(backend="winograd")``
    and checks 3 K4 and 0 K1 launches per batch, finite outputs, and, on
    the same weights, the winograd model on the CPU (``sd_wino_ref``, the
    K1 f32 gate), the ``torch`` backend and the fused server's model
    within ``tolerance((3, 3)) * max|ref|``.  K4's ``bound_ms`` counts the
-   work its algorithm needs (transform-domain products and transforms);
-   ``useful_bound_ms`` beside it is the direct deconv's, K1's bound;
+   work its algorithm needs (transform-domain products and transforms) on
+   the CUDA cores, ``tc_bound_ms`` its products' 3xTF32 work on the
+   tensor cores beside its transforms on the CUDA cores;
+   ``useful_bound_ms`` is the direct deconv's, K1's bound;
 7. int8: holds K1's int8 branch (``sd_fused_int8.cu``) against its plain
    version (``sd_fused_ref`` on the int8 pair, exact sums) on the 22
    paper layers and odd geometries (Cin not a multiple of 4, ``op >
@@ -190,6 +198,8 @@ ND_F32_GATE = 1e-5       # the 3-D lowering vs the torch backend (TF32 off)
 PEAK_TF32_FLOPS = 495e12
 K1_D1_MS_LIMIT = 0.13    # K1 f32 on DCGAN d1 at batch 16, device ms
 K2_D1_MS_LIMIT = 0.20    # K2 (dx) on DCGAN d1 at batch 16, device ms
+K3_D1_MS_LIMIT = 0.15    # K3 (dw) on DCGAN d1 at batch 16, device ms
+K4_D1_MS_LIMIT = 0.12    # K4 f32 on DCGAN d1 at batch 16, device ms
 AHEAD_CYCLES = 4_000_000  # torch.cuda._sleep before a timed run of calls
 # Phase 10: K5 and dense LM serving.  StableLM-2-12B
 # (src/repro_torch/configs/stablelm_12b.py) at all 40 of its layers: the
@@ -259,13 +269,15 @@ def _ahead_ms(fn, calls: int = 20) -> float:
     queued behind ``torch.cuda._sleep``, so the card starts them only
     once the host has queued them all and the host's time per call
     (the wrapper's Python, a ctypes launch) is hidden.  The sleep is
-    lengthened until the start event is still pending when the last
-    call is queued."""
+    lengthened (four times, at most) until the start event is still
+    pending when the last call is queued; a call that waits on the card
+    itself (a copy from pageable host memory) never lets the host get
+    ahead, and its last reading, host gaps included, is returned."""
     import torch
     for _ in range(3):
         fn()
     cycles = AHEAD_CYCLES
-    while True:
+    for _ in range(4):
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -277,8 +289,9 @@ def _ahead_ms(fn, calls: int = 20) -> float:
         ahead = not start.query()
         torch.cuda.synchronize()
         if ahead:
-            return start.elapsed_time(end) / calls
+            break
         cycles *= 4
+    return start.elapsed_time(end) / calls
 
 
 def _device_ms(fn) -> tuple:
@@ -350,10 +363,12 @@ def _train_phase(dev, tag: str, randn) -> dict:
     import repro_torch.kernels.sd_conv as K
     from repro_torch import sd
     from repro_torch.core.accounting import BENCHMARKS, LayerSpec
-    from repro_torch.core.deconv import conv_valid, same_deconv_pads
+    from repro_torch.core.deconv import (conv_valid, conv_valid_filter_grad,
+                                         same_deconv_pads)
     from repro_torch.data import GANLatentPipeline
-    from repro_torch.kernels.autotune import (ConvGeom, FilterGradPlan,
-                                              GemmPlan, gemm_grid, gemm_plan,
+    from repro_torch.kernels.autotune import (ConvGeom, FilterGradGeom,
+                                              GemmPlan, filter_grad_plan,
+                                              gemm_grid, gemm_plan,
                                               gemm_smem_bytes)
     from repro_torch.launch import train_gen
     from repro_torch.models.generative import GenerativeModel
@@ -417,7 +432,8 @@ def _train_phase(dev, tag: str, randn) -> dict:
     # op > pad_hi, per-dim op, asymmetric pads, then forced tiles (K2:
     # GEMM tiles ragged in M, N and K, split-K with an uneven last split,
     # a contraction of 5 * 4 phase channels (4-byte copies) and Co 70;
-    # K3: 32-position chunks, and one single chunk).
+    # K3: Cin 40 and 70 in ragged 64-channel row tiles, 20 cotangent
+    # channels (4-byte copies), many splits and one).
     odd = [(LayerSpec("deconv", 3, 2, k=4, s=2, in_hw=(5, 6)), 2, 0, 1,
             None, None),
            (LayerSpec("deconv", 3, 2, k=4, s=2, in_hw=(5, 6)), 2, 1, (1, 0),
@@ -425,11 +441,9 @@ def _train_phase(dev, tag: str, randn) -> dict:
            (LayerSpec("deconv", 3, 2, k=5, s=2, in_hw=(6, 7)), 1,
             ((1, 3), (0, 2)), 0, None, None),
            (LayerSpec("deconv", 40, 24, k=5, s=2, in_hw=(13, 11)), 3, 2, 1,
-            GemmPlan(16, 3),
-            FilterGradPlan(tco=16, chunk=32)),
+            GemmPlan(16, 3), GemmPlan(32, 9)),
            (LayerSpec("deconv", 70, 5, k=5, s=2, in_hw=(9, 10)), 2, 1, 1,
-            GemmPlan(32, 7),
-            FilterGradPlan(tco=32, chunk=10 ** 6))]
+            GemmPlan(32, 7), GemmPlan(16, 1))]
     for l, batch, padv, op, t2, t3 in odd:
         _, _, _, a2, a3 = case(l, batch, padv, op)
         label = f"odd {l.in_hw} cin{l.cin} k{l.k} p{padv} op{op}"
@@ -454,11 +468,11 @@ def _train_phase(dev, tag: str, randn) -> dict:
     print(f"time: DCGAN backward at batch {BUCKET}, f32, CUDA events: median "
           f"[min, max] of 7 rounds of 20 warm launches, kernel / plain / "
           f"cuDNN convolution_backward (one gradient requested) in turns; "
-          f"for K2 also device ms of one call (ahead: CUDA events over 20 "
-          f"calls queued behind torch.cuda._sleep; profiler: its kernels "
-          f"summed, median of 3) and the tc bound (its GEMM's 3xTF32 work "
-          f"at {PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s) {tag}")
-    per_layer = []
+          f"for K2 and K3 also device ms of one call (ahead: CUDA events "
+          f"over 20 calls queued behind torch.cuda._sleep; profiler: its "
+          f"kernels summed, median of 3) and the tc bound (its GEMM's 3xTF32 "
+          f"work at {PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s) {tag}")
+    per_layer, precision = [], {}
     for l in BENCHMARKS["dcgan"]().deconv_layers():
         p, x, dy, a2, a3 = case(l, BUCKET, same_deconv_pads(l.k, l.s))
         gate("sd_conv", f"dcgan/{l.name} b{BUCKET}", k2_call(a2), k2_ref(a2))
@@ -469,14 +483,23 @@ def _train_phase(dev, tag: str, randn) -> dict:
                         ktw=p.kt[1], out_h=l.in_hw[0],
                         out_w=l.in_hw[1]).as_gemm(BUCKET)
         plan = gemm_plan(geom)
+        fgeom = FilterGradGeom(b=BUCKET, h=l.in_hw[0], w=l.in_hw[1],
+                               cin=l.cin, nco=a3["dy1"].shape[-1],
+                               kth=p.kt[0], ktw=p.kt[1],
+                               o1h=a3["dy1"].shape[1], o1w=a3["dy1"].shape[2])
+        fplan = filter_grad_plan(fgeom)
         if not per_layer:
             # Split-K sums its partials in a fixed order: two runs agree.
-            split = plan if plan.splits > 1 else GemmPlan(64, 3)
-            same = torch.equal(k2_call(a2, split), k2_call(a2, split))
-            print(f"  dcgan/{l.name} sd_conv run twice with {split}: "
-                  f"{'bit-identical' if same else 'DIFFERS'}")
-            if not same:
-                failures.append(f"dcgan/{l.name} K2 not deterministic")
+            for name, call, a_, pl in (("sd_conv", k2_call, a2, plan),
+                                       ("sd_filter_grad", k3_call, a3,
+                                        fplan)):
+                split = pl if pl.splits > 1 else GemmPlan(64, 3)
+                same = torch.equal(call(a_, split), call(a_, split))
+                print(f"  dcgan/{l.name} {name} run twice with {split}: "
+                      f"{'bit-identical' if same else 'DIFFERS'}")
+                if not same:
+                    failures.append(f"dcgan/{l.name} {name} not "
+                                    f"deterministic")
             (plo_h, phi_h), (plo_w, phi_w) = a2["pad"]
             (oh, ow), (sh, sw) = a2["out_size"], a2["out_start"]
             ref64 = conv_valid(F.pad(a2["x"].double(), (
@@ -489,6 +512,19 @@ def _train_phase(dev, tag: str, randn) -> dict:
                   f"the f64 product: max|d| / max(1, max|ref|) K2 "
                   f"{prec['k2']:.3e}, plain (cuDNN f32, TF32 off) "
                   f"{prec['plain']:.3e} {tag}")
+            precision["k2"] = prec
+            (plo_h, phi_h), (plo_w, phi_w) = a3["pad"]
+            ref64 = conv_valid_filter_grad(
+                F.pad(a3["x"].double(), (0, 0, plo_w, phi_w, plo_h, phi_h)),
+                a3["dy1"].double())
+            scale = max(1.0, ref64.abs().max().item())
+            prec = {n: (y_.double() - ref64).abs().max().item() / scale
+                    for n, y_ in (("k3", k3_call(a3)), ("plain", k3_ref(a3)))}
+            print(f"  precision: dcgan/{l.name} dw at batch {BUCKET} against "
+                  f"the f64 product: max|d| / max(1, max|ref|) K3 "
+                  f"{prec['k3']:.3e}, plain (cuDNN f32, TF32 off) "
+                  f"{prec['plain']:.3e} {tag}")
+            precision["k3"] = prec
         # Library yardstick: cuDNN's backward of the same-size
         # transposed conv (NCHW, crop 2 + output_padding 1 -> in*s),
         # asked for dx only or dw only.
@@ -511,7 +547,10 @@ def _train_phase(dev, tag: str, randn) -> dict:
             "lib_dw": lambda: lib([False, True, False])})
         dv = {"k2": _device_ms(lambda a2=a2: k2_call(a2)),
               "k2_plain": _device_ms(lambda a2=a2: k2_ref(a2)),
-              "lib_dx": _device_ms(lambda: lib([True, False, False]))}
+              "lib_dx": _device_ms(lambda: lib([True, False, False])),
+              "k3": _device_ms(lambda a3=a3: k3_call(a3)),
+              "k3_plain": _device_ms(lambda a3=a3: k3_ref(a3)),
+              "lib_dw": _device_ms(lambda: lib([False, True, False]))}
         useful = 2.0 * BUCKET * l.macs()
         o1h, o1w = a2["x"].shape[1:3]
         kt2 = p.kt[0] * p.kt[1]
@@ -521,13 +560,17 @@ def _train_phase(dev, tag: str, randn) -> dict:
                       * nco * l.cin}
         moved = {"sd_conv": [a2["x"], a2["w"], x],
                  "sd_filter_grad": [x, a3["dy1"], a2["w"]]}
-        grid = gemm_grid(geom, plan)
-        print(f"  dcgan/{l.name} K2 launch: {plan}, GEMM M {geom.m} x N "
-              f"{geom.n} x K {geom.k}, grid {grid[0]} x {grid[1]} x "
-              f"{grid[2]} blocks of 128 threads"
-              f"{', then the ordered split sum' if grid[2] > 1 else ''}, "
-              f"{gemm_smem_bytes(geom, plan)} B dynamic shared memory per "
-              f"block")
+        # K3 stages A as 32 positions x (64 + 8) channels and no row table.
+        for label, gg, pl, smem in (
+                ("K2", geom, plan, gemm_smem_bytes(geom, plan)),
+                ("K3", fgeom.as_gemm(), fplan,
+                 3 * 32 * (64 + 8 + fplan.bn + 8) * 4)):
+            grid = gemm_grid(gg, pl)
+            print(f"  dcgan/{l.name} {label} launch: {pl}, GEMM M {gg.m} x "
+                  f"N {gg.n} x K {gg.k}, grid {grid[0]} x {grid[1]} x "
+                  f"{grid[2]} blocks of 128 threads"
+                  f"{', then the ordered split sum' if grid[2] > 1 else ''}"
+                  f", {smem} B dynamic shared memory per block")
         for name, tk, tp, tl in (("sd_conv", "k2", "k2_plain", "lib_dx"),
                                  ("sd_filter_grad", "k3", "k3_plain",
                                   "lib_dw")):
@@ -542,23 +585,22 @@ def _train_phase(dev, tag: str, randn) -> dict:
                    "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                    "flops": useful, "kernel_flops": kernel_ops[name],
                    "bytes": nbytes}
-            extra = ""
-            if name == "sd_conv":
-                # K2's record in device time; events kept beside it.
-                rec.update(
-                    ms=dv[tk][1], profiler_ms=dv[tk][0], events_ms=ms,
-                    events_ms_min=lo, events_ms_max=hi,
-                    plain_ms=dv[tp][1], plain_events_ms=t[tp][0],
-                    library_ms=dv[tl][1], library_profiler_ms=dv[tl][0],
-                    library_events_ms=t[tl][0], plan=str(plan),
-                    tc_bound_ms=max(3 * kernel_ops[name] / PEAK_TF32_FLOPS
-                                    * 1e3, t_bytes))
-                extra = (f"; device {rec['ms']:.4f} ms (profiler "
-                         f"{_ms_txt(dv[tk][0])}), plain "
-                         f"{rec['plain_ms']:.4f}, cuDNN "
-                         f"{rec['library_ms']:.4f} (profiler "
-                         f"{_ms_txt(dv[tl][0])}); tc bound "
-                         f"{rec['tc_bound_ms']:.4f} ms")
+            # The record in device time; events kept beside it.
+            rec.update(
+                ms=dv[tk][1], profiler_ms=dv[tk][0], events_ms=ms,
+                events_ms_min=lo, events_ms_max=hi,
+                plain_ms=dv[tp][1], plain_events_ms=t[tp][0],
+                library_ms=dv[tl][1], library_profiler_ms=dv[tl][0],
+                library_events_ms=t[tl][0],
+                plan=str(plan if name == "sd_conv" else fplan),
+                tc_bound_ms=max(3 * kernel_ops[name] / PEAK_TF32_FLOPS
+                                * 1e3, t_bytes))
+            extra = (f"; device {rec['ms']:.4f} ms (profiler "
+                     f"{_ms_txt(dv[tk][0])}), plain "
+                     f"{rec['plain_ms']:.4f}, cuDNN "
+                     f"{rec['library_ms']:.4f} (profiler "
+                     f"{_ms_txt(dv[tl][0])}); tc bound "
+                     f"{rec['tc_bound_ms']:.4f} ms")
             per_layer.append(rec)
             print(f"  dcgan/{l.name} {'K2 dx' if name == 'sd_conv' else 'K3 dw'}"
                   f": {ms:.4f} ms [{lo:.4f}, {hi:.4f}], plain "
@@ -572,15 +614,19 @@ def _train_phase(dev, tag: str, randn) -> dict:
     if failures:
         raise SystemExit(f"chip_smoke: backward kernels disagree at batch "
                          f"{BUCKET} on {failures}")
-    d1 = next(r for r in per_layer if r["kernel"] == "sd_conv")
-    gate_ms = d1["profiler_ms"] if d1["profiler_ms"] is not None else d1["ms"]
-    how = "profiler" if d1["profiler_ms"] is not None else "ahead events"
-    ok = gate_ms <= K2_D1_MS_LIMIT
-    print(f"gate: K2 dx on dcgan/d1 at batch {BUCKET}: {gate_ms:.4f} ms of "
-          f"device time ({how}), limit {K2_D1_MS_LIMIT} ms "
-          f"{'ok' if ok else 'FAIL'} {tag}")
-    if not ok:
-        raise SystemExit("chip_smoke: K2 on DCGAN d1 is over its time limit")
+    for name, label, limit in (("sd_conv", "K2 dx", K2_D1_MS_LIMIT),
+                               ("sd_filter_grad", "K3 dw", K3_D1_MS_LIMIT)):
+        d1 = next(r for r in per_layer if r["kernel"] == name)
+        gate_ms = (d1["profiler_ms"] if d1["profiler_ms"] is not None
+                   else d1["ms"])
+        how = "profiler" if d1["profiler_ms"] is not None else "ahead events"
+        ok = gate_ms <= limit
+        print(f"gate: {label} on dcgan/d1 at batch {BUCKET}: {gate_ms:.4f} "
+              f"ms of device time ({how}), limit {limit} ms "
+              f"{'ok' if ok else 'FAIL'} {tag}")
+        if not ok:
+            raise SystemExit(f"chip_smoke: {label} on DCGAN d1 is over its "
+                             f"time limit")
 
     # ---- full-width DCGAN GAN steps through train_gen --------------------
     gen, disc = train_gen.make_gan(False, "sd_kernel", dev)
@@ -726,10 +772,10 @@ def _train_phase(dev, tag: str, randn) -> dict:
             "bound_by": ("operations" if tot["flops"] / PEAK_F32_FLOPS
                          >= tot["bytes"] / PEAK_BYTES else "bytes"),
             "library_ms": tot["library_ms"]})
-        if name == "sd_conv":
-            kernels[-1].update({k: sum(r[k] for r in recs)
-                                for k in ("events_ms", "tc_bound_ms")})
+        kernels[-1].update({k: sum(r[k] for r in recs)
+                            for k in ("events_ms", "tc_bound_ms")})
     return {"kernels": kernels, "per_layer": per_layer,
+            "precision_d1": precision,
             "k1_launches": launches["sd_fused"],
             "train": {"step_ms": step_ms, "median_step_ms": med,
                       "d_loss": d_hist, "g_loss": g_hist,
@@ -752,8 +798,10 @@ def _wino_phase(dev, tag, randn) -> dict:
     from repro_torch.core.accounting import BENCHMARKS
     from repro_torch.core.deconv import same_deconv_pads
     from repro_torch.kernels import ops
+    from repro_torch.core.deconv import conv_valid
     from repro_torch.kernels import winograd as W
-    from repro_torch.kernels.autotune import KernelPlan
+    from repro_torch.kernels.autotune import (WinoPlan, wino_grid,
+                                              wino_smem_bytes)
     from repro_torch.launch.serve_gen import GenServer, serve_async
     from repro_torch.models.generative import GenerativeModel
 
@@ -823,8 +871,9 @@ def _wino_phase(dev, tag, randn) -> dict:
                   randn(4, *l.in_hw, l.cin), pw, pf)
     # The reference's odd geometries (tests/test_winograd.py), op >
     # pad_hi, asymmetric pads, a mixed F(2,3) x F(1,1) kernel, and forced
-    # ragged tiles (rows rounded up to whole tiles, a residual crop row,
-    # ragged Cin steps and channel tiles, F(2,5) on an odd tile).
+    # ragged plans (bands past the tiles, samples past the batch, a
+    # residual crop row, Cin 40 and 70 in 16-channel chunks, 4-byte
+    # copies, F(2,5) on three points per warp).
     odd = [((2, 7, 6, 4), (5, 5, 4, 3), 3, 2, 0, None),
            ((2, 7, 6, 4), (6, 6, 4, 3), 3, "same", 0, None),
            ((2, 7, 6, 4), (7, 7, 4, 3), 4, 3, 0, None),
@@ -834,11 +883,12 @@ def _wino_phase(dev, tag, randn) -> dict:
            ((1, 6, 7, 3), (5, 5, 3, 2), 2, ((1, 3), (0, 2)), 0, None),
            ((1, 5, 6, 3), (5, 2, 3, 2), 2, ((2, 2), (0, 1)), 0, None),
            ((3, 13, 11, 40), (5, 5, 40, 24), 2, 2, 1,
-            KernelPlan(th=3, tw=4, tcin=7, tc=16)),
+            WinoPlan(nth=3, ntw=2, nb=2, tc=16)),
            ((2, 9, 10, 70), (3, 3, 70, 5), 2, 1, 1,
-            KernelPlan(th=2, tw=3, tcin=8, tc=4)),
+            WinoPlan(nth=2, ntw=3, nb=2, tc=32)),
            ((2, 9, 7, 12), (5, 5, 12, 6), 1, 2, 0,
-            KernelPlan(th=3, tw=1, tcin=5, tc=8))]
+            WinoPlan(nth=3, ntw=1, nb=2, tc=16)),
+           ((3, 8, 8, 7), (5, 5, 7, 5), 2, "same", 0, None)]
     for sx, sw_, st, padv, op, tile in odd:
         pad = same_deconv_pads(sw_[0], st) if padv == "same" else padv
         pw, pf = plans(sw_, st, pad, "tanh", op, tile, scale_on=False)
@@ -858,10 +908,18 @@ def _wino_phase(dev, tag, randn) -> dict:
     if failures:
         raise SystemExit(f"chip_smoke: K4 disagrees on {failures}")
 
-    print(f"time: DCGAN layers at batch {BUCKET}, f32, CUDA events: median "
-          f"[min, max] of 7 rounds of 20 warm launches, K4 / plain / K1 / "
-          f"conv_transpose2d in turns {tag}")
-    per_layer = []
+    print(f"time: DCGAN layers at batch {BUCKET}, f32, K4 / K1 / "
+          f"conv_transpose2d: device ms of one call (ahead: CUDA events over "
+          f"20 calls queued behind torch.cuda._sleep; profiler: its kernels "
+          f"summed, median of 3) and, with the plain version, CUDA events "
+          f"(median [min, max] of 7 rounds of 20 warm launches in turns); "
+          f"bound: K4's own work "
+          f"(transform-domain products and transforms) at the "
+          f"{PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s CUDA cores, tc bound: its "
+          f"products' 3xTF32 work at the {PEAK_TF32_FLOPS / 1e12:.0f} "
+          f"TFLOP/s TF32 tensor cores beside its transforms on the CUDA "
+          f"cores {tag}")
+    per_layer, precision = [], {}
     for i, l in dcgan:
         pw, pf = plans((l.k, l.k, l.cin, l.cout), l.s,
                        same_deconv_pads(l.k, l.s),
@@ -873,11 +931,16 @@ def _wino_phase(dev, tag, randn) -> dict:
         lib = lambda: F.conv_transpose2d(                 # noqa: E731
             x_cf, w_t, pw.bias, stride=l.s, padding=2, output_padding=1)
         assert lib().shape[2:] == k4(x, pw).shape[1:3]
-        t = _time_ms({
-            "k4": lambda: k4(x, pw),
-            "plain": lambda: W.sd_wino_ref(x, pw.ws, pw.kt, pw.stride, **g),
-            "k1": lambda: sd.execute(pf, x),
-            "lib": lib})
+        fns = {"k4": lambda: k4(x, pw),
+               "plain": lambda: W.sd_wino_ref(x, pw.ws, pw.kt, pw.stride,
+                                              **g),
+               "k1": lambda: sd.execute(pf, x),
+               "lib": lib}
+        t = _time_ms(fns)
+        # The plain version copies the Toom-Cook matrices from pageable
+        # host memory per call: it cannot run ahead of the host, so it is
+        # timed by events alone.
+        dv = {n: _device_ms(f) for n, f in fns.items() if n != "plain"}
         y = k4(x, pw)
         ref = W.sd_wino_ref(x, pw.ws, pw.kt, pw.stride, **g)
         torch.cuda.synchronize()
@@ -888,10 +951,32 @@ def _wino_phase(dev, tag, randn) -> dict:
         if not (d <= tol and y.shape == ref.shape):
             raise SystemExit(f"chip_smoke: K4 disagrees with sd_wino_ref "
                              f"on dcgan/{l.name} at batch {BUCKET}")
-        lg = W.wino_launch_geometry(x.shape, pw.ws.shape, pw.kt, pw.stride,
-                                    g["pad"], g["crop"], g["out_space"])
+        if not per_layer:
+            # K4, K1 (3xTF32) and the plain direct conv (cuDNN f32, TF32
+            # off) against the f64 product of the same split filters.
+            (plo_h, phi_h), (plo_w, phi_w) = g["pad"]
+            ref64 = K.shuffle_epilogue(
+                conv_valid(F.pad(x.double(), (0, 0, plo_w, phi_w, plo_h,
+                                              phi_h)), pf.ws.double()),
+                pf.stride, pf.bias.double(), pf.act, g["crop"],
+                g["out_space"], torch.float64)
+            scale = max(1.0, ref64.abs().max().item())
+            fk = dict(bias=pf.bias, act=pf.act, **{
+                k_: g[k_] for k_ in ("pad", "crop", "out_space")})
+            prec = {n: (y_.double() - ref64).abs().max().item() / scale
+                    for n, y_ in (("k4", y), ("k1", sd.execute(pf, x)),
+                                  ("plain", K.sd_fused_ref(
+                                      x, pf.ws, pf.stride, **fk)))}
+            print(f"  precision: dcgan/{l.name} at batch {BUCKET} against "
+                  f"the f64 direct product: max|d| / max(1, max|ref|) K4 "
+                  f"{prec['k4']:.3e}, K1 {prec['k1']:.3e}, plain direct "
+                  f"conv (cuDNN f32, TF32 off) {prec['plain']:.3e} {tag}")
+            precision = prec
+        lg = W.wino_launch(tuple(x.shape), tuple(pw.ws.shape), pw.kt,
+                           pw.stride, g["pad"], g["crop"], g["out_space"])
         flops = 2.0 * BUCKET * l.macs()
-        tiles = BUCKET * lg.nh * lg.nth * lg.nw * lg.ntw
+        grid = wino_grid(lg.geom, lg.plan)
+        tiles = grid[1] * grid[2] * lg.plan.nb * lg.plan.nth * lg.plan.ntw
         # What K4's algorithm must do for this output: F(m, K_T) tiles of
         # m x m conv rows; per tile, alpha_h*alpha_w products per input
         # and phase channel, the input transform B^T d B per input channel
@@ -900,43 +985,67 @@ def _wino_phase(dev, tag, randn) -> dict:
         (at_h, _, bt_h), (at_w, _, bt_w) = (
             W.winograd_matrices(W.output_tile(t), t) for t in pw.kt)
         ah, aw = bt_h.shape[0], bt_w.shape[0]
-        n_tiles = (BUCKET * -(-y.shape[1] // (l.s * lg.mh))
-                   * -(-y.shape[2] // (l.s * lg.mw)))
+        n_tiles = (BUCKET * -(-y.shape[1] // (l.s * lg.geom.mh))
+                   * -(-y.shape[2] // (l.s * lg.geom.mw)))
         nc = pw.ws.shape[-1]
         wino_macs = n_tiles * ah * aw * l.cin * nc
         transform_macs = n_tiles * (
             l.cin * (np.count_nonzero(bt_h) * aw
                      + ah * np.count_nonzero(bt_w))
             + nc * (np.count_nonzero(at_h) * aw
-                    + lg.mh * np.count_nonzero(at_w)))
+                    + lg.geom.mh * np.count_nonzero(at_w)))
         nbytes = sum(a.numel() * a.element_size()
                      for a in (x, pw.ws, pw.bias, y))
         t_bytes = nbytes / PEAK_BYTES * 1e3
         t_ops = 2.0 * (wino_macs + transform_macs) / PEAK_F32_FLOPS * 1e3
         t_useful = flops / PEAK_F32_FLOPS * 1e3
-        ms, lo, hi = t["k4"]
-        rec = {"layer": f"dcgan/{l.name}", "ms": ms, "ms_min": lo,
-               "ms_max": hi, "plain_ms": t["plain"][0], "k1_ms": t["k1"][0],
-               "library_ms": t["lib"][0], "bound_ms": max(t_ops, t_bytes),
+        t_tc = max(3 * 2.0 * wino_macs / PEAK_TF32_FLOPS * 1e3,
+                   2.0 * transform_macs / PEAK_F32_FLOPS * 1e3, t_bytes)
+        ev, lo, hi = t["k4"]
+        ms = dv["k4"][1]
+        rec = {"layer": f"dcgan/{l.name}", "ms": ms,
+               "profiler_ms": dv["k4"][0], "events_ms": ev,
+               "events_ms_min": lo, "events_ms_max": hi,
+               "plain_ms": t["plain"][0],
+               "k1_ms": dv["k1"][1], "k1_events_ms": t["k1"][0],
+               "library_ms": dv["lib"][1],
+               "library_profiler_ms": dv["lib"][0],
+               "library_events_ms": t["lib"][0],
+               "bound_ms": max(t_ops, t_bytes),
                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "tc_bound_ms": t_tc,
                "useful_bound_ms": max(t_useful, t_bytes),
                "flops": flops, "wino_macs": wino_macs,
                "transform_macs": int(transform_macs),
                "max_abs_err": d, "launched_tiles": tiles, "bytes": nbytes,
-               "tile": str(lg.plan), "launches_per_batch": 1}
+               "plan": str(lg.plan), "launches_per_batch": 1}
         per_layer.append(rec)
-        print(f"  dcgan/{l.name} {tuple(x.shape)}->{tuple(y.shape)} tile "
-              f"{lg.plan}, grid {-(-nc // lg.plan.tc)} x "
-              f"{lg.nh * lg.nw} x {BUCKET}: K4 {ms:.4f} ms [{lo:.4f}, "
-              f"{hi:.4f}], plain {rec['plain_ms']:.4f} ms, K1 "
-              f"{rec['k1_ms']:.4f} ms, conv_transpose2d "
-              f"{rec['library_ms']:.4f} ms; bound {rec['bound_ms']:.4f} ms "
-              f"({rec['bound_by']}; K4's {wino_macs / 1e9:.3f} G "
-              f"transform-domain products + {transform_macs / 1e9:.3f} G "
-              f"transform MACs, {2 * wino_macs / ms / 1e9:.1f} TFLOP/s of "
-              f"products), useful-work bound {rec['useful_bound_ms']:.4f} "
-              f"ms ({flops / 2e9:.3f} G direct MACs); sm clock, power, "
-              f"temperature {_clocks()} {tag}")
+        print(f"  dcgan/{l.name} K4 launch: {lg.plan}, grid {grid[0]} x "
+              f"{grid[1]} x {grid[2]} blocks of 512 threads, {tiles} tile "
+              f"slots, {wino_smem_bytes(lg.geom, lg.plan)} B dynamic shared "
+              f"memory per block")
+        print(f"  dcgan/{l.name} {tuple(x.shape)}->{tuple(y.shape)}: K4 "
+              f"device {ms:.4f} ms (profiler {_ms_txt(dv['k4'][0])}), events "
+              f"{ev:.4f} [{lo:.4f}, {hi:.4f}]; plain events "
+              f"{rec['plain_ms']:.4f}; K1 device {rec['k1_ms']:.4f} "
+              f"(profiler {_ms_txt(dv['k1'][0])}); conv_transpose2d device "
+              f"{rec['library_ms']:.4f} (profiler {_ms_txt(dv['lib'][0])}); "
+              f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}; K4's "
+              f"{wino_macs / 1e9:.3f} G transform-domain products + "
+              f"{transform_macs / 1e9:.3f} G transform MACs, "
+              f"{2 * wino_macs / ms / 1e9:.1f} TFLOP/s of products), tc "
+              f"bound {t_tc:.4f} ms, useful-work bound "
+              f"{rec['useful_bound_ms']:.4f} ms ({flops / 2e9:.3f} G direct "
+              f"MACs); sm clock, power, temperature {_clocks()} {tag}")
+    d1 = per_layer[0]
+    gate_ms = d1["profiler_ms"] if d1["profiler_ms"] is not None else d1["ms"]
+    how = "profiler" if d1["profiler_ms"] is not None else "ahead events"
+    ok = gate_ms <= K4_D1_MS_LIMIT
+    print(f"gate: K4 f32 on dcgan/d1 at batch {BUCKET}: {gate_ms:.4f} ms of "
+          f"device time ({how}), limit {K4_D1_MS_LIMIT} ms "
+          f"{'ok' if ok else 'FAIL'} {tag}")
+    if not ok:
+        raise SystemExit("chip_smoke: K4 on DCGAN d1 is over its time limit")
 
     # ---- serve full-width DCGAN on the winograd backend ----------------
     server = GenServer(nets=("dcgan",), device=dev, max_batch=BUCKET,
@@ -1024,8 +1133,8 @@ def _wino_phase(dev, tag, randn) -> dict:
 
     tot = {k: sum(r[k] for r in per_layer)
            for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                     "useful_bound_ms", "wino_macs", "transform_macs",
-                     "bytes")}
+                     "useful_bound_ms", "tc_bound_ms", "events_ms",
+                     "wino_macs", "transform_macs", "bytes")}
     kernel = {
         "name": "sd_wino", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/sd_wino.cu",
@@ -1038,10 +1147,12 @@ def _wino_phase(dev, tag, randn) -> dict:
                      / PEAK_F32_FLOPS >= tot["bytes"] / PEAK_BYTES
                      else "bytes"),
         "useful_bound_ms": tot["useful_bound_ms"],
+        "tc_bound_ms": tot["tc_bound_ms"], "events_ms": tot["events_ms"],
         "library_ms": tot["library_ms"], "wino_macs": tot["wino_macs"],
         "transform_macs": tot["transform_macs"],
         "max_rel_err_vs_k1": err["k1"]}
     return {"kernel": kernel, "per_layer": per_layer,
+            "precision_d1": precision,
             "serve": {k: stats[k] for k in ("served", "launches",
                                             "req_per_s", "wall_s",
                                             "latency_ms")},
@@ -2607,6 +2718,7 @@ def _lm_phase(dev, tag: str) -> dict:
 
 def main(json_path: str = "") -> int:
     t_start = time.perf_counter()
+    sys.stdout.reconfigure(line_buffering=True)   # a cut run keeps its log
     if not os.path.isdir(os.path.join(HERE, "src", "repro_torch")):
         print("chip_smoke: src/repro_torch not found beside this script; "
               "run it from a checkout of the repository", file=sys.stderr)
@@ -2651,10 +2763,14 @@ def main(json_path: str = "") -> int:
                 print(f"  ptxas: {line.strip()}")
     built = builds["sd_fused"]
     sass = {}
-    for name, label in (("sd_fused", "K1 float"), ("sd_conv", "K2 f32")):
-        sass[name] = _sass_counts(builds[name].path, "igemm_kernel")
+    for name, label, kern in (("sd_fused", "K1 float", "igemm_kernel"),
+                              ("sd_conv", "K2 f32", "igemm_kernel"),
+                              ("sd_filter_grad", "K3",
+                               "sd_filter_grad_kernel"),
+                              ("sd_wino", "K4", "sd_wino_kernel")):
+        sass[name] = _sass_counts(builds[name].path, kern)
         print(f"sass: {label} ({sass[name]['functions']} instantiations of "
-              f"igemm_kernel in {builds[name].path.name}): "
+              f"{kern} in {builds[name].path.name}): "
               f"{sass[name]['HMMA']} HMMA, {sass[name]['HMMA_TF32']} of them "
               f"on TF32 operands (HMMA...TF32) {tag}")
         if not (sass[name]["functions"] and sass[name]["HMMA_TF32"]):
@@ -3036,9 +3152,10 @@ def main(json_path: str = "") -> int:
         train["kernels"] + \
         [wino["kernel"], int8["kernel"], nd["kernel"], lm["kernel"]]
     for k in kernels:
+        if k["name"] in ("sd_conv", "sd_filter_grad", "sd_wino"):
+            k["sass_hmma_tf32"] = sass[k["name"]]["HMMA_TF32"]
         if k["name"] == "sd_conv":
             k["launches_serve_3d"] = nd["k2_launches_serve_3d"]
-            k["sass_hmma_tf32"] = sass["sd_conv"]["HMMA_TF32"]
         if k["name"] == "sd_fused_int8":
             # complete since the calibrated half: the main numbers are
             # phase 9's (static row, int8 out), phase 7's kept beside them
@@ -3050,9 +3167,11 @@ def main(json_path: str = "") -> int:
     report = {"card": card, "kernels": kernels,
               "per_layer": per_layer + train["per_layer"],
               "train": train["train"],
+              "backward_precision_d1": train["precision_d1"],
               "winograd": {k: wino[k] for k in ("per_layer", "serve",
                                                 "peak_mib", "batch_host_ms",
-                                                "batch_device")},
+                                                "batch_device",
+                                                "precision_d1")},
               "int8": {k: v for k, v in int8.items() if k != "kernel"},
               "nd": {k: v for k, v in nd.items() if k != "kernel"},
               "chain": {k: v for k, v in chain.items() if k != "record"},
@@ -3072,10 +3191,10 @@ def main(json_path: str = "") -> int:
     elapsed = time.perf_counter() - t_start
     print(f"total {elapsed:.1f} s host clock (limit {TIME_LIMIT_S} s) {tag}")
     print("(below: ms/plain_ms/bound_ms/library_ms summed over DCGAN's "
-          f"three deconv layers at batch {BUCKET} (K1's and K2's ms, plain_ms "
-          f"and library_ms are device time, ahead events, their events over "
-          f"back-to-back calls as events_ms; tc_bound_ms their 3xTF32 work "
-          f"at the TF32 tensor cores); launches counted in the "
+          f"three deconv layers at batch {BUCKET} (K1's, K2's, K3's and K4's "
+          f"ms, plain_ms and library_ms are device time, ahead events, their "
+          f"events over back-to-back calls as events_ms; tc_bound_ms their "
+          f"3xTF32 work at the TF32 tensor cores); launches counted in the "
           f"{GAN_STEPS}-step training run, K1's serving-run count as "
           f"launches_serve; K4's in the winograd serving run; K1 int8's "
           f"launches and ms/plain_ms/bound_ms from phase 9 (the calibrated "

@@ -1,17 +1,21 @@
-"""Tile sweep of the float implicit GEMM (K1's float branch and K2 in f32)
-on one NVIDIA GPU.
+"""Tile sweep of the port's float GEMM-shaped kernels on one NVIDIA GPU:
+K1's float branch and K2 in f32 (the implicit GEMM), K3 (the filter
+grad on the same tiles) and K4 (the Winograd split deconv).
 
 For each DCGAN deconv layer at the serving bucket (batch 16) it times K1
-(the fused split deconv, f32) and K2 (the stride-1 conv of the backward's
-input grad, dx) on every forced ``GemmPlan(bn, splits)`` the kernel takes
-(``bn`` in ``GEMM_BN``, splits up to 16 while each split keeps a k-tile),
-in device time: CUDA events over 20 calls queued behind
-``torch.cuda._sleep`` (chip_smoke's ``_ahead_ms``), the median of 3.
-Per case it prints each plan's grid and time, the default
-``gemm_plan``'s, and the best plans with their block counts: the data
-that ``gemm_plan``'s split rule (``GEMM_WAVES`` blocks per SM) rests
-on.  It also times K1 in bf16 (one
-tensor-core pass instead of 3xTF32's three) on the default plan.
+(the fused split deconv, f32), K2 (the stride-1 conv of the backward's
+input grad, dx) and K3 (the backward's filter grad, dw) on every forced
+``GemmPlan(bn, splits)`` the kernel takes (``bn`` in ``GEMM_BN``; splits
+up to 16 for K1/K2 and up to 192 for K3 while each split keeps a
+k-tile), and K4 (f32) on a set of ``WinoPlan``s (channel tiles 16 and
+32, whole samples and bands of tiles), in device time: CUDA events over
+20 calls queued behind ``torch.cuda._sleep`` (chip_smoke's
+``_ahead_ms``), the median of 3.  Per case it prints each plan's grid
+and time, the default plan's (``gemm_plan``, ``filter_grad_plan``,
+``wino_plan``), and the best plans with their block counts: the data
+that the default rules rest on (``GEMM_WAVES`` / ``DW_WAVES`` blocks
+per SM).  It also times K1 in bf16 (one tensor-core pass instead of
+3xTF32's three) on the default plan.
 
 Run from the repo root on a machine with a CUDA card::
 
@@ -35,6 +39,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 BATCH = 16
 SEED = 0
 SPLITS = (1, 2, 3, 4, 6, 8, 12, 16)
+DW_SPLITS = SPLITS + (24, 32, 48, 64, 96, 128, 145, 192)
 
 
 def sweep(dev, time_ms, card: str) -> dict:
@@ -47,10 +52,35 @@ def sweep(dev, time_ms, card: str) -> dict:
     from repro_torch.core.deconv import same_deconv_pads
     from repro_torch.kernels import ops
     from repro_torch.kernels import sd_conv as K
-    from repro_torch.kernels.autotune import (GEMM_BN, ConvGeom, GemmPlan,
-                                              gemm_grid, gemm_k_tiles,
-                                              gemm_plan)
+    from repro_torch.kernels import winograd as W
+    from repro_torch.kernels.autotune import (GEMM_BN, ConvGeom,
+                                              FilterGradGeom, GemmPlan,
+                                              WinoPlan, check_wino_plan,
+                                              filter_grad_plan, gemm_grid,
+                                              gemm_k_tiles, gemm_plan,
+                                              wino_grid)
     from repro_torch.sd.grad import split_cotangent
+
+    def gemm_plans(geom, splits):
+        return [GemmPlan(bn, sp) for bn in GEMM_BN for sp in splits
+                if sp <= gemm_k_tiles(geom)]
+
+    def wino_plans(geom):
+        nt_h, nt_w = geom.tiles
+        shapes = {(nt_h, nt_w, nb) for nb in (1, 2, 4)
+                  if nb * nt_h * nt_w <= geom.slots}
+        shapes |= {(min(nt_h, h), min(nt_w, w), 1)
+                   for h, w in ((4, 8), (2, 8), (4, 4), (8, 4), (2, 16))}
+        plans = []
+        for (h, w, nb) in sorted(shapes):
+            for tc in (16, 32):
+                plan = WinoPlan(nth=h, ntw=w, nb=nb, tc=tc)
+                try:
+                    check_wino_plan(geom, plan)
+                except ValueError:
+                    continue
+                plans.append(plan)
+        return plans
 
     gen = torch.Generator().manual_seed(SEED)
 
@@ -88,42 +118,69 @@ def sweep(dev, time_ms, card: str) -> dict:
                              out_start=p.pi, out_size=tuple(l.in_hw),
                              plan=plan)
 
-        cases.append((f"K1 dcgan/{l.name}", g1, k1, (x, p)))
-        cases.append((f"K2 dx dcgan/{l.name}", g2, k2, None))
+        pad = tuple((q, q) for q in p.pi)
+        g3 = FilterGradGeom(b=BATCH, h=l.in_hw[0], w=l.in_hw[1], cin=l.cin,
+                            nco=dy1.shape[-1], kth=p.kt[0], ktw=p.kt[1],
+                            o1h=dy1.shape[1], o1w=dy1.shape[2])
+
+        def k3(plan, x=x, dy1=dy1, p=p, pad=pad):
+            return K.sd_filter_grad(x, dy1, p.kt, pad=pad, plan=plan)
+
+        pw = sd.plan(w.shape, l.s, pads, backend="winograd", act="relu",
+                     device=dev).bind(w, None, p.bias)
+        g4 = W.wino_launch(tuple(x.shape), tuple(pw.ws.shape), pw.kt,
+                           pw.stride, pad, (pw.pk[0] + pw.padding[0][0],
+                                            pw.pk[1] + pw.padding[1][0]),
+                           pw.out_shape(x.shape[1:3])).geom
+
+        def k4(plan, x=x, pw=pw):
+            return ops.sd_deconv_presplit_wino(
+                x, pw.ws, pw.kernel, pw.stride, pw.padding, bias=pw.bias,
+                act=pw.act, plan=plan)
+
+        cases.append((f"K1 dcgan/{l.name}", g1, k1, gemm_plan(g1),
+                      gemm_plans(g1, SPLITS), (x, p)))
+        cases.append((f"K2 dx dcgan/{l.name}", g2, k2, gemm_plan(g2),
+                      gemm_plans(g2, SPLITS), None))
+        cases.append((f"K3 dw dcgan/{l.name}", g3.as_gemm(), k3,
+                      filter_grad_plan(g3), gemm_plans(g3.as_gemm(),
+                                                       DW_SPLITS), None))
+        cases.append((f"K4 dcgan/{l.name}", g4, k4, W.wino_plan(g4),
+                      wino_plans(g4), None))
 
     out = {"card": card, "batch": BATCH, "cases": []}
-    for name, geom, fn, bf16 in cases:
-        default = gemm_plan(geom)
+    for name, geom, fn, default, plans, bf16 in cases:
+        grid = wino_grid if name.startswith("K4") else gemm_grid
         ref = fn(default)
         rows = []
-        for bn in GEMM_BN:
-            for sp in SPLITS:
-                if sp > gemm_k_tiles(geom):
-                    continue
-                plan = GemmPlan(bn, sp)
-                # every plan computes the same sums in another order
-                d = (fn(plan) - ref).abs().max().item()
-                tol = 1e-4 * max(1.0, ref.abs().max().item())
-                if not d <= tol:
-                    raise RuntimeError(f"{name} {plan} differs by {d}")
-                rows.append({"bn": bn, "splits": sp,
-                             "blocks": math.prod(gemm_grid(geom, plan)),
-                             "ms": time_ms(lambda: fn(plan))})
+        for plan in plans:
+            # every plan computes the same sums in another order
+            d = (fn(plan) - ref).abs().max().item()
+            tol = 1e-4 * max(1.0, ref.abs().max().item())
+            if not d <= tol:
+                raise RuntimeError(f"{name} {plan} differs by {d}")
+            rows.append({"plan": str(plan),
+                         "blocks": math.prod(grid(geom, plan)),
+                         "ms": time_ms(lambda: fn(plan))})
         dms = time_ms(lambda: fn(default))
         rows.sort(key=lambda r: r["ms"])
-        one = next(r["ms"] for r in rows
-                   if r["bn"] == default.bn and r["splits"] == 1)
-        rec = {"case": name, "m": geom.m, "n": geom.n, "k": geom.k,
-               "default": {"bn": default.bn, "splits": default.splits,
-                           "blocks": math.prod(gemm_grid(geom, default)),
+        rec = {"case": name, "geom": str(geom),
+               "default": {"plan": str(default),
+                           "blocks": math.prod(grid(geom, default)),
                            "ms": dms},
-               "splits_1_ms": one, "plans": rows}
-        best = ", ".join(f"({r['bn']}, {r['splits']}) {r['blocks']} blocks "
-                         f"{r['ms']:.4f}" for r in rows[:3])
-        print(f"{name}: GEMM {geom.m} x {geom.n} x {geom.k}; default "
-              f"{default} {rec['default']['blocks']} blocks {dms:.4f} ms; "
-              f"best {best}; one split at bn {default.bn} {one:.4f} ms "
-              f"[device ms, {card}]")
+               "plans": rows}
+        best = ", ".join(f"{r['plan']} {r['blocks']} blocks {r['ms']:.4f}"
+                         for r in rows[:3])
+        one = ""
+        if not name.startswith("K4"):
+            rec["splits_1_ms"] = next(
+                r["ms"] for r in rows
+                if r["plan"] == str(GemmPlan(default.bn, 1)))
+            one = (f"; one split at bn {default.bn} "
+                   f"{rec['splits_1_ms']:.4f} ms")
+        print(f"{name}: {geom}; default {default} "
+              f"{rec['default']['blocks']} blocks {dms:.4f} ms; best "
+              f"{best}{one} [device ms, {card}]")
         if bf16 is not None:
             x, p = bf16
             xb, wb = x.bfloat16(), p.ws.bfloat16()

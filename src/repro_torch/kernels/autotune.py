@@ -1,16 +1,16 @@
 """Tile plans for the port's kernels on Hopper: the float stride-1 convs
 on the shared implicit-GEMM mainloop (K1's float branch and K2 in f32,
-:class:`GemmPlan`, :func:`gemm_plan`), the int8 branches of K1 and K2
-(:class:`KernelPlan`, :func:`heuristic_plan`, :func:`conv_plan`), the
-filter grad (K3, :func:`filter_grad_plan`) and the Winograd split conv
-(K4, :func:`wino_plan`).
+:class:`GemmPlan`, :func:`gemm_plan`) and the filter grad on the same
+tile shapes (K3, :func:`filter_grad_plan`), the int8 branches of K1 and
+K2 (:class:`KernelPlan`, :func:`heuristic_plan`, :func:`conv_plan`), and
+the Winograd split conv (K4, :class:`WinoPlan`, :func:`wino_plan`).
 
 The JAX package sizes its Pallas tiles against an 8 MiB VMEM model; on
 the H100 the limit is the shared memory one block can use (227 KB) and,
 in practice, filling the 132 SMs.  Every plan here is a heuristic from
 the launch geometry alone; measuring and caching tiles comes later.
 
-A :class:`KernelPlan` block (K1 int8, K2 int8, K4) of :data:`THREADS`
+A :class:`KernelPlan` block (K1 int8, K2 int8) of :data:`THREADS`
 threads computes ``(th + res_h>0) x (tw + res_w>0)`` conv positions (the
 extra row/col feeds the residual crop) times ``tc`` phase channels:
 ``tc / MICRO`` threads along the channels, the rest along the positions,
@@ -18,18 +18,18 @@ each thread a ``MICRO x MICRO`` register tile.  ``tcin`` input channels
 are staged in shared memory per step of the block's own loop over Cin.
 
 A geometry carries its operand dtype (``dtype``: ``"int8"`` for K1's
-quant branch and K2's int8 pair, ``""`` for float: K4's
-:class:`WinoGeom` and the f32 :class:`ConvGeom` that
-:meth:`ConvGeom.as_gemm` turns into a GEMM), so the float and the int8
-launch of one layer are distinct geometries (a geometry is its own tile
-key).  :func:`smem_bytes` and :func:`heuristic_plan` size the int8
-blocks alone and refuse a float geometry.
+quant branch and K2's int8 pair, ``""`` for float: the f32
+:class:`ConvGeom` that :meth:`ConvGeom.as_gemm` turns into a GEMM), so
+the float and the int8 launch of one layer are distinct geometries (a
+geometry is its own tile key).  :func:`smem_bytes` and
+:func:`heuristic_plan` size the int8 blocks alone and refuse a float
+geometry.
 """
 
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import KW_ONLY, dataclass
 
 SMEM_BUDGET = 232_448          # bytes of shared memory one block may use
 SMEM_TARGET = 64 * 1024        # keep >= 3 blocks resident per SM
@@ -54,8 +54,8 @@ class FusedGeom:
     """What the fused kernel launches: unpadded input ``h x w x cin``,
     ``nc = Cout*sh*sw`` phase channels, ``(kth, ktw)`` taps, interleave
     ``(sh, sw)``, final output ``out_h x out_w``, the residual crop
-    ``(res_h, res_w)`` and the operand dtype (``""`` float, ``"int8"``
-    the quant branch)."""
+    ``(res_h, res_w)`` and the operand dtype (keyword only: ``""``
+    float, ``"int8"`` the quant branch)."""
     h: int
     w: int
     cin: int
@@ -68,7 +68,8 @@ class FusedGeom:
     out_w: int
     res_h: int = 0
     res_w: int = 0
-    dtype: str = ""
+    _: KW_ONLY
+    dtype: str
 
 
 def band_plane(geom: FusedGeom, plan: KernelPlan) -> int:
@@ -126,9 +127,8 @@ def heuristic_plan(geom: FusedGeom) -> KernelPlan:
 
 
 # ---------------------------------------------------------------------------
-# The SD backward's kernels: K2 (stride-1 conv, the input grad) and K3
-# (the filter grad).  Counterparts of the reference's ``tag="dx"`` /
-# ``tag="dw"`` ConvGeom keys; heuristic only, like K1's.
+# K2, the SD backward's input grad (a stride-1 conv).  Counterpart of the
+# reference's ``tag="dx"`` ConvGeom key; heuristic only, like K1's.
 # ---------------------------------------------------------------------------
 
 @dataclass(frozen=True)
@@ -171,165 +171,7 @@ def conv_plan(geom: ConvGeom) -> KernelPlan:
     return heuristic_plan(geom.as_fused())
 
 
-DW_TCI = 64                    # K3: input channels per block (fixed)
-DW_MK = 32                     # K3: positions of M staged per step
-DW_TILE_CO = (16, 32, 64)      # K3: output channels per block
-DW_MIN_CHUNK = 4 * DW_MK       # K3: least positions one block reduces
 SMS = 132                      # H100 SXM streaming multiprocessors
-
-
-@dataclass(frozen=True)
-class FilterGradGeom:
-    """What K3 launches: input ``b x h x w x cin`` (unpadded), cotangent
-    ``b x o1h x o1w x nco``, taps ``(kth, ktw)``."""
-    b: int
-    h: int
-    w: int
-    cin: int
-    nco: int
-    kth: int
-    ktw: int
-    o1h: int
-    o1w: int
-
-    @property
-    def m(self) -> int:
-        """Length of the reduction: every position of the cotangent."""
-        return self.b * self.o1h * self.o1w
-
-
-@dataclass(frozen=True)
-class FilterGradPlan:
-    """K3's tile: ``tco`` output channels per block (64 input channels,
-    ``tco/4 * 16`` threads) and ``chunk`` positions of M per block;
-    ``ceil(M / chunk)`` chunks are summed by the reduce pass."""
-    tco: int
-    chunk: int
-
-
-def dw_threads(plan: FilterGradPlan) -> int:
-    return DW_TCI // MICRO * plan.tco // MICRO
-
-
-def dw_splits(geom: FilterGradGeom, plan: FilterGradPlan) -> int:
-    return -(-geom.m // plan.chunk)
-
-
-def filter_grad_plan(geom: FilterGradGeom) -> FilterGradPlan:
-    """Untuned default.  Channel tile: the smallest of
-    :data:`DW_TILE_CO` that holds all output channels, else the largest.
-    Split of the reduction: enough chunks that the blocks hold about 1024
-    threads per SM (so narrow outputs, a few blocks per tap, still fill
-    the card), but no chunk shorter than :data:`DW_MIN_CHUNK`; chunks
-    are whole steps of :data:`DW_MK`.  Shared memory is fixed at
-    ``4 * DW_MK * (DW_TCI + tco)`` bytes (16 KB at most), far inside
-    a block's 227 KB, so unlike the TPU's ``_dw_fit_channels`` nothing
-    needs clamping."""
-    tco = next((t for t in DW_TILE_CO if t >= geom.nco), DW_TILE_CO[-1])
-    plan = FilterGradPlan(tco=tco, chunk=DW_MK)
-    base = (geom.kth * geom.ktw * -(-geom.cin // DW_TCI)
-            * -(-geom.nco // tco))
-    want = -(-SMS * 1024 // (dw_threads(plan) * base))
-    most = max(1, geom.m // DW_MIN_CHUNK)
-    splits = max(1, min(want, most))
-    chunk = -(-geom.m // splits)
-    chunk = -(-chunk // DW_MK) * DW_MK
-    return FilterGradPlan(tco=tco, chunk=chunk)
-
-
-# ---------------------------------------------------------------------------
-# K4, the Winograd split conv.  Counterpart of the reference's
-# ``algo="wino"`` VMEM model (``vmem_plan_bytes``); heuristic only.
-# ---------------------------------------------------------------------------
-
-WINO_TILE_CHANNELS = (16, 32)  # K4: phase channels per block
-WINO_ITEMS = 2 * THREADS       # K4: MICRO x MICRO (tile, channel) register
-#                                tiles per block, two per thread
-
-
-@dataclass(frozen=True)
-class WinoGeom(FusedGeom):
-    """What K4 launches: K1's geometry read as F(m, K_T) per dim, ``m =
-    1`` for a 1-tap dim and 2 otherwise."""
-
-    @property
-    def mh(self) -> int:
-        return 1 if self.kth == 1 else 2
-
-    @property
-    def mw(self) -> int:
-        return 1 if self.ktw == 1 else 2
-
-    @property
-    def alphas(self) -> int:
-        """Points of the transform domain, ``alpha_h * alpha_w``."""
-        return (self.mh + self.kth - 1) * (self.mw + self.ktw - 1)
-
-
-def wino_tiles(geom: WinoGeom, plan: KernelPlan):
-    """``(nth, ntw)``: Winograd tiles per block, the ``th (+1 for the
-    residual crop)`` conv rows rounded up to whole ``m``-tiles."""
-    rh = plan.th + (1 if geom.res_h else 0)
-    rw = plan.tw + (1 if geom.res_w else 0)
-    return -(-rh // geom.mh), -(-rw // geom.mw)
-
-
-def wino_items(geom: WinoGeom, plan: KernelPlan) -> int:
-    """Register tiles of one block: ``alpha_h*alpha_w`` transform points
-    x tiles (padded to MICRO) / MICRO x ``tc`` / MICRO."""
-    nth, ntw = wino_tiles(geom, plan)
-    tp = -(-nth * ntw // MICRO)
-    return geom.alphas * tp * (plan.tc // MICRO)
-
-
-def wino_smem_bytes(geom: WinoGeom, plan: KernelPlan) -> int:
-    """Dynamic shared memory of one K4 block, all f32: the staged input
-    band ``(tcin, plane)`` (the tiles' rows plus the ``K_T - 1`` halo,
-    plane odd as in K1, rounded up to a float4), the ``V`` scratch
-    ``(alpha_h*alpha_w, tcin, tiles)`` and the transformed filter block
-    ``(alpha_h*alpha_w, tcin, tc)``; after the Cin loop the same memory
-    holds the accumulators ``(alpha_h*alpha_w, tiles, tc)`` for the
-    epilogue's ``A^T M A``.  ``tiles`` is padded to a multiple of
-    MICRO."""
-    nth, ntw = wino_tiles(geom, plan)
-    tp = -(-nth * ntw // MICRO) * MICRO
-    plane = ((nth * geom.mh + geom.kth - 1)
-             * (ntw * geom.mw + geom.ktw - 1)) | 1
-    band = -(-plan.tcin * plane // MICRO) * MICRO
-    stage = band + geom.alphas * plan.tcin * (tp + plan.tc)
-    return 4 * max(stage, geom.alphas * tp * plan.tc)
-
-
-def wino_plan(geom: WinoGeom) -> KernelPlan:
-    """Untuned default for K4.  Channel tile: 16 when the layer has no
-    more phase channels, else 32.  Tiles: as many as
-    :data:`WINO_ITEMS` register tiles allow at that channel tile,
-    ``2^j x`` the rest (square-ish, no larger than the output needs);
-    ``th``/``tw`` are the conv rows those tiles write.  ``tcin``: up to
-    32 input channels per step, halved until the block fits
-    :data:`SMEM_TARGET` (never past :data:`SMEM_BUDGET`)."""
-    tc = WINO_TILE_CHANNELS[0] if geom.nc <= WINO_TILE_CHANNELS[0] \
-        else WINO_TILE_CHANNELS[-1]
-    tiles = MICRO * (WINO_ITEMS // (geom.alphas * (tc // MICRO)))
-    eh, ew = (1 if geom.res_h else 0), (1 if geom.res_w else 0)
-    rows_h = -(-geom.out_h // geom.sh)
-    rows_w = -(-geom.out_w // geom.sw)
-    need_h = -(-(rows_h + eh) // geom.mh)
-    need_w = -(-(rows_w + ew) // geom.mw)
-    nth = max(1, min(need_h, 1 << (math.isqrt(tiles).bit_length() - 1)))
-    ntw = max(1, min(need_w, tiles // nth))
-    nth = max(1, min(need_h, tiles // ntw))
-    th = max(1, min(rows_h, nth * geom.mh - eh))
-    tw = max(1, min(rows_w, ntw * geom.mw - ew))
-    tcin = min(32, geom.cin)
-    plan = KernelPlan(th=th, tw=tw, tcin=tcin, tc=tc)
-    while tcin > 1 and wino_smem_bytes(geom, plan) > SMEM_TARGET:
-        tcin = max(1, tcin // 2)
-        plan = KernelPlan(th=th, tw=tw, tcin=tcin, tc=tc)
-    if (wino_smem_bytes(geom, plan) > SMEM_BUDGET
-            or wino_items(geom, plan) > WINO_ITEMS):
-        raise ValueError(f"no K4 tile of {geom} fits a block")
-    return plan
 
 
 # ---------------------------------------------------------------------------
@@ -415,18 +257,210 @@ def check_gemm_plan(geom: GemmGeom, plan: GemmPlan) -> None:
                          f"of shared memory; a block has {SMEM_BUDGET}")
 
 
-def gemm_plan(geom: GemmGeom) -> GemmPlan:
+def gemm_plan(geom: GemmGeom, waves: int = GEMM_WAVES) -> GemmPlan:
     """Untuned default.  Column tile: the smallest of :data:`GEMM_BN`
     that holds every column, else the largest.  Split-K where the output
-    tiles are fewer than :data:`GEMM_WAVES` blocks per SM (four 4-warp
-    blocks of a 3-stage ring fit an SM's shared memory, and the card
-    hides its latencies only with several resident): ``want = 4 * SMS //
-    tiles`` splits of ``k_tiles // want`` k-tiles each (none empty, at
-    least ``want`` of them), but none shorter than
+    tiles are fewer than ``waves`` blocks per SM (:data:`GEMM_WAVES`: four
+    4-warp blocks of a 3-stage ring fit an SM's shared memory, and the
+    card hides its latencies only with several resident): ``want = waves
+    * SMS // tiles`` splits of ``k_tiles // want`` k-tiles each (none
+    empty, at least ``want`` of them), but none shorter than
     :data:`GEMM_MIN_SPLIT_TILES`."""
     bn = next((b for b in GEMM_BN if b >= geom.n), GEMM_BN[-1])
     tiles = -(-geom.m // GEMM_BM) * -(-geom.n // bn)
-    want = max(1, GEMM_WAVES * SMS // tiles)
+    want = max(1, waves * SMS // tiles)
     k_tiles = gemm_k_tiles(geom)
     per = max(GEMM_MIN_SPLIT_TILES, k_tiles // want)
     return GemmPlan(bn=bn, splits=-(-k_tiles // per))
+
+
+# ---------------------------------------------------------------------------
+# K3, the filter grad, on the GEMM's tile shapes (csrc/sd_filter_grad.cu):
+# rows (tap, input channel), columns the cotangent's channels, the
+# contraction over every position of the cotangent.  Counterpart of the
+# reference's ``tag="dw"`` ConvGeom key.
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class FilterGradGeom:
+    """What K3 launches: input ``b x h x w x cin`` (unpadded), cotangent
+    ``b x o1h x o1w x nco``, taps ``(kth, ktw)``."""
+    b: int
+    h: int
+    w: int
+    cin: int
+    nco: int
+    kth: int
+    ktw: int
+    o1h: int
+    o1w: int
+
+    @property
+    def m(self) -> int:
+        """Length of the reduction: every position of the cotangent."""
+        return self.b * self.o1h * self.o1w
+
+    def as_gemm(self) -> GemmGeom:
+        """K3 as a GEMM: ``C[(tap, ci), co] = sum_m x_tap[m, ci] *
+        dy1[m, co]``.  A block's :data:`GEMM_BM` rows are input channels
+        of one tap, so each tap's Cin rounds up to whole row tiles; ``n``
+        is ``nco``, ``k`` the ``m`` positions."""
+        return GemmGeom(m=self.kth * self.ktw * -(-self.cin // GEMM_BM)
+                        * GEMM_BM, n=self.nco, k=self.m)
+
+
+DW_WAVES = 8                   # K3: blocks wanted per SM (split-K fills)
+
+
+def filter_grad_plan(geom: FilterGradGeom) -> GemmPlan:
+    """K3's default :class:`GemmPlan`: :func:`gemm_plan`'s rule on
+    :meth:`FilterGradGeom.as_gemm` with :data:`DW_WAVES` blocks wanted
+    per SM (the column tile holds the cotangent's channels; the positions
+    are split until the blocks reach it).  K3's long contraction over
+    positions gains from twice K1/K2's split count: its loads of each
+    k-tile wait on a division per position and a transposed A, and more
+    blocks in flight hide them (``gemm_sweep.py``)."""
+    return gemm_plan(geom.as_gemm(), DW_WAVES)
+
+
+# ---------------------------------------------------------------------------
+# K4, the Winograd split conv (csrc/sd_wino.cu).  Counterpart of the
+# reference's ``algo="wino"`` VMEM model (``vmem_plan_bytes``).
+# ---------------------------------------------------------------------------
+
+WINO_TC = (16, 32)             # K4: phase channels per block
+
+
+@dataclass(frozen=True)
+class WinoGeom:
+    """What K4 launches: batch ``b``, the ``rows x cols`` conv positions
+    per sample that the cropped output needs (K1's ``mh x mw``), ``cin``,
+    ``nc = Cout*sh*sw`` phase channels, taps ``(kth, ktw)`` read as F(m,
+    K_T) per dim (``m = 1`` for a 1-tap dim, else 2), and the operand
+    dtype (``""`` f32, ``"bf16"``)."""
+    b: int
+    rows: int
+    cols: int
+    cin: int
+    nc: int
+    kth: int
+    ktw: int
+    dtype: str = ""
+
+    @property
+    def mh(self) -> int:
+        return 1 if self.kth == 1 else 2
+
+    @property
+    def mw(self) -> int:
+        return 1 if self.ktw == 1 else 2
+
+    @property
+    def alphas(self) -> int:
+        """Points of the transform domain, ``alpha_h * alpha_w``."""
+        return (self.mh + self.kth - 1) * (self.mw + self.ktw - 1)
+
+    @property
+    def tiles(self):
+        """Winograd tiles per sample, ``(rows / m_h, cols / m_w)`` rounded
+        up."""
+        return -(-self.rows // self.mh), -(-self.cols // self.mw)
+
+    @property
+    def slots(self) -> int:
+        """Tiles one block holds: 32 (two m16 row fragments per point)
+        when a warp owns one transform point (``alphas <= 16``), else 16
+        (three points per warp)."""
+        return 32 if self.alphas <= 16 else 16
+
+    @property
+    def chunk(self) -> int:
+        """Input channels per step of the block's Cin loop: 16, or 8 on
+        16 slots (the deeper transform domain's buffers are larger)."""
+        return 16 if self.slots == 32 else 8
+
+    @property
+    def itemsize(self) -> int:
+        return 2 if self.dtype == "bf16" else 4
+
+
+@dataclass(frozen=True)
+class WinoPlan:
+    """K4's block: a band of ``nth x ntw`` Winograd tiles in each of
+    ``nb`` consecutive samples (``nb * nth * ntw`` at most the block's
+    :attr:`WinoGeom.slots`) x ``tc`` phase channels (16 or 32; 16 where a
+    warp owns three points)."""
+    nth: int
+    ntw: int
+    nb: int
+    tc: int
+
+
+def wino_grid(geom: WinoGeom, plan: WinoPlan):
+    """``(channel tiles, bands per sample, sample groups)``: K4's grid."""
+    nt_h, nt_w = geom.tiles
+    return (-(-geom.nc // plan.tc),
+            -(-nt_h // plan.nth) * -(-nt_w // plan.ntw),
+            -(-geom.b // plan.nb))
+
+
+def wino_smem_bytes(geom: WinoGeom, plan: WinoPlan) -> int:
+    """Dynamic shared memory of one K4 block: each band position's 8-byte
+    source offset, then two buffers each of the input band ``(nb,
+    nth*m_h + K_Th - 1, ntw*m_w + K_Tw - 1)`` x :attr:`WinoGeom.chunk`
+    channels (rows padded by 8 elements) and of the transformed-filter
+    chunk ``(alphas, chunk, tc + 8)``, in the operand dtype, and of ``V``
+    in f32 ``(alphas, slots, chunk + 4)``; after the Cin loop the memory
+    past the offsets holds ``M`` in f32 ``(alphas, slots, tc + 4)`` for
+    the epilogue's ``A^T M A``."""
+    it, ck = geom.itemsize, geom.chunk
+    positions = (plan.nb * (plan.nth * geom.mh + geom.kth - 1)
+                 * (plan.ntw * geom.mw + geom.ktw - 1))
+    off = -(-positions * 8 // 16) * 16
+    band = positions * (ck + 8) * it
+    u = geom.alphas * ck * (plan.tc + 8) * it
+    v = geom.alphas * geom.slots * (ck + 4) * 4
+    m = geom.alphas * geom.slots * (plan.tc + 4) * 4
+    return off + max(2 * (band + u + v), m)
+
+
+def check_wino_plan(geom: WinoGeom, plan: WinoPlan) -> None:
+    """Raise ``ValueError`` for a plan the kernel does not take or that
+    exceeds the block's tile slots, the grid's or shared memory's
+    limits."""
+    tcs = WINO_TC if geom.slots == 32 else WINO_TC[:1]
+    if (plan.tc not in tcs or min(plan.nth, plan.ntw, plan.nb) < 1
+            or plan.nb * plan.nth * plan.ntw > geom.slots):
+        raise ValueError(f"{plan}: the kernel takes tc in {tcs} and at "
+                         f"most {geom.slots} tiles (nb x nth x ntw) per "
+                         f"block for {geom.alphas} transform points")
+    _, bands, groups = wino_grid(geom, plan)
+    if bands > GRID_YZ_MAX or groups > GRID_YZ_MAX:
+        raise ValueError(f"{plan} needs {bands} bands x {groups} sample "
+                         f"groups; the grid takes {GRID_YZ_MAX} of each")
+    if wino_smem_bytes(geom, plan) > SMEM_BUDGET:
+        raise ValueError(f"{plan} needs {wino_smem_bytes(geom, plan)} bytes "
+                         f"of shared memory; a block has {SMEM_BUDGET}")
+
+
+def wino_plan(geom: WinoGeom) -> WinoPlan:
+    """Untuned default for K4.  Channel tile: 32, or 16 where the layer
+    has no more phase channels or a warp owns three points.  Tiles: a
+    whole sample's tiles, and as many samples as the block's slots hold,
+    where they fit; else a band of up to 4 tile rows, as wide as the
+    slots allow; fewer samples where their bands overflow shared
+    memory."""
+    slots = geom.slots
+    tc = WINO_TC[-1] if geom.nc > WINO_TC[0] and slots == 32 else WINO_TC[0]
+    nt_h, nt_w = geom.tiles
+    if nt_h * nt_w <= slots:
+        plan = WinoPlan(nth=nt_h, ntw=nt_w,
+                        nb=max(1, min(geom.b, slots // (nt_h * nt_w))),
+                        tc=tc)
+    else:
+        ntw = min(nt_w, slots // min(nt_h, 4))
+        plan = WinoPlan(nth=min(nt_h, slots // ntw), ntw=ntw, nb=1, tc=tc)
+    while plan.nb > 1 and wino_smem_bytes(geom, plan) > SMEM_BUDGET:
+        plan = WinoPlan(plan.nth, plan.ntw, plan.nb // 2, plan.tc)
+    check_wino_plan(geom, plan)
+    return plan

@@ -30,8 +30,7 @@ from repro_torch.core.deconv import (_check_output_padding, _check_padding,
                                      _ntuple, _pads_nd, crop_interleaved,
                                      deconv_output_shape, depth_to_space,
                                      sd_geometry)
-from repro_torch.kernels.autotune import (FilterGradPlan, GemmPlan,
-                                          KernelPlan)
+from repro_torch.kernels.autotune import GemmPlan, KernelPlan, WinoPlan
 from repro_torch.kernels.sd_conv import (_apply_act, check_no_grad,
                                          quant_contract, requantize, sd_conv,
                                          sd_filter_grad, sd_fused)
@@ -88,7 +87,7 @@ def sd_deconv_presplit_wino(x: torch.Tensor, u: torch.Tensor, kernel,
                             stride, padding=0, *, output_padding=0,
                             bias: Optional[torch.Tensor] = None,
                             act: str = "linear",
-                            plan: Optional[KernelPlan] = None
+                            plan: Optional[WinoPlan] = None
                             ) -> torch.Tensor:
     """2-D transposed conv from *pre-transformed* Winograd filters in one
     K4 launch: x (B, H, W, Cin), u the oc-major split filters after
@@ -211,7 +210,7 @@ def sd_input_grad_fused(dy1: torch.Tensor, ws: torch.Tensor, pi, space,
 
 
 def sd_filter_grad_fused(x: torch.Tensor, dy1: torch.Tensor, kt, pi,
-                         plan: Optional[FilterGradPlan] = None
+                         plan: Optional[GemmPlan] = None
                          ) -> torch.Tensor:
     """Gradient of ``y1 = conv_valid(pad(x, P_I), ws)`` w.r.t. ``ws`` on
     K3, the ``P_I`` pad applied in the kernel (no padded copy of ``x``).

@@ -68,11 +68,10 @@ import torch.nn.functional as F
 
 from repro_torch.core.deconv import (conv_valid, conv_valid_filter_grad,
                                      crop_interleaved)
-from repro_torch.kernels.autotune import (DW_TCI, ConvGeom, FilterGradGeom,
-                                          FilterGradPlan, FusedGeom,
-                                          GemmGeom, GemmPlan, KernelPlan,
-                                          check_gemm_plan, conv_plan,
-                                          dw_splits, filter_grad_plan,
+from repro_torch.kernels.autotune import (ConvGeom, FilterGradGeom,
+                                          FusedGeom, GemmGeom, GemmPlan,
+                                          KernelPlan, check_gemm_plan,
+                                          conv_plan, filter_grad_plan,
                                           gemm_plan, heuristic_plan,
                                           smem_bytes, SMEM_BUDGET)
 
@@ -341,12 +340,12 @@ def gemm_launch(x_shape, ws_shape, s, pad, crop, out_space,
                       mw=mw, geom=geom, plan=plan)
 
 
-def check_plan_type(what: str, plan, gemm: bool) -> None:
-    """The float fused kernels (K1's float branch, K2 in f32) take a
-    :class:`GemmPlan` (``gemm``), the int8 ones and K4 a
-    :class:`KernelPlan`; raise ``TypeError`` on the other.  ``what``
-    names the launch or plan in the message."""
-    want = GemmPlan if gemm else KernelPlan
+def check_plan_type(what: str, plan, want: type) -> None:
+    """Raise ``TypeError`` unless ``plan`` is None or a ``want``: the
+    float GEMM kernels (K1's float branch, K2 in f32, K3) take a
+    :class:`GemmPlan`, the int8 ones a :class:`KernelPlan`, K4 a
+    :class:`~repro_torch.kernels.autotune.WinoPlan`.  ``what`` names the
+    launch or plan in the message."""
     if plan is not None and not isinstance(plan, want):
         raise TypeError(f"{what} takes a {want.__name__}, got "
                         f"{type(plan).__name__}")
@@ -413,7 +412,7 @@ def sd_fused(x: torch.Tensor, ws_ocmajor: torch.Tensor, s, *,
     qdtype = quant_contract(x, ws_ocmajor, scale, out_dtype, act)
     quant = qdtype is not None
     check_plan_type(f"sd_fused: a{'n int8' if quant else ' float'} launch",
-                    plan, gemm=not quant)
+                    plan, KernelPlan if quant else GemmPlan)
     if x.device.type == "cpu":
         return sd_fused_ref(x, ws_ocmajor, s, bias=bias, act=act, pad=pad,
                             crop=crop, out_space=out_space, scale=scale,
@@ -591,7 +590,7 @@ def sd_conv(x: torch.Tensor, w: torch.Tensor, *,
     oh, ow = _conv_window(x.shape, w.shape, pad, out_start, out_size)
     quant = _conv_int8_contract(x, w, sum_terms)
     check_plan_type(f"sd_conv: a{'n int8' if quant else ' float'} launch",
-                    plan, gemm=not quant)
+                    plan, KernelPlan if quant else GemmPlan)
     if x.device.type == "cpu":
         return sd_conv_ref(x, w, pad, out_start, (oh, ow))
     if x.device.type != "cuda":
@@ -651,7 +650,7 @@ def sd_conv(x: torch.Tensor, w: torch.Tensor, *,
 
 
 # ---------------------------------------------------------------------------
-# K3: the filter gradient, P_I pad in the kernel, deterministic split-M
+# K3: the filter gradient, P_I pad in the kernel, deterministic split-K
 # ---------------------------------------------------------------------------
 
 def _filter_grad_geom(x_shape, dy_shape, kt, pad) -> FilterGradGeom:
@@ -680,38 +679,38 @@ def sd_filter_grad_ref(x: torch.Tensor, dy1: torch.Tensor, kt,
 
 def sd_filter_grad(x: torch.Tensor, dy1: torch.Tensor, kt, *,
                    pad: Tuple[PadPair, PadPair] = ((0, 0), (0, 0)),
-                   plan: Optional[FilterGradPlan] = None) -> torch.Tensor:
+                   plan: Optional[GemmPlan] = None) -> torch.Tensor:
     """Gradient of ``y1 = conv_valid(pad(x), ws)`` w.r.t. ``ws`` (K3).
 
     x: (B, H, W, Cin) *unpadded* (``pad`` is applied in the kernel);
     dy1: (B, O1h, O1w, NCo) with ``O1 = H + pad - KT + 1`` per dim; kt:
-    ``(KTh, KTw)``.  Returns dws: (KTh, KTw, Cin, NCo).  ``plan``: the
-    channel tile and reduction chunk; default
-    :func:`~repro_torch.kernels.autotune.filter_grad_plan`.
+    ``(KTh, KTw)``.  Returns dws: (KTh, KTw, Cin, NCo).  ``plan``: a
+    :class:`GemmPlan` over :meth:`FilterGradGeom.as_gemm` (default
+    :func:`~repro_torch.kernels.autotune.filter_grad_plan`; with
+    ``splits > 1`` the split GEMM over the positions and its ordered
+    sum, counted as one launch); another type raises ``TypeError``.
     """
     global SD_FILTER_GRAD_LAUNCHES
     kt = _pair(kt)
     geom = _filter_grad_geom(x.shape, dy1.shape, kt, pad)
+    check_plan_type("sd_filter_grad", plan, GemmPlan)
     if x.device.type == "cpu":
         return sd_filter_grad_ref(x, dy1, kt, pad)
     if x.device.type != "cuda":
         raise ValueError(f"sd_filter_grad runs on cuda or cpu, not "
                          f"{x.device}")
     _check_operands("sd_filter_grad", torch.float32, x, dy1)
-    plan = plan if plan is not None else filter_grad_plan(geom)
     out = torch.empty((*kt, geom.cin, geom.nco), dtype=torch.float32,
                       device=x.device)
     if out.numel() == 0:
         return out
     if geom.m == 0:
         return out.zero_()
-    splits = dw_splits(geom, plan)
-    nci = -(-geom.cin // DW_TCI)
-    if splits > 65535 or kt[0] * kt[1] * nci > 65535:
-        raise ValueError(f"{splits} chunks or {kt[0] * kt[1] * nci} "
-                         "tap tiles exceed the grid's limits")
-    part = (torch.empty((splits, *out.shape), dtype=torch.float32,
-                        device=x.device) if splits > 1 else None)
+    gg = geom.as_gemm()
+    plan = plan if plan is not None else filter_grad_plan(geom)
+    check_gemm_plan(gg, plan)
+    part = (torch.empty((plan.splits, *out.shape), dtype=torch.float32,
+                        device=x.device) if plan.splits > 1 else None)
     from repro_torch.kernels.build import load
     fn = load("sd_filter_grad").fn
     (plo_h, _), (plo_w, _) = pad
@@ -720,10 +719,10 @@ def sd_filter_grad(x: torch.Tensor, dy1: torch.Tensor, kt, *,
         err = fn(x.data_ptr(), dy1.data_ptr(),
                  None if part is None else part.data_ptr(), out.data_ptr(),
                  geom.b, geom.h, geom.w, geom.cin, geom.nco, kt[0], kt[1],
-                 plo_h, plo_w, geom.o1h, geom.o1w, plan.tco, plan.chunk,
+                 plo_h, plo_w, geom.o1h, geom.o1w, plan.bn, plan.splits,
                  ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"sd_filter_grad kernel launch failed: CUDA "
                            f"error {err}")
-    SD_FILTER_GRAD_LAUNCHES += 1
+    SD_FILTER_GRAD_LAUNCHES += 1    # the GEMM and, split, its reduce: one
     return out

@@ -42,12 +42,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.autotune import (SMEM_BUDGET, WINO_ITEMS,
-                                          KernelPlan, WinoGeom, wino_items,
-                                          wino_plan, wino_smem_bytes,
-                                          wino_tiles)
+from repro_torch.kernels.autotune import (WinoGeom, WinoPlan,
+                                          check_wino_plan, wino_plan)
 from repro_torch.kernels.sd_conv import (ACTS, DTYPES, PadPair,
-                                         _full_space, _pair, check_no_grad,
+                                         _crop_origin, _full_space, _pair,
+                                         check_no_grad, check_plan_type,
                                          shuffle_epilogue)
 
 # Output tile per dim: m = 2 suits the small K_T the split produces
@@ -196,17 +195,14 @@ def sd_wino_ref(x: torch.Tensor, u: torch.Tensor, kt, s, *,
 
 
 @dataclass(frozen=True)
-class WinoLaunchGeometry:
+class WinoLaunch:
     """The integers K4 is handed for one launch, all computed in Python
-    so the CPU tests reach them.  As in K1, the low-side crop ``c = s*q +
-    r`` is a ``q``-row band offset plus an ``r``-row epilogue offset, and
-    the origin shifts by ``min(q, P_I)`` (``q``, ``plo`` after the
-    shift).  Each block writes ``th x tw`` conv rows from ``rh = th +
-    (r > 0)`` computed ones, ``nth = ceil(rh / m)`` Winograd tiles over a
-    band of ``nth*m + K_T - 1`` input rows; the kernel masks the band's
-    reads outside the input (the ``P_I`` rows and the rows the last band
-    reaches past ``H``).  Cached per launch shape: a served layer
-    computes its geometry and tile once."""
+    so the CPU tests reach them: K1's crop origin (the low-side crop ``c
+    = s*q + r`` as a ``q``-row input offset and an ``r``-row epilogue
+    offset, the origin shifted by ``min(q, P_I)``), the output shape, the
+    geometry (``rows x cols`` conv positions per sample, K1's ``mh x
+    mw``, in F(m, K_T) tiles) and its :class:`WinoPlan`.  Cached per
+    launch shape: a served layer computes its geometry and tile once."""
     q_h: int
     q_w: int
     plo_h: int
@@ -215,59 +211,26 @@ class WinoLaunchGeometry:
     res_w: int
     out_h: int
     out_w: int
-    nh: int
-    nw: int
-    mh: int
-    mw: int
-    rh: int
-    rw: int
-    nth: int
-    ntw: int
-    band_h: int
-    band_w: int
-    plan: KernelPlan
-
-
-def wino_geom(x_shape, u_shape, kt, s, crop, out_space) -> WinoGeom:
-    sh, sw = _pair(s)
-    _, h, wd, cin = x_shape
-    return WinoGeom(h=h, w=wd, cin=cin, nc=u_shape[-1], kth=kt[0],
-                    ktw=kt[1], sh=sh, sw=sw, out_h=out_space[0],
-                    out_w=out_space[1], res_h=crop[0] % sh,
-                    res_w=crop[1] % sw)
+    geom: WinoGeom
+    plan: WinoPlan
 
 
 @functools.lru_cache(maxsize=1024)
-def wino_launch_geometry(x_shape, u_shape, kt, s, pad, crop, out_space,
-                         plan: Optional[KernelPlan] = None
-                         ) -> WinoLaunchGeometry:
+def wino_launch(x_shape, u_shape, kt, s, pad, crop, out_space,
+                plan: Optional[WinoPlan] = None, dtype: str = ""
+                ) -> WinoLaunch:
     sh, sw = _pair(s)
-    (plo_h, _), (plo_w, _) = pad
-    geom = wino_geom(x_shape, u_shape, kt, s, crop, out_space)
-    plan = plan if plan is not None else wino_plan(geom)
-    smem = wino_smem_bytes(geom, plan)
-    if smem > SMEM_BUDGET or plan.tc % 4:
-        raise ValueError(f"K4 tile {plan} needs {smem} bytes of shared "
-                         f"memory (a block has {SMEM_BUDGET}) or its "
-                         "channel tile is not a multiple of 4")
-    if wino_items(geom, plan) > WINO_ITEMS:
-        raise ValueError(f"K4 tile {plan} needs {wino_items(geom, plan)} "
-                         f"register tiles; a block holds {WINO_ITEMS}")
-    q_h, q_w = crop[0] // sh, crop[1] // sw
-    sh_h, sh_w = min(q_h, plo_h), min(q_w, plo_w)
-    q_h, q_w, plo_h, plo_w = q_h - sh_h, q_w - sh_w, plo_h - sh_h, \
-        plo_w - sh_w
+    b, _, _, cin = x_shape
     oh, ow = out_space
-    nh, nw = -(-oh // (plan.th * sh)), -(-ow // (plan.tw * sw))
-    nth, ntw = wino_tiles(geom, plan)
-    band_h = nth * geom.mh + kt[0] - 1
-    band_w = ntw * geom.mw + kt[1] - 1
-    return WinoLaunchGeometry(
-        q_h=q_h, q_w=q_w, plo_h=plo_h, plo_w=plo_w, res_h=geom.res_h,
-        res_w=geom.res_w, out_h=oh, out_w=ow, nh=nh, nw=nw, mh=geom.mh,
-        mw=geom.mw, rh=plan.th + (geom.res_h > 0),
-        rw=plan.tw + (geom.res_w > 0), nth=nth, ntw=ntw, band_h=band_h,
-        band_w=band_w, plan=plan)
+    q_h, q_w, plo_h, plo_w, res_h, res_w = _crop_origin(s, pad, crop)
+    geom = WinoGeom(b=b, rows=-(-(oh + res_h) // sh),
+                    cols=-(-(ow + res_w) // sw), cin=cin, nc=u_shape[-1],
+                    kth=kt[0], ktw=kt[1], dtype=dtype)
+    plan = plan if plan is not None else wino_plan(geom)
+    check_wino_plan(geom, plan)
+    return WinoLaunch(q_h=q_h, q_w=q_w, plo_h=plo_h, plo_w=plo_w,
+                      res_h=res_h, res_w=res_w, out_h=oh, out_w=ow,
+                      geom=geom, plan=plan)
 
 
 @functools.lru_cache(maxsize=None)
@@ -317,7 +280,7 @@ def sd_wino(x: torch.Tensor, u: torch.Tensor, kt, s, *,
             pad: Tuple[PadPair, PadPair] = ((0, 0), (0, 0)),
             crop: Tuple[int, int] = (0, 0),
             out_space: Optional[Tuple[int, int]] = None,
-            plan: Optional[KernelPlan] = None) -> torch.Tensor:
+            plan: Optional[WinoPlan] = None) -> torch.Tensor:
     """Fused Winograd SD (K4): the transformed-domain split conv and the
     interleaved write, with :func:`~repro_torch.kernels.sd_conv.sd_fused`'s
     contract (``pad``, ``crop``, ``out_space``, ``bias``, ``act``).
@@ -326,12 +289,15 @@ def sd_wino(x: torch.Tensor, u: torch.Tensor, kt, s, *,
     ``(alpha_h, alpha_w, Cin, Cout*sh*sw)`` from
     :func:`transform_filters`; ``kt = (KTh, KTw)`` names the tap geometry
     (``u`` no longer shows it).  Returns (B, *out_space, Cout) in
-    ``x.dtype``."""
+    ``x.dtype``.  ``plan``: a :class:`WinoPlan` (default
+    :func:`~repro_torch.kernels.autotune.wino_plan`); another type
+    raises ``TypeError``."""
     global SD_WINO_LAUNCHES
     sh, sw = _pair(s)
     kt = _pair(kt)
     if act not in ACTS:
         raise ValueError(f"unknown act {act!r}")
+    check_plan_type("sd_wino", plan, WinoPlan)
     if not supported(kt):
         raise ValueError(f"winograd: unsupported tap geometry {kt}")
     if out_space is None:
@@ -347,17 +313,13 @@ def sd_wino(x: torch.Tensor, u: torch.Tensor, kt, s, *,
         bias = torch.zeros(cout, device=x.device)
     bias = bias.float().contiguous()
     _check_cuda_operands(x, u, bias, kt, sh, sw)
-    g = wino_launch_geometry(tuple(x.shape), tuple(u.shape), kt, (sh, sw),
-                             tuple(map(tuple, pad)), tuple(crop),
-                             tuple(out_space), plan)
     b, h, wd, cin = x.shape
-    y = torch.empty((b, g.out_h, g.out_w, cout), dtype=x.dtype,
-                    device=x.device)
+    y = torch.empty((b, *out_space, cout), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
-    if g.nh * g.nw > 65535 or b > 65535:
-        raise ValueError(f"{g.nh * g.nw} spatial tiles x batch {b} exceed "
-                         "the grid's limits; use a larger tile")
+    g = wino_launch(tuple(x.shape), tuple(u.shape), kt, (sh, sw),
+                    tuple(map(tuple, pad)), tuple(crop), tuple(out_space),
+                    plan, "bf16" if x.dtype == torch.bfloat16 else "")
     from repro_torch.kernels.build import load
     fn = load("sd_wino").fn
     mats = kernel_matrices(kt)
@@ -366,9 +328,9 @@ def sd_wino(x: torch.Tensor, u: torch.Tensor, kt, s, *,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), u.data_ptr(), bias.data_ptr(), y.data_ptr(),
                  mats.ctypes.data, DTYPES[x.dtype], b, h, wd, cin, cout,
-                 kt[0], kt[1], sh, sw, g.mh, g.mw, g.q_h, g.q_w, g.plo_h,
-                 g.plo_w, g.res_h, g.res_w, g.out_h, g.out_w, p.th, p.tw,
-                 g.nth, g.ntw, p.tcin, p.tc, ACTS[act],
+                 kt[0], kt[1], sh, sw, g.geom.mh, g.geom.mw, g.q_h, g.q_w,
+                 g.plo_h, g.plo_w, g.res_h, g.res_w, g.out_h, g.out_w,
+                 p.nth, p.ntw, p.nb, p.tc, ACTS[act],
                  ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"sd_wino kernel launch failed: CUDA error {err}")

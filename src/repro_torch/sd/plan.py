@@ -41,7 +41,7 @@ from repro_torch.core.deconv import (_check_output_padding, _check_padding,
                                      sd_geometry, split_filters)
 from repro_torch.core.quant import quantize_channelwise
 from repro_torch.device import resolve_device
-from repro_torch.kernels.autotune import GemmPlan, KernelPlan
+from repro_torch.kernels.autotune import GemmPlan, KernelPlan, WinoPlan
 from repro_torch.kernels.sd_conv import CHAIN_ACTS, check_plan_type
 from repro_torch.kernels.winograd import (MAX_TAPS, supported,
                                           transform_filters)
@@ -90,7 +90,7 @@ class DeconvPlan:
     backend: str = "torch"
     act: str = "linear"                    # "linear" | "relu" | "tanh"
     layout: str = "nmajor"
-    tile: Optional[Union[GemmPlan, KernelPlan]] = None
+    tile: Optional[Union[GemmPlan, KernelPlan, WinoPlan]] = None
     output_padding: Tuple[int, ...] = None  # normalised in plan()
     dtype: str = "native"                  # "native" | "int8"
     ws: Optional[torch.Tensor] = None
@@ -213,7 +213,8 @@ class DeconvPlan:
 
 def plan(filter_shape: Sequence[int], stride, padding=0,
          backend: str = "auto", act: str = "linear",
-         tile: Optional[Union[GemmPlan, KernelPlan]] = None, output_padding=0,
+         tile: Optional[Union[GemmPlan, KernelPlan, WinoPlan]] = None,
+         output_padding=0,
          dtype: str = "native", device=None) -> DeconvPlan:
     """Compute the split layout for a deconv filter shape ``(*K, C_in,
     C_out)`` (its length sets the rank).  Padding and output_padding are
@@ -226,10 +227,11 @@ def plan(filter_shape: Sequence[int], stride, padding=0,
     plan outside its envelope, int8 included, raises the reference's
     ``ValueError``.  ``tile``: a float ``fused`` plan's
     :class:`~repro_torch.kernels.autotune.GemmPlan` (K1's float branch,
-    K2 in f32 at rank 3), an int8 ``fused`` or a ``winograd`` plan's
-    :class:`~repro_torch.kernels.autotune.KernelPlan`; the other type
-    raises ``TypeError`` (a ``torch`` plan launches no kernel and ignores
-    it)."""
+    K2 in f32 at rank 3), an int8 ``fused`` plan's
+    :class:`~repro_torch.kernels.autotune.KernelPlan`, a ``winograd``
+    plan's :class:`~repro_torch.kernels.autotune.WinoPlan` (K4); another
+    type raises ``TypeError`` (a ``torch`` plan launches no kernel and
+    ignores it)."""
     if dtype not in DTYPES:
         raise ValueError(f"unknown plan dtype {dtype!r}; choose from "
                          f"{DTYPES}")
@@ -262,8 +264,9 @@ def plan(filter_shape: Sequence[int], stride, padding=0,
             "comes with its slice (see ROADMAP.md item 11) — use "
             "backend='torch'")
     if resolved != "torch":
-        check_plan_type(f"a {dtype} {resolved!r} plan's tile", tile,
-                        gemm=resolved == "fused" and dtype == "native")
+        want = (WinoPlan if resolved == "winograd" else
+                KernelPlan if dtype == "int8" else GemmPlan)
+        check_plan_type(f"a {dtype} {resolved!r} plan's tile", tile, want)
     return DeconvPlan(kernel=k, stride=st, padding=_pads_nd(padding, rank),
                       cin=cin, cout=cout, backend=resolved, act=act,
                       tile=tile, output_padding=op, dtype=dtype)

@@ -1,16 +1,55 @@
 """The float kernels' implicit GEMM (``csrc/sd_igemm.cuh``) restated in
-numpy, for the CPU tests of K1's float branch and K2 in f32.
+numpy, for the CPU tests of K1's float branch and K2 in f32, and the
+3xTF32 arithmetic that K1, K2, K3 and K4 share.
 
 The kernel reads ``A[m, k] = x[b, v + r0 + kh, u + c0 + kw, ci]`` (zero
 outside x) with ``m = (b*MH + v)*MW + u`` and ``k = (kh*KTw + kw)*Cin +
 ci``, multiplies it by the filters read as a K x N matrix, one
 ``GEMM_BM x bn`` tile per block and one run of whole ``GEMM_BK``-wide
 k-tiles per split, and sums the splits' partials in split order.
+
+:func:`tf32` is ``cvt.rna.tf32.f32`` (the kernels' ``igemm::tf32``),
+:func:`split` its hi/lo pair, and :func:`mma3` one k-tile's products as
+the tensor cores take them: ``lo*hi + hi*lo + hi*hi`` of the split
+operands, summed in f64 (the dropped ``lo*lo`` is the whole error of the
+products; the mma accumulator's own rounding is not modelled).
 """
 
 import numpy as np
 
 from repro_torch.kernels.autotune import GEMM_BK, GEMM_BM
+
+
+def tf32(a: np.ndarray) -> np.ndarray:
+    """``cvt.rna.tf32.f32``: round the magnitude to 10 mantissa bits,
+    ties away from zero (add half of the dropped 13 bits' unit, then
+    clear them), the sign kept."""
+    bits = np.ascontiguousarray(a, np.float32).view(np.int32)
+    mag = (bits & 0x7FFFFFFF) + 0x1000
+    return ((mag & ~0x1FFF) | (bits & np.int32(-2 ** 31))).view(np.float32)
+
+
+def split(a):
+    """``igemm::split``: hi = tf32(a), lo = tf32(a - hi), both f32."""
+    a = np.asarray(a, np.float32)
+    hi = tf32(a)
+    return hi, tf32(a - hi)
+
+
+def mma3(a, b):
+    """One k-tile's product ``a (m, k) @ b (k, n)`` of f32 operands in
+    3xTF32: ``lo*hi + hi*lo + hi*hi`` in f64.  A bf16 operand splits with
+    ``lo == 0``, so its pass drops out (K4's two bf16 passes)."""
+    (ah, al), (bh, bl) = split(a), split(b)
+    f = np.float64
+    return (al.astype(f) @ bh.astype(f) + ah.astype(f) @ bl.astype(f)
+            + ah.astype(f) @ bh.astype(f))
+
+
+def promote(total, part):
+    """The register sum a k-tile's mma sum is promoted into: f32 adds."""
+    return (np.asarray(total, np.float32)
+            + np.asarray(part, np.float64).astype(np.float32))
 
 
 def gather_a(x, kt, r0, c0, mh, mw):

@@ -16,8 +16,12 @@ a ``fused`` plan, whose kernels run their plain versions on CPU tensors:
   on every backward geometry of the paper layers, and the kernels'
   blocking restated in numpy on ragged tiles: K2's implicit GEMM (the
   halo read as zero, every ``(m, n, k)`` product taken once over the
-  tiles and splits, the splits summed in order), K3's chunks summed in
-  order.
+  tiles and splits, the splits summed in order); K3's GEMM over the
+  cotangent's positions (64-channel row tiles of one tap, each position
+  and channel pair taken once, each k-tile's product in 3xTF32 promoted
+  into an f32 sum, the splits summed in order, its position divisions by
+  multiply-high and shift) against ``sd_filter_grad_ref`` and, through
+  the fused backward, against the reference's ``repro.sd.grad``.
 """
 
 import jax.numpy as jnp
@@ -35,7 +39,7 @@ from repro_torch.core.deconv import space_to_depth
 from repro_torch.kernels import autotune as A
 from repro_torch.kernels import ops
 from repro_torch.sd import grad as tgrad
-from _torch_igemm import gather_a, split_k_product
+from _torch_igemm import gather_a, mma3, promote, split_k_product
 
 GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -214,8 +218,8 @@ def test_backward_tiles_fit_the_kernels(batch):
     batches chip_smoke runs fits the kernels: K2's GEMM plan is one the
     kernel takes, within shared memory and the grid's limits, with at
     least one block per SM wherever the output tiles and the contraction
-    allow it; K3's chunks cover the reduction exactly once in whole
-    steps, within the grid's limits."""
+    allow it; so is K3's, on its GEMM of whole 64-channel row tiles per
+    tap x the cotangent's channels x the positions."""
     for name, layer, kt, pi, o1 in _backward_geometries():
         nco = layer.cout * layer.s ** 2
         cg = A.ConvGeom(h=o1[0], w=o1[1], cin=nco, co=layer.cin,
@@ -232,12 +236,16 @@ def test_backward_tiles_fit_the_kernels(batch):
         g = A.FilterGradGeom(b=batch, h=layer.in_hw[0], w=layer.in_hw[1],
                              cin=layer.cin, nco=nco, kth=kt[0], ktw=kt[1],
                              o1h=o1[0], o1w=o1[1])
-        fp = A.filter_grad_plan(g)
-        n = A.dw_splits(g, fp)
-        assert fp.chunk % A.DW_MK == 0 and fp.tco in A.DW_TILE_CO
-        assert (n - 1) * fp.chunk < g.m <= n * fp.chunk, name
-        assert n == 1 or fp.chunk >= A.DW_MIN_CHUNK, name
-        assert n <= 65535 and A.dw_threads(fp) <= 1024
+        fg, fp = g.as_gemm(), A.filter_grad_plan(g)
+        A.check_gemm_plan(fg, fp)
+        assert fg.m % A.GEMM_BM == 0 and fg.k == g.m, name
+        assert kt[0] * kt[1] * layer.cin <= fg.m < kt[0] * kt[1] * (
+            layer.cin + A.GEMM_BM)
+        assert fp.bn >= min(nco, A.GEMM_BN[-1]), name
+        mt, nt, sp = A.gemm_grid(fg, fp)
+        assert mt * nt * sp >= A.SMS or A.gemm_split_tiles(
+            fg, fp) <= A.GEMM_MIN_SPLIT_TILES, name
+        assert (sp - 1) * A.gemm_split_tiles(fg, fp) < A.gemm_k_tiles(fg)
 
 
 def test_split_cotangent_is_the_adjoint_of_the_forward_layout():
@@ -282,34 +290,73 @@ def _k2_restated(x, w, pad, out_start, out_size, plan):
 
 
 def _k3_restated(x, dy1, kt, pad, plan):
-    """sd_filter_grad.cu: block (tco channels, tap x 64 input channels,
-    chunk of M) writes a partial slice; the reduce pass sums the slices
-    in chunk order."""
+    """sd_filter_grad.cu: ``C[(tap, ci), co] = sum_m x_tap[m, ci] *
+    dy1[m, co]``; a block takes GEMM_BM input channels of one tap x
+    ``bn`` channels x the k-tiles (GEMM_BK positions) of its split, each
+    k-tile's product in 3xTF32 promoted into an f32 sum; the splits'
+    slabs are summed in split order.  Returns (dws, hits): hits counts
+    the blocks and k-tiles that take each (tap, ci, co, position)."""
     b, h, wd, cin = x.shape
     _, o1h, o1w, nco = dy1.shape
     m = b * o1h * o1w
-    splits = -(-m // plan.chunk)
-    part = np.zeros((splits, *kt, cin, nco))
-    hits = np.zeros(part.shape, np.int64)
+    k_tiles = -(-m // A.GEMM_BK)
+    per = -(-k_tiles // plan.splits)
+    part = np.zeros((plan.splits, *kt, cin, nco), np.float32)
+    hits = np.zeros((*kt, cin, nco, m), np.int64)
     mm = np.arange(m)
     bb, rem = mm // (o1h * o1w), mm % (o1h * o1w)
     vv, uu = rem // o1w, rem % o1w
-    dyf = dy1.reshape(m, nco)
-    for z in range(splits):
-        sl = slice(z * plan.chunk, min(m, (z + 1) * plan.chunk))
-        for kh in range(kt[0]):
-            for kw in range(kt[1]):
-                xr, xc = vv[sl] + kh - pad[0][0], uu[sl] + kw - pad[1][0]
-                ok = (xr >= 0) & (xr < h) & (xc >= 0) & (xc < wd)
-                xs = np.zeros((len(xr), cin))
-                xs[ok] = x[bb[sl][ok], xr[ok], xc[ok]]
-                for ci0 in range(0, cin, A.DW_TCI):
-                    for co0 in range(0, nco, plan.tco):
-                        ci = slice(ci0, min(cin, ci0 + A.DW_TCI))
-                        co = slice(co0, min(nco, co0 + plan.tco))
-                        part[z, kh, kw, ci, co] = xs[:, ci].T @ dyf[sl, co]
-                        hits[z, kh, kw, ci, co] += 1
-    return part.sum(0), hits
+    dyf = dy1.reshape(m, nco).astype(np.float32)
+    for kh in range(kt[0]):
+        for kw in range(kt[1]):
+            xr, xc = vv + kh - pad[0][0], uu + kw - pad[1][0]
+            ok = (xr >= 0) & (xr < h) & (xc >= 0) & (xc < wd)
+            a = np.zeros((m, cin), np.float32)      # the halo reads as 0
+            a[ok] = x[bb[ok], xr[ok], xc[ok]]
+            for ci0 in range(0, cin, A.GEMM_BM):
+                ci = slice(ci0, min(cin, ci0 + A.GEMM_BM))
+                for co0 in range(0, nco, plan.bn):
+                    co = slice(co0, min(nco, co0 + plan.bn))
+                    for z in range(plan.splits):
+                        acc = np.zeros((ci.stop - ci.start,
+                                        co.stop - co.start), np.float32)
+                        for t in range(z * per, min(k_tiles, (z + 1) * per)):
+                            ms = slice(t * A.GEMM_BK,
+                                       min(m, (t + 1) * A.GEMM_BK))
+                            acc = promote(acc, mma3(a[ms, ci].T,
+                                                    dyf[ms, co]))
+                            hits[kh, kw, ci, co, ms] += 1
+                        part[z, kh, kw, ci, co] = acc
+    dws = part[0]
+    for z in range(1, plan.splits):
+        dws = dws + part[z]
+    return dws, hits
+
+
+def _fast_div(n, d):
+    """sd_filter_grad.cu's ``FastDiv``: ``n / d`` for ``0 <= n < 2^31``
+    as ``umulhi(n, mul) >> shr``, ``mul = ceil(2^p / d)``, ``p = 31 +
+    ceil(log2 d)``."""
+    if d == 1:
+        return n
+    p = 31 + (d - 1).bit_length()
+    mul = -(-(1 << p) // d)
+    assert mul < 2 ** 32
+    return ((n * mul) >> 32) >> (p - 32)
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 7, 10, 34, 100, 324, 1156,
+                               2 ** 16 + 1, 2 ** 30 + 3])
+def test_k3_position_division_restated(d):
+    """The multiply-high division K3 uses for each position's (b, v, u)
+    is exact over every non-negative int32 numerator."""
+    rng = np.random.RandomState(d % 1000)
+    ns = set(rng.randint(0, 2 ** 31, 2000).tolist())
+    ns |= {0, 1, d - 1, d, d + 1, 2 ** 31 - 1, 2 ** 31 - 2}
+    ns |= {q * d + r for q in (1, 3, 2 ** 31 // d - 1) for r in (0, d - 1)}
+    for n in ns:
+        if 0 <= n < 2 ** 31:
+            assert _fast_div(n, d) == n // d, (n, d)
 
 
 @pytest.mark.parametrize("seed,sx,kt,pad,plan", [
@@ -337,20 +384,49 @@ def test_k2_blocking_restated(seed, sx, kt, pad, plan):
     np.testing.assert_allclose(y, ref.numpy(), rtol=1e-5, atol=1e-4)
 
 
-@pytest.mark.parametrize("seed,sx,nco,kt,pad,plan", [
-    (0, (2, 5, 6, 3), 8, (3, 3), ((2, 2), (2, 2)), A.FilterGradPlan(16, 32)),
-    (1, (1, 6, 7, 70), 20, (2, 3), ((1, 1), (2, 2)), A.FilterGradPlan(16, 32)),
-    (2, (2, 4, 4, 5), 40, (2, 2), ((1, 1), (1, 1)), None)])
-def test_k3_blocking_restated(seed, sx, nco, kt, pad, plan):
-    rng = np.random.RandomState(seed)
-    x = rng.randn(*sx)
-    o1 = tuple(n + 2 * p[0] - k + 1 for n, p, k in zip(sx[1:3], pad, kt))
-    dy1 = rng.randn(sx[0], *o1, nco)
-    if plan is None:
-        plan = A.filter_grad_plan(A.FilterGradGeom(
-            sx[0], sx[1], sx[2], sx[3], nco, *kt, *o1))
-    dws, hits = _k3_restated(x, dy1, kt, pad, plan)
-    assert (hits == 1).all()
+# (seed, x shape, w shape, stride, padding, output_padding, forced plan)
+K3_CASES = [
+    (0, (2, 5, 6, 3), (4, 4, 3, 2), 2, 0, 1, A.GemmPlan(16, 3)),  # Cin 3
+    (1, (1, 6, 7, 70), (5, 5, 70, 5), 2, ((1, 3), (0, 2)), 0,
+     A.GemmPlan(32, 4)),                     # two row tiles per tap, ragged
+    (2, (2, 4, 4, 40), (5, 5, 40, 24), 2, 2, 1, None),    # bn 64, 2 columns
+    (3, (3, 6, 6, 64), (5, 5, 64, 3), 2, ((1, 2), (1, 2)), 0,
+     None),                                  # DCGAN d3's widths: NCo 12
+    (4, (2, 6, 7, 12), (5, 5, 12, 6), 1, 2, 0,
+     A.GemmPlan(16, 7)),                     # stride 1, empty splits
+    (5, (1, 5, 5, 8), (3, 3, 8, 4), 2, 1, 1, A.GemmPlan(64, 2)),  # mde k3
+]
+
+
+@pytest.mark.parametrize("case", K3_CASES,
+                         ids=[f"{c[1]}-{c[2]}-s{c[3]}" for c in K3_CASES])
+def test_k3_blocking_restated(case, monkeypatch):
+    """K3 restated block by block equals ``sd_filter_grad_ref`` at the
+    f32 gate 1e-5, and in the fused backward gives the reference's SD
+    filter gradient (``repro.sd.grad`` on an xla plan) at 1e-4."""
+    seed, sx, sw, s, pad, op, plan = case
+    x, w, dy, jp = _case(sx, sw, s, pad, op, seed=seed)
+    tp = tsd.plan(w.shape, s, pad, backend="fused", output_padding=op)
+    kt, pads = tp.kt, tuple((q, q) for q in tp.pi)
+    dy1 = tgrad.split_cotangent(tp, torch.from_numpy(dy)).numpy()
+    geom = K._filter_grad_geom(x.shape, dy1.shape, kt, pads)
+    plan = plan or A.filter_grad_plan(geom)
+    A.check_gemm_plan(geom.as_gemm(), plan)
+    dws, hits = _k3_restated(x, dy1, kt, pads, plan)
+    assert (hits == 1).all(), "a product taken != once"
     ref = K.sd_filter_grad_ref(torch.from_numpy(x), torch.from_numpy(dy1),
-                               kt, pad)
-    np.testing.assert_allclose(dws, ref.numpy(), rtol=1e-5, atol=1e-4)
+                               kt, pads)
+    np.testing.assert_allclose(dws, ref.numpy(), **TOL)
+
+    def restated(x_, dy1_, kt_, pi_, plan_=None):
+        return torch.from_numpy(_k3_restated(
+            x_.numpy(), dy1_.numpy(), tuple(kt_),
+            tuple((q, q) for q in pi_), plan)[0])
+
+    monkeypatch.setattr(ops, "sd_filter_grad_fused", restated)
+    _, dw = tgrad.conv_transpose_vjp(tp, torch.from_numpy(x),
+                                     torch.from_numpy(w),
+                                     torch.from_numpy(dy))
+    _, jdw = jgrad.conv_transpose_vjp(jp, jnp.asarray(x), jnp.asarray(w),
+                                      jnp.asarray(dy))
+    np.testing.assert_allclose(dw.numpy(), np.asarray(jdw), **GRAD_TOL)

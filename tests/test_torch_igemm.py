@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 
 from repro_torch.kernels import build
+from _torch_igemm import split, tf32
 
 GATE = 1e-5          # ND_F32_GATE, the tightest f32 gate on these kernels
 
@@ -35,15 +36,6 @@ def test_build_target_covers_headers(tmp_path, monkeypatch):
     assert first.parent == build.BUILD_DIR and first.name.startswith("k-")
 
 
-def tf32(a: np.ndarray) -> np.ndarray:
-    """``cvt.rna.tf32.f32``: round the magnitude to 10 mantissa bits,
-    ties away from zero (add half of the dropped 13 bits' unit, then
-    clear them), the sign kept."""
-    bits = np.ascontiguousarray(a, np.float32).view(np.int32)
-    mag = (bits & 0x7FFFFFFF) + 0x1000
-    return ((mag & ~0x1FFF) | (bits & np.int32(-2 ** 31))).view(np.float32)
-
-
 def test_tf32_rounding_emulated():
     one = np.float32(1.0)
     ulp = np.float32(2.0 ** -10)                   # TF32's unit at 1
@@ -56,11 +48,6 @@ def test_tf32_rounding_emulated():
     x = np.random.RandomState(0).randn(1000).astype(np.float32)
     assert (tf32(x).view(np.int32) & 0x1FFF == 0).all()
     assert (np.abs(tf32(x) - x) <= np.abs(x) * 2.0 ** -11).all()
-
-
-def _split(a):
-    hi = tf32(a)
-    return hi, tf32(a - hi)
 
 
 def _dx_operands(rng):
@@ -93,7 +80,7 @@ def test_3xtf32_holds_the_f32_gate(shape):
     a, w = (_dx_operands if shape == "k2_dx_d1" else _fwd_operands)(rng)
     ref = a.astype(np.float64) @ w.astype(np.float64)
     limit = GATE * max(1.0, np.abs(ref).max())
-    (ah, al), (wh, wl) = _split(a), _split(w)
+    (ah, al), (wh, wl) = split(a), split(w)
     f64 = np.float64
     three = (ah.astype(f64) @ wh.astype(f64) + ah.astype(f64) @ wl.astype(f64)
              + al.astype(f64) @ wh.astype(f64))
@@ -111,6 +98,6 @@ def test_bf16_operands_split_exactly():
     bf16 branch's single hi*hi pass takes exact products."""
     x = np.random.RandomState(1).randn(4096).astype(np.float32)
     bf16 = (x.view(np.int32) & np.int32(-65536)).view(np.float32)
-    hi, lo = _split(bf16)
+    hi, lo = split(bf16)
     np.testing.assert_array_equal(hi, bf16)
     assert not lo.any()

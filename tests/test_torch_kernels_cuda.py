@@ -14,10 +14,12 @@ accumulators, the plain version runs cuDNN in f32, in another order);
 bf16 gate ``1e-2 * max|y_ref|`` (both accumulate in f32, so the
 difference is the bf16 rounding of the output). K1 and K2 also run on
 forced GEMM plans (ragged M/N/K, split-K with 1, 2 and an uneven last
-split, Cin not a multiple of 4, bf16) and split-K twice, bit-identical.
+split, Cin not a multiple of 4, bf16) and split-K twice, bit-identical;
+K3 (the filter grad, on the same tiles) on forced ``GemmPlan``s too.
 K4 (Winograd) is held to the same gates against its plain version
 ``sd_wino_ref``, and against K1 on the same split filters at the
-reference's ``tolerance(K_T) * max(1, max|y_K1|)``. K1's int8 branch is
+reference's ``tolerance(K_T) * max(1, max|y_K1|)``, on the default and
+forced ``WinoPlan``s. K1's int8 branch is
 held to its plain version (``sd_fused_ref`` on the int8 pair, exact
 sums) at two gates: bit-identical at unit scale, zero bias and linear
 act, and ``1e-6 * max(1, max|y_ref|)`` with real per-sample scales,
@@ -46,7 +48,7 @@ from repro_torch.core.deconv import same_deconv_pads
 from repro_torch import sd
 import repro_torch.kernels.sd_conv as K
 from repro_torch.kernels import ops
-from repro_torch.kernels.autotune import GemmPlan, KernelPlan
+from repro_torch.kernels.autotune import GemmPlan, KernelPlan, WinoPlan
 
 pytestmark = pytest.mark.cuda
 
@@ -266,17 +268,16 @@ def test_backward_kernels_on_paper_layers(dev, net, layer):
 
 
 def test_backward_kernels_ragged_tiles(dev):
-    from repro_torch.kernels.autotune import FilterGradPlan
     from repro_torch.core.accounting import LayerSpec
     layer = LayerSpec("deconv", 70, 5, k=5, s=2, in_hw=(13, 11), name="odd")
     x, ws, dy1, p = _backward_case(layer, dev, batch=3, seed=4)
     _gate(*_k2_pair(dy1, ws, p, layer.in_hw, GemmPlan(16, 5)))
-    for plan in (FilterGradPlan(tco=16, chunk=32),     # many chunks
-                 FilterGradPlan(tco=32, chunk=10 ** 6)):   # one chunk
+    for plan in (GemmPlan(16, 9),          # many splits, an uneven last
+                 GemmPlan(32, 1)):         # one split: no reduce kernel
         _gate(*_k3_pair(x, dy1, p, plan))
-    # K3 is deterministic: two runs agree bit for bit.
-    a, _ = _k3_pair(x, dy1, p)
-    b, _ = _k3_pair(x, dy1, p)
+    # K3's split-K sums in split order: two runs agree bit for bit.
+    a, _ = _k3_pair(x, dy1, p, GemmPlan(16, 9))
+    b, _ = _k3_pair(x, dy1, p, GemmPlan(16, 9))
     assert torch.equal(a, b)
 
 
@@ -372,11 +373,11 @@ def test_wino_dcgan_layers_bf16(dev, act):
     ((2, 7, 6, 4), (2, 2, 4, 3), 2, 0, 0, None),          # taps 1
     ((1, 5, 6, 3), (5, 2, 3, 2), 2, ((2, 2), (0, 1)), 0, None),
     ((3, 13, 11, 40), (5, 5, 40, 24), 2, 2, 1,
-     KernelPlan(th=3, tw=4, tcin=7, tc=16)),              # ragged tiles
+     WinoPlan(nth=3, ntw=2, nb=2, tc=16)),                # ragged bands
     ((2, 9, 10, 70), (3, 3, 70, 5), 2, 1, 1,
-     KernelPlan(th=2, tw=3, tcin=8, tc=4)),               # tcin ragged
+     WinoPlan(nth=2, ntw=3, nb=2, tc=32)),                # Cin 70, tc 32
     ((2, 9, 7, 12), (5, 5, 12, 6), 1, 2, 0,
-     KernelPlan(th=3, tw=1, tcin=5, tc=8)),               # F(2,5), odd
+     WinoPlan(nth=3, ntw=1, nb=2, tc=16)),                # F(2,5), odd
 ])
 def test_wino_odd_geometries(dev, sx, sw, s, pad, op, tile):
     from repro_torch.kernels.winograd import tolerance

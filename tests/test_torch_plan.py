@@ -218,16 +218,26 @@ def test_heuristic_plan_fits_and_covers(batch):
 
 
 def test_plan_types_follow_the_dtype():
-    """Float launches take a GemmPlan, int8 and winograd a KernelPlan;
-    the other type raises TypeError (plan, wrapper, any device)."""
+    """Float launches (K1, K2 f32, K3) take a GemmPlan, int8 ones a
+    KernelPlan, winograd (K4) a WinoPlan; another type raises TypeError
+    (plan, wrapper, any device)."""
     kp = A.KernelPlan(th=2, tw=2, tcin=4, tc=16)
     gp = GemmPlan(16, 1)
+    wp = A.WinoPlan(nth=2, ntw=2, nb=1, tc=16)
     with pytest.raises(TypeError, match="GemmPlan"):
         tsd.plan((4, 4, 3, 2), 2, 1, backend="fused", tile=kp)
     with pytest.raises(TypeError, match="KernelPlan"):
         tsd.plan((4, 4, 3, 2), 2, 1, backend="fused", dtype="int8", tile=gp)
-    with pytest.raises(TypeError, match="KernelPlan"):
-        tsd.plan((4, 4, 3, 2), 2, 1, backend="winograd", tile=gp)
+    for bad in (gp, kp):
+        with pytest.raises(TypeError, match="WinoPlan"):
+            tsd.plan((4, 4, 3, 2), 2, 1, backend="winograd", tile=bad)
+    assert tsd.plan((4, 4, 3, 2), 2, 1, backend="winograd",
+                    tile=wp).tile == wp
+    from repro_torch.kernels import winograd as W
+    with pytest.raises(TypeError, match="WinoPlan"):
+        W.sd_wino(torch.randn(1, 4, 4, 3),
+                  W.transform_filters(torch.randn(2, 2, 3, 8)), (2, 2), 2,
+                  plan=kp)
     assert tsd.plan((4, 4, 3, 2), 2, 1, backend="fused", tile=gp).tile == gp
     x = torch.randn(1, 4, 4, 3)
     with pytest.raises(TypeError, match="GemmPlan"):
@@ -238,6 +248,8 @@ def test_plan_types_follow_the_dtype():
     xq = torch.zeros(1, 4, 4, 3, dtype=torch.int8)
     with pytest.raises(TypeError, match="KernelPlan"):
         K.sd_conv(xq, torch.zeros(3, 3, 3, 2, dtype=torch.int8), plan=gp)
+    with pytest.raises(TypeError, match="GemmPlan"):
+        K.sd_filter_grad(x, torch.zeros(1, 2, 2, 5), (3, 3), plan=kp)
     for bad in (GemmPlan(24, 1), GemmPlan(128, 1), GemmPlan(16, 0),
                 GemmPlan(16, -1)):
         with pytest.raises(ValueError, match="kernel takes"):

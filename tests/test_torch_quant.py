@@ -189,7 +189,7 @@ def test_plan_int8_contract():
 
 
 def test_geom_key_and_smem_distinct_per_dtype():
-    f32 = FusedGeom(8, 8, 256, 512, 3, 3, 2, 2, 16, 16)
+    f32 = FusedGeom(8, 8, 256, 512, 3, 3, 2, 2, 16, 16, dtype="")
     i8 = dataclasses.replace(f32, dtype="int8")
     assert f32 != i8                 # distinct geometries, distinct tiles
     plan = KernelPlan(th=8, tw=8, tcin=32, tc=64)

@@ -10,8 +10,12 @@ plans, engine and server) against the JAX reference, on the CPU.
   backend reaches a Pallas kernel this jax cannot run), on the 22 paper
   layers (widths capped) and the reference's geometry sweep;
 * what the CUDA kernel computes, block by block, restated in numpy from
-  the integers ``wino_launch_geometry`` hands it, on forced ragged tiles:
-  every output element written once, equal to ``sd_wino_ref``;
+  the integers ``wino_launch`` hands it (the blocks' bands of tiles and
+  samples, V = B^T d B per tile slot, the products per chunk of input
+  channels in 3xTF32 promoted into f32 sums, A^T M A and K1's interleave and
+  crop), on the default and forced ragged tiles, F(2,5), 1-tap dims and
+  bf16: every output element written once, equal to ``sd_wino_ref`` and
+  to the reference's xla plan at ``WINO_TOL``;
 * ``conv_transpose`` on a winograd plan: gradients equal the reference's
   xla gradients at 1e-4;
 * the engine, the model and ``serve_gen --backend winograd`` end to end.
@@ -36,13 +40,15 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.core.accounting import BENCHMARKS
 from repro_torch.kernels import ops
 from repro_torch.kernels import winograd as W
-from repro_torch.kernels.autotune import (SMEM_TARGET, WINO_ITEMS,
-                                          KernelPlan, wino_items, wino_plan,
-                                          wino_smem_bytes)
+from repro_torch.kernels.autotune import (SMEM_BUDGET, WinoPlan,
+                                          check_wino_plan, wino_grid,
+                                          wino_plan, wino_smem_bytes)
 from repro_torch.launch import train_gen
 from repro_torch.launch.serve_gen import main as serve_main
 from repro_torch.models import build
 from repro_torch.models.generative import GenerativeModel
+from _torch_igemm import mma3, promote
+from repro_torch.kernels.autotune import WinoGeom as A_WinoGeom
 
 PAPER_LAYERS = [(net, l) for net, fn in BENCHMARKS.items()
                 for l in fn().deconv_layers()]
@@ -235,132 +241,195 @@ def test_plan_rejects_as_the_reference_does():
 # K4's launch geometry: the CUDA kernel's blocking, restated in numpy
 # ---------------------------------------------------------------------------
 
-def _emulate(x, u, kt, s, bias, act, pad, crop, out_space, plan=None):
+def _k4_restated(x, u, kt, s, bias, act, pad, crop, out_space, plan=None,
+                 dtype=""):
     """What ``csrc/sd_wino.cu`` computes, block by block, from the
-    integers ``wino_launch_geometry`` hands it: the masked band, V = B^T d
-    B per Cin step, the alpha^2 products summed over Cin, A^T M A, the
-    trim, and the interleaved, cropped write."""
-    g = W.wino_launch_geometry(x.shape, u.shape, kt, s, pad, crop,
-                               out_space, plan)
+    integers ``wino_launch`` hands it: each block's tile slots (a band of
+    ``nth x ntw`` tiles in ``nb`` samples), the masked input windows,
+    V = B^T d B per slot in f32, the alpha^2 products per chunk of input
+    channels (16; 8 on 16 slots) in 3xTF32 promoted into f32 sums, A^T M
+    A, and each
+    conv position's value through K1's interleave and crop."""
+    g = W.wino_launch(tuple(x.shape), tuple(u.shape), kt, s, pad, crop,
+                      out_space, plan, dtype)
+    geom, p = g.geom, g.plan
     sh, sw = s
-    p = g.plan
-    b, h, wd, cin = x.shape
+    b_, h, wd, cin = x.shape
     nc = u.shape[-1]
     at_h, _, bt_h = (a.astype(np.float64)
-                     for a in W.winograd_matrices(g.mh, kt[0]))
+                     for a in W.winograd_matrices(geom.mh, kt[0]))
     at_w, _, bt_w = (a.astype(np.float64)
-                     for a in W.winograd_matrices(g.mw, kt[1]))
+                     for a in W.winograd_matrices(geom.mw, kt[1]))
     ah, aw = bt_h.shape[0], bt_w.shape[0]
-    assert u.shape[:2] == (ah, aw)
-    assert g.nth * g.mh >= g.rh and g.ntw * g.mw >= g.rw
-    assert g.band_h == g.nth * g.mh + kt[0] - 1
-    y = np.full((b, g.out_h, g.out_w, nc // (sh * sw)), np.nan)
-    for ti in range(g.nh):
-        for tj in range(g.nw):
-            xr0 = ti * p.th + g.q_h - g.plo_h
-            xc0 = tj * p.tw + g.q_w - g.plo_w
-            band = np.zeros((b, g.band_h, g.band_w, cin))
-            for br in range(g.band_h):
-                for bc in range(g.band_w):
-                    if 0 <= xr0 + br < h and 0 <= xc0 + bc < wd:
-                        band[:, br, bc] = x[:, xr0 + br, xc0 + bc]
-            d = np.stack([np.stack([band[:, tr * g.mh:tr * g.mh + ah,
-                                         tc * g.mw:tc * g.mw + aw]
-                                    for tc in range(g.ntw)], 1)
-                          for tr in range(g.nth)], 1)  # b,nth,ntw,ah,aw,ci
-            for c0 in range(0, nc, p.tc):
-                uc = u[:, :, :, c0:c0 + p.tc]
-                acc = 0.0
-                for ci0 in range(0, cin, p.tcin):
-                    v = np.einsum("ia,ntsabc,jb->ijntsc", bt_h,
-                                  d[..., ci0:ci0 + p.tcin], bt_w)
-                    acc = acc + np.einsum("ijntsc,ijcd->ijntsd", v,
-                                          uc[:, :, ci0:ci0 + p.tcin])
-                yt = np.einsum("oi,ijntsd,pj->ntospd", at_h, acc, at_w)
-                yt = yt.reshape(b, g.nth * g.mh, g.ntw * g.mw, -1)
-                for pr in range(g.rh):            # the trim
-                    for pc in range(g.rw):
-                        for ch in range(yt.shape[-1]):
-                            oc, ph = divmod(c0 + ch, sh * sw)
-                            ly = pr * sh + ph // sw - g.res_h
-                            lx = pc * sw + ph % sw - g.res_w
-                            oy = ti * p.th * sh + ly
-                            ox = tj * p.tw * sw + lx
-                            if not (0 <= ly < p.th * sh
-                                    and 0 <= lx < p.tw * sw
-                                    and oy < g.out_h and ox < g.out_w):
-                                continue
-                            assert np.isnan(y[0, oy, ox, oc]), "twice"
-                            r = yt[:, pr, pc, ch] + bias[oc]
-                            y[:, oy, ox, oc] = {"linear": r,
-                                                "relu": np.maximum(r, 0),
-                                                "tanh": np.tanh(r)}[act]
+    assert u.shape[:2] == (ah, aw) and ah * aw == geom.alphas
+    r0, c0 = g.q_h - g.plo_h, g.q_w - g.plo_w
+    nt_h, nt_w = geom.tiles
+    gx, gy, gz = wino_grid(geom, p)
+    nbw = -(-nt_w // p.ntw)
+    live = p.nb * p.nth * p.ntw
+    assert live <= geom.slots
+    y = np.full((b_, g.out_h, g.out_w, nc // (sh * sw)), np.nan)
+    for bz in range(gz):
+        for by in range(gy):
+            bi, bj = divmod(by, nbw)
+            d = np.zeros((geom.slots, cin, ah, aw))
+            where = []
+            for t in range(live):
+                sb, rem = divmod(t, p.nth * p.ntw)
+                tr, tc = divmod(rem, p.ntw)
+                b, tr, tc = bz * p.nb + sb, bi * p.nth + tr, bj * p.ntw + tc
+                where.append((b, tr, tc))
+                if b >= b_:
+                    continue
+                for a1 in range(ah):
+                    for a2 in range(aw):
+                        xr, xc = tr * geom.mh + r0 + a1, tc * geom.mw + c0 + a2
+                        if 0 <= xr < h and 0 <= xc < wd:
+                            d[t, :, a1, a2] = x[b, xr, xc]
+            v = np.einsum("ia,tcab,jb->ijtc", bt_h, d, bt_w).astype(
+                np.float32).reshape(ah * aw, geom.slots, cin)
+            for bx in range(gx):
+                n0 = bx * p.tc
+                uc = np.zeros((ah * aw, cin, p.tc), np.float32)
+                uc[..., :min(nc, n0 + p.tc) - n0] = u.reshape(
+                    ah * aw, cin, nc)[..., n0:n0 + p.tc]
+                m = np.zeros((ah * aw, geom.slots, p.tc), np.float32)
+                for ci0 in range(0, cin, geom.chunk):
+                    ci = slice(ci0, ci0 + geom.chunk)
+                    for k in range(ah * aw):
+                        m[k] = promote(m[k], mma3(v[k][:, ci], uc[k][ci]))
+                yt = np.einsum("oi,ijtc,pj->topc", at_h,
+                               m.reshape(ah, aw, geom.slots, p.tc), at_w)
+                for t, (b, tr, tc) in enumerate(where):
+                    for c in range(p.tc):
+                        if n0 + c >= nc or b >= b_:
+                            continue
+                        oc, ph = divmod(n0 + c, sh * sw)
+                        for o1 in range(geom.mh):
+                            for o2 in range(geom.mw):
+                                oy = ((tr * geom.mh + o1) * sh + ph // sw
+                                      - g.res_h)
+                                ox = ((tc * geom.mw + o2) * sw + ph % sw
+                                      - g.res_w)
+                                if not (0 <= oy < g.out_h
+                                        and 0 <= ox < g.out_w):
+                                    continue
+                                assert np.isnan(y[b, oy, ox, oc]), "twice"
+                                r = yt[t, o1, o2, c] + bias[oc]
+                                y[b, oy, ox, oc] = {
+                                    "linear": r, "relu": max(r, 0.0),
+                                    "tanh": np.tanh(r)}[act]
     assert not np.isnan(y).any(), "output element never written"
     return y, g
 
 
-# (x shape, w shape, stride, padding, output_padding, act, forced tile)
+# (x shape, w shape, stride, padding, output_padding, act, forced tile,
+# bf16)
 EMU = [
-    ((2, 8, 8, 6), (5, 5, 6, 3), 2, "same", 0, "relu", None),  # dcgan
-    ((1, 4, 4, 8), (4, 4, 8, 4), 2, "same", 0, "linear", None),  # r = 1
-    ((1, 7, 6, 5), (5, 5, 5, 3), 1, "same", 0, "tanh", None),  # F(2,5)
-    ((1, 5, 6, 3), (2, 2, 3, 2), 2, 0, 0, "relu", None),       # F(1,1)
-    ((1, 5, 6, 3), (4, 4, 3, 2), 2, 0, 1, "tanh", None),       # op > hi
-    ((1, 6, 7, 3), (5, 5, 3, 2), 2, ((1, 3), (0, 2)), 0, "linear",
-     None),                                                    # asymmetric
-    ((1, 5, 6, 3), (5, 2, 3, 2), 2, ((2, 2), (0, 1)), 0, "relu",
-     None),                                                    # F(2,3)xF(1,1)
-    ((2, 13, 11, 4), (5, 5, 4, 5), 2, 2, 1, "relu",
-     KernelPlan(th=3, tw=4, tcin=3, tc=16)),  # ragged tiles, round-up, tc
-    ((1, 9, 10, 3), (3, 3, 3, 2), 2, 1, 1, "linear",
-     KernelPlan(th=2, tw=3, tcin=2, tc=4)),   # mde-like F(2,2), r = 1
-    ((1, 9, 7, 4), (5, 5, 4, 2), 1, 2, 0, "relu",
-     KernelPlan(th=3, tw=1, tcin=4, tc=8)),   # F(2,5), odd rows
+    ((2, 8, 8, 6), (5, 5, 6, 3), 2, "same", 0, "relu", None, False),
+    ((1, 4, 4, 8), (4, 4, 8, 4), 2, "same", 0, "linear", None, False),
+    ((1, 7, 6, 5), (5, 5, 5, 3), 1, "same", 0, "tanh", None, False),  # F(2,5)
+    ((1, 5, 6, 3), (2, 2, 3, 2), 2, 0, 0, "relu", None, False),    # F(1,1)
+    ((1, 5, 6, 3), (4, 4, 3, 2), 2, 0, 1, "tanh", None, False),    # op > hi
+    ((1, 6, 7, 3), (5, 5, 3, 2), 2, ((1, 3), (0, 2)), 0, "linear", None,
+     False),                                                       # asym.
+    ((1, 5, 6, 3), (5, 2, 3, 2), 2, ((2, 2), (0, 1)), 0, "relu", None,
+     False),                                                 # F(2,3)xF(1,1)
+    ((2, 13, 11, 40), (5, 5, 40, 5), 2, 2, 1, "relu",
+     WinoPlan(nth=3, ntw=2, nb=2, tc=16), False),  # ragged bands, Cin 40
+    ((3, 9, 10, 19), (3, 3, 19, 9), 2, 1, 1, "linear",
+     WinoPlan(nth=2, ntw=3, nb=2, tc=32), False),  # ragged samples, tc 32
+    ((1, 9, 7, 20), (5, 5, 20, 2), 1, 2, 0, "relu",
+     WinoPlan(nth=3, ntw=1, nb=1, tc=16), False),  # F(2,5), odd rows
+    ((2, 8, 8, 24), (5, 5, 24, 5), 2, "same", 0, "relu", None, True),
+    ((1, 9, 7, 9), (4, 4, 9, 3), 2, 1, 1, "tanh",
+     WinoPlan(nth=2, ntw=3, nb=1, tc=16), True),   # bf16 F(2,2), ragged
 ]
 
 
-@pytest.mark.parametrize("case", EMU, ids=[f"{c[:2]}{c[5]}" for c in EMU])
+@pytest.mark.parametrize("case", EMU, ids=[
+    f"{c[:2]}{c[5]}{'-bf16' if c[7] else ''}" for c in EMU])
 def test_launch_geometry_emulated(case):
-    sx, sw_, s, pad, op, act, tile = case
+    """K4 restated equals ``sd_wino_ref`` (1e-5 of max(1, max|ref|)) and
+    the reference's xla plan at ``tolerance(K_T)`` of max|ref|.  bf16:
+    the operands' bf16 values carried in f32, on filters of eighths whose
+    transform is exact in bf16 (a rounded U is no filter's transform, and
+    its result then depends on where the tiles start)."""
+    sx, sw_, s, pad, op, act, tile, bf16 = case
     pads = same_deconv_pads(sw_[0], s) if pad == "same" else pad
     rng = np.random.RandomState(sum(sx))
     x = rng.randn(*sx).astype(np.float32)
     w = (rng.randn(*sw_) / np.sqrt(np.prod(sw_[:-1]))).astype(np.float32)
     bias = rng.randn(sw_[-1]).astype(np.float32)
+    if bf16:
+        x = torch.from_numpy(x).bfloat16().float().numpy()
+        w = rng.randint(-4, 5, sw_).astype(np.float32) / 8
     tp = tsd.plan(w.shape, s, pads, backend="winograd", act=act,
                   output_padding=op, tile=tile).bind(
                       torch.from_numpy(w), bias=torch.from_numpy(bias))
-    ref = tsd.execute(tp, torch.from_numpy(x)).numpy()
+    u = tp.ws
+    if bf16:
+        assert torch.equal(u.bfloat16().float(), u)
     pk, pi, pd = tp.pk, tp.pi, tp.padding
-    out, g = _emulate(x.astype(np.float64), tp.ws.double().numpy(), tp.kt,
-                      tp.stride, bias, act,
-                      ((pi[0],) * 2, (pi[1],) * 2),
-                      (pk[0] + pd[0][0], pk[1] + pd[1][0]),
-                      tp.out_shape(sx[1:3]), tile)
-    np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-5)
-    if tile is not None:
-        assert g.plan == tile
+    geo = dict(bias=torch.from_numpy(bias), act=act,
+               pad=((pi[0],) * 2, (pi[1],) * 2),
+               crop=(pk[0] + pd[0][0], pk[1] + pd[1][0]),
+               out_space=tp.out_shape(sx[1:3]))
+    out, g = _k4_restated(x, u.numpy(), tp.kt, tp.stride, bias, act,
+                          geo["pad"], geo["crop"], geo["out_space"], tile,
+                          "bf16" if bf16 else "")
+    ref = W.sd_wino_ref(torch.from_numpy(x), u, tp.kt, tp.stride,
+                        **geo).numpy()
+    np.testing.assert_allclose(out, ref, rtol=1e-5,
+                               atol=1e-5 * max(1.0, np.abs(ref).max()))
+    xla, _ = _both_refs(x, w, s, pads, act, bias=bias, output_padding=op)
+    assert _rel_err(out, xla) <= W.tolerance(tp.kt)
+    assert g.plan == (tile or wino_plan(g.geom))
 
 
 def test_wino_plan_fits_and_covers():
-    """The heuristic tile of every paper layer fits the shared-memory
-    target and the block's register tiles, and spans the output."""
+    """The default plan of every paper layer's forward at batches 4 and
+    16, f32 and bf16, is one the kernel takes (its tile slots, channel
+    tile, grid and shared memory), and a plan past the slots, the
+    channel tiles or shared memory raises."""
     for net, layer in PAPER_LAYERS:
         kt = -(-layer.k // layer.s)
         oh, ow = layer.out_hw()
         pk = layer.s * kt - layer.k
         crop = pk + same_deconv_pads(layer.k, layer.s)[0][0]
-        geom = W.wino_geom((1, *layer.in_hw, layer.cin),
-                           (1, 1, layer.cin, layer.cout * layer.s ** 2),
-                           (kt, kt), layer.s, (crop, crop), (oh, ow))
-        plan = wino_plan(geom)
-        assert wino_smem_bytes(geom, plan) <= SMEM_TARGET, (net, layer)
-        assert wino_items(geom, plan) <= WINO_ITEMS
-        assert plan.tc % 4 == 0 and plan.th >= 1 and plan.tw >= 1
-    with pytest.raises(ValueError, match="register tiles"):
-        W.wino_launch_geometry((1, 8, 8, 4), (4, 4, 4, 64), (3, 3), 2,
-                               ((1, 1), (1, 1)), (1, 1), (16, 16),
-                               KernelPlan(th=16, tw=16, tcin=4, tc=32))
+        pi = kt - 1 - same_deconv_pads(layer.k, layer.s)[0][0] // layer.s
+        for batch in (4, 16):
+            for dtype in ("", "bf16"):
+                g = W.wino_launch(
+                    (batch, *layer.in_hw, layer.cin),
+                    (1, 1, layer.cin, layer.cout * layer.s ** 2),
+                    (kt, kt), (layer.s, layer.s), ((pi, pi), (pi, pi)),
+                    (crop, crop), (oh, ow), None, dtype)
+                geom, plan = g.geom, g.plan
+                check_wino_plan(geom, plan)
+                assert wino_smem_bytes(geom, plan) <= SMEM_BUDGET
+                assert plan.nb * plan.nth * plan.ntw <= geom.slots
+                nt_h, nt_w = geom.tiles
+                gx, gy, gz = wino_grid(geom, plan)
+                # the blocks cover every tile of every sample
+                assert gy * plan.nth * plan.ntw >= nt_h * nt_w
+                assert gz * plan.nb >= batch
+                assert gx * plan.tc >= geom.nc, (net, layer.name)
+    geom = A_WinoGeom(4, 16, 16, 64, 64, 3, 3)
+    for bad in (WinoPlan(nth=8, ntw=8, nb=1, tc=32),   # 64 tiles > 32
+                WinoPlan(nth=4, ntw=4, nb=1, tc=64),   # no 64-channel tile
+                WinoPlan(nth=4, ntw=4, nb=0, tc=16)):
+        with pytest.raises(ValueError, match="kernel takes"):
+            check_wino_plan(geom, bad)
+    deep = A_WinoGeom(4, 16, 16, 64, 64, 5, 5)          # 36 points: 16 slots
+    assert deep.slots == 16 and wino_plan(deep).tc == 16
+    with pytest.raises(ValueError, match="kernel takes"):
+        check_wino_plan(deep, WinoPlan(nth=4, ntw=4, nb=1, tc=32))
+    tiny = A_WinoGeom(32, 2, 2, 64, 64, 3, 3)           # one tile a sample
+    with pytest.raises(ValueError, match="shared memory"):
+        check_wino_plan(tiny, WinoPlan(nth=1, ntw=1, nb=32, tc=32))
+    plan = wino_plan(tiny)                  # fewer samples, within budget
+    assert plan.nb < 32 and wino_smem_bytes(tiny, plan) <= SMEM_BUDGET
 
 
 def test_wrapper_cpu_is_plain_version_and_counts_nothing():
