@@ -13,7 +13,9 @@ Drives ``repro_torch`` only (never JAX, never the JAX package ``repro``):
    shared memory, and counts the TF32 ``HMMA`` instructions in the SASS
    of K1's float branch and K2, which share the 3xTF32 implicit-GEMM
    mainloop ``sd_igemm.cuh``, and of K3 and K4, which take its 3xTF32
-   arithmetic (fails if any has none);
+   arithmetic (fails if any has none), and the IMMA (s8 tensor-core)
+   and IDP.4A (dp4a) instructions of K1's int8 branch, the same
+   mainloop on int8 (fails unless IMMA > 0 and IDP.4A = 0);
 2. holds K1 against its plain PyTorch version ``sd_fused_ref`` on the 22
    deconv layers of the paper's six networks (batch 4, f32, TF32 off,
    ``max|d| <= 1e-4 * max(1, max|y_ref|)``), on an ``output_padding >
@@ -70,23 +72,23 @@ Drives ``repro_torch`` only (never JAX, never the JAX package ``repro``):
    the CUDA cores, ``tc_bound_ms`` its products' 3xTF32 work on the
    tensor cores beside its transforms on the CUDA cores;
    ``useful_bound_ms`` is the direct deconv's, K1's bound;
-7. int8: holds K1's int8 branch (``sd_fused_int8.cu``) against its plain
-   version (``sd_fused_ref`` on the int8 pair, exact sums) on the 22
-   paper layers and odd geometries (Cin not a multiple of 4, ``op >
-   pad_hi``, asymmetric pads, forced ragged tiles) at batch 4 and on
-   DCGAN's layers at batch 16, at two gates: bit-identical at unit
-   scale, zero bias and linear act; ``1e-6 * max(1, max|y_ref|)`` with
-   per-sample activation scales, folded-BN filter scales, bias and
-   relu/tanh; times K1 int8, its plain version, float K1 and
-   ``F.conv_transpose2d`` (f32, a yardstick) per DCGAN layer at batch
-   16; serves 48 full-width DCGAN requests through
+7. int8: holds K1's int8 branch (``sd_fused_int8.cu``, the implicit
+   GEMM on the s8 tensor cores) against its plain version
+   (``sd_fused_ref`` on the int8 pair, exact sums) on the 22 paper
+   layers and odd geometries (Cin not a multiple of 4, ``op > pad_hi``,
+   asymmetric pads, forced GEMM plans with ragged N, Cin tails and
+   several splits) at batch 4 and on DCGAN's layers at batch 16, at two
+   gates: bit-identical at unit scale, zero bias and linear act; ``1e-6
+   * max(1, max|y_ref|)`` with per-sample activation scales, folded-BN
+   filter scales, bias and relu/tanh; holds every code at +-127 on
+   DCGAN d1 (sums at 127^2 x 2,304) exactly to an int64 restatement, on
+   the default plan and a 4-way split; serves 48 full-width DCGAN
+   requests through
    ``GenServer(dtype="int8")`` and checks 3 K1-int8 and 0 float-K1
    launches per batch, finite outputs, the int8 ``torch`` backend on the
    card within ``1e-3 * max(1, max|ref|)`` and the float fused server's
    model within 0.05 of max|ref| with SSIM >= 0.99; times a batch of 16
-   on the int8 and the float server in turns.  K1 int8's ``bound_ms`` is
-   at the int8 tensor cores' peak, ``useful_bound_ms`` at the CUDA
-   cores' dp4a rate the kernel runs on;
+   on the int8 and the float server in turns;
 8. 3-D: holds K2's int8 pair (``sd_conv_int8.cu``) against its plain
    version (``sd_conv_ref`` on the int8 pair, exact int32 sums) at
    VoxGAN's three tap-conv shapes at batch 16, at codes of +-127 and on
@@ -118,9 +120,16 @@ Drives ``repro_torch`` only (never JAX, never the JAX package ``repro``):
    ``1e-3 * max(1, max|ref|)``) and the float server (SSIM >= 0.99,
    max|d| <= 0.05 max|ref|); profiles one calibrated batch (3 K1-int8
    launches, 0 ``quantize_act`` calls, int8 leaving d1 and d2); times
-   each layer's static-row launch against the dynamic one and a batch
-   calibrated / dynamic / f32 in turns; serves 48 calibrated VoxGAN
-   requests, held exactly to the ``torch`` backend;
+   per DCGAN layer, in turns and in device time, the static-row launch,
+   the dynamic one, float K1, ``F.conv_transpose2d`` f32, the plain
+   version and ``torch._int_mm`` on the GEMM's own operands (a
+   yardstick of cuBLASLt's int8 GEMM rate, checked to give the GEMM's
+   exact sums; not the same function), and the static launch with f32
+   out beside int8 out (``bound_ms`` at the int8 tensor cores' peak);
+   fails if K1 int8 takes more than
+   ``K1_INT8_D1_MS_LIMIT`` ms of device time on d1, static or dynamic;
+   times a batch calibrated / dynamic / f32 in turns; serves 48
+   calibrated VoxGAN requests, held exactly to the ``torch`` backend;
 10. K5 and dense LM serving: counts the HGMMA (tensor-core) and UTMALDG
    (TMA load) instructions in the SASS of K5's bf16 kernel and fails if
    either is 0; holds K5 (``flash_attn.cu``: bf16 on wgmma + TMA, f32 on
@@ -179,9 +188,9 @@ SEED = 0
 GAN_STEPS = 6
 SOURCES = ("sd_fused", "sd_conv", "sd_filter_grad", "sd_wino",
            "sd_fused_int8", "sd_conv_int8", "flash_attn")
-# K1's int8 branch.  bound_ms: the H100 SXM's dense int8 tensor-core peak
-# (NVIDIA data sheet, 1,979 TOP/s); useful_bound_ms: the CUDA cores' dp4a
-# rate the kernel runs on, derived (not a data-sheet figure) as 64 dp4a
+# The int8 kernels.  bound_ms: the H100 SXM's dense int8 tensor-core peak
+# (NVIDIA data sheet, 1,979 TOP/s); K2 int8's useful_bound_ms: the CUDA
+# cores' dp4a rate it runs on, derived (not a data-sheet figure) as 64 dp4a
 # per SM per clock (the CUDA C programming guide's rate of 32-bit integer
 # multiply-adds for compute capability 9.0) x 4 int8 MACs x 2 operations
 # x 132 SMs x 1.98 GHz boost clock.
@@ -200,6 +209,7 @@ K1_D1_MS_LIMIT = 0.13    # K1 f32 on DCGAN d1 at batch 16, device ms
 K2_D1_MS_LIMIT = 0.20    # K2 (dx) on DCGAN d1 at batch 16, device ms
 K3_D1_MS_LIMIT = 0.15    # K3 (dw) on DCGAN d1 at batch 16, device ms
 K4_D1_MS_LIMIT = 0.12    # K4 f32 on DCGAN d1 at batch 16, device ms
+K1_INT8_D1_MS_LIMIT = 0.065  # K1 int8 (static and dynamic) there, device ms
 AHEAD_CYCLES = 4_000_000  # torch.cuda._sleep before a timed run of calls
 # Phase 10: K5 and dense LM serving.  StableLM-2-12B
 # (src/repro_torch/configs/stablelm_12b.py) at all 40 of its layers: the
@@ -1160,15 +1170,67 @@ def _wino_phase(dev, tag, randn) -> dict:
             "batch_device": breakdown}
 
 
+def _total(vals):
+    """Sum of per-layer readings, None when any is missing."""
+    vals = list(vals)
+    return None if any(v is None for v in vals) else sum(vals)
+
+
+def _saturating_d1(dev, tag) -> dict:
+    """K1 int8 with every code at +-127 on DCGAN d1 at batch 16 (K =
+    3*3*256 = 2,304): interior sums reach 127^2 * 2,304 in magnitude.
+    Unit scale, zero bias, linear act, on the default plan and a forced
+    4-way split: held to an int64 numpy restatement rounded to f32 once
+    (:func:`_np_chain_epilogue`), 0 elements different."""
+    import numpy as np
+    import torch
+    import repro_torch.kernels.sd_conv as K
+    from repro_torch import sd
+    from repro_torch.kernels.autotune import GemmPlan
+    g = torch.Generator().manual_seed(SEED)
+    sample = torch.where(torch.rand(BUCKET, 1, 1, 1, generator=g) < 0.5,
+                         127, -127)
+    column = torch.where(torch.rand(512, generator=g) < 0.5, 127, -127)
+    xq = sample.expand(BUCKET, 8, 8, 256).to(torch.int8).contiguous()
+    ws = column.expand(3, 3, 256, 512).to(torch.int8).contiguous()
+    p = sd.plan((5, 5, 256, 128), 2, 2, backend="fused", output_padding=1,
+                dtype="int8", device=dev)
+    geo = dict(pad=((p.pi[0],) * 2, (p.pi[1],) * 2),
+               crop=(p.pk[0] + p.padding[0][0], p.pk[1] + p.padding[1][0]),
+               out_space=p.out_shape((8, 8)))
+    ones = np.ones((1, 512), np.float32)
+    want = _np_chain_epilogue(xq.numpy(), ws.numpy(), 2, geo["pad"],
+                              geo["crop"], geo["out_space"], ones,
+                              np.zeros(128, np.float32), "linear", False)
+    peak = 127 * 127 * 2304
+    out_rec = {}
+    for plan in (None, GemmPlan(64, 4)):
+        out = K.sd_fused(xq.to(dev), ws.to(dev), 2,
+                         scale=torch.ones(1, 512, device=dev), plan=plan,
+                         **geo).cpu().numpy()
+        n_diff = int((out != want).sum())
+        top = float(np.abs(out).max())
+        ok = n_diff == 0 and top == float(peak)
+        print(f"check: K1 int8 saturating, every code +-127 on dcgan/d1 at "
+              f"batch {BUCKET} (K 2304), plan {plan or 'default'}: {n_diff} "
+              f"of {out.size} elements differ from the int64 restatement, "
+              f"max|y| {top:.0f} (127^2 x 2304 = {peak}) "
+              f"{'ok' if ok else 'FAIL'} {tag}")
+        if not ok:
+            raise SystemExit("chip_smoke: K1 int8 is not exact at the int32 "
+                             "range of d1")
+        out_rec[str(plan or "default")] = n_diff
+    return {"elements_differ": out_rec, "max_abs": peak}
+
+
 def _int8_phase(dev, tag, randn) -> dict:
     """Phase 7: K1's int8 branch against its plain version (exact sums)
     at two gates on the 22 paper layers and the odd geometries at batch
-    4, and on DCGAN's layers at batch 16; K1 int8, plain, float K1 and
-    ``F.conv_transpose2d`` timed per DCGAN layer at batch 16; then
-    full-width DCGAN served through ``GenServer(dtype="int8")``.  Returns
-    K1 int8's record, the per-layer times and the serving report."""
+    4, every code at +-127 on DCGAN d1 (:func:`_saturating_d1`), and
+    DCGAN's layers at batch 16 (phase 9 times them); then full-width
+    DCGAN served through ``GenServer(dtype="int8")``.  Returns K1 int8's
+    record and the serving report."""
     import torch
-    import torch.nn.functional as F
     import repro_torch.kernels.sd_conv as K
     from repro_torch import sd
     from repro_torch.core.accounting import BENCHMARKS
@@ -1176,7 +1238,7 @@ def _int8_phase(dev, tag, randn) -> dict:
     from repro_torch.core.quant import quantize_act
     from repro_torch.core.ssim import ssim
     from repro_torch.kernels import ops
-    from repro_torch.kernels.autotune import FusedGeom, KernelPlan, smem_bytes
+    from repro_torch.kernels.autotune import GemmPlan
     from repro_torch.launch.serve_gen import GenServer, serve_async
     from repro_torch.models.generative import GenerativeModel
 
@@ -1251,17 +1313,16 @@ def _int8_phase(dev, tag, randn) -> dict:
                 (4, *l.in_hw, l.cin), (l.k, l.k, l.cin, l.cout), l.s,
                 same_deconv_pads(l.k, l.s), "relu")
             check(f"{net}/{l.name}", xq, p, comb, ("relu", "tanh"))
-    # Cin not a multiple of 4 (tail words), op > pad_hi, asymmetric pads,
-    # forced ragged tiles and ragged Cin steps.
+    # Cin not a multiple of 4 (byte copies), op > pad_hi, asymmetric pads,
+    # forced GEMM plans: Cin 40 (4-byte copies) and a ragged N over bn 64
+    # with an empty last split, Cin 70 and N 20 over bn 16 in 3 splits,
+    # stride 1 with Cin 6 and N 6 (byte copies of A and B) in 2 splits.
     odd = [((2, 5, 6, 7), (4, 4, 7, 2), 2, 0, 1, None),
            ((2, 5, 6, 3), (4, 4, 3, 2), 2, 1, (1, 0), None),
            ((1, 6, 7, 5), (5, 5, 5, 2), 2, ((1, 3), (0, 2)), 0, None),
-           ((3, 13, 11, 40), (5, 5, 40, 24), 2, 2, 1,
-            KernelPlan(th=3, tw=2, tcin=12, tc=32)),
-           ((2, 9, 10, 70), (3, 3, 70, 5), 2, 1, 1,
-            KernelPlan(th=2, tw=3, tcin=9, tc=16)),
-           ((2, 9, 7, 6), (5, 5, 6, 6), 1, 2, 0,
-            KernelPlan(th=3, tw=1, tcin=5, tc=16))]
+           ((3, 13, 11, 40), (5, 5, 40, 24), 2, 2, 1, GemmPlan(64, 4)),
+           ((2, 9, 10, 70), (3, 3, 70, 5), 2, 1, 1, GemmPlan(16, 3)),
+           ((2, 9, 7, 6), (5, 5, 6, 6), 1, 2, 0, GemmPlan(16, 2))]
     for sx, sw_, st, padv, op, tile in odd:
         _, _, _, _, p, xq, comb = case(sx, sw_, st, padv, "relu", op, tile)
         check(f"odd k{sw_[:2]} s{st} p{padv} op{op} tile {tile}", xq, p,
@@ -1270,83 +1331,20 @@ def _int8_phase(dev, tag, randn) -> dict:
         raise SystemExit(f"chip_smoke: K1 int8 disagrees with its plain "
                          f"version on {failures}")
 
-    dcgan = [(i, l) for i, l in enumerate(BENCHMARKS["dcgan"]().layers)
-             if l.kind == "deconv"]
-    print(f"time: DCGAN layers at batch {BUCKET}, CUDA events: median "
-          f"[min, max] of 7 rounds of 20 warm launches, K1 int8 / plain / "
-          f"K1 f32 / conv_transpose2d f32 (TF32 off; a float yardstick, no "
-          f"single PyTorch call computes this int8 function) in turns; "
-          f"bound at the dense int8 tensor-core peak (NVIDIA H100 SXM data "
-          f"sheet), useful_bound at the CUDA cores' dp4a rate (derived: 64 "
-          f"dp4a per SM per clock x 132 SMs x 1.98 GHz) {tag}")
-    per_layer = []
-    for i, l in dcgan:
+    sat = _saturating_d1(dev, tag)
+    # DCGAN's layers at the serving bucket; phase 9 times them
+    for i, l in enumerate(BENCHMARKS["dcgan"]().layers):
+        if l.kind != "deconv":
+            continue
         act = "linear" if i == 3 else "relu"
-        x, w, gamma, bias, p, xq, comb = case(
-            (BUCKET, *l.in_hw, l.cin), (l.k, l.k, l.cin, l.cout), l.s,
-            same_deconv_pads(l.k, l.s), act)
+        *_, p, xq, comb = case((BUCKET, *l.in_hw, l.cin),
+                               (l.k, l.k, l.cin, l.cout), l.s,
+                               same_deconv_pads(l.k, l.s), act)
         check(f"dcgan/{l.name} batch {BUCKET}", xq, p, comb,
               (act, "tanh") if act == "relu" else ("relu", "tanh"))
-        if failures:
-            raise SystemExit(f"chip_smoke: K1 int8 disagrees with its "
-                             f"plain version on {failures}")
-        pf = sd.plan(w.shape, l.s, same_deconv_pads(l.k, l.s),
-                     backend="fused", act=act, device=dev).bind(
-                         w, gamma, bias)
-        x_cf = x.permute(0, 3, 1, 2).contiguous()
-        w_t = torch.randn(l.cin, l.cout, l.k, l.k, device=dev)
-        lib = lambda: F.conv_transpose2d(                 # noqa: E731
-            x_cf, w_t, bias, stride=l.s, padding=2, output_padding=1)
-        y = k1q(xq, p, comb, p.bias, act)
-        assert lib().shape[2:] == y.shape[1:3]
-        t = _time_ms({
-            "k1q": lambda: k1q(xq, p, comb, p.bias, act),
-            "plain": lambda: plain(xq, p, comb, p.bias, act),
-            "k1": lambda: sd.execute(pf, x),
-            "lib": lib})
-        macs = BUCKET * l.macs()
-        nbytes = (xq.numel() + p.ws.numel() + 4 * comb.numel()
-                  + 4 * y.numel())
-        t_bytes = nbytes / PEAK_BYTES * 1e3
-        t_ops = 2.0 * macs / PEAK_INT8_OPS * 1e3
-        t_dp4a = 2.0 * macs / DP4A_OPS * 1e3
-        g = K.launch_geometry(xq.shape, p.ws.shape, p.stride,
-                              geo(p, xq)["pad"], geo(p, xq)["crop"],
-                              geo(p, xq)["out_space"])
-        smem = smem_bytes(FusedGeom(
-            *l.in_hw, l.cin, p.ws.shape[-1], p.kt[0], p.kt[1], l.s, l.s,
-            g.out_h, g.out_w, g.res_h, g.res_w, dtype="int8"), g.plan)
-        # The events above time 20 back-to-back wrapper calls, which the
-        # host bounds where a launch is shorter than its Python (d3); the
-        # profiler reads the kernel's own device time of one call.
-        bd = _device_breakdown(lambda: k1q(xq, p, comb, p.bias, act))
-        dev_ms = None if bd is None else bd[0]
-        ms, lo, hi = t["k1q"]
-        rec = {"layer": f"dcgan/{l.name}", "ms": ms, "device_ms": dev_ms,
-               "ms_min": lo,
-               "ms_max": hi, "plain_ms": t["plain"][0],
-               "k1_f32_ms": t["k1"][0], "library_ms": t["lib"][0],
-               "bound_ms": max(t_ops, t_bytes),
-               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-               "useful_bound_ms": max(t_dp4a, t_bytes), "macs": macs,
-               "bytes": nbytes, "tile": str(g.plan), "smem_bytes": smem,
-               "launches_per_batch": 1}
-        per_layer.append(rec)
-        print(f"  dcgan/{l.name} {tuple(xq.shape)}->{tuple(y.shape)} tile "
-              f"{g.plan}, grid {-(-p.ws.shape[-1] // g.plan.tc)} x "
-              f"{g.nh * g.nw} x {BUCKET} blocks, {smem} B dynamic shared "
-              f"memory per block: K1 int8 {ms:.4f} ms [{lo:.4f}, "
-              f"{hi:.4f}] ({2 * macs / ms / 1e9:.1f} TOP/s; device time of "
-              f"one call in the profiler "
-              f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}"
-              f"), plain "
-              f"{rec['plain_ms']:.4f} ms, K1 f32 {rec['k1_f32_ms']:.4f} ms, "
-              f"conv_transpose2d f32 {rec['library_ms']:.4f} ms; bound "
-              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}; int8 tensor "
-              f"cores {PEAK_INT8_OPS / 1e12:.0f} TOP/s), useful_bound "
-              f"{rec['useful_bound_ms']:.4f} ms (dp4a on the CUDA cores "
-              f"{DP4A_OPS / 1e12:.1f} TOP/s); sm clock, power, temperature "
-              f"{_clocks()} {tag}")
+    if failures:
+        raise SystemExit(f"chip_smoke: K1 int8 disagrees with its plain "
+                         f"version on {failures}")
 
     # ---- serve full-width DCGAN through the int8 server ----------------
     server = GenServer(nets=("dcgan",), device=dev, max_batch=BUCKET,
@@ -1437,23 +1435,13 @@ def _int8_phase(dev, tag, randn) -> dict:
         for kname, ms_k, calls in top:
             print(f"    {ms_k:.4f} ms in {calls} call(s): {kname[:90]}")
 
-    tot = {k: sum(r[k] for r in per_layer)
-           for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                     "useful_bound_ms", "k1_f32_ms", "macs", "bytes")}
     kernel = {
         "name": "sd_fused_int8", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/sd_fused_int8.cu",
         "replaces": "src/repro/kernels/sd_conv.py:352",
         "launches": launches, "max_abs_err": err["scaled"],
-        "max_abs_err_unit_scale": err["unit"],
-        "ms": tot["ms"], "plain_ms": tot["plain_ms"],
-        "bound_ms": tot["bound_ms"],
-        "bound_by": ("operations" if 2.0 * tot["macs"] / PEAK_INT8_OPS
-                     >= tot["bytes"] / PEAK_BYTES else "bytes"),
-        "useful_bound_ms": tot["useful_bound_ms"],
-        "library_ms": None, "f32_library_ms": tot["library_ms"],
-        "k1_f32_ms": tot["k1_f32_ms"]}
-    return {"kernel": kernel, "per_layer": per_layer,
+        "max_abs_err_unit_scale": err["unit"]}
+    return {"kernel": kernel, "saturating": sat,
             "serve": {k: stats[k] for k in ("served", "launches",
                                             "req_per_s", "wall_s",
                                             "latency_ms")},
@@ -1854,6 +1842,27 @@ def _np_chain_epilogue(xq, ws_oc, s, pad, crop, out_space, comb, bias,
     return out
 
 
+def _int_mm_operands(xq, ws, lg):
+    """K1 int8's GEMM as two int8 matrices for ``torch._int_mm``: A (M, K)
+    gathered from the zero-padded input (im2col, made here once, outside
+    the timing), B the filters read as K x N, N zero-padded to a multiple
+    of 8 (``_int_mm`` takes no other)."""
+    import torch
+    import torch.nn.functional as F
+    kth, ktw = ws.shape[:2]
+    r0, c0 = lg.q_h - lg.plo_h, lg.q_w - lg.plo_w
+    lo_h, lo_w = max(0, -r0), max(0, -c0)
+    hi_h = max(0, r0 + lg.mh + kth - 1 - xq.shape[1])
+    hi_w = max(0, c0 + lg.mw + ktw - 1 - xq.shape[2])
+    xp = F.pad(xq, (0, 0, lo_w, hi_w, lo_h, hi_h))
+    r0, c0 = r0 + lo_h, c0 + lo_w
+    a = torch.cat([xp[:, r0 + kh:r0 + kh + lg.mh, c0 + kw:c0 + kw + lg.mw]
+                   for kh in range(kth) for kw in range(ktw)], dim=-1)
+    b = ws.reshape(lg.geom.k, lg.geom.n)
+    return (a.reshape(lg.geom.m, lg.geom.k).contiguous(),
+            F.pad(b, (0, -lg.geom.n % 8)).contiguous())
+
+
 def _chain_phase(dev, tag, randn) -> dict:
     """Phase 9: the calibrated int8 chain.  (a) K1 int8 with a static
     (1, NC) row, int8 out on DCGAN d1/d2 (relu) and f32 out on d3, batch
@@ -1872,6 +1881,7 @@ def _chain_phase(dev, tag, randn) -> dict:
     import tempfile
     import numpy as np
     import torch
+    import torch.nn.functional as F
     import repro_torch.kernels.sd_conv as K
     import repro_torch.sd.functional as SF
     from repro_torch import sd
@@ -1882,7 +1892,7 @@ def _chain_phase(dev, tag, randn) -> dict:
     from repro_torch.core.ssim import ssim
     from repro_torch.kernels import ops
     from repro_torch.kernels import winograd as W
-    from repro_torch.kernels.autotune import KernelPlan
+    from repro_torch.kernels.autotune import GemmPlan, gemm_grid
     from repro_torch.launch.serve_gen import GenServer, serve_async
     from repro_torch.models.generative import GenerativeModel
 
@@ -1951,9 +1961,9 @@ def _chain_phase(dev, tag, randn) -> dict:
                       (l.k, l.k, l.cin, l.cout), l.s,
                       same_deconv_pads(l.k, l.s),
                       "relu" if chain else "linear", chain, 0, None))
-    cases.append(("odd k5 s2 p2 op1 tile 3x2/12/32",
+    cases.append(("odd k5 s2 p2 op1 GemmPlan(64, 4)",
                   (3, 13, 11, 40), (5, 5, 40, 24), 2, 2, "linear", True, 1,
-                  KernelPlan(th=3, tw=2, tcin=12, tc=32)))
+                  GemmPlan(64, 4)))
     failures, checked, max_err = [], {}, 0.0
     for label, sx, wshape, s, pad, act, chain, op, tile in cases:
         x, p, xq, row, bias_l, sx_in = chained_case(
@@ -2148,12 +2158,16 @@ def _chain_phase(dev, tag, randn) -> dict:
                          "per-sample quantization")
 
     # ---- (e) timing: static row vs dynamic, and a batch in turns --------
-    print(f"time: DCGAN layers at batch {BUCKET}, CUDA events: median "
-          f"[min, max] of 7 rounds of 20 warm launches in turns: K1 int8 "
-          f"with the static row (int8 out on d1/d2) / K1 int8 dynamic (B, NC) "
-          f"scale, f32 out / plain version of the static launch; bound at "
-          f"the dense int8 tensor-core peak, useful_bound at the dp4a rate "
-          f"{tag}")
+    print(f"time: DCGAN layers at batch {BUCKET}, in turns: K1 int8 with the "
+          f"static row (int8 out on d1/d2) / K1 int8 with the dynamic (B, "
+          f"NC) scale, f32 out / K1 f32 / conv_transpose2d f32 (TF32 off; a "
+          f"float yardstick) / the plain version of the static launch / "
+          f"torch._int_mm on the GEMM's M x K x N operands (im2col left out, "
+          f"N padded to a multiple of 8: a yardstick of cuBLASLt's int8 "
+          f"GEMM rate, not the same function): device ms of one call (ahead "
+          f"events; the profiler's median of 3 beside) and CUDA events over "
+          f"20 back-to-back calls (median [min, max] of 7 rounds); bound at "
+          f"the dense int8 tensor-core peak {tag}")
     per_layer = []
     for i, l in dcgan:
         _, p, xq, row, bias_l, act, od, _ = checked[f"dcgan/{l.name}"]
@@ -2161,50 +2175,106 @@ def _chain_phase(dev, tag, randn) -> dict:
         xq_d, sxs = quantize_act(x_dyn)
         comb_d = (sxs[:, None] * p.wscale[None, :]).contiguous()
         g = geo(p, xq)
-        t = _time_ms({
+        lg = K.gemm_launch(xq.shape, p.ws.shape, p.stride, g["pad"],
+                           g["crop"], g["out_space"], dtype="int8")
+        pf = sd.plan((l.k, l.k, l.cin, l.cout), l.s,
+                     same_deconv_pads(l.k, l.s), backend="fused", act=act,
+                     device=dev).bind(randn(l.k, l.k, l.cin, l.cout,
+                                            scale=0.05), None, p.bias)
+        x_cf = x_dyn.permute(0, 3, 1, 2).contiguous()
+        w_t = randn(l.cin, l.cout, l.k, l.k, scale=0.05)
+        a_mat, b_mat = _int_mm_operands(xq, p.ws, lg)
+        fns = {
             "static": lambda: k1q(xq, p, row, bias_l, act, od),
             "dynamic": lambda: k1q(xq_d, p, comb_d, p.bias, act, None),
+            "k1_f32": lambda: sd.execute(pf, x_dyn),
+            "lib": lambda: F.conv_transpose2d(
+                x_cf, w_t, p.bias, stride=l.s, padding=2, output_padding=1),
             "plain": lambda: K.sd_fused_ref(xq, p.ws, p.stride, bias=bias_l,
-                                            act=act, scale=row,
-                                            out_dtype=od, **g)})
-        # one profiled call each; the profiler has come back without
-        # device time on a first call, so each gets a second chance
-        bd_s, bd_d = (_device_breakdown(f) or _device_breakdown(f) for f in (
-            lambda: k1q(xq, p, row, bias_l, act, od),
-            lambda: k1q(xq_d, p, comb_d, p.bias, act, None)))
-        y = k1q(xq, p, row, bias_l, act, od)
+                                            act=act, scale=row, out_dtype=od,
+                                            **g),
+            "int_mm": lambda: torch._int_mm(a_mat, b_mat)}
+        # the int_mm operands are the kernel's GEMM: its exact sums
+        prod = fns["int_mm"]()[:, :lg.geom.n].double()
+        im_ok = torch.equal(prod, a_mat.double() @ b_mat[:, :lg.geom.n]
+                            .double())
+        t = _time_ms(fns)
+        dv = {n: _device_ms(f) for n, f in fns.items()}
+        # int8 out against f32 out of the same static launch: the
+        # scattered single-byte stores' cost over 4-byte ones
+        st_f32 = (_device_ms(lambda: k1q(xq, p, row, bias_l, act, None))
+                  if od is not None else None)
+        y = fns["static"]()
         macs = BUCKET * l.macs()
         nbytes = (xq.numel() + p.ws.numel() + 4 * row.numel()
                   + 4 * bias_l.numel() + y.numel() * y.element_size())
         t_bytes = nbytes / PEAK_BYTES * 1e3
         t_ops = 2.0 * macs / PEAK_INT8_OPS * 1e3
-        ms, lo, hi = t["static"]
-        lg = K.launch_geometry(xq.shape, p.ws.shape, p.stride, g["pad"],
-                               g["crop"], g["out_space"])
+        grid = gemm_grid(lg.geom, lg.plan)
         rec = {"layer": f"dcgan/{l.name}", "out": str(y.dtype),
-               "ms": ms, "ms_min": lo, "ms_max": hi,
-               "device_ms": None if bd_s is None else bd_s[0],
-               "dynamic_ms": t["dynamic"][0],
-               "dynamic_device_ms": None if bd_d is None else bd_d[0],
-               "plain_ms": t["plain"][0], "library_ms": None,
+               "ms": dv["static"][1], "profiler_ms": dv["static"][0],
+               "events_ms": t["static"][0], "events_ms_min": t["static"][1],
+               "events_ms_max": t["static"][2],
+               "dynamic_ms": dv["dynamic"][1],
+               "dynamic_profiler_ms": dv["dynamic"][0],
+               "dynamic_events_ms": t["dynamic"][0],
+               "k1_f32_ms": dv["k1_f32"][1],
+               "k1_f32_profiler_ms": dv["k1_f32"][0],
+               "f32_library_ms": dv["lib"][1],
+               "f32_library_profiler_ms": dv["lib"][0],
+               "plain_ms": dv["plain"][1], "plain_events_ms": t["plain"][0],
+               "int_mm_ms": dv["int_mm"][1],
+               "int_mm_profiler_ms": dv["int_mm"][0],
+               "int_mm_shape": [*a_mat.shape, b_mat.shape[1]],
+               "int_mm_exact": im_ok, "library_ms": None,
+               "static_f32_out_ms": None if st_f32 is None else st_f32[1],
+               "static_f32_out_profiler_ms":
+                   None if st_f32 is None else st_f32[0],
                "bound_ms": max(t_ops, t_bytes),
                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-               "useful_bound_ms": max(2.0 * macs / DP4A_OPS * 1e3, t_bytes),
-               "macs": macs, "bytes": nbytes, "tile": str(lg.plan),
-               "launches_per_batch": 1}
+               "macs": macs, "bytes": nbytes, "plan": str(lg.plan),
+               "grid": list(grid), "launches_per_batch": 1}
         per_layer.append(rec)
-        dev_s = ("not measured" if rec["device_ms"] is None
-                 else f"{rec['device_ms']:.4f} ms")
-        dev_d = ("not measured" if rec["dynamic_device_ms"] is None
-                 else f"{rec['dynamic_device_ms']:.4f} ms")
+        stores = ("" if st_f32 is None else
+                  f"; the same static launch with f32 out: device "
+                  f"{st_f32[1]:.4f} ms (profiler {_ms_txt(st_f32[0])})")
         print(f"  dcgan/{l.name} {tuple(xq.shape)}->{tuple(y.shape)} "
-              f"{rec['out'].replace('torch.', '')} out, tile {lg.plan}: "
-              f"static row {ms:.4f} ms [{lo:.4f}, {hi:.4f}] (device time of "
-              f"one call {dev_s}), dynamic {rec['dynamic_ms']:.4f} ms (device "
-              f"time of one call {dev_d}), plain {rec['plain_ms']:.4f} ms; "
-              f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}, "
-              f"{nbytes} bytes), useful_bound {rec['useful_bound_ms']:.4f} ms "
-              f"(dp4a); sm clock, power, temperature {_clocks()} {tag}")
+              f"{rec['out'].replace('torch.', '')} out, {lg.plan}, grid "
+              f"{grid[0]} x {grid[1]} x {grid[2]}: static row device "
+              f"{rec['ms']:.4f} ms (profiler {_ms_txt(rec['profiler_ms'])}; "
+              f"events {rec['events_ms']:.4f} [{rec['events_ms_min']:.4f}, "
+              f"{rec['events_ms_max']:.4f}]), dynamic device "
+              f"{rec['dynamic_ms']:.4f} ms (profiler "
+              f"{_ms_txt(rec['dynamic_profiler_ms'])}; events "
+              f"{rec['dynamic_events_ms']:.4f}), K1 f32 "
+              f"{rec['k1_f32_ms']:.4f} (profiler "
+              f"{_ms_txt(rec['k1_f32_profiler_ms'])}), conv_transpose2d f32 "
+              f"{rec['f32_library_ms']:.4f} (profiler "
+              f"{_ms_txt(rec['f32_library_profiler_ms'])}), plain "
+              f"{rec['plain_ms']:.4f}, torch._int_mm "
+              f"{' x '.join(map(str, rec['int_mm_shape']))} "
+              f"{rec['int_mm_ms']:.4f} (profiler "
+              f"{_ms_txt(rec['int_mm_profiler_ms'])}; its sums "
+              f"{'equal' if im_ok else 'DIFFER FROM'} the f64 product){stores}"
+              f"; bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}, "
+              f"{nbytes} bytes); sm clock, power, temperature {_clocks()} "
+              f"{tag}")
+        if not im_ok:
+            raise SystemExit("chip_smoke: the torch._int_mm yardstick's "
+                             "operands are not the kernel's GEMM")
+    d1 = per_layer[0]
+    for name in ("", "dynamic_"):
+        prof = d1[f"{name}profiler_ms"]
+        gate_ms = prof if prof is not None else d1[f"{name}ms"]
+        ok = gate_ms <= K1_INT8_D1_MS_LIMIT
+        what = ("dynamic (B, NC) scale, f32 out" if name
+                else "static row, int8 out")
+        print(f"gate: K1 int8 ({what}) on dcgan/d1 at batch {BUCKET}: {gate_ms:.4f} ms of device "
+              f"time ({'profiler' if prof is not None else 'ahead events'}), "
+              f"limit {K1_INT8_D1_MS_LIMIT} ms {'ok' if ok else 'FAIL'} {tag}")
+        if not ok:
+            raise SystemExit("chip_smoke: K1 int8 on DCGAN d1 is over its "
+                             "time limit")
 
     dyn = GenServer(nets=("dcgan",), device=dev, max_batch=BUCKET,
                     seed=SEED, dtype="int8")
@@ -2292,16 +2362,23 @@ def _chain_phase(dev, tag, randn) -> dict:
     if not ok:
         raise SystemExit("chip_smoke: calibrated VoxGAN serving failed")
 
-    tot = {k: sum(r[k] for r in per_layer)
-           for k in ("ms", "plain_ms", "bound_ms", "useful_bound_ms",
-                     "dynamic_ms", "macs", "bytes")}
+    tot = {k: _total(r[k] for r in per_layer)
+           for k in ("ms", "profiler_ms", "events_ms", "plain_ms",
+                     "plain_events_ms", "bound_ms", "dynamic_ms",
+                     "dynamic_profiler_ms", "k1_f32_ms", "f32_library_ms",
+                     "int_mm_ms", "macs", "bytes")}
     record = {
         "launches": launches, "max_abs_err": max_err, "ms": tot["ms"],
-        "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+        "profiler_ms": tot["profiler_ms"], "events_ms": tot["events_ms"],
+        "plain_ms": tot["plain_ms"],
+        "plain_events_ms": tot["plain_events_ms"],
+        "bound_ms": tot["bound_ms"],
         "bound_by": ("operations" if 2.0 * tot["macs"] / PEAK_INT8_OPS
                      >= tot["bytes"] / PEAK_BYTES else "bytes"),
-        "useful_bound_ms": tot["useful_bound_ms"], "library_ms": None,
-        "ms_dynamic_same_rounds": tot["dynamic_ms"]}
+        "library_ms": None, "f32_library_ms": tot["f32_library_ms"],
+        "k1_f32_ms": tot["k1_f32_ms"], "int_mm_ms": tot["int_mm_ms"],
+        "ms_dynamic_same_rounds": tot["dynamic_ms"],
+        "profiler_ms_dynamic_same_rounds": tot["dynamic_profiler_ms"]}
     return {"record": record, "per_layer": per_layer,
             "scales": scales, "code_diff": code_diff,
             "serve": {k: stats[k] for k in ("served", "launches",
@@ -2319,8 +2396,9 @@ def _chain_phase(dev, tag, randn) -> dict:
 
 def _sass_counts(path, kernel: str) -> dict:
     """Counts of tensor-core (HGMMA: wgmma; HMMA: mma.sync, and
-    HMMA_TF32 those of them on TF32 operands) and TMA-load (UTMALDG)
-    instructions in the SASS of every function of the library at
+    HMMA_TF32 those of them on TF32 operands; IMMA: integer mma.sync),
+    dp4a (IDP.4A) and TMA-load (UTMALDG) instructions in the SASS of
+    every function of the library at
     ``path`` whose (mangled) name holds ``kernel``, from ``cuobjdump
     -sass``."""
     import shutil
@@ -2330,14 +2408,14 @@ def _sass_counts(path, kernel: str) -> dict:
     if out.returncode != 0:
         raise SystemExit(f"chip_smoke: cuobjdump failed: {out.stderr}")
     counts = {"functions": 0, "HGMMA": 0, "UTMALDG": 0, "HMMA": 0,
-              "HMMA_TF32": 0}
+              "HMMA_TF32": 0, "IMMA": 0, "IDP.4A": 0}
     inside = False
     for line in out.stdout.splitlines():
         if "Function :" in line:
             inside = kernel in line
             counts["functions"] += inside
         elif inside:
-            for op in ("HGMMA", "UTMALDG", "HMMA"):
+            for op in ("HGMMA", "UTMALDG", "HMMA", "IMMA", "IDP.4A"):
                 counts[op] += f" {op}." in line or f" {op} " in line
             counts["HMMA_TF32"] += " HMMA." in line and ".TF32" in line
     return counts
@@ -2775,6 +2853,14 @@ def main(json_path: str = "") -> int:
               f"on TF32 operands (HMMA...TF32) {tag}")
         if not (sass[name]["functions"] and sass[name]["HMMA_TF32"]):
             raise SystemExit(f"chip_smoke: {label} has no TF32 HMMA")
+    sass["sd_fused_int8"] = q = _sass_counts(builds["sd_fused_int8"].path,
+                                             "igemm_kernel")
+    print(f"sass: K1 int8 ({q['functions']} instantiations of igemm_kernel "
+          f"in {builds['sd_fused_int8'].path.name}): {q['IMMA']} IMMA (s8 "
+          f"mma.sync), {q['IDP.4A']} IDP.4A (dp4a) {tag}")
+    if not (q["functions"] and q["IMMA"]) or q["IDP.4A"]:
+        raise SystemExit("chip_smoke: K1 int8 does not run on the s8 tensor "
+                         "cores alone (IMMA > 0, IDP.4A = 0)")
 
     # ---- 2. per-layer check against the plain version ------------------
     gen = torch.Generator().manual_seed(SEED)
@@ -3157,11 +3243,12 @@ def main(json_path: str = "") -> int:
         if k["name"] == "sd_conv":
             k["launches_serve_3d"] = nd["k2_launches_serve_3d"]
         if k["name"] == "sd_fused_int8":
+            k["sass_imma"] = sass["sd_fused_int8"]["IMMA"]
+            k["sass_idp4a"] = sass["sd_fused_int8"]["IDP.4A"]
             # complete since the calibrated half: the main numbers are
-            # phase 9's (static row, int8 out), phase 7's kept beside them
-            dyn = {f"{n}_dynamic": k[n] for n in (
-                "launches", "ms", "plain_ms", "bound_ms", "useful_bound_ms")}
-            k.update(chain["record"], **dyn, complete=True,
+            # phase 9's (static row, int8 out), phase 7's launches beside
+            k.update(chain["record"], launches_dynamic=k["launches"],
+                     complete=True,
                      max_abs_err=max(k["max_abs_err"],
                                      chain["record"]["max_abs_err"]))
     report = {"card": card, "kernels": kernels,
@@ -3199,7 +3286,11 @@ def main(json_path: str = "") -> int:
           f"launches_serve; K4's in the winograd serving run; K1 int8's "
           f"launches and ms/plain_ms/bound_ms from phase 9 (the calibrated "
           f"serving run; the static-row launches summed over DCGAN's three "
-          f"layers), phase 7's dynamic ones as *_dynamic; K2's f32 VoxGAN "
+          f"layers, ms and plain_ms device time by ahead events as for "
+          f"K1-K4, int_mm_ms torch._int_mm on the same GEMM operands), "
+          f"phase 7's dynamic serving run as launches_dynamic, the dynamic "
+          f"launch's device ms in the same rounds as "
+          f"ms_dynamic_same_rounds; K2's f32 VoxGAN "
           f"serving run as "
           f"launches_serve_3d; K2 int8's ms/plain_ms/bound_ms summed over "
           f"VoxGAN's three tap convs at batch {BUCKET}, its launches in the "

@@ -1,21 +1,24 @@
-"""Tile sweep of the port's float GEMM-shaped kernels on one NVIDIA GPU:
-K1's float branch and K2 in f32 (the implicit GEMM), K3 (the filter
-grad on the same tiles) and K4 (the Winograd split deconv).
+"""Tile sweep of the port's GEMM-shaped kernels on one NVIDIA GPU: K1's
+float and int8 branches and K2 in f32 (the implicit GEMM), K3 (the
+filter grad on the same tiles) and K4 (the Winograd split deconv).
 
 For each DCGAN deconv layer at the serving bucket (batch 16) it times K1
-(the fused split deconv, f32), K2 (the stride-1 conv of the backward's
-input grad, dx) and K3 (the backward's filter grad, dw) on every forced
-``GemmPlan(bn, splits)`` the kernel takes (``bn`` in ``GEMM_BN``; splits
-up to 16 for K1/K2 and up to 192 for K3 while each split keeps a
-k-tile), and K4 (f32) on a set of ``WinoPlan``s (channel tiles 16 and
-32, whole samples and bands of tiles), in device time: CUDA events over
-20 calls queued behind ``torch.cuda._sleep`` (chip_smoke's
-``_ahead_ms``), the median of 3.  Per case it prints each plan's grid
-and time, the default plan's (``gemm_plan``, ``filter_grad_plan``,
-``wino_plan``), and the best plans with their block counts: the data
-that the default rules rest on (``GEMM_WAVES`` / ``DW_WAVES`` blocks
-per SM).  It also times K1 in bf16 (one tensor-core pass instead of
-3xTF32's three) on the default plan.
+(the fused split deconv, f32), K1 int8 (the same launch on int8 codes
+with the dynamic (B, NC) scale, on the s8 tensor cores), K2 (the
+stride-1 conv of the backward's input grad, dx) and K3 (the backward's
+filter grad, dw) on every forced ``GemmPlan(bn, splits)`` the kernel
+takes (``bn`` in ``GEMM_BN``; splits up to 16 for K1/K2 and up to 192
+for K3 while each split keeps a k-tile), and K4 (f32) on a set of
+``WinoPlan``s (channel tiles 16 and 32, whole samples and bands of
+tiles), in device time: CUDA events over 20 calls queued behind
+``torch.cuda._sleep`` (chip_smoke's ``_ahead_ms``), the median of 3.
+Every plan's output is held to the default plan's (f32 gate; int8
+bit-identical).  Per case it prints each plan's grid and time, the
+default plan's (``gemm_plan``, ``filter_grad_plan``, ``wino_plan``),
+the best plans with their block counts and the default's time over the
+best's: the data that the default rules rest on (``GEMM_WAVES`` /
+``DW_WAVES`` blocks per SM).  It also times K1 in bf16 (one tensor-core
+pass instead of 3xTF32's three) on the default plan.
 
 Run from the repo root on a machine with a CUDA card::
 
@@ -53,6 +56,7 @@ def sweep(dev, time_ms, card: str) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.kernels import sd_conv as K
     from repro_torch.kernels import winograd as W
+    from repro_torch.core.quant import quantize_act
     from repro_torch.kernels.autotune import (GEMM_BN, ConvGeom,
                                               FilterGradGeom, GemmPlan,
                                               WinoPlan, check_wino_plan,
@@ -138,8 +142,25 @@ def sweep(dev, time_ms, card: str) -> dict:
                 x, pw.ws, pw.kernel, pw.stride, pw.padding, bias=pw.bias,
                 act=pw.act, plan=plan)
 
+        p8 = sd.plan(w.shape, l.s, pads, backend="fused", act="relu",
+                     dtype="int8", device=dev).bind(w, None, p.bias)
+        xq, sxs = quantize_act(x)
+        comb = (sxs[:, None] * p8.wscale[None, :]).contiguous()
+        g1q = K.gemm_launch(xq.shape, p8.ws.shape, p8.stride,
+                            tuple((q, q) for q in p8.pi),
+                            (p8.pk[0] + p8.padding[0][0],
+                             p8.pk[1] + p8.padding[1][0]),
+                            p8.out_shape(x.shape[1:3]), dtype="int8").geom
+
+        def k1q(plan, xq=xq, p8=p8, comb=comb):
+            return ops.sd_deconv_presplit_fused(
+                xq, p8.ws, p8.kernel, p8.stride, p8.padding, bias=p8.bias,
+                act=p8.act, scale=comb, plan=plan)
+
         cases.append((f"K1 dcgan/{l.name}", g1, k1, gemm_plan(g1),
                       gemm_plans(g1, SPLITS), (x, p)))
+        cases.append((f"K1 int8 dcgan/{l.name}", g1q, k1q, gemm_plan(g1q),
+                      gemm_plans(g1q, SPLITS), None))
         cases.append((f"K2 dx dcgan/{l.name}", g2, k2, gemm_plan(g2),
                       gemm_plans(g2, SPLITS), None))
         cases.append((f"K3 dw dcgan/{l.name}", g3.as_gemm(), k3,
@@ -154,9 +175,11 @@ def sweep(dev, time_ms, card: str) -> dict:
         ref = fn(default)
         rows = []
         for plan in plans:
-            # every plan computes the same sums in another order
+            # every plan computes the same sums in another order; int8's
+            # are exact, so its plans agree bit for bit
             d = (fn(plan) - ref).abs().max().item()
-            tol = 1e-4 * max(1.0, ref.abs().max().item())
+            tol = (0.0 if name.startswith("K1 int8") else
+                   1e-4 * max(1.0, ref.abs().max().item()))
             if not d <= tol:
                 raise RuntimeError(f"{name} {plan} differs by {d}")
             rows.append({"plan": str(plan),
@@ -178,8 +201,10 @@ def sweep(dev, time_ms, card: str) -> dict:
                 if r["plan"] == str(GemmPlan(default.bn, 1)))
             one = (f"; one split at bn {default.bn} "
                    f"{rec['splits_1_ms']:.4f} ms")
+        rec["default_over_best"] = dms / rows[0]["ms"]
         print(f"{name}: {geom}; default {default} "
-              f"{rec['default']['blocks']} blocks {dms:.4f} ms; best "
+              f"{rec['default']['blocks']} blocks {dms:.4f} ms, "
+              f"{rec['default_over_best']:.3f}x the best; best "
               f"{best}{one} [device ms, {card}]")
         if bf16 is not None:
             x, p = bf16

@@ -6,6 +6,11 @@ reference's at every public function: activations channels-last
 channels-first layout happens only inside the calls to ``F.conv*``.
 Every function is rank-polymorphic over the spatial rank ``d in {1, 2,
 3}``, inferred from the tensors; scalar geometry arguments mean 2-D.
+Every convolution here (:func:`native_deconv`, :func:`conv_valid`,
+:func:`conv_nd`) runs in full f32 on the card, forward and backward,
+whatever the process set: PyTorch lets cuDNN round f32 operands to TF32
+by default (``torch.backends.cudnn.allow_tf32``), about 1e-3 relative,
+which the reference's f32 gates do not allow (:class:`_FullF32Conv`).
 
 The transposed convolution computed is
 
@@ -20,15 +25,60 @@ derivation.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
-_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
-_CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
-           3: F.conv_transpose3d}
+
+@contextlib.contextmanager
+def _no_tf32():
+    """cuDNN's TF32 off inside the block, the caller's setting after."""
+    cudnn = torch.backends.cudnn
+    prev = cudnn.allow_tf32
+    cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32 = prev
+
+
+class _FullF32Conv(torch.autograd.Function):
+    """``torch.convolution`` with no pad, bias or groups (``transposed``
+    for the adjoint), run with cuDNN's TF32 off in the forward and in the
+    backward.  A plain call would be pinned only while it runs: autograd
+    reads the flag again when the backward runs, so the backward is
+    ``convolution_backward`` (what autograd itself would call) under the
+    same pin."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride, transposed):
+        ctx.save_for_backward(x, w)
+        ctx.geom = (stride, transposed)
+        r = len(stride)
+        with _no_tf32():
+            return torch.convolution(x, w, None, stride, [0] * r, [1] * r,
+                                     transposed, [0] * r, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        stride, transposed = ctx.geom
+        r = len(stride)
+        with _no_tf32():
+            gx, gw, _ = torch.ops.aten.convolution_backward(
+                g, x, w, None, stride, [0] * r, [1] * r, transposed,
+                [0] * r, 1, [*ctx.needs_input_grad[:2], False])
+        return gx, gw, None, None
+
+
+def _conv(x_cf: torch.Tensor, w: torch.Tensor, stride=None,
+          transposed: bool = False) -> torch.Tensor:
+    """Unpadded channels-first conv (or its adjoint) in full f32."""
+    stride = list(stride or (1,) * (w.ndim - 2))
+    return _FullF32Conv.apply(x_cf, w, stride, transposed)
 
 
 # ---------------------------------------------------------------------------
@@ -163,7 +213,7 @@ def native_deconv(x: torch.Tensor, w: torch.Tensor, stride,
     _check_padding(k, padding)
     _check_output_padding(op, s)
     wt = w.permute(rank, rank + 1, *range(rank))            # (Cin,Cout,*K)
-    full = _from_cf(_CONV_T[rank](_to_cf(x), wt, stride=s))
+    full = _from_cf(_conv(_to_cf(x), wt, s, transposed=True))
     out_space = deconv_output_shape(x.shape[1:1 + rank], k, s, padding,
                                     output_padding)
     return crop_interleaved(full, (0,) * rank, pads, out_space)
@@ -273,8 +323,7 @@ def crop_interleaved(ps: torch.Tensor, pk, pads,
 
 def conv_valid(xp: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Stride-1 VALID channels-last conv, any rank."""
-    rank = w.ndim - 2
-    return _from_cf(_CONV[rank](_to_cf(xp), _filter_oi(w)))
+    return _from_cf(_conv(_to_cf(xp), _filter_oi(w)))
 
 
 def conv_valid_filter_grad(xp: torch.Tensor,
@@ -350,4 +399,4 @@ def conv_nd(x: torch.Tensor, w: torch.Tensor, stride=1,
     for lo, hi in reversed(pads):
         pad += [lo, hi]
     xp = F.pad(x, pad)
-    return _from_cf(_CONV[rank](_to_cf(xp), _filter_oi(w), stride=s))
+    return _from_cf(_conv(_to_cf(xp), _filter_oi(w), s))

@@ -1,8 +1,8 @@
-"""Tile plans for the port's kernels on Hopper: the float stride-1 convs
-on the shared implicit-GEMM mainloop (K1's float branch and K2 in f32,
-:class:`GemmPlan`, :func:`gemm_plan`) and the filter grad on the same
-tile shapes (K3, :func:`filter_grad_plan`), the int8 branches of K1 and
-K2 (:class:`KernelPlan`, :func:`heuristic_plan`, :func:`conv_plan`), and
+"""Tile plans for the port's kernels on Hopper: the stride-1 convs on
+the shared implicit-GEMM mainloop (K1's float and int8 branches and K2
+in f32, :class:`GemmPlan`, :func:`gemm_plan`) and the filter grad on the
+same tile shapes (K3, :func:`filter_grad_plan`), K2's int8 pair
+(:class:`KernelPlan`, :func:`heuristic_plan`, :func:`conv_plan`), and
 the Winograd split conv (K4, :class:`WinoPlan`, :func:`wino_plan`).
 
 The JAX package sizes its Pallas tiles against an 8 MiB VMEM model; on
@@ -10,7 +10,7 @@ the H100 the limit is the shared memory one block can use (227 KB) and,
 in practice, filling the 132 SMs.  Every plan here is a heuristic from
 the launch geometry alone; measuring and caching tiles comes later.
 
-A :class:`KernelPlan` block (K1 int8, K2 int8) of :data:`THREADS`
+A :class:`KernelPlan` block (K2's int8 pair) of :data:`THREADS`
 threads computes ``(th + res_h>0) x (tw + res_w>0)`` conv positions (the
 extra row/col feeds the residual crop) times ``tc`` phase channels:
 ``tc / MICRO`` threads along the channels, the rest along the positions,
@@ -22,7 +22,7 @@ quant branch and K2's int8 pair, ``""`` for float: the f32
 :class:`ConvGeom` that :meth:`ConvGeom.as_gemm` turns into a GEMM), so
 the float and the int8 launch of one layer are distinct geometries (a
 geometry is its own tile key).  :func:`smem_bytes` and
-:func:`heuristic_plan` size the int8 blocks alone and refuse a float
+:func:`heuristic_plan` size K2's int8 blocks alone and refuse a float
 geometry.
 """
 
@@ -175,17 +175,21 @@ SMS = 132                      # H100 SXM streaming multiprocessors
 
 
 # ---------------------------------------------------------------------------
-# K1's float branch and K2 in f32: one implicit GEMM (csrc/sd_igemm.cuh),
-# M conv positions x N output (phase) channels x K = KTh*KTw*Cin, on the
-# tensor cores in 3xTF32 (bf16: one pass).
+# K1's float and int8 branches and K2 in f32: one implicit GEMM
+# (csrc/sd_igemm.cuh), M conv positions x N output (phase) channels x K =
+# KTh*KTw*Cin, on the tensor cores in 3xTF32 (bf16: one pass; int8: one
+# s8 pass into int32).
 # ---------------------------------------------------------------------------
 
 GEMM_BM = 64                   # GEMM rows (conv positions) per block
-GEMM_BK = 32                   # K per pipeline stage (both the kernel's)
+GEMM_BK = 32                   # K per pipeline stage, f32 and bf16 (kBK)
+GEMM_BK_INT8 = 64              # K per stage, int8: 64-byte rows, two
+                               # m16n8k32 steps (the kernel's kBK8)
 GEMM_BN = (16, 32, 64)         # GEMM columns per block
+GEMM_BN_INT8 = 32              # int8's widest default column tile
 GEMM_STAGES = 3                # cp.async ring depth (the kernel's kStages)
 GEMM_THREADS = 128             # 4 warps
-GEMM_MIN_SPLIT_TILES = 4       # least k-tiles (of GEMM_BK) one split sums
+GEMM_MIN_SPLIT_TILES = 4       # least k-tiles one split sums
 GEMM_WAVES = 4                 # blocks wanted per SM (split-K fills to it)
 GRID_YZ_MAX = 65535            # grid.y (column tiles) and grid.z (splits)
 
@@ -194,7 +198,7 @@ GRID_YZ_MAX = 65535            # grid.y (column tiles) and grid.z (splits)
 class GemmGeom:
     """What the GEMM launches: ``m = B * positions``, ``n`` output (phase)
     channels, ``k = KTh * KTw * Cin``, and the operand dtype (``""`` f32,
-    ``"bf16"``)."""
+    ``"bf16"``, ``"int8"``)."""
     m: int
     n: int
     k: int
@@ -202,13 +206,19 @@ class GemmGeom:
 
     @property
     def itemsize(self) -> int:
-        return 2 if self.dtype == "bf16" else 4
+        return {"bf16": 2, "int8": 1}.get(self.dtype, 4)
+
+    @property
+    def bk(self) -> int:
+        """K per k-tile: :data:`GEMM_BK_INT8` for int8, else
+        :data:`GEMM_BK`."""
+        return GEMM_BK_INT8 if self.dtype == "int8" else GEMM_BK
 
 
 @dataclass(frozen=True)
 class GemmPlan:
     """Tile of one GEMM launch: :data:`GEMM_BM` x ``bn`` outputs per
-    block, :data:`GEMM_BK` of the contraction per stage of the kernel's
+    block, :attr:`GemmGeom.bk` of the contraction per stage of the kernel's
     :data:`GEMM_STAGES`-deep cp.async ring, and the contraction cut into
     ``splits`` runs of whole k-tiles (split-K; the last may be shorter),
     summed in split order by a second kernel."""
@@ -217,7 +227,7 @@ class GemmPlan:
 
 
 def gemm_k_tiles(geom: GemmGeom) -> int:
-    return -(-geom.k // GEMM_BK)
+    return -(-geom.k // geom.bk)
 
 
 def gemm_split_tiles(geom: GemmGeom, plan: GemmPlan) -> int:
@@ -233,12 +243,18 @@ def gemm_grid(geom: GemmGeom, plan: GemmPlan):
 def gemm_smem_bytes(geom: GemmGeom, plan: GemmPlan) -> int:
     """Dynamic shared memory of one block: three ints per tile row (its
     sample's ``b*H`` and the input row / col of tap (0, 0)) and
-    :data:`GEMM_STAGES` of the A tile ``(GEMM_BM, GEMM_BK + pad)`` and the
-    B tile ``(GEMM_BK, bn + 8)``.  The row pads keep fragment loads free of
+    :data:`GEMM_STAGES` of the A tile ``(GEMM_BM, bk + pad)`` and the B
+    tile ``(bk, bn + pad)``.  The row pads keep fragment loads free of
     bank conflicts: 4 words for f32 A, 8 bf16 elements for bf16 A
-    (16-byte rows)."""
-    a_row = GEMM_BK + (8 if geom.dtype == "bf16" else 4)
-    stage = GEMM_BM * a_row + GEMM_BK * (plan.bn + 8)
+    (16-byte rows), 8 elements for float B; int8 rows take 16 bytes (A:
+    80-byte rows, so ldmatrix's eight row reads hit distinct banks; both
+    16-byte multiples, as its 16-byte copies need)."""
+    if geom.dtype == "int8":
+        a_row, b_row = GEMM_BK_INT8 + 16, plan.bn + 16
+    else:
+        a_row = GEMM_BK + (8 if geom.dtype == "bf16" else 4)
+        b_row = plan.bn + 8
+    stage = GEMM_BM * a_row + geom.bk * b_row
     return 3 * GEMM_BM * 4 + GEMM_STAGES * stage * geom.itemsize
 
 
@@ -259,14 +275,19 @@ def check_gemm_plan(geom: GemmGeom, plan: GemmPlan) -> None:
 
 def gemm_plan(geom: GemmGeom, waves: int = GEMM_WAVES) -> GemmPlan:
     """Untuned default.  Column tile: the smallest of :data:`GEMM_BN`
-    that holds every column, else the largest.  Split-K where the output
+    that holds every column, else the largest (for int8 at most
+    :data:`GEMM_BN_INT8`: on DCGAN d1 and d2 at batch 16 the fastest
+    int8 plans are 32 columns wide and a 64-column default took 1.16x
+    and 1.32x their time, where the float GEMM's fastest are 64 wide;
+    ``gemm_sweep.py`` on an H100).  Split-K where the output
     tiles are fewer than ``waves`` blocks per SM (:data:`GEMM_WAVES`: four
     4-warp blocks of a 3-stage ring fit an SM's shared memory, and the
     card hides its latencies only with several resident): ``want = waves
     * SMS // tiles`` splits of ``k_tiles // want`` k-tiles each (none
     empty, at least ``want`` of them), but none shorter than
     :data:`GEMM_MIN_SPLIT_TILES`."""
-    bn = next((b for b in GEMM_BN if b >= geom.n), GEMM_BN[-1])
+    widest = GEMM_BN_INT8 if geom.dtype == "int8" else GEMM_BN[-1]
+    bn = next(b for b in GEMM_BN if b >= min(geom.n, widest))
     tiles = -(-geom.m // GEMM_BM) * -(-geom.n // bn)
     want = max(1, waves * SMS // tiles)
     k_tiles = gemm_k_tiles(geom)

@@ -1,7 +1,8 @@
-// Implicit-GEMM mainloop for the port's float stride-1 convolutions on
-// Hopper (sm_90a): 3xTF32 on the tensor cores, shared by K2 (sd_conv.cu,
-// f32) and the float branch of K1 (sd_fused.cu, f32 and bf16).  Each
-// .cu adds its own epilogue functor and C entry point.
+// Implicit-GEMM mainloop for the port's stride-1 convolutions on Hopper
+// (sm_90a), shared by K2 (sd_conv.cu, f32: 3xTF32 on the tensor cores),
+// the float branch of K1 (sd_fused.cu, f32 and bf16) and K1's int8
+// branch (sd_fused_int8.cu: s8 tensor cores, exact int32 sums).  Each .cu
+// adds its own epilogue functor and C entry point.
 //
 // The GEMM.  A stride-1 conv over a zero-padded NHWC input x (B, H, W,
 // Cin) with (KTh, KTw, Cin, N) filters is
@@ -64,6 +65,28 @@
 //     split the epilogue runs in the GEMM kernel and there is no
 //     workspace.
 //
+// The int8 path (T = int8_t) runs the same tiles, ring and split-K on
+// mma.sync.m16n8k32 s8 x s8 -> s32:
+//   * one pass into int32 accumulators, kept in registers for the whole
+//     K loop: integer sums are exact, so there is no hi/lo split and no
+//     per-k-tile promotion (the wrapper refuses a Cin*KTh*KTw*127^2 that
+//     could reach 2^31, and every partial sums fewer terms); split-K
+//     partials are int32 slabs summed in split order like the f32 ones;
+//   * a k-tile is 64 bytes deep (kBK8: two m16n8k32 steps per stage);
+//     copies are 16 bytes where Cin (for A) or N (for B) is a multiple of
+//     16, 4 bytes where it is a multiple of 4, else plain byte loads
+//     (cp.async has no 1- or 2-byte size); A rows are padded to 80 bytes,
+//     so that ldmatrix.x4's eight 16-byte row reads of a phase hit
+//     distinct banks, and it then gives the A fragment exactly;
+//   * B lies K x N with N contiguous, but an s8 B register holds four
+//     consecutive k of one column, and ldmatrix.trans moves 16-bit
+//     elements only.  So each thread reads its 4 k-rows as one word (or
+//     half word) of NT neighbouring columns and transposes the bytes in
+//     registers with prmt (__byte_perm).  The warp's columns are
+//     permuted to make that work: mma column c of n-tile j is the warp's
+//     column c*NT + j, so a thread's NT columns are adjacent in memory;
+//     the epilogue undoes the permutation.
+//
 // Why mma.sync and not wgmma: at these sizes (about 2.4 GFLOP of kernel
 // work on DCGAN d1) filling the card and keeping latency low matter more
 // than the last factor of tensor-core rate, and mma.sync takes its A and
@@ -81,7 +104,8 @@
 namespace igemm {
 
 constexpr int kBM = 64;       // GEMM rows (conv positions) per block
-constexpr int kBK = 32;       // K per stage
+constexpr int kBK = 32;       // K per stage (f32, bf16)
+constexpr int kBK8 = 64;      // K per stage (int8: 64 bytes per row)
 constexpr int kThreads = 128; // 4 warps
 constexpr int kStages = 3;    // cp.async ring depth
 
@@ -92,18 +116,29 @@ struct Geom {
   int N;               // GEMM columns (output or phase channels)
   int M, K;            // B*MH*MW, KTh*KTw*Cin
   int vec_a, vec_b;    // 16-byte copies for A rows / B rows
+  int word_a, word_b;  // int8: 4-byte copies where 16-byte ones cannot be
   int kt_per_split;
 };
 
-// Stores the f32 partial of split z at ws[z][m][n].
-struct PartialEpi {
-  float* ws;
+// K per stage, and the accumulator (and split-K partial) type: f32, or
+// int32 for int8 operands.
+template <typename T>
+__host__ __device__ constexpr int bk() { return sizeof(T) == 1 ? kBK8 : kBK; }
+template <typename T> struct Accum { using type = float; };
+template <> struct Accum<int8_t> { using type = int; };
+template <typename T> using acc_t = typename Accum<T>::type;
+
+// Stores the partial of split z at ws[z][m][n].
+template <typename A>
+struct Partial {
+  A* ws;
   long long mn;
   int n;
-  __device__ __forceinline__ void store(int m, int c, float v, int z) const {
+  __device__ __forceinline__ void store(int m, int c, A v, int z) const {
     ws[z * mn + (long long)m * n + c] = v;
   }
 };
+using PartialEpi = Partial<float>;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -129,6 +164,19 @@ __device__ __forceinline__ void copy_elem(__nv_bfloat16* dst,
   // before the barrier that precedes its use.
   *reinterpret_cast<unsigned short*>(dst) =
       ok ? *reinterpret_cast<const unsigned short*>(src) : (unsigned short)0;
+}
+
+__device__ __forceinline__ void copy_elem(int8_t* dst, const int8_t* src,
+                                          bool ok) {
+  *dst = ok ? *src : (int8_t)0;    // a plain load, like a lone bf16
+}
+
+// Four int8 elements; the halo (ok false) is written as zero.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 4 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -197,18 +245,80 @@ __device__ __forceinline__ void ldmatrix_a(float (&v)[4], const float* tile,
   for (int e = 0; e < 4; ++e) v[e] = __uint_as_float(r[e]);
 }
 
-// Shared row strides in elements (see the bank notes at the top).
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
+                                       const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The A fragment of an m16n8k32 s8 mma from a 16-row x 32-byte tile in
+// shared memory with rows `stride` bytes apart: ldmatrix's four 8x8 b16
+// matrices are rows 0-7 / 8-15 x bytes 0-15 / 16-31, and lane l receives
+// row l / 4, bytes 4*(l % 4) .. +3 of each: a0, a1, a2, a3.
+__device__ __forceinline__ void ldmatrix_s8(uint32_t (&r)[4],
+                                            const int8_t* tile, int stride,
+                                            int lane) {
+  const int8_t* p =
+      tile + ((lane & 7) + (lane & 8)) * stride + (lane >> 4) * 16;
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// Register h (k 16h .. 16h+15) of the B fragments of NT n-tiles from a
+// K x N byte tile with rows BS bytes apart; p points at k-row 16h + 4*tig
+// and at the thread's NT adjacent columns.  The four k-rows' bytes are
+// transposed with prmt, so that b[j][h] holds k 4*tig .. 4*tig+3 (lowest
+// byte first) of column j of the NT.
+template <int NT, int BS>
+__device__ __forceinline__ void b_frag_s8(uint32_t (&b)[NT][2], int h,
+                                          const int8_t* p) {
+  static_assert(NT == 2 || NT == 4, "a warp holds 2 or 4 n-tiles");
+  if constexpr (NT == 4) {
+    const uint32_t w0 = *reinterpret_cast<const uint32_t*>(p);
+    const uint32_t w1 = *reinterpret_cast<const uint32_t*>(p + BS);
+    const uint32_t w2 = *reinterpret_cast<const uint32_t*>(p + 2 * BS);
+    const uint32_t w3 = *reinterpret_cast<const uint32_t*>(p + 3 * BS);
+    const uint32_t t0 = __byte_perm(w0, w1, 0x5140);  // w0.0 w1.0 w0.1 w1.1
+    const uint32_t t1 = __byte_perm(w0, w1, 0x7362);  // w0.2 w1.2 w0.3 w1.3
+    const uint32_t t2 = __byte_perm(w2, w3, 0x5140);
+    const uint32_t t3 = __byte_perm(w2, w3, 0x7362);
+    b[0][h] = __byte_perm(t0, t2, 0x5410);            // w0.0 w1.0 w2.0 w3.0
+    b[1][h] = __byte_perm(t0, t2, 0x7632);
+    b[2][h] = __byte_perm(t1, t3, 0x5410);
+    b[3][h] = __byte_perm(t1, t3, 0x7632);
+  } else {
+    const uint32_t h0 = *reinterpret_cast<const uint16_t*>(p);
+    const uint32_t h1 = *reinterpret_cast<const uint16_t*>(p + BS);
+    const uint32_t h2 = *reinterpret_cast<const uint16_t*>(p + 2 * BS);
+    const uint32_t h3 = *reinterpret_cast<const uint16_t*>(p + 3 * BS);
+    const uint32_t u01 = __byte_perm(h0, h1, 0x5410);  // h0.0 h0.1 h1.0 h1.1
+    const uint32_t u23 = __byte_perm(h2, h3, 0x5410);
+    b[0][h] = __byte_perm(u01, u23, 0x6420);           // h0.0 h1.0 h2.0 h3.0
+    b[1][h] = __byte_perm(u01, u23, 0x7531);
+  }
+}
+
+// Shared row strides in elements (see the bank notes at the top; int8
+// rows are 16-byte multiples, as its 16-byte copies and ldmatrix need).
 template <typename T>
 __host__ __device__ constexpr int a_stride() {
-  return kBK + (sizeof(T) == 4 ? 4 : 8);
+  return sizeof(T) == 1 ? kBK8 + 16 : kBK + (sizeof(T) == 4 ? 4 : 8);
 }
 template <int BN>
 __host__ __device__ constexpr int b_stride() { return BN + 8; }
+template <typename T, int BN>
+__host__ __device__ constexpr int b_row() {
+  return sizeof(T) == 1 ? BN + 16 : b_stride<BN>();
+}
 
 template <typename T, int BN>
 constexpr size_t smem_bytes() {
   return 3 * kBM * sizeof(int) +
-         (size_t)kStages * (kBM * a_stride<T>() + kBK * b_stride<BN>()) *
+         (size_t)kStages * (kBM * a_stride<T>() + bk<T>() * b_row<T, BN>()) *
              sizeof(T);
 }
 
@@ -216,12 +326,14 @@ template <typename T, int BN, class Epi>
 __global__ void __launch_bounds__(kThreads)
 igemm_kernel(const T* __restrict__ x, const T* __restrict__ w, Geom g,
              Epi epi) {
+  constexpr bool kI8 = sizeof(T) == 1;
   constexpr int WARPS_M = BN == 16 ? 4 : 2;
   constexpr int WARPS_N = 4 / WARPS_M;
   constexpr int WM = kBM / WARPS_M, WN = BN / WARPS_N;
   constexpr int MT = WM / 16, NT = WN / 8;
-  constexpr int AS = a_stride<T>(), BS = b_stride<BN>();
-  constexpr int A_STAGE = kBM * AS, B_STAGE = kBK * BS;
+  constexpr int BK = bk<T>();
+  constexpr int AS = a_stride<T>(), BS = b_row<T, BN>();
+  constexpr int A_STAGE = kBM * AS, B_STAGE = BK * BS;
   constexpr int V = 16 / sizeof(T);        // elements per 16-byte copy
   constexpr int PASSES = passes<T>();
 
@@ -234,7 +346,7 @@ igemm_kernel(const T* __restrict__ x, const T* __restrict__ w, Geom g,
 
   const int tid = threadIdx.x;
   const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * BN;
-  const int nk = (g.K + kBK - 1) / kBK;
+  const int nk = (g.K + BK - 1) / BK;
   const int kt0 = blockIdx.z * g.kt_per_split;
   const int ntiles = max(0, min(nk, kt0 + g.kt_per_split) - kt0);
 
@@ -255,13 +367,13 @@ igemm_kernel(const T* __restrict__ x, const T* __restrict__ w, Geom g,
   }
   __syncthreads();
 
-  // A tile: kBM rows x kBK of k.  A thread keeps one column (group) and
+  // A tile: kBM rows x BK of k.  A thread keeps one column (group) and
   // walks rows; its column's k = (kh*KTw + kw)*Cin + ci is decomposed
-  // once and stepped by kBK per tile (tiles load in order).
-  const int a_width = g.vec_a ? V : 1;
-  const int a_per_row = kBK / a_width;
+  // once and stepped by BK per tile (tiles load in order).
+  const int a_width = g.vec_a ? V : (kI8 && g.word_a ? 4 : 1);
+  const int a_per_row = BK / a_width;
   const int a_col = (tid % a_per_row) * a_width;
-  int ak = kt0 * kBK + a_col;
+  int ak = kt0 * BK + a_col;
   int aci = ak % g.Cin, akw = (ak / g.Cin) % g.KTw, akh = ak / g.Cin / g.KTw;
   auto load_a = [&](int stage) {
     T* dst = As + stage * A_STAGE;
@@ -273,28 +385,32 @@ igemm_kernel(const T* __restrict__ x, const T* __restrict__ w, Geom g,
           ok ? x + (((long long)(rows[r] + xr) * g.W + xc) * g.Cin + aci) : x;
       if (g.vec_a)
         cp_async16(dst + r * AS + a_col, src, ok);
+      else if (kI8 && g.word_a)
+        cp_async4(dst + r * AS + a_col, src, ok);
       else
         copy_elem(dst + r * AS + a_col, src, ok);
     }
-    ak += kBK;
-    for (aci += kBK; aci >= g.Cin; aci -= g.Cin)
+    ak += BK;
+    for (aci += BK; aci >= g.Cin; aci -= g.Cin)
       if (++akw == g.KTw) {
         akw = 0;
         ++akh;
       }
   };
-  // B tile: kBK rows of k x BN columns of the K x N filter matrix.
+  // B tile: BK rows of k x BN columns of the K x N filter matrix.
   auto load_b = [&](int stage, int kt) {
     T* dst = Bs + stage * B_STAGE;
-    const int width = g.vec_b ? V : 1;
+    const int width = g.vec_b ? V : (kI8 && g.word_b ? 4 : 1);
     const int per_row = BN / width;
-    for (int i = tid; i < kBK * per_row; i += kThreads) {
+    for (int i = tid; i < BK * per_row; i += kThreads) {
       const int r = i / per_row, col = (i - r * per_row) * width;
-      const int k = kt * kBK + r, n = n0 + col;
+      const int k = kt * BK + r, n = n0 + col;
       const bool ok = k < g.K && n < g.N;
       const T* src = ok ? w + (long long)k * g.N + n : w;
       if (g.vec_b)
         cp_async16(dst + r * BS + col, src, ok);
+      else if (kI8 && g.word_b)
+        cp_async4(dst + r * BS + col, src, ok);
       else
         copy_elem(dst + r * BS + col, src, ok);
     }
@@ -304,15 +420,20 @@ igemm_kernel(const T* __restrict__ x, const T* __restrict__ w, Geom g,
   const int wm = warp / WARPS_N, wn = warp % WARPS_N;
   const int gid = lane / 4, tig = lane % 4;
 
-  // acc: the mma accumulator of the current k-tile; sum: the k-tiles'
-  // sums, added in f32 on the CUDA cores.
-  float acc[MT][NT][4], sum[MT][NT][4];
+  // sum: the output's sums, f32 on the CUDA cores (each k-tile's mma sum
+  // promoted into it) or, for int8, the exact int32 mma accumulator
+  // itself; acc (float only): the mma accumulator of the current k-tile.
+  acc_t<T> sum[MT][NT][4];
+  float acc[MT][NT][4];
 #pragma unroll
   for (int i = 0; i < MT; ++i)
 #pragma unroll
     for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = sum[i][j][e] = 0.f;
+      for (int e = 0; e < 4; ++e) {
+        acc[i][j][e] = 0.f;
+        sum[i][j][e] = 0;
+      }
 
   constexpr int S = kStages;
   for (int s = 0; s < S - 1; ++s) {
@@ -333,64 +454,84 @@ igemm_kernel(const T* __restrict__ x, const T* __restrict__ w, Geom g,
     }
     cp_async_commit();
 
-    const T* a_s = As + (t % S) * A_STAGE + wm * WM * AS;
-    const T* b_s = Bs + (t % S) * B_STAGE + tig * BS + wn * WN + gid;
+    if constexpr (kI8) {
+      const T* a_s = As + (t % S) * A_STAGE + wm * WM * AS;
+      const T* b_s = Bs + (t % S) * B_STAGE + wn * WN + gid * NT;
 #pragma unroll
-    for (int kk = 0; kk < kBK; kk += 8) {
-      uint32_t ah[MT][4], al[MT][4], bh[NT][2], bl[NT][2];
+      for (int kk = 0; kk < BK; kk += 32) {
+        uint32_t a[MT][4], b[NT][2];
 #pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        float v[4];
-        const T* tile = a_s + i * 16 * AS + kk;
-        if constexpr (sizeof(T) == 4) {
-          ldmatrix_a<AS>(v, tile, lane);
-        } else {
-          const T* p = tile + gid * AS + tig;
-          v[0] = to_f32(p[0]);
-          v[1] = to_f32(p[8 * AS]);
-          v[2] = to_f32(p[4]);
-          v[3] = to_f32(p[8 * AS + 4]);
+        for (int i = 0; i < MT; ++i)
+          ldmatrix_s8(a[i], a_s + i * 16 * AS + kk, AS, lane);
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          b_frag_s8<NT, BS>(b, h, b_s + (kk + 16 * h + 4 * tig) * BS);
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int j = 0; j < NT; ++j) mma_s8(sum[i][j], a[i], b[j]);
+      }
+    } else {
+      const T* a_s = As + (t % S) * A_STAGE + wm * WM * AS;
+      const T* b_s = Bs + (t % S) * B_STAGE + tig * BS + wn * WN + gid;
+#pragma unroll
+      for (int kk = 0; kk < BK; kk += 8) {
+        uint32_t ah[MT][4], al[MT][4], bh[NT][2], bl[NT][2];
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          float v[4];
+          const T* tile = a_s + i * 16 * AS + kk;
+          if constexpr (sizeof(T) == 4) {
+            ldmatrix_a<AS>(v, tile, lane);
+          } else {
+            const T* p = tile + gid * AS + tig;
+            v[0] = to_f32(p[0]);
+            v[1] = to_f32(p[8 * AS]);
+            v[2] = to_f32(p[4]);
+            v[3] = to_f32(p[8 * AS + 4]);
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            split<T>(v[e], ah[i][e], al[i][e]);
         }
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          split<T>(v[e], ah[i][e], al[i][e]);
-      }
+        for (int j = 0; j < NT; ++j) {
+          const T* p = b_s + kk * BS + j * 8;
+          split<T>(to_f32(p[0]), bh[j][0], bl[j][0]);
+          split<T>(to_f32(p[4 * BS]), bh[j][1], bl[j][1]);
+        }
+        // Pass by pass, so that consecutive mma never share an accumulator.
+        if (PASSES == 3) {
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const T* p = b_s + kk * BS + j * 8;
-        split<T>(to_f32(p[0]), bh[j][0], bl[j][0]);
-        split<T>(to_f32(p[4 * BS]), bh[j][1], bl[j][1]);
-      }
-      // Pass by pass, so that consecutive mma never share an accumulator.
-      if (PASSES == 3) {
+          for (int i = 0; i < MT; ++i)
+#pragma unroll
+            for (int j = 0; j < NT; ++j) mma_tf32(acc[i][j], al[i], bh[j]);
+#pragma unroll
+          for (int i = 0; i < MT; ++i)
+#pragma unroll
+            for (int j = 0; j < NT; ++j) mma_tf32(acc[i][j], ah[i], bl[j]);
+        }
 #pragma unroll
         for (int i = 0; i < MT; ++i)
 #pragma unroll
-          for (int j = 0; j < NT; ++j) mma_tf32(acc[i][j], al[i], bh[j]);
-#pragma unroll
-        for (int i = 0; i < MT; ++i)
-#pragma unroll
-          for (int j = 0; j < NT; ++j) mma_tf32(acc[i][j], ah[i], bl[j]);
+          for (int j = 0; j < NT; ++j) mma_tf32(acc[i][j], ah[i], bh[j]);
       }
+      // Promote the tile's sum out of the tensor cores' accumulator.
 #pragma unroll
       for (int i = 0; i < MT; ++i)
 #pragma unroll
-        for (int j = 0; j < NT; ++j) mma_tf32(acc[i][j], ah[i], bh[j]);
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            sum[i][j][e] += acc[i][j][e];
+            acc[i][j][e] = 0.f;
+          }
     }
-    // Promote the tile's sum out of the tensor cores' accumulator.
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          sum[i][j][e] += acc[i][j][e];
-          acc[i][j][e] = 0.f;
-        }
   }
   cp_async_wait<0>();
 
-  // c0, c1 at (gid, 2*tig + {0, 1}); c2, c3 eight rows down.
+  // c0, c1 at (gid, 2*tig + {0, 1}); c2, c3 eight rows down.  For int8,
+  // mma column c of n-tile j is the warp's column c*NT + j.
 #pragma unroll
   for (int i = 0; i < MT; ++i)
 #pragma unroll
@@ -398,21 +539,22 @@ igemm_kernel(const T* __restrict__ x, const T* __restrict__ w, Geom g,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int m = m0 + wm * WM + i * 16 + gid + (e >= 2 ? 8 : 0);
-        const int n = n0 + wn * WN + j * 8 + tig * 2 + (e & 1);
+        const int c = tig * 2 + (e & 1);
+        const int n = n0 + wn * WN + (kI8 ? c * NT + j : j * 8 + c);
         if (m < g.M && n < g.N) epi.store(m, n, sum[i][j][e], blockIdx.z);
       }
 }
 
 // Sums the split partials of each (m, n) in split order, then the
 // epilogue: the same value on every run.
-template <class Epi>
+template <class Epi, typename A = float>
 __global__ void __launch_bounds__(256)
-igemm_reduce_kernel(const float* __restrict__ ws, int splits, int M, int N,
+igemm_reduce_kernel(const A* __restrict__ ws, int splits, int M, int N,
                     Epi epi) {
   const long long mn = (long long)M * N;
   for (long long i = blockIdx.x * 256LL + threadIdx.x; i < mn;
        i += (long long)gridDim.x * 256) {
-    float s = ws[i];
+    A s = ws[i];
     for (int z = 1; z < splits; ++z) s += ws[z * mn + i];
     const int m = (int)(i / N);
     epi.store(m, (int)(i - (long long)m * N), s, 0);
@@ -437,35 +579,42 @@ cudaError_t launch_gemm(const T* x, const T* w, const Geom& g, int splits,
 
 template <typename T, int BN, class Epi>
 cudaError_t run_bn(const T* x, const T* w, const Geom& g, int splits,
-                   float* work, Epi epi, cudaStream_t stream) {
+                   acc_t<T>* work, Epi epi, cudaStream_t stream) {
   if (splits == 1)
     return launch_gemm<T, BN>(x, w, g, 1, epi, stream);
   const long long mn = (long long)g.M * g.N;
   const cudaError_t err = launch_gemm<T, BN>(
-      x, w, g, splits, PartialEpi{work, mn, g.N}, stream);
+      x, w, g, splits, Partial<acc_t<T>>{work, mn, g.N}, stream);
   if (err != cudaSuccess) return err;
   const long long blocks = (mn + 255) / 256;
-  igemm_reduce_kernel<Epi><<<(int)(blocks < 1056 ? blocks : 1056), 256, 0,
-                             stream>>>(work, splits, g.M, g.N, epi);
+  igemm_reduce_kernel<Epi, acc_t<T>>
+      <<<(int)(blocks < 1056 ? blocks : 1056), 256, 0, stream>>>(
+          work, splits, g.M, g.N, epi);
   return cudaGetLastError();
 }
 
 // Checks the plan (bn, splits), fills the derived fields of g
 // and launches: one GEMM kernel with the epilogue, or with splits > 1
-// the GEMM into `work` (splits x M x N f32) and the reduce kernel.
+// the GEMM into `work` (splits x M x N of acc_t<T>: f32, or int32 for
+// int8) and the reduce kernel.
 template <typename T, class Epi>
 cudaError_t run(const T* x, const T* w, Geom g, int bn, int splits,
-                float* work, Epi epi, cudaStream_t stream) {
+                acc_t<T>* work, Epi epi, cudaStream_t stream) {
   constexpr int V = 16 / sizeof(T);
+  constexpr int BK = bk<T>();
   g.M = g.B * g.MH * g.MW;
   g.K = g.KTh * g.KTw * g.Cin;
-  const int nk = (g.K + kBK - 1) / kBK;
+  const int nk = (g.K + BK - 1) / BK;
   if (splits < 1 || splits > 65535 ||
       (splits > 1 && work == nullptr) || g.M <= 0 || g.N <= 0 || g.Cin < 1)
     return cudaErrorInvalidValue;
   g.kt_per_split = (nk + splits - 1) / splits;
   g.vec_a = g.Cin % V == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   g.vec_b = g.N % V == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  g.word_a = sizeof(T) == 1 && g.Cin % 4 == 0 &&
+             reinterpret_cast<uintptr_t>(x) % 4 == 0;
+  g.word_b = sizeof(T) == 1 && g.N % 4 == 0 &&
+             reinterpret_cast<uintptr_t>(w) % 4 == 0;
   switch (bn) {
     case 16: return run_bn<T, 16>(x, w, g, splits, work, epi, stream);
     case 32: return run_bn<T, 32>(x, w, g, splits, work, epi, stream);

@@ -4,9 +4,9 @@
 (kernel, stride, padding, output_padding) into what the kernel is
 handed: the ``P_I`` pad per side (applied in the kernel by masked
 reads), the low-side crop ``P_K + pad_lo`` (split inside
-:func:`~repro_torch.kernels.sd_conv.launch_geometry` into ``q = crop //
-s`` whole conv rows and a residual ``r = crop % s``) and the final
-output shape.  The kernel writes each output element once; no padded or
+:func:`~repro_torch.kernels.sd_conv.gemm_launch` into ``q = crop // s``
+whole conv rows and a residual ``r = crop % s``) and the final output
+shape.  The kernel writes each output element once; no padded or
 uncropped copy exists.  :func:`sd_deconv_presplit_wino` does the same
 for K4 from the Winograd-transformed filters.
 
@@ -61,7 +61,7 @@ def sd_deconv_presplit_fused(x: torch.Tensor, ws_ocmajor: torch.Tensor,
                              act: str = "linear",
                              scale: Optional[torch.Tensor] = None,
                              out_dtype: Optional[torch.dtype] = None,
-                             plan: Optional[Union[GemmPlan, KernelPlan]] = None
+                             plan: Optional[GemmPlan] = None
                              ) -> torch.Tensor:
     """2-D transposed conv from pre-split oc-major filters in one fused
     launch: x (B, H, W, Cin), ws_ocmajor (KTh, KTw, Cin, Cout*sh*sw).

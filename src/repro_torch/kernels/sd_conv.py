@@ -9,11 +9,12 @@ launches the CUDA kernel ``csrc/sd_fused.cu`` (built at first use) or
 raises; on a CPU tensor it runs :func:`sd_fused_ref`, the same function
 in plain PyTorch.  ``SD_FUSED_LAUNCHES`` counts kernel launches.
 
-K1's float branch and K2 in f32 are one implicit GEMM on the tensor
-cores in 3xTF32 (``csrc/sd_igemm.cuh``; bf16 in one exact pass), tiled
-by a :class:`~repro_torch.kernels.autotune.GemmPlan`.  The integers K1
-is handed come from :func:`gemm_launch`; a plan with ``splits > 1``
-runs the split GEMM and then the ordered sum of its partials with the
+K1 (both branches) and K2 in f32 are one implicit GEMM on the tensor
+cores (``csrc/sd_igemm.cuh``: 3xTF32 for f32, bf16 in one exact pass,
+int8 in one s8 pass into int32), tiled by a
+:class:`~repro_torch.kernels.autotune.GemmPlan`.  The integers K1 is
+handed come from :func:`gemm_launch`; a plan with ``splits > 1`` runs
+the split GEMM and then the ordered sum of its partials with the
 epilogue, and that call counts as one launch.
 
 K1's int8 branch takes an int8 ``(x, ws)`` pair and the combined dequant
@@ -69,10 +70,9 @@ import torch.nn.functional as F
 from repro_torch.core.deconv import (conv_valid, conv_valid_filter_grad,
                                      crop_interleaved)
 from repro_torch.kernels.autotune import (ConvGeom, FilterGradGeom,
-                                          FusedGeom, GemmGeom, GemmPlan,
-                                          KernelPlan, check_gemm_plan,
-                                          conv_plan, filter_grad_plan,
-                                          gemm_plan, heuristic_plan,
+                                          GemmGeom, GemmPlan, KernelPlan,
+                                          check_gemm_plan, conv_plan,
+                                          filter_grad_plan, gemm_plan,
                                           smem_bytes, SMEM_BUDGET)
 
 PadPair = Tuple[int, int]
@@ -264,47 +264,9 @@ def _crop_origin(s, pad, crop):
 
 
 @dataclass(frozen=True)
-class LaunchGeometry:
-    """The integers K1's int8 branch is handed for one launch (all
-    computed in Python, so the CPU tests reach them): the crop origin of
-    :func:`_crop_origin`, the output shape and the ``nh x nw`` tiles of
-    its :class:`KernelPlan`."""
-    q_h: int
-    q_w: int
-    plo_h: int
-    plo_w: int
-    res_h: int
-    res_w: int
-    out_h: int
-    out_w: int
-    nh: int
-    nw: int
-    plan: KernelPlan
-
-
-def launch_geometry(x_shape, ws_shape, s, pad, crop, out_space,
-                    plan: Optional[KernelPlan] = None) -> LaunchGeometry:
-    sh, sw = _pair(s)
-    _, h, wd, cin = x_shape
-    kth, ktw, _, nc = ws_shape
-    oh, ow = out_space
-    q_h, q_w, plo_h, plo_w, res_h, res_w = _crop_origin(s, pad, crop)
-    geom = FusedGeom(h=h, w=wd, cin=cin, nc=nc, kth=kth, ktw=ktw, sh=sh,
-                     sw=sw, out_h=oh, out_w=ow, res_h=res_h, res_w=res_w,
-                     dtype="int8")
-    plan = plan if plan is not None else heuristic_plan(geom)
-    if smem_bytes(geom, plan) > SMEM_BUDGET:
-        raise ValueError(f"tile {plan} needs {smem_bytes(geom, plan)} bytes "
-                         f"of shared memory; a block has {SMEM_BUDGET}")
-    return LaunchGeometry(
-        q_h=q_h, q_w=q_w, plo_h=plo_h, plo_w=plo_w, res_h=res_h,
-        res_w=res_w, out_h=oh, out_w=ow, nh=-(-oh // (plan.th * sh)),
-        nw=-(-ow // (plan.tw * sw)), plan=plan)
-
-
-@dataclass(frozen=True)
 class GemmLaunch:
-    """The integers K1's float branch is handed for one launch: the crop
+    """The integers K1 is handed for one launch (all computed in Python,
+    so the CPU tests reach them): the crop
     origin of :func:`_crop_origin`, the output shape, the ``mh x mw``
     conv positions per sample that the cropped output needs (``mh =
     ceil((out_h + res_h) / sh)``; the GEMM's rows are ``B * mh * mw``),
@@ -342,8 +304,8 @@ def gemm_launch(x_shape, ws_shape, s, pad, crop, out_space,
 
 def check_plan_type(what: str, plan, want: type) -> None:
     """Raise ``TypeError`` unless ``plan`` is None or a ``want``: the
-    float GEMM kernels (K1's float branch, K2 in f32, K3) take a
-    :class:`GemmPlan`, the int8 ones a :class:`KernelPlan`, K4 a
+    GEMM kernels (K1's float and int8 branches, K2 in f32, K3) take a
+    :class:`GemmPlan`, K2's int8 pair a :class:`KernelPlan`, K4 a
     :class:`~repro_torch.kernels.autotune.WinoPlan`.  ``what`` names the
     launch or plan in the message."""
     if plan is not None and not isinstance(plan, want):
@@ -375,7 +337,7 @@ def sd_fused(x: torch.Tensor, ws_ocmajor: torch.Tensor, s, *,
              pad: Tuple[PadPair, PadPair] = ((0, 0), (0, 0)),
              crop: Tuple[int, int] = (0, 0),
              out_space: Optional[Tuple[int, int]] = None,
-             plan: Optional[Union[GemmPlan, KernelPlan]] = None,
+             plan: Optional[GemmPlan] = None,
              scale: Optional[torch.Tensor] = None,
              out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Fused SD, zero-copy: split-filter conv + interleaved write.
@@ -387,12 +349,11 @@ def sd_fused(x: torch.Tensor, ws_ocmajor: torch.Tensor, s, *,
     coordinates.  out_space: final output spatial shape (rows past the
     shuffled support come out as ``act(bias)``); defaults to the
     uncropped interleave.  Returns (B, *out_space, Cout) in ``x.dtype``.
-    ``plan``: a float launch's :class:`GemmPlan` (default
-    :func:`~repro_torch.kernels.autotune.gemm_plan`), an int8 launch's
-    :class:`KernelPlan` (default ``heuristic_plan``); the other type
-    raises ``TypeError``.  A float launch with ``splits > 1`` is two
-    kernels (the split GEMM, the ordered sum with the epilogue), counted
-    as one launch.
+    ``plan``: a :class:`GemmPlan` (default
+    :func:`~repro_torch.kernels.autotune.gemm_plan` on the launch's
+    geometry and dtype); another type raises ``TypeError``.  A launch
+    with ``splits > 1`` is two kernels (the split GEMM, the ordered sum
+    with the epilogue), counted as one launch.
 
     int8 branch: ``x`` and ``ws_ocmajor`` int8 and ``scale`` the f32
     combined dequant scale, oc-major like the filters: (B, Cout*sh*sw)
@@ -411,8 +372,7 @@ def sd_fused(x: torch.Tensor, ws_ocmajor: torch.Tensor, s, *,
         out_space = _full_space(x.shape, ws_ocmajor.shape, s, pad)
     qdtype = quant_contract(x, ws_ocmajor, scale, out_dtype, act)
     quant = qdtype is not None
-    check_plan_type(f"sd_fused: a{'n int8' if quant else ' float'} launch",
-                    plan, KernelPlan if quant else GemmPlan)
+    check_plan_type("sd_fused", plan, GemmPlan)
     if x.device.type == "cpu":
         return sd_fused_ref(x, ws_ocmajor, s, bias=bias, act=act, pad=pad,
                             crop=crop, out_space=out_space, scale=scale,
@@ -431,57 +391,50 @@ def sd_fused(x: torch.Tensor, ws_ocmajor: torch.Tensor, s, *,
     if y.numel() == 0:
         return y
     from repro_torch.kernels.build import load
-    if quant:
-        g = launch_geometry(x.shape, ws_ocmajor.shape, (sh, sw), pad, crop,
-                            out_space, plan)
-        if g.nh * g.nw > 65535:
-            raise ValueError(f"{g.nh * g.nw} spatial tiles exceed the "
-                             "grid's y limit; use a larger tile")
-        p = g.plan
-        fn = load("sd_fused_int8").fn
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream(x.device).cuda_stream
-            err = fn(x.data_ptr(), ws_ocmajor.data_ptr(), scale.data_ptr(),
-                     bias.data_ptr(), y.data_ptr(), b, h, wd, cin, cout,
-                     ws_ocmajor.shape[0], ws_ocmajor.shape[1], sh, sw,
-                     g.q_h, g.q_w, g.plo_h, g.plo_w, g.res_h, g.res_w,
-                     g.out_h, g.out_w, p.th, p.tw, p.tcin, p.tc, ACTS[act],
-                     0 if scale.shape[0] == 1 else scale.shape[1],
-                     int(qdtype == torch.int8), ctypes.c_void_p(stream))
-        if err != 0:
-            raise RuntimeError(f"sd_fused int8 kernel launch failed: CUDA "
-                               f"error {err}")
-        SD_FUSED_INT8_LAUNCHES += 1
-        return y
+    dtype = ("int8" if quant else
+             "bf16" if x.dtype == torch.bfloat16 else "")
     g = gemm_launch(x.shape, ws_ocmajor.shape, (sh, sw), pad, crop,
-                    out_space, plan,
-                    dtype="bf16" if x.dtype == torch.bfloat16 else "")
+                    out_space, plan, dtype=dtype)
     p = g.plan
     work = _split_workspace(g.geom, p, x.device)
-    fn = load("sd_fused").fn
+    wk = None if work is None else work.data_ptr()
+    geo = (b, h, wd, cin, cout, ws_ocmajor.shape[0], ws_ocmajor.shape[1],
+           sh, sw, g.q_h, g.q_w, g.plo_h, g.plo_w, g.res_h, g.res_w,
+           g.out_h, g.out_w, p.bn, p.splits, ACTS[act])
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), ws_ocmajor.data_ptr(), bias.data_ptr(),
-                 y.data_ptr(), None if work is None else work.data_ptr(),
-                 DTYPES[x.dtype], b, h, wd, cin, cout,
-                 ws_ocmajor.shape[0], ws_ocmajor.shape[1], sh, sw,
-                 g.q_h, g.q_w, g.plo_h, g.plo_w, g.res_h, g.res_w,
-                 g.out_h, g.out_w, p.bn, p.splits,
-                 ACTS[act], ctypes.c_void_p(stream))
+        stream = ctypes.c_void_p(
+            torch.cuda.current_stream(x.device).cuda_stream)
+        if quant:
+            err = load("sd_fused_int8").fn(
+                x.data_ptr(), ws_ocmajor.data_ptr(), scale.data_ptr(),
+                bias.data_ptr(), y.data_ptr(), wk, *geo,
+                0 if scale.shape[0] == 1 else scale.shape[1],
+                int(qdtype == torch.int8), stream)
+        else:
+            err = load("sd_fused").fn(
+                x.data_ptr(), ws_ocmajor.data_ptr(), bias.data_ptr(),
+                y.data_ptr(), wk, DTYPES[x.dtype], *geo, stream)
     if err != 0:
-        raise RuntimeError(f"sd_fused kernel launch failed: CUDA error {err}")
-    SD_FUSED_LAUNCHES += 1          # the GEMM and, split, its reduce: one
+        raise RuntimeError(f"sd_fused{' int8' if quant else ''} kernel "
+                           f"launch failed: CUDA error {err}")
+    # the GEMM and, split, its reduce: one launch
+    if quant:
+        SD_FUSED_INT8_LAUNCHES += 1
+    else:
+        SD_FUSED_LAUNCHES += 1
     return y
 
 
 def _split_workspace(geom: GemmGeom, plan: GemmPlan, device
                      ) -> Optional[torch.Tensor]:
-    """The split-K partial slabs ``(splits, M, N)`` f32, or None for one
-    split (the GEMM kernel then runs the epilogue itself)."""
+    """The split-K partial slabs ``(splits, M, N)``, f32 (int32 for an
+    int8 GEMM), or None for one split (the GEMM kernel then runs the
+    epilogue itself)."""
     if plan.splits == 1:
         return None
-    return torch.empty((plan.splits, geom.m, geom.n), dtype=torch.float32,
-                       device=device)
+    return torch.empty((plan.splits, geom.m, geom.n),
+                       dtype=torch.int32 if geom.dtype == "int8"
+                       else torch.float32, device=device)
 
 
 # ---------------------------------------------------------------------------

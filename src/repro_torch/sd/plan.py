@@ -225,13 +225,15 @@ def plan(filter_shape: Sequence[int], stride, padding=0,
     ``torch`` backends; ranks 2 and 3 on ``fused``, as float plans); a
     winograd
     plan outside its envelope, int8 included, raises the reference's
-    ``ValueError``.  ``tile``: a float ``fused`` plan's
-    :class:`~repro_torch.kernels.autotune.GemmPlan` (K1's float branch,
-    K2 in f32 at rank 3), an int8 ``fused`` plan's
-    :class:`~repro_torch.kernels.autotune.KernelPlan`, a ``winograd``
-    plan's :class:`~repro_torch.kernels.autotune.WinoPlan` (K4); another
-    type raises ``TypeError`` (a ``torch`` plan launches no kernel and
-    ignores it)."""
+    ``ValueError``.  ``tile``: a ``fused`` plan's
+    :class:`~repro_torch.kernels.autotune.GemmPlan` (K1's float and int8
+    branches at rank 2, K2 in f32 at rank 3), except an int8 ``fused``
+    plan at rank 3, which takes K2's int8 pair's
+    :class:`~repro_torch.kernels.autotune.KernelPlan` (one launch per
+    depth tap); a ``winograd`` plan's
+    :class:`~repro_torch.kernels.autotune.WinoPlan` (K4); another type
+    raises ``TypeError`` (a ``torch`` plan launches no kernel and ignores
+    it)."""
     if dtype not in DTYPES:
         raise ValueError(f"unknown plan dtype {dtype!r}; choose from "
                          f"{DTYPES}")
@@ -265,7 +267,7 @@ def plan(filter_shape: Sequence[int], stride, padding=0,
             "backend='torch'")
     if resolved != "torch":
         want = (WinoPlan if resolved == "winograd" else
-                KernelPlan if dtype == "int8" else GemmPlan)
+                KernelPlan if dtype == "int8" and rank == 3 else GemmPlan)
         check_plan_type(f"a {dtype} {resolved!r} plan's tile", tile, want)
     return DeconvPlan(kernel=k, stride=st, padding=_pads_nd(padding, rank),
                       cin=cin, cout=cout, backend=resolved, act=act,

@@ -8,14 +8,24 @@ CPU: the build key that covers its header, and its 3xTF32 arithmetic.
   view, each operand split ``hi = tf32(a)``, ``lo = tf32(a - hi)``, and
   ``hi*hi + hi*lo + lo*hi`` summed in f64 holds half of the 3-D
   lowering's 1e-5 gate against the f64 product of the f32 operands, where
-  one rounding (1xTF32) does not; bf16 operands split with ``lo == 0``.
+  one rounding (1xTF32) does not; bf16 operands split with ``lo == 0``;
+* ``build.SIGNATURES`` against each source's C entry point: the ctypes
+  argument types, in order, are the parameters the ``.cu`` declares;
+* the int8 path's s8 mma restated lane by lane (``_torch_igemm.
+  warp_tile_s8``): ``ldmatrix.x4`` A fragments, B fragments transposed
+  from four k-rows with ``prmt``, the permuted epilogue columns, for
+  every ``bn``, exact against the int64 product, at codes of +-127 at
+  the int32 limit of the wrapper's check too; the int8 row pads put
+  ldmatrix's eight row reads on distinct banks and keep 16-byte copies
+  aligned.
 """
 
 import numpy as np
 import pytest
 
+from repro_torch.kernels import autotune as A
 from repro_torch.kernels import build
-from _torch_igemm import split, tf32
+from _torch_igemm import split, tf32, warp_tile_s8
 
 GATE = 1e-5          # ND_F32_GATE, the tightest f32 gate on these kernels
 
@@ -34,6 +44,26 @@ def test_build_target_covers_headers(tmp_path, monkeypatch):
     (tmp_path / "k.cu").write_bytes(b'#include "h.cuh"\n// edit\n')
     assert build._target("k") not in (first, second)
     assert first.parent == build.BUILD_DIR and first.name.startswith("k-")
+
+
+@pytest.mark.parametrize("name", sorted(build.SIGNATURES))
+def test_signatures_match_sources(name):
+    """The ctypes signature of each library is its C entry point's: one
+    c_void_p per pointer (and the stream), c_int per int, c_longlong per
+    long long, c_float per float, in the declared order."""
+    import ctypes
+    import re
+    sym, argtypes = build.SIGNATURES[name]
+    src = (build.CSRC / f"{name}.cu").read_text()
+    m = re.search(r'extern "C" int ' + sym + r"\(([^)]*)\)", src)
+    assert m, f"{sym} not declared in {name}.cu"
+    kinds = {"void*": ctypes.c_void_p, "int": ctypes.c_int,
+             "long long": ctypes.c_longlong, "float": ctypes.c_float}
+    declared = []
+    for param in m.group(1).split(","):
+        ctype = " ".join(param.split()[:-1]).replace("const ", "")
+        declared.append(kinds[ctype.replace(" *", "*")])
+    assert declared == list(argtypes)
 
 
 def test_tf32_rounding_emulated():
@@ -101,3 +131,41 @@ def test_bf16_operands_split_exactly():
     hi, lo = split(bf16)
     np.testing.assert_array_equal(hi, bf16)
     assert not lo.any()
+
+
+@pytest.mark.parametrize("bn", A.GEMM_BN)
+def test_s8_warp_tiles_restated(bn):
+    """One int8 block's k-tile as the kernel's lanes compute it equals
+    the int64 product, every output element written once: on random
+    codes, and at +-127 everywhere (each sum 127^2 * 64 in magnitude)."""
+    rng = np.random.RandomState(bn)
+    shape_a, shape_b = (A.GEMM_BM, A.GEMM_BK_INT8), (A.GEMM_BK_INT8, bn)
+    cases = [(rng.randint(-127, 128, shape_a), rng.randint(-127, 128,
+                                                           shape_b)),
+             (np.full(shape_a, 127),
+              np.broadcast_to(np.where(rng.rand(bn) < 0.5, 127, -127),
+                              shape_b))]
+    for a, b in cases:
+        a, b = a.astype(np.int8), b.astype(np.int8)
+        c, hits = warp_tile_s8(a, b, bn)
+        assert (hits == 1).all()
+        np.testing.assert_array_equal(c, a.astype(np.int64)
+                                      @ b.astype(np.int64))
+    assert np.abs(c).max() == 127 * 127 * A.GEMM_BK_INT8
+
+
+def test_s8_row_pads():
+    """int8 A rows of GEMM_BK_INT8 + 16 bytes: the eight 16-byte row reads
+    of an ldmatrix phase fall on eight distinct groups of four banks;
+    every A and B row starts 16-byte aligned (cp.async's 16-byte copies
+    and ldmatrix's row addresses need it)."""
+    a_row = A.GEMM_BK_INT8 + 16
+    assert sorted((r * a_row // 16) % 8 for r in range(8)) == list(range(8))
+    for bn in A.GEMM_BN:
+        geom = A.GemmGeom(m=64, n=bn, k=64, dtype="int8")
+        plan = A.GemmPlan(bn, 1)
+        stage = A.GEMM_BM * a_row + A.GEMM_BK_INT8 * (bn + 16)
+        assert A.gemm_smem_bytes(geom, plan) == 3 * A.GEMM_BM * 4 + \
+            A.GEMM_STAGES * stage
+        assert a_row % 16 == 0 and (bn + 16) % 16 == 0
+        assert (A.GEMM_BM * a_row) % 16 == 0

@@ -19,11 +19,13 @@ K3 (the filter grad, on the same tiles) on forced ``GemmPlan``s too.
 K4 (Winograd) is held to the same gates against its plain version
 ``sd_wino_ref``, and against K1 on the same split filters at the
 reference's ``tolerance(K_T) * max(1, max|y_K1|)``, on the default and
-forced ``WinoPlan``s. K1's int8 branch is
-held to its plain version (``sd_fused_ref`` on the int8 pair, exact
-sums) at two gates: bit-identical at unit scale, zero bias and linear
-act, and ``1e-6 * max(1, max|y_ref|)`` with real per-sample scales,
-folded-BN filter scales, bias and relu/tanh. K2's int8 pair is
+forced ``WinoPlan``s. K1's int8 branch (the same GEMM on the s8
+tensor cores) is held to its plain version (``sd_fused_ref`` on the int8
+pair, exact sums) at two gates: bit-identical at unit scale, zero bias
+and linear act, and ``1e-6 * max(1, max|y_ref|)`` with real per-sample
+scales, folded-BN filter scales, bias and relu/tanh, on default and
+forced ``GemmPlan``s (ragged N, Cin tails, several splits); every code
+at +-127 on DCGAN d1 is exact against an int64 restatement. K2's int8 pair is
 bit-identical to its plain version (exact int32 sums); the 3-D lowering
 (one K2 launch per depth tap) equals the card's ``torch`` backend within
 ``1e-5 * max(1, max|y_ref|)`` in f32 and exactly in int8. K1 int8's
@@ -32,6 +34,8 @@ bit-identical to its plain version on saturating scales, and the
 calibrated servers (DCGAN on K1 int8, VoxGAN on K2 int8) chain int8
 between layers and equal the card's int8 ``torch`` backend. K1, K4 and
 the 3-D lowering refuse an operand that requires grad under grad mode.
+The port's own f32 cuDNN convs run in full f32 with cuDNN's TF32 default
+on.
 K5 (flash attention) is held to ``flash_attention_ref`` at ``2e-5 *
 max(1, max|ref|)`` in f32 (``tests/test_flash_attn.py``'s tolerance) and
 ``1e-2 * max|ref|`` in bf16 (the oracle in f32 on the bf16 inputs), and
@@ -501,13 +505,53 @@ def test_int8_paper_layers(dev, net, layer):
     ((2, 5, 6, 7), (4, 4, 7, 2), 2, 0, 1, None),      # Cin 7, op > pad_hi
     ((1, 6, 7, 5), (5, 5, 5, 2), 2, ((1, 3), (0, 2)), 0, None),
     ((3, 13, 11, 40), (5, 5, 40, 24), 2, 2, 1,
-     KernelPlan(th=3, tw=2, tcin=12, tc=32)),          # ragged tiles
+     GemmPlan(64, 4)),       # Cin 40 (4-byte copies), N 96 over bn 64,
+                             # 6 k-tiles in 4 splits (the last empty)
     ((2, 9, 10, 70), (3, 3, 70, 5), 2, 1, 1,
-     KernelPlan(th=2, tw=3, tcin=9, tc=16)),           # tcin 9: tail words
+     GemmPlan(16, 3)),       # Cin 70 (byte copies), N 20 over bn 16
     ((16, 8, 8, 256), (5, 5, 256, 128), 2, 2, 1, None),   # DCGAN d1, b16
 ])
 def test_int8_odd_geometries(dev, sx, sw, s, pad, op, tile):
     _int8_gates(*_int8_case(dev, sx, sw, s, pad, "relu", op, tile, seed=3))
+
+
+@pytest.mark.parametrize("plan", [None, GemmPlan(64, 4)])
+def test_int8_saturating_d1_exact(dev, plan):
+    """Every code at +-127 on DCGAN d1 at batch 16 (K = 3*3*256 = 2,304):
+    interior sums reach 127^2 * 2,304 = 37,161,216 in magnitude, and the
+    int32 path (split partials and their ordered sum included) is exact
+    against an int64 restatement, rounded to f32 once (unit scale, zero
+    bias, linear act)."""
+    import numpy as np
+    g = torch.Generator().manual_seed(7)
+    sample = torch.where(torch.rand(16, 1, 1, 1, generator=g) < 0.5, 127,
+                         -127)
+    column = torch.where(torch.rand(512, generator=g) < 0.5, 127, -127)
+    xq = sample.expand(16, 8, 8, 256).to(torch.int8).contiguous()
+    ws = column.expand(3, 3, 256, 512).to(torch.int8).contiguous()
+    p = sd.plan((5, 5, 256, 128), 2, 2, backend="fused", output_padding=1,
+                dtype="int8", device=dev)
+    geo = dict(pad=((p.pi[0],) * 2, (p.pi[1],) * 2),
+               crop=(p.pk[0] + p.padding[0][0], p.pk[1] + p.padding[1][0]),
+               out_space=p.out_shape((8, 8)))
+    out = K.sd_fused(xq.to(dev), ws.to(dev), 2,
+                     scale=torch.ones(1, 512, device=dev), plan=plan,
+                     **geo).cpu()
+    (plo_h, phi_h), (plo_w, phi_w) = geo["pad"]
+    xp = np.pad(xq.numpy().astype(np.int64),
+                ((0, 0), (plo_h, phi_h), (plo_w, phi_w), (0, 0)))
+    oh, ow = xp.shape[1] - 2, xp.shape[2] - 2
+    acc = np.zeros((16, oh, ow, 512), np.int64)
+    for a in range(3):
+        for c in range(3):
+            acc += np.tensordot(xp[:, a:a + oh, c:c + ow],
+                                ws.numpy()[a, c].astype(np.int64), axes=1)
+    assert np.abs(acc).max() == 127 * 127 * 2304
+    ref = K.shuffle_epilogue(torch.from_numpy(acc.astype(np.float32)), 2,
+                             None, "linear", geo["crop"], geo["out_space"],
+                             torch.float32)
+    assert torch.equal(out, ref)
+    assert out.abs().max().item() == float(127 * 127 * 2304)
 
 
 def test_int8_wrapper_refusals(dev):
@@ -544,6 +588,31 @@ def test_int8_wrapper_refusals(dev):
                                device=dev),
                    2, scale=torch.ones(1, 4, device=dev),
                    pad=((2, 2), (2, 2)))
+
+
+def test_f32_cudnn_convs_ignore_the_tf32_default(dev, monkeypatch):
+    """With cuDNN's TF32 default on (the ``dev`` fixture's pin undone),
+    the port's own f32 convs stay in full f32, forward and backward: the
+    small GAN's generator grads J_G^T c through native
+    ``F.conv_transpose2d`` match f64 at 1e-4 of each leaf's max|ref|
+    (TF32 reads about 4e-2 there), ``native_deconv``, ``conv_valid`` and
+    ``conv_nd`` are within 1e-5 of their f64 results, and the caller's
+    flag is left as it was."""
+    from repro_torch.core.deconv import conv_nd, conv_valid, native_deconv
+    from repro_torch.launch.train_gen import main
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    main(["--small", "--steps", "0", "--deconv-impl", "native",
+          "--grad-check", "--device", "cuda"])
+    g = torch.Generator().manual_seed(11)
+    x = torch.randn(4, 16, 16, 128, generator=g).to(dev)
+    w = (torch.randn(5, 5, 128, 64, generator=g) / 40).to(dev)
+    for fn in (lambda a, b: native_deconv(a, b, 2, 2, 1),
+               lambda a, b: conv_valid(a, b),
+               lambda a, b: conv_nd(a, b, 2, "SAME")):
+        out, ref = fn(x, w), fn(x.double(), w.double())
+        assert (out.double() - ref).abs().max().item() <= \
+            1e-5 * max(1.0, ref.abs().max().item())
+    assert torch.backends.cudnn.allow_tf32
 
 
 def test_kernels_refuse_grad_operands(dev):
@@ -601,9 +670,9 @@ DCGAN_LAYERS = BENCHMARKS["dcgan"]().deconv_layers()
     ((16, 16, 16, 128), (5, 5, 128, 64), 2, 2, 1, None, "relu", True),
     ((16, 32, 32, 64), (5, 5, 64, 3), 2, 2, 1, None, "linear", False),
     ((3, 13, 11, 40), (5, 5, 40, 24), 2, 2, 1,
-     KernelPlan(th=3, tw=2, tcin=12, tc=32), "linear", True),
+     GemmPlan(64, 4), "linear", True),
     ((2, 9, 10, 70), (3, 3, 70, 5), 2, 1, 1,
-     KernelPlan(th=2, tw=3, tcin=9, tc=16), "relu", True),
+     GemmPlan(16, 3), "relu", True),       # Cin 70: byte copies
 ], ids=["dcgan-d1", "dcgan-d2", "dcgan-d3", "ragged", "tcin9"])
 def test_int8_static_row_bit_identical(dev, sx, sw, s, pad, op, tile, act,
                                        out_int8):

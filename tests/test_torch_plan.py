@@ -191,16 +191,17 @@ def test_launch_geometry_emulated(case):
 @pytest.mark.parametrize("batch", [4, 16])
 def test_heuristic_plan_fits_and_covers(batch):
     """``gemm_plan`` gives every paper layer's forward (K1's float
-    branch, f32 and bf16) a plan the kernel takes, within shared memory
-    and the grid's limits, with at least one block per SM wherever the
-    output tiles and the contraction allow it."""
+    branch, f32 and bf16, and its int8 branch, whose k-tiles are 64
+    deep) a plan the kernel takes, within shared memory and the grid's
+    limits, with at least one block per SM wherever the output tiles and
+    the contraction allow it."""
     for net, layer in PAPER_LAYERS:
         pads = same_deconv_pads(layer.k, layer.s)
         p = tsd.plan((layer.k, layer.k, layer.cin, layer.cout), layer.s,
                      pads, backend="torch")
         kt = p.kt
         ws_shape = (*kt, layer.cin, layer.cout * p.phases)
-        for dtype in ("", "bf16"):
+        for dtype in ("", "bf16", "int8"):
             g = gemm_launch((batch, *layer.in_hw, layer.cin), ws_shape,
                             p.stride, tuple((q, q) for q in p.pi),
                             (p.pk[0] + pads[0][0], p.pk[1] + pads[1][0]),
@@ -209,7 +210,8 @@ def test_heuristic_plan_fits_and_covers(batch):
             assert A.gemm_smem_bytes(geom, plan) <= A.SMEM_BUDGET
             mt, nt, sp = A.gemm_grid(geom, plan)
             assert nt <= A.GRID_YZ_MAX and sp <= A.GRID_YZ_MAX
-            assert plan.bn >= min(geom.n, A.GEMM_BN[-1])
+            widest = A.GEMM_BN_INT8 if dtype == "int8" else A.GEMM_BN[-1]
+            assert plan.bn >= min(geom.n, widest)
             assert mt * nt * sp >= A.SMS or A.gemm_split_tiles(
                 geom, plan) <= A.GEMM_MIN_SPLIT_TILES, (net, layer.name)
             # every split sums at least one k-tile
@@ -218,16 +220,29 @@ def test_heuristic_plan_fits_and_covers(batch):
 
 
 def test_plan_types_follow_the_dtype():
-    """Float launches (K1, K2 f32, K3) take a GemmPlan, int8 ones a
-    KernelPlan, winograd (K4) a WinoPlan; another type raises TypeError
-    (plan, wrapper, any device)."""
+    """The GEMM launches (K1 float and int8, K2 f32, K3) take a GemmPlan,
+    K2's int8 pair (an int8 plan at rank 3) a KernelPlan, winograd (K4) a
+    WinoPlan; another type raises TypeError (plan, wrapper, any
+    device)."""
     kp = A.KernelPlan(th=2, tw=2, tcin=4, tc=16)
     gp = GemmPlan(16, 1)
     wp = A.WinoPlan(nth=2, ntw=2, nb=1, tc=16)
     with pytest.raises(TypeError, match="GemmPlan"):
         tsd.plan((4, 4, 3, 2), 2, 1, backend="fused", tile=kp)
+    # int8 at rank 2 is K1 int8 (a GemmPlan), at rank 3 K2's int8 pair
+    with pytest.raises(TypeError, match="GemmPlan"):
+        tsd.plan((4, 4, 3, 2), 2, 1, backend="fused", dtype="int8", tile=kp)
+    assert tsd.plan((4, 4, 3, 2), 2, 1, backend="fused", dtype="int8",
+                    tile=gp).tile == gp
     with pytest.raises(TypeError, match="KernelPlan"):
-        tsd.plan((4, 4, 3, 2), 2, 1, backend="fused", dtype="int8", tile=gp)
+        tsd.plan((4, 4, 4, 3, 2), 2, 1, backend="fused", dtype="int8",
+                 tile=gp)
+    assert tsd.plan((4, 4, 4, 3, 2), 2, 1, backend="fused", dtype="int8",
+                    tile=kp).tile == kp
+    with pytest.raises(TypeError, match="GemmPlan"):
+        sd_fused(torch.zeros(1, 4, 4, 3, dtype=torch.int8),
+                 torch.zeros(2, 2, 3, 8, dtype=torch.int8), 2,
+                 scale=torch.ones(1, 8), plan=kp)
     for bad in (gp, kp):
         with pytest.raises(TypeError, match="WinoPlan"):
             tsd.plan((4, 4, 3, 2), 2, 1, backend="winograd", tile=bad)

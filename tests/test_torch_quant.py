@@ -14,9 +14,11 @@ restatements, on the CPU.
   reference's int8 xla path at the reference's ``rtol=atol=1e-3``
   (``tests/test_quant.py``; the reference convolves f32-cast operands, so
   it is not exact);
-* K1's int8 blocking (four channels to a word, zero-filled Cin tails, the
-  scale indexed by the phase channel before the interleave) restated in
-  numpy from ``launch_geometry``'s integers on forced ragged tiles;
+* K1 int8 on the implicit GEMM restated in numpy from ``gemm_launch``'s
+  integers (``_torch_igemm``: A gathered with a zero halo, int64 block
+  products over 64-deep k-tiles and ordered splits, the scale indexed by
+  the phase channel before the interleave, int8 out rounded and clamped)
+  on forced ``GemmPlan``s: bn 16 over a ragged N, Cin tails, 2-3 splits;
 * an int8 DCGAN (narrow, the dryrun spec) within 0.05 of max|ref| of the
   float model and SSIM >= 0.99; zero-padded bucket rows leave real
   samples bit-identical; ``serve_gen --dryrun --dtype int8`` serves; the
@@ -41,13 +43,15 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.core import quant as tq
 from repro_torch.core.deconv import sd_geometry
 from repro_torch.core.ssim import ssim as t_ssim
+from repro_torch.kernels import autotune as A
 from repro_torch.kernels import ops
-from repro_torch.kernels.autotune import (FusedGeom, KernelPlan,
+from repro_torch.kernels.autotune import (FusedGeom, GemmPlan, KernelPlan,
                                           heuristic_plan, smem_bytes)
 from repro_torch.launch import serve_gen
 from repro_torch.launch.serve_gen import GenServer, main, reduced_specs
 from repro_torch.models.generative import GenerativeModel
 from repro_torch.sd.functional import _run_presplit_int8
+from _torch_igemm import gather_a, shuffle_store, split_k_product
 
 PAPER_LAYERS = [(net, l) for net, fn in BENCHMARKS.items()
                 for l in fn().deconv_layers()]
@@ -367,80 +371,47 @@ def test_paper_layers_match_reference_int8_xla(net, layer):
 
 
 # ---------------------------------------------------------------------------
-# K1's int8 blocking, restated in numpy.
+# K1's int8 branch on the implicit GEMM, restated in numpy.
 # ---------------------------------------------------------------------------
 
 def _emulate_int8(xq, ws, scale, s, bias, act, pad, crop, out_space,
-                  plan=None):
-    """What ``csrc/sd_fused_int8.cu`` computes, block by block, from the
-    integers ``launch_geometry`` hands it: per Cin step of ``tcin``
-    channels, words of four channels (lane ``k`` = channel ``ci0 + 4*icw
-    + k``, zero past ``tcin`` or ``Cin``), one dp4a per word into an int32
-    register; the epilogue rounds the sum to f32, multiplies the scale of
-    phase channel ``c`` (before the interleave), adds the bias in f32 and
-    writes the interleaved, cropped element."""
-    g = K.launch_geometry(xq.shape, ws.shape, s, pad, crop, out_space, plan)
+                  plan=None, out_int8=False):
+    """What ``csrc/sd_fused_int8.cu`` computes, from the integers
+    ``gemm_launch`` hands it: A gathered from the int8 input in place
+    (zero halo), the int64 product of each ``GEMM_BM x bn`` block over
+    its split's 64-deep k-tiles, the splits' int32 partials summed in
+    split order; then the epilogue: the exact sum rounded to f32 once,
+    times the scale of phase channel ``n`` (its sample's row, or the
+    static row), the interleaved, cropped store with bias and act in f32,
+    and for int8 out round half to even and a clamp to +-127."""
     sh, sw = s
-    p = g.plan
-    b, h, wd, cin = xq.shape
-    kth, ktw, _, nc = ws.shape
-    rh, rw = p.th + (g.res_h > 0), p.tw + (g.res_w > 0)
-    tcw = -(-p.tcin // 4)
-    y = np.full((b, g.out_h, g.out_w, nc // (sh * sw)), np.nan, np.float32)
-    for ti in range(g.nh):
-        for tj in range(g.nw):
-            xr0 = ti * p.th + g.q_h - g.plo_h
-            xc0 = tj * p.tw + g.q_w - g.plo_w
-            acc = np.zeros((b, rh, rw, nc), np.int64)
-            for ci0 in range(0, cin, p.tcin):
-                lanes = [ci0 + 4 * icw + k for icw in range(tcw)
-                         for k in range(4)]
-                keep = [c for i, c in enumerate(lanes)
-                        if i < p.tcin and c < cin]
-                band = np.zeros((b, rh + kth - 1, rw + ktw - 1, len(keep)),
-                                np.int64)
-                for br in range(band.shape[1]):
-                    for bc in range(band.shape[2]):
-                        if 0 <= xr0 + br < h and 0 <= xc0 + bc < wd:
-                            band[:, br, bc] = xq[:, xr0 + br, xc0 + bc, keep]
-                wk = ws[:, :, keep].astype(np.int64)
-                for a in range(kth):
-                    for c in range(ktw):
-                        acc += np.einsum("bhwi,io->bhwo",
-                                         band[:, a:a + rh, c:c + rw], wk[a, c])
-            assert np.abs(acc).max() < 2 ** 31
-            deq = acc.astype(np.float32) * scale[:, None, None, :]
-            for pr in range(rh):
-                for pc in range(rw):
-                    for ch in range(nc):
-                        oc, ph = divmod(ch, sh * sw)
-                        ly = pr * sh + ph // sw - g.res_h
-                        lx = pc * sw + ph % sw - g.res_w
-                        oy = ti * p.th * sh + ly
-                        ox = tj * p.tw * sw + lx
-                        if not (0 <= ly < p.th * sh and 0 <= lx < p.tw * sw
-                                and oy < g.out_h and ox < g.out_w):
-                            continue
-                        assert np.isnan(y[0, oy, ox, oc]), "written twice"
-                        r = deq[:, pr, pc, ch] + bias[oc]
-                        y[:, oy, ox, oc] = {"linear": r,
-                                            "relu": np.maximum(r, 0),
-                                            "tanh": np.tanh(r)}[act]
-    assert not np.isnan(y).any(), "output element never written"
-    return y
+    g = K.gemm_launch(xq.shape, ws.shape, s, pad, crop, out_space, plan,
+                      dtype="int8")
+    assert g.geom.bk == A.GEMM_BK_INT8
+    a = gather_a(xq, ws.shape[:2], g.q_h - g.plo_h, g.q_w - g.plo_w, g.mh,
+                 g.mw)
+    c, _ = split_k_product(a.astype(np.int64),
+                           ws.reshape(g.geom.k, g.geom.n).astype(np.int64),
+                           g.plan, bk=g.geom.bk)
+    assert np.abs(c).max() < 2 ** 31           # the int32 accumulator
+    row = np.arange(c.shape[0]) // (g.mh * g.mw)
+    deq = c.astype(np.float32) * scale[row if scale.shape[0] > 1 else 0]
+    y = shuffle_store(deq, xq.shape[0], g.mh, g.mw, s, (g.res_h, g.res_w),
+                      out_space, bias, act).astype(np.float32)
+    return np.clip(np.rint(y), -127, 127).astype(np.int8) if out_int8 else y
 
 
-# (x shape, w shape, stride, padding, output_padding, act, forced tile)
+# (x shape, w shape, stride, padding, output_padding, act, forced plan)
 EMU = [
     ((2, 8, 8, 12), (5, 5, 12, 3), 2, "same", 0, "relu", None),
     ((1, 5, 6, 7), (4, 4, 7, 2), 2, 0, 1, "linear",
-     KernelPlan(th=2, tw=3, tcin=3, tc=16)),      # Cin 7, tcin 3: tails
+     GemmPlan(16, 1)),      # Cin 7 (byte copies), N 8 < bn 16
     ((1, 6, 7, 5), (5, 5, 5, 2), 2, ((1, 3), (0, 2)), 0, "relu",
-     KernelPlan(th=3, tw=2, tcin=5, tc=16)),      # asymmetric pads
+     GemmPlan(32, 2)),      # asymmetric pads, Cin 5, an empty split
     ((2, 13, 11, 9), (5, 5, 9, 5), 2, 2, 1, "tanh",
-     KernelPlan(th=3, tw=2, tcin=8, tc=16)),      # ragged tiles, Cin 9
+     GemmPlan(16, 2)),      # ragged N 20 over bn 16, K 81: 2 splits
     ((1, 7, 6, 6), (5, 5, 6, 3), 1, "same", 0, "linear",
-     KernelPlan(th=2, tw=4, tcin=4, tc=16)),      # stride 1, q = 2
+     GemmPlan(16, 3)),      # stride 1, q = 2, K 150: 3 splits
 ]
 
 
@@ -473,6 +444,17 @@ def test_int8_launch_geometry_emulated(case):
                  dtype="int8").bind(jnp.asarray(w), bias=jnp.asarray(bias)),
         jnp.asarray(x)))
     np.testing.assert_allclose(out, ref, rtol=1e-3, atol=1e-3)
+    if act == "tanh":      # the chained epilogue takes linear or relu
+        return
+    # the chained epilogue: a static row in the next layer's code units,
+    # int8 out (codes saturate at +-127)
+    row = (comb[:1] * 2000).contiguous()
+    out = _emulate_int8(xq.numpy(), p.ws.numpy(), row.numpy(), p.stride,
+                        bias * 50, act, plan=tile, out_int8=True, **geo)
+    plain = K.sd_fused_ref(xq, p.ws, p.stride, bias=p.bias * 50, act=act,
+                           scale=row, out_dtype=torch.int8, **geo).numpy()
+    np.testing.assert_array_equal(out, plain)
+    assert (np.abs(out) == 127).any()
 
 
 # ---------------------------------------------------------------------------
