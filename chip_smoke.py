@@ -14,8 +14,8 @@ Drives ``repro_torch`` only (never JAX, never the JAX package ``repro``):
    of K1's float branch and K2, which share the 3xTF32 implicit-GEMM
    mainloop ``sd_igemm.cuh``, and of K3 and K4, which take its 3xTF32
    arithmetic (fails if any has none), and the IMMA (s8 tensor-core)
-   and IDP.4A (dp4a) instructions of K1's int8 branch, the same
-   mainloop on int8 (fails unless IMMA > 0 and IDP.4A = 0);
+   and IDP.4A (dp4a) instructions of K1's and K2's int8 branches, the
+   same mainloop on int8 (fails unless IMMA > 0 and IDP.4A = 0);
 2. holds K1 against its plain PyTorch version ``sd_fused_ref`` on the 22
    deconv layers of the paper's six networks (batch 4, f32, TF32 off,
    ``max|d| <= 1e-4 * max(1, max|y_ref|)``), on an ``output_padding >
@@ -89,16 +89,21 @@ Drives ``repro_torch`` only (never JAX, never the JAX package ``repro``):
    card within ``1e-3 * max(1, max|ref|)`` and the float fused server's
    model within 0.05 of max|ref| with SSIM >= 0.99; times a batch of 16
    on the int8 and the float server in turns;
-8. 3-D: holds K2's int8 pair (``sd_conv_int8.cu``) against its plain
-   version (``sd_conv_ref`` on the int8 pair, exact int32 sums) at
-   VoxGAN's three tap-conv shapes at batch 16, at codes of +-127 and on
-   odd geometries (Cin 3, 5, 70; ragged windows; forced tiles):
-   bit-identical; holds the 3-D lowering (one K2 or K2-int8 launch per
-   depth tap, then the torch interleave) against the ``torch`` backend
-   on each full-width VoxGAN layer at batch 16, f32 within ``1e-5 *
-   max(1, max|ref|)`` (TF32 off) and int8 exactly; times each tap conv
-   (K2 int8, K2 f32, plain, ``F.conv2d`` f32 as a yardstick) and each
-   whole layer (fused f32, fused int8, ``torch``,
+8. 3-D: holds K2's int8 pair (``sd_conv_int8.cu``, the implicit GEMM
+   on the s8 tensor cores) against its plain version (``sd_conv_ref`` on
+   the int8 pair, exact int32 sums) at VoxGAN's three tap-conv shapes at
+   batch 16, at codes of +-127 and on odd geometries (Cin 3, 5, 70; Co
+   5, 20, 33; ragged windows; forced GEMM plans; a batch-1 depth-tap
+   band; a base off 16-byte alignment): bit-identical; holds the 3-D
+   lowering (one K2 or K2-int8 launch per depth tap, then the torch
+   interleave) against the ``torch`` backend on each full-width VoxGAN
+   layer at batch 16, f32 within ``1e-5 * max(1, max|ref|)`` (TF32 off)
+   and int8 exactly; times each tap conv in device time, in turns (K2
+   int8 with its plan and grid, K2 f32, plain, ``F.conv2d`` f32 and
+   ``torch._int_mm`` on the tap's own GEMM operands as yardsticks;
+   ``bound_ms`` at the int8 tensor cores' peak or the memory rate),
+   fails if K2 int8 takes more than ``K2_INT8_UP2_MS_LIMIT`` ms of
+   device time on up2's tap, and times each whole layer (fused f32, fused int8, ``torch``,
    ``F.conv_transpose3d``); serves 48 full-width VoxGAN requests through
    ``GenServer`` in f32 and in int8 and checks 2 K2 (or K2-int8)
    launches per deconv layer per batch and nothing else, finite outputs,
@@ -129,7 +134,9 @@ Drives ``repro_torch`` only (never JAX, never the JAX package ``repro``):
    fails if K1 int8 takes more than
    ``K1_INT8_D1_MS_LIMIT`` ms of device time on d1, static or dynamic;
    times a batch calibrated / dynamic / f32 in turns; serves 48
-   calibrated VoxGAN requests, held exactly to the ``torch`` backend;
+   calibrated VoxGAN requests, held exactly to the ``torch`` backend, and
+   times a VoxGAN batch calibrated / dynamic / f32 in turns, with each
+   one's device busy time;
 10. K5 and dense LM serving: counts the HGMMA (tensor-core) and UTMALDG
    (TMA load) instructions in the SASS of K5's bf16 kernel and fails if
    either is 0; holds K5 (``flash_attn.cu``: bf16 on wgmma + TMA, f32 on
@@ -189,13 +196,8 @@ GAN_STEPS = 6
 SOURCES = ("sd_fused", "sd_conv", "sd_filter_grad", "sd_wino",
            "sd_fused_int8", "sd_conv_int8", "flash_attn")
 # The int8 kernels.  bound_ms: the H100 SXM's dense int8 tensor-core peak
-# (NVIDIA data sheet, 1,979 TOP/s); K2 int8's useful_bound_ms: the CUDA
-# cores' dp4a rate it runs on, derived (not a data-sheet figure) as 64 dp4a
-# per SM per clock (the CUDA C programming guide's rate of 32-bit integer
-# multiply-adds for compute capability 9.0) x 4 int8 MACs x 2 operations
-# x 132 SMs x 1.98 GHz boost clock.
+# (NVIDIA data sheet, 1,979 TOP/s).
 PEAK_INT8_OPS = 1979e12
-DP4A_OPS = 64 * 4 * 2 * 132 * 1.98e9
 INT8_EXACT_GATE = 1e-6   # K1 int8 vs its plain version, rel. max(1, max|ref|)
 INT8_SERVE_GATE = 1e-3   # served vs the int8 torch backend (tests/test_quant.py:116)
 INT8_VS_F32 = 0.05       # max|d|/max|ref| vs the float server (:134)
@@ -210,6 +212,7 @@ K2_D1_MS_LIMIT = 0.20    # K2 (dx) on DCGAN d1 at batch 16, device ms
 K3_D1_MS_LIMIT = 0.15    # K3 (dw) on DCGAN d1 at batch 16, device ms
 K4_D1_MS_LIMIT = 0.12    # K4 f32 on DCGAN d1 at batch 16, device ms
 K1_INT8_D1_MS_LIMIT = 0.065  # K1 int8 (static and dynamic) there, device ms
+K2_INT8_UP2_MS_LIMIT = 0.018  # K2 int8 on VoxGAN up2's tap at batch 16
 AHEAD_CYCLES = 4_000_000  # torch.cuda._sleep before a timed run of calls
 # Phase 10: K5 and dense LM serving.  StableLM-2-12B
 # (src/repro_torch/configs/stablelm_12b.py) at all 40 of its layers: the
@@ -1456,7 +1459,8 @@ def _nd_phase(dev, tag, randn) -> dict:
     (one K2 launch per depth tap) against the ``torch`` backend on each
     VoxGAN layer at batch 16, f32 within ``1e-5 * max(1, max|ref|)``
     (TF32 off), int8 exact; (c) each tap conv timed as K2 int8 / K2 f32 /
-    plain / ``F.conv2d`` f32, and each whole layer against
+    plain / ``F.conv2d`` f32 / ``torch._int_mm`` on its GEMM operands,
+    K2 int8 gated on up2's tap, and each whole layer against
     ``F.conv_transpose3d``; (d) 48 full-width VoxGAN requests served in
     f32 and in int8 and held against the same model on the ``torch``
     backend.  Returns K2-int8's record, K2's 3-D serving launches and the
@@ -1467,9 +1471,9 @@ def _nd_phase(dev, tag, randn) -> dict:
     from repro_torch import sd
     from repro_torch.core.accounting import WORKLOADS
     from repro_torch.core.deconv import same_deconv_pads
-    from repro_torch.kernels.autotune import (ConvGeom, KernelPlan,
-                                              conv_plan, gemm_plan,
-                                              smem_bytes)
+    from repro_torch.kernels.autotune import (ConvGeom, GemmGeom, GemmPlan,
+                                              gemm_grid, gemm_plan,
+                                              gemm_smem_bytes)
     from repro_torch.launch.serve_gen import GenServer, serve_async
     from repro_torch.models.generative import GenerativeModel
 
@@ -1506,17 +1510,29 @@ def _nd_phase(dev, tag, randn) -> dict:
                   torch.full(sw_, -127, dtype=torch.int8, device=dev), pad,
                   (0, 0), None, None))
     odd = [((2, 5, 6, 3), (3, 3, 3, 5), ((2, 1), (0, 2)), (0, 0), None,
-            KernelPlan(th=2, tw=3, tcin=3, tc=16)),
+            GemmPlan(16, 3)),
            ((2, 7, 6, 5), (2, 3, 5, 20), ((1, 1), (1, 1)), (1, 2), (5, 3),
-            KernelPlan(th=3, tw=2, tcin=2, tc=16)),
+            GemmPlan(32, 2)),
            ((3, 11, 13, 5), (2, 2, 5, 8), ((1, 1), (1, 1)), (0, 0), None,
             None),
            ((1, 9, 10, 70), (3, 3, 70, 33), ((1, 1), (1, 1)), (0, 0), None,
-            KernelPlan(th=4, tw=3, tcin=9, tc=32))]
+            GemmPlan(64, 3))]
     for sx, sw_, pad, start, size, tile in odd:
         cases.append((f"odd Cin {sx[-1]} pad {pad} window {start}+{size} "
-                      f"tile {tile}", codes(*sx), codes(*sw_), pad, start,
+                      f"plan {tile}", codes(*sx), codes(*sw_), pad, start,
                       size, tile))
+    # a batch-1 depth-tap band as the 3-D lowering hands it to K2 (a view
+    # td*H*W*Cin bytes into its storage), odd Cin; and a Cin-64 input 4
+    # bytes past a 16-byte boundary: the copy width follows the pointer
+    xp = codes(1, 6, 7, 9, 5)
+    band = xp[:, 1:6].reshape(5, 7, 9, 5)
+    cases.append((f"batch-1 depth-tap band, Cin 5, base +"
+                  f"{band.data_ptr() - xp.data_ptr()} B", band,
+                  codes(2, 2, 5, 8), ((1, 1), (1, 1)), (0, 0), None, None))
+    buf = codes(3 * 6 * 6 * 64 + 4)
+    cases.append(("Cin 64 at a base 4 bytes past 16-byte alignment",
+                  buf[4:].view(3, 6, 6, 64), codes(2, 2, 64, 32),
+                  ((1, 1), (1, 1)), (0, 0), None, GemmPlan(32, 2)))
     failures, max_err = [], 0.0
     for label, xq, wq, pad, start, size, tile in cases:
         out = K.sd_conv(xq, wq, pad=pad, out_start=start, out_size=size,
@@ -1578,76 +1594,99 @@ def _nd_phase(dev, tag, randn) -> dict:
 
     # ---- (c) timing -----------------------------------------------------
     print(f"time: VoxGAN tap convs (each layer makes 2 such launches) at "
-          f"batch {BUCKET}, CUDA events: median [min, max] of 7 rounds of "
-          f"20 warm launches, K2 int8 / K2 f32 / plain (exact f64 tap "
-          f"GEMMs) / F.conv2d f32 (TF32 off; a float yardstick, no single "
-          f"PyTorch call computes this int8 conv) in turns; bound at the "
-          f"dense int8 tensor-core peak, useful_bound at the dp4a rate "
-          f"{tag}")
+          f"batch {BUCKET}, in turns: K2 int8 / K2 f32 / plain (exact f64 "
+          f"tap GEMMs) / F.conv2d f32 (TF32 off; a float yardstick) / "
+          f"torch._int_mm on the tap's own GEMM operands (im2col left out, "
+          f"N padded to a multiple of 8: a yardstick of cuBLASLt's int8 "
+          f"GEMM rate, checked to give the GEMM's exact sums); device ms of "
+          f"one call (ahead events; the profiler's median of 3 beside) and "
+          f"CUDA events over 20 back-to-back calls (median [min, max] of 7 "
+          f"rounds); bound at the dense int8 tensor-core peak "
+          f"{PEAK_INT8_OPS / 1e12:.0f} TOP/s or {PEAK_BYTES / 1e12:.2f} TB/s, "
+          f"whichever is larger {tag}")
     per_tap = []
     for l, (label, xq, wq, pad, _, _, _) in zip(layers, cases):
         xf, wf = xq.float(), wq.float()
         x_cf = xf.permute(0, 3, 1, 2).contiguous()
         w_cf = wf.permute(3, 2, 0, 1).contiguous()
-        lib = lambda: F.conv2d(x_cf, w_cf, padding=1)      # noqa: E731
         y = K.sd_conv(xq, wq, pad=pad)
-        assert lib().shape[2:] == y.shape[1:3]
-        t = _time_ms({"k2q": lambda: K.sd_conv(xq, wq, pad=pad),
-                      "k2": lambda: K.sd_conv(xf, wf, pad=pad),
-                      "plain": lambda: K.sd_conv_ref(xq, wq, pad),
-                      "lib": lib})
-        bd = _device_breakdown(lambda: K.sd_conv(xq, wq, pad=pad))
-        bdf = _device_breakdown(lambda: K.sd_conv(xf, wf, pad=pad))
-        ahead = {"k2": _ahead_ms(lambda: K.sd_conv(xf, wf, pad=pad)),
-                 "lib": _ahead_ms(lib)}
+        geom = ConvGeom(h=xq.shape[1], w=xq.shape[2], cin=xq.shape[3],
+                        co=wq.shape[3], kth=wq.shape[0], ktw=wq.shape[1],
+                        out_h=y.shape[1], out_w=y.shape[2], dtype="int8")
+        gq = geom.as_gemm(xq.shape[0])
+        plan = gemm_plan(gq)
+        grid = gemm_grid(gq, plan)
+        f32_plan = gemm_plan(GemmGeom(gq.m, gq.n, gq.k))
+        a_mat, b_mat = _int_mm_operands(xq, wq, -pad[0][0], -pad[1][0],
+                                        y.shape[1], y.shape[2])
+        fns = {"k2q": lambda: K.sd_conv(xq, wq, pad=pad),
+               "k2": lambda: K.sd_conv(xf, wf, pad=pad),
+               "plain": lambda: K.sd_conv_ref(xq, wq, pad),
+               "lib": lambda: F.conv2d(x_cf, w_cf, padding=1),
+               "int_mm": lambda: torch._int_mm(a_mat, b_mat)}
+        assert fns["lib"]().shape[2:] == y.shape[1:3]
+        prod = fns["int_mm"]()[:, :gq.n]
+        im_ok = torch.equal(prod.double(), a_mat.double()
+                            @ b_mat[:, :gq.n].double()) and torch.equal(
+            prod.reshape(y.shape), y)
+        t = _time_ms(fns)
+        dv = {n: _device_ms(f) for n, f in fns.items()}
         macs = y.numel() * wq.shape[0] * wq.shape[1] * wq.shape[2]
         nbytes = xq.numel() + wq.numel() + 4 * y.numel()
         t_bytes = nbytes / PEAK_BYTES * 1e3
         t_ops = 2.0 * macs / PEAK_INT8_OPS * 1e3
-        geom = ConvGeom(h=xq.shape[1], w=xq.shape[2], cin=xq.shape[3],
-                        co=wq.shape[3], kth=wq.shape[0], ktw=wq.shape[1],
-                        out_h=y.shape[1], out_w=y.shape[2], dtype="int8")
-        plan = conv_plan(geom)
-        f32_plan = gemm_plan(geom.as_gemm(xq.shape[0]))
-        ms, lo, hi = t["k2q"]
         rec = {"layer": f"voxgan/{l.name} tap", "x": list(xq.shape),
-               "w": list(wq.shape), "ms": ms, "ms_min": lo, "ms_max": hi,
-               "device_ms": None if bd is None else bd[0],
-               "k2_f32_ms": t["k2"][0],
-               "k2_f32_device_ms": None if bdf is None else bdf[0],
-               "plain_ms": t["plain"][0], "library_ms": None,
-               "f32_library_ms": t["lib"][0],
+               "w": list(wq.shape), "ms": dv["k2q"][1],
+               "profiler_ms": dv["k2q"][0], "events_ms": t["k2q"][0],
+               "events_ms_min": t["k2q"][1], "events_ms_max": t["k2q"][2],
+               "k2_f32_ms": dv["k2"][1], "k2_f32_profiler_ms": dv["k2"][0],
+               "k2_f32_events_ms": t["k2"][0],
+               "plain_ms": dv["plain"][1], "plain_events_ms": t["plain"][0],
+               "library_ms": None, "f32_library_ms": dv["lib"][1],
+               "f32_library_profiler_ms": dv["lib"][0],
+               "int_mm_ms": dv["int_mm"][1],
+               "int_mm_profiler_ms": dv["int_mm"][0],
+               "int_mm_shape": [*a_mat.shape, b_mat.shape[1]],
+               "int_mm_exact": im_ok,
                "bound_ms": max(t_ops, t_bytes),
                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-               "useful_bound_ms": max(2.0 * macs / DP4A_OPS * 1e3, t_bytes),
-               "macs": macs, "bytes": nbytes, "tile": str(plan),
-               "k2_f32_plan": str(f32_plan),
-               "k2_f32_ahead_ms": ahead["k2"],
-               "f32_library_ahead_ms": ahead["lib"],
-               "smem_bytes": smem_bytes(geom.as_fused(), plan),
-               "launches_per_batch": 2}
+               "macs": macs, "bytes": nbytes, "plan": str(plan),
+               "grid": list(grid), "smem_bytes": gemm_smem_bytes(gq, plan),
+               "k2_f32_plan": str(f32_plan), "launches_per_batch": 2}
         per_tap.append(rec)
-        dev_txt = ("not measured" if rec["device_ms"] is None
-                   else f"{rec['device_ms']:.4f} ms")
-        devf_txt = ("not measured" if rec["k2_f32_device_ms"] is None
-                    else f"{rec['k2_f32_device_ms']:.4f} ms")
         print(f"  voxgan/{l.name} tap {tuple(xq.shape)}x{tuple(wq.shape)}->"
-              f"{tuple(y.shape)} tile {plan}, grid "
-              f"{-(-wq.shape[3] // plan.tc)} x "
-              f"{-(-y.shape[1] // plan.th) * -(-y.shape[2] // plan.tw)} x "
-              f"{xq.shape[0]} blocks, {rec['smem_bytes']} B dynamic shared "
-              f"memory: K2 int8 {ms:.4f} ms [{lo:.4f}, {hi:.4f}] "
-              f"({2 * macs / ms / 1e9:.1f} TOP/s; device time of one call "
-              f"{dev_txt}), K2 f32 ({f32_plan}) {rec['k2_f32_ms']:.4f} ms "
-              f"(device time of one call {devf_txt}, ahead events "
-              f"{ahead['k2']:.4f} ms), plain {rec['plain_ms']:.4f} ms, "
-              f"F.conv2d f32 {rec['f32_library_ms']:.4f} ms (ahead events "
-              f"{ahead['lib']:.4f} ms); bound "
-              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}; int8 tensor "
-              f"cores {PEAK_INT8_OPS / 1e12:.0f} TOP/s), useful_bound "
-              f"{rec['useful_bound_ms']:.4f} ms (dp4a "
-              f"{DP4A_OPS / 1e12:.1f} TOP/s); sm clock, power, temperature "
+              f"{tuple(y.shape)} GEMM {gq.m} x {gq.n} x {gq.k}, {plan}, grid "
+              f"{grid[0]} x {grid[1]} x {grid[2]}, {rec['smem_bytes']} B "
+              f"dynamic shared memory: K2 int8 device {rec['ms']:.4f} ms "
+              f"(profiler {_ms_txt(rec['profiler_ms'])}; events "
+              f"{rec['events_ms']:.4f} [{rec['events_ms_min']:.4f}, "
+              f"{rec['events_ms_max']:.4f}]; {2 * macs / rec['ms'] / 1e9:.1f} "
+              f"TOP/s), K2 f32 ({f32_plan}) {rec['k2_f32_ms']:.4f} (profiler "
+              f"{_ms_txt(rec['k2_f32_profiler_ms'])}), plain "
+              f"{rec['plain_ms']:.4f}, F.conv2d f32 "
+              f"{rec['f32_library_ms']:.4f} (profiler "
+              f"{_ms_txt(rec['f32_library_profiler_ms'])}), torch._int_mm "
+              f"{' x '.join(map(str, rec['int_mm_shape']))} "
+              f"{rec['int_mm_ms']:.4f} (profiler "
+              f"{_ms_txt(rec['int_mm_profiler_ms'])}; its sums "
+              f"{'equal' if im_ok else 'DIFFER FROM'} the f64 product and "
+              f"K2 int8); bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}, "
+              f"{nbytes} bytes, {macs} MACs); sm clock, power, temperature "
               f"{_clocks()} {tag}")
+        if not im_ok:
+            raise SystemExit("chip_smoke: the torch._int_mm yardstick's "
+                             "operands are not K2 int8's GEMM")
+    up2 = per_tap[1]
+    gate_ms = (up2["profiler_ms"] if up2["profiler_ms"] is not None
+               else up2["ms"])
+    ok = gate_ms <= K2_INT8_UP2_MS_LIMIT
+    print(f"gate: K2 int8 on the voxgan/up2 tap at batch {BUCKET}: "
+          f"{gate_ms:.4f} ms of device time ("
+          f"{'profiler' if up2['profiler_ms'] is not None else 'ahead events'}"
+          f"), limit {K2_INT8_UP2_MS_LIMIT} ms {'ok' if ok else 'FAIL'} {tag}")
+    if not ok:
+        raise SystemExit("chip_smoke: K2 int8 on the VoxGAN up2 tap is over "
+                         "its time limit")
     print(f"time: whole VoxGAN layers at batch {BUCKET} (bound plans: BN "
           f"scale, bias, act; int8 includes the per-sample quantization), "
           f"CUDA events, median of 7 rounds in turns: fused f32 (2 K2 "
@@ -1784,9 +1823,10 @@ def _nd_phase(dev, tag, randn) -> dict:
         for kname, ms_k, calls in top:
             print(f"    {ms_k:.4f} ms in {calls} call(s): {kname[:90]}")
 
-    tot = {k: sum(r[k] for r in per_tap)
-           for k in ("ms", "plain_ms", "f32_library_ms", "bound_ms",
-                     "useful_bound_ms", "k2_f32_ms", "macs", "bytes")}
+    tot = {k: _total(r[k] for r in per_tap)
+           for k in ("ms", "profiler_ms", "events_ms", "plain_ms",
+                     "f32_library_ms", "bound_ms", "k2_f32_ms", "int_mm_ms",
+                     "macs", "bytes")}
     kernel = {
         "name": "sd_conv_int8", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/sd_conv_int8.cu",
@@ -1794,13 +1834,13 @@ def _nd_phase(dev, tag, randn) -> dict:
         "launches": serve["int8"]["launches_by_counter"][
             "SD_CONV_INT8_LAUNCHES"],
         "max_abs_err": max_err,
-        "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+        "ms": tot["ms"], "profiler_ms": tot["profiler_ms"],
+        "events_ms": tot["events_ms"], "plain_ms": tot["plain_ms"],
         "bound_ms": tot["bound_ms"],
         "bound_by": ("operations" if 2.0 * tot["macs"] / PEAK_INT8_OPS
                      >= tot["bytes"] / PEAK_BYTES else "bytes"),
-        "useful_bound_ms": tot["useful_bound_ms"],
         "library_ms": None, "f32_library_ms": tot["f32_library_ms"],
-        "k2_f32_ms": tot["k2_f32_ms"]}
+        "k2_f32_ms": tot["k2_f32_ms"], "int_mm_ms": tot["int_mm_ms"]}
     return {"kernel": kernel,
             "k2_launches_serve_3d": serve["f32"]["launches_by_counter"][
                 "SD_CONV_LAUNCHES"],
@@ -1842,25 +1882,26 @@ def _np_chain_epilogue(xq, ws_oc, s, pad, crop, out_space, comb, bias,
     return out
 
 
-def _int_mm_operands(xq, ws, lg):
-    """K1 int8's GEMM as two int8 matrices for ``torch._int_mm``: A (M, K)
-    gathered from the zero-padded input (im2col, made here once, outside
-    the timing), B the filters read as K x N, N zero-padded to a multiple
-    of 8 (``_int_mm`` takes no other)."""
+def _int_mm_operands(xq, ws, r0, c0, mh, mw):
+    """An int8 implicit GEMM (K1 int8's or K2 int8's) as two int8 matrices
+    for ``torch._int_mm``: A (M, K) gathered from the zero-padded input,
+    ``mh x mw`` positions per sample from input offset ``(r0, c0)`` at tap
+    (0, 0) (im2col, made here once, outside the timing), B the filters
+    read as K x N, N zero-padded to a multiple of 8 (``_int_mm`` takes no
+    other)."""
     import torch
     import torch.nn.functional as F
-    kth, ktw = ws.shape[:2]
-    r0, c0 = lg.q_h - lg.plo_h, lg.q_w - lg.plo_w
+    kth, ktw, cin, n = ws.shape
     lo_h, lo_w = max(0, -r0), max(0, -c0)
-    hi_h = max(0, r0 + lg.mh + kth - 1 - xq.shape[1])
-    hi_w = max(0, c0 + lg.mw + ktw - 1 - xq.shape[2])
+    hi_h = max(0, r0 + mh + kth - 1 - xq.shape[1])
+    hi_w = max(0, c0 + mw + ktw - 1 - xq.shape[2])
     xp = F.pad(xq, (0, 0, lo_w, hi_w, lo_h, hi_h))
     r0, c0 = r0 + lo_h, c0 + lo_w
-    a = torch.cat([xp[:, r0 + kh:r0 + kh + lg.mh, c0 + kw:c0 + kw + lg.mw]
+    a = torch.cat([xp[:, r0 + kh:r0 + kh + mh, c0 + kw:c0 + kw + mw]
                    for kh in range(kth) for kw in range(ktw)], dim=-1)
-    b = ws.reshape(lg.geom.k, lg.geom.n)
-    return (a.reshape(lg.geom.m, lg.geom.k).contiguous(),
-            F.pad(b, (0, -lg.geom.n % 8)).contiguous())
+    b = ws.reshape(kth * ktw * cin, n)
+    return (a.reshape(-1, kth * ktw * cin).contiguous(),
+            F.pad(b, (0, -n % 8)).contiguous())
 
 
 def _chain_phase(dev, tag, randn) -> dict:
@@ -2183,7 +2224,8 @@ def _chain_phase(dev, tag, randn) -> dict:
                                             scale=0.05), None, p.bias)
         x_cf = x_dyn.permute(0, 3, 1, 2).contiguous()
         w_t = randn(l.cin, l.cout, l.k, l.k, scale=0.05)
-        a_mat, b_mat = _int_mm_operands(xq, p.ws, lg)
+        a_mat, b_mat = _int_mm_operands(xq, p.ws, lg.q_h - lg.plo_h,
+                                        lg.q_w - lg.plo_w, lg.mh, lg.mw)
         fns = {
             "static": lambda: k1q(xq, p, row, bias_l, act, od),
             "dynamic": lambda: k1q(xq_d, p, comb_d, p.bias, act, None),
@@ -2361,6 +2403,38 @@ def _chain_phase(dev, tag, randn) -> dict:
           f"{'ok' if ok else 'FAIL'} {tag}")
     if not ok:
         raise SystemExit("chip_smoke: calibrated VoxGAN serving failed")
+    # one VoxGAN batch of 16 calibrated / dynamic / f32, in turns
+    vfull = [r.latent for r in vreqs[:BUCKET]]
+    vservers = {"calibrated": vox}
+    for name, dt in (("dynamic", "int8"), ("f32", torch.float32)):
+        vservers[name] = GenServer(nets=("voxgan",), device=dev,
+                                   max_batch=BUCKET, seed=SEED,
+                                   backend="fused", dtype=dt)
+        vservers[name].warmup()
+    vhost = {k: [] for k in vservers}
+    for r in range(10):
+        for name in (list(vservers) if r % 2 == 0 else list(vservers)[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            vservers[name].run_group("voxgan", vfull)
+            torch.cuda.synchronize()
+            vhost[name].append((time.perf_counter() - t0) * 1e3)
+    vhost_ms = {k: sorted(v)[len(v) // 2] for k, v in vhost.items()}
+    vbreakdown = {k: _device_breakdown(
+        lambda s=s: s.run_group("voxgan", vfull)) for k, s in vservers.items()}
+    print(f"batch calibrated voxgan: one VoxGAN batch of {BUCKET} through "
+          f"run_group, host clock (median of 10, synchronised, in turns): "
+          f"calibrated int8 {vhost_ms['calibrated']:.3f} ms, dynamic int8 "
+          f"{vhost_ms['dynamic']:.3f} ms, f32 {vhost_ms['f32']:.3f} ms {tag}")
+    for name, bd in vbreakdown.items():
+        if bd is None:
+            print(f"  {name}: device time: not measured")
+            continue
+        busy, wall, top = bd
+        print(f"  {name} profiler: device busy {busy:.3f} ms of {wall:.3f} "
+              f"ms wall (idle share {1 - busy / wall:.3f}) {tag}")
+        for kname, ms_k, calls in top:
+            print(f"    {ms_k:.4f} ms in {calls} call(s): {kname[:90]}")
 
     tot = {k: _total(r[k] for r in per_layer)
            for k in ("ms", "profiler_ms", "events_ms", "plain_ms",
@@ -2391,7 +2465,8 @@ def _chain_phase(dev, tag, randn) -> dict:
             "voxgan": {"serve": {k: vstats[k] for k in (
                 "served", "launches", "req_per_s", "wall_s",
                 "latency_ms")}, "counts": vcounts,
-                "elements_differ": n_diff, "chained": chained}}
+                "elements_differ": n_diff, "chained": chained,
+                "batch_host_ms": vhost_ms, "batch_device": vbreakdown}}
 
 
 def _sass_counts(path, kernel: str) -> dict:
@@ -2853,14 +2928,15 @@ def main(json_path: str = "") -> int:
               f"on TF32 operands (HMMA...TF32) {tag}")
         if not (sass[name]["functions"] and sass[name]["HMMA_TF32"]):
             raise SystemExit(f"chip_smoke: {label} has no TF32 HMMA")
-    sass["sd_fused_int8"] = q = _sass_counts(builds["sd_fused_int8"].path,
-                                             "igemm_kernel")
-    print(f"sass: K1 int8 ({q['functions']} instantiations of igemm_kernel "
-          f"in {builds['sd_fused_int8'].path.name}): {q['IMMA']} IMMA (s8 "
-          f"mma.sync), {q['IDP.4A']} IDP.4A (dp4a) {tag}")
-    if not (q["functions"] and q["IMMA"]) or q["IDP.4A"]:
-        raise SystemExit("chip_smoke: K1 int8 does not run on the s8 tensor "
-                         "cores alone (IMMA > 0, IDP.4A = 0)")
+    for name, label in (("sd_fused_int8", "K1 int8"),
+                        ("sd_conv_int8", "K2 int8")):
+        sass[name] = q = _sass_counts(builds[name].path, "igemm_kernel")
+        print(f"sass: {label} ({q['functions']} instantiations of "
+              f"igemm_kernel in {builds[name].path.name}): {q['IMMA']} IMMA "
+              f"(s8 mma.sync), {q['IDP.4A']} IDP.4A (dp4a) {tag}")
+        if not (q["functions"] and q["IMMA"]) or q["IDP.4A"]:
+            raise SystemExit(f"chip_smoke: {label} does not run on the s8 "
+                             "tensor cores alone (IMMA > 0, IDP.4A = 0)")
 
     # ---- 2. per-layer check against the plain version ------------------
     gen = torch.Generator().manual_seed(SEED)
@@ -3242,9 +3318,10 @@ def main(json_path: str = "") -> int:
             k["sass_hmma_tf32"] = sass[k["name"]]["HMMA_TF32"]
         if k["name"] == "sd_conv":
             k["launches_serve_3d"] = nd["k2_launches_serve_3d"]
+        if k["name"] in ("sd_fused_int8", "sd_conv_int8"):
+            k["sass_imma"] = sass[k["name"]]["IMMA"]
+            k["sass_idp4a"] = sass[k["name"]]["IDP.4A"]
         if k["name"] == "sd_fused_int8":
-            k["sass_imma"] = sass["sd_fused_int8"]["IMMA"]
-            k["sass_idp4a"] = sass["sd_fused_int8"]["IDP.4A"]
             # complete since the calibrated half: the main numbers are
             # phase 9's (static row, int8 out), phase 7's launches beside
             k.update(chain["record"], launches_dynamic=k["launches"],
@@ -3293,8 +3370,9 @@ def main(json_path: str = "") -> int:
           f"ms_dynamic_same_rounds; K2's f32 VoxGAN "
           f"serving run as "
           f"launches_serve_3d; K2 int8's ms/plain_ms/bound_ms summed over "
-          f"VoxGAN's three tap convs at batch {BUCKET}, its launches in the "
-          f"int8 VoxGAN serving run; K5's ms/plain_ms/library_ms are device "
+          f"VoxGAN's three tap convs at batch {BUCKET} (device time by ahead "
+          f"events, int_mm_ms torch._int_mm on the same GEMM operands), its "
+          f"launches in the int8 VoxGAN serving run; K5's ms/plain_ms/library_ms are device "
           f"time at the serving shape {LM_K5_SHAPE} (B, H, Hkv, S, D) in "
           f"bf16 (CUDA events where the profiler reports none), ms_f32 the "
           f"f32 kernel's on the same inputs, bound_ms at the useful work, "

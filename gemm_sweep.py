@@ -1,6 +1,6 @@
 """Tile sweep of the port's GEMM-shaped kernels on one NVIDIA GPU: K1's
-float and int8 branches and K2 in f32 (the implicit GEMM), K3 (the
-filter grad on the same tiles) and K4 (the Winograd split deconv).
+float and int8 branches and K2 in f32 and int8 (the implicit GEMM), K3
+(the filter grad on the same tiles) and K4 (the Winograd split deconv).
 
 For each DCGAN deconv layer at the serving bucket (batch 16) it times K1
 (the fused split deconv, f32), K1 int8 (the same launch on int8 codes
@@ -18,7 +18,10 @@ default plan's (``gemm_plan``, ``filter_grad_plan``, ``wino_plan``),
 the best plans with their block counts and the default's time over the
 best's: the data that the default rules rest on (``GEMM_WAVES`` /
 ``DW_WAVES`` blocks per SM).  It also times K1 in bf16 (one tensor-core
-pass instead of 3xTF32's three) on the default plan.
+pass instead of 3xTF32's three) on the default plan, and K2 int8 (the
+3-D lowering's tap conv on the s8 tensor cores) on every plan at
+VoxGAN's three tap convs (batch 16, output depth folded into the batch;
+int8 bit-identical).
 
 Run from the repo root on a machine with a CUDA card::
 
@@ -51,7 +54,7 @@ def sweep(dev, time_ms, card: str) -> dict:
     default plan's."""
     import torch
     from repro_torch import sd
-    from repro_torch.core.accounting import BENCHMARKS
+    from repro_torch.core.accounting import BENCHMARKS, WORKLOADS
     from repro_torch.core.deconv import same_deconv_pads
     from repro_torch.kernels import ops
     from repro_torch.kernels import sd_conv as K
@@ -169,6 +172,29 @@ def sweep(dev, time_ms, card: str) -> dict:
         cases.append((f"K4 dcgan/{l.name}", g4, k4, W.wino_plan(g4),
                       wino_plans(g4), None))
 
+    for l in WORKLOADS["voxgan"]().deconv_layers():
+        pv = sd.plan((4, 4, 4, l.cin, l.cout), 2,
+                     same_deconv_pads((4,) * 3, (2,) * 3), backend="fused",
+                     device=dev)
+        od = l.in_hw[0] + 2 * pv.pi[0] - pv.kt[0] + 1
+        xq = torch.randint(-127, 128, (BATCH * od, *l.in_hw[1:], l.cin),
+                           generator=gen, dtype=torch.int8).to(dev)
+        wq = torch.randint(-127, 128, (*pv.kt[1:], l.cin,
+                                       pv.phases * l.cout),
+                           generator=gen, dtype=torch.int8).to(dev)
+        vpad = ((pv.pi[1],) * 2, (pv.pi[2],) * 2)
+        y = K.sd_conv(xq, wq, pad=vpad)
+        g2q = ConvGeom(h=xq.shape[1], w=xq.shape[2], cin=l.cin,
+                       co=wq.shape[3], kth=pv.kt[1], ktw=pv.kt[2],
+                       out_h=y.shape[1], out_w=y.shape[2],
+                       dtype="int8").as_gemm(xq.shape[0])
+
+        def k2q(plan, xq=xq, wq=wq, vpad=vpad):
+            return K.sd_conv(xq, wq, pad=vpad, plan=plan)
+
+        cases.append((f"K2 int8 voxgan/{l.name} tap", g2q, k2q,
+                      gemm_plan(g2q), gemm_plans(g2q, SPLITS), None))
+
     out = {"card": card, "batch": BATCH, "cases": []}
     for name, geom, fn, default, plans, bf16 in cases:
         grid = wino_grid if name.startswith("K4") else gemm_grid
@@ -178,7 +204,7 @@ def sweep(dev, time_ms, card: str) -> dict:
             # every plan computes the same sums in another order; int8's
             # are exact, so its plans agree bit for bit
             d = (fn(plan) - ref).abs().max().item()
-            tol = (0.0 if name.startswith("K1 int8") else
+            tol = (0.0 if " int8 " in name else
                    1e-4 * max(1.0, ref.abs().max().item()))
             if not d <= tol:
                 raise RuntimeError(f"{name} {plan} differs by {d}")

@@ -1,134 +1,29 @@
 """Tile plans for the port's kernels on Hopper: the stride-1 convs on
 the shared implicit-GEMM mainloop (K1's float and int8 branches and K2
-in f32, :class:`GemmPlan`, :func:`gemm_plan`) and the filter grad on the
-same tile shapes (K3, :func:`filter_grad_plan`), K2's int8 pair
-(:class:`KernelPlan`, :func:`heuristic_plan`, :func:`conv_plan`), and
-the Winograd split conv (K4, :class:`WinoPlan`, :func:`wino_plan`).
+in f32 and int8, :class:`GemmPlan`, :func:`gemm_plan`), the filter grad
+on the same tile shapes (K3, :func:`filter_grad_plan`) and the Winograd
+split conv (K4, :class:`WinoPlan`, :func:`wino_plan`).
 
 The JAX package sizes its Pallas tiles against an 8 MiB VMEM model; on
 the H100 the limit is the shared memory one block can use (227 KB) and,
 in practice, filling the 132 SMs.  Every plan here is a heuristic from
 the launch geometry alone; measuring and caching tiles comes later.
 
-A :class:`KernelPlan` block (K2's int8 pair) of :data:`THREADS`
-threads computes ``(th + res_h>0) x (tw + res_w>0)`` conv positions (the
-extra row/col feeds the residual crop) times ``tc`` phase channels:
-``tc / MICRO`` threads along the channels, the rest along the positions,
-each thread a ``MICRO x MICRO`` register tile.  ``tcin`` input channels
-are staged in shared memory per step of the block's own loop over Cin.
-
-A geometry carries its operand dtype (``dtype``: ``"int8"`` for K1's
-quant branch and K2's int8 pair, ``""`` for float: the f32
-:class:`ConvGeom` that :meth:`ConvGeom.as_gemm` turns into a GEMM), so
-the float and the int8 launch of one layer are distinct geometries (a
-geometry is its own tile key).  :func:`smem_bytes` and
-:func:`heuristic_plan` size K2's int8 blocks alone and refuse a float
-geometry.
+A geometry carries its operand dtype (``""`` f32, ``"bf16"``,
+``"int8"``), so the float and the int8 launch of one layer are distinct
+geometries with their own k-tile depth and column cap.
 """
 
 from __future__ import annotations
 
-import math
-from dataclasses import KW_ONLY, dataclass
+from dataclasses import dataclass
 
 SMEM_BUDGET = 232_448          # bytes of shared memory one block may use
-SMEM_TARGET = 64 * 1024        # keep >= 3 blocks resident per SM
-THREADS = 256
-MICRO = 4                      # register tile: MICRO positions x MICRO chans
-TILE_CHANNELS = (16, 32, 64)   # phase channels per block (4, 8, 16 threads)
-
-
-@dataclass(frozen=True)
-class KernelPlan:
-    """Tile of one fused launch: ``th x tw`` conv rows/cols written per
-    block, ``tcin`` input channels staged per Cin step, ``tc`` phase
-    channels (oc-major, ``oc * sh*sw + phase``) per block."""
-    th: int
-    tw: int
-    tcin: int
-    tc: int
-
-
-@dataclass(frozen=True)
-class FusedGeom:
-    """What the fused kernel launches: unpadded input ``h x w x cin``,
-    ``nc = Cout*sh*sw`` phase channels, ``(kth, ktw)`` taps, interleave
-    ``(sh, sw)``, final output ``out_h x out_w``, the residual crop
-    ``(res_h, res_w)`` and the operand dtype (keyword only: ``""``
-    float, ``"int8"`` the quant branch)."""
-    h: int
-    w: int
-    cin: int
-    nc: int
-    kth: int
-    ktw: int
-    sh: int
-    sw: int
-    out_h: int
-    out_w: int
-    res_h: int = 0
-    res_w: int = 0
-    _: KW_ONLY
-    dtype: str
-
-
-def band_plane(geom: FusedGeom, plan: KernelPlan) -> int:
-    """Words per staged input-channel plane: the conv tile plus its
-    ``K_T - 1`` halo, rounded up to odd so that the per-channel stride
-    spreads consecutive channels over all 32 banks."""
-    rh = plan.th + (1 if geom.res_h else 0)
-    rw = plan.tw + (1 if geom.res_w else 0)
-    return ((rh + geom.kth - 1) * (rw + geom.ktw - 1)) | 1
-
-
-def _require_int8(geom: FusedGeom) -> None:
-    if geom.dtype != "int8":
-        raise ValueError(f"a KernelPlan block of K1/K2 stages int8; {geom} "
-                         "is float (its launch takes a GemmPlan)")
-
-
-def smem_bytes(geom: FusedGeom, plan: KernelPlan) -> int:
-    """Dynamic shared memory of one int8 block: the filter block ``(kth,
-    ktw, tcin, tc)`` and the input band ``(tcin, plane)``, both int8
-    packed four input channels to a 32-bit word (``ceil(tcin / 4)``
-    words per position, the tail zero-filled)."""
-    _require_int8(geom)
-    words = -(-plan.tcin // 4)
-    filt = geom.kth * geom.ktw * words * plan.tc
-    return 4 * (filt + words * band_plane(geom, plan))
-
-
-def heuristic_plan(geom: FusedGeom) -> KernelPlan:
-    """Untuned default of an int8 block.  Channel tile: the smallest of
-    :data:`TILE_CHANNELS` that holds all phase channels, else the
-    largest.  Position tile: as square as the block's ``THREADS / (tc /
-    MICRO) * MICRO`` positions allow, no larger than the output needs.
-    ``tcin``: up to 64 input channels per step, halved until the block
-    fits :data:`SMEM_TARGET` (and never past :data:`SMEM_BUDGET`)."""
-    _require_int8(geom)
-    tc = next((t for t in TILE_CHANNELS if t >= geom.nc), TILE_CHANNELS[-1])
-    positions = THREADS // (tc // MICRO) * MICRO
-    eh, ew = (1 if geom.res_h else 0), (1 if geom.res_w else 0)
-    need_h = -(-geom.out_h // geom.sh)
-    need_w = -(-geom.out_w // geom.sw)
-    side = math.isqrt(positions)
-    th = max(1, min(need_h, side - eh))
-    tw = max(1, min(need_w, positions // (th + eh) - ew))
-    th = max(1, min(need_h, positions // (tw + ew) - eh))
-    tcin = min(64, geom.cin)
-    plan = KernelPlan(th=th, tw=tw, tcin=tcin, tc=tc)
-    while tcin > 1 and smem_bytes(geom, plan) > SMEM_TARGET:
-        tcin = max(1, tcin // 2)
-        plan = KernelPlan(th=th, tw=tw, tcin=tcin, tc=tc)
-    if smem_bytes(geom, plan) > SMEM_BUDGET:
-        raise ValueError(f"no tile of {geom} fits {SMEM_BUDGET} bytes of "
-                         "shared memory")
-    return plan
 
 
 # ---------------------------------------------------------------------------
-# K2, the SD backward's input grad (a stride-1 conv).  Counterpart of the
-# reference's ``tag="dx"`` ConvGeom key; heuristic only, like K1's.
+# K2, the stride-1 conv (the SD backward's input grad; a depth tap of the
+# 3-D lowering, f32 or int8).  Counterpart of the reference's ConvGeom.
 # ---------------------------------------------------------------------------
 
 @dataclass(frozen=True)
@@ -147,35 +42,19 @@ class ConvGeom:
     out_w: int
     dtype: str = ""
 
-    def as_fused(self) -> FusedGeom:
-        """K2's int8 pair is K1 int8's block without the interleave: K1's
-        geometry at stride 1 with no residual crop (same staging of
-        packed int8, same shared memory)."""
-        return FusedGeom(h=self.h, w=self.w, cin=self.cin, nc=self.co,
-                         kth=self.kth, ktw=self.ktw, sh=1, sw=1,
-                         out_h=self.out_h, out_w=self.out_w,
-                         dtype=self.dtype)
-
     def as_gemm(self, batch: int) -> "GemmGeom":
-        """K2 in f32 as the implicit GEMM: ``batch * out_h * out_w``
-        output positions x ``co`` channels x ``kth * ktw * cin``."""
+        """K2 as the implicit GEMM: ``batch * out_h * out_w`` output
+        positions x ``co`` channels x ``kth * ktw * cin``, in the
+        geometry's dtype (int8: 64-deep k-tiles, int8's column cap)."""
         return GemmGeom(m=batch * self.out_h * self.out_w, n=self.co,
-                        k=self.kth * self.ktw * self.cin)
-
-
-def conv_plan(geom: ConvGeom) -> KernelPlan:
-    """The tile of K2's int8 pair: K1's heuristic on
-    :meth:`ConvGeom.as_fused` (``tc`` is the output-channel tile, ``th x
-    tw`` the output positions; an int8 geometry starts ``tcin`` at 64,
-    its staging being 4x smaller).  K2 in f32 takes :func:`gemm_plan`."""
-    return heuristic_plan(geom.as_fused())
+                        k=self.kth * self.ktw * self.cin, dtype=self.dtype)
 
 
 SMS = 132                      # H100 SXM streaming multiprocessors
 
 
 # ---------------------------------------------------------------------------
-# K1's float and int8 branches and K2 in f32: one implicit GEMM
+# K1's and K2's float and int8 branches: one implicit GEMM
 # (csrc/sd_igemm.cuh), M conv positions x N output (phase) channels x K =
 # KTh*KTw*Cin, on the tensor cores in 3xTF32 (bf16: one pass; int8: one
 # s8 pass into int32).

@@ -35,7 +35,7 @@ SIGNATURES = {
     "sd_fused": ("sd_fused_launch", [_P] * 5 + [_I] * 21 + [_P]),
     "sd_fused_int8": ("sd_fused_int8_launch", [_P] * 6 + [_I] * 22 + [_P]),
     "sd_conv": ("sd_conv_launch", [_P] * 4 + [_I] * 15 + [_P]),
-    "sd_conv_int8": ("sd_conv_int8_launch", [_P] * 3 + [_I] * 17 + [_P]),
+    "sd_conv_int8": ("sd_conv_int8_launch", [_P] * 4 + [_I] * 15 + [_P]),
     "sd_filter_grad": ("sd_filter_grad_launch", [_P] * 4 + [_I] * 13 + [_P]),
     "sd_wino": ("sd_wino_launch", [_P] * 5 + [_I] * 25 + [_P]),
     "flash_attn": ("flash_attn_launch",

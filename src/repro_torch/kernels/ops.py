@@ -22,7 +22,7 @@ backward's two convolutions on K2 and K3 (see :mod:`repro_torch.sd.grad`).
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Optional
 
 import torch
 
@@ -30,7 +30,7 @@ from repro_torch.core.deconv import (_check_output_padding, _check_padding,
                                      _ntuple, _pads_nd, crop_interleaved,
                                      deconv_output_shape, depth_to_space,
                                      sd_geometry)
-from repro_torch.kernels.autotune import GemmPlan, KernelPlan, WinoPlan
+from repro_torch.kernels.autotune import GemmPlan, WinoPlan
 from repro_torch.kernels.sd_conv import (_apply_act, check_no_grad,
                                          quant_contract, requantize, sd_conv,
                                          sd_filter_grad, sd_fused)
@@ -111,8 +111,8 @@ def sd_deconv_presplit_fused_3d(x: torch.Tensor, ws_nmajor: torch.Tensor,
                                 act: str = "linear",
                                 scale: Optional[torch.Tensor] = None,
                                 out_dtype: Optional[torch.dtype] = None,
-                                plan: Optional[Union[GemmPlan, KernelPlan]]
-                                = None) -> torch.Tensor:
+                                plan: Optional[GemmPlan] = None
+                                ) -> torch.Tensor:
     """3-D transposed conv from pre-split n-major filters, depth folded
     into the batch (reference: ``ops.sd_deconv_presplit_fused_3d``).
 

@@ -9,7 +9,7 @@ launches the CUDA kernel ``csrc/sd_fused.cu`` (built at first use) or
 raises; on a CPU tensor it runs :func:`sd_fused_ref`, the same function
 in plain PyTorch.  ``SD_FUSED_LAUNCHES`` counts kernel launches.
 
-K1 (both branches) and K2 in f32 are one implicit GEMM on the tensor
+K1 and K2 (both branches of each) are one implicit GEMM on the tensor
 cores (``csrc/sd_igemm.cuh``: 3xTF32 for f32, bf16 in one exact pass,
 int8 in one s8 pass into int32), tiled by a
 :class:`~repro_torch.kernels.autotune.GemmPlan`.  The integers K1 is
@@ -48,8 +48,9 @@ a stride-1 VALID conv with in-kernel pad and an output window), and K3,
 
 K2's int8 pair: :func:`sd_conv` on an int8 ``(x, w)`` pair returns the
 exact int32 conv, the caller owning the dequant.  On a CUDA tensor it
-launches ``csrc/sd_conv_int8.cu`` (counted by ``SD_CONV_INT8_LAUNCHES``,
-never by ``SD_CONV_LAUNCHES``); its plain version is :func:`sd_conv_ref`
+launches ``csrc/sd_conv_int8.cu``, K2's GEMM on the s8 tensor cores
+(counted by ``SD_CONV_INT8_LAUNCHES``, never by ``SD_CONV_LAUNCHES``);
+its plain version is :func:`sd_conv_ref`
 on the int8 pair (:func:`exact_conv_valid` over the padded, windowed
 input).  Its caller is the 3-D lowering
 (:func:`~repro_torch.kernels.ops.sd_deconv_presplit_fused_3d`), one
@@ -62,7 +63,7 @@ import ctypes
 import itertools
 import math
 from dataclasses import dataclass
-from typing import Optional, Tuple, Union
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -70,10 +71,9 @@ import torch.nn.functional as F
 from repro_torch.core.deconv import (conv_valid, conv_valid_filter_grad,
                                      crop_interleaved)
 from repro_torch.kernels.autotune import (ConvGeom, FilterGradGeom,
-                                          GemmGeom, GemmPlan, KernelPlan,
-                                          check_gemm_plan, conv_plan,
-                                          filter_grad_plan, gemm_plan,
-                                          smem_bytes, SMEM_BUDGET)
+                                          GemmGeom, GemmPlan,
+                                          check_gemm_plan, filter_grad_plan,
+                                          gemm_plan)
 
 PadPair = Tuple[int, int]
 ACTS = {"linear": 0, "relu": 1, "tanh": 2}
@@ -304,8 +304,8 @@ def gemm_launch(x_shape, ws_shape, s, pad, crop, out_space,
 
 def check_plan_type(what: str, plan, want: type) -> None:
     """Raise ``TypeError`` unless ``plan`` is None or a ``want``: the
-    GEMM kernels (K1's float and int8 branches, K2 in f32, K3) take a
-    :class:`GemmPlan`, K2's int8 pair a :class:`KernelPlan`, K4 a
+    GEMM kernels (K1's float and int8 branches, K2 and its int8 pair,
+    K3) take a :class:`GemmPlan`, K4 a
     :class:`~repro_torch.kernels.autotune.WinoPlan`.  ``what`` names the
     launch or plan in the message."""
     if plan is not None and not isinstance(plan, want):
@@ -513,7 +513,7 @@ def sd_conv(x: torch.Tensor, w: torch.Tensor, *,
             pad: Tuple[PadPair, PadPair] = ((0, 0), (0, 0)),
             out_start: Tuple[int, int] = (0, 0),
             out_size: Optional[Tuple[int, int]] = None,
-            plan: Optional[Union[GemmPlan, KernelPlan]] = None,
+            plan: Optional[GemmPlan] = None,
             sum_terms: Optional[int] = None) -> torch.Tensor:
     """Stride-1 VALID conv over the logically zero-padded input (K2).
 
@@ -522,15 +522,16 @@ def sd_conv(x: torch.Tensor, w: torch.Tensor, *,
     ``out_start``/``out_size`` select a window of the conv output (in
     padded-input coordinates; default the whole output), so a crop
     after the conv folds into the launch.  Returns (B, *out_size, Co).
-    ``plan``: in f32 a :class:`GemmPlan` (default
-    :func:`~repro_torch.kernels.autotune.gemm_plan`; with ``splits > 1``
-    the split GEMM and its ordered sum, counted as one launch), for the
-    int8 pair a :class:`KernelPlan` (default
-    :func:`~repro_torch.kernels.autotune.conv_plan`); the other type
-    raises ``TypeError``.
+    ``plan``: a :class:`GemmPlan` (default
+    :func:`~repro_torch.kernels.autotune.gemm_plan` on the launch's
+    geometry and dtype; with ``splits > 1`` the split GEMM and its
+    ordered sum, counted as one launch); another type raises
+    ``TypeError``.
 
     An int8 ``(x, w)`` pair returns the exact int32 conv (the halo is
-    the int8 zero); ``sum_terms`` is the number of int8 products in each
+    the int8 zero), the same GEMM on the s8 tensor cores
+    (``csrc/sd_conv_int8.cu``, counted by ``SD_CONV_INT8_LAUNCHES``);
+    ``sum_terms`` is the number of int8 products in each
     element's whole sum when the caller adds several launches (the 3-D
     lowering: ``Cin * KT_d * KT_h * KT_w``), and a sum that could reach
     2^31 raises.  Operands that require grad under grad mode raise on
@@ -542,8 +543,7 @@ def sd_conv(x: torch.Tensor, w: torch.Tensor, *,
                          "are not (B,H,W,Cin), (KTh,KTw,Cin,Co)")
     oh, ow = _conv_window(x.shape, w.shape, pad, out_start, out_size)
     quant = _conv_int8_contract(x, w, sum_terms)
-    check_plan_type(f"sd_conv: a{'n int8' if quant else ' float'} launch",
-                    plan, KernelPlan if quant else GemmPlan)
+    check_plan_type("sd_conv", plan, GemmPlan)
     if x.device.type == "cpu":
         return sd_conv_ref(x, w, pad, out_start, (oh, ow))
     if x.device.type != "cuda":
@@ -561,44 +561,25 @@ def sd_conv(x: torch.Tensor, w: torch.Tensor, *,
         return y
     from repro_torch.kernels.build import load
     (plo_h, _), (plo_w, _) = pad
-    if not quant:
-        gg = geom.as_gemm(b)
-        plan = plan if plan is not None else gemm_plan(gg)
-        check_gemm_plan(gg, plan)
-        work = _split_workspace(gg, plan, x.device)
-        fn = load("sd_conv").fn
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream(x.device).cuda_stream
-            err = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(),
-                     None if work is None else work.data_ptr(), b, h, wd,
-                     cin, co, kth, ktw, plo_h, plo_w, out_start[0],
-                     out_start[1], oh, ow, plan.bn, plan.splits,
-                     ctypes.c_void_p(stream))
-        if err != 0:
-            raise RuntimeError(f"sd_conv kernel launch failed: CUDA error "
-                               f"{err}")
-        SD_CONV_LAUNCHES += 1       # the GEMM and, split, its reduce: one
-        return y
-    plan = plan if plan is not None else conv_plan(geom)
-    smem = smem_bytes(geom.as_fused(), plan)
-    if smem > SMEM_BUDGET:
-        raise ValueError(f"tile {plan} needs {smem} bytes of shared memory; "
-                         f"a block has {SMEM_BUDGET}")
-    tiles = -(-oh // plan.th) * -(-ow // plan.tw)
-    if tiles > 65535 or b > 65535:
-        raise ValueError(f"{tiles} spatial tiles x batch {b} exceed the "
-                         "grid's limits; use a larger tile")
-    fn = load("sd_conv_int8").fn
+    gg = geom.as_gemm(b)
+    plan = plan if plan is not None else gemm_plan(gg)
+    check_gemm_plan(gg, plan)
+    work = _split_workspace(gg, plan, x.device)
+    fn = load("sd_conv_int8" if quant else "sd_conv").fn
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), b, h, wd, cin,
-                 co, kth, ktw, plo_h, plo_w, out_start[0], out_start[1],
-                 oh, ow, plan.th, plan.tw, plan.tcin, plan.tc,
-                 ctypes.c_void_p(stream))
+        err = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(),
+                 None if work is None else work.data_ptr(), b, h, wd, cin,
+                 co, kth, ktw, plo_h, plo_w, out_start[0], out_start[1], oh,
+                 ow, plan.bn, plan.splits, ctypes.c_void_p(stream))
     if err != 0:
-        raise RuntimeError(f"sd_conv int8 kernel launch failed: CUDA error "
-                           f"{err}")
-    SD_CONV_INT8_LAUNCHES += 1
+        raise RuntimeError(f"sd_conv{' int8' if quant else ''} kernel launch "
+                           f"failed: CUDA error {err}")
+    # the GEMM and, split, its reduce: one launch
+    if quant:
+        SD_CONV_INT8_LAUNCHES += 1
+    else:
+        SD_CONV_LAUNCHES += 1
     return y
 
 

@@ -41,7 +41,7 @@ from repro_torch.core.deconv import (_check_output_padding, _check_padding,
                                      sd_geometry, split_filters)
 from repro_torch.core.quant import quantize_channelwise
 from repro_torch.device import resolve_device
-from repro_torch.kernels.autotune import GemmPlan, KernelPlan, WinoPlan
+from repro_torch.kernels.autotune import GemmPlan, WinoPlan
 from repro_torch.kernels.sd_conv import CHAIN_ACTS, check_plan_type
 from repro_torch.kernels.winograd import (MAX_TAPS, supported,
                                           transform_filters)
@@ -90,7 +90,7 @@ class DeconvPlan:
     backend: str = "torch"
     act: str = "linear"                    # "linear" | "relu" | "tanh"
     layout: str = "nmajor"
-    tile: Optional[Union[GemmPlan, KernelPlan, WinoPlan]] = None
+    tile: Optional[Union[GemmPlan, WinoPlan]] = None
     output_padding: Tuple[int, ...] = None  # normalised in plan()
     dtype: str = "native"                  # "native" | "int8"
     ws: Optional[torch.Tensor] = None
@@ -213,7 +213,7 @@ class DeconvPlan:
 
 def plan(filter_shape: Sequence[int], stride, padding=0,
          backend: str = "auto", act: str = "linear",
-         tile: Optional[Union[GemmPlan, KernelPlan, WinoPlan]] = None,
+         tile: Optional[Union[GemmPlan, WinoPlan]] = None,
          output_padding=0,
          dtype: str = "native", device=None) -> DeconvPlan:
     """Compute the split layout for a deconv filter shape ``(*K, C_in,
@@ -227,9 +227,7 @@ def plan(filter_shape: Sequence[int], stride, padding=0,
     plan outside its envelope, int8 included, raises the reference's
     ``ValueError``.  ``tile``: a ``fused`` plan's
     :class:`~repro_torch.kernels.autotune.GemmPlan` (K1's float and int8
-    branches at rank 2, K2 in f32 at rank 3), except an int8 ``fused``
-    plan at rank 3, which takes K2's int8 pair's
-    :class:`~repro_torch.kernels.autotune.KernelPlan` (one launch per
+    branches at rank 2, K2 and K2's int8 pair at rank 3, one launch per
     depth tap); a ``winograd`` plan's
     :class:`~repro_torch.kernels.autotune.WinoPlan` (K4); another type
     raises ``TypeError`` (a ``torch`` plan launches no kernel and ignores
@@ -266,8 +264,7 @@ def plan(filter_shape: Sequence[int], stride, padding=0,
             "comes with its slice (see ROADMAP.md item 11) — use "
             "backend='torch'")
     if resolved != "torch":
-        want = (WinoPlan if resolved == "winograd" else
-                KernelPlan if dtype == "int8" and rank == 3 else GemmPlan)
+        want = WinoPlan if resolved == "winograd" else GemmPlan
         check_plan_type(f"a {dtype} {resolved!r} plan's tile", tile, want)
     return DeconvPlan(kernel=k, stride=st, padding=_pads_nd(padding, rank),
                       cin=cin, cout=cout, backend=resolved, act=act,

@@ -52,7 +52,7 @@ from repro_torch.core.deconv import same_deconv_pads
 from repro_torch import sd
 import repro_torch.kernels.sd_conv as K
 from repro_torch.kernels import ops
-from repro_torch.kernels.autotune import GemmPlan, KernelPlan, WinoPlan
+from repro_torch.kernels.autotune import GemmPlan, WinoPlan
 
 pytestmark = pytest.mark.cuda
 
@@ -747,28 +747,67 @@ def test_calibrated_server_chains_k1_int8(dev, tmp_path, monkeypatch):
 VOXGAN_LAYERS = [l for l in WORKLOADS["voxgan"]().deconv_layers()]
 
 
-@pytest.mark.parametrize("sx,sw,pad,start,size,tile", [
-    ((6, 4, 4, 64), (2, 2, 64, 256), ((1, 1), (1, 1)), (0, 0), None, None),
-    ((6, 8, 8, 32), (2, 2, 32, 128), ((1, 1), (1, 1)), (0, 0), None, None),
-    ((6, 16, 16, 16), (2, 2, 16, 8), ((1, 1), (1, 1)), (0, 0), None, None),
+def _band(td=1):
+    """Depth tap ``td``'s band of a batch-1 5-D input as the 3-D lowering
+    hands it to K2 (``xp[:, td:td + od].reshape(od, H, W, Cin)``): a view
+    whose base lies ``td*H*W*Cin`` bytes into its storage."""
+    def make(t):
+        od, h, w, c = t.shape
+        full = torch.zeros((1, od + td, h, w, c), dtype=t.dtype,
+                           device=t.device)
+        full[:, td:] = t
+        band = full[:, td:td + od].reshape(od, h, w, c)
+        assert band.data_ptr() != full.data_ptr() and band.is_contiguous()
+        return band
+    return make
+
+
+def _offset(nbytes):
+    """The same values in a contiguous view ``nbytes`` into its storage, so
+    that the base is not 16-byte aligned."""
+    def make(t):
+        buf = torch.empty(t.numel() + nbytes, dtype=t.dtype,
+                          device=t.device)
+        view = buf[nbytes:].view(t.shape)
+        view.copy_(t)
+        return view
+    return make
+
+
+@pytest.mark.parametrize("sx,sw,pad,start,size,tile,place", [
+    ((6, 4, 4, 64), (2, 2, 64, 256), ((1, 1), (1, 1)), (0, 0), None, None,
+     None),
+    ((6, 8, 8, 32), (2, 2, 32, 128), ((1, 1), (1, 1)), (0, 0), None, None,
+     None),
+    ((6, 16, 16, 16), (2, 2, 16, 8), ((1, 1), (1, 1)), (0, 0), None, None,
+     None),
     ((2, 5, 6, 3), (3, 3, 3, 5), ((2, 1), (0, 2)), (0, 0), None,
-     KernelPlan(th=2, tw=3, tcin=3, tc=16)),
+     GemmPlan(16, 3), None),
     ((2, 7, 6, 5), (2, 3, 5, 20), ((1, 1), (1, 1)), (1, 2), (5, 3),
-     KernelPlan(th=3, tw=2, tcin=2, tc=16)),
+     GemmPlan(32, 2), None),
     ((1, 9, 10, 70), (3, 3, 70, 33), ((1, 1), (1, 1)), (0, 0), None,
-     KernelPlan(th=4, tw=3, tcin=9, tc=32)),
+     GemmPlan(64, 3), None),
+    ((5, 7, 9, 5), (2, 2, 5, 8), ((1, 1), (1, 1)), (0, 0), None, None,
+     _band()),
+    ((3, 6, 6, 64), (2, 2, 64, 32), ((1, 1), (1, 1)), (0, 0), None,
+     GemmPlan(32, 2), _offset(4)),
 ])
 def test_k2_int8_bit_identical_to_plain(dev, sx, sw, pad, start, size,
-                                        tile):
+                                        tile, place):
     """K2's int8 pair against its plain version (exact sums): VoxGAN's
-    three tap convs (batch 6 x D_out), odd Cin, ragged windows, forced
-    tiles, codes at +-127; 0 elements may differ."""
+    three tap convs (batch 6 x D_out), odd Cin and Co, ragged windows,
+    forced GEMM plans (empty and uneven splits, ragged N), a batch-1 tap
+    band with odd Cin and a Cin-64 input whose base is 4 bytes past a
+    16-byte boundary (the kernel's copy width follows the real pointer),
+    codes at +-127; 0 elements may differ."""
     g = torch.Generator().manual_seed(sum(sx))
     xq = torch.randint(-127, 128, sx, generator=g, dtype=torch.int8)
     wq = torch.randint(-127, 128, sw, generator=g, dtype=torch.int8)
     xq.view(-1)[::7] = 127
     wq.view(-1)[::5] = -127
     xq, wq = xq.to(dev), wq.to(dev)
+    if place is not None:
+        xq = place(xq)
     before = K.SD_CONV_INT8_LAUNCHES, K.SD_CONV_LAUNCHES
     out = K.sd_conv(xq, wq, pad=pad, out_start=start, out_size=size,
                     plan=tile)

@@ -4,11 +4,14 @@ restatements, on the CPU.
 * K2's int8 pair: what :func:`sd_conv` runs for a CPU tensor (its plain
   version, ``sd_conv_ref`` on the int8 pair) equals an int64 numpy
   restatement exactly on ragged output windows, in-kernel pads, odd
-  ``Cin`` and codes at +-127, and so does K2-int8's blocking
-  (``csrc/sd_conv_int8.cu``: four channels to a word, ``tcin`` chunks
-  with zero-filled tails, ``th x tw`` tiles) restated in numpy from the
-  wrapper's tile; the int32 range check counts every term the caller
-  sums (``Cin x KT_d x KT_h x KT_w`` for 3-D).
+  ``Cin`` and codes at +-127, and so does K2 int8's implicit GEMM
+  (``csrc/sd_conv_int8.cu`` on ``sd_igemm.cuh``'s s8 path: A gathered
+  with a zero halo from the window's origin, 64-deep k-tiles, ``GEMM_BM
+  x bn`` blocks, int32 partials summed in split order, the window
+  store) restated through ``_torch_igemm`` on the default ``gemm_plan``
+  and forced ``GemmPlan``s; an int8 ``ConvGeom`` plans an int8 GEMM; the
+  int32 range check counts every term the caller sums (``Cin x KT_d x
+  KT_h x KT_w`` for 3-D).
 * The rank-3 fused lowering (``ops.sd_deconv_presplit_fused_3d``: one K2
   launch per depth tap, here K2's plain version) matches the reference's
   ``backend="xla"`` rank-3 plans and its ``native_deconv`` at the
@@ -28,6 +31,8 @@ The reference's own rank-3 fused backend is not compared against: its
 Pallas kernel needs ``pl.Unblocked``, which the installed jax lacks.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -45,12 +50,15 @@ from repro_torch.core import quant as tq
 from repro_torch.core.accounting import WORKLOADS
 from repro_torch.core.deconv import same_deconv_pads
 from repro_torch.kernels import ops
-from repro_torch.kernels.autotune import (ConvGeom, GemmPlan, KernelPlan,
-                                          check_gemm_plan, conv_plan,
-                                          gemm_plan, smem_bytes)
+from repro_torch.kernels.autotune import (GEMM_BK, GEMM_BK_INT8, GEMM_BN,
+                                          GEMM_BN_INT8, SMEM_BUDGET,
+                                          ConvGeom, GemmPlan, WinoPlan,
+                                          check_gemm_plan, gemm_plan,
+                                          gemm_smem_bytes)
 from repro_torch.launch.serve_gen import (GenServer, main, reduced_specs,
                                           serve_async)
 from repro_torch.models.generative import GenerativeModel
+from _torch_igemm import gather_a, split_k_product
 
 F32 = dict(rtol=1e-5, atol=1e-5)        # the reference's forward gate
 INT8_REF = dict(rtol=1e-3, atol=1e-3)   # vs the reference's int8 xla path
@@ -77,72 +85,59 @@ def _np_conv(xq, wq, pad, out_start, out_size):
     return y[:, sh:sh + n_h, sw:sw + n_w]
 
 
-def _emulate_k2_int8(xq, wq, pad, out_start, out_size, plan):
-    """What ``csrc/sd_conv_int8.cu`` computes, block by block, from the
-    integers the wrapper hands it: per output tile of ``th x tw`` and per
-    Cin step of ``tcin`` channels, words of four channels (lane ``k`` =
-    channel ``ci0 + 4*icw + k``, zero past ``tcin`` or ``Cin``), the
-    masked band (rows and cols outside the input read as zero), one dp4a
-    per word into an int32 register; each output element written once."""
-    b, h, wd, cin = xq.shape
-    kth, ktw, _, co = wq.shape
-    (plo_h, _), (plo_w, _) = pad
+def _emulate_k2_int8(xq, wq, pad, out_start, out_size, plan=None):
+    """What ``csrc/sd_conv_int8.cu`` computes, from the integers the
+    wrapper hands it: K2's GEMM of ``M = B*OH*OW`` output positions x ``N
+    = Co`` x ``K = KTh*KTw*Cin``, A gathered from the int8 input in place
+    (zero halo; the window's origin ``os - plo`` is the input offset of
+    position (0, 0)), the int64 product of each ``GEMM_BM x bn`` block
+    over its split's 64-deep k-tiles, the splits' int32 partials summed in
+    split order, and the window store ``C[m, n] -> y[b, i, j, n]`` with
+    ``m = (b*OH + i)*OW + j``, each element written once."""
+    b = xq.shape[0]
+    kth, ktw, cin, co = wq.shape
     oh, ow = out_size
-    th, tw, tcin = plan.th, plan.tw, plan.tcin
-    tcw = -(-tcin // 4)
-    y = np.zeros((b, oh, ow, co), np.int64)
-    hits = np.zeros((oh, ow), np.int64)
-    for ti in range(-(-oh // th)):
-        for tj in range(-(-ow // tw)):
-            xr0 = out_start[0] + ti * th - plo_h
-            xc0 = out_start[1] + tj * tw - plo_w
-            acc = np.zeros((b, th, tw, co), np.int64)
-            for ci0 in range(0, cin, tcin):
-                lanes = [ci0 + 4 * icw + k for icw in range(tcw)
-                         for k in range(4)]
-                keep = [c for i, c in enumerate(lanes)
-                        if i < tcin and c < cin]
-                band = np.zeros((b, th + kth - 1, tw + ktw - 1, len(keep)),
-                                np.int64)
-                for br in range(band.shape[1]):
-                    for bc in range(band.shape[2]):
-                        if 0 <= xr0 + br < h and 0 <= xc0 + bc < wd:
-                            band[:, br, bc] = xq[:, xr0 + br, xc0 + bc, keep]
-                wk = wq[:, :, keep].astype(np.int64)
-                for a in range(kth):
-                    for c in range(ktw):
-                        acc += np.einsum("bhwi,io->bhwo",
-                                         band[:, a:a + th, c:c + tw], wk[a, c])
-            assert np.abs(acc).max() < 2 ** 31
-            for i in range(th):
-                for j in range(tw):
-                    oy, ox = ti * th + i, tj * tw + j
-                    if oy < oh and ox < ow:
-                        y[:, oy, ox] = acc[:, i, j]
-                        hits[oy, ox] += 1
-    assert (hits == 1).all(), "an output element written != once"
-    return y
+    gg = ConvGeom(h=xq.shape[1], w=xq.shape[2], cin=cin, co=co, kth=kth,
+                  ktw=ktw, out_h=oh, out_w=ow, dtype="int8").as_gemm(b)
+    plan = plan if plan is not None else gemm_plan(gg)
+    check_gemm_plan(gg, plan)
+    assert gg.bk == GEMM_BK_INT8 and (gg.m, gg.n) == (b * oh * ow, co)
+    (plo_h, _), (plo_w, _) = pad
+    a = gather_a(xq, (kth, ktw), out_start[0] - plo_h,
+                 out_start[1] - plo_w, oh, ow)
+    c, _ = split_k_product(a.astype(np.int64),
+                           wq.reshape(gg.k, gg.n).astype(np.int64), plan,
+                           bk=gg.bk)
+    assert np.abs(c).max() < 2 ** 31           # the int32 accumulator
+    y = np.full(b * oh * ow * co, np.iinfo(np.int64).min)
+    m, n = np.divmod(np.arange(c.size), co)
+    y[m * co + n] = c[m, n]
+    assert (y != np.iinfo(np.int64).min).all(), "an element never written"
+    return y.reshape(b, oh, ow, co)
 
 
-# (x shape, w shape, pad, out_start, out_size, forced tile)
+# (x shape, w shape, pad, out_start, out_size)
 K2_INT8 = [
-    ((3, 4, 4, 64), (2, 2, 64, 256), ((1, 1), (1, 1)), (0, 0), None,
-     None),                                          # VoxGAN up1's tap
-    ((2, 5, 6, 3), (3, 3, 3, 5), ((2, 1), (0, 2)), (0, 0), None,
-     KernelPlan(th=2, tw=3, tcin=3, tc=16)),         # Cin 3, asym pads
-    ((2, 7, 6, 5), (2, 3, 5, 20), ((1, 1), (1, 1)), (1, 2), (5, 3),
-     KernelPlan(th=3, tw=2, tcin=2, tc=16)),         # ragged window
-    ((1, 9, 10, 70), (3, 3, 70, 33), ((1, 1), (1, 1)), (0, 0), None,
-     KernelPlan(th=4, tw=3, tcin=9, tc=32)),         # Cin 70, tcin 9
-    ((2, 6, 5, 64), (2, 2, 64, 256), ((1, 0), (0, 1)), (0, 1), (5, 4),
-     None),                                          # window + one-sided
+    ((3, 4, 4, 64), (2, 2, 64, 256), ((1, 1), (1, 1)), (0, 0), None),
+    # VoxGAN up1's tap
+    ((2, 5, 6, 3), (3, 3, 3, 5), ((2, 1), (0, 2)), (0, 0), None),
+    # Cin 3 (byte copies), asym pads, Co 5
+    ((2, 7, 6, 5), (2, 3, 5, 20), ((1, 1), (1, 1)), (1, 2), (5, 3)),
+    # ragged window, Cin 5, Co 20 (4-byte B copies)
+    ((1, 9, 10, 70), (3, 3, 70, 33), ((1, 1), (1, 1)), (0, 0), None),
+    # Cin 70: K 630 is 10 k-tiles, Co 33
+    ((2, 6, 5, 64), (2, 2, 64, 256), ((1, 0), (0, 1)), (0, 1), (5, 4)),
+    # window + one-sided pads
 ]
+# the default plan and every forced one: bn 16, 32 and 64, 1-3 splits
+K2_INT8_PLANS = [None] + [GemmPlan(bn, sp) for bn in GEMM_BN
+                          for sp in (1, 2, 3)]
 
 
 @pytest.mark.parametrize("case", K2_INT8,
                          ids=[f"{c[0]}x{c[1]}" for c in K2_INT8])
 def test_k2_int8_plain_and_blocking_equal_int64(case):
-    sx, swh, pad, start, size, tile = case
+    sx, swh, pad, start, size = case
     rng = np.random.RandomState(sum(sx) + sum(swh))
     xq = rng.randint(-127, 128, sx).astype(np.int8)
     wq = rng.randint(-127, 128, swh).astype(np.int8)
@@ -155,12 +150,41 @@ def test_k2_int8_plain_and_blocking_equal_int64(case):
     assert (K.SD_CONV_INT8_LAUNCHES, K.SD_CONV_LAUNCHES) == before
     assert got.dtype == torch.int32 and tuple(got.shape) == ref.shape
     np.testing.assert_array_equal(got.numpy(), ref)
-    geom = ConvGeom(h=sx[1], w=sx[2], cin=sx[3], co=swh[3], kth=swh[0],
-                    ktw=swh[1], out_h=ref.shape[1], out_w=ref.shape[2],
-                    dtype="int8")
-    plan = tile or conv_plan(geom)
-    np.testing.assert_array_equal(
-        _emulate_k2_int8(xq, wq, pad, start, ref.shape[1:3], plan), ref)
+    for plan in K2_INT8_PLANS:
+        np.testing.assert_array_equal(
+            _emulate_k2_int8(xq, wq, pad, start, ref.shape[1:3], plan), ref,
+            err_msg=str(plan))
+
+
+@pytest.mark.parametrize("layer", ["up1", "up2", "to_vox"])
+def test_k2_int8_plans_an_int8_gemm(layer):
+    """An int8 ``ConvGeom`` is an int8 GEMM (64-deep k-tiles, at most
+    ``GEMM_BN_INT8`` columns by default, an int32 split-K workspace); its
+    f32 twin keeps 32-deep k-tiles and 64 columns.  On VoxGAN's tap conv
+    of each layer at batch 16 (depth folded into the batch)."""
+    l = {l.name: l for l in WORKLOADS["voxgan"]().deconv_layers()}[layer]
+    p = tsd.plan((4, 4, 4, l.cin, l.cout), 2,
+                 same_deconv_pads((4,) * 3, (2,) * 3), backend="torch")
+    od = l.in_hw[0] + 2 * p.pi[0] - p.kt[0] + 1
+    oh, ow = (n + 2 * pi - kt + 1 for n, pi, kt in
+              zip(l.in_hw[1:], p.pi[1:], p.kt[1:]))
+    f32 = ConvGeom(h=l.in_hw[1], w=l.in_hw[2], cin=l.cin,
+                   co=p.phases * l.cout, kth=p.kt[1], ktw=p.kt[2], out_h=oh,
+                   out_w=ow)
+    gf, gq = (g.as_gemm(16 * od) for g in
+              (f32, dataclasses.replace(f32, dtype="int8")))
+    assert (gq.m, gq.n, gq.k) == (gf.m, gf.n, gf.k) == (
+        16 * od * oh * ow, p.phases * l.cout, p.kt[1] * p.kt[2] * l.cin)
+    assert (gq.dtype, gq.bk, gq.itemsize) == ("int8", GEMM_BK_INT8, 1)
+    assert (gf.dtype, gf.bk) == ("", GEMM_BK)
+    pq, pf = gemm_plan(gq), gemm_plan(gf)
+    assert min(gq.n, GEMM_BN_INT8) <= pq.bn <= GEMM_BN_INT8
+    assert pf.bn >= min(gf.n, GEMM_BN[-1])
+    for g, pl in ((gq, pq), (gf, pf)):
+        check_gemm_plan(g, pl)
+        assert gemm_smem_bytes(g, pl) <= SMEM_BUDGET
+    work = K._split_workspace(gq, GemmPlan(pq.bn, 2), torch.device("cpu"))
+    assert work.dtype == torch.int32 and work.shape == (2, gq.m, gq.n)
 
 
 def test_k2_int8_contract():
@@ -175,26 +199,25 @@ def test_k2_int8_contract():
         K.sd_conv(xq, wq.float())
     with pytest.raises(ValueError, match="sum_terms"):
         K.sd_conv(xq.float(), wq.float(), sum_terms=64)
-    # The int8 geometry is its own tile key: the int8 pair stages packed
-    # int8 in a KernelPlan block, f32 runs the GEMM on a GemmPlan.
+    # Both dtypes run the GEMM on a GemmPlan; the int8 geometry is its
+    # own GEMM (64-deep k-tiles, int8's column cap).
     f32 = ConvGeom(h=8, w=8, cin=32, co=128, kth=2, ktw=2, out_h=9, out_w=9)
     i8 = ConvGeom(h=8, w=8, cin=32, co=128, kth=2, ktw=2, out_h=9, out_w=9,
                   dtype="int8")
-    plan = KernelPlan(th=8, tw=8, tcin=32, tc=64)
     assert f32 != i8
-    assert smem_bytes(i8.as_fused(), plan) == 4 * (
-        2 * 2 * 8 * 64 + 8 * ((9 * 9) | 1))     # a 32-bit word per 4 codes
-    assert conv_plan(i8).tcin == 32
-    assert conv_plan(ConvGeom(4, 4, 64, 256, 2, 2, 5, 5, "int8")).tcin == 64
-    gg = f32.as_gemm(6)
-    assert (gg.m, gg.n, gg.k) == (6 * 9 * 9, 128, 2 * 2 * 32)
+    gg, gq = f32.as_gemm(6), i8.as_gemm(6)
+    assert (gg.m, gg.n, gg.k) == (gq.m, gq.n, gq.k) == (6 * 9 * 9, 128,
+                                                        2 * 2 * 32)
     gp = gemm_plan(gg)
     assert isinstance(gp, GemmPlan) and gp.bn == 64
+    assert gemm_plan(gq) == GemmPlan(GEMM_BN_INT8, 1)
     check_gemm_plan(gg, gp)
-    with pytest.raises(TypeError, match="KernelPlan"):
-        K.sd_conv(xq, wq, plan=gp)
-    with pytest.raises(TypeError, match="GemmPlan"):
-        K.sd_conv(xq.float(), wq.float(), plan=plan)
+    assert torch.equal(K.sd_conv(xq, wq, plan=GemmPlan(16, 3)),
+                       K.sd_conv(xq, wq))
+    wp = WinoPlan(nth=2, ntw=2, nb=1, tc=16)
+    for x, w in ((xq, wq), (xq.float(), wq.float())):
+        with pytest.raises(TypeError, match="GemmPlan"):
+            K.sd_conv(x, w, plan=wp)
 
 
 def test_fused_3d_int8_contract():

@@ -220,51 +220,46 @@ def test_heuristic_plan_fits_and_covers(batch):
 
 
 def test_plan_types_follow_the_dtype():
-    """The GEMM launches (K1 float and int8, K2 f32, K3) take a GemmPlan,
-    K2's int8 pair (an int8 plan at rank 3) a KernelPlan, winograd (K4) a
-    WinoPlan; another type raises TypeError (plan, wrapper, any
-    device)."""
-    kp = A.KernelPlan(th=2, tw=2, tcin=4, tc=16)
+    """The GEMM launches (K1 and K2, float and int8, and K3) take a
+    GemmPlan, at rank 2 and rank 3 alike; winograd (K4) a WinoPlan;
+    another type raises TypeError (plan, wrapper, any device)."""
     gp = GemmPlan(16, 1)
     wp = A.WinoPlan(nth=2, ntw=2, nb=1, tc=16)
     with pytest.raises(TypeError, match="GemmPlan"):
-        tsd.plan((4, 4, 3, 2), 2, 1, backend="fused", tile=kp)
-    # int8 at rank 2 is K1 int8 (a GemmPlan), at rank 3 K2's int8 pair
-    with pytest.raises(TypeError, match="GemmPlan"):
-        tsd.plan((4, 4, 3, 2), 2, 1, backend="fused", dtype="int8", tile=kp)
-    assert tsd.plan((4, 4, 3, 2), 2, 1, backend="fused", dtype="int8",
-                    tile=gp).tile == gp
-    with pytest.raises(TypeError, match="KernelPlan"):
-        tsd.plan((4, 4, 4, 3, 2), 2, 1, backend="fused", dtype="int8",
-                 tile=gp)
-    assert tsd.plan((4, 4, 4, 3, 2), 2, 1, backend="fused", dtype="int8",
-                    tile=kp).tile == kp
+        tsd.plan((4, 4, 3, 2), 2, 1, backend="fused", tile=wp)
+    # int8 at rank 2 is K1 int8, at rank 3 K2's int8 pair: both GemmPlans
+    for shape in ((4, 4, 3, 2), (4, 4, 4, 3, 2)):
+        with pytest.raises(TypeError, match="GemmPlan"):
+            tsd.plan(shape, 2, 1, backend="fused", dtype="int8", tile=wp)
+        assert tsd.plan(shape, 2, 1, backend="fused", dtype="int8",
+                        tile=gp).tile == gp
     with pytest.raises(TypeError, match="GemmPlan"):
         sd_fused(torch.zeros(1, 4, 4, 3, dtype=torch.int8),
                  torch.zeros(2, 2, 3, 8, dtype=torch.int8), 2,
-                 scale=torch.ones(1, 8), plan=kp)
-    for bad in (gp, kp):
-        with pytest.raises(TypeError, match="WinoPlan"):
-            tsd.plan((4, 4, 3, 2), 2, 1, backend="winograd", tile=bad)
+                 scale=torch.ones(1, 8), plan=wp)
+    with pytest.raises(TypeError, match="WinoPlan"):
+        tsd.plan((4, 4, 3, 2), 2, 1, backend="winograd", tile=gp)
     assert tsd.plan((4, 4, 3, 2), 2, 1, backend="winograd",
                     tile=wp).tile == wp
     from repro_torch.kernels import winograd as W
     with pytest.raises(TypeError, match="WinoPlan"):
         W.sd_wino(torch.randn(1, 4, 4, 3),
                   W.transform_filters(torch.randn(2, 2, 3, 8)), (2, 2), 2,
-                  plan=kp)
+                  plan=gp)
     assert tsd.plan((4, 4, 3, 2), 2, 1, backend="fused", tile=gp).tile == gp
     x = torch.randn(1, 4, 4, 3)
     with pytest.raises(TypeError, match="GemmPlan"):
-        sd_fused(x, torch.randn(2, 2, 3, 8), 2, plan=kp)
+        sd_fused(x, torch.randn(2, 2, 3, 8), 2, plan=wp)
     import repro_torch.kernels.sd_conv as K
     with pytest.raises(TypeError, match="GemmPlan"):
-        K.sd_conv(x, torch.randn(3, 3, 3, 2), plan=kp)
+        K.sd_conv(x, torch.randn(3, 3, 3, 2), plan=wp)
     xq = torch.zeros(1, 4, 4, 3, dtype=torch.int8)
-    with pytest.raises(TypeError, match="KernelPlan"):
-        K.sd_conv(xq, torch.zeros(3, 3, 3, 2, dtype=torch.int8), plan=gp)
+    wq = torch.zeros(3, 3, 3, 2, dtype=torch.int8)
     with pytest.raises(TypeError, match="GemmPlan"):
-        K.sd_filter_grad(x, torch.zeros(1, 2, 2, 5), (3, 3), plan=kp)
+        K.sd_conv(xq, wq, plan=wp)
+    assert K.sd_conv(xq, wq, plan=gp).dtype == torch.int32
+    with pytest.raises(TypeError, match="GemmPlan"):
+        K.sd_filter_grad(x, torch.zeros(1, 2, 2, 5), (3, 3), plan=wp)
     for bad in (GemmPlan(24, 1), GemmPlan(128, 1), GemmPlan(16, 0),
                 GemmPlan(16, -1)):
         with pytest.raises(ValueError, match="kernel takes"):

@@ -45,8 +45,7 @@ from repro_torch.core.deconv import sd_geometry
 from repro_torch.core.ssim import ssim as t_ssim
 from repro_torch.kernels import autotune as A
 from repro_torch.kernels import ops
-from repro_torch.kernels.autotune import (FusedGeom, GemmPlan, KernelPlan,
-                                          heuristic_plan, smem_bytes)
+from repro_torch.kernels.autotune import GemmPlan
 from repro_torch.launch import serve_gen
 from repro_torch.launch.serve_gen import GenServer, main, reduced_specs
 from repro_torch.models.generative import GenerativeModel
@@ -190,24 +189,6 @@ def test_plan_int8_contract():
     c = bound.with_chain(sx_in=0.1)
     assert torch.equal(tsd.execute(c, codes),
                        tsd.execute(c, codes.float() * c.sx_in))
-
-
-def test_geom_key_and_smem_distinct_per_dtype():
-    f32 = FusedGeom(8, 8, 256, 512, 3, 3, 2, 2, 16, 16, dtype="")
-    i8 = dataclasses.replace(f32, dtype="int8")
-    assert f32 != i8                 # distinct geometries, distinct tiles
-    plan = KernelPlan(th=8, tw=8, tcin=32, tc=64)
-    # int8 stages four channels to a word: 8 words for 32 channels
-    assert smem_bytes(i8, plan) == 4 * (
-        3 * 3 * 8 * 64 + 8 * ((10 * 10) | 1))
-    odd = KernelPlan(th=8, tw=8, tcin=7, tc=64)     # tail word zero-filled
-    assert smem_bytes(i8, odd) == smem_bytes(
-        i8, dataclasses.replace(odd, tcin=8))
-    assert heuristic_plan(i8).tcin == 64
-    # a float launch takes a GemmPlan: no KernelPlan block is sized for it
-    for fn in (lambda: smem_bytes(f32, plan), lambda: heuristic_plan(f32)):
-        with pytest.raises(ValueError, match="GemmPlan"):
-            fn()
 
 
 # ---------------------------------------------------------------------------
