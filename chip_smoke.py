@@ -138,9 +138,10 @@ Drives ``repro_torch`` only (never JAX, never the JAX package ``repro``):
    times a VoxGAN batch calibrated / dynamic / f32 in turns, with each
    one's device busy time;
 10. K5 and dense LM serving: counts the HGMMA (tensor-core) and UTMALDG
-   (TMA load) instructions in the SASS of K5's bf16 kernel and fails if
-   either is 0; holds K5 (``flash_attn.cu``: bf16 on wgmma + TMA, f32 on
-   FFMA) against its plain version ``flash_attention_ref`` at the serving
+   (TMA load) instructions in the SASS of K5's bf16 kernel and the TF32
+   HMMA instructions in that of its f32 kernel, and fails if any is 0;
+   holds K5 (``flash_attn.cu``: bf16 on wgmma + TMA, f32 on mma.sync in
+   3xTF32) against its plain version ``flash_attention_ref`` at the serving
    shape (4 x 32 q / 8 kv heads x 4,080 x 160, bf16 and f32), on D in
    (16, 40, 64, 128, 160, 256) x S in (1, 63, 65, 127, 128, 129, 255,
    257, 2049) x causal and full x f32 and bf16 with grouped heads, and on
@@ -152,10 +153,13 @@ Drives ``repro_torch`` only (never JAX, never the JAX package ``repro``):
    serving shape,
    device time from the profiler (``bound_ms`` at the useful work on the
    bf16 tensor cores, ``bound_split_ms`` at the 1.5x of the split P,
-   ``bound_f32_ms`` at the CUDA cores), and fails if K5 bf16 takes more
-   than 5.2 ms there; runs StableLM-2-12B widths at depth 2 in f32 through
-   ``prefill`` on K5 and on the plain scan (logits within ``1e-4 *
-   max(1, max|ref|)``, 8 greedy tokens each); serves 8 prompts of 4,080
+   ``bound_f32_ms`` at the CUDA cores, ``bound_f32_tc_ms`` at its 3xTF32
+   work on the TF32 tensor cores), and fails if K5 bf16 takes more than
+   5.2 ms or K5 f32 more than 25.6 ms there; runs StableLM-2-12B widths
+   at depth 2 in f32 through ``prefill`` on 4 prompts of 4,080 tokens
+   (the serving shape's K5 launches) on K5 and on the plain scan (logits
+   within ``1e-4 * max(1, max|ref|)``, 8 greedy tokens each) and profiles
+   one f32 prefill (device busy, K5 f32's share); serves 8 prompts of 4,080
    tokens through ``repro_torch.launch.serve.serve`` on StableLM-2-12B
    at all 40 layers (random weights from seed 0, drawn in f32 and
    rounded to bf16 leaf by leaf; bf16 compute, 4 slots, ``max_len``
@@ -224,9 +228,10 @@ K5_F32_GATE = 2e-5        # tests/test_flash_attn.py:30, rel. max(1, max|ref|)
 # output once (at most 2^-8 |ref|), so |d| <= 2^-7 |ref| + 1e-4 max|ref|
 K5_BF16_REL, K5_BF16_FLOOR = 2.0 ** -7, 1e-4
 K5_SWEEP_D = (16, 40, 64, 128, 160, 256)
-# around both kernels' tiles: f32 (64, 64), bf16 (128, 64)
+# around both kernels' tiles: f32 (128 or 64, 32), bf16 (128, 64)
 K5_SWEEP_S = (1, 63, 65, 127, 128, 129, 255, 257, 2049)
 K5_BF16_MS_LIMIT = 5.2    # ms at LM_K5_SHAPE: 10x below the FFMA kernel's
+K5_F32_MS_LIMIT = 25.6    # ms at LM_K5_SHAPE: half the FFMA kernel's 51.3
 LM_BF16_GATE = 5e-2       # served logits vs the plain scan, rel. max|ref|
                           # (bf16, tests/test_flash_attn.py:39)
 LM_ARCH = "stablelm-12b"
@@ -237,7 +242,8 @@ LM_PROMPT_LEN = 4080
 LM_SLOTS = 4
 LM_MAX_NEW = 16
 LM_MAX_LEN = 4096         # StableLM-2's context length
-LM_GATE_LEN = 2080        # past 2,048: the prefill takes the blockwise branch
+LM_GATE_LEN = 4080        # past 2,048: the prefill takes the blockwise branch
+LM_GATE_PROMPTS = 4       # with LM_GATE_LEN, LM_K5_SHAPE's B and S
 LM_GATE_DECODE = 8
 
 
@@ -329,10 +335,10 @@ def _clocks() -> str:
     return out.stdout.strip()
 
 
-def _device_breakdown(fn):
+def _device_breakdown(fn, top: int = 6):
     """One synchronised call of ``fn`` under ``torch.profiler``: (device
-    busy ms, wall ms, [(kernel, ms, calls)] top 6 by device time), or
-    None when the profiler saw no device time."""
+    busy ms, wall ms, [(kernel, ms, calls)] the ``top`` by device time),
+    or None when the profiler saw no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -355,7 +361,7 @@ def _device_breakdown(fn):
     if not rows:
         return None
     rows.sort(key=lambda r: -r[1])
-    return sum(r[1] for r in rows), wall, rows[:6]
+    return sum(r[1] for r in rows), wall, rows[:top]
 
 
 def _gate_err(out, ref, rel: float, floor_one: bool) -> tuple:
@@ -2511,25 +2517,28 @@ def _plain_scan():
 
 def _lm_phase(dev, tag: str) -> dict:
     """Phase 10: K5 and the dense LM serving path.  (a) HGMMA and UTMALDG
-    in the SASS of K5's bf16 kernel; (b) K5 against its
-    plain version ``flash_attention_ref`` (TF32 off) at the serving shape
-    (bf16 and f32, grouped heads; the plain version one sample at a time)
-    and on D x S x causal x dtype cases with grouped heads: f32 within
-    ``2e-5 * max(1, max|ref|)``, bf16 within ``1e-2 * max|ref|`` of the
-    plain version in f32 on the same bf16 inputs and, element by element,
-    within ``2^-7 |ref| + 1e-4 max|ref|``; (c) at the serving shape, K5
-    bf16, K5 f32, its plain version and ``F.scaled_dot_product_attention``
-    (a yardstick the port never calls) in turns, device time from the
-    profiler, K5 bf16 at most ``K5_BF16_MS_LIMIT``; (d)
-    StableLM-2-12B widths at depth 2 in f32: two 2,080-token prompts
-    through ``prefill`` with K5 and with the plain scan, last-token
-    logits within ``1e-4 * max(1, max|ref|)``, then 8 greedy decode
-    tokens from each; (e) StableLM-2-12B at all 40 layers (bf16 weights
-    drawn leaf by leaf, bf16 compute) serving 8 prompts of 4,080 tokens
-    through ``launch/serve.serve`` with 4 slots and ``max_len`` 4,096: 40
-    K5 launches per prefill group and none in decode, finite logits, the
-    first group's prefill logits against the plain scan within ``5e-2 *
-    max|ref|``.  Returns K5's record and the reports."""
+    in the SASS of K5's bf16 kernel, TF32 HMMA in its f32 kernel's; (b)
+    K5 against its plain version ``flash_attention_ref`` (TF32 off) at
+    the serving shape (bf16 and f32, grouped heads; the plain version one
+    sample at a time) and on D x S x causal x dtype cases with grouped
+    heads: f32 within ``2e-5 * max(1, max|ref|)``, bf16 within ``1e-2 *
+    max|ref|`` of the plain version in f32 on the same bf16 inputs and,
+    element by element, within ``2^-7 |ref| + 1e-4 max|ref|``; (c) at the
+    serving shape, K5 bf16, K5 f32, its plain version and
+    ``F.scaled_dot_product_attention`` (a yardstick the port never calls)
+    in turns, device time from the profiler, K5 bf16 at most
+    ``K5_BF16_MS_LIMIT`` and K5 f32 at most ``K5_F32_MS_LIMIT``; (d)
+    StableLM-2-12B widths at depth 2 in f32: ``LM_GATE_PROMPTS`` prompts
+    of ``LM_GATE_LEN`` tokens (K5's launches at LM_K5_SHAPE) through
+    ``prefill`` with K5 and with the plain scan, last-token logits within
+    ``1e-4 * max(1, max|ref|)``, then 8 greedy decode tokens from each,
+    and one f32 prefill under the profiler; (e) StableLM-2-12B at all 40
+    layers (bf16 weights drawn leaf by leaf, bf16 compute) serving 8
+    prompts of 4,080 tokens through ``launch/serve.serve`` with 4 slots
+    and ``max_len`` 4,096: 40 K5 launches per prefill group and none in
+    decode, finite logits, the first group's prefill logits against the
+    plain scan within ``5e-2 * max|ref|``.  Returns K5's record and the
+    reports."""
     import dataclasses
     import numpy as np
     import torch
@@ -2553,6 +2562,14 @@ def _lm_phase(dev, tag: str) -> dict:
     if not (sass["functions"] and sass["HGMMA"] and sass["UTMALDG"]):
         raise SystemExit("chip_smoke: K5's bf16 kernel has no HGMMA or no "
                          "UTMALDG in its SASS")
+    sass_f32 = _sass_counts(lib.path, "flash_attn_kernel")
+    print(f"sass: K5 f32 ({sass_f32['functions']} instantiations of "
+          f"flash_attn_kernel in {lib.path.name}): {sass_f32['HMMA']} HMMA, "
+          f"{sass_f32['HMMA_TF32']} of them on TF32 operands (HMMA...TF32) "
+          f"{tag}")
+    if not (sass_f32["functions"] and sass_f32["HMMA_TF32"]):
+        raise SystemExit("chip_smoke: K5's f32 kernel has no TF32 HMMA in "
+                         "its SASS")
 
     def qkv(b, h, hkv, s, d, dtype):
         return tuple((torch.randn(b, n, s, d, generator=gen) * 0.5)
@@ -2650,22 +2667,27 @@ def _lm_phase(dev, tag: str) -> dict:
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
     # the bf16 kernel's P.V runs twice (P = P_hi + P_lo): 1.5x the work
     t_split = 1.5 * t_ops
-    # the f32 kernel: its useful work on the CUDA cores, twice the bytes
+    # the f32 kernel: its useful work on the CUDA cores, twice the bytes;
+    # and the 3xTF32 work it does at the TF32 tensor cores
     t_f32 = max(flops / PEAK_F32_FLOPS * 1e3, 2 * t_bytes)
+    t_f32_tc = max(3 * flops / PEAK_TF32_FLOPS * 1e3, 2 * t_bytes)
     measured = {n: dev_ms[n] if math.isfinite(dev_ms[n]) else ev[n][0]
                 for n in fns}
+    src = {n: "profiler" if math.isfinite(dev_ms[n]) else "CUDA events"
+           for n in fns}
     print(f"time: K5 at the serving shape ({b}, {h} q / {hkv} kv heads, S "
           f"{s}, D {d}, causal), in turns: device time from the "
           f"profiler (median of the 3 profiled calls that report any) / "
           f"CUDA events over 3 calls (median [min, max] of 5; taken as the "
           f"time where the profiler reports none): {tag}")
     for n, label in (("k5", "K5 bf16 (wgmma + TMA)"),
-                     ("k5_f32", "K5 f32 (FFMA), the same inputs in f32"),
+                     ("k5_f32", "K5 f32 (3xTF32 mma.sync), the same "
+                                "inputs in f32"),
                      ("plain", "plain (per sample, f32)"),
                      ("sdpa", "F.scaled_dot_product_attention bf16"),
                      ("sdpa_f32", "F.scaled_dot_product_attention f32")):
         print(f"  {label}: {dev_ms[n]:.3f} ms device / {ev[n][0]:.3f} ms "
-              f"[{ev[n][1]:.3f}, {ev[n][2]:.3f}] events")
+              f"[{ev[n][1]:.3f}, {ev[n][2]:.3f}] events; taken: {src[n]}")
     print(f"  bound {max(t_ops, t_bytes):.3f} ms at the useful work "
           f"({'operations' if t_ops >= t_bytes else 'bytes'}: {flops:.3e} "
           f"at the 989 TFLOP/s bf16 tensor cores; {nbytes / 1e6:.1f} MB), "
@@ -2675,9 +2697,24 @@ def _lm_phase(dev, tag: str) -> dict:
           f"{max(t_split, t_bytes) / measured['k5']:.3f} of the split "
           f"bound, {measured['k5'] / measured['sdpa']:.2f}x SDPA; sm clock, "
           f"power, temperature {_clocks()} {tag}")
+    print(f"  K5 f32 bounds: {t_f32:.3f} ms at the useful work on the "
+          f"{PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s CUDA cores, {t_f32_tc:.3f} "
+          f"ms at its 3xTF32 work (3x) on the "
+          f"{PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s TF32 tensor cores; K5 f32 "
+          f"{measured['k5_f32']:.3f} ms ({src['k5_f32']}) at "
+          f"{flops / measured['k5_f32'] / 1e9:.1f} TFLOP/s useful, "
+          f"{t_f32_tc / measured['k5_f32']:.3f} of the 3xTF32 bound, "
+          f"{t_f32 / measured['k5_f32']:.3f} of the CUDA-core one, "
+          f"{measured['k5_f32'] / measured['sdpa_f32']:.3f}x SDPA f32 "
+          f"({measured['sdpa_f32']:.3f} ms, {src['sdpa_f32']}); limit "
+          f"{K5_F32_MS_LIMIT} ms {tag}")
     if measured["k5"] > K5_BF16_MS_LIMIT:
         raise SystemExit(f"chip_smoke: K5 bf16 took {measured['k5']:.3f} ms "
                          f"at the serving shape, over {K5_BF16_MS_LIMIT} ms")
+    if measured["k5_f32"] > K5_F32_MS_LIMIT:
+        raise SystemExit(f"chip_smoke: K5 f32 took "
+                         f"{measured['k5_f32']:.3f} ms at the serving shape, "
+                         f"over {K5_F32_MS_LIMIT} ms")
     del q, k, v, q32, k32, v32
     torch.cuda.empty_cache()
 
@@ -2686,9 +2723,9 @@ def _lm_phase(dev, tag: str) -> dict:
                                 compute_dtype="float32")
     lm = build_lm(cfg32, device=dev)
     params = lm.init(torch.Generator(device=dev).manual_seed(SEED))
-    toks = torch.tensor(random_prompts(cfg32.vocab_size, 2, LM_GATE_LEN,
-                                       seed=SEED), dtype=torch.int32,
-                        device=dev)
+    toks = torch.tensor(random_prompts(cfg32.vocab_size, LM_GATE_PROMPTS,
+                                       LM_GATE_LEN, seed=SEED),
+                        dtype=torch.int32, device=dev)
     runs = {}
     with torch.no_grad():
         for name in ("k5", "scan"):
@@ -2696,7 +2733,7 @@ def _lm_phase(dev, tag: str) -> dict:
             held = _plain_scan() if name == "scan" \
                 else contextlib.nullcontext()
             with held:
-                cache = lm.init_cache(2, LM_GATE_LEN + 16)
+                cache = lm.init_cache(LM_GATE_PROMPTS, LM_GATE_LEN + 16)
                 lg, cache = lm.prefill(params, {"inputs": toks}, cache)
             n_k5 = FA.FLASH_ATTN_LAUNCHES
             out, t, logits = [], torch.argmax(lg, -1).to(torch.int32), [lg]
@@ -2709,8 +2746,9 @@ def _lm_phase(dev, tag: str) -> dict:
     gate_d, tol = _gate_err(runs["k5"][0], runs["scan"][0], 1e-4, True)
     ok = (gate_d <= tol and runs["k5"][1] == 2 and runs["scan"][1] == 0
           and bool(torch.isfinite(runs["k5"][0]).all()))
-    print(f"path: {LM_ARCH} widths at depth 2, f32 compute, TF32 off, 2 "
-          f"prompts of {LM_GATE_LEN} tokens: prefill through K5 ("
+    print(f"path: {LM_ARCH} widths at depth 2, f32 compute, TF32 off, "
+          f"{LM_GATE_PROMPTS} prompts of {LM_GATE_LEN} tokens: prefill "
+          f"through K5 ("
           f"{runs['k5'][1]} launches) vs the plain scan ({runs['scan'][1]}):"
           f" last-token logits max|d| {gate_d:.3e} tol {tol:.3e} "
           f"{'ok' if ok else 'FAIL'} {tag}")
@@ -2727,7 +2765,27 @@ def _lm_phase(dev, tag: str) -> dict:
     if not ok:
         raise SystemExit("chip_smoke: the LM prefill through K5 disagrees "
                          "with the plain scan")
-    del lm, params, runs, cache
+    del runs, cache
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        pbr = _device_breakdown(lambda: lm.prefill(
+            params, {"inputs": toks},
+            lm.init_cache(LM_GATE_PROMPTS, LM_GATE_LEN + 16)), top=1000)
+    if pbr is None:
+        pbusy = pwall = pk5 = float("nan")
+        print("  one f32 prefill under the profiler: not measured (no "
+              "device time reported)")
+    else:
+        pbusy, pwall, ptop = pbr
+        pk5 = sum(ms for name, ms, _ in ptop if "flash_attn" in name)
+        print(f"  one f32 prefill under the profiler: device busy "
+              f"{pbusy:.3f} ms of {pwall:.3f} ms wall (busy share "
+              f"{pbusy / pwall:.3f}); K5 f32 {pk5:.3f} ms ({pk5 / pbusy:.3f} "
+              f"of busy, {pk5 / cfg32.n_layers:.3f} ms per launch on the "
+              f"LM's (B, S, H, D) views) {tag}")
+        for name, ms_k, calls in ptop[:6]:
+            print(f"    {ms_k:.3f} ms in {calls} call(s): {name[:90]}")
+    del lm, params
     torch.cuda.empty_cache()
 
     # ---- (e) serve StableLM-2-12B at all its layers --------------------
@@ -2853,10 +2911,13 @@ def _lm_phase(dev, tag: str) -> dict:
               "bound_split_ms": max(t_split, t_bytes),
               "library_ms": measured["sdpa"], "ms_events": ev["k5"][0],
               "ms_f32": measured["k5_f32"], "bound_f32_ms": t_f32,
+              "bound_f32_tc_ms": t_f32_tc,
               "library_f32_ms": measured["sdpa_f32"],
-              "sass_bf16": sass}
+              "sass_bf16": sass, "sass_f32": sass_f32}
     report = {"k5_device_ms": dev_ms, "k5_events_ms": ev,
               "path_gate_max_abs": gate_d,
+              "f32_prefill_device": {"busy_ms": pbusy, "wall_ms": pwall,
+                                     "k5_ms": pk5},
               "serve_gate_max_abs": dmax,
               "serve": {"prefill_ms": stats["prefill_ms"],
                         "decode_ms": stats["decode_ms"],
@@ -3376,8 +3437,9 @@ def main(json_path: str = "") -> int:
           f"time at the serving shape {LM_K5_SHAPE} (B, H, Hkv, S, D) in "
           f"bf16 (CUDA events where the profiler reports none), ms_f32 the "
           f"f32 kernel's on the same inputs, bound_ms at the useful work, "
-          f"bound_split_ms at the bf16 kernel's split P, its launches in "
-          f"phase 10's serving run) {tag}")
+          f"bound_split_ms at the bf16 kernel's split P, bound_f32_ms and "
+          f"bound_f32_tc_ms the f32 kernel's on the CUDA cores and in "
+          f"3xTF32, its launches in phase 10's serving run) {tag}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -29,9 +29,9 @@
 // bf16, the serving dtype: `flash_attn_wgmma_kernel`, both products on
 // the tensor cores.  What bounds it on the H100: at the serving shape
 // (B 4, H 32, S 4080, D 160, causal) the useful work is 2 * B * H * D *
-// S * (S + 1) = 6.8e14 operations, 0.690 ms at the 989 TFLOP/s of the
-// bf16 tensor cores; the bytes (q, k, v read once, o written once, 0.2
-// GB) take 0.06 ms at 3.35 TB/s, so it is bound by operations.  P is
+// S * (S + 1) = 6.8e11 operations, 0.690 ms at the 989 TFLOP/s of the
+// bf16 tensor cores; the bytes (q, k, v read once, o written once, 0.42
+// GB) take 0.125 ms at 3.35 TB/s, so it is bound by operations.  P is
 // split in two (below), which makes the P.V product twice as long: 1.5x
 // the useful work, 1.035 ms at the same rate.  The design:
 //   * one block per (128 query rows, head, sample), 384 threads: two
@@ -73,239 +73,411 @@
 //     ones of a causal sweep) first over all heads and samples, so the
 //     tail of the launch is short tiles.
 //
-// f32, the precision path: `flash_attn_kernel`, the FlashAttention
-// schedule on the CUDA cores (67 TFLOP/s f32; TF32 tensor cores keep 10
-// mantissa bits and could not hold the 2e-5 f32 gate):
-//   * one block of 256 threads per (query tile of 64 rows, head, batch);
-//     the TPU grid's sequential kv axis is a loop inside the block, and
-//     for a causal launch it stops at the tile holding the diagonal;
+// f32, the precision path: `flash_attn_kernel`, both products on the TF32
+// tensor cores in 3xTF32 (`mma.sync.m16n8k8`).  One TF32 rounding keeps
+// 10 mantissa bits and cannot hold the 2e-5 f32 gate, so every operand
+// is split as hi = tf32(x), lo = tf32(x - hi) and each product is taken
+// as lo*hi + hi*lo + hi*hi into f32 accumulators (`sd_igemm.cuh`'s
+// `igemm::split` and `igemm::mma_tf32`, the arithmetic of K1-K4).  What
+// bounds it on the H100: at the serving shape the useful work is 6.8e11
+// operations, 10.2 ms at the 67 TFLOP/s of the CUDA cores; its 3xTF32
+// work, three times that at the 495 TFLOP/s TF32 tensor cores, takes 4.1
+// ms; the bytes (0.84 GB in f32) take 0.25 ms, so it is bound by
+// operations.  It reaches about 0.29 of that 3xTF32 bound; what holds it
+// there is not measured.  Its registers (204 a thread at D 160) allow
+// one block of 8 warps per SM, which leaves little to hide mma.sync and
+// shared-memory latency behind, and a block's warps reach the softmax
+// together, when no mma issues.  The design:
+//   * one block per (query tile, head, sample) with warps that own 16
+//     query rows each: 8 warps and 128 rows up to D 192, 4 warps and 64
+//     rows above (so that q and two k/v stages fit in shared memory); the
+//     grid is one-dimensional, the longest causal query tiles first, as
+//     the bf16 kernel's;
 //   * the query tile is staged once in shared memory as f32, already
-//     multiplied by the scale; per step a 64-key tile of k and v is
-//     staged in f32 (rows of odd stride, so that 16 threads reading 16
-//     keys hit 16 banks), zero past Sk;
-//   * the threads form a 16 x 16 grid: each owns 4 query rows x 4 keys of
-//     the score tile (plain FFMA over D) and the same 4 rows x ceil(D/16)
-//     head dims of the accumulator; a row's max and sum are reduced over
-//     its 16 threads, which share a half warp, with shuffles; the
-//     probabilities go through shared memory to the P.V product.
+//     multiplied by the scale; tiles of 32 keys of k and v go through a
+//     cp.async ring of 3 stages (2 where 3 do not fit: D > 160), so the
+//     next tiles' copies run under this tile's products: 16-byte copies
+//     where the base and the batch, head and sequence strides allow
+//     them, 4-byte copies otherwise (`igemm::cp_async16`/`cp_async4`);
+//     rows past Sk and head dims past D are zero-filled up to the
+//     instantiation's width DP (a multiple of 8), so the k8 steps over D
+//     need no mask;
+//   * S = Q K^T is, per k8 step over DP, one A fragment of the warp's 16
+//     rows and four B fragments of the tile's 32 keys, each split in
+//     registers, three mma each, the small products first.  Within a k8
+//     step the mma's k index t stands for head dim 2t and t + 4 for 2t +
+//     1 (both operands alike), so each fragment pair is one 8-byte load;
+//     q and k rows are DP | 8 floats apart (8 mod 16), which makes those
+//     loads free of bank conflicts;
+//   * the softmax stays in registers on the S accumulator: the row max
+//     and sum over the four lanes that share a row, expf, the mask only
+//     on a tile that crosses the diagonal or Sk;
+//   * O += P V: the S accumulator holds keys 2t and 2t + 1 of each 8-key
+//     group, which is where the A fragment of P wants k indices t and t +
+//     4 if the mma's k index t stands for key 2t and t + 4 for key 2t + 1.
+//     So P enters the product as it lies (split hi/lo like every other
+//     operand), with neither shuffles nor a trip through shared memory,
+//     and the B fragment reads v rows 2t and 2t + 1, DP + 4 floats apart
+//     (4 mod 8): free of bank conflicts too;
+//   * O stays in the mma accumulators across the key sweep, rescaled in
+//     place each tile, with no promoted register sum.  The tensor cores
+//     add with truncation (the shared GEMM promotes its 4,608-deep sums
+//     for that, sd_igemm.cuh), but in a CPU restatement of this schedule
+//     with a truncating accumulator (tests/test_torch_lm.py::
+//     test_k5_f32_needs_3xtf32, S 129 and 257) the chained O reads at
+//     most 0.0091 of the 2e-5 gate, as a per-tile promoted sum does,
+//     while 1xTF32 reads 1.9-20x; a promoted sum would cost 80 more
+//     registers a thread at D 160;
+//   * K and V are split at each use, by each warp: five ALU instructions
+//     per element per use.  Splitting them once per block
+//     into hi/lo shared tiles instead (one raw cp.async stage and one
+//     split stage, two barriers a tile: all that fits beside q at D 160,
+//     and nothing past it) removes about a third of the instructions
+//     (counted from the code), but a probe of it on the card ran only
+//     slightly faster, so the simpler ring was kept.
+// Why mma.sync and not wgmma: wgmma takes tf32 operands only K-major, and
+// v arrives MN-major (keys x D, D contiguous), so P V would need v
+// transposed in shared memory; that, and the hi/lo split in shared
+// memory that wgmma would need too, are a later design's questions.
 
 #include <cuda.h>            // CUtensorMap and its enums; no link to libcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "sd_igemm.cuh"   // igemm::split, igemm::mma_tf32, cp.async copies
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBQ = 64;              // query rows per block
-constexpr int kBK = 64;              // keys per step
-constexpr int kTX = 16;              // threads along keys / head dims
-constexpr int kTY = kThreads / kTX;  // threads along query rows
-constexpr int kRows = kBQ / kTY;     // query rows per thread
-constexpr int kCols = kBK / kTX;     // keys per thread
 constexpr int kMaxD = 256;
-static_assert(kBQ == kBK, "stage() moves tiles of kBQ rows for q, k and v");
+
+// ---------------------------------------------------------------------------
+// f32: mma.sync 3xTF32 + cp.async
+// ---------------------------------------------------------------------------
+
+namespace f32 {
+
+constexpr int kBK = 32;                   // keys per tile
+constexpr int kSmemMax = 232448;          // the opt-in limit
 
 struct Args {
-  int H, Hkv, Sq, Sk, D, causal;
-  long long qb, qh, qs;   // element strides over (batch, head, sequence)
-  long long kb, kh, ks;
+  int B, H, Hkv, Sq, Sk, D, causal, nq;
+  int vec_q, vec_k, vec_v;                // 16-byte loads / copies
+  long long qb, qh, qs;                   // element strides over (batch,
+  long long kb, kh, ks;                   // head, sequence)
   long long vb, vh, vs;
   long long ob, oh, os;
   float scale;
 };
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+// One instantiation: NDT n-tiles of 8 head dims, DP = 8 NDT dims (zero
+// past D).  Row strides in floats: q and k DP | 8 (8 mod 16: the 8-byte
+// fragment loads of a half warp hit 32 banks), v DP + 4 (4 mod 8: the
+// B fragment's rows 2t and 2t + 1 hit 32 banks).  The block's rows, 128
+// up to D 192 and 64 above, are kernels/flash_attn.py's kernel_tile.
+template <int NDT> struct Cfg {
+  static constexpr int DP = 8 * NDT;
+  static constexpr int SQK = DP | 8;
+  static constexpr int SV = DP + 4;
+  static constexpr int warps = NDT <= 24 ? 8 : 4;
+  static constexpr int BQ = 16 * warps;             // query rows per block
+  static constexpr int threads = 32 * warps;
+  static constexpr int q = BQ * SQK;                // floats
+  static constexpr int stage = kBK * (SQK + SV);    // one k and one v tile
+  static constexpr int stages =
+      (q + 3 * stage) * 4 <= kSmemMax ? 3 : 2;
+  static constexpr int bytes = (q + stages * stage) * 4;
+  static_assert(bytes <= kSmemMax, "tiles exceed shared memory");
+};
 
-// Stage rows [row0, row0 + 64) of one (batch, head) slice into shared
-// memory as f32 times `mul`, rows at or past `nrows` as zeros.  Warp w
-// takes rows w, w + 8, ...; its lanes walk the head dim (coalesced).
-template <typename T>
-__device__ __forceinline__ void stage(float* dst, int ld,
-                                      const T* __restrict__ src,
-                                      long long stride, int row0, int nrows,
-                                      int D, float mul) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < kBQ; r += kThreads / 32) {
-    const int row = row0 + r;
-    float* d = dst + r * ld;
-    if (row < nrows) {
-      const T* s = src + row * stride;
-      for (int c = lane; c < D; c += 32) d[c] = to_f32(s[c]) * mul;
-    } else {
-      for (int c = lane; c < D; c += 32) d[c] = 0.f;
+// Rows [row0, row0 + kBK) of one (batch, head) slice into a shared tile
+// with rows LD floats apart, by cp.async: 16-byte copies when `vec`, else
+// 4-byte ones; rows at or past `nrows` and dims at or past D are zero.
+template <int DP, int LD, int NTHREADS>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
+                                          long long stride, int row0,
+                                          int nrows, int D, int vec) {
+  if (vec) {
+    constexpr int W = DP / 4;
+    for (int i = threadIdx.x; i < kBK * W; i += NTHREADS) {
+      const int r = i / W, c = (i - r * W) * 4;
+      const bool ok = row0 + r < nrows && c < D;
+      igemm::cp_async16(dst + r * LD + c,
+                        ok ? src + (row0 + r) * stride + c : src, ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kBK * DP; i += NTHREADS) {
+      const int r = i / DP, c = i - r * DP;
+      const bool ok = row0 + r < nrows && c < D;
+      igemm::cp_async4(dst + r * LD + c,
+                       ok ? src + (row0 + r) * stride + c : src, ok);
     }
   }
 }
 
-__device__ __forceinline__ float half_warp_max(float v) {
-#pragma unroll
-  for (int off = kTX / 2; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float half_warp_sum(float v) {
-#pragma unroll
-  for (int off = kTX / 2; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// NJ = head dims per thread (ceil(D / 16), rounded up to an instantiated
-// value); dims at or past D are skipped.
-template <typename T, int NJ>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, T* __restrict__ o, Args a) {
+// Accumulator layout of an m16n8 tile: a lane (g = lane / 4, t = lane % 4)
+// holds (row g, columns 2t, 2t + 1) in c0, c1 and row g + 8 in c2, c3.
+template <int NDT>
+__global__ void __launch_bounds__(Cfg<NDT>::threads, 1)
+flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ out,
+                  const Args a) {
+  using C = Cfg<NDT>;
+  constexpr int DP = C::DP, SQK = C::SQK, SV = C::SV, BQ = C::BQ;
+  constexpr int NT = kBK / 8;             // key n-tiles of S, k8 steps of PV
+  constexpr int NC = NDT % 4 == 0 ? 4 : 2;    // head-dim n-tiles per batch
+  constexpr int S = C::stages;
   extern __shared__ __align__(16) float smem[];
-  const int D = a.D;
-  const int ldq = D + 1, ldk = D + 1, ldv = D, ldp = kBK + 1;
-  float* qs = smem;                 // [kBQ][ldq], scaled queries
-  float* ks = qs + kBQ * ldq;       // [kBK][ldk]
-  float* vs = ks + kBK * ldk;       // [kBK][ldv]
-  float* ps = vs + kBK * ldv;       // [kBQ][ldp], probabilities
+  float* qs = smem;                       // [BQ][SQK], scaled
+  float* ring = smem + C::q;              // S x (k [kBK][SQK], v [kBK][SV])
 
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y, b = blockIdx.z;
+  // Longest query tiles first, over every head and sample.
+  const int hb = a.H * a.B;
+  const int qt = a.nq - 1 - static_cast<int>(blockIdx.x) / hb;
+  const int h = static_cast<int>(blockIdx.x) % hb % a.H;
+  const int b = static_cast<int>(blockIdx.x) % hb / a.H;
   const int hk = h / (a.H / a.Hkv);
-  const int tx = threadIdx.x % kTX, ty = threadIdx.x / kTX;
+  const int q0 = qt * BQ;
+  const int kend = a.causal ? min(a.Sk, q0 + BQ) : a.Sk;
+  const int ntiles = (kend + kBK - 1) / kBK;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
 
-  const T* qp = q + b * a.qb + h * a.qh;
-  const T* kp = k + b * a.kb + hk * a.kh;
-  const T* vp = v + b * a.vb + hk * a.vh;
-  stage(qs, ldq, qp, a.qs, q0, a.Sq, D, a.scale);
-
-  float acc[kRows][NJ];
-  float m[kRows], l[kRows];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
+  const float* kp = k + b * a.kb + hk * a.kh;
+  const float* vp = v + b * a.vb + hk * a.vh;
+  auto load_kv = [&](int st, int tile) {
+    float* ks = ring + st * C::stage;
+    load_rows<DP, SQK, C::threads>(ks, kp, a.ks, tile * kBK, a.Sk, a.D,
+                                   a.vec_k);
+    load_rows<DP, SV, C::threads>(ks + kBK * SQK, vp, a.vs, tile * kBK,
+                                  a.Sk, a.D, a.vec_v);
+  };
+  for (int st = 0; st < S - 1; ++st) {
+    if (st < ntiles) load_kv(st, st);
+    igemm::cp_async_commit();
   }
 
-  // A causal sweep ends with the tile holding the block's last row.
-  const int kend = a.causal ? min(a.Sk, q0 + kBQ) : a.Sk;
-  const int ntiles = (kend + kBK - 1) / kBK;
-  for (int t = 0; t < ntiles; ++t) {
-    const int k0 = t * kBK;
-    __syncthreads();   // the last step's k/v reads are done
-    stage(ks, ldk, kp, a.ks, k0, a.Sk, D, 1.f);
-    stage(vs, ldv, vp, a.vs, k0, a.Sk, D, 1.f);
-    __syncthreads();
-
-    float s[kRows][kCols];
+  // The query tile, times the scale, under the first tiles' copies.
+  {
+    const float* qp = q + b * a.qb + h * a.qh;
+    constexpr int W = DP / 4;
+    for (int i = tid; i < BQ * W; i += C::threads) {
+      const int r = i / W, c = (i - r * W) * 4;
+      float x[4] = {0.f, 0.f, 0.f, 0.f};
+      if (q0 + r < a.Sq) {
+        const float* src = qp + (q0 + r) * a.qs + c;
+        if (a.vec_q) {
+          if (c < a.D) {
+            const float4 f = *reinterpret_cast<const float4*>(src);
+            x[0] = f.x; x[1] = f.y; x[2] = f.z; x[3] = f.w;
+          }
+        } else {
 #pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float qv[kRows], kv[kCols];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) qv[i] = qs[(ty + kTY * i) * ldq + d];
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) kv[j] = ks[(tx + kTX * j) * ldk + d];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int row = ty + kTY * i;
-      const int qpos = q0 + row;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int kpos = k0 + tx + kTX * j;
-        if (kpos >= a.Sk || (a.causal && kpos > qpos)) s[i][j] = -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      mx = half_warp_max(mx);
-      const float m_new = fmaxf(m[i], mx);
-      const float safe = m_new == -INFINITY ? 0.f : m_new;
-      const float corr = m[i] == -INFINITY ? 0.f : expf(m[i] - safe);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const float p = expf(s[i][j] - safe);   // masked: exp(-inf) = 0
-        ps[row * ldp + tx + kTX * j] = p;
-        sum += p;
-      }
-      l[i] = l[i] * corr + half_warp_sum(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] *= corr;
-    }
-    // A row of P is written and read by the same half warp.
-    __syncwarp();
-
-    for (int kk = 0; kk < kBK; ++kk) {
-      float pv[kRows];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) pv[i] = ps[(ty + kTY * i) * ldp + kk];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int c = tx + kTX * j;
-        if (c < D) {
-          const float vv = vs[kk * ldv + c];
-#pragma unroll
-          for (int i = 0; i < kRows; ++i)
-            acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
+          for (int e = 0; e < 4; ++e)
+            if (c + e < a.D) x[e] = src[e];
         }
       }
+      *reinterpret_cast<float4*>(qs + r * SQK + c) =
+          make_float4(x[0] * a.scale, x[1] * a.scale, x[2] * a.scale,
+                      x[3] * a.scale);
     }
   }
 
-  T* op = o + b * a.ob + h * a.oh;
+  const int first = q0 + 16 * warp;       // the warp's first row
+  const int row0 = first + g;             // this lane's rows: row0, row0 + 8
+  const float* qw = qs + 16 * warp * SQK + 2 * t;
+  float o[NDT][4];
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int qpos = q0 + ty + kTY * i;
-    if (qpos >= a.Sq) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
+  for (int n = 0; n < NDT; ++n)
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int c = tx + kTX * j;
-      if (c < D) store(op + qpos * a.os + c, acc[i][j] / denom);
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  for (int tile = 0; tile < ntiles; ++tile) {
+    igemm::cp_async_wait<S - 2>();   // tile has landed (this thread's copies)
+    __syncthreads();                 // everyone's; the oldest stage is free
+    if (tile + S - 1 < ntiles) load_kv((tile + S - 1) % S, tile + S - 1);
+    igemm::cp_async_commit();
+
+    const int k0 = tile * kBK;
+    if (a.causal && k0 > first + 15) continue;   // above the warp's diagonal
+    const float* ks = ring + (tile % S) * C::stage;
+    const float* vs = ks + kBK * SQK;
+
+    // S = Q K^T: k index t is head dim 2t of the k8 step, t + 4 is 2t + 1
+    float s[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    const float* kw = ks + g * SQK + 2 * t;
+#pragma unroll 4
+    for (int kd = 0; kd < NDT; ++kd) {
+      const float2 x0 =
+          *reinterpret_cast<const float2*>(qw + g * SQK + 8 * kd);
+      const float2 x1 =
+          *reinterpret_cast<const float2*>(qw + (g + 8) * SQK + 8 * kd);
+      uint32_t ah[4], al[4], bh[NT][2], bl[NT][2];
+      igemm::split<float>(x0.x, ah[0], al[0]);
+      igemm::split<float>(x1.x, ah[1], al[1]);
+      igemm::split<float>(x0.y, ah[2], al[2]);
+      igemm::split<float>(x1.y, ah[3], al[3]);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const float2 y =
+            *reinterpret_cast<const float2*>(kw + 8 * j * SQK + 8 * kd);
+        igemm::split<float>(y.x, bh[j][0], bl[j][0]);
+        igemm::split<float>(y.y, bh[j][1], bl[j][1]);
+      }
+      // Pass by pass, so that consecutive mma never share an accumulator.
+#pragma unroll
+      for (int j = 0; j < NT; ++j) igemm::mma_tf32(s[j], al, bh[j]);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) igemm::mma_tf32(s[j], ah, bl[j]);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) igemm::mma_tf32(s[j], ah, bh[j]);
     }
+
+    if ((a.causal && k0 + kBK - 1 > first) || k0 + kBK > a.Sk) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kpos = k0 + 8 * j + 2 * t + (e & 1);
+          const int qpos = row0 + 8 * (e >> 1);
+          if (kpos >= a.Sk || (a.causal && kpos > qpos)) s[j][e] = -INFINITY;
+        }
+    }
+
+    // Online softmax on rows row0 (r = 0) and row0 + 8 (r = 1); l holds
+    // this lane's part of the row sum until the end.
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+    float safe[2], corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      safe[r] = m_new == -INFINITY ? 0.f : m_new;
+      corr[r] = m[r] == -INFINITY ? 0.f : expf(m[r] - safe[r]);
+      m[r] = m_new;
+      l[r] *= corr[r];
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(s[j][e] - safe[e >> 1]);   // masked: 0
+        l[e >> 1] += p;
+        s[j][e] = p;
+      }
+#pragma unroll
+    for (int n = 0; n < NDT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] *= corr[e >> 1];
+
+    // O += P V over the tile's keys in k8 steps: k index t is key 2t of
+    // the step, t + 4 is key 2t + 1, so P's A fragment is the S
+    // accumulator as it lies (c0, c2, c1, c3)
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      uint32_t ph[4], pl[4];
+      igemm::split<float>(s[j][0], ph[0], pl[0]);
+      igemm::split<float>(s[j][2], ph[1], pl[1]);
+      igemm::split<float>(s[j][1], ph[2], pl[2]);
+      igemm::split<float>(s[j][3], ph[3], pl[3]);
+      const float* vr = vs + (8 * j + 2 * t) * SV + g;
+#pragma unroll
+      for (int n0 = 0; n0 < NDT; n0 += NC) {
+        uint32_t bh[NC][2], bl[NC][2];
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          igemm::split<float>(vr[8 * (n0 + c)], bh[c][0], bl[c][0]);
+          igemm::split<float>(vr[SV + 8 * (n0 + c)], bh[c][1], bl[c][1]);
+        }
+#pragma unroll
+        for (int c = 0; c < NC; ++c) igemm::mma_tf32(o[n0 + c], pl, bh[c]);
+#pragma unroll
+        for (int c = 0; c < NC; ++c) igemm::mma_tf32(o[n0 + c], ph, bl[c]);
+#pragma unroll
+        for (int c = 0; c < NC; ++c) igemm::mma_tf32(o[n0 + c], ph, bh[c]);
+      }
+    }
+  }
+  igemm::cp_async_wait<0>();
+
+  // o = O / max(l, 1e-30), rows past Sq and dims past D not written
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qpos = row0 + 8 * r;
+    if (qpos >= a.Sq) continue;
+    const float denom = fmaxf(l[r], 1e-30f);
+    float* op = out + b * a.ob + h * a.oh + qpos * a.os;
+#pragma unroll
+    for (int n = 0; n < NDT; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * n + 2 * t + e;
+        if (col < a.D) op[col] = o[n][2 * r + e] / denom;
+      }
   }
 }
 
-template <typename T, int NJ>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   const Args& a, int B, cudaStream_t stream) {
-  const size_t smem = sizeof(float) *
-      (size_t)(kBQ * (a.D + 1) + kBK * (a.D + 1) + kBK * a.D +
-               kBQ * (kBK + 1));
-  auto kern = flash_attn_kernel<T, NJ>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+template <int NDT>
+cudaError_t launch(const float* q, const float* k, const float* v, float* o,
+                   Args a, cudaStream_t stream) {
+  using C = Cfg<NDT>;
+  a.nq = (a.Sq + C::BQ - 1) / C::BQ;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_attn_kernel<NDT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.Sq + kBQ - 1) / kBQ, a.H, B);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), a);
+  const long long grid = (long long)a.nq * a.H * a.B;
+  if (grid > INT_MAX) return cudaErrorInvalidConfiguration;
+  flash_attn_kernel<NDT><<<(unsigned)grid, C::threads, C::bytes, stream>>>(
+      q, k, v, o, a);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
-                     const Args& a, int B, cudaStream_t s) {
-  const int nj = (a.D + kTX - 1) / kTX;
-  if (nj <= 1) return launch<T, 1>(q, k, v, o, a, B, s);
-  if (nj <= 2) return launch<T, 2>(q, k, v, o, a, B, s);
-  if (nj <= 4) return launch<T, 4>(q, k, v, o, a, B, s);
-  if (nj <= 6) return launch<T, 6>(q, k, v, o, a, B, s);
-  if (nj <= 8) return launch<T, 8>(q, k, v, o, a, B, s);
-  if (nj <= 10) return launch<T, 10>(q, k, v, o, a, B, s);
-  if (nj <= 12) return launch<T, 12>(q, k, v, o, a, B, s);
-  return launch<T, 16>(q, k, v, o, a, B, s);
+// 16-byte accesses to an operand: D a multiple of 4, the base on a 16-byte
+// boundary, and every stride a dim of more than one steps over a multiple
+// of 4 elements.
+bool vec16(const void* p, int D, int n0, long long s0, int n1, long long s1,
+           int n2, long long s2) {
+  return D % 4 == 0 && reinterpret_cast<uintptr_t>(p) % 16 == 0 &&
+         (n0 == 1 || s0 % 4 == 0) && (n1 == 1 || s1 % 4 == 0) &&
+         (n2 == 1 || s2 % 4 == 0);
 }
+
+cudaError_t dispatch(const float* q, const float* k, const float* v,
+                     float* o, Args a, cudaStream_t s) {
+  a.vec_q = vec16(q, a.D, a.B, a.qb, a.H, a.qh, a.Sq, a.qs);
+  a.vec_k = vec16(k, a.D, a.B, a.kb, a.Hkv, a.kh, a.Sk, a.ks);
+  a.vec_v = vec16(v, a.D, a.B, a.vb, a.Hkv, a.vh, a.Sk, a.vs);
+  const int n8 = (a.D + 7) / 8;
+  if (n8 <= 2) return launch<2>(q, k, v, o, a, s);
+  if (n8 <= 4) return launch<4>(q, k, v, o, a, s);
+  if (n8 <= 6) return launch<6>(q, k, v, o, a, s);
+  if (n8 <= 8) return launch<8>(q, k, v, o, a, s);
+  if (n8 <= 12) return launch<12>(q, k, v, o, a, s);
+  if (n8 <= 16) return launch<16>(q, k, v, o, a, s);
+  if (n8 <= 20) return launch<20>(q, k, v, o, a, s);
+  if (n8 <= 24) return launch<24>(q, k, v, o, a, s);
+  return launch<32>(q, k, v, o, a, s);
+}
+
+}  // namespace f32
 
 // ---------------------------------------------------------------------------
 // bf16: wgmma + TMA
@@ -851,9 +1023,9 @@ int dispatch(const Operands& in, void* o, int B, int H, int Hkv, int Sq,
 
 }  // namespace
 
-// dtype: 0 = float32 (the FFMA kernel), 1 = bfloat16 (the wgmma + TMA
-// kernel), q, k, v and o alike; a causal launch needs Sq == Sk.  Strides
-// are in elements, over (batch, head, sequence); the head dim is
+// dtype: 0 = float32 (the 3xTF32 mma.sync kernel), 1 = bfloat16 (the
+// wgmma + TMA kernel), q, k, v and o alike; a causal launch needs Sq ==
+// Sk.  Strides are in elements, over (batch, head, sequence); the head dim is
 // unit-stride.  bf16 also needs q, k, v on 16-byte boundaries with every
 // stride a positive multiple of 8 elements (what a TMA map can describe).
 // Returns a cudaError_t, or 1000 + the CUresult with which
@@ -876,12 +1048,16 @@ extern "C" int flash_attn_launch(
                         scale, s);
   }
   if (dtype != 0) return (int)cudaErrorInvalidValue;
-  Args a;
-  a.H = H; a.Hkv = Hkv; a.Sq = Sq; a.Sk = Sk; a.D = D; a.causal = causal;
+  f32::Args a;
+  a.B = B; a.H = H; a.Hkv = Hkv; a.Sq = Sq; a.Sk = Sk; a.D = D;
+  a.causal = causal;
   a.qb = qb; a.qh = qh; a.qs = qs;
   a.kb = kb; a.kh = kh; a.ks = ks;
   a.vb = vb; a.vh = vh; a.vs = vs;
   a.ob = ob; a.oh = oh; a.os = os;
   a.scale = scale;
-  return (int)dispatch<float>(q, k, v, o, a, B, s);
+  return (int)f32::dispatch(static_cast<const float*>(q),
+                            static_cast<const float*>(k),
+                            static_cast<const float*>(v),
+                            static_cast<float*>(o), a, s);
 }

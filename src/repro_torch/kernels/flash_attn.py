@@ -15,11 +15,14 @@ strides when q is dense (a transposed view of (B, S, H, D) activations),
 else it is contiguous.
 
 On a CUDA tensor it launches ``csrc/flash_attn.cu`` (built at first use;
-counted by ``FLASH_ATTN_LAUNCHES``) or raises: bf16 runs the tensor-core
-kernel (``wgmma`` fed by TMA, tile :data:`TILE`), which needs q, k and v
-on 16-byte boundaries with every stride over (batch, head, sequence) a
-multiple of 16 bytes; f32 runs the CUDA-core kernel (tile
-:data:`F32_TILE`), which takes any such strides.  On a CPU tensor it runs
+counted by ``FLASH_ATTN_LAUNCHES``) or raises: bf16 runs the ``wgmma``
+kernel fed by TMA (tile :data:`TILE`), which needs q, k and v on 16-byte
+boundaries with every stride over (batch, head, sequence) a multiple of
+16 bytes; f32 runs both products on the TF32 tensor cores in 3xTF32
+(``mma.sync``, every operand split hi/lo, k/v fed by a ``cp.async`` ring;
+tile :data:`F32_TILE`, :data:`F32_TILE_WIDE` past ``F32_WIDE_D`` head
+dims), which takes any such strides (16-byte copies where they and the
+base allow them, 4-byte ones otherwise).  On a CPU tensor it runs
 :func:`flash_attention_ref`, the reference's oracle
 (``src/repro/kernels/ref.py`` ``flash_attention_ref``: full f32 scores,
 end-aligned causal mask, optional window), which the tests and
@@ -37,10 +40,11 @@ import torch
 from repro_torch.kernels.sd_conv import check_no_grad
 
 TILE = (128, 64)           # the bf16 kernel's (query rows, keys) per step
-F32_TILE = (64, 64)        # the f32 kernel's
+F32_TILE = (128, 32)       # the f32 kernel's: 8 warps of 16 query rows
+F32_TILE_WIDE = (64, 32)   # past F32_WIDE_D: 4 warps, so q and 2 stages fit
+F32_WIDE_D = 192
 MAX_HEAD_DIM = 256         # the kernels' shared-memory staging holds D <= 256
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_TILES = {torch.float32: F32_TILE, torch.bfloat16: TILE}
 TMA_ALIGN = 16             # bytes: a TMA map's base and strides
 
 FLASH_ATTN_LAUNCHES = 0    # kernel launches; the plain versions never count
@@ -75,6 +79,14 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = s.masked_fill(~mask, float("-inf"))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)
+
+
+def kernel_tile(dtype: torch.dtype, d: int) -> tuple:
+    """(query rows, keys) per step of the kernel that runs ``dtype`` at
+    head dim ``d``."""
+    if dtype == torch.bfloat16:
+        return TILE
+    return F32_TILE if d <= F32_WIDE_D else F32_TILE_WIDE
 
 
 def _check_operands(q, k, v, causal: bool) -> None:
@@ -133,10 +145,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Returns (B, H, Sq, D) in ``q.dtype`` (q's strides when q is dense).
     ``bq``/``bk`` are the TPU kernel's tiles: any positive sizes on the
     CPU, where they do not change the result; on the card the kernel's
-    own (``TILE`` for bfloat16, ``F32_TILE`` for float32), which is what
-    ``None`` picks.  The kernels take float32 or bfloat16 and ``D <=
-    MAX_HEAD_DIM``; bfloat16 also needs TMA-describable operands
-    (:func:`_tma_strides`).
+    own (:func:`kernel_tile`: ``TILE`` for bfloat16, ``F32_TILE`` or
+    ``F32_TILE_WIDE`` for float32), which is what ``None`` picks.  The
+    kernels take float32 or bfloat16 and ``D <= MAX_HEAD_DIM``; bfloat16
+    also needs TMA-describable operands (:func:`_tma_strides`).
     """
     global FLASH_ATTN_LAUNCHES
     _check_operands(q, k, v, causal)
@@ -150,11 +162,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.dtype not in DTYPES:
         raise TypeError(f"the kernel takes float32 or bfloat16, not "
                         f"{q.dtype}")
-    tile = _TILES[q.dtype]
+    d = q.shape[-1]
+    tile = kernel_tile(q.dtype, d)
     if (bq or tile[0], bk or tile[1]) != tile:
         raise ValueError(f"the {q.dtype} kernel's tile is {tile}, not "
                          f"({bq}, {bk})")
-    d = q.shape[-1]
     if d > MAX_HEAD_DIM:
         raise ValueError(f"head dim {d} exceeds the kernel's "
                          f"{MAX_HEAD_DIM}")

@@ -40,7 +40,9 @@ K5 (flash attention) is held to ``flash_attention_ref`` at ``2e-5 *
 max(1, max|ref|)`` in f32 (``tests/test_flash_attn.py``'s tolerance) and
 ``1e-2 * max|ref|`` in bf16 (the oracle in f32 on the bf16 inputs), and
 each bf16 element within ``2^-7 * |ref| + 1e-4 * max|ref|``, on ragged
-sequences around both kernels' tiles, grouped heads and D up to 256; the
+sequences around both kernels' tiles, grouped heads and D up to 256, in
+f32 also head dims that are not a multiple of 8 and operands that only
+4-byte copies can read; the f32 kernel's SASS runs on TF32 HMMA; the
 reduced LM's prefill through K5 matches the plain scan.
 """
 
@@ -945,22 +947,45 @@ def _k5_case(dev, b, h, hkv, s, d, dtype, seed):
     return q, k, v
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
-@pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("b,h,hkv,s,d", [
+K5_SHAPES = [
     (1, 2, 2, 128, 32), (2, 4, 2, 1, 16), (2, 4, 2, 63, 64),
     (1, 4, 1, 65, 128), (1, 4, 2, 2049, 160), (2, 2, 2, 200, 256),
     (1, 3, 3, 97, 40),
-    # the bf16 kernel's 128-row query tile and 64-key tile at their edges
+    # both kernels' 128-row query tiles and the bf16 kernel's 64-key tile
+    # at their edges
     (1, 4, 2, 127, 64), (2, 4, 2, 128, 160), (1, 4, 2, 129, 40),
     (1, 4, 1, 255, 128), (1, 2, 2, 257, 16),
     # the serving grouping (32 q / 8 kv heads of 160), and D 256
-    (1, 32, 8, 300, 160), (1, 4, 2, 257, 256)])
+    (1, 32, 8, 300, 160), (1, 4, 2, 257, 256)]
+# f32 only (bf16's TMA maps refuse rows of 40 or 200 bytes)
+K5_F32_SHAPES = [
+    # the f32 kernel's 32-key tile at its edges
+    (1, 4, 2, 31, 64), (2, 4, 2, 32, 160), (1, 4, 2, 33, 128),
+    # its 64-row query tile past F32_WIDE_D at its edges
+    (1, 4, 2, 63, 256), (2, 4, 2, 64, 200), (1, 4, 2, 65, 256),
+    # head dims not a multiple of 8, zero-filled in shared memory
+    (1, 4, 2, 130, 20), (1, 4, 2, 97, 100),
+    # D 256 over a long sweep
+    (1, 4, 2, 2049, 256)]
+K5_CASES = [(dt, c, *shape)
+            for dt in (torch.float32, torch.bfloat16)
+            for c in (True, False) for shape in K5_SHAPES] + \
+    [(torch.float32, c, *shape) for c in (True, False)
+     for shape in K5_F32_SHAPES]
+
+
+def _k5_id(case):
+    dt, c, b, h, hkv, s, d = case
+    return (f"{'f32' if dt == torch.float32 else 'bf16'}-"
+            f"{'causal' if c else 'full'}-{b}x{h}/{hkv}x{s}x{d}")
+
+
+@pytest.mark.parametrize("dtype,causal,b,h,hkv,s,d", K5_CASES,
+                         ids=[_k5_id(c) for c in K5_CASES])
 def test_k5_matches_plain(dev, dtype, causal, b, h, hkv, s, d):
     """K5 against flash_attention_ref on the same inputs (grouped heads
     expanded for the oracle), ragged S around both kernels' tiles, D up
-    to 256."""
+    to 256 and, in f32, D not a multiple of 8."""
     import repro_torch.kernels.flash_attn as FA
     q, k, v = _k5_case(dev, b, h, hkv, s, d, dtype, seed=s + d)
     before = FA.FLASH_ATTN_LAUNCHES
@@ -996,6 +1021,47 @@ def test_k5_reads_and_writes_bshd_views(dev):
                                  v.transpose(1, 2))
     assert (out - ref).abs().max().item() <= K5_F32_GATE * max(
         1.0, ref.abs().max().item())
+
+
+@pytest.mark.parametrize("layout", ["odd_sequence_stride", "base_off_16"])
+def test_k5_f32_takes_4_byte_copies(dev, layout):
+    """f32 operands that a 16-byte copy cannot read: a sequence stride of
+    126 floats (504 bytes) or a base 4 bytes off a 16-byte boundary; the
+    kernel copies them 4 bytes at a time."""
+    import repro_torch.kernels.flash_attn as FA
+    g = torch.Generator().manual_seed(5)
+    if layout == "odd_sequence_stride":
+        x = torch.randn(2, 300, 6, 21, generator=g).to(dev)[..., :20]
+        q, k, v = (x[:, :, sl].transpose(1, 2)
+                   for sl in (slice(0, 4), slice(4, 5), slice(5, 6)))
+        assert q.stride(2) * 4 % 16
+    else:
+        n = 2 * 4 * 160 * 32
+        q, k, v = (torch.randn(n + 1, generator=g).to(dev)[1:]
+                   .view(2, 4, 160, 32) for _ in range(3))
+        assert q.data_ptr() % 16 == 4
+    before = FA.FLASH_ATTN_LAUNCHES
+    out = FA.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert FA.FLASH_ATTN_LAUNCHES == before + 1
+    ref = FA.flash_attention_ref(q, k, v)
+    assert (out - ref).abs().max().item() <= K5_F32_GATE * max(
+        1.0, ref.abs().max().item())
+
+
+def test_k5_f32_runs_on_tf32_tensor_cores(dev):
+    """The f32 kernel's SASS, read by chip_smoke._sass_counts: its nine
+    instantiations (one per head-dim bucket) run on TF32 HMMA
+    (mma.sync)."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+    from repro_torch.kernels.build import load
+    counts = chip_smoke._sass_counts(load("flash_attn").path,
+                                     "flash_attn_kernel")
+    assert counts["functions"] == 9 and counts["HMMA_TF32"] > 0, counts
 
 
 def test_k5_bf16_reads_and_writes_bshd_views(dev):

@@ -43,6 +43,8 @@ from repro_torch.launch.serve import serve
 from repro_torch.models import layers as L
 from repro_torch.models.lm import build_lm
 
+from _torch_igemm import mma3, promote, tf32
+
 FLASH_TOL = 2e-5        # tests/test_flash_attn.py:30
 SCAN_TOL = 1e-5
 LOGIT_TOL = 1e-4        # relative to max(1, max|ref|)
@@ -260,6 +262,97 @@ def test_k5_bf16_needs_p_split(causal, d):
     print(f"worst share of the element limit: split {share[True]:.3f}, "
           f"one rounding {share[False]:.3f}")
     assert share[True] <= 0.55 and share[False] > 2.0, share
+
+
+def _rtz(x):
+    """f64 to f32 rounded toward zero: the model here of the tensor
+    cores' f32 accumulator, which adds with truncation."""
+    y = np.asarray(x, np.float64).astype(np.float32)
+    over = np.abs(y.astype(np.float64)) > np.abs(x)
+    y[over] = np.nextafter(y[over], np.float32(0))
+    return y
+
+
+def _mma(a, b, passes):
+    """One k8 step of mma.sync on f32 operands: 3xTF32 (``mma3``) or one
+    TF32 rounding of each operand, the products summed in f64."""
+    if passes == 3:
+        return mma3(a, b)
+    return tf32(a).astype(np.float64) @ tf32(b).astype(np.float64)
+
+
+def _k5_f32_schedule(q, k, v, causal, passes=3, promote_o=False):
+    """The f32 kernel's arithmetic restated in numpy: q times the scale in
+    f32; per tile of ``F32_TILE[1]`` keys, S over k8 steps of the head dim
+    zero-filled to a multiple of 8, each step's products added into the
+    f32 accumulator with truncation (:func:`_rtz`); the mask, the online
+    softmax in f32 (expf, corr, l); O rescaled by corr in f32 and the
+    tile's P V added over k8 steps of keys, either into O itself (the
+    kernel: O stays in the mma accumulator) or into a zeroed tile sum
+    promoted into O (``promote_o``); O / max(l, 1e-30).  The query tiling
+    is left out: rows are independent, and a tile a warp skips above its
+    diagonal is all masked, which leaves m, l and O as they are."""
+    b, h, sq, d = q.shape
+    grp, sk, bk = h // k.shape[1], k.shape[2], FA.F32_TILE[1]
+    dp = -(-d // 8) * 8
+    pad = ((0, 0), (0, 0), (0, 0), (0, dp - d))
+    qs = np.pad(q * np.float32(1.0 / np.sqrt(d)), pad)
+    ks = np.pad(np.repeat(k, grp, 1), pad)
+    vs = np.repeat(v, grp, 1)
+    m = np.full((b, h, sq), -np.inf, np.float32)
+    l = np.zeros((b, h, sq), np.float32)
+    o = np.zeros((b, h, sq, d), np.float32)
+    rows = np.arange(sq)[:, None]
+    for k0 in range(0, sk, bk):
+        nk = min(bk, sk - k0)
+        kt = ks[:, :, k0:k0 + nk].swapaxes(-1, -2)
+        s = np.zeros((b, h, sq, nk), np.float32)
+        for kd in range(0, dp, 8):
+            s = _rtz(s + _mma(qs[..., kd:kd + 8], kt[..., kd:kd + 8, :],
+                              passes))
+        if causal:
+            s = np.where(k0 + np.arange(nk)[None] > rows, -np.inf, s)
+        m_new = np.maximum(m, s.max(-1))
+        safe = np.where(m_new == -np.inf, 0, m_new).astype(np.float32)
+        corr = np.where(m == -np.inf, 0, np.exp(m - safe)).astype(np.float32)
+        p = np.exp(s - safe[..., None]).astype(np.float32)
+        l, m = l * corr + p.sum(-1, dtype=np.float32), m_new
+        o = o * corr[..., None]
+        part = o if not promote_o else np.zeros_like(o)
+        for j in range(0, nk, 8):
+            part = _rtz(part + _mma(p[..., j:j + 8],
+                                    vs[:, :, k0 + j:k0 + min(j + 8, nk)],
+                                    passes))
+        o = promote(o, part) if promote_o else part
+    return o / np.maximum(l, np.float32(1e-30))[..., None]
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("s", [257, 129])
+@pytest.mark.parametrize("d", [160, 20, 16])
+def test_k5_f32_needs_3xtf32(causal, s, d):
+    """Why the f32 kernel splits every operand: on its schedule (key tiles
+    of F32_TILE[1], k8 steps, a truncating accumulator), 3xTF32 holds the
+    f32 gate that the card holds it to (2e-5 * max(1, max|ref|) against
+    flash_attention_ref) and one TF32 rounding of each operand breaks it;
+    O chained in the mma accumulator across the key sweep, as the kernel
+    keeps it, holds it as well as a per-tile promoted sum.  Grouped heads
+    (4 q / 2 kv); D 20 is zero-filled to 24."""
+    rng = np.random.RandomState(s + d)
+    q, k, v = ((rng.randn(1, n, s, d) * 0.5).astype(np.float32)
+               for n in (4, 2, 2))
+    ref = FA.flash_attention_ref(_t(q), _t(k), _t(v), causal=causal).numpy()
+    tol = FLASH_TOL * max(1.0, np.abs(ref).max())
+    share = {name: np.abs(_k5_f32_schedule(q, k, v, causal, **kw)
+                          - ref).max() / tol
+             for name, kw in (("3xtf32", {}),
+                              ("promoted", {"promote_o": True}),
+                              ("1xtf32", {"passes": 1}))}
+    print(f"share of the f32 gate: 3xTF32 {share['3xtf32']:.4f} (O "
+          f"promoted per tile {share['promoted']:.4f}), 1xTF32 "
+          f"{share['1xtf32']:.2f}")
+    assert share["3xtf32"] <= 0.05 and share["promoted"] <= 0.05, share
+    assert share["1xtf32"] > 1.0, share
 
 
 # ---------------------------------------------------------------------------
