@@ -167,7 +167,31 @@ Drives ``repro_torch`` only (never JAX, never the JAX package ``repro``):
    and none in decode, finite logits and the first group's prefill
    logits against the plain scan within ``5e-2 * max|ref|``; prints
    prefill ms per group, decode ms per step, the device-busy share of
-   one prefill with K5's part, and peak memory.
+   one prefill with K5's part, and peak memory;
+11. rank 1, full-width WaveGAN (fc 100 -> 16 x 64, k25/s4 deconvs 64 ->
+   32 -> 16 -> 1 over 16 -> 64 -> 256 -> 1,024 samples), each 1-D layer
+   an H=1 launch of a 2-D kernel: holds K1 f32 against its plain version
+   on the three layers at batch 16 (default and forced ``GemmPlan``s:
+   bn 16 / 32 / 64, split-K with an uneven last split), on 1-D ``op >
+   pad_hi``, asymmetric-pad and Cin-70 geometries (the f32 gate), and
+   up1 twice with split-K, bit-identical; K1 int8 (dynamic rows and a
+   static row, f32 out; int8 out on up1/up2) bit-identical to its plain
+   version, and every code at +-127 on up1 exact against int64; K4
+   (alphas (1, 6)) on ``wavegan-dryrun``'s k9/s2 layers and on k17/s4
+   at WaveGAN's widths against ``sd_wino_ref`` (the f32 gate) and K1
+   (``tolerance((1, 5))``); K2 and K3 on each layer's backward against
+   their plain versions, and full WaveGAN's ``J_G^T c`` on fused
+   against the ``torch`` backend at 1e-4 with 3/3/3 K1/K2/K3 launches;
+   serves 48 full-width WaveGAN requests in f32, dynamic and calibrated
+   (``calib=64``) int8 and checks 3 K1 (or K1-int8) launches per batch
+   and nothing else, finite outputs, the card's ``torch`` backend (f32
+   ``1e-4``, int8 ``1e-6``, chained codes exact) and int8 within 0.05
+   of max|ref| of the f32 server; serves ``serve_gen --dryrun --backend
+   winograd`` (``wavegan-dryrun`` on K4: 5 K4 launches); times each
+   layer in turns (K1 f32, K1 int8 static, the plain version,
+   ``F.conv_transpose1d`` f32) with its bounds, K4 / K2 / K3 per layer,
+   and a batch of 16 f32 / dynamic / calibrated in turns (host ms,
+   device busy, idle share).
 
 Every printed number carries the card's name and power limit.  The line
 before the last is ``{"kernels": [...]}``; the last is ``{"ok": true,
@@ -2930,6 +2954,622 @@ def _lm_phase(dev, tag: str) -> dict:
     return {"kernel": record, "report": report}
 
 
+def _wavegan_phase(dev, tag, randn) -> dict:
+    """Phase 11: rank 1, full-width WaveGAN through H=1 launches of the
+    2-D kernels.  (a) K1 f32 against its plain version on WaveGAN's three
+    layers at batch 16, 1-D odd geometries and forced ``GemmPlan``s, up1
+    twice with split-K bit-identical; (b) K1 int8 (dynamic rows and a
+    static row; int8 out on up1/up2, f32 out on to_audio) bit-identical
+    to its plain version, and every code at +-127 on up1 exact against
+    int64; (c) K4 on ``wavegan-dryrun``'s layers and on WaveGAN's widths
+    at k17/s4 (5 taps) against ``sd_wino_ref`` and K1; (d) K2 and K3 on
+    each layer's backward against their plain versions, and full
+    WaveGAN's ``J_G^T c`` on fused against the torch backend; (e) 48
+    requests served in f32, dynamic int8 and calibrated int8; (f) the
+    winograd dryrun through K4; (g) per-layer device times in turns and
+    a batch of 16 f32 / dynamic / calibrated in turns.  Returns the
+    launches and times each kernel's record takes, and the report."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    import repro_torch.kernels.sd_conv as K
+    from repro_torch import sd
+    from repro_torch.core.accounting import WORKLOADS
+    from repro_torch.core.deconv import same_deconv_pads
+    from repro_torch.core.quant import quantize_act
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import winograd as W
+    from repro_torch.kernels.autotune import GemmPlan, gemm_grid
+    from repro_torch.launch import serve_gen
+    from repro_torch.launch.serve_gen import (GenServer, reduced_specs,
+                                              serve_async)
+    from repro_torch.models.generative import GenerativeModel
+    from repro_torch.sd.grad import split_cotangent
+
+    names = ("SD_FUSED_LAUNCHES", "SD_FUSED_INT8_LAUNCHES",
+             "SD_CONV_LAUNCHES", "SD_CONV_INT8_LAUNCHES",
+             "SD_FILTER_GRAD_LAUNCHES")
+
+    def zero_counts():
+        for n in names:
+            setattr(K, n, 0)
+        W.SD_WINO_LAUNCHES = 0
+
+    def counts():
+        out = {n: getattr(K, n) for n in names}
+        out["SD_WINO_LAUNCHES"] = W.SD_WINO_LAUNCHES
+        return out
+
+    layers = WORKLOADS["wavegan"]().deconv_layers()
+    acts = ("relu", "relu", "linear")       # the engine's epilogues
+
+    def h1_geo(p, length):
+        """What ``ops.sd_deconv_presplit_fused_1d`` hands the 2-D kernel."""
+        return dict(pad=((0, 0), (p.pi[0],) * 2),
+                    crop=(0, p.pk[0] + p.padding[0][0]),
+                    out_space=(1, p.out_shape((length,))[0]))
+
+    def h1_gemm(p, batch, length, tile=None, dtype=""):
+        """K1's GEMM launch for a rank-1 plan's H=1 launch."""
+        geo = h1_geo(p, length)
+        return K.gemm_launch((batch, 1, length, p.cin), (1, *p.ws.shape),
+                             (1, p.stride[0]), geo["pad"], geo["crop"],
+                             geo["out_space"], tile, dtype=dtype)
+
+    def case(k, s, cin, cout, batch, length, act, pad="same", op=0,
+             tile=None, dtype="native"):
+        x = randn(batch, length, cin)
+        w = randn(k, cin, cout, scale=1.0 / (k * cin) ** 0.5)
+        gamma = randn(cout, scale=0.1) + 1.0
+        bias = randn(cout, scale=0.1)
+        pads = same_deconv_pads((k,), (s,)) if pad == "same" else pad
+        p = sd.plan(w.shape, s, pads, backend="fused", act=act,
+                    output_padding=op, tile=tile, dtype=dtype,
+                    device=dev).bind(w, gamma, bias)
+        return x, w, p
+
+    def k1(x, p, scale=None, out_dtype=None, bias=None):
+        return ops.sd_deconv_presplit_fused_1d(
+            x, p.ws, p.kernel, p.stride, p.padding,
+            output_padding=p.output_padding,
+            bias=p.bias if bias is None else bias, act=p.act, scale=scale,
+            out_dtype=out_dtype, plan=p.tile)
+
+    def plain(x, p, scale=None, out_dtype=None, bias=None):
+        return K.sd_fused_ref(x[:, None], p.ws[None], (1, p.stride[0]),
+                              bias=p.bias if bias is None else bias,
+                              act=p.act, scale=scale, out_dtype=out_dtype,
+                              **h1_geo(p, x.shape[1]))[:, 0]
+
+    report = {}
+    failures = []
+
+    # ---- (a) K1 f32 as an H=1 launch -----------------------------------
+    print(f"check: WaveGAN (fc 100 -> 16x64, deconvs k25/s4 64 -> 32 -> 16 "
+          f"-> 1, 16 -> 64 -> 256 -> 1024 samples): K1 f32 as an H=1 launch "
+          f"((1, 7) filter, (1, 4) interleave) vs sd_fused_ref, gate "
+          f"{F32_GATE}*max(1,max|ref|) {tag}")
+    cases = []
+    for l, act in zip(layers, acts):
+        for tile in (None, GemmPlan(16, 2), GemmPlan(32, 3),
+                     GemmPlan(64, 5)):
+            cases.append((f"wavegan/{l.name} batch {BUCKET}", l.k, l.s,
+                          l.cin, l.cout, BUCKET, l.in_hw[0], act, "same", 0,
+                          tile))
+    cases += [("1-D op > pad_hi, k5/s3", 5, 3, 3, 2, 2, 10, "tanh", 1, 2,
+               None),
+              ("1-D asymmetric pads (3, 5), k9/s2, op 1", 9, 2, 5, 3, 2, 7,
+               "tanh", (3, 5), 1, GemmPlan(16, 2)),
+              ("1-D Cin 70, k25/s4", 25, 4, 70, 5, 3, 13, "relu", "same", 0,
+               GemmPlan(32, 4))]
+    k1_err = bwd_err = 0.0
+    for label, k, s, cin, cout, b, length, act, pad, op, tile in cases:
+        x, _, p = case(k, s, cin, cout, b, length, act, pad, op, tile)
+        before = K.SD_FUSED_LAUNCHES
+        out = k1(x, p)
+        n = K.SD_FUSED_LAUNCHES - before
+        ref = plain(x, p)
+        torch.cuda.synchronize()
+        d, tol = _gate_err(out, ref, F32_GATE, True)
+        k1_err = max(k1_err, d)
+        g = h1_gemm(p, b, length, tile)
+        ok = d <= tol and n == 1 and out.shape == ref.shape \
+            and out.is_contiguous()
+        print(f"  {label} {tuple(x.shape)}->{tuple(out.shape)} GEMM {g.geom.m}"
+              f" x {g.geom.n} x {g.geom.k}, {g.plan}: {n} launch, max|d| "
+              f"{d:.3e} tol {tol:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"K1 {label} {g.plan}")
+    x, _, p = case(25, 4, 64, 32, BUCKET, 16, "relu", tile=GemmPlan(64, 4))
+    same = torch.equal(k1(x, p), k1(x, p))
+    print(f"  wavegan/up1 K1 run twice with {p.tile} (split-K): "
+          f"{'bit-identical' if same else 'DIFFERS'}")
+    if not same:
+        failures.append("K1 split-K on up1 not deterministic")
+
+    # ---- (b) K1 int8 as an H=1 launch ----------------------------------
+    print(f"check: WaveGAN K1 int8 as an H=1 launch vs sd_fused_ref on the "
+          f"int8 pair (exact sums), batch {BUCKET}: dynamic (B, NC) rows and "
+          f"a static (1, NC) row, f32 out; int8 out (relu, saturating "
+          f"codes) on up1/up2; gate 0 elements different {tag}")
+    for l, act in zip(layers, acts):
+        x, _, p = case(l.k, l.s, l.cin, l.cout, BUCKET, l.in_hw[0], act,
+                       dtype="int8")
+        xq, sxs = quantize_act(x)
+        comb = (sxs[:, None] * p.wscale[None, :]).contiguous()
+        runs = [("dynamic rows, f32 out", comb, None, None),
+                ("static row, f32 out", comb[:1].contiguous(), None, None)]
+        if act == "relu":
+            runs.append(("static row, int8 out", (comb[:1] * 2000)
+                         .contiguous(), torch.int8, p.bias * 50))
+        for what, sc, od, bias in runs:
+            before = K.SD_FUSED_INT8_LAUNCHES
+            out = k1(xq, p, sc, od, bias)
+            n = K.SD_FUSED_INT8_LAUNCHES - before
+            ref = plain(xq, p, sc, od, bias)
+            torch.cuda.synchronize()
+            n_diff = int((out != ref).sum())
+            sat = int((out.abs() == 127).sum()) if od is not None else None
+            ok = (n_diff == 0 and n == 1 and out.dtype == ref.dtype
+                  and (sat is None or sat > 0))
+            print(f"  wavegan/{l.name} {what} {tuple(xq.shape)}->"
+                  f"{tuple(out.shape)}: {n} launch, {n_diff} elements differ"
+                  f"{'' if sat is None else f', {sat} codes at +-127'} "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"K1 int8 wavegan/{l.name} {what}")
+    l = layers[0]
+    gsat = torch.Generator().manual_seed(SEED)
+    sample = torch.where(torch.rand(BUCKET, 1, 1, generator=gsat) < 0.5,
+                         127, -127)
+    column = torch.where(torch.rand(l.cout * l.s, generator=gsat) < 0.5,
+                         127, -127)
+    xq = sample.expand(BUCKET, l.in_hw[0], l.cin).to(torch.int8).contiguous()
+    ws = column.expand(7, l.cin, l.cout * l.s).to(torch.int8).contiguous()
+    p = sd.plan((l.k, l.cin, l.cout), l.s, same_deconv_pads((l.k,), (l.s,)),
+                backend="fused", dtype="int8", device=dev)
+    geo = h1_geo(p, l.in_hw[0])
+    xp = np.pad(xq.numpy().astype(np.int64), ((0, 0), geo["pad"][1], (0, 0)))
+    lc = xp.shape[1] - 6
+    acc = sum(xp[:, a:a + lc] @ ws.numpy()[a].astype(np.int64)
+              for a in range(7))
+    peak = 127 * 127 * 7 * l.cin
+    want = K.shuffle_epilogue(torch.from_numpy(acc.astype(np.float32))[:, None],
+                              (1, l.s), None, "linear", geo["crop"],
+                              geo["out_space"], torch.float32)[:, 0]
+    for tile in (None, GemmPlan(32, 4)):
+        out = ops.sd_deconv_presplit_fused_1d(
+            xq.to(dev), ws.to(dev), l.k, l.s, p.padding,
+            scale=torch.ones(1, l.cout * l.s, device=dev), plan=tile).cpu()
+        n_diff = int((out != want).sum())
+        ok = (n_diff == 0 and int(np.abs(acc).max()) == peak
+              and out.abs().max().item() == float(peak))
+        print(f"check: K1 int8 saturating, every code +-127 on wavegan/up1 at "
+              f"batch {BUCKET} (K {7 * l.cin}), plan {tile or 'default'}: "
+              f"{n_diff} of {out.numel()} elements differ from the int64 "
+              f"restatement, max|y| {out.abs().max().item():.0f} (127^2 x "
+              f"{7 * l.cin} = {peak}) {'ok' if ok else 'FAIL'} {tag}")
+        if not ok:
+            failures.append(f"K1 int8 saturating up1 {tile}")
+
+    # ---- (c) K4 as an H=1 launch ---------------------------------------
+    print(f"check: K4 as an H=1 launch (alphas (1, 6): F(1,1) x F(2,5)) at "
+          f"batch {BUCKET} vs sd_wino_ref (gate {F32_GATE}*max(1,max|ref|)) "
+          f"and vs K1 on the same split filters (tolerance((1, 5)) = "
+          f"{W.tolerance((1, 5))} * max(1,max|y_K1|)) {tag}")
+    spec_d = reduced_specs()["wavegan-dryrun"]
+    wino_cases = [(f"wavegan-dryrun/{dl.name}", dl.k, dl.s, dl.cin, dl.cout,
+                   dl.in_hw[0]) for dl in spec_d.deconv_layers()]
+    wino_cases += [(f"k17/s4 at wavegan/{wl.name}'s widths", 17, 4, wl.cin,
+                    wl.cout, wl.in_hw[0]) for wl in layers]
+    wino_bound = {}
+    for label, k, s, cin, cout, length in wino_cases:
+        x = randn(BUCKET, length, cin)
+        w = randn(k, cin, cout, scale=1.0 / (k * cin) ** 0.5)
+        bias = randn(cout, scale=0.1)
+        pw, pf = (sd.plan(w.shape, s, same_deconv_pads((k,), (s,)),
+                          backend=b, act="relu", device=dev).bind(
+                              w, bias=bias)
+                  for b in ("winograd", "fused"))
+        kt = (1, pw.kt[0])
+        geo = h1_geo(pw, length)
+        wl_ = W.wino_launch((BUCKET, 1, length, cin), (1, *pw.ws.shape), kt,
+                            (1, s), geo["pad"], geo["crop"], geo["out_space"])
+        before = W.SD_WINO_LAUNCHES
+        out = ops.sd_deconv_presplit_wino_1d(x, pw.ws, k, s, pw.padding,
+                                             bias=pw.bias, act="relu")
+        n = W.SD_WINO_LAUNCHES - before
+        ref = W.sd_wino_ref(x[:, None], pw.ws[None], kt, (1, s),
+                            bias=pw.bias, act="relu", **geo)[:, 0]
+        y1 = sd.execute(pf, x)
+        torch.cuda.synchronize()
+        d, tol = _gate_err(out, ref, F32_GATE, True)
+        d1, tol1 = _gate_err(out, y1, W.tolerance(kt), True)
+        ok = d <= tol and d1 <= tol1 and n == 1 and pw.kt == (5,)
+        print(f"  {label} {tuple(x.shape)}->{tuple(out.shape)}, "
+              f"{wl_.plan}: {n} launch, vs sd_wino_ref max|d| {d:.3e} tol "
+              f"{tol:.3e}, vs K1 max|d| {d1:.3e} tol {tol1:.3e} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"K4 {label}")
+        wino_bound[label] = (x, pw)
+    if failures:
+        raise SystemExit(f"chip_smoke: a WaveGAN H=1 launch disagrees with "
+                         f"its plain version on {failures}")
+
+    # ---- (d) K2 and K3 on the 1-D backward ------------------------------
+    print(f"check: WaveGAN's backward at batch {BUCKET}: K2 (dx) and K3 (dw) "
+          f"as H=1 launches vs sd_conv_ref / sd_filter_grad_ref, gate "
+          f"{F32_GATE}*max(1,max|ref|) {tag}")
+    bwd = {}
+    for l in layers:
+        p = sd.plan((l.k, l.cin, l.cout), l.s,
+                    same_deconv_pads((l.k,), (l.s,)), backend="fused",
+                    device=dev)
+        x = randn(BUCKET, l.in_hw[0], l.cin)
+        w = randn(l.k, l.cin, l.cout, scale=1.0 / (l.k * l.cin) ** 0.5)
+        dy = randn(BUCKET, *p.out_shape(l.in_hw), l.cout)
+        dy1 = split_cotangent(p, dy)[:, None]
+        (kt,), (pi,) = p.kt, p.pi
+        w_t = sd.split_weights(p, w)[None].flip(0, 1).transpose(-1, -2) \
+            .contiguous()
+        geo2 = dict(pad=((0, 0), (kt - 1, kt - 1)), out_start=(0, pi),
+                    out_size=(1, l.in_hw[0]))
+        geo3 = dict(pad=((0, 0), (pi, pi)))
+        x1 = x[:, None]
+        before = (K.SD_CONV_LAUNCHES, K.SD_FILTER_GRAD_LAUNCHES)
+        dx = K.sd_conv(dy1, w_t, **geo2)
+        dws = K.sd_filter_grad(x1, dy1, (1, kt), **geo3)
+        n = (K.SD_CONV_LAUNCHES - before[0],
+             K.SD_FILTER_GRAD_LAUNCHES - before[1])
+        for what, out, ref in (
+                ("K2 dx", dx, K.sd_conv_ref(dy1, w_t, **geo2)),
+                ("K3 dw", dws, K.sd_filter_grad_ref(x1, dy1, (1, kt),
+                                                    **geo3))):
+            torch.cuda.synchronize()
+            d, tol = _gate_err(out, ref, F32_GATE, True)
+            bwd_err = max(bwd_err, d)
+            ok = d <= tol and n == (1, 1)
+            print(f"  wavegan/{l.name} {what} {tuple(out.shape)}: max|d| "
+                  f"{d:.3e} tol {tol:.3e} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"{what} wavegan/{l.name}")
+        bwd[l.name] = (dy1, w_t, geo2, x1, kt, geo3)
+    # J_G^T c of full WaveGAN, the cotangent fixed, fused vs torch
+    gm = {b: GenerativeModel(WORKLOADS["wavegan"](), "sd_kernel",
+                             engine_backend=b, device=dev)
+          for b in ("fused", "torch")}
+    params0 = gm["fused"].init(torch.Generator().manual_seed(SEED))
+    z = randn(BUCKET, 100)
+    c = randn(BUCKET, 1024, 1)
+    grads, jgc_counts = {}, None
+    for b, m in gm.items():
+        params = {k: {n: t.detach().clone().requires_grad_()
+                      for n, t in v.items()} for k, v in params0.items()}
+        torch.cuda.synchronize()
+        zero_counts()
+        (m.apply(params, z) * c).sum().backward()
+        torch.cuda.synchronize()
+        if b == "fused":
+            jgc_counts = counts()
+        grads[b] = {(k, n): t.grad for k, v in params.items()
+                    for n, t in v.items()}
+    worst = max(((grads["fused"][key] - ref).abs().max()
+                 / ref.abs().max().clamp_min(1e-30)).item()
+                for key, ref in grads["torch"].items())
+    want = {"SD_FUSED_LAUNCHES": 3, "SD_CONV_LAUNCHES": 3,
+            "SD_FILTER_GRAD_LAUNCHES": 3}
+    ok = worst <= 1e-4 and all(jgc_counts.get(k, 0) == v
+                               for k, v in want.items()) and not any(
+        v for k, v in jgc_counts.items() if k not in want)
+    print(f"  full WaveGAN J_G^T c at batch {BUCKET} (c fixed): fused vs "
+          f"torch backend, worst leaf max|d|/max|ref| {worst:.3e} (gate "
+          f"1e-4); launches {jgc_counts} (want K1/K2/K3 3/3/3, every other 0) "
+          f"{'ok' if ok else 'FAIL'} {tag}")
+    if not ok:
+        failures.append("WaveGAN J_G^T c")
+    if failures:
+        raise SystemExit(f"chip_smoke: WaveGAN's backward is wrong: "
+                         f"{failures}")
+    report["jgc"] = {"worst_rel": worst, "launches": jgc_counts}
+
+    # ---- (e) serve full-width WaveGAN: f32, dynamic and calibrated int8 -
+    old_env = os.environ.get("REPRO_TORCH_SD_CALIB_CACHE")
+    cache_dir = tempfile.mkdtemp(prefix="chip_smoke_calib_")
+    os.environ["REPRO_TORCH_SD_CALIB_CACHE"] = os.path.join(
+        cache_dir, "sd_calib.json")
+    servers, serve, outs = {}, {}, {}
+    try:
+        for form, counter in (("f32", "SD_FUSED_LAUNCHES"),
+                              ("dynamic", "SD_FUSED_INT8_LAUNCHES"),
+                              ("calibrated", "SD_FUSED_INT8_LAUNCHES")):
+            server = GenServer(nets=("wavegan",), device=dev,
+                               max_batch=BUCKET, seed=SEED, backend="fused",
+                               dtype=torch.float32 if form == "f32"
+                               else "int8",
+                               calib=64 if form == "calibrated" else 0)
+            built_cells = server.warmup()
+            reqs = server.random_requests("wavegan", SERVE_REQUESTS, seed=1)
+            torch.cuda.synchronize()
+            zero_counts()
+            results, stats = serve_async(server, reqs)
+            torch.cuda.synchronize()
+            cnt = counts()
+            lat = stats["latency_ms"]
+            print(f"serve wavegan {form}: {stats['served']} WaveGAN requests "
+                  f"(full width, 1,024 samples each, f32 IO) in "
+                  f"{stats['wall_s']:.4f} s host clock: "
+                  f"{stats['req_per_s']:.1f} req/s, p50 {lat['p50']} ms, p95 "
+                  f"{lat['p95']} ms, {stats['launches']} launches, "
+                  f"{stats['compiles']} cells ({built_cells} built in warmup) "
+                  f"{tag}")
+            want = 3 * stats["launches"]
+            print(f"  launches in the serving run: {cnt} (want {counter} = 3 "
+                  f"layers x {stats['launches']} batches, every other 0)")
+            if cnt[counter] != want or want == 0 or any(
+                    v for n, v in cnt.items() if n != counter):
+                raise SystemExit(f"chip_smoke: the {form} WaveGAN server did "
+                                 f"not run {counter} (and only it) once per "
+                                 "deconv layer per batch")
+            if stats["served"] != SERVE_REQUESTS or stats["shed"]:
+                raise SystemExit(f"chip_smoke: served {stats['served']} of "
+                                 f"{SERVE_REQUESTS}, shed {stats['shed']}")
+            model, params = server.model("wavegan")
+            zb = torch.stack([r.latent for r in reqs])
+            out = torch.stack([results[r.rid] for r in reqs])
+            ref_m = GenerativeModel(model.spec, "sd_kernel",
+                                    engine_backend="torch", device=dev,
+                                    engine_dtype="native" if form == "f32"
+                                    else "int8")
+            plans = model.engine.plans()
+            code_txt = ""
+            if form == "calibrated":
+                ref_m.engine.set_calibration(
+                    {n: p.sx_in.item() for n, p in plans.items()})
+            with torch.no_grad():
+                ref = torch.cat([ref_m.apply(params, zb[i:i + BUCKET])
+                                 for i in range(0, SERVE_REQUESTS, BUCKET)])
+                if form == "calibrated":
+                    tplans = ref_m.engine.plans()
+                    h = zb @ params["project"]["w"] + params["project"]["b"]
+                    h = torch.relu(h.reshape(SERVE_REQUESTS, 16, 64))
+                    ht, diffs = h, []
+                    for name in ("up1", "up2"):
+                        h = torch.cat([sd.execute(plans[name],
+                                                  h[j:j + BUCKET])
+                                       for j in range(0, SERVE_REQUESTS,
+                                                      BUCKET)])
+                        ht = sd.execute(tplans[name], ht)
+                        diffs.append((name, str(h.dtype), int((h != ht)
+                                                              .sum())))
+                    code_txt = "; chained codes vs the torch backend: " + \
+                        ", ".join(f"{n} {dt.replace('torch.', '')} {k} differ"
+                                  for n, dt, k in diffs)
+                    if any(dt != "torch.int8" or k for _, dt, k in diffs):
+                        raise SystemExit("chip_smoke: WaveGAN's chained "
+                                         "codes differ from the torch "
+                                         "backend's")
+            finite = bool(torch.isfinite(out).all())
+            rel = F32_GATE if form == "f32" else INT8_EXACT_GATE
+            d, tol = _gate_err(out, ref, rel, True)
+            ok = finite and d <= tol and tuple(out.shape) == (
+                SERVE_REQUESTS, 1024, 1)
+            print(f"  outputs {tuple(out.shape)} finite={finite}; vs the same "
+                  f"model on the card's torch backend (the served batches of "
+                  f"{BUCKET}{', the same scales' if form == 'calibrated' else ''}"
+                  f"): max|d| {d:.3e} tol {tol:.3e} ({rel}*max(1,max|ref|))"
+                  f"{code_txt} {'ok' if ok else 'FAIL'} {tag}")
+            if not ok:
+                raise SystemExit(f"chip_smoke: {form}-served WaveGAN outputs "
+                                 "are wrong")
+            serve[form] = {k: stats[k] for k in ("served", "launches",
+                                                 "req_per_s", "wall_s",
+                                                 "latency_ms")}
+            serve[form].update(launches_by_counter=cnt, vs_torch_max_abs=d)
+            servers[form] = (server, reqs)
+            outs[form] = out
+    finally:
+        if old_env is None:
+            os.environ.pop("REPRO_TORCH_SD_CALIB_CACHE", None)
+        else:
+            os.environ["REPRO_TORCH_SD_CALIB_CACHE"] = old_env
+        shutil.rmtree(cache_dir, ignore_errors=True)
+    for form in ("dynamic", "calibrated"):
+        a, b = outs[form], outs["f32"]
+        r = ((a - b).abs().max() / b.abs().max()).item()
+        ok = r < INT8_VS_F32
+        print(f"  {form} int8 served vs the f32 server on the same weights "
+              f"and latents: max|d|/max|ref| {r:.4e} (gate < {INT8_VS_F32}) "
+              f"{'ok' if ok else 'FAIL'} {tag}")
+        if not ok:
+            raise SystemExit(f"chip_smoke: {form} int8 WaveGAN strays from "
+                             "f32")
+        serve[form]["vs_f32_rel"] = r
+
+    # ---- (f) the winograd dryrun ---------------------------------------
+    torch.cuda.synchronize()
+    zero_counts()
+    wres, wstats = serve_gen.main(["--dryrun", "--backend", "winograd"])
+    torch.cuda.synchronize()
+    wcnt = counts()
+    cells = wstats["compile_cache"]
+    # dcgan-dryrun 2 + segnet-dryrun 1 + wavegan-dryrun 2 deconv layers,
+    # one batch each
+    ok = ("('wavegan-dryrun', 2, 'float32')" in cells
+          and not any("voxgan" in c for c in cells)
+          and wstats["launches"] == 3
+          and wcnt["SD_WINO_LAUNCHES"] == 5 and not any(
+              v for n, v in wcnt.items() if n != "SD_WINO_LAUNCHES")
+          and all(bool(torch.isfinite(r).all()) for r in wres.values()))
+    print(f"serve_gen --dryrun --backend winograd: cells {cells}; launches "
+          f"{wcnt} (want 5 K4: 2 + 1 + 2 deconv layers, every other 0) "
+          f"{'ok' if ok else 'FAIL'} {tag}")
+    if not ok:
+        raise SystemExit("chip_smoke: the winograd dryrun did not serve "
+                         "wavegan-dryrun through K4")
+    report["wino_dryrun"] = {"cells": cells, "launches": wcnt}
+
+    # ---- (g) timing -----------------------------------------------------
+    print(f"time: WaveGAN layers at batch {BUCKET}, in turns: K1 f32 / K1 "
+          f"int8 with a static row (int8 out on up1/up2, f32 on to_audio) / "
+          f"the plain f32 version / F.conv_transpose1d f32 (cuDNN, TF32 off, "
+          f"a yardstick; padding 11 + output_padding 1 for the same length): "
+          f"device ms of one call (ahead events; the profiler's median of 3 "
+          f"beside) and CUDA events over 20 back-to-back calls; bound: f32 at "
+          f"the {PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s CUDA cores, int8 at the "
+          f"{PEAK_INT8_OPS / 1e12:.0f} TOP/s int8 tensor cores, or the bytes "
+          f"at {PEAK_BYTES / 1e12:.2f} TB/s, whichever is larger {tag}")
+    per_layer = []
+    for l, act in zip(layers, acts):
+        x, w, p = case(l.k, l.s, l.cin, l.cout, BUCKET, l.in_hw[0], act)
+        _, _, pq = case(l.k, l.s, l.cin, l.cout, BUCKET, l.in_hw[0], act,
+                        dtype="int8")
+        xq, sxs = quantize_act(x)
+        od = torch.int8 if act == "relu" else None
+        row = (sxs[:1, None] * pq.wscale[None, :]
+               * (200.0 if od is not None else 1.0)).contiguous()
+        x_cf = x.permute(0, 2, 1).contiguous()
+        w_cf = w.permute(1, 2, 0).contiguous()          # (Cin, Cout, K)
+        fns = {"k1": lambda: k1(x, p),
+               "k1q": lambda: k1(xq, pq, row, od),
+               "plain": lambda: plain(x, p),
+               "lib": lambda: F.conv_transpose1d(
+                   x_cf, w_cf, p.bias, stride=l.s, padding=11,
+                   output_padding=1)}
+        y, yq = fns["k1"](), fns["k1q"]()
+        assert fns["lib"]().shape[2] == y.shape[1]
+        t = _time_ms(fns)
+        dv = {n: _device_ms(f) for n, f in fns.items()}
+        g32 = h1_gemm(p, BUCKET, l.in_hw[0])
+        g8 = h1_gemm(pq, BUCKET, l.in_hw[0], dtype="int8")
+        macs = BUCKET * l.macs()
+        b32 = sum(t_.numel() * t_.element_size() for t_ in (x, p.ws, p.bias,
+                                                             y))
+        b8 = sum(t_.numel() * t_.element_size() for t_ in (xq, pq.ws, row,
+                                                           pq.bias, yq))
+        bound32 = max(2.0 * macs / PEAK_F32_FLOPS, b32 / PEAK_BYTES) * 1e3
+        bound8 = max(2.0 * macs / PEAK_INT8_OPS, b8 / PEAK_BYTES) * 1e3
+        rec = {"layer": f"wavegan/{l.name}", "x": list(x.shape),
+               "y": list(y.shape), "plan": str(g32.plan),
+               "grid": list(gemm_grid(g32.geom, g32.plan)),
+               "gemm": [g32.geom.m, g32.geom.n, g32.geom.k],
+               "ms": dv["k1"][1], "profiler_ms": dv["k1"][0],
+               "events_ms": t["k1"][0],
+               "int8_plan": str(g8.plan), "int8_out": str(yq.dtype),
+               "int8_ms": dv["k1q"][1], "int8_profiler_ms": dv["k1q"][0],
+               "int8_events_ms": t["k1q"][0],
+               "plain_ms": dv["plain"][1], "plain_events_ms": t["plain"][0],
+               "library_ms": dv["lib"][1],
+               "library_profiler_ms": dv["lib"][0],
+               "library_events_ms": t["lib"][0],
+               "bound_ms": bound32,
+               "bound_by": ("operations" if 2.0 * macs / PEAK_F32_FLOPS
+                            >= b32 / PEAK_BYTES else "bytes"),
+               "int8_bound_ms": bound8,
+               "int8_bound_by": ("operations" if 2.0 * macs / PEAK_INT8_OPS
+                                 >= b8 / PEAK_BYTES else "bytes"),
+               "macs": macs, "bytes": b32, "int8_bytes": b8,
+               "launches_per_batch": 1}
+        per_layer.append(rec)
+        print(f"  wavegan/{l.name} {tuple(x.shape)}->{tuple(y.shape)} GEMM "
+              f"{g32.geom.m} x {g32.geom.n} x {g32.geom.k}, f32 {g32.plan} "
+              f"grid {' x '.join(map(str, rec['grid']))}, int8 {g8.plan}: K1 "
+              f"f32 device {rec['ms']:.4f} ms (profiler "
+              f"{_ms_txt(rec['profiler_ms'])}; events {rec['events_ms']:.4f}),"
+              f" K1 int8 static {rec['int8_out'].replace('torch.', '')} out "
+              f"{rec['int8_ms']:.4f} (profiler "
+              f"{_ms_txt(rec['int8_profiler_ms'])}; events "
+              f"{rec['int8_events_ms']:.4f}), plain {rec['plain_ms']:.4f}, "
+              f"conv_transpose1d {rec['library_ms']:.4f} (profiler "
+              f"{_ms_txt(rec['library_profiler_ms'])}); bound f32 "
+              f"{bound32:.5f} ms ({rec['bound_by']}), int8 {bound8:.5f} ms "
+              f"({rec['int8_bound_by']}); sm clock, power, temperature "
+              f"{_clocks()} {tag}")
+    print(f"time: WaveGAN's K4 (k17/s4 at WaveGAN's widths, 5 taps), K2 (dx) "
+          f"and K3 (dw) as H=1 launches at batch {BUCKET}: device ms (ahead "
+          f"events; profiler beside), their plain versions' {tag}")
+    other = {"sd_wino": [], "sd_conv": [], "sd_filter_grad": []}
+    for (label, (x, pw)), l in zip(list(wino_bound.items())[-3:], layers):
+        kt = (1, pw.kt[0])
+        geo = h1_geo(pw, x.shape[1])
+        fk = lambda x=x, pw=pw: ops.sd_deconv_presplit_wino_1d(  # noqa
+            x, pw.ws, 17, 4, pw.padding, bias=pw.bias, act="relu")
+        fp = lambda x=x, pw=pw, kt=kt, geo=geo: W.sd_wino_ref(  # noqa
+            x[:, None], pw.ws[None], kt, (1, 4), bias=pw.bias, act="relu",
+            **geo)
+        dy1, w_t, geo2, x1, ktt, geo3 = bwd[l.name]
+        for kname, f_k, f_p in (
+                ("sd_wino", fk, fp),
+                ("sd_conv", lambda: K.sd_conv(dy1, w_t, **geo2),
+                 lambda: K.sd_conv_ref(dy1, w_t, **geo2)),
+                ("sd_filter_grad",
+                 lambda: K.sd_filter_grad(x1, dy1, (1, ktt), **geo3),
+                 lambda: K.sd_filter_grad_ref(x1, dy1, (1, ktt), **geo3))):
+            dk, dp = _device_ms(f_k), _device_ms(f_p)
+            macs = BUCKET * (l.macs() if kname != "sd_wino"
+                             else l.in_hw[0] * 17 * l.cin * l.cout)
+            other[kname].append({"layer": label if kname == "sd_wino"
+                                 else f"wavegan/{l.name}",
+                                 "ms": dk[1], "profiler_ms": dk[0],
+                                 "plain_ms": dp[1],
+                                 "useful_bound_ms": 2.0 * macs
+                                 / PEAK_F32_FLOPS * 1e3})
+            print(f"  {kname} {other[kname][-1]['layer']}: device "
+                  f"{dk[1]:.4f} ms (profiler {_ms_txt(dk[0])}), plain "
+                  f"{dp[1]:.4f} ms, useful-work bound "
+                  f"{other[kname][-1]['useful_bound_ms']:.5f} ms")
+
+    full = [r.latent for r in servers["f32"][1][:BUCKET]]
+    host = {k: [] for k in servers}
+    order = list(servers)
+    for r in range(10):
+        for name in (order if r % 2 == 0 else order[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            servers[name][0].run_group("wavegan", full)
+            torch.cuda.synchronize()
+            host[name].append((time.perf_counter() - t0) * 1e3)
+    host_ms = {k: sorted(v)[len(v) // 2] for k, v in host.items()}
+    breakdown = {k: _device_breakdown(
+        lambda s=s[0]: s.run_group("wavegan", full))
+        for k, s in servers.items()}
+    print(f"batch wavegan: one WaveGAN batch of {BUCKET} through run_group, "
+          f"host clock (median of 10, synchronised, in turns): f32 "
+          f"{host_ms['f32']:.3f} ms, dynamic int8 {host_ms['dynamic']:.3f} ms, "
+          f"calibrated int8 {host_ms['calibrated']:.3f} ms {tag}")
+    for name, bd in breakdown.items():
+        if bd is None:
+            print(f"  {name}: device time: not measured (the profiler "
+                  "reported no device time)")
+            continue
+        busy, wall, top = bd
+        print(f"  {name} profiler: device busy {busy:.3f} ms of {wall:.3f} "
+              f"ms wall (idle share {1 - busy / wall:.3f}) {tag}")
+        for kname, ms_k, calls in top:
+            print(f"    {ms_k:.4f} ms in {calls} call(s): {kname[:90]}")
+
+    report.update(per_layer=per_layer, other=other, serve=serve,
+                  batch_host_ms=host_ms, batch_device=breakdown)
+    return {
+        "k1_max_abs_err": k1_err, "backward_max_abs_err": bwd_err,
+        "launches": {
+            "sd_fused": serve["f32"]["launches_by_counter"][
+                "SD_FUSED_LAUNCHES"],
+            "sd_fused_int8": serve["dynamic"]["launches_by_counter"][
+                "SD_FUSED_INT8_LAUNCHES"],
+            "sd_fused_int8_calibrated": serve["calibrated"][
+                "launches_by_counter"]["SD_FUSED_INT8_LAUNCHES"],
+            "sd_conv": jgc_counts["SD_CONV_LAUNCHES"],
+            "sd_filter_grad": jgc_counts["SD_FILTER_GRAD_LAUNCHES"],
+            "sd_wino": wcnt["SD_WINO_LAUNCHES"]},
+        "ms": {"sd_fused": [r["ms"] for r in per_layer],
+               "sd_fused_int8": [r["int8_ms"] for r in per_layer],
+               **{k: [r["ms"] for r in v] for k, v in other.items()}},
+        "report": report}
+
+
 def main(json_path: str = "") -> int:
     t_start = time.perf_counter()
     sys.stdout.reconfigure(line_buffering=True)   # a cut run keeps its log
@@ -3353,6 +3993,11 @@ def main(json_path: str = "") -> int:
     torch.cuda.empty_cache()
     lm = _lm_phase(dev, tag)
 
+    # ---- 11. WaveGAN (rank 1) through H=1 launches of K1, K1 int8, K4,
+    # and its K2 + K3 backward ------------------------------------------
+    torch.cuda.empty_cache()
+    wave = _wavegan_phase(dev, tag, randn)
+
     if "jax" in sys.modules or "repro" in sys.modules:
         raise SystemExit("chip_smoke: JAX or the JAX package was imported")
     total = {k: sum(r[k] for r in per_layer)
@@ -3375,6 +4020,23 @@ def main(json_path: str = "") -> int:
         train["kernels"] + \
         [wino["kernel"], int8["kernel"], nd["kernel"], lm["kernel"]]
     for k in kernels:
+        # phase 11: WaveGAN's launches and per-layer device ms (up1 / up2
+        # / to_audio; K4's on k17/s4 at those widths)
+        name = k["name"]
+        if name in wave["ms"]:
+            k["wavegan_ms"] = wave["ms"][name]
+        if name == "sd_fused_int8":
+            k["launches_wavegan_dynamic"] = wave["launches"][name]
+            k["launches_wavegan_calibrated"] = wave["launches"][
+                "sd_fused_int8_calibrated"]
+        elif name == "sd_wino":
+            k["launches_wavegan_dryrun"] = wave["launches"][name]
+        elif name in wave["launches"]:
+            k["launches_wavegan"] = wave["launches"][name]
+        if name == "sd_fused":
+            k["wavegan_max_abs_err"] = wave["k1_max_abs_err"]
+        if name in ("sd_conv", "sd_filter_grad"):
+            k["wavegan_max_abs_err"] = wave["backward_max_abs_err"]
         if k["name"] in ("sd_conv", "sd_filter_grad", "sd_wino"):
             k["sass_hmma_tf32"] = sass[k["name"]]["HMMA_TF32"]
         if k["name"] == "sd_conv":
@@ -3400,7 +4062,7 @@ def main(json_path: str = "") -> int:
               "int8": {k: v for k, v in int8.items() if k != "kernel"},
               "nd": {k: v for k, v in nd.items() if k != "kernel"},
               "chain": {k: v for k, v in chain.items() if k != "record"},
-              "lm": lm["report"],
+              "lm": lm["report"], "wavegan": wave["report"],
               "serve": {k: stats[k] for k in
                         ("served", "launches", "req_per_s", "wall_s",
                          "latency_ms")},
@@ -3439,7 +4101,12 @@ def main(json_path: str = "") -> int:
           f"f32 kernel's on the same inputs, bound_ms at the useful work, "
           f"bound_split_ms at the bf16 kernel's split P, bound_f32_ms and "
           f"bound_f32_tc_ms the f32 kernel's on the CUDA cores and in "
-          f"3xTF32, its launches in phase 10's serving run) {tag}")
+          f"3xTF32, its launches in phase 10's serving run; phase 11, "
+          f"WaveGAN: launches_wavegan* counted in its f32 / dynamic / "
+          f"calibrated serving runs (K1, K1 int8), its J_G^T c run (K2, K3) "
+          f"and the winograd dryrun (K4), wavegan_ms the device ms (ahead "
+          f"events) per layer up1 / up2 / to_audio at batch {BUCKET}, K4's "
+          f"on k17/s4 at those widths) {tag}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,6 +10,11 @@ shape.  The kernel writes each output element once; no padded or
 uncropped copy exists.  :func:`sd_deconv_presplit_wino` does the same
 for K4 from the Winograd-transformed filters.
 
+:func:`sd_deconv_presplit_fused_1d` and :func:`sd_deconv_presplit_wino_1d`
+are the 1-D lowerings: the length axis becomes the width of an H=1 2-D
+launch of K1 (either branch) or K4, with a ``(1, K)`` filter, a ``(1,
+s)`` interleave and the pads on the width.
+
 :func:`sd_deconv_presplit_fused_3d` is the 3-D lowering: depth folded
 into the batch, one K2 launch per depth tap (K2's int8 pair on int8
 operands), the taps summed outside the kernel, then ``depth_to_space``
@@ -102,6 +107,57 @@ def sd_deconv_presplit_wino(x: torch.Tensor, u: torch.Tensor, kernel,
         return x.new_zeros((x.shape[0], *out_space, cout))
     return sd_wino(x, u, kt, s, bias=bias, act=act, pad=pad, crop=crop,
                    out_space=out_space, plan=plan)
+
+
+def sd_deconv_presplit_wino_1d(x: torch.Tensor, u: torch.Tensor, kernel,
+                               stride, padding=0, *, output_padding=0,
+                               bias: Optional[torch.Tensor] = None,
+                               act: str = "linear",
+                               plan: Optional[WinoPlan] = None
+                               ) -> torch.Tensor:
+    """1-D Winograd SD as an H=1 launch of K4 (reference:
+    ``ops.sd_deconv_presplit_wino_1d``): x (B, L, Cin), u the transformed
+    oc-major filters ``(alpha, Cin, Cout*s)``.  The unit H axis takes the
+    degenerate F(1,1) transform (``alpha_h = 1``), so no product is
+    spent on it."""
+    (k,) = _ntuple(kernel, 1)
+    (s,) = _ntuple(stride, 1)
+    ((lo, hi),) = _pads_nd(padding, 1)
+    (op,) = _ntuple(output_padding, 1)
+    y = sd_deconv_presplit_wino(
+        x[:, None], u[None], (1, k), (1, s), ((0, 0), (lo, hi)),
+        output_padding=(0, op), bias=bias, act=act, plan=plan)
+    return y[:, 0]
+
+
+def sd_deconv_presplit_fused_1d(x: torch.Tensor, ws_ocmajor: torch.Tensor,
+                                kernel, stride, padding=0, *,
+                                output_padding=0,
+                                bias: Optional[torch.Tensor] = None,
+                                act: str = "linear",
+                                scale: Optional[torch.Tensor] = None,
+                                out_dtype: Optional[torch.dtype] = None,
+                                plan: Optional[GemmPlan] = None
+                                ) -> torch.Tensor:
+    """1-D SD as an H=1 launch of K1 (reference:
+    ``ops.sd_deconv_presplit_fused_1d``).
+
+    x: (B, L, Cin); ws_ocmajor: (KT, Cin, Cout*s), channel ``oc*s +
+    phase``.  The length axis is the kernel's width axis (a ``(1, KT)``
+    filter, interleave ``(1, s)``), so the in-kernel pad and crop act on
+    it.  int8: ``scale`` is (B, Cout*s) or a static (1, Cout*s) row,
+    oc-major, an order the ``(1, s)`` lowering keeps; ``out_dtype`` as
+    in :func:`sd_deconv_presplit_fused`.  The views ``x[:, None]`` and
+    ``y[:, 0]`` are contiguous: nothing is copied."""
+    (k,) = _ntuple(kernel, 1)
+    (s,) = _ntuple(stride, 1)
+    ((lo, hi),) = _pads_nd(padding, 1)
+    (op,) = _ntuple(output_padding, 1)
+    y = sd_deconv_presplit_fused(
+        x[:, None], ws_ocmajor[None], (1, k), (1, s), ((0, 0), (lo, hi)),
+        output_padding=(0, op), bias=bias, act=act, scale=scale,
+        out_dtype=out_dtype, plan=plan)
+    return y[:, 0]
 
 
 def sd_deconv_presplit_fused_3d(x: torch.Tensor, ws_nmajor: torch.Tensor,

@@ -23,8 +23,9 @@ per-sample quantization, and consecutive deconv layers pass int8 codes
 (K1's int8 output); the scales are saved under ``"<net>/max"`` in
 ``$REPRO_TORCH_SD_CALIB_CACHE`` (default
 ``~/.cache/repro_torch/sd_calib.json``).  ``--nets`` takes any workload of
-``core/accounting.py``; the 3-D ``voxgan`` runs each deconv layer as one
-K2 launch per depth tap (K2's int8 pair under ``--dtype int8``).
+``core/accounting.py``; the 1-D ``wavegan`` runs each deconv layer as
+an H=1 launch of K1 (or K1's int8 branch), the 3-D ``voxgan`` as one K2
+launch per depth tap (K2's int8 pair under ``--dtype int8``).
 
   PYTHONPATH=src python -m repro_torch.launch.serve_gen --nets dcgan \\
       --requests 32 --max-batch 16
@@ -35,6 +36,8 @@ K2 launch per depth tap (K2's int8 pair under ``--dtype int8``).
       --device cpu --dtype int8
   PYTHONPATH=src python -m repro_torch.launch.serve_gen --nets voxgan \\
       --dtype int8
+  PYTHONPATH=src python -m repro_torch.launch.serve_gen --nets wavegan \\
+      --dtype int8 --calib 64
   PYTHONPATH=src python -m repro_torch.launch.serve_gen --dtype int8 \\
       --calib 64
 """
@@ -67,15 +70,21 @@ class GenRequest:
 
 
 def reduced_specs() -> Dict[str, NetworkSpec]:
-    """Tiny specs for ``--dryrun``: a 2-D generator, a 3-D voxel
-    generator and a 2-D segmentation decoder with a mid-net conv and a
-    logit head (the reference's set; its 1-D ``wavegan-dryrun`` comes
-    with the rank-1 slice)."""
+    """Tiny specs for ``--dryrun``, one per workload family (the
+    reference's set): a 2-D generator, a 1-D audio generator, a 3-D
+    voxel generator and a 2-D segmentation decoder with a mid-net conv
+    and a logit head."""
     return {
         "dcgan-dryrun": NetworkSpec("DCGAN-dryrun", [
             LayerSpec("fc", 16, 4 * 4 * 32, name="project"),
             LayerSpec("deconv", 32, 16, k=5, s=2, in_hw=(4, 4), name="d1"),
             LayerSpec("deconv", 16, 3, k=5, s=2, in_hw=(8, 8), name="d2"),
+        ]),
+        "wavegan-dryrun": NetworkSpec("WaveGAN-dryrun", [
+            LayerSpec("fc", 8, 8 * 8, name="project"),
+            LayerSpec("deconv", 8, 4, k=9, s=2, in_hw=(8,), name="up1"),
+            LayerSpec("deconv", 4, 1, k=9, s=2, in_hw=(16,),
+                      name="to_audio"),
         ]),
         "voxgan-dryrun": NetworkSpec("VoxGAN-dryrun", [
             LayerSpec("fc", 8, 2 ** 3 * 8, name="project"),
@@ -339,11 +348,12 @@ def main(argv=None):
     if args.dryrun:
         specs = reduced_specs()
         if args.backend == "winograd":
-            # K4 covers rank 2 with taps <= 5: drop reduced specs outside
-            # that envelope instead of failing the whole smoke.
+            # K4 covers ranks 1-2 with taps <= 5: drop reduced specs
+            # outside that envelope (the 3-D voxel smoke) instead of
+            # failing the whole smoke.
             from repro_torch.kernels.winograd import supported
             specs = {n: sp for n, sp in specs.items()
-                     if all(l.rank == 2 and supported((-(-l.k // l.s),) * 2)
+                     if all(supported((-(-l.k // l.s),) * l.rank)
                             for l in sp.deconv_layers())}
         nets = sorted(specs)
         n_requests = 2

@@ -7,10 +7,10 @@ implementation is chosen by name from :data:`IMPLS`:
 * ``sd``        — split deconvolution, filters split on every call,
 * ``sd_kernel`` — the presplit-once engine (:class:`SDEngine`): filters
   are split and BN-folded once at bind, and every forward runs the
-  fused kernel K1 (``engine_backend="fused"``; for a 3-D net one K2
-  launch per depth tap), the Winograd kernel K4 (``"winograd"``) or the
-  grouped-conv ``torch`` backend, with bias and
-  activation in the epilogue; ``engine_dtype="int8"`` binds int8 plans
+  fused kernel K1 (``engine_backend="fused"``; for a 1-D net as an H=1
+  launch, for a 3-D net one K2 launch per depth tap), the Winograd
+  kernel K4 (``"winograd"``) or the grouped-conv ``torch`` backend, with
+  bias and activation in the epilogue; ``engine_dtype="int8"`` binds int8 plans
   (the dynamic int8 path, K1's int8 branch on ``fused``), and
   :meth:`GenerativeModel.calibrate` turns them into the calibrated chain
   (static activation scales, int8 between consecutive deconvs).  When
@@ -258,8 +258,11 @@ def build(name: str, deconv_impl: str = "sd", engine_backend: str = "auto",
           device=None) -> GenerativeModel:
     """Factory over :data:`~repro_torch.core.accounting.WORKLOADS` (the
     paper's six networks plus the N-D workloads): ``build("dcgan",
-    "sd_kernel", device="cuda")``.  Rank 1 (``wavegan``) runs on the
-    ``torch`` backend only so far; ``fused`` raises at plan time."""
+    "sd_kernel", device="cuda")``.  Every net runs on every backend it
+    fits: rank 1 (``wavegan``) takes K1 and its K2 + K3 backward as H=1
+    launches on ``fused``; ``winograd`` refuses a layer of more than 5
+    taps (full WaveGAN's k25/s4 has 7) with the reference's
+    ``ValueError``."""
     if name not in WORKLOADS:
         raise ValueError(f"unknown workload {name!r}; choose from "
                          f"{sorted(WORKLOADS)}")

@@ -12,8 +12,11 @@ filters ``bind`` transformed (``conv_transpose`` transforms the freshly
 split filters in the call; its backward is the plain torch formulation,
 as in the reference, which sends only ``"fused"`` to the kernels);
 ``"torch"`` is the grouped stride-1 conv + pixel shuffle + crop in plain
-PyTorch.  A rank-3 ``"fused"`` plan runs the depth-folded lowering, one
-K2 launch per depth tap
+PyTorch.  A rank-1 ``"fused"`` or ``"winograd"`` plan runs K1 or K4 as
+an H=1 launch (:func:`~repro_torch.kernels.ops.sd_deconv_presplit_fused_1d`,
+:func:`~repro_torch.kernels.ops.sd_deconv_presplit_wino_1d`).  A rank-3
+``"fused"`` plan runs the depth-folded lowering, one K2 launch per depth
+tap
 (:func:`~repro_torch.kernels.ops.sd_deconv_presplit_fused_3d`); its
 backward is the plain torch formulation, as in the reference.
 
@@ -46,7 +49,9 @@ def _run_presplit(plan: DeconvPlan, x: torch.Tensor, ws: torch.Tensor,
         from repro_torch.kernels.winograd import transform_filters
         u = ws if layout == "wino" else transform_filters(
             to_ocmajor(ws, plan.stride))
-        return ops.sd_deconv_presplit_wino(
+        fn = (ops.sd_deconv_presplit_wino_1d if plan.rank == 1
+              else ops.sd_deconv_presplit_wino)
+        return fn(
             x, u, plan.kernel, plan.stride, plan.padding,
             output_padding=plan.output_padding, bias=bias, act=act,
             plan=plan.tile)
@@ -63,7 +68,9 @@ def _run_presplit(plan: DeconvPlan, x: torch.Tensor, ws: torch.Tensor,
                 output_padding=plan.output_padding, bias=bias, act=act,
                 plan=plan.tile)
         ws_oc = ws if layout == "ocmajor" else to_ocmajor(ws, plan.stride)
-        return ops.sd_deconv_presplit_fused(
+        fn = (ops.sd_deconv_presplit_fused_1d if plan.rank == 1
+              else ops.sd_deconv_presplit_fused)
+        return fn(
             x, ws_oc, plan.kernel, plan.stride, plan.padding,
             output_padding=plan.output_padding, bias=bias, act=act,
             plan=plan.tile)
@@ -92,7 +99,8 @@ def _run_presplit_int8(plan: DeconvPlan, x: torch.Tensor) -> torch.Tensor:
     next layer's scale into the epilogue, which writes int8 codes.
 
     ``fused``: K1's int8 branch on the card, its plain version on the
-    CPU; rank 3, the depth-folded lowering with K2's int8 pair per depth
+    CPU (rank 1 as an H=1 launch, ``comb`` in the oc-major order of the
+    filters); rank 3, the depth-folded lowering with K2's int8 pair per depth
     tap, from n-major filters and the n-major scale (quantization runs
     here, over each sample's whole volume).  ``torch``: the n-major
     grouped conv summed exactly (:func:`exact_conv_valid`, where the
@@ -121,10 +129,10 @@ def _run_presplit_int8(plan: DeconvPlan, x: torch.Tensor) -> torch.Tensor:
         out_dtype = torch.int8
     if plan.backend == "fused":
         from repro_torch.kernels import ops
-        if plan.rank == 3:
-            fn, layout = ops.sd_deconv_presplit_fused_3d, "nmajor"
-        else:
-            fn, layout = ops.sd_deconv_presplit_fused, "ocmajor"
+        fn, layout = {1: (ops.sd_deconv_presplit_fused_1d, "ocmajor"),
+                      2: (ops.sd_deconv_presplit_fused, "ocmajor"),
+                      3: (ops.sd_deconv_presplit_fused_3d, "nmajor")
+                      }[plan.rank]
         if plan.layout != layout:
             raise ValueError(f"the rank-{plan.rank} fused int8 path "
                              f"consumes {layout} filters")

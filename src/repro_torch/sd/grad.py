@@ -14,12 +14,15 @@ stride-1 conv (a FULL conv with the split filters rotated 180 degrees
 and their channels swapped), its filter grad (a VALID conv with batch
 and channel axes exchanged), ``unsplit_filters``, and pad^T.
 
-A ``fused`` plan (rank 2) runs the two convolutions on the hand-written
-kernels: K2 for ``dx`` (the FULL-conv pad is masked reads and pad^T is
-the launch's output window) and K3 for ``dw`` (``P_I`` applied in the
-kernel).  A ``torch`` or ``winograd`` plan, and every rank-3 plan, runs
-the ``F.conv``-based formulations below (the reference, too, sends only
-``fused`` plans to its backward kernels).
+A ``fused`` plan of rank 1 or 2 runs the two convolutions on the
+hand-written kernels: K2 for ``dx`` (the FULL-conv pad is masked reads
+and pad^T is the launch's output window) and K3 for ``dw`` (``P_I``
+applied in the kernel); rank 1 as H=1 launches (``dy1[:, None]``,
+``ws[None]``, taps ``(1, KT)``, pad ``(0, P_I)``, window ``(1, L)``), as
+the reference lowers it.  A ``torch`` or ``winograd`` plan, and every
+rank-3 plan, runs the ``F.conv``-based formulations below (the
+reference, too, sends only ``fused`` plans of rank <= 2 to its backward
+kernels).
 """
 
 from __future__ import annotations
@@ -82,10 +85,17 @@ def conv_transpose_vjp(plan: DeconvPlan, x: torch.Tensor, w: torch.Tensor,
     space = tuple(x.shape[1:1 + rank])
     ws = split_filters(w, plan.stride)
     dy1 = split_cotangent(plan, dy)
-    if plan.backend == "fused" and plan.rank == 2:
+    if plan.backend == "fused" and rank == 2:
         from repro_torch.kernels import ops
         dx = ops.sd_input_grad_fused(dy1, ws.to(dy1.dtype), pi, space)
         dws = ops.sd_filter_grad_fused(x.contiguous(), dy1, kt, pi)
+    elif plan.backend == "fused" and rank == 1:
+        from repro_torch.kernels import ops
+        dx = ops.sd_input_grad_fused(dy1[:, None], ws.to(dy1.dtype)[None],
+                                     (0, pi[0]), (1, space[0]))[:, 0]
+        dws = ops.sd_filter_grad_fused(x.contiguous()[:, None],
+                                       dy1[:, None], (1, kt[0]),
+                                       (0, pi[0]))[0]
     else:
         dxp = _conv_valid_input_grad(dy1, ws.to(dy1.dtype))
         dx = dxp[(slice(None),)                     # pad^T

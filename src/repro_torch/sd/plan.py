@@ -19,11 +19,12 @@ the layer write int8 codes for that layer (the chained epilogue).
 Backends: ``"torch"`` runs the grouped stride-1 conv + pixel shuffle in
 plain PyTorch (the twin of the reference's ``"xla"``) from n-major
 filters; ``"fused"`` runs the fused CUDA kernel K1 from oc-major
-filters at rank 2, and at rank 3 the depth-folded lowering (one K2
-launch per depth tap, then the torch interleave) from n-major filters;
-``"winograd"`` runs K4, the F(2,r) Winograd kernel, from
-oc-major filters transformed at bind (layout ``"wino"``; rank 2, per-dim
-taps <= 5, float only).
+filters at rank 2 and, as an H=1 launch, at rank 1, and at rank 3 the
+depth-folded lowering (one K2 launch per depth tap, then the torch
+interleave) from n-major filters; ``"winograd"`` runs K4, the F(2,r)
+Winograd kernel, from oc-major filters transformed at bind (layout
+``"wino"``; ranks 1 (an H=1 launch) and 2, per-dim taps <= 5, float
+only).
 ``"auto"`` means fused for a CUDA device and torch for the CPU; with no
 device named it means the card (and raises without one).
 """
@@ -135,12 +136,12 @@ class DeconvPlan:
 
     def _bound_layout(self) -> str:
         """The filter layout this plan's execution path consumes:
-        oc-major for K1 (rank 2), n-major for the torch backend and for
-        the rank-3 fused lowering (its interleave is ``depth_to_space``),
-        the transformed filters for K4."""
+        oc-major for K1 (ranks 1 and 2), n-major for the torch backend
+        and for the rank-3 fused lowering (its interleave is
+        ``depth_to_space``), the transformed filters for K4."""
         if self.backend == "winograd":
             return "wino"
-        if self.backend == "fused" and self.rank == 2:
+        if self.backend == "fused" and self.rank <= 2:
             return "ocmajor"
         return "nmajor"
 
@@ -222,13 +223,12 @@ def plan(filter_shape: Sequence[int], stride, padding=0,
     "auto"`` resolves against ``device`` (default: the card, raising
     without one).  ``dtype="int8"`` requests the int8 path, dynamic or,
     after :meth:`DeconvPlan.with_chain`, calibrated (``fused`` and
-    ``torch`` backends; ranks 2 and 3 on ``fused``, as float plans); a
-    winograd
-    plan outside its envelope, int8 included, raises the reference's
-    ``ValueError``.  ``tile``: a ``fused`` plan's
+    ``torch`` backends, every rank); a winograd plan outside its
+    envelope (rank 3, per-dim taps above 5, int8) raises the
+    reference's ``ValueError``.  ``tile``: a ``fused`` plan's
     :class:`~repro_torch.kernels.autotune.GemmPlan` (K1's float and int8
-    branches at rank 2, K2 and K2's int8 pair at rank 3, one launch per
-    depth tap); a ``winograd`` plan's
+    branches at ranks 1 and 2, K2 and K2's int8 pair at rank 3, one
+    launch per depth tap); a ``winograd`` plan's
     :class:`~repro_torch.kernels.autotune.WinoPlan` (K4); another type
     raises ``TypeError`` (a ``torch`` plan launches no kernel and ignores
     it)."""
@@ -254,15 +254,6 @@ def plan(filter_shape: Sequence[int], stride, padding=0,
                 f"subfilter taps {kt} (rank {rank}, dtype {dtype!r}); "
                 f"requires rank <= 2, 1 <= taps <= {MAX_TAPS}, float "
                 f"dtype — use backend='fused' for this layer")
-        if rank == 1:
-            raise NotImplementedError(
-                "the winograd backend's 1-D lowering comes with the rank "
-                "slice (ROADMAP.md item 11) — use backend='torch'")
-    if resolved == "fused" and rank == 1:
-        raise NotImplementedError(
-            "the fused backend covers rank 2 and rank 3 so far; rank 1 "
-            "comes with its slice (see ROADMAP.md item 11) — use "
-            "backend='torch'")
     if resolved != "torch":
         want = WinoPlan if resolved == "winograd" else GemmPlan
         check_plan_type(f"a {dtype} {resolved!r} plan's tile", tile, want)

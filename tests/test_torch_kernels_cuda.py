@@ -43,7 +43,11 @@ each bf16 element within ``2^-7 * |ref| + 1e-4 * max|ref|``, on ragged
 sequences around both kernels' tiles, grouped heads and D up to 256, in
 f32 also head dims that are not a multiple of 8 and operands that only
 4-byte copies can read; the f32 kernel's SASS runs on TF32 HMMA; the
-reduced LM's prefill through K5 matches the plain scan.
+reduced LM's prefill through K5 matches the plain scan.  Rank 1
+(WaveGAN): K1 (f32 and int8), K4, K2 and K3 as H=1 launches on
+WaveGAN's layers at batch 16, at the same gates, and full-width WaveGAN
+served in f32, dynamic and calibrated int8 against the card's ``torch``
+backend.
 """
 
 import pytest
@@ -927,6 +931,236 @@ def test_calibrated_voxgan_server_equals_torch_backend(dev, tmp_path,
     with torch.no_grad():
         ref = ref_m.apply(params, torch.stack(zs))
     assert torch.isfinite(out).all() and torch.equal(out, ref)
+
+
+# ---------------------------------------------------------------------------
+# Rank 1 (WaveGAN): K1, K1 int8, K4, K2 and K3 as H=1 launches.
+# ---------------------------------------------------------------------------
+
+WAVEGAN_LAYERS = WORKLOADS["wavegan"]().deconv_layers()
+
+
+def _wave_case(dev, layer, act, batch=16, dtype="native", tile=None,
+               seed=0):
+    """A full-width WaveGAN layer at ``batch``: the input and a bound
+    rank-1 fused plan (folded BN scale, bias, act)."""
+    g = torch.Generator().manual_seed(seed + layer.cin)
+    x = torch.randn(batch, *layer.in_hw, layer.cin, generator=g)
+    w = torch.randn(layer.k, layer.cin, layer.cout, generator=g) \
+        / (layer.k * layer.cin) ** 0.5
+    scale = 1 + 0.1 * torch.randn(layer.cout, generator=g)
+    bias = 0.1 * torch.randn(layer.cout, generator=g)
+    p = sd.plan(w.shape, layer.s, same_deconv_pads((layer.k,), (layer.s,)),
+                backend="fused", act=act, dtype=dtype, tile=tile,
+                device=dev).bind(w.to(dev), scale.to(dev), bias.to(dev))
+    return x.to(dev), p
+
+
+def _h1_geo(p, length):
+    """The H=1 launch's arguments of a rank-1 plan (what
+    ``ops.sd_deconv_presplit_fused_1d`` hands K1)."""
+    return dict(pad=((0, 0), (p.pi[0],) * 2),
+                crop=(0, p.pk[0] + p.padding[0][0]),
+                out_space=(1, p.out_shape((length,))[0]))
+
+
+def _k1_h1_pair(x, p, scale=None, out_dtype=None, bias=None):
+    bias = p.bias if bias is None else bias
+    quant = x.dtype == torch.int8
+    counter = "SD_FUSED_INT8_LAUNCHES" if quant else "SD_FUSED_LAUNCHES"
+    before = getattr(K, counter)
+    out = ops.sd_deconv_presplit_fused_1d(
+        x, p.ws, p.kernel, p.stride, p.padding,
+        output_padding=p.output_padding, bias=bias, act=p.act, scale=scale,
+        out_dtype=out_dtype, plan=p.tile)
+    assert getattr(K, counter) == before + 1
+    ref = K.sd_fused_ref(x[:, None], p.ws[None], (1, p.stride[0]),
+                         bias=bias, act=p.act, scale=scale,
+                         out_dtype=out_dtype, **_h1_geo(p, x.shape[1]))[:, 0]
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape and out.dtype == ref.dtype
+    assert out.is_contiguous()
+    return out, ref
+
+
+@pytest.mark.parametrize("tile", [None, GemmPlan(16, 2), GemmPlan(32, 3),
+                                  GemmPlan(64, 5)],
+                         ids=["default", "bn16-split2", "bn32-split3",
+                              "bn64-split5"])
+@pytest.mark.parametrize("layer", WAVEGAN_LAYERS,
+                         ids=[l.name for l in WAVEGAN_LAYERS])
+def test_wavegan_k1_h1(dev, layer, tile):
+    """K1 f32 as an H=1 launch on each full-width WaveGAN layer at batch
+    16 (K_T 7 on one axis, 4 phases, to_audio's 4 phase channels), on the
+    default plan and forced ones (split-K with an uneven last split),
+    within 1e-4 * max(1, max|ref|) of its plain version."""
+    act = "tanh" if layer.name == "to_audio" else "relu"
+    out, ref = _k1_h1_pair(*_wave_case(dev, layer, act, tile=tile))
+    _gate(out, ref)
+
+
+def test_wavegan_k1_h1_split_k_is_bit_identical(dev):
+    x, p = _wave_case(dev, WAVEGAN_LAYERS[0], "relu", tile=GemmPlan(64, 4))
+    a, _ = _k1_h1_pair(x, p)
+    b, _ = _k1_h1_pair(x, p)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("row", ["dynamic", "static"])
+@pytest.mark.parametrize("layer", WAVEGAN_LAYERS,
+                         ids=[l.name for l in WAVEGAN_LAYERS])
+def test_wavegan_k1_int8_h1_bit_identical(dev, layer, row):
+    """K1 int8 as an H=1 launch (K = 7 * Cin = 448 / 224 / 112 bytes
+    against 64-byte k-tiles): per-sample rows or a static row, f32 out,
+    and on up1 / up2 int8 out through relu with saturating codes:
+    bit-identical to its plain version."""
+    from repro_torch.core.quant import quantize_act
+    chain = layer.name != "to_audio"
+    x, p = _wave_case(dev, layer, "relu" if chain else "tanh",
+                      dtype="int8", seed=1)
+    xq, sxs = quantize_act(x)
+    comb = (sxs[:, None] * p.wscale[None, :]).contiguous()
+    if row == "static":
+        comb = comb[:1].contiguous()
+    out, ref = _k1_h1_pair(xq, p, comb)
+    assert torch.equal(out, ref)
+    if chain:
+        out, ref = _k1_h1_pair(xq, p, (comb * 2000).contiguous(),
+                               torch.int8, p.bias * 50)
+        assert torch.equal(out, ref) and int((out.abs() == 127).sum()) > 0
+
+
+WINO_1D = [(9, 2, 8, 4, 8), (9, 2, 4, 1, 16),        # wavegan-dryrun
+           (17, 4, 64, 32, 16), (17, 4, 32, 16, 64),  # WaveGAN's widths
+           (17, 4, 16, 1, 256)]                       # at 5 taps
+
+
+@pytest.mark.parametrize("k,s,cin,cout,length", WINO_1D,
+                         ids=[f"k{c[0]}s{c[1]}-{c[2]}x{c[3]}-L{c[4]}"
+                              for c in WINO_1D])
+def test_wavegan_k4_h1(dev, k, s, cin, cout, length):
+    """K4 as an H=1 launch (alphas (1, 6): F(1,1) on the unit axis, the
+    loop path of the input transform) at batch 16 against its plain
+    version (1e-4 * max(1, max|ref|)) and against K1 on the same split
+    filters within tolerance(K_T) * max(1, max|y_K1|)."""
+    from repro_torch.kernels import winograd as W
+    g = torch.Generator().manual_seed(k + cin)
+    x = torch.randn(16, length, cin, generator=g).to(dev)
+    w = (torch.randn(k, cin, cout, generator=g) / (k * cin) ** 0.5).to(dev)
+    bias = (0.1 * torch.randn(cout, generator=g)).to(dev)
+    pads = same_deconv_pads((k,), (s,))
+    pw = sd.plan(w.shape, s, pads, backend="winograd", act="relu",
+                 device=dev).bind(w, bias=bias)
+    pf = sd.plan(w.shape, s, pads, backend="fused", act="relu",
+                 device=dev).bind(w, bias=bias)
+    kt = (1, pw.kt[0])
+    geo = _h1_geo(pw, length)
+    assert pw.kt == (5,) and W.wino_launch(
+        (16, 1, length, cin), (1, *pw.ws.shape), kt, (1, s), geo["pad"],
+        geo["crop"], geo["out_space"]).plan.nth == 1
+    before = W.SD_WINO_LAUNCHES
+    out = ops.sd_deconv_presplit_wino_1d(x, pw.ws, k, s, pads, bias=bias,
+                                         act="relu")
+    assert W.SD_WINO_LAUNCHES == before + 1
+    ref = W.sd_wino_ref(x[:, None], pw.ws[None], kt, (1, s), bias=bias,
+                        act="relu", **geo)[:, 0]
+    y1 = sd.execute(pf, x)
+    torch.cuda.synchronize()
+    _gate(out, ref)
+    assert (out - y1).abs().max().item() <= \
+        W.tolerance(kt) * max(1.0, y1.abs().max().item())
+
+
+@pytest.mark.parametrize("layer", WAVEGAN_LAYERS,
+                         ids=[l.name for l in WAVEGAN_LAYERS])
+def test_wavegan_backward_kernels_h1(dev, layer):
+    """K2 (dx) and K3 (dw) as H=1 launches on each full-width WaveGAN
+    layer's backward at batch 16, against their plain versions; then
+    ``sd.conv_transpose`` on a rank-1 fused plan makes one K2 and one K3
+    launch and matches the torch backend's grads at 1e-4."""
+    from repro_torch.sd.grad import split_cotangent
+    g = torch.Generator().manual_seed(layer.cout)
+    p = sd.plan((layer.k, layer.cin, layer.cout), layer.s,
+                same_deconv_pads((layer.k,), (layer.s,)), backend="fused",
+                device=dev)
+    x = torch.randn(16, *layer.in_hw, layer.cin, generator=g).to(dev)
+    w = (torch.randn(layer.k, layer.cin, layer.cout, generator=g)
+         / (layer.k * layer.cin) ** 0.5).to(dev)
+    dy = torch.randn(16, *p.out_shape(layer.in_hw), layer.cout,
+                     generator=g).to(dev)
+    dy1 = split_cotangent(p, dy)
+    ws = sd.split_weights(p, w)
+    (kt,), (pi,), (length,) = p.kt, p.pi, layer.in_hw
+    w_t = ws[None].flip(0, 1).transpose(-1, -2).contiguous()
+    geo = dict(pad=((0, 0), (kt - 1, kt - 1)), out_start=(0, pi),
+               out_size=(1, length))
+    before = (K.SD_CONV_LAUNCHES, K.SD_FILTER_GRAD_LAUNCHES)
+    dx = K.sd_conv(dy1[:, None], w_t, **geo)
+    dws = K.sd_filter_grad(x[:, None], dy1[:, None], (1, kt),
+                           pad=((0, 0), (pi, pi)))
+    assert (K.SD_CONV_LAUNCHES, K.SD_FILTER_GRAD_LAUNCHES) == \
+        (before[0] + 1, before[1] + 1)
+    _gate(dx, K.sd_conv_ref(dy1[:, None], w_t, **geo))
+    _gate(dws, K.sd_filter_grad_ref(x[:, None], dy1[:, None], (1, kt),
+                                    pad=((0, 0), (pi, pi))))
+    grads = {}
+    for backend in ("fused", "torch"):
+        pb = sd.plan(w.shape, layer.s, p.padding, backend=backend,
+                     device=dev)
+        xt, wt = x.clone().requires_grad_(), w.clone().requires_grad_()
+        before = (K.SD_CONV_LAUNCHES, K.SD_FILTER_GRAD_LAUNCHES)
+        (sd.conv_transpose(pb, xt, wt) * dy).sum().backward()
+        launched = (K.SD_CONV_LAUNCHES - before[0],
+                    K.SD_FILTER_GRAD_LAUNCHES - before[1])
+        assert launched == ((1, 1) if backend == "fused" else (0, 0))
+        grads[backend] = (xt.grad, wt.grad)
+    for got, ref in zip(grads["fused"], grads["torch"]):
+        assert (got - ref).abs().max().item() <= \
+            1e-4 * max(1.0, ref.abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", ["f32", "int8", "calibrated"])
+def test_wavegan_server_runs_k1_per_layer(dev, dtype, tmp_path,
+                                          monkeypatch):
+    """Full-width WaveGAN served on the card: 3 K1 (or K1-int8) launches
+    per batch and nothing else, the outputs the card's torch backend's
+    (f32 1e-4, int8 1e-6 of max(1, max|ref|); calibrated with the same
+    scales, the chained codes between layers taken as they are)."""
+    from repro_torch.kernels import winograd as W
+    from repro_torch.launch.serve_gen import GenServer
+    from repro_torch.models.generative import GenerativeModel
+    monkeypatch.setenv("REPRO_TORCH_SD_CALIB_CACHE",
+                       str(tmp_path / "sd_calib.json"))
+    server = GenServer(nets=("wavegan",), device=dev, backend="fused",
+                       max_batch=4,
+                       dtype=torch.float32 if dtype == "f32" else "int8",
+                       calib=8 if dtype == "calibrated" else 0)
+    zs = [r.latent for r in server.random_requests("wavegan", 4)]
+    model, params = server.model("wavegan")
+    names = ("SD_FUSED_LAUNCHES", "SD_FUSED_INT8_LAUNCHES",
+             "SD_CONV_LAUNCHES", "SD_CONV_INT8_LAUNCHES",
+             "SD_FILTER_GRAD_LAUNCHES")
+    before = [getattr(K, n) for n in names] + [W.SD_WINO_LAUNCHES]
+    out = server.run_group("wavegan", zs)
+    torch.cuda.synchronize()
+    after = [getattr(K, n) for n in names] + [W.SD_WINO_LAUNCHES]
+    want = [3, 0, 0, 0, 0, 0] if dtype == "f32" else [0, 3, 0, 0, 0, 0]
+    assert [a - b for a, b in zip(after, before)] == want
+    ref_m = GenerativeModel(model.spec, "sd_kernel", engine_backend="torch",
+                            device=dev,
+                            engine_dtype="native" if dtype == "f32"
+                            else "int8")
+    if dtype == "calibrated":
+        plans = model.engine.plans()
+        assert plans["up1"].chain_out and plans["up2"].chain_out
+        ref_m.engine.set_calibration({n: p.sx_in.item()
+                                      for n, p in plans.items()})
+    with torch.no_grad():
+        ref = ref_m.apply(params, torch.stack(zs))
+    assert out.shape == (4, 1024, 1) and torch.isfinite(out).all()
+    rel = 1e-4 if dtype == "f32" else 1e-6
+    assert (out - ref).abs().max().item() <= \
+        rel * max(1.0, ref.abs().max().item())
 
 
 # ---------------------------------------------------------------------------

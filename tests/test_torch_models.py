@@ -85,9 +85,10 @@ def test_device_defaults_to_cuda():
             build("dcgan")
     with pytest.raises(ValueError, match="unknown workload"):
         build("nope", device="cpu")
-    # build() looks nets up in WORKLOADS; rank 1 on fused points to the
-    # roadmap when the engine binds.
+    # build() looks nets up in WORKLOADS; rank 1 on fused binds K1's
+    # oc-major filters (tests/test_torch_rank1.py holds its numbers).
     assert build("voxgan", device="cpu").spec.name == "VoxGAN"
     m = build("wavegan", "sd_kernel", engine_backend="fused", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        m.init(torch.Generator().manual_seed(0))
+    m.init(torch.Generator().manual_seed(0))
+    assert {(p.rank, p.layout) for p in m.engine.plans().values()} == \
+        {(1, "ocmajor")}

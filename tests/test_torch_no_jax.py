@@ -4,7 +4,8 @@ A fresh interpreter with ``jax`` and ``repro`` made unimportable imports
 ``repro_torch``, serves the CPU dryrun (on the default and on the
 winograd backend, and in int8 on the torch and the fused backend; on
 ``fused`` the 3-D ``voxgan-dryrun`` cell runs the depth-folded lowering on
-K2's int8 pair; calibrated and chained, ``--calib``, with its cache in a
+K2's int8 pair and the 1-D ``wavegan-dryrun`` cell K1 int8 as an H=1
+launch; calibrated and chained, ``--calib``, with its cache in a
 temporary directory), takes two small GAN training steps on
 the CPU, serves the reduced StableLM-2-12B through the LM server
 (``launch/serve.py``, whose K5 wrapper ``kernels/flash_attn.py`` and LM
@@ -31,21 +32,21 @@ sys.modules["repro"] = None
 import repro_torch
 from repro_torch.launch import serve_gen
 results, stats = serve_gen.main(["--dryrun", "--device", "cpu"])
-assert stats["served"] == 6, stats
+assert stats["served"] == 8, stats
 results, stats = serve_gen.main(["--dryrun", "--device", "cpu",
                                  "--backend", "winograd"])
-assert stats["served"] == 4, stats
+assert stats["served"] == 6, stats
 results, stats = serve_gen.main(["--dryrun", "--device", "cpu",
                                  "--dtype", "int8"])
-assert stats["served"] == 6, stats
+assert stats["served"] == 8, stats
 assert "int8" in stats["compile_cache"][0], stats
 results, stats = serve_gen.main(["--dryrun", "--device", "cpu",
                                  "--backend", "fused", "--dtype", "int8"])
-assert stats["served"] == 6, stats
+assert stats["served"] == 8, stats
 results, stats = serve_gen.main(["--dryrun", "--device", "cpu",
                                  "--backend", "fused", "--dtype", "int8",
                                  "--calib", "4"])
-assert stats["served"] == 6, stats
+assert stats["served"] == 8, stats
 from repro_torch.launch import train_gen
 d_hist, g_hist = train_gen.main(["--steps", "2", "--small", "--device",
                                  "cpu", "--deconv-impl", "sd_kernel"])

@@ -104,8 +104,10 @@ def test_plan_contract():
                        dtype="int8").with_chain(sx_in=0.1, sx_out=0.2,
                                                 chain_out=True)
     assert chained.chain_out and chained.sx_out.dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="rank 2"):
-        tsd.plan((4, 3, 2), 2, 1, backend="fused")
+    # rank 1 on fused: K1 as an H=1 launch, from oc-major filters
+    p1 = tsd.plan((4, 3, 2), 2, 1, backend="fused")
+    assert (p1.rank, p1.backend, p1.kt, p1.pi) == (1, "fused", (2,), (1,))
+    assert p1.bind(torch.zeros(4, 3, 2)).layout == "ocmajor"
     with pytest.raises(ValueError, match="output_padding"):
         tsd.plan((4, 4, 3, 2), 2, 1, output_padding=2)
     p = tsd.plan((5, 5, 3, 2), 2, same_deconv_pads(5, 2), backend="torch")

@@ -551,10 +551,10 @@ def test_serve_gen_dryrun_int8_cpu(tmp_path, monkeypatch):
     monkeypatch.setenv("REPRO_TORCH_SD_CALIB_CACHE",
                        str(tmp_path / "sd_calib.json"))
     results, stats = main(["--dryrun", "--device", "cpu", "--dtype", "int8"])
-    assert stats["served"] == 6 and stats["shed"] == 0
+    assert stats["served"] == 8 and stats["shed"] == 0
     assert stats["compile_cache"] == [
         "('dcgan-dryrun', 2, 'int8')", "('segnet-dryrun', 2, 'int8')",
-        "('voxgan-dryrun', 2, 'int8')"]
+        "('voxgan-dryrun', 2, 'int8')", "('wavegan-dryrun', 2, 'int8')"]
     assert results[0].dtype == torch.float32 and results[0].shape == (16, 16,
                                                                       3)
     # --calib reaches the calibrated engines (test_calib_cli serves them)

@@ -33,16 +33,17 @@ def _server(**kw):
 
 def test_dryrun_cli_cpu():
     results, stats = main(["--dryrun", "--device", "cpu"])
-    assert stats["served"] == 6 and stats["shed"] == 0
+    assert stats["served"] == 8 and stats["shed"] == 0
     assert stats["compile_cache"] == [
         "('dcgan-dryrun', 2, 'float32')", "('segnet-dryrun', 2, 'float32')",
-        "('voxgan-dryrun', 2, 'float32')"]
+        "('voxgan-dryrun', 2, 'float32')", "('wavegan-dryrun', 2, 'float32')"]
     assert results[0].shape == (16, 16, 3)
     assert results[2].shape == (8, 8, 3)
     assert results[4].shape == (8, 8, 8, 1)
+    assert results[6].shape == (32, 1)
     _, stats = main(["--dryrun", "--device", "cpu", "--sched", "drain",
                      "--dtype", "bfloat16"])
-    assert stats["requests"] == 6
+    assert stats["requests"] == 8
 
 
 def test_bucket_ladder_is_closed():
@@ -62,7 +63,7 @@ def test_take_group_fifo_by_key():
 
 def test_warmup_then_zero_rebuilds_across_swap():
     server = _server(max_batch=4)
-    assert server.warmup() == 3 * len(server.buckets())
+    assert server.warmup() == len(reduced_specs()) * len(server.buckets())
     built = server.compile_count
     sched = ContinuousScheduler(server)
     latents = {}
@@ -127,16 +128,17 @@ def test_calib_cli(case, tmp_path, monkeypatch, capsys):
         assert "--calib requires --dtype int8" in capsys.readouterr().err
         assert not cache.exists()
         return
+    # (the case's id predates the fourth reduced spec, wavegan-dryrun)
     results, stats = main(["--dryrun", "--device", "cpu", "--dtype", "int8",
                            "--calib", "8"])
-    assert stats["served"] == 6 and stats["shed"] == 0
+    assert stats["served"] == 8 and stats["shed"] == 0
     assert stats["compile_cache"] == [
         "('dcgan-dryrun', 2, 'int8')", "('segnet-dryrun', 2, 'int8')",
-        "('voxgan-dryrun', 2, 'int8')"]
+        "('voxgan-dryrun', 2, 'int8')", "('wavegan-dryrun', 2, 'int8')"]
     assert all(torch.isfinite(r).all() for r in results.values())
     saved = json.loads(cache.read_text())["scales"]
     assert sorted(saved) == ["dcgan-dryrun/max", "segnet-dryrun/max",
-                             "voxgan-dryrun/max"]
+                             "voxgan-dryrun/max", "wavegan-dryrun/max"]
 
 
 def test_swapped_in_reference_weights_serve_reference_outputs():

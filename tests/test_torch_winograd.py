@@ -223,16 +223,22 @@ def test_bf16_plan_stores_bf16_transforms():
 
 def test_plan_rejects_as_the_reference_does():
     """K_T = 6, rank 3 and int8 raise the reference's ValueError (in both
-    packages); rank 1 waits for the rank slice."""
+    packages), and so does full WaveGAN's 7-tap rank-1 layer; rank 1
+    inside the envelope plans and binds the transformed filters, as in
+    the reference."""
     for shape, s, dtype in (((12, 12, 3, 2), 2, "native"),
                             ((5, 5, 5, 3, 2), 2, "native"),
-                            ((4, 4, 3, 2), 2, "int8")):
+                            ((4, 4, 3, 2), 2, "int8"),
+                            ((25, 3, 2), 4, "native")):
         with pytest.raises(ValueError, match="winograd backend does not"):
             tsd.plan(shape, s, 0, backend="winograd", dtype=dtype)
         with pytest.raises(ValueError, match="winograd backend does not"):
             jsd.plan(shape, s, 0, backend="winograd", dtype=dtype)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tsd.plan((5, 3, 2), 2, 1, backend="winograd")
+    p1 = tsd.plan((5, 3, 2), 2, 1, backend="winograd")
+    j1 = jsd.plan((5, 3, 2), 2, 1, backend="winograd")
+    assert (p1.rank, p1.kt, p1.backend) == (j1.rank, j1.kt, "winograd")
+    u = p1.bind(torch.zeros(5, 3, 2)).ws
+    assert tuple(u.shape) == (4, 3, 4)          # alpha = 2 + 3 - 1
     assert "winograd" in tsd.BACKENDS
     assert tsd.resolve_backend("winograd") == "winograd"
 
@@ -528,11 +534,18 @@ def test_model_end_to_end_matches_reference_native(width):
 def test_serve_gen_dryrun_winograd_cpu():
     results, stats = serve_main(["--dryrun", "--backend", "winograd",
                                  "--device", "cpu"])
-    assert stats["served"] == 4 and stats["shed"] == 0
+    assert stats["served"] == 6 and stats["shed"] == 0
     assert stats["compile_cache"] == [
-        "('dcgan-dryrun', 2, 'float32')", "('segnet-dryrun', 2, 'float32')"]
+        "('dcgan-dryrun', 2, 'float32')", "('segnet-dryrun', 2, 'float32')",
+        "('wavegan-dryrun', 2, 'float32')"]
     ref, _ = serve_main(["--dryrun", "--backend", "torch", "--device",
                          "cpu"])
-    for rid in results:
+    for rid in range(4):        # the 2-D nets come first in both runs
         assert _rel_err(results[rid].numpy(), ref[rid].numpy()) <= \
             W.tolerance((3, 3))
+    # wavegan-dryrun's requests (its latents differ between the two runs:
+    # the torch run also serves voxgan-dryrun); its numbers are held in
+    # tests/test_torch_rank1.py
+    assert all(results[rid].shape == (32, 1)
+               and bool(torch.isfinite(results[rid]).all())
+               for rid in (4, 5))
