@@ -191,7 +191,34 @@ Drives ``repro_torch`` only (never JAX, never the JAX package ``repro``):
    layer in turns (K1 f32, K1 int8 static, the plain version,
    ``F.conv_transpose1d`` f32) with its bounds, K4 / K2 / K3 per layer,
    and a batch of 16 f32 / dynamic / calibrated in turns (host ms,
-   device busy, idle share).
+   device busy, idle share);
+12. measured tiles and the per-layer algorithm (the whole script runs
+   on a fresh, empty ``$REPRO_TORCH_SD_PLAN_CACHE``, so phases 1-11
+   launch the call-time tiles): pretunes a full-width f32 DCGAN
+   ``GenServer`` (backend fused, buckets 1-16: K1's and K4's candidate
+   tiles per layer and bucket, 30 geometries, device time by
+   ``kernels.timing.ahead_ms``), prints per layer at bucket 16 the
+   winning ``GemmPlan`` and ``WinoPlan`` beside the heuristic plans by
+   the same timer and the backend the layer bound to (chosen at batch
+   1, as the reference chooses); serves 48 requests through it and
+   checks K1 / K4 launches per batch against those backends and the
+   outputs against the ``torch`` backend (1e-4 where every layer stayed
+   on K1) or the unpretuned fused server and ``torch`` (``WINO_TOL[3]``
+   where a layer switched); checks that ``estimate_ms`` is set for every
+   bucket and at 16 at most 1.1x the batch's device busy time; that a
+   second server on the same cache pretunes with no measurement; that a
+   calibrated int8 server (``calib=64``) pretunes K1 int8 alone
+   (``_int8`` / ``_q8out`` keys) and serves outputs bit-identical to an
+   unpretuned one's; times a batch of the pretuned and the unpretuned
+   server in turns (host ms, busy ms); then drives the switch on a copy
+   of the cache whose batch-1 entries are the bucket-16 readings: at
+   least one layer must bind to K4, as those readings say, each
+   bucket's tile must be the measured winner of the bound algorithm, 48
+   served requests must launch K1 / K4 per batch as bound and agree with
+   the ``torch`` backend and the all-K1 fused model to ``WINO_TOL[3]``,
+   and that model's ``J_G^T c`` must run every layer's backward on K2
+   and K3 within 1e-4 of the ``torch`` backend in f64; a batch of the
+   switched server is timed in turns with the pretuned one.
 
 Every printed number carries the card's name and power limit.  The line
 before the last is ``{"kernels": [...]}``; the last is ``{"ok": true,
@@ -241,7 +268,6 @@ K3_D1_MS_LIMIT = 0.15    # K3 (dw) on DCGAN d1 at batch 16, device ms
 K4_D1_MS_LIMIT = 0.12    # K4 f32 on DCGAN d1 at batch 16, device ms
 K1_INT8_D1_MS_LIMIT = 0.065  # K1 int8 (static and dynamic) there, device ms
 K2_INT8_UP2_MS_LIMIT = 0.018  # K2 int8 on VoxGAN up2's tap at batch 16
-AHEAD_CYCLES = 4_000_000  # torch.cuda._sleep before a timed run of calls
 # Phase 10: K5 and dense LM serving.  StableLM-2-12B
 # (src/repro_torch/configs/stablelm_12b.py) at all 40 of its layers: the
 # weights are drawn leaf by leaf in f32 and rounded to bf16 at once (24.2
@@ -308,33 +334,12 @@ def _time_ms(fns: dict, reps: int = 7, iters: int = 20) -> dict:
 
 
 def _ahead_ms(fn, calls: int = 20) -> float:
-    """Device ms per call of ``fn``: CUDA events around ``calls`` calls
-    queued behind ``torch.cuda._sleep``, so the card starts them only
-    once the host has queued them all and the host's time per call
-    (the wrapper's Python, a ctypes launch) is hidden.  The sleep is
-    lengthened (four times, at most) until the start event is still
-    pending when the last call is queued; a call that waits on the card
-    itself (a copy from pageable host memory) never lets the host get
-    ahead, and its last reading, host gaps included, is returned."""
-    import torch
-    for _ in range(3):
-        fn()
-    cycles = AHEAD_CYCLES
-    for _ in range(4):
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(cycles)
-        start.record()
-        for _ in range(calls):
-            fn()
-        end.record()
-        ahead = not start.query()
-        torch.cuda.synchronize()
-        if ahead:
-            break
-        cycles *= 4
-    return start.elapsed_time(end) / calls
+    """:func:`repro_torch.kernels.timing.ahead_ms`: device ms per call of
+    ``fn``, the host's time per call hidden behind ``torch.cuda._sleep``
+    (imported at call time: the package is found only once ``main`` has
+    put ``src`` on the path)."""
+    from repro_torch.kernels.timing import ahead_ms
+    return ahead_ms(fn, calls)
 
 
 def _device_ms(fn) -> tuple:
@@ -3489,7 +3494,13 @@ def _wavegan_phase(dev, tag, randn) -> dict:
               f"{_clocks()} {tag}")
     print(f"time: WaveGAN's K4 (k17/s4 at WaveGAN's widths, 5 taps), K2 (dx) "
           f"and K3 (dw) as H=1 launches at batch {BUCKET}: device ms (ahead "
-          f"events; profiler beside), their plain versions' {tag}")
+          f"events; profiler beside), their plain versions' and a library "
+          f"call's on the same-size 1-D deconv (F.conv_transpose1d for K4, "
+          f"cuDNN convolution_backward asked for dx only or dw only for K2 "
+          f"and K3; TF32 off), in that order; bound: the useful work at the "
+          f"{PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s CUDA cores or the bytes "
+          f"(inputs and output once) at {PEAK_BYTES / 1e12:.2f} TB/s, "
+          f"whichever is larger {tag}")
     other = {"sd_wino": [], "sd_conv": [], "sd_filter_grad": []}
     for (label, (x, pw)), l in zip(list(wino_bound.items())[-3:], layers):
         kt = (1, pw.kt[0])
@@ -3500,26 +3511,59 @@ def _wavegan_phase(dev, tag, randn) -> dict:
             x[:, None], pw.ws[None], kt, (1, 4), bias=pw.bias, act="relu",
             **geo)
         dy1, w_t, geo2, x1, ktt, geo3 = bwd[l.name]
-        for kname, f_k, f_p in (
-                ("sd_wino", fk, fp),
+        # Library yardsticks on random operands of the same sizes (NCL;
+        # padding and output_padding give out = 4 * in, as the layers'
+        # asymmetric "same" pads do): k17/s4 forward for K4, WaveGAN's
+        # k25/s4 backward, one gradient at a time, for K2 and K3.
+        length = l.in_hw[0]
+        x_cf = torch.randn(BUCKET, l.cin, length, device=dev)
+        w17 = torch.randn(l.cin, l.cout, 17, device=dev)
+        w25 = torch.randn(l.cin, l.cout, l.k, device=dev)
+        g_cf = torch.randn(BUCKET, l.cout, 4 * length, device=dev)
+        bgeo = ([l.s], [11], [1], True, [1], 1)
+
+        def lib_bwd(mask, g_cf=g_cf, x_cf=x_cf, w25=w25, bgeo=bgeo):
+            return torch.ops.aten.convolution_backward(
+                g_cf, x_cf, w25, None, *bgeo, mask)
+
+        libs = {"sd_wino": lambda x_cf=x_cf, w17=w17: F.conv_transpose1d(
+                    x_cf, w17, stride=4, padding=7, output_padding=1),
+                "sd_conv": lambda: lib_bwd([True, False, False]),
+                "sd_filter_grad": lambda: lib_bwd([False, True, False])}
+        assert libs["sd_wino"]().shape[2] == fk().shape[1]
+        assert libs["sd_conv"]()[0].shape == x_cf.shape
+        for kname, f_k, f_p, args in (
+                ("sd_wino", fk, fp, (x, pw.ws, pw.bias, fk())),
                 ("sd_conv", lambda: K.sd_conv(dy1, w_t, **geo2),
-                 lambda: K.sd_conv_ref(dy1, w_t, **geo2)),
+                 lambda: K.sd_conv_ref(dy1, w_t, **geo2),
+                 (dy1, w_t, x1)),
                 ("sd_filter_grad",
                  lambda: K.sd_filter_grad(x1, dy1, (1, ktt), **geo3),
-                 lambda: K.sd_filter_grad_ref(x1, dy1, (1, ktt), **geo3))):
+                 lambda: K.sd_filter_grad_ref(x1, dy1, (1, ktt), **geo3),
+                 (x1, dy1, w_t))):
             dk, dp = _device_ms(f_k), _device_ms(f_p)
+            dl = _device_ms(libs[kname])
             macs = BUCKET * (l.macs() if kname != "sd_wino"
                              else l.in_hw[0] * 17 * l.cin * l.cout)
+            t_ops = 2.0 * macs / PEAK_F32_FLOPS * 1e3
+            t_bytes = sum(t_.numel() * t_.element_size()
+                          for t_ in args) / PEAK_BYTES * 1e3
             other[kname].append({"layer": label if kname == "sd_wino"
                                  else f"wavegan/{l.name}",
                                  "ms": dk[1], "profiler_ms": dk[0],
                                  "plain_ms": dp[1],
-                                 "useful_bound_ms": 2.0 * macs
-                                 / PEAK_F32_FLOPS * 1e3})
-            print(f"  {kname} {other[kname][-1]['layer']}: device "
-                  f"{dk[1]:.4f} ms (profiler {_ms_txt(dk[0])}), plain "
-                  f"{dp[1]:.4f} ms, useful-work bound "
-                  f"{other[kname][-1]['useful_bound_ms']:.5f} ms")
+                                 "library_ms": dl[1],
+                                 "library_profiler_ms": dl[0],
+                                 "useful_bound_ms": t_ops,
+                                 "bound_ms": max(t_ops, t_bytes),
+                                 "bound_by": ("operations" if t_ops >= t_bytes
+                                              else "bytes")})
+            r = other[kname][-1]
+            print(f"  {kname} {r['layer']}: device {dk[1]:.4f} ms (profiler "
+                  f"{_ms_txt(dk[0])}), plain {dp[1]:.4f} ms, library "
+                  f"{dl[1]:.4f} ms (profiler {_ms_txt(dl[0])}), useful-work "
+                  f"bound {t_ops:.5f} ms, bound {r['bound_ms']:.5f} ms "
+                  f"({r['bound_by']})")
 
     full = [r.latent for r in servers["f32"][1][:BUCKET]]
     host = {k: [] for k in servers}
@@ -3570,6 +3614,477 @@ def _wavegan_phase(dev, tag, randn) -> dict:
         "report": report}
 
 
+PLAN_CACHE_ENV = "REPRO_TORCH_SD_PLAN_CACHE"
+EST_OVER_BUSY = 1.1      # estimate_ms(16) <= this x the batch's busy time
+
+
+@contextlib.contextmanager
+def _plan_cache(path: str):
+    """Point the port's tile cache at ``path`` while the block runs (an
+    engine reads it when it binds and when a cell resolves its tiles),
+    and restore the variable after."""
+    old = os.environ.get(PLAN_CACHE_ENV)
+    os.environ[PLAN_CACHE_ENV] = path
+    try:
+        yield path
+    finally:
+        if old is None:
+            os.environ.pop(PLAN_CACHE_ENV, None)
+        else:
+            os.environ[PLAN_CACHE_ENV] = old
+
+
+@contextlib.contextmanager
+def _counted_measure():
+    """Count the calls of ``autotune.measure`` (what ``pretune`` times
+    each candidate tile with) while the block runs."""
+    from repro_torch.kernels import autotune as A
+    real, n = A.measure, [0]
+
+    def measure(*args, **kw):
+        n[0] += 1
+        return real(*args, **kw)
+
+    A.measure = measure
+    try:
+        yield n
+    finally:
+        A.measure = real
+
+
+def _batch_times(dev, runs: dict, rounds: int = 10) -> dict:
+    """Host ms per batch of each ``runs[name]()`` (median of ``rounds``
+    synchronised calls, the servers in turns) and its device busy ms
+    (one profiled call; events over the batch queued behind
+    ``torch.cuda._sleep`` where the profiler reports none)."""
+    import torch
+    host = {n: [] for n in runs}
+    for r in range(rounds):
+        for n in (list(runs) if r % 2 == 0 else list(runs)[::-1]):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            runs[n]()
+            torch.cuda.synchronize(dev)
+            host[n].append((time.perf_counter() - t0) * 1e3)
+    out = {}
+    for n, fn in runs.items():
+        bd = _device_breakdown(fn)
+        busy, how = ((bd[0], "profiler") if bd is not None
+                     else (_ahead_ms(fn, calls=5), "ahead events"))
+        out[n] = {"host_ms": sorted(host[n])[rounds // 2], "busy_ms": busy,
+                  "busy_from": how,
+                  "idle_share": None if bd is None else 1 - bd[0] / bd[1]}
+    return out
+
+
+def _pretune_phase(dev, tag) -> dict:
+    """Phase 12: measured tiles and the per-layer algorithm.  Pretunes a
+    full-width f32 DCGAN ``GenServer`` (backend fused, buckets 1-16: K1's
+    and K4's candidate tiles per (layer, bucket)), prints each layer's
+    winners against the heuristic plans and the backend it bound to,
+    serves 48 requests through it (launch counts per backend, outputs
+    against the ``torch`` backend or the all-K1 fused server), holds
+    ``estimate_ms`` to the batch's busy time, pretunes a second server on
+    the same cache with no measurement, pretunes a calibrated int8 server
+    (K1 int8 only) and holds its outputs bit-identical to an unpretuned
+    one's, times a batch of the pretuned and the unpretuned server in
+    turns, and (f) serves and trains a server whose cache binds layers to
+    K4.  Every failure raises."""
+    import shutil
+    import tempfile
+    import torch
+    import repro_torch.kernels.sd_conv as K
+    import repro_torch.kernels.winograd as W
+    from repro_torch import sd
+    from repro_torch.core.deconv import same_deconv_pads
+    from repro_torch.kernels import autotune as A
+    from repro_torch.launch.serve_gen import GenServer, serve_async
+    from repro_torch.models.generative import GenerativeModel
+    from repro_torch.sd.functional import execute
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_pretune_")
+    cache = os.path.join(work, "sd_plans.json")
+    empty = os.path.join(work, "empty_plans.json")
+    report = {}
+    try:
+        # ---- (a) pretune f32 DCGAN ---------------------------------------
+        with _plan_cache(cache):
+            server = GenServer(nets=("dcgan",), device=dev,
+                               max_batch=BUCKET, seed=SEED, backend="fused")
+            model, params = server.model("dcgan")
+            eng = model.engine
+            with _counted_measure() as n_measure:
+                t0 = time.perf_counter()
+                tuned = server.pretune()
+                torch.cuda.synchronize(dev)
+                tune_s = time.perf_counter() - t0
+        layers = model.spec.deconv_layers()
+        want = len(layers) * len(server.buckets()) * 2
+        print(f"pretune: full-width f32 DCGAN, backend fused, buckets "
+              f"{server.buckets()}: {len(tuned)} (layer, bucket, algorithm) "
+              f"geometries (want {want}), {n_measure[0]} calls of "
+              f"autotune.measure (device ms by ahead events, least of 3 "
+              f"readings; two passes over <= 8 candidates each) in "
+              f"{tune_s:.2f} s host clock {tag}")
+        if len(tuned) != want or sum(k.endswith("_wino")
+                                     for k in tuned) != want // 2:
+            raise SystemExit("chip_smoke: pretune did not time K1 and K4 on "
+                             "every (layer, bucket)")
+        bound = {n: p.backend for n, p in eng.plans().items()}
+        per_layer = []
+        for i, l in enumerate(layers):
+            p = params[l.name]
+            act = "linear" if i == len(layers) - 1 else "relu"
+            pads = same_deconv_pads(l.k, l.s)
+            x = torch.randn((BUCKET, *l.in_hw, l.cin), device=dev)
+            rec = {"layer": f"dcgan/{l.name}", "bound": bound[l.name]}
+            for algo, backend in (("", "fused"), ("wino", "winograd")):
+                g = eng.layer_geom(l, BUCKET, algo=algo)
+                g1 = eng.layer_geom(l, 1, algo=algo)
+                plan = sd.plan(p["w"].shape, l.s, pads, backend=backend,
+                               act=act, device=dev).bind(
+                                   p["w"], p["scale"], p["b"])
+                heur = A.default_plan(g)
+                with torch.no_grad():
+                    heur_ms = A.measure(
+                        lambda: execute(plan.with_tile(heur), x),
+                        device=dev)
+                rec["k4" if algo else "k1"] = {
+                    "winner": str(tuned[g.key()]),
+                    "ms": A.measured_ms(g, path=cache, device=dev),
+                    "heuristic": str(heur), "heuristic_ms": heur_ms,
+                    "ms_batch1": A.measured_ms(g1, path=cache, device=dev)}
+            per_layer.append(rec)
+            k1, k4 = rec["k1"], rec["k4"]
+            print(f"  dcgan/{l.name} at bucket {BUCKET}: K1 {k1['winner']} "
+                  f"{k1['ms']:.4f} ms (heuristic {k1['heuristic']} "
+                  f"{k1['heuristic_ms']:.4f}); K4 {k4['winner']} "
+                  f"{k4['ms']:.4f} ms (heuristic {k4['heuristic']} "
+                  f"{k4['heuristic_ms']:.4f}); bound to {rec['bound']} "
+                  f"(chosen at batch 1: K1 {k1['ms_batch1']:.4f} / K4 "
+                  f"{k4['ms_batch1']:.4f} ms; at {BUCKET} the faster is "
+                  f"{'K4' if k4['ms'] < k1['ms'] else 'K1'}) {tag}")
+        report["per_layer"] = per_layer
+        report["tuned"] = len(tuned)
+        report["tune_s"] = tune_s
+        report["measure_calls"] = n_measure[0]
+
+        # ---- (b) serve the pretuned server ---------------------------------
+        n_k4 = sum(b == "winograd" for b in bound.values())
+        n_k1 = len(bound) - n_k4
+        with _plan_cache(cache):
+            server.warmup()
+            reqs = server.random_requests("dcgan", SERVE_REQUESTS, seed=1)
+            torch.cuda.synchronize(dev)
+            K.SD_FUSED_LAUNCHES = W.SD_WINO_LAUNCHES = 0
+            results, stats = serve_async(server, reqs)
+            torch.cuda.synchronize(dev)
+            l1, l4 = K.SD_FUSED_LAUNCHES, W.SD_WINO_LAUNCHES
+        lat = stats["latency_ms"]
+        print(f"serve pretuned: {stats['served']} DCGAN requests (full "
+              f"width, f32) in {stats['wall_s']:.4f} s host clock: "
+              f"{stats['req_per_s']:.1f} req/s, p50 {lat['p50']} ms, p95 "
+              f"{lat['p95']} ms, {stats['launches']} launches; K1 launches "
+              f"{l1} (want {n_k1} x {stats['launches']} batches), K4 "
+              f"launches {l4} (want {n_k4} x {stats['launches']}) {tag}")
+        if (l1 != n_k1 * stats["launches"] or l4 != n_k4 * stats["launches"]
+                or stats["served"] != SERVE_REQUESTS or stats["shed"]):
+            raise SystemExit("chip_smoke: the pretuned server's launches do "
+                             "not match its layers' backends")
+        z = torch.stack([r.latent for r in reqs])
+        out = torch.stack([results[r.rid] for r in reqs])
+        with torch.no_grad():
+            ref_t = GenerativeModel(model.spec, "sd_kernel",
+                                    engine_backend="torch",
+                                    device=dev).apply(params, z)
+            with _plan_cache(empty):      # the all-K1 fused server's model
+                ref_f = GenerativeModel(model.spec, "sd_kernel",
+                                        engine_backend="fused",
+                                        device=dev).apply(params, z)
+        if n_k4:
+            gates = (("the unpretuned fused server's model (every layer on "
+                      "K1)", ref_f, W.WINO_TOL[3], False,
+                      "WINO_TOL[3]*max|ref|"),
+                     ("the torch backend", ref_t, W.WINO_TOL[3], False,
+                      "WINO_TOL[3]*max|ref|"))
+        else:
+            gates = (("the torch backend", ref_t, F32_GATE, True,
+                      f"{F32_GATE}*max(1,max|ref|)"),)
+        ok = bool(torch.isfinite(out).all()) and tuple(out.shape) == (
+            SERVE_REQUESTS, 64, 64, 3)
+        for label, r, rel, floor_one, gate in gates:
+            d, tol = _gate_err(out, r, rel, floor_one)
+            ok = ok and d <= tol
+            print(f"  vs {label} max|d| {d:.3e} tol {tol:.3e} ({gate}) "
+                  f"{'ok' if d <= tol else 'FAIL'}")
+        if not ok:
+            raise SystemExit("chip_smoke: the pretuned server's outputs are "
+                             "wrong")
+        report["serve"] = {k: stats[k] for k in ("served", "launches",
+                                                 "req_per_s", "wall_s",
+                                                 "latency_ms")}
+        report["launches"] = {"sd_fused": l1, "sd_wino": l4}
+
+        # ---- (c) the service-time seed against the busy time ---------------
+        with _plan_cache(cache):
+            est = {b: server.estimate_ms("dcgan", b)
+                   for b in server.buckets()}
+            full = [r.latent for r in reqs[:BUCKET]]
+        with _plan_cache(empty):
+            base = GenServer(nets=("dcgan",), device=dev, max_batch=BUCKET,
+                             seed=SEED, backend="fused")
+            base.warmup()                  # every cell on call-time tiles
+            base_k1 = len(base.model("dcgan")[0].engine.plans())
+            times = _batch_times(dev, {
+                "pretuned": lambda: server.run_group("dcgan", full),
+                "unpretuned": lambda: base.run_group("dcgan", full)})
+        busy = times["pretuned"]["busy_ms"]
+        print(f"estimate_ms: {', '.join(f'{b}: {_ms_txt(e)}' for b, e in est.items())} "
+              f"ms; at {BUCKET} {_ms_txt(est[BUCKET])} against a busy time "
+              f"of {busy:.4f} ms ({times['pretuned']['busy_from']}; limit "
+              f"{EST_OVER_BUSY} x busy; the fc layer and the host are not "
+              f"counted) {tag}")
+        if (any(e is None for e in est.values())
+                or est[BUCKET] > EST_OVER_BUSY * busy):
+            raise SystemExit("chip_smoke: estimate_ms is missing or above "
+                             "the batch's busy time")
+        for n, t in times.items():
+            idle = ("" if t["idle_share"] is None
+                    else f", idle share {t['idle_share']:.3f}")
+            print(f"batch {n}: one DCGAN batch of {BUCKET} through "
+                  f"run_group: {t['host_ms']:.4f} ms host clock (median of "
+                  f"10, synchronised, the two servers in turns), device "
+                  f"busy {t['busy_ms']:.4f} ms ({t['busy_from']}){idle} "
+                  f"{tag}")
+        print(f"  the unpretuned server runs its {base_k1} layers on K1 at "
+              f"the call-time tiles; the pretuned one "
+              f"{n_k1} on K1 and {n_k4} on K4 at the measured tiles")
+        report["estimate_ms"] = est
+        report["batch"] = times
+
+        # ---- (d) a second server on the same cache measures nothing --------
+        with _plan_cache(cache), _counted_measure() as n2:
+            again = GenServer(nets=("dcgan",), device=dev, max_batch=BUCKET,
+                              seed=SEED, backend="fused")
+            tuned2 = again.pretune()
+            bound2 = {n: p.backend for n, p in
+                      again.model("dcgan")[0].engine.plans().items()}
+        print(f"pretune again: a second server on the same cache: "
+              f"{len(tuned2)} geometries, {n2[0]} calls of "
+              f"autotune.measure (want 0), backends {bound2} {tag}")
+        if n2[0] or bound2 != bound:
+            raise SystemExit("chip_smoke: a pretuned cache was measured "
+                             "again or bound differently")
+        report["measure_calls_again"] = n2[0]
+
+        # ---- (e) calibrated int8: direct only, bit-identical ---------------
+        old_calib = os.environ.get("REPRO_TORCH_SD_CALIB_CACHE")
+        os.environ["REPRO_TORCH_SD_CALIB_CACHE"] = os.path.join(
+            work, "sd_calib.json")
+        int8_cache = os.path.join(work, "int8_plans.json")
+        try:
+            outs = {}
+            for name, path in (("pretuned", int8_cache),
+                               ("unpretuned", empty)):
+                with _plan_cache(path):
+                    s8 = GenServer(nets=("dcgan",), device=dev,
+                                   max_batch=BUCKET, seed=SEED,
+                                   backend="fused", dtype="int8", calib=64)
+                    if name == "pretuned":
+                        t0 = time.perf_counter()
+                        tuned8 = s8.pretune()
+                        t8 = time.perf_counter() - t0
+                    s8.warmup()
+                    r8 = s8.random_requests("dcgan", SERVE_REQUESTS,
+                                            seed=1)
+                    torch.cuda.synchronize(dev)
+                    K.SD_FUSED_INT8_LAUNCHES = K.SD_FUSED_LAUNCHES = 0
+                    W.SD_WINO_LAUNCHES = 0
+                    res8, st8 = serve_async(s8, r8)
+                    torch.cuda.synchronize(dev)
+                    counts8 = (K.SD_FUSED_INT8_LAUNCHES,
+                               K.SD_FUSED_LAUNCHES + W.SD_WINO_LAUNCHES)
+                outs[name] = torch.stack([res8[r.rid] for r in r8])
+                if (counts8 != (3 * st8["launches"], 0)
+                        or st8["served"] != SERVE_REQUESTS or st8["shed"]):
+                    raise SystemExit(f"chip_smoke: the {name} calibrated "
+                                     f"int8 server did not run K1 int8 alone "
+                                     f"({counts8})")
+                if name == "pretuned":
+                    l8 = counts8[0]
+        finally:
+            if old_calib is None:
+                os.environ.pop("REPRO_TORCH_SD_CALIB_CACHE", None)
+            else:
+                os.environ["REPRO_TORCH_SD_CALIB_CACHE"] = old_calib
+        keys8 = sorted(tuned8)
+        direct_only = (len(keys8) == 3 * len(server.buckets())
+                       and not any(k.endswith("_wino") for k in keys8)
+                       and all("_int8" in k for k in keys8)
+                       and sum(k.endswith("_q8out") for k in keys8)
+                       == 2 * len(server.buckets()))
+        same = torch.equal(outs["pretuned"], outs["unpretuned"])
+        print(f"pretune int8: calibrated int8 DCGAN (calib=64): "
+              f"{len(keys8)} geometries in {t8:.2f} s, K1 int8 only "
+              f"({sum(k.endswith('_q8out') for k in keys8)} of them _q8out "
+              f"keys, no _wino) {'ok' if direct_only else 'FAIL'}; served "
+              f"outputs vs the unpretuned calibrated server: "
+              f"{'bit-identical' if same else 'DIFFER'}; {l8} K1 int8 "
+              f"launches {tag}")
+        if not (direct_only and same):
+            raise SystemExit("chip_smoke: pretuned int8 is not direct-only "
+                             "or not bit-identical to unpretuned int8")
+        report["int8"] = {"tuned": len(keys8), "tune_s": t8,
+                          "bit_identical": same, "launches": l8}
+
+        # ---- (f) a cache that binds layers to K4 ---------------------------
+        # (a) chooses at batch 1, where K1 has measured faster on this card,
+        # so the switch is driven here on a copy of the cache whose batch-1
+        # entries are the bucket-16 readings (tile and ms, both algorithms)
+        switch = os.path.join(work, "switch_plans.json")
+        plans = dict(A.load_cache(cache))
+        want_sw = {}
+        for rec, l in zip(per_layer, layers):
+            for algo in ("", "wino"):
+                plans[eng.layer_geom(l, 1, algo=algo).key()] = dict(
+                    plans[eng.layer_geom(l, BUCKET, algo=algo).key()])
+            want_sw[l.name] = ("winograd" if rec["k4"]["ms"] < rec["k1"]["ms"]
+                               else "fused")
+        A.save_cache(plans, switch)
+        with _plan_cache(switch):
+            sw = GenServer(nets=("dcgan",), device=dev, max_batch=BUCKET,
+                           seed=SEED, backend="fused")
+            sw_model, sw_params = sw.model("dcgan")
+            sw_eng = sw_model.engine
+            bound_sw = {n: p.backend for n, p in sw_eng.plans().items()}
+            n4 = sum(b == "winograd" for b in bound_sw.values())
+            n1 = len(bound_sw) - n4
+            # each bucket's tiles: the measured winners of the bound
+            # algorithm (batch 1: the copied bucket-16 tile where its
+            # launch takes it, else the call-time default)
+            tiles_ok, tile_txt = True, []
+            for b in sw.buckets():
+                pb = sw_eng.plans_for_batch(b)
+                for l in layers:
+                    algo = "wino" if bound_sw[l.name] == "winograd" else ""
+                    g = sw_eng.layer_geom(l, b, algo=algo)
+                    want_t = (A.get_plan(g, path=switch, device=dev)
+                              if b == 1 else tuned[g.key()])
+                    got_t = pb[l.name].tile
+                    kind = A.WinoPlan if algo else A.GemmPlan
+                    ok_t = got_t == want_t and (
+                        got_t is None or isinstance(got_t, kind))
+                    tiles_ok = tiles_ok and ok_t and (
+                        b == 1 or got_t is not None)
+                    if b == BUCKET:
+                        tile_txt.append(f"{l.name} {got_t}")
+            sw.warmup()
+            rs = sw.random_requests("dcgan", SERVE_REQUESTS, seed=1)
+            torch.cuda.synchronize(dev)
+            K.SD_FUSED_LAUNCHES = W.SD_WINO_LAUNCHES = 0
+            res_sw, st_sw = serve_async(sw, rs)
+            torch.cuda.synchronize(dev)
+            s1, s4 = K.SD_FUSED_LAUNCHES, W.SD_WINO_LAUNCHES
+        print(f"switch: a copy of the cache with the bucket-{BUCKET} "
+              f"readings under the batch-1 keys binds {bound_sw} (want "
+              f"{want_sw}, at least one layer on K4); tiles at {BUCKET}: "
+              f"{', '.join(tile_txt)}, every bucket's the measured winner of "
+              f"its algorithm {'ok' if tiles_ok else 'FAIL'} {tag}")
+        print(f"serve switched: {st_sw['served']} DCGAN requests in "
+              f"{st_sw['wall_s']:.4f} s host clock, {st_sw['launches']} "
+              f"launches; K1 launches {s1} (want {n1} x "
+              f"{st_sw['launches']}), K4 launches {s4} (want {n4} x "
+              f"{st_sw['launches']}) {tag}")
+        if (bound_sw != want_sw or not n4 or not tiles_ok
+                or s1 != n1 * st_sw["launches"]
+                or s4 != n4 * st_sw["launches"]
+                or st_sw["served"] != SERVE_REQUESTS or st_sw["shed"]):
+            raise SystemExit("chip_smoke: the switched server did not bind, "
+                             "tile or launch as its cache says")
+        z_sw = torch.stack([r.latent for r in rs])
+        out_sw = torch.stack([res_sw[r.rid] for r in rs])
+        with torch.no_grad():
+            ref_t = GenerativeModel(sw_model.spec, "sd_kernel",
+                                    engine_backend="torch",
+                                    device=dev).apply(sw_params, z_sw)
+            with _plan_cache(empty):
+                ref_f = GenerativeModel(sw_model.spec, "sd_kernel",
+                                        engine_backend="fused",
+                                        device=dev).apply(sw_params, z_sw)
+        ok = bool(torch.isfinite(out_sw).all()) and tuple(out_sw.shape) == (
+            SERVE_REQUESTS, 64, 64, 3)
+        for label, r in (("the torch backend", ref_t),
+                         ("the all-K1 fused model", ref_f)):
+            d, tol = _gate_err(out_sw, r, W.WINO_TOL[3], False)
+            ok = ok and d <= tol
+            print(f"  vs {label} max|d| {d:.3e} tol {tol:.3e} "
+                  f"(WINO_TOL[3]*max|ref|) {'ok' if d <= tol else 'FAIL'}")
+        if not ok:
+            raise SystemExit("chip_smoke: the switched server's outputs are "
+                             "wrong")
+        # one batch of each algorithm in turns: K4 is faster at 16 by
+        # device time, but a batch is host-bound (PERF.md, open questions)
+        full_sw = [r.latent for r in rs[:BUCKET]]
+        with _plan_cache(switch):
+            times_sw = _batch_times(dev, {
+                "pretuned": lambda: server.run_group("dcgan", full),
+                "switched": lambda: sw.run_group("dcgan", full_sw)})
+        for n, t in times_sw.items():
+            idle = ("" if t["idle_share"] is None
+                    else f", idle share {t['idle_share']:.3f}")
+            print(f"batch {n} ({n4} of {len(layers)} layers on K4 in the "
+                  f"switched one): one DCGAN batch of {BUCKET} through "
+                  f"run_group: {t['host_ms']:.4f} ms host clock (median of "
+                  f"10, synchronised, the pretuned and the switched server "
+                  f"in turns), device busy {t['busy_ms']:.4f} ms "
+                  f"({t['busy_from']}){idle} {tag}")
+        # its training step: the switched layers' backward on K2 and K3
+        from repro_torch.launch import train_gen
+        from repro_torch.models import DCGANDiscriminator, build
+        with _plan_cache(switch):
+            gen = build("dcgan", "sd_kernel", engine_backend="fused",
+                        device=dev)
+            disc = DCGANDiscriminator((64, 64), device=dev)
+            fb = {l.name: gen._functional_plan(l).backend for l in layers}
+            gp = train_gen.trainable(gen.init(
+                torch.Generator().manual_seed(SEED)))
+            dp = train_gen.trainable(disc.init(
+                torch.Generator().manual_seed(SEED + 1)))
+            ref_gen = GenerativeModel(gen.spec, "sd_kernel",
+                                      engine_backend="torch", device=dev)
+            z0 = torch.randn((BUCKET, gen.spec.layers[0].cin),
+                             generator=torch.Generator().manual_seed(SEED)
+                             ).to(dev)
+            torch.cuda.synchronize(dev)
+            K.SD_FUSED_LAUNCHES = W.SD_WINO_LAUNCHES = 0
+            K.SD_CONV_LAUNCHES = K.SD_FILTER_GRAD_LAUNCHES = 0
+            errs = train_gen.grad_check(gen, ref_gen, disc, gp, dp, z0)
+            torch.cuda.synchronize(dev)
+            g_counts = {"K1": K.SD_FUSED_LAUNCHES, "K4": W.SD_WINO_LAUNCHES,
+                        "K2": K.SD_CONV_LAUNCHES,
+                        "K3": K.SD_FILTER_GRAD_LAUNCHES}
+        worst = max(errs.values())
+        g_want = {"K1": n1, "K4": n4, "K2": len(layers), "K3": len(layers)}
+        ok = fb == want_sw and g_counts == g_want and worst <= F32_GATE
+        print(f"train switched: J_G^T c of full-width DCGAN at batch "
+              f"{BUCKET} with the layers bound {fb}: launches {g_counts} "
+              f"(want {g_want}); worst leaf max|d|/max|ref| {worst:.3e} "
+              f"against the torch backend in f64 (gate {F32_GATE}) "
+              f"{'ok' if ok else 'FAIL'} {tag}")
+        if not ok:
+            raise SystemExit("chip_smoke: the switched layers' training "
+                             "step left the kernels or disagrees")
+        report["switch"] = {"bound": bound_sw, "launches": {
+            "sd_fused": s1, "sd_wino": s4}, "train_launches": g_counts,
+            "train_worst": worst, "batch": times_sw}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    report["phase_s"] = time.perf_counter() - t_phase
+    print(f"pretune phase: {report['phase_s']:.1f} s host clock {tag}")
+    return report
+
+
 def main(json_path: str = "") -> int:
     t_start = time.perf_counter()
     sys.stdout.reconfigure(line_buffering=True)   # a cut run keeps its log
@@ -3582,6 +4097,21 @@ def main(json_path: str = "") -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
               "test needs a CUDA card", file=sys.stderr)
         return 2
+    # Every phase reads a fresh, empty tile cache (phase 12 fills its
+    # own): a cache left on the machine never steers a plan or a gate.
+    import shutil
+    import tempfile
+    plans_dir = tempfile.mkdtemp(prefix="chip_smoke_plans_")
+    try:
+        with _plan_cache(os.path.join(plans_dir, "sd_plans.json")):
+            return _smoke(json_path, t_start)
+    finally:
+        shutil.rmtree(plans_dir, ignore_errors=True)
+
+
+def _smoke(json_path: str, t_start: float) -> int:
+    """Phases 1-12 (see the module doc) and the final two lines."""
+    import torch
     sys.path.insert(0, os.path.join(HERE, "src"))
     import torch.nn.functional as F
     import repro_torch.kernels.sd_conv as K
@@ -3998,6 +4528,9 @@ def main(json_path: str = "") -> int:
     torch.cuda.empty_cache()
     wave = _wavegan_phase(dev, tag, randn)
 
+    # ---- 12. measured tiles and the per-layer algorithm -----------------
+    pre = _pretune_phase(dev, tag)
+
     if "jax" in sys.modules or "repro" in sys.modules:
         raise SystemExit("chip_smoke: JAX or the JAX package was imported")
     total = {k: sum(r[k] for r in per_layer)
@@ -4037,6 +4570,17 @@ def main(json_path: str = "") -> int:
             k["wavegan_max_abs_err"] = wave["k1_max_abs_err"]
         if name in ("sd_conv", "sd_filter_grad"):
             k["wavegan_max_abs_err"] = wave["backward_max_abs_err"]
+        if name in pre["launches"]:
+            # phase 12: the pretuned f32 server's 48-request run
+            k["launches_pretuned"] = pre["launches"][name]
+        if name == "sd_fused_int8":
+            k["launches_pretuned_calibrated"] = pre["int8"]["launches"]
+        if name in pre["switch"]["launches"]:
+            # phase 12 (f): the switched server's 48-request run
+            k["launches_switched"] = pre["switch"]["launches"][name]
+        if name in ("sd_conv", "sd_filter_grad"):
+            k["launches_switched_train"] = pre["switch"]["train_launches"][
+                "K2" if name == "sd_conv" else "K3"]
         if k["name"] in ("sd_conv", "sd_filter_grad", "sd_wino"):
             k["sass_hmma_tf32"] = sass[k["name"]]["HMMA_TF32"]
         if k["name"] == "sd_conv":
@@ -4063,6 +4607,7 @@ def main(json_path: str = "") -> int:
               "nd": {k: v for k, v in nd.items() if k != "kernel"},
               "chain": {k: v for k, v in chain.items() if k != "record"},
               "lm": lm["report"], "wavegan": wave["report"],
+              "pretune": pre,
               "serve": {k: stats[k] for k in
                         ("served", "launches", "req_per_s", "wall_s",
                          "latency_ms")},
@@ -4106,7 +4651,12 @@ def main(json_path: str = "") -> int:
           f"calibrated serving runs (K1, K1 int8), its J_G^T c run (K2, K3) "
           f"and the winograd dryrun (K4), wavegan_ms the device ms (ahead "
           f"events) per layer up1 / up2 / to_audio at batch {BUCKET}, K4's "
-          f"on k17/s4 at those widths) {tag}")
+          f"on k17/s4 at those widths; phase 12: launches_pretuned counted "
+          f"in the pretuned f32 server's serving run (K1, K4), "
+          f"launches_pretuned_calibrated in the pretuned calibrated int8 "
+          f"server's (K1 int8), launches_switched in the serving run of the "
+          f"server whose cache binds layers to K4 (K1, K4) and "
+          f"launches_switched_train in its J_G^T c (K2, K3)) {tag}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,8 +10,10 @@ filter grad, dw) on every forced ``GemmPlan(bn, splits)`` the kernel
 takes (``bn`` in ``GEMM_BN``; splits up to 16 for K1/K2 and up to 192
 for K3 while each split keeps a k-tile), and K4 (f32) on a set of
 ``WinoPlan``s (channel tiles 16 and 32, whole samples and bands of
-tiles), in device time: CUDA events over 20 calls queued behind
-``torch.cuda._sleep`` (chip_smoke's ``_ahead_ms``), the median of 3.
+tiles; the pools are ``autotune.gemm_plans`` and ``autotune.wino_plans``,
+which the plan cache's candidates come from), in device time: CUDA
+events over 20 calls queued behind ``torch.cuda._sleep``
+(``repro_torch.kernels.timing.ahead_ms``), the median of 3.
 Every plan's output is held to the default plan's (f32 gate; int8
 bit-identical).  Per case it prints each plan's grid and time, the
 default plan's (``gemm_plan``, ``filter_grad_plan``, ``wino_plan``),
@@ -39,13 +41,12 @@ import math
 import os
 import sys
 
-from chip_smoke import _ahead_ms, _card_line
+from chip_smoke import _card_line
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 BATCH = 16
 SEED = 0
-SPLITS = (1, 2, 3, 4, 6, 8, 12, 16)
-DW_SPLITS = SPLITS + (24, 32, 48, 64, 96, 128, 145, 192)
+DW_MORE_SPLITS = (24, 32, 48, 64, 96, 128, 145, 192)   # K3's longer pool
 
 
 def sweep(dev, time_ms, card: str) -> dict:
@@ -60,34 +61,13 @@ def sweep(dev, time_ms, card: str) -> dict:
     from repro_torch.kernels import sd_conv as K
     from repro_torch.kernels import winograd as W
     from repro_torch.core.quant import quantize_act
-    from repro_torch.kernels.autotune import (GEMM_BN, ConvGeom,
-                                              FilterGradGeom, GemmPlan,
-                                              WinoPlan, check_wino_plan,
-                                              filter_grad_plan, gemm_grid,
-                                              gemm_k_tiles, gemm_plan,
-                                              wino_grid)
+    from repro_torch.kernels.autotune import (ConvGeom, FilterGradGeom,
+                                              SPLITS, GemmPlan,
+                                              filter_grad_plan,
+                                              gemm_grid, gemm_plan,
+                                              gemm_plans, wino_grid,
+                                              wino_plans)
     from repro_torch.sd.grad import split_cotangent
-
-    def gemm_plans(geom, splits):
-        return [GemmPlan(bn, sp) for bn in GEMM_BN for sp in splits
-                if sp <= gemm_k_tiles(geom)]
-
-    def wino_plans(geom):
-        nt_h, nt_w = geom.tiles
-        shapes = {(nt_h, nt_w, nb) for nb in (1, 2, 4)
-                  if nb * nt_h * nt_w <= geom.slots}
-        shapes |= {(min(nt_h, h), min(nt_w, w), 1)
-                   for h, w in ((4, 8), (2, 8), (4, 4), (8, 4), (2, 16))}
-        plans = []
-        for (h, w, nb) in sorted(shapes):
-            for tc in (16, 32):
-                plan = WinoPlan(nth=h, ntw=w, nb=nb, tc=tc)
-                try:
-                    check_wino_plan(geom, plan)
-                except ValueError:
-                    continue
-                plans.append(plan)
-        return plans
 
     gen = torch.Generator().manual_seed(SEED)
 
@@ -161,14 +141,14 @@ def sweep(dev, time_ms, card: str) -> dict:
                 act=p8.act, scale=comb, plan=plan)
 
         cases.append((f"K1 dcgan/{l.name}", g1, k1, gemm_plan(g1),
-                      gemm_plans(g1, SPLITS), (x, p)))
+                      gemm_plans(g1), (x, p)))
         cases.append((f"K1 int8 dcgan/{l.name}", g1q, k1q, gemm_plan(g1q),
-                      gemm_plans(g1q, SPLITS), None))
+                      gemm_plans(g1q), None))
         cases.append((f"K2 dx dcgan/{l.name}", g2, k2, gemm_plan(g2),
-                      gemm_plans(g2, SPLITS), None))
+                      gemm_plans(g2), None))
         cases.append((f"K3 dw dcgan/{l.name}", g3.as_gemm(), k3,
-                      filter_grad_plan(g3), gemm_plans(g3.as_gemm(),
-                                                       DW_SPLITS), None))
+                      filter_grad_plan(g3), gemm_plans(
+                          g3.as_gemm(), SPLITS + DW_MORE_SPLITS), None))
         cases.append((f"K4 dcgan/{l.name}", g4, k4, W.wino_plan(g4),
                       wino_plans(g4), None))
 
@@ -193,7 +173,7 @@ def sweep(dev, time_ms, card: str) -> dict:
             return K.sd_conv(xq, wq, pad=vpad, plan=plan)
 
         cases.append((f"K2 int8 voxgan/{l.name} tap", g2q, k2q,
-                      gemm_plan(g2q), gemm_plans(g2q, SPLITS), None))
+                      gemm_plan(g2q), gemm_plans(g2q), None))
 
     out = {"card": card, "batch": BATCH, "cases": []}
     for name, geom, fn, default, plans, bf16 in cases:
@@ -258,8 +238,9 @@ def main() -> int:
     print(f"card: {card}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels.timing import ahead_ms
     out = sweep(torch.device("cuda"),
-                lambda fn: sorted(_ahead_ms(fn) for _ in range(3))[1],
+                lambda fn: sorted(ahead_ms(fn) for _ in range(3))[1],
                 card)
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),

@@ -16,18 +16,31 @@ chains (the first writes int8 codes for the second).  Every
 :meth:`SDEngine.bind` bumps :attr:`SDEngine.generation`, so a holder of
 a snapshot of the plans (the server's cells) can tell that they were
 rebuilt.
+
+Tiles come from the measured plan cache (:mod:`repro_torch.kernels.
+autotune`): :meth:`SDEngine.pretune` times K1's (and, on a float
+``"fused"`` engine, K4's) candidate tiles for every rank-2 layer at the
+serving batches and persists the winners; a bind then resolves each
+layer's tile, and its algorithm (K1 or K4, whichever measured faster),
+from the cache, :meth:`SDEngine.plans_for_batch` re-resolves the tiles
+at a bucket's batch, and :meth:`SDEngine.estimate_ms` sums the measured
+times.  With nothing measured every tile is the kernel's call-time
+default.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional
+from dataclasses import replace
+from typing import Any, Dict, Iterable, Optional
 
 import torch
 
 from repro_torch.core.accounting import LayerSpec, NetworkSpec
 from repro_torch.core.deconv import _ntuple, same_deconv_pads
 from repro_torch.device import resolve_device
+from repro_torch.kernels import autotune
+from repro_torch.kernels.autotune import DeconvGeom, get_plan
 from repro_torch.sd import functional as sd_functional
 from repro_torch.sd.plan import (DTYPES, DeconvPlan, plan as make_plan,
                                  resolve_backend)
@@ -57,11 +70,17 @@ class SDEngine:
     launch per depth tap; their plain versions for CPU tensors), ``"winograd"`` (K4 pinned on every deconv layer; a
     layer outside its envelope raises at plan time), ``"torch"``
     (grouped conv + pixel shuffle), or ``"auto"`` (fused on a CUDA
-    ``device``, torch on the CPU).  The reference's measured per-layer
-    choice between fused and winograd (``autotune.best_algo``, armed by
-    ``pretune``) waits for measured tiles.  ``device=None`` is the card,
-    as everywhere in the port (raises without one).  ``dtype``:
-    ``"native"`` or ``"int8"`` (the plans' execution dtype)."""
+    ``device``, torch on the CPU).  A ``"fused"`` float engine binds a
+    rank-2 layer to ``"winograd"`` where :meth:`pretune` measured K4
+    faster than K1 at ``plan_batch`` (:meth:`_layer_backend`).
+    ``device=None`` is the card, as everywhere in the port (raises
+    without one).  ``dtype``: ``"native"`` or ``"int8"`` (the plans'
+    execution dtype)."""
+
+    # The batch the bound plans' tiles and algorithm are keyed at (the
+    # reference's default; serving re-keys tiles per bucket with
+    # plans_for_batch).
+    plan_batch = 1
 
     def __init__(self, spec: NetworkSpec, backend: str = "auto",
                  device=None, dtype: str = "native"):
@@ -94,20 +113,50 @@ class SDEngine:
         return tuple(leaves)
 
     # ---- offline phase ---------------------------------------------------
+    def _layer_backend(self, layer: LayerSpec, dtype: str,
+                       geom: Optional[DeconvGeom]) -> str:
+        """Execution backend of one layer (reference
+        ``SDEngine._layer_backend``): a ``"fused"`` engine switches a
+        float rank-2 layer inside K4's envelope to ``"winograd"`` when
+        :func:`~repro_torch.kernels.autotune.best_algo` says K4 measured
+        faster at ``geom`` (the ``plan_batch`` geometry).  Int8 plans,
+        other ranks and untuned layers keep the engine's backend."""
+        if (self.backend != "fused" or dtype == "int8" or geom is None
+                or layer.rank != 2):
+            return self.backend
+        from repro_torch.kernels.winograd import supported
+        kt = -(-layer.k // layer.s)
+        if not supported((kt, kt)):
+            return self.backend
+        if autotune.best_algo(geom, device=self.device) == "wino":
+            return "winograd"
+        return self.backend
+
     def layer_plan(self, layer: LayerSpec, act: str,
-                   dtype: Optional[str] = None) -> DeconvPlan:
-        """Geometry-only plan for one deconv layer (tile chosen at call
-        time from the launch geometry).  ``dtype`` overrides the engine's
-        (the models' differentiable path asks an int8 engine for float
-        plans: int8 plans are inference-only)."""
+                   dtype: Optional[str] = None,
+                   qout: bool = False) -> DeconvPlan:
+        """Geometry-only plan for one deconv layer: backend
+        (:meth:`_layer_backend`) and tile from the plan cache at
+        ``plan_batch`` (``None``, the kernel's call-time default, where
+        nothing is measured; ranks 1 and 3 always).  ``dtype`` overrides
+        the engine's (the models' differentiable path asks an int8 engine
+        for float plans: int8 plans are inference-only); ``qout`` keys a
+        chained int8-out launch."""
         rank = layer.rank
         kernel = (layer.k,) * rank
         stride = (layer.s,) * rank
         pads = (same_deconv_pads(kernel, stride)
                 if layer.padding == "same" else layer.pad)
+        dtype = self.dtype if dtype is None else dtype
+        geom = self.layer_geom(layer, dtype=dtype, qout=qout)
+        backend = self._layer_backend(layer, dtype, geom)
+        tile = None
+        if geom is not None and backend != "torch":
+            if backend == "winograd":
+                geom = replace(geom, algo="wino")
+            tile = get_plan(geom, device=self.device)
         return make_plan((*kernel, layer.cin, layer.cout), stride, pads,
-                         backend=self.backend, act=act,
-                         dtype=self.dtype if dtype is None else dtype)
+                         backend=backend, act=act, tile=tile, dtype=dtype)
 
     def _chain_next(self) -> Dict[str, str]:
         """Chaining wiring from the installed calibration (reference
@@ -148,7 +197,7 @@ class SDEngine:
             p = params[layer.name]
             act = "linear" if i == len(layers) - 1 else "relu"
             tgt = chain_next.get(layer.name)
-            bound = self.layer_plan(layer, act).bind(
+            bound = self.layer_plan(layer, act, qout=tgt is not None).bind(
                 p["w"], scale=p.get("scale"), bias=p["b"].float())
             if calib and layer.name in calib:
                 bound = bound.with_chain(
@@ -198,17 +247,130 @@ class SDEngine:
                 and all(a is b for a, b in zip(leaves, self._bound_leaves))
                 and _versions(leaves) == self._bound_versions)
 
+    # ---- measured tiles -------------------------------------------------
+    def layer_geom(self, layer: LayerSpec, batch: Optional[int] = None,
+                   dtype: Optional[str] = None, algo: str = "",
+                   qout: bool = False) -> Optional[DeconvGeom]:
+        """Plan-cache geometry of one deconv layer's launch at ``batch``
+        (default ``plan_batch``), the reference's key: rank 2 only (ranks
+        1 and 3 take the call-time default), ``_int8`` on an int8 engine
+        (or ``dtype="int8"``), ``algo="wino"`` for K4, ``qout`` for a
+        chained int8-out launch."""
+        if layer.rank != 2:
+            return None
+        pads = (same_deconv_pads(layer.k, layer.s)
+                if layer.padding == "same" else layer.pad)
+        dtype = self.dtype if dtype is None else dtype
+        geom = DeconvGeom.from_deconv(
+            batch or self.plan_batch, *layer.in_hw, layer.cin, layer.cout,
+            layer.k, layer.s, padding=pads,
+            dtype="int8" if dtype == "int8" else "")
+        return replace(geom, algo=algo, qout=qout)
+
+    def _deconv_layers(self) -> Dict[str, LayerSpec]:
+        return {l.name: l for l in self.spec.layers if l.kind == "deconv"}
+
+    def _plan_geom(self, plan: DeconvPlan, layer: LayerSpec,
+                   batch: int) -> Optional[DeconvGeom]:
+        """The geometry of a bound plan's launch at ``batch``."""
+        return self.layer_geom(
+            layer, batch, algo="wino" if plan.backend == "winograd" else "",
+            qout=plan.chain_out)
+
     def plans_for_batch(self, batch: int) -> Dict[str, DeconvPlan]:
-        """The cached bound plans for a launch at ``batch``.  Tiles are
-        picked per launch from its geometry until measured tiles exist,
-        so every bucket shares the same plans."""
-        return self.plans()
+        """The bound plans with tiles re-resolved from the cache at
+        ``batch`` (a bucket), sharing the split filters: nothing is split
+        again.  A layer with no measured tile at ``batch`` launches the
+        kernel's default for the launch."""
+        if batch == self.plan_batch or self.backend == "torch":
+            return self.plans()
+        layers = self._deconv_layers()
+        out: Dict[str, DeconvPlan] = {}
+        for name, plan in self._plans.items():
+            geom = self._plan_geom(plan, layers[name], batch)
+            out[name] = (plan if geom is None else plan.with_tile(
+                get_plan(geom, device=self.device)))
+        return out
+
+    def pretune(self, batches: Iterable[int], iters: int = 3,
+                path: Optional[str] = None) -> Dict[str, Any]:
+        """Time the candidate tiles of every rank-2 (deconv layer, batch)
+        launch through the bound plan's own hot path
+        (:func:`repro_torch.sd.execute` on zeros, on this engine's
+        device) and persist each winner (reference ``SDEngine.pretune``).
+        A float ``"fused"`` engine also times the Winograd variant of
+        every layer inside K4's envelope (the bound oc-major filters
+        through ``transform_filters``; nothing is split again) and then
+        rebinds, so layers where K4 measured faster at ``plan_batch``
+        switch.  Returns ``{geometry key: winning plan}``; ``{}`` on the
+        ``torch`` backend, which launches no kernel."""
+        tuned: Dict[str, Any] = {}
+        if self.backend not in ("fused", "winograd"):
+            return tuned
+        if not self._plans:
+            raise ValueError("pretune() needs bound plans; bind() first")
+        from repro_torch.kernels.winograd import supported, transform_filters
+        layers = self._deconv_layers()
+
+        def tune_variant(plan: DeconvPlan, layer: LayerSpec, b: int, x):
+            geom = self._plan_geom(plan, layer, b)
+
+            def runner(tile):
+                p2 = plan.with_tile(tile)
+                with torch.no_grad():
+                    return autotune.measure(
+                        lambda: sd_functional.execute(p2, x), iters=iters,
+                        device=self.device)
+
+            best = autotune.tune(geom, runner, path=path,
+                                 device=self.device)
+            if best is not None:           # None: every tile was refused
+                tuned[geom.key()] = best
+
+        for name, plan in self._plans.items():
+            layer = layers[name]
+            if self.layer_geom(layer) is None:
+                continue                       # ranks 1 and 3: call time
+            # a calibrated int8 plan reads int8 codes (a chained input's,
+            # or its own static quantization's), a dynamic one f32, a
+            # float one its filters' dtype
+            dtype = (torch.int8 if plan.sx_in is not None
+                     else torch.float32 if plan.dtype == "int8"
+                     else plan.ws.dtype)
+            variants = [plan]
+            if (self.backend == "fused" and plan.backend == "fused"
+                    and plan.dtype != "int8" and supported(plan.kt)):
+                variants.append(replace(plan, backend="winograd",
+                                        layout="wino", tile=None,
+                                        ws=transform_filters(plan.ws)))
+            for b in sorted({int(v) for v in batches}):
+                x = torch.zeros((b, *layer.in_hw, layer.cin), dtype=dtype,
+                                device=self.device)
+                for v in variants:
+                    tune_variant(v, layer, b, x)
+        if self.backend == "fused" and self._bound is not None:
+            self.bind(self._bound)   # layers measured faster on K4 switch
+        return tuned
 
     def estimate_ms(self, batch: int) -> Optional[float]:
-        """Service-time seed for admission control: ``None`` until tiles
-        are measured on the card (the scheduler then learns from its
-        observed launches)."""
-        return None
+        """Service-time seed for admission control (reference
+        ``SDEngine.estimate_ms``): the measured ms of every deconv
+        layer's launch at ``batch`` summed, or ``None`` unless every one
+        is measured on this device (ranks 1 and 3 never are).  The fc and
+        conv layers and the host's time are left out, so it is about the
+        deconv layers' device time, below a batch's wall time; the
+        scheduler's observed-launch average takes over from the first
+        launch."""
+        total = 0.0
+        layers = self._deconv_layers()
+        for name, plan in self._plans.items():
+            geom = self._plan_geom(plan, layers[name], batch)
+            ms = (None if geom is None
+                  else autotune.measured_ms(geom, device=self.device))
+            if ms is None:
+                return None
+            total += ms
+        return total
 
     # ---- hot path --------------------------------------------------------
     def run(self, name: str, x: torch.Tensor) -> torch.Tensor:
@@ -216,3 +378,17 @@ class SDEngine:
 
     def plans(self) -> Dict[str, DeconvPlan]:
         return dict(self._plans)
+
+    def describe(self) -> str:
+        """One line for the engine, one per bound layer: rank, kernel,
+        stride, taps, activation, backend and tile (reference
+        ``SDEngine.describe``)."""
+        lines = [f"SDEngine[{self.spec.name}] backend={self.backend} "
+                 f"dtype={self.dtype} ({len(self._plans)} deconv layers)"]
+        for name, plan in self._plans.items():
+            tile = plan.tile if plan.tile is not None else "call-time"
+            lines.append(
+                f"  {name}: rank={plan.rank} K={plan.kernel[0]} "
+                f"s={plan.stride[0]} KT={plan.kt[0]} act={plan.act} "
+                f"backend={plan.backend} tile={tile}")
+        return "\n".join(lines)

@@ -6,8 +6,38 @@ split conv (K4, :class:`WinoPlan`, :func:`wino_plan`).
 
 The JAX package sizes its Pallas tiles against an 8 MiB VMEM model; on
 the H100 the limit is the shared memory one block can use (227 KB) and,
-in practice, filling the 132 SMs.  Every plan here is a heuristic from
-the launch geometry alone; measuring and caching tiles comes later.
+in practice, filling the 132 SMs.  The plans above are heuristics from
+the launch geometry alone; a deconv layer's K1 and K4 tiles can also be
+measured on the card and cached (the reference's plan cache,
+``src/repro/kernels/autotune.py``):
+
+* :class:`DeconvGeom` — the cache key, one deconv layer's launch at a
+  batch, with the reference's ``ConvGeom.key()`` strings letter for
+  letter (``_int8``, ``_wino``, ``_q8out`` and ``_mp{n}`` suffixes);
+  :meth:`DeconvGeom.launch` is the GEMM or Winograd geometry the kernel
+  is handed.
+* :func:`candidate_plans` — the tiles timed for a geometry (from
+  :func:`gemm_plans` and :func:`wino_plans`, which ``gemm_sweep.py``
+  sweeps too).
+* :func:`tune` / :func:`measure` — time every candidate, persist the
+  winner; :func:`measured_ms` and :func:`best_algo` read the cache back
+  (the per-layer choice between K1 and K4).
+* :func:`get_plan` — the measured tile where one exists for this device
+  and the launch takes it, else ``None``: the kernel's own default at
+  call time, so an untuned engine launches what it launched before.
+
+Cache format (JSON)::
+
+    {"version": 1,
+     "plans": {"b16_h12w12_ci256_co128_kt3_s2":
+                   {"bn": ..., "splits": ..., "ms": <device ms>,
+                    "source": "measured", "backend": <card name>}}}
+
+(a ``_wino`` key holds ``nth``, ``ntw``, ``nb``, ``tc``).  An entry
+steers only the device it was measured on: ``backend`` is the card's
+name, or ``"cpu"``.  The file is ``$REPRO_TORCH_SD_PLAN_CACHE``,
+default ``~/.cache/repro_torch/sd_plans.json`` (never the reference's
+``REPRO_SD_PLAN_CACHE``).
 
 A geometry carries its operand dtype (``""`` f32, ``"bf16"``,
 ``"int8"``), so the float and the int8 launch of one layer are distinct
@@ -16,7 +46,13 @@ geometries with their own k-tile depth and column cap.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import math
+import os
+import time
+from dataclasses import asdict, dataclass, replace
+from typing import Callable, Dict, List, Optional, Union
+
+from repro_torch.core.iohelpers import atomic_write_json, read_json
 
 SMEM_BUDGET = 232_448          # bytes of shared memory one block may use
 
@@ -364,3 +400,364 @@ def wino_plan(geom: WinoGeom) -> WinoPlan:
         plan = WinoPlan(plan.nth, plan.ntw, plan.nb // 2, plan.tc)
     check_wino_plan(geom, plan)
     return plan
+
+
+# ---------------------------------------------------------------------------
+# Measured tiles: the plan cache of one deconv layer's K1 or K4 launch.
+# Counterpart of the reference's ConvGeom key, candidate pool, tune,
+# measured_ms and best_algo (src/repro/kernels/autotune.py:86-202,368-580).
+# ---------------------------------------------------------------------------
+
+Plan = Union[GemmPlan, WinoPlan]
+SPLITS = (1, 2, 3, 4, 6, 8, 12, 16)   # split counts the GEMM pools offer
+
+
+@dataclass(frozen=True)
+class DeconvGeom:
+    """One deconv layer's fused launch at a batch: the counterpart of the
+    reference's ``ConvGeom`` (``src/repro/kernels/autotune.py:86``), its
+    fields and :meth:`key` the same.  ``h``/``w`` are the ``P_I``-padded
+    input, ``cout`` counts deconv output channels, ``kt``/``s`` the taps
+    and interleave (``ktw``/``sw`` 0: square); ``dtype`` ``""`` or
+    ``"int8"``, ``algo`` ``""`` (K1) or ``"wino"`` (K4), ``qout`` a
+    chained int8-out launch, ``shards`` the Cout shard count, ``tag`` a
+    launch role.  ``out_h``/``out_w`` and ``crop_h``/``crop_w`` (the final
+    output and the low-side crop, outside the key) give the launch
+    (:meth:`launch`)."""
+    b: int
+    h: int
+    w: int
+    cin: int
+    cout: int
+    kt: int
+    s: int
+    ktw: int = 0
+    sw: int = 0
+    tag: str = ""
+    out_h: int = 0
+    out_w: int = 0
+    crop_h: int = -1
+    crop_w: int = -1
+    dtype: str = ""
+    algo: str = ""
+    qout: bool = False
+    shards: int = 1
+
+    def key(self) -> str:
+        """The reference's ``ConvGeom.key()`` string."""
+        base = (f"b{self.b}_h{self.h}w{self.w}_ci{self.cin}"
+                f"_co{self.cout}_kt{self.kt}_s{self.s}")
+        if self.ktw or self.sw:
+            base += f"_ktw{self.ktw or self.kt}_sw{self.sw or self.s}"
+        if self.dtype:
+            base += f"_{self.dtype}"
+        if self.algo:
+            base += f"_{self.algo}"
+        if self.qout:
+            base += "_q8out"
+        if self.shards > 1:
+            base += f"_mp{self.shards}"
+        if self.tag:
+            base += f"_{self.tag}"
+        return base
+
+    @classmethod
+    def from_deconv(cls, b: int, h: int, w: int, cin: int, cout: int,
+                    k: int, s: int, padding=None, output_padding: int = 0,
+                    dtype: str = "") -> "DeconvGeom":
+        """The geometry of a square ``k``/``s`` deconv layer on an ``h x
+        w x cin`` input (reference ``ConvGeom.from_deconv``): the input
+        padded by ``P_I = K_T - 1`` per side; with ``padding`` known, the
+        final output and the low-side crop ``P_K + pad_lo`` too."""
+        kt = -(-k // s)
+        pi = kt - 1
+        geom = cls(b, h + 2 * pi, w + 2 * pi, cin, cout, kt, s, dtype=dtype)
+        if padding is None:
+            return geom
+        from repro_torch.core.deconv import _pads_nd, deconv_output_shape
+        pads = _pads_nd(padding, 2)
+        oh, ow = deconv_output_shape((h, w), k, s, padding, output_padding)
+        pk = s * kt - k
+        return replace(geom, out_h=oh, out_w=ow, crop_h=pk + pads[0][0],
+                       crop_w=pk + pads[1][0])
+
+    def launch(self) -> Union[GemmGeom, WinoGeom]:
+        """What the kernel is handed (``kernels.sd_conv.gemm_launch`` /
+        ``kernels.winograd.wino_launch``): ``rows x cols`` conv positions
+        per sample, ``ceil((out + crop % s) / s)`` per dim, then K1's GEMM
+        (``m = b * rows * cols``, ``n = cout * s_h * s_w``, ``k = K_T^2 *
+        cin``) or K4's Winograd geometry.  Needs the crop
+        (:meth:`from_deconv` with ``padding``)."""
+        if self.crop_h < 0 or self.crop_w < 0:
+            raise ValueError(f"{self.key()}: the launch needs the output "
+                             "and crop (from_deconv with padding)")
+        ktw, sw = self.ktw or self.kt, self.sw or self.s
+        rows = -(-(self.out_h + self.crop_h % self.s) // self.s)
+        cols = -(-(self.out_w + self.crop_w % sw) // sw)
+        nc = self.cout * self.s * sw
+        if self.algo == "wino":
+            return WinoGeom(b=self.b, rows=rows, cols=cols, cin=self.cin,
+                            nc=nc, kth=self.kt, ktw=ktw)
+        return GemmGeom(m=self.b * rows * cols, n=nc,
+                        k=self.kt * ktw * self.cin,
+                        dtype="int8" if self.dtype == "int8" else "")
+
+
+def gemm_plans(geom: GemmGeom, splits=SPLITS) -> List[GemmPlan]:
+    """Every ``GemmPlan(bn, splits)`` with ``bn`` in :data:`GEMM_BN` and a
+    split count of ``splits`` that leaves each split a k-tile."""
+    return [GemmPlan(bn, sp) for bn in GEMM_BN for sp in splits
+            if sp <= gemm_k_tiles(geom)]
+
+
+def wino_plans(geom: WinoGeom) -> List[WinoPlan]:
+    """K4's pool: whole samples' tiles in 1, 2 or 4 samples where the
+    block's slots hold them, and bands of 4 x 8, 2 x 8, 4 x 4, 8 x 4 and
+    2 x 16 tiles, each with 16 and 32 phase channels, kept where
+    :func:`check_wino_plan` takes them."""
+    nt_h, nt_w = geom.tiles
+    shapes = {(nt_h, nt_w, nb) for nb in (1, 2, 4)
+              if nb * nt_h * nt_w <= geom.slots}
+    shapes |= {(min(nt_h, h), min(nt_w, w), 1)
+               for h, w in ((4, 8), (2, 8), (4, 4), (8, 4), (2, 16))}
+    plans = []
+    for (h, w, nb) in sorted(shapes):
+        for tc in WINO_TC:
+            plan = WinoPlan(nth=h, ntw=w, nb=nb, tc=tc)
+            try:
+                check_wino_plan(geom, plan)
+            except ValueError:
+                continue
+            plans.append(plan)
+    return plans
+
+
+def _blocks(launch, plan: Plan) -> int:
+    grid = (wino_grid if isinstance(launch, WinoGeom) else gemm_grid)(
+        launch, plan)
+    return math.prod(grid)
+
+
+def default_plan(geom: DeconvGeom) -> Plan:
+    """The plan the kernel picks at call time for ``geom``'s launch:
+    :func:`wino_plan` or :func:`gemm_plan`."""
+    launch = geom.launch()
+    return (wino_plan(launch) if isinstance(launch, WinoGeom)
+            else gemm_plan(launch))
+
+
+def check_plan(launch, plan: Plan) -> None:
+    """Raise ``ValueError`` unless the kernel of ``launch`` takes
+    ``plan``: a :class:`WinoPlan` for a :class:`WinoGeom` that
+    :func:`check_wino_plan` takes, a :class:`GemmPlan` for a
+    :class:`GemmGeom` that :func:`check_gemm_plan` takes and whose splits
+    each keep a k-tile."""
+    if isinstance(launch, WinoGeom):
+        if not isinstance(plan, WinoPlan):
+            raise ValueError(f"K4 takes a WinoPlan, not {plan!r}")
+        check_wino_plan(launch, plan)
+        return
+    if not isinstance(plan, GemmPlan):
+        raise ValueError(f"the GEMM takes a GemmPlan, not {plan!r}")
+    check_gemm_plan(launch, plan)
+    if plan.splits > gemm_k_tiles(launch):
+        raise ValueError(f"{plan}: {gemm_k_tiles(launch)} k-tiles cannot "
+                         f"make {plan.splits} splits")
+
+
+MAX_CANDIDATES = 8             # tiles timed per geometry (the reference's)
+
+
+def candidate_plans(geom: DeconvGeom) -> List[Plan]:
+    """The tiles timed for ``geom`` (reference ``candidate_plans``): the
+    kernel's default first, then the pool (:func:`gemm_plans` with the
+    default's split count added, or :func:`wino_plans`) ranked by how
+    near their block count comes to the default's, at most
+    :data:`MAX_CANDIDATES` in all."""
+    launch = geom.launch()
+    base = default_plan(geom)
+    if isinstance(launch, WinoGeom):
+        pool = wino_plans(launch)
+    else:
+        pool = gemm_plans(launch, sorted(set(SPLITS) | {base.splits}))
+    want = _blocks(launch, base)
+    rest = []
+    for p in pool:
+        if p == base or p in rest:
+            continue
+        try:
+            check_plan(launch, p)
+        except ValueError:
+            continue
+        rest.append(p)
+    rest.sort(key=lambda p: abs(math.log(_blocks(launch, p) / want)))
+    return ([base] + rest)[:MAX_CANDIDATES]
+
+
+# ---------------------------------------------------------------------------
+# Cache persistence
+# ---------------------------------------------------------------------------
+
+_ENV_CACHE = "REPRO_TORCH_SD_PLAN_CACHE"
+_DEFAULT_CACHE = os.path.join(os.path.expanduser("~"), ".cache",
+                              "repro_torch", "sd_plans.json")
+
+# In-memory mirror of each cache file, so a bind never re-reads disk.
+_MEM: Dict[str, Dict[str, dict]] = {}
+
+
+def cache_path(path: Optional[str] = None) -> str:
+    return path or os.environ.get(_ENV_CACHE, _DEFAULT_CACHE)
+
+
+def load_cache(path: Optional[str] = None) -> Dict[str, dict]:
+    p = cache_path(path)
+    if p not in _MEM:
+        data = read_json(p)
+        plans = data.get("plans") if isinstance(data, dict) else None
+        _MEM[p] = dict(plans) if isinstance(plans, dict) else {}
+    return _MEM[p]
+
+
+def save_cache(plans: Dict[str, dict], path: Optional[str] = None) -> str:
+    """Write the cache atomically (``core.iohelpers.atomic_write_json``:
+    readers see a whole document, the last writer wins) and mirror it."""
+    p = cache_path(path)
+    atomic_write_json(p, {"version": 1, "plans": plans})
+    _MEM[p] = dict(plans)
+    return p
+
+
+def backend_tag(device=None) -> str:
+    """The device an entry was measured on: the card's name
+    (``torch.cuda.get_device_name``), or ``"cpu"``.  ``None`` is the card,
+    as everywhere in the port."""
+    import torch
+    from repro_torch.device import resolve_device
+    dev = resolve_device(device)
+    return "cpu" if dev.type == "cpu" else torch.cuda.get_device_name(dev)
+
+
+def _entry(entry: Optional[dict], tag: str) -> Optional[dict]:
+    """``entry`` if it is a measured one from the device ``tag``."""
+    if (isinstance(entry, dict) and entry.get("source") == "measured"
+            and entry.get("backend") == tag):
+        return entry
+    return None
+
+
+def _plan_from_entry(geom: DeconvGeom, entry: dict) -> Optional[Plan]:
+    try:
+        if geom.algo == "wino":
+            return WinoPlan(nth=int(entry["nth"]), ntw=int(entry["ntw"]),
+                            nb=int(entry["nb"]), tc=int(entry["tc"]))
+        return GemmPlan(bn=int(entry["bn"]), splits=int(entry["splits"]))
+    except (KeyError, TypeError, ValueError):
+        return None
+
+
+def get_plan(geom: DeconvGeom, path: Optional[str] = None,
+             device=None) -> Optional[Plan]:
+    """The measured tile of ``geom`` if the cache holds one measured on
+    ``device`` and the kernel takes it for the launch
+    (:meth:`DeconvGeom.launch`, the geometry the wrapper computes), else
+    ``None``: the kernel's own default at call time (:func:`gemm_plan`,
+    :func:`wino_plan` on the actual launch), which is what an untuned
+    engine launches."""
+    entry = _entry(load_cache(path).get(geom.key()), backend_tag(device))
+    if entry is None:
+        return None
+    plan = _plan_from_entry(geom, entry)
+    if plan is None:
+        return None
+    try:
+        check_plan(geom.launch(), plan)
+    except ValueError:
+        return None
+    return plan
+
+
+# ---------------------------------------------------------------------------
+# Measurement
+# ---------------------------------------------------------------------------
+
+def measure(fn: Callable[[], object], iters: int = 3, warmup: int = 1,
+            device=None) -> float:
+    """Least ms per call of ``fn`` over ``iters`` readings.  On the card,
+    device time (:func:`repro_torch.kernels.timing.ahead_ms`: the calls
+    queued behind ``torch.cuda._sleep``, so the host's time per call,
+    which exceeds a DCGAN launch's device time, does not hide the tile's);
+    on the CPU, the wall clock of one call (which blocks there), as the
+    reference measures.  Least, not median: load only adds time."""
+    from repro_torch.device import resolve_device
+    dev = resolve_device(device)
+    for _ in range(warmup):
+        fn()
+    if dev.type == "cuda":
+        from repro_torch.kernels.timing import ahead_ms
+        return min(ahead_ms(fn) for _ in range(iters))
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return min(times)
+
+
+def tune(geom: DeconvGeom, runner: Callable[[Plan], float],
+         path: Optional[str] = None, device=None) -> Optional[Plan]:
+    """Time ``runner(plan) -> ms`` over :func:`candidate_plans` in two
+    passes, the second in reverse order (slow drift of the machine then
+    biases both ends of the list alike), keep each plan's least time,
+    persist the fastest and return it (reference ``tune``).  A measured
+    entry of this device short-circuits.  A candidate whose launch the
+    wrapper's plan checks refuse (``ValueError``) is skipped; any other
+    error, a failed launch included, propagates.  If every candidate is
+    refused, nothing is persisted and ``None`` is returned: the geometry
+    is not tuned."""
+    tag = backend_tag(device)
+    plans = dict(load_cache(path))
+    key = geom.key()
+    entry = _entry(plans.get(key), tag)
+    plan = None if entry is None else _plan_from_entry(geom, entry)
+    if plan is not None:
+        return plan
+    pool = candidate_plans(geom)
+    best: Dict[Plan, float] = {}
+    for order in (pool, pool[::-1]):
+        for plan in order:
+            try:
+                ms = runner(plan)
+            except ValueError:
+                continue
+            best[plan] = min(ms, best.get(plan, float("inf")))
+    if not best:
+        return None
+    best_plan, best_ms = min(best.items(), key=lambda kv: kv[1])
+    plans[key] = {**asdict(best_plan), "ms": best_ms, "source": "measured",
+                  "backend": tag}
+    save_cache(plans, path)
+    return best_plan
+
+
+def measured_ms(geom: DeconvGeom, path: Optional[str] = None,
+                device=None) -> Optional[float]:
+    """The cached ms of ``geom``'s winning tile measured on ``device``, or
+    ``None``."""
+    entry = _entry(load_cache(path).get(geom.key()), backend_tag(device))
+    if entry is None or entry.get("ms") is None:
+        return None
+    return float(entry["ms"])
+
+
+def best_algo(geom: DeconvGeom, path: Optional[str] = None,
+              device=None) -> str:
+    """``"wino"`` iff both the direct (``algo=""``) and the Winograd
+    (``algo="wino"``) variant of ``geom`` are measured on ``device`` and
+    the Winograd one is faster; ``""`` otherwise, so an untuned layer
+    never switches algorithm (reference ``best_algo``)."""
+    direct = measured_ms(replace(geom, algo=""), path, device)
+    wino = measured_ms(replace(geom, algo="wino"), path, device)
+    if direct is not None and wino is not None and wino < direct:
+        return "wino"
+    return ""

@@ -40,6 +40,19 @@ launch per depth tap (K2's int8 pair under ``--dtype int8``).
       --dtype int8 --calib 64
   PYTHONPATH=src python -m repro_torch.launch.serve_gen --dtype int8 \\
       --calib 64
+
+``--pretune`` first times every (deconv layer, bucket) launch's
+candidate tiles (K1's, and on a float ``fused`` server K4's too) and
+caches the fastest in ``$REPRO_TORCH_SD_PLAN_CACHE`` (default
+``~/.cache/repro_torch/sd_plans.json``); the server then launches the
+measured tiles, runs each layer on whichever of K1 and K4 measured
+faster, and seeds the scheduler's admission control with the summed
+times.  On the CPU the kernels' plain versions run, so the tiles steer
+nothing there:
+
+  REPRO_TORCH_SD_PLAN_CACHE="${TMPDIR:-/tmp}/sd_plans.$$.json" \\
+      PYTHONPATH=src python -m repro_torch.launch.serve_gen --dryrun \\
+      --device cpu --backend fused --pretune
 """
 
 from __future__ import annotations
@@ -216,6 +229,21 @@ class GenServer:
             self.compile_count += 1
         return self._compiled[key]
 
+    def pretune(self, iters: int = 3) -> Dict[str, Any]:
+        """Time and cache the tiles of every (deconv layer, bucket)
+        launch this server will run (``serve_gen --pretune``; reference
+        ``GenServer.pretune``): each net's engine pretunes at every bucket
+        of :meth:`buckets`, and a float ``fused`` engine binds the layers
+        where K4 measured faster to it.  ``{}`` on the ``torch`` backend.
+        Returns ``{geometry key: winning plan}``."""
+        tuned: Dict[str, Any] = {}
+        buckets = self.buckets()
+        for net in self._specs:
+            model, _ = self.model(net)
+            if model.engine is not None:
+                tuned.update(model.engine.pretune(buckets, iters=iters))
+        return tuned
+
     def warmup(self, nets: Optional[List[str]] = None) -> int:
         """Build every cell of the bucket ladder and run it once through
         :meth:`run_group` — the serving path itself, with the smallest
@@ -336,12 +364,15 @@ def main(argv=None):
                          "on N latents per net and chain int8 activations "
                          "between consecutive deconv layers (0 = dynamic "
                          "per-sample scales)")
-    ap.add_argument("--pretune", action="store_true")
+    ap.add_argument("--pretune", action="store_true",
+                    help="before serving, time the candidate tiles of every "
+                         "(deconv layer, bucket) launch and cache the "
+                         "fastest in $REPRO_TORCH_SD_PLAN_CACHE; a fused "
+                         "server then runs each layer on K1 or K4, "
+                         "whichever measured faster")
     args = ap.parse_args(argv)
-    for flag, later in (("--dp/--mp", args.dp != 1 or args.mp != 1),
-                        ("--pretune", args.pretune)):
-        if later:
-            raise NotImplementedError(f"{flag}: {_LATER}")
+    if args.dp != 1 or args.mp != 1:
+        raise NotImplementedError(f"--dp/--mp: {_LATER}")
     if args.calib and args.dtype != "int8":
         ap.error("--calib requires --dtype int8")
 
@@ -367,6 +398,12 @@ def main(argv=None):
     server = GenServer(nets=nets, dtype=DTYPES[args.dtype],
                        backend=args.backend, max_batch=args.max_batch,
                        specs=specs, device=args.device, calib=args.calib)
+    if args.pretune:
+        t0 = time.perf_counter()
+        tuned = server.pretune()
+        print(f"pretuned {len(tuned)} (layer, bucket) geometries over "
+              f"buckets {server.buckets()} in "
+              f"{time.perf_counter() - t0:.1f} s")
     requests: List[GenRequest] = []
     for i, net in enumerate(nets):
         for r in server.random_requests(net, n_requests, seed=i + 1):

@@ -4,13 +4,14 @@ and the presplit-once deployment path.
 :func:`conv_transpose` is the training form: a geometry-only plan plus
 the raw filter, split on every call, differentiable in ``x``, ``w`` and
 ``b`` through :mod:`repro_torch.sd.grad` (on a ``fused`` plan the
-forward is K1 and the backward K2 + K3).  :func:`execute` runs a *bound* plan: pre-split (scale-folded) filters,
+forward is K1, on a ``winograd`` plan K4, and the backward of both K2 +
+K3).  :func:`execute` runs a *bound* plan: pre-split (scale-folded) filters,
 bias and activation in the epilogue, no splitting on the hot path.  The
 ``"fused"`` backend is one launch of the fused CUDA kernel (or its plain
 version for a CPU tensor); ``"winograd"`` one launch of K4 from the
 filters ``bind`` transformed (``conv_transpose`` transforms the freshly
-split filters in the call; its backward is the plain torch formulation,
-as in the reference, which sends only ``"fused"`` to the kernels);
+split filters in the call; its backward runs on K2 + K3, where the
+reference sends only ``"fused"`` to its backward kernels);
 ``"torch"`` is the grouped stride-1 conv + pixel shuffle + crop in plain
 PyTorch.  A rank-1 ``"fused"`` or ``"winograd"`` plan runs K1 or K4 as
 an H=1 launch (:func:`~repro_torch.kernels.ops.sd_deconv_presplit_fused_1d`,

@@ -14,15 +14,19 @@ stride-1 conv (a FULL conv with the split filters rotated 180 degrees
 and their channels swapped), its filter grad (a VALID conv with batch
 and channel axes exchanged), ``unsplit_filters``, and pad^T.
 
-A ``fused`` plan of rank 1 or 2 runs the two convolutions on the
-hand-written kernels: K2 for ``dx`` (the FULL-conv pad is masked reads
-and pad^T is the launch's output window) and K3 for ``dw`` (``P_I``
-applied in the kernel); rank 1 as H=1 launches (``dy1[:, None]``,
-``ws[None]``, taps ``(1, KT)``, pad ``(0, P_I)``, window ``(1, L)``), as
-the reference lowers it.  A ``torch`` or ``winograd`` plan, and every
-rank-3 plan, runs the ``F.conv``-based formulations below (the
-reference, too, sends only ``fused`` plans of rank <= 2 to its backward
-kernels).
+A ``fused`` or ``winograd`` plan of rank 1 or 2 runs the two
+convolutions on the hand-written kernels: K2 for ``dx`` (the FULL-conv
+pad is masked reads and pad^T is the launch's output window) and K3 for
+``dw`` (``P_I`` applied in the kernel); rank 1 as H=1 launches
+(``dy1[:, None]``, ``ws[None]``, taps ``(1, KT)``, pad ``(0, P_I)``,
+window ``(1, L)``), as the reference lowers it.  A Winograd forward
+splits the same filters as K1's, so its backward is the same pair of
+convolutions; this is where the port departs from the reference, which
+sends its ``winograd`` plans to its lax formulations: a ``fused``
+engine binds a layer to ``winograd`` wherever K4 measured faster, and
+that layer's training step must stay on the card's kernels.  A
+``torch`` plan, and every rank-3 plan, runs the ``F.conv``-based
+formulations below.
 """
 
 from __future__ import annotations
@@ -85,11 +89,12 @@ def conv_transpose_vjp(plan: DeconvPlan, x: torch.Tensor, w: torch.Tensor,
     space = tuple(x.shape[1:1 + rank])
     ws = split_filters(w, plan.stride)
     dy1 = split_cotangent(plan, dy)
-    if plan.backend == "fused" and rank == 2:
+    on_kernels = plan.backend in ("fused", "winograd")
+    if on_kernels and rank == 2:
         from repro_torch.kernels import ops
         dx = ops.sd_input_grad_fused(dy1, ws.to(dy1.dtype), pi, space)
         dws = ops.sd_filter_grad_fused(x.contiguous(), dy1, kt, pi)
-    elif plan.backend == "fused" and rank == 1:
+    elif on_kernels and rank == 1:
         from repro_torch.kernels import ops
         dx = ops.sd_input_grad_fused(dy1[:, None], ws.to(dy1.dtype)[None],
                                      (0, pi[0]), (1, space[0]))[:, 0]

@@ -181,6 +181,18 @@ class DeconvPlan:
         return replace(self, ws=ws, bias=bias, layout=layout, wscale=wscale,
                        act=self.act if act is None else act)
 
+    def with_tile(self, tile: Optional[Union[GemmPlan, WinoPlan]]
+                  ) -> "DeconvPlan":
+        """The same plan, bound filters shared, on another kernel tile
+        (``None``: the kernel's call-time default); reference
+        ``DeconvPlan.with_tile``.  The tile's type is checked as
+        :func:`plan` checks it."""
+        if self.backend != "torch":
+            want = WinoPlan if self.backend == "winograd" else GemmPlan
+            check_plan_type(f"a {self.dtype} {self.backend!r} plan's tile",
+                            tile, want)
+        return replace(self, tile=tile)
+
     def with_chain(self, sx_in=None, sx_out=None,
                    chain_out: bool = False) -> "DeconvPlan":
         """Attach static calibrated activation scales (reference

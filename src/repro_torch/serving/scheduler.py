@@ -16,8 +16,9 @@ This module replaces that with an event loop that re-forms a batch at
   launches.  New arrivals are eligible for the very next launch.
 * Service times are estimated per ``(net, bucket)``: seeded from the
   engine's measured per-layer entries
-  (:meth:`repro_torch.engine.SDEngine.estimate_ms`, ``None`` until tiles
-  are measured), then tracked as an EWMA of observed launch
+  (:meth:`repro_torch.engine.SDEngine.estimate_ms`: the summed device
+  times of the deconv launches once ``GenServer.pretune`` has measured
+  them, ``None`` before), then tracked as an EWMA of observed launch
   wall times, so the estimate converges on the true cost of the
   machine it is running on.
 * :meth:`swap_checkpoint` queues a new parameter set for a net; the
@@ -87,10 +88,11 @@ class ServiceEstimator:
     """Per-(net, bucket) service-time estimate in milliseconds.
 
     ``seed_fn(net, bucket) -> ms | None`` supplies the cold-start value
-    (the engine's summed measured per-layer plan entries); every
-    observed launch then folds into an EWMA.  ``estimate_ms`` returns
-    None when nothing is known — admission control admits optimistically
-    in that case rather than shedding on a guess.
+    (the engine's summed measured per-layer plan entries, present once
+    the server is pretuned); every observed launch then folds into an
+    EWMA.  ``estimate_ms`` returns None when nothing is known (an
+    unpretuned cell before its first launch) — admission control admits
+    optimistically in that case rather than shedding on a guess.
     """
 
     def __init__(self, seed_fn: Optional[Callable[[str, int],

@@ -47,7 +47,11 @@ reduced LM's prefill through K5 matches the plain scan.  Rank 1
 (WaveGAN): K1 (f32 and int8), K4, K2 and K3 as H=1 launches on
 WaveGAN's layers at batch 16, at the same gates, and full-width WaveGAN
 served in f32, dynamic and calibrated int8 against the card's ``torch``
-backend.
+backend.  Measured tiles: ``autotune.measure`` reads device time below
+the host's time per call; every candidate tile of DCGAN d1's K1, K1 int8
+and K4 at batches 1 and 16 matches the default plan (f32 within 1e-5 of
+max(1, max|ref|), int8 bit for bit); a pretuned DCGAN server passes
+chip_smoke phase 12's gates.
 """
 
 import pytest
@@ -1161,6 +1165,212 @@ def test_wavegan_server_runs_k1_per_layer(dev, dtype, tmp_path,
     rel = 1e-4 if dtype == "f32" else 1e-6
     assert (out - ref).abs().max().item() <= \
         rel * max(1.0, ref.abs().max().item())
+
+
+# ---------------------------------------------------------------------------
+# Measured tiles: autotune.measure, the candidate pools, a pretuned server
+# ---------------------------------------------------------------------------
+
+def test_measure_returns_device_ms_below_host_time(dev):
+    """``autotune.measure`` on the card reads device time with the host's
+    time per call hidden: on DCGAN d3 at batch 16 it is below the wall
+    clock per call of back-to-back calls."""
+    import time
+    from repro_torch.kernels import autotune as A
+    layer = PAPER_LAYERS[2][1]
+    x, p = _layer(layer, dev, "linear", batch=16)
+
+    def fn():
+        return ops.sd_deconv_presplit_fused(x, p.ws, p.kernel, p.stride,
+                                            p.padding, bias=p.bias)
+
+    ms = A.measure(fn, device=dev)
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    host = (time.perf_counter() - t0) * 1e3 / 50
+    assert 0.0 < ms < host
+
+
+def _d1_geoms():
+    from repro_torch.engine import SDEngine
+    spec = BENCHMARKS["dcgan"]()
+    eng = SDEngine(spec, backend="fused", device="cpu")
+    return eng, spec.deconv_layers()[0]
+
+
+@pytest.mark.parametrize("batch", [1, 16])
+@pytest.mark.parametrize("kind", ["k1", "k1_int8", "k4"])
+def test_every_candidate_tile_matches_the_default(dev, kind, batch):
+    """Each tile ``pretune`` may time on DCGAN d1 runs and gives the
+    default plan's output: f32 (K1, K4) within 1e-5 * max(1, max|ref|),
+    int8 bit for bit (exact int32 sums in any split)."""
+    from repro_torch.core.quant import quantize_act
+    from repro_torch.kernels import autotune as A
+    eng, layer = _d1_geoms()
+    x, p = _layer(layer, dev, "relu", batch=batch)
+    algo = "wino" if kind == "k4" else ""
+    dtype = "int8" if kind == "k1_int8" else "native"
+    geom = eng.layer_geom(layer, batch, dtype, algo)
+    cands = A.candidate_plans(geom)
+    assert len(cands) > 1
+    if kind == "k4":
+        pw = sd.plan(p.kernel + (layer.cin, layer.cout), p.stride,
+                     p.padding, backend="winograd", act="relu",
+                     device=dev)
+        w = torch.randn(*p.kernel, layer.cin, layer.cout,
+                        generator=torch.Generator().manual_seed(3))
+        pw = pw.bind((w / (25 * layer.cin) ** 0.5).to(dev), bias=p.bias)
+
+        def run(plan):
+            return ops.sd_deconv_presplit_wino(
+                x, pw.ws, pw.kernel, pw.stride, pw.padding, bias=pw.bias,
+                act="relu", plan=plan)
+    elif kind == "k1":
+        def run(plan):
+            return ops.sd_deconv_presplit_fused(
+                x, p.ws, p.kernel, p.stride, p.padding, bias=p.bias,
+                act="relu", plan=plan)
+    else:
+        p8 = sd.plan(p.kernel + (layer.cin, layer.cout), p.stride,
+                     p.padding, backend="fused", act="relu", dtype="int8",
+                     device=dev)
+        w = torch.randn(*p.kernel, layer.cin, layer.cout,
+                        generator=torch.Generator().manual_seed(4))
+        p8 = p8.bind(w.to(dev), bias=p.bias)
+        xq, sx = quantize_act(x)
+        comb = (sx[:, None] * p8.wscale[None, :]).contiguous()
+
+        def run(plan):
+            return ops.sd_deconv_presplit_fused(
+                xq, p8.ws, p8.kernel, p8.stride, p8.padding, bias=p8.bias,
+                act="relu", scale=comb, plan=plan)
+    ref = run(None)
+    assert torch.equal(ref, run(A.default_plan(geom)))
+    for plan in cands:
+        out = run(plan)
+        torch.cuda.synchronize()
+        if kind == "k1_int8":
+            assert torch.equal(out, ref), plan
+        else:
+            d = (out - ref).abs().max().item()
+            assert d <= 1e-5 * max(1.0, ref.abs().max().item()), (plan, d)
+
+
+def test_pretuned_server_passes_the_phase_12_gates(dev, tmp_path,
+                                                   monkeypatch):
+    """A full-width f32 DCGAN server pretuned on the card (buckets 1-4):
+    6 geometries per layer, launches per batch matching each layer's
+    bound backend, outputs against the torch backend (1e-4 of max(1,
+    max|ref|) where every layer stayed on K1, else ``WINO_TOL[3]`` of
+    max|ref|), ``estimate_ms`` set for every bucket, and a second server
+    on the same cache measuring nothing."""
+    from repro_torch.kernels import autotune as A
+    from repro_torch.kernels import winograd as W
+    from repro_torch.launch.serve_gen import GenServer
+    from repro_torch.models.generative import GenerativeModel
+    monkeypatch.setenv("REPRO_TORCH_SD_PLAN_CACHE",
+                       str(tmp_path / "sd_plans.json"))
+    server = GenServer(nets=("dcgan",), device=dev, backend="fused",
+                       max_batch=4)
+    tuned = server.pretune(iters=1)
+    assert len(tuned) == 3 * 3 * 2
+    assert all(server.estimate_ms("dcgan", b) is not None
+               for b in server.buckets())
+    model, params = server.model("dcgan")
+    backends = [p.backend for p in model.engine.plans().values()]
+    zs = [r.latent for r in server.random_requests("dcgan", 4)]
+    before = (K.SD_FUSED_LAUNCHES, W.SD_WINO_LAUNCHES)
+    out = server.run_group("dcgan", zs)
+    torch.cuda.synchronize()
+    assert (K.SD_FUSED_LAUNCHES - before[0],
+            W.SD_WINO_LAUNCHES - before[1]) == (
+                backends.count("fused"), backends.count("winograd"))
+    with torch.no_grad():
+        ref = GenerativeModel(model.spec, "sd_kernel",
+                              engine_backend="torch",
+                              device=dev).apply(params, torch.stack(zs))
+    d = (out - ref).abs().max().item()
+    if "winograd" in backends:
+        assert d <= W.WINO_TOL[3] * ref.abs().max().item()
+    else:
+        assert d <= 1e-4 * max(1.0, ref.abs().max().item())
+    calls = []
+    real = A.measure
+    monkeypatch.setattr(A, "measure",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    GenServer(nets=("dcgan",), device=dev, backend="fused",
+              max_batch=4).pretune(iters=1)
+    assert calls == []
+
+
+def test_k4_bound_server_serves_and_trains_on_the_kernels(dev, tmp_path,
+                                                          monkeypatch):
+    """A cache whose batch-1 entries make K4 the faster algorithm on
+    every DCGAN layer (the measured tiles kept, the ms rewritten) binds
+    every layer to K4: each bucket launches the measured ``WinoPlan``,
+    a batch launches K4 three times and K1 never, the outputs are within
+    ``WINO_TOL[3]`` of the torch backend, and the generator's ``J_G^T
+    c`` runs every layer's backward on K2 and K3 within 1e-4 of the
+    torch backend in f64 (phase 12 (f))."""
+    from repro_torch.kernels import autotune as A
+    from repro_torch.kernels import winograd as W
+    from repro_torch.launch import train_gen
+    from repro_torch.launch.serve_gen import GenServer
+    from repro_torch.models.generative import GenerativeModel
+    path = str(tmp_path / "sd_plans.json")
+    monkeypatch.setenv("REPRO_TORCH_SD_PLAN_CACHE", path)
+    server = GenServer(nets=("dcgan",), device=dev, backend="fused",
+                       max_batch=4)
+    tuned = server.pretune(iters=1)
+    eng = server.model("dcgan")[0].engine
+    layers = eng.spec.deconv_layers()
+    plans = dict(A.load_cache(path))
+    for l in layers:
+        for algo, ms in (("", 1.0), ("wino", 0.5)):
+            plans[eng.layer_geom(l, 1, algo=algo).key()]["ms"] = ms
+    A.save_cache(plans, path)
+    sw = GenServer(nets=("dcgan",), device=dev, backend="fused",
+                   max_batch=4)
+    model, params = sw.model("dcgan")
+    assert {p.backend for p in model.engine.plans().values()} == \
+        {"winograd"}
+    for b in sw.buckets():
+        pb = model.engine.plans_for_batch(b)
+        for l in layers:
+            g = model.engine.layer_geom(l, b, algo="wino")
+            assert pb[l.name].tile == tuned[g.key()]
+            assert isinstance(pb[l.name].tile, A.WinoPlan)
+    zs = [r.latent for r in sw.random_requests("dcgan", 4)]
+    before = (K.SD_FUSED_LAUNCHES, W.SD_WINO_LAUNCHES)
+    out = sw.run_group("dcgan", zs)
+    torch.cuda.synchronize()
+    assert (K.SD_FUSED_LAUNCHES - before[0],
+            W.SD_WINO_LAUNCHES - before[1]) == (0, 3)
+    with torch.no_grad():
+        ref = GenerativeModel(model.spec, "sd_kernel",
+                              engine_backend="torch",
+                              device=dev).apply(params, torch.stack(zs))
+    d = (out - ref).abs().max().item()
+    assert d <= W.WINO_TOL[3] * ref.abs().max().item()
+
+    gen, disc = train_gen.make_gan(False, "sd_kernel", dev)
+    assert {gen._functional_plan(l).backend for l in layers} == {"winograd"}
+    gp = train_gen.trainable(gen.init(torch.Generator().manual_seed(0)))
+    dp = train_gen.trainable(disc.init(torch.Generator().manual_seed(1)))
+    ref_gen = GenerativeModel(gen.spec, "sd_kernel", engine_backend="torch",
+                              device=dev)
+    z = torch.randn((4, gen.spec.layers[0].cin),
+                    generator=torch.Generator().manual_seed(2)).to(dev)
+    before = (K.SD_CONV_LAUNCHES, K.SD_FILTER_GRAD_LAUNCHES)
+    errs = train_gen.grad_check(gen, ref_gen, disc, gp, dp, z)
+    torch.cuda.synchronize()
+    assert (K.SD_CONV_LAUNCHES - before[0],
+            K.SD_FILTER_GRAD_LAUNCHES - before[1]) == (3, 3)
+    assert max(errs.values()) <= 1e-4, errs
 
 
 # ---------------------------------------------------------------------------

@@ -111,9 +111,35 @@ def test_segnet_head_is_logits_and_fused_backend_matches():
 
 @pytest.mark.parametrize("flags", [["--dp", "2"], ["--pretune"],
                                    ["--mp", "2"]])
-def test_later_slices_point_to_roadmap(flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        main(["--dryrun", "--device", "cpu", *flags])
+def test_later_slices_point_to_roadmap(flags, tmp_path, monkeypatch,
+                                       capsys):
+    """``--dp``/``--mp`` point to ROADMAP.md.  ``--pretune`` is ported:
+    on the default backend (``torch`` on the CPU, no kernel) it tunes
+    nothing; on ``fused`` it times K1 and K4 on every rank-2 deconv layer
+    of the dryrun specs at every bucket before serving, writes measured
+    entries to the plan cache and sheds nothing."""
+    if flags != ["--pretune"]:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            main(["--dryrun", "--device", "cpu", *flags])
+        return
+    cache = tmp_path / "sd_plans.json"
+    monkeypatch.setenv("REPRO_TORCH_SD_PLAN_CACHE", str(cache))
+    _, stats = main(["--dryrun", "--device", "cpu", *flags])
+    assert "pretuned 0 (layer, bucket) geometries over buckets " \
+        "[1, 2, 4, 8, 16] in " in capsys.readouterr().out
+    assert stats["shed"] == 0 and not cache.exists()
+    _, stats = main(["--dryrun", "--device", "cpu", "--backend", "fused",
+                     *flags])
+    rank2 = [l for sp in reduced_specs().values()
+             for l in sp.deconv_layers() if l.rank == 2]
+    n = len(rank2) * 5 * 2            # every layer here has 2 or 3 taps
+    assert f"pretuned {n} (layer, bucket) geometries over buckets " \
+        "[1, 2, 4, 8, 16] in " in capsys.readouterr().out
+    assert stats["served"] == 8 and stats["shed"] == 0
+    plans = json.loads(cache.read_text())["plans"]
+    assert len(plans) == n
+    assert all(e["source"] == "measured" and e["backend"] == "cpu"
+               for e in plans.values())
 
 
 @pytest.mark.parametrize("case", ["serves the three reduced specs",
