@@ -218,7 +218,25 @@ Drives ``repro_torch`` only (never JAX, never the JAX package ``repro``):
    the ``torch`` backend and the all-K1 fused model to ``WINO_TOL[3]``,
    and that model's ``J_G^T c`` must run every layer's backward on K2
    and K3 within 1e-4 of the ``torch`` backend in f64; a batch of the
-   switched server is timed in turns with the pretuned one.
+   switched server is timed in turns with the pretuned one;
+13. the executor registry (``repro_torch.core.registry``): runs
+   ``registry.selfcheck`` and ``sd.selfcheck`` on the card (every impl
+   at every declared rank against ``native``, gradients, bf16, the int8
+   claim) and fails unless ``fused``, ``sd_fn`` and ``sd_kernel`` launch
+   K1, ``sd_fn``'s gradient K2 and K3, ``winograd`` K4 at ranks 1 and 2
+   and the int8 claim K1 int8; runs full-width DCGAN (batch 16) and FST
+   (256 x 256, batch 4) through ``build(net, impl)`` for every
+   registered impl on one seeded ``native`` model's weights (exact impls
+   within ``1e-4 * max(1, max|ref|)``, ``winograd`` within ``WINO_TOL`` of
+   its taps; 3 / 2 K1 launches per forward on ``fused``, ``sd_fn`` and
+   ``sd_kernel``, as many K4 on ``winograd``, none elsewhere); prints
+   Table 4's SSIM of ``sd``, ``shi`` and ``chang`` against ``native``
+   beside the paper's values (random weights here) and fails unless SD
+   >= 0.9999 > Shi, Chang on both nets; holds ``J_G^T c`` of DCGAN on
+   ``sd_fn`` to ``native`` in f64 within 1e-4 with 3 K2 and 3 K3
+   launches; and times each DCGAN layer at batch 16 on ``native``,
+   ``nzp``, ``sd``, ``sd_paper``, ``fused`` and a presplit ``sd_kernel``
+   plan in turns (device ms by ``kernels.timing.ahead_ms``).
 
 Every printed number carries the card's name and power limit.  The line
 before the last is ``{"kernels": [...]}``; the last is ``{"ok": true,
@@ -4085,6 +4103,265 @@ def _pretune_phase(dev, tag) -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the executor registry
+# ---------------------------------------------------------------------------
+
+REGISTRY_NETS = (("dcgan", BUCKET), ("fst", 4))    # (net, batch)
+PAPER_TABLE4 = {"dcgan": (1.0, 0.568, 0.534), "fst": (1.0, 0.939, 0.742)}
+SD_SSIM_GATE = 0.9999     # SD is exact; shi and chang must fall below
+REGISTRY_TIMED = ("native", "nzp", "sd", "sd_paper", "fused", "sd_kernel")
+REGISTRY_ROUNDS = 5
+# the kernels JSON's names -> phase 13's counters
+REGISTRY_KERNELS = {"sd_fused": "K1", "sd_fused_int8": "K1 int8",
+                    "sd_conv": "K2", "sd_filter_grad": "K3", "sd_wino": "K4"}
+
+
+def _launch_counts() -> dict:
+    """The port's deconv-kernel launch counters, by kernel."""
+    import repro_torch.kernels.sd_conv as K
+    import repro_torch.kernels.winograd as W
+    return {"K1": K.SD_FUSED_LAUNCHES, "K1 int8": K.SD_FUSED_INT8_LAUNCHES,
+            "K2": K.SD_CONV_LAUNCHES, "K2 int8": K.SD_CONV_INT8_LAUNCHES,
+            "K3": K.SD_FILTER_GRAD_LAUNCHES, "K4": W.SD_WINO_LAUNCHES}
+
+
+def _zero_launch_counts() -> None:
+    import repro_torch.kernels.sd_conv as K
+    import repro_torch.kernels.winograd as W
+    K.SD_FUSED_LAUNCHES = K.SD_FUSED_INT8_LAUNCHES = 0
+    K.SD_CONV_LAUNCHES = K.SD_CONV_INT8_LAUNCHES = 0
+    K.SD_FILTER_GRAD_LAUNCHES = W.SD_WINO_LAUNCHES = 0
+
+
+def _launch_txt(c: dict) -> str:
+    return ", ".join(f"{k} {v}" for k, v in c.items() if v) or "none"
+
+
+def _registry_phase(dev, tag) -> dict:
+    """Phase 13: every registered deconv impl on the card.  (a) runs
+    ``registry.selfcheck`` and ``sd.selfcheck`` on the card and checks
+    the kernel launches of each impl's checks; (b) runs full-width DCGAN
+    (batch 16) and FST (256 x 256, batch 4) through ``build(net, impl)``
+    for every impl on one seeded ``native`` model's weights, exact impls
+    within ``F32_GATE * max(1, max|ref|)`` of ``native`` and ``winograd``
+    within ``WINO_TOL`` of its tap count, with K1 / K4 launches per
+    forward; (c) the SSIM of ``sd``, ``shi`` and ``chang`` against
+    ``native`` beside the paper's Table 4; (d) ``J_G^T c`` of DCGAN on
+    ``sd_fn`` against ``native`` in f64; (e) device ms per DCGAN layer of
+    each baseline in turns.  Every failure raises."""
+    import torch
+    from repro_torch import sd
+    from repro_torch.core import registry
+    from repro_torch.core.deconv import same_deconv_pads
+    from repro_torch.core.ssim import ssim
+    from repro_torch.data.pipeline import GANLatentPipeline, cubic_weights
+    from repro_torch.kernels.winograd import WINO_TOL
+    from repro_torch.launch import train_gen
+    from repro_torch.models import DCGANDiscriminator, build
+
+    t_phase = time.perf_counter()
+    report = {}
+    torch.cuda.synchronize(dev)
+    _zero_launch_counts()
+
+    # ---- (a) the self-checks on the card --------------------------------
+    per, last = {}, [_launch_counts()]
+
+    def note(name, check):
+        torch.cuda.synchronize(dev)
+        now = _launch_counts()
+        per[(name, check)] = {k: now[k] - last[0][k] for k in now}
+        last[0] = now
+
+    t0 = time.perf_counter()
+    registry.selfcheck(device=dev, report=note)
+    t_reg = time.perf_counter() - t0
+    by_impl = {}
+    for (name, check), c in per.items():
+        tot = by_impl.setdefault(name, dict.fromkeys(c, 0))
+        for k, v in c.items():
+            tot[k] += v
+    print(f"registry: selfcheck on the card passed, {len(registry.names())} "
+          f"impls at every declared rank, grads, bf16 and int8 claims, in "
+          f"{t_reg:.1f} s host clock {tag}")
+    for name in registry.names():
+        checks = "; ".join(f"{c} {_launch_txt(v)}" for (n, c), v in
+                           per.items() if n == name and any(v.values()))
+        print(f"  {name:<10} launches: {_launch_txt(by_impl[name])}"
+              f"{' (' + checks + ')' if checks else ''}")
+    want = [(f"{n} launches K1", by_impl[n]["K1"])
+            for n in ("fused", "sd_fn", "sd_kernel")]
+    for r in (1, 2):
+        g = per[("sd_fn", f"rank {r} grad")]
+        want += [(f"sd_fn rank {r} grad launches K2", g["K2"]),
+                 (f"sd_fn rank {r} grad launches K3", g["K3"]),
+                 (f"winograd rank {r} launches K4",
+                  per[("winograd", f"rank {r}")]["K4"])]
+    want.append(("sd_kernel's int8 claim launches K1 int8",
+                 per[("sd_kernel", "int8")]["K1 int8"]))
+    missing = [what for what, n in want if n == 0]
+    if missing:
+        raise SystemExit(f"chip_smoke: registry selfcheck passed over a "
+                         f"kernel: {missing}")
+    before = _launch_counts()
+    t0 = time.perf_counter()
+    sd.selfcheck(device=dev)
+    torch.cuda.synchronize(dev)
+    after = _launch_counts()
+    sd_counts = {k: after[k] - before[k] for k in after}
+    print(f"sd: selfcheck on the card passed (forward, dx/dw/db, a bound "
+          f"plan, the split's inverse, ranks 1 and 3 with output_padding) "
+          f"in {time.perf_counter() - t0:.1f} s host clock; launches "
+          f"{_launch_txt(sd_counts)} {tag}")
+    if not (sd_counts["K1"] and sd_counts["K2"] and sd_counts["K3"]):
+        raise SystemExit("chip_smoke: sd.selfcheck did not run K1, K2 and "
+                         "K3")
+    report["selfcheck"] = {"launches": {f"{n} / {c}": v
+                                        for (n, c), v in per.items()},
+                           "sd_launches": sd_counts}
+
+    # ---- (b) full width, every impl; (c) Table 4 -------------------------
+    kernel_of = {"fused": "K1", "sd_fn": "K1", "sd_kernel": "K1",
+                 "winograd": "K4"}
+    report["nets"] = {}
+    for net, batch in REGISTRY_NETS:
+        ref_m = build(net, "native", device=dev)
+        params = ref_m.init(torch.Generator().manual_seed(SEED))
+        gen = torch.Generator().manual_seed(SEED + 1)
+        if net == "dcgan":
+            x = torch.randn(ref_m.input_shape(batch), generator=gen)
+        else:   # a smooth content image, as the reference's Table 4 feeds
+            low = torch.randn(batch, 16, 16, 3, generator=gen)
+            wc = torch.from_numpy(cubic_weights(16, 256))
+            x = torch.tanh(torch.einsum("bhwc,hy,wx->byxc", low, wc, wc))
+        x = x.to(dev)
+        with torch.no_grad():
+            ref = ref_m.apply(params, x)
+        torch.cuda.synchronize(dev)
+        ndc = len(ref_m.spec.deconv_layers())
+        kt = max(-(-l.k // l.s) for l in ref_m.spec.deconv_layers())
+        print(f"registry: full-width {net} {tuple(x.shape)} -> "
+              f"{tuple(ref.shape)} through build({net!r}, impl) for every "
+              f"impl, weights of one seeded native model; exact impls within "
+              f"{F32_GATE}*max(1,max|ref|) of native (TF32 off), winograd "
+              f"within WINO_TOL[{kt}] = {WINO_TOL[kt]}*max(1,max|ref|) "
+              f"{tag}")
+        outs, rows = {}, {}
+        for impl in registry.names():
+            info = registry.get_impl(impl)
+            m = build(net, impl, device=dev)
+            torch.cuda.synchronize(dev)
+            c0 = _launch_counts()
+            with torch.no_grad():
+                y = m.apply(params, x)
+            torch.cuda.synchronize(dev)
+            c1 = _launch_counts()
+            counts = {k: c1[k] - c0[k] for k in c1}
+            d, tol = _gate_err(y, ref, WINO_TOL[kt] if info.tolerance
+                               else F32_GATE, True)
+            launch_ok = counts == {k: (ndc if k == kernel_of.get(impl)
+                                       else 0) for k in counts}
+            finite = bool(torch.isfinite(y).all())
+            gated = info.exact or bool(info.tolerance)
+            ok = (finite and launch_ok and y.shape == ref.shape
+                  and (d <= tol or not gated))
+            print(f"  {net}/{impl:<10} max|d| {d:.3e} "
+                  f"{'tol ' + format(tol, '.3e') if gated else '(not exact)'}"
+                  f", launches per forward {_launch_txt(counts)} "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"chip_smoke: {net} on {impl} is wrong or "
+                                 f"left its kernels ({counts})")
+            outs[impl] = y
+            rows[impl] = {"max_abs_err": d, "tol": tol if gated else None,
+                          "launches": counts}
+        vals = {i: ssim(ref, outs[i], data_range=2.0).item()
+                for i in ("sd", "shi", "chang")}
+        paper = PAPER_TABLE4[net]
+        ok = (vals["sd"] >= SD_SSIM_GATE and vals["shi"] < SD_SSIM_GATE
+              and vals["chang"] < SD_SSIM_GATE)
+        print(f"table 4: {net} SSIM against native (data_range 2.0): SD "
+              f"{vals['sd']:.6f}, Shi [30] {vals['shi']:.6f}, Chang [31] "
+              f"{vals['chang']:.6f}; paper {paper[0]} / {paper[1]} / "
+              f"{paper[2]} on trained weights (these are random, seed "
+              f"{SEED}); gate SD >= {SD_SSIM_GATE} > Shi, Chang "
+              f"{'ok' if ok else 'FAIL'} {tag}")
+        if not ok:
+            raise SystemExit(f"chip_smoke: Table 4's ordering fails on {net}")
+        report["nets"][net] = {"impls": rows, "ssim": vals}
+        del outs
+
+    # ---- (d) J_G^T c through sd_fn --------------------------------------
+    gen_m = build("dcgan", "sd_fn", device=dev)
+    ref_g = build("dcgan", "native", device=dev)
+    disc = DCGANDiscriminator((64, 64), device=dev)
+    gp = train_gen.trainable(gen_m.init(torch.Generator().manual_seed(SEED)))
+    dp = train_gen.trainable(disc.init(
+        torch.Generator().manual_seed(SEED + 1)))
+    z0 = GANLatentPipeline(z_dim=gen_m.spec.layers[0].cin,
+                           global_batch=BUCKET, seed=SEED).batch(0).to(dev)
+    torch.cuda.synchronize(dev)
+    c0 = _launch_counts()
+    errs = train_gen.grad_check(gen_m, ref_g, disc, gp, dp, z0)
+    torch.cuda.synchronize(dev)
+    c1 = _launch_counts()
+    g_counts = {k: c1[k] - c0[k] for k in ("K1", "K2", "K3")}
+    worst = max(errs.values())
+    ok = worst <= F32_GATE and g_counts == {"K1": 3, "K2": 3, "K3": 3}
+    print(f"registry grads: J_G^T c of full-width DCGAN at batch {BUCKET} "
+          f"through build('dcgan', 'sd_fn'), f32, against native in f64: "
+          f"worst leaf max|d|/max|ref| {worst:.3e} ({max(errs, key=errs.get)}"
+          f"), gate {F32_GATE}; launches {g_counts} (want 3 each) "
+          f"{'ok' if ok else 'FAIL'} {tag}")
+    if not ok:
+        raise SystemExit("chip_smoke: sd_fn's gradient is wrong or left "
+                         "K2/K3")
+    report["grads"] = {"worst": worst, "launches": g_counts}
+    torch.cuda.synchronize(dev)
+    report["launches"] = _launch_counts()
+
+    # ---- (e) the paper's comparison per DCGAN layer, in turns ----------
+    from repro_torch.core.accounting import BENCHMARKS
+    print(f"time: DCGAN layers at batch {BUCKET}, f32, each registered "
+          f"baseline in turns (median of {REGISTRY_ROUNDS} rounds of "
+          f"kernels.timing.ahead_ms, device ms of one call; fused splits "
+          f"inline every call, sd_kernel is a presplit bound plan); not a "
+          f"claim {tag}")
+    timing = {}
+    rng = torch.Generator().manual_seed(SEED + 2)
+    for l in BENCHMARKS["dcgan"]().deconv_layers():
+        pads = same_deconv_pads(l.k, l.s)
+        x = torch.randn(BUCKET, *l.in_hw, l.cin, generator=rng).to(dev)
+        w = (torch.randn(l.k, l.k, l.cin, l.cout, generator=rng)
+             / (l.k * l.k * l.cin) ** 0.5).to(dev)
+        bound = sd.plan(w.shape, l.s, pads, backend="fused",
+                        device=dev).bind(w)
+        fns = {i: (lambda f=registry.resolve(i): f(x, w, l.s, pads))
+               for i in REGISTRY_TIMED if i != "sd_kernel"}
+        fns["sd_kernel"] = lambda: sd.execute(bound, x)
+        runs = {i: [] for i in fns}
+        with torch.no_grad():
+            ref = fns["native"]()
+            for i, f in fns.items():
+                d, tol = _gate_err(f(), ref, F32_GATE, True)
+                if d > tol:
+                    raise SystemExit(f"chip_smoke: {i} on dcgan/{l.name} "
+                                     f"differs from native ({d:.3e})")
+            for r in range(REGISTRY_ROUNDS):
+                for i in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+                    runs[i].append(_ahead_ms(fns[i]))
+        med = {i: sorted(v)[len(v) // 2] for i, v in runs.items()}
+        timing[l.name] = med
+        print(f"  dcgan/{l.name} {tuple(x.shape)}: "
+              + " / ".join(f"{i} {med[i]:.4f}" for i in fns)
+              + f" ms; sm clock, power, temperature {_clocks()} {tag}")
+    report["time_ms"] = timing
+    report["phase_s"] = time.perf_counter() - t_phase
+    print(f"registry phase: {report['phase_s']:.1f} s host clock {tag}")
+    return report
+
+
 def main(json_path: str = "") -> int:
     t_start = time.perf_counter()
     sys.stdout.reconfigure(line_buffering=True)   # a cut run keeps its log
@@ -4110,7 +4387,7 @@ def main(json_path: str = "") -> int:
 
 
 def _smoke(json_path: str, t_start: float) -> int:
-    """Phases 1-12 (see the module doc) and the final two lines."""
+    """Phases 1-13 (see the module doc) and the final two lines."""
     import torch
     sys.path.insert(0, os.path.join(HERE, "src"))
     import torch.nn.functional as F
@@ -4531,6 +4808,10 @@ def _smoke(json_path: str, t_start: float) -> int:
     # ---- 12. measured tiles and the per-layer algorithm -----------------
     pre = _pretune_phase(dev, tag)
 
+    # ---- 13. the executor registry: every registered impl ---------------
+    torch.cuda.empty_cache()
+    reg = _registry_phase(dev, tag)
+
     if "jax" in sys.modules or "repro" in sys.modules:
         raise SystemExit("chip_smoke: JAX or the JAX package was imported")
     total = {k: sum(r[k] for r in per_layer)
@@ -4581,6 +4862,10 @@ def _smoke(json_path: str, t_start: float) -> int:
         if name in ("sd_conv", "sd_filter_grad"):
             k["launches_switched_train"] = pre["switch"]["train_launches"][
                 "K2" if name == "sd_conv" else "K3"]
+        if name in REGISTRY_KERNELS:
+            # phase 13 (a)-(d): the self-checks, every impl at full width
+            # and sd_fn's J_G^T c
+            k["launches_registry"] = reg["launches"][REGISTRY_KERNELS[name]]
         if k["name"] in ("sd_conv", "sd_filter_grad", "sd_wino"):
             k["sass_hmma_tf32"] = sass[k["name"]]["HMMA_TF32"]
         if k["name"] == "sd_conv":
@@ -4607,7 +4892,7 @@ def _smoke(json_path: str, t_start: float) -> int:
               "nd": {k: v for k, v in nd.items() if k != "kernel"},
               "chain": {k: v for k, v in chain.items() if k != "record"},
               "lm": lm["report"], "wavegan": wave["report"],
-              "pretune": pre,
+              "pretune": pre, "registry": reg,
               "serve": {k: stats[k] for k in
                         ("served", "launches", "req_per_s", "wall_s",
                          "latency_ms")},
@@ -4656,7 +4941,10 @@ def _smoke(json_path: str, t_start: float) -> int:
           f"launches_pretuned_calibrated in the pretuned calibrated int8 "
           f"server's (K1 int8), launches_switched in the serving run of the "
           f"server whose cache binds layers to K4 (K1, K4) and "
-          f"launches_switched_train in its J_G^T c (K2, K3)) {tag}")
+          f"launches_switched_train in its J_G^T c (K2, K3); phase 13: "
+          f"launches_registry counted over its self-checks, every impl at "
+          f"full width and sd_fn's J_G^T c (K1, K1 int8, K2, K3, K4)) "
+          f"{tag}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,7 +20,10 @@ and SD computes it as one grouped stride-1 conv of the ``P_I``-padded
 input with ``prod(s)`` split sub-filters (``split_filters``), a
 pixel-shuffle (``depth_to_space``) and a contiguous crop of ``P_K`` +
 user padding (``crop_interleaved``).  See the reference module for the
-derivation.
+derivation.  :func:`nzp_deconv` (the naive zero-padding lowering) and
+:func:`sd_deconv_paper` (Algorithm 2's separate per-phase convs) are the
+baselines the paper measures SD against; both run their convs through
+:func:`conv_valid`.
 """
 
 from __future__ import annotations
@@ -219,6 +222,41 @@ def native_deconv(x: torch.Tensor, w: torch.Tensor, stride,
     return crop_interleaved(full, (0,) * rank, pads, out_space)
 
 
+def dilate_input(x: torch.Tensor, stride) -> torch.Tensor:
+    """Insert (s-1) zeros between spatial elements: the NZP
+    materialisation."""
+    rank = x.ndim - 2
+    s = _ntuple(stride, rank)
+    space = x.shape[1:1 + rank]
+    out = x.new_zeros((x.shape[0], *[(n - 1) * si + 1
+                                     for n, si in zip(space, s)],
+                       x.shape[-1]))
+    out[(slice(None),) + tuple(slice(None, None, si) for si in s)] = x
+    return out
+
+
+def nzp_deconv(x: torch.Tensor, w: torch.Tensor, stride,
+               padding=0, output_padding=0) -> torch.Tensor:
+    """Naive Zero Padding baseline: materialised dilation, then one
+    stride-1 conv of the 180-degree-rotated filter, any rank.
+
+    Equal to :func:`native_deconv`, but it does the full redundant work
+    the paper measures (Table 2, 'Naive Zero-padding'): about ``prod(s)``
+    times the MACs, most of them on the inserted zeros."""
+    rank = w.ndim - 2
+    s = _ntuple(stride, rank)
+    k = tuple(w.shape[:rank])
+    pads = _pads_nd(padding, rank)
+    op = _ntuple(output_padding, rank)
+    _check_padding(k, padding)
+    _check_output_padding(op, s)
+    pad = [0, 0]                         # F.pad lists dims last-first
+    for ki, (lo, hi), opi in reversed(list(zip(k, pads, op))):
+        pad += [ki - 1 - lo, ki - 1 - hi + opi]
+    xp = F.pad(dilate_input(x, s), pad)
+    return conv_valid(xp, w.flip(tuple(range(rank))))
+
+
 # ---------------------------------------------------------------------------
 # Split Deconvolution
 # ---------------------------------------------------------------------------
@@ -368,6 +406,28 @@ def sd_deconv(x: torch.Tensor, w: torch.Tensor, stride,
     rank = w.ndim - 2
     return sd_deconv_presplit(x, split_filters(w, stride), w.shape[:rank],
                               stride, padding, conv_fn, output_padding)
+
+
+def sd_deconv_paper(x: torch.Tensor, w: torch.Tensor, stride,
+                    padding=0) -> torch.Tensor:
+    """Paper-faithful SD (Algorithm 2), 2-D: ``sh*sw`` *separate
+    sequential* small convolutions of the ``P_I``-padded input, one per
+    sub-filter, whose outputs are concatenated n-major (sub-filter ``n``
+    is the channel slice ``[n*Cout, (n+1)*Cout)`` of :func:`split_filters`),
+    interleaved and cropped.  Equal to :func:`sd_deconv`, which runs the
+    same sub-filters as one grouped conv."""
+    s = _ntuple(stride, 2)
+    kernel = tuple(w.shape[:2])
+    pads = _pads_nd(padding, 2)
+    _check_padding(kernel, padding)
+    _, pk, pi = sd_geometry(kernel, s)
+    out_space = deconv_output_shape(x.shape[1:3], kernel, s, padding)
+    ws = split_filters(w, s)
+    cout = w.shape[3]
+    xp = F.pad(x, (0, 0, pi[1], pi[1], pi[0], pi[0]))
+    y = torch.cat([conv_valid(xp, ws[..., n * cout:(n + 1) * cout])
+                   for n in range(s[0] * s[1])], dim=-1)
+    return crop_interleaved(depth_to_space(y, s), pk, pads, out_space)
 
 
 # ---------------------------------------------------------------------------

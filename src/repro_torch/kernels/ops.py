@@ -21,6 +21,9 @@ operands), the taps summed outside the kernel, then ``depth_to_space``
 and the epilogue in stock torch ops (for a chained int8 layer, the
 requantization too, as the reference's lowering does it in XLA ops).
 
+:func:`sd_deconv_kernel` is the registry's ``fused`` impl: the split
+inline, then one :func:`sd_deconv_presplit_fused` launch.
+
 :func:`sd_input_grad_fused` and :func:`sd_filter_grad_fused` are the SD
 backward's two convolutions on K2 and K3 (see :mod:`repro_torch.sd.grad`).
 """
@@ -34,7 +37,7 @@ import torch
 from repro_torch.core.deconv import (_check_output_padding, _check_padding,
                                      _ntuple, _pads_nd, crop_interleaved,
                                      deconv_output_shape, depth_to_space,
-                                     sd_geometry)
+                                     sd_geometry, split_filters)
 from repro_torch.kernels.autotune import GemmPlan, WinoPlan
 from repro_torch.kernels.sd_conv import (_apply_act, check_no_grad,
                                          quant_contract, requantize, sd_conv,
@@ -237,6 +240,26 @@ def sd_deconv_presplit_fused_3d(x: torch.Tensor, ws_nmajor: torch.Tensor,
     if qdtype == torch.int8:
         return requantize(out)
     return out.to(qdtype or x.dtype)
+
+
+def sd_deconv_kernel(x: torch.Tensor, w: torch.Tensor, stride,
+                     padding=0, *, bias: Optional[torch.Tensor] = None,
+                     act: str = "linear",
+                     plan: Optional[GemmPlan] = None) -> torch.Tensor:
+    """Full 2-D SD transposed conv through K1 (reference:
+    ``ops.sd_deconv_kernel``), the same function as
+    :func:`~repro_torch.core.deconv.sd_deconv`: splits ``w`` inline,
+    relays the split filters to oc-major and runs
+    :func:`sd_deconv_presplit_fused` (K1 on a CUDA tensor, its plain
+    version on the CPU).  Deployments split once and keep the bound plan
+    (:class:`~repro_torch.engine.SDEngine`); this form re-splits on every
+    call.  Inference only: on the card K1's output carries no graph, and
+    an operand that requires grad under grad mode raises."""
+    from repro_torch.sd.plan import to_ocmajor
+    s = _ntuple(stride, 2)
+    ws = to_ocmajor(split_filters(w, s), s)
+    return sd_deconv_presplit_fused(x, ws, tuple(w.shape[:2]), s, padding,
+                                    bias=bias, act=act, plan=plan)
 
 
 # ---------------------------------------------------------------------------

@@ -11,7 +11,9 @@ Two entry points:
   :class:`~repro_torch.models.DCGANDiscriminator` on synthetic smooth
   images, non-saturating BCE, AdamW (lr 2e-4, b1 0.5, no weight decay).
 
-With ``--deconv-impl sd_kernel`` on the card the generator's deconvs run
+``--deconv-impl`` takes every registered impl that is trainable and
+exact (:func:`train_choices`: native, nzp, sd, sd_fn, sd_kernel,
+sd_paper).  With ``--deconv-impl sd_kernel`` on the card the generator's deconvs run
 the differentiable ``sd.conv_transpose`` on the fused backend: K1 in the
 forward, K2 (input grad) and K3 (filter grad) in the backward.  The
 discriminator step samples the generator without autograd, through the
@@ -30,6 +32,7 @@ from typing import Callable, Dict, List, Tuple
 
 import torch
 
+from repro_torch.core import registry
 from repro_torch.core.accounting import LayerSpec, NetworkSpec
 from repro_torch.data import GANLatentPipeline
 from repro_torch.device import resolve_device
@@ -227,6 +230,13 @@ def make_gan(small: bool, deconv_impl: str, device):
             DCGANDiscriminator((64, 64), device=device))
 
 
+def train_choices() -> List[str]:
+    """The impls ``--deconv-impl`` offers: trainable and exact, the
+    reference's rule (``examples/train_dcgan.py``)."""
+    return sorted(set(registry.trainable_names())
+                  & set(registry.exact_names()))
+
+
 def main(argv=None) -> Tuple[List[float], List[float]]:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=200)
@@ -234,7 +244,7 @@ def main(argv=None) -> Tuple[List[float], List[float]]:
     ap.add_argument("--small", action="store_true",
                     help="the small DCGAN (4x4 -> 16x16) and discriminator")
     ap.add_argument("--deconv-impl", "--deconv", dest="deconv",
-                    default="sd", choices=("native", "sd", "sd_kernel"))
+                    default="sd", choices=train_choices())
     ap.add_argument("--grad-check", action="store_true",
                     help="before training, check the generator's grads "
                     "J_G^T c through --deconv-impl against the native "

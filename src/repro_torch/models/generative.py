@@ -1,25 +1,31 @@
 """The paper's generative networks as a PyTorch module.
 
 Every network is built from its ``NetworkSpec``.  The deconv
-implementation is chosen by name from :data:`IMPLS`:
+implementation is chosen by name and resolved through the executor
+registry (:mod:`repro_torch.core.registry`), as in the reference:
+``registry.names()`` lists every impl (``native``, ``nzp``, ``sd``,
+``sd_paper``, ``sd_fn``, ``sd_kernel``, ``fused``, ``winograd``,
+``shi``, ``chang``), and an unknown name raises the registry's
+``ValueError`` with the nearest name and the capability catalog.  A
+plain executor (every impl but the engine one) is called per layer as
+``fn(h, w, s, pads)`` with the layer's SAME or explicit pads, then scale
+and bias.
 
-* ``native``    — ``F.conv_transpose2d`` (:func:`native_deconv`),
-* ``sd``        — split deconvolution, filters split on every call,
-* ``sd_kernel`` — the presplit-once engine (:class:`SDEngine`): filters
-  are split and BN-folded once at bind, and every forward runs the
-  fused kernel K1 (``engine_backend="fused"``; for a 1-D net as an H=1
-  launch, for a 3-D net one K2 launch per depth tap), the Winograd
-  kernel K4 (``"winograd"``) or the grouped-conv ``torch`` backend, with
-  bias and activation in the epilogue; ``engine_dtype="int8"`` binds int8 plans
-  (the dynamic int8 path, K1's int8 branch on ``fused``), and
-  :meth:`GenerativeModel.calibrate` turns them into the calibrated chain
-  (static activation scales, int8 between consecutive deconvs).  When
-  autograd is recording and any param leaf or the input requires grad, each
-  deconv instead runs the differentiable
-  :func:`repro_torch.sd.conv_transpose` on the engine's backend (on
-  ``fused``: K1 forward, K2 + K3 backward) with float plans, scale and
-  bias applied outside, as the reference does for traced params (an int8
-  engine trains in float).
+The engine impl (``sd_kernel``, ``info.engine``) runs the presplit-once
+:class:`SDEngine`: filters are split and BN-folded once at bind, and
+every forward runs the fused kernel K1 (``engine_backend="fused"``; for
+a 1-D net as an H=1 launch, for a 3-D net one K2 launch per depth tap),
+the Winograd kernel K4 (``"winograd"``) or the grouped-conv ``torch``
+backend, with bias and activation in the epilogue;
+``engine_dtype="int8"`` binds int8 plans (the dynamic int8 path, K1's
+int8 branch on ``fused``), and :meth:`GenerativeModel.calibrate` turns
+them into the calibrated chain (static activation scales, int8 between
+consecutive deconvs).  When autograd is recording and any param leaf or
+the input requires grad, each deconv instead runs the differentiable
+:func:`repro_torch.sd.conv_transpose` on the engine's backend (on
+``fused``: K1 forward, K2 + K3 backward) with float plans, scale and
+bias applied outside, as the reference does for traced params (an int8
+engine trains in float).
 
 Parameters stay a plain dict in the reference's layout (fc ``(in, out)``,
 filters ``(*K, Cin, Cout)``, per-channel ``scale``/``b``), so weights
@@ -29,28 +35,20 @@ carry across from the JAX package unchanged (:mod:`repro_torch.convert`).
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 from torch import nn
 
+from repro_torch.core import registry
 from repro_torch.core.accounting import WORKLOADS, NetworkSpec
-from repro_torch.core.deconv import (conv_nd, native_deconv,
-                                     same_deconv_pads, sd_deconv)
+from repro_torch.core.deconv import conv_nd, same_deconv_pads
 from repro_torch.core.quant import amax_stat, save_calib, scale_from_amax
 from repro_torch.device import resolve_device
 from repro_torch.engine.planner import SDEngine
 from repro_torch.sd import DeconvPlan, conv_transpose, execute
 
 Params = Dict[str, Any]
-
-# name -> plain deconv executor (None: the engine)
-IMPLS: Dict[str, Optional[Callable]] = {
-    "native": native_deconv,
-    "sd": sd_deconv,
-    "sd_kernel": None,
-}
-
 
 class GenerativeModel(nn.Module):
     """Spec-driven generator/decoder network.  ``forward(params, x)``."""
@@ -60,22 +58,20 @@ class GenerativeModel(nn.Module):
                  engine_backend: str = "auto", device=None,
                  engine_dtype: str = "native"):
         super().__init__()
-        if deconv_impl not in IMPLS:
-            raise ValueError(f"unknown deconv impl {deconv_impl!r}; "
-                             f"choose from {sorted(IMPLS)}")
-        if engine_dtype != "native" and IMPLS[deconv_impl] is not None:
-            raise ValueError(f"engine_dtype={engine_dtype!r} needs the "
-                             f"engine impl 'sd_kernel'; {deconv_impl!r} is "
-                             "a plain executor")
+        info = registry.get_impl(deconv_impl)
+        if engine_dtype != "native" and not info.engine:
+            raise ValueError(f"engine_dtype={engine_dtype!r} needs an "
+                             f"engine impl (e.g. 'sd_kernel'); "
+                             f"{deconv_impl!r} is a plain executor")
         self.spec = spec
         self.deconv_impl = deconv_impl
         self.device = resolve_device(device)
         self.final_tanh = spec.final_tanh if final_tanh is None \
             else final_tanh
-        self._deconv = IMPLS[deconv_impl]
+        self._deconv = None if info.engine else info.fn
         self._engine = (SDEngine(spec, backend=engine_backend,
                                  device=self.device, dtype=engine_dtype)
-                        if self._deconv is None else None)
+                        if info.engine else None)
         self._fplans: Dict[str, DeconvPlan] = {}   # differentiable path
 
     # ---- params ----------------------------------------------------------
@@ -258,7 +254,8 @@ def build(name: str, deconv_impl: str = "sd", engine_backend: str = "auto",
           device=None) -> GenerativeModel:
     """Factory over :data:`~repro_torch.core.accounting.WORKLOADS` (the
     paper's six networks plus the N-D workloads): ``build("dcgan",
-    "sd_kernel", device="cuda")``.  Every net runs on every backend it
+    "sd_kernel", device="cuda")``; ``deconv_impl`` is any name of
+    :func:`repro_torch.core.registry.names`.  Every net runs on every backend it
     fits: rank 1 (``wavegan``) takes K1 and its K2 + K3 backward as H=1
     launches on ``fused``; ``winograd`` refuses a layer of more than 5
     taps (full WaveGAN's k25/s4 has 7) with the reference's

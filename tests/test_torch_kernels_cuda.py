@@ -51,7 +51,10 @@ backend.  Measured tiles: ``autotune.measure`` reads device time below
 the host's time per call; every candidate tile of DCGAN d1's K1, K1 int8
 and K4 at batches 1 and 16 matches the default plan (f32 within 1e-5 of
 max(1, max|ref|), int8 bit for bit); a pretuned DCGAN server passes
-chip_smoke phase 12's gates.
+chip_smoke phase 12's gates.  The executor registry: ``selfcheck`` on
+the card launches K1, K2, K3, K4 and K1 int8 where the impls claim them
+(chip_smoke phase 13 (a)); ``fused`` and ``winograd`` match ``native``
+at DCGAN d1's shape; the plan cache keeps CPU and card plans apart.
 """
 
 import pytest
@@ -1579,3 +1582,92 @@ def test_lm_prefill_through_k5_matches_the_scan(dev, monkeypatch):
         assert FA.FLASH_ATTN_LAUNCHES - before == cfg.n_layers
     assert (out - ref).abs().max().item() <= 1e-4 * max(
         1.0, ref.abs().max().item())
+
+
+# ---------------------------------------------------------------------------
+# The executor registry (chip_smoke phase 13)
+# ---------------------------------------------------------------------------
+
+def _counts():
+    import repro_torch.kernels.winograd as W
+    return {"K1": K.SD_FUSED_LAUNCHES, "K1 int8": K.SD_FUSED_INT8_LAUNCHES,
+            "K2": K.SD_CONV_LAUNCHES, "K3": K.SD_FILTER_GRAD_LAUNCHES,
+            "K4": W.SD_WINO_LAUNCHES}
+
+
+def test_registry_selfcheck_launches_the_kernels(dev):
+    """``registry.selfcheck`` and ``sd.selfcheck`` pass on the card, and
+    no kernel is passed over: ``fused``, ``sd_fn`` and ``sd_kernel``
+    launch K1, ``sd_fn``'s gradient K2 and K3, ``winograd`` K4 at ranks 1
+    and 2, and the int8 claim K1 int8."""
+    from repro_torch.core import registry
+    per, last = {}, [_counts()]
+
+    def note(name, check):
+        torch.cuda.synchronize()
+        now = _counts()
+        per[(name, check)] = {k: now[k] - last[0][k] for k in now}
+        last[0] = now
+
+    registry.selfcheck(device=dev, report=note)
+    for name in ("fused", "sd_fn", "sd_kernel"):
+        assert per[(name, "rank 2")]["K1"] == 1, name
+    for r in (1, 2):
+        assert per[("sd_fn", f"rank {r} grad")]["K2"] >= 1
+        assert per[("sd_fn", f"rank {r} grad")]["K3"] >= 1
+        assert per[("winograd", f"rank {r}")]["K4"] == 1
+    assert per[("sd_kernel", "int8")]["K1 int8"] == 1
+    for name in ("native", "nzp", "sd", "sd_paper", "shi", "chang"):
+        assert not any(v for (n, _), c in per.items() if n == name
+                       for v in c.values()), name
+    before = _counts()
+    sd.selfcheck(device=dev)
+    torch.cuda.synchronize()
+    after = _counts()
+    assert all(after[k] > before[k] for k in ("K1", "K2", "K3"))
+
+
+@pytest.mark.parametrize("impl", ["fused", "winograd"])
+def test_fused_and_winograd_match_native_at_dcgan_d1(dev, impl):
+    """DCGAN d1 at batch 16 through the registry: ``fused`` (K1, split
+    inline) within 1e-4 * max(1, max|ref|) of ``native``, ``winograd``
+    (K4) within ``WINO_TOL[3]`` of it, one launch each."""
+    from repro_torch.core import registry
+    from repro_torch.kernels.winograd import WINO_TOL
+    l = BENCHMARKS["dcgan"]().deconv_layers()[0]
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(16, *l.in_hw, l.cin, generator=g).to(dev)
+    w = (torch.randn(l.k, l.k, l.cin, l.cout, generator=g)
+         / (l.k * l.k * l.cin) ** 0.5).to(dev)
+    pads = same_deconv_pads(l.k, l.s)
+    with torch.no_grad():
+        ref = registry.resolve("native")(x, w, l.s, pads)
+        before = _counts()
+        out = registry.resolve(impl)(x, w, l.s, pads)
+        torch.cuda.synchronize()
+    after = _counts()
+    kern = "K1" if impl == "fused" else "K4"
+    assert {k: after[k] - before[k] for k in after} == {
+        k: int(k == kern) for k in after}
+    tol = (1e-4 if impl == "fused" else WINO_TOL[3]) * max(
+        1.0, ref.abs().max().item())
+    assert out.shape == ref.shape
+    assert (out - ref).abs().max().item() <= tol
+
+
+def test_plan_cache_keeps_cpu_and_card_plans_apart(dev):
+    """A plan made for a CPU call never serves a CUDA call: ``"auto"``
+    resolves to ``torch`` for one and ``fused`` for the other."""
+    from repro_torch.sd import compat
+    compat.clear_plan_cache()
+    p_cpu = compat.plan_for((4, 4, 3, 2), 2, 1, device="cpu")
+    p_cuda = compat.plan_for((4, 4, 3, 2), 2, 1, device=dev)
+    assert p_cpu is not p_cuda
+    assert (p_cpu.backend, p_cuda.backend) == ("torch", "fused")
+    x, w = torch.randn(1, 5, 6, 3, device=dev), torch.randn(4, 4, 3, 2,
+                                                           device=dev)
+    before = K.SD_FUSED_LAUNCHES
+    with torch.no_grad():
+        sd.functional_deconv(x, w, 2, 1)
+    assert K.SD_FUSED_LAUNCHES == before + 1
+    compat.clear_plan_cache()

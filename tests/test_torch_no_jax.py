@@ -12,7 +12,10 @@ the CPU, serves the reduced StableLM-2-12B through the LM server
 ``models/lm.py`` import too) and imports ``chip_smoke`` (without running
 it); and without
 CUDA the port's default device raises instead of falling back to the
-CPU.
+CPU.  A second interpreter, with the same two blocked, imports the
+executor registry, the wrong baselines and ``sd.compat``, runs every
+registered impl once on the CPU and ``examples/quickstart_torch.py
+--device cpu``.
 """
 
 import os
@@ -79,10 +82,47 @@ def test_port_runs_with_jax_unimportable(tmp_path):
     assert (tmp_path / "sd_calib.json").exists()
 
 
+REGISTRY_CODE = """
+import sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+import runpy
+import torch
+from repro_torch.core import registry, wrong_baselines
+from repro_torch.sd import compat
+x, w = torch.randn(1, 5, 6, 3), torch.randn(5, 5, 3, 2)
+ref = registry.resolve("native")(x, w, 2, 2)
+for name in registry.names():
+    y = registry.resolve(name)(x, w, 2, 2)
+    assert y.shape == ref.shape and bool(torch.isfinite(y).all()), name
+    print("ran", name)
+sys.argv = ["quickstart_torch.py", "--device", "cpu"]
+runpy.run_path({quickstart!r}, run_name="__main__")
+bad = sorted(m for m in sys.modules
+             if (m == "jax" or m.startswith("jax.") or m == "repro"
+                 or m.startswith("repro.")) and sys.modules[m] is not None)
+assert not bad, bad
+print("NO_JAX_OK")
+"""
+
+
+def test_registry_and_quickstart_run_with_jax_unimportable():
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    code = REGISTRY_CODE.format(quickstart=os.path.join(
+        REPO, "examples", "quickstart_torch.py"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=REPO, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.count("ran ") == 10, out.stdout
+    assert "SD output == native: True" in out.stdout
+    assert "NO_JAX_OK" in out.stdout
+
+
 def test_sources_import_nothing_of_jax():
     pat = re.compile(r"^\s*(import jax|from jax|import repro(\.|$| )"
                      r"|from repro(\.| ))")
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "examples", "quickstart_torch.py")]
     for root, _, names in os.walk(os.path.join(REPO, "src", "repro_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     hits = [f"{f}:{i}" for f in files
