@@ -236,7 +236,31 @@ Drives ``repro_torch`` only (never JAX, never the JAX package ``repro``):
    ``sd_fn`` to ``native`` in f64 within 1e-4 with 3 K2 and 3 K3
    launches; and times each DCGAN layer at batch 16 on ``native``,
    ``nzp``, ``sd``, ``sd_paper``, ``fused`` and a presplit ``sd_kernel``
-   plan in turns (device ms by ``kernels.timing.ahead_ms``).
+   plan in turns (device ms by ``kernels.timing.ahead_ms``);
+14. scale-out (``repro_torch.launch.mesh``, ``repro_torch.distributed``):
+   spawns gloo ranks that share the card (one process per rank, a
+   deadline on each spawn and a timeout on every collective; a failed or
+   late rank fails the script), the kernels built once above.  Two ranks
+   as dp1 x mp2: (a) ``sd.execute_spmd`` of the reference's Cout-shard
+   parity cases (2-D at stride 2 and 3, 1-D, 3-D, int8; ``torch``,
+   ``fused`` and ``winograd``) and full-width DCGAN d1/d2 at batch 16 on
+   K1, K1 int8 and K4, against the unsharded plan on the same card (f32
+   within ``1e-5 * max(1, max|ref|)``, int8 bit-identical), each with its
+   launches per rank (one per shard; one K2 or K2-int8 launch per depth
+   tap at rank 3), and K1's device ms on d1 whole and on one Cout block
+   beside the host ms of the gather of d1's output; (b) 48 full-width
+   DCGAN requests through ``GenServer(mp=2)`` in f32 on ``fused``
+   (pretuned on the mesh at bucket 16, so ``estimate_ms`` is set), in
+   calibrated int8 and on ``winograd``, against the one-process server
+   (f32 ``1e-4``, int8 bit for bit), 3 launches per batch per rank, the
+   cell key's ``dp1xmp2``, no new cell after ``swap_checkpoint``; (c) one
+   sharded SGD step of full-width DCGAN at mp 2 and at dp 2 against
+   ``make_train_step`` (loss ``1e-5`` relative, params ``1e-4``; 3 K1, 3
+   K2, 3 K3 per rank) and the gradients, read as ``(p - new)/lr`` from a
+   step at lr ``1e6``, each rank's block of every leaf within ``1e-4`` of
+   the leaf's largest reference gradient.  Four ranks as dp2 x mp2 run (b)'s f32 and
+   calibrated int8 servers.  Every time printed there is gloo's host copy
+   on one card, not a scale-out time.
 
 Every printed number carries the card's name and power limit.  The line
 before the last is ``{"kernels": [...]}``; the last is ``{"ok": true,
@@ -4362,6 +4386,403 @@ def _registry_phase(dev, tag) -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: scale-out, gloo ranks on one card
+# ---------------------------------------------------------------------------
+
+SCALE_F32_GATE = 1e-5     # sharded vs unsharded, rel. max(1, max|ref|)
+SCALE_SERVE_GATE = 1e-4   # the mesh server vs the one-process server
+SCALE_LOSS_RTOL = 1e-5    # sharded train step vs make_train_step
+SCALE_PARAM_GATE = 1e-4   # new params, rel. max(1, max|ref|) per leaf
+SCALE_GRAD_GATE = 1e-4    # grads, rel. the leaf's max|g_ref|
+# One SGD step at this lr reads the gradient: the step is p - lr*g, and
+# at lr*|g| far above |p| (p - new)/lr is g to f32 rounding.  At
+# SCALE_LR the update (1e-7..1e-5 per element on full-width DCGAN) sits
+# far under the new-params gate, which then cannot see a wrong gradient.
+SCALE_GRAD_LR = 1e6
+SCALE_SPAWN_S = 300       # each spawn's deadline and collective timeout
+SCALE_LR = 1e-2
+# The reference's Cout-shard parity cases (tests/test_shard.py:137-163)
+# on the port's backends, and a rank-3 int8 one for K2's int8 pair:
+# (x shape, w shape, stride, dtype, backends)
+SCALE_CASES = (
+    ((2, 5, 6, 3), (4, 4, 3, 8), 2, "native", ("torch", "fused", "winograd")),
+    ((2, 5, 6, 3), (5, 5, 3, 6), 3, "native", ("torch", "fused")),
+    ((2, 7, 4), (4, 4, 8), 2, "native", ("torch", "fused", "winograd")),
+    ((1, 3, 4, 5, 2), (4, 4, 4, 2, 4), 2, "native", ("torch", "fused")),
+    ((2, 5, 6, 3), (4, 4, 3, 8), 2, "int8", ("torch", "fused")),
+    ((1, 3, 4, 5, 2), (4, 4, 4, 2, 4), 2, "int8", ("fused",)),
+)
+# the kernels JSON's names -> the launch counters
+SCALE_KERNELS = {**REGISTRY_KERNELS, "sd_conv_int8": "K2 int8"}
+
+
+def _want_launches(rank: int, s: int, k: int, backend: str, dtype: str
+                   ) -> dict:
+    """Launches per rank of one sharded layer: one per shard (one per
+    depth tap for the rank-3 lowering), none on ``torch``."""
+    if backend == "torch":
+        return {}
+    if backend == "winograd":
+        return {"K4": 1}
+    if rank == 3:
+        return {"K2 int8" if dtype == "int8" else "K2": -(-k // s)}
+    return {"K1 int8" if dtype == "int8" else "K1": 1}
+
+
+def _launched(fn) -> tuple:
+    """``fn()`` with the launch counters zeroed before and read after:
+    (its result, the nonzero counts)."""
+    _zero_launch_counts()
+    out = fn()
+    return out, {k: v for k, v in _launch_counts().items() if v}
+
+
+def _scaleout_rank(rank: int, world: int, cfg: dict) -> dict:
+    """One gloo rank of phase 14 on ``cfg["device"]`` (see
+    :func:`_scaleout_phase`).  Raises on any failed gate; returns its
+    lines (rank 0), launch counts and readings."""
+    import tempfile
+    import torch
+    from repro_torch import sd
+    from repro_torch.core.accounting import WORKLOADS
+    from repro_torch.core.deconv import same_deconv_pads
+    from repro_torch.distributed import local_block
+    from repro_torch.launch.mesh import make_dev_mesh
+    from repro_torch.launch.serve_gen import GenServer, serve_async
+    from repro_torch.launch.train_gen import (make_sharded_train_step,
+                                              make_train_step, place_params)
+    from repro_torch.models.generative import GenerativeModel
+
+    dev = torch.device(cfg["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    os.environ["REPRO_TORCH_SD_CALIB_CACHE"] = os.path.join(
+        tempfile.mkdtemp(prefix="chip_smoke_calib_"), "sd_calib.json")
+    tag, lines = cfg["tag"], []
+    total = {}                    # launches summed over the sharded runs
+
+    def say(msg):
+        if rank == 0:
+            lines.append(msg)
+
+    def count(c):
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+
+    def check(ok, what):
+        if not ok:
+            raise AssertionError(f"rank {rank}: {what}")
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    dp, mp = cfg["dp"], cfg["mp"]
+    mesh = make_dev_mesh(dp, mp, backend="gloo", device=dev)
+    where = f"dp{dp}xmp{mp}, {world} gloo ranks on {dev}"
+    gen = torch.Generator().manual_seed(SEED)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(dev)
+
+    readings = {}
+    if cfg["part"] == "mp2":
+        # ---- (a) parity: sharded execute_spmd vs unsharded execute ------
+        say(f"scale-out (a): execute_spmd on {where} vs unsharded execute, "
+            f"f32 within {SCALE_F32_GATE}*max(1,max|ref|), int8 exact {tag}")
+        cases = [(f"case{i}", xs, ws, s, 1, dt, be)
+                 for i, (xs, ws, s, dt, bes) in enumerate(SCALE_CASES)
+                 for be in bes]
+        dc = WORKLOADS["dcgan"]().layers
+        for l in dc[1:3]:                       # d1, d2: cout 128, 64
+            for be, dt in (("fused", "native"), ("fused", "int8"),
+                           ("winograd", "native")):
+                cases.append((f"dcgan/{l.name}", (BUCKET, *l.in_hw, l.cin),
+                              (l.k, l.k, l.cin, l.cout), l.s,
+                              same_deconv_pads(l.k, l.s), dt, be))
+        for name, xs, ws, s, pad, dt, be in cases:
+            x = randn(*xs)
+            w = randn(*ws, scale=1.0 / (math.prod(ws[:-1])) ** 0.5)
+            scale = randn(ws[-1], scale=0.1) + 1.0
+            bias = randn(ws[-1], scale=0.1)
+            p = sd.plan(ws, s, pad, backend=be, act="relu", dtype=dt,
+                        device=dev)
+            ref = sd.execute(p.bind(w, scale, bias), x)
+            bp = p.bind(w, scale, bias, mesh=mesh)
+            check(bp.shards == mp and bp.bias.shape[0] == ws[-1] // mp,
+                  f"{name} {be} bound {bp.shards} shards")
+            y, got = _launched(lambda: sd.execute_spmd(bp, x, mesh))
+            sync()
+            count(got)
+            want = _want_launches(len(ws) - 2, s, ws[0], be, dt)
+            if dt == "int8":
+                d, tol = (y.float() - ref.float()).abs().max().item(), 0.0
+            else:
+                d, tol = _gate_err(y, ref, SCALE_F32_GATE, True)
+            ok = (d <= tol and got == want
+                  and tuple(y.shape) == tuple(ref.shape))
+            say(f"  {name} {be} {dt} x{tuple(xs)} w{tuple(ws)} s{s}: "
+                f"launches per rank {_launch_txt(got)} (want "
+                f"{_launch_txt(want)}), max|d| {d:.3e} tol {tol:.3e} "
+                f"{'ok' if ok else 'FAIL'}")
+            check(ok, f"parity {name} {be} {dt}: max|d| {d} launches {got}")
+        # per-shard K1 on d1 and the gather of its output
+        l = dc[1]
+        x = randn(BUCKET, *l.in_hw, l.cin)
+        w = randn(l.k, l.k, l.cin, l.cout, scale=1.0 / (25 * l.cin) ** 0.5)
+        p = sd.plan(w.shape, l.s, same_deconv_pads(l.k, l.s),
+                    backend="fused", act="relu", device=dev)
+        full, bp = p.bind(w), p.bind(w, mesh=mesh)
+        block = bp.block()                              # no gather
+        y_local = sd.execute(block, x)
+        mesh.barrier()
+        if rank == 0 and dev.type == "cuda":
+            readings["k1_d1_full_ms"] = _ahead_ms(lambda: sd.execute(full, x))
+            readings["k1_d1_block_ms"] = _ahead_ms(
+                lambda: sd.execute(block, x))
+        mesh.barrier()
+        gms = []
+        for _ in range(21):
+            sync()
+            t0 = time.perf_counter()
+            mesh.all_gather(y_local, "model", y_local.ndim - 1)
+            sync()
+            gms.append((time.perf_counter() - t0) * 1e3)
+        readings["gather_d1_ms"] = sorted(gms)[10]
+        readings["gather_d1_bytes"] = y_local.numel() * 4
+        say(f"  time: K1 on d1 at batch {BUCKET}, device ms (ahead events): "
+            f"unsharded {_ms_txt(readings.get('k1_d1_full_ms'))}, one Cout "
+            f"block of {bp.cout_local} {_ms_txt(readings.get('k1_d1_block_ms'))}"
+            f"; gather of d1's output ({readings['gather_d1_bytes']} bytes per "
+            f"rank) {readings['gather_d1_ms']:.4f} ms host clock, median of "
+            f"21 (gloo on one card, not a scale-out time) {tag}")
+    # ---- (b) serving ----------------------------------------------------
+    nets = ("dcgan",)
+    servers = [("f32 fused", dict(backend="fused"), SCALE_SERVE_GATE),
+               ("calibrated int8", dict(backend="fused", dtype="int8",
+                                        calib=64), 0.0)]
+    if cfg["part"] == "mp2":
+        servers.append(("f32 winograd", dict(backend="winograd"),
+                        SCALE_SERVE_GATE))
+    for label, kw, gate in servers:
+        srv = GenServer(nets=nets, device=dev, dp=dp, mp=mp,
+                        dist_backend="gloo", seed=SEED, **kw)
+        model, _ = srv.model("dcgan")
+        plans = model.engine.plans()
+        shards = [plans[n].shards for n in ("d1", "d2", "d3")]
+        check(shards == [mp, mp, 1], f"{label}: shards {shards}")
+        est = None
+        if label == "f32 fused":
+            model.engine.pretune([BUCKET], iters=2)
+            est = srv.estimate_ms("dcgan", BUCKET)
+            check(est is not None, "estimate_ms after the mesh pretune")
+        reqs = srv.random_requests("dcgan", SERVE_REQUESTS, seed=5)
+        sync()
+        (results, stats), got = _launched(lambda: serve_async(srv, reqs))
+        sync()
+        count(got)
+        batches = stats["launches"]
+        kern = ("K4" if kw["backend"] == "winograd"
+                else "K1 int8" if kw.get("dtype") == "int8" else "K1")
+        want = {kern: 3 * batches}
+        y = torch.stack([results[r.rid] for r in reqs])
+        keys = stats["compile_cache"]
+        check(got == want, f"{label}: launches {got}, want {want}")
+        check(stats["shed"] == 0 and bool(torch.isfinite(y).all()),
+              f"{label}: shed {stats['shed']} or non-finite output")
+        check(all(k.endswith(f"'dp{dp}xmp{mp}')") for k in keys),
+              f"{label}: cell keys {keys}")
+        n0 = srv.compile_count
+        srv.swap_checkpoint("dcgan", model.init(
+            torch.Generator().manual_seed(99)))
+        srv.run_group("dcgan", [r.latent for r in reqs[:BUCKET]])
+        check(srv.compile_count == n0, f"{label}: swap built a cell")
+        d = tol = d_bucket = None
+        host = {}
+        if rank == 0:
+            one = GenServer(nets=nets, device=dev, seed=SEED, **kw)
+
+            def one_run(rows):
+                return torch.cat([one.run_group("dcgan", [r.latent for r in
+                                                          reqs[i:i + rows]])
+                                  for i in range(0, len(reqs), rows)])
+
+            ref = one_run(BUCKET)
+            if gate:
+                d, tol = _gate_err(y, ref, gate, True)
+            else:
+                # int8 codes are exact only against the same fc GEMM:
+                # cuBLAS's f32 sums for the latents' fc (before d1's
+                # static quantization) depend on its batch, so a data
+                # rank's BUCKET/dp rows are held to the one-process
+                # server run on the same blocks
+                d_bucket = (y - ref).abs().max().item()
+                d = (d_bucket if dp == 1 else
+                     (y - one_run(BUCKET // dp)).abs().max().item())
+                tol = 0.0
+            check(d <= tol, f"{label}: vs the one-process server "
+                  f"max|d| {d} > {tol}")
+        # host ms per batch, mesh and one process in turns (rank 0's
+        # one-process turns run while the other ranks wait)
+        zs = [r.latent for r in reqs[:BUCKET]]
+        mesh_ms, one_ms = [], []
+        for _ in range(5):
+            mesh.barrier()
+            sync()
+            t0 = time.perf_counter()
+            srv.run_group("dcgan", zs)
+            sync()
+            mesh_ms.append((time.perf_counter() - t0) * 1e3)
+            mesh.barrier()
+            if rank == 0:
+                sync()
+                t0 = time.perf_counter()
+                one.run_group("dcgan", zs)
+                sync()
+                one_ms.append((time.perf_counter() - t0) * 1e3)
+        host[label] = (sorted(mesh_ms)[2],
+                       sorted(one_ms)[2] if one_ms else None)
+        readings[f"serve {label}"] = {
+            "launches": got, "max_abs_err": d,
+            "max_abs_err_vs_bucket": d_bucket, "estimate_ms": est,
+            "host_ms_mesh": host[label][0], "host_ms_one": host[label][1],
+            "cells": keys}
+        if rank == 0:
+            say(f"scale-out (b): serve {label} DCGAN on {where}: "
+                f"{SERVE_REQUESTS} requests, {batches} batches, launches per "
+                f"rank {_launch_txt(got)}, 0 shed, cells {keys}, no new cell "
+                f"after swap_checkpoint"
+                + f", vs the one-process server max|d| {d:.3e} tol {tol:.3e}"
+                + (f" on the same {BUCKET // dp}-row blocks ({d_bucket:.3e} "
+                   f"against its {BUCKET}-row batches: the fc's cuBLAS "
+                   f"sums move with the batch and flip codes)"
+                   if d_bucket is not None and dp > 1 else "")
+                + (f", estimate_ms({BUCKET}) {est:.4f} (one rank's launches, "
+                   f"device time, gathers left out)" if est is not None
+                   else "")
+                + f"; host ms per batch of {BUCKET}: mesh {host[label][0]:.2f}, "
+                f"one process {host[label][1]:.2f} (gloo on one card, not a "
+                f"scale-out time) {tag}")
+    # ---- (c) training ---------------------------------------------------
+    if cfg["part"] == "mp2":
+        spec = WORKLOADS["dcgan"]()
+        model = GenerativeModel(spec, "sd_kernel", engine_backend="fused",
+                                device=dev)
+        params = model.init(torch.Generator().manual_seed(SEED))
+        z = randn(BUCKET, spec.layers[0].cin)
+        t = randn(BUCKET, 64, 64, 3, scale=0.5)
+
+        def grads(p, new):
+            return {k: {n: (p[k][n] - new[k][n]) / SCALE_GRAD_LR
+                        for n in p[k]} for k in p}
+
+        new_ref, loss_ref = make_train_step(model, lr=SCALE_LR)(params, z, t)
+        g_ref = grads(params, make_train_step(model, lr=SCALE_GRAD_LR)(
+            params, z, t)[0])
+        sync()
+        want = {"K1": 3, "K2": 3, "K3": 3}
+        for mtag, mdp, mmp in (("mp2", 1, 2), ("dp2", 2, 1)):
+            m = mesh if (mdp, mmp) == (dp, mp) else make_dev_mesh(
+                mdp, mmp, backend="gloo", device=dev)
+            step, specs = make_sharded_train_step(model, m, lr=SCALE_LR)
+            gstep, _ = make_sharded_train_step(model, m, lr=SCALE_GRAD_LR)
+            placed = place_params(params, m, specs)
+            (new, loss), got = _launched(lambda: step(placed, z, t))
+            sync()
+            count(got)
+            (gnew, _), ggot = _launched(lambda: gstep(placed, z, t))
+            sync()
+            count(ggot)
+            g = grads(placed, gnew)
+            rel = abs(loss.item() - loss_ref.item()) / abs(loss_ref.item())
+            worst = worst_g = 0.0
+            for k in new:
+                for n in new[k]:
+                    r_ = local_block(new_ref[k][n], specs[k][n], m)
+                    dd, tt = _gate_err(new[k][n], r_, SCALE_PARAM_GATE, True)
+                    worst = max(worst, dd / tt)
+                    # this rank's block of the leaf, gated on the whole
+                    # leaf's largest gradient
+                    gr = local_block(g_ref[k][n], specs[k][n], m)
+                    tt = SCALE_GRAD_GATE * g_ref[k][n].abs().max().item()
+                    dd = (g[k][n] - gr).abs().max().item()
+                    worst_g = max(worst_g, dd / tt)
+            ok = (rel <= SCALE_LOSS_RTOL and worst <= 1.0 and worst_g <= 1.0
+                  and got == want and ggot == want)
+            readings[f"train {mtag}"] = {"loss": loss.item(),
+                                         "loss_ref": loss_ref.item(),
+                                         "loss_rel": rel,
+                                         "params_share_of_gate": worst,
+                                         "grads_share_of_gate": worst_g,
+                                         "launches": got}
+            say(f"scale-out (c): train {mtag} (dp{mdp}xmp{mmp}) full-width "
+                f"DCGAN, batch {BUCKET}, one SGD step: loss {loss.item():.6f}"
+                f" vs make_train_step {loss_ref.item():.6f} (rel {rel:.2e}, "
+                f"gate {SCALE_LOSS_RTOL}), new params at {worst:.3f} of "
+                f"their gate ({SCALE_PARAM_GATE}*max(1,max|ref|)), grads "
+                f"(p - new)/lr of a step at lr {SCALE_GRAD_LR:g} at "
+                f"{worst_g:.3f} of their gate ({SCALE_GRAD_GATE}*max|g_ref| "
+                f"per leaf), launches per rank per step {_launch_txt(got)} "
+                f"{'ok' if ok else 'FAIL'} {tag}")
+            check(ok, f"train {mtag}: loss rel {rel}, params {worst}, "
+                  f"grads {worst_g}, launches {got} {ggot}")
+    return {"lines": lines, "launches": total, "readings": readings}
+
+
+def _scaleout_phase(dev, tag, rank_fn=None) -> dict:
+    """Phase 14: scale-out on one card, the kernels built once above.
+    Spawns gloo ranks on ``dev`` through ``repro_torch.launch.mesh.
+    spawn`` (each with a deadline and a collective timeout; a failed or
+    late rank fails the script): two ranks as dp1 x mp2 run (a) the
+    reference's Cout-shard parity cases and full-width DCGAN d1/d2 on K1,
+    K1 int8 and K4 against the unsharded plans, (b) the f32 (pretuned on
+    the mesh, for ``estimate_ms``), calibrated int8 and winograd servers
+    against the one-process servers, and (c) one sharded train step at mp
+    2 and at dp 2 against ``make_train_step``, new params and gradients;
+    four ranks as dp2 x mp2
+    run (b)'s f32 and calibrated int8 servers.  Counts each kernel's
+    launches per rank; every time printed is gloo on one card."""
+    import shutil
+    import tempfile
+    from repro_torch.launch.mesh import spawn
+    rank_fn = rank_fn or _scaleout_rank
+    t0 = time.perf_counter()
+    report = {"launches": {}, "readings": {}}
+    work = tempfile.mkdtemp(prefix="chip_smoke_scaleout_")
+    try:
+        # a fresh tile cache: the mesh pretune's entries stay in it
+        with _plan_cache(os.path.join(work, "sd_plans.json")):
+            for part, dp, mp in (("mp2", 1, 2), ("dp2xmp2", 2, 2)):
+                cfg = {"part": part, "dp": dp, "mp": mp, "device": str(dev),
+                       "tag": tag}
+                try:
+                    out = spawn(rank_fn, dp * mp, backend="gloo",
+                                args=(cfg,), timeout_s=SCALE_SPAWN_S)
+                except RuntimeError as e:
+                    raise SystemExit(f"chip_smoke: phase 14 ({part}) "
+                                     f"failed: {e}")
+                for line in out[0]["lines"]:
+                    print(line)
+                for k, v in out[0]["launches"].items():
+                    report["launches"][k] = report["launches"].get(k, 0) + v
+                report["readings"][part] = out[0]["readings"]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    report["phase_s"] = time.perf_counter() - t0
+    print(f"scale-out: launches on rank 0 over phase 14's sharded runs "
+          f"{_launch_txt(report['launches'])}; phase {report['phase_s']:.1f} "
+          f"s host clock {tag}")
+    missing = [k for k in SCALE_KERNELS.values()
+               if not report["launches"].get(k)]
+    if missing:
+        raise SystemExit(f"chip_smoke: phase 14 launched no {missing} on a "
+                         "shard")
+    return report
+
+
 def main(json_path: str = "") -> int:
     t_start = time.perf_counter()
     sys.stdout.reconfigure(line_buffering=True)   # a cut run keeps its log
@@ -4387,7 +4808,7 @@ def main(json_path: str = "") -> int:
 
 
 def _smoke(json_path: str, t_start: float) -> int:
-    """Phases 1-13 (see the module doc) and the final two lines."""
+    """Phases 1-14 (see the module doc) and the final two lines."""
     import torch
     sys.path.insert(0, os.path.join(HERE, "src"))
     import torch.nn.functional as F
@@ -4812,6 +5233,10 @@ def _smoke(json_path: str, t_start: float) -> int:
     torch.cuda.empty_cache()
     reg = _registry_phase(dev, tag)
 
+    # ---- 14. scale-out: Cout-sharded and data-parallel DCGAN ----------
+    torch.cuda.empty_cache()
+    scale = _scaleout_phase(dev, tag)
+
     if "jax" in sys.modules or "repro" in sys.modules:
         raise SystemExit("chip_smoke: JAX or the JAX package was imported")
     total = {k: sum(r[k] for r in per_layer)
@@ -4866,6 +5291,10 @@ def _smoke(json_path: str, t_start: float) -> int:
             # phase 13 (a)-(d): the self-checks, every impl at full width
             # and sd_fn's J_G^T c
             k["launches_registry"] = reg["launches"][REGISTRY_KERNELS[name]]
+        if name in SCALE_KERNELS:
+            # phase 14: rank 0's launches over the sharded runs
+            k["launches_sharded"] = scale["launches"].get(
+                SCALE_KERNELS[name], 0)
         if k["name"] in ("sd_conv", "sd_filter_grad", "sd_wino"):
             k["sass_hmma_tf32"] = sass[k["name"]]["HMMA_TF32"]
         if k["name"] == "sd_conv":
@@ -4892,7 +5321,7 @@ def _smoke(json_path: str, t_start: float) -> int:
               "nd": {k: v for k, v in nd.items() if k != "kernel"},
               "chain": {k: v for k, v in chain.items() if k != "record"},
               "lm": lm["report"], "wavegan": wave["report"],
-              "pretune": pre, "registry": reg,
+              "pretune": pre, "registry": reg, "scaleout": scale,
               "serve": {k: stats[k] for k in
                         ("served", "launches", "req_per_s", "wall_s",
                          "latency_ms")},
@@ -4943,7 +5372,9 @@ def _smoke(json_path: str, t_start: float) -> int:
           f"server whose cache binds layers to K4 (K1, K4) and "
           f"launches_switched_train in its J_G^T c (K2, K3); phase 13: "
           f"launches_registry counted over its self-checks, every impl at "
-          f"full width and sd_fn's J_G^T c (K1, K1 int8, K2, K3, K4)) "
+          f"full width and sd_fn's J_G^T c (K1, K1 int8, K2, K3, K4); phase "
+          f"14: launches_sharded counted on rank 0 over its sharded runs, "
+          f"gloo ranks on one card (K1, K1 int8, K2, K2 int8, K3, K4)) "
           f"{tag}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -46,21 +46,35 @@ def cubic_weights(n_in: int, n_out: int) -> np.ndarray:
 class GANLatentPipeline:
     """Latent-vector batches for generator training and serving, and
     synthetic 'real' images (smooth random fields) for the
-    discriminator.  Tensors come back on the CPU."""
+    discriminator.  Tensors come back on the CPU.
+
+    ``n_procs``/``proc_index``: process ``proc_index`` of ``n_procs``
+    draws its own ``global_batch // n_procs`` rows, a pure function of
+    ``(seed, step, proc_index)`` (the reference's seed arithmetic, bit
+    for bit); the images' seed leaves ``proc_index`` out, as the
+    reference's does."""
     z_dim: int
     global_batch: int
     seed: int = 0
+    n_procs: int = 1
+    proc_index: int = 0
+
+    @property
+    def local_batch(self) -> int:
+        return self.global_batch // self.n_procs
 
     def batch(self, step: int) -> torch.Tensor:
-        rng = np.random.RandomState((self.seed * 1_000_003 + step) % (2 ** 31))
+        rng = np.random.RandomState(
+            (self.seed * 1_000_003 + step) % (2 ** 31)
+            + self.proc_index * 7919)
         return torch.from_numpy(
-            rng.randn(self.global_batch, self.z_dim).astype(np.float32))
+            rng.randn(self.local_batch, self.z_dim).astype(np.float32))
 
     def images(self, step: int, hw=(64, 64)) -> torch.Tensor:
         rng = np.random.RandomState(
             (self.seed * 999_983 + step) % (2 ** 31))
         low = torch.from_numpy(
-            rng.randn(self.global_batch, 8, 8, 3).astype(np.float32))
+            rng.randn(self.local_batch, 8, 8, 3).astype(np.float32))
         wh = torch.from_numpy(cubic_weights(8, hw[0]))
         ww = torch.from_numpy(cubic_weights(8, hw[1]))
         return torch.tanh(torch.einsum("bhwc,hy,wx->byxc", low, wh, ww))

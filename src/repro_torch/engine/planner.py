@@ -26,6 +26,13 @@ from the cache, :meth:`SDEngine.plans_for_batch` re-resolves the tiles
 at a bucket's batch, and :meth:`SDEngine.estimate_ms` sums the measured
 times.  With nothing measured every tile is the kernel's call-time
 default.
+
+A mesh engine (``mesh=``, a :class:`~repro_torch.distributed.Mesh`)
+binds each layer whose ``cout`` divides the mesh's model degree
+Cout-sharded (the rank keeps its block of the split filters), and
+replicates the others; its plan-cache geometries are what one rank
+launches: the batch divided (ceil) by the data degree, ``cout`` by the
+layer's shards, ``_mp{n}`` in the key.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ import torch
 from repro_torch.core.accounting import LayerSpec, NetworkSpec
 from repro_torch.core.deconv import _ntuple, same_deconv_pads
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import layer_shards
 from repro_torch.kernels import autotune
 from repro_torch.kernels.autotune import DeconvGeom, get_plan
 from repro_torch.sd import functional as sd_functional
@@ -75,7 +83,9 @@ class SDEngine:
     faster than K1 at ``plan_batch`` (:meth:`_layer_backend`).
     ``device=None`` is the card, as everywhere in the port (raises
     without one).  ``dtype``: ``"native"`` or ``"int8"`` (the plans'
-    execution dtype)."""
+    execution dtype).  ``mesh``: the (data, model) mesh of a sharded
+    engine (reference ``SDEngine(mesh=)``; its plans then run under
+    :func:`~repro_torch.distributed.spmd`, see module doc)."""
 
     # The batch the bound plans' tiles and algorithm are keyed at (the
     # reference's default; serving re-keys tiles per bucket with
@@ -83,7 +93,7 @@ class SDEngine:
     plan_batch = 1
 
     def __init__(self, spec: NetworkSpec, backend: str = "auto",
-                 device=None, dtype: str = "native"):
+                 device=None, dtype: str = "native", mesh=None):
         if dtype not in DTYPES:
             raise ValueError(f"unknown engine dtype {dtype!r}; choose from "
                              f"{DTYPES}")
@@ -91,12 +101,19 @@ class SDEngine:
         self.device = resolve_device(device)
         self.backend = resolve_backend(backend, self.device)
         self.dtype = dtype
+        self.mesh = mesh
+        self.dp, self.mp = (1, 1) if mesh is None else (mesh.dp, mesh.mp)
         self.generation = 0          # bumped by every bind
         self._plans: Dict[str, DeconvPlan] = {}
         self._bound: Optional[Params] = None
         self._bound_leaves: Optional[tuple] = None
         self._bound_versions: Optional[tuple] = None
         self._calib: Optional[Dict[str, float]] = None
+
+    def _layer_shards(self, layer: LayerSpec) -> int:
+        """Cout shards of one layer (reference ``_layer_shards``; see
+        :func:`~repro_torch.distributed.layer_shards`)."""
+        return layer_shards(layer.cout, self.mp)
 
     def _plan_leaves(self, params: Params) -> Optional[tuple]:
         """The tensors the plans depend on, compared by identity and by
@@ -197,8 +214,10 @@ class SDEngine:
             p = params[layer.name]
             act = "linear" if i == len(layers) - 1 else "relu"
             tgt = chain_next.get(layer.name)
+            sharded = self._layer_shards(layer) > 1
             bound = self.layer_plan(layer, act, qout=tgt is not None).bind(
-                p["w"], scale=p.get("scale"), bias=p["b"].float())
+                p["w"], scale=p.get("scale"), bias=p["b"].float(),
+                mesh=self.mesh if sharded else None)
             if calib and layer.name in calib:
                 bound = bound.with_chain(
                     sx_in=calib[layer.name],
@@ -255,17 +274,22 @@ class SDEngine:
         (default ``plan_batch``), the reference's key: rank 2 only (ranks
         1 and 3 take the call-time default), ``_int8`` on an int8 engine
         (or ``dtype="int8"``), ``algo="wino"`` for K4, ``qout`` for a
-        chained int8-out launch."""
+        chained int8-out launch.  On a mesh engine, what one rank
+        launches (reference ``layer_geom``): the batch ceil-divided by
+        the data degree, ``cout`` by the layer's shards and ``shards``
+        in the key (``_mp{n}``, as the reference keys it)."""
         if layer.rank != 2:
             return None
         pads = (same_deconv_pads(layer.k, layer.s)
                 if layer.padding == "same" else layer.pad)
         dtype = self.dtype if dtype is None else dtype
+        b = max(1, -(-(batch or self.plan_batch) // self.dp))
+        shards = self._layer_shards(layer)
         geom = DeconvGeom.from_deconv(
-            batch or self.plan_batch, *layer.in_hw, layer.cin, layer.cout,
+            b, *layer.in_hw, layer.cin, layer.cout // shards,
             layer.k, layer.s, padding=pads,
             dtype="int8" if dtype == "int8" else "")
-        return replace(geom, algo=algo, qout=qout)
+        return replace(geom, algo=algo, qout=qout, shards=shards)
 
     def _deconv_layers(self) -> Dict[str, LayerSpec]:
         return {l.name: l for l in self.spec.layers if l.kind == "deconv"}
@@ -303,7 +327,16 @@ class SDEngine:
         through ``transform_filters``; nothing is split again) and then
         rebinds, so layers where K4 measured faster at ``plan_batch``
         switch.  Returns ``{geometry key: winning plan}``; ``{}`` on the
-        ``torch`` backend, which launches no kernel."""
+        ``torch`` backend, which launches no kernel.
+
+        On a mesh engine every rank pretunes together: each times its
+        own launch, its batch block through its Cout block
+        (:meth:`~repro_torch.sd.plan.DeconvPlan.block`, no gather), and
+        every tile's reading is the slowest rank's (one
+        :meth:`~repro_torch.distributed.Mesh.world_max` per tile), so
+        that every rank keeps the same winner and writes the same entry;
+        the ranks raise first if their caches disagree on a geometry,
+        and meet after it."""
         tuned: Dict[str, Any] = {}
         if self.backend not in ("fused", "winograd"):
             return tuned
@@ -314,16 +347,25 @@ class SDEngine:
 
         def tune_variant(plan: DeconvPlan, layer: LayerSpec, b: int, x):
             geom = self._plan_geom(plan, layer, b)
+            block = plan.block()
 
             def runner(tile):
-                p2 = plan.with_tile(tile)
+                p2 = block.with_tile(tile)
                 with torch.no_grad():
-                    return autotune.measure(
+                    ms = autotune.measure(
                         lambda: sd_functional.execute(p2, x), iters=iters,
                         device=self.device)
+                return ms if self.mesh is None else self.mesh.world_max(ms)
 
+            if self.mesh is not None:
+                self.mesh.check_same(
+                    f"a measured entry for {geom.key()}",
+                    [autotune.measured_ms(geom, path=path,
+                                          device=self.device) is not None])
             best = autotune.tune(geom, runner, path=path,
                                  device=self.device)
+            if self.mesh is not None:
+                self.mesh.barrier()        # every rank's entry written
             if best is not None:           # None: every tile was refused
                 tuned[geom.key()] = best
 
@@ -344,8 +386,9 @@ class SDEngine:
                                         layout="wino", tile=None,
                                         ws=transform_filters(plan.ws)))
             for b in sorted({int(v) for v in batches}):
-                x = torch.zeros((b, *layer.in_hw, layer.cin), dtype=dtype,
-                                device=self.device)
+                # a rank's block of the batch, as layer_geom keys it
+                x = torch.zeros((max(1, -(-b // self.dp)), *layer.in_hw,
+                                 layer.cin), dtype=dtype, device=self.device)
                 for v in variants:
                     tune_variant(v, layer, b, x)
         if self.backend == "fused" and self._bound is not None:
@@ -360,7 +403,8 @@ class SDEngine:
         conv layers and the host's time are left out, so it is about the
         deconv layers' device time, below a batch's wall time; the
         scheduler's observed-launch average takes over from the first
-        launch."""
+        launch.  On a mesh engine it is one rank's launches (its batch
+        and Cout blocks), the gathers left out."""
         total = 0.0
         layers = self._deconv_layers()
         for name, plan in self._plans.items():
@@ -381,14 +425,19 @@ class SDEngine:
 
     def describe(self) -> str:
         """One line for the engine, one per bound layer: rank, kernel,
-        stride, taps, activation, backend and tile (reference
+        stride, taps, activation, backend, shards and tile (reference
         ``SDEngine.describe``)."""
+        mesh = (f" mesh=dp{self.dp}xmp{self.mp}" if self.mesh is not None
+                else "")
         lines = [f"SDEngine[{self.spec.name}] backend={self.backend} "
-                 f"dtype={self.dtype} ({len(self._plans)} deconv layers)"]
+                 f"dtype={self.dtype}{mesh} ({len(self._plans)} deconv "
+                 f"layers)"]
         for name, plan in self._plans.items():
             tile = plan.tile if plan.tile is not None else "call-time"
+            sh = (f" shards={plan.shards}@{plan.shard_axis}"
+                  if plan.shards > 1 else "")
             lines.append(
                 f"  {name}: rank={plan.rank} K={plan.kernel[0]} "
                 f"s={plan.stride[0]} KT={plan.kt[0]} act={plan.act} "
-                f"backend={plan.backend} tile={tile}")
+                f"backend={plan.backend}{sh} tile={tile}")
         return "\n".join(lines)

@@ -41,6 +41,20 @@ launch per depth tap (K2's int8 pair under ``--dtype int8``).
   PYTHONPATH=src python -m repro_torch.launch.serve_gen --dtype int8 \\
       --calib 64
 
+``--dp N --mp M --dist-backend gloo|nccl`` serves on a (data, model)
+mesh of ``N * M`` ranks (reference ``--dp/--mp``), one process per rank
+in a process group of that size (:func:`repro_torch.launch.mesh.spawn`,
+or torchrun): each batch splits over ``'data'``, each deconv layer whose
+``cout`` divides ``M`` runs its Cout block on each ``'model'`` rank and
+gathers the channel axis; every rank runs the same requests and gets
+every output, and rank 0 prints.  The bucket rounds up to a multiple of
+``N`` and the cell key ends in ``dpNxmpM``.  On the CPU:
+
+  PYTHONPATH=src python -c "from repro_torch.launch import mesh, serve_gen
+  mesh.spawn(serve_gen.spmd_main, 4, backend='gloo', args=(['--dryrun',
+  '--device', 'cpu', '--dp', '2', '--mp', '2', '--dist-backend',
+  'gloo'],))"
+
 ``--pretune`` first times every (deconv layer, bucket) launch's
 candidate tiles (K1's, and on a float ``fused`` server K4's too) and
 caches the fastest in ``$REPRO_TORCH_SD_PLAN_CACHE`` (default
@@ -66,12 +80,13 @@ import torch
 
 from repro_torch.core.accounting import WORKLOADS, LayerSpec, NetworkSpec
 from repro_torch.device import describe_device, resolve_device
+from repro_torch.distributed.sharding import spmd
 from repro_torch.launch.batching import pow2_bucket, pow2_floor, take_group
+from repro_torch.launch.mesh import make_dev_mesh
 from repro_torch.models.generative import GenerativeModel
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "int8": "int8"}
-_LATER = "not ported yet; see ROADMAP.md for the slice that brings it"
 
 
 @dataclass
@@ -126,12 +141,25 @@ class GenServer:
     ``calib=N`` (int8 only) calibrates each net once, on N latents from
     the server's seed, when the net's model is built and before any of
     its cells runs; the scales are saved under ``"<net>/max"`` in the
-    port's calibration cache (``core.quant.calib_cache_path``)."""
+    port's calibration cache (``core.quant.calib_cache_path``).
+
+    ``dp``/``mp`` serve on a (data, model) mesh (reference
+    ``GenServer(dp=, mp=)``): the default process group must hold ``dp *
+    mp`` ranks (else ``ValueError``, as the reference raises on too few
+    devices) and ``dist_backend`` names its transport.  Each rank builds
+    the same models from the same seed; the engines keep each rank's
+    Cout block of the layers that shard (:class:`~repro_torch.engine.
+    SDEngine` ``mesh=``).  A cell runs the rank's ``'data'`` block of
+    the bucket under :func:`~repro_torch.distributed.spmd` and gathers
+    the batch; every rank must launch the same groups (:meth:`agree`
+    checks the requests once per run and refuses deadlines), so every
+    rank gets every output."""
 
     def __init__(self, nets=("dcgan",), dtype=torch.float32,
                  backend: str = "auto", max_batch: int = 16, seed: int = 0,
                  specs: Optional[Dict[str, NetworkSpec]] = None,
-                 device=None, calib: int = 0):
+                 device=None, calib: int = 0, dp: int = 1, mp: int = 1,
+                 dist_backend: Optional[str] = None):
         self.device = resolve_device(device)
         self.engine_dtype = "native"
         if dtype in ("int8", torch.int8):
@@ -155,6 +183,20 @@ class GenServer:
         self._serving: Dict[Tuple, Tuple[Any, Any, Any]] = {}
         self._compiled: Dict[Tuple, Any] = {}
         self.compile_count = 0          # serving cells built
+        self.dp, self.mp = int(dp), int(mp)
+        self._mesh = None
+        if self.dp > 1 or self.mp > 1:
+            self._mesh = make_dev_mesh(self.dp, self.mp,
+                                       backend=dist_backend,
+                                       device=self.device)
+
+    @property
+    def mesh(self):
+        return self._mesh
+
+    @property
+    def rank(self) -> int:
+        return 0 if self._mesh is None else self._mesh.rank
 
     # ---- models and cells ------------------------------------------------
     def model(self, net: str) -> Tuple[GenerativeModel, Any]:
@@ -164,12 +206,15 @@ class GenServer:
             m = GenerativeModel(self._specs[net], deconv_impl="sd_kernel",
                                 engine_backend=self.backend,
                                 device=self.device,
-                                engine_dtype=self.engine_dtype)
+                                engine_dtype=self.engine_dtype,
+                                engine_mesh=self._mesh)
             gen = torch.Generator().manual_seed(self.seed)
             params = m.init(gen, dtype=self.dtype)
             if self.calib > 0:
+                # every rank calibrates the same way; rank 0 saves
                 m.calibrate(params, n=self.calib, seed=self.seed,
-                            save_key=f"{net}/max")
+                            save_key=f"{net}/max" if self.rank == 0
+                            else None)
             self._models[net] = (m, params)
         return self._models[net]
 
@@ -196,34 +241,58 @@ class GenServer:
         return lean, plans
 
     def buckets(self) -> List[int]:
-        """The closed pow2 ladder of batch buckets up to ``max_batch``."""
+        """The closed set of batch buckets: the pow2 ladder up to
+        ``max_batch``, each rounded up to a multiple of ``dp``."""
         out, n = [], 1
         while n <= self.max_batch:
-            out.append(self.bucket(n))
+            b = self.bucket(n)
+            if b not in out:
+                out.append(b)
             n *= 2
         return out
 
     def bucket(self, n: int) -> int:
-        return pow2_bucket(n, self.max_batch)
+        b = pow2_bucket(n, self.max_batch)
+        if self.dp > 1:
+            # each data rank runs bucket / dp rows: round up to a multiple
+            b = -(-max(b, self.dp) // self.dp) * self.dp
+        return b
 
     def cell_key(self, net: str, bucket: int) -> Tuple:
-        return (net, bucket, self.dtype_name)
+        """``(net, bucket, dtype)``; on a mesh the mesh's shape
+        ``dpNxmpM`` ends the key: the same (net, bucket) on another mesh
+        is another cell."""
+        if self._mesh is None:
+            return (net, bucket, self.dtype_name)
+        return (net, bucket, self.dtype_name, f"dp{self.dp}xmp{self.mp}")
 
     def estimate_ms(self, net: str, bucket: int) -> Optional[float]:
+        """The engine's summed measured ms at ``bucket``, keyed on what
+        one rank launches on a mesh (its batch block, its Cout block)."""
         model, _ = self.model(net)
         return model.engine.estimate_ms(bucket)
 
     def compiled(self, net: str, bucket: int):
-        """The callable of one serving cell ``(net, bucket, dtype)``:
-        params and bound plans are its arguments, so a checkpoint swap
-        reuses it.  Building a cell bumps ``compile_count``."""
+        """The callable of one serving cell (:meth:`cell_key`): params
+        and bound plans are its arguments, so a checkpoint swap reuses
+        it.  On a mesh it runs the rank's ``'data'`` block of the bucket
+        under :func:`~repro_torch.distributed.spmd` (the sharded layers
+        gather their channels) and gathers the batch over ``'data'``.
+        Building a cell bumps ``compile_count``."""
         key = self.cell_key(net, bucket)
         if key not in self._compiled:
             model, _ = self.model(net)
+            mesh = self._mesh
 
             def cell(params, plans, x):
                 with torch.no_grad():
-                    return model.apply_with_plans(params, plans, x)
+                    if mesh is None:
+                        return model.apply_with_plans(params, plans, x)
+                    bl = x.shape[0] // self.dp
+                    xl = x.narrow(0, mesh.data_index * bl, bl)
+                    with spmd(mesh):
+                        y = model.apply_with_plans(params, plans, xl)
+                    return mesh.all_gather(y, "data", 0)
 
             self._compiled[key] = cell
             self.compile_count += 1
@@ -277,6 +346,9 @@ class GenServer:
         """Pad a same-net group to its bucket, run, crop the padding."""
         n = len(latents)
         bucket = self.bucket(n)
+        if self._mesh is not None:
+            self._mesh.check_same(f"the launch of {net!r}",
+                                  [sorted(self._specs).index(net), n])
         lean_params, plans = self._serving_args(net, bucket)
         x = torch.stack([torch.as_tensor(z) for z in latents]).to(
             self.device, self.dtype)
@@ -284,9 +356,27 @@ class GenServer:
             x = torch.cat([x, x.new_zeros((bucket - n, *x.shape[1:]))])
         return self.compiled(net, bucket)(lean_params, plans, x)[:n]
 
+    def agree(self, requests: List[GenRequest],
+              deadline_ms: Optional[float] = None) -> None:
+        """On a mesh, once per run: raise unless every rank holds the same
+        requests (ids and nets, in order), so that every rank groups them
+        alike, and refuse deadlines, by which each rank would shed on its
+        own clock and launch groups its peers do not.  Nothing to agree
+        on without a mesh."""
+        if self._mesh is None:
+            return
+        if deadline_ms is not None:
+            raise ValueError("deadline_ms on a mesh server: each rank would "
+                             "shed by its own clock and launch groups its "
+                             "peers do not; serve a mesh without deadlines")
+        nets = sorted(self._specs)
+        self._mesh.check_same("the requests", [len(requests)] + [
+            v for r in requests for v in (r.rid, nets.index(r.net))])
+
     def serve(self, requests: List[GenRequest]):
         """Drain loop: partition the queue into per-net groups and run
         them to completion.  Returns ({rid: output}, stats)."""
+        self.agree(requests)
         queue = list(requests)
         results: Dict[int, Any] = {}
         t0 = time.perf_counter()
@@ -325,6 +415,7 @@ def serve_async(server: GenServer, requests: List[GenRequest],
     arrive at t0).  Returns ({rid: output}, stats) like
     :meth:`GenServer.serve`."""
     from repro_torch.serving import ContinuousScheduler
+    server.agree(requests, deadline_ms)
     sched = ContinuousScheduler(server)
     t0 = sched.clock.now()
     for r in requests:
@@ -357,8 +448,16 @@ def main(argv=None):
                          "requests it cannot meet")
     ap.add_argument("--dryrun", action="store_true",
                     help="2 requests per reduced spec (smoke test)")
-    ap.add_argument("--dp", type=int, default=1)
-    ap.add_argument("--mp", type=int, default=1)
+    ap.add_argument("--dp", type=int, default=1,
+                    help="data-parallel degree: the batch splits over dp "
+                         "ranks (needs dp*mp ranks in the process group)")
+    ap.add_argument("--mp", type=int, default=1,
+                    help="model-parallel degree: each deconv layer whose "
+                         "cout divides mp runs its Cout block per rank")
+    ap.add_argument("--dist-backend", default=None,
+                    choices=["gloo", "nccl"],
+                    help="the process group's transport under --dp/--mp "
+                         "(gloo for ranks that share one card or the CPU)")
     ap.add_argument("--calib", type=int, default=0, metavar="N",
                     help="int8 only: calibrate static activation scales "
                          "on N latents per net and chain int8 activations "
@@ -371,10 +470,11 @@ def main(argv=None):
                          "server then runs each layer on K1 or K4, "
                          "whichever measured faster")
     args = ap.parse_args(argv)
-    if args.dp != 1 or args.mp != 1:
-        raise NotImplementedError(f"--dp/--mp: {_LATER}")
     if args.calib and args.dtype != "int8":
         ap.error("--calib requires --dtype int8")
+    if args.deadline_ms is not None and args.dp * args.mp > 1:
+        ap.error("--deadline-ms needs one process: on a --dp/--mp mesh "
+                 "each rank would shed by its own clock")
 
     if args.dryrun:
         specs = reduced_specs()
@@ -388,7 +488,7 @@ def main(argv=None):
                             for l in sp.deconv_layers())}
         nets = sorted(specs)
         n_requests = 2
-        if args.deadline_ms is None:
+        if args.deadline_ms is None and args.dp * args.mp == 1:
             args.deadline_ms = 120_000.0     # exercised, never binding
     else:
         nets = args.nets.split(",")
@@ -397,13 +497,16 @@ def main(argv=None):
 
     server = GenServer(nets=nets, dtype=DTYPES[args.dtype],
                        backend=args.backend, max_batch=args.max_batch,
-                       specs=specs, device=args.device, calib=args.calib)
+                       specs=specs, device=args.device, calib=args.calib,
+                       dp=args.dp, mp=args.mp,
+                       dist_backend=args.dist_backend)
+    say = print if server.rank == 0 else (lambda *a, **k: None)
     if args.pretune:
         t0 = time.perf_counter()
         tuned = server.pretune()
-        print(f"pretuned {len(tuned)} (layer, bucket) geometries over "
-              f"buckets {server.buckets()} in "
-              f"{time.perf_counter() - t0:.1f} s")
+        say(f"pretuned {len(tuned)} (layer, bucket) geometries over "
+            f"buckets {server.buckets()} in "
+            f"{time.perf_counter() - t0:.1f} s")
     requests: List[GenRequest] = []
     for i, net in enumerate(nets):
         for r in server.random_requests(net, n_requests, seed=i + 1):
@@ -411,29 +514,40 @@ def main(argv=None):
             requests.append(r)
 
     where = describe_device(server.device)
+    if server.mesh is not None:
+        where += (f", mesh dp{server.dp}xmp{server.mp} of "
+                  f"{args.dist_backend} ranks")
     if args.sched == "async":
         results, stats = serve_async(server, requests,
                                      deadline_ms=args.deadline_ms)
-        print(f"served {stats['requests']} requests in "
+        say(f"served {stats['requests']} requests in "
               f"{stats['wall_s']:.3f}s ({stats['req_per_s']:.1f} req/s, "
               f"{stats['launches']} launches, {stats['compiles']} cells "
               f"built, {stats['shed']} shed) on {where}")
         lat = stats["latency_ms"]
-        print(f"  latency p50 {lat['p50']}ms p95 {lat['p95']}ms "
+        say(f"  latency p50 {lat['p50']}ms p95 {lat['p95']}ms "
               f"p99 {lat['p99']}ms; mean occupancy "
               f"{stats['mean_occupancy']} on {where}")
     else:
         results, stats = server.serve(requests)
-        print(f"served {stats['requests']} requests in "
+        say(f"served {stats['requests']} requests in "
               f"{stats['wall_s']:.3f}s ({stats['req_per_s']:.1f} req/s, "
               f"{stats['groups']} groups, {stats['compiles']} cells "
               f"built) on {where}")
     for key in stats["compile_cache"]:
-        print(f"  cell: {key}")
+        say(f"  cell: {key}")
     for rid in sorted(results)[:2]:
         out = results[rid].float().cpu()
-        print(f"  req{rid}: out{tuple(out.shape)} mean {out.mean():+.4f}")
+        say(f"  req{rid}: out{tuple(out.shape)} mean {out.mean():+.4f}")
     return results, stats
+
+
+def spmd_main(rank: int, world: int, argv: List[str]) -> dict:
+    """One rank of :func:`main` under :func:`repro_torch.launch.mesh.
+    spawn`: its stats (served, shed, launches, cells)."""
+    _, stats = main(argv)
+    return {k: stats[k] for k in ("served", "shed", "launches",
+                                  "compile_cache") if k in stats}
 
 
 if __name__ == "__main__":

@@ -1,11 +1,27 @@
 """Training the paper's generators on one device, through split deconv.
 
-Two entry points:
+Entry points:
 
 * :func:`make_train_step` — the one-device case of the reference's
   ``make_sharded_train_step``: an SGD step on the global-mean L2 loss to
-  a target.  The mesh, parameter placement and shard scope wait for the
-  port's scale-out slice.
+  a target.
+* :func:`make_sharded_train_step` and :func:`place_params` — that step
+  SPMD on a (data, model) mesh (reference ``launch/train_gen.py``): the
+  batch split over ``'data'``, each shardable deconv filter Cout-split
+  over ``'model'`` (the block ``DeconvPlan.bind(mesh=)`` keeps for
+  serving, so a checkpoint trained here serves on the mesh with no
+  resharding).  Under :func:`repro_torch.distributed.spmd` each sharded
+  layer's ``conv_transpose`` gathers its output; its backward keeps the
+  filter grad on the shard (K3 on the local ``dy1`` on the kernels) and
+  sums the input grad (K2 on the local filters) over ``'model'``.  Grads
+  and the loss are averaged over ``'data'``; scale, bias and fc grads
+  come from the gathered, replicated activations and need no
+  model-axis collective.
+
+      mesh = make_dev_mesh(2, 2, backend="gloo", device="cpu")
+      step, specs = make_sharded_train_step(model, mesh, lr=1e-2)
+      params = place_params(params, mesh, specs)    # w: Cout blocks
+      params, loss = step(params, z, target)        # the global batch
 * :func:`main` — the GAN loop of the reference's
   ``examples/train_dcgan.py``: DCGAN (or a small twin) against
   :class:`~repro_torch.models.DCGANDiscriminator` on synthetic smooth
@@ -36,6 +52,8 @@ from repro_torch.core import registry
 from repro_torch.core.accounting import LayerSpec, NetworkSpec
 from repro_torch.data import GANLatentPipeline
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import (MeshContext, gen_param_specs,
+                                              local_block, spmd)
 from repro_torch.models.generative import (DCGANDiscriminator,
                                            GenerativeModel, build)
 from repro_torch.optim import OptState, adamw_init, adamw_update
@@ -80,6 +98,63 @@ def make_train_step(model: GenerativeModel, lr: float = 1e-2) -> Callable:
         return unflatten(params, new), loss.detach()
 
     return step
+
+
+def place_params(params: Params, mesh, specs) -> Params:
+    """This rank's part of a param tree under its spec tree
+    (:func:`~repro_torch.distributed.gen_param_specs`): the Cout block
+    of each filter that splits, every other leaf whole, all on the
+    mesh's device (reference ``place_params``)."""
+    return {k: {n: local_block(t.detach(), specs[k][n], mesh).to(
+                    mesh.device)
+                for n, t in v.items()}
+            for k, v in params.items()}
+
+
+def make_sharded_train_step(model: GenerativeModel, mesh, lr: float = 1e-2
+                            ) -> Tuple[Callable, Dict]:
+    """The SPMD SGD step of ``model`` on ``mesh`` (reference
+    ``make_sharded_train_step``).  Returns ``(step, param_specs)``:
+    ``step(params, z, target) -> (new_params, loss)`` with ``params``
+    placed by :func:`place_params` and ``z``/``target`` the global batch,
+    whole on every rank (each runs its ``'data'`` block; the batch must
+    divide the data degree); the new params come back in the same
+    placement and the loss, the global-mean L2 to ``target``, on every
+    rank.  ``model`` must be an engine impl (``sd_kernel``): the sharded
+    path is ``repro_torch.sd.conv_transpose``'s."""
+    if model.engine is None:
+        raise ValueError(
+            "make_sharded_train_step needs an engine-impl model "
+            "(deconv_impl='sd_kernel'): the sharded backward runs "
+            "through repro_torch.sd.conv_transpose")
+    dp = mesh.dp
+    pspecs = gen_param_specs(model.spec, MeshContext(mesh))
+
+    def local(t: torch.Tensor) -> torch.Tensor:
+        if dp == 1:
+            return t
+        if t.shape[0] % dp:
+            raise ValueError(f"batch {t.shape[0]} does not split over "
+                             f"{dp} data ranks")
+        bl = t.shape[0] // dp
+        return t.narrow(0, mesh.data_index * bl, bl)
+
+    def step(params: Params, z: torch.Tensor, target: torch.Tensor
+             ) -> Tuple[Params, torch.Tensor]:
+        ps = unflatten(params, [t.detach().requires_grad_(True)
+                                for t in flatten(params)])
+        with torch.enable_grad(), spmd(mesh):
+            out = model.apply(ps, local(z))
+            loss = torch.mean((out - local(target)) ** 2)
+            grads = torch.autograd.grad(loss, flatten(ps))
+        loss = loss.detach()
+        if dp > 1:
+            loss = mesh.all_reduce(loss, "data") / dp
+            grads = [mesh.all_reduce(g, "data") / dp for g in grads]
+        new = [(p - lr * g).detach() for p, g in zip(flatten(ps), grads)]
+        return unflatten(params, new), loss
+
+    return step, pspecs
 
 
 # ---------------------------------------------------------------------------

@@ -27,6 +27,16 @@ the input requires grad, each deconv instead runs the differentiable
 bias applied outside, as the reference does for traced params (an int8
 engine trains in float).
 
+``engine_mesh`` (a :class:`~repro_torch.distributed.Mesh`) makes the
+engine a mesh engine: each layer whose ``cout`` divides the model
+degree binds Cout-sharded, and its forward then runs under
+:func:`~repro_torch.distributed.spmd` (the server's cells enter it).
+Under :func:`~repro_torch.distributed.spmd` the differentiable path
+marks the same layers of the active mesh ``with_shards``, so ``p["w"]``
+is the rank's Cout block and ``conv_transpose`` gathers the output: the
+sharded train step
+(:func:`repro_torch.launch.train_gen.make_sharded_train_step`).
+
 Parameters stay a plain dict in the reference's layout (fc ``(in, out)``,
 filters ``(*K, Cin, Cout)``, per-channel ``scale``/``b``), so weights
 carry across from the JAX package unchanged (:mod:`repro_torch.convert`).
@@ -45,6 +55,7 @@ from repro_torch.core.accounting import WORKLOADS, NetworkSpec
 from repro_torch.core.deconv import conv_nd, same_deconv_pads
 from repro_torch.core.quant import amax_stat, save_calib, scale_from_amax
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import current_mesh, layer_shards
 from repro_torch.engine.planner import SDEngine
 from repro_torch.sd import DeconvPlan, conv_transpose, execute
 
@@ -56,13 +67,17 @@ class GenerativeModel(nn.Module):
     def __init__(self, spec: NetworkSpec, deconv_impl: str = "sd",
                  final_tanh: Optional[bool] = None,
                  engine_backend: str = "auto", device=None,
-                 engine_dtype: str = "native"):
+                 engine_dtype: str = "native", engine_mesh=None):
         super().__init__()
         info = registry.get_impl(deconv_impl)
         if engine_dtype != "native" and not info.engine:
             raise ValueError(f"engine_dtype={engine_dtype!r} needs an "
                              f"engine impl (e.g. 'sd_kernel'); "
                              f"{deconv_impl!r} is a plain executor")
+        if engine_mesh is not None and not info.engine:
+            raise ValueError(f"engine_mesh needs an engine impl (e.g. "
+                             f"'sd_kernel'); {deconv_impl!r} is a plain "
+                             "executor")
         self.spec = spec
         self.deconv_impl = deconv_impl
         self.device = resolve_device(device)
@@ -70,7 +85,8 @@ class GenerativeModel(nn.Module):
             else final_tanh
         self._deconv = None if info.engine else info.fn
         self._engine = (SDEngine(spec, backend=engine_backend,
-                                 device=self.device, dtype=engine_dtype)
+                                 device=self.device, dtype=engine_dtype,
+                                 mesh=engine_mesh)
                         if info.engine else None)
         self._fplans: Dict[str, DeconvPlan] = {}   # differentiable path
 
@@ -143,8 +159,17 @@ class GenerativeModel(nn.Module):
     def _float_step(self, layer, p: Params, h: torch.Tensor):
         """One deconv layer on the differentiable float path: the
         functional plan's deconv, then scale and bias outside it (the
-        activation is the forward's, so the flag is False)."""
-        h = conv_transpose(self._functional_plan(layer), h, p["w"])
+        activation is the forward's, so the flag is False).  Under
+        :func:`~repro_torch.distributed.spmd` a layer that shards on the
+        mesh's model degree (:func:`~repro_torch.distributed.
+        layer_shards`) runs its Cout block of ``p["w"]`` and gathers the
+        output; scale and bias, replicated, act on the whole."""
+        fp = self._functional_plan(layer)
+        mesh = current_mesh()
+        shards = 1 if mesh is None else layer_shards(layer.cout, mesh.mp)
+        if shards > 1:
+            fp = fp.with_shards(shards, "model")
+        h = conv_transpose(fp, h, p["w"])
         return h * p["scale"] + p["b"], False
 
     @staticmethod

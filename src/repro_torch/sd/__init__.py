@@ -3,13 +3,16 @@ presplit execution and the plain-executor adapter."""
 
 from repro_torch.sd.compat import (clear_plan_cache, functional_deconv,
                                    plan_for)
-from repro_torch.sd.functional import conv_transpose, execute, split_weights
-from repro_torch.sd.plan import (BACKENDS, DeconvPlan, plan, resolve_backend,
-                                 to_ocmajor)
+from repro_torch.sd.functional import (conv_transpose, execute,
+                                       execute_spmd, split_weights)
+from repro_torch.sd.plan import (BACKENDS, DeconvPlan, plan,
+                                 resolve_backend, to_ocmajor,
+                                 to_shardblocked)
 
 __all__ = ["BACKENDS", "DeconvPlan", "clear_plan_cache", "conv_transpose",
-           "execute", "functional_deconv", "plan", "plan_for",
-           "resolve_backend", "selfcheck", "split_weights", "to_ocmajor"]
+           "execute", "execute_spmd", "functional_deconv", "plan",
+           "plan_for", "resolve_backend", "selfcheck", "split_weights",
+           "to_ocmajor", "to_shardblocked"]
 
 
 def selfcheck(device=None, verbose: bool = False) -> None:

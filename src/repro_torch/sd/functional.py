@@ -25,6 +25,14 @@ A bound int8 plan runs :func:`_run_presplit_int8`: activations quantized
 per sample (or against a calibrated static scale), int8 x int8 sums, the
 combined dequant scale applied per (sample, phase channel) before the
 interleave, f32 out (int8 out on a chained layer).
+
+A Cout-sharded plan (``plan.shards > 1``) runs its kernel on this rank's
+block of the output channels, bias, activation and int8 (de)quantization
+included, and one all-gather over the plan's mesh axis closes the layer
+(:func:`_gather_cout`, the reference's).  It needs the mesh of
+:func:`~repro_torch.distributed.spmd`; outside one it raises.
+:func:`execute_spmd` is the standalone entry: the batch split over the
+mesh's data axis where it divides, the Cout blocks per the plan.
 """
 
 from __future__ import annotations
@@ -35,10 +43,36 @@ import torch
 
 from repro_torch.core.deconv import sd_deconv_presplit, split_filters
 from repro_torch.core.quant import quantize_act, quantize_static
+from repro_torch.distributed.sharding import Mesh, current_mesh, spmd
 from repro_torch.kernels.sd_conv import (_apply_act, exact_conv_valid,
                                          requantize)
 from repro_torch.sd.grad import conv_transpose_vjp
 from repro_torch.sd.plan import DeconvPlan, to_ocmajor
+
+
+def shard_mesh(plan: DeconvPlan) -> Mesh:
+    """The active mesh a Cout-sharded plan gathers over; raises the
+    reference's ``ValueError`` when there is none, or when its axis has
+    another size."""
+    mesh = current_mesh()
+    if (mesh is None or plan.shard_axis not in mesh.axis_names
+            or mesh.axis_size(plan.shard_axis) != plan.shards):
+        raise ValueError(
+            f"plan is Cout-sharded {plan.shards} ways over mesh axis "
+            f"{plan.shard_axis!r}, which is not bound here; run it under "
+            "repro_torch.distributed.spmd(mesh) on a mesh with that axis "
+            "(see sd.execute_spmd), or rebind without mesh=")
+    return mesh
+
+
+def _gather_cout(plan: DeconvPlan, mesh: Mesh, y: torch.Tensor
+                 ) -> torch.Tensor:
+    """The epilogue collective of a Cout-sharded plan: one all-gather
+    over the plan's mesh axis, the blocks concatenated on the channel
+    (last) axis.  A gather, not a reduce-scatter: the next layer's
+    filters need every input channel, and the shard-blocked order lands
+    each block where the unsharded layout has it."""
+    return mesh.all_gather(y, plan.shard_axis, y.ndim - 1)
 
 
 def _run_presplit(plan: DeconvPlan, x: torch.Tensor, ws: torch.Tensor,
@@ -160,13 +194,36 @@ def _run_presplit_int8(plan: DeconvPlan, x: torch.Tensor) -> torch.Tensor:
 
 
 def execute(plan: DeconvPlan, x: torch.Tensor) -> torch.Tensor:
-    """Run a bound plan (the hot path of the engine)."""
+    """Run a bound plan (the hot path of the engine).  A Cout-sharded
+    plan runs its epilogue on the rank's channels and gathers them."""
     if not plan.bound:
         raise ValueError("execute() needs a bound plan; call "
                          "plan.bind(w, scale, bias) once offline")
+    mesh = shard_mesh(plan) if plan.shards > 1 else None
     if plan.dtype == "int8":
-        return _run_presplit_int8(plan, x)
-    return _run_presplit(plan, x, plan.ws, plan.layout, plan.bias, plan.act)
+        y = _run_presplit_int8(plan, x)
+    else:
+        y = _run_presplit(plan, x, plan.ws, plan.layout, plan.bias,
+                          plan.act)
+    return y if mesh is None else _gather_cout(plan, mesh, y)
+
+
+def execute_spmd(plan: DeconvPlan, x: torch.Tensor, mesh: Mesh
+                 ) -> torch.Tensor:
+    """Run a bound plan on ``mesh`` (reference ``execute_spmd``): every
+    rank passes the whole batch ``x``; the batch is split over the
+    ``'data'`` axis when it divides (else every rank runs all of it),
+    the Cout blocks follow the plan's own ``shards``/``shard_axis`` (an
+    unsharded plan runs replicated), and every rank gets the whole
+    output, equal to :func:`execute` of the unsharded plan."""
+    dp = mesh.axis_size("data")
+    split = dp > 1 and x.shape[0] % dp == 0
+    if split:
+        bl = x.shape[0] // dp
+        x = x.narrow(0, mesh.data_index * bl, bl)
+    with spmd(mesh):
+        y = execute(plan, x)
+    return mesh.all_gather(y, "data", 0) if split else y
 
 
 class _ConvTranspose(torch.autograd.Function):
@@ -177,15 +234,18 @@ class _ConvTranspose(torch.autograd.Function):
     @staticmethod
     def forward(ctx, plan, x, w, b):
         ctx.plan = plan
+        ctx.mesh = shard_mesh(plan) if plan.shards > 1 else None
         ctx.save_for_backward(x, w, b)
         ws = split_filters(w, plan.stride)
         y = _run_presplit(plan, x, ws, "nmajor", None, "linear")
+        if ctx.mesh is not None:
+            y = _gather_cout(plan, ctx.mesh, y)
         return y if b is None else y + b.to(y.dtype)
 
     @staticmethod
     def backward(ctx, dy):
         x, w, b = ctx.saved_tensors
-        dx, dw = conv_transpose_vjp(ctx.plan, x, w, dy)
+        dx, dw = conv_transpose_vjp(ctx.plan, x, w, dy, mesh=ctx.mesh)
         db = (dy.float().sum(dim=tuple(range(dy.ndim - 1))).to(b.dtype)
               if b is not None else None)
         return None, dx, dw, db
@@ -196,7 +256,20 @@ def conv_transpose(plan: DeconvPlan, x: torch.Tensor, w: torch.Tensor,
     """Transposed convolution of ``x`` with the raw filter ``w`` (``(*K,
     Cin, Cout)``) through the split layout, differentiable in ``x``, ``w``
     and ``b``.  ``plan`` must be geometry-only; no activation is applied
-    (compose it outside)."""
+    (compose it outside).
+
+    A ``plan.with_shards(n, axis)`` plan is the SPMD training form: under
+    :func:`~repro_torch.distributed.spmd`, ``w`` is this rank's
+    ``cout/n`` block of the filter, the split conv runs on it and the
+    output's channel axis is gathered over ``axis``; the backward keeps
+    the filter grad on the shard and sums the input grad over ``axis``
+    (:func:`~repro_torch.sd.grad.conv_transpose_vjp`)."""
+    if plan.shards > 1:
+        shard_mesh(plan)
+        if w.shape[-1] != plan.cout_local:
+            raise ValueError(f"a plan sharded {plan.shards} ways takes the "
+                             f"rank's {plan.cout_local} output channels of "
+                             f"w, not {w.shape[-1]}")
     if plan.bound:
         raise ValueError("conv_transpose takes a geometry-only plan plus "
                          "the raw filter; use execute(plan, x) for bound "

@@ -1,6 +1,6 @@
 """The backward pass of split deconvolution, as stride-1 convolutions.
 
-The port of ``repro.sd.grad`` (without sharding).  The forward is
+The port of ``repro.sd.grad``.  The forward is
 
     xp  = pad(x, P_I)
     y1  = conv_valid(xp, ws)          ws = split_filters(w)
@@ -27,6 +27,16 @@ engine binds a layer to ``winograd`` wherever K4 measured faster, and
 that layer's training step must stay on the card's kernels.  A
 ``torch`` plan, and every rank-3 plan, runs the ``F.conv``-based
 formulations below.
+
+A Cout-sharded plan (``plan.shards > 1``, under
+:func:`~repro_torch.distributed.spmd`): ``w`` is the rank's Cout block
+and ``dy`` the cotangent of the gathered output, whole on every rank of
+the shard axis.  The gather's adjoint is a slice, so the rank takes its
+block of ``dy`` (from ``model_index * coutl``) and runs the same local
+backward: ``dw`` stays on the shard (on the kernels K3 runs on the local
+``dy1``, ``phases * coutl`` channels), and ``dx``, a sum over every
+output channel, is K2 on the local filters followed by one all-reduce
+over the shard axis.
 """
 
 from __future__ import annotations
@@ -78,16 +88,26 @@ def split_cotangent(plan: DeconvPlan, dy: torch.Tensor) -> torch.Tensor:
 
 
 def conv_transpose_vjp(plan: DeconvPlan, x: torch.Tensor, w: torch.Tensor,
-                       dy: torch.Tensor
+                       dy: torch.Tensor, mesh=None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(dx, dw)`` for ``y = conv_transpose(plan, x, w)``.  Both
     gradients are computed over the split layout: the cotangent is
     pixel-unshuffled once and the two convolutions run on ``K_T``-tap
-    stride-1 geometry, with no inserted zeros."""
+    stride-1 geometry, with no inserted zeros.  ``mesh``: a sharded
+    plan's mesh (default: the active :func:`~repro_torch.distributed.spmd`
+    one; autograd may run a CUDA backward on another thread, so
+    ``conv_transpose`` passes the forward's)."""
     rank = plan.rank
     kt, _, pi = sd_geometry(plan.kernel, plan.stride)
     space = tuple(x.shape[1:1 + rank])
     ws = split_filters(w, plan.stride)
+    if plan.shards > 1:
+        if mesh is None:
+            from repro_torch.sd.functional import shard_mesh
+            mesh = shard_mesh(plan)
+        coutl = w.shape[-1]                  # all_gather^T: a slice
+        dy = dy.narrow(dy.ndim - 1,
+                       mesh.axis_index(plan.shard_axis) * coutl, coutl)
     dy1 = split_cotangent(plan, dy)
     on_kernels = plan.backend in ("fused", "winograd")
     if on_kernels and rank == 2:
@@ -108,4 +128,6 @@ def conv_transpose_vjp(plan: DeconvPlan, x: torch.Tensor, w: torch.Tensor,
         dws = conv_valid_filter_grad(
             _pad_spatial(x, [(p, p) for p in pi]), dy1)
     dw = unsplit_filters(dws, plan.kernel, plan.stride)      # split^T
+    if plan.shards > 1:           # dx sums over every output channel
+        dx = mesh.all_reduce(dx, plan.shard_axis)
     return dx.to(x.dtype), dw.to(w.dtype)

@@ -27,13 +27,26 @@ Winograd kernel, from oc-major filters transformed at bind (layout
 only).
 ``"auto"`` means fused for a CUDA device and torch for the CPU; with no
 device named it means the card (and raises without one).
+
+Cout sharding (the reference's ``shards``/``shard_axis``): a plan marked
+:meth:`DeconvPlan.with_shards` ``(n, axis)``, or bound with ``mesh=``,
+runs one ``1/n`` block of the output channels on each rank of the
+mesh's ``axis`` and gathers the channel axis after the epilogue
+(:mod:`repro_torch.sd.functional`).  A bound sharded plan holds only this
+rank's block of ``ws``, ``bias`` and ``wscale`` (:meth:`DeconvPlan.
+shard_put`).  Oc-major and Winograd filters are already contiguous per
+Cout block; n-major filters (the ``torch`` backend, the rank-3 ``fused``
+lowering) are first relaid by :func:`to_shardblocked`.
+The reference's ``shard_scope`` has no counterpart: under
+:func:`~repro_torch.distributed.spmd` the models' differentiable path
+marks each layer on the active mesh's model degree itself.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, replace
-from typing import Optional, Sequence, Tuple, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -78,6 +91,22 @@ def to_ocmajor(ws: torch.Tensor, s, phases: Optional[int] = None
     return w.transpose(-1, -2).reshape(*kt, cin, nc).contiguous()
 
 
+def to_shardblocked(ws: torch.Tensor, s, shards: int,
+                    phases: Optional[int] = None) -> torch.Tensor:
+    """Permute n-major split filters so that each contiguous
+    ``1/shards`` of the channel axis is itself n-major over one Cout
+    block (reference ``to_shardblocked``): channel ``shard*(phases*
+    Coutl) + phase*Coutl + ocl``, where plain n-major ``phase*Cout +
+    oc`` spreads every shard's channels over all the phase blocks."""
+    rank = ws.ndim - 2
+    if phases is None:
+        phases = math.prod(_ntuple(s, rank))
+    kt = ws.shape[:rank]
+    cin, nc = ws.shape[rank], ws.shape[rank + 1]
+    w = ws.reshape(*kt, cin, phases, shards, nc // phases // shards)
+    return w.transpose(-2, -3).reshape(*kt, cin, nc).contiguous()
+
+
 @dataclass(frozen=True)
 class DeconvPlan:
     """Split layout of one transposed convolution (see module doc).
@@ -94,6 +123,8 @@ class DeconvPlan:
     tile: Optional[Union[GemmPlan, WinoPlan]] = None
     output_padding: Tuple[int, ...] = None  # normalised in plan()
     dtype: str = "native"                  # "native" | "int8"
+    shards: int = 1                        # Cout shards over shard_axis
+    shard_axis: str = "model"              # the mesh axis of the shards
     ws: Optional[torch.Tensor] = None
     bias: Optional[torch.Tensor] = None
     wscale: Optional[torch.Tensor] = None   # int8: per split channel, f32
@@ -145,9 +176,73 @@ class DeconvPlan:
             return "ocmajor"
         return "nmajor"
 
+    @property
+    def cout_local(self) -> int:
+        """Output channels each shard computes (``cout`` unsharded)."""
+        return self.cout // self.shards
+
+    def with_shards(self, shards: int, axis: Optional[str] = None
+                    ) -> "DeconvPlan":
+        """Mark the plan Cout-sharded ``shards`` ways over mesh axis
+        ``axis`` (reference ``with_shards``): under :func:`~repro_torch.
+        distributed.spmd` each rank of the axis runs its ``cout/shards``
+        block and the output's channel axis is gathered.  ``bind(mesh=)``
+        sets this itself."""
+        shards = int(shards)
+        if shards < 1:
+            raise ValueError(f"shards must be >= 1, got {shards}")
+        if shards > 1 and self.cout % shards:
+            raise ValueError(
+                f"cout {self.cout} not divisible by {shards} shards")
+        return replace(self, shards=shards,
+                       shard_axis=self.shard_axis if axis is None
+                       else str(axis))
+
+    def block(self) -> "DeconvPlan":
+        """This rank's Cout block as a plan of its own: the same bound
+        leaves, ``cout_local`` channels and no gather, so it runs (and
+        times) the shard's kernel launch alone."""
+        return replace(self, shards=1, cout=self.cout_local)
+
+    def shard_specs(self) -> Dict[str, Tuple[Optional[str], ...]]:
+        """Which leaves slice (reference ``shard_specs``): ``{leaf:
+        spec}`` for every tensor leaf set, ``ws`` split on its channel
+        (last) axis and ``bias``/``wscale`` on their only axis over
+        ``shard_axis``, the scalar ``sx_in``/``sx_out`` replicated;
+        everything replicated when ``shards == 1``."""
+        ax = self.shard_axis if self.shards > 1 else None
+        out = {}
+        if self.ws is not None:
+            out["ws"] = (None,) * (self.ws.ndim - 1) + (ax,)
+        for name in ("bias", "wscale"):
+            if getattr(self, name) is not None:
+                out[name] = (ax,)
+        for name in ("sx_in", "sx_out"):
+            if getattr(self, name) is not None:
+                out[name] = ()
+        return out
+
+    def shard_put(self, mesh) -> "DeconvPlan":
+        """Keep this rank's block (reference ``shard_put``): each leaf
+        that :meth:`shard_specs` splits is narrowed to the rank's
+        contiguous slice on ``mesh`` (a :class:`~repro_torch.distributed.
+        Mesh`); the plan must hold every channel."""
+        from repro_torch.distributed.sharding import local_block
+        if ((self.ws is not None
+             and self.ws.shape[-1] != self.cout * self.phases)
+                or (self.bias is not None
+                    and self.bias.shape[-1] != self.cout)):
+            raise ValueError("shard_put needs a plan bound on every "
+                             "channel")
+        return replace(self, **{name: local_block(getattr(self, name), spec,
+                                                  mesh)
+                                for name, spec in self.shard_specs().items()
+                                if any(spec)})
+
     def bind(self, w: torch.Tensor, scale: Optional[torch.Tensor] = None,
              bias: Optional[torch.Tensor] = None,
-             act: Optional[str] = None) -> "DeconvPlan":
+             act: Optional[str] = None, mesh=None,
+             axis: str = "model") -> "DeconvPlan":
         """Split ``w`` once (the paper's offline transform) and return a
         bound plan.  ``scale`` (folded inference-BN gamma) multiplies the
         split filters' output channels: n-major channel ``n*Cout + oc``,
@@ -161,7 +256,16 @@ class DeconvPlan:
         (:func:`~repro_torch.core.quant.quantize_channelwise`): ``ws`` is
         int8 and ``wscale`` carries filter magnitude and BN gamma, in
         ``ws``'s channel order (n-major ``phase*Cout + oc``, relaid to
-        oc-major ``oc*phases + phase`` with the filters)."""
+        oc-major ``oc*phases + phase`` with the filters).
+
+        ``mesh`` (a :class:`~repro_torch.distributed.Mesh`) binds the
+        plan Cout-sharded over its ``axis`` (reference ``bind(mesh=)``):
+        the split, fold and quantization run on every channel, as
+        unsharded, so the per-channel scales are the same; n-major
+        filters (and ``wscale``) are then relaid shard-blocked
+        (:func:`to_shardblocked`), and the plan keeps this rank's block
+        (:meth:`shard_put`).  ``cout`` must divide by the axis' size;
+        bind a narrow layer without ``mesh`` to replicate it."""
         if tuple(w.shape) != (*self.kernel, self.cin, self.cout):
             raise ValueError(f"filter shape {tuple(w.shape)} does not match "
                              f"plan {(*self.kernel, self.cin, self.cout)}")
@@ -178,8 +282,26 @@ class DeconvPlan:
             wscale = wscale.reshape(self.phases, self.cout).t().reshape(-1)
         if layout == "wino":
             ws = transform_filters(ws)
-        return replace(self, ws=ws, bias=bias, layout=layout, wscale=wscale,
-                       act=self.act if act is None else act)
+        shards, shard_axis = self.shards, self.shard_axis
+        if mesh is not None:
+            if axis not in mesh.axis_names:
+                raise ValueError(f"mesh has no axis {axis!r}; axes are "
+                                 f"{tuple(mesh.axis_names)}")
+            shards, shard_axis = int(mesh.shape[axis]), axis
+            if shards > 1 and self.cout % shards:
+                raise ValueError(
+                    f"cout {self.cout} not divisible by mesh axis "
+                    f"{axis!r} size {shards}; bind without mesh= to "
+                    "replicate this layer")
+        if shards > 1 and layout == "nmajor":
+            ws = to_shardblocked(ws, self.stride, shards, self.phases)
+            if wscale is not None:
+                wscale = wscale.reshape(self.phases, shards, -1).transpose(
+                    0, 1).reshape(-1)
+        bound = replace(self, ws=ws, bias=bias, layout=layout, wscale=wscale,
+                        shards=shards, shard_axis=shard_axis,
+                        act=self.act if act is None else act)
+        return bound.shard_put(mesh) if mesh is not None else bound
 
     def with_tile(self, tile: Optional[Union[GemmPlan, WinoPlan]]
                   ) -> "DeconvPlan":
@@ -272,3 +394,4 @@ def plan(filter_shape: Sequence[int], stride, padding=0,
     return DeconvPlan(kernel=k, stride=st, padding=_pads_nd(padding, rank),
                       cin=cin, cout=cout, backend=resolved, act=act,
                       tile=tile, output_padding=op, dtype=dtype)
+

@@ -55,6 +55,9 @@ chip_smoke phase 12's gates.  The executor registry: ``selfcheck`` on
 the card launches K1, K2, K3, K4 and K1 int8 where the impls claim them
 (chip_smoke phase 13 (a)); ``fused`` and ``winograd`` match ``native``
 at DCGAN d1's shape; the plan cache keeps CPU and card plans apart.
+Scale-out: two gloo ranks sharing the card each run K1 once on their
+Cout block of DCGAN d1 and gather, equal to the unsharded plan within
+``1e-5 * max(1, max|ref|)`` (rank bodies in ``tests/_torch_spmd.py``).
 """
 
 import pytest
@@ -1671,3 +1674,18 @@ def test_plan_cache_keeps_cpu_and_card_plans_apart(dev):
         sd.functional_deconv(x, w, 2, 1)
     assert K.SD_FUSED_LAUNCHES == before + 1
     compat.clear_plan_cache()
+
+
+def test_sharded_dcgan_d1_on_k1_across_two_gloo_ranks(dev):
+    """Scale-out on one card: two gloo ranks on ``cuda:0`` each run K1
+    once on their Cout block of full-width DCGAN d1 (64 of 128 channels)
+    and gather; the output equals the unsharded plan within ``1e-5 *
+    max(1, max|ref|)`` on both ranks."""
+    from repro_torch.kernels.build import build
+    from repro_torch.launch.mesh import spawn
+    import _torch_spmd
+    build(["sd_fused"])               # once here, not in both ranks
+    for r in spawn(_torch_spmd.cuda_d1_worker, 2, backend="gloo",
+                   timeout_s=300):
+        assert r["launches"] == 1 and r["local_cout"] == 64, r
+        assert r["shape"] == r["ref_shape"] and r["d"] <= r["tol"], r

@@ -15,7 +15,12 @@ CUDA the port's default device raises instead of falling back to the
 CPU.  A second interpreter, with the same two blocked, imports the
 executor registry, the wrong baselines and ``sd.compat``, runs every
 registered impl once on the CPU and ``examples/quickstart_torch.py
---device cpu``.
+--device cpu``.  A third spawns four gloo ranks on the CPU
+(``repro_torch.launch.mesh.spawn``) that block the same two before
+anything else and run the scale-out: ``serve_gen --dryrun --dp 2 --mp 2``
+on the fused backend (the sharded engine, plans and model), a sharded
+train step (``train_gen.make_sharded_train_step``, the sharded
+``sd.conv_transpose`` and its backward) and ``sd.execute_spmd``.
 """
 
 import os
@@ -115,6 +120,36 @@ def test_registry_and_quickstart_run_with_jax_unimportable():
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.count("ran ") == 10, out.stdout
     assert "SD output == native: True" in out.stdout
+    assert "NO_JAX_OK" in out.stdout
+
+
+SPMD_CODE = """
+import sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+sys.path.insert(0, {tests!r})
+import _torch_spmd
+from repro_torch.distributed import sharding
+from repro_torch.launch.mesh import spawn
+out = spawn(_torch_spmd.blocked_worker, 4, backend="gloo", timeout_s=240)
+for r in out:
+    assert r["served"] == 8 and r["shed"] == 0, r
+    assert r["y"] == (4, 10, 12, 8) and r["loss"] == r["loss"], r
+    assert not r["bad"], r
+bad = sorted(m for m in sys.modules
+             if (m == "jax" or m.startswith("jax.") or m == "repro"
+                 or m.startswith("repro.")) and sys.modules[m] is not None)
+assert not bad, bad
+print("NO_JAX_OK")
+"""
+
+
+def test_scale_out_runs_with_jax_unimportable():
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    code = SPMD_CODE.format(tests=os.path.join(REPO, "tests"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=REPO, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
     assert "NO_JAX_OK" in out.stdout
 
 

@@ -109,18 +109,55 @@ def test_segnet_head_is_logits_and_fused_backend_matches():
     assert fused.model("segnet-dryrun")[0].engine.backend == "fused"
 
 
+def test_a_mesh_server_serves_without_deadlines(capsys):
+    """Ranks of a mesh server must launch the same groups, and each would
+    shed by its own clock: ``--deadline-ms`` with ``--dp``/``--mp`` is a
+    usage error, and ``serve_async`` refuses a deadline on a mesh server
+    before any collective (a layout-only mesh here), with the requests
+    agreed once per run rather than before every batch."""
+    from repro_torch.distributed import Mesh
+    with pytest.raises(SystemExit):
+        main(["--dryrun", "--device", "cpu", "--dp", "2",
+              "--dist-backend", "gloo", "--deadline-ms", "50"])
+    assert "--deadline-ms needs one process" in capsys.readouterr().err
+    server = GenServer(nets=("dcgan-dryrun",), specs=reduced_specs(),
+                       device="cpu")
+    reqs = server.random_requests("dcgan-dryrun", 2)
+    server._mesh = Mesh(1, 2)
+    with pytest.raises(ValueError, match="shed by its own clock"):
+        serve_async(server, reqs, deadline_ms=50.0)
+
+
 @pytest.mark.parametrize("flags", [["--dp", "2"], ["--pretune"],
                                    ["--mp", "2"]])
 def test_later_slices_point_to_roadmap(flags, tmp_path, monkeypatch,
                                        capsys):
-    """``--dp``/``--mp`` point to ROADMAP.md.  ``--pretune`` is ported:
-    on the default backend (``torch`` on the CPU, no kernel) it tunes
-    nothing; on ``fused`` it times K1 and K4 on every rank-2 deconv layer
-    of the dryrun specs at every bucket before serving, writes measured
-    entries to the plan cache and sheds nothing."""
+    """``--dp``/``--mp`` and ``--pretune`` are ported.  Outside a process
+    group of ``dp * mp`` ranks, ``--dp 2`` and ``--mp 2`` raise the
+    launcher's error (the reference raises on too few devices); in
+    spawned gloo ranks on the CPU, ``--dp 2 --mp 2`` (4 ranks) and ``--mp
+    2`` (2 ranks) serve the dryrun with nothing shed, every rank, each
+    cell keyed by its mesh.  ``--pretune`` on the default backend
+    (``torch`` on the CPU, no kernel) tunes nothing; on ``fused`` it
+    times K1 and K4 on every rank-2 deconv layer of the dryrun specs at
+    every bucket before serving, writes measured entries to the plan
+    cache and sheds nothing."""
     if flags != ["--pretune"]:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            main(["--dryrun", "--device", "cpu", *flags])
+        from repro_torch.launch.mesh import spawn
+        from repro_torch.launch.serve_gen import spmd_main
+        with pytest.raises(ValueError, match="process group"):
+            main(["--dryrun", "--device", "cpu", *flags,
+                  "--dist-backend", "gloo"])
+        argv = ["--dryrun", "--device", "cpu", "--mp", "2",
+                "--dist-backend", "gloo"]
+        if flags[0] == "--dp":
+            argv += ["--dp", "2"]
+        world = 4 if flags[0] == "--dp" else 2
+        suffix = "dp2xmp2" if world == 4 else "dp1xmp2"
+        for stats in spawn(spmd_main, world, backend="gloo", args=(argv,),
+                           timeout_s=240):
+            assert stats["served"] == 8 and stats["shed"] == 0, stats
+            assert all(suffix in key for key in stats["compile_cache"])
         return
     cache = tmp_path / "sd_plans.json"
     monkeypatch.setenv("REPRO_TORCH_SD_PLAN_CACHE", str(cache))
