@@ -261,6 +261,28 @@ Drives ``repro_torch`` only (never JAX, never the JAX package ``repro``):
    the leaf's largest reference gradient.  Four ranks as dp2 x mp2 run (b)'s f32 and
    calibrated int8 servers.  Every time printed there is gloo's host copy
    on one card, not a scale-out time.
+15. checkpoints and dense-LM training (``repro_torch.checkpoint``,
+   ``launch/train.py``, ``launch/steps.make_train_step``): (a)
+   ``train_gen.main --steps 6 --batch 16 --deconv-impl sd_kernel`` on
+   full-width DCGAN, K1 / K2 / K3 launches 3 / 3 / 3 per generator step
+   and 3 / 0 / 0 per discriminator step; its blocking step-6 checkpoint
+   restored into a fresh template equal to the trained ``{g, d}`` bit for
+   bit; a ``GenServer`` swapped onto the restored generator
+   (``swap_checkpoint``) serves 16 latents bit-identical to one holding
+   the trained generator; (b) ``launch.train.main`` on the reduced
+   StableLM-2-12B on the card, 6 steps straight (checkpoints at 3 and 6)
+   and a fresh call with ``--resume auto`` from the step-3 checkpoint
+   alone: params bit for bit; (c) ``make_train_step`` there, 3 steps on
+   the card against the same steps on the CPU (TF32 off): losses within
+   ``1e-5`` relative, params within ``1e-5 * max(1, max|ref|)`` where the
+   gradient is determined (AdamW's elements whose gradient sits at the
+   sums' rounding level within their ``2 * lr * steps`` bound, at most 1%
+   of them); the loss's grads at seq 4,096 within ``1e-4`` of each leaf's
+   max, with 0 K5 launches over them and a train step there; (d)
+   full-width StableLM-2-12B cut to 2 of its 40 layers, batch 8 x 128, 3
+   ``make_train_step`` steps: finite loss and gnorm, every leaf changed
+   after step 1, host ms per step, the busy share of a profiled step and
+   peak memory.
 
 Every printed number carries the card's name and power limit.  The line
 before the last is ``{"kernels": [...]}``; the last is ``{"ok": true,
@@ -4783,6 +4805,416 @@ def _scaleout_phase(dev, tag, rank_fn=None) -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: checkpoints and dense-LM training
+# ---------------------------------------------------------------------------
+
+CKPT_GAN_STEPS = 6        # (a): the blocking save at the end is step 6
+LM_RESUME_STEPS = 6       # (b): straight, and resumed from step 3's save
+LM_RESUME_EVERY = 3
+LM_CHECK_STEPS = 3        # (c): card against the CPU, reduced StableLM
+LM_CHECK_SEQ, LM_CHECK_BATCH = 32, 4
+LM_CHECK_LR = 1e-3
+LM_LONG_SEQ = 4096        # (c): past 2,048 tokens, the scan under grad
+LM_TRAIN_LAYERS = 2       # (d): full-width StableLM-2-12B cut to 2 of 40
+LM_TRAIN_BATCH, LM_TRAIN_SEQ = 8, 128
+LM_TRAIN_STEPS = 3
+LM_LOSS_RTOL = 1e-5       # card loss vs CPU, relative
+LM_PARAM_GATE = 1e-5      # card params vs CPU, rel. max(1, max|ref|)
+LM_GRAD_GATE = 1e-4       # card grads vs CPU, rel. the leaf's max|ref|
+LM_LOOSE_SHARE = 0.01     # AdamW's undetermined elements, at most
+CKPT_KERNELS = {"sd_fused": "K1", "sd_conv": "K2", "sd_filter_grad": "K3"}
+
+
+def _leaf_items(tree):
+    from repro_torch.checkpoint.manager import _flatten
+    return {k: v for k, v in _flatten(tree).items()
+            if not k.endswith("#none")}
+
+
+def _adam_gate(got, want, grads, lr: float) -> dict:
+    """Params after ``len(grads)`` AdamW steps against a reference run:
+    ``max|d|`` over the elements whose reference gradient was determined
+    at every step (above ``LM_GRAD_GATE`` of its leaf's max), gated at
+    ``LM_PARAM_GATE * max(1, max|ref|)``; AdamW divides each element's
+    moment by its own magnitude, so an element whose gradient sits at
+    the sums' rounding level moves by an arbitrary share of its bound
+    ``lr`` a step: those are held to ``2 * lr * steps`` and to
+    ``LM_LOOSE_SHARE`` of the elements.  Returns the worst reading."""
+    import torch
+    g, w = _leaf_items(got), _leaf_items(want)
+    gs = [_leaf_items(t) for t in grads]
+    worst = {"ratio": 0.0, "leaf": None, "loose": 0, "total": 0,
+             "loose_max": 0.0, "ok": sorted(g) == sorted(w)}
+    for k, ref in w.items():
+        a = g[k].detach().float().cpu()
+        b = ref.detach().float().cpu()
+        free = torch.zeros(b.shape, dtype=torch.bool)
+        for t in gs:
+            r = t[k].detach().float().cpu().abs()
+            free |= (r > 0) & (r <= LM_GRAD_GATE * r.max())
+        d = (a - b).abs()
+        tol = LM_PARAM_GATE * max(1.0, b.abs().max().item())
+        fixed = d[~free].max().item() if (~free).any() else 0.0
+        loose = d[free].max().item() if free.any() else 0.0
+        if fixed / tol > worst["ratio"]:
+            worst.update(ratio=fixed / tol, leaf=k)
+        worst["loose_max"] = max(worst["loose_max"], loose)
+        worst["loose"] += int(free.sum())
+        worst["total"] += free.numel()
+        if fixed > tol or loose > 2 * lr * len(gs):
+            worst["ok"] = False
+    if worst["loose"] > LM_LOOSE_SHARE * worst["total"]:
+        worst["ok"] = False
+    return worst
+
+
+def _ckpt_gan(dev, tag, work) -> dict:
+    """Phase 15 (a): ``train_gen.main`` on full-width DCGAN through K1 /
+    K2 / K3, its blocking step-6 checkpoint restored bit for bit, and a
+    server swapped onto the restored generator serving bit-identically
+    to one holding the trained generator."""
+    import torch
+    import repro_torch.kernels.sd_conv as K
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data import GANLatentPipeline
+    from repro_torch.launch import train_gen
+    from repro_torch.launch.serve_gen import GenServer
+
+    def counts():
+        return (K.SD_FUSED_LAUNCHES, K.SD_CONV_LAUNCHES,
+                K.SD_FILTER_GRAD_LAUNCHES)
+
+    steps = {"d": [], "g": []}
+    held = {}
+    real_d, real_g = train_gen.d_step, train_gen.g_step
+
+    def d_counted(*a):
+        c0 = counts()
+        out = real_d(*a)
+        steps["d"].append(tuple(b - c for b, c in zip(counts(), c0)))
+        return out
+
+    def g_counted(gen, disc, gp, dp, g_opt, z):
+        c0 = counts()
+        out = real_g(gen, disc, gp, dp, g_opt, z)
+        steps["g"].append(tuple(b - c for b, c in zip(counts(), c0)))
+        held.update(gen=gen, disc=disc, g=gp, d=dp)
+        return out
+
+    out_dir = os.path.join(work, "dcgan")
+    torch.cuda.synchronize()
+    _zero_launch_counts()
+    train_gen.d_step, train_gen.g_step = d_counted, g_counted
+    t0 = time.perf_counter()
+    try:
+        d_hist, g_hist = train_gen.main([
+            "--steps", str(CKPT_GAN_STEPS), "--batch", str(BUCKET),
+            "--out", out_dir, "--deconv-impl", "sd_kernel",
+            "--device", str(dev)])
+    finally:
+        train_gen.d_step, train_gen.g_step = real_d, real_g
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(zip(CKPT_KERNELS, counts()))
+    gen, disc = held["gen"], held["disc"]
+    ok_launch = (all(s == (3, 0, 0) for s in steps["d"])
+                 and all(s == (3, 3, 3) for s in steps["g"])
+                 and len(steps["g"]) == CKPT_GAN_STEPS)
+    mgr = CheckpointManager(os.path.join(out_dir, "ckpt"))
+    template = {"g": gen.init(torch.Generator().manual_seed(SEED + 7)),
+                "d": disc.init(torch.Generator().manual_seed(SEED + 8))}
+    step, got = mgr.restore(template)
+    mem = {"g": held["g"], "d": held["d"]}
+    differ = [f"{net}/{k}/{n}" for net in mem for k in mem[net]
+              for n in mem[net][k]
+              if not torch.equal(got[net][k][n], mem[net][k][n].detach())]
+    ok_restore = (step == CKPT_GAN_STEPS and mgr.steps() == [step]
+                  and not differ
+                  and all(map(math.isfinite, d_hist + g_hist)))
+    print(f"ckpt (a): train_gen.main --steps {CKPT_GAN_STEPS} --batch "
+          f"{BUCKET} --deconv-impl sd_kernel on full-width DCGAN: "
+          f"{wall:.2f} s host clock, launches per D step {steps['d']}, per "
+          f"G step {steps['g']} (K1, K2, K3), in the run {launches}; "
+          f"d_loss {d_hist[-1]:.4f} g_loss {g_hist[-1]:.4f}; checkpoints "
+          f"{mgr.steps()}, step {step} restored into a fresh template: "
+          f"{len(differ)} leaves differ from the trained {{g, d}} "
+          f"{'ok' if ok_launch and ok_restore else 'FAIL'} {tag}")
+    if not ok_launch:
+        raise SystemExit("chip_smoke: phase 15 (a)'s GAN steps did not run "
+                         "K1 3 (D), K1/K2/K3 3/3/3 (G)")
+    if not ok_restore:
+        raise SystemExit(f"chip_smoke: phase 15 (a)'s checkpoint does not "
+                         f"restore the trained nets: {differ[:4]}")
+
+    # the restored generator, hot-swapped into a server, serves as the
+    # trained one does
+    z = GANLatentPipeline(z_dim=gen.spec.layers[0].cin, global_batch=BUCKET,
+                          seed=SEED + 9).batch(0)
+    latents = list(z.numpy())
+    served = {}
+    for name, g in (("trained", {k: {n: t.detach() for n, t in v.items()}
+                                 for k, v in held["g"].items()}),
+                    ("restored", got["g"])):
+        server = GenServer(("dcgan",), device=dev, backend="fused",
+                           seed=SEED)
+        server.swap_checkpoint("dcgan", g)
+        before = K.SD_FUSED_LAUNCHES
+        served[name] = server.run_group("dcgan", latents)
+        torch.cuda.synchronize()
+        served[name + "_k1"] = K.SD_FUSED_LAUNCHES - before
+    ok = (torch.equal(served["trained"], served["restored"])
+          and served["restored_k1"] == 3
+          and bool(torch.isfinite(served["restored"]).all())
+          and tuple(served["restored"].shape) == (BUCKET, 64, 64, 3))
+    print(f"ckpt (a): GenServer.swap_checkpoint with the restored G serves "
+          f"{BUCKET} latents {tuple(served['restored'].shape)} "
+          f"{'bit-identical' if ok else 'NOT identical'} to a server "
+          f"holding the trained G, K1 launches {served['restored_k1']} / "
+          f"{served['trained_k1']} {'ok' if ok else 'FAIL'} {tag}")
+    if not ok:
+        raise SystemExit("chip_smoke: phase 15 (a): the restored generator "
+                         "serves differently")
+    return {"launches": launches, "d_steps": steps["d"],
+            "g_steps": steps["g"], "wall_s": wall, "d_loss": d_hist,
+            "g_loss": g_hist}
+
+
+def _lm_resume(dev, tag, work) -> dict:
+    """Phase 15 (b): ``launch.train.main`` on the reduced StableLM on the
+    card, 6 steps straight (checkpoints at 3 and 6), then a fresh call
+    with ``--resume auto`` whose ``--out`` holds the step-3 checkpoint
+    alone (a job preempted after it): params bit for bit."""
+    import shutil
+    import torch
+    import repro_torch.kernels.flash_attn as FA
+    from repro_torch.launch import train
+
+    base = ["--arch", LM_ARCH, "--reduced", "--steps", str(LM_RESUME_STEPS),
+            "--ckpt-every", str(LM_RESUME_EVERY), "--batch", "4", "--seq",
+            "16", "--device", str(dev)]
+    a, b = os.path.join(work, "lm_a"), os.path.join(work, "lm_b")
+    FA.FLASH_ATTN_LAUNCHES = 0
+    t0 = time.perf_counter()
+    straight = train.main(base + ["--out", a])
+    first = f"step_{LM_RESUME_EVERY:010d}"
+    os.makedirs(os.path.join(b, "ckpt"))
+    shutil.copytree(os.path.join(a, "ckpt", first),
+                    os.path.join(b, "ckpt", first))
+    resumed = train.main(base + ["--out", b])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    sp, rp = _leaf_items(straight["params"]), _leaf_items(resumed["params"])
+    differ = [k for k in sp if not torch.equal(sp[k], rp[k])]
+    ran = [h["step"] for h in resumed["history"]]
+    same_loss = ([h["loss"] for h in resumed["history"]]
+                 == [h["loss"] for h in straight["history"][LM_RESUME_EVERY:]])
+    ok = (not differ and sorted(sp) == sorted(rp) and same_loss
+          and ran == list(range(LM_RESUME_EVERY + 1, LM_RESUME_STEPS + 1))
+          and all(t.device.type == dev.type for t in rp.values()))
+    print(f"ckpt (b): launch.train.main --arch {LM_ARCH} --reduced on the "
+          f"card, {LM_RESUME_STEPS} steps straight vs resumed from the step-"
+          f"{LM_RESUME_EVERY} checkpoint (steps {ran}): {len(differ)} of "
+          f"{len(sp)} leaves differ, losses "
+          f"{'equal' if same_loss else 'differ'}; K5 launches "
+          f"{FA.FLASH_ATTN_LAUNCHES}; {wall:.2f} s host clock for both "
+          f"calls {'ok' if ok else 'FAIL'} {tag}")
+    if not ok:
+        raise SystemExit(f"chip_smoke: phase 15 (b): the resumed run is not "
+                         f"bit-identical to the straight one: {differ[:4]}")
+    return {"differ": len(differ), "wall_s": wall,
+            "loss": [h["loss"] for h in straight["history"]]}
+
+
+def _lm_card_vs_cpu(dev, tag) -> dict:
+    """Phase 15 (c): the port's ``make_train_step`` on the reduced
+    StableLM, 3 steps on the card against the same steps on the CPU (TF32
+    off); then the loss's grads at seq 4,096 on both, with K5 counted
+    over them and one card step there."""
+    import torch
+    import repro_torch.kernels.flash_attn as FA
+    from repro_torch.configs import get
+    from repro_torch.data import SyntheticTokenPipeline
+    from repro_torch.launch.steps import make_train_step, value_and_grad
+    from repro_torch.models.lm import build_lm
+    from repro_torch.optim import adamw_init
+
+    cfg = get(LM_ARCH).reduced()
+    lms = {"cpu": build_lm(cfg, device="cpu"), "card": build_lm(cfg, dev)}
+    p0 = lms["cpu"].init(torch.Generator().manual_seed(SEED))
+    devs = {"cpu": torch.device("cpu"), "card": dev}
+    params = {k: _tree_to(p0, d) for k, d in devs.items()}
+    opts = {k: adamw_init(p) for k, p in params.items()}
+    steps = {k: make_train_step(lm, base_lr=LM_CHECK_LR, warmup=1,
+                                total=2 * LM_CHECK_STEPS)
+             for k, lm in lms.items()}
+    pipe = SyntheticTokenPipeline(cfg.vocab_size, LM_CHECK_SEQ,
+                                  LM_CHECK_BATCH, seed=SEED)
+    losses, grads = {"cpu": [], "card": []}, []
+    for s in range(LM_CHECK_STEPS):
+        batch = pipe.batch(s)
+        grads.append(value_and_grad(lms["cpu"], params["cpu"], batch)[1])
+        for k in ("cpu", "card"):
+            params[k], opts[k], m = steps[k](
+                params[k], opts[k], {n: t.to(devs[k]) for n, t in
+                                     batch.items()})
+            losses[k].append(float(m["loss"]))
+    loss_rel = max(abs(a - b) / abs(b)
+                   for a, b in zip(losses["card"], losses["cpu"]))
+    gate = _adam_gate(params["card"], params["cpu"], grads, LM_CHECK_LR)
+    ok = gate["ok"] and loss_rel <= LM_LOSS_RTOL
+    print(f"ckpt (c): make_train_step on {cfg.name}, {LM_CHECK_STEPS} steps "
+          f"(batch {LM_CHECK_BATCH} x {LM_CHECK_SEQ}) card vs CPU, TF32 off: "
+          f"losses {losses['card']} vs {losses['cpu']}, worst rel "
+          f"{loss_rel:.3e} (gate {LM_LOSS_RTOL}); params worst "
+          f"{gate['ratio']:.3f} of the {LM_PARAM_GATE} gate at "
+          f"{gate['leaf']}, {gate['loose']} of {gate['total']} elements "
+          f"with a gradient at rounding level, max|d| there "
+          f"{gate['loose_max']:.3e} (bound {2 * LM_CHECK_LR * LM_CHECK_STEPS}"
+          f") {'ok' if ok else 'FAIL'} {tag}")
+    if not ok:
+        raise SystemExit("chip_smoke: phase 15 (c): the card's train steps "
+                         "disagree with the CPU's")
+
+    # past 2,048 tokens: grads on the plain scan, never K5
+    long = SyntheticTokenPipeline(cfg.vocab_size, LM_LONG_SEQ, 1,
+                                  seed=SEED + 1).batch(0)
+    ref_loss, ref = value_and_grad(lms["cpu"], params["cpu"], long)
+    torch.cuda.synchronize()
+    FA.FLASH_ATTN_LAUNCHES = 0
+    t0 = time.perf_counter()
+    loss, got = value_and_grad(lms["card"], params["card"],
+                               {n: t.to(dev) for n, t in long.items()})
+    torch.cuda.synchronize()
+    grad_ms = (time.perf_counter() - t0) * 1e3
+    _, _, m = steps["card"](params["card"], opts["card"],
+                            {n: t.to(dev) for n, t in long.items()})
+    torch.cuda.synchronize()
+    k5 = FA.FLASH_ATTN_LAUNCHES
+    g, r = _leaf_items(got), _leaf_items(ref)
+    errs = {k: ((g[k].float().cpu() - r[k].float()).abs().max()
+                / r[k].float().abs().max().clamp_min(1e-30)).item()
+            for k in r}
+    leaf = max(errs, key=errs.get)
+    rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+    ok = (errs[leaf] <= LM_GRAD_GATE and rel <= LM_LOSS_RTOL and k5 == 0
+          and math.isfinite(float(m["loss"])))
+    print(f"ckpt (c): loss and grads at seq {LM_LONG_SEQ} (batch 1) card vs "
+          f"CPU: loss rel {rel:.3e}, worst leaf {leaf} {errs[leaf]:.3e} of "
+          f"its max (gate {LM_GRAD_GATE}); K5 launches over the grads and "
+          f"one train step there {k5}; card grads {grad_ms:.1f} ms host "
+          f"clock {'ok' if ok else 'FAIL'} {tag}")
+    if not ok:
+        raise SystemExit(f"chip_smoke: phase 15 (c) at seq {LM_LONG_SEQ}: "
+                         "grads disagree or K5 ran under autograd")
+    return {"losses": losses, "loss_rel": loss_rel, "params": gate,
+            "long": {"loss_rel": rel, "worst_leaf": leaf,
+                     "worst": errs[leaf], "k5_launches": k5,
+                     "grad_ms": grad_ms}}
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
+    return tree.to(device, copy=True)
+
+
+def _lm_full_width(dev, tag) -> dict:
+    """Phase 15 (d): full-width StableLM-2-12B at ``LM_TRAIN_LAYERS``
+    layers, ``make_train_step`` for ``LM_TRAIN_STEPS`` steps at batch 8 x
+    128 (f32 params and AdamW, bf16 compute, the config's own)."""
+    import dataclasses
+    import torch
+    import repro_torch.kernels.flash_attn as FA
+    from repro_torch.configs import get
+    from repro_torch.data import SyntheticTokenPipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.lm import build_lm
+    from repro_torch.optim import adamw_init
+
+    cfg = dataclasses.replace(get(LM_ARCH), n_layers=LM_TRAIN_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lm = build_lm(cfg, device=dev)
+    params = lm.init(torch.Generator(device=dev).manual_seed(SEED))
+    n_params = lm.param_counts(params)[0]
+    opt = adamw_init(params)
+    step = make_train_step(lm)
+    pipe = SyntheticTokenPipeline(cfg.vocab_size, LM_TRAIN_SEQ,
+                                  LM_TRAIN_BATCH, seed=SEED)
+    before = {k: v.clone() for k, v in _leaf_items(params).items()}
+    FA.FLASH_ATTN_LAUNCHES = 0
+    ms, metrics, unchanged = [], [], None
+    for s in range(LM_TRAIN_STEPS):
+        batch = {k: v.to(dev) for k, v in pipe.batch(s).items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append((float(m["loss"]), float(m["gnorm"]), m["lr"]))
+        if s == 0:
+            now = _leaf_items(params)
+            unchanged = [k for k in before if torch.equal(before[k], now[k])]
+            del before, now
+            first_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            torch.cuda.reset_peak_memory_stats()   # the copy held above
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    batch = {k: v.to(dev) for k, v in pipe.batch(LM_TRAIN_STEPS).items()}
+    breakdown = _device_breakdown(lambda: step(params, opt, batch), top=8)
+    finite = all(math.isfinite(x) for l, g, _ in metrics for x in (l, g))
+    ok = finite and not unchanged and FA.FLASH_ATTN_LAUNCHES == 0
+    print(f"ckpt (d): full-width {cfg.name} at {LM_TRAIN_LAYERS} of 40 "
+          f"layers ({n_params / 1e9:.3f} G params, f32 params and AdamW, "
+          f"bf16 compute), batch {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ}, "
+          f"{LM_TRAIN_STEPS} make_train_step steps: (loss, gnorm, lr) "
+          f"{metrics}; host ms per step {[round(t, 3) for t in ms]} "
+          f"(synchronised); leaves unchanged after step 1: {unchanged}; "
+          f"K5 launches {FA.FLASH_ATTN_LAUNCHES}; peak memory over steps 2-"
+          f"{LM_TRAIN_STEPS} {peak:.2f} GiB (step 1, with a copy of the "
+          f"params to compare: {first_peak:.2f}) {'ok' if ok else 'FAIL'} "
+          f"{tag}")
+    busy = None
+    if breakdown is None:
+        print("  device time of one step: not measured (the profiler "
+              "reported no device time)")
+    else:
+        busy, wall, top = breakdown
+        print(f"  profiler, one step: device busy {busy:.3f} ms of "
+              f"{wall:.3f} ms wall (busy share {busy / wall:.3f}) {tag}")
+        for name, ms_k, calls in top:
+            print(f"    {ms_k:.3f} ms in {calls} call(s): {name[:90]}")
+    if not ok:
+        raise SystemExit("chip_smoke: phase 15 (d): a loss or gnorm is not "
+                         "finite, a leaf did not change, or K5 ran")
+    return {"params": n_params, "step_ms": ms, "metrics": metrics,
+            "peak_gib": peak, "first_peak_gib": first_peak,
+            "device": breakdown, "busy_ms": busy}
+
+
+def _ckpt_phase(dev, tag) -> dict:
+    """Phase 15: (a) DCGAN checkpoints trained on K1 / K2 / K3 and served
+    after a hot swap, (b) LM resume bit for bit, (c) the LM train step
+    card vs CPU and past 2,048 tokens without K5, (d) full-width
+    StableLM-2-12B at 2 layers.  Every failure raises."""
+    import shutil
+    import tempfile
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        report = {"gan": _ckpt_gan(dev, tag, work),
+                  "resume": _lm_resume(dev, tag, work)}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    report["card_vs_cpu"] = _lm_card_vs_cpu(dev, tag)
+    report["full_width"] = _lm_full_width(dev, tag)
+    report["phase_s"] = time.perf_counter() - t0
+    print(f"ckpt phase: {report['phase_s']:.1f} s host clock {tag}")
+    return report
+
+
 def main(json_path: str = "") -> int:
     t_start = time.perf_counter()
     sys.stdout.reconfigure(line_buffering=True)   # a cut run keeps its log
@@ -4808,7 +5240,7 @@ def main(json_path: str = "") -> int:
 
 
 def _smoke(json_path: str, t_start: float) -> int:
-    """Phases 1-14 (see the module doc) and the final two lines."""
+    """Phases 1-15 (see the module doc) and the final two lines."""
     import torch
     sys.path.insert(0, os.path.join(HERE, "src"))
     import torch.nn.functional as F
@@ -5237,6 +5669,10 @@ def _smoke(json_path: str, t_start: float) -> int:
     torch.cuda.empty_cache()
     scale = _scaleout_phase(dev, tag)
 
+    # ---- 15. checkpoints and dense-LM training ---------------------------
+    torch.cuda.empty_cache()
+    ckpt = _ckpt_phase(dev, tag)
+
     if "jax" in sys.modules or "repro" in sys.modules:
         raise SystemExit("chip_smoke: JAX or the JAX package was imported")
     total = {k: sum(r[k] for r in per_layer)
@@ -5295,6 +5731,9 @@ def _smoke(json_path: str, t_start: float) -> int:
             # phase 14: rank 0's launches over the sharded runs
             k["launches_sharded"] = scale["launches"].get(
                 SCALE_KERNELS[name], 0)
+        if name in CKPT_KERNELS:
+            # phase 15 (a): train_gen.main's 6 checkpointed GAN steps
+            k["launches_checkpoint_train"] = ckpt["gan"]["launches"][name]
         if k["name"] in ("sd_conv", "sd_filter_grad", "sd_wino"):
             k["sass_hmma_tf32"] = sass[k["name"]]["HMMA_TF32"]
         if k["name"] == "sd_conv":
@@ -5322,6 +5761,7 @@ def _smoke(json_path: str, t_start: float) -> int:
               "chain": {k: v for k, v in chain.items() if k != "record"},
               "lm": lm["report"], "wavegan": wave["report"],
               "pretune": pre, "registry": reg, "scaleout": scale,
+              "checkpoint": ckpt,
               "serve": {k: stats[k] for k in
                         ("served", "launches", "req_per_s", "wall_s",
                          "latency_ms")},
@@ -5374,8 +5814,9 @@ def _smoke(json_path: str, t_start: float) -> int:
           f"launches_registry counted over its self-checks, every impl at "
           f"full width and sd_fn's J_G^T c (K1, K1 int8, K2, K3, K4); phase "
           f"14: launches_sharded counted on rank 0 over its sharded runs, "
-          f"gloo ranks on one card (K1, K1 int8, K2, K2 int8, K3, K4)) "
-          f"{tag}")
+          f"gloo ranks on one card (K1, K1 int8, K2, K2 int8, K3, K4); "
+          f"phase 15: launches_checkpoint_train counted over train_gen.main's"
+          f" {CKPT_GAN_STEPS} checkpointed GAN steps (K1, K2, K3)) {tag}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,7 @@ copied to the device unchanged.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Callable, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -119,3 +119,42 @@ def lm_params_from_numpy(np_params: Mapping[str, Any], cfg: ArchConfig,
         return torch.from_numpy(np.array(a, copy=True)).to(dev)
 
     return walk(np_params, _lm_shapes(cfg), "")
+
+
+def _tensor_from_numpy(a, dev) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.kind == "V" or "bfloat16" in str(a.dtype):
+        return torch.from_numpy(a.astype(np.float32)).to(dev, torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True)).to(dev)
+
+
+def tree_from_numpy(tree, device):
+    """Nested dicts and lists of arrays (numpy, or anything ``np.asarray``
+    takes; bf16 included) -> the same structure of tensors on
+    ``device``; ``None`` stays ``None``."""
+    dev = resolve_device(device)
+
+    def walk(t):
+        if t is None:
+            return None
+        if isinstance(t, Mapping):
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [walk(v) for v in t]
+        return _tensor_from_numpy(t, dev)
+    return walk(tree)
+
+
+def opt_state_from_numpy(state, device,
+                         convert: Optional[Callable[[Any], Any]] = None):
+    """The reference's ``OptState`` (``step``, ``mu``, ``nu``,
+    ``master``; a 0-d int32 step and trees of arrays) -> the port's
+    :class:`~repro_torch.optim.OptState` on ``device``, its ``step`` a
+    Python int.  ``convert(tree)`` carries each of the three trees over
+    (e.g. ``lambda t: lm_params_from_numpy(t, cfg, device)`` to check
+    the LM's shapes); by default :func:`tree_from_numpy`."""
+    from repro_torch.optim import OptState
+    conv = convert or (lambda t: tree_from_numpy(t, device))
+    master = state.master
+    return OptState(int(np.asarray(state.step)), conv(state.mu),
+                    conv(state.nu), None if master is None else conv(master))

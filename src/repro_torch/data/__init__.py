@@ -1,5 +1,6 @@
 """Synthetic data pipelines of the port."""
 
-from repro_torch.data.pipeline import GANLatentPipeline
+from repro_torch.data.pipeline import (GANLatentPipeline,
+                                       SyntheticTokenPipeline, make_pipeline)
 
-__all__ = ["GANLatentPipeline"]
+__all__ = ["SyntheticTokenPipeline", "GANLatentPipeline", "make_pipeline"]

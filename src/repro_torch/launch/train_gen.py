@@ -25,7 +25,11 @@ Entry points:
 * :func:`main` — the GAN loop of the reference's
   ``examples/train_dcgan.py``: DCGAN (or a small twin) against
   :class:`~repro_torch.models.DCGANDiscriminator` on synthetic smooth
-  images, non-saturating BCE, AdamW (lr 2e-4, b1 0.5, no weight decay).
+  images, non-saturating BCE, AdamW (lr 2e-4, b1 0.5, no weight decay),
+  checkpointed as that example does: ``{"g": gp, "d": dp}`` every 100
+  steps and, blocking, at the end, into ``<--out>/ckpt`` (keep 2;
+  :mod:`repro_torch.checkpoint`, the reference's on-disk format, so
+  either package restores it).  Like the reference, it does not resume.
 
 ``--deconv-impl`` takes every registered impl that is trainable and
 exact (:func:`train_choices`: native, nzp, sd, sd_fn, sd_kernel,
@@ -37,7 +41,8 @@ engine's bound plans (K1 only); the AdamW step updates both nets in
 place, and the engine splits its filters again on the next sample.
 
     python -m repro_torch.launch.train_gen --steps 5            # the card
-    python -m repro_torch.launch.train_gen --small --device cpu
+    python -m repro_torch.launch.train_gen --small --device cpu \
+        --out runs/dcgan_small
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ from typing import Callable, Dict, List, Tuple
 
 import torch
 
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core import registry
 from repro_torch.core.accounting import LayerSpec, NetworkSpec
 from repro_torch.data import GANLatentPipeline
@@ -325,6 +331,8 @@ def main(argv=None) -> Tuple[List[float], List[float]]:
                     "J_G^T c through --deconv-impl against the native "
                     "reference in float64, each leaf to 1e-4 of its "
                     "max|ref| (see grad_check)")
+    ap.add_argument("--out", default="runs/dcgan",
+                    help="checkpoints go to OUT/ckpt")
     ap.add_argument("--device", default=None,
                     help="cuda (the default; raises without a card) or cpu")
     args = ap.parse_args(argv)
@@ -336,6 +344,7 @@ def main(argv=None) -> Tuple[List[float], List[float]]:
     g_opt, d_opt = adamw_init(gp), adamw_init(dp)
     pipe = GANLatentPipeline(z_dim=gen.spec.layers[0].cin,
                              global_batch=args.batch)
+    mgr = CheckpointManager(args.out + "/ckpt", keep=2)
 
     if args.grad_check:
         ref = GenerativeModel(gen.spec, deconv_impl="native", device=dev)
@@ -361,6 +370,9 @@ def main(argv=None) -> Tuple[List[float], List[float]]:
                   f"g_loss {g_hist[-1]:.3f} "
                   f"({(time.perf_counter() - t0) * 1e3:.0f} ms host clock, "
                   f"{dev})")
+        if (step + 1) % 100 == 0:
+            mgr.save(step + 1, {"g": gp, "d": dp})
+    mgr.save(args.steps, {"g": gp, "d": dp}, blocking=True)
     if d_hist:
         print(f"done. d_loss {d_hist[0]:.3f}->{d_hist[-1]:.3f}, "
               f"g_loss {g_hist[0]:.3f}->{g_hist[-1]:.3f}")

@@ -8,9 +8,13 @@ constraints have no counterpart here (one card).
 Long-sequence attention (:func:`blockwise_attention`) calls K5,
 :func:`repro_torch.kernels.flash_attn.flash_attention`, when its
 arguments are inside K5's contract (causal, no window, ``q_offset == 0``,
-every key valid, ``Sq == Sk``: the serving prefill), and otherwise runs
-the plain scan, a restatement of the reference's ``lax.scan``.  The
-choice depends on the arguments alone.
+every key valid, ``Sq == Sk``: the serving prefill) and no gradient is
+asked of them, and otherwise runs the plain scan, a restatement of the
+reference's ``lax.scan``.  K5 has no backward (nor has the reference's
+Pallas kernel, whose training path runs the scan): with grad mode on and
+q, k or v requiring grad, the scan runs, so training past 2,048 tokens
+never reaches K5.  The choice depends on the arguments and the grad mode
+alone.
 """
 
 from __future__ import annotations
@@ -110,6 +114,10 @@ def _in_k5_contract(q, k, causal, window, q_offset, kv_len) -> bool:
             and kv_len is None and q.shape[1] == k.shape[1])
 
 
+def _wants_grad(*ts: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def blockwise_attention(q, k, v, *, causal: bool, window: Optional[int],
                         q_offset, kv_len=None,
                         block: int = 1024) -> torch.Tensor:
@@ -118,11 +126,13 @@ def blockwise_attention(q, k, v, *, causal: bool, window: Optional[int],
 
     q: (B,Sq,Hq,D); k,v: (B,Sk,Hkv,D); q_offset: absolute position of
     q[0] (for decode); kv_len: valid kv length (None = all).  Inside K5's
-    contract the attention is one K5 launch on the transposed views,
-    returned in ``q.dtype``; otherwise the plain scan over blocks of
-    ``block`` keys, returned in f32 as the reference's.
+    contract, with no gradient asked of q, k or v, the attention is one
+    K5 launch on the transposed views, returned in ``q.dtype``;
+    otherwise the plain, differentiable scan over blocks of ``block``
+    keys, returned in f32 as the reference's.
     """
-    if _in_k5_contract(q, k, causal, window, q_offset, kv_len):
+    if (_in_k5_contract(q, k, causal, window, q_offset, kv_len)
+            and not _wants_grad(q, k, v)):
         o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                             v.transpose(1, 2), causal=True)
         return o.transpose(1, 2)
@@ -172,6 +182,57 @@ def _qkv(p, x, n_heads, n_kv, head_dim):
     return (q.reshape(b, s, n_heads, head_dim),
             k.reshape(b, s, n_kv, head_dim),
             v.reshape(b, s, n_kv, head_dim))
+
+
+def attention(p: Params, x: torch.Tensor, *, n_heads: int, n_kv: int,
+              head_dim: int, rope_theta: float,
+              window: Optional[int] = None, causal: bool = True,
+              cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+              positions: Optional[torch.Tensor] = None,
+              attn_block: int = 1024, use_rope: bool = True,
+              use_blockwise: Optional[bool] = None,
+              ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Cache-free attention (train / encoder / cross).
+
+    Returns (output (B,S,d_model), (k, v) computed this call).  Past
+    2,048 keys (or with ``use_blockwise``) :func:`blockwise_attention`,
+    else the quadratic masked path.  The reference's sharding
+    constraints on q, k and o have no counterpart on one card."""
+    b, s, _ = x.shape
+    if cross_kv is not None:
+        q = x @ p["wq"]
+        if "bq" in p:
+            q = q + p["bq"]
+        q = q.reshape(b, s, n_heads, head_dim)
+        k, v = cross_kv
+        causal = False
+    else:
+        q, k, v = _qkv(p, x, n_heads, n_kv, head_dim)
+        if use_rope:
+            if positions is None:
+                positions = torch.arange(s, device=x.device)
+            cos, sin = rope_tables(positions, head_dim, rope_theta)
+            q = apply_rope(q, cos, sin)
+            k = apply_rope(k, cos, sin)
+
+    if use_blockwise is None:
+        use_blockwise = k.shape[1] > 2048
+    if use_blockwise:
+        o = blockwise_attention(q, k, v, causal=causal, window=window,
+                                q_offset=0, kv_len=None, block=attn_block)
+    else:
+        sq, sk = q.shape[1], k.shape[1]
+        qpos = (sk - sq) + torch.arange(sq, device=x.device)
+        kpos = torch.arange(sk, device=x.device)
+        msk = torch.ones((sq, sk), dtype=torch.bool, device=x.device)
+        if causal:
+            msk &= kpos[None, :] <= qpos[:, None]
+        if window is not None:
+            msk &= kpos[None, :] > qpos[:, None] - window
+        o = _gqa_scores_combine(q, k, v, msk[None], x.dtype)
+
+    out = o.to(x.dtype).reshape(b, s, n_heads * head_dim) @ p["wo"]
+    return out, (k, v)
 
 
 def attention_cached(p: Params, x: torch.Tensor, cache: dict, pos: int, *,

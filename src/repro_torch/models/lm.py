@@ -1,4 +1,5 @@
-"""The dense decoder-only LM, in PyTorch: init, prefill and decode.
+"""The dense decoder-only LM, in PyTorch: init, training loss, prefill
+and decode.
 
 The port of the dense-decoder part of the JAX package's ``models/lm.py``,
 with its parameter tree: ``embed`` (V_pad, d), ``head`` (d, V_pad) unless
@@ -9,10 +10,18 @@ Python loop over the stacked leaves.  The KV cache has the reference's
 layout (``{"pos", "slots": [{"k", "v", "kpos"}]}``, ``pos`` a Python
 int here) and is updated in place.
 
+The training half (:meth:`LM.loss`, :meth:`LM.forward_train`) runs the
+same layers cache-free; with ``cfg.remat == "block"`` each repeat is
+recomputed in the backward (``torch.utils.checkpoint``, the reference's
+``jax.checkpoint``).  The reference's ``norm_barrier`` and activation
+sharding constraints have no counterpart on one card.
+
 Long prompts (more than 2,048 tokens) attend through K5
-(:mod:`repro_torch.kernels.flash_attn`).  MoE, SSM/xLSTM, hybrid, VLM and
-encoder-decoder configs are not ported (ROADMAP.md item 16):
-:func:`build_lm` refuses them.
+(:mod:`repro_torch.kernels.flash_attn`) in serving; training at any
+length takes the plain, differentiable scan, as the reference's does
+(:func:`repro_torch.models.layers.blockwise_attention`).  MoE,
+SSM/xLSTM, hybrid, VLM and encoder-decoder configs are not ported
+(ROADMAP.md item 16): :func:`build_lm` refuses them.
 """
 
 from __future__ import annotations
@@ -21,6 +30,8 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -51,7 +62,7 @@ class LM:
         why = unsupported(cfg)
         if why is not None:
             raise NotImplementedError(
-                f"{cfg.name}: {why} is not ported; the port serves dense "
+                f"{cfg.name}: {why} is not ported; the port runs dense "
                 "decoders only (ROADMAP.md item 16)")
         self.cfg = cfg
         self.pattern = cfg.pattern
@@ -124,7 +135,58 @@ class LM:
         return lg.float().masked_fill(~pad_mask, -1e30)
 
     def embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-        return params["embed"][tokens.long()]
+        # F.embedding: its CUDA backward sums a token's rows in a fixed
+        # order (sorted indices), so a training step is reproducible
+        return F.embedding(tokens.long(), params["embed"])
+
+    # ------------------------------------------------------------------
+    # forward (train path)
+    # ------------------------------------------------------------------
+    def _block_train(self, p: Params, x: torch.Tensor,
+                     use_rope: bool = True) -> torch.Tensor:
+        """One dense decoder block (kind ``"a"``, no MoE), cache-free."""
+        cfg = self.cfg
+        h = L.rms_norm(p["ln1"], x)
+        out, _ = L.attention(
+            p["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+            head_dim=cfg.hd, rope_theta=cfg.rope_theta,
+            window=cfg.sliding_window, causal=True,
+            attn_block=cfg.attn_block, use_rope=use_rope)
+        x = x + out
+        return x + L.mlp(p["mlp"], L.rms_norm(p["ln2"], x))
+
+    def _backbone_train(self, params: Params, x: torch.Tensor
+                        ) -> torch.Tensor:
+        """The repeats in order (the reference's ``lax.scan``), each one
+        recomputed in the backward when ``cfg.remat == "block"``; then
+        the final norm."""
+        slot = params["slots"][0]
+        for r in range(self.repeats):
+            p_r = _tree_map(lambda t: t[r], slot)
+            if self.cfg.remat == "block":
+                x = checkpoint(self._block_train, p_r, x,
+                               use_reentrant=False)
+            else:
+                x = self._block_train(p_r, x)
+        return L.rms_norm(params["final_ln"], x)
+
+    def forward_train(self, params: Params,
+                      batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Logits (B, S, V_pad) in f32 over the positions of
+        ``batch["inputs"]`` (decoder-only)."""
+        params = self._cast(params)
+        x = self.embed(params, batch["inputs"])
+        x = self._backbone_train(params, x)
+        return self.logits(params, x)
+
+    def loss(self, params: Params,
+             batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Mean next-token cross-entropy of ``batch["targets"]``."""
+        lg = self.forward_train(params, batch)
+        labels = batch["targets"].long()
+        lse = torch.logsumexp(lg, dim=-1)
+        gold = torch.gather(lg, -1, labels[..., None])[..., 0]
+        return torch.mean(lse - gold)
 
     # ------------------------------------------------------------------
     def _slot_cache(self, kind: str, batch: int, max_len: int):

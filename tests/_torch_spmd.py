@@ -1,5 +1,5 @@
 """Rank bodies of the port's SPMD tests (``tests/test_torch_shard_spmd.py``,
-``tests/test_torch_serve_gen.py``), run in spawned gloo ranks on the CPU
+``tests/test_torch_serve_gen.py``, ``tests/test_torch_train_infra.py``), run in spawned gloo ranks on the CPU
 by :func:`repro_torch.launch.mesh.spawn`.  Torch and numpy only: a
 spawned rank imports this module by name.
 
@@ -307,6 +307,65 @@ def cuda_d1_worker(rank: int, world: int) -> dict:
             "d": (y - ref).abs().max().item(),
             "tol": 1e-5 * max(1.0, ref.abs().max().item()),
             "shape": tuple(y.shape), "ref_shape": tuple(ref.shape)}
+
+
+def ckpt_worker(rank: int, world: int, path: str) -> dict:
+    """One of two gloo ranks on the CPU: ``train_spec``'s params from
+    :func:`make_inputs`, placed Cout-sharded on a dp1 x mp2 mesh, saved
+    by ``CheckpointManager.save(mesh=, specs=)`` (gathered, rank 0
+    writes); then restored by every rank unsharded, onto the mp2 mesh
+    and onto a dp2 x mp1 mesh.  Returns each restored tree and
+    ``place_params`` of the whole tree on both meshes, as numpy."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.distributed import MeshContext, gen_param_specs
+    from repro_torch.launch.mesh import make_dev_mesh
+    from repro_torch.launch.train_gen import place_params
+
+    spec = train_spec()
+    whole = params_from_numpy(numpy_params(make_inputs()), "cpu", spec)
+    meshes = {"mp2": make_dev_mesh(1, 2, backend="gloo", device="cpu"),
+              "dp2": make_dev_mesh(2, 1, backend="gloo", device="cpu")}
+    specs = {k: gen_param_specs(spec, MeshContext(m))
+             for k, m in meshes.items()}
+    mp2 = meshes["mp2"]
+    placed = place_params(whole, mp2, specs["mp2"])
+    mgr = CheckpointManager(path, keep=2)
+    mgr.save(5, {"g": placed}, blocking=True, mesh=mp2,
+             specs={"g": specs["mp2"]})
+    mp2.barrier()                    # rank 0's write is committed
+    out = {"steps": mgr.steps(), "whole": whole,
+           "sharded_leaves": sorted(
+               f"{k}/{n}" for k, v in specs["mp2"].items()
+               for n, sp in v.items() if any(sp))}
+    step, got = mgr.restore({"g": whole})
+    out["restored"] = got["g"]
+    for k, m in meshes.items():
+        step, got = mgr.restore({"g": whole}, shardings=(m, {"g": specs[k]}))
+        out[f"restored_{k}"] = got["g"]
+        out[f"placed_{k}"] = place_params(whole, m, specs[k])
+    out["step"] = step
+    return out
+
+
+def psum_worker(rank: int, world: int) -> dict:
+    """One of two gloo ranks on the CPU: ``compressed_psum`` of this
+    rank's vector over the data axis of a dp2 x mp1 mesh, through
+    ``make_pod_compressed_allreduce``."""
+    import torch
+    from repro_torch.distributed.compress import make_pod_compressed_allreduce
+    from repro_torch.launch.mesh import make_dev_mesh
+
+    mesh = make_dev_mesh(2, 1, backend="gloo", device="cpu")
+    xs = psum_inputs()
+    f = make_pod_compressed_allreduce(mesh, (None,), axis="data")
+    return {"out": f(torch.from_numpy(xs[rank]))}
+
+
+def psum_inputs() -> list:
+    """The two ranks' vectors of :func:`psum_worker`, numpy f32."""
+    rng = np.random.RandomState(3)
+    return [(rng.randn(257) * s).astype(np.float32) for s in (1.0, 3.0)]
 
 
 def failing_worker(rank: int, world: int) -> int:

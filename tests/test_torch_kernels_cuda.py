@@ -35,7 +35,8 @@ calibrated servers (DCGAN on K1 int8, VoxGAN on K2 int8) chain int8
 between layers and equal the card's int8 ``torch`` backend. K1, K4 and
 the 3-D lowering refuse an operand that requires grad under grad mode.
 The port's own f32 cuDNN convs run in full f32 with cuDNN's TF32 default
-on.
+on.  A full-width DCGAN generator step from a restored checkpoint runs
+K1 / K2 / K3 and equals the step from the state that was saved.
 K5 (flash attention) is held to ``flash_attention_ref`` at ``2e-5 *
 max(1, max|ref|)`` in f32 (``tests/test_flash_attn.py``'s tolerance) and
 ``1e-2 * max|ref|`` in bf16 (the oracle in f32 on the bf16 inputs), and
@@ -316,6 +317,43 @@ def test_training_step_runs_the_three_kernels(dev):
     assert torch.isfinite(loss)
     assert (K.SD_FUSED_LAUNCHES - counts[0], K.SD_CONV_LAUNCHES - counts[1],
             K.SD_FILTER_GRAD_LAUNCHES - counts[2]) == (2, 2, 2)
+
+
+def test_g_step_after_a_checkpoint_restore(dev, tmp_path, monkeypatch):
+    """Full-width DCGAN on the fused backend: ``{"g", "d", "g_opt"}``
+    saved, restored into fresh templates, and a generator step from the
+    restored state launches K1 / K2 / K3 3 / 3 / 3 and lands bit for bit
+    where the same step from the in-memory state does (cuDNN, which runs
+    the discriminator's convs, pinned to its deterministic algorithms)."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch import train_gen
+    from repro_torch.optim import adamw_init
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    gen, disc = train_gen.make_gan(False, "sd_kernel", dev)
+    gp = train_gen.trainable(gen.init(torch.Generator().manual_seed(0)))
+    dp = disc.init(torch.Generator().manual_seed(1))
+    g_opt = adamw_init(gp)
+    z = torch.randn(16, 100, generator=torch.Generator().manual_seed(2))
+    train_gen.g_step(gen, disc, gp, dp, g_opt, z.to(dev))   # a step 1
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(1, {"g": gp, "d": dp, "g_opt": g_opt}, blocking=True)
+    template = {"g": gen.init(torch.Generator().manual_seed(5)),
+                "d": disc.init(torch.Generator().manual_seed(6))}
+    template["g_opt"] = adamw_init(template["g"])
+    step, got = mgr.restore(template)
+    assert step == 1 and got["g_opt"].step == 1
+    assert got["g"]["d1"]["w"].device == dev
+    rg = train_gen.trainable(got["g"])
+    train_gen.g_step(gen, disc, gp, dp, g_opt, z.to(dev))
+    counts = (K.SD_FUSED_LAUNCHES, K.SD_CONV_LAUNCHES,
+              K.SD_FILTER_GRAD_LAUNCHES)
+    train_gen.g_step(gen, disc, rg, got["d"], got["g_opt"], z.to(dev))
+    torch.cuda.synchronize()
+    assert (K.SD_FUSED_LAUNCHES - counts[0], K.SD_CONV_LAUNCHES - counts[1],
+            K.SD_FILTER_GRAD_LAUNCHES - counts[2]) == (3, 3, 3)
+    for k in gp:
+        for n in gp[k]:
+            assert torch.equal(rg[k][n], gp[k][n]), (k, n)
 
 
 # ---------------------------------------------------------------------------
@@ -606,7 +644,8 @@ def test_int8_wrapper_refusals(dev):
                    pad=((2, 2), (2, 2)))
 
 
-def test_f32_cudnn_convs_ignore_the_tf32_default(dev, monkeypatch):
+def test_f32_cudnn_convs_ignore_the_tf32_default(dev, monkeypatch,
+                                                 tmp_path):
     """With cuDNN's TF32 default on (the ``dev`` fixture's pin undone),
     the port's own f32 convs stay in full f32, forward and backward: the
     small GAN's generator grads J_G^T c through native
@@ -618,7 +657,7 @@ def test_f32_cudnn_convs_ignore_the_tf32_default(dev, monkeypatch):
     from repro_torch.launch.train_gen import main
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
     main(["--small", "--steps", "0", "--deconv-impl", "native",
-          "--grad-check", "--device", "cuda"])
+          "--grad-check", "--device", "cuda", "--out", str(tmp_path)])
     g = torch.Generator().manual_seed(11)
     x = torch.randn(4, 16, 16, 128, generator=g).to(dev)
     w = (torch.randn(5, 5, 128, 64, generator=g) / 40).to(dev)

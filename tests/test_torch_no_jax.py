@@ -7,7 +7,10 @@ winograd backend, and in int8 on the torch and the fused backend; on
 K2's int8 pair and the 1-D ``wavegan-dryrun`` cell K1 int8 as an H=1
 launch; calibrated and chained, ``--calib``, with its cache in a
 temporary directory), takes two small GAN training steps on
-the CPU, serves the reduced StableLM-2-12B through the LM server
+the CPU (checkpointed into a temporary directory), trains the reduced
+StableLM-2-12B two steps through ``launch/train.py`` with a checkpoint
+after each (``checkpoint/``) and imports ``distributed/compress.py``,
+serves the reduced StableLM-2-12B through the LM server
 (``launch/serve.py``, whose K5 wrapper ``kernels/flash_attn.py`` and LM
 ``models/lm.py`` import too) and imports ``chip_smoke`` (without running
 it); and without
@@ -57,8 +60,17 @@ results, stats = serve_gen.main(["--dryrun", "--device", "cpu",
 assert stats["served"] == 8, stats
 from repro_torch.launch import train_gen
 d_hist, g_hist = train_gen.main(["--steps", "2", "--small", "--device",
-                                 "cpu", "--deconv-impl", "sd_kernel"])
+                                 "cpu", "--deconv-impl", "sd_kernel",
+                                 "--out", {gan_out!r}])
 assert len(g_hist) == 2, g_hist
+from repro_torch.launch import train
+from repro_torch.checkpoint import CheckpointManager
+import repro_torch.distributed.compress
+out = train.main(["--arch", "stablelm-12b", "--reduced", "--steps", "2",
+                  "--ckpt-every", "1", "--batch", "2", "--seq", "8",
+                  "--device", "cpu", "--out", {lm_out!r}])
+assert [h["step"] for h in out["history"]] == [1, 2], out["history"]
+assert CheckpointManager({lm_out!r} + "/ckpt").steps() == [1, 2]
 import repro_torch.kernels.flash_attn
 import repro_torch.models.lm
 from repro_torch.launch import serve
@@ -79,7 +91,9 @@ print("NO_JAX_OK")
 def test_port_runs_with_jax_unimportable(tmp_path):
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
                REPRO_TORCH_SD_CALIB_CACHE=str(tmp_path / "sd_calib.json"))
-    out = subprocess.run([sys.executable, "-c", CODE.format(repo=REPO)],
+    code = CODE.format(repo=REPO, gan_out=str(tmp_path / "dcgan"),
+                       lm_out=str(tmp_path / "lm"))
+    out = subprocess.run([sys.executable, "-c", code],
                          capture_output=True, text=True, env=env, cwd=REPO,
                          timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]

@@ -164,10 +164,10 @@ def test_gan_pipeline_matches_jax():
 
 
 @pytest.mark.parametrize("impl", ["sd", "sd_kernel"])
-def test_train_gen_main_runs_on_cpu(impl, capsys):
+def test_train_gen_main_runs_on_cpu(impl, capsys, tmp_path):
     d_hist, g_hist = train_gen.main(["--steps", "2", "--small", "--device",
                                      "cpu", "--deconv-impl", impl,
-                                     "--grad-check"])
+                                     "--grad-check", "--out", str(tmp_path)])
     assert len(d_hist) == len(g_hist) == 2
     assert np.isfinite(d_hist + g_hist).all()
     assert "match native f64" in capsys.readouterr().out
