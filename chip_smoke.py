@@ -282,7 +282,31 @@ Drives ``repro_torch`` only (never JAX, never the JAX package ``repro``):
    full-width StableLM-2-12B cut to 2 of its 40 layers, batch 8 x 128, 3
    ``make_train_step`` steps: finite loss and gnorm, every leaf changed
    after step 1, host ms per step, the busy share of a profiled step and
-   peak memory.
+   peak memory;
+16. MoE decoders (``layers.moe``, ``mixtral-8x7b``, ``dbrx-132b``): (a)
+   one full-width DBRX MoE layer (16 experts, top-4) in f32, TF32 off,
+   on 320 tokens at capacity factor 1.25 against the port on the CPU:
+   the same top-k experts and kept entries, outputs within ``1e-4 *
+   max|ref|``; (b) K5 bf16 at DBRX's prefill shape (4 x 48 q / 8 kv
+   heads x 4,080 x 128) against its plain version, one sample at a
+   time, and its device time beside SDPA's; (c) DBRX-132B at full
+   width, 4 of its 40 layers, bf16, serving 8 prompts of 4,080 tokens
+   through ``serve`` (4 slots, ``max_len`` 4,096, 16 new tokens): 4 K5
+   launches a prefill group and none in decode, finite logits, the
+   first group's last-token logits against the plain scan within
+   ``5e-2 * max|ref|``, the entries dropped per layer and the tokens
+   routed differently after K5 than after the scan, host ms per group
+   and step, one profiled prefill, and one MoE layer and its expert
+   GEMMs timed at the prefill's shape; (d) Mixtral-8x7B at 2 of 32
+   layers, bf16, serving 4 prompts of 4,080 tokens with 32 new tokens
+   past its 4,096-token window (the ring cache wraps; 0 K5 launches,
+   finite logits), then at 1 layer with f32 params and AdamW, 3
+   ``make_train_step`` steps at batch 8 x 128: every expert with a
+   gradient, every expert leaf updated, finite loss and gnorm, host ms,
+   busy share, peak memory; (e) the reduced Mixtral and DBRX with 8
+   experts in f32 on the card against the CPU: loss within 1e-6
+   relative, grads within 1e-4 of each leaf's max and bit-identical in
+   a second card run, served tokens equal.
 
 Every printed number carries the card's name and power limit.  The line
 before the last is ``{"kernels": [...]}``; the last is ``{"ok": true,
@@ -2595,6 +2619,35 @@ def _sass_counts(path, kernel: str) -> dict:
     return counts
 
 
+def _k5_plain(q, k, v, causal=True):
+    """K5's plain version one sample at a time (the serving shape's f32
+    scores take 2.1 GB per sample)."""
+    import torch
+    import repro_torch.kernels.flash_attn as FA
+    return torch.cat([FA.flash_attention_ref(
+        q[i:i + 1], k[i:i + 1], v[i:i + 1], causal=causal)
+        for i in range(q.shape[0])])
+
+
+def _k5_gate(out, ref, dtype):
+    """(ok, text, max|d|, element share) of K5's output against the plain
+    version's f32 one: f32 within K5_F32_GATE * max(1, max|ref|); bf16
+    within BF16_GATE * max|ref| and, element by element, within
+    K5_BF16_REL * |ref| + K5_BF16_FLOOR * max|ref|."""
+    import torch
+    f32 = dtype == torch.float32
+    dmax, tol = _gate_err(out, ref, K5_F32_GATE if f32 else BF16_GATE, f32)
+    ok = dmax <= tol
+    text = f"max|d| {dmax:.3e} tol {tol:.3e} ({dmax / tol:.3f} of it)"
+    worst = 0.0
+    if not f32:
+        lim = K5_BF16_REL * ref.abs() + K5_BF16_FLOOR * ref.abs().max()
+        worst = ((out.float() - ref).abs() / lim).max().item()
+        ok = ok and worst <= 1.0
+        text += f"; element by element {worst:.3f} of its limit"
+    return ok, text, dmax, worst
+
+
 @contextlib.contextmanager
 def _plain_scan():
     """Hold ``blockwise_attention`` to its plain scan, the reference of
@@ -2668,30 +2721,7 @@ def _lm_phase(dev, tag: str) -> dict:
         return tuple((torch.randn(b, n, s, d, generator=gen) * 0.5)
                      .to(dev, dtype) for n in (h, hkv, hkv))
 
-    def plain(q, k, v, causal=True):
-        """The plain version one sample at a time (the serving shape's
-        f32 scores take 2.1 GB per sample)."""
-        return torch.cat([FA.flash_attention_ref(
-            q[i:i + 1], k[i:i + 1], v[i:i + 1], causal=causal)
-            for i in range(q.shape[0])])
-
-    def gate(out, ref, dtype):
-        """(ok, text, max|d|) of K5's output against the plain version's
-        f32 one: f32 within K5_F32_GATE * max(1, max|ref|); bf16 within
-        BF16_GATE * max|ref| and, element by element, within K5_BF16_REL
-        * |ref| + K5_BF16_FLOOR * max|ref|."""
-        f32 = dtype == torch.float32
-        dmax, tol = _gate_err(out, ref, K5_F32_GATE if f32 else BF16_GATE,
-                              f32)
-        ok = dmax <= tol
-        text = f"max|d| {dmax:.3e} tol {tol:.3e} ({dmax / tol:.3f} of it)"
-        worst = 0.0
-        if not f32:
-            lim = K5_BF16_REL * ref.abs() + K5_BF16_FLOOR * ref.abs().max()
-            worst = ((out.float() - ref).abs() / lim).max().item()
-            ok = ok and worst <= 1.0
-            text += f"; element by element {worst:.3f} of its limit"
-        return ok, text, dmax, worst
+    plain, gate = _k5_plain, _k5_gate
 
     # ---- (b) K5 against its plain version ------------------------------
     print(f"check: K5 vs flash_attention_ref, TF32 off: f32 gate "
@@ -5215,6 +5245,540 @@ def _ckpt_phase(dev, tag) -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: MoE decoders
+# ---------------------------------------------------------------------------
+
+MOE_DBRX, MOE_MIXTRAL = "dbrx-132b", "mixtral-8x7b"
+MOE_LAYER_TOKENS = (2, 160)   # (a): one full-width DBRX MoE layer, f32
+MOE_LAYER_GATE = 1e-4         # (a): card vs CPU, rel. max|ref|
+MOE_K5_SHAPE = (4, 48, 8, 4080, 128)   # (b): DBRX's prefill group
+MOE_DBRX_LAYERS = 4           # (c): 4 of DBRX's 40 layers, bf16
+MOE_REQUESTS, MOE_PROMPT_LEN, MOE_SLOTS = 8, 4080, 4
+MOE_MAX_LEN, MOE_MAX_NEW = 4096, 16
+MOE_MIX_LAYERS = 2            # (d): 2 of Mixtral's 32 layers, bf16
+MOE_MIX_PROMPTS, MOE_MIX_NEW, MOE_MIX_MAX_LEN = 4, 32, 4160
+MOE_TRAIN_LAYERS = 1          # (d): 1 of 32, f32 params and AdamW
+MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, MOE_TRAIN_STEPS = 8, 128, 3
+MOE_CHECK_LOSS_RTOL = 1e-6    # (e): reduced LMs, card vs CPU
+MOE_CHECK_BATCH, MOE_CHECK_SEQ = 4, 32
+
+
+@contextlib.contextmanager
+def _moe_log(log: list):
+    """Record every ``layers.moe`` call's routing while the block runs:
+    its top-k experts and the entries its capacity dropped (the route
+    recomputed on the same input, under no grad)."""
+    import torch
+    from repro_torch.models import layers as L
+    real = L.moe
+
+    def logged(p, x, **kw):
+        with torch.no_grad():
+            r = L.moe_route(p, x, top_k=kw["top_k"],
+                            n_experts=kw["n_experts"],
+                            capacity_factor=kw.get("capacity_factor", 1.25),
+                            groups=kw.get("groups"))
+        log.append({"tope": r["tope"], "dropped": int((~r["keep"]).sum()),
+                    "entries": r["keep"].numel(), "cap": r["cap"]})
+        return real(p, x, **kw)
+    L.moe = logged
+    try:
+        yield
+    finally:
+        L.moe = real
+
+
+def _moe_layer_check(dev, tag) -> dict:
+    """(a): one full-width DBRX MoE layer in f32 (TF32 off) on the card
+    against the port on the CPU at capacity factor 1.25: the same top-k
+    experts and kept entries, outputs within MOE_LAYER_GATE * max|ref|."""
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.models import layers as L
+
+    cfg = get(MOE_DBRX)
+    d, ff, e, k = cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.top_k
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    p = L.init_moe(gen, d, ff, e, torch.float32)
+    # tokens that share a mean, as hidden states do: uneven expert loads
+    x = (torch.randn(*MOE_LAYER_TOKENS, d, generator=gen, device=dev)
+         + torch.randn(d, generator=gen, device=dev))
+    kw = dict(top_k=k, n_experts=e, capacity_factor=cfg.capacity_factor)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        out = L.moe(p, x, **kw)
+        torch.cuda.synchronize()
+        card_ms = (time.perf_counter() - t0) * 1e3
+        route = L.moe_route(p, x, **kw)
+        pc = {n: t.cpu() for n, t in p.items()}
+        del p
+        torch.cuda.empty_cache()
+        xc = x.cpu()
+        t0 = time.perf_counter()
+        ref = L.moe(pc, xc, **kw)
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        rref = L.moe_route(pc, xc, **kw)
+    del pc
+    same_e = torch.equal(route["tope"].cpu(), rref["tope"])
+    same_k = torch.equal(route["keep"].cpu(), rref["keep"])
+    dmax, tol = _gate_err(out.cpu(), ref, MOE_LAYER_GATE, False)
+    dropped = int((~rref["keep"]).sum())
+    gates = rref["gates"].reshape(-1, e).sort(-1, descending=True).values
+    margin = ((gates[:, k - 1] - gates[:, k]).min().item() if k < e
+              else float("nan"))
+    ok = same_e and same_k and dmax <= tol and bool(torch.isfinite(out).all())
+    print(f"moe (a): one {cfg.name} MoE layer at full width (d {d}, ff {ff}, "
+          f"{e} experts, top-{k}), f32, TF32 off, {x.shape[0]} x "
+          f"{x.shape[1]} tokens, capacity factor {cfg.capacity_factor} (cap "
+          f"{rref['cap']}): card vs the port on the CPU: top-k experts equal "
+          f"{same_e}, kept entries equal {same_k} ({dropped} of "
+          f"{rref['keep'].numel()} dropped), output max|d| {dmax:.3e} tol "
+          f"{tol:.3e} ({MOE_LAYER_GATE}*max|ref|); smallest gap between a "
+          f"token's k-th and (k+1)-th gate {margin:.3e}; host ms card "
+          f"{card_ms:.1f} (first call), CPU {cpu_ms:.1f} "
+          f"{'ok' if ok else 'FAIL'} {tag}")
+    if not ok:
+        raise SystemExit("chip_smoke: phase 16 (a): the MoE layer on the "
+                         "card disagrees with the CPU")
+    return {"max_abs": dmax, "tol": tol, "dropped": dropped,
+            "entries": rref["keep"].numel(), "cap": rref["cap"],
+            "gate_gap": margin}
+
+
+def _moe_k5_check(dev, tag) -> dict:
+    """(b): K5 bf16 at DBRX's prefill shape against its plain version
+    (one sample at a time), and its device time there beside SDPA's."""
+    import torch
+    import torch.nn.functional as F
+    import repro_torch.kernels.flash_attn as FA
+
+    b, h, hkv, s, d = MOE_K5_SHAPE
+    gen = torch.Generator().manual_seed(SEED)
+    q, k, v = ((torch.randn(b, n, s, d, generator=gen) * 0.5)
+               .to(dev, torch.bfloat16) for n in (h, hkv, hkv))
+    out = FA.flash_attention(q, k, v, causal=True)
+    ref = _k5_plain(q.float(), k.float(), v.float())
+    torch.cuda.synchronize()
+    ok, text, dmax, share = _k5_gate(out, ref, torch.bfloat16)
+    ok = ok and out.dtype == torch.bfloat16 and out.shape == q.shape
+    print(f"moe (b): K5 bf16 at {MOE_DBRX}'s prefill shape ({b}, {h} q / "
+          f"{hkv} kv heads, S {s}, D {d}, causal) vs flash_attention_ref "
+          f"(f32 on the bf16 inputs, one sample at a time): {text} "
+          f"{'ok' if ok else 'FAIL'} {tag}")
+    if not ok:
+        raise SystemExit(f"chip_smoke: phase 16 (b): K5 disagrees with its "
+                         f"plain version at {MOE_K5_SHAPE}")
+    del ref
+    fns = {"k5": lambda: FA.flash_attention(q, k, v),
+           "sdpa": lambda: F.scaled_dot_product_attention(
+               q, k, v, is_causal=True, enable_gqa=True)}
+    ev = _time_ms(fns, reps=5, iters=3)
+    dev_ms = {}
+    for n, fn in fns.items():
+        br = _device_breakdown(fn)
+        dev_ms[n] = br[0] if br is not None else float("nan")
+    ms = {n: dev_ms[n] if math.isfinite(dev_ms[n]) else ev[n][0]
+          for n in fns}
+    flops = 2.0 * b * h * d * s * (s + 1)
+    nbytes = 2 * (2 * b * h * s * d + 2 * b * hkv * s * d)
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    print(f"  time: K5 bf16 {ms['k5']:.3f} ms ("
+          f"{'profiler' if math.isfinite(dev_ms['k5']) else 'CUDA events'}"
+          f"; events over 3 calls {ev['k5'][0]:.3f} [{ev['k5'][1]:.3f}, "
+          f"{ev['k5'][2]:.3f}]), SDPA bf16 {ms['sdpa']:.3f} ms; bound "
+          f"{max(t_ops, t_bytes):.3f} ms at the useful work "
+          f"({flops:.3e} FLOP), {max(1.5 * t_ops, t_bytes):.3f} at the split "
+          f"P's 1.5x; sm clock, power, temperature {_clocks()} {tag}")
+    return {"max_abs": dmax, "element_share": share, "ms": ms["k5"],
+            "sdpa_ms": ms["sdpa"], "events_ms": ev["k5"][0],
+            "bound_ms": max(t_ops, t_bytes)}
+
+
+def _moe_dbrx_serve(dev, tag) -> dict:
+    """(c): DBRX-132B at full width, MOE_DBRX_LAYERS of its 40 layers,
+    bf16, serving MOE_REQUESTS prompts of MOE_PROMPT_LEN tokens through
+    ``serve``: 4 K5 launches a prefill group and none in decode, finite
+    logits, the first group's last-token logits against the plain scan
+    within LM_BF16_GATE * max|ref|; the entries dropped per layer, host
+    ms per group and step, one profiled prefill, and the MoE layer and
+    its expert GEMMs timed at the prefill's shape."""
+    import dataclasses
+    import torch
+    import torch.nn.functional as F
+    import repro_torch.kernels.flash_attn as FA
+    from repro_torch.configs import get
+    from repro_torch.launch.serve import random_prompts, serve
+    from repro_torch.models import layers as L
+    from repro_torch.models.lm import build_lm
+
+    full = get(MOE_DBRX)
+    cfg = dataclasses.replace(full, n_layers=MOE_DBRX_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lm = build_lm(cfg, device=dev)
+    t0 = time.perf_counter()
+    params = lm.init(torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_total, n_active = lm.param_counts(params)
+    prompts = random_prompts(cfg.vocab_size, MOE_REQUESTS, MOE_PROMPT_LEN,
+                             seed=SEED)
+    FA.FLASH_ATTN_LAUNCHES = 0
+    results, stats = serve(cfg, prompts, max_new=MOE_MAX_NEW,
+                           slots=MOE_SLOTS, max_len=MOE_MAX_LEN,
+                           params=params, device=dev)
+    torch.cuda.synchronize()
+    launches = FA.FLASH_ATTN_LAUNCHES
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    groups = len(stats["prefill_ms"])
+    dec = sorted(stats["decode_ms"])
+    print(f"moe (c): {cfg.name} at {MOE_DBRX_LAYERS} of {full.n_layers} "
+          f"layers (d_model {cfg.d_model}, {cfg.n_heads} q / "
+          f"{cfg.n_kv_heads} kv heads of {cfg.hd}, {cfg.n_experts} experts "
+          f"of d_ff {cfg.d_ff}, top-{cfg.top_k}, capacity factor "
+          f"{cfg.capacity_factor}, vocab {cfg.vocab_size}; {n_total / 1e9:.3f}"
+          f" G params ({n_active / 1e9:.3f} G active), {cfg.param_dtype}, "
+          f"drawn in {init_s:.3f} s): {len(results)} prompts of "
+          f"{MOE_PROMPT_LEN} tokens, {MOE_MAX_NEW} new tokens, "
+          f"{MOE_SLOTS} slots, max_len {MOE_MAX_LEN}, in "
+          f"{stats['wall_s']:.3f} s host clock; peak memory {peak:.2f} GiB "
+          f"{tag}")
+    print(f"  prefill per group (host clock): "
+          f"{[round(t, 3) for t in stats['prefill_ms']]} ms; decode per "
+          f"step: median {dec[len(dec) // 2]:.3f} ms [min {dec[0]:.3f}, max "
+          f"{dec[-1]:.3f}] over {len(dec)} steps; K5 launches {launches} "
+          f"({groups} groups x {MOE_DBRX_LAYERS} layers expected)")
+    ok = (launches == groups * MOE_DBRX_LAYERS and groups == 2
+          and sorted(results) == list(range(MOE_REQUESTS))
+          and all(len(t) == MOE_MAX_NEW and all(0 <= x < cfg.vocab_size
+                                                 for x in t)
+                  for t in results.values()))
+    if not ok:
+        raise SystemExit("chip_smoke: phase 16 (c): DBRX serving did not "
+                         "run K5 once per layer per prefill group, or its "
+                         "tokens are wrong")
+    batch = {"inputs": torch.tensor(prompts[:MOE_SLOTS], dtype=torch.int32,
+                                    device=dev)}
+    logs = {"k5": [], "scan": []}
+    with torch.no_grad():
+        FA.FLASH_ATTN_LAUNCHES = 0
+        with _moe_log(logs["k5"]):
+            cache = lm.init_cache(MOE_SLOTS, MOE_MAX_LEN)
+            lg, cache = lm.prefill(params, batch, cache)
+        n_prefill = FA.FLASH_ATTN_LAUNCHES
+        tok = torch.argmax(lg, -1).to(torch.int32)
+        FA.FLASH_ATTN_LAUNCHES = 0
+        lgd, cache = lm.decode_step(params, {"inputs": tok}, cache)
+        torch.cuda.synchronize()
+        n_decode = FA.FLASH_ATTN_LAUNCHES
+        del cache
+        with _plain_scan(), _moe_log(logs["scan"]):
+            ref, _ = lm.prefill(params, batch,
+                                lm.init_cache(MOE_SLOTS, MOE_MAX_LEN))
+    dmax, tol = _gate_err(lg, ref, LM_BF16_GATE, False)
+    finite = bool(torch.isfinite(lg).all() and torch.isfinite(lgd).all())
+    same = torch.equal(torch.argmax(lg, -1), torch.argmax(ref, -1))
+    flips = [int((a["tope"] != b_["tope"]).any(-1).sum())
+             for a, b_ in zip(logs["k5"], logs["scan"])]
+    dropped = [r["dropped"] for r in logs["k5"]]
+    print(f"  first group's prefill: {n_prefill} K5 launches, one decode "
+          f"step {n_decode}; logits finite={finite}; vs the plain scan on "
+          f"the same weights max|d| {dmax:.3e} tol {tol:.3e} "
+          f"({LM_BF16_GATE}*max|ref|), greedy tokens equal {same}; entries "
+          f"dropped per layer {dropped} of {logs['k5'][0]['entries']} (cap "
+          f"{logs['k5'][0]['cap']} per expert); tokens whose top-"
+          f"{cfg.top_k} experts differ from the scan's run per layer "
+          f"{flips} {tag}")
+    if not (finite and dmax <= tol and n_prefill == MOE_DBRX_LAYERS
+            and n_decode == 0):
+        raise SystemExit("chip_smoke: phase 16 (c): the served DBRX "
+                         "prefill is wrong")
+    del ref, logs
+    torch.cuda.empty_cache()
+    br = _device_breakdown(lambda: lm.prefill(
+        params, batch, lm.init_cache(MOE_SLOTS, MOE_MAX_LEN)), top=1000)
+    busy = wall = k5_ms = float("nan")
+    if br is None:
+        print("  one prefill under the profiler: not measured (no device "
+              "time reported)")
+    else:
+        busy, wall, top = br
+        k5_ms = sum(ms for name, ms, _ in top if "flash_attn" in name)
+        print(f"  one prefill under the profiler: device busy {busy:.3f} ms "
+              f"of {wall:.3f} ms wall (busy share {busy / wall:.3f}); K5 "
+              f"{k5_ms:.3f} ms ({k5_ms / busy:.3f} of busy, "
+              f"{k5_ms / MOE_DBRX_LAYERS:.3f} ms per launch) {tag}")
+        for name, ms_k, calls in top[:8]:
+            print(f"    {ms_k:.3f} ms in {calls} call(s): {name[:90]}")
+    # one MoE layer at the prefill's shape, and its three expert GEMMs
+    p0 = {n: t[0] for n, t in params["slots"][0]["moe_ep"].items()}
+    wdt = p0["wg"].dtype
+    x = torch.randn(MOE_SLOTS, MOE_PROMPT_LEN, cfg.d_model, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(SEED)
+                    ).to(wdt)
+    kw = dict(top_k=cfg.top_k, n_experts=cfg.n_experts,
+              capacity_factor=cfg.capacity_factor)
+    cap = L.moe_capacity(x.shape[0] * x.shape[1], **kw)[2]
+    buf = torch.randn(cfg.n_experts, cap, cfg.d_model, device=dev,
+                      dtype=wdt)
+
+    def experts():
+        h = torch.matmul(buf, p0["wg"])
+        u = torch.matmul(buf, p0["wu"])
+        return torch.matmul(F.silu(h) * u, p0["wd"])
+    with torch.no_grad():
+        t = _time_ms({"moe": lambda: L.moe(p0, x, **kw),
+                      "experts": experts}, reps=3, iters=2)
+    gemm_flops = 3 * 2.0 * cfg.n_experts * cap * cfg.d_model * cfg.d_ff
+    useful = 3 * 2.0 * x.shape[0] * x.shape[1] * cfg.top_k * cfg.d_model \
+        * cfg.d_ff
+    g_bound = gemm_flops / PEAK_BF16_FLOPS * 1e3
+    print(f"  one MoE layer at the prefill's shape ({MOE_SLOTS} x "
+          f"{MOE_PROMPT_LEN} tokens, cap {cap}): {t['moe'][0]:.3f} ms "
+          f"[{t['moe'][1]:.3f}, {t['moe'][2]:.3f}] (CUDA events over 2 "
+          f"calls, median of 3), of which the expert GEMMs (3 batched "
+          f"matmuls on ({cfg.n_experts}, {cap}, {cfg.d_model}) buffers, "
+          f"cuBLAS, and the SwiGLU product) {t['experts'][0]:.3f} ms "
+          f"({t['experts'][0] / t['moe'][0]:.3f}); their bound "
+          f"{g_bound:.3f} ms ({gemm_flops:.3e} FLOP at 989 TFLOP/s, "
+          f"{useful / gemm_flops:.3f} of it useful), so "
+          f"{g_bound / t['experts'][0]:.3f} of the bound; K5 per launch "
+          f"{k5_ms / MOE_DBRX_LAYERS:.3f} ms against {t['moe'][0]:.3f} of "
+          f"MoE per layer {tag}")
+    del params, lm, x, buf, p0
+    torch.cuda.empty_cache()
+    return {"k5_launches": launches, "groups": groups,
+            "prefill_ms": stats["prefill_ms"], "decode_ms": stats["decode_ms"],
+            "wall_s": stats["wall_s"], "peak_gib": peak,
+            "params": n_total, "active": n_active, "gate_max_abs": dmax,
+            "dropped": dropped, "route_flips": flips,
+            "prefill_device": {"busy_ms": busy, "wall_ms": wall,
+                               "k5_ms": k5_ms},
+            "moe_layer_ms": t["moe"][0], "experts_ms": t["experts"][0],
+            "experts_bound_ms": g_bound}
+
+
+def _moe_mixtral(dev, tag) -> dict:
+    """(d): Mixtral-8x7B at full width: MOE_MIX_LAYERS layers in bf16
+    serving MOE_MIX_PROMPTS prompts of MOE_PROMPT_LEN tokens past its
+    window (the ring cache wraps; 0 K5 launches, finite logits); then
+    MOE_TRAIN_LAYERS layer with f32 params and AdamW, bf16 compute,
+    MOE_TRAIN_STEPS ``make_train_step`` steps at batch 8 x 128."""
+    import dataclasses
+    import torch
+    import repro_torch.kernels.flash_attn as FA
+    from repro_torch.configs import get
+    from repro_torch.data import SyntheticTokenPipeline
+    from repro_torch.launch.serve import random_prompts, serve
+    from repro_torch.launch.steps import make_train_step, value_and_grad
+    from repro_torch.models.lm import build_lm
+    from repro_torch.optim import adamw_init
+
+    full = get(MOE_MIXTRAL)
+    cfg = dataclasses.replace(full, n_layers=MOE_MIX_LAYERS,
+                              param_dtype=full.compute_dtype)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lm = build_lm(cfg, device=dev)
+    params = lm.init(torch.Generator(device=dev).manual_seed(SEED))
+    prompts = random_prompts(cfg.vocab_size, MOE_MIX_PROMPTS,
+                             MOE_PROMPT_LEN, seed=SEED)
+    FA.FLASH_ATTN_LAUNCHES = 0
+    results, stats = serve(cfg, prompts, max_new=MOE_MIX_NEW,
+                           slots=MOE_SLOTS, max_len=MOE_MIX_MAX_LEN,
+                           params=params, device=dev)
+    torch.cuda.synchronize()
+    launches = FA.FLASH_ATTN_LAUNCHES
+    batch = {"inputs": torch.tensor(prompts[:MOE_SLOTS], dtype=torch.int32,
+                                    device=dev)}
+    finite = True
+    with torch.no_grad():
+        cache = lm.init_cache(MOE_SLOTS, MOE_MIX_MAX_LEN)
+        lg, cache = lm.prefill(params, batch, cache)
+        finite &= bool(torch.isfinite(lg).all())
+        for _ in range(MOE_MIX_NEW):
+            tok = torch.argmax(lg, -1).to(torch.int32)
+            lg, cache = lm.decode_step(params, {"inputs": tok}, cache)
+            finite &= bool(torch.isfinite(lg).all())
+    torch.cuda.synchronize()
+    launches_direct = FA.FLASH_ATTN_LAUNCHES - launches
+    kpos = cache["slots"][0]["kpos"][0]
+    window = kpos.shape[0]
+    wrapped = int(kpos.min()) == MOE_PROMPT_LEN + MOE_MIX_NEW - window
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    dec = sorted(stats["decode_ms"])
+    ok = (finite and launches == 0 and launches_direct == 0 and wrapped
+          and sorted(results) == list(range(MOE_MIX_PROMPTS))
+          and all(len(t) == MOE_MIX_NEW for t in results.values()))
+    print(f"moe (d): {cfg.name} at {MOE_MIX_LAYERS} of {full.n_layers} "
+          f"layers ({cfg.n_experts} experts of d_ff {cfg.d_ff}, top-"
+          f"{cfg.top_k}, window {cfg.sliding_window}, bf16): "
+          f"{MOE_MIX_PROMPTS} prompts of {MOE_PROMPT_LEN} tokens, "
+          f"{MOE_MIX_NEW} new tokens, max_len {MOE_MIX_MAX_LEN} (a ring of "
+          f"{window} slots, wrapped {wrapped}); prefill "
+          f"{[round(t, 3) for t in stats['prefill_ms']]} ms host, decode "
+          f"median {dec[len(dec) // 2]:.3f} ms [min {dec[0]:.3f}, max "
+          f"{dec[-1]:.3f}]; K5 launches {launches} serving, "
+          f"{launches_direct} in a prefill and {MOE_MIX_NEW} decode steps "
+          f"with logits finite={finite}; peak memory {peak:.2f} GiB "
+          f"{'ok' if ok else 'FAIL'} {tag}")
+    if not ok:
+        raise SystemExit("chip_smoke: phase 16 (d): Mixtral serving ran K5, "
+                         "gave non-finite logits or did not wrap its cache")
+    serve_report = {"prefill_ms": stats["prefill_ms"],
+                    "decode_ms": stats["decode_ms"], "peak_gib": peak,
+                    "k5_launches": launches}
+    del params, lm, cache, lg
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(full, n_layers=MOE_TRAIN_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    lm = build_lm(cfg, device=dev)
+    params = lm.init(torch.Generator(device=dev).manual_seed(SEED))
+    n_params = lm.param_counts(params)
+    pipe = SyntheticTokenPipeline(cfg.vocab_size, MOE_TRAIN_SEQ,
+                                  MOE_TRAIN_BATCH, seed=SEED)
+    batch0 = {k: v.to(dev) for k, v in pipe.batch(0).items()}
+    _, grads = value_and_grad(lm, params, batch0)
+    moe_g = grads["slots"][0]["moe_tp"]
+    idle = {n: [j for j in range(cfg.n_experts)
+                if not bool(moe_g[n][0, j].abs().amax() > 0)]
+            for n in ("wg", "wu", "wd")}
+    router_g = float(moe_g["router"].abs().amax())
+    del grads, moe_g
+    torch.cuda.empty_cache()
+    opt = adamw_init(params)
+    step = make_train_step(lm)
+    expert_leaves = {k: v.clone() for k, v in _leaf_items(params).items()
+                     if "moe_tp" in k}
+    ms, metrics, unchanged = [], [], None
+    for s in range(MOE_TRAIN_STEPS):
+        batch = {k: v.to(dev) for k, v in pipe.batch(s).items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append((float(m["loss"]), float(m["gnorm"]), m["lr"]))
+        if s == 0:
+            now = _leaf_items(params)
+            unchanged = [k for k in expert_leaves
+                         if torch.equal(expert_leaves[k], now[k])]
+            del expert_leaves, now
+            torch.cuda.reset_peak_memory_stats()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    batch = {k: v.to(dev) for k, v in pipe.batch(MOE_TRAIN_STEPS).items()}
+    br = _device_breakdown(lambda: step(params, opt, batch), top=8)
+    finite = all(math.isfinite(x) for l, g, _ in metrics for x in (l, g))
+    ok = (finite and not unchanged and not any(idle.values())
+          and router_g > 0)
+    print(f"moe (d): {cfg.name} at {MOE_TRAIN_LAYERS} of {full.n_layers} "
+          f"layers ({n_params[0] / 1e9:.3f} G params, {n_params[1] / 1e9:.3f}"
+          f" G active; f32 params and AdamW, bf16 compute), batch "
+          f"{MOE_TRAIN_BATCH} x {MOE_TRAIN_SEQ}, {MOE_TRAIN_STEPS} "
+          f"make_train_step steps: (loss, gnorm, lr) {metrics}; host ms per "
+          f"step {[round(t, 3) for t in ms]} (synchronised); experts with no "
+          f"gradient at step 1 {idle}, router max|g| {router_g:.3e}; expert "
+          f"leaves unchanged after step 1 {unchanged}; peak memory over "
+          f"steps 2-{MOE_TRAIN_STEPS} {peak:.2f} GiB {'ok' if ok else 'FAIL'}"
+          f" {tag}")
+    busy = None
+    if br is None:
+        print("  device time of one step: not measured (the profiler "
+              "reported no device time)")
+    else:
+        busy, wall, top = br
+        print(f"  profiler, one step: device busy {busy:.3f} ms of "
+              f"{wall:.3f} ms wall (busy share {busy / wall:.3f}) {tag}")
+        for name, ms_k, calls in top:
+            print(f"    {ms_k:.3f} ms in {calls} call(s): {name[:90]}")
+    if not ok:
+        raise SystemExit("chip_smoke: phase 16 (d): Mixtral training gave "
+                         "a non-finite loss or gnorm, or an expert took no "
+                         "gradient or no update")
+    del params, opt, lm
+    torch.cuda.empty_cache()
+    return {"serve": serve_report,
+            "train": {"params": n_params, "step_ms": ms, "metrics": metrics,
+                      "peak_gib": peak, "busy_ms": busy,
+                      "wall_ms": None if br is None else br[1]}}
+
+
+def _moe_card_vs_cpu(dev, tag) -> dict:
+    """(e): the reduced Mixtral and the reduced DBRX with 8 experts in f32
+    on the card against the CPU: loss within MOE_CHECK_LOSS_RTOL
+    relative, grads within LM_GRAD_GATE of each leaf's max and equal bit
+    for bit in a second card run (no float atomics), the served tokens
+    equal."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.data import SyntheticTokenPipeline
+    from repro_torch.launch.serve import random_prompts, serve
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models.lm import build_lm
+
+    report = {}
+    for name, changes in ((MOE_MIXTRAL, {}), (MOE_DBRX, {"n_experts": 8})):
+        cfg = dataclasses.replace(get(name).reduced(), **changes)
+        lms = {"cpu": build_lm(cfg, device="cpu"),
+               "card": build_lm(cfg, device=dev)}
+        p_cpu = lms["cpu"].init(torch.Generator().manual_seed(SEED))
+        p_card = _tree_to(p_cpu, dev)
+        batch = SyntheticTokenPipeline(cfg.vocab_size, MOE_CHECK_SEQ,
+                                       MOE_CHECK_BATCH, seed=SEED).batch(0)
+        ref_loss, ref = value_and_grad(lms["cpu"], p_cpu, batch)
+        tb = {k: v.to(dev) for k, v in batch.items()}
+        loss, got = value_and_grad(lms["card"], p_card, tb)
+        again = _leaf_items(value_and_grad(lms["card"], p_card, tb)[1])
+        g, r = _leaf_items(got), _leaf_items(ref)
+        repeat = all(torch.equal(g[k], again[k]) for k in g)
+        errs = {k: ((g[k].float().cpu() - r[k].float()).abs().max()
+                    / r[k].float().abs().max().clamp_min(1e-30)).item()
+                for k in r}
+        leaf = max(errs, key=errs.get)
+        rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+        prompts = random_prompts(cfg.vocab_size, 6, 32, seed=SEED)
+        kw = dict(max_new=8, slots=4, max_len=64)
+        toks_cpu, _ = serve(cfg, prompts, params=p_cpu, device="cpu", **kw)
+        toks_card, _ = serve(cfg, prompts, params=p_card, device=dev, **kw)
+        ok = (rel <= MOE_CHECK_LOSS_RTOL and errs[leaf] <= LM_GRAD_GATE
+              and toks_card == toks_cpu and repeat)
+        print(f"moe (e): {cfg.name} ({cfg.n_experts} experts, top-"
+              f"{cfg.top_k}), f32, TF32 off, card vs CPU: loss "
+              f"{float(loss):.6f} vs {float(ref_loss):.6f}, rel {rel:.3e} "
+              f"(gate {MOE_CHECK_LOSS_RTOL}); grads worst leaf {leaf} "
+              f"{errs[leaf]:.3e} of its max (gate {LM_GRAD_GATE}), a "
+              f"second card run's grads bit-identical {repeat}; 6 "
+              f"served prompts x 8 tokens equal {toks_card == toks_cpu} "
+              f"{'ok' if ok else 'FAIL'} {tag}")
+        if not ok:
+            raise SystemExit(f"chip_smoke: phase 16 (e): {cfg.name} on the "
+                             "card disagrees with the CPU")
+        report[cfg.name + f"-e{cfg.n_experts}"] = {
+            "loss_rel": rel, "worst_leaf": leaf, "worst": errs[leaf],
+            "grads_repeat": repeat}
+    return report
+
+
+def _moe_phase(dev, tag) -> dict:
+    """Phase 16: (a) a full-width DBRX MoE layer card vs CPU, (b) K5 at
+    DBRX's prefill shape, (c) DBRX-132B serving at 4 of 40 layers with
+    K5 in its prefill, (d) Mixtral-8x7B serving past its window and
+    training at 1 layer, (e) the reduced MoE LMs card vs CPU.  Every
+    failure raises."""
+    t0 = time.perf_counter()
+    report = {"layer": _moe_layer_check(dev, tag),
+              "k5": _moe_k5_check(dev, tag),
+              "dbrx": _moe_dbrx_serve(dev, tag),
+              "mixtral": _moe_mixtral(dev, tag),
+              "card_vs_cpu": _moe_card_vs_cpu(dev, tag)}
+    report["phase_s"] = time.perf_counter() - t0
+    print(f"moe phase: {report['phase_s']:.1f} s host clock {tag}")
+    return report
+
+
 def main(json_path: str = "") -> int:
     t_start = time.perf_counter()
     sys.stdout.reconfigure(line_buffering=True)   # a cut run keeps its log
@@ -5240,7 +5804,7 @@ def main(json_path: str = "") -> int:
 
 
 def _smoke(json_path: str, t_start: float) -> int:
-    """Phases 1-15 (see the module doc) and the final two lines."""
+    """Phases 1-16 (see the module doc) and the final two lines."""
     import torch
     sys.path.insert(0, os.path.join(HERE, "src"))
     import torch.nn.functional as F
@@ -5673,6 +6237,10 @@ def _smoke(json_path: str, t_start: float) -> int:
     torch.cuda.empty_cache()
     ckpt = _ckpt_phase(dev, tag)
 
+    # ---- 16. MoE decoders: DBRX-132B (K5 in its prefill) and Mixtral-8x7B
+    torch.cuda.empty_cache()
+    moe = _moe_phase(dev, tag)
+
     if "jax" in sys.modules or "repro" in sys.modules:
         raise SystemExit("chip_smoke: JAX or the JAX package was imported")
     total = {k: sum(r[k] for r in per_layer)
@@ -5738,6 +6306,12 @@ def _smoke(json_path: str, t_start: float) -> int:
             k["sass_hmma_tf32"] = sass[k["name"]]["HMMA_TF32"]
         if k["name"] == "sd_conv":
             k["launches_serve_3d"] = nd["k2_launches_serve_3d"]
+        if name == "flash_attn":
+            # phase 16 (c): the DBRX serving run, and (b)'s timing at
+            # DBRX's prefill shape
+            k["launches_moe"] = moe["dbrx"]["k5_launches"]
+            k["ms_moe_shape"] = moe["k5"]["ms"]
+            k["max_abs_err_moe_shape"] = moe["k5"]["max_abs"]
         if k["name"] in ("sd_fused_int8", "sd_conv_int8"):
             k["sass_imma"] = sass[k["name"]]["IMMA"]
             k["sass_idp4a"] = sass[k["name"]]["IDP.4A"]
@@ -5761,7 +6335,7 @@ def _smoke(json_path: str, t_start: float) -> int:
               "chain": {k: v for k, v in chain.items() if k != "record"},
               "lm": lm["report"], "wavegan": wave["report"],
               "pretune": pre, "registry": reg, "scaleout": scale,
-              "checkpoint": ckpt,
+              "checkpoint": ckpt, "moe": moe,
               "serve": {k: stats[k] for k in
                         ("served", "launches", "req_per_s", "wall_s",
                          "latency_ms")},
@@ -5816,7 +6390,10 @@ def _smoke(json_path: str, t_start: float) -> int:
           f"14: launches_sharded counted on rank 0 over its sharded runs, "
           f"gloo ranks on one card (K1, K1 int8, K2, K2 int8, K3, K4); "
           f"phase 15: launches_checkpoint_train counted over train_gen.main's"
-          f" {CKPT_GAN_STEPS} checkpointed GAN steps (K1, K2, K3)) {tag}")
+          f" {CKPT_GAN_STEPS} checkpointed GAN steps (K1, K2, K3); phase 16: "
+          f"K5's launches_moe counted in DBRX-132B's serving run, "
+          f"ms_moe_shape and max_abs_err_moe_shape (bf16) at its prefill "
+          f"shape {MOE_K5_SHAPE}) {tag}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -64,10 +64,12 @@ def params_from_numpy(np_params: Mapping[str, Mapping[str, Any]],
 
 
 def _lm_shapes(cfg: ArchConfig) -> Dict[str, Any]:
-    """The dense decoder's parameter tree as shapes (the reference's
+    """The attention decoder's parameter tree as shapes (the reference's
     ``LM.init`` tree): ``embed``, ``head`` (unless tied), ``final_ln``
-    and ``slots[0]`` stacked over the ``n_layers`` repeats."""
-    from repro_torch.models.lm import unsupported
+    and ``slots[0]`` stacked over the ``n_layers`` repeats, its FFN
+    ``mlp`` or, in an MoE slot, ``moe_ep`` / ``moe_tp`` (``router`` (R,
+    d, E), ``wg``/``wu`` (R, E, d, ff), ``wd`` (R, E, ff, d))."""
+    from repro_torch.models.lm import ffn_key, unsupported
     why = unsupported(cfg)
     if why is not None:
         raise NotImplementedError(f"{cfg.name}: {why} is not ported "
@@ -78,12 +80,17 @@ def _lm_shapes(cfg: ArchConfig) -> Dict[str, Any]:
             "wo": (r, hq, d)}
     if cfg.qkv_bias:
         attn.update(bq=(r, hq), bk=(r, hk), bv=(r, hk))
+    ff, e = cfg.d_ff, cfg.n_experts
+    key = ffn_key(cfg, 0)
+    if key == "mlp":
+        ffn = {"wg": (r, d, ff), "wu": (r, d, ff), "wd": (r, ff, d)}
+    else:
+        ffn = {"router": (r, d, e), "wg": (r, e, d, ff),
+               "wu": (r, e, d, ff), "wd": (r, e, ff, d)}
     tree: Dict[str, Any] = {
         "embed": (vp, d), "final_ln": {"scale": (d,)},
         "slots": [{"ln1": {"scale": (r, d)}, "attn": attn,
-                   "ln2": {"scale": (r, d)},
-                   "mlp": {"wg": (r, d, cfg.d_ff), "wu": (r, d, cfg.d_ff),
-                           "wd": (r, cfg.d_ff, d)}}]}
+                   "ln2": {"scale": (r, d)}, key: ffn}]}
     if not cfg.tie_embeddings:
         tree["head"] = (d, vp)
     return tree

@@ -6,7 +6,11 @@ so no prompt is truncated to a group minimum; each group's batch is
 padded to a power-of-two bucket (row 0 repeated, results discarded),
 prefilled on its full prompt, then decoded greedily one token per step
 for the whole slot batch.  Prompts longer than 2,048 tokens attend
-through K5 (``kernels/csrc/flash_attn.cu``) on the card.
+through K5 (``kernels/csrc/flash_attn.cu``) on the card, unless the
+config has a sliding window (Mixtral's).  In an MoE config the padding
+rows take expert capacity as real ones do, as in the reference, and a
+prefill routes at another capacity than a decode step (``cap`` follows
+the token count).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-12b \\
       --reduced --requests 8 --max-new 16 --device cpu

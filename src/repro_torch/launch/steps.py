@@ -3,9 +3,10 @@
 The port of ``effective_seq``, ``make_train_step``, ``make_prefill_step``
 and ``make_decode_step`` of the JAX package's ``launch/steps.py``.
 PyTorch runs eagerly, so a step is the plain callable the reference
-would ``jax.jit``.  The reference's abstract input specs (``input_specs``,
-``abstract_*``) serve its dry-run lowering and are not ported
-(ROADMAP.md item 16).
+would ``jax.jit``.  Every LM that ``build_lm`` builds (attention decoders,
+dense or MoE) runs through them.  The reference's abstract input specs
+(``input_specs``, ``abstract_*``) serve its dry-run lowering and are not
+ported (ROADMAP.md item 16).
 """
 
 from __future__ import annotations

@@ -2,8 +2,9 @@
 package's ``launch/train.py``.
 
   * config-driven arch selection (``--arch`` from the pool, reduced or
-    full; the port trains the dense decoders, :func:`~repro_torch.
-    models.lm.unsupported` names the rest)
+    full; the port trains the attention decoders, dense or MoE
+    (``mixtral-8x7b``, ``dbrx-132b``), :func:`~repro_torch.models.lm.
+    unsupported` names the rest)
   * deterministic restart-safe data (batch = f(seed, step))
   * periodic async checkpointing with atomic commit and retention
     (:mod:`repro_torch.checkpoint`, the reference's on-disk format)
@@ -17,7 +18,8 @@ package's ``launch/train.py``.
 
 The weights come from ``--seed`` through a CPU ``torch.Generator`` (the
 same model on every device) and move to ``--device``.  The LM's mesh
-sharding is not ported (ROADMAP.md item 16): when a
+sharding, the MoE's expert-parallel dispatch with it, is not ported
+(ROADMAP.md item 16): when a
 ``torch.distributed`` process group exists, the trainer takes the
 one-rank mesh ``make_dev_mesh(1, 1)`` on it (which refuses a group of
 more ranks); otherwise it runs with no mesh.

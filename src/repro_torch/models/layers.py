@@ -1,9 +1,10 @@
-"""Transformer building blocks of the dense decoder, in PyTorch.
+"""Transformer building blocks of the attention decoders, in PyTorch.
 
-The port of the dense subset of the JAX package's ``models/layers.py``,
-with its names, parameter dicts and layouts: activations ``(B, S, H,
-D)``, weights ``(d_in, d_out)`` so that ``x @ w`` matches.  Sharding
-constraints have no counterpart here (one card).
+The port of the JAX package's ``models/layers.py`` (attention, the
+SwiGLU MLP and the top-k MoE), with its names, parameter dicts and
+layouts: activations ``(B, S, H, D)``, weights ``(d_in, d_out)`` so that
+``x @ w`` matches.  Sharding constraints have no counterpart here (one
+card).
 
 Long-sequence attention (:func:`blockwise_attention`) calls K5,
 :func:`repro_torch.kernels.flash_attn.flash_attention`, when its
@@ -19,6 +20,7 @@ alone.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -322,3 +324,211 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype,
 
 def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
     return (F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
+
+
+# ---------------------------------------------------------------------------
+# Feed-forward: top-k MoE
+# ---------------------------------------------------------------------------
+
+def init_moe(gen: torch.Generator, d_model: int, d_ff: int, n_experts: int,
+             dtype, lead: Tuple[int, ...] = ()) -> Params:
+    """The router ``(d, E)``, always f32 (as the reference draws it), and
+    the experts' SwiGLU weights ``wg``/``wu`` ``(E, d, ff)`` and ``wd``
+    ``(E, ff, d)`` in ``dtype``; every leaf stacked over ``lead``."""
+    e = n_experts
+    return {
+        "router": _dense_init(gen, d_model, (*lead, d_model, e),
+                              torch.float32),
+        "wg": _dense_init(gen, d_model, (*lead, e, d_model, d_ff), dtype),
+        "wu": _dense_init(gen, d_model, (*lead, e, d_model, d_ff), dtype),
+        "wd": _dense_init(gen, d_ff, (*lead, e, d_ff, d_model), dtype),
+    }
+
+
+@contextlib.contextmanager
+def _ieee_matmul():
+    """cuBLAS's TF32 off inside the block, the caller's setting after."""
+    mm = torch.backends.cuda.matmul
+    prev = mm.allow_tf32
+    mm.allow_tf32 = False
+    try:
+        yield
+    finally:
+        mm.allow_tf32 = prev
+
+
+class _RouterLogits(torch.autograd.Function):
+    """``x @ w`` on f32 operands in full f32, forward and backward,
+    whatever the caller's TF32 setting: one TF32 rounding of a router
+    logit can flip a token's expert and change its output wholesale.
+    (Autograd reads the flag again when the backward runs, so a pin
+    around the forward alone would not hold the router's gradient.)"""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        with _ieee_matmul():
+            return x @ w
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gx = gw = None
+        with _ieee_matmul():
+            if ctx.needs_input_grad[0]:
+                gx = g @ w.T
+            if ctx.needs_input_grad[1]:
+                gw = x.T @ g
+        return gx, gw
+
+
+def _gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``src[idx]``, a zero row where ``idx == len(src)``."""
+    n = src.shape[0]
+    out = src.index_select(0, idx.clamp_max(n - 1))
+    return torch.where((idx < n)[:, None], out, out.new_zeros(()))
+
+
+class _Permute(torch.autograd.Function):
+    """``out[i] = src[idx[i]]`` (a zero row for ``idx[i] == len(src)``)
+    whose adjoint sums, for each source row r, the output rows listed in
+    ``inv[r]`` (an ``(R, m)`` table with the sentinel ``len(out)`` for
+    none), in order of m.  Both directions are gathers: the dispatch
+    and combine of :func:`moe` use no float atomics (the reference
+    scatters with ``.at[].add``), so their sums are the same on every
+    run."""
+
+    @staticmethod
+    def forward(ctx, src, idx, inv):
+        ctx.save_for_backward(inv)
+        return _gather_rows(src, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        (inv,) = ctx.saved_tensors
+        parts = _gather_rows(g, inv.reshape(-1)).reshape(
+            *inv.shape, g.shape[-1])
+        acc = parts[:, 0]
+        for j in range(1, inv.shape[1]):
+            acc = acc + parts[:, j]
+        return acc, None, None
+
+
+def _top_k(gates: torch.Tensor, k: int):
+    """``lax.top_k``: the k largest along the last axis, the lower index
+    first among equal values (a stable sort; ``torch.topk`` promises no
+    order between ties)."""
+    vals, idx = torch.sort(gates, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_capacity(tokens: int, *, top_k: int, n_experts: int,
+                 capacity_factor: float = 1.25,
+                 groups: Optional[int] = None) -> Tuple[int, int, int]:
+    """(groups, tokens per group, capacity per expert and group) of a
+    :func:`moe` call on ``tokens`` tokens: GShard's ``C = cf * T_g * k /
+    E``, at least 8."""
+    g = groups or 1
+    if tokens % g:
+        raise ValueError(f"moe: {tokens} tokens do not split into {g} "
+                         "groups")
+    tg = tokens // g
+    return g, tg, max(int(capacity_factor * tg * top_k / n_experts), 8)
+
+
+def moe_route(p: Params, x: torch.Tensor, *, top_k: int, n_experts: int,
+              capacity_factor: float = 1.25,
+              groups: Optional[int] = None) -> Dict[str, Any]:
+    """The routing of :func:`moe` (the reference's ``dispatch_one`` per
+    group): f32 router logits, softmax gates ``(G, T_g, E)``, the top-k
+    experts ``tope`` and their renormalised gates ``topg`` ``(G, T_g,
+    k)``, each entry's ``rank`` among the group's entries routed to its
+    expert (token order, from a stable sort and ``searchsorted``) and
+    ``keep = rank < cap``, flattened ``(G, T_g * k)`` token-major."""
+    b, s, d = x.shape
+    g, tg, cap = moe_capacity(b * s, top_k=top_k, n_experts=n_experts,
+                              capacity_factor=capacity_factor,
+                              groups=groups)
+    logits = _RouterLogits.apply(x.reshape(g * tg, d).float(),
+                                 p["router"].float())
+    gates = torch.softmax(logits, -1).reshape(g, tg, n_experts)
+    topg, tope = _top_k(gates, top_k)
+    topg = topg / torch.clamp_min(topg.sum(-1, keepdim=True), 1e-9)
+    flat_e = tope.reshape(g, tg * top_k)
+    sorted_e, order = torch.sort(flat_e, dim=-1, stable=True)
+    experts = torch.arange(n_experts, device=x.device)
+    starts = torch.searchsorted(sorted_e,
+                                experts.expand(g, n_experts).contiguous())
+    rank_sorted = (torch.arange(tg * top_k, device=x.device)
+                   - starts.gather(-1, sorted_e))
+    rank = torch.empty_like(rank_sorted).scatter_(-1, order, rank_sorted)
+    return {"gates": gates, "tope": tope, "topg": topg, "rank": rank,
+            "keep": rank < cap, "cap": cap, "groups": g}
+
+
+def moe(p: Params, x: torch.Tensor, *, top_k: int, n_experts: int,
+        capacity_factor: float = 1.25, ep: bool = True,
+        groups: Optional[int] = None) -> torch.Tensor:
+    """Top-k MoE with group-local, capacity-bounded dispatch (the
+    reference's ``moe``): each token goes to its top-k experts
+    (:func:`moe_route`); an expert takes at most ``cap`` entries per
+    group, the earliest tokens first, and drops the rest; the kept
+    entries fill ``(E, G * cap, d)`` buffers (unused slots zero) that
+    run the experts' SwiGLU as batched matmuls; each token's output is
+    the sum, in order of its k choices, of its kept entries' outputs
+    times their gates.
+
+    ``groups=None`` is one group: the reference reads the group count
+    from its mesh context, which the port does not have.  ``ep`` (experts
+    sharded, or their FFN dims) does not change the math on one card and
+    is accepted for the reference's signature.  Dispatch and combine are
+    gathers both ways (:class:`_Permute`): no float atomics."""
+    del ep
+    b, s, d = x.shape
+    r = moe_route(p, x, top_k=top_k, n_experts=n_experts,
+                  capacity_factor=capacity_factor, groups=groups)
+    g, cap, keep = r["groups"], r["cap"], r["keep"]
+    n_tok = b * s
+    n_ent, n_slot = n_tok * top_k, n_experts * g * cap
+    dev = x.device
+    # slot of each kept entry in the (E, G, cap) buffers; n_slot = dropped
+    grp = torch.arange(g, device=dev)[:, None]
+    slot = (r["tope"].reshape(g, -1) * g + grp) * cap + r["rank"]
+    slot = torch.where(keep, slot, n_slot).reshape(-1)
+    # each slot's entry (n_ent = empty); the dropped ones all land in the
+    # extra last slot, which is cut off
+    slot_ent = torch.full((n_slot + 1,), n_ent, dtype=torch.long,
+                          device=dev)
+    slot_ent[slot] = torch.arange(n_ent, device=dev)
+    slot_ent = slot_ent[:n_slot]
+    slot_tok = torch.where(slot_ent < n_ent, slot_ent // top_k, n_tok)
+
+    buf = _Permute.apply(x.reshape(n_tok, d), slot_tok,
+                         slot.reshape(n_tok, top_k))
+    buf = buf.reshape(n_experts, g * cap, d)
+    h = torch.matmul(buf, p["wg"])
+    u = torch.matmul(buf, p["wu"])
+    yb = torch.matmul(F.silu(h) * u, p["wd"])
+    contrib = _Permute.apply(yb.reshape(n_slot, d), slot, slot_ent[:, None])
+    w = torch.where(keep, r["topg"].reshape(g, -1), 0.0)
+    contrib = (contrib * w.reshape(n_ent, 1).to(x.dtype)).reshape(
+        n_tok, top_k, d)
+    y = contrib[:, 0]
+    for j in range(1, top_k):
+        y = y + contrib[:, j]
+    return y.reshape(b, s, d)
+
+
+def moe_aux_loss(p: Params, x: torch.Tensor, top_k: int,
+                 n_experts: int) -> torch.Tensor:
+    """Switch-style load-balancing auxiliary loss: ``E * sum(frac *
+    prob)``, frac the share of the top-k choices per expert, prob its
+    mean gate (the reference's; its ``LM.loss`` does not add it)."""
+    t = x.shape[0] * x.shape[1]
+    logits = _RouterLogits.apply(x.reshape(t, -1).float(),
+                                 p["router"].float())
+    gates = torch.softmax(logits, -1)
+    _, tope = _top_k(gates, top_k)
+    frac = F.one_hot(tope, n_experts).float().mean((0, 1))
+    prob = gates.mean(0)
+    return n_experts * torch.sum(frac * prob)

@@ -1,10 +1,13 @@
-"""The dense decoder-only LM, in PyTorch: init, training loss, prefill
-and decode.
+"""The decoder-only attention LM, dense or MoE, in PyTorch: init,
+training loss, prefill and decode.
 
-The port of the dense-decoder part of the JAX package's ``models/lm.py``,
-with its parameter tree: ``embed`` (V_pad, d), ``head`` (d, V_pad) unless
-the embeddings are tied, ``final_ln``, and ``slots[0]`` holding each
-leaf stacked over the ``n_layers`` repeats of the pattern ``("a",)``.
+The port of the attention-decoder part of the JAX package's
+``models/lm.py``, with its parameter tree: ``embed`` (V_pad, d), ``head``
+(d, V_pad) unless the embeddings are tied, ``final_ln``, and ``slots[0]``
+holding each leaf stacked over the ``n_layers`` repeats of the pattern
+``("a",)``; its FFN is ``mlp`` (SwiGLU) or, in an MoE slot
+(``cfg.is_moe_slot``), ``moe_ep`` / ``moe_tp`` by ``cfg.moe_sharding``
+(the top-k MoE of :func:`repro_torch.models.layers.moe`).
 The reference drives the repeats with ``lax.scan``; here they are a
 Python loop over the stacked leaves.  The KV cache has the reference's
 layout (``{"pos", "slots": [{"k", "v", "kpos"}]}``, ``pos`` a Python
@@ -19,9 +22,9 @@ sharding constraints have no counterpart on one card.
 Long prompts (more than 2,048 tokens) attend through K5
 (:mod:`repro_torch.kernels.flash_attn`) in serving; training at any
 length takes the plain, differentiable scan, as the reference's does
-(:func:`repro_torch.models.layers.blockwise_attention`).  MoE,
-SSM/xLSTM, hybrid, VLM and encoder-decoder configs are not ported
-(ROADMAP.md item 16): :func:`build_lm` refuses them.
+(:func:`repro_torch.models.layers.blockwise_attention`).  SSM/xLSTM,
+hybrid, VLM and encoder-decoder configs are not ported (ROADMAP.md item
+16): :func:`build_lm` refuses them.
 """
 
 from __future__ import annotations
@@ -44,12 +47,10 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def unsupported(cfg: ArchConfig) -> Optional[str]:
-    """Why the port cannot build ``cfg`` yet, or None for a dense
-    decoder."""
+    """Why the port cannot build ``cfg`` yet, or None for an attention
+    decoder (dense or MoE)."""
     if tuple(cfg.pattern) != ("a",):
         return f"mixer pattern {cfg.pattern}"
-    if cfg.n_experts:
-        return f"{cfg.n_experts} MoE experts"
     if cfg.enc_dec:
         return "an encoder-decoder"
     if cfg.frontend:
@@ -57,13 +58,23 @@ def unsupported(cfg: ArchConfig) -> Optional[str]:
     return None
 
 
+def ffn_key(cfg: ArchConfig, j: int) -> str:
+    """The FFN leaf of pattern slot ``j``: ``mlp``, or in an MoE slot
+    ``moe_ep`` / ``moe_tp`` by ``cfg.moe_sharding`` (the reference's
+    ``_init_block``)."""
+    if not (cfg.is_moe_slot(j) and cfg.has_ffn(cfg.pattern[j])):
+        return "mlp"
+    return "moe_ep" if cfg.moe_sharding == "ep" else "moe_tp"
+
+
 class LM:
     def __init__(self, cfg: ArchConfig, device: DeviceLike = None):
         why = unsupported(cfg)
         if why is not None:
             raise NotImplementedError(
-                f"{cfg.name}: {why} is not ported; the port runs dense "
-                "decoders only (ROADMAP.md item 16)")
+                f"{cfg.name}: {why} is not ported; the port runs "
+                "attention decoders, dense or MoE, only (ROADMAP.md "
+                "item 16)")
         self.cfg = cfg
         self.pattern = cfg.pattern
         self.repeats = cfg.n_layers // len(cfg.pattern)
@@ -73,7 +84,8 @@ class LM:
     def init(self, generator: Optional[torch.Generator] = None) -> Params:
         """Random parameters drawn from ``generator`` (default: seed 0 on
         this LM's device), with the reference's scales: embed N(0, 0.02),
-        head and projections N(0, 1/fan_in), norms 1, biases 0.  The
+        head, projections, router and experts N(0, 1/fan_in), norms 1,
+        biases 0; the router f32 whatever ``param_dtype`` is.  The
         numbers differ from the reference's ``jax.random`` draws; carry
         those over with :func:`repro_torch.convert.lm_params_from_numpy`."""
         cfg = self.cfg
@@ -97,15 +109,33 @@ class LM:
         if not cfg.tie_embeddings:
             params["head"] = normal((d, cfg.vocab_padded), 1 / math.sqrt(d))
         # each leaf drawn stacked over the repeats, as lax.scan reads them
-        params["slots"] = [{
-            "ln1": ones(r),
-            "attn": L.init_attention(gen, d, cfg.n_heads, cfg.n_kv_heads,
-                                     cfg.hd, cfg.qkv_bias, dt, lead=(r,)),
-            "ln2": ones(r),
-            "mlp": L.init_mlp(gen, d, cfg.d_ff, dt, lead=(r,))}]
+        slot = {"ln1": ones(r),
+                "attn": L.init_attention(gen, d, cfg.n_heads,
+                                         cfg.n_kv_heads, cfg.hd,
+                                         cfg.qkv_bias, dt, lead=(r,)),
+                "ln2": ones(r)}
+        key = ffn_key(cfg, 0)
+        if key == "mlp":
+            slot[key] = L.init_mlp(gen, d, cfg.d_ff, dt, lead=(r,))
+        else:
+            slot[key] = L.init_moe(gen, d, cfg.d_ff, cfg.n_experts, dt,
+                                   lead=(r,))
+        params["slots"] = [slot]
         if gdev != self.device:
             params = _tree_map(lambda t: t.to(self.device), params)
         return params
+
+    def _ffn(self, p: Params, x: torch.Tensor) -> torch.Tensor:
+        """The block's FFN on ``rms_norm(p["ln2"], x)``: the SwiGLU MLP,
+        or in an MoE slot the top-k MoE."""
+        cfg = self.cfg
+        h = L.rms_norm(p["ln2"], x)
+        key = ffn_key(cfg, 0)
+        if key == "mlp":
+            return L.mlp(p[key], h)
+        return L.moe(p[key], h, top_k=cfg.top_k, n_experts=cfg.n_experts,
+                     capacity_factor=cfg.capacity_factor,
+                     ep=key == "moe_ep")
 
     # ------------------------------------------------------------------
     def _cast(self, params: Params) -> Params:
@@ -144,7 +174,7 @@ class LM:
     # ------------------------------------------------------------------
     def _block_train(self, p: Params, x: torch.Tensor,
                      use_rope: bool = True) -> torch.Tensor:
-        """One dense decoder block (kind ``"a"``, no MoE), cache-free."""
+        """One decoder block (kind ``"a"``, MLP or MoE), cache-free."""
         cfg = self.cfg
         h = L.rms_norm(p["ln1"], x)
         out, _ = L.attention(
@@ -153,7 +183,7 @@ class LM:
             window=cfg.sliding_window, causal=True,
             attn_block=cfg.attn_block, use_rope=use_rope)
         x = x + out
-        return x + L.mlp(p["mlp"], L.rms_norm(p["ln2"], x))
+        return x + self._ffn(p, x)
 
     def _backbone_train(self, params: Params, x: torch.Tensor
                         ) -> torch.Tensor:
@@ -216,7 +246,7 @@ class LM:
             rope_theta=cfg.rope_theta, window=cfg.sliding_window,
             attn_block=cfg.attn_block)
         x = x + out
-        return x + L.mlp(p["mlp"], L.rms_norm(p["ln2"], x))
+        return x + self._ffn(p, x)
 
     def _run_cached(self, params: Params, x, cache):
         """Run the layers in order, each against its cache slice (views
@@ -249,11 +279,17 @@ class LM:
 
     # ------------------------------------------------------------------
     def param_counts(self, params: Params) -> Tuple[int, int]:
-        """(total, active) parameter counts; a dense decoder has no
-        experts, so both are the total."""
+        """(total, active) parameter counts; active counts each MoE
+        slot's experts at ``top_k / n_experts`` (the reference's floor)."""
+        cfg = self.cfg
         sizes = []
         _tree_map(lambda t: sizes.append(t.numel()), params)
-        return sum(sizes), sum(sizes)
+        total = sum(sizes)
+        expert = sum(slot[key][w].numel() for slot in params["slots"]
+                     for key in ("moe_ep", "moe_tp") if key in slot
+                     for w in ("wg", "wu", "wd"))
+        return total, total - expert + (expert * cfg.top_k
+                                        // max(cfg.n_experts, 1))
 
 
 def _tree_map(fn, tree):

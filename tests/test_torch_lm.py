@@ -16,7 +16,7 @@ carried over with ``lm_params_from_numpy``), both packages on the CPU:
 * ``serve``: identical tokens, including 2,064-token prompts (the
   blockwise branch) and mixed prompt lengths;
 * the configs are the reference's, and ``build_lm`` refuses what is not
-  a dense decoder.
+  an attention decoder (dense or MoE).
 """
 
 import dataclasses
@@ -89,9 +89,11 @@ def test_configs_are_the_reference(name):
     assert set(ARCHS) == set(J_ARCHS)
 
 
-@pytest.mark.parametrize("name", ["mixtral-8x7b", "xlstm-350m",
+@pytest.mark.parametrize("name", ["internvl2-76b", "xlstm-350m",
                                   "jamba-1.5-large-398b", "whisper-small"])
 def test_build_lm_refuses_what_is_not_a_dense_decoder(name):
+    """SSM/xLSTM, hybrid, VLM and encoder-decoder configs are refused;
+    the MoE decoders build (``tests/test_torch_moe.py``)."""
     with pytest.raises(NotImplementedError, match="item 16"):
         build_lm(get(name), device="cpu")
     with pytest.raises(NotImplementedError, match="item 16"):
@@ -580,7 +582,7 @@ def test_lm_params_from_numpy_refuses_wrong_trees(reduced):
     with pytest.raises(TypeError, match="embed"):
         lm_params_from_numpy(bad, tcfg, "cpu")
     with pytest.raises(NotImplementedError, match="item 16"):
-        lm_params_from_numpy(npp, get("mixtral-8x7b").reduced(), "cpu")
+        lm_params_from_numpy(npp, get("internvl2-76b").reduced(), "cpu")
 
 
 @pytest.mark.parametrize("case", ["three_prompts", "mixed_lengths",
