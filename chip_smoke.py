@@ -307,6 +307,37 @@ Drives ``repro_torch`` only (never JAX, never the JAX package ``repro``):
    experts in f32 on the card against the CPU: loss within 1e-6
    relative, grads within 1e-4 of each leaf's max and bit-identical in
    a second card run, served tokens equal.
+17. Recurrent mixers (``models/ssm.py``: Mamba, mLSTM, sLSTM;
+   ``xlstm-350m``, ``jamba-1.5-large-398b``): (a) one full-width block
+   of each kind in f32, TF32 off, on 256 tokens from a nonzero state
+   (Jamba's Mamba, d 8,192, d_inner 16,384; xLSTM's mLSTM and sLSTM, d
+   1,024) against the port on the CPU, outputs and states within
+   ``1e-4 * max|ref|``, and on the card the chunked forms against
+   ``mamba_step`` / ``mlstm_recurrent`` token by token (the sLSTM
+   against itself resumed half way) at the same gate; (b) xLSTM-350M at
+   all 24 layers, bf16, serving 8 prompts of 4,096 tokens (4 slots, 16
+   new tokens): 0 K5 launches, one group's prefill last-token logits
+   and first decode step against ``forward_train`` at the same
+   positions within ``5e-2 * max|ref|``, and in f32 at 8 of the 24
+   layers within ``1e-4 * max|ref|``, each or four times
+   ``forward_train``'s own spread at half the ``mlstm_chunk``, where
+   larger (rounding amplified through the mLSTM layers), host ms per
+   group and step, one profiled prefill and decode step, peak memory;
+   (c) xLSTM-350M
+   training at full size, f32 params and AdamW, batch 8 x 512, 3
+   ``make_train_step`` steps: finite losses, host ms, busy share, peak
+   memory; (d) Jamba-1.5-Large at full width, its first 4 of 72 layers
+   (3 Mamba, 1 attention, MoE at slots 1 and 3), bf16, serving 8
+   prompts of 4,080 tokens: K5 once a prefill group and never in
+   decode, the first group's logits against the plain scan within
+   ``5e-2 * max|ref|``, entries dropped per MoE layer, one profiled
+   prefill, one Mamba layer timed at the prefill's shape, peak memory;
+   then K5 bf16 at Jamba's prefill shape (4 x 64 q / 8 kv heads x 4,080
+   x 128) against its plain version and timed beside SDPA; (e) the
+   reduced xLSTM and Jamba in f32 on the card against the CPU: loss
+   within 1e-6 relative, grads within 1e-4 of each leaf's max (xLSTM:
+   or four times the CPU's own spread when only ``mlstm_chunk``
+   changes) and bit-identical in a second card run, greedy tokens equal.
 
 Every printed number carries the card's name and power limit.  The line
 before the last is ``{"kernels": [...]}``; the last is ``{"ok": true,
@@ -452,16 +483,20 @@ def _clocks() -> str:
     return out.stdout.strip()
 
 
-def _device_breakdown(fn, top: int = 6):
+def _device_breakdown(fn, top: int = 6, cuda_only: bool = False):
     """One synchronised call of ``fn`` under ``torch.profiler``: (device
     busy ms, wall ms, [(kernel, ms, calls)] the ``top`` by device time),
-    or None when the profiler saw no device time."""
+    or None when the profiler saw no device time.  ``cuda_only`` records
+    the device's activity alone (no host op events): for calls that
+    launch hundreds of thousands of kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA]
+    if not cuda_only:
+        acts.insert(0, ProfilerActivity.CPU)
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -5346,14 +5381,16 @@ def _moe_layer_check(dev, tag) -> dict:
             "gate_gap": margin}
 
 
-def _moe_k5_check(dev, tag) -> dict:
-    """(b): K5 bf16 at DBRX's prefill shape against its plain version
-    (one sample at a time), and its device time there beside SDPA's."""
+def _k5_at_shape(dev, tag, shape, label: str, part: str) -> dict:
+    """K5 bf16 at ``shape`` (B, H, Hkv, S, D), causal, against its plain
+    version (one sample at a time) inside ``_k5_gate``'s bf16 bounds, and
+    its device time there in turns with SDPA's.  ``label`` names the
+    shape in the printed lines, ``part`` the phase part that raises."""
     import torch
     import torch.nn.functional as F
     import repro_torch.kernels.flash_attn as FA
 
-    b, h, hkv, s, d = MOE_K5_SHAPE
+    b, h, hkv, s, d = shape
     gen = torch.Generator().manual_seed(SEED)
     q, k, v = ((torch.randn(b, n, s, d, generator=gen) * 0.5)
                .to(dev, torch.bfloat16) for n in (h, hkv, hkv))
@@ -5362,14 +5399,18 @@ def _moe_k5_check(dev, tag) -> dict:
     torch.cuda.synchronize()
     ok, text, dmax, share = _k5_gate(out, ref, torch.bfloat16)
     ok = ok and out.dtype == torch.bfloat16 and out.shape == q.shape
-    print(f"moe (b): K5 bf16 at {MOE_DBRX}'s prefill shape ({b}, {h} q / "
-          f"{hkv} kv heads, S {s}, D {d}, causal) vs flash_attention_ref "
-          f"(f32 on the bf16 inputs, one sample at a time): {text} "
-          f"{'ok' if ok else 'FAIL'} {tag}")
+    print(f"{part}: K5 bf16 at {label} ({b}, {h} q / {hkv} kv heads, S {s}, "
+          f"D {d}, causal) vs flash_attention_ref (f32 on the bf16 inputs, "
+          f"one sample at a time): {text} {'ok' if ok else 'FAIL'} {tag}")
     if not ok:
-        raise SystemExit(f"chip_smoke: phase 16 (b): K5 disagrees with its "
-                         f"plain version at {MOE_K5_SHAPE}")
+        raise SystemExit(f"chip_smoke: {part}: K5 disagrees with its plain "
+                         f"version at {shape}")
     del ref
+    qf, kf, vf = q.float(), k.float(), v.float()
+    plain = _time_ms({"plain": lambda: _k5_plain(qf, kf, vf)}, reps=1,
+                     iters=1)["plain"][0]
+    del qf, kf, vf
+    torch.cuda.empty_cache()
     fns = {"k5": lambda: FA.flash_attention(q, k, v),
            "sdpa": lambda: F.scaled_dot_product_attention(
                q, k, v, is_causal=True, enable_gqa=True)}
@@ -5386,13 +5427,27 @@ def _moe_k5_check(dev, tag) -> dict:
     print(f"  time: K5 bf16 {ms['k5']:.3f} ms ("
           f"{'profiler' if math.isfinite(dev_ms['k5']) else 'CUDA events'}"
           f"; events over 3 calls {ev['k5'][0]:.3f} [{ev['k5'][1]:.3f}, "
-          f"{ev['k5'][2]:.3f}]), SDPA bf16 {ms['sdpa']:.3f} ms; bound "
+          f"{ev['k5'][2]:.3f}]), SDPA bf16 {ms['sdpa']:.3f} ms ("
+          f"{'profiler' if math.isfinite(dev_ms['sdpa']) else 'CUDA events'}"
+          f"; events {ev['sdpa'][0]:.3f}); bound "
           f"{max(t_ops, t_bytes):.3f} ms at the useful work "
           f"({flops:.3e} FLOP), {max(1.5 * t_ops, t_bytes):.3f} at the split "
-          f"P's 1.5x; sm clock, power, temperature {_clocks()} {tag}")
+          f"P's 1.5x; the plain version (f32, one sample at a time) "
+          f"{plain:.3f} ms (CUDA events, one call after 3 warm ones); sm "
+          f"clock, power, temperature {_clocks()} {tag}")
     return {"max_abs": dmax, "element_share": share, "ms": ms["k5"],
-            "sdpa_ms": ms["sdpa"], "events_ms": ev["k5"][0],
-            "bound_ms": max(t_ops, t_bytes)}
+            "sdpa_ms": ms["sdpa"], "plain_ms": plain,
+            "events_ms": ev["k5"][0],
+            "sdpa_events_ms": ev["sdpa"][0],
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_split_ms": max(1.5 * t_ops, t_bytes)}
+
+
+def _moe_k5_check(dev, tag) -> dict:
+    """(b): K5 bf16 at DBRX's prefill shape against its plain version
+    (one sample at a time), and its device time there beside SDPA's."""
+    return _k5_at_shape(dev, tag, MOE_K5_SHAPE, f"{MOE_DBRX}'s prefill "
+                        "shape", "moe (b)")
 
 
 def _moe_dbrx_serve(dev, tag) -> dict:
@@ -5779,6 +5834,632 @@ def _moe_phase(dev, tag) -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: recurrent mixers, xLSTM-350M and Jamba-1.5-Large
+# ---------------------------------------------------------------------------
+
+HYB_XLSTM, HYB_JAMBA = "xlstm-350m", "jamba-1.5-large-398b"
+HYB_BLOCK_TOKENS = (1, 256)   # (a): one full-width block of each kind, f32
+HYB_BLOCK_GATE = 1e-4         # (a): card vs CPU and chunked vs stepwise
+HYB_X_REQUESTS, HYB_X_PROMPT_LEN, HYB_SLOTS = 8, 4096, 4
+HYB_X_MAX_LEN, HYB_MAX_NEW = 4112, 16
+HYB_X_F32_GATE = 1e-4        # (b): served vs forward_train, f32, 8 layers
+HYB_X_TRAIN_BATCH, HYB_X_TRAIN_SEQ, HYB_X_TRAIN_STEPS = 8, 512, 3
+HYB_JAMBA_LAYERS = 4          # (d): the first half of Jamba's 8-layer period
+HYB_J_REQUESTS, HYB_J_PROMPT_LEN, HYB_J_MAX_LEN = 8, 4080, 4096
+HYB_K5_SHAPE = (4, 64, 8, 4080, 128)    # (d): Jamba's prefill group
+HYB_CHECK_LOSS_RTOL = 1e-6    # (e): reduced LMs, card vs CPU
+HYB_CHECK_BATCH, HYB_CHECK_SEQ = 4, 32
+
+
+def _jamba_cut(cfg):
+    """Jamba's first ``HYB_JAMBA_LAYERS`` layers: 3 Mamba slots and the
+    attention slot, MoE at slots 1 and 3; no width changes."""
+    import dataclasses
+    return dataclasses.replace(cfg, n_layers=HYB_JAMBA_LAYERS,
+                               pattern=cfg.pattern[:HYB_JAMBA_LAYERS])
+
+
+def _hyb_gate(name, out, ref, rel, log, tag):
+    """Print and return whether ``out`` is within ``rel * max|ref|`` of
+    ``ref``."""
+    dmax, tol = _gate_err(out.cpu(), ref.cpu(), rel, False)
+    ok = dmax <= tol and bool(_finite(out))
+    log.append(f"{name} {dmax / tol:.3f}")
+    print(f"  {name}: max|d| {dmax:.3e} tol {tol:.3e} ({rel}*max|ref|, "
+          f"{dmax / tol:.3f} of it) {'ok' if ok else 'FAIL'} {tag}")
+    return ok
+
+
+def _finite(t) -> bool:
+    import torch
+    return bool(torch.isfinite(t.float()).all())
+
+
+def _hyb_blocks(dev, tag) -> dict:
+    """(a): one full-width block of each recurrent kind in f32 (TF32
+    off), HYB_BLOCK_TOKENS tokens from a nonzero state: Jamba's Mamba
+    (d 8,192, d_inner 16,384, d_state 16, its chunk 128), xLSTM's mLSTM
+    (d 1,024, 4 heads of 512, chunk 256) and sLSTM (d 1,024, inner
+    1,408); outputs and states on the card against the port on the CPU,
+    and on the card the chunked forms against ``mamba_step`` /
+    ``mlstm_recurrent`` token by token and the sLSTM against itself
+    resumed half way, all within HYB_BLOCK_GATE * max|ref|."""
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.models import ssm as S
+
+    jamba, xl = get(HYB_JAMBA), get(HYB_XLSTM)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    b, s = HYB_BLOCK_TOKENS
+    report, fails = {}, []
+    for kind in ("mamba", "mlstm", "slstm"):
+        cfg = jamba if kind == "mamba" else xl
+        d = cfg.d_model
+        if kind == "mamba":
+            p = S.init_mamba(gen, d, expand=cfg.mamba_expand,
+                             d_state=cfg.mamba_d_state,
+                             d_conv=cfg.mamba_d_conv)
+            st = S.MambaState(
+                torch.randn(b, cfg.mamba_d_conv - 1, p["conv_w"].shape[1],
+                            generator=gen, device=dev),
+                0.5 * torch.randn(b, *p["A_log"].shape, generator=gen,
+                                  device=dev))
+
+            def run(p_, x_, st_):
+                return S.mamba_forward(p_, x_, st_, chunk=cfg.mamba_chunk)
+
+            def steps(p_, x_, st_):
+                ys = []
+                for t in range(x_.shape[1]):
+                    y, st_ = S.mamba_step(p_, x_[:, t:t + 1], st_)
+                    ys.append(y)
+                return torch.cat(ys, 1), st_
+        elif kind == "mlstm":
+            h = cfg.n_heads
+            p = S.init_mlstm(gen, d, n_heads=h, proj_factor=cfg.mlstm_proj)
+            dh = p["wq"].shape[1] // h
+            st = S.MLSTMState(
+                0.1 * torch.randn(b, h, dh, dh, generator=gen, device=dev),
+                0.1 * torch.randn(b, h, dh, generator=gen, device=dev),
+                torch.randn(b, h, generator=gen, device=dev))
+
+            def run(p_, x_, st_):
+                return S.mlstm_chunkwise(p_, x_, st_, n_heads=cfg.n_heads,
+                                         chunk=cfg.mlstm_chunk)
+
+            def steps(p_, x_, st_):
+                return S.mlstm_recurrent(p_, x_, st_, n_heads=cfg.n_heads)
+        else:
+            p = S.init_slstm(gen, d, n_heads=cfg.n_heads,
+                             proj_factor=cfg.slstm_proj)
+            di = p["down"].shape[0]
+            st = S.SLSTMState(
+                torch.randn(b, di, generator=gen, device=dev),
+                torch.rand(b, di, generator=gen, device=dev) + 0.5,
+                torch.randn(b, di, generator=gen, device=dev),
+                0.5 * torch.randn(b, di, generator=gen, device=dev))
+
+            def run(p_, x_, st_):
+                return S.slstm_forward(p_, x_, st_)
+
+            def steps(p_, x_, st_):
+                half = x_.shape[1] // 2
+                y1, st1 = S.slstm_forward(p_, x_[:, :half], st_)
+                y2, st2 = S.slstm_forward(p_, x_[:, half:], st1)
+                return torch.cat([y1, y2], 1), st2
+        x = torch.randn(b, s, d, generator=gen, device=dev)
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y, new = run(p, x, st)
+            torch.cuda.synchronize()
+            card_ms = (time.perf_counter() - t0) * 1e3
+            y_st, new_st = steps(p, x, st)
+            pc = {k: v.cpu() for k, v in p.items()}
+            st_c = type(st)(*(t.cpu() for t in st))
+            t0 = time.perf_counter()
+            y_ref, new_ref = run(pc, x.cpu(), st_c)
+            cpu_ms = (time.perf_counter() - t0) * 1e3
+        n_params = sum(v.numel() for v in p.values())
+        print(f"hybrid (a): one full-width {kind} block ({cfg.name}, "
+              f"d_model {d}, {n_params / 1e6:.1f} M params), f32, TF32 "
+              f"off, {b} x {s} tokens from a nonzero state; host ms card "
+              f"{card_ms:.1f} (first call), CPU {cpu_ms:.1f} {tag}")
+        log = []
+        ok = _hyb_gate("card vs CPU, output", y, y_ref, HYB_BLOCK_GATE, log,
+                       tag)
+        for name, a, r in zip(new._fields, new, new_ref):
+            ok &= _hyb_gate(f"card vs CPU, state {name}", a, r,
+                            HYB_BLOCK_GATE, log, tag)
+        what = ("resumed half way" if kind == "slstm" else
+                "mamba_step" if kind == "mamba" else "mlstm_recurrent")
+        ok &= _hyb_gate(f"chunked vs {what} on the card, output", y_st, y,
+                        HYB_BLOCK_GATE, log, tag)
+        for name, a, r in zip(new._fields, new_st, new):
+            ok &= _hyb_gate(f"chunked vs {what} on the card, state {name}",
+                            a, r, HYB_BLOCK_GATE, log, tag)
+        report[kind] = {"params": n_params, "card_ms": card_ms,
+                        "cpu_ms": cpu_ms, "gate_shares": log, "ok": ok}
+        if not ok:
+            fails.append(kind)
+        del p, pc, st, st_c, x, y, new, y_st, new_st, y_ref, new_ref
+        torch.cuda.empty_cache()
+    if fails:
+        raise SystemExit(f"chip_smoke: phase 17 (a): the full-width {fails} "
+                         "block(s) disagree")
+    return report
+
+
+def _serve_vs_train(lm, params, rows, rel: float, what: str, tag) -> dict:
+    """Prefill ``rows`` and take one greedy decode step, then hold the
+    prefill's last-token logits and the step's against
+    ``forward_train`` on the prompt and that token, at the same
+    positions: within ``rel * max|ref|``, or four times
+    ``forward_train``'s own spread when only ``mlstm_chunk`` halves (the
+    same function, the mLSTM's sums in another order) where that is
+    larger.  Returns the gates, ``ok``, the token and the cache after
+    the step."""
+    import dataclasses
+    import torch
+    from repro_torch.models.lm import build_lm
+
+    cfg, s = lm.cfg, rows.shape[1]
+    with torch.no_grad():
+        cache = lm.init_cache(rows.shape[0], s + HYB_MAX_NEW)
+        lg_p, cache = lm.prefill(params, {"inputs": rows}, cache)
+        tok = torch.argmax(lg_p, -1).to(torch.int32)
+        lg_d, cache = lm.decode_step(params, {"inputs": tok}, cache)
+        seq = {"inputs": torch.cat([rows, tok], 1)}
+        ref = lm.forward_train(params, seq)[:, s - 1:s + 1].clone()
+        torch.cuda.empty_cache()
+        half = build_lm(dataclasses.replace(
+            cfg, mlstm_chunk=cfg.mlstm_chunk // 2), device=lm.device)
+        alt = half.forward_train(params, seq)[:, s - 1:s + 1].clone()
+    torch.cuda.empty_cache()
+    gates, ok = {}, _finite(lg_p) and _finite(lg_d)
+    for i, (name, got) in enumerate((("prefill", lg_p), ("decode", lg_d))):
+        d_, t_ = _gate_err(got, ref[:, i:i + 1], rel, False)
+        spread = (alt[:, i:i + 1] - ref[:, i:i + 1]).abs().max().item()
+        gate = max(t_, 4 * spread)
+        ok &= d_ <= gate
+        gates[name] = {"max_abs": d_, "gate": gate, "share": d_ / gate,
+                       "rel_tol": t_, "spread": spread,
+                       "max_ref": ref[:, i].abs().max().item()}
+    same = torch.equal(torch.argmax(torch.cat([lg_p, lg_d], 1), -1),
+                       torch.argmax(ref, -1))
+    n_x = cfg.pattern.count("x") * lm.repeats
+    txt = "; ".join(
+        f"{n} (position {s - 1 + i}): max|d| {g['max_abs']:.3e}, gate "
+        f"{g['gate']:.3e} ({g['share']:.3f} of it; {rel}*max|ref| "
+        f"{g['rel_tol']:.3e}, spread {g['spread']:.3e})"
+        for i, (n, g) in enumerate(gates.items()))
+    print(f"  {what}, {cfg.n_layers} layers ({n_x} mLSTM): one group's "
+          f"prefill last-token logits and first decode step vs "
+          f"forward_train at the same positions, gate max({rel}*max|ref|, "
+          f"4 x forward_train's own spread at mlstm_chunk "
+          f"{cfg.mlstm_chunk // 2}): {txt}; greedy tokens equal {same} "
+          f"{'ok' if ok else 'FAIL'} {tag}")
+    return {"gates": gates, "ok": ok, "tok": tok, "cache": cache,
+            "tokens_equal": same}
+
+
+def _hyb_xlstm_serve(dev, tag) -> dict:
+    """(b): xLSTM-350M at all 24 layers, bf16, serving HYB_X_REQUESTS
+    prompts of HYB_X_PROMPT_LEN tokens through ``serve`` (HYB_SLOTS
+    slots, HYB_MAX_NEW new tokens): no K5 launch, every token in the
+    vocabulary; one group's prefill last-token logits and first decode
+    step against ``forward_train`` (:func:`_serve_vs_train`) in bf16 at
+    all 24 layers within LM_BF16_GATE * max|ref|, and in f32 (TF32 off)
+    at one pattern period (8 layers) within HYB_X_F32_GATE * max|ref|,
+    each or four times ``forward_train``'s own spread when only
+    ``mlstm_chunk`` halves, where that is larger (the mLSTM's normaliser
+    amplifies rounding: ``tests/test_torch_hybrid.py``); host ms per
+    group and step, the busy share
+    and top kernels of one profiled prefill and decode step, peak
+    memory."""
+    import dataclasses
+    import torch
+    import repro_torch.kernels.flash_attn as FA
+    from repro_torch.configs import get
+    from repro_torch.launch.serve import random_prompts, serve
+    from repro_torch.models.lm import build_lm
+
+    cfg = get(HYB_XLSTM)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lm = build_lm(cfg, device=dev)
+    params = lm._cast(lm.init(torch.Generator(device=dev).manual_seed(SEED)))
+    n_params = lm.param_counts(params)[0]
+    prompts = random_prompts(cfg.vocab_size, HYB_X_REQUESTS,
+                             HYB_X_PROMPT_LEN, seed=SEED)
+    FA.FLASH_ATTN_LAUNCHES = 0
+    results, stats = serve(cfg, prompts, max_new=HYB_MAX_NEW,
+                           slots=HYB_SLOTS, max_len=HYB_X_MAX_LEN,
+                           params=params, device=dev)
+    torch.cuda.synchronize()
+    launches = FA.FLASH_ATTN_LAUNCHES
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    dec = sorted(stats["decode_ms"])
+    groups = len(stats["prefill_ms"])
+    print(f"hybrid (b): {cfg.name} at all {cfg.n_layers} layers (pattern "
+          f"{''.join(cfg.pattern)}, d_model {cfg.d_model}, {cfg.n_heads} "
+          f"heads, vocab {cfg.vocab_size}, tied embeddings; "
+          f"{n_params / 1e9:.4f} G params, bf16): {len(results)} prompts of "
+          f"{HYB_X_PROMPT_LEN} tokens, {HYB_MAX_NEW} new tokens, "
+          f"{HYB_SLOTS} slots, in {stats['wall_s']:.3f} s host clock; "
+          f"prefill per group {[round(t, 3) for t in stats['prefill_ms']]} "
+          f"ms; decode per step median {dec[len(dec) // 2]:.3f} ms [min "
+          f"{dec[0]:.3f}, max {dec[-1]:.3f}] over {len(dec)} steps; K5 "
+          f"launches {launches}; peak memory {peak:.2f} GiB {tag}")
+    ok = (launches == 0 and groups == 2
+          and sorted(results) == list(range(HYB_X_REQUESTS))
+          and all(len(t) == HYB_MAX_NEW and all(0 <= x < cfg.vocab_size
+                                                 for x in t)
+                  for t in results.values()))
+    if not ok:
+        raise SystemExit("chip_smoke: phase 17 (b): xLSTM serving ran K5 "
+                         "or its tokens are wrong")
+    rows = torch.tensor(prompts[:HYB_SLOTS], dtype=torch.int32, device=dev)
+    g16 = _serve_vs_train(lm, params, rows, LM_BF16_GATE, "bf16", tag)
+    with torch.no_grad():
+        br_dec = _device_breakdown(lambda: lm.decode_step(
+            params, {"inputs": g16["tok"]}, g16["cache"]), top=6)
+    del g16["cache"]
+    torch.cuda.empty_cache()
+    # the same check in f32 (TF32 off) on one pattern period, where the
+    # amplification leaves the gate its teeth
+    cfg32 = dataclasses.replace(cfg, n_layers=len(cfg.pattern),
+                                compute_dtype="float32")
+    lm32 = build_lm(cfg32, device=dev)
+    p32 = lm32.init(torch.Generator(device=dev).manual_seed(SEED))
+    g32 = _serve_vs_train(lm32, p32, rows, HYB_X_F32_GATE, "f32", tag)
+    del lm32, p32, g32["cache"]
+    torch.cuda.empty_cache()
+    if not (g16["ok"] and g32["ok"]):
+        raise SystemExit("chip_smoke: phase 17 (b): xLSTM's served logits "
+                         "disagree with forward_train")
+    br = _device_breakdown(lambda: lm.prefill(
+        params, {"inputs": rows}, lm.init_cache(HYB_SLOTS, HYB_X_MAX_LEN)),
+        top=8, cuda_only=True)
+    prof = {}
+    for name, b_ in (("prefill", br), ("decode step", br_dec)):
+        if b_ is None:
+            print(f"  one {name} under the profiler: not measured (no "
+                  "device time reported)")
+            continue
+        busy, wall, top = b_
+        prof[name] = {"busy_ms": busy, "wall_ms": wall,
+                      "top": [(n[:90], m, c) for n, m, c in top]}
+        print(f"  one {name} under the profiler: device busy {busy:.3f} ms "
+              f"of {wall:.3f} ms wall (busy share {busy / wall:.3f}) {tag}")
+        for n, ms_k, calls in top[:6]:
+            print(f"    {ms_k:.3f} ms in {calls} call(s): {n[:90]}")
+    del params, lm
+    torch.cuda.empty_cache()
+    return {"params": n_params, "prefill_ms": stats["prefill_ms"],
+            "decode_ms": stats["decode_ms"], "wall_s": stats["wall_s"],
+            "peak_gib": peak, "k5_launches": launches,
+            "gate_bf16": g16["gates"], "gate_f32": g32["gates"],
+            "profile": prof}
+
+
+def _hyb_xlstm_train(dev, tag) -> dict:
+    """(c): xLSTM-350M at full width and depth, f32 params and AdamW,
+    bf16 compute, HYB_X_TRAIN_STEPS ``make_train_step`` steps at batch
+    HYB_X_TRAIN_BATCH x HYB_X_TRAIN_SEQ: every loss and gnorm finite,
+    host ms a step, the busy share of a profiled step, peak memory."""
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.data import SyntheticTokenPipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.lm import build_lm
+    from repro_torch.optim import adamw_init
+
+    cfg = get(HYB_XLSTM)
+    torch.cuda.empty_cache()
+    lm = build_lm(cfg, device=dev)
+    params = lm.init(torch.Generator(device=dev).manual_seed(SEED))
+    opt = adamw_init(params)
+    step = make_train_step(lm)
+    pipe = SyntheticTokenPipeline(cfg.vocab_size, HYB_X_TRAIN_SEQ,
+                                  HYB_X_TRAIN_BATCH, seed=SEED)
+    torch.cuda.reset_peak_memory_stats()
+    ms, metrics = [], []
+    for s in range(HYB_X_TRAIN_STEPS):
+        batch = {k: v.to(dev) for k, v in pipe.batch(s).items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append((float(m["loss"]), float(m["gnorm"]), m["lr"]))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    batch = {k: v.to(dev) for k, v in pipe.batch(HYB_X_TRAIN_STEPS).items()}
+    br = _device_breakdown(lambda: step(params, opt, batch), top=8,
+                           cuda_only=True)
+    finite = all(math.isfinite(x) for l, g, _ in metrics for x in (l, g))
+    print(f"hybrid (c): {cfg.name} at all {cfg.n_layers} layers "
+          f"({lm.param_counts(params)[0] / 1e9:.4f} G params; f32 params "
+          f"and AdamW, bf16 compute), batch {HYB_X_TRAIN_BATCH} x "
+          f"{HYB_X_TRAIN_SEQ}, {HYB_X_TRAIN_STEPS} make_train_step steps: "
+          f"(loss, gnorm, lr) {metrics}; host ms per step "
+          f"{[round(t, 3) for t in ms]} (synchronised); peak memory "
+          f"{peak:.2f} GiB {'ok' if finite else 'FAIL'} {tag}")
+    busy = wall = None
+    if br is None:
+        print("  device time of one step: not measured (the profiler "
+              "reported no device time)")
+    else:
+        busy, wall, top = br
+        print(f"  profiler, one step: device busy {busy:.3f} ms of "
+              f"{wall:.3f} ms wall (busy share {busy / wall:.3f}) {tag}")
+        for n, ms_k, calls in top[:6]:
+            print(f"    {ms_k:.3f} ms in {calls} call(s): {n[:90]}")
+    if not finite:
+        raise SystemExit("chip_smoke: phase 17 (c): xLSTM training gave a "
+                         "non-finite loss or gnorm")
+    del params, opt, lm
+    torch.cuda.empty_cache()
+    return {"step_ms": ms, "metrics": metrics, "peak_gib": peak,
+            "busy_ms": busy, "wall_ms": wall}
+
+
+def _hyb_jamba_serve(dev, tag) -> dict:
+    """(d): Jamba-1.5-Large at full width, its first HYB_JAMBA_LAYERS
+    layers, bf16, serving HYB_J_REQUESTS prompts of HYB_J_PROMPT_LEN
+    tokens (HYB_SLOTS slots, HYB_MAX_NEW new tokens, capacity factor
+    1.25): K5 once a prefill group, in the attention slot, and never in
+    decode; the first group's last-token logits against the same model
+    with K5 replaced by the plain scan within LM_BF16_GATE * max|ref|;
+    entries dropped per MoE layer, peak memory, one profiled prefill,
+    one Mamba layer timed at the prefill's shape; then K5 at Jamba's
+    prefill shape against its plain version and SDPA."""
+    import torch
+    import repro_torch.kernels.flash_attn as FA
+    from repro_torch.configs import get
+    from repro_torch.launch.serve import random_prompts, serve
+    from repro_torch.models import ssm as S
+    from repro_torch.models.lm import build_lm
+
+    full = get(HYB_JAMBA)
+    cfg = _jamba_cut(full)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lm = build_lm(cfg, device=dev)
+    t0 = time.perf_counter()
+    params = lm.init(torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_total, n_active = lm.param_counts(params)
+    prompts = random_prompts(cfg.vocab_size, HYB_J_REQUESTS,
+                             HYB_J_PROMPT_LEN, seed=SEED)
+    torch.cuda.reset_peak_memory_stats()
+    FA.FLASH_ATTN_LAUNCHES = 0
+    results, stats = serve(cfg, prompts, max_new=HYB_MAX_NEW,
+                           slots=HYB_SLOTS, max_len=HYB_J_MAX_LEN,
+                           params=params, device=dev)
+    torch.cuda.synchronize()
+    launches = FA.FLASH_ATTN_LAUNCHES
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    groups = len(stats["prefill_ms"])
+    dec = sorted(stats["decode_ms"])
+    n_attn = cfg.pattern.count("a") * lm.repeats
+    print(f"hybrid (d): {cfg.name} at {HYB_JAMBA_LAYERS} of {full.n_layers} "
+          f"layers (pattern {''.join(cfg.pattern)}, d_model {cfg.d_model}, "
+          f"Mamba d_inner {cfg.mamba_expand * cfg.d_model} d_state "
+          f"{cfg.mamba_d_state}, {cfg.n_heads} q / {cfg.n_kv_heads} kv heads "
+          f"of {cfg.hd}, {cfg.n_experts} experts of d_ff {cfg.d_ff}, top-"
+          f"{cfg.top_k} at slots 1 and 3, capacity factor "
+          f"{cfg.capacity_factor}, vocab {cfg.vocab_size}; {n_total / 1e9:.3f}"
+          f" G params ({n_active / 1e9:.3f} G active), {cfg.param_dtype}, "
+          f"drawn in {init_s:.3f} s, peak while drawing {init_peak:.2f} "
+          f"GiB): {len(results)} prompts of {HYB_J_PROMPT_LEN} tokens, "
+          f"{HYB_MAX_NEW} new tokens, {HYB_SLOTS} slots, max_len "
+          f"{HYB_J_MAX_LEN}, in {stats['wall_s']:.3f} s host clock; peak "
+          f"memory serving {peak:.2f} GiB {tag}")
+    print(f"  prefill per group (host clock): "
+          f"{[round(t, 3) for t in stats['prefill_ms']]} ms; decode per "
+          f"step: median {dec[len(dec) // 2]:.3f} ms [min {dec[0]:.3f}, max "
+          f"{dec[-1]:.3f}] over {len(dec)} steps; K5 launches {launches} "
+          f"({groups} groups x {n_attn} attention layer expected)")
+    ok = (launches == groups * n_attn and groups == 2
+          and sorted(results) == list(range(HYB_J_REQUESTS))
+          and all(len(t) == HYB_MAX_NEW and all(0 <= x < cfg.vocab_size
+                                                 for x in t)
+                  for t in results.values()))
+    if not ok:
+        raise SystemExit("chip_smoke: phase 17 (d): Jamba serving did not "
+                         "run K5 once per prefill group, or its tokens are "
+                         "wrong")
+    batch = {"inputs": torch.tensor(prompts[:HYB_SLOTS], dtype=torch.int32,
+                                    device=dev)}
+    logs = {"k5": [], "scan": []}
+    with torch.no_grad():
+        FA.FLASH_ATTN_LAUNCHES = 0
+        with _moe_log(logs["k5"]):
+            cache = lm.init_cache(HYB_SLOTS, HYB_J_MAX_LEN)
+            lg, cache = lm.prefill(params, batch, cache)
+        n_prefill = FA.FLASH_ATTN_LAUNCHES
+        tok = torch.argmax(lg, -1).to(torch.int32)
+        FA.FLASH_ATTN_LAUNCHES = 0
+        lgd, cache = lm.decode_step(params, {"inputs": tok}, cache)
+        torch.cuda.synchronize()
+        n_decode = FA.FLASH_ATTN_LAUNCHES
+        del cache
+        with _plain_scan(), _moe_log(logs["scan"]):
+            ref, _ = lm.prefill(params, batch,
+                                lm.init_cache(HYB_SLOTS, HYB_J_MAX_LEN))
+    dmax, tol = _gate_err(lg, ref, LM_BF16_GATE, False)
+    finite = _finite(lg) and _finite(lgd)
+    same = torch.equal(torch.argmax(lg, -1), torch.argmax(ref, -1))
+    flips = [int((a["tope"] != b_["tope"]).any(-1).sum())
+             for a, b_ in zip(logs["k5"], logs["scan"])]
+    dropped = [r["dropped"] for r in logs["k5"]]
+    print(f"  first group's prefill: {n_prefill} K5 launches, one decode "
+          f"step {n_decode}; logits finite={finite}; vs the plain scan on "
+          f"the same weights max|d| {dmax:.3e} tol {tol:.3e} "
+          f"({dmax / tol:.3f} of {LM_BF16_GATE}*max|ref|), greedy tokens "
+          f"equal {same}; entries dropped per MoE layer {dropped} of "
+          f"{logs['k5'][0]['entries']} (cap {logs['k5'][0]['cap']} per "
+          f"expert); tokens whose top-{cfg.top_k} experts differ from the "
+          f"scan's run per MoE layer {flips} {tag}")
+    if not (finite and dmax <= tol and n_prefill == n_attn
+            and n_decode == 0):
+        raise SystemExit("chip_smoke: phase 17 (d): the served Jamba "
+                         "prefill is wrong")
+    del ref, logs
+    torch.cuda.empty_cache()
+    br = _device_breakdown(lambda: lm.prefill(
+        params, batch, lm.init_cache(HYB_SLOTS, HYB_J_MAX_LEN)), top=1000)
+    busy = wall = k5_ms = float("nan")
+    if br is None:
+        print("  one prefill under the profiler: not measured (no device "
+              "time reported)")
+    else:
+        busy, wall, top = br
+        k5_ms = sum(ms for name, ms, _ in top if "flash_attn" in name)
+        print(f"  one prefill under the profiler: device busy {busy:.3f} ms "
+              f"of {wall:.3f} ms wall (busy share {busy / wall:.3f}); K5 "
+              f"{k5_ms:.3f} ms ({k5_ms / busy:.3f} of busy) {tag}")
+        for name, ms_k, calls in top[:8]:
+            print(f"    {ms_k:.3f} ms in {calls} call(s): {name[:90]}")
+    # one Mamba layer at the prefill's shape, from a zero state
+    p0 = {n: t[0] for n, t in lm._cast(params)["slots"][0]["mamba"].items()}
+    x = torch.randn(HYB_SLOTS, HYB_J_PROMPT_LEN, cfg.d_model, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(SEED)
+                    ).to(p0["in_proj"].dtype)
+    st = S.init_mamba_state(HYB_SLOTS, p0, x.dtype)
+    with torch.no_grad():
+        t = _time_ms({"mamba": lambda: S.mamba_forward(
+            p0, x, st, chunk=cfg.mamba_chunk)}, reps=3, iters=1)
+        br_m = _device_breakdown(lambda: S.mamba_forward(
+            p0, x, st, chunk=cfg.mamba_chunk), top=6)
+    di, ds = p0["A_log"].shape
+    tok_n = HYB_SLOTS * HYB_J_PROMPT_LEN
+    gemm_flops = 2.0 * tok_n * cfg.d_model * (3 * di) + 2.0 * tok_n * di * (
+        p0["x_proj"].shape[1] + p0["dt_proj"].shape[0])
+    scan_bytes = 4.0 * tok_n * di * ds * 6      # dA, dBx, the stack, C
+    print(f"  one Mamba layer at the prefill's shape ({HYB_SLOTS} x "
+          f"{HYB_J_PROMPT_LEN} tokens, chunk {cfg.mamba_chunk}): "
+          f"{t['mamba'][0]:.3f} ms [{t['mamba'][1]:.3f}, {t['mamba'][2]:.3f}]"
+          f" (CUDA events, median of 3); its projections {gemm_flops:.3e} "
+          f"FLOP ({gemm_flops / PEAK_BF16_FLOPS * 1e3:.3f} ms at 989 "
+          f"TFLOP/s), its scan's chunk tensors about {scan_bytes / 1e9:.1f} "
+          f"GB of traffic ({scan_bytes / PEAK_BYTES * 1e3:.3f} ms at 3.35 "
+          f"TB/s) {tag}")
+    mamba_busy = None
+    if br_m is not None:
+        mamba_busy = br_m[0]
+        print(f"    profiler: device busy {br_m[0]:.3f} ms of {br_m[1]:.3f} "
+              f"ms wall")
+        for name, ms_k, calls in br_m[2]:
+            print(f"    {ms_k:.3f} ms in {calls} call(s): {name[:90]}")
+    del params, lm, p0, x, st
+    torch.cuda.empty_cache()
+    k5 = _k5_at_shape(dev, tag, HYB_K5_SHAPE, f"{HYB_JAMBA}'s prefill shape",
+                      "hybrid (d)")
+    return {"k5_launches": launches, "groups": groups,
+            "prefill_ms": stats["prefill_ms"], "decode_ms": stats["decode_ms"],
+            "wall_s": stats["wall_s"], "peak_gib": peak,
+            "init_peak_gib": init_peak, "params": n_total,
+            "active": n_active, "gate_share": dmax / tol,
+            "dropped": dropped, "route_flips": flips,
+            "prefill_device": {"busy_ms": busy, "wall_ms": wall,
+                               "k5_ms": k5_ms},
+            "mamba_layer_ms": t["mamba"][0], "mamba_busy_ms": mamba_busy,
+            "k5": k5}
+
+
+def _hyb_card_vs_cpu(dev, tag) -> dict:
+    """(e): the reduced xLSTM and Jamba in f32 on the card against the
+    CPU: loss within HYB_CHECK_LOSS_RTOL relative; grads within
+    LM_GRAD_GATE of each leaf's max (for xLSTM the larger of that and
+    four times the CPU's own spread when only ``mlstm_chunk`` changes,
+    the amplification of ``tests/test_torch_hybrid.py``) and equal bit
+    for bit in a second card run; greedy tokens equal."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.data import SyntheticTokenPipeline
+    from repro_torch.launch.serve import random_prompts, serve
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models.lm import build_lm
+
+    report = {}
+    for name in (HYB_XLSTM, HYB_JAMBA):
+        cfg = get(name).reduced()
+        lms = {"cpu": build_lm(cfg, device="cpu"),
+               "card": build_lm(cfg, device=dev)}
+        p_cpu = lms["cpu"].init(torch.Generator().manual_seed(SEED))
+        p_card = _tree_to(p_cpu, dev)
+        batch = SyntheticTokenPipeline(cfg.vocab_size, HYB_CHECK_SEQ,
+                                       HYB_CHECK_BATCH, seed=SEED).batch(0)
+        ref_loss, ref = value_and_grad(lms["cpu"], p_cpu, batch)
+        r = _leaf_items(ref)
+        spread = 0.0
+        if "x" in cfg.pattern:
+            for chunk in (4, 16):
+                other = build_lm(dataclasses.replace(cfg, mlstm_chunk=chunk),
+                                 device="cpu")
+                o = _leaf_items(value_and_grad(other, p_cpu, batch)[1])
+                spread = max(spread, max(
+                    ((o[k] - r[k]).abs().max()
+                     / r[k].abs().max().clamp_min(1e-30)).item() for k in r))
+        gate = max(LM_GRAD_GATE, 4 * spread)
+        tb = {k: v.to(dev) for k, v in batch.items()}
+        loss, got = value_and_grad(lms["card"], p_card, tb)
+        again = _leaf_items(value_and_grad(lms["card"], p_card, tb)[1])
+        g = _leaf_items(got)
+        repeat = all(torch.equal(g[k], again[k]) for k in g)
+        errs = {k: ((g[k].float().cpu() - r[k].float()).abs().max()
+                    / r[k].float().abs().max().clamp_min(1e-30)).item()
+                for k in r}
+        leaf = max(errs, key=errs.get)
+        rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+        prompts = random_prompts(cfg.vocab_size, 6, 32, seed=SEED)
+        kw = dict(max_new=8, slots=4, max_len=64)
+        toks_cpu, _ = serve(cfg, prompts, params=p_cpu, device="cpu", **kw)
+        toks_card, _ = serve(cfg, prompts, params=p_card, device=dev, **kw)
+        ok = (rel <= HYB_CHECK_LOSS_RTOL and errs[leaf] <= gate
+              and toks_card == toks_cpu and repeat)
+        print(f"hybrid (e): {cfg.name} (pattern {''.join(cfg.pattern)}), "
+              f"f32, TF32 off, card vs CPU: loss {float(loss):.6f} vs "
+              f"{float(ref_loss):.6f}, rel {rel:.3e} (gate "
+              f"{HYB_CHECK_LOSS_RTOL}); grads worst leaf {leaf} "
+              f"{errs[leaf]:.3e} of its max (gate {gate:.3e}: "
+              f"max({LM_GRAD_GATE}, 4 x the CPU's re-chunking spread "
+              f"{spread:.3e})), a second card run's grads bit-identical "
+              f"{repeat}; 6 served prompts x 8 tokens equal "
+              f"{toks_card == toks_cpu} {'ok' if ok else 'FAIL'} {tag}")
+        if not ok:
+            raise SystemExit(f"chip_smoke: phase 17 (e): {cfg.name} on the "
+                             "card disagrees with the CPU")
+        report[cfg.name] = {"loss_rel": rel, "worst_leaf": leaf,
+                            "worst": errs[leaf], "gate": gate,
+                            "grads_repeat": repeat}
+    return report
+
+
+def _hybrid_phase(dev, tag) -> dict:
+    """Phase 17: (a) full-width Mamba, mLSTM and sLSTM blocks card vs
+    CPU and chunked vs stepwise, (b) xLSTM-350M serving at all 24
+    layers, (c) xLSTM-350M training at full size, (d) Jamba-1.5-Large
+    serving at its first 4 layers with K5 in the attention slot, and K5
+    at Jamba's prefill shape, (e) the reduced xLSTM and Jamba card vs
+    CPU.  Every failure raises."""
+    t0 = time.perf_counter()
+    report = {"blocks": _hyb_blocks(dev, tag),
+              "xlstm_serve": _hyb_xlstm_serve(dev, tag),
+              "xlstm_train": _hyb_xlstm_train(dev, tag),
+              "jamba": _hyb_jamba_serve(dev, tag),
+              "card_vs_cpu": _hyb_card_vs_cpu(dev, tag)}
+    report["phase_s"] = time.perf_counter() - t0
+    print(f"hybrid phase: {report['phase_s']:.1f} s host clock {tag}")
+    return report
+
+
 def main(json_path: str = "") -> int:
     t_start = time.perf_counter()
     sys.stdout.reconfigure(line_buffering=True)   # a cut run keeps its log
@@ -5804,7 +6485,7 @@ def main(json_path: str = "") -> int:
 
 
 def _smoke(json_path: str, t_start: float) -> int:
-    """Phases 1-16 (see the module doc) and the final two lines."""
+    """Phases 1-17 (see the module doc) and the final two lines."""
     import torch
     sys.path.insert(0, os.path.join(HERE, "src"))
     import torch.nn.functional as F
@@ -6241,6 +6922,11 @@ def _smoke(json_path: str, t_start: float) -> int:
     torch.cuda.empty_cache()
     moe = _moe_phase(dev, tag)
 
+    # ---- 17. recurrent mixers: xLSTM-350M, Jamba-1.5-Large (K5 in its
+    # attention slot)
+    torch.cuda.empty_cache()
+    hyb = _hybrid_phase(dev, tag)
+
     if "jax" in sys.modules or "repro" in sys.modules:
         raise SystemExit("chip_smoke: JAX or the JAX package was imported")
     total = {k: sum(r[k] for r in per_layer)
@@ -6312,6 +6998,18 @@ def _smoke(json_path: str, t_start: float) -> int:
             k["launches_moe"] = moe["dbrx"]["k5_launches"]
             k["ms_moe_shape"] = moe["k5"]["ms"]
             k["max_abs_err_moe_shape"] = moe["k5"]["max_abs"]
+            k["plain_ms_moe_shape"] = moe["k5"]["plain_ms"]
+            k["library_ms_moe_shape"] = moe["k5"]["sdpa_ms"]
+            k["bound_ms_moe_shape"] = moe["k5"]["bound_ms"]
+            # phase 17 (d): Jamba's serving run and K5 at its prefill
+            # shape; phase 17 (b): xLSTM's serving run, which has none
+            k["launches_hybrid"] = hyb["jamba"]["k5_launches"]
+            k["launches_xlstm"] = hyb["xlstm_serve"]["k5_launches"]
+            k["ms_hybrid_shape"] = hyb["jamba"]["k5"]["ms"]
+            k["max_abs_err_hybrid_shape"] = hyb["jamba"]["k5"]["max_abs"]
+            k["plain_ms_hybrid_shape"] = hyb["jamba"]["k5"]["plain_ms"]
+            k["library_ms_hybrid_shape"] = hyb["jamba"]["k5"]["sdpa_ms"]
+            k["bound_ms_hybrid_shape"] = hyb["jamba"]["k5"]["bound_ms"]
         if k["name"] in ("sd_fused_int8", "sd_conv_int8"):
             k["sass_imma"] = sass[k["name"]]["IMMA"]
             k["sass_idp4a"] = sass[k["name"]]["IDP.4A"]
@@ -6335,7 +7033,7 @@ def _smoke(json_path: str, t_start: float) -> int:
               "chain": {k: v for k, v in chain.items() if k != "record"},
               "lm": lm["report"], "wavegan": wave["report"],
               "pretune": pre, "registry": reg, "scaleout": scale,
-              "checkpoint": ckpt, "moe": moe,
+              "checkpoint": ckpt, "moe": moe, "hybrid": hyb,
               "serve": {k: stats[k] for k in
                         ("served", "launches", "req_per_s", "wall_s",
                          "latency_ms")},
@@ -6392,8 +7090,13 @@ def _smoke(json_path: str, t_start: float) -> int:
           f"phase 15: launches_checkpoint_train counted over train_gen.main's"
           f" {CKPT_GAN_STEPS} checkpointed GAN steps (K1, K2, K3); phase 16: "
           f"K5's launches_moe counted in DBRX-132B's serving run, "
-          f"ms_moe_shape and max_abs_err_moe_shape (bf16) at its prefill "
-          f"shape {MOE_K5_SHAPE}) {tag}")
+          f"ms_moe_shape, max_abs_err_moe_shape (bf16), plain_ms_moe_shape, "
+          f"library_ms_moe_shape (SDPA) and bound_ms_moe_shape at its prefill"
+          f" shape {MOE_K5_SHAPE}; phase 17: K5's launches_hybrid counted in "
+          f"Jamba-1.5-Large's serving run (first {HYB_JAMBA_LAYERS} layers), "
+          f"launches_xlstm in xLSTM-350M's, the *_hybrid_shape numbers as "
+          f"the *_moe_shape ones at Jamba's prefill shape {HYB_K5_SHAPE}) "
+          f"{tag}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -63,34 +63,68 @@ def params_from_numpy(np_params: Mapping[str, Mapping[str, Any]],
     return out
 
 
+def _mixer_shapes(cfg: ArchConfig, kind: str, r: int) -> Dict[str, tuple]:
+    """Slot kind ``kind``'s mixer leaves stacked over ``r`` repeats (the
+    reference's ``init_attention`` / ``init_mamba`` / ``init_mlstm`` /
+    ``init_slstm``)."""
+    d = cfg.d_model
+    if kind == "a":
+        hq, hk = cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
+        attn = {"wq": (r, d, hq), "wk": (r, d, hk), "wv": (r, d, hk),
+                "wo": (r, hq, d)}
+        if cfg.qkv_bias:
+            attn.update(bq=(r, hq), bk=(r, hk), bv=(r, hk))
+        return attn
+    if kind == "m":
+        di, ds = cfg.mamba_expand * d, cfg.mamba_d_state
+        rank = -(-d // 16)
+        return {"in_proj": (r, d, 2 * di), "conv_w": (r, cfg.mamba_d_conv, di),
+                "conv_b": (r, di), "x_proj": (r, di, rank + 2 * ds),
+                "dt_proj": (r, rank, di), "dt_bias": (r, di),
+                "A_log": (r, di, ds), "D": (r, di), "out_proj": (r, di, d)}
+    if kind == "x":
+        di, h = int(cfg.mlstm_proj * d), cfg.n_heads
+        return {"up": (r, d, 2 * di), "wq": (r, di, di), "wk": (r, di, di),
+                "wv": (r, di, di), "wif": (r, di, 2 * h), "bif": (r, 2 * h),
+                "down": (r, di, d)}
+    from repro_torch.models.ssm import slstm_inner_dim
+    di = slstm_inner_dim(d, cfg.n_heads, cfg.slstm_proj)
+    return {"wx": (r, d, 4 * di), "wh": (r, di, 4 * di), "b": (r, 4 * di),
+            "down": (r, di, d)}
+
+
 def _lm_shapes(cfg: ArchConfig) -> Dict[str, Any]:
-    """The attention decoder's parameter tree as shapes (the reference's
+    """The decoder's parameter tree as shapes (the reference's
     ``LM.init`` tree): ``embed``, ``head`` (unless tied), ``final_ln``
-    and ``slots[0]`` stacked over the ``n_layers`` repeats, its FFN
-    ``mlp`` or, in an MoE slot, ``moe_ep`` / ``moe_tp`` (``router`` (R,
-    d, E), ``wg``/``wu`` (R, E, d, ff), ``wd`` (R, E, ff, d))."""
-    from repro_torch.models.lm import ffn_key, unsupported
+    and ``slots[j]`` for each pattern slot, stacked over the R =
+    ``n_layers / len(pattern)`` repeats: ``ln1`` and the mixer (``attn``,
+    ``mamba``, ``mlstm`` or ``slstm``), and where the kind has an FFN
+    ``ln2`` and ``mlp`` or, in an MoE slot, ``moe_ep`` / ``moe_tp``
+    (``router`` (R, d, E), ``wg``/``wu`` (R, E, d, ff), ``wd`` (R, E,
+    ff, d))."""
+    from repro_torch.models.lm import MIXER, ffn_key, unsupported
     why = unsupported(cfg)
     if why is not None:
         raise NotImplementedError(f"{cfg.name}: {why} is not ported "
                                   "(ROADMAP.md item 16)")
-    r, d, vp = cfg.n_layers, cfg.d_model, cfg.vocab_padded
-    hq, hk = cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
-    attn = {"wq": (r, d, hq), "wk": (r, d, hk), "wv": (r, d, hk),
-            "wo": (r, hq, d)}
-    if cfg.qkv_bias:
-        attn.update(bq=(r, hq), bk=(r, hk), bv=(r, hk))
+    d, vp = cfg.d_model, cfg.vocab_padded
+    r = cfg.n_layers // len(cfg.pattern)
     ff, e = cfg.d_ff, cfg.n_experts
-    key = ffn_key(cfg, 0)
-    if key == "mlp":
-        ffn = {"wg": (r, d, ff), "wu": (r, d, ff), "wd": (r, ff, d)}
-    else:
-        ffn = {"router": (r, d, e), "wg": (r, e, d, ff),
-               "wu": (r, e, d, ff), "wd": (r, e, ff, d)}
-    tree: Dict[str, Any] = {
-        "embed": (vp, d), "final_ln": {"scale": (d,)},
-        "slots": [{"ln1": {"scale": (r, d)}, "attn": attn,
-                   "ln2": {"scale": (r, d)}, key: ffn}]}
+    slots = []
+    for j, kind in enumerate(cfg.pattern):
+        slot = {"ln1": {"scale": (r, d)},
+                MIXER[kind]: _mixer_shapes(cfg, kind, r)}
+        key = ffn_key(cfg, j)
+        if key is not None:
+            slot["ln2"] = {"scale": (r, d)}
+        if key == "mlp":
+            slot[key] = {"wg": (r, d, ff), "wu": (r, d, ff), "wd": (r, ff, d)}
+        elif key is not None:
+            slot[key] = {"router": (r, d, e), "wg": (r, e, d, ff),
+                         "wu": (r, e, d, ff), "wd": (r, e, ff, d)}
+        slots.append(slot)
+    tree: Dict[str, Any] = {"embed": (vp, d), "final_ln": {"scale": (d,)},
+                            "slots": slots}
     if not cfg.tie_embeddings:
         tree["head"] = (d, vp)
     return tree

@@ -5,9 +5,13 @@ into fixed decode slots by *prompt length* (``launch/batching.take_group``),
 so no prompt is truncated to a group minimum; each group's batch is
 padded to a power-of-two bucket (row 0 repeated, results discarded),
 prefilled on its full prompt, then decoded greedily one token per step
-for the whole slot batch.  Prompts longer than 2,048 tokens attend
-through K5 (``kernels/csrc/flash_attn.cu``) on the card, unless the
-config has a sliding window (Mixtral's).  In an MoE config the padding
+for the whole slot batch.  Every LM that ``build_lm`` builds serves:
+attention decoders, dense or MoE, xLSTM-350M (mLSTM and sLSTM blocks,
+their recurrent states in the cache) and Jamba (Mamba, attention and
+MoE).  Prompts longer than 2,048 tokens attend through K5
+(``kernels/csrc/flash_attn.cu``) on the card, unless the config has a
+sliding window (Mixtral's) or no attention (xLSTM).  In an MoE config
+the padding
 rows take expert capacity as real ones do, as in the reference, and a
 prefill routes at another capacity than a decode step (``cap`` follows
 the token count).

@@ -3,8 +3,9 @@ package's ``launch/train.py``.
 
   * config-driven arch selection (``--arch`` from the pool, reduced or
     full; the port trains the attention decoders, dense or MoE
-    (``mixtral-8x7b``, ``dbrx-132b``), :func:`~repro_torch.models.lm.
-    unsupported` names the rest)
+    (``mixtral-8x7b``, ``dbrx-132b``), ``xlstm-350m`` and
+    ``jamba-1.5-large-398b``; :func:`~repro_torch.models.lm.unsupported`
+    names the rest)
   * deterministic restart-safe data (batch = f(seed, step))
   * periodic async checkpointing with atomic commit and retention
     (:mod:`repro_torch.checkpoint`, the reference's on-disk format)

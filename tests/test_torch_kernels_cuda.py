@@ -59,6 +59,10 @@ at DCGAN d1's shape; the plan cache keeps CPU and card plans apart.
 Scale-out: two gloo ranks sharing the card each run K1 once on their
 Cout block of DCGAN d1 and gather, equal to the unsharded plan within
 ``1e-5 * max(1, max|ref|)`` (rank bodies in ``tests/_torch_spmd.py``).
+Recurrent and hybrid LMs (chip_smoke phase 17): the reduced xLSTM and
+Jamba on the card against the CPU (loss, grads bit-identical twice,
+tokens), and the reduced Jamba's 2,100-token prefill through one K5
+launch, equal to the plain scan's.
 """
 
 import pytest
@@ -1728,3 +1732,84 @@ def test_sharded_dcgan_d1_on_k1_across_two_gloo_ranks(dev):
                    timeout_s=300):
         assert r["launches"] == 1 and r["local_cout"] == 64, r
         assert r["shape"] == r["ref_shape"] and r["d"] <= r["tol"], r
+
+
+# ---------------------------------------------------------------------------
+# Recurrent and hybrid LMs (chip_smoke phase 17)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", ["xlstm-350m", "jamba-1.5-large-398b"])
+def test_hybrid_reduced_card_matches_cpu(dev, name):
+    """The reduced xLSTM / Jamba in f32 on the card against the CPU:
+    loss within 1e-6 relative, grads within 1e-4 of each leaf's max (for
+    xLSTM the larger of that and four times the CPU's own spread when
+    only ``mlstm_chunk`` changes, as in ``tests/test_torch_hybrid.py``),
+    equal bit for bit in a second card run; greedy tokens equal."""
+    import dataclasses
+    from repro_torch.checkpoint.manager import _flatten
+    from repro_torch.configs import get
+    from repro_torch.data import SyntheticTokenPipeline
+    from repro_torch.launch.serve import random_prompts, serve
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models.lm import _tree_map, build_lm
+    cfg = get(name).reduced()
+    cpu, card = build_lm(cfg, device="cpu"), build_lm(cfg, device=dev)
+    p = cpu.init(torch.Generator().manual_seed(0))
+    p_dev = _tree_map(lambda t: t.to(dev), p)
+    batch = SyntheticTokenPipeline(cfg.vocab_size, 32, 4, seed=0).batch(0)
+    loss_r, ref = value_and_grad(cpu, p, batch)
+    ref = _flatten(ref)
+    spread = 0.0
+    if "x" in cfg.pattern:
+        for chunk in (4, 16):
+            other = build_lm(dataclasses.replace(cfg, mlstm_chunk=chunk),
+                             device="cpu")
+            o = _flatten(value_and_grad(other, p, batch)[1])
+            spread = max(spread, max(
+                ((o[k] - ref[k]).abs().max() / ref[k].abs().max()).item()
+                for k in ref))
+    tb = {k: v.to(dev) for k, v in batch.items()}
+    loss, got = value_and_grad(card, p_dev, tb)
+    again = _flatten(value_and_grad(card, p_dev, tb)[1])
+    got = _flatten(got)
+    assert abs(float(loss) - float(loss_r)) <= 1e-6 * abs(float(loss_r))
+    for k in ref:
+        err = ((got[k].cpu() - ref[k]).abs().max()
+               / ref[k].abs().max()).item()
+        assert err <= max(1e-4, 4 * spread), (k, err)
+        assert torch.equal(got[k], again[k]), k
+    prompts = random_prompts(cfg.vocab_size, 6, 32, seed=0)
+    kw = dict(max_new=8, slots=4, max_len=64)
+    assert serve(cfg, prompts, params=p_dev, device=dev, **kw)[0] == \
+        serve(cfg, prompts, params=p, device="cpu", **kw)[0]
+
+
+def test_jamba_prefill_through_k5_matches_the_scan(dev, monkeypatch):
+    """The reduced Jamba on the card prefilling 2,100 tokens: exactly one
+    K5 launch per attention repeat (its Mamba slots launch none), last-
+    token logits within 1e-4 * max(1, max|ref|) of the same LM with
+    blockwise_attention held to its plain scan."""
+    import repro_torch.kernels.flash_attn as FA
+    from repro_torch.configs import get
+    from repro_torch.models import layers as L
+    from repro_torch.models.lm import build_lm
+    cfg = get("jamba-1.5-large-398b").reduced()
+    lm = build_lm(cfg, device=dev)
+    params = lm.init(torch.Generator(device=dev).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (2, 2100),
+                         generator=torch.Generator().manual_seed(1))
+    toks = toks.to(dev, torch.int32)
+    n_attn = cfg.pattern.count("a") * lm.repeats
+    with torch.no_grad():
+        before = FA.FLASH_ATTN_LAUNCHES
+        out, _ = lm.prefill(params, {"inputs": toks},
+                            lm.init_cache(2, 2116))
+        torch.cuda.synchronize()
+        assert FA.FLASH_ATTN_LAUNCHES - before == n_attn == 1
+        monkeypatch.setattr(L, "_in_k5_contract", lambda *a: False)
+        ref, _ = lm.prefill(params, {"inputs": toks},
+                            lm.init_cache(2, 2116))
+        assert FA.FLASH_ATTN_LAUNCHES - before == n_attn
+    assert torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= 1e-4 * max(
+        1.0, ref.abs().max().item())

@@ -15,8 +15,8 @@ carried over with ``lm_params_from_numpy``), both packages on the CPU:
   within ``1e-4 * max(1, max|ref|)``, ``pos`` and ``kpos`` equal;
 * ``serve``: identical tokens, including 2,064-token prompts (the
   blockwise branch) and mixed prompt lengths;
-* the configs are the reference's, and ``build_lm`` refuses what is not
-  an attention decoder (dense or MoE).
+* the configs are the reference's, and ``build_lm`` refuses the VLM and
+  the encoder-decoder.
 """
 
 import dataclasses
@@ -89,15 +89,19 @@ def test_configs_are_the_reference(name):
     assert set(ARCHS) == set(J_ARCHS)
 
 
-@pytest.mark.parametrize("name", ["internvl2-76b", "xlstm-350m",
-                                  "jamba-1.5-large-398b", "whisper-small"])
-def test_build_lm_refuses_what_is_not_a_dense_decoder(name):
-    """SSM/xLSTM, hybrid, VLM and encoder-decoder configs are refused;
-    the MoE decoders build (``tests/test_torch_moe.py``)."""
+@pytest.mark.parametrize("name,reduced", [
+    ("internvl2-76b", False), ("whisper-small", False),
+    ("internvl2-76b", True), ("whisper-small", True)],
+    ids=["internvl2-76b", "whisper-small", "internvl2-76b-reduced",
+         "whisper-small-reduced"])
+def test_build_lm_refuses_what_is_not_a_dense_decoder(name, reduced):
+    """The VLM's patch frontend and the encoder-decoder are refused,
+    naming ROADMAP item 16, full and reduced; the MoE decoders
+    (``tests/test_torch_moe.py``), xLSTM and Jamba
+    (``tests/test_torch_hybrid.py``) build."""
+    cfg = get(name).reduced() if reduced else get(name)
     with pytest.raises(NotImplementedError, match="item 16"):
-        build_lm(get(name), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        build_lm(get(name).reduced(), device="cpu")
+        build_lm(cfg, device="cpu")
 
 
 # ---------------------------------------------------------------------------

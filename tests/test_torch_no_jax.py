@@ -12,8 +12,9 @@ StableLM-2-12B two steps through ``launch/train.py`` with a checkpoint
 after each (``checkpoint/``) and imports ``distributed/compress.py``,
 serves the reduced StableLM-2-12B through the LM server
 (``launch/serve.py``, whose K5 wrapper ``kernels/flash_attn.py`` and LM
-``models/lm.py`` import too) and imports ``chip_smoke`` (without running
-it); and without
+``models/lm.py`` import too), then the reduced xLSTM-350M and
+Jamba-1.5-Large (``models/ssm.py``), and imports ``chip_smoke`` (without
+running it); and without
 CUDA the port's default device raises instead of falling back to the
 CPU.  A second interpreter, with the same two blocked, imports the
 executor registry, the wrong baselines and ``sd.compat``, runs every
@@ -77,6 +78,11 @@ from repro_torch.launch import serve
 lm_results = serve.main(["--arch", "stablelm-12b", "--reduced", "--device",
                          "cpu", "--requests", "4"])
 assert sorted(lm_results) == [0, 1, 2, 3], lm_results
+import repro_torch.models.ssm
+for arch in ("xlstm-350m", "jamba-1.5-large-398b"):
+    lm_results = serve.main(["--arch", arch, "--reduced", "--device", "cpu",
+                             "--requests", "4", "--max-new", "4"])
+    assert sorted(lm_results) == [0, 1, 2, 3], (arch, lm_results)
 sys.path.insert(0, {repo!r})
 import chip_smoke
 assert callable(chip_smoke.main)

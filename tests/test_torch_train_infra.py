@@ -26,8 +26,8 @@ by case, with the same numpy-seeded inputs through both packages:
 * ``train_gen.main`` on the CPU, whose checkpoint the JAX generator
   restores and runs.
 
-The xlstm-350m case of the reference's loss-descends test waits for the
-SSM port (ROADMAP.md item 16).
+The xlstm-350m case of the reference's loss-descends test runs in
+``tests/test_torch_hybrid_launch.py`` (through ``launch.train.main``).
 """
 
 import json
