@@ -338,6 +338,33 @@ Drives ``repro_torch`` only (never JAX, never the JAX package ``repro``):
    within 1e-6 relative, grads within 1e-4 of each leaf's max (xLSTM:
    or four times the CPU's own spread when only ``mlstm_chunk``
    changes) and bit-identical in a second card run, greedy tokens equal.
+18. LM frontends (``internvl2-76b``'s patch projector,
+   ``whisper-small``'s encoder-decoder) and the three other dense
+   decoders: (a) InternVL2-76B at full width, its first 8 of 80 layers,
+   bf16, serving 8 requests of 256 patch embeddings + 3,824 tokens
+   through ``make_prefill_step`` / ``make_decode_step`` (4 slots, 16 new
+   tokens; ``serve`` takes tokens only): K5 once per layer per prefill
+   group and never in decode, the first group's last-token logits
+   against the plain scan within ``5e-2 * max|ref|``, host ms per group
+   and step, one profiled prefill, peak memory; (b) Whisper-small at
+   full size (12 + 12 layers), bf16, serving 8 requests of 1,500 frame
+   embeddings + 64 tokens through the step API, 32 new tokens: 0 K5
+   launches, one group's prefill and first decode step against
+   ``forward_train`` within ``5e-2 * max|ref|``, and in f32 within
+   ``1e-4 * max|ref|``; then ``launch.train.main`` at batch 8 x 448, 3
+   steps, f32 params and AdamW: finite losses and gnorms, host ms, the
+   busy share of a profiled step; (c) the reduced InternVL2 and Whisper
+   in f32 on the card against the CPU: loss within 1e-6 relative, grads
+   within 1e-4 of each leaf's max and bit-identical in a second card
+   run (Whisper's unused encoder leaves zero), greedy tokens equal; (d)
+   K5 bf16 at InternVL2's prefill shape (4 x 64 q / 8 kv heads x 4,080
+   x 128) against its plain version, timed beside SDPA (profiler or
+   events, and ``kernels.timing.ahead_ms`` in turns); (e) Qwen1.5-32B,
+   InternLM2-20B and Yi-34B at full width, each cut to 2 layers, bf16,
+   serving 4 prompts of 4,080 tokens through ``serve``: K5 once per
+   layer per prefill group, logits against the plain scan within ``5e-2
+   * max|ref|``; K5 at Qwen's (40 / 40 heads) and Yi's (56 / 8) prefill
+   shapes against its plain version and SDPA, as in (d).
 
 Every printed number carries the card's name and power limit.  The line
 before the last is ``{"kernels": [...]}``; the last is ``{"ok": true,
@@ -5297,6 +5324,7 @@ MOE_TRAIN_LAYERS = 1          # (d): 1 of 32, f32 params and AdamW
 MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, MOE_TRAIN_STEPS = 8, 128, 3
 MOE_CHECK_LOSS_RTOL = 1e-6    # (e): reduced LMs, card vs CPU
 MOE_CHECK_BATCH, MOE_CHECK_SEQ = 4, 32
+K5_AHEAD_ROUNDS = 4           # _k5_at_shape: K5 and SDPA by ahead_ms in turns
 
 
 @contextlib.contextmanager
@@ -5384,8 +5412,11 @@ def _moe_layer_check(dev, tag) -> dict:
 def _k5_at_shape(dev, tag, shape, label: str, part: str) -> dict:
     """K5 bf16 at ``shape`` (B, H, Hkv, S, D), causal, against its plain
     version (one sample at a time) inside ``_k5_gate``'s bf16 bounds, and
-    its device time there in turns with SDPA's.  ``label`` names the
-    shape in the printed lines, ``part`` the phase part that raises."""
+    its device time there in turns with SDPA's, by the profiler (or CUDA
+    events) and by ``kernels.timing.ahead_ms`` in K5_AHEAD_ROUNDS rounds
+    (the order reversed every other round, the median kept).  ``label``
+    names the shape in the printed lines, ``part`` the phase part that
+    raises."""
     import torch
     import torch.nn.functional as F
     import repro_torch.kernels.flash_attn as FA
@@ -5435,7 +5466,18 @@ def _k5_at_shape(dev, tag, shape, label: str, part: str) -> dict:
           f"P's 1.5x; the plain version (f32, one sample at a time) "
           f"{plain:.3f} ms (CUDA events, one call after 3 warm ones); sm "
           f"clock, power, temperature {_clocks()} {tag}")
+    runs = {n: [] for n in fns}
+    for r in range(K5_AHEAD_ROUNDS):
+        for n in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            runs[n].append(_ahead_ms(fns[n]))
+    ahead = {n: sorted(v)[len(v) // 2] for n, v in runs.items()}
+    print(f"  ahead: K5 bf16 {ahead['k5']:.3f} ms, SDPA bf16 "
+          f"{ahead['sdpa']:.3f} ms (kernels.timing.ahead_ms: 20 calls "
+          f"queued behind torch.cuda._sleep; median of {K5_AHEAD_ROUNDS} "
+          f"rounds in turns, K5 {[round(x, 3) for x in runs['k5']]}, "
+          f"SDPA {[round(x, 3) for x in runs['sdpa']]}) {tag}")
     return {"max_abs": dmax, "element_share": share, "ms": ms["k5"],
+            "ahead_ms": ahead["k5"], "sdpa_ahead_ms": ahead["sdpa"],
             "sdpa_ms": ms["sdpa"], "plain_ms": plain,
             "events_ms": ev["k5"][0],
             "sdpa_events_ms": ev["sdpa"][0],
@@ -6460,6 +6502,548 @@ def _hybrid_phase(dev, tag) -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the LM frontends, InternVL2-76B (patch projector, K5 in its
+# prefill) and Whisper-small (encoder-decoder), and the three other dense
+# decoders
+# ---------------------------------------------------------------------------
+
+FRONT_VLM, FRONT_ASR = "internvl2-76b", "whisper-small"
+FRONT_VLM_LAYERS = 8          # (a): the first 8 of InternVL2's 80 layers
+FRONT_REQUESTS, FRONT_SLOTS, FRONT_MAX_NEW = 8, 4, 16
+FRONT_TEXT_LEN = 3824         # after 256 patches: 4,080 prompt positions
+FRONT_MAX_LEN = 4096
+FRONT_K5_SHAPE = (4, 64, 8, 4080, 128)   # (d): InternVL2's prefill group
+FRONT_ASR_PROMPT, FRONT_ASR_NEW = 64, 32  # (b): Whisper's requests
+FRONT_ASR_F32_GATE = 1e-4     # (b): served vs forward_train in f32
+FRONT_ASR_TRAIN = ["--batch", "8", "--seq", "448", "--steps", "3"]
+FRONT_CHECK_LOSS_RTOL = 1e-6  # (c): reduced LMs, card vs CPU
+FRONT_CHECK_BATCH, FRONT_CHECK_SEQ = 4, 32
+DENSE_ARCHS = ("qwen1.5-32b", "internlm2-20b", "yi-34b")
+DENSE_LAYERS = 2              # (e): the first 2 layers of each, bf16
+DENSE_PROMPTS, DENSE_PROMPT_LEN, DENSE_MAX_NEW = 4, 4080, 16
+DENSE_K5_SHAPES = {"qwen1.5-32b": (4, 40, 40, 4080, 128),   # g = 1
+                   "yi-34b": (4, 56, 8, 4080, 128)}         # g = 7
+# InternLM2-20B's K5 shape (4, 48 / 8, 4,080, 128) is DBRX's: phase 16 (b)
+
+
+def _embeds(cfg, n: int, dev, seed: int = SEED) -> dict:
+    """The embeddings ``cfg``'s prefill reads beside its tokens
+    (``models.lm.embedding_inputs``) for ``n`` requests on ``dev``,
+    N(0, 0.1^2) in f32 as the training pipeline draws them."""
+    import torch
+    from repro_torch.models.lm import embedding_inputs
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return {k: torch.randn(n, *shape, generator=gen, device=dev).mul_(0.1)
+            for k, shape in embedding_inputs(cfg).items()}
+
+
+def _step_serve(lm, params, rows, extra: dict, slots: int, max_new: int,
+                max_len: int):
+    """Serve the token prompts ``rows`` (n, S) and their embeddings
+    ``extra`` ({name: (n, ...)}) through ``make_prefill_step`` /
+    ``make_decode_step``, the step API that InternVL2 and Whisper serve
+    through (``serve`` takes tokens only): groups of ``slots`` requests
+    in order, a prefill, then greedy decode to ``max_new`` tokens.
+    Returns (tokens per request, {"prefill_ms", "decode_ms"}), host
+    clock, each ending in reading the tokens back."""
+    import torch
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    prefill, decode = make_prefill_step(lm), make_decode_step(lm)
+    out, stats = [], {"prefill_ms": [], "decode_ms": []}
+    with torch.no_grad():
+        for g in range(0, rows.shape[0], slots):
+            batch = {"inputs": rows[g:g + slots],
+                     **{k: v[g:g + slots] for k, v in extra.items()}}
+            cache = lm.init_cache(batch["inputs"].shape[0], max_len)
+            t = time.perf_counter()
+            logits, cache = prefill(params, batch, cache)
+            tok = torch.argmax(logits, -1).to(torch.int32)
+            toks = [tok[:, 0].tolist()]
+            stats["prefill_ms"].append((time.perf_counter() - t) * 1e3)
+            for _ in range(max_new - 1):
+                t = time.perf_counter()
+                tok, logits, cache = decode(params, {"inputs": tok}, cache)
+                toks.append(tok[:, 0].tolist())
+                stats["decode_ms"].append((time.perf_counter() - t) * 1e3)
+            out += [list(r) for r in zip(*toks)]
+    return out, stats
+
+
+def _k5_vs_scan(lm, params, batch, max_len: int, what: str, tag) -> dict:
+    """One prefill of ``batch`` with K5 against the same prefill on the
+    plain scan (``_plain_scan``), last-token logits within LM_BF16_GATE
+    * max|ref|; K5's launches in that prefill and in one decode step
+    after it.  The padded vocabulary columns (-1e30 in both) are left
+    out of the gate."""
+    import torch
+    import repro_torch.kernels.flash_attn as FA
+    with torch.no_grad():
+        FA.FLASH_ATTN_LAUNCHES = 0
+        lg, cache = lm.prefill(params, batch, lm.init_cache(
+            batch["inputs"].shape[0], max_len))
+        n_prefill = FA.FLASH_ATTN_LAUNCHES
+        tok = torch.argmax(lg, -1).to(torch.int32)
+        FA.FLASH_ATTN_LAUNCHES = 0
+        lgd, cache = lm.decode_step(params, {"inputs": tok}, cache)
+        torch.cuda.synchronize()
+        n_decode = FA.FLASH_ATTN_LAUNCHES
+        del cache
+        with _plain_scan():
+            ref, _ = lm.prefill(params, batch, lm.init_cache(
+                batch["inputs"].shape[0], max_len))
+    v = lm.cfg.vocab_size       # the padding's -1e30 would set the scale
+    dmax, tol = _gate_err(lg[..., :v], ref[..., :v], LM_BF16_GATE, False)
+    finite = _finite(lg) and _finite(lgd)
+    same = torch.equal(torch.argmax(lg, -1), torch.argmax(ref, -1))
+    n_attn = lm.cfg.pattern.count("a") * lm.repeats
+    ok = finite and dmax <= tol and n_prefill == n_attn and n_decode == 0
+    print(f"  {what}: {n_prefill} K5 launches in one prefill ({n_attn} "
+          f"attention layers), {n_decode} in a decode step; logits finite="
+          f"{finite}; vs the plain scan on the same weights max|d| "
+          f"{dmax:.3e} tol {tol:.3e} ({dmax / tol:.3f} of {LM_BF16_GATE}"
+          f"*max|ref|), greedy tokens equal {same} "
+          f"{'ok' if ok else 'FAIL'} {tag}")
+    return {"ok": ok, "max_abs": dmax, "tol": tol, "share": dmax / tol,
+            "k5_prefill": n_prefill, "k5_decode": n_decode,
+            "tokens_equal": same}
+
+
+def _front_vlm(dev, tag) -> dict:
+    """(a): InternVL2-76B at full width, its first FRONT_VLM_LAYERS
+    layers, bf16, serving FRONT_REQUESTS requests of 256 patch
+    embeddings + FRONT_TEXT_LEN tokens through the step API
+    (FRONT_SLOTS slots, FRONT_MAX_NEW new tokens): K5 once per layer per
+    prefill group and never in decode, every token in the vocabulary;
+    the first group's last-token logits against the plain scan within
+    LM_BF16_GATE * max|ref|; host ms per group and step, one profiled
+    prefill, peak memory."""
+    import dataclasses
+    import torch
+    import repro_torch.kernels.flash_attn as FA
+    from repro_torch.configs import get
+    from repro_torch.launch.serve import random_prompts
+    from repro_torch.models.lm import build_lm
+
+    full = get(FRONT_VLM)
+    cfg = dataclasses.replace(full, n_layers=FRONT_VLM_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lm = build_lm(cfg, device=dev)
+    t0 = time.perf_counter()
+    params = lm._cast(lm.init(torch.Generator(device=dev).manual_seed(SEED)))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = lm.param_counts(params)[0]
+    rows = torch.tensor(random_prompts(cfg.vocab_size, FRONT_REQUESTS,
+                                       FRONT_TEXT_LEN, seed=SEED),
+                        dtype=torch.int32, device=dev)
+    extra = _embeds(cfg, FRONT_REQUESTS, dev)
+    prompt = cfg.n_patches + FRONT_TEXT_LEN
+    torch.cuda.reset_peak_memory_stats()
+    FA.FLASH_ATTN_LAUNCHES = 0
+    t0 = time.perf_counter()
+    toks, stats = _step_serve(lm, params, rows, extra, FRONT_SLOTS,
+                              FRONT_MAX_NEW, FRONT_MAX_LEN)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = FA.FLASH_ATTN_LAUNCHES
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    groups = len(stats["prefill_ms"])
+    dec = sorted(stats["decode_ms"])
+    print(f"frontends (a): {cfg.name} at {FRONT_VLM_LAYERS} of "
+          f"{full.n_layers} layers (d_model {cfg.d_model}, {cfg.n_heads} q / "
+          f"{cfg.n_kv_heads} kv heads of {cfg.hd}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, patch_proj {cfg.frontend_dim} x {cfg.d_model};"
+          f" {n_params / 1e9:.3f} G params, {cfg.param_dtype}, drawn in "
+          f"{init_s:.3f} s): {FRONT_REQUESTS} requests of {cfg.n_patches} "
+          f"patch embeddings + {FRONT_TEXT_LEN} tokens ({prompt} prompt "
+          f"positions) through make_prefill_step / make_decode_step, "
+          f"{FRONT_MAX_NEW} new tokens, {FRONT_SLOTS} slots, max_len "
+          f"{FRONT_MAX_LEN}, in {wall:.3f} s host clock; peak memory "
+          f"serving {peak:.2f} GiB {tag}")
+    print(f"  prefill per group (host clock): "
+          f"{[round(t, 3) for t in stats['prefill_ms']]} ms; decode per "
+          f"step: median {dec[len(dec) // 2]:.3f} ms [min {dec[0]:.3f}, max "
+          f"{dec[-1]:.3f}] over {len(dec)} steps; K5 launches {launches} "
+          f"({groups} groups x {FRONT_VLM_LAYERS} layers expected)")
+    ok = (launches == groups * FRONT_VLM_LAYERS and groups == 2
+          and len(toks) == FRONT_REQUESTS
+          and all(len(t) == FRONT_MAX_NEW and all(0 <= x < cfg.vocab_size
+                                                   for x in t)
+                  for t in toks))
+    if not ok:
+        raise SystemExit("chip_smoke: phase 18 (a): InternVL2 serving did "
+                         "not run K5 once per layer per prefill group, or "
+                         "its tokens are wrong")
+    batch = {"inputs": rows[:FRONT_SLOTS],
+             **{k: v[:FRONT_SLOTS] for k, v in extra.items()}}
+    gate = _k5_vs_scan(lm, params, batch, FRONT_MAX_LEN,
+                       "first group's prefill", tag)
+    if not gate["ok"]:
+        raise SystemExit("chip_smoke: phase 18 (a): the served InternVL2 "
+                         "prefill is wrong")
+    torch.cuda.empty_cache()
+    br = _device_breakdown(lambda: lm.prefill(
+        params, batch, lm.init_cache(FRONT_SLOTS, FRONT_MAX_LEN)), top=1000)
+    busy = pwall = k5_ms = float("nan")
+    if br is None:
+        print("  one prefill under the profiler: not measured (no device "
+              "time reported)")
+    else:
+        busy, pwall, top = br
+        k5_ms = sum(ms for name, ms, _ in top if "flash_attn" in name)
+        print(f"  one prefill under the profiler: device busy {busy:.3f} ms "
+              f"of {pwall:.3f} ms wall (busy share {busy / pwall:.3f}); K5 "
+              f"{k5_ms:.3f} ms ({k5_ms / busy:.3f} of busy, "
+              f"{k5_ms / FRONT_VLM_LAYERS:.3f} ms per launch) {tag}")
+        for name, ms_k, calls in top[:8]:
+            print(f"    {ms_k:.3f} ms in {calls} call(s): {name[:90]}")
+    del params, lm, extra
+    torch.cuda.empty_cache()
+    return {"k5_launches": launches, "groups": groups, "params": n_params,
+            "prefill_ms": stats["prefill_ms"], "decode_ms": stats["decode_ms"],
+            "wall_s": wall, "peak_gib": peak, "gate": gate,
+            "prefill_device": {"busy_ms": busy, "wall_ms": pwall,
+                               "k5_ms": k5_ms}}
+
+
+def _asr_vs_train(lm, params, rows, frames, rel: float, what: str,
+                  tag) -> dict:
+    """Whisper: prefill ``rows`` with ``frames`` and take one greedy
+    decode step, then hold the prefill's last-token logits and the
+    step's against ``forward_train`` on the prompt and that token at the
+    same positions, within ``rel * max|ref|`` over the vocabulary (the
+    padded columns, -1e30 in both, left out)."""
+    import torch
+    s = rows.shape[1]
+    with torch.no_grad():
+        cache = lm.init_cache(rows.shape[0], s + 1)
+        lg_p, cache = lm.prefill(params, {"inputs": rows,
+                                          "frame_embeds": frames}, cache)
+        tok = torch.argmax(lg_p, -1).to(torch.int32)
+        lg_d, cache = lm.decode_step(params, {"inputs": tok}, cache)
+        ref = lm.forward_train(params, {
+            "inputs": torch.cat([rows, tok], 1),
+            "frame_embeds": frames})[:, s - 1:s + 1]
+    del cache
+    gates, ok = {}, _finite(lg_p) and _finite(lg_d)
+    v = lm.cfg.vocab_size       # the padding's -1e30 would set the scale
+    for i, (name, got) in enumerate((("prefill", lg_p), ("decode", lg_d))):
+        d_, t_ = _gate_err(got[..., :v], ref[:, i:i + 1, :v], rel, False)
+        ok &= d_ <= t_
+        gates[name] = {"max_abs": d_, "tol": t_, "share": d_ / t_}
+    same = torch.equal(torch.argmax(torch.cat([lg_p, lg_d], 1), -1),
+                       torch.argmax(ref, -1))
+    txt = "; ".join(f"{n} (position {s - 1 + i}): max|d| {g['max_abs']:.3e}"
+                    f" tol {g['tol']:.3e} ({g['share']:.3f} of it)"
+                    for i, (n, g) in enumerate(gates.items()))
+    print(f"  {what}: one group's prefill last-token logits and first "
+          f"decode step vs forward_train at the same positions, gate "
+          f"{rel}*max|ref|: {txt}; greedy tokens equal {same} "
+          f"{'ok' if ok else 'FAIL'} {tag}")
+    return {"gates": gates, "ok": ok, "tokens_equal": same}
+
+
+def _front_asr(dev, tag) -> dict:
+    """(b): Whisper-small at full size (12 encoder + 12 decoder layers),
+    bf16 compute, serving FRONT_REQUESTS requests of 1,500 frame
+    embeddings and FRONT_ASR_PROMPT-token prompts through the step API
+    (FRONT_ASR_NEW new tokens): 0 K5 launches; one group's prefill and
+    first decode step against ``forward_train`` within LM_BF16_GATE *
+    max|ref|, and in f32 within FRONT_ASR_F32_GATE * max|ref|; then
+    ``launch.train.main`` at batch 8 x 448, 3 steps, f32 params and
+    AdamW: finite losses and gnorms, host ms per step, the busy share of
+    a profiled step."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import torch
+    import repro_torch.kernels.flash_attn as FA
+    from repro_torch.configs import get
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.serve import random_prompts
+    from repro_torch.data import SyntheticTokenPipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.lm import build_lm, embedding_inputs
+    from repro_torch.optim import adamw_init
+
+    cfg = get(FRONT_ASR)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lm = build_lm(cfg, device=dev)
+    params = lm.init(torch.Generator(device=dev).manual_seed(SEED))
+    p16 = lm._cast(params)
+    n_params = lm.param_counts(params)[0]
+    rows = torch.tensor(random_prompts(cfg.vocab_size, FRONT_REQUESTS,
+                                       FRONT_ASR_PROMPT, seed=SEED),
+                        dtype=torch.int32, device=dev)
+    extra = _embeds(cfg, FRONT_REQUESTS, dev)
+    max_len = FRONT_ASR_PROMPT + FRONT_ASR_NEW
+    FA.FLASH_ATTN_LAUNCHES = 0
+    t0 = time.perf_counter()
+    toks, stats = _step_serve(lm, p16, rows, extra, FRONT_SLOTS,
+                              FRONT_ASR_NEW, max_len)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = FA.FLASH_ATTN_LAUNCHES
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    dec = sorted(stats["decode_ms"])
+    print(f"frontends (b): {cfg.name} at full size ({cfg.enc_layers} "
+          f"encoder + {cfg.n_layers} decoder layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads, vocab {cfg.vocab_size}; "
+          f"{n_params / 1e9:.4f} G params, f32 drawn, bf16 compute): "
+          f"{FRONT_REQUESTS} requests of {cfg.enc_positions} frame "
+          f"embeddings + {FRONT_ASR_PROMPT} tokens through the step API, "
+          f"{FRONT_ASR_NEW} new tokens, {FRONT_SLOTS} slots, in {wall:.3f} "
+          f"s host clock; prefill per group "
+          f"{[round(t, 3) for t in stats['prefill_ms']]} ms; decode per "
+          f"step median {dec[len(dec) // 2]:.3f} ms [min {dec[0]:.3f}, max "
+          f"{dec[-1]:.3f}] over {len(dec)} steps; K5 launches {launches}; "
+          f"peak memory {peak:.2f} GiB {tag}")
+    ok = (launches == 0 and len(stats["prefill_ms"]) == 2
+          and len(toks) == FRONT_REQUESTS
+          and all(len(t) == FRONT_ASR_NEW and all(0 <= x < cfg.vocab_size
+                                                   for x in t)
+                  for t in toks))
+    if not ok:
+        raise SystemExit("chip_smoke: phase 18 (b): Whisper serving ran K5 "
+                         "or its tokens are wrong")
+    frames = extra["frame_embeds"][:FRONT_SLOTS]
+    g16 = _asr_vs_train(lm, p16, rows[:FRONT_SLOTS], frames, LM_BF16_GATE,
+                        "bf16", tag)
+    del p16
+    lm32 = build_lm(dataclasses.replace(cfg, compute_dtype="float32"),
+                    device=dev)
+    g32 = _asr_vs_train(lm32, params, rows[:FRONT_SLOTS], frames,
+                        FRONT_ASR_F32_GATE, "f32 (TF32 off)", tag)
+    with torch.no_grad():
+        br_p = _device_breakdown(lambda: lm.prefill(
+            lm._cast(params), {"inputs": rows[:FRONT_SLOTS],
+                               "frame_embeds": frames},
+            lm.init_cache(FRONT_SLOTS, max_len)), top=6, cuda_only=True)
+    del params, lm32, extra
+    torch.cuda.empty_cache()
+    if not (g16["ok"] and g32["ok"]):
+        raise SystemExit("chip_smoke: phase 18 (b): Whisper's served "
+                         "logits disagree with forward_train")
+    if br_p is not None:
+        print(f"  one prefill under the profiler: device busy "
+              f"{br_p[0]:.3f} ms of {br_p[1]:.3f} ms wall (busy share "
+              f"{br_p[0] / br_p[1]:.3f}) {tag}")
+
+    out = tempfile.mkdtemp(prefix="chip_smoke_whisper_")
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run = train_mod.main(["--arch", FRONT_ASR, *FRONT_ASR_TRAIN,
+                              "--ckpt-every", "1000", "--out", out,
+                              "--device", str(dev)])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        peak_t = torch.cuda.max_memory_allocated() / 2 ** 30
+        ckpt = sum(os.path.getsize(os.path.join(d, f))
+                   for d, _, fs in os.walk(out) for f in fs) / 2 ** 30
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    hist = run["history"]
+    finite = all(math.isfinite(h[k]) for h in hist for k in ("loss",
+                                                              "gnorm"))
+    # one more step of the trained model, profiled
+    params = run["params"]
+    del run
+    batch_n, seq = int(FRONT_ASR_TRAIN[1]), int(FRONT_ASR_TRAIN[3])
+    batch = {k: v.to(dev) for k, v in SyntheticTokenPipeline(
+        cfg.vocab_size, seq, batch_n, seed=SEED,
+        extra=embedding_inputs(cfg)).batch(len(hist)).items()}
+    step = make_train_step(lm)
+    opt = adamw_init(params)
+    br = _device_breakdown(lambda: step(params, opt, batch), top=8,
+                           cuda_only=True)
+    print(f"  launch.train.main --arch {FRONT_ASR} {' '.join(FRONT_ASR_TRAIN)}"
+          f" (f32 params and AdamW, bf16 compute): (step, loss, gnorm, host "
+          f"ms) {[(h['step'], round(h['loss'], 4), round(h['gnorm'], 4), h['ms']) for h in hist]};"
+          f" {train_s:.3f} s with the draw and its {ckpt:.2f} GiB "
+          f"checkpoint; peak memory {peak_t:.2f} GiB "
+          f"{'ok' if finite else 'FAIL'} {tag}")
+    busy = twall = None
+    if br is None:
+        print("  device time of one step: not measured (the profiler "
+              "reported no device time)")
+    else:
+        busy, twall, top = br
+        print(f"  profiler, one step: device busy {busy:.3f} ms of "
+              f"{twall:.3f} ms wall (busy share {busy / twall:.3f}) {tag}")
+        for n, ms_k, calls in top[:6]:
+            print(f"    {ms_k:.3f} ms in {calls} call(s): {n[:90]}")
+    del params, opt, lm, batch
+    torch.cuda.empty_cache()
+    if not finite:
+        raise SystemExit("chip_smoke: phase 18 (b): Whisper training gave a "
+                         "non-finite loss or gnorm")
+    return {"params": n_params, "k5_launches": launches,
+            "prefill_ms": stats["prefill_ms"], "decode_ms": stats["decode_ms"],
+            "wall_s": wall, "peak_gib": peak, "gate_bf16": g16["gates"],
+            "gate_f32": g32["gates"],
+            "prefill_busy_ms": None if br_p is None else br_p[0],
+            "train": {"history": hist, "s": train_s, "peak_gib": peak_t,
+                      "ckpt_gib": ckpt, "busy_ms": busy, "wall_ms": twall}}
+
+
+def _front_card_vs_cpu(dev, tag) -> dict:
+    """(c): the reduced InternVL2 and Whisper in f32 on the card against
+    the CPU: loss within FRONT_CHECK_LOSS_RTOL relative, grads within
+    LM_GRAD_GATE of each leaf's max and equal bit for bit in a second
+    card run (Whisper's unused encoder leaves zero), greedy tokens of 6
+    requests through the step API equal."""
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.data import SyntheticTokenPipeline
+    from repro_torch.launch.serve import random_prompts
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models.lm import build_lm, embedding_inputs
+
+    report = {}
+    for name in (FRONT_VLM, FRONT_ASR):
+        cfg = get(name).reduced()
+        lms = {"cpu": build_lm(cfg, device="cpu"),
+               "card": build_lm(cfg, device=dev)}
+        p_cpu = lms["cpu"].init(torch.Generator().manual_seed(SEED))
+        p_card = _tree_to(p_cpu, dev)
+        batch = SyntheticTokenPipeline(cfg.vocab_size, FRONT_CHECK_SEQ,
+                                       FRONT_CHECK_BATCH, seed=SEED,
+                                       extra=embedding_inputs(cfg)).batch(0)
+        ref_loss, ref = value_and_grad(lms["cpu"], p_cpu, batch)
+        tb = {k: v.to(dev) for k, v in batch.items()}
+        loss, got = value_and_grad(lms["card"], p_card, tb)
+        again = _leaf_items(value_and_grad(lms["card"], p_card, tb)[1])
+        g, r = _leaf_items(got), _leaf_items(ref)
+        repeat = all(torch.equal(g[k], again[k]) for k in g)
+        errs = {k: ((g[k].float().cpu() - r[k].float()).abs().max()
+                    / r[k].float().abs().max().clamp_min(1e-30)).item()
+                for k in r}
+        unused = [k for k in r if k.startswith("enc_slots")
+                  and ("xattn" in k or "lnx" in k)]
+        zero = all(not bool(g[k].any()) and not bool(r[k].any())
+                   for k in unused)
+        leaf = max(errs, key=errs.get)
+        rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+        rows = torch.tensor(random_prompts(cfg.vocab_size, 6, 16, seed=SEED),
+                            dtype=torch.int32)
+        emb = _embeds(cfg, 6, "cpu", seed=SEED + 1)
+        kw = dict(slots=4, max_new=8, max_len=32)
+        toks_cpu, _ = _step_serve(lms["cpu"], p_cpu, rows, emb, **kw)
+        toks_card, _ = _step_serve(
+            lms["card"], p_card, rows.to(dev),
+            {k: v.to(dev) for k, v in emb.items()}, **kw)
+        ok = (rel <= FRONT_CHECK_LOSS_RTOL and errs[leaf] <= LM_GRAD_GATE
+              and toks_card == toks_cpu and repeat and zero)
+        print(f"frontends (c): {cfg.name}, f32, TF32 off, card vs CPU: loss "
+              f"{float(loss):.6f} vs {float(ref_loss):.6f}, rel {rel:.3e} "
+              f"(gate {FRONT_CHECK_LOSS_RTOL}); grads worst leaf {leaf} "
+              f"{errs[leaf]:.3e} of its max (gate {LM_GRAD_GATE}), a second "
+              f"card run's grads bit-identical {repeat}, {len(unused)} "
+              f"unused encoder leaves zero on both {zero}; 6 requests x 8 "
+              f"tokens through the step API equal {toks_card == toks_cpu} "
+              f"{'ok' if ok else 'FAIL'} {tag}")
+        if not ok:
+            raise SystemExit(f"chip_smoke: phase 18 (c): {cfg.name} on the "
+                             "card disagrees with the CPU")
+        report[cfg.name] = {"loss_rel": rel, "worst_leaf": leaf,
+                            "worst": errs[leaf], "grads_repeat": repeat,
+                            "unused_zero": zero}
+    return report
+
+
+def _dense_serve(dev, tag) -> dict:
+    """(e): Qwen1.5-32B, InternLM2-20B and Yi-34B at full width, each cut
+    to its first DENSE_LAYERS layers, weights drawn in bf16, serving
+    DENSE_PROMPTS prompts of DENSE_PROMPT_LEN tokens through ``serve``:
+    K5 once per layer per prefill group and never in decode, the
+    prefill's last-token logits against the plain scan within
+    LM_BF16_GATE * max|ref|; then K5 at Qwen's (g = 1) and Yi's (g = 7)
+    prefill shapes against its plain version and SDPA."""
+    import dataclasses
+    import torch
+    import repro_torch.kernels.flash_attn as FA
+    from repro_torch.configs import get
+    from repro_torch.launch.serve import random_prompts, serve
+    from repro_torch.models.lm import build_lm
+
+    report = {}
+    for name in DENSE_ARCHS:
+        full = get(name)
+        cfg = dataclasses.replace(full, n_layers=DENSE_LAYERS,
+                                  param_dtype=full.compute_dtype)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        lm = build_lm(cfg, device=dev)
+        params = lm.init(torch.Generator(device=dev).manual_seed(SEED))
+        n_params = lm.param_counts(params)[0]
+        prompts = random_prompts(cfg.vocab_size, DENSE_PROMPTS,
+                                 DENSE_PROMPT_LEN, seed=SEED)
+        FA.FLASH_ATTN_LAUNCHES = 0
+        results, stats = serve(cfg, prompts, max_new=DENSE_MAX_NEW,
+                               slots=DENSE_PROMPTS, max_len=FRONT_MAX_LEN,
+                               params=params, device=dev)
+        torch.cuda.synchronize()
+        launches = FA.FLASH_ATTN_LAUNCHES
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        dec = sorted(stats["decode_ms"])
+        print(f"frontends (e): {cfg.name} at {DENSE_LAYERS} of "
+              f"{full.n_layers} layers (d_model {cfg.d_model}, {cfg.n_heads} "
+              f"q / {cfg.n_kv_heads} kv heads of {cfg.hd}, qkv bias "
+              f"{cfg.qkv_bias}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; "
+              f"{n_params / 1e9:.3f} G params, bf16): {DENSE_PROMPTS} "
+              f"prompts of {DENSE_PROMPT_LEN} tokens, {DENSE_MAX_NEW} new "
+              f"tokens, prefill {[round(t, 3) for t in stats['prefill_ms']]}"
+              f" ms host, decode median {dec[len(dec) // 2]:.3f} ms; K5 "
+              f"launches {launches} ({len(stats['prefill_ms'])} group x "
+              f"{DENSE_LAYERS} layers expected); peak memory {peak:.2f} GiB "
+              f"{tag}")
+        ok = (launches == DENSE_LAYERS and len(stats["prefill_ms"]) == 1
+              and sorted(results) == list(range(DENSE_PROMPTS))
+              and all(len(t) == DENSE_MAX_NEW for t in results.values()))
+        batch = {"inputs": torch.tensor(prompts, dtype=torch.int32,
+                                        device=dev)}
+        gate = _k5_vs_scan(lm, lm._cast(params), batch, FRONT_MAX_LEN,
+                           "the prefill", tag)
+        if not (ok and gate["ok"]):
+            raise SystemExit(f"chip_smoke: phase 18 (e): {cfg.name} serving "
+                             "did not run K5 once per layer, or its logits "
+                             "disagree with the plain scan")
+        del params, lm
+        torch.cuda.empty_cache()
+        report[name] = {"k5_launches": launches, "params": n_params,
+                        "prefill_ms": stats["prefill_ms"],
+                        "decode_ms": stats["decode_ms"], "peak_gib": peak,
+                        "gate": gate}
+    for name, shape in DENSE_K5_SHAPES.items():
+        report[name]["k5"] = _k5_at_shape(
+            dev, tag, shape, f"{name}'s prefill shape", "frontends (e)")
+    return report
+
+
+def _frontends_phase(dev, tag) -> dict:
+    """Phase 18: (a) InternVL2-76B serving at 8 of 80 layers through the
+    step API with K5 in its prefill, (b) Whisper-small serving and
+    training at full size, (c) the reduced InternVL2 and Whisper card vs
+    CPU, (d) K5 at InternVL2's prefill shape, (e) Qwen1.5-32B,
+    InternLM2-20B and Yi-34B serving at 2 layers with K5, and K5 at
+    Qwen's and Yi's shapes.  Every failure raises."""
+    t0 = time.perf_counter()
+    report = {"internvl2": _front_vlm(dev, tag),
+              "whisper": _front_asr(dev, tag),
+              "card_vs_cpu": _front_card_vs_cpu(dev, tag),
+              "k5": _k5_at_shape(dev, tag, FRONT_K5_SHAPE,
+                                 f"{FRONT_VLM}'s prefill shape",
+                                 "frontends (d)"),
+              "dense": _dense_serve(dev, tag)}
+    report["phase_s"] = time.perf_counter() - t0
+    print(f"frontends phase: {report['phase_s']:.1f} s host clock {tag}")
+    return report
+
+
 def main(json_path: str = "") -> int:
     t_start = time.perf_counter()
     sys.stdout.reconfigure(line_buffering=True)   # a cut run keeps its log
@@ -6485,7 +7069,7 @@ def main(json_path: str = "") -> int:
 
 
 def _smoke(json_path: str, t_start: float) -> int:
-    """Phases 1-17 (see the module doc) and the final two lines."""
+    """Phases 1-18 (see the module doc) and the final two lines."""
     import torch
     sys.path.insert(0, os.path.join(HERE, "src"))
     import torch.nn.functional as F
@@ -6927,6 +7511,11 @@ def _smoke(json_path: str, t_start: float) -> int:
     torch.cuda.empty_cache()
     hyb = _hybrid_phase(dev, tag)
 
+    # ---- 18. the LM frontends: InternVL2-76B (K5 in its prefill) and
+    # Whisper-small; Qwen1.5-32B, InternLM2-20B and Yi-34B (K5 in theirs)
+    torch.cuda.empty_cache()
+    front = _frontends_phase(dev, tag)
+
     if "jax" in sys.modules or "repro" in sys.modules:
         raise SystemExit("chip_smoke: JAX or the JAX package was imported")
     total = {k: sum(r[k] for r in per_layer)
@@ -6996,20 +7585,30 @@ def _smoke(json_path: str, t_start: float) -> int:
             # phase 16 (c): the DBRX serving run, and (b)'s timing at
             # DBRX's prefill shape
             k["launches_moe"] = moe["dbrx"]["k5_launches"]
-            k["ms_moe_shape"] = moe["k5"]["ms"]
-            k["max_abs_err_moe_shape"] = moe["k5"]["max_abs"]
-            k["plain_ms_moe_shape"] = moe["k5"]["plain_ms"]
-            k["library_ms_moe_shape"] = moe["k5"]["sdpa_ms"]
-            k["bound_ms_moe_shape"] = moe["k5"]["bound_ms"]
             # phase 17 (d): Jamba's serving run and K5 at its prefill
             # shape; phase 17 (b): xLSTM's serving run, which has none
             k["launches_hybrid"] = hyb["jamba"]["k5_launches"]
             k["launches_xlstm"] = hyb["xlstm_serve"]["k5_launches"]
-            k["ms_hybrid_shape"] = hyb["jamba"]["k5"]["ms"]
-            k["max_abs_err_hybrid_shape"] = hyb["jamba"]["k5"]["max_abs"]
-            k["plain_ms_hybrid_shape"] = hyb["jamba"]["k5"]["plain_ms"]
-            k["library_ms_hybrid_shape"] = hyb["jamba"]["k5"]["sdpa_ms"]
-            k["bound_ms_hybrid_shape"] = hyb["jamba"]["k5"]["bound_ms"]
+            # phase 18: InternVL2's serving run (a), Whisper's (b), the
+            # three dense decoders' (e); K5 at InternVL2's prefill shape
+            # (d) and at Qwen's and Yi's (e)
+            k["launches_frontends"] = front["internvl2"]["k5_launches"]
+            k["launches_whisper"] = front["whisper"]["k5_launches"]
+            k["launches_dense"] = {n: r["k5_launches"]
+                                   for n, r in front["dense"].items()}
+            # K5 timed at each prefill shape: device ms and ahead ms
+            for shape, r in (("moe", moe["k5"]),
+                             ("hybrid", hyb["jamba"]["k5"]),
+                             ("internvl2", front["k5"]),
+                             ("qwen", front["dense"]["qwen1.5-32b"]["k5"]),
+                             ("yi", front["dense"]["yi-34b"]["k5"])):
+                k[f"ms_{shape}_shape"] = r["ms"]
+                k[f"ahead_ms_{shape}_shape"] = r["ahead_ms"]
+                k[f"max_abs_err_{shape}_shape"] = r["max_abs"]
+                k[f"plain_ms_{shape}_shape"] = r["plain_ms"]
+                k[f"library_ms_{shape}_shape"] = r["sdpa_ms"]
+                k[f"library_ahead_ms_{shape}_shape"] = r["sdpa_ahead_ms"]
+                k[f"bound_ms_{shape}_shape"] = r["bound_ms"]
         if k["name"] in ("sd_fused_int8", "sd_conv_int8"):
             k["sass_imma"] = sass[k["name"]]["IMMA"]
             k["sass_idp4a"] = sass[k["name"]]["IDP.4A"]
@@ -7034,6 +7633,7 @@ def _smoke(json_path: str, t_start: float) -> int:
               "lm": lm["report"], "wavegan": wave["report"],
               "pretune": pre, "registry": reg, "scaleout": scale,
               "checkpoint": ckpt, "moe": moe, "hybrid": hyb,
+              "frontends": front,
               "serve": {k: stats[k] for k in
                         ("served", "launches", "req_per_s", "wall_s",
                          "latency_ms")},
@@ -7095,8 +7695,16 @@ def _smoke(json_path: str, t_start: float) -> int:
           f" shape {MOE_K5_SHAPE}; phase 17: K5's launches_hybrid counted in "
           f"Jamba-1.5-Large's serving run (first {HYB_JAMBA_LAYERS} layers), "
           f"launches_xlstm in xLSTM-350M's, the *_hybrid_shape numbers as "
-          f"the *_moe_shape ones at Jamba's prefill shape {HYB_K5_SHAPE}) "
-          f"{tag}")
+          f"the *_moe_shape ones at Jamba's prefill shape {HYB_K5_SHAPE}; "
+          f"phase 18: K5's launches_frontends counted in InternVL2-76B's "
+          f"serving run (first {FRONT_VLM_LAYERS} layers, step API), "
+          f"launches_whisper in Whisper-small's, launches_dense in each "
+          f"dense decoder's (first {DENSE_LAYERS} layers), the "
+          f"*_internvl2_shape / *_qwen_shape / *_yi_shape numbers as the "
+          f"*_moe_shape ones at {FRONT_K5_SHAPE} / "
+          f"{DENSE_K5_SHAPES['qwen1.5-32b']} / {DENSE_K5_SHAPES['yi-34b']}, "
+          f"ahead_ms and library_ahead_ms by kernels.timing.ahead_ms in "
+          f"turns, at every shape) {tag}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

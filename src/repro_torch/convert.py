@@ -93,40 +93,60 @@ def _mixer_shapes(cfg: ArchConfig, kind: str, r: int) -> Dict[str, tuple]:
             "down": (r, di, d)}
 
 
+def _block_shapes(cfg: ArchConfig, kind: str, ffn: Optional[str],
+                  r: int) -> Dict[str, Any]:
+    """A block of mixer ``kind`` and FFN ``ffn`` stacked over ``r``
+    layers: ``ln1`` and the mixer (``attn``, ``mamba``, ``mlstm`` or
+    ``slstm``); where there is an FFN ``ln2`` and ``mlp`` or ``moe_ep``
+    / ``moe_tp`` (``router`` (r, d, E), ``wg``/``wu`` (r, E, d, ff),
+    ``wd`` (r, E, ff, d)); in an encoder-decoder's attention block
+    ``xattn`` (no bias) and ``lnx``."""
+    from repro_torch.models.lm import MIXER
+    d, ff, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    slot = {"ln1": {"scale": (r, d)}, MIXER[kind]: _mixer_shapes(cfg, kind, r)}
+    if ffn is not None:
+        slot["ln2"] = {"scale": (r, d)}
+    if ffn == "mlp":
+        slot[ffn] = {"wg": (r, d, ff), "wu": (r, d, ff), "wd": (r, ff, d)}
+    elif ffn is not None:
+        slot[ffn] = {"router": (r, d, e), "wg": (r, e, d, ff),
+                     "wu": (r, e, d, ff), "wd": (r, e, ff, d)}
+    if cfg.enc_dec and kind == "a":
+        hq, hk = cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
+        slot["xattn"] = {"wq": (r, d, hq), "wk": (r, d, hk),
+                         "wv": (r, d, hk), "wo": (r, hq, d)}
+        slot["lnx"] = {"scale": (r, d)}
+    return slot
+
+
 def _lm_shapes(cfg: ArchConfig) -> Dict[str, Any]:
-    """The decoder's parameter tree as shapes (the reference's
-    ``LM.init`` tree): ``embed``, ``head`` (unless tied), ``final_ln``
-    and ``slots[j]`` for each pattern slot, stacked over the R =
-    ``n_layers / len(pattern)`` repeats: ``ln1`` and the mixer (``attn``,
-    ``mamba``, ``mlstm`` or ``slstm``), and where the kind has an FFN
-    ``ln2`` and ``mlp`` or, in an MoE slot, ``moe_ep`` / ``moe_tp``
-    (``router`` (R, d, E), ``wg``/``wu`` (R, E, d, ff), ``wd`` (R, E,
-    ff, d))."""
-    from repro_torch.models.lm import MIXER, ffn_key, unsupported
+    """The LM's parameter tree as shapes (the reference's ``LM.init``
+    tree): ``embed``, ``head`` (unless tied), ``final_ln`` and
+    ``slots[j]`` for each pattern slot, stacked over the R = ``n_layers
+    / len(pattern)`` repeats (:func:`_block_shapes`); an encoder-decoder
+    adds ``enc_slots`` (one attention block stacked over
+    ``enc_layers``), ``pos_embed_enc`` (enc_positions, d),
+    ``pos_embed_dec`` (max(max_positions, 1), d) and ``enc_final_ln``;
+    the patch frontend adds ``patch_proj`` (frontend_dim, d)."""
+    from repro_torch.models.lm import ffn_key, unsupported
     why = unsupported(cfg)
     if why is not None:
-        raise NotImplementedError(f"{cfg.name}: {why} is not ported "
-                                  "(ROADMAP.md item 16)")
+        raise NotImplementedError(f"{cfg.name}: {why} cannot be built")
     d, vp = cfg.d_model, cfg.vocab_padded
     r = cfg.n_layers // len(cfg.pattern)
-    ff, e = cfg.d_ff, cfg.n_experts
-    slots = []
-    for j, kind in enumerate(cfg.pattern):
-        slot = {"ln1": {"scale": (r, d)},
-                MIXER[kind]: _mixer_shapes(cfg, kind, r)}
-        key = ffn_key(cfg, j)
-        if key is not None:
-            slot["ln2"] = {"scale": (r, d)}
-        if key == "mlp":
-            slot[key] = {"wg": (r, d, ff), "wu": (r, d, ff), "wd": (r, ff, d)}
-        elif key is not None:
-            slot[key] = {"router": (r, d, e), "wg": (r, e, d, ff),
-                         "wu": (r, e, d, ff), "wd": (r, e, ff, d)}
-        slots.append(slot)
-    tree: Dict[str, Any] = {"embed": (vp, d), "final_ln": {"scale": (d,)},
-                            "slots": slots}
+    tree: Dict[str, Any] = {
+        "embed": (vp, d), "final_ln": {"scale": (d,)},
+        "slots": [_block_shapes(cfg, kind, ffn_key(cfg, j), r)
+                  for j, kind in enumerate(cfg.pattern)]}
     if not cfg.tie_embeddings:
         tree["head"] = (d, vp)
+    if cfg.enc_dec:
+        tree["enc_slots"] = [_block_shapes(cfg, "a", "mlp", cfg.enc_layers)]
+        tree["pos_embed_enc"] = (cfg.enc_positions, d)
+        tree["pos_embed_dec"] = (max(cfg.max_positions, 1), d)
+        tree["enc_final_ln"] = {"scale": (d,)}
+    if cfg.frontend == "patch":
+        tree["patch_proj"] = (cfg.frontend_dim, d)
     return tree
 
 

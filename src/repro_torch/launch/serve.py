@@ -16,6 +16,14 @@ rows take expert capacity as real ones do, as in the reference, and a
 prefill routes at another capacity than a decode step (``cap`` follows
 the token count).
 
+``serve`` feeds token prompts only, as the reference's does, so it
+refuses a config whose prefill also needs embeddings (InternVL2's
+``patch_embeds``, Whisper's ``frame_embeds``) before any work; the
+reference's fails inside its prefill with a ``KeyError``.  Serve those
+through :func:`~repro_torch.launch.steps.make_prefill_step` and
+:func:`~repro_torch.launch.steps.make_decode_step` with a batch that
+carries the embeddings.
+
   PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-12b \\
       --reduced --requests 8 --max-new 16 --device cpu
 
@@ -35,7 +43,7 @@ from repro_torch.configs import get
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.launch.batching import pow2_bucket, pow2_floor, take_group
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
-from repro_torch.models.lm import build_lm
+from repro_torch.models.lm import build_lm, embedding_inputs
 
 
 def serve(cfg, prompts: List[List[int]], max_new: int = 16,
@@ -46,7 +54,16 @@ def serve(cfg, prompts: List[List[int]], max_new: int = 16,
     on ``device``), cast once to the compute dtype for the whole call.
     stats: ``wall_s``, ``decode_steps``, and the host clock of each
     group's prefill and of each decode step in ms (each ends in reading
-    the tokens back, which waits for the device)."""
+    the tokens back, which waits for the device).  Raises ``ValueError``
+    for a config whose prefill needs ``patch_embeds`` or
+    ``frame_embeds``."""
+    need = sorted(embedding_inputs(cfg))
+    if need:
+        raise ValueError(
+            f"serve: {cfg.name}'s prefill needs {need} beside the token "
+            "prompts, which serve does not take; serve it through "
+            "launch.steps.make_prefill_step / make_decode_step with a "
+            "batch that carries them")
     # slots is both the group-size cap and the bucket cap; pow2_bucket
     # clamps caps to a power of two, so clamp the group size with it or
     # a 5-slot group would overflow its 4-wide bucket.

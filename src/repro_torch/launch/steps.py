@@ -3,10 +3,12 @@
 The port of ``effective_seq``, ``make_train_step``, ``make_prefill_step``
 and ``make_decode_step`` of the JAX package's ``launch/steps.py``.
 PyTorch runs eagerly, so a step is the plain callable the reference
-would ``jax.jit``.  Every LM that ``build_lm`` builds (attention decoders,
-dense or MoE, xLSTM and Jamba) runs through them.  The reference's abstract input specs
-(``input_specs``, ``abstract_*``) serve its dry-run lowering and are not
-ported (ROADMAP.md item 16).
+would ``jax.jit``.  Every LM that ``build_lm`` builds runs through them:
+attention decoders, dense or MoE, xLSTM, Jamba, and with their
+embeddings in the batch (``patch_embeds``, ``frame_embeds``) InternVL2
+and Whisper.  The reference's abstract input specs (``input_specs``,
+``abstract_*``) serve its dry-run lowering and are not ported (ROADMAP.md
+item 16.5).
 """
 
 from __future__ import annotations
@@ -35,11 +37,16 @@ def value_and_grad(lm: LM, params, batch: Dict[str, torch.Tensor]
                    ) -> Tuple[torch.Tensor, Any]:
     """``(loss, grads)`` of ``lm.loss`` at ``params`` (the reference's
     ``jax.value_and_grad``): the loss detached, the grads a tree of
-    ``params``' structure.  ``params`` are left as they are."""
+    ``params``' structure.  A leaf the loss never reads (Whisper's
+    encoder ``xattn`` / ``lnx``) gets zeros, as ``jax.grad`` gives it,
+    so that clipping, AdamW's decay and checkpoints see every leaf.
+    ``params`` are left as they are."""
     leaves = [p.detach().requires_grad_(True) for _, p in _leaves(params)]
     with torch.enable_grad():
         loss = lm.loss(_unflatten(params, leaves), batch)
-        grads = torch.autograd.grad(loss, leaves)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(leaves, grads)]
     return loss.detach(), _unflatten(params, grads)
 
 

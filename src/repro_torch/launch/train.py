@@ -2,10 +2,10 @@
 package's ``launch/train.py``.
 
   * config-driven arch selection (``--arch`` from the pool, reduced or
-    full; the port trains the attention decoders, dense or MoE
-    (``mixtral-8x7b``, ``dbrx-132b``), ``xlstm-350m`` and
-    ``jamba-1.5-large-398b``; :func:`~repro_torch.models.lm.unsupported`
-    names the rest)
+    full: every config of the repo; the batches of ``internvl2-76b``
+    carry ``patch_embeds`` (n_patches, frontend_dim) and those of
+    ``whisper-small`` ``frame_embeds`` (enc_positions, d_model), drawn
+    with the tokens as the reference's pipeline draws them)
   * deterministic restart-safe data (batch = f(seed, step))
   * periodic async checkpointing with atomic commit and retention
     (:mod:`repro_torch.checkpoint`, the reference's on-disk format)
@@ -20,7 +20,7 @@ package's ``launch/train.py``.
 The weights come from ``--seed`` through a CPU ``torch.Generator`` (the
 same model on every device) and move to ``--device``.  The LM's mesh
 sharding, the MoE's expert-parallel dispatch with it, is not ported
-(ROADMAP.md item 16): when a
+(ROADMAP.md item 16.5): when a
 ``torch.distributed`` process group exists, the trainer takes the
 one-rank mesh ``make_dev_mesh(1, 1)`` on it (which refuses a group of
 more ranks); otherwise it runs with no mesh.
@@ -45,7 +45,7 @@ from repro_torch.configs import get
 from repro_torch.data import SyntheticTokenPipeline
 from repro_torch.device import describe_device, resolve_device
 from repro_torch.launch.steps import make_train_step
-from repro_torch.models.lm import build_lm
+from repro_torch.models.lm import build_lm, embedding_inputs
 from repro_torch.optim import adamw_init
 
 
@@ -88,7 +88,8 @@ def main(argv=None) -> dict:
 
     pipe = SyntheticTokenPipeline(vocab_size=cfg.vocab_size,
                                   seq_len=args.seq, global_batch=args.batch,
-                                  seed=args.seed)
+                                  seed=args.seed,
+                                  extra=embedding_inputs(cfg) or None)
     params = lm.init(torch.Generator().manual_seed(args.seed))
     opt = adamw_init(params)
     ckpt_dir = os.path.join(args.out, "ckpt")
@@ -116,7 +117,9 @@ def main(argv=None) -> dict:
         # when a pod axis exists; on one process there is none (a no-op)
         loss = float(metrics["loss"])
         dt = (time.perf_counter() - t0) * 1e3
-        history.append({"step": step + 1, "loss": loss, "ms": round(dt, 1)})
+        history.append({"step": step + 1, "loss": loss,
+                        "gnorm": float(metrics["gnorm"]),
+                        "ms": round(dt, 1)})
         if args.deadline_ms and dt > args.deadline_ms:
             print(f"[straggler] step {step + 1} took {dt:.0f}ms "
                   f"(deadline {args.deadline_ms:.0f}ms) — on a pod "

@@ -1,12 +1,13 @@
-"""The decoder-only LM in PyTorch, attention, recurrent or hybrid: init,
-training loss, prefill and decode.
+"""The LM in PyTorch: decoder-only (attention, recurrent or hybrid), the
+patch-frontend VLM and the encoder-decoder; init, training loss, prefill
+and decode.
 
-The port of the decoder-only part of the JAX package's ``models/lm.py``,
-with its parameter tree: ``embed`` (V_pad, d), ``head`` (d, V_pad) unless
-the embeddings are tied, ``final_ln``, and ``slots[j]`` for each slot j
-of the config's mixer ``pattern``, every leaf stacked over the
-``n_layers / len(pattern)`` repeats.  A slot's block is ``ln1`` and its
-mixer, ``attn``, ``mamba``, ``mlstm`` or ``slstm``
+The port of the JAX package's ``models/lm.py``, with its parameter tree:
+``embed`` (V_pad, d), ``head`` (d, V_pad) unless the embeddings are
+tied, ``final_ln``, and ``slots[j]`` for each slot j of the config's
+mixer ``pattern``, every leaf stacked over the ``n_layers /
+len(pattern)`` repeats.  A slot's block is ``ln1`` and its mixer,
+``attn``, ``mamba``, ``mlstm`` or ``slstm``
 (:mod:`repro_torch.models.ssm`) by the kind ``a`` / ``m`` / ``x`` /
 ``s``; attention and Mamba slots add ``ln2`` and an FFN, ``mlp``
 (SwiGLU) or, in an MoE slot (``cfg.is_moe_slot(j)``), ``moe_ep`` /
@@ -20,19 +21,38 @@ state tuple (:class:`~repro_torch.models.ssm.MambaState`,
 ``MLSTMState``, ``SLSTMState``), stacked over the repeats and updated in
 place.
 
+Two frontends take precomputed embeddings, as the reference's stubs do.
+The patch frontend (``cfg.frontend == "patch"``, InternVL2) projects
+``batch["patch_embeds"]`` (B, n_patches, frontend_dim) by ``patch_proj``
+and places them ahead of the text; ``forward_train`` drops their
+positions before the logits.  The encoder-decoder (``cfg.enc_dec``,
+Whisper) runs ``enc_slots`` (``enc_layers`` non-causal attention blocks
+over ``batch["frame_embeds"]`` (B, enc_positions, d) plus
+``pos_embed_enc``, then ``enc_final_ln``); its decoder adds
+``pos_embed_dec``, uses no rope, and follows each self-attention by a
+cross-attention (``lnx``, ``xattn``) on the encoder's output, whose K/V
+``prefill`` writes into the cache's ``cross_k`` / ``cross_v`` (R, B,
+enc_positions, Hkv, hd).  Every attention block of an encoder-decoder
+carries ``xattn`` and ``lnx``, the encoder's included, which never reads
+them (the reference's ``_init_block``).
+
 The training half (:meth:`LM.loss`, :meth:`LM.forward_train`) runs the
-same blocks cache-free; with ``cfg.remat == "block"`` each repeat's
-super-block is recomputed in the backward (``torch.utils.checkpoint``,
-the reference's ``jax.checkpoint``).  The reference's ``norm_barrier``
-and activation sharding constraints have no counterpart on one card.
+same blocks cache-free; in a decoder-only LM with ``cfg.remat ==
+"block"`` each repeat's super-block is recomputed in the backward
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint``; its
+encoder-decoder path recomputes nothing, nor does the port's).  The
+reference's ``norm_barrier`` and activation sharding constraints have no
+counterpart on one card.
 
 Long prompts (more than 2,048 tokens) attend through K5
 (:mod:`repro_torch.kernels.flash_attn`) in serving; training at any
 length takes the plain, differentiable scan, as the reference's does
-(:func:`repro_torch.models.layers.blockwise_attention`).  The recurrent
-mixers run torch ops (the reference has no Pallas kernel for them).
-VLM and encoder-decoder configs are not ported (ROADMAP.md item 16):
-:func:`build_lm` refuses them.
+(:func:`repro_torch.models.layers.blockwise_attention`).  Whisper never
+reaches K5: its encoder is non-causal at 1,500 frames, its
+cross-attention has Sq != Sk and its decoder stops at 448 positions.
+The recurrent mixers run torch ops (the reference has no Pallas kernel
+for them).  :func:`build_lm` builds every config of the repo; it refuses
+a pattern with a mixer kind other than ``a`` / ``m`` / ``x`` / ``s``.
 """
 
 from __future__ import annotations
@@ -58,16 +78,26 @@ MIXER = {"a": "attn", "m": "mamba", "x": "mlstm", "s": "slstm"}
 
 
 def unsupported(cfg: ArchConfig) -> Optional[str]:
-    """Why the port cannot build ``cfg`` yet, or None for a decoder whose
-    pattern mixes attention, Mamba, mLSTM and sLSTM blocks."""
+    """Why the port cannot build ``cfg``, or None for a pattern of
+    attention, Mamba, mLSTM and sLSTM blocks (any frontend, and the
+    encoder-decoder, included)."""
     bad = sorted(set(cfg.pattern) - set(KINDS))
     if bad:
         return f"mixer kinds {bad} in the pattern {cfg.pattern}"
-    if cfg.enc_dec:
-        return "an encoder-decoder"
-    if cfg.frontend:
-        return f"the {cfg.frontend!r} frontend"
     return None
+
+
+def embedding_inputs(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
+    """The precomputed embeddings the LM reads beside its tokens, name ->
+    per-sample shape (the reference's training ``extra``):
+    ``patch_embeds`` (n_patches, frontend_dim) with the patch frontend,
+    ``frame_embeds`` (enc_positions, d_model) in an encoder-decoder,
+    none in a decoder-only LM."""
+    if cfg.frontend == "patch":
+        return {"patch_embeds": (cfg.n_patches, cfg.frontend_dim)}
+    if cfg.enc_dec:
+        return {"frame_embeds": (cfg.enc_positions, cfg.d_model)}
+    return {}
 
 
 def ffn_key(cfg: ArchConfig, j: int) -> Optional[str]:
@@ -86,9 +116,8 @@ class LM:
         why = unsupported(cfg)
         if why is not None:
             raise NotImplementedError(
-                f"{cfg.name}: {why} is not ported; the port runs "
-                "decoder-only LMs of attention, Mamba, mLSTM and sLSTM "
-                "blocks only (ROADMAP.md item 16)")
+                f"{cfg.name}: {why} cannot be built; the port runs "
+                "attention, Mamba, mLSTM and sLSTM blocks only")
         assert cfg.n_layers % len(cfg.pattern) == 0, \
             (cfg.n_layers, cfg.pattern)
         self.cfg = cfg
@@ -104,9 +133,13 @@ class LM:
         biases 0, Mamba's ``A_log`` / ``D`` and the mLSTM's gate biases
         as the reference sets them; the router, ``A_log``, ``D``,
         ``wif``, ``bif`` and the sLSTM's ``b`` f32 whatever
-        ``param_dtype`` is.  The numbers differ from the reference's
-        ``jax.random`` draws; carry those over with
-        :func:`repro_torch.convert.lm_params_from_numpy`."""
+        ``param_dtype`` is.  An encoder-decoder adds ``enc_slots``
+        (``enc_layers`` attention blocks), ``pos_embed_enc``
+        (enc_positions, d) and ``pos_embed_dec`` (max_positions, d),
+        both N(0, 0.02), and ``enc_final_ln``; the patch frontend adds
+        ``patch_proj`` (frontend_dim, d), N(0, 1/frontend_dim).  The
+        numbers differ from the reference's ``jax.random`` draws; carry
+        those over with :func:`repro_torch.convert.lm_params_from_numpy`."""
         cfg = self.cfg
         gen = generator
         if gen is None:
@@ -124,17 +157,31 @@ class LM:
         if not cfg.tie_embeddings:
             params["head"] = normal((d, cfg.vocab_padded), 1 / math.sqrt(d))
         # each leaf drawn stacked over the repeats, as lax.scan reads them
-        params["slots"] = [self._init_slot(gen, j, dt)
-                           for j in range(len(self.pattern))]
+        params["slots"] = [
+            self._init_block(gen, kind, ffn_key(cfg, j), self.repeats, dt)
+            for j, kind in enumerate(self.pattern)]
+        if cfg.enc_dec:
+            params["enc_slots"] = [self._init_block(gen, "a", "mlp",
+                                                    cfg.enc_layers, dt)]
+            params["pos_embed_enc"] = normal((cfg.enc_positions, d), 0.02)
+            params["pos_embed_dec"] = normal((max(cfg.max_positions, 1), d),
+                                             0.02)
+            params["enc_final_ln"] = _ones(d, (), gdev)
+        if cfg.frontend == "patch":
+            params["patch_proj"] = normal((cfg.frontend_dim, d),
+                                          1 / math.sqrt(cfg.frontend_dim))
         if gdev != self.device:
             params = _tree_map(lambda t: t.to(self.device), params)
         return params
 
-    def _init_slot(self, gen: torch.Generator, j: int, dt) -> Params:
-        """Slot ``j``'s block stacked over the repeats (the reference's
-        ``_init_block``)."""
-        cfg, kind = self.cfg, self.pattern[j]
-        d, lead = cfg.d_model, (self.repeats,)
+    def _init_block(self, gen: torch.Generator, kind: str,
+                    ffn: Optional[str], n: int, dt) -> Params:
+        """A block of mixer ``kind`` and FFN ``ffn`` (:func:`ffn_key`)
+        stacked over ``n`` layers (the reference's ``_init_block``); in
+        an encoder-decoder every attention block adds the cross-attention
+        ``xattn`` (no qkv bias) and its norm ``lnx``."""
+        cfg = self.cfg
+        d, lead = cfg.d_model, (n,)
         slot: Params = {"ln1": _ones(d, lead, gen.device)}
         if kind == "a":
             slot["attn"] = L.init_attention(gen, d, cfg.n_heads,
@@ -152,14 +199,18 @@ class LM:
             slot["slstm"] = S.init_slstm(gen, d, n_heads=cfg.n_heads,
                                          proj_factor=cfg.slstm_proj,
                                          dtype=dt, lead=lead)
-        key = ffn_key(cfg, j)
-        if key is not None:
+        if ffn is not None:
             slot["ln2"] = _ones(d, lead, gen.device)
-            if key == "mlp":
-                slot[key] = L.init_mlp(gen, d, cfg.d_ff, dt, lead=lead)
+            if ffn == "mlp":
+                slot[ffn] = L.init_mlp(gen, d, cfg.d_ff, dt, lead=lead)
             else:
-                slot[key] = L.init_moe(gen, d, cfg.d_ff, cfg.n_experts, dt,
+                slot[ffn] = L.init_moe(gen, d, cfg.d_ff, cfg.n_experts, dt,
                                        lead=lead)
+        if cfg.enc_dec and kind == "a":
+            slot["xattn"] = L.init_attention(gen, d, cfg.n_heads,
+                                             cfg.n_kv_heads, cfg.hd, False,
+                                             dt, lead=lead)
+            slot["lnx"] = _ones(d, lead, gen.device)
         return slot
 
     def _ffn(self, p: Params, x: torch.Tensor, j: int) -> torch.Tensor:
@@ -179,8 +230,10 @@ class LM:
         """Cast params to the compute dtype, keeping numerics-critical
         leaves (``F32_KEEP``: norm scales, the router, Mamba's ``A_log``,
         ``D``, ``dt_bias``, the mLSTM's ``wif``/``bif``, the sLSTM's
-        ``b``) as they are.  A leaf already in the compute dtype is
-        returned as it is, so casting a cast tree costs nothing."""
+        ``b``, every ``ln*`` scale) as they are; the rest, ``patch_proj``
+        and ``pos_embed_*`` included, go to the compute dtype.  A leaf
+        already in the compute dtype is returned as it is, so casting a
+        cast tree costs nothing."""
         ct = DTYPES[self.cfg.compute_dtype]
 
         def walk(tree, name=""):
@@ -257,13 +310,85 @@ class LM:
                 x = self._super_block(x, ps)
         return L.rms_norm(params["final_ln"], x)
 
+    def _attend(self, p: Params, x: torch.Tensor, causal: bool
+                ) -> torch.Tensor:
+        """An encoder-decoder's cache-free self-attention (no rope)."""
+        cfg = self.cfg
+        out, _ = L.attention(p["attn"], x, n_heads=cfg.n_heads,
+                             n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
+                             rope_theta=cfg.rope_theta, causal=causal,
+                             attn_block=cfg.attn_block, use_rope=False)
+        return out
+
+    def _cross(self, p: Params, x: torch.Tensor, cross_kv) -> torch.Tensor:
+        """``x`` plus its cross-attention on ``cross_kv`` ((B, S_enc,
+        Hkv, hd) K and V): ``lnx``, then ``xattn`` without rope."""
+        cfg = self.cfg
+        out, _ = L.attention(p["xattn"], L.rms_norm(p["lnx"], x),
+                             n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+                             head_dim=cfg.hd, rope_theta=cfg.rope_theta,
+                             cross_kv=cross_kv, use_rope=False)
+        return x + out
+
+    def _cross_kv(self, p: Params, enc: torch.Tensor):
+        """The encoder output's K and V for one decoder block's
+        ``xattn``, (B, S_enc, Hkv, hd) each."""
+        cfg = self.cfg
+        b, s, _ = enc.shape
+        return tuple((enc @ p["xattn"][w]).reshape(b, s, cfg.n_kv_heads,
+                                                   cfg.hd)
+                     for w in ("wk", "wv"))
+
+    def _encode(self, params: Params, x: torch.Tensor,
+                frames: torch.Tensor) -> torch.Tensor:
+        """The encoder: ``frames`` (B, S_enc, d) plus ``pos_embed_enc``
+        in ``x``'s dtype, the ``enc_layers`` non-causal blocks
+        (self-attention, then the MLP), ``enc_final_ln``."""
+        enc = frames.to(x.dtype) + params["pos_embed_enc"][
+            None, :frames.shape[1]].to(x.dtype)
+        for r in range(self.cfg.enc_layers):
+            p = _tree_map(lambda t: t[r], params["enc_slots"][0])
+            enc = enc + self._attend(p, L.rms_norm(p["ln1"], enc), False)
+            enc = enc + L.mlp(p["mlp"], L.rms_norm(p["ln2"], enc))
+        return L.rms_norm(params["enc_final_ln"], enc)
+
+    def _front(self, params: Params, batch) -> Tuple[torch.Tensor, Any]:
+        """The decoder's input (B, S, d) and, in an encoder-decoder, the
+        encoder's output: the token embeddings, plus ``pos_embed_dec``
+        at positions 0..S-1 in an encoder-decoder, or after the
+        projected patches (``patch_embeds @ patch_proj``) with the patch
+        frontend."""
+        cfg = self.cfg
+        x = self.embed(params, batch["inputs"])
+        enc = None
+        if cfg.enc_dec:
+            enc = self._encode(params, x, batch["frame_embeds"])
+            x = x + params["pos_embed_dec"][None, :x.shape[1]].to(x.dtype)
+        elif cfg.frontend == "patch":
+            pe = batch["patch_embeds"].to(x.dtype) @ params["patch_proj"]
+            x = torch.cat([pe, x], 1)
+        return x, enc
+
     def forward_train(self, params: Params,
                       batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Logits (B, S, V_pad) in f32 over the positions of
-        ``batch["inputs"]`` (decoder-only)."""
+        ``batch["inputs"]``: the patches' positions are dropped, and an
+        encoder-decoder's decoder attends to ``batch["frame_embeds"]``
+        through its encoder."""
+        cfg = self.cfg
         params = self._cast(params)
-        x = self.embed(params, batch["inputs"])
-        x = self._backbone_train(params, x)
+        x, enc = self._front(params, batch)
+        if cfg.enc_dec:
+            for r in range(self.repeats):
+                p = _tree_map(lambda t: t[r], params["slots"][0])
+                x = x + self._attend(p, L.rms_norm(p["ln1"], x), True)
+                x = self._cross(p, x, self._cross_kv(p, enc))
+                x = x + L.mlp(p["mlp"], L.rms_norm(p["ln2"], x))
+            x = L.rms_norm(params["final_ln"], x)
+        else:
+            x = self._backbone_train(params, x)
+            if cfg.frontend == "patch":
+                x = x[:, cfg.n_patches:]
         return self.logits(params, x)
 
     def loss(self, params: Params,
@@ -316,17 +441,29 @@ class LM:
         "v": (R, B, W, Hkv, D), "kpos": (R, W)}`` for attention (W =
         min(max_len, sliding window)), else the block's state tuple with
         every leaf (R, B, ...); stacked over the R repeats as the
-        reference's."""
-        return {"pos": 0, "slots": [self._slot_cache(kind, batch, max_len)
-                                    for kind in self.pattern]}
+        reference's.  An encoder-decoder adds ``cross_k`` / ``cross_v``
+        (R, B, enc_positions, Hkv, D) in the compute dtype, zero until
+        :meth:`prefill` writes the encoder's K/V there."""
+        cfg = self.cfg
+        cache = {"pos": 0, "slots": [self._slot_cache(kind, batch, max_len)
+                                     for kind in self.pattern]}
+        if cfg.enc_dec:
+            for name in ("cross_k", "cross_v"):
+                cache[name] = torch.zeros(
+                    (self.repeats, batch, cfg.enc_positions, cfg.n_kv_heads,
+                     cfg.hd), dtype=DTYPES[cfg.compute_dtype],
+                    device=self.device)
+        return cache
 
     # ------------------------------------------------------------------
     # cached block (prefill S tokens or decode 1 token)
     # ------------------------------------------------------------------
-    def _block_cached(self, p: Params, x, j: int, cache, pos):
+    def _block_cached(self, p: Params, x, j: int, cache, pos, cross=None):
         """Slot ``j``'s block against its cache: the KV cache is written
         in place by ``attention_cached``; a recurrent block's new state
-        is copied into ``cache``'s tensors."""
+        is copied into ``cache``'s tensors.  ``cross``: this repeat's
+        cached cross K/V, attended after the self-attention (an
+        encoder-decoder, whose attention takes no rope)."""
         cfg, kind = self.cfg, self.pattern[j]
         h = L.rms_norm(p["ln1"], x)
         if kind == "a":
@@ -334,7 +471,7 @@ class LM:
                 p["attn"], h, cache, pos, n_heads=cfg.n_heads,
                 n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
                 rope_theta=cfg.rope_theta, window=cfg.sliding_window,
-                attn_block=cfg.attn_block)
+                attn_block=cfg.attn_block, use_rope=not cfg.enc_dec)
             new = None
         elif kind == "m":
             out, new = S.mamba_forward(p["mamba"], h, cache,
@@ -354,35 +491,61 @@ class LM:
             for dst, src in zip(cache, new):
                 dst.copy_(src)
         x = x + out
+        if cross is not None and kind == "a":
+            x = self._cross(p, x, cross)
         if ffn_key(cfg, j) is not None:
             x = x + self._ffn(p, x, j)
         return x
 
     def _run_cached(self, params: Params, x, cache):
         """Run every slot of every repeat in order, each against its
-        cache slice (views of the stacked cache, written in place)."""
+        cache slice (views of the stacked cache, written in place), an
+        encoder-decoder's against its repeat's cross K/V too."""
         pos = cache["pos"]
         for r in range(self.repeats):
+            cross = ((cache["cross_k"][r], cache["cross_v"][r])
+                     if self.cfg.enc_dec else None)
             for j in range(len(self.pattern)):
                 p_r, c_r = (_tree_map(lambda t: t[r], tree[j])
                             for tree in (params["slots"], cache["slots"]))
-                x = self._block_cached(p_r, x, j, c_r, pos)
+                x = self._block_cached(p_r, x, j, c_r, pos, cross)
         cache["pos"] = pos + x.shape[1]
         return x, cache
 
     # ------------------------------------------------------------------
     def prefill(self, params: Params, batch, cache):
-        """Process a full prompt; returns (last-token logits, cache)."""
+        """Process a full prompt; returns (last-token logits, cache).  An
+        encoder-decoder runs its encoder on ``batch["frame_embeds"]``
+        and writes each repeat's cross K/V into the cache first (in
+        place; tensors of another frame count are replaced); the patch
+        frontend prefills the projected patches ahead of the text."""
         params = self._cast(params)
-        x = self.embed(params, batch["inputs"])
+        x, enc = self._front(params, batch)
+        if enc is not None:
+            cfg = self.cfg
+            shape = (self.repeats, *enc.shape[:2], cfg.n_kv_heads, cfg.hd)
+            for name in ("cross_k", "cross_v"):
+                if tuple(cache[name].shape) != shape:
+                    cache[name] = cache[name].new_empty(shape)
+            for r in range(self.repeats):
+                p_r = _tree_map(lambda t: t[r], params["slots"][0])
+                for name, kv in zip(("cross_k", "cross_v"),
+                                    self._cross_kv(p_r, enc)):
+                    cache[name][r].copy_(kv)
         x, cache = self._run_cached(params, x, cache)
         x = L.rms_norm(params["final_ln"], x[:, -1:])
         return self.logits(params, x), cache
 
     def decode_step(self, params: Params, batch, cache):
-        """One-token step against the cache. batch['inputs']: (B, 1)."""
+        """One-token step against the cache. batch['inputs']: (B, 1).  An
+        encoder-decoder adds ``pos_embed_dec`` at ``pos``, clipped to
+        ``max_positions - 1`` as the reference's."""
+        cfg = self.cfg
         params = self._cast(params)
         x = self.embed(params, batch["inputs"])
+        if cfg.enc_dec:
+            pos = min(max(cache["pos"], 0), cfg.max_positions - 1)
+            x = x + params["pos_embed_dec"][pos].to(x.dtype)
         x, cache = self._run_cached(params, x, cache)
         x = L.rms_norm(params["final_ln"], x)
         return self.logits(params, x), cache

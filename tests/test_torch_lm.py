@@ -15,8 +15,9 @@ carried over with ``lm_params_from_numpy``), both packages on the CPU:
   within ``1e-4 * max(1, max|ref|)``, ``pos`` and ``kpos`` equal;
 * ``serve``: identical tokens, including 2,064-token prompts (the
   blockwise branch) and mixed prompt lengths;
-* the configs are the reference's, and ``build_lm`` refuses the VLM and
-  the encoder-decoder.
+* the configs are the reference's, ``build_lm`` builds every one of
+  them, full and reduced, and refuses a pattern with an unknown mixer
+  kind.
 """
 
 import dataclasses
@@ -95,13 +96,26 @@ def test_configs_are_the_reference(name):
     ids=["internvl2-76b", "whisper-small", "internvl2-76b-reduced",
          "whisper-small-reduced"])
 def test_build_lm_refuses_what_is_not_a_dense_decoder(name, reduced):
-    """The VLM's patch frontend and the encoder-decoder are refused,
-    naming ROADMAP item 16, full and reduced; the MoE decoders
-    (``tests/test_torch_moe.py``), xLSTM and Jamba
-    (``tests/test_torch_hybrid.py``) build."""
+    """The VLM's patch frontend and the encoder-decoder build, full and
+    reduced (``tests/test_torch_frontends.py`` holds them against the
+    reference); what the port still refuses is a mixer kind outside
+    ``a`` / ``m`` / ``x`` / ``s``, here in the same config."""
     cfg = get(name).reduced() if reduced else get(name)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        build_lm(cfg, device="cpu")
+    assert build_lm(cfg, device="cpu").cfg is cfg
+    with pytest.raises(NotImplementedError, match=r"mixer kinds \['q'\]"):
+        build_lm(dataclasses.replace(cfg, pattern=("q",)), device="cpu")
+
+
+@pytest.mark.parametrize("reduced", [False, True], ids=["full", "reduced"])
+@pytest.mark.parametrize("name", sorted(J_ARCHS))
+def test_build_lm_builds_every_config(name, reduced):
+    """All ten configs build in the port, full and reduced (no weights
+    drawn), with the reference's repeat count."""
+    cfg = get(name).reduced() if reduced else get(name)
+    lm = build_lm(cfg, device="cpu")
+    assert lm.cfg is cfg
+    assert lm.repeats == j_build_lm(jget(name).reduced() if reduced
+                                    else jget(name)).repeats
 
 
 # ---------------------------------------------------------------------------
@@ -585,8 +599,9 @@ def test_lm_params_from_numpy_refuses_wrong_trees(reduced):
     bad = dict(npp, embed=npp["embed"].astype(np.int32))
     with pytest.raises(TypeError, match="embed"):
         lm_params_from_numpy(bad, tcfg, "cpu")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        lm_params_from_numpy(npp, get("internvl2-76b").reduced(), "cpu")
+    unknown = dataclasses.replace(tcfg, pattern=("a", "z"))
+    with pytest.raises(NotImplementedError, match="mixer kinds"):
+        lm_params_from_numpy(npp, unknown, "cpu")
 
 
 @pytest.mark.parametrize("case", ["three_prompts", "mixed_lengths",
