@@ -366,6 +366,39 @@ Drives ``repro_torch`` only (never JAX, never the JAX package ``repro``):
    * max|ref|``; K5 at Qwen's (40 / 40 heads) and Yi's (56 / 8) prefill
    shapes against its plain version and SDPA, as in (d).
 
+19. the LM half of sharding (``repro_torch.distributed.sharding``'s
+   ``param_specs`` / ``cache_specs`` / ``batch_specs``, the sharded
+   ``models/lm.py``): gloo ranks sharing the card (``launch.mesh.spawn``,
+   as phase 14; every collective time there is a host copy, not
+   scale-out speed), each rank's weights drawn from the one-process seed
+   as its blocks, the ranks in turn.  (a) StableLM-2-12B at all 40
+   layers, bf16, on dp1 x mp2 and on dp2 x mp2: one prefill group of 4 x
+   4,080 tokens and 16 decode steps fed the one-process run's tokens,
+   every step's logits within ``5e-2 * max|ref|`` of that run's, the
+   greedy tokens that agree counted, on every rank one K5 launch per
+   layer (on its H/mp q and Hkv/mp kv heads), param and cache bytes
+   equal to the blocks of ``param_specs`` / ``cache_specs``; (b)
+   DBRX-132B at 2 of 40 layers, f32, ``moe_ep`` with ``fsdp_serve``, on
+   dp2 x mp2, as (a) with 2 decode steps (``fsdp_serve`` gathers every
+   data-split leaf each step, about 13 GB through gloo's host copies)
+   at ``1e-4 * max(1, max|ref|)``, and the entries each
+   dispatch group drops per layer equal to the one-process run's under
+   a layout-only ``mesh_context(Mesh(2, 2))`` (two groups); (c)
+   Mixtral-8x7B at 1 layer, f32, its capacity factor lowered until
+   entries drop, a dp2 x mp1 prefill within ``1e-4`` of the one-process
+   run with two groups and not of the run with one, the drops equal;
+   (d) one train step of StableLM at 2 layers, f32, ``fsdp_train``, on
+   dp2 x mp2, against the one-process step: loss within 1e-6 relative,
+   grads within 1e-4 of each leaf's max, params by phase 15's AdamW
+   rule, its 1% share of loosely held elements taken over the leaves
+   other than the vocabulary's (the head's columns for tokens a batch
+   does not target carry softmax-sized gradients); (e) K5 bf16 at the
+   per-rank shapes of StableLM (4 x 16 / 4 x 4,080 x 160) and DBRX (4 x
+   24 / 4 x 4,080 x 128) against its plain version and timed in turns
+   with SDPA.  Prints each rank's peak
+   memory and the collectives it issues per prefill group, decode step
+   and train step.
+
 Every printed number carries the card's name and power limit.  The line
 before the last is ``{"kernels": [...]}``; the last is ``{"ok": true,
 "device": {...}}``.  Exits non-zero, with no result, when CUDA is absent
@@ -377,6 +410,7 @@ or the repository's ``src/repro_torch`` is not beside this file.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import os
@@ -4924,7 +4958,7 @@ def _leaf_items(tree):
             if not k.endswith("#none")}
 
 
-def _adam_gate(got, want, grads, lr: float) -> dict:
+def _adam_gate(got, want, grads, lr: float, share_exempt=()) -> dict:
     """Params after ``len(grads)`` AdamW steps against a reference run:
     ``max|d|`` over the elements whose reference gradient was determined
     at every step (above ``LM_GRAD_GATE`` of its leaf's max), gated at
@@ -4932,12 +4966,14 @@ def _adam_gate(got, want, grads, lr: float) -> dict:
     moment by its own magnitude, so an element whose gradient sits at
     the sums' rounding level moves by an arbitrary share of its bound
     ``lr`` a step: those are held to ``2 * lr * steps`` and to
-    ``LM_LOOSE_SHARE`` of the elements.  Returns the worst reading."""
+    ``LM_LOOSE_SHARE`` of the elements, those of the leaves in
+    ``share_exempt`` left out of that share (each leaf's share in
+    ``per_leaf``).  Returns the worst reading."""
     import torch
     g, w = _leaf_items(got), _leaf_items(want)
     gs = [_leaf_items(t) for t in grads]
     worst = {"ratio": 0.0, "leaf": None, "loose": 0, "total": 0,
-             "loose_max": 0.0, "ok": sorted(g) == sorted(w)}
+             "loose_max": 0.0, "ok": sorted(g) == sorted(w), "per_leaf": {}}
     for k, ref in w.items():
         a = g[k].detach().float().cpu()
         b = ref.detach().float().cpu()
@@ -4952,8 +4988,10 @@ def _adam_gate(got, want, grads, lr: float) -> dict:
         if fixed / tol > worst["ratio"]:
             worst.update(ratio=fixed / tol, leaf=k)
         worst["loose_max"] = max(worst["loose_max"], loose)
-        worst["loose"] += int(free.sum())
-        worst["total"] += free.numel()
+        worst["per_leaf"][k] = (int(free.sum()), free.numel(), loose)
+        if k not in share_exempt:
+            worst["loose"] += int(free.sum())
+            worst["total"] += free.numel()
         if fixed > tol or loose > 2 * lr * len(gs):
             worst["ok"] = False
     if worst["loose"] > LM_LOOSE_SHARE * worst["total"]:
@@ -7044,6 +7082,591 @@ def _frontends_phase(dev, tag) -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the LM half of sharding
+# ---------------------------------------------------------------------------
+
+SHARD_SPAWN_S = 900        # each spawn's deadline and collective timeout
+SHARD_LAYERS = 40          # (a): all of StableLM-2-12B's layers
+SHARD_PROMPT_LEN = 4080    # one prefill group of SHARD_SLOTS prompts
+SHARD_SLOTS = 4
+SHARD_DECODE = 16          # decode steps, fed the one-process tokens
+SHARD_MAX_LEN = 4096
+SHARD_DBRX_LAYERS = 2      # (b): 2 of DBRX's 40 layers, f32 compute
+SHARD_DBRX_DECODE = 2      # (b): fsdp_serve gathers every data-split leaf
+                           # each step, ~13 GB through gloo's host copies
+SHARD_F32_GATE = 1e-4      # f32 logits, sharded vs one process, rel.
+                           # max(1, max|ref|)
+SHARD_MIX_CFS = (1.0, 0.5, 0.25)   # (c): lowered until entries drop
+SHARD_TRAIN_LAYERS = 2     # (d): StableLM at 2 of 40, fsdp_train, f32
+SHARD_TRAIN_BATCH, SHARD_TRAIN_SEQ = 8, 128
+SHARD_TRAIN_LR = 1e-3
+SHARD_LOSS_RTOL = 1e-6
+# (e): K5 alone at each rank's heads on a model axis of 2
+SHARD_K5_SHAPES = {"stablelm_mp2": (4, 16, 4, 4080, 160),
+                   "dbrx_mp2": (4, 24, 4, 4080, 128)}
+SHARD_NOTE = ("gloo ranks sharing one card: a collective is a host copy, "
+              "not a link between cards")
+
+
+def _shard_cfg(part: str, cf: float = 0.0):
+    """The configuration of part (a)-(d): (a) StableLM-2-12B at
+    SHARD_LAYERS, bf16 (weights rounded to bf16 as drawn, as phase 10);
+    (b) DBRX-132B at SHARD_DBRX_LAYERS, f32 params and compute (so the
+    router's inputs, and with them the drops, are comparable bit for
+    bit: bf16 moves them by an ulp between a sharded sum and one
+    product); (c) Mixtral-8x7B at one layer, f32, capacity factor
+    ``cf``; (d) StableLM at SHARD_TRAIN_LAYERS, f32 params and compute."""
+    import dataclasses
+    from repro_torch.configs import get
+    if part == "a":
+        full = get(LM_ARCH)
+        return dataclasses.replace(full, n_layers=SHARD_LAYERS,
+                                   param_dtype=full.compute_dtype)
+    if part == "b":
+        return dataclasses.replace(get(MOE_DBRX), n_layers=SHARD_DBRX_LAYERS,
+                                   param_dtype="float32",
+                                   compute_dtype="float32")
+    if part == "c":
+        return dataclasses.replace(get("mixtral-8x7b"), n_layers=1,
+                                   param_dtype="float32",
+                                   compute_dtype="float32",
+                                   capacity_factor=cf)
+    return dataclasses.replace(get(LM_ARCH), n_layers=SHARD_TRAIN_LAYERS,
+                               compute_dtype="float32")
+
+
+@contextlib.contextmanager
+def _drops_recorded(log: list):
+    """Appends, for every ``moe_route`` call, the entries each dispatch
+    group drops."""
+    import repro_torch.models.layers as L
+    real = L.moe_route
+
+    def recorded(*a, **kw):
+        r = real(*a, **kw)
+        log.append((~r["keep"]).sum(-1).tolist())
+        return r
+    L.moe_route = recorded
+    try:
+        yield log
+    finally:
+        L.moe_route = real
+
+
+def _shard_prompts(cfg):
+    import torch
+    from repro_torch.launch.serve import random_prompts
+    return torch.tensor(random_prompts(cfg.vocab_size, SHARD_SLOTS,
+                                       SHARD_PROMPT_LEN, seed=SEED),
+                        dtype=torch.int32)
+
+
+def _shard_serve_one(cfg, dev, layout=None, steps: int = SHARD_DECODE
+                     ) -> dict:
+    """One process: a prefill group and ``steps`` greedy decode steps,
+    under a layout-only mesh context ``layout`` (dp, mp) when given (the
+    MoE then takes its dispatch groups from it); the logits of every step
+    (f32, on the host), the tokens, and the entries dropped per prefill
+    MoE call and group."""
+    import torch
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models.lm import build_lm
+    lm = build_lm(cfg, device=dev)
+    params = lm.init(torch.Generator(device=dev).manual_seed(SEED))
+    mesh = None if layout is None else SH.Mesh(*layout)
+    drops, lgs = [], []
+    with torch.no_grad(), SH.mesh_context(mesh):
+        prefill, dec = make_prefill_step(lm), make_decode_step(lm)
+        cache = lm.init_cache(SHARD_SLOTS, SHARD_MAX_LEN)
+        with _drops_recorded(drops):
+            logits, cache = prefill(params, {"inputs": _shard_prompts(cfg)
+                                             .to(dev)}, cache)
+        lgs.append(logits[:, 0].float().cpu())
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        toks = [tok.cpu()]
+        for _ in range(steps):
+            tok, logits, cache = dec(params, {"inputs": tok}, cache)
+            lgs.append(logits[:, 0].float().cpu())
+            toks.append(tok.cpu())
+    torch.cuda.synchronize()
+    del lm, params, cache
+    torch.cuda.empty_cache()
+    return {"logits": torch.stack(lgs), "tokens": torch.cat(toks, 1),
+            "drops": drops}
+
+
+def _shard_draw(lm, mesh, mc, dev):
+    """This rank's blocks of ``lm``'s weights (seed SEED on the card,
+    the one-process draw), kept leaf by leaf as drawn; the ranks draw in
+    turn, so one full leaf is in flight on the card at a time."""
+    import torch
+    from repro_torch.distributed import sharding as SH
+
+    def keep(path, t):
+        return SH.local_block(t, SH.param_spec(path, t.ndim, mc),
+                              mesh).clone()
+    params = None
+    for r in range(mesh.size):
+        if mesh.rank == r:
+            params = lm.init(torch.Generator(device=dev).manual_seed(SEED),
+                             keep=keep)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        mesh.barrier()
+    return params
+
+
+def _spec_bytes(tree, specs, mesh) -> int:
+    """Bytes of this rank's blocks of ``tree``'s tensors under
+    ``specs``."""
+    import numpy as np
+    from repro_torch.distributed import sharding as SH
+    total = 0
+
+    def add(t, s):
+        nonlocal total
+        if hasattr(t, "numel"):
+            total += int(np.prod(SH.local_shape(t.shape, s, mesh))) * \
+                t.element_size()
+        return t
+    SH._zip_map(add, tree, specs)
+    return total
+
+
+def _tree_bytes(tree) -> int:
+    from repro_torch.models.lm import _tree_map
+    n = []
+    _tree_map(lambda t: n.append(t.numel() * t.element_size())
+              if hasattr(t, "numel") else None, tree)
+    return sum(n)
+
+
+def _shard_serve_rank(mesh, dev, job, part: str) -> dict:
+    """Parts (a)-(c) on one rank: the weights drawn as blocks, the bytes
+    held against the specs' blocks, a prefill group with K5 and the
+    collectives counted, the drops of its dispatch group, then (decode
+    parts) as many steps as the one-process run took, fed its tokens;
+    rank 0 gathers
+    the logits."""
+    import torch
+    import repro_torch.kernels.flash_attn as FA
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch.steps import (abstract_params, make_decode_step,
+                                          make_prefill_step)
+    from repro_torch.models.lm import build_lm
+    cfg = job[part]["cfg"]
+    torch.cuda.reset_peak_memory_stats()
+    rec = {}
+    with torch.no_grad(), SH.mesh_context(mesh, fsdp=cfg.fsdp_serve) as mc:
+        lm = build_lm(cfg, device=dev)
+        t0 = time.perf_counter()
+        params = _shard_draw(lm, mesh, mc, dev)
+        rec["draw_s"] = time.perf_counter() - t0
+        _, meta = abstract_params(cfg)
+        with SH.mesh_context(None):
+            meta_cache = build_lm(cfg, device="meta").init_cache(
+                SHARD_SLOTS, SHARD_MAX_LEN)
+        cache = lm.init_cache(SHARD_SLOTS, SHARD_MAX_LEN)
+        rec["bytes"] = {
+            "params": _tree_bytes(params),
+            "params_specs": _spec_bytes(meta, SH.param_specs(meta, mc),
+                                        mesh),
+            "cache": _tree_bytes(cache),
+            "cache_specs": _spec_bytes(meta_cache, SH.cache_specs(
+                meta_cache, mc), mesh)}
+        del meta, meta_cache
+        prefill, dec = make_prefill_step(lm), make_decode_step(lm)
+        lspec = SH.constrain((SHARD_SLOTS,), "batch") + (None, "model")
+        prompts = _shard_prompts(cfg).to(dev)
+        FA.FLASH_ATTN_LAUNCHES = 0
+        before = dict(mesh.counts)
+        drops = []
+        torch.cuda.synchronize()
+        mesh.barrier()
+        t0 = time.perf_counter()
+        with _drops_recorded(drops):
+            logits, cache = prefill(params, {"inputs": prompts}, cache)
+        torch.cuda.synchronize()
+        rec["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        rec["k5"] = FA.FLASH_ATTN_LAUNCHES
+        rec["coll_prefill"] = {k: n - before.get(k, 0)
+                               for k, n in mesh.counts.items()
+                               if n != before.get(k, 0)}
+        rec["drops"] = drops
+        lgs = [SH.gather_block(logits, lspec, mesh)[:, 0].float().cpu()]
+        toks = job[part].get("tokens")
+        steps = 0 if toks is None else toks.shape[1] - 1
+        before, ms = dict(mesh.counts), []
+        for i in range(steps):
+            t0 = time.perf_counter()
+            _, logits, cache = dec(params, {"inputs": toks[:, i:i + 1]
+                                            .to(dev)}, cache)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            snap = dict(mesh.counts)
+            lgs.append(SH.gather_block(logits, lspec, mesh)[:, 0]
+                       .float().cpu())
+            for k, n in mesh.counts.items():   # the comparison's gathers
+                before[k] = before.get(k, 0) + n - snap.get(k, 0)
+        rec["decode_ms"] = ms
+        rec["coll_decode"] = {k: (n - before.get(k, 0)) / max(steps, 1)
+                              for k, n in mesh.counts.items()
+                              if n != before.get(k, 0)}
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        if mesh.rank == 0:
+            rec["logits"] = torch.stack(lgs).numpy()
+    del params, cache, lm, logits, prefill, dec
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _shard_train_rank(mesh, dev, job) -> dict:
+    """(d) on one rank: the sharded value_and_grad and one train step
+    (fsdp_train), then the one-process step on rank 0, and every leaf of
+    the grads and new params gathered and held against it there."""
+    import torch
+    from repro_torch.data import SyntheticTokenPipeline
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch.steps import make_train_step, value_and_grad
+    from repro_torch.models.lm import build_lm
+    from repro_torch.optim import adamw_init
+    cfg = job["d"]["cfg"]
+    torch.cuda.reset_peak_memory_stats()
+    pipe = SyntheticTokenPipeline(cfg.vocab_size, SHARD_TRAIN_SEQ,
+                                  SHARD_TRAIN_BATCH, seed=SEED)
+    batch = {k: v.to(dev) for k, v in pipe.batch(0).items()}
+    lm = build_lm(cfg, device=dev)
+    rec = {}
+    with SH.mesh_context(mesh, fsdp=cfg.fsdp_train) as mc:
+        params = _shard_draw(lm, mesh, mc, dev)
+        specs = SH.param_specs(params, mc)
+        loss, grads = value_and_grad(lm, params, batch)
+        step = make_train_step(lm, base_lr=SHARD_TRAIN_LR, warmup=1,
+                               total=10)
+        opt = adamw_init(params)
+        before = dict(mesh.counts)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, metrics = step(params, opt, batch)
+        torch.cuda.synchronize()
+        rec["step_ms"] = (time.perf_counter() - t0) * 1e3
+        rec["coll_step"] = {k: n - before.get(k, 0)
+                            for k, n in mesh.counts.items()
+                            if n != before.get(k, 0)}
+        rec["loss"] = float(loss)
+        rec["step_loss"] = float(metrics["loss"])
+        rec["gnorm"] = float(metrics["gnorm"])
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    # only the blocks to compare stay: rank 0's one-process step needs
+    # the card (a full f32 model, its grads and AdamW's state)
+    del opt, metrics, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    one = None
+    if mesh.rank == 0:
+        with SH.mesh_context(None):
+            full = lm.init(torch.Generator(device=dev).manual_seed(SEED))
+            l1, g1 = value_and_grad(lm, full, batch)
+            step1 = make_train_step(lm, base_lr=SHARD_TRAIN_LR, warmup=1,
+                                    total=10)
+            full, _, m1 = step1(full, adamw_init(full), batch)
+        one = {"loss": float(l1), "gnorm": float(m1["gnorm"]),
+               "grads": _leaf_items(g1), "params": _leaf_items(full)}
+        del full, g1
+        gc.collect()
+        torch.cuda.empty_cache()
+    mesh.barrier()
+    worst_g, got_p = (0.0, None), {}
+
+    def spec_at(key):
+        s = specs
+        for part in key.split("/"):
+            s = s[int(part)] if isinstance(s, list) else s[part]
+        return s
+    for k, g in _leaf_items(grads).items():
+        whole = SH.gather_block(g, spec_at(k), mesh)
+        if one is not None:
+            ref = one["grads"][k]
+            d = (whole.float() - ref.float()).abs().max().item()
+            r = d / max(ref.abs().max().item(), 1e-30)
+            if r >= worst_g[0]:
+                worst_g = (r, k)
+        del whole
+    for k, p in _leaf_items(params).items():
+        whole = SH.gather_block(p, spec_at(k), mesh)
+        if one is not None:
+            got_p[k] = whole
+    if one is not None:
+        rec["one_loss"], rec["one_gnorm"] = one["loss"], one["gnorm"]
+        rec["grad_worst"] = worst_g
+        # the head's columns for the tokens the batch does not target
+        # take softmax-sized gradients (p_v h, about 1/V of a target's):
+        # 0.298 of the head sits under the determined level at full width
+        # on the H100 (every other leaf at most 0.0015; PERF.md), held by
+        # the 2 * lr bound but left out of the share
+        rec["adam"] = _adam_gate(got_p, one["params"], [one["grads"]],
+                                 SHARD_TRAIN_LR,
+                                 share_exempt=("head", "embed"))
+    del got_p, one, grads, params, lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _lm_shard_rank(rank: int, world: int, job: dict) -> dict:
+    """One rank of a phase 19 spawn: its (dp, mp) mesh over gloo on the
+    card, then the job's parts in order."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.launch.mesh import make_dev_mesh
+    dev = torch.device(job["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    mesh = make_dev_mesh(job["dp"], job["mp"], backend="gloo", device=dev,
+                         timeout_s=SHARD_SPAWN_S)
+    out = {}
+    for part in job["parts"]:
+        out[part] = (_shard_train_rank(mesh, dev, job) if part == "d"
+                     else _shard_serve_rank(mesh, dev, job, part))
+    return out
+
+
+def _coll_txt(c: dict) -> str:
+    return ", ".join(f"{k} {v:g}" for k, v in sorted(c.items())) or "none"
+
+
+def _shard_spawn(dev, dp: int, mp: int, job: dict, tag,
+                 rank_fn=None) -> list:
+    from repro_torch.launch.mesh import spawn
+    job = dict(job, dp=dp, mp=mp, device=str(dev))
+    t0 = time.perf_counter()
+    # the ranks' allocators grow segments in place: a rank drawing a
+    # 10.5 GiB leaf beside the others' blocks can find its own reserved
+    # memory in pieces otherwise
+    prev = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        out = spawn(rank_fn or _lm_shard_rank, dp * mp, backend="gloo",
+                    args=(job,), timeout_s=SHARD_SPAWN_S)
+    except RuntimeError as e:
+        raise SystemExit(f"chip_smoke: phase 19 (dp{dp} x mp{mp}, parts "
+                         f"{job['parts']}) failed: {e}")
+    finally:
+        if prev is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = prev
+    print(f"lm sharding: dp{dp} x mp{mp} spawn, parts {job['parts']}, "
+          f"{time.perf_counter() - t0:.1f} s host clock with the ranks' "
+          f"start-up ({SHARD_NOTE}) {tag}")
+    return out
+
+
+def _shard_check_serve(part: str, label: str, out: list, ref: dict,
+                       cfg, dp: int, mp: int, gate: float, floor_one: bool,
+                       tag) -> dict:
+    """Gates of a serving part on the ranks' records: every rank's bytes
+    equal to its specs' blocks and, where the prefill passes 2,048
+    tokens with no window, one K5 launch per layer; each step's logits
+    within ``gate`` of the one-process run's; prints the per-rank
+    readings."""
+    import torch
+    recs = [r[part] for r in out]
+    got = torch.from_numpy(recs[0]["logits"])
+    want = ref["logits"][:got.shape[0]]
+    v = cfg.vocab_size
+    errs = [_gate_err(got[i, :, :v], want[i, :, :v], gate, floor_one)
+            for i in range(got.shape[0])]
+    agree = int((got[..., :v].argmax(-1) == want[..., :v].argmax(-1)).sum())
+    total = got.shape[0] * got.shape[1]
+    k5_want = cfg.n_layers if cfg.sliding_window is None else 0
+    ok_bytes = all(r["bytes"]["params"] == r["bytes"]["params_specs"] and
+                   r["bytes"]["cache"] == r["bytes"]["cache_specs"]
+                   for r in recs)
+    ok_k5 = all(r["k5"] == k5_want for r in recs)
+    ok_logits = all(d <= tol for d, tol in errs) and bool(
+        torch.isfinite(got).all())
+    worst = max(errs, key=lambda e: e[0] / e[1])
+    print(f"lm sharding ({part}): {label} on dp{dp} x mp{mp}: "
+          f"{cfg.n_heads // mp} q / {cfg.n_kv_heads // mp} kv heads, "
+          f"d_ff {cfg.d_ff // mp} per rank; {len(errs)} steps (prefill + "
+          f"{len(errs) - 1} decode fed the one-process tokens): worst "
+          f"max|d| {worst[0]:.3e} tol {worst[1]:.3e} (gate {gate} of "
+          f"{'max(1, max|ref|)' if floor_one else 'max|ref|'}); greedy "
+          f"tokens agree {agree}/{total}; K5 launches per rank "
+          f"{[r['k5'] for r in recs]} (want {k5_want}) "
+          f"{'ok' if ok_logits and ok_k5 and ok_bytes else 'FAIL'} {tag}")
+    for i, r in enumerate(recs):
+        b = r["bytes"]
+        print(f"  rank {i}: params {b['params'] / 2 ** 30:.3f} GiB (specs' "
+              f"blocks {b['params_specs'] / 2 ** 30:.3f}), cache "
+              f"{b['cache'] / 2 ** 30:.3f} GiB (specs' "
+              f"{b['cache_specs'] / 2 ** 30:.3f}); drawn in "
+              f"{r['draw_s']:.2f} s; peak {r['peak_gib']:.2f} GiB; prefill "
+              f"{r['prefill_ms']:.1f} ms, collectives per prefill group: "
+              f"{_coll_txt(r['coll_prefill'])}; decode "
+              f"{[round(x, 1) for x in r['decode_ms']]} ms, collectives "
+              f"per decode step: {_coll_txt(r['coll_decode'])} (host clock, "
+              f"{SHARD_NOTE})")
+    if not (ok_logits and ok_k5 and ok_bytes):
+        raise SystemExit(f"chip_smoke: phase 19 ({part}) on dp{dp} x mp{mp}"
+                         ": logits, K5 launches or bytes off")
+    return {"worst": worst, "agree": agree, "total": total,
+            "k5": [r["k5"] for r in recs],
+            "bytes": [r["bytes"] for r in recs],
+            "peak_gib": [r["peak_gib"] for r in recs],
+            "prefill_ms": [r["prefill_ms"] for r in recs],
+            "decode_ms": [r["decode_ms"] for r in recs],
+            "coll_prefill": [r["coll_prefill"] for r in recs],
+            "coll_decode": [r["coll_decode"] for r in recs]}
+
+
+def _shard_drops(out: list, part: str, dp: int, mp: int) -> list:
+    """Per MoE call, the drops of each data rank's group (model rank 0's;
+    every model rank of a data rank must agree)."""
+    per = []
+    for d in range(dp):
+        rows = [out[d * mp + m][part]["drops"] for m in range(mp)]
+        if any(r != rows[0] for r in rows):
+            raise SystemExit(f"chip_smoke: phase 19 ({part}): model ranks of "
+                             f"data rank {d} dropped different entries")
+        per.append(rows[0])
+    return [[g for d in range(dp) for g in per[d][i]]
+            for i in range(len(per[0]))]
+
+
+def _lm_sharding_phase(dev, tag, rank_fn=None) -> dict:
+    """Phase 19: the LM half of sharding (module doc).  ``rank_fn``: the
+    ranks' body (default ``_lm_shard_rank``; a CPU rehearsal wraps it)."""
+    import torch
+    t_phase = time.perf_counter()
+    report = {"k5": {}}
+    torch.cuda.empty_cache()
+    for name, shape in SHARD_K5_SHAPES.items():
+        report["k5"][name] = _k5_at_shape(
+            dev, tag, shape, f"{name.split('_')[0]}'s per-rank heads at mp 2",
+            "lm sharding (e)")
+    torch.cuda.empty_cache()
+    # ---- one-process references ----------------------------------------
+    cfg_a, cfg_b, cfg_d = _shard_cfg("a"), _shard_cfg("b"), _shard_cfg("d")
+    ref_a = _shard_serve_one(cfg_a, dev)
+    ref_b = _shard_serve_one(cfg_b, dev, layout=(2, 2),
+                             steps=SHARD_DBRX_DECODE)
+    ref_c = None
+    for cf in SHARD_MIX_CFS:
+        cfg_c = _shard_cfg("c", cf)
+        two = _shard_serve_one(cfg_c, dev, layout=(2, 1), steps=0)
+        if sum(sum(g) for g in two["drops"]):
+            one = _shard_serve_one(cfg_c, dev, steps=0)
+            ref_c = (cfg_c, two, one)
+            break
+    if ref_c is None:
+        raise SystemExit(f"chip_smoke: phase 19 (c): Mixtral dropped no "
+                         f"entry at capacity factors {SHARD_MIX_CFS}")
+    jobs = {"a": {"cfg": cfg_a, "tokens": ref_a["tokens"]},
+            "b": {"cfg": cfg_b, "tokens": ref_b["tokens"]},
+            "c": {"cfg": ref_c[0]}, "d": {"cfg": cfg_d}}
+    # ---- (a) StableLM-2-12B on dp1 x mp2, then (a), (b), (d) on dp2 x mp2
+    label_a = (f"{cfg_a.name} at {cfg_a.n_layers} of 40 layers, "
+               f"{cfg_a.compute_dtype}, {SHARD_SLOTS} x {SHARD_PROMPT_LEN} "
+               "tokens")
+    out_12 = _shard_spawn(dev, 1, 2, dict(jobs, parts=["a"]), tag, rank_fn)
+    report["a_mp2"] = _shard_check_serve("a", label_a, out_12, ref_a, cfg_a,
+                                         1, 2, LM_BF16_GATE, False, tag)
+    out_22 = _shard_spawn(dev, 2, 2, dict(jobs, parts=["a", "b", "d"]), tag,
+                          rank_fn)
+    report["a_dp2mp2"] = _shard_check_serve("a", label_a, out_22, ref_a,
+                                            cfg_a, 2, 2, LM_BF16_GATE, False,
+                                            tag)
+    # ---- (b) DBRX-132B ----------------------------------------------------
+    label_b = (f"{cfg_b.name} at {cfg_b.n_layers} of 40 layers, f32, "
+               f"moe_ep, fsdp_serve, {SHARD_SLOTS} x {SHARD_PROMPT_LEN} "
+               f"tokens")
+    report["b"] = _shard_check_serve("b", label_b, out_22, ref_b, cfg_b, 2,
+                                     2, SHARD_F32_GATE, True, tag)
+    got = _shard_drops(out_22, "b", 2, 2)
+    ok = got == ref_b["drops"]
+    print(f"lm sharding (b): entries dropped per MoE layer and dispatch "
+          f"group in the prefill, sharded {got} vs one process under "
+          f"mesh_context(Mesh(2, 2)) (groups 2) {ref_b['drops']} "
+          f"{'ok' if ok else 'FAIL'} {tag}")
+    if not ok:
+        raise SystemExit("chip_smoke: phase 19 (b): the sharded DBRX dropped "
+                         "other entries than the one-process run with the "
+                         "mesh's groups")
+    report["b"]["drops"] = got
+    # ---- (c) Mixtral-8x7B, the groups follow the mesh ----------------------
+    out_21 = _shard_spawn(dev, 2, 1, dict(jobs, parts=["c"]), tag, rank_fn)
+    cfg_c, two, one = ref_c
+    rec = out_21[0]["c"]
+    lg = torch.from_numpy(rec["logits"])[0]
+    v = cfg_c.vocab_size
+    d2, tol = _gate_err(lg[:, :v], two["logits"][0][:, :v], SHARD_F32_GATE,
+                        True)
+    d1, _ = _gate_err(lg[:, :v], one["logits"][0][:, :v], SHARD_F32_GATE,
+                      True)
+    got = _shard_drops(out_21, "c", 2, 1)
+    ok = d2 <= tol < d1 and got == two["drops"]
+    print(f"lm sharding (c): {cfg_c.name} at 1 of 32 layers, f32, capacity "
+          f"factor {cfg_c.capacity_factor} (the first of {SHARD_MIX_CFS} "
+          f"that drops), dp2 x mp1 prefill of {SHARD_SLOTS} x "
+          f"{SHARD_PROMPT_LEN}: vs one process with 2 groups max|d| "
+          f"{d2:.3e} (tol {tol:.3e}), vs one group {d1:.3e} (must exceed "
+          f"it); drops sharded {got}, 2 groups {two['drops']}, 1 group "
+          f"{one['drops']} {'ok' if ok else 'FAIL'} {tag}")
+    if not ok:
+        raise SystemExit("chip_smoke: phase 19 (c): the dispatch groups do "
+                         "not follow the mesh")
+    report["c"] = {"cf": cfg_c.capacity_factor, "d_two": d2, "d_one": d1,
+                   "drops": got, "drops_one": one["drops"]}
+    # ---- (d) one train step of StableLM -------------------------------------
+    recs = [r["d"] for r in out_22]
+    r0 = recs[0]
+    lrel = abs(r0["loss"] - r0["one_loss"]) / abs(r0["one_loss"])
+    gr, gleaf = r0["grad_worst"]
+    adam = r0["adam"]
+    head = adam["per_leaf"].get("head", (0, 1, 0.0))
+    emb = adam["per_leaf"].get("embed", (0, 1, 0.0))
+    ok = (lrel <= SHARD_LOSS_RTOL and gr <= LM_GRAD_GATE and adam["ok"]
+          and all(math.isfinite(r["gnorm"]) for r in recs))
+    print(f"lm sharding (d): {cfg_d.name} at {cfg_d.n_layers} layers, f32 "
+          f"params and compute, fsdp_train, dp2 x mp2, batch "
+          f"{SHARD_TRAIN_BATCH} x {SHARD_TRAIN_SEQ}, one make_train_step "
+          f"at lr {SHARD_TRAIN_LR}: loss {r0['loss']:.7f} vs one process "
+          f"{r0['one_loss']:.7f} (rel {lrel:.2e}, gate {SHARD_LOSS_RTOL}); "
+          f"gnorm {r0['gnorm']:.6f} vs {r0['one_gnorm']:.6f}; grads worst "
+          f"{gr:.3e} of the leaf's max ({gleaf}, gate {LM_GRAD_GATE}); new "
+          f"params worst {adam['ratio']:.3f} of the gate ({adam['leaf']}), "
+          f"{adam['loose']} of {adam['total']} elements of the leaves other "
+          f"than head and embed under the determined level (share "
+          f"{adam['loose'] / max(adam['total'], 1):.4f}, at most "
+          f"{LM_LOOSE_SHARE}; head {head[0] / head[1]:.4f}, embed "
+          f"{emb[0] / emb[1]:.4f}), all within {adam['loose_max']:.2e} "
+          f"(2 * lr = {2 * SHARD_TRAIN_LR:g}) {'ok' if ok else 'FAIL'} {tag}")
+    for i, r in enumerate(recs):
+        print(f"  rank {i}: step {r['step_ms']:.1f} ms host clock, peak "
+              f"{r['peak_gib']:.2f} GiB, collectives per train step: "
+              f"{_coll_txt(r['coll_step'])} ({SHARD_NOTE})")
+    if not ok:
+        raise SystemExit("chip_smoke: phase 19 (d): the sharded train step "
+                         "disagrees with the one-process step")
+    report["d"] = {"loss": r0["loss"], "one_loss": r0["one_loss"],
+                   "loss_rel": lrel, "grad_worst": gr, "adam": adam,
+                   "step_ms": [r["step_ms"] for r in recs],
+                   "peak_gib": [r["peak_gib"] for r in recs],
+                   "coll_step": [r["coll_step"] for r in recs]}
+    report["k5_launches"] = {"a_dp1xmp2": report["a_mp2"]["k5"],
+                             "a_dp2xmp2": report["a_dp2mp2"]["k5"],
+                             "b_dp2xmp2": report["b"]["k5"]}
+    report["phase_s"] = time.perf_counter() - t_phase
+    print(f"lm sharding phase: {report['phase_s']:.1f} s host clock {tag}")
+    return report
+
+
 def main(json_path: str = "") -> int:
     t_start = time.perf_counter()
     sys.stdout.reconfigure(line_buffering=True)   # a cut run keeps its log
@@ -7069,7 +7692,7 @@ def main(json_path: str = "") -> int:
 
 
 def _smoke(json_path: str, t_start: float) -> int:
-    """Phases 1-18 (see the module doc) and the final two lines."""
+    """Phases 1-19 (see the module doc) and the final two lines."""
     import torch
     sys.path.insert(0, os.path.join(HERE, "src"))
     import torch.nn.functional as F
@@ -7516,6 +8139,12 @@ def _smoke(json_path: str, t_start: float) -> int:
     torch.cuda.empty_cache()
     front = _frontends_phase(dev, tag)
 
+    # ---- 19. the LM half of sharding: StableLM-2-12B, DBRX-132B and
+    # Mixtral-8x7B tensor-, data- and expert-parallel on gloo ranks (K5 on
+    # each rank's heads), one sharded train step
+    torch.cuda.empty_cache()
+    shard = _lm_sharding_phase(dev, tag)
+
     if "jax" in sys.modules or "repro" in sys.modules:
         raise SystemExit("chip_smoke: JAX or the JAX package was imported")
     total = {k: sum(r[k] for r in per_layer)
@@ -7597,11 +8226,17 @@ def _smoke(json_path: str, t_start: float) -> int:
             k["launches_dense"] = {n: r["k5_launches"]
                                    for n, r in front["dense"].items()}
             # K5 timed at each prefill shape: device ms and ahead ms
+            # phase 19: each rank's K5 launches in the sharded prefills
+            # ((a) on dp1 x mp2 and dp2 x mp2, (b)), and K5 at the
+            # per-rank shapes of StableLM and DBRX at mp 2
+            k["launches_lm_sharding"] = shard["k5_launches"]
             for shape, r in (("moe", moe["k5"]),
                              ("hybrid", hyb["jamba"]["k5"]),
                              ("internvl2", front["k5"]),
                              ("qwen", front["dense"]["qwen1.5-32b"]["k5"]),
-                             ("yi", front["dense"]["yi-34b"]["k5"])):
+                             ("yi", front["dense"]["yi-34b"]["k5"]),
+                             ("stablelm_mp2", shard["k5"]["stablelm_mp2"]),
+                             ("dbrx_mp2", shard["k5"]["dbrx_mp2"])):
                 k[f"ms_{shape}_shape"] = r["ms"]
                 k[f"ahead_ms_{shape}_shape"] = r["ahead_ms"]
                 k[f"max_abs_err_{shape}_shape"] = r["max_abs"]
@@ -7633,7 +8268,7 @@ def _smoke(json_path: str, t_start: float) -> int:
               "lm": lm["report"], "wavegan": wave["report"],
               "pretune": pre, "registry": reg, "scaleout": scale,
               "checkpoint": ckpt, "moe": moe, "hybrid": hyb,
-              "frontends": front,
+              "frontends": front, "lm_sharding": shard,
               "serve": {k: stats[k] for k in
                         ("served", "launches", "req_per_s", "wall_s",
                          "latency_ms")},
@@ -7704,7 +8339,11 @@ def _smoke(json_path: str, t_start: float) -> int:
           f"*_moe_shape ones at {FRONT_K5_SHAPE} / "
           f"{DENSE_K5_SHAPES['qwen1.5-32b']} / {DENSE_K5_SHAPES['yi-34b']}, "
           f"ahead_ms and library_ahead_ms by kernels.timing.ahead_ms in "
-          f"turns, at every shape) {tag}")
+          f"turns, at every shape; phase 19: K5's launches_lm_sharding per "
+          f"rank in the sharded prefills, the *_stablelm_mp2_shape / "
+          f"*_dbrx_mp2_shape numbers at the per-rank shapes "
+          f"{SHARD_K5_SHAPES['stablelm_mp2']} / "
+          f"{SHARD_K5_SHAPES['dbrx_mp2']}) {tag}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

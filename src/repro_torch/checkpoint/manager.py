@@ -47,7 +47,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.distributed.sharding import Mesh, local_block
+from repro_torch.distributed.sharding import Mesh, gather_block, local_block
 
 # numpy dtype names of the manifest <-> torch dtypes
 _TORCH = {"float32": torch.float32, "float64": torch.float64,
@@ -125,15 +125,6 @@ def _spec_flat(specs, prefix: str = "") -> Dict[str, tuple]:
     return {}
 
 
-def _gather(t: torch.Tensor, spec: tuple, mesh: Mesh) -> torch.Tensor:
-    """The whole tensor from every rank's block under ``spec``
-    (:func:`local_block`'s inverse)."""
-    for dim, ax in enumerate(spec):
-        if ax is not None:
-            t = mesh.all_gather(t, ax, dim)
-    return t
-
-
 def _to_host(v) -> Any:
     """A host snapshot of a leaf: a CPU tensor, a 0-d int32 array for a
     Python int, a numpy copy of anything else, or None."""
@@ -181,7 +172,7 @@ class CheckpointManager:
         flat = _flatten(tree)
         if mesh is not None and specs is not None:
             sflat = _spec_flat(specs)
-            flat = {k: (_gather(v, sflat[k], mesh)
+            flat = {k: (gather_block(v, sflat[k], mesh)
                         if isinstance(v, torch.Tensor) and k in sflat else v)
                     for k, v in flat.items()}
         # device -> host snapshot NOW (values must not see later updates)

@@ -25,12 +25,21 @@ def default_device() -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
-def resolve_device(device: DeviceLike = None) -> torch.device:
+def resolve_device(device: DeviceLike = None, *,
+                   shapes_only: bool = False) -> torch.device:
     """``None`` -> :func:`default_device`; ``"cpu"`` -> the CPU; a CUDA
-    device is checked to exist."""
+    device is checked to exist.  ``"meta"`` (tensors with shapes and
+    dtypes but no memory, the torch form of ``jax.eval_shape``) only for
+    a build that computes nothing, ``shapes_only=True``; every path that
+    runs refuses it."""
     if device is None:
         return default_device()
     dev = torch.device(device)
+    if dev.type == "meta":
+        if not shapes_only:
+            raise ValueError("the meta device holds shapes only; this path "
+                             "runs, so pass cuda or cpu")
+        return dev
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device!r} requested but CUDA is "
                            "not available")

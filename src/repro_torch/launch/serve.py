@@ -42,7 +42,9 @@ import torch
 from repro_torch.configs import get
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.launch.batching import pow2_bucket, pow2_floor, take_group
-from repro_torch.launch.steps import make_decode_step, make_prefill_step
+from repro_torch.distributed import sharding as SH
+from repro_torch.launch.steps import (greedy, make_decode_step,
+                                      make_prefill_step)
 from repro_torch.models.lm import build_lm, embedding_inputs
 
 
@@ -56,7 +58,11 @@ def serve(cfg, prompts: List[List[int]], max_new: int = 16,
     group's prefill and of each decode step in ms (each ends in reading
     the tokens back, which waits for the device).  Raises ``ValueError``
     for a config whose prefill needs ``patch_embeds`` or
-    ``frame_embeds``."""
+    ``frame_embeds``.  Under a live mesh context the attention decoders
+    serve sharded: ``params`` are the rank's blocks (drawn and placed
+    here when not given), every rank serves every prompt, and the
+    tokens come from the sharded greedy search
+    (:func:`~repro_torch.launch.steps.greedy`)."""
     need = sorted(embedding_inputs(cfg))
     if need:
         raise ValueError(
@@ -71,6 +77,9 @@ def serve(cfg, prompts: List[List[int]], max_new: int = 16,
     lm = build_lm(cfg, device=device)
     if params is None:
         params = lm.init()
+        mc = SH.current()
+        if SH.live_mesh(mc) is not None:
+            params = SH.place(params, SH.param_specs(params, mc), mc.mesh)
     params = lm._cast(params)
     prefill = make_prefill_step(lm)
     decode = make_decode_step(lm)
@@ -94,7 +103,7 @@ def serve(cfg, prompts: List[List[int]], max_new: int = 16,
             cache = lm.init_cache(batch.shape[0], max_len)
             t = time.perf_counter()
             logits, cache = prefill(params, {"inputs": batch}, cache)
-            toks = torch.argmax(logits, -1).to(torch.int32)
+            toks = greedy(logits, batch.shape[0])
             outs = [[tok] for tok in toks[:n, 0].tolist()]
             prefill_ms.append((time.perf_counter() - t) * 1e3)
             for _ in range(max_new - 1):

@@ -18,12 +18,13 @@ package's ``launch/train.py``.
     a no-op on one process, as in the reference (no pod axis)
 
 The weights come from ``--seed`` through a CPU ``torch.Generator`` (the
-same model on every device) and move to ``--device``.  The LM's mesh
-sharding, the MoE's expert-parallel dispatch with it, is not ported
-(ROADMAP.md item 16.5): when a
-``torch.distributed`` process group exists, the trainer takes the
-one-rank mesh ``make_dev_mesh(1, 1)`` on it (which refuses a group of
-more ranks); otherwise it runs with no mesh.
+same model on every device) and move to ``--device``.  The trainer runs
+one rank, as the reference's does (its ``make_dev_mesh(1, 1)``): when a
+``torch.distributed`` process group exists, it takes the one-rank mesh
+``make_dev_mesh(1, 1)`` on it (which refuses a group of more ranks);
+otherwise it runs with no mesh.  The sharded LM step it would run on a
+larger mesh is :func:`repro_torch.launch.steps.make_train_step` made
+under a :func:`~repro_torch.distributed.sharding.mesh_context`.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-12b \\
       --reduced --steps 4 --ckpt-every 2 --device cpu --out runs/train_demo

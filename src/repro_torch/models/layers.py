@@ -3,8 +3,21 @@
 The port of the JAX package's ``models/layers.py`` (attention, the
 SwiGLU MLP and the top-k MoE), with its names, parameter dicts and
 layouts: activations ``(B, S, H, D)``, weights ``(d_in, d_out)`` so that
-``x @ w`` matches.  Sharding constraints have no counterpart here (one
-card).
+``x @ w`` matches.
+
+On a mesh (:mod:`repro_torch.distributed.sharding`) the LM hands these
+functions its rank's blocks and its heads: ``attention`` runs on the
+rank's ``H/mp`` q and ``Hkv/mp`` kv heads as it runs on all of them,
+and the callers sum the partial outputs of ``wo`` and ``wd`` over the
+model axis.  :func:`attention_cached_tp` keeps the reference's KV cache
+layout, each model rank holding a contiguous ``W/mp`` of the ring's
+slots for every kv head: prefill writes the rank's slots from the
+gathered K/V, decode gathers q and attends each rank's slots for every
+head, and the ranks combine their partials by log-sum-exp
+(FlashDecoding).  :func:`moe` runs its experts' FFN dim split over the
+model axis (the layout the reference's rules give both MoE kinds).
+The reference's ``constrain`` calls have no op here: the split a
+tensor takes follows from the blocks the LM passes in.
 
 Long-sequence attention (:func:`blockwise_attention`) calls K5,
 :func:`repro_torch.kernels.flash_attn.flash_attention`, when its
@@ -22,14 +35,31 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding as SH
 from repro_torch.kernels.flash_attn import flash_attention
 
 Params = Dict[str, Any]
+Keep = Optional[Callable[[str, torch.Tensor], torch.Tensor]]
+
+
+def draw_device(gen: torch.Generator) -> torch.device:
+    """Where ``gen``'s draws land: the meta device inside ``with
+    torch.device("meta")`` (a shape-only build, the torch form of
+    ``jax.eval_shape``), else the generator's own device."""
+    if torch.get_default_device().type == "meta":
+        return torch.device("meta")
+    return gen.device
+
+
+def _kept(keep: Keep):
+    """``keep`` (applied to each leaf, by name, right after it is
+    drawn), or the identity."""
+    return keep if keep is not None else (lambda name, t: t)
 
 
 def rms_norm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -41,7 +71,7 @@ def rms_norm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 
 def _dense_init(gen: torch.Generator, fan_in: int, shape,
                 dtype) -> torch.Tensor:
-    w = torch.randn(shape, generator=gen, device=gen.device)
+    w = torch.randn(shape, generator=gen, device=draw_device(gen))
     return w.mul_(1 / math.sqrt(fan_in)).to(dtype)
 
 
@@ -78,21 +108,22 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
 
 def init_attention(gen: torch.Generator, d_model: int, n_heads: int,
                    n_kv: int, head_dim: int, qkv_bias: bool, dtype,
-                   lead: Tuple[int, ...] = ()) -> Params:
+                   lead: Tuple[int, ...] = (), keep: Keep = None) -> Params:
     """``lead``: leading dims of every leaf, e.g. ``(n_layers,)`` to draw
-    a stack of layers at once."""
+    a stack of layers at once; ``keep(name, leaf)``: what to keep of
+    each leaf as it is drawn (a rank's block), before the next draw."""
     hq, hk = n_heads * head_dim, n_kv * head_dim
-    p = {
-        "wq": _dense_init(gen, d_model, (*lead, d_model, hq), dtype),
-        "wk": _dense_init(gen, d_model, (*lead, d_model, hk), dtype),
-        "wv": _dense_init(gen, d_model, (*lead, d_model, hk), dtype),
-        "wo": _dense_init(gen, hq, (*lead, hq, d_model), dtype),
-    }
+    k = _kept(keep)
+    p = {}
+    for name, fan_in, shape in (("wq", d_model, (d_model, hq)),
+                                ("wk", d_model, (d_model, hk)),
+                                ("wv", d_model, (d_model, hk)),
+                                ("wo", hq, (hq, d_model))):
+        p[name] = k(name, _dense_init(gen, fan_in, (*lead, *shape), dtype))
     if qkv_bias:
-        z = dict(dtype=dtype, device=gen.device)
-        p["bq"] = torch.zeros((*lead, hq), **z)
-        p["bk"] = torch.zeros((*lead, hk), **z)
-        p["bv"] = torch.zeros((*lead, hk), **z)
+        z = dict(dtype=dtype, device=draw_device(gen))
+        for name, n in (("bq", hq), ("bk", hk), ("bv", hk)):
+            p[name] = k(name, torch.zeros((*lead, n), **z))
     return p
 
 
@@ -302,6 +333,125 @@ def attention_cached(p: Params, x: torch.Tensor, cache: dict, pos: int, *,
     return out, cache
 
 
+def _slot_partials(q, k, v, mask):
+    """Attention of q (B, Sq, Hq, D) on these K/V slots (B, Sk, Hkv, D)
+    without the softmax's division: the scores' max ``m`` and the sum
+    ``l`` of ``exp(s - m)`` (B, Sq, Hq) and ``exp(s - m) @ v``
+    (B, Sq, Hq, D), f32; masked slots score -1e30 as in
+    :func:`_gqa_scores_combine`."""
+    b, sq, hq, d = q.shape
+    hkv = k.shape[2]
+    qf = q.reshape(b, sq, hkv, hq // hkv, d).float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf / math.sqrt(d), k.float())
+    s = s.masked_fill(~mask[:, None, None], -1e30)
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None])
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float()).reshape(b, sq, hq, d)
+
+    def heads_last(t):                       # (b, hkv, g, sq) -> (b, sq, hq)
+        return t.permute(0, 3, 1, 2).reshape(b, sq, hq)
+    return o, heads_last(m), heads_last(p.sum(-1))
+
+
+def attention_cached_tp(p: Params, x: torch.Tensor, cache: dict, pos: int,
+                        mesh: SH.Mesh, *, n_heads: int, n_kv: int,
+                        head_dim: int, rope_theta: float,
+                        window: Optional[int] = None, attn_block: int = 1024,
+                        use_rope: bool = True) -> Tuple[torch.Tensor, dict]:
+    """:func:`attention_cached` on a model rank (tensor parallel): ``p``
+    holds the rank's heads (``wq``/``wk``/``wv`` columns, ``wo`` rows;
+    ``n_heads`` / ``n_kv`` are the whole model's), ``cache`` the rank's
+    block of the KV cache under :func:`~repro_torch.distributed.sharding.
+    cache_specs`: ``k``/``v`` (B, W/mp, Hkv, D), the rank's contiguous
+    W/mp of the ring's slots for every kv head (all W where mp does not
+    divide W), and ``kpos`` (W,) whole.  Returns this rank's partial of
+    the output projection (the caller sums it over the model axis) and
+    the cache, updated in place.
+
+    * prefill: attention on the rank's heads over the fresh K/V
+      (:func:`blockwise_attention`, so K5, past 2,048 tokens); the K/V
+      gathered over the model axis, the rank writes the positions that
+      land in its slots.
+    * decode: q, k and v gathered over the model axis in one call; the
+      rank that owns slot ``pos % W`` writes the new token; every rank
+      attends its slots for every head, the ranks' partials are combined
+      by log-sum-exp (one gather of ``(o, max, sum)``), and the rank
+      keeps its heads for ``wo``.
+    """
+    mp, mi = mesh.mp, mesh.model_index
+    hq, hk = n_heads // mp, n_kv // mp
+    b, s, _ = x.shape
+    w, w_loc = cache["kpos"].shape[0], cache["k"].shape[1]
+    lo = mi * w_loc if w_loc < w else 0
+    q, k, v = _qkv(p, x, hq, hk, head_dim)
+    positions = pos + torch.arange(s, device=x.device)
+    if use_rope:
+        cos, sin = rope_tables(positions, head_dim, rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    kd = k.to(cache["k"].dtype)
+    vd = v.to(cache["v"].dtype)
+
+    if s == 1:
+        qkv = mesh.all_gather(torch.cat([q.reshape(b, 1, -1),
+                                         kd.reshape(b, 1, -1).to(q.dtype),
+                                         vd.reshape(b, 1, -1).to(q.dtype)],
+                                        -1), "model", 1)
+        parts = qkv.reshape(b, mp, -1).split(
+            [hq * head_dim, hk * head_dim, hk * head_dim], -1)
+        q_all, k_all, v_all = (t.reshape(b, 1, -1, head_dim) for t in parts)
+        idx = pos % w
+        cache["kpos"][idx] = pos
+        if lo <= idx < lo + w_loc:
+            cache["k"][:, idx - lo] = k_all[:, 0].to(cache["k"].dtype)
+            cache["v"][:, idx - lo] = v_all[:, 0].to(cache["v"].dtype)
+        kpos = cache["kpos"][lo:lo + w_loc]
+        qpos = positions[:, None]
+        msk = (kpos[None, :] >= 0) & (kpos[None, :] <= qpos)
+        if window is not None:
+            msk = msk & (kpos[None, :] > qpos - window)
+        o, m, l = _slot_partials(q_all, cache["k"], cache["v"], msk[None])
+        if w_loc < w:
+            pk = mesh.all_gather(torch.cat([o.reshape(b, 1, -1), m, l],
+                                           -1)[None], "model", 0)
+            o_r, m_r, l_r = pk.split([o[0, 0].numel(), m.shape[-1],
+                                      l.shape[-1]], -1)
+            top = m_r.amax(0)
+            wgt = torch.exp(m_r - top)
+            l = (wgt * l_r).sum(0)
+            o = (o_r.reshape(mp, b, 1, -1, head_dim) * wgt[..., None]).sum(0)
+        o = o / torch.clamp_min(l, 1e-30)[..., None]
+        o = o[:, :, mi * hq:(mi + 1) * hq].to(x.dtype)
+    else:
+        if s > 2048:
+            o = blockwise_attention(q, k, v, causal=True, window=window,
+                                    q_offset=0, kv_len=None,
+                                    block=attn_block)
+        else:
+            o = _gqa_scores_combine(q, k, v, _causal_mask(
+                s, window, x.device)[None], x.dtype)
+        # the positions that land in the ring (the last W), every kv
+        # head of them; this rank keeps its slots
+        tail = max(s - w, 0)
+        kv = mesh.all_gather(torch.cat([kd, vd], -1)[:, tail:], "model", 2)
+        k_all, v_all = kv[..., :head_dim], kv[..., head_dim:]
+        if s >= w:
+            assert s % w == 0 or s == w, (s, w)
+            cache["k"].copy_(k_all[:, lo:lo + w_loc])
+            cache["v"].copy_(v_all[:, lo:lo + w_loc])
+            cache["kpos"].copy_(positions[-w:])
+        else:
+            start = min(max(pos, 0), w - s)
+            a, e = max(start, lo), min(start + s, lo + w_loc)
+            if a < e:
+                cache["k"][:, a - lo:e - lo] = k_all[:, a - start:e - start]
+                cache["v"][:, a - lo:e - lo] = v_all[:, a - start:e - start]
+            cache["kpos"][start:start + s] = positions
+
+    out = o.to(x.dtype).reshape(b, s, hq * head_dim) @ p["wo"]
+    return out, cache
+
+
 def _causal_mask(s: int, window: Optional[int],
                  device=None) -> torch.Tensor:
     i = torch.arange(s, device=device)
@@ -316,10 +466,12 @@ def _causal_mask(s: int, window: Optional[int],
 # ---------------------------------------------------------------------------
 
 def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype,
-             lead: Tuple[int, ...] = ()) -> Params:
-    return {"wg": _dense_init(gen, d_model, (*lead, d_model, d_ff), dtype),
-            "wu": _dense_init(gen, d_model, (*lead, d_model, d_ff), dtype),
-            "wd": _dense_init(gen, d_ff, (*lead, d_ff, d_model), dtype)}
+             lead: Tuple[int, ...] = (), keep: Keep = None) -> Params:
+    k = _kept(keep)
+    return {name: k(name, _dense_init(gen, fan_in, (*lead, *shape), dtype))
+            for name, fan_in, shape in (("wg", d_model, (d_model, d_ff)),
+                                        ("wu", d_model, (d_model, d_ff)),
+                                        ("wd", d_ff, (d_ff, d_model)))}
 
 
 def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -331,18 +483,17 @@ def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def init_moe(gen: torch.Generator, d_model: int, d_ff: int, n_experts: int,
-             dtype, lead: Tuple[int, ...] = ()) -> Params:
+             dtype, lead: Tuple[int, ...] = (), keep: Keep = None) -> Params:
     """The router ``(d, E)``, always f32 (as the reference draws it), and
     the experts' SwiGLU weights ``wg``/``wu`` ``(E, d, ff)`` and ``wd``
     ``(E, ff, d)`` in ``dtype``; every leaf stacked over ``lead``."""
-    e = n_experts
-    return {
-        "router": _dense_init(gen, d_model, (*lead, d_model, e),
-                              torch.float32),
-        "wg": _dense_init(gen, d_model, (*lead, e, d_model, d_ff), dtype),
-        "wu": _dense_init(gen, d_model, (*lead, e, d_model, d_ff), dtype),
-        "wd": _dense_init(gen, d_ff, (*lead, e, d_ff, d_model), dtype),
-    }
+    e, k = n_experts, _kept(keep)
+    return {name: k(name, _dense_init(gen, fan_in, (*lead, *shape), dt))
+            for name, fan_in, shape, dt in (
+                ("router", d_model, (d_model, e), torch.float32),
+                ("wg", d_model, (e, d_model, d_ff), dtype),
+                ("wu", d_model, (e, d_model, d_ff), dtype),
+                ("wd", d_ff, (e, d_ff, d_model), dtype))}
 
 
 @contextlib.contextmanager
@@ -422,13 +573,29 @@ def _top_k(gates: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+def _moe_groups(t: int) -> int:
+    """Dispatch-group count of ``t`` tokens (the reference's): the
+    largest count of the active context's batch shards (halving from
+    their number) that divides ``t``; 1 without a context, where the
+    dispatch is GShard's global one.  So drops follow the mesh: each
+    data rank's tokens are routed and capped as one group."""
+    mc = SH.current()
+    if mc is None:
+        return 1
+    g = mc.axis_size("batch")
+    while g > 1 and t % g:
+        g //= 2
+    return max(g, 1)
+
+
 def moe_capacity(tokens: int, *, top_k: int, n_experts: int,
                  capacity_factor: float = 1.25,
                  groups: Optional[int] = None) -> Tuple[int, int, int]:
     """(groups, tokens per group, capacity per expert and group) of a
     :func:`moe` call on ``tokens`` tokens: GShard's ``C = cf * T_g * k /
-    E``, at least 8."""
-    g = groups or 1
+    E``, at least 8.  ``groups=None`` reads the active mesh context
+    (:func:`_moe_groups`)."""
+    g = groups or _moe_groups(tokens)
     if tokens % g:
         raise ValueError(f"moe: {tokens} tokens do not split into {g} "
                          "groups")
@@ -468,7 +635,8 @@ def moe_route(p: Params, x: torch.Tensor, *, top_k: int, n_experts: int,
 
 def moe(p: Params, x: torch.Tensor, *, top_k: int, n_experts: int,
         capacity_factor: float = 1.25, ep: bool = True,
-        groups: Optional[int] = None) -> torch.Tensor:
+        groups: Optional[int] = None,
+        mesh: Optional[SH.Mesh] = None) -> torch.Tensor:
     """Top-k MoE with group-local, capacity-bounded dispatch (the
     reference's ``moe``): each token goes to its top-k experts
     (:func:`moe_route`); an expert takes at most ``cap`` entries per
@@ -478,11 +646,19 @@ def moe(p: Params, x: torch.Tensor, *, top_k: int, n_experts: int,
     the sum, in order of its k choices, of its kept entries' outputs
     times their gates.
 
-    ``groups=None`` is one group: the reference reads the group count
-    from its mesh context, which the port does not have.  ``ep`` (experts
-    sharded, or their FFN dims) does not change the math on one card and
-    is accepted for the reference's signature.  Dispatch and combine are
-    gathers both ways (:class:`_Permute`): no float atomics."""
+    ``groups=None`` reads the group count from the active mesh context
+    (:func:`_moe_groups`), as the reference does.  With ``mesh`` (the
+    sharded LM), ``p``'s experts hold the rank's slice of their FFN dim
+    (``wg``/``wu`` ``(E, d, ff/mp)``, ``wd`` ``(E, ff/mp, d)``): the
+    routing and dispatch run on every model rank alike, the experts'
+    SwiGLU on the rank's slice, and the partial outputs are summed over
+    the model axis before the combine, so the combine adds each token's
+    k choices in the same order as one process.  The reference's rules
+    give ``moe_ep`` and ``moe_tp`` that same layout (the dense
+    ``wg``/``wu``/``wd`` rules match first), so ``ep`` does not change
+    the math and is accepted for the reference's signature.  Dispatch
+    and combine are gathers both ways (:class:`_Permute`): no float
+    atomics."""
     del ep
     b, s, d = x.shape
     r = moe_route(p, x, top_k=top_k, n_experts=n_experts,
@@ -506,9 +682,13 @@ def moe(p: Params, x: torch.Tensor, *, top_k: int, n_experts: int,
     buf = _Permute.apply(x.reshape(n_tok, d), slot_tok,
                          slot.reshape(n_tok, top_k))
     buf = buf.reshape(n_experts, g * cap, d)
+    if mesh is not None:
+        buf = SH.copy_to(buf, mesh, "model")
     h = torch.matmul(buf, p["wg"])
     u = torch.matmul(buf, p["wu"])
     yb = torch.matmul(F.silu(h) * u, p["wd"])
+    if mesh is not None:
+        yb = SH.reduce_from(yb, mesh, "model")
     contrib = _Permute.apply(yb.reshape(n_slot, d), slot, slot_ent[:, None])
     w = torch.where(keep, r["topg"].reshape(g, -1), 0.0)
     contrib = (contrib * w.reshape(n_ent, 1).to(x.dtype)).reshape(

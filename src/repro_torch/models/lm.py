@@ -41,8 +41,36 @@ same blocks cache-free; in a decoder-only LM with ``cfg.remat ==
 "block"`` each repeat's super-block is recomputed in the backward
 (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``; its
 encoder-decoder path recomputes nothing, nor does the port's).  The
-reference's ``norm_barrier`` and activation sharding constraints have no
-counterpart on one card.
+reference's ``norm_barrier`` has no counterpart.
+
+**On a mesh.**  Under a :func:`~repro_torch.distributed.sharding.
+mesh_context` whose mesh is live (ranks with process groups), the
+attention decoders (dense and MoE) run SPMD in the reference's layouts,
+Megatron-style: each rank holds its blocks of the params under
+:func:`~repro_torch.distributed.sharding.param_specs` and of the cache
+under ``cache_specs`` (:meth:`LM.init_cache` allocates them), and takes
+the whole batch, of which it keeps its data rank's rows where the data
+axis divides the batch (``batch_specs``).  The residual stream is
+replicated over the model axis; the embedding looks up the rank's vocab
+rows and sums over the model axis; each attention block runs the rank's
+``H/mp`` q and ``Hkv/mp`` kv heads (so a prefill past 2,048 tokens runs
+K5 on them) and each MLP the rank's ``d_ff/mp`` columns, and ends in one
+sum over ``'model'``; the KV cache holds the rank's W/mp ring slots for
+every kv head (:func:`~repro_torch.models.layers.attention_cached_tp`);
+the MoE runs its experts' FFN slice after a dispatch every model rank
+makes alike, in the mesh's dispatch groups.  Params split over
+``'data'`` (FSDP: ``fsdp_train``, or ``fsdp_serve`` as DBRX sets it) are
+cast and put together at use, one leaf at a time.  The logits stay
+vocab-split: :meth:`LM.loss` sums its log-sum-exp over the model axis
+and averages over the data axis; ``prefill``, ``decode_step`` and
+``forward_train`` return the rank's block of the logits (its rows, its
+vocab columns).  Where the model axis does not divide the heads, the kv
+heads, ``d_ff`` or the padded vocabulary, a ``ValueError`` names the
+dim (the reference's GSPMD pads instead).  Recurrent slots, the patch
+frontend and the encoder-decoder refuse a mesh of more than one rank
+(ROADMAP.md item 16.5b).  A context whose mesh is a layout only
+(``Mesh(2, 2)``, no groups) leaves the model in one process; the MoE
+then reads its dispatch groups from it, as the reference's does.
 
 Long prompts (more than 2,048 tokens) attend through K5
 (:mod:`repro_torch.kernels.flash_attn`) in serving; training at any
@@ -58,7 +86,8 @@ a pattern with a mixer kind other than ``a`` / ``m`` / ``x`` / ``s``.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Tuple
+from collections.abc import Mapping
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -66,6 +95,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import sharding as SH
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 
@@ -123,10 +153,13 @@ class LM:
         self.cfg = cfg
         self.pattern = cfg.pattern
         self.repeats = cfg.n_layers // len(cfg.pattern)
-        self.device = resolve_device(device)
+        # the meta device builds shapes only (steps.abstract_params)
+        self.device = resolve_device(device, shapes_only=True)
 
     # ------------------------------------------------------------------
-    def init(self, generator: Optional[torch.Generator] = None) -> Params:
+    def init(self, generator: Optional[torch.Generator] = None,
+             keep: Optional[Callable[[str, torch.Tensor], torch.Tensor]]
+             = None) -> Params:
         """Random parameters drawn from ``generator`` (default: seed 0 on
         this LM's device), with the reference's scales: embed N(0, 0.02),
         head, projections, router and experts N(0, 1/fan_in), norms 1,
@@ -139,54 +172,73 @@ class LM:
         both N(0, 0.02), and ``enc_final_ln``; the patch frontend adds
         ``patch_proj`` (frontend_dim, d), N(0, 1/frontend_dim).  The
         numbers differ from the reference's ``jax.random`` draws; carry
-        those over with :func:`repro_torch.convert.lm_params_from_numpy`."""
+        those over with :func:`repro_torch.convert.lm_params_from_numpy`.
+
+        ``keep(path, leaf)``: what to keep of each leaf, by its
+        ``/``-joined path (``"slots/0/attn/wq"``, the paths
+        :func:`~repro_torch.distributed.sharding.param_spec` reads), as
+        soon as it is drawn and before the next draw: a rank's block, so
+        that a rank never holds the whole model.  Inside ``with
+        torch.device("meta")`` on a meta LM the draws have shapes only
+        (:func:`repro_torch.launch.steps.abstract_params`)."""
         cfg = self.cfg
         gen = generator
         if gen is None:
             gen = torch.Generator(device=self.device).manual_seed(0)
         dt = DTYPES[cfg.param_dtype]
-        gdev = gen.device
+        gdev = L.draw_device(gen)
+        kept = keep if keep is not None else (lambda path, t: t)
 
-        def normal(shape, std):
-            return torch.randn(shape, generator=gen, device=gdev).mul_(
-                std).to(dt)
+        def normal(path, shape, std):
+            return kept(path, torch.randn(shape, generator=gen, device=gdev)
+                        .mul_(std).to(dt))
 
         d = cfg.d_model
-        params: Params = {"embed": normal((cfg.vocab_padded, d), 0.02),
-                          "final_ln": _ones(d, (), gdev)}
+        params: Params = {"embed": normal("embed", (cfg.vocab_padded, d),
+                                          0.02),
+                          "final_ln": _ones(d, (), gdev, kept, "final_ln")}
         if not cfg.tie_embeddings:
-            params["head"] = normal((d, cfg.vocab_padded), 1 / math.sqrt(d))
+            params["head"] = normal("head", (d, cfg.vocab_padded),
+                                    1 / math.sqrt(d))
         # each leaf drawn stacked over the repeats, as lax.scan reads them
         params["slots"] = [
-            self._init_block(gen, kind, ffn_key(cfg, j), self.repeats, dt)
+            self._init_block(gen, kind, ffn_key(cfg, j), self.repeats, dt,
+                             kept, f"slots/{j}")
             for j, kind in enumerate(self.pattern)]
         if cfg.enc_dec:
-            params["enc_slots"] = [self._init_block(gen, "a", "mlp",
-                                                    cfg.enc_layers, dt)]
-            params["pos_embed_enc"] = normal((cfg.enc_positions, d), 0.02)
-            params["pos_embed_dec"] = normal((max(cfg.max_positions, 1), d),
-                                             0.02)
-            params["enc_final_ln"] = _ones(d, (), gdev)
+            params["enc_slots"] = [self._init_block(
+                gen, "a", "mlp", cfg.enc_layers, dt, kept, "enc_slots/0")]
+            params["pos_embed_enc"] = normal(
+                "pos_embed_enc", (cfg.enc_positions, d), 0.02)
+            params["pos_embed_dec"] = normal(
+                "pos_embed_dec", (max(cfg.max_positions, 1), d), 0.02)
+            params["enc_final_ln"] = _ones(d, (), gdev, kept, "enc_final_ln")
         if cfg.frontend == "patch":
-            params["patch_proj"] = normal((cfg.frontend_dim, d),
+            params["patch_proj"] = normal("patch_proj", (cfg.frontend_dim, d),
                                           1 / math.sqrt(cfg.frontend_dim))
         if gdev != self.device:
             params = _tree_map(lambda t: t.to(self.device), params)
         return params
 
     def _init_block(self, gen: torch.Generator, kind: str,
-                    ffn: Optional[str], n: int, dt) -> Params:
+                    ffn: Optional[str], n: int, dt, kept, path: str
+                    ) -> Params:
         """A block of mixer ``kind`` and FFN ``ffn`` (:func:`ffn_key`)
         stacked over ``n`` layers (the reference's ``_init_block``); in
         an encoder-decoder every attention block adds the cross-attention
-        ``xattn`` (no qkv bias) and its norm ``lnx``."""
+        ``xattn`` (no qkv bias) and its norm ``lnx``.  ``kept(path,
+        leaf)`` takes each leaf as it is drawn (:meth:`init`)."""
         cfg = self.cfg
-        d, lead = cfg.d_model, (n,)
-        slot: Params = {"ln1": _ones(d, lead, gen.device)}
+        d, lead, dev = cfg.d_model, (n,), L.draw_device(gen)
+
+        def under(name):
+            return lambda leaf, t: kept(f"{path}/{name}/{leaf}", t)
+        slot: Params = {"ln1": _ones(d, lead, dev, kept, f"{path}/ln1")}
         if kind == "a":
             slot["attn"] = L.init_attention(gen, d, cfg.n_heads,
                                             cfg.n_kv_heads, cfg.hd,
-                                            cfg.qkv_bias, dt, lead=lead)
+                                            cfg.qkv_bias, dt, lead=lead,
+                                            keep=under("attn"))
         elif kind == "m":
             slot["mamba"] = S.init_mamba(
                 gen, d, expand=cfg.mamba_expand, d_state=cfg.mamba_d_state,
@@ -199,33 +251,51 @@ class LM:
             slot["slstm"] = S.init_slstm(gen, d, n_heads=cfg.n_heads,
                                          proj_factor=cfg.slstm_proj,
                                          dtype=dt, lead=lead)
+        if kind != "a":
+            name = MIXER[kind]
+            slot[name] = {k: kept(f"{path}/{name}/{k}", t)
+                          for k, t in slot[name].items()}
         if ffn is not None:
-            slot["ln2"] = _ones(d, lead, gen.device)
+            slot["ln2"] = _ones(d, lead, dev, kept, f"{path}/ln2")
             if ffn == "mlp":
-                slot[ffn] = L.init_mlp(gen, d, cfg.d_ff, dt, lead=lead)
+                slot[ffn] = L.init_mlp(gen, d, cfg.d_ff, dt, lead=lead,
+                                       keep=under(ffn))
             else:
                 slot[ffn] = L.init_moe(gen, d, cfg.d_ff, cfg.n_experts, dt,
-                                       lead=lead)
+                                       lead=lead, keep=under(ffn))
         if cfg.enc_dec and kind == "a":
             slot["xattn"] = L.init_attention(gen, d, cfg.n_heads,
                                              cfg.n_kv_heads, cfg.hd, False,
-                                             dt, lead=lead)
-            slot["lnx"] = _ones(d, lead, gen.device)
+                                             dt, lead=lead,
+                                             keep=under("xattn"))
+            slot["lnx"] = _ones(d, lead, dev, kept, f"{path}/lnx")
         return slot
 
-    def _ffn(self, p: Params, x: torch.Tensor, j: int) -> torch.Tensor:
+    def _ffn(self, p: Params, x: torch.Tensor, j: int,
+             tp: Optional["_Tp"] = None) -> torch.Tensor:
         """Slot ``j``'s FFN on ``rms_norm(p["ln2"], x)``: the SwiGLU MLP,
-        or in an MoE slot the top-k MoE."""
+        or in an MoE slot the top-k MoE; on a mesh (``tp``) the rank's
+        slice of the FFN dim, summed over the model axis."""
         cfg = self.cfg
         h = L.rms_norm(p["ln2"], x)
         key = ffn_key(cfg, j)
         if key == "mlp":
-            return L.mlp(p[key], h)
+            return _out_of(L.mlp(p[key], _into(h, tp)), tp)
         return L.moe(p[key], h, top_k=cfg.top_k, n_experts=cfg.n_experts,
                      capacity_factor=cfg.capacity_factor,
-                     ep=key == "moe_ep")
+                     ep=key == "moe_ep",
+                     groups=None if tp is None else tp.groups,
+                     mesh=None if tp is None else tp.mesh)
 
     # ------------------------------------------------------------------
+    def _cast_leaf(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """``t`` (the leaf under key ``name``) in the compute dtype,
+        unless ``name`` is numerics-critical (``F32_KEEP``, every
+        ``ln*``)."""
+        if any(name == k or name.startswith("ln") for k in F32_KEEP):
+            return t
+        return t.to(DTYPES[self.cfg.compute_dtype])
+
     def _cast(self, params: Params) -> Params:
         """Cast params to the compute dtype, keeping numerics-critical
         leaves (``F32_KEEP``: norm scales, the router, Mamba's ``A_log``,
@@ -233,49 +303,99 @@ class LM:
         ``b``, every ``ln*`` scale) as they are; the rest, ``patch_proj``
         and ``pos_embed_*`` included, go to the compute dtype.  A leaf
         already in the compute dtype is returned as it is, so casting a
-        cast tree costs nothing."""
-        ct = DTYPES[self.cfg.compute_dtype]
-
+        cast tree costs nothing.  On a mesh the blocks are cast as they
+        are read (:class:`_Blocks`), one leaf at a time."""
         def walk(tree, name=""):
             if isinstance(tree, dict):
                 return {k: walk(v, k) for k, v in tree.items()}
             if isinstance(tree, (list, tuple)):
                 return type(tree)(walk(v, name) for v in tree)
-            if any(name == k or name.startswith("ln") for k in F32_KEEP):
-                return tree
-            return tree.to(ct)
+            return self._cast_leaf(name, tree)
         return walk(params)
 
     # ------------------------------------------------------------------
-    def logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+    def _tp(self, batch: int, params=None) -> Optional["_Tp"]:
+        """The sharded run of a call on ``batch`` rows under the active
+        mesh context, or None where it has no live mesh (one process).
+        Refuses what the port does not shard, and a model axis that does
+        not divide the heads, the kv heads, ``d_ff`` or the padded
+        vocabulary."""
+        mc = SH.current()
+        mesh = SH.live_mesh(mc)
+        if mesh is None:
+            return None
+        cfg = self.cfg
+        if set(self.pattern) != {"a"} or cfg.frontend or cfg.enc_dec:
+            raise NotImplementedError(
+                f"{cfg.name} on a mesh of {mesh.size} ranks: the port "
+                "shards the attention decoders only; the Mamba / mLSTM / "
+                "sLSTM slots, the patch projector and the encoder-decoder "
+                "are ROADMAP.md item 16.5b")
+        if mc.strategy != "tp":
+            raise NotImplementedError(
+                f"mesh strategy {mc.strategy!r}: its rules are ported "
+                "(param_specs), its execution is not; the LM runs 'tp'")
+        for name in ("n_heads", "n_kv_heads", "d_ff", "vocab_padded"):
+            n = getattr(cfg, name)
+            if n % mesh.mp:
+                raise ValueError(
+                    f"{cfg.name}: the model axis of {mesh.mp} ranks does "
+                    f"not divide {name} = {n} (the reference's GSPMD pads "
+                    "or reshards there; the port needs whole blocks)")
+        return _Tp(self, mc, mesh, batch, params)
+
+    # ------------------------------------------------------------------
+    def logits(self, params: Params, x: torch.Tensor,
+               tp: Optional["_Tp"] = None) -> torch.Tensor:
+        """f32 logits of ``x``, the padded vocabulary at -1e30; on a mesh
+        the rank's vocab columns (``x`` replicated over the model
+        axis)."""
         cfg = self.cfg
         head = (params["embed"].T if cfg.tie_embeddings
                 else params["head"])
-        lg = x @ head
-        pad_mask = torch.arange(cfg.vocab_padded,
+        lg = _into(x, tp) @ head
+        lo = 0 if tp is None else tp.mesh.model_index * lg.shape[-1]
+        pad_mask = torch.arange(lo, lo + lg.shape[-1],
                                 device=lg.device) < cfg.vocab_size
         return lg.float().masked_fill(~pad_mask, -1e30)
 
-    def embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    def embed(self, params: Params, tokens: torch.Tensor,
+              tp: Optional["_Tp"] = None) -> torch.Tensor:
+        """The tokens' embeddings; on a mesh each rank looks up the rows
+        of its vocab block (zeros for the others' tokens) and the ranks
+        sum over the model axis."""
         # F.embedding: its CUDA backward sums a token's rows in a fixed
         # order (sorted indices), so a training step is reproducible
-        return F.embedding(tokens.long(), params["embed"])
+        if tp is None:
+            return F.embedding(tokens.long(), params["embed"])
+        table = params["embed"]
+        n = table.shape[0]
+        idx = tokens.long() - tp.mesh.model_index * n
+        inside = (idx >= 0) & (idx < n)
+        x = F.embedding(idx.clamp(0, n - 1), table)
+        x = x.masked_fill(~inside[..., None], 0)
+        return SH.reduce_from(x, tp.mesh, "model")
 
     # ------------------------------------------------------------------
     # forward (train path)
     # ------------------------------------------------------------------
     def _block_train(self, p: Params, x: torch.Tensor, j: int,
-                     use_rope: bool = True) -> torch.Tensor:
+                     use_rope: bool = True,
+                     tp: Optional["_Tp"] = None) -> torch.Tensor:
         """Slot ``j``'s block, cache-free: its mixer by kind, then its
-        FFN where it has one."""
+        FFN where it has one (on a mesh, the rank's heads and FFN
+        slice)."""
         cfg, kind = self.cfg, self.pattern[j]
         h = L.rms_norm(p["ln1"], x)
         if kind == "a":
+            hq, hk = ((cfg.n_heads, cfg.n_kv_heads) if tp is None
+                      else (tp.hq, tp.hk))
             out, _ = L.attention(
-                p["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+                p["attn"], _into(h, tp), n_heads=hq, n_kv=hk,
                 head_dim=cfg.hd, rope_theta=cfg.rope_theta,
                 window=cfg.sliding_window, causal=True,
                 attn_block=cfg.attn_block, use_rope=use_rope)
+            out = _out_of(out, tp)
         elif kind == "m":
             out, _ = S.mamba_forward(p["mamba"], h, chunk=cfg.mamba_chunk)
         elif kind == "x":
@@ -285,29 +405,30 @@ class LM:
             out, _ = S.slstm_forward(p["slstm"], h)
         x = x + out
         if ffn_key(cfg, j) is not None:
-            x = x + self._ffn(p, x, j)
+            x = x + self._ffn(p, x, j, tp)
         return x
 
-    def _super_block(self, x: torch.Tensor, slot_ps) -> torch.Tensor:
+    def _super_block(self, x: torch.Tensor, slot_ps,
+                     tp: Optional["_Tp"] = None) -> torch.Tensor:
         """All slots of one repeat, in order (the reference's
         ``super_block``)."""
         for j, p in enumerate(slot_ps):
-            x = self._block_train(p, x, j)
+            x = self._block_train(p, x, j, tp=tp)
         return x
 
-    def _backbone_train(self, params: Params, x: torch.Tensor
-                        ) -> torch.Tensor:
+    def _backbone_train(self, params: Params, x: torch.Tensor,
+                        tp: Optional["_Tp"] = None) -> torch.Tensor:
         """The repeats in order (the reference's ``lax.scan``), each
         repeat's super-block recomputed in the backward when
-        ``cfg.remat == "block"``; then the final norm."""
+        ``cfg.remat == "block"`` (its collectives too, in the same order
+        on every rank); then the final norm."""
         for r in range(self.repeats):
-            ps = [_tree_map(lambda t: t[r], slot)
-                  for slot in params["slots"]]
+            ps = [_at(slot, r) for slot in params["slots"]]
             if self.cfg.remat == "block":
-                x = checkpoint(self._super_block, x, ps,
+                x = checkpoint(self._super_block, x, ps, tp,
                                use_reentrant=False)
             else:
-                x = self._super_block(x, ps)
+                x = self._super_block(x, ps, tp)
         return L.rms_norm(params["final_ln"], x)
 
     def _attend(self, p: Params, x: torch.Tensor, causal: bool
@@ -352,14 +473,16 @@ class LM:
             enc = enc + L.mlp(p["mlp"], L.rms_norm(p["ln2"], enc))
         return L.rms_norm(params["enc_final_ln"], enc)
 
-    def _front(self, params: Params, batch) -> Tuple[torch.Tensor, Any]:
+    def _front(self, params: Params, batch,
+               tp: Optional["_Tp"] = None) -> Tuple[torch.Tensor, Any]:
         """The decoder's input (B, S, d) and, in an encoder-decoder, the
         encoder's output: the token embeddings, plus ``pos_embed_dec``
         at positions 0..S-1 in an encoder-decoder, or after the
         projected patches (``patch_embeds @ patch_proj``) with the patch
-        frontend."""
+        frontend.  On a mesh, the rank's rows of the batch."""
         cfg = self.cfg
-        x = self.embed(params, batch["inputs"])
+        tokens = batch["inputs"] if tp is None else batch["inputs"][tp.rows]
+        x = self.embed(params, tokens, tp)
         enc = None
         if cfg.enc_dec:
             enc = self._encode(params, x, batch["frame_embeds"])
@@ -374,10 +497,14 @@ class LM:
         """Logits (B, S, V_pad) in f32 over the positions of
         ``batch["inputs"]``: the patches' positions are dropped, and an
         encoder-decoder's decoder attends to ``batch["frame_embeds"]``
-        through its encoder."""
+        through its encoder.  On a mesh, the rank's block of them."""
+        return self._forward_train(
+            params, batch, self._tp(batch["inputs"].shape[0], params))
+
+    def _forward_train(self, params: Params, batch, tp) -> torch.Tensor:
         cfg = self.cfg
-        params = self._cast(params)
-        x, enc = self._front(params, batch)
+        params = tp.blocks if tp is not None else self._cast(params)
+        x, enc = self._front(params, batch, tp)
         if cfg.enc_dec:
             for r in range(self.repeats):
                 p = _tree_map(lambda t: t[r], params["slots"][0])
@@ -386,30 +513,52 @@ class LM:
                 x = x + L.mlp(p["mlp"], L.rms_norm(p["ln2"], x))
             x = L.rms_norm(params["final_ln"], x)
         else:
-            x = self._backbone_train(params, x)
+            x = self._backbone_train(params, x, tp)
             if cfg.frontend == "patch":
                 x = x[:, cfg.n_patches:]
-        return self.logits(params, x)
+        return self.logits(params, x, tp)
 
     def loss(self, params: Params,
              batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """Mean next-token cross-entropy of ``batch["targets"]``."""
-        lg = self.forward_train(params, batch)
-        labels = batch["targets"].long()
-        lse = torch.logsumexp(lg, dim=-1)
-        gold = torch.gather(lg, -1, labels[..., None])[..., 0]
-        return torch.mean(lse - gold)
+        """Mean next-token cross-entropy of ``batch["targets"]``.  On a
+        mesh: the log-sum-exp and the gold logit summed over the model
+        axis's vocab blocks, the rows' mean over the data axis; every
+        rank returns the batch's loss (its gradients are those of its
+        rows' share, which the train step sums over the data axis)."""
+        tp = self._tp(batch["inputs"].shape[0], params)
+        lg = self._forward_train(params, batch, tp)
+        if tp is None:
+            labels = batch["targets"].long()
+            lse = torch.logsumexp(lg, dim=-1)
+            gold = torch.gather(lg, -1, labels[..., None])[..., 0]
+            return torch.mean(lse - gold)
+        mesh = tp.mesh
+        labels = batch["targets"][tp.rows].long()
+        top = mesh.all_reduce(lg.detach().amax(-1), "model", op="max")
+        total = SH.reduce_from(torch.exp(lg - top[..., None]).sum(-1), mesh,
+                               "model")
+        lse = top + torch.log(total)
+        n = lg.shape[-1]
+        idx = labels - mesh.model_index * n
+        inside = (idx >= 0) & (idx < n)
+        gold = torch.gather(lg, -1, idx.clamp(0, n - 1)[..., None])[..., 0]
+        gold = SH.reduce_from(gold.masked_fill(~inside, 0), mesh, "model")
+        loss = torch.mean(lse - gold)
+        if mesh.dp > 1:
+            loss = SH.reduce_from(loss, mesh, "data") / mesh.dp
+        return loss
 
     # ------------------------------------------------------------------
     # caches
     # ------------------------------------------------------------------
-    def _slot_cache(self, kind: str, batch: int, max_len: int):
+    def _slot_cache(self, kind: str, batch: int, max_len: int, dev=None):
         """One slot's cache stacked over the R repeats: the KV cache, or
         the recurrent state (Mamba's conv state in the compute dtype and
         its SSM state f32; the mLSTM's and sLSTM's f32, ``m`` at -1e30)."""
         cfg = self.cfg
         ct = DTYPES[cfg.compute_dtype]
-        r, dev, f32 = self.repeats, self.device, torch.float32
+        r, f32 = self.repeats, torch.float32
+        dev = self.device if dev is None else dev
 
         def zeros(*shape, dtype=f32):
             return torch.zeros((r, *shape), dtype=dtype, device=dev)
@@ -443,9 +592,13 @@ class LM:
         every leaf (R, B, ...); stacked over the R repeats as the
         reference's.  An encoder-decoder adds ``cross_k`` / ``cross_v``
         (R, B, enc_positions, Hkv, D) in the compute dtype, zero until
-        :meth:`prefill` writes the encoder's K/V there."""
+        :meth:`prefill` writes the encoder's K/V there.  On a mesh, this
+        rank's blocks under ``cache_specs`` (``kpos`` whole)."""
         cfg = self.cfg
-        cache = {"pos": 0, "slots": [self._slot_cache(kind, batch, max_len)
+        tp = self._tp(batch)
+        dev = self.device if tp is None else torch.device("meta")
+        cache = {"pos": 0, "slots": [self._slot_cache(kind, batch, max_len,
+                                                      dev)
                                      for kind in self.pattern]}
         if cfg.enc_dec:
             for name in ("cross_k", "cross_v"):
@@ -453,25 +606,40 @@ class LM:
                     (self.repeats, batch, cfg.enc_positions, cfg.n_kv_heads,
                      cfg.hd), dtype=DTYPES[cfg.compute_dtype],
                     device=self.device)
+        if tp is not None:
+            cache = SH._zip_map(
+                lambda t, s: t if not isinstance(t, torch.Tensor) else
+                torch.full(SH.local_shape(t.shape, s, tp.mesh),
+                           -1 if t.dtype == torch.int32 else 0,
+                           dtype=t.dtype, device=self.device),
+                cache, SH.cache_specs(cache, tp.mc))
         return cache
 
     # ------------------------------------------------------------------
     # cached block (prefill S tokens or decode 1 token)
     # ------------------------------------------------------------------
-    def _block_cached(self, p: Params, x, j: int, cache, pos, cross=None):
+    def _block_cached(self, p: Params, x, j: int, cache, pos, cross=None,
+                      tp: Optional["_Tp"] = None):
         """Slot ``j``'s block against its cache: the KV cache is written
-        in place by ``attention_cached``; a recurrent block's new state
-        is copied into ``cache``'s tensors.  ``cross``: this repeat's
-        cached cross K/V, attended after the self-attention (an
-        encoder-decoder, whose attention takes no rope)."""
+        in place by ``attention_cached`` (on a mesh
+        ``attention_cached_tp``, the rank's heads and ring slots); a
+        recurrent block's new state is copied into ``cache``'s tensors.
+        ``cross``: this repeat's cached cross K/V, attended after the
+        self-attention (an encoder-decoder, whose attention takes no
+        rope)."""
         cfg, kind = self.cfg, self.pattern[j]
         h = L.rms_norm(p["ln1"], x)
         if kind == "a":
-            out, _ = L.attention_cached(
-                p["attn"], h, cache, pos, n_heads=cfg.n_heads,
-                n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
-                rope_theta=cfg.rope_theta, window=cfg.sliding_window,
-                attn_block=cfg.attn_block, use_rope=not cfg.enc_dec)
+            kw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+                      head_dim=cfg.hd, rope_theta=cfg.rope_theta,
+                      window=cfg.sliding_window, attn_block=cfg.attn_block,
+                      use_rope=not cfg.enc_dec)
+            if tp is None:
+                out, _ = L.attention_cached(p["attn"], h, cache, pos, **kw)
+            else:
+                out, _ = L.attention_cached_tp(p["attn"], _into(h, tp),
+                                               cache, pos, tp.mesh, **kw)
+                out = _out_of(out, tp)
             new = None
         elif kind == "m":
             out, new = S.mamba_forward(p["mamba"], h, cache,
@@ -494,10 +662,11 @@ class LM:
         if cross is not None and kind == "a":
             x = self._cross(p, x, cross)
         if ffn_key(cfg, j) is not None:
-            x = x + self._ffn(p, x, j)
+            x = x + self._ffn(p, x, j, tp)
         return x
 
-    def _run_cached(self, params: Params, x, cache):
+    def _run_cached(self, params: Params, x, cache,
+                    tp: Optional["_Tp"] = None):
         """Run every slot of every repeat in order, each against its
         cache slice (views of the stacked cache, written in place), an
         encoder-decoder's against its repeat's cross K/V too."""
@@ -506,9 +675,9 @@ class LM:
             cross = ((cache["cross_k"][r], cache["cross_v"][r])
                      if self.cfg.enc_dec else None)
             for j in range(len(self.pattern)):
-                p_r, c_r = (_tree_map(lambda t: t[r], tree[j])
-                            for tree in (params["slots"], cache["slots"]))
-                x = self._block_cached(p_r, x, j, c_r, pos, cross)
+                p_r = _at(params["slots"][j], r)
+                c_r = _tree_map(lambda t: t[r], cache["slots"][j])
+                x = self._block_cached(p_r, x, j, c_r, pos, cross, tp)
         cache["pos"] = pos + x.shape[1]
         return x, cache
 
@@ -518,9 +687,12 @@ class LM:
         encoder-decoder runs its encoder on ``batch["frame_embeds"]``
         and writes each repeat's cross K/V into the cache first (in
         place; tensors of another frame count are replaced); the patch
-        frontend prefills the projected patches ahead of the text."""
-        params = self._cast(params)
-        x, enc = self._front(params, batch)
+        frontend prefills the projected patches ahead of the text.  On a
+        mesh: the whole batch in, the rank's blocks of the cache and of
+        the logits."""
+        tp = self._tp(batch["inputs"].shape[0], params)
+        params = tp.blocks if tp is not None else self._cast(params)
+        x, enc = self._front(params, batch, tp)
         if enc is not None:
             cfg = self.cfg
             shape = (self.repeats, *enc.shape[:2], cfg.n_kv_heads, cfg.hd)
@@ -532,23 +704,26 @@ class LM:
                 for name, kv in zip(("cross_k", "cross_v"),
                                     self._cross_kv(p_r, enc)):
                     cache[name][r].copy_(kv)
-        x, cache = self._run_cached(params, x, cache)
+        x, cache = self._run_cached(params, x, cache, tp)
         x = L.rms_norm(params["final_ln"], x[:, -1:])
-        return self.logits(params, x), cache
+        return self.logits(params, x, tp), cache
 
     def decode_step(self, params: Params, batch, cache):
         """One-token step against the cache. batch['inputs']: (B, 1).  An
         encoder-decoder adds ``pos_embed_dec`` at ``pos``, clipped to
-        ``max_positions - 1`` as the reference's."""
+        ``max_positions - 1`` as the reference's.  On a mesh, as
+        :meth:`prefill`."""
         cfg = self.cfg
-        params = self._cast(params)
-        x = self.embed(params, batch["inputs"])
+        tp = self._tp(batch["inputs"].shape[0], params)
+        params = tp.blocks if tp is not None else self._cast(params)
+        tokens = batch["inputs"] if tp is None else batch["inputs"][tp.rows]
+        x = self.embed(params, tokens, tp)
         if cfg.enc_dec:
             pos = min(max(cache["pos"], 0), cfg.max_positions - 1)
             x = x + params["pos_embed_dec"][pos].to(x.dtype)
-        x, cache = self._run_cached(params, x, cache)
+        x, cache = self._run_cached(params, x, cache, tp)
         x = L.rms_norm(params["final_ln"], x)
-        return self.logits(params, x), cache
+        return self.logits(params, x, tp), cache
 
     # ------------------------------------------------------------------
     def param_counts(self, params: Params) -> Tuple[int, int]:
@@ -565,8 +740,83 @@ class LM:
                                         // max(cfg.n_experts, 1))
 
 
-def _ones(d: int, lead, device) -> Params:
-    return {"scale": torch.ones((*lead, d), device=device)}
+class _Blocks(Mapping):
+    """A rank's param blocks as the layers read them: each leaf, when
+    read, is cast to the compute dtype (:meth:`LM._cast_leaf`) and put
+    together over the data axis where its spec splits it there (FSDP,
+    :func:`~repro_torch.distributed.sharding.gather_axis`, whose adjoint
+    hands each rank its block's gradient), one leaf at a time; with
+    ``r``, repeat ``r`` of the stacked leaves."""
+
+    def __init__(self, tree, specs, use, r: Optional[int] = None):
+        self._tree, self._specs, self._use, self._r = tree, specs, use, r
+
+    def repeat(self, r: int) -> "_Blocks":
+        return _Blocks(self._tree, self._specs, self._use, r)
+
+    def __getitem__(self, key):
+        v, s = self._tree[key], self._specs[key]
+        if isinstance(v, dict):
+            return _Blocks(v, s, self._use, self._r)
+        if isinstance(v, (list, tuple)):
+            return [_Blocks(t, u, self._use, self._r) for t, u in zip(v, s)]
+        if self._r is not None:
+            v, s = v[self._r], s[1:]
+        return self._use(key, v, s)
+
+    def __iter__(self):
+        return iter(self._tree)
+
+    def __len__(self):
+        return len(self._tree)
+
+
+class _Tp:
+    """One sharded call: the mesh context, the rank's rows of a batch of
+    ``batch`` (all of them where the data axis does not divide it), the
+    MoE's dispatch groups on those rows (one where each data rank holds
+    its own rows: the mesh's groups, one per data rank), the rank's q
+    and kv head counts, and ``blocks``, the params as the layers read
+    them (:class:`_Blocks`)."""
+
+    def __init__(self, lm: LM, mc, mesh, batch: int, params=None):
+        self.mc, self.mesh = mc, mesh
+        split = SH.constrain((batch,), "batch", mc=mc)[0] is not None
+        n = batch // mesh.dp if split else batch
+        start = mesh.data_index * n if split else 0
+        self.rows = slice(start, start + n)
+        self.groups = 1 if split else None
+        self.hq = lm.cfg.n_heads // mesh.mp
+        self.hk = lm.cfg.n_kv_heads // mesh.mp
+        self.blocks = None
+        if params is not None:
+            use = (lambda name, t, spec: SH.gather_axis(
+                lm._cast_leaf(name, t), spec, mesh, "data"))
+            self.blocks = _Blocks(params, SH.param_specs(params, mc), use)
+
+
+def _into(h: torch.Tensor, tp: Optional[_Tp]) -> torch.Tensor:
+    """``h`` entering a block's per-rank heads or FFN slice (Megatron's
+    ``f``: identity, its adjoint summed over the model axis)."""
+    return h if tp is None else SH.copy_to(h, tp.mesh, "model")
+
+
+def _out_of(y: torch.Tensor, tp: Optional[_Tp]) -> torch.Tensor:
+    """A block's per-rank partial output summed over the model axis
+    (Megatron's ``g``)."""
+    return y if tp is None else SH.reduce_from(y, tp.mesh, "model")
+
+
+def _at(slot, r: int):
+    """Repeat ``r`` of a slot's stacked params."""
+    if isinstance(slot, _Blocks):
+        return slot.repeat(r)
+    return _tree_map(lambda t: t[r], slot)
+
+
+def _ones(d: int, lead, device, kept=None, path: str = "") -> Params:
+    t = torch.ones((*lead, d), device=device)
+    return {"scale": t if kept is None else kept(f"{path}/scale", t)}
 
 
 def _tree_map(fn, tree):

@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.layers import _dense_init, _wants_grad
+from repro_torch.models.layers import _dense_init, _wants_grad, draw_device
 
 Params = Dict[str, Any]
 NEG = -1e30             # the reference's sentinel for "log of zero"
@@ -67,7 +67,7 @@ def init_mamba(gen: torch.Generator, d_model: int, *, expand: int = 2,
     ``dt_bias`` zeros in ``dtype``."""
     di = expand * d_model
     dt_rank = dt_rank or -(-d_model // 16)
-    dev = gen.device
+    dev = draw_device(gen)
     a_log = torch.log(torch.arange(1, d_state + 1, dtype=torch.float32,
                                    device=dev))
     return {
@@ -227,7 +227,7 @@ def init_mlstm(gen: torch.Generator, d_model: int, *, n_heads: int,
         "wk": _dense_init(gen, di, (*lead, di, di), dtype),
         "wv": _dense_init(gen, di, (*lead, di, di), dtype),
         "wif": _dense_init(gen, di, (*lead, di, 2 * n_heads), torch.float32),
-        "bif": bif.to(gen.device).expand(*lead, 2 * n_heads).clone(),
+        "bif": bif.to(draw_device(gen)).expand(*lead, 2 * n_heads).clone(),
         "down": _dense_init(gen, di, (*lead, di, d_model), dtype),
     }
 
@@ -397,7 +397,7 @@ def init_slstm(gen: torch.Generator, d_model: int, *, n_heads: int,
         "wx": _dense_init(gen, d_model, (*lead, d_model, 4 * di), dtype),
         "wh": _dense_init(gen, di, (*lead, di, 4 * di), dtype),
         "b": torch.zeros((*lead, 4 * di), dtype=torch.float32,
-                         device=gen.device),
+                         device=draw_device(gen)),
         "down": _dense_init(gen, di, (*lead, di, d_model), dtype),
     }
 

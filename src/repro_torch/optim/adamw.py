@@ -116,22 +116,38 @@ def adamw_update(params: Tree, grads: Tree, state: OptState, *,
     return params, state
 
 
-def global_norm(grads: Tree) -> torch.Tensor:
+def global_norm(grads: Tree, *, mesh=None, specs: Tree = None
+                ) -> torch.Tensor:
     """``sqrt(sum of every leaf's sum of squares)`` in f32, the leaves
-    added in tree order as the reference's Python ``sum``."""
+    added in tree order as the reference's Python ``sum``.  With a live
+    ``mesh`` and the grads' ``specs`` (a rank's blocks), each leaf's sum
+    is taken over the mesh axes its spec splits it over, so a leaf
+    replicated over an axis is counted once: two collectives of one
+    number per leaf."""
+    sq = [torch.sum(torch.square(g.float())) for _, g in _leaves(grads)]
+    if mesh is not None:
+        v = torch.stack(sq)
+        for axis in mesh.axis_names:
+            split = [any(e == axis or (isinstance(e, tuple) and axis in e)
+                         for e in _at(specs, path))
+                     for path, _ in _leaves(grads)]
+            if mesh.axis_size(axis) > 1 and any(split):
+                mask = torch.tensor(split, device=v.device)
+                v = torch.where(mask, mesh.all_reduce(v, axis), v)
+        sq = list(v.unbind())
     total = None
-    for _, g in _leaves(grads):
-        sq = torch.sum(torch.square(g.float()))
-        total = sq if total is None else total + sq
+    for x in sq:
+        total = x if total is None else total + x
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads: Tree, max_norm: float
-                        ) -> Tuple[Tree, torch.Tensor]:
+def clip_by_global_norm(grads: Tree, max_norm: float, *, mesh=None,
+                        specs: Tree = None) -> Tuple[Tree, torch.Tensor]:
     """``(grads * min(1, max_norm / max(norm, 1e-9)), norm)``, each leaf
     scaled in f32 and cast back; the norm a 0-d f32 tensor on the
-    grads' device (no host sync)."""
-    gn = global_norm(grads)
+    grads' device (no host sync).  ``mesh``/``specs``: a rank's blocks,
+    the norm over the whole mesh (:func:`global_norm`)."""
+    gn = global_norm(grads, mesh=mesh, specs=specs)
     scale = torch.clamp(max_norm / torch.clamp_min(gn, 1e-9), max=1.0)
     return _map(grads, lambda g: (g.float() * scale).to(g.dtype)), gn
 

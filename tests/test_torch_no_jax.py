@@ -24,7 +24,11 @@ registered impl once on the CPU and ``examples/quickstart_torch.py
 anything else and run the scale-out: ``serve_gen --dryrun --dp 2 --mp 2``
 on the fused backend (the sharded engine, plans and model), a sharded
 train step (``train_gen.make_sharded_train_step``, the sharded
-``sd.conv_transpose`` and its backward) and ``sd.execute_spmd``.
+``sd.conv_transpose`` and its backward) and ``sd.execute_spmd``; then
+four more, as dp2 x mp2, the sharded LM (the reduced DBRX's prefill,
+decode, grads and train step, ``tests/_torch_lm_shard.py``) and the full
+DBRX's param and batch specs from the meta device
+(``launch/steps.abstract_params``, ``input_specs``).
 """
 
 import os
@@ -156,6 +160,11 @@ for r in out:
     assert r["served"] == 8 and r["shed"] == 0, r
     assert r["y"] == (4, 10, 12, 8) and r["loss"] == r["loss"], r
     assert not r["bad"], r
+import _torch_lm_shard
+out = spawn(_torch_lm_shard.blocked_worker, 4, backend="gloo", timeout_s=240)
+for r in out:
+    assert r["loss"] == r["loss"] and not r["bad"], r
+    assert r["embed"] == ("model", "data") and r["inputs"] == ("data", None)
 bad = sorted(m for m in sys.modules
              if (m == "jax" or m.startswith("jax.") or m == "repro"
                  or m.startswith("repro.")) and sys.modules[m] is not None)
