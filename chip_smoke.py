@@ -371,9 +371,10 @@ Drives ``repro_torch`` only (never JAX, never the JAX package ``repro``):
    ``models/lm.py``): gloo ranks sharing the card (``launch.mesh.spawn``,
    as phase 14; every collective time there is a host copy, not
    scale-out speed), each rank's weights drawn from the one-process seed
-   as its blocks, the ranks in turn.  (a) StableLM-2-12B at all 40
-   layers, bf16, on dp1 x mp2 and on dp2 x mp2: one prefill group of 4 x
-   4,080 tokens and 16 decode steps fed the one-process run's tokens,
+   as its blocks, the ranks in turn.  (a) StableLM-2-12B at 10 of 40
+   layers, bf16, on dp1 x mp2 and on dp2 x mp2:
+   one prefill group of 4 x 4,080 tokens and 16 decode steps fed the
+   one-process run's tokens,
    every step's logits within ``5e-2 * max|ref|`` of that run's, the
    greedy tokens that agree counted, on every rank one K5 launch per
    layer (on its H/mp q and Hkv/mp kv heads), param and cache bytes
@@ -398,6 +399,34 @@ Drives ``repro_torch`` only (never JAX, never the JAX package ``repro``):
    with SDPA.  Prints each rank's peak
    memory and the collectives it issues per prefill group, decode step
    and train step.
+20. the sharded recurrent slots and frontends (``models/ssm.py``'s
+   Mamba / mLSTM / sLSTM on a model rank, the patch projector and the
+   encoder-decoder on a mesh), as phase 19 on gloo ranks sharing the
+   card, every one-process reference run first and freed: (a)
+   Jamba-1.5-Large's first 4 of 72 layers (3 Mamba, attention, two
+   ``moe_ep`` FFNs), bf16, on dp1 x mp2: a prefill group of 4 x 4,080
+   tokens (one K5 launch per rank, on its 32 q / 4 kv heads) and 8
+   decode steps fed the one-process tokens and MoE routes within
+   ``5e-2 * max|ref|``, the greedy tokens that agree and the entries the
+   ranks' own routers would route otherwise (bf16 near ties) counted;
+   (c) InternVL2-76B at 2 of 80 layers, bf16, on dp1 x mp2, 4 x (256
+   patches + 3,824 tokens) through the step API, 2 K5 launches per
+   rank, the same gate; (b) xLSTM-350M
+   at all 24 layers, f32, on dp2 x mp2, 4 x 256 tokens and 8 decode
+   steps within ``max(1e-4 * max(1, max|ref|), 4 x`` the one-process
+   prefill's spread under ``mlstm_chunk`` 64); (b2) the same at full
+   width cut to one mLSTM and one sLSTM layer, where that spread is
+   small, and its train step (bt) (at 8 layers a one-ulp move of every
+   f32 param moves a grad leaf by 0.28 of its max): loss and grads
+   against the one-process step at 4 x its spread (the larger under
+   ``mlstm_chunk`` 64 and under a one-ulp move of every param) where
+   above 1e-6 / 1e-4; (d) Whisper-small whole, on dp2 x mp2, 4 x
+   (1,500 frames + 64 tokens) and 8 decode steps at the bf16 gate, and
+   one f32 train step held as phase 19 (d)'s; (e) K5 bf16 at Jamba's
+   per-rank shape (4 x 32 / 4 x 4,080 x 128) against its plain version,
+   timed in turns with SDPA.  Prints each rank's param and cache bytes
+   beside the specs' blocks, peak memory and collectives per prefill
+   group, decode step and train step.
 
 Every printed number carries the card's name and power limit.  The line
 before the last is ``{"kernels": [...]}``; the last is ``{"ok": true,
@@ -7087,7 +7116,8 @@ def _frontends_phase(dev, tag) -> dict:
 # ---------------------------------------------------------------------------
 
 SHARD_SPAWN_S = 900        # each spawn's deadline and collective timeout
-SHARD_LAYERS = 40          # (a): all of StableLM-2-12B's layers
+SHARD_LAYERS = 10          # (a): 10 of StableLM-2-12B's 40 layers, so
+                           # that phase 20 fits the script's time
 SHARD_PROMPT_LEN = 4080    # one prefill group of SHARD_SLOTS prompts
 SHARD_SLOTS = 4
 SHARD_DECODE = 16          # decode steps, fed the one-process tokens
@@ -7154,6 +7184,38 @@ def _drops_recorded(log: list):
         L.moe_route = real
 
 
+@contextlib.contextmanager
+def _routes(log: list, replay: bool = False, flips=None):
+    """Records every ``moe_route`` call's routing in ``log`` (on the
+    host), or with ``replay`` hands each call ``log``'s next routing
+    instead of its own (the one-process run's, as its tokens are fed to
+    the decode steps), appending to ``flips`` the entries whose experts
+    the call's own routing chose otherwise (near ties that a sum's bf16
+    rounding flips)."""
+    import repro_torch.models.layers as L
+    real = L.moe_route
+    it = iter(log) if replay else None
+
+    def routed(*a, **kw):
+        r = real(*a, **kw)
+        if not replay:
+            log.append({k: v.cpu() if hasattr(v, "cpu") else v
+                        for k, v in r.items()})
+            return r
+        want = next(it)
+        if flips is not None:
+            flips.append((int((r["tope"].cpu() != want["tope"]).sum()),
+                          want["tope"].numel()))
+        dev = r["tope"].device
+        return {k: v.to(dev) if hasattr(v, "to") else v
+                for k, v in want.items()}
+    L.moe_route = routed
+    try:
+        yield log
+    finally:
+        L.moe_route = real
+
+
 def _shard_prompts(cfg):
     import torch
     from repro_torch.launch.serve import random_prompts
@@ -7162,13 +7224,16 @@ def _shard_prompts(cfg):
                         dtype=torch.int32)
 
 
-def _shard_serve_one(cfg, dev, layout=None, steps: int = SHARD_DECODE
-                     ) -> dict:
-    """One process: a prefill group and ``steps`` greedy decode steps,
-    under a layout-only mesh context ``layout`` (dp, mp) when given (the
-    MoE then takes its dispatch groups from it); the logits of every step
-    (f32, on the host), the tokens, and the entries dropped per prefill
-    MoE call and group."""
+def _shard_serve_one(cfg, dev, layout=None, steps: int = SHARD_DECODE,
+                     batch=None, max_len: int = SHARD_MAX_LEN,
+                     record_routes: bool = False) -> dict:
+    """One process: a prefill group (``batch``, tokens and embeddings on
+    the host, default SHARD_SLOTS prompts of SHARD_PROMPT_LEN tokens)
+    and ``steps`` greedy decode steps, under a layout-only mesh context
+    ``layout`` (dp, mp) when given (the MoE then takes its dispatch
+    groups from it); the logits of every step (f32, on the host), the
+    tokens, the entries dropped per prefill MoE call and group, and with
+    ``record_routes`` every MoE call's routing (:func:`_routes`)."""
     import torch
     from repro_torch.distributed import sharding as SH
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
@@ -7176,13 +7241,15 @@ def _shard_serve_one(cfg, dev, layout=None, steps: int = SHARD_DECODE
     lm = build_lm(cfg, device=dev)
     params = lm.init(torch.Generator(device=dev).manual_seed(SEED))
     mesh = None if layout is None else SH.Mesh(*layout)
-    drops, lgs = [], []
-    with torch.no_grad(), SH.mesh_context(mesh):
+    drops, lgs, routes = [], [], []
+    with torch.no_grad(), SH.mesh_context(mesh), (
+            _routes(routes) if record_routes else contextlib.nullcontext()):
         prefill, dec = make_prefill_step(lm), make_decode_step(lm)
-        cache = lm.init_cache(SHARD_SLOTS, SHARD_MAX_LEN)
+        batch = {k: v.to(dev) for k, v in (batch or {
+            "inputs": _shard_prompts(cfg)}).items()}
+        cache = lm.init_cache(batch["inputs"].shape[0], max_len)
         with _drops_recorded(drops):
-            logits, cache = prefill(params, {"inputs": _shard_prompts(cfg)
-                                             .to(dev)}, cache)
+            logits, cache = prefill(params, batch, cache)
         lgs.append(logits[:, 0].float().cpu())
         tok = torch.argmax(logits, -1).to(torch.int32)
         toks = [tok.cpu()]
@@ -7191,10 +7258,11 @@ def _shard_serve_one(cfg, dev, layout=None, steps: int = SHARD_DECODE
             lgs.append(logits[:, 0].float().cpu())
             toks.append(tok.cpu())
     torch.cuda.synchronize()
-    del lm, params, cache
+    del lm, params, cache, batch
+    gc.collect()
     torch.cuda.empty_cache()
     return {"logits": torch.stack(lgs), "tokens": torch.cat(toks, 1),
-            "drops": drops}
+            "drops": drops, "routes": routes}
 
 
 def _shard_draw(lm, mesh, mc, dev):
@@ -7244,12 +7312,14 @@ def _tree_bytes(tree) -> int:
 
 
 def _shard_serve_rank(mesh, dev, job, part: str) -> dict:
-    """Parts (a)-(c) on one rank: the weights drawn as blocks, the bytes
-    held against the specs' blocks, a prefill group with K5 and the
+    """A serving part on one rank (phase 19 (a)-(c), phase 20's): the
+    weights drawn as blocks, the bytes held against the specs' blocks, a
+    prefill group (``job[part]["batch"]``, tokens and embeddings, or
+    SHARD_SLOTS prompts of SHARD_PROMPT_LEN tokens; a cache of
+    ``job[part]["max_len"]`` or SHARD_MAX_LEN) with K5 and the
     collectives counted, the drops of its dispatch group, then (decode
     parts) as many steps as the one-process run took, fed its tokens;
-    rank 0 gathers
-    the logits."""
+    rank 0 gathers the logits."""
     import torch
     import repro_torch.kernels.flash_attn as FA
     from repro_torch.distributed import sharding as SH
@@ -7257,9 +7327,18 @@ def _shard_serve_rank(mesh, dev, job, part: str) -> dict:
                                           make_prefill_step)
     from repro_torch.models.lm import build_lm
     cfg = job[part]["cfg"]
+    max_len = job[part].get("max_len", SHARD_MAX_LEN)
+    batch = {k: v.to(dev) for k, v in job[part].get("batch", {}).items()}
+    if not batch:
+        batch = {"inputs": _shard_prompts(cfg).to(dev)}
+    rows = batch["inputs"].shape[0]
     torch.cuda.reset_peak_memory_stats()
     rec = {}
-    with torch.no_grad(), SH.mesh_context(mesh, fsdp=cfg.fsdp_serve) as mc:
+    flips = []
+    replay = (_routes(job[part]["routes"], replay=True, flips=flips)
+              if job[part].get("routes") else contextlib.nullcontext())
+    with torch.no_grad(), SH.mesh_context(mesh, fsdp=cfg.fsdp_serve) as mc, \
+            replay:
         lm = build_lm(cfg, device=dev)
         t0 = time.perf_counter()
         params = _shard_draw(lm, mesh, mc, dev)
@@ -7267,8 +7346,8 @@ def _shard_serve_rank(mesh, dev, job, part: str) -> dict:
         _, meta = abstract_params(cfg)
         with SH.mesh_context(None):
             meta_cache = build_lm(cfg, device="meta").init_cache(
-                SHARD_SLOTS, SHARD_MAX_LEN)
-        cache = lm.init_cache(SHARD_SLOTS, SHARD_MAX_LEN)
+                rows, max_len)
+        cache = lm.init_cache(rows, max_len)
         rec["bytes"] = {
             "params": _tree_bytes(params),
             "params_specs": _spec_bytes(meta, SH.param_specs(meta, mc),
@@ -7278,8 +7357,7 @@ def _shard_serve_rank(mesh, dev, job, part: str) -> dict:
                 meta_cache, mc), mesh)}
         del meta, meta_cache
         prefill, dec = make_prefill_step(lm), make_decode_step(lm)
-        lspec = SH.constrain((SHARD_SLOTS,), "batch") + (None, "model")
-        prompts = _shard_prompts(cfg).to(dev)
+        lspec = SH.constrain((rows,), "batch") + (None, "model")
         FA.FLASH_ATTN_LAUNCHES = 0
         before = dict(mesh.counts)
         drops = []
@@ -7287,7 +7365,7 @@ def _shard_serve_rank(mesh, dev, job, part: str) -> dict:
         mesh.barrier()
         t0 = time.perf_counter()
         with _drops_recorded(drops):
-            logits, cache = prefill(params, {"inputs": prompts}, cache)
+            logits, cache = prefill(params, batch, cache)
         torch.cuda.synchronize()
         rec["prefill_ms"] = (time.perf_counter() - t0) * 1e3
         rec["k5"] = FA.FLASH_ATTN_LAUNCHES
@@ -7315,29 +7393,40 @@ def _shard_serve_rank(mesh, dev, job, part: str) -> dict:
                               for k, n in mesh.counts.items()
                               if n != before.get(k, 0)}
         rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        rec["route_flips"] = flips
         if mesh.rank == 0:
             rec["logits"] = torch.stack(lgs).numpy()
-    del params, cache, lm, logits, prefill, dec
+    del params, cache, lm, logits, prefill, dec, batch
     gc.collect()
     torch.cuda.empty_cache()
     return rec
 
 
-def _shard_train_rank(mesh, dev, job) -> dict:
-    """(d) on one rank: the sharded value_and_grad and one train step
-    (fsdp_train), then the one-process step on rank 0, and every leaf of
-    the grads and new params gathered and held against it there."""
+def _shard_train_rank(mesh, dev, job, part: str = "d") -> dict:
+    """A training part on one rank (phase 19 (d), phase 20's): the
+    sharded value_and_grad and one train step (fsdp_train) on
+    ``job[part]["batch"]`` (tokens and embeddings, or SyntheticTokenPipeline's
+    SHARD_TRAIN_BATCH x SHARD_TRAIN_SEQ), then the one-process step on
+    rank 0, and every leaf of the grads and new params gathered and held
+    against it there.  With ``job[part]["spread"]``, rank 0 also takes
+    the one-process loss and grads of each way listed there (a config
+    whose sums run in another order, nothing else changed; ``"ulp"``:
+    every param moved one ulp up or down): their largest distance from
+    the first's is the spread a gate takes four times (xLSTM's,
+    ROADMAP)."""
     import torch
     from repro_torch.data import SyntheticTokenPipeline
     from repro_torch.distributed import sharding as SH
     from repro_torch.launch.steps import make_train_step, value_and_grad
     from repro_torch.models.lm import build_lm
     from repro_torch.optim import adamw_init
-    cfg = job["d"]["cfg"]
+    cfg = job[part]["cfg"]
     torch.cuda.reset_peak_memory_stats()
-    pipe = SyntheticTokenPipeline(cfg.vocab_size, SHARD_TRAIN_SEQ,
-                                  SHARD_TRAIN_BATCH, seed=SEED)
-    batch = {k: v.to(dev) for k, v in pipe.batch(0).items()}
+    batch = job[part].get("batch")
+    if batch is None:
+        batch = SyntheticTokenPipeline(cfg.vocab_size, SHARD_TRAIN_SEQ,
+                                       SHARD_TRAIN_BATCH, seed=SEED).batch(0)
+    batch = {k: v.to(dev) for k, v in batch.items()}
     lm = build_lm(cfg, device=dev)
     rec = {}
     with SH.mesh_context(mesh, fsdp=cfg.fsdp_train) as mc:
@@ -7378,6 +7467,28 @@ def _shard_train_rank(mesh, dev, job) -> dict:
         del full, g1
         gc.collect()
         torch.cuda.empty_cache()
+        for way in job[part].get("spread", ()):
+            with SH.mesh_context(None):
+                lm2 = lm if way == "ulp" else build_lm(way, device=dev)
+                p2 = lm2.init(torch.Generator(device=dev).manual_seed(SEED))
+                if way == "ulp":        # every param up or down one ulp
+                    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+                    for t in _leaf_items(p2).values():
+                        sign = torch.randint(0, 2, t.shape, generator=gen,
+                                             device=dev).to(t.dtype) * 2 - 1
+                        t.mul_(1 + sign * torch.finfo(t.dtype).eps)
+                l2, g2 = value_and_grad(lm2, p2, batch)
+            dl = abs(float(l2) - one["loss"])
+            dg = max((g.float() - one["grads"][k].float()).abs().max().item()
+                     / max(one["grads"][k].abs().max().item(), 1e-30)
+                     for k, g in _leaf_items(g2).items())
+            rec.setdefault("spreads", []).append(
+                ("ulp" if way == "ulp" else "reordered", dl, dg))
+            rec["spread_loss"] = max(rec.get("spread_loss", 0.0), dl)
+            rec["spread_grad"] = max(rec.get("spread_grad", 0.0), dg)
+            del lm2, p2, g2
+            gc.collect()
+            torch.cuda.empty_cache()
     mesh.barrier()
     worst_g, got_p = (0.0, None), {}
 
@@ -7395,13 +7506,15 @@ def _shard_train_rank(mesh, dev, job) -> dict:
             if r >= worst_g[0]:
                 worst_g = (r, k)
         del whole
-    for k, p in _leaf_items(params).items():
+    adam = job[part].get("adam", True)
+    for k, p in (_leaf_items(params).items() if adam else ()):
         whole = SH.gather_block(p, spec_at(k), mesh)
         if one is not None:
             got_p[k] = whole
     if one is not None:
         rec["one_loss"], rec["one_gnorm"] = one["loss"], one["gnorm"]
         rec["grad_worst"] = worst_g
+    if one is not None and adam:
         # the head's columns for the tokens the batch does not target
         # take softmax-sized gradients (p_v h, about 1/V of a target's):
         # 0.298 of the head sits under the determined level at full width
@@ -7417,8 +7530,9 @@ def _shard_train_rank(mesh, dev, job) -> dict:
 
 
 def _lm_shard_rank(rank: int, world: int, job: dict) -> dict:
-    """One rank of a phase 19 spawn: its (dp, mp) mesh over gloo on the
-    card, then the job's parts in order."""
+    """One rank of a phase 19 or 20 spawn: its (dp, mp) mesh over gloo on
+    the card, then the job's parts in order (``"train"`` parts by
+    :func:`_shard_train_rank`, the others by :func:`_shard_serve_rank`)."""
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -7430,7 +7544,8 @@ def _lm_shard_rank(rank: int, world: int, job: dict) -> dict:
                          timeout_s=SHARD_SPAWN_S)
     out = {}
     for part in job["parts"]:
-        out[part] = (_shard_train_rank(mesh, dev, job) if part == "d"
+        out[part] = (_shard_train_rank(mesh, dev, job, part)
+                     if job[part].get("train")
                      else _shard_serve_rank(mesh, dev, job, part))
     return out
 
@@ -7440,7 +7555,8 @@ def _coll_txt(c: dict) -> str:
 
 
 def _shard_spawn(dev, dp: int, mp: int, job: dict, tag,
-                 rank_fn=None) -> list:
+                 rank_fn=None, phase: str = "19",
+                 name: str = "lm sharding") -> list:
     from repro_torch.launch.mesh import spawn
     job = dict(job, dp=dp, mp=mp, device=str(dev))
     t0 = time.perf_counter()
@@ -7453,14 +7569,14 @@ def _shard_spawn(dev, dp: int, mp: int, job: dict, tag,
         out = spawn(rank_fn or _lm_shard_rank, dp * mp, backend="gloo",
                     args=(job,), timeout_s=SHARD_SPAWN_S)
     except RuntimeError as e:
-        raise SystemExit(f"chip_smoke: phase 19 (dp{dp} x mp{mp}, parts "
-                         f"{job['parts']}) failed: {e}")
+        raise SystemExit(f"chip_smoke: phase {phase} (dp{dp} x mp{mp}, "
+                         f"parts {job['parts']}) failed: {e}")
     finally:
         if prev is None:
             os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
         else:
             os.environ["PYTORCH_CUDA_ALLOC_CONF"] = prev
-    print(f"lm sharding: dp{dp} x mp{mp} spawn, parts {job['parts']}, "
+    print(f"{name}: dp{dp} x mp{mp} spawn, parts {job['parts']}, "
           f"{time.perf_counter() - t0:.1f} s host clock with the ranks' "
           f"start-up ({SHARD_NOTE}) {tag}")
     return out
@@ -7468,12 +7584,13 @@ def _shard_spawn(dev, dp: int, mp: int, job: dict, tag,
 
 def _shard_check_serve(part: str, label: str, out: list, ref: dict,
                        cfg, dp: int, mp: int, gate: float, floor_one: bool,
-                       tag) -> dict:
+                       tag, k5_want=None, name: str = "lm sharding",
+                       phase: str = "19") -> dict:
     """Gates of a serving part on the ranks' records: every rank's bytes
-    equal to its specs' blocks and, where the prefill passes 2,048
-    tokens with no window, one K5 launch per layer; each step's logits
-    within ``gate`` of the one-process run's; prints the per-rank
-    readings."""
+    equal to its specs' blocks and ``k5_want`` K5 launches per rank
+    (default: where the prefill passes 2,048 tokens with no window, one
+    per layer); each step's logits within ``gate`` of the one-process
+    run's; prints the per-rank readings."""
     import torch
     recs = [r[part] for r in out]
     got = torch.from_numpy(recs[0]["logits"])
@@ -7483,7 +7600,8 @@ def _shard_check_serve(part: str, label: str, out: list, ref: dict,
             for i in range(got.shape[0])]
     agree = int((got[..., :v].argmax(-1) == want[..., :v].argmax(-1)).sum())
     total = got.shape[0] * got.shape[1]
-    k5_want = cfg.n_layers if cfg.sliding_window is None else 0
+    if k5_want is None:
+        k5_want = cfg.n_layers if cfg.sliding_window is None else 0
     ok_bytes = all(r["bytes"]["params"] == r["bytes"]["params_specs"] and
                    r["bytes"]["cache"] == r["bytes"]["cache_specs"]
                    for r in recs)
@@ -7491,7 +7609,7 @@ def _shard_check_serve(part: str, label: str, out: list, ref: dict,
     ok_logits = all(d <= tol for d, tol in errs) and bool(
         torch.isfinite(got).all())
     worst = max(errs, key=lambda e: e[0] / e[1])
-    print(f"lm sharding ({part}): {label} on dp{dp} x mp{mp}: "
+    print(f"{name} ({part}): {label} on dp{dp} x mp{mp}: "
           f"{cfg.n_heads // mp} q / {cfg.n_kv_heads // mp} kv heads, "
           f"d_ff {cfg.d_ff // mp} per rank; {len(errs)} steps (prefill + "
           f"{len(errs) - 1} decode fed the one-process tokens): worst "
@@ -7513,8 +7631,8 @@ def _shard_check_serve(part: str, label: str, out: list, ref: dict,
               f"per decode step: {_coll_txt(r['coll_decode'])} (host clock, "
               f"{SHARD_NOTE})")
     if not (ok_logits and ok_k5 and ok_bytes):
-        raise SystemExit(f"chip_smoke: phase 19 ({part}) on dp{dp} x mp{mp}"
-                         ": logits, K5 launches or bytes off")
+        raise SystemExit(f"chip_smoke: phase {phase} ({part}) on dp{dp} x "
+                         f"mp{mp}: logits, K5 launches or bytes off")
     return {"worst": worst, "agree": agree, "total": total,
             "k5": [r["k5"] for r in recs],
             "bytes": [r["bytes"] for r in recs],
@@ -7569,7 +7687,7 @@ def _lm_sharding_phase(dev, tag, rank_fn=None) -> dict:
                          f"entry at capacity factors {SHARD_MIX_CFS}")
     jobs = {"a": {"cfg": cfg_a, "tokens": ref_a["tokens"]},
             "b": {"cfg": cfg_b, "tokens": ref_b["tokens"]},
-            "c": {"cfg": ref_c[0]}, "d": {"cfg": cfg_d}}
+            "c": {"cfg": ref_c[0]}, "d": {"cfg": cfg_d, "train": True}}
     # ---- (a) StableLM-2-12B on dp1 x mp2, then (a), (b), (d) on dp2 x mp2
     label_a = (f"{cfg_a.name} at {cfg_a.n_layers} of 40 layers, "
                f"{cfg_a.compute_dtype}, {SHARD_SLOTS} x {SHARD_PROMPT_LEN} "
@@ -7667,6 +7785,246 @@ def _lm_sharding_phase(dev, tag, rank_fn=None) -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the sharded recurrent slots and frontends
+# ---------------------------------------------------------------------------
+
+REC_JAMBA_LAYERS = 4       # (a): Jamba's first 4 layers (3 Mamba + attention)
+REC_PROMPT_LEN = 4080      # (a): past 2,048 tokens: K5 in the attention slot
+REC_SLOTS = 4
+REC_DECODE = 8             # decode steps of (a)-(d), fed the one-process
+                           # run's tokens
+REC_MAX_LEN = 4096
+REC_X_PROMPT_LEN, REC_X_MAX_LEN = 256, 272    # (b): xLSTM-350M, f32
+REC_X_SPREAD_CHUNK = 64    # (b): the one-process run re-chunked (default 256)
+REC_X_CUT = ("x", "s")      # (b2), (bt): one mLSTM and one sLSTM layer; at
+                            # 8 layers a one-ulp move of every f32 param moves
+                            # a grad leaf by 0.28 of its max (PERF.md)
+REC_X_TRAIN_BATCH, REC_X_TRAIN_SEQ = 8, 128
+REC_VLM_LAYERS = 2         # (c): 2 of InternVL2-76B's 80 layers
+REC_VLM_TEXT = 3824        # (c): after 256 patches, 4,080 prompt positions
+REC_ASR_PROMPT, REC_ASR_MAX_LEN = 64, 128   # (d): Whisper-small, 1,500
+                                            # frames
+REC_ASR_TRAIN_BATCH, REC_ASR_TRAIN_SEQ = 4, 64
+REC_K5_SHAPE = (4, 32, 4, 4080, 128)   # (e): Jamba's per-rank heads at mp 2
+
+
+def _rec_cfg(part: str):
+    """The configuration of phase 20's part: (a) Jamba-1.5-Large's first
+    REC_JAMBA_LAYERS layers, bf16; (b) xLSTM-350M whole, f32 params and
+    compute, (b2) and its train step (bt) cut to REC_X_CUT at full width;
+    (c) InternVL2-76B at REC_VLM_LAYERS, bf16; (d) Whisper-small whole as
+    configured (f32 params, bf16 compute), ``dt`` its train step in
+    f32."""
+    import dataclasses
+    from repro_torch.configs import get
+    if part == "a":
+        full = get(HYB_JAMBA)
+        return dataclasses.replace(full, n_layers=REC_JAMBA_LAYERS,
+                                   pattern=full.pattern[:REC_JAMBA_LAYERS],
+                                   param_dtype=full.compute_dtype)
+    if part in ("b", "b2", "bt"):
+        full = dataclasses.replace(get(HYB_XLSTM), param_dtype="float32",
+                                   compute_dtype="float32")
+        if part == "b":
+            return full
+        return dataclasses.replace(full, n_layers=len(REC_X_CUT),
+                                   pattern=REC_X_CUT)
+    if part == "c":
+        full = get(FRONT_VLM)
+        return dataclasses.replace(full, n_layers=REC_VLM_LAYERS,
+                                   param_dtype=full.compute_dtype)
+    if part == "d":
+        return get(FRONT_ASR)
+    return dataclasses.replace(get(FRONT_ASR), compute_dtype="float32")
+
+
+def _rec_batches(cfgs: dict) -> dict:
+    """Each part's batch on the host: token prompts from a numpy seed
+    and the embeddings the config reads (``_embeds``); the train parts'
+    tokens from ``SyntheticTokenPipeline``."""
+    import torch
+    from repro_torch.data import SyntheticTokenPipeline
+    from repro_torch.launch.serve import random_prompts
+
+    def prompts(cfg, n):
+        return torch.tensor(random_prompts(cfg.vocab_size, REC_SLOTS, n,
+                                           seed=SEED), dtype=torch.int32)
+
+    def train(cfg, b, s):
+        return {**SyntheticTokenPipeline(cfg.vocab_size, s, b,
+                                         seed=SEED).batch(0),
+                **_embeds(cfg, b, torch.device("cpu"), seed=SEED + 1)}
+    return {
+        "a": {"inputs": prompts(cfgs["a"], REC_PROMPT_LEN)},
+        "b": {"inputs": prompts(cfgs["b"], REC_X_PROMPT_LEN)},
+        "b2": {"inputs": prompts(cfgs["b2"], REC_X_PROMPT_LEN)},
+        "bt": train(cfgs["bt"], REC_X_TRAIN_BATCH, REC_X_TRAIN_SEQ),
+        "c": {"inputs": prompts(cfgs["c"], REC_VLM_TEXT),
+              **_embeds(cfgs["c"], REC_SLOTS, torch.device("cpu"))},
+        "d": {"inputs": prompts(cfgs["d"], REC_ASR_PROMPT),
+              **_embeds(cfgs["d"], REC_SLOTS, torch.device("cpu"))},
+        "dt": train(cfgs["dt"], REC_ASR_TRAIN_BATCH, REC_ASR_TRAIN_SEQ)}
+
+
+def _rec_check_train(part: str, label: str, out: list, dp: int, mp: int,
+                     tag) -> dict:
+    """Gates of a phase 20 train part on the ranks' records: loss within
+    SHARD_LOSS_RTOL and grads within LM_GRAD_GATE of the one-process
+    step's, each at least four times the one-process spread where the
+    part took one; params by phase 15's AdamW rule where the part holds
+    them; prints the per-rank readings."""
+    recs = [r[part] for r in out]
+    r0 = recs[0]
+    lrel = abs(r0["loss"] - r0["one_loss"]) / abs(r0["one_loss"])
+    ltol = max(SHARD_LOSS_RTOL, 4 * r0.get("spread_loss", 0.0)
+               / abs(r0["one_loss"]))
+    gr, gleaf = r0["grad_worst"]
+    gtol = max(LM_GRAD_GATE, 4 * r0.get("spread_grad", 0.0))
+    adam = r0.get("adam")
+    ok = (lrel <= ltol and gr <= gtol and (adam is None or adam["ok"])
+          and all(math.isfinite(r["gnorm"]) for r in recs))
+    spread = ("" if "spread_grad" not in r0 else
+              f" (gates at 4 x the one-process spread, the larger under "
+              f"mlstm_chunk {REC_X_SPREAD_CHUNK} (reordered) and under a "
+              f"one-ulp move of every param (ulp): "
+              + ", ".join(f"{w} loss {a:.3e} grads {b:.3e}"
+                          for w, a, b in r0["spreads"]) + ")")
+    params = ("params not held" if adam is None else
+              f"new params worst {adam['ratio']:.3f} of the gate "
+              f"({adam['leaf']}), {adam['loose']} of {adam['total']} "
+              f"elements other than the vocabulary's under the determined "
+              f"level, all within {adam['loose_max']:.2e} (2 * lr = "
+              f"{2 * SHARD_TRAIN_LR:g})")
+    print(f"lm sharding recurrent ({part}): {label} on dp{dp} x mp{mp}, one "
+          f"make_train_step at lr {SHARD_TRAIN_LR}: loss {r0['loss']:.7f} vs "
+          f"one process {r0['one_loss']:.7f} (rel {lrel:.2e}, gate "
+          f"{ltol:.2e}); gnorm {r0['gnorm']:.6f} vs {r0['one_gnorm']:.6f}; "
+          f"grads worst {gr:.3e} of the leaf's max ({gleaf}, gate "
+          f"{gtol:.2e}){spread}; {params} {'ok' if ok else 'FAIL'} {tag}")
+    for i, r in enumerate(recs):
+        print(f"  rank {i}: step {r['step_ms']:.1f} ms host clock, peak "
+              f"{r['peak_gib']:.2f} GiB, collectives per train step: "
+              f"{_coll_txt(r['coll_step'])} ({SHARD_NOTE})")
+    if not ok:
+        raise SystemExit(f"chip_smoke: phase 20 ({part}): the sharded train "
+                         "step disagrees with the one-process step")
+    return {"loss": r0["loss"], "one_loss": r0["one_loss"],
+            "loss_rel": lrel, "loss_gate": ltol, "grad_worst": gr,
+            "grad_gate": gtol, "adam": adam,
+            "spread_grad": r0.get("spread_grad"),
+            "step_ms": [r["step_ms"] for r in recs],
+            "peak_gib": [r["peak_gib"] for r in recs],
+            "coll_step": [r["coll_step"] for r in recs]}
+
+
+def _lm_sharding_recurrent_phase(dev, tag, rank_fn=None) -> dict:
+    """Phase 20: the sharded recurrent slots and frontends (module doc).
+    ``rank_fn``: the ranks' body (default ``_lm_shard_rank``; a CPU
+    rehearsal wraps it)."""
+    import dataclasses
+    import torch
+    t_phase = time.perf_counter()
+    name = "lm sharding recurrent"
+    torch.cuda.empty_cache()
+    report = {"k5": _k5_at_shape(
+        dev, tag, REC_K5_SHAPE, "Jamba's (InternVL2's) per-rank heads at mp "
+        "2", f"{name} (e)")}
+    torch.cuda.empty_cache()
+    cfgs = {p: _rec_cfg(p) for p in ("a", "b", "b2", "bt", "c", "d", "dt")}
+    batches = _rec_batches(cfgs)
+    max_len = {"a": REC_MAX_LEN, "b": REC_X_MAX_LEN, "b2": REC_X_MAX_LEN,
+               "c": REC_MAX_LEN, "d": REC_ASR_MAX_LEN}
+    # ---- one-process references, each freed before the next --------------
+    # Jamba's MoE routes recorded: its ranks take them, as its tokens
+    ref = {p: _shard_serve_one(cfgs[p], dev, steps=REC_DECODE,
+                               batch=batches[p], max_len=max_len[p],
+                               record_routes=p == "a")
+           for p in ("a", "b", "b2", "c", "d")}
+    # xLSTM's own spread: its prefill re-chunked, nothing else changed
+    spread, gate = {}, {}
+    for p in ("b", "b2"):
+        moved = _shard_serve_one(dataclasses.replace(
+            cfgs[p], mlstm_chunk=REC_X_SPREAD_CHUNK), dev, steps=0,
+            batch=batches[p], max_len=REC_X_MAX_LEN)
+        v = cfgs[p].vocab_size
+        spread[p] = (moved["logits"][0][..., :v]
+                     - ref[p]["logits"][0][..., :v]).abs().max().item()
+        scale = max(1.0, ref[p]["logits"][..., :v].abs().max().item())
+        gate[p] = max(SHARD_F32_GATE, 4 * spread[p] / scale)
+    jobs = {p: {"cfg": cfgs[p], "batch": batches[p], "max_len": max_len[p],
+                "tokens": ref[p]["tokens"], "routes": ref[p]["routes"]}
+            for p in ref}
+    jobs["bt"] = {"cfg": cfgs["bt"], "batch": batches["bt"], "train": True,
+                  "adam": False, "spread": [dataclasses.replace(
+                      cfgs["bt"], mlstm_chunk=REC_X_SPREAD_CHUNK), "ulp"]}
+    jobs["dt"] = {"cfg": cfgs["dt"], "batch": batches["dt"], "train": True}
+    # ---- (a) Jamba and (c) InternVL2 on dp1 x mp2 -------------------------
+    out_12 = _shard_spawn(dev, 1, 2, dict(jobs, parts=["a", "c"]), tag,
+                          rank_fn, phase="20", name=name)
+    ca, cc = cfgs["a"], cfgs["c"]
+    report["a"] = _shard_check_serve(
+        "a", f"{ca.name} at {ca.n_layers} of 72 layers ({''.join(ca.pattern)}"
+        f"), {ca.compute_dtype}, moe_ep, fsdp_serve, {REC_SLOTS} x "
+        f"{REC_PROMPT_LEN} tokens",
+        out_12, ref["a"], ca, 1, 2, LM_BF16_GATE, False, tag,
+        k5_want=ca.pattern.count("a"), name=name, phase="20")
+    flips = [f for r in out_12 for f in r["a"]["route_flips"]]
+    n_flip, n_all = sum(f for f, _ in flips), sum(n for _, n in flips)
+    report["a"]["route_flips"] = (n_flip, n_all)
+    print(f"{name} (a): the ranks' MoE calls took the one-process run's "
+          f"routes (as its tokens); their own routers chose another expert "
+          f"for {n_flip} of {n_all} entries over {len(flips)} calls on "
+          f"{len(out_12)} ranks (near ties that the sums' bf16 rounding "
+          f"flips) {tag}")
+    report["c"] = _shard_check_serve(
+        "c", f"{cc.name} at {cc.n_layers} of 80 layers, {cc.compute_dtype}, "
+        f"{REC_SLOTS} x "
+        f"({cc.n_patches} patches + {REC_VLM_TEXT} tokens) through the step "
+        "API", out_12, ref["c"], cc, 1, 2, LM_BF16_GATE, False, tag,
+        k5_want=cc.n_layers, name=name, phase="20")
+    del out_12
+    # ---- (b) xLSTM and (d) Whisper on dp2 x mp2, each with a train step ---
+    out_22 = _shard_spawn(dev, 2, 2, dict(
+        jobs, parts=["b", "b2", "bt", "d", "dt"]), tag, rank_fn, phase="20",
+        name=name)
+    cb, cd = cfgs["b"], cfgs["d"]
+    for p in ("b", "b2"):
+        depth = (f"all {cb.n_layers} layers" if p == "b" else
+                 f"{cfgs[p].n_layers} layers ({''.join(REC_X_CUT)})")
+        report[p] = _shard_check_serve(
+            p, f"{cb.name} at {depth}, f32, {REC_SLOTS} x {REC_X_PROMPT_LEN} "
+            f"tokens (gate {gate[p]:.3e}: 4 x the one-process prefill's "
+            f"spread under mlstm_chunk {REC_X_SPREAD_CHUNK}, "
+            f"{spread[p]:.3e}, where above {SHARD_F32_GATE})", out_22,
+            ref[p], cfgs[p], 2, 2, gate[p], True, tag, k5_want=0, name=name,
+            phase="20")
+        report[p]["spread"] = spread[p]
+    report["bt"] = _rec_check_train(
+        "bt", f"{cb.name} at {cfgs['bt'].n_layers} layers "
+        f"({''.join(REC_X_CUT)}), f32, fsdp_train, batch {REC_X_TRAIN_BATCH} "
+        f"x {REC_X_TRAIN_SEQ}", out_22, 2, 2, tag)
+    report["d"] = _shard_check_serve(
+        "d", f"{cd.name} whole ({cd.enc_layers} + {cd.n_layers} layers), "
+        f"{cd.compute_dtype} compute, {REC_SLOTS} x ({cd.enc_positions} "
+        f"frames + "
+        f"{REC_ASR_PROMPT} tokens) through the step API", out_22, ref["d"],
+        cd, 2, 2, LM_BF16_GATE, False, tag, k5_want=0, name=name,
+        phase="20")
+    report["dt"] = _rec_check_train(
+        "dt", f"{cd.name} whole, f32, fsdp_train, batch {REC_ASR_TRAIN_BATCH}"
+        f" x ({cd.enc_positions} frames + {REC_ASR_TRAIN_SEQ} tokens)",
+        out_22, 2, 2, tag)
+    report["k5_launches"] = {"jamba_dp1xmp2": report["a"]["k5"],
+                             "internvl2_dp1xmp2": report["c"]["k5"],
+                             "xlstm_dp2xmp2": report["b"]["k5"],
+                             "xlstm_cut_dp2xmp2": report["b2"]["k5"],
+                             "whisper_dp2xmp2": report["d"]["k5"]}
+    report["phase_s"] = time.perf_counter() - t_phase
+    print(f"{name} phase: {report['phase_s']:.1f} s host clock {tag}")
+    return report
+
+
 def main(json_path: str = "") -> int:
     t_start = time.perf_counter()
     sys.stdout.reconfigure(line_buffering=True)   # a cut run keeps its log
@@ -7692,7 +8050,7 @@ def main(json_path: str = "") -> int:
 
 
 def _smoke(json_path: str, t_start: float) -> int:
-    """Phases 1-19 (see the module doc) and the final two lines."""
+    """Phases 1-20 (see the module doc) and the final two lines."""
     import torch
     sys.path.insert(0, os.path.join(HERE, "src"))
     import torch.nn.functional as F
@@ -8145,6 +8503,12 @@ def _smoke(json_path: str, t_start: float) -> int:
     torch.cuda.empty_cache()
     shard = _lm_sharding_phase(dev, tag)
 
+    # ---- 20. the sharded recurrent slots and frontends: Jamba-1.5-Large,
+    # xLSTM-350M, InternVL2-76B and Whisper-small on gloo ranks (K5 on each
+    # rank's heads in Jamba's and InternVL2's prefills), two train steps
+    torch.cuda.empty_cache()
+    rec = _lm_sharding_recurrent_phase(dev, tag)
+
     if "jax" in sys.modules or "repro" in sys.modules:
         raise SystemExit("chip_smoke: JAX or the JAX package was imported")
     total = {k: sum(r[k] for r in per_layer)
@@ -8230,13 +8594,18 @@ def _smoke(json_path: str, t_start: float) -> int:
             # ((a) on dp1 x mp2 and dp2 x mp2, (b)), and K5 at the
             # per-rank shapes of StableLM and DBRX at mp 2
             k["launches_lm_sharding"] = shard["k5_launches"]
+            # phase 20: each rank's K5 launches in the sharded prefills of
+            # Jamba and InternVL2 (xLSTM and Whisper have none), and K5 at
+            # Jamba's per-rank shape at mp 2
+            k["launches_lm_sharding_recurrent"] = rec["k5_launches"]
             for shape, r in (("moe", moe["k5"]),
                              ("hybrid", hyb["jamba"]["k5"]),
                              ("internvl2", front["k5"]),
                              ("qwen", front["dense"]["qwen1.5-32b"]["k5"]),
                              ("yi", front["dense"]["yi-34b"]["k5"]),
                              ("stablelm_mp2", shard["k5"]["stablelm_mp2"]),
-                             ("dbrx_mp2", shard["k5"]["dbrx_mp2"])):
+                             ("dbrx_mp2", shard["k5"]["dbrx_mp2"]),
+                             ("jamba_mp2", rec["k5"])):
                 k[f"ms_{shape}_shape"] = r["ms"]
                 k[f"ahead_ms_{shape}_shape"] = r["ahead_ms"]
                 k[f"max_abs_err_{shape}_shape"] = r["max_abs"]
@@ -8269,6 +8638,7 @@ def _smoke(json_path: str, t_start: float) -> int:
               "pretune": pre, "registry": reg, "scaleout": scale,
               "checkpoint": ckpt, "moe": moe, "hybrid": hyb,
               "frontends": front, "lm_sharding": shard,
+              "lm_sharding_recurrent": rec,
               "serve": {k: stats[k] for k in
                         ("served", "launches", "req_per_s", "wall_s",
                          "latency_ms")},
@@ -8343,7 +8713,10 @@ def _smoke(json_path: str, t_start: float) -> int:
           f"rank in the sharded prefills, the *_stablelm_mp2_shape / "
           f"*_dbrx_mp2_shape numbers at the per-rank shapes "
           f"{SHARD_K5_SHAPES['stablelm_mp2']} / "
-          f"{SHARD_K5_SHAPES['dbrx_mp2']}) {tag}")
+          f"{SHARD_K5_SHAPES['dbrx_mp2']}; phase 20: K5's "
+          f"launches_lm_sharding_recurrent per rank in the sharded prefills "
+          f"of Jamba, InternVL2, xLSTM and Whisper, the *_jamba_mp2_shape "
+          f"numbers at Jamba's per-rank shape {REC_K5_SHAPE}) {tag}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

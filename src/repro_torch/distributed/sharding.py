@@ -44,10 +44,14 @@ axis of size > 1); a context on a mesh built without groups
 reads from it what the reference reads from its context (the MoE's
 dispatch groups).  The autograd-aware collectives of the Megatron-style
 layers are :func:`copy_to` (identity, its adjoint a sum over an axis),
-:func:`reduce_from` (a sum over an axis, its adjoint the identity) and
-:func:`gather_axis` (the blocks of a data-sharded parameter put
-together at use, its adjoint a sum over the axis narrowed to this
-rank's block).
+:func:`reduce_from` (a sum over an axis, its adjoint the identity),
+:func:`gather_axis` (the blocks of a
+data-sharded parameter put together at use, its adjoint a sum over the
+axis narrowed to this rank's block), :func:`gather_dim` (one dim's
+blocks put together, the adjoint summed or not by how the ranks use
+the whole) and :func:`cols_matmul` (any columns of ``x @ W`` from a
+column-split ``W``, by one gather of the smaller of the weight and the
+product).
 """
 
 from __future__ import annotations
@@ -686,8 +690,8 @@ class _ReduceFrom(torch.autograd.Function):
 
 class _GatherAxis(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, t, mesh, axis, dims):
-        ctx.mesh, ctx.axis, ctx.dims = mesh, axis, dims
+    def forward(ctx, t, mesh, axis, dims, summed=True):
+        ctx.mesh, ctx.axis, ctx.dims, ctx.summed = mesh, axis, dims, summed
         ctx.sizes = [t.shape[d] for d in dims]
         for d in dims:
             t = mesh.all_gather(t, axis, d)
@@ -696,11 +700,12 @@ class _GatherAxis(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         mesh, axis = ctx.mesh, ctx.axis
-        g = mesh.all_reduce(g, axis)
+        if ctx.summed:
+            g = mesh.all_reduce(g, axis)
         i = mesh.axis_index(axis)
         for d, n in zip(ctx.dims, ctx.sizes):
             g = g.narrow(d, i * n, n)
-        return g.contiguous(), None, None, None
+        return g.contiguous(), None, None, None, None
 
 
 def copy_to(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
@@ -739,3 +744,37 @@ def gather_axis(t: torch.Tensor, spec: Spec, mesh: Mesh,
     if not dims or mesh.axis_size(axis) == 1:
         return t
     return _GatherAxis.apply(t, mesh, axis, tuple(dims))
+
+
+def gather_dim(t: torch.Tensor, mesh: Mesh, axis: str, dim: int, *,
+               partial: bool = True) -> torch.Tensor:
+    """The ranks' blocks of ``t`` along ``axis`` put together on ``dim``
+    (one ``all_gather``).  The adjoint keeps this rank's block of the
+    whole tensor's gradient, summed over ``axis`` first where the ranks
+    use the whole tensor each for their own share of the work
+    (``partial``: a reduce-scatter, as :func:`gather_axis`'s), as it is
+    where every rank computes the same from it (``partial=False``: the
+    residual stream's inputs)."""
+    if mesh.axis_size(axis) == 1:
+        return t
+    return _GatherAxis.apply(t, mesh, axis, (dim % t.ndim,), partial)
+
+
+def cols_matmul(x: torch.Tensor, w: torch.Tensor, mesh: Mesh,
+                cols: Sequence[Tuple[int, int]], *, axis: str = "model",
+                partial: bool = True) -> List[torch.Tensor]:
+    """``x @ W[:, a:b]`` for each ``(a, b)`` of ``cols``, where ``w`` is
+    this rank's contiguous block of W's columns over ``axis``: one
+    ``all_gather`` of whichever is smaller, the product ``x @ w`` (when
+    ``x`` has fewer rows than ``w``: decode, short prompts) or the
+    weight ``w`` (long prefills), so that each rank gets any columns of
+    the whole product.  ``partial`` as :func:`gather_dim`."""
+    if mesh.axis_size(axis) == 1:
+        y = x @ w
+        return [y[..., a:b] for a, b in cols]
+    if x.numel() // x.shape[-1] < w.shape[0]:
+        y = gather_dim(x @ w, mesh, axis, -1, partial=partial)
+        return [y[..., a:b] for a, b in cols]
+    whole = gather_dim(w, mesh, axis, -1, partial=partial)
+    y = x @ torch.cat([whole[:, a:b] for a, b in cols], 1)
+    return list(y.split([b - a for a, b in cols], -1))

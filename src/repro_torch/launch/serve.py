@@ -58,8 +58,8 @@ def serve(cfg, prompts: List[List[int]], max_new: int = 16,
     group's prefill and of each decode step in ms (each ends in reading
     the tokens back, which waits for the device).  Raises ``ValueError``
     for a config whose prefill needs ``patch_embeds`` or
-    ``frame_embeds``.  Under a live mesh context the attention decoders
-    serve sharded: ``params`` are the rank's blocks (drawn and placed
+    ``frame_embeds``.  Under a live mesh context the LM serves
+    sharded: ``params`` are the rank's blocks (drawn and placed
     here when not given), every rank serves every prompt, and the
     tokens come from the sharded greedy search
     (:func:`~repro_torch.launch.steps.greedy`)."""

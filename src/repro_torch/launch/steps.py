@@ -16,7 +16,7 @@ A step made under a :func:`~repro_torch.distributed.sharding.
 mesh_context` keeps that context and installs it around every call (the
 reference jits its steps under ``mesh_context`` with the shardings of
 :func:`~repro_torch.distributed.sharding.param_specs`); on a live mesh
-the attention decoders run sharded (:mod:`repro_torch.models.lm`).
+every LM runs sharded (:mod:`repro_torch.models.lm`).
 There a step takes the rank's blocks of the params, the optimizer state
 and the cache and the whole batch, and the train step sums the data
 ranks' gradients of each param the data axis does not split, clips by

@@ -353,6 +353,50 @@ def _slot_partials(q, k, v, mask):
     return o, heads_last(m), heads_last(p.sum(-1))
 
 
+def _combine_partials(o, m, l, mesh: SH.Mesh, split: bool) -> torch.Tensor:
+    """The softmax-weighted output (B, Sq, H, D) from :func:`_slot_partials`'
+    ``(o, max, sum)``: where the slots are ``split`` over the model axis,
+    the ranks' partials are gathered (one call) and combined by
+    log-sum-exp."""
+    if split:
+        b, sq, h, d = o.shape
+        pk = mesh.all_gather(torch.cat([o.reshape(b, sq, -1), m, l],
+                                       -1)[None], "model", 0)
+        o_r, m_r, l_r = pk.split([h * d, h, h], -1)
+        top = m_r.amax(0)
+        wgt = torch.exp(m_r - top)
+        l = (wgt * l_r).sum(0)
+        o = (o_r.reshape(mesh.mp, b, sq, h, d) * wgt[..., None]).sum(0)
+    return o / torch.clamp_min(l, 1e-30)[..., None]
+
+
+def cross_attention_cached_tp(p: Params, x: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, mesh: SH.Mesh, *,
+                              n_heads: int, head_dim: int) -> torch.Tensor:
+    """Cross-attention of ``x`` (B, S, d) on a model rank against the
+    cache's ``cross_k`` / ``cross_v`` block: ``k`` / ``v`` (B, W/mp, Hkv,
+    D) hold the rank's contiguous W/mp of the encoder's positions for
+    every kv head (the LM refuses a model axis that does not divide W),
+    ``p`` the rank's heads of ``xattn``.  As
+    :func:`attention_cached_tp`'s decode: q gathered over the model
+    axis, every rank attends its positions for every head (no mask), the
+    partials combined by log-sum-exp, the rank keeps its heads for
+    ``wo``.  Returns this rank's partial of the output projection."""
+    mi = mesh.model_index
+    hq = n_heads // mesh.mp
+    b, s, _ = x.shape
+    q = x @ p["wq"]
+    if "bq" in p:
+        q = q + p["bq"]
+    q_all = mesh.all_gather(q.reshape(b, s, hq, head_dim), "model", 2)
+    w_loc = k.shape[1]
+    msk = torch.ones((1, s, w_loc), dtype=torch.bool, device=x.device)
+    o, m, l = _slot_partials(q_all, k, v, msk)
+    o = _combine_partials(o, m, l, mesh, mesh.mp > 1)
+    o = o[:, :, mi * hq:(mi + 1) * hq].to(x.dtype)
+    return o.reshape(b, s, hq * head_dim) @ p["wo"]
+
+
 def attention_cached_tp(p: Params, x: torch.Tensor, cache: dict, pos: int,
                         mesh: SH.Mesh, *, n_heads: int, n_kv: int,
                         head_dim: int, rope_theta: float,
@@ -411,16 +455,7 @@ def attention_cached_tp(p: Params, x: torch.Tensor, cache: dict, pos: int,
         if window is not None:
             msk = msk & (kpos[None, :] > qpos - window)
         o, m, l = _slot_partials(q_all, cache["k"], cache["v"], msk[None])
-        if w_loc < w:
-            pk = mesh.all_gather(torch.cat([o.reshape(b, 1, -1), m, l],
-                                           -1)[None], "model", 0)
-            o_r, m_r, l_r = pk.split([o[0, 0].numel(), m.shape[-1],
-                                      l.shape[-1]], -1)
-            top = m_r.amax(0)
-            wgt = torch.exp(m_r - top)
-            l = (wgt * l_r).sum(0)
-            o = (o_r.reshape(mp, b, 1, -1, head_dim) * wgt[..., None]).sum(0)
-        o = o / torch.clamp_min(l, 1e-30)[..., None]
+        o = _combine_partials(o, m, l, mesh, w_loc < w)
         o = o[:, :, mi * hq:(mi + 1) * hq].to(x.dtype)
     else:
         if s > 2048:

@@ -44,8 +44,8 @@ encoder-decoder path recomputes nothing, nor does the port's).  The
 reference's ``norm_barrier`` has no counterpart.
 
 **On a mesh.**  Under a :func:`~repro_torch.distributed.sharding.
-mesh_context` whose mesh is live (ranks with process groups), the
-attention decoders (dense and MoE) run SPMD in the reference's layouts,
+mesh_context` whose mesh is live (ranks with process groups), every
+config runs SPMD in the reference's layouts,
 Megatron-style: each rank holds its blocks of the params under
 :func:`~repro_torch.distributed.sharding.param_specs` and of the cache
 under ``cache_specs`` (:meth:`LM.init_cache` allocates them), and takes
@@ -66,11 +66,26 @@ and averages over the data axis; ``prefill``, ``decode_step`` and
 ``forward_train`` return the rank's block of the logits (its rows, its
 vocab columns).  Where the model axis does not divide the heads, the kv
 heads, ``d_ff`` or the padded vocabulary, a ``ValueError`` names the
-dim (the reference's GSPMD pads instead).  Recurrent slots, the patch
-frontend and the encoder-decoder refuse a mesh of more than one rank
-(ROADMAP.md item 16.5b).  A context whose mesh is a layout only
-(``Mesh(2, 2)``, no groups) leaves the model in one process; the MoE
-then reads its dispatch groups from it, as the reference's does.
+dim (the reference's GSPMD pads instead).  A context whose mesh is a
+layout only (``Mesh(2, 2)``, no groups) leaves the model in one
+process; the MoE then reads its dispatch groups from it, as the
+reference's does.
+
+The recurrent slots run the rank's share of each mixer
+(:mod:`repro_torch.models.ssm`: Mamba's ``d_inner / mp`` channels, the
+mLSTM's ``H / mp`` heads, the sLSTM's loop replicated on gathered
+weights), entered through ``copy_to`` and summed over the model axis as
+an attention block is; their states stay in the cache's layout.  The
+patch projector's and the position tables' column blocks are put
+together over the model axis (the residual stream is whole on every
+rank); Whisper's encoder runs heads- and FFN-parallel; the decoder's
+cross-attention runs the rank's heads, against the rank's kv heads in
+training and prefill and, in decode, against the cache's ``cross_k`` /
+``cross_v``, which split the encoder positions over the model axis for
+every head (partials combined by log-sum-exp).  The model axis must
+also divide Mamba's ``d_inner``, the sLSTM's inner width, ``d_model``
+where the patch projector or the position tables split it, and
+``enc_positions``.
 
 Long prompts (more than 2,048 tokens) attend through K5
 (:mod:`repro_torch.kernels.flash_attn`) in serving; training at any
@@ -317,26 +332,33 @@ class LM:
     def _tp(self, batch: int, params=None) -> Optional["_Tp"]:
         """The sharded run of a call on ``batch`` rows under the active
         mesh context, or None where it has no live mesh (one process).
-        Refuses what the port does not shard, and a model axis that does
-        not divide the heads, the kv heads, ``d_ff`` or the padded
-        vocabulary."""
+        Refuses a model axis that does not divide a dim the rules split
+        over it: the heads, the kv heads, ``d_ff``, the padded
+        vocabulary, Mamba's ``d_inner`` (``mamba_expand*d_model``), the
+        sLSTM's ``slstm_inner_dim``, ``d_model`` where the patch
+        projector or the position tables split it, and an
+        encoder-decoder's ``enc_positions`` (its cross K/V cache)."""
         mc = SH.current()
         mesh = SH.live_mesh(mc)
         if mesh is None:
             return None
         cfg = self.cfg
-        if set(self.pattern) != {"a"} or cfg.frontend or cfg.enc_dec:
-            raise NotImplementedError(
-                f"{cfg.name} on a mesh of {mesh.size} ranks: the port "
-                "shards the attention decoders only; the Mamba / mLSTM / "
-                "sLSTM slots, the patch projector and the encoder-decoder "
-                "are ROADMAP.md item 16.5b")
         if mc.strategy != "tp":
             raise NotImplementedError(
                 f"mesh strategy {mc.strategy!r}: its rules are ported "
                 "(param_specs), its execution is not; the LM runs 'tp'")
-        for name in ("n_heads", "n_kv_heads", "d_ff", "vocab_padded"):
-            n = getattr(cfg, name)
+        dims = {name: getattr(cfg, name) for name in (
+            "n_heads", "n_kv_heads", "d_ff", "vocab_padded")}
+        if "m" in self.pattern:
+            dims["mamba_expand*d_model"] = cfg.mamba_expand * cfg.d_model
+        if "s" in self.pattern:
+            dims["slstm_inner_dim"] = S.slstm_inner_dim(
+                cfg.d_model, cfg.n_heads, cfg.slstm_proj)
+        if cfg.frontend == "patch" or cfg.enc_dec:
+            dims["d_model"] = cfg.d_model
+        if cfg.enc_dec:
+            dims["enc_positions"] = cfg.enc_positions
+        for name, n in dims.items():
             if n % mesh.mp:
                 raise ValueError(
                     f"{cfg.name}: the model axis of {mesh.mp} ranks does "
@@ -388,25 +410,47 @@ class LM:
         cfg, kind = self.cfg, self.pattern[j]
         h = L.rms_norm(p["ln1"], x)
         if kind == "a":
-            hq, hk = ((cfg.n_heads, cfg.n_kv_heads) if tp is None
-                      else (tp.hq, tp.hk))
+            hq, hk = _heads(cfg, tp)
             out, _ = L.attention(
                 p["attn"], _into(h, tp), n_heads=hq, n_kv=hk,
                 head_dim=cfg.hd, rope_theta=cfg.rope_theta,
                 window=cfg.sliding_window, causal=True,
                 attn_block=cfg.attn_block, use_rope=use_rope)
             out = _out_of(out, tp)
-        elif kind == "m":
-            out, _ = S.mamba_forward(p["mamba"], h, chunk=cfg.mamba_chunk)
-        elif kind == "x":
-            out, _ = S.mlstm_chunkwise(p["mlstm"], h, n_heads=cfg.n_heads,
-                                       chunk=cfg.mlstm_chunk)
         else:
-            out, _ = S.slstm_forward(p["slstm"], h)
+            out, _ = self._recurrent(p, h, kind, None, tp)
         x = x + out
         if ffn_key(cfg, j) is not None:
             x = x + self._ffn(p, x, j, tp)
         return x
+
+    def _recurrent(self, p: Params, h: torch.Tensor, kind: str, state,
+                   tp: Optional["_Tp"] = None):
+        """A Mamba / mLSTM / sLSTM mixer on the normed ``h``: (its
+        output, the new state, None where ``state`` is None (training)).
+        A decode step (one token against a state) of the mLSTM takes its
+        recurrent form; on a mesh the rank's share
+        (:mod:`repro_torch.models.ssm`), its output summed over the model
+        axis."""
+        cfg = self.cfg
+        mesh = None if tp is None else tp.mesh
+        h = _into(h, tp)
+        if kind == "m":
+            chunk = cfg.mamba_chunk
+            if state is not None:
+                chunk = min(chunk, max(h.shape[1], 1))
+            out, new = S.mamba_forward(p["mamba"], h, state, chunk=chunk,
+                                       mesh=mesh)
+        elif kind == "x" and state is not None and h.shape[1] == 1:
+            out, new = S.mlstm_recurrent(p["mlstm"], h, state,
+                                         n_heads=cfg.n_heads, mesh=mesh)
+        elif kind == "x":
+            out, new = S.mlstm_chunkwise(p["mlstm"], h, state,
+                                         n_heads=cfg.n_heads,
+                                         chunk=cfg.mlstm_chunk, mesh=mesh)
+        else:
+            out, new = S.slstm_forward(p["slstm"], h, state, mesh=mesh)
+        return _out_of(out, tp), new
 
     def _super_block(self, x: torch.Tensor, slot_ps,
                      tp: Optional["_Tp"] = None) -> torch.Tensor:
@@ -431,46 +475,77 @@ class LM:
                 x = self._super_block(x, ps, tp)
         return L.rms_norm(params["final_ln"], x)
 
-    def _attend(self, p: Params, x: torch.Tensor, causal: bool
-                ) -> torch.Tensor:
-        """An encoder-decoder's cache-free self-attention (no rope)."""
+    def _attend(self, p: Params, x: torch.Tensor, causal: bool,
+                tp: Optional["_Tp"] = None) -> torch.Tensor:
+        """An encoder-decoder's cache-free self-attention (no rope); on a
+        mesh the rank's heads, summed over the model axis."""
         cfg = self.cfg
-        out, _ = L.attention(p["attn"], x, n_heads=cfg.n_heads,
-                             n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
-                             rope_theta=cfg.rope_theta, causal=causal,
-                             attn_block=cfg.attn_block, use_rope=False)
-        return out
-
-    def _cross(self, p: Params, x: torch.Tensor, cross_kv) -> torch.Tensor:
-        """``x`` plus its cross-attention on ``cross_kv`` ((B, S_enc,
-        Hkv, hd) K and V): ``lnx``, then ``xattn`` without rope."""
-        cfg = self.cfg
-        out, _ = L.attention(p["xattn"], L.rms_norm(p["lnx"], x),
-                             n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+        hq, hk = _heads(cfg, tp)
+        out, _ = L.attention(p["attn"], _into(x, tp), n_heads=hq, n_kv=hk,
                              head_dim=cfg.hd, rope_theta=cfg.rope_theta,
-                             cross_kv=cross_kv, use_rope=False)
-        return x + out
+                             causal=causal, attn_block=cfg.attn_block,
+                             use_rope=False)
+        return _out_of(out, tp)
 
-    def _cross_kv(self, p: Params, enc: torch.Tensor):
+    def _cross(self, p: Params, x: torch.Tensor, cross_kv,
+               tp: Optional["_Tp"] = None, split: bool = False
+               ) -> torch.Tensor:
+        """``x`` plus its cross-attention on ``cross_kv`` ((B, S_enc,
+        Hkv, hd) K and V): ``lnx``, then ``xattn`` without rope.  On a
+        mesh, the rank's heads against its kv heads' K/V
+        (:meth:`_cross_kv`), or with ``split`` against the cache's block
+        of the encoder positions for every head
+        (:func:`~repro_torch.models.layers.cross_attention_cached_tp`);
+        summed over the model axis."""
+        cfg = self.cfg
+        h = _into(L.rms_norm(p["lnx"], x), tp)
+        if split:
+            out = L.cross_attention_cached_tp(
+                p["xattn"], h, *cross_kv, tp.mesh, n_heads=cfg.n_heads,
+                head_dim=cfg.hd)
+        else:
+            hq, hk = _heads(cfg, tp)
+            out, _ = L.attention(p["xattn"], h, n_heads=hq, n_kv=hk,
+                                 head_dim=cfg.hd, rope_theta=cfg.rope_theta,
+                                 cross_kv=cross_kv, use_rope=False)
+        return x + _out_of(out, tp)
+
+    def _cross_kv(self, p: Params, enc: torch.Tensor,
+                  tp: Optional["_Tp"] = None):
         """The encoder output's K and V for one decoder block's
-        ``xattn``, (B, S_enc, Hkv, hd) each."""
+        ``xattn``, (B, S_enc, Hkv, hd) each; on a mesh the rank's kv
+        heads (``enc`` behind :func:`_into`)."""
         cfg = self.cfg
         b, s, _ = enc.shape
-        return tuple((enc @ p["xattn"][w]).reshape(b, s, cfg.n_kv_heads,
-                                                   cfg.hd)
+        hk = _heads(cfg, tp)[1]
+        return tuple((enc @ p["xattn"][w]).reshape(b, s, hk, cfg.hd)
                      for w in ("wk", "wv"))
 
+    def _positions(self, params: Params, name: str, rows: slice,
+                   tp: Optional["_Tp"] = None) -> torch.Tensor:
+        """Rows ``rows`` of the position table ``name`` (positions, d);
+        on a mesh its column blocks gathered over the model axis, since
+        they enter the residual stream every rank holds whole."""
+        t = params[name][rows]
+        if tp is None:
+            return t
+        return SH.gather_dim(t, tp.mesh, "model", -1, partial=False)
+
     def _encode(self, params: Params, x: torch.Tensor,
-                frames: torch.Tensor) -> torch.Tensor:
+                frames: torch.Tensor, tp: Optional["_Tp"] = None
+                ) -> torch.Tensor:
         """The encoder: ``frames`` (B, S_enc, d) plus ``pos_embed_enc``
         in ``x``'s dtype, the ``enc_layers`` non-causal blocks
-        (self-attention, then the MLP), ``enc_final_ln``."""
-        enc = frames.to(x.dtype) + params["pos_embed_enc"][
-            None, :frames.shape[1]].to(x.dtype)
+        (self-attention, then the MLP), ``enc_final_ln``; on a mesh each
+        block on the rank's heads and FFN slice."""
+        enc = frames.to(x.dtype) + self._positions(
+            params, "pos_embed_enc", slice(0, frames.shape[1]), tp
+        )[None].to(x.dtype)
         for r in range(self.cfg.enc_layers):
-            p = _tree_map(lambda t: t[r], params["enc_slots"][0])
-            enc = enc + self._attend(p, L.rms_norm(p["ln1"], enc), False)
-            enc = enc + L.mlp(p["mlp"], L.rms_norm(p["ln2"], enc))
+            p = _at(params["enc_slots"][0], r)
+            enc = enc + self._attend(p, L.rms_norm(p["ln1"], enc), False, tp)
+            enc = enc + _out_of(L.mlp(p["mlp"], _into(
+                L.rms_norm(p["ln2"], enc), tp)), tp)
         return L.rms_norm(params["enc_final_ln"], enc)
 
     def _front(self, params: Params, batch,
@@ -479,16 +554,27 @@ class LM:
         encoder's output: the token embeddings, plus ``pos_embed_dec``
         at positions 0..S-1 in an encoder-decoder, or after the
         projected patches (``patch_embeds @ patch_proj``) with the patch
-        frontend.  On a mesh, the rank's rows of the batch."""
+        frontend.  On a mesh, the rank's rows of the batch, the
+        projected patches put together over the model axis
+        (:func:`~repro_torch.distributed.sharding.cols_matmul`), and the
+        encoder's output entering the rank's cross-attention heads."""
         cfg = self.cfg
-        tokens = batch["inputs"] if tp is None else batch["inputs"][tp.rows]
-        x = self.embed(params, tokens, tp)
+        rows = slice(None) if tp is None else tp.rows
+        x = self.embed(params, batch["inputs"][rows], tp)
         enc = None
         if cfg.enc_dec:
-            enc = self._encode(params, x, batch["frame_embeds"])
-            x = x + params["pos_embed_dec"][None, :x.shape[1]].to(x.dtype)
+            enc = self._encode(params, x, batch["frame_embeds"][rows], tp)
+            enc = _into(enc, tp)
+            x = x + self._positions(params, "pos_embed_dec",
+                                    slice(0, x.shape[1]), tp)[None].to(
+                                        x.dtype)
         elif cfg.frontend == "patch":
-            pe = batch["patch_embeds"].to(x.dtype) @ params["patch_proj"]
+            pe = batch["patch_embeds"][rows].to(x.dtype)
+            if tp is None:
+                pe = pe @ params["patch_proj"]
+            else:
+                pe = SH.cols_matmul(pe, params["patch_proj"], tp.mesh,
+                                    [(0, cfg.d_model)], partial=False)[0]
             x = torch.cat([pe, x], 1)
         return x, enc
 
@@ -507,10 +593,11 @@ class LM:
         x, enc = self._front(params, batch, tp)
         if cfg.enc_dec:
             for r in range(self.repeats):
-                p = _tree_map(lambda t: t[r], params["slots"][0])
-                x = x + self._attend(p, L.rms_norm(p["ln1"], x), True)
-                x = self._cross(p, x, self._cross_kv(p, enc))
-                x = x + L.mlp(p["mlp"], L.rms_norm(p["ln2"], x))
+                p = _at(params["slots"][0], r)
+                x = x + self._attend(p, L.rms_norm(p["ln1"], x), True, tp)
+                x = self._cross(p, x, self._cross_kv(p, enc, tp), tp)
+                x = x + _out_of(L.mlp(p["mlp"], _into(
+                    L.rms_norm(p["ln2"], x), tp)), tp)
             x = L.rms_norm(params["final_ln"], x)
         else:
             x = self._backbone_train(params, x, tp)
@@ -593,7 +680,8 @@ class LM:
         reference's.  An encoder-decoder adds ``cross_k`` / ``cross_v``
         (R, B, enc_positions, Hkv, D) in the compute dtype, zero until
         :meth:`prefill` writes the encoder's K/V there.  On a mesh, this
-        rank's blocks under ``cache_specs`` (``kpos`` whole)."""
+        rank's blocks under ``cache_specs`` (``kpos`` whole), each leaf
+        at its initial value (``m`` at -1e30)."""
         cfg = self.cfg
         tp = self._tp(batch)
         dev = self.device if tp is None else torch.device("meta")
@@ -604,29 +692,26 @@ class LM:
             for name in ("cross_k", "cross_v"):
                 cache[name] = torch.zeros(
                     (self.repeats, batch, cfg.enc_positions, cfg.n_kv_heads,
-                     cfg.hd), dtype=DTYPES[cfg.compute_dtype],
-                    device=self.device)
+                     cfg.hd), dtype=DTYPES[cfg.compute_dtype], device=dev)
         if tp is not None:
-            cache = SH._zip_map(
-                lambda t, s: t if not isinstance(t, torch.Tensor) else
-                torch.full(SH.local_shape(t.shape, s, tp.mesh),
-                           -1 if t.dtype == torch.int32 else 0,
-                           dtype=t.dtype, device=self.device),
-                cache, SH.cache_specs(cache, tp.mc))
+            cache = _local_cache(cache, SH.cache_specs(cache, tp.mc),
+                                 tp.mesh, self.device)
         return cache
 
     # ------------------------------------------------------------------
     # cached block (prefill S tokens or decode 1 token)
     # ------------------------------------------------------------------
     def _block_cached(self, p: Params, x, j: int, cache, pos, cross=None,
-                      tp: Optional["_Tp"] = None):
+                      tp: Optional["_Tp"] = None, split: bool = False):
         """Slot ``j``'s block against its cache: the KV cache is written
         in place by ``attention_cached`` (on a mesh
         ``attention_cached_tp``, the rank's heads and ring slots); a
-        recurrent block's new state is copied into ``cache``'s tensors.
-        ``cross``: this repeat's cached cross K/V, attended after the
-        self-attention (an encoder-decoder, whose attention takes no
-        rope)."""
+        recurrent block's new state (on a mesh, in the cache's layout)
+        is copied into ``cache``'s tensors.  ``cross``: this repeat's
+        cross K/V, attended after the self-attention (an
+        encoder-decoder, whose attention takes no rope); ``split``: they
+        are the cache's block of the encoder positions (a decode step on
+        a mesh), else the rank's kv heads at every position."""
         cfg, kind = self.cfg, self.pattern[j]
         h = L.rms_norm(p["ln1"], x)
         if kind == "a":
@@ -641,43 +726,37 @@ class LM:
                                                cache, pos, tp.mesh, **kw)
                 out = _out_of(out, tp)
             new = None
-        elif kind == "m":
-            out, new = S.mamba_forward(p["mamba"], h, cache,
-                                       chunk=min(cfg.mamba_chunk,
-                                                 max(x.shape[1], 1)))
-        elif kind == "x":
-            if x.shape[1] == 1:
-                out, new = S.mlstm_recurrent(p["mlstm"], h, cache,
-                                             n_heads=cfg.n_heads)
-            else:
-                out, new = S.mlstm_chunkwise(p["mlstm"], h, cache,
-                                             n_heads=cfg.n_heads,
-                                             chunk=cfg.mlstm_chunk)
         else:
-            out, new = S.slstm_forward(p["slstm"], h, cache)
+            out, new = self._recurrent(p, h, kind, cache, tp)
         if new is not None:
             for dst, src in zip(cache, new):
                 dst.copy_(src)
         x = x + out
         if cross is not None and kind == "a":
-            x = self._cross(p, x, cross)
+            x = self._cross(p, x, cross, tp, split)
         if ffn_key(cfg, j) is not None:
             x = x + self._ffn(p, x, j, tp)
         return x
 
     def _run_cached(self, params: Params, x, cache,
-                    tp: Optional["_Tp"] = None):
+                    tp: Optional["_Tp"] = None, fresh=None):
         """Run every slot of every repeat in order, each against its
         cache slice (views of the stacked cache, written in place), an
-        encoder-decoder's against its repeat's cross K/V too."""
+        encoder-decoder's against its repeat's cross K/V too: ``fresh``,
+        the prefill's per repeat, else the cache's."""
         pos = cache["pos"]
+        split = tp is not None and fresh is None
         for r in range(self.repeats):
-            cross = ((cache["cross_k"][r], cache["cross_v"][r])
-                     if self.cfg.enc_dec else None)
+            cross = None
+            if fresh is not None:
+                cross = fresh[r]
+            elif self.cfg.enc_dec:
+                cross = (cache["cross_k"][r], cache["cross_v"][r])
             for j in range(len(self.pattern)):
                 p_r = _at(params["slots"][j], r)
                 c_r = _tree_map(lambda t: t[r], cache["slots"][j])
-                x = self._block_cached(p_r, x, j, c_r, pos, cross, tp)
+                x = self._block_cached(p_r, x, j, c_r, pos, cross, tp,
+                                       split)
         cache["pos"] = pos + x.shape[1]
         return x, cache
 
@@ -693,20 +772,42 @@ class LM:
         tp = self._tp(batch["inputs"].shape[0], params)
         params = tp.blocks if tp is not None else self._cast(params)
         x, enc = self._front(params, batch, tp)
+        fresh = None
         if enc is not None:
-            cfg = self.cfg
-            shape = (self.repeats, *enc.shape[:2], cfg.n_kv_heads, cfg.hd)
-            for name in ("cross_k", "cross_v"):
-                if tuple(cache[name].shape) != shape:
-                    cache[name] = cache[name].new_empty(shape)
-            for r in range(self.repeats):
-                p_r = _tree_map(lambda t: t[r], params["slots"][0])
-                for name, kv in zip(("cross_k", "cross_v"),
-                                    self._cross_kv(p_r, enc)):
-                    cache[name][r].copy_(kv)
-        x, cache = self._run_cached(params, x, cache, tp)
+            fresh = [self._cross_kv(_at(params["slots"][0], r), enc, tp)
+                     for r in range(self.repeats)]
+            self._write_cross(cache, fresh, tp)
+        x, cache = self._run_cached(params, x, cache, tp, fresh)
         x = L.rms_norm(params["final_ln"], x[:, -1:])
         return self.logits(params, x, tp), cache
+
+    def _write_cross(self, cache, fresh, tp: Optional["_Tp"]) -> None:
+        """Each repeat's cross K/V (``fresh``: (B, S_enc, Hkv, hd), on a
+        mesh the rank's kv heads) into the cache, in place (tensors of
+        another frame count replaced).  On a mesh the heads are gathered
+        over the model axis (one call a layer) and the rank keeps its
+        block of the encoder positions for every head."""
+        cfg = self.cfg
+        b, s_enc = fresh[0][0].shape[:2]
+        w = s_enc
+        if tp is not None and tp.mesh.mp > 1:
+            if s_enc % tp.mesh.mp:
+                raise ValueError(
+                    f"{cfg.name}: the model axis of {tp.mesh.mp} ranks does "
+                    f"not divide the {s_enc} encoder positions of the "
+                    "cross K/V cache")
+            w = s_enc // tp.mesh.mp
+        shape = (self.repeats, b, w, cfg.n_kv_heads, cfg.hd)
+        for name in ("cross_k", "cross_v"):
+            if tuple(cache[name].shape) != shape:
+                cache[name] = cache[name].new_empty(shape)
+        for r, (k, v) in enumerate(fresh):
+            if w < s_enc:
+                lo = tp.mesh.model_index * w
+                kv = tp.mesh.all_gather(torch.cat([k, v], -1), "model", 2)
+                k, v = kv[:, lo:lo + w].split(cfg.hd, -1)
+            cache["cross_k"][r].copy_(k)
+            cache["cross_v"][r].copy_(v)
 
     def decode_step(self, params: Params, batch, cache):
         """One-token step against the cache. batch['inputs']: (B, 1).  An
@@ -720,7 +821,8 @@ class LM:
         x = self.embed(params, tokens, tp)
         if cfg.enc_dec:
             pos = min(max(cache["pos"], 0), cfg.max_positions - 1)
-            x = x + params["pos_embed_dec"][pos].to(x.dtype)
+            x = x + self._positions(params, "pos_embed_dec",
+                                    slice(pos, pos + 1), tp).to(x.dtype)
         x, cache = self._run_cached(params, x, cache, tp)
         x = L.rms_norm(params["final_ln"], x)
         return self.logits(params, x, tp), cache
@@ -793,6 +895,33 @@ class _Tp:
             use = (lambda name, t, spec: SH.gather_axis(
                 lm._cast_leaf(name, t), spec, mesh, "data"))
             self.blocks = _Blocks(params, SH.param_specs(params, mc), use)
+
+
+def _heads(cfg: ArchConfig, tp: Optional[_Tp]) -> Tuple[int, int]:
+    """The q and kv heads a call runs: all, or on a mesh the rank's."""
+    return ((cfg.n_heads, cfg.n_kv_heads) if tp is None
+            else (tp.hq, tp.hk))
+
+
+def _local_cache(tree, specs, mesh, device, name: str = ""):
+    """This rank's blocks of a cache of meta tensors under ``specs``,
+    each at its leaf's initial value: -1 for the int32 ``kpos``, -1e30
+    for a state's ``m``, else zeros."""
+    if isinstance(tree, dict):
+        return {k: _local_cache(v, specs[k], mesh, device, k)
+                for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_local_cache(v, s, mesh, device, k)
+                            for k, v, s in zip(tree._fields, tree, specs)))
+    if isinstance(tree, list):
+        return [_local_cache(v, s, mesh, device, name)
+                for v, s in zip(tree, specs)]
+    if not isinstance(tree, torch.Tensor):
+        return tree
+    fill = (-1 if tree.dtype == torch.int32 else
+            S.NEG if name == "m" else 0)
+    return torch.full(SH.local_shape(tree.shape, specs, mesh), fill,
+                      dtype=tree.dtype, device=device)
 
 
 def _into(h: torch.Tensor, tp: Optional[_Tp]) -> torch.Tensor:

@@ -17,6 +17,31 @@ Sentinels stay the reference's ``-1e30``, never ``-inf``: the initial
 log-stabiliser ``m``, the padded mLSTM input gates and its masked decay
 matrix are all differenced against each other, and ``-inf - (-inf)`` is
 NaN.
+
+**On a model rank** (``mesh=``, the LM's tensor-parallel run): ``p``
+holds the rank's blocks under the reference's ``PARAM_RULES``, a state
+the rank's block under its ``cache_specs``, and each block returns its
+partial output, which the caller sums over ``'model'``.  No collective
+runs inside a time or chunk loop: every exchange is once per call.
+
+* Mamba runs the rank's ``d_inner / mp`` channels.  ``in_proj``'s column
+  block is not the rank's channels of both halves ``[x_in | z]`` (on mp
+  2 one rank holds all of ``x_in``), so one gather of the smaller of the
+  weight and the product gives each rank its channels of both
+  (:func:`~repro_torch.distributed.sharding.cols_matmul`); ``x_proj``'s
+  row block makes a partial ``(dt, B, C)``, summed once in f32 (in bf16
+  its two roundings moved Jamba's logits past the bf16 gate); the scan
+  and the conv are local.
+* The mLSTM runs the rank's ``H / mp`` heads: ``up``'s ``xi`` half whole
+  and the rank's block of ``z`` come from one such gather; ``wif`` /
+  ``bif`` (replicated) are read behind ``copy_to`` for the rank's
+  heads' gates.  Its cache splits ``c`` on ``dv`` with ``n`` and ``m``
+  whole: one gather turns the cache's block into the rank's heads at the
+  read, one gather of the new ``(c, n, m)`` puts it back at the write.
+* The sLSTM gathers ``wx`` / ``wh`` (one ``all_gather`` for both) and
+  runs its serial loop replicated over ``'model'`` (its state is
+  replicated there); the rank multiplies its ``d_inner`` block of the
+  outputs by its ``down`` rows.
 """
 
 from __future__ import annotations
@@ -28,6 +53,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import sharding as SH
 from repro_torch.models.layers import _dense_init, _wants_grad, draw_device
 
 Params = Dict[str, Any]
@@ -146,22 +172,39 @@ def _mamba_scan_chunked(dt, x_c, A, bmat, cmat, h0, chunk: int):
 
 
 def mamba_forward(p: Params, x: torch.Tensor,
-                  state: Optional[MambaState] = None, *, chunk: int = 128
+                  state: Optional[MambaState] = None, *, chunk: int = 128,
+                  mesh: Optional[SH.Mesh] = None
                   ) -> Tuple[torch.Tensor, Optional[MambaState]]:
     """Full-sequence (train/prefill) Mamba block. x: (B, S, d_model).
-    Returns (out, the new state, or None when ``state`` is None)."""
+    Returns (out, the new state, or None when ``state`` is None).  With
+    ``mesh``, the rank's channels and a partial ``out`` (module doc)."""
+    p = dict(p)                  # each leaf read (cast, gathered) once
     b, s, _ = x.shape
     di = p["conv_w"].shape[1]
     ds = p["A_log"].shape[1]
     dt_rank = p["dt_proj"].shape[0]
 
-    xz = x @ p["in_proj"]
-    x_in, z = xz.split(di, dim=-1)
+    if mesh is None:
+        xz = x @ p["in_proj"]
+        x_in, z = xz.split(di, dim=-1)
+    else:
+        lo, whole = mesh.model_index * di, di * mesh.mp
+        x_in, z = SH.cols_matmul(
+            x, p["in_proj"], mesh,
+            [(lo, lo + di), (whole + lo, whole + lo + di)])
     conv_state = state.conv if state is not None else None
     x_c, new_conv = _mamba_conv(p, x_in, conv_state)
     x_c = F.silu(x_c)
 
-    proj = x_c @ p["x_proj"]
+    if mesh is None:
+        proj = x_c @ p["x_proj"]
+    else:
+        # the rank's rows of x_proj give a partial sum, read again by the
+        # rank's channels (so summed both ways): taken and summed in f32,
+        # rounded once to the compute dtype as one product is
+        proj = SH.reduce_from(x_c.float() @ p["x_proj"].float(), mesh,
+                              "model")
+        proj = SH.copy_to(proj, mesh, "model").to(x_c.dtype)
     dt_in, bmat, cmat = proj.split([dt_rank, ds, ds], dim=-1)
     dt = _softplus(dt_in @ p["dt_proj"] + p["dt_bias"])      # (B, S, di)
     A = -torch.exp(p["A_log"])                                # (di, ds)
@@ -232,18 +275,36 @@ def init_mlstm(gen: torch.Generator, d_model: int, *, n_heads: int,
     }
 
 
-def _mlstm_heads(p: Params, x: torch.Tensor, n_heads: int):
+def _mlstm_heads(p: Params, x: torch.Tensor, n_heads: int,
+                 mesh: Optional[SH.Mesh] = None):
+    """q, k, v (B, h, S, dh), the gates' logs (B, h, S) and ``z`` of the
+    block's ``h`` heads: all ``n_heads``, or with ``mesh`` the rank's
+    ``n_heads / mp`` (its columns of ``wq`` / ``wk`` / ``wv``) and its
+    block of ``z``."""
     b, s, _ = x.shape
-    up = x @ p["up"]
-    di = up.shape[-1] // 2
-    xi, z = up.split(di, dim=-1)
+    di = p["wq"].shape[0]
     dh = di // n_heads
+    wif, bif = p["wif"], p["bif"]
+    if mesh is None:
+        h = n_heads
+        xi, z = (x @ p["up"]).split(di, dim=-1)
+    else:
+        h = n_heads // mesh.mp
+        lo = mesh.model_index * h
+        xi, z = SH.cols_matmul(x, p["up"], mesh,
+                               [(0, di), (di + lo * dh, di + (lo + h) * dh)])
+        # replicated leaves read for the rank's heads: their gradients
+        # are partial, summed over the model axis by copy_to's adjoint
+        wif, bif = (SH.copy_to(t, mesh, "model") for t in (wif, bif))
+        wif, bif = (torch.cat([t[..., lo:lo + h],
+                               t[..., n_heads + lo:n_heads + lo + h]], -1)
+                    for t in (wif, bif))
 
     def heads(w):
-        return (xi @ w).reshape(b, s, n_heads, dh).transpose(1, 2)
+        return (xi @ w).reshape(b, s, h, dh).transpose(1, 2)
     q, k, v = heads(p["wq"]), heads(p["wk"]), heads(p["wv"])
-    gif = xi.float() @ p["wif"] + p["bif"]
-    ig, fg = gif.split(n_heads, dim=-1)              # (B, S, H)
+    gif = xi.float() @ wif + bif
+    ig, fg = gif.split(h, dim=-1)                    # (B, S, h)
     log_i = ig.transpose(1, 2)                       # pre-activation
     log_f = -_softplus(-fg).transpose(1, 2)          # log sigmoid
     return q, k, v, log_i, log_f, z
@@ -257,11 +318,45 @@ def _mlstm_out(p: Params, hs: torch.Tensor, z: torch.Tensor,
     return (hs.to(x.dtype) * F.silu(z)) @ p["down"]
 
 
+def _mlstm_state_in(state: MLSTMState, mesh: SH.Mesh, h: int
+                    ) -> MLSTMState:
+    """The rank's ``h`` heads of a cache block (``c`` split on ``dv``
+    over the model axis where it divides, ``n`` / ``m`` whole): one
+    gather of ``c`` (none where it is whole)."""
+    c, n, m = state
+    lo = mesh.model_index * h
+    if c.shape[-1] < c.shape[-2]:
+        c = mesh.all_gather(c, "model", -1)
+    return MLSTMState(c[:, lo:lo + h], n[:, lo:lo + h], m[:, lo:lo + h])
+
+
+def _mlstm_state_out(state: MLSTMState, mesh: SH.Mesh, dv: int
+                     ) -> MLSTMState:
+    """The rank's heads' new state put back into the cache's layout
+    (every head; ``c``'s ``dv`` block of width ``dv``): one gather of
+    ``(c, n, m)`` packed per head."""
+    c, n, m = state
+    b, h, dk, dvw = c.shape
+    packed = torch.cat([c.reshape(b, h, -1), n, m[..., None]], -1)
+    c, n, m = mesh.all_gather(packed, "model", 1).split(
+        [dk * dvw, dk, 1], -1)
+    c = c.reshape(b, -1, dk, dvw)
+    lo = mesh.model_index * dv if dv < dvw else 0
+    return MLSTMState(c[..., lo:lo + dv], n, m[..., 0])
+
+
 def mlstm_recurrent(p: Params, x: torch.Tensor, state: MLSTMState, *,
-                    n_heads: int) -> Tuple[torch.Tensor, MLSTMState]:
-    """Step-by-step reference / decode path. x: (B, S, d)."""
-    q, k, v, log_i, log_f, z = _mlstm_heads(p, x, n_heads)
+                    n_heads: int, mesh: Optional[SH.Mesh] = None
+                    ) -> Tuple[torch.Tensor, MLSTMState]:
+    """Step-by-step reference / decode path. x: (B, S, d).  With
+    ``mesh``, the rank's heads, ``state`` and the new state in the
+    cache's layout, a partial output (module doc)."""
+    p = dict(p)
+    q, k, v, log_i, log_f, z = _mlstm_heads(p, x, n_heads, mesh)
     scale = 1.0 / math.sqrt(q.shape[-1])
+    dv = state.c.shape[-1]
+    if mesh is not None:
+        state = _mlstm_state_in(state, mesh, q.shape[1])
     c, n, m = state
     hs = []
     for t in range(x.shape[1]):
@@ -280,7 +375,10 @@ def mlstm_recurrent(p: Params, x: torch.Tensor, state: MLSTMState, *,
         den = torch.maximum(torch.einsum("bhk,bhk->bh", qt, n).abs(),
                             torch.exp(-m))[..., None]
         hs.append(num / den)
-    return _mlstm_out(p, torch.stack(hs, 2), z, x), MLSTMState(c, n, m)
+    new = MLSTMState(c, n, m)
+    if mesh is not None:
+        new = _mlstm_state_out(new, mesh, dv)
+    return _mlstm_out(p, torch.stack(hs, 2), z, x), new
 
 
 def _mlstm_chunk(c, n, m, qb, kb, vb, li, lf, scale: float):
@@ -324,14 +422,16 @@ def _mlstm_chunk(c, n, m, qb, kb, vb, li, lf, scale: float):
 
 def mlstm_chunkwise(p: Params, x: torch.Tensor,
                     state: Optional[MLSTMState] = None, *, n_heads: int,
-                    chunk: int = 256
+                    chunk: int = 256, mesh: Optional[SH.Mesh] = None
                     ) -> Tuple[torch.Tensor, Optional[MLSTMState]]:
     """Chunkwise-parallel mLSTM (training form): intra-chunk quadratic
     matmuls + inter-chunk recurrence on (C, n, m).  Each chunk is
-    recomputed in the backward under autograd."""
+    recomputed in the backward under autograd.  With ``mesh``, as
+    :func:`mlstm_recurrent`."""
+    p = dict(p)
     b, s, _ = x.shape
-    q, k, v, log_i, log_f, z = _mlstm_heads(p, x, n_heads)
-    h, dh = n_heads, q.shape[-1]
+    q, k, v, log_i, log_f, z = _mlstm_heads(p, x, n_heads, mesh)
+    h, dh = q.shape[1], q.shape[-1]
     scale = 1.0 / math.sqrt(dh)
     pad = (-s) % chunk
     if pad:
@@ -343,6 +443,9 @@ def mlstm_chunkwise(p: Params, x: torch.Tensor,
         n = torch.zeros((b, h, dh), dtype=torch.float32, device=x.device)
         m = torch.full((b, h), NEG, dtype=torch.float32, device=x.device)
     else:
+        dv = state.c.shape[-1]
+        if mesh is not None:
+            state = _mlstm_state_in(state, mesh, h)
         c, n, m = state
     hs = []
     for i in range((s + pad) // chunk):
@@ -353,7 +456,10 @@ def mlstm_chunkwise(p: Params, x: torch.Tensor,
         hs.append(hout)
     hs = torch.cat(hs, 2)[:, :, :s]
     out = _mlstm_out(p, hs, z, x)
-    return out, (MLSTMState(c, n, m) if state is not None else None)
+    if state is None:
+        return out, None
+    new = MLSTMState(c, n, m)
+    return out, (new if mesh is None else _mlstm_state_out(new, mesh, dv))
 
 
 def init_mlstm_state(batch: int, p: Params, n_heads: int) -> MLSTMState:
@@ -403,20 +509,32 @@ def init_slstm(gen: torch.Generator, d_model: int, *, n_heads: int,
 
 
 def slstm_forward(p: Params, x: torch.Tensor,
-                  state: Optional[SLSTMState] = None
+                  state: Optional[SLSTMState] = None, *,
+                  mesh: Optional[SH.Mesh] = None
                   ) -> Tuple[torch.Tensor, Optional[SLSTMState]]:
     """Sequential loop over time (no parallel form exists: the recurrent
     weight matrix creates a true serial dependency).  ``h`` is cast to
-    the compute dtype before ``h @ wh``; the gates are f32."""
+    the compute dtype before ``h @ wh``; the gates are f32.  With
+    ``mesh``, the loop replicated over the model axis on the gathered
+    ``wx`` / ``wh`` and a partial output of the rank's ``down`` rows
+    (module doc)."""
+    p = dict(p)
     b, s, _ = x.shape
-    xg = x @ p["wx"]                                   # (B, S, 4di)
+    wx, wh, bias, down = p["wx"], p["wh"], p["b"], p["down"]
+    if mesh is not None and mesh.mp > 1:
+        # one gather for both; the loop reads them for the rank's share
+        # of the output, so their gradients (and b's) are partial sums
+        both = SH.gather_dim(torch.cat([wx, wh], 0), mesh, "model", -1)
+        wx, wh = both.split([wx.shape[0], wh.shape[0]], 0)
+        bias = SH.copy_to(bias, mesh, "model")
+    xg = x @ wx                                        # (B, S, 4di)
     ret_state = state is not None
     if state is None:
         state = init_slstm_state(b, p)
     c, n, m, h = state
     hs = []
     for t in range(s):
-        g = xg[:, t].float() + (h.to(x.dtype) @ p["wh"]).float() + p["b"]
+        g = xg[:, t].float() + (h.to(x.dtype) @ wh).float() + bias
         zg, ig, fg, og = g.chunk(4, -1)
         zt = torch.tanh(zg)
         lf = -_softplus(-fg)                           # log sigmoid(f)
@@ -428,15 +546,20 @@ def slstm_forward(p: Params, x: torch.Tensor,
         m = m_new
         h = torch.sigmoid(og) * c / torch.clamp_min(n, 1e-6)
         hs.append(h)
-    out = torch.stack(hs, 1).to(x.dtype) @ p["down"]
+    hs = torch.stack(hs, 1).to(x.dtype)
+    if mesh is not None:
+        dl = down.shape[0]
+        hs = hs[..., mesh.model_index * dl:(mesh.model_index + 1) * dl]
+    out = hs @ down
     return out, (SLSTMState(c, n, m, h) if ret_state else None)
 
 
 def init_slstm_state(batch: int, p: Params) -> SLSTMState:
     """Zeros, ``m`` at -1e30; four tensors of their own (the cache writes
-    each in place)."""
-    di = p["down"].shape[0]
-    dev = p["down"].device
+    each in place).  ``d_inner`` from ``wh``'s rows, which no rule
+    splits."""
+    di = p["wh"].shape[0]
+    dev = p["wh"].device
 
     def z():
         return torch.zeros((batch, di), dtype=torch.float32, device=dev)

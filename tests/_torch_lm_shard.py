@@ -1,8 +1,10 @@
 """Cases, inputs and rank bodies of the sharded-LM tests
-(``tests/test_torch_lm_sharded.py``).  Torch and numpy only: spawned
-gloo ranks import this module by name, and the reference's side (a
-subprocess on forced host devices, ``REF_CODE``) imports it for the
-cases and the inputs.
+(``tests/test_torch_lm_sharded.py``: the attention decoders, ``CASES``;
+``tests/test_torch_lm_sharded_recurrent.py``: the recurrent slots and
+the frontends, ``RECURRENT``).  Torch and numpy only: spawned gloo ranks
+import this module by name, and the reference's side (a subprocess on
+forced host devices, ``REF_CODE``) imports it for the cases and the
+inputs.
 
 Every input is drawn here from numpy seeds, leaf by leaf with a seed of
 the leaf's path, so that both packages' trees (the port's
@@ -34,13 +36,29 @@ CASES = {
     # dispatch groups (the data axis's size)
     "mixtral_cf": ("mixtral-8x7b", {"capacity_factor": 0.5}, 32, 48),
 }
+# The recurrent slots and the frontends: Jamba (Mamba + attention + MoE,
+# moe_ep, fsdp_serve), xLSTM (mLSTM + sLSTM), InternVL2 (8 patches ahead
+# of the text) and Whisper (32 frames, its decoder capped at 64).  The
+# prompts are no multiple of the reduced chunks (8): both scans pad.
+RECURRENT = {
+    "jamba": ("jamba-1.5-large-398b", {}, 12, 24),
+    "xlstm": ("xlstm-350m", {}, 12, 24),
+    "internvl2": ("internvl2-76b", {}, 12, 24),
+    "whisper": ("whisper-small", {}, 12, 24),
+}
+TABLES = {"CASES": CASES, "RECURRENT": RECURRENT}
 TRAIN_SEQ = 16
+LONG = 2064                # a prefill past 2,048 positions: K5's
+
+
+def _entry(case: str):
+    return CASES[case] if case in CASES else RECURRENT[case]
 
 
 def config(case: str, get):
     """The reduced config of ``case`` from ``get`` (either package's
     ``configs.get``)."""
-    arch, over, _, _ = CASES[case]
+    arch, over, _, _ = _entry(case)
     return dataclasses.replace(get(arch).reduced(), **over)
 
 
@@ -69,12 +87,38 @@ def tokens(cfg, rows: int, length: int, seed: int) -> np.ndarray:
         0, cfg.vocab_size, size=(rows, length)).astype(np.int32)
 
 
+def embeds(cfg, rows: int, seed: int) -> dict:
+    """The precomputed embeddings ``cfg`` reads beside its tokens (the
+    patch frontend's, the encoder's frames), N(0, 1) from a seed."""
+    rng = np.random.RandomState(seed)
+    if cfg.frontend == "patch":
+        return {"patch_embeds": rng.randn(rows, cfg.n_patches,
+                                          cfg.frontend_dim).astype(np.float32)}
+    if cfg.enc_dec:
+        return {"frame_embeds": rng.randn(rows, cfg.enc_positions,
+                                          cfg.d_model).astype(np.float32)}
+    return {}
+
+
 def inputs(case: str, cfg) -> dict:
-    """The prompts and the training batch of ``case``."""
-    _, _, s, _ = CASES[case]
+    """The prompts and the training batch of ``case``, and the
+    embeddings both read (``embeds``)."""
+    _, _, s, _ = _entry(case)
     return {"prompt": tokens(cfg, BATCH, s, 1),
             "inputs": tokens(cfg, BATCH, TRAIN_SEQ, 2),
-            "targets": tokens(cfg, BATCH, TRAIN_SEQ, 3)}
+            "targets": tokens(cfg, BATCH, TRAIN_SEQ, 3),
+            **embeds(cfg, BATCH, 6)}
+
+
+def prefill_batch(data: dict) -> dict:
+    """The prefill's batch of :func:`inputs`' arrays: the prompt and the
+    embeddings."""
+    return {"inputs": data["prompt"],
+            **{k: v for k, v in data.items() if k.endswith("_embeds")}}
+
+
+def train_batch(data: dict) -> dict:
+    return {k: v for k, v in data.items() if k != "prompt"}
 
 
 # ---------------------------------------------------------------------------
@@ -98,7 +142,7 @@ def run_case(case: str, mesh=None) -> dict:
     from repro_torch.optim import adamw_init
 
     cfg = config(case, get)
-    _, _, _, max_len = CASES[case]
+    _, _, _, max_len = _entry(case)
     lm = build_lm(cfg, device="cpu")
     full = lm_params_from_numpy(draw(_lm_shapes(cfg)), cfg, "cpu")
     data = {k: torch.from_numpy(v) for k, v in inputs(case, cfg).items()}
@@ -122,7 +166,7 @@ def run_case(case: str, mesh=None) -> dict:
         lspec = SH.constrain((BATCH,), "batch") + (None, "model")
         prefill, decode = make_prefill_step(lm), make_decode_step(lm)
         cache = lm.init_cache(BATCH, max_len)
-        logits, cache = prefill(params, {"inputs": data["prompt"]}, cache)
+        logits, cache = prefill(params, prefill_batch(data), cache)
         out["prefill_logits"] = whole(logits, lspec)
         toks = torch.argmax(out["prefill_logits"], -1).to(torch.int32)
         steps_t, steps_l = [toks], []
@@ -133,7 +177,7 @@ def run_case(case: str, mesh=None) -> dict:
         out["decode_tokens"] = torch.cat(steps_t, 1)
         out["decode_logits"] = torch.cat(steps_l, 1)
 
-    batch = {"inputs": data["inputs"], "targets": data["targets"]}
+    batch = train_batch(data)
     with train_ctx() as mc:
         specs = SH.param_specs(full, mc) if live else None
         params = SH.place(full, specs, mesh) if live else full
@@ -281,6 +325,115 @@ def flat_specs(tree, specs):
     return [specs] if hasattr(tree, "numel") else []
 
 
+def recurrent_rank_main(rank: int, world: int, dp: int, mp: int) -> dict:
+    """One gloo rank of a ``dp x mp`` mesh on the CPU for the
+    ``RECURRENT`` cases: each case (:func:`run_case`, flattened) with the
+    collectives it issued; per case the rank's param bytes and every
+    cache leaf's bytes beside the specs' blocks, and its fresh cache
+    against the blocks of the one-process cache (``m`` at -1e30); the
+    collectives of a prefill of S and of 2 S prompt tokens; K5's calls
+    (through the wrapper's CPU oracle) in a prefill past 2,048 positions
+    of the reduced Jamba and InternVL2 with their logits; ``serve`` of
+    the reduced xLSTM and Jamba on the mesh."""
+    import torch
+
+    import repro_torch.models.layers as L
+    from repro_torch.configs import get
+    from repro_torch.convert import _lm_shapes, lm_params_from_numpy
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch.mesh import make_dev_mesh
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.steps import abstract_params
+    from repro_torch.models.lm import build_lm
+
+    torch.set_num_threads(1)
+    mesh = make_dev_mesh(dp, mp, backend="gloo", device="cpu")
+    out = {}
+    for case in RECURRENT:
+        before = dict(mesh.counts)
+        out.update({f"{case}/{k}": v for k, v in flat(run_case(case, mesh))
+                    .items()})
+        out[f"{case}/collectives"] = {k: n - before.get(k, 0)
+                                      for k, n in mesh.counts.items()}
+    calls = []
+    real = L.flash_attention
+
+    def counted(q, k, v, **kw):
+        calls.append((q.shape[1], k.shape[1]))
+        return real(q, k, v, **kw)
+    for case in RECURRENT:
+        cfg = config(case, get)
+        _, _, s, max_len = RECURRENT[case]
+        lm = build_lm(cfg, device="cpu")
+        full = lm_params_from_numpy(draw(_lm_shapes(cfg)), cfg, "cpu")
+        data = {k: torch.from_numpy(v) for k, v in inputs(case, cfg).items()}
+        with torch.no_grad(), SH.mesh_context(mesh,
+                                              fsdp=cfg.fsdp_serve) as mc:
+            params = SH.place(full, SH.param_specs(full, mc), mesh)
+            cache = lm.init_cache(BATCH, max_len)
+            _, meta = abstract_params(cfg)
+            with SH.mesh_context(None):
+                whole = build_lm(cfg, device="cpu").init_cache(BATCH,
+                                                               max_len)
+            specs = SH.cache_specs(whole, mc)
+            leaves = dict(SH._tree_paths(cache))
+            want = dict(SH._tree_paths(SH.place(whole, specs, mesh)))
+            out[f"{case}/bytes"] = {
+                "params": sum(t.numel() * t.element_size()
+                              for t in flat_tensors(params)),
+                "params_specs": sum(
+                    int(np.prod(SH.local_shape(t.shape, sp, mesh)))
+                    * t.element_size()
+                    for t, sp in zip(flat_tensors(meta),
+                                     flat_specs(meta, SH.param_specs(meta,
+                                                                     mc))))}
+            out[f"{case}/cache"] = {
+                path: (t.numel() * t.element_size(),
+                       want[path].numel() * want[path].element_size(),
+                       bool(torch.equal(t, want[path])))
+                for path, t in leaves.items() if hasattr(t, "numel")}
+            # the collectives of a prefill of S and of 2 S tokens
+            counts = []
+            for n in (s, 2 * s):
+                batch = {k: v[:, :n] if k == "prompt" else v
+                         for k, v in data.items()}
+                batch["prompt"] = torch.from_numpy(
+                    tokens(cfg, BATCH, n, 7))
+                c = lm.init_cache(BATCH, 64)
+                snap = dict(mesh.counts)
+                lm.prefill(params, prefill_batch(batch), c)
+                counts.append({k: v - snap.get(k, 0)
+                               for k, v in mesh.counts.items()
+                               if v != snap.get(k, 0)})
+            out[f"{case}/prefill_counts"] = counts
+            if case in ("jamba", "internvl2"):
+                n = LONG - cfg.n_patches
+                long = {"inputs": torch.from_numpy(tokens(cfg, 2, n, 4)),
+                        **{k: torch.from_numpy(v)
+                           for k, v in embeds(cfg, 2, 8).items()}}
+                calls.clear()
+                L.flash_attention = counted
+                try:
+                    logits, _ = lm.prefill(params, long,
+                                           lm.init_cache(2, LONG + 16))
+                finally:
+                    L.flash_attention = real
+                spec = SH.constrain((2,), "batch") + (None, "model")
+                out[f"{case}/k5_logits"] = SH.gather_block(
+                    logits, spec, mesh).numpy()
+                out[f"{case}/k5_calls"] = list(calls)
+            if case in ("jamba", "xlstm"):
+                res, _ = serve(cfg, tokens(cfg, 3, 6, 5).tolist(),
+                               max_new=4, slots=4, max_len=16,
+                               params=params, device="cpu")
+                out[f"{case}/serve"] = [res[i] for i in range(3)]
+    if rank == 0:
+        return out
+    return {k: v for k, v in out.items()
+            if k.split("/", 1)[1] in ("bytes", "cache", "prefill_counts",
+                                      "k5_calls")}
+
+
 # ---------------------------------------------------------------------------
 # The reference's side: jitted with its shardings under mesh_context on
 # forced host devices (run as ``python -c REF_CODE.format(...)``, one
@@ -317,24 +470,24 @@ def shapes(t):
 out = {{}}
 for dp, mp in {meshes!r}:
     mesh = make_dev_mesh(dp, mp)
-    for case in H.CASES:
+    for case in H.TABLES[{table!r}]:
         cfg = H.config(case, get)
         lm = build_lm(cfg)
         params = jax.tree.map(jnp.asarray, H.draw(shapes(
             jax.eval_shape(lm.init, jax.random.PRNGKey(0)))))
         data = H.inputs(case, cfg)
-        max_len = H.CASES[case][3]
+        max_len = H._entry(case)[3]
         mc = MeshContext(mesh, strategy=cfg.mesh_strategy,
                          fsdp=cfg.fsdp_serve)
         ps = param_shardings(params, mc)
-        batch = {{"inputs": jnp.asarray(data["prompt"])}}
+        batch = {{k: jnp.asarray(v)
+                  for k, v in H.prefill_batch(data).items()}}
         cache = lm.init_cache(H.BATCH, max_len)
         cs = cache_shardings(cache, mc)
         mct = MeshContext(mesh, strategy=cfg.mesh_strategy,
                           fsdp=cfg.fsdp_train)
         pst = param_shardings(params, mct)
-        tb = {{"inputs": jnp.asarray(data["inputs"]),
-              "targets": jnp.asarray(data["targets"])}}
+        tb = {{k: jnp.asarray(v) for k, v in H.train_batch(data).items()}}
         opt = adamw_init(params)
         mco = MeshContext(mesh, strategy=cfg.mesh_strategy, fsdp=True)
         osh = type(opt)(NamedSharding(mesh, P()),
@@ -380,21 +533,40 @@ print("REF_OK", len(out))
 
 def blocked_worker(rank: int, world: int) -> dict:
     """A dp2 x mp2 rank with ``jax`` and ``repro`` unimportable: the
-    sharded DBRX case, the full DBRX's specs from the meta device, and
-    the modules it loaded checked for either."""
+    sharded DBRX case, one prefill and one decode step of the sharded
+    reduced Jamba (Mamba, attention and MoE slots), the full DBRX's specs
+    from the meta device, and the modules it loaded checked for
+    either."""
     import sys
     sys.modules["jax"] = None
     sys.modules["repro"] = None
     import torch
 
     from repro_torch.configs import SHAPES, get
+    from repro_torch.convert import _lm_shapes, lm_params_from_numpy
     from repro_torch.distributed import sharding as SH
     from repro_torch.launch.mesh import make_dev_mesh
-    from repro_torch.launch.steps import abstract_params, input_specs
+    from repro_torch.launch.steps import (abstract_params, input_specs,
+                                          make_decode_step,
+                                          make_prefill_step)
+    from repro_torch.models.lm import build_lm
 
     torch.set_num_threads(1)
     mesh = make_dev_mesh(2, 2, backend="gloo", device="cpu")
     out = run_case("dbrx", mesh)
+    cfg = config("jamba", get)
+    lm = build_lm(cfg, device="cpu")
+    full = lm_params_from_numpy(draw(_lm_shapes(cfg)), cfg, "cpu")
+    with torch.no_grad(), SH.mesh_context(mesh, fsdp=cfg.fsdp_serve) as mc:
+        params = SH.place(full, SH.param_specs(full, mc), mesh)
+        cache = lm.init_cache(BATCH, 24)
+        logits, cache = make_prefill_step(lm)(params, {
+            "inputs": torch.from_numpy(tokens(cfg, BATCH, 12, 1))}, cache)
+        tok = torch.argmax(SH.gather_block(
+            logits, SH.constrain((BATCH,), "batch") + (None, "model"),
+            mesh), -1).to(torch.int32)
+        tok, logits, cache = make_decode_step(lm)(params, {"inputs": tok},
+                                                  cache)
     _, meta = abstract_params(get("dbrx-132b"))
     specs = SH.param_specs(meta, SH.MeshContext(mesh))
     bspecs = SH.batch_specs(input_specs(get("dbrx-132b"),
@@ -404,4 +576,6 @@ def blocked_worker(rank: int, world: int) -> dict:
                  if (m == "jax" or m.startswith("jax.") or m == "repro"
                      or m.startswith("repro.")) and sys.modules[m] is not None)
     return {"loss": float(out["loss"]), "bad": bad,
-            "embed": specs["embed"], "inputs": bspecs["inputs"]}
+            "embed": specs["embed"], "inputs": bspecs["inputs"],
+            "jamba": tok[:, 0].tolist(),
+            "jamba_finite": bool(torch.isfinite(logits).all())}

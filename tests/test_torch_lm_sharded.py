@@ -20,7 +20,8 @@ one-process port without one.  Also: each rank's param and cache bytes
 against the blocks of the specs, K5's calls on the rank's heads in a
 2,064-token prefill, ``serve`` on a mesh, the reduced DBRX's checkpoint
 saved from dp2 x mp2 and restored onto one process and onto dp1 x mp2,
-and the refusals.
+and the divisibility refusals.  The recurrent slots and the frontends:
+``tests/test_torch_lm_sharded_recurrent.py``.
 """
 
 import dataclasses
@@ -65,7 +66,8 @@ def runs(tmp_path_factory):
     for dp, mp in H.MESHES:
         path = str(tmp / f"ref_{dp}x{mp}.npz")
         code = H.REF_CODE.format(tests=os.path.join(REPO, "tests"),
-                                 path=path, meshes=[(dp, mp)])
+                                 path=path, meshes=[(dp, mp)],
+                                 table="CASES")
         refs[(dp, mp)] = (path, subprocess.Popen(
             [sys.executable, "-c", code], env=env, cwd=REPO,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
@@ -250,13 +252,4 @@ def test_a_model_axis_that_does_not_divide_is_refused(name, value, mp):
     lm = build_lm(cfg, device="cpu")
     with SH.mesh_context(_live(1, mp)):
         with pytest.raises(ValueError, match=name):
-            lm.init_cache(4, 16)
-
-
-@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "xlstm-350m",
-                                  "internvl2-76b", "whisper-small"])
-def test_what_16_5b_ports_refuses_a_mesh(arch):
-    lm = build_lm(get(arch).reduced(), device="cpu")
-    with SH.mesh_context(_live(2, 1)):
-        with pytest.raises(NotImplementedError, match="16.5b"):
             lm.init_cache(4, 16)

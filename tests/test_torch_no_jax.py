@@ -26,9 +26,11 @@ on the fused backend (the sharded engine, plans and model), a sharded
 train step (``train_gen.make_sharded_train_step``, the sharded
 ``sd.conv_transpose`` and its backward) and ``sd.execute_spmd``; then
 four more, as dp2 x mp2, the sharded LM (the reduced DBRX's prefill,
-decode, grads and train step, ``tests/_torch_lm_shard.py``) and the full
-DBRX's param and batch specs from the meta device
-(``launch/steps.abstract_params``, ``input_specs``).
+decode, grads and train step, and one prefill and one decode step of
+the reduced Jamba's Mamba, attention and MoE slots,
+``tests/_torch_lm_shard.py``) and the full DBRX's param and batch specs
+from the meta device (``launch/steps.abstract_params``,
+``input_specs``).
 """
 
 import os
@@ -165,6 +167,8 @@ out = spawn(_torch_lm_shard.blocked_worker, 4, backend="gloo", timeout_s=240)
 for r in out:
     assert r["loss"] == r["loss"] and not r["bad"], r
     assert r["embed"] == ("model", "data") and r["inputs"] == ("data", None)
+    assert len(r["jamba"]) == 4 and r["jamba_finite"], r
+    assert r["jamba"] == out[0]["jamba"], r
 bad = sorted(m for m in sys.modules
              if (m == "jax" or m.startswith("jax.") or m == "repro"
                  or m.startswith("repro.")) and sys.modules[m] is not None)
