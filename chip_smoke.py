@@ -315,7 +315,7 @@ Drives ``repro_torch`` only (never JAX, never the JAX package ``repro``):
    ``1e-4 * max|ref|``, and on the card the chunked forms against
    ``mamba_step`` / ``mlstm_recurrent`` token by token (the sLSTM
    against itself resumed half way) at the same gate; (b) xLSTM-350M at
-   all 24 layers, bf16, serving 8 prompts of 4,096 tokens (4 slots, 16
+   all 24 layers, bf16, serving 8 prompts of 2,048 tokens (4 slots, 16
    new tokens): 0 K5 launches, one group's prefill last-token logits
    and first decode step against ``forward_train`` at the same
    positions within ``5e-2 * max|ref|``, and in f32 at 8 of the 24
@@ -371,7 +371,7 @@ Drives ``repro_torch`` only (never JAX, never the JAX package ``repro``):
    ``models/lm.py``): gloo ranks sharing the card (``launch.mesh.spawn``,
    as phase 14; every collective time there is a host copy, not
    scale-out speed), each rank's weights drawn from the one-process seed
-   as its blocks, the ranks in turn.  (a) StableLM-2-12B at 10 of 40
+   as its blocks, the ranks in turn.  (a) StableLM-2-12B at 2 of 40
    layers, bf16, on dp1 x mp2 and on dp2 x mp2:
    one prefill group of 4 x 4,080 tokens and 16 decode steps fed the
    one-process run's tokens,
@@ -426,7 +426,26 @@ Drives ``repro_torch`` only (never JAX, never the JAX package ``repro``):
    per-rank shape (4 x 32 / 4 x 4,080 x 128) against its plain version,
    timed in turns with SDPA.  Prints each rank's param and cache bytes
    beside the specs' blocks, peak memory and collectives per prefill
-   group, decode step and train step.
+   group, decode step and train step;
+21. the dry-run (``launch/dryrun.py``) and the heads a model axis does
+   not divide, which run replicated over it: (e) K5 bf16 at
+   StableLM-2-12B's per-rank shape on 16 ranks (4 x 2 q / 1 kv x 4,080
+   x 160) against its plain version, timed in turns with SDPA; (a)
+   StableLM-2-12B at 2 of 40 layers on dp1 x mp16 gloo ranks sharing
+   the card (each rank 2 q heads and 1 kv head), a prefill of 4 x 4,080
+   tokens through K5; (b) Whisper-small (12 heads, 1,500 encoder
+   positions) and xLSTM-350M (4 mLSTM heads) whole on dp1 x mp8, a
+   prefill and a decode step each and an xLSTM train step; every step
+   run once under ``dryrun.run_step``'s trace on inputs one seed draws
+   on every rank; (c) for each, the dry-run's trace of rank 0's step on
+   the meta device predicts the ranks' collectives (calls and wire bytes
+   per ``op/axis``), tensor-core FLOPs and K5 calls exactly, its
+   ``peak_hbm_bytes`` printed beside the live ``max_memory_allocated``
+   with their ratio (gated at ``DRY_MEM_RATIO``), the gathered logits of
+   StableLM and Whisper against the one-process run on the card at the
+   bf16 gate; (d) ``python -m repro_torch.launch.dryrun`` on
+   StableLM-2-12B ``prefill_32k`` (16 x 16) and Yi-34B ``decode_32k``
+   (2 x 16 x 16), each ending ``ok``.
 
 Every printed number carries the card's name and power limit.  The line
 before the last is ``{"kernels": [...]}``; the last is ``{"ok": true,
@@ -5950,8 +5969,9 @@ def _moe_phase(dev, tag) -> dict:
 HYB_XLSTM, HYB_JAMBA = "xlstm-350m", "jamba-1.5-large-398b"
 HYB_BLOCK_TOKENS = (1, 256)   # (a): one full-width block of each kind, f32
 HYB_BLOCK_GATE = 1e-4         # (a): card vs CPU and chunked vs stepwise
-HYB_X_REQUESTS, HYB_X_PROMPT_LEN, HYB_SLOTS = 8, 4096, 4
-HYB_X_MAX_LEN, HYB_MAX_NEW = 4112, 16
+HYB_X_REQUESTS, HYB_X_PROMPT_LEN, HYB_SLOTS = 8, 2048, 4
+HYB_X_MAX_LEN, HYB_MAX_NEW = 2064, 16  # xLSTM's prompts cut from 4,096
+#                                        so that phase 21 fits the time
 HYB_X_F32_GATE = 1e-4        # (b): served vs forward_train, f32, 8 layers
 HYB_X_TRAIN_BATCH, HYB_X_TRAIN_SEQ, HYB_X_TRAIN_STEPS = 8, 512, 3
 HYB_JAMBA_LAYERS = 4          # (d): the first half of Jamba's 8-layer period
@@ -7116,8 +7136,8 @@ def _frontends_phase(dev, tag) -> dict:
 # ---------------------------------------------------------------------------
 
 SHARD_SPAWN_S = 900        # each spawn's deadline and collective timeout
-SHARD_LAYERS = 10          # (a): 10 of StableLM-2-12B's 40 layers, so
-                           # that phase 20 fits the script's time
+SHARD_LAYERS = 2           # (a): 2 of StableLM-2-12B's 40 layers, so
+                           # that phases 20 and 21 fit the script's time
 SHARD_PROMPT_LEN = 4080    # one prefill group of SHARD_SLOTS prompts
 SHARD_SLOTS = 4
 SHARD_DECODE = 16          # decode steps, fed the one-process tokens
@@ -8025,6 +8045,287 @@ def _lm_sharding_recurrent_phase(dev, tag, rank_fn=None) -> dict:
     return report
 
 
+# ---- 21. the dry-run: heads the model axis does not divide, live on the
+# card and traced with no device ------------------------------------------
+DRY_SPAWN_S = 900          # each spawn's deadline and collective timeout
+DRY_S_LAYERS = 2           # (a): 2 of StableLM-2-12B's 40 layers
+DRY_S_MP = 16              # (a): 32 q / 8 kv heads on 16 ranks: 2 q, 1 kv
+DRY_SLOTS = 4
+DRY_PROMPT_LEN = 4080      # (a): 4 x 4,080 tokens, K5 on each rank's heads
+DRY_B_MP = 8               # (b): Whisper's 12 heads and 1,500 positions,
+#                            xLSTM's 4 heads, none divided by 8
+DRY_ASR_PROMPT = 64        # (b): Whisper's decoder prompt
+DRY_X_PROMPT = 256         # (b): xLSTM's prompt (its trace: a few ops a
+#                            token in the sLSTM's loop)
+DRY_X_TRAIN = (4, 128)     # (b): xLSTM's train batch and length
+DRY_K5_SHAPE = (4, 2, 1, 4080, 160)   # (a)'s per-rank K5 launch
+DRY_MEM_RATIO = (0.85, 1.30)  # live max_memory_allocated / dry peak_hbm
+DRY_CLI = (("stablelm-12b", "prefill_32k", "single"),
+           ("yi-34b", "decode_32k", "multi"))
+
+
+def _dry_cells():
+    """(label, config, cell) of phase 21's live runs: (a) StableLM-2-12B
+    cut to DRY_S_LAYERS layers on mp DRY_S_MP, a prefill through K5;
+    (b) Whisper-small and xLSTM-350M whole on mp DRY_B_MP, a prefill and
+    a decode step each and an xLSTM train step."""
+    import dataclasses
+    from repro_torch.configs import ShapeCell, get
+    s = dataclasses.replace(get("stablelm-12b"), n_layers=DRY_S_LAYERS)
+    w, x = get("whisper-small"), get("xlstm-350m")
+    return {
+        "a": [("stablelm_prefill", s,
+               ShapeCell("p", "prefill", DRY_PROMPT_LEN, DRY_SLOTS))],
+        "b": [("whisper_prefill", w,
+               ShapeCell("p", "prefill", DRY_ASR_PROMPT, DRY_SLOTS)),
+              ("whisper_decode", w,
+               ShapeCell("d", "decode", DRY_ASR_PROMPT, DRY_SLOTS)),
+              ("xlstm_prefill", x,
+               ShapeCell("p", "prefill", DRY_X_PROMPT, DRY_SLOTS)),
+              ("xlstm_decode", x,
+               ShapeCell("d", "decode", DRY_X_PROMPT, DRY_SLOTS)),
+              ("xlstm_train", x,
+               ShapeCell("t", "train", DRY_X_TRAIN[1], DRY_X_TRAIN[0]))]}
+
+
+def _dry_rank(rank: int, world: int, job: dict) -> dict:
+    """One rank of a phase 21 spawn: its dp1 x mp mesh over gloo on the
+    card, then each of the job's steps on inputs drawn from one seed on
+    every rank (``dryrun.live_inputs``), run once under
+    ``dryrun.run_step``'s trace: the collectives, FLOPs and K5 calls it
+    recorded, its K5 launches, the peak of ``max_memory_allocated`` over
+    the step, and (rank 0) the gathered prefill logits."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import repro_torch.kernels.flash_attn as FA
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_dev_mesh
+    dev = torch.device(job["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    mesh = make_dev_mesh(1, job["mp"], backend="gloo", device=dev,
+                         timeout_s=DRY_SPAWN_S)
+    out = {}
+    for label, cfg, cell in job["cells"]:
+        mc = D.cell_context(cfg, cell, mesh)
+        lm, args = D.live_inputs(cfg, cell, mesh, mc, dev, seed=SEED)
+        mesh.counts.clear()
+        mesh.traffic.clear()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        launches = FA.FLASH_ATTN_LAUNCHES
+        res, tr, _ = D.run_step(lm, cfg, cell, mc, args)
+        torch.cuda.synchronize()
+        rec = {"counts": dict(mesh.counts),
+               "traffic": {k: dict(v) for k, v in mesh.traffic.items()},
+               "flops": tr.flops, "k5": tr.k5,
+               "k5_launches": FA.FLASH_ATTN_LAUNCHES - launches,
+               "k5_shapes": tr.k5_shapes, "before": before,
+               "max_alloc": torch.cuda.max_memory_allocated()}
+        if cell.step == "train":
+            rec["finite"] = bool(torch.isfinite(res[2]["loss"]).item())
+        else:
+            logits = res[0] if cell.step == "prefill" else res[1]
+            rec["finite"] = bool(torch.isfinite(
+                logits[..., :cfg.vocab_size]).all().item())
+            spec = SH.constrain((cell.global_batch,), "batch",
+                                mc=mc) + (None, "model")
+            whole = SH.gather_block(logits, spec, mesh)
+            if rank == 0:
+                rec["logits"] = whole.float().cpu().numpy()
+        out[label] = rec
+        del args, res, lm
+        torch.cuda.empty_cache()
+    return out
+
+
+def _dry_one(cfg, cell, dev):
+    """The one-process step on the card of the same draws (a mesh of
+    one rank), its logits."""
+    import torch
+    from repro_torch.distributed.sharding import Mesh
+    from repro_torch.launch import dryrun as D
+    mesh = Mesh(1, 1, device=dev)
+    mc = D.cell_context(cfg, cell, mesh)
+    lm, args = D.live_inputs(cfg, cell, mesh, mc, dev, seed=SEED)
+    with torch.no_grad():
+        res, _, _ = D.run_step(lm, cfg, cell, mc, args)
+    logits = res[0] if cell.step == "prefill" else res[1]
+    out = logits.float().cpu()
+    del args, res, lm
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dry_check(part: str, label: str, cfg, cell, mp: int, recs: list,
+               dev, tag) -> dict:
+    """(c) for one live run: the dry-run's trace of rank 0's step on a
+    dp1 x mp abstract mesh against rank 0's record (collectives, FLOPs
+    and K5 calls equal), every rank's K5 launches equal to its trace's
+    calls, the dry-run's peak_hbm_bytes beside the live
+    max_memory_allocated (ratio gated at DRY_MEM_RATIO), finite outputs,
+    and a serving step's gathered logits against the one-process run's
+    (LM_BF16_GATE; xLSTM's bf16 logits move by their own size under a
+    re-chunking (phase 20 (b)), so only finite there)."""
+    import torch
+    from repro_torch.distributed.sharding import Mesh
+    from repro_torch.launch import dryrun as D
+    name = "dryrun"
+    t0 = time.perf_counter()
+    dry = D.trace_step(cfg, cell, Mesh(1, mp))
+    t_dry = time.perf_counter() - t0
+    live = recs[0][label]
+    got = {"counts": dict(dry["mesh"].counts),
+           "traffic": {k: dict(v) for k, v in dry["mesh"].traffic.items()},
+           "flops": dry["trace"].flops, "k5": dry["trace"].k5}
+    same = {k: got[k] == live[k] for k in got}
+    launches = [r[label]["k5_launches"] for r in recs]
+    peak = dry["memory"]["peak_hbm_bytes"]
+    ratio = live["max_alloc"] / peak
+    ok_mem = DRY_MEM_RATIO[0] <= ratio <= DRY_MEM_RATIO[1]
+    finite = all(r[label]["finite"] for r in recs)
+    print(f"{name} ({part}) {label}: {cfg.name} at {cfg.n_layers} layers, "
+          f"{cell.step} of {cell.global_batch} x {cell.seq_len} on dp1 x "
+          f"mp{mp} gloo ranks: the trace of rank 0's step ({t_dry:.1f} s, "
+          f"meta device) predicts collectives {same['counts']} "
+          f"({_coll_txt(live['counts'])}), wire bytes {same['traffic']}, "
+          f"FLOPs {same['flops']} ({got['flops']:.6e} vs "
+          f"{live['flops']:.6e}), K5 calls {same['k5']} ({got['k5']} vs "
+          f"{live['k5']}); K5 launches per rank {sorted(set(launches))}; "
+          f"memory: dry peak_hbm_bytes {peak} vs live max_memory_allocated "
+          f"{live['max_alloc']} (allocated before the step "
+          f"{live['before']}, dry arguments "
+          f"{dry['memory']['argument_bytes']}), ratio {ratio:.4f} (gate "
+          f"{DRY_MEM_RATIO}); finite {finite} {tag}")
+    rec = {"same": same, "k5": got["k5"], "k5_launches": launches,
+           "flops": got["flops"], "peak_hbm_bytes": peak,
+           "max_alloc": live["max_alloc"], "ratio": ratio,
+           "dry_s": t_dry, "k5_shapes": live["k5_shapes"][:1]}
+    bad = [k for k, v in same.items() if not v]
+    if bad or not finite or not ok_mem or any(
+            n != got["k5"] for n in launches):
+        raise SystemExit(f"chip_smoke: phase 21 ({part}) {label}: the "
+                         f"dry-run's {bad} differ from the live ranks', or "
+                         f"memory ratio {ratio:.4f} outside {DRY_MEM_RATIO},"
+                         f" or K5 launches {launches} != {got['k5']}, or "
+                         f"finite {finite}")
+    if "logits" in live and cfg.name != "xlstm-350m":
+        want = _dry_one(cfg, cell, dev)
+        have = torch.from_numpy(live["logits"])
+        v = cfg.vocab_size
+        d, tol = _gate_err(have[..., :v], want[..., :v], LM_BF16_GATE, False)
+        print(f"  {label}: the ranks' gathered logits vs the one-process "
+              f"run on the card, same draws: max|d| {d:.4e} (tol {tol:.4e}"
+              f", {LM_BF16_GATE} of max|ref|) {'ok' if d <= tol else 'FAIL'}"
+              f" {tag}")
+        rec["logits_err"] = (d, tol)
+        if not d <= tol:
+            raise SystemExit(f"chip_smoke: phase 21 ({part}) {label}: the "
+                             "sharded logits disagree with one process")
+    return rec
+
+
+def _dry_cli(tag) -> dict:
+    """(d): ``python -m repro_torch.launch.dryrun`` on DRY_CLI's cells, in
+    fresh processes started together (no jax there), each ending
+    ``ok``."""
+    import json
+    import subprocess
+    import tempfile
+    out = {}
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ,
+               PYTHONPATH=os.path.join(here, "src") + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    with tempfile.TemporaryDirectory(prefix="dryrun_") as tmp:
+        t0 = time.perf_counter()
+        procs = [(cell, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             cell[0], "--shape", cell[1], "--multi-pod", cell[2], "--out",
+             os.path.join(tmp, str(i))], env=env, cwd=here,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+            for i, cell in enumerate(DRY_CLI)]
+        for i, ((arch, shape, pods), proc) in enumerate(procs):
+            try:
+                stdout, stderr = proc.communicate(timeout=600)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            secs = time.perf_counter() - t0
+            tagf = f"{arch}__{shape}__{'mp' if pods == 'multi' else 'sp'}"
+            path = os.path.join(tmp, str(i), tagf + ".json")
+            rec = json.load(open(path)) if os.path.exists(path) else {}
+            ok = proc.returncode == 0 and rec.get("status") == "ok"
+            first = (stdout.strip().splitlines() or [""])[0]
+            print(f"dryrun (d): python -m repro_torch.launch.dryrun --arch "
+                  f"{arch} --shape {shape} --multi-pod {pods}: exit "
+                  f"{proc.returncode}, status {rec.get('status')}, done "
+                  f"{secs:.1f} s host clock after both started: "
+                  f"{first[:200]} {tag}")
+            if not ok:
+                raise SystemExit(f"chip_smoke: phase 21 (d): the dry-run of "
+                                 f"{tagf} did not end ok: {stderr[-1500:]}")
+            out[tagf] = {"seconds": secs, "memory": rec["memory"],
+                         "roofline": rec["roofline"], "cost": rec["cost"]}
+    return out
+
+
+def _dryrun_phase(dev, tag, rank_fn=None) -> dict:
+    """Phase 21: the dry-run and the heads the model axis does not divide
+    (module doc).  ``rank_fn``: the ranks' body (default ``_dry_rank``; a
+    CPU rehearsal wraps it)."""
+    import torch
+    from repro_torch.launch.mesh import spawn
+    t_phase = time.perf_counter()
+    name = "dryrun"
+    torch.cuda.empty_cache()
+    report = {"k5": _k5_at_shape(
+        dev, tag, DRY_K5_SHAPE, "StableLM-2-12B's per-rank heads at mp 16 "
+        "(the model axis does not divide its 8 kv heads)", f"{name} (e)")}
+    torch.cuda.empty_cache()
+    cells = _dry_cells()
+    for part, mp in (("a", DRY_S_MP), ("b", DRY_B_MP)):
+        job = {"mp": mp, "device": str(dev), "cells": cells[part]}
+        t0 = time.perf_counter()
+        prev = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        try:
+            recs = spawn(rank_fn or _dry_rank, mp, backend="gloo",
+                         args=(job,), timeout_s=DRY_SPAWN_S)
+        except RuntimeError as e:
+            raise SystemExit(f"chip_smoke: phase 21 ({part}, dp1 x mp{mp}) "
+                             f"failed: {e}")
+        finally:
+            if prev is None:
+                os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
+            else:
+                os.environ["PYTORCH_CUDA_ALLOC_CONF"] = prev
+        print(f"{name} ({part}): dp1 x mp{mp} spawn, "
+              f"{[c[0] for c in cells[part]]}, "
+              f"{time.perf_counter() - t0:.1f} s host clock with the ranks' "
+              f"start-up ({SHARD_NOTE}) {tag}")
+        for label, cfg, cell in cells[part]:
+            report[label] = _dry_check(part, label, cfg, cell, mp, recs, dev,
+                                       tag)
+        del recs
+        torch.cuda.empty_cache()
+    report["cli"] = _dry_cli(tag)
+    report["k5_launches"] = {"stablelm_dp1xmp16":
+                             report["stablelm_prefill"]["k5_launches"][0],
+                             "whisper_dp1xmp8":
+                             report["whisper_prefill"]["k5_launches"][0],
+                             "xlstm_dp1xmp8":
+                             report["xlstm_prefill"]["k5_launches"][0]}
+    report["phase_s"] = time.perf_counter() - t_phase
+    print(f"{name} phase: {report['phase_s']:.1f} s host clock {tag}")
+    return report
+
+
 def main(json_path: str = "") -> int:
     t_start = time.perf_counter()
     sys.stdout.reconfigure(line_buffering=True)   # a cut run keeps its log
@@ -8509,6 +8810,13 @@ def _smoke(json_path: str, t_start: float) -> int:
     torch.cuda.empty_cache()
     rec = _lm_sharding_recurrent_phase(dev, tag)
 
+    # ---- 21. the dry-run: StableLM-2-12B on 16 gloo ranks (2 q / 1 kv
+    # heads each, K5 on them), Whisper-small and xLSTM-350M on 8, each
+    # step predicted by its trace on the meta device; two cells of
+    # python -m repro_torch.launch.dryrun
+    torch.cuda.empty_cache()
+    dry = _dryrun_phase(dev, tag)
+
     if "jax" in sys.modules or "repro" in sys.modules:
         raise SystemExit("chip_smoke: JAX or the JAX package was imported")
     total = {k: sum(r[k] for r in per_layer)
@@ -8598,6 +8906,10 @@ def _smoke(json_path: str, t_start: float) -> int:
             # Jamba and InternVL2 (xLSTM and Whisper have none), and K5 at
             # Jamba's per-rank shape at mp 2
             k["launches_lm_sharding_recurrent"] = rec["k5_launches"]
+            # phase 21: each rank's K5 launches in the dry-run's live
+            # prefills (StableLM at mp 16; Whisper and xLSTM have none),
+            # and K5 at StableLM's per-rank shape at mp 16
+            k["launches_dryrun"] = dry["k5_launches"]
             for shape, r in (("moe", moe["k5"]),
                              ("hybrid", hyb["jamba"]["k5"]),
                              ("internvl2", front["k5"]),
@@ -8605,7 +8917,8 @@ def _smoke(json_path: str, t_start: float) -> int:
                              ("yi", front["dense"]["yi-34b"]["k5"]),
                              ("stablelm_mp2", shard["k5"]["stablelm_mp2"]),
                              ("dbrx_mp2", shard["k5"]["dbrx_mp2"]),
-                             ("jamba_mp2", rec["k5"])):
+                             ("jamba_mp2", rec["k5"]),
+                             ("stablelm_mp16", dry["k5"])):
                 k[f"ms_{shape}_shape"] = r["ms"]
                 k[f"ahead_ms_{shape}_shape"] = r["ahead_ms"]
                 k[f"max_abs_err_{shape}_shape"] = r["max_abs"]
@@ -8638,7 +8951,7 @@ def _smoke(json_path: str, t_start: float) -> int:
               "pretune": pre, "registry": reg, "scaleout": scale,
               "checkpoint": ckpt, "moe": moe, "hybrid": hyb,
               "frontends": front, "lm_sharding": shard,
-              "lm_sharding_recurrent": rec,
+              "lm_sharding_recurrent": rec, "dryrun": dry,
               "serve": {k: stats[k] for k in
                         ("served", "launches", "req_per_s", "wall_s",
                          "latency_ms")},

@@ -9,7 +9,11 @@ rank's place on a (data, model) grid of ``dp * mp`` ranks (row-major,
 ``rank = data_index * mp + model_index``, ``jax.make_mesh``'s device
 order) and holds the process groups of its row (the ranks that share its
 data index: the ``"model"`` axis) and of its column (the ``"data"``
-axis).  Collectives go over one axis; an axis of size 1 needs none.
+axis).  A mesh with ``pod > 1`` adds an outermost ``"pod"`` axis
+(``rank = (pod_index * dp + data_index) * mp + model_index``, the
+production two-pod layout); the batch then splits over ``("pod",
+"data")``.  Collectives go over one axis; an axis of size 1 needs none.
+An ``abstract`` mesh runs them without communication, shapes only.
 
 A spec is a tuple with one entry per tensor dim: the mesh axis that dim
 is split over, a tuple of axes (split over their product, the first
@@ -69,18 +73,43 @@ Spec = Tuple[Entry, ...]
 AXES = ("data", "model")
 
 
+def ring_wire_bytes(op: str, size: float, g: int) -> float:
+    """The bytes one rank puts on the wire for a collective of ``size``
+    bytes over a group of ``g`` ranks, by ring accounting (the
+    reference's ``launch/hlo_analysis.py``): an all-reduce ``2 * size *
+    (g - 1) / g`` (a reduce-scatter and an all-gather), an all-gather
+    ``size * (g - 1) / g`` with ``size`` the gathered result, a
+    reduce-scatter or an all-to-all ``size * (g - 1) / g``, a
+    point-to-point permute ``size``."""
+    frac = (g - 1) / g
+    if op in ("all_reduce", "all-reduce"):
+        return 2 * size * frac
+    if op in ("collective_permute", "collective-permute"):
+        return float(size)
+    return size * frac
+
+
 @dataclass(frozen=True, eq=False)
 class Mesh:
-    """This rank's place on a (data, model) mesh (see module doc).
+    """This rank's place on a (data, model) mesh, or on a (pod, data,
+    model) one where ``pod > 1`` (see module doc).
 
     ``groups`` maps an axis name to the process group of this rank's
     ranks along it (``None`` for an axis of size 1); a mesh built without
     groups (``Mesh(dp, mp)``) describes a layout and raises on a
-    collective over an axis of size > 1.  ``backend`` and ``device`` are
-    the ones the mesh was made with (:func:`repro_torch.launch.mesh.
-    make_dev_mesh`); nothing here changes either.  ``counts`` tallies
-    the collectives this rank issued, ``"all_gather/model"`` and the
-    like (an axis of size 1 issues none)."""
+    collective over an axis of size > 1.  ``abstract`` makes every
+    collective one without communication: it allocates and returns what
+    the live call does (the dry-run's transport on meta tensors,
+    :mod:`repro_torch.launch.dryrun`, one code path with the live one),
+    and the mesh counts as :attr:`live`, so the model takes the path it
+    takes on live ranks.
+    ``backend`` and ``device`` are the ones the mesh was made with
+    (:func:`repro_torch.launch.mesh.make_dev_mesh`); nothing here changes
+    either.  ``counts`` tallies the collectives this rank issued,
+    ``"all_gather/model"`` and the like (an axis of size 1 issues none);
+    ``traffic`` records, per such key, the result's bytes, the group size
+    ``g`` and the ring-accounted wire bytes (:func:`ring_wire_bytes`),
+    summed over the calls."""
     dp: int
     mp: int
     rank: int = 0
@@ -88,32 +117,45 @@ class Mesh:
     device: torch.device = torch.device("cpu")
     groups: Dict[str, Any] = field(default_factory=dict)
     counts: Dict[str, int] = field(default_factory=dict)
-    axis_names = AXES            # a class constant, not a field
+    pod: int = 1
+    abstract: bool = False
+    traffic: Dict[str, Dict[str, float]] = field(default_factory=dict)
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        return ("pod",) + AXES if self.pod > 1 else AXES
 
     @property
     def shape(self) -> Dict[str, int]:
-        return {"data": self.dp, "model": self.mp}
+        out = {"data": self.dp, "model": self.mp}
+        if self.pod > 1:
+            out = {"pod": self.pod, **out}
+        return out
 
     @property
     def size(self) -> int:
-        return self.dp * self.mp
+        return self.pod * self.dp * self.mp
 
     @property
     def data_index(self) -> int:
-        return self.rank // self.mp
+        return (self.rank // self.mp) % self.dp
 
     @property
     def model_index(self) -> int:
         return self.rank % self.mp
 
     @property
+    def pod_index(self) -> int:
+        return self.rank // (self.dp * self.mp)
+
+    @property
     def live(self) -> bool:
         """More than one rank, with a process group behind every axis of
-        size > 1: the model runs SPMD on it.  A mesh without groups is a
-        layout only."""
-        return self.size > 1 and all(
+        size > 1 (or an :attr:`abstract` transport): the model runs SPMD
+        on it.  A mesh without groups is a layout only."""
+        return self.size > 1 and (self.abstract or all(
             self.groups.get(a) is not None for a in self.axis_names
-            if self.shape[a] > 1)
+            if self.shape[a] > 1))
 
     def axis_size(self, axis: str) -> int:
         if axis not in self.axis_names:
@@ -123,20 +165,27 @@ class Mesh:
 
     def axis_index(self, axis: str) -> int:
         self.axis_size(axis)
-        return self.data_index if axis == "data" else self.model_index
+        return {"pod": self.pod_index, "data": self.data_index,
+                "model": self.model_index}[axis]
 
     def group(self, axis: str):
         if self.axis_size(axis) == 1:
             return None
         if self.groups.get(axis) is None:
-            raise ValueError(f"mesh dp{self.dp}xmp{self.mp} has no process "
-                             f"group for axis {axis!r}; make it with "
+            raise ValueError(f"mesh {self.name} has no process group for "
+                             f"axis {axis!r}; make it with "
                              "repro_torch.launch.mesh.make_dev_mesh")
         return self.groups[axis]
 
+    @property
+    def name(self) -> str:
+        pod = f"pod{self.pod}x" if self.pod > 1 else ""
+        return f"{pod}dp{self.dp}xmp{self.mp}"
+
     def __repr__(self) -> str:
-        return (f"Mesh(dp{self.dp}xmp{self.mp}, rank {self.rank}, "
-                f"{self.backend}, {self.device})")
+        kind = "abstract" if self.abstract else self.backend
+        return (f"Mesh({self.name}, rank {self.rank}, {kind}, "
+                f"{self.device})")
 
     # ---- collectives ----------------------------------------------------
     def all_gather(self, t: torch.Tensor, axis: str, dim: int
@@ -147,12 +196,14 @@ class Mesh:
         n = self.axis_size(axis)
         if n == 1:
             return t
-        import torch.distributed as dist
         t = t.contiguous()
         parts = [torch.empty_like(t) for _ in range(n)]
-        dist.all_gather(parts, t, group=self.group(axis))
-        self._count(f"all_gather/{axis}")
-        return torch.cat(parts, dim=dim)
+        if not self.abstract:
+            import torch.distributed as dist
+            dist.all_gather(parts, t, group=self.group(axis))
+        out = torch.cat(parts, dim=dim)
+        self._count("all_gather", axis, out)
+        return out
 
     def all_reduce(self, t: torch.Tensor, axis: str,
                    op: str = "sum") -> torch.Tensor:
@@ -161,20 +212,28 @@ class Mesh:
         a new tensor."""
         if self.axis_size(axis) == 1:
             return t
-        import torch.distributed as dist
         out = t.detach().clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(out, op={"sum": dist.ReduceOp.SUM,
-                                 "max": dist.ReduceOp.MAX}[op],
-                        group=self.group(axis))
-        self._count(f"all_reduce/{axis}")
+        if not self.abstract:
+            import torch.distributed as dist
+            dist.all_reduce(out, op={"sum": dist.ReduceOp.SUM,
+                                     "max": dist.ReduceOp.MAX}[op],
+                            group=self.group(axis))
+        self._count("all_reduce", axis, out)
         return out
 
-    def _count(self, key: str) -> None:
+    def _count(self, op: str, axis: str, out: torch.Tensor) -> None:
+        key = f"{op}/{axis}"
         self.counts[key] = self.counts.get(key, 0) + 1
+        g = self.axis_size(axis)
+        size = out.numel() * out.element_size()
+        rec = self.traffic.setdefault(key, {"bytes": 0, "group": g,
+                                            "wire": 0.0})
+        rec["bytes"] += size
+        rec["wire"] += ring_wire_bytes(op, size, g)
 
     def world_max(self, value: float) -> float:
         """The largest of every rank's ``value`` (all ranks get it)."""
-        if self.size == 1:
+        if self.size == 1 or self.abstract:
             return float(value)
         import torch.distributed as dist
         t = torch.tensor([float(value)], dtype=torch.float64,
@@ -185,7 +244,7 @@ class Mesh:
     def check_same(self, what: str, values: Sequence[int]) -> None:
         """Raise unless every rank passed the same integers: a guard in
         front of collectives whose sizes follow from host decisions."""
-        if self.size == 1:
+        if self.size == 1 or self.abstract:
             return
         import torch.distributed as dist
         t = torch.tensor([int(v) for v in values], dtype=torch.int64,
@@ -200,7 +259,7 @@ class Mesh:
                 "mesh; every rank must make the same launches")
 
     def barrier(self) -> None:
-        if self.size > 1:
+        if self.size > 1 and not self.abstract:
             import torch.distributed as dist
             dist.barrier()
 
@@ -778,3 +837,43 @@ def cols_matmul(x: torch.Tensor, w: torch.Tensor, mesh: Mesh,
     whole = gather_dim(w, mesh, axis, -1, partial=partial)
     y = x @ torch.cat([whole[:, a:b] for a, b in cols], 1)
     return list(y.split([b - a for a, b in cols], -1))
+
+
+def whole_cols(x: torch.Tensor, ws: Sequence[torch.Tensor], mesh: Mesh, *,
+               axis: str = "model", partial: bool = True
+               ) -> List[torch.Tensor]:
+    """``x @ W`` whole for each W of ``ws``, where each ``w`` is this
+    rank's contiguous block of W's columns over ``axis`` (a weight whose
+    column block is not whole heads: 40 heads on 16 ranks): the blocks
+    side by side go through one :func:`cols_matmul`, which gathers the
+    smaller of the weight and the product, and each W's columns are
+    picked from every rank's part.  ``partial`` as :func:`gather_dim`
+    (each rank then uses its own share of the whole product)."""
+    n = mesh.axis_size(axis)
+    widths = [w.shape[-1] for w in ws]
+    if n == 1:
+        return list((x @ torch.cat(list(ws), -1)).split(widths, -1))
+    step = sum(widths)
+    offs = [sum(widths[:i]) for i in range(len(ws))]
+    cols = [(r * step + o, r * step + o + c) for o, c in zip(offs, widths)
+            for r in range(n)]
+    parts = cols_matmul(x, torch.cat(list(ws), -1), mesh, cols, axis=axis,
+                        partial=partial)
+    return [torch.cat(parts[i * n:(i + 1) * n], -1) for i in range(len(ws))]
+
+
+def whole_blocks(ts: Sequence[torch.Tensor], mesh: Mesh, *,
+                 axis: str = "model", partial: bool = True
+                 ) -> List[torch.Tensor]:
+    """Each tensor of ``ts`` whole on its last dim, where each is this
+    rank's contiguous block of it over ``axis`` (biases of a column-split
+    weight): one gather of the blocks side by side.  ``partial`` as
+    :func:`gather_dim`."""
+    n = mesh.axis_size(axis)
+    if n == 1:
+        return list(ts)
+    widths = [t.shape[-1] for t in ts]
+    g = gather_dim(torch.cat(list(ts), -1), mesh, axis, -1, partial=partial)
+    g = g.reshape(*g.shape[:-1], n, sum(widths))
+    return [t.reshape(*t.shape[:-2], -1)
+            for t in g.split(widths, -1)]

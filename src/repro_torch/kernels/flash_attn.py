@@ -14,7 +14,13 @@ past ``Sq`` never written, no padding copy), and any strides over
 strides when q is dense (a transposed view of (B, S, H, D) activations),
 else it is contiguous.
 
-On a CUDA tensor it launches ``csrc/flash_attn.cu`` (built at first use;
+Past its checks the wrapper calls the operator ``repro_torch::
+flash_attention`` (``torch.ops``), so that a dispatch mode sees one K5
+call per launch: ``torch.utils.flop_counter`` counts it by
+:func:`k5_flops`, and on meta tensors (the dry-run,
+:mod:`repro_torch.launch.dryrun`) its fake returns the output's shape
+without a build or a launch.  On a CUDA tensor it launches
+``csrc/flash_attn.cu`` (built at first use;
 counted by ``FLASH_ATTN_LAUNCHES``) or raises: bf16 runs the ``wgmma``
 kernel fed by TMA (tile :data:`TILE`), which needs q, k and v on 16-byte
 boundaries with every stride over (batch, head, sequence) a multiple of
@@ -23,7 +29,8 @@ boundaries with every stride over (batch, head, sequence) a multiple of
 tile :data:`F32_TILE`, :data:`F32_TILE_WIDE` past ``F32_WIDE_D`` head
 dims), which takes any such strides (16-byte copies where they and the
 base allow them, 4-byte ones otherwise).  On a CPU tensor it runs
-:func:`flash_attention_ref`, the reference's oracle
+:func:`flash_attention_ref` (directly where a gradient is asked of its
+operands: the operator has no backward), the reference's oracle
 (``src/repro/kernels/ref.py`` ``flash_attention_ref``: full f32 scores,
 end-aligned causal mask, optional window), which the tests and
 ``chip_smoke.py`` also hold the kernel against.
@@ -150,12 +157,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kernels take float32 or bfloat16 and ``D <= MAX_HEAD_DIM``; bfloat16
     also needs TMA-describable operands (:func:`_tma_strides`).
     """
-    global FLASH_ATTN_LAUNCHES
     _check_operands(q, k, v, causal)
     if (bq is not None and bq < 1) or (bk is not None and bk < 1):
         raise ValueError(f"tiles ({bq}, {bk}) must be positive")
-    if q.device.type == "cpu":
+    if q.device.type == "cpu" and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v)):
         return flash_attention_ref(q, k, v, causal=causal)
+    if q.device.type in ("cpu", "meta"):
+        return torch.ops.repro_torch.flash_attention(q, k, v, causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not "
                          f"{q.device}")
@@ -176,6 +185,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"{q.shape[0]} x {q.shape[1]} (batch x heads) "
                          "exceeds the grid's limit of 65535 each")
     check_no_grad("flash_attention", q, k, v)
+    return torch.ops.repro_torch.flash_attention(q, k, v, causal)
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            causal: bool) -> torch.Tensor:
+    """One launch of the kernel on checked CUDA operands."""
+    global FLASH_ATTN_LAUNCHES
     if q.dtype == torch.bfloat16:
         strides = [_tma_strides(n, t) for n, t in (("q", q), ("k", k),
                                                    ("v", v))]
@@ -184,7 +200,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)       # q's strides when q is dense
     from repro_torch.kernels.build import load
     fn = load("flash_attn").fn
-    b, h, sq, _ = q.shape
+    b, h, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -198,3 +214,44 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            f"error {err}")
     FLASH_ATTN_LAUNCHES += 1
     return out
+
+
+# K5 as an operator of its own (``repro_torch::flash_attention``), so
+# that a dispatch mode sees one K5 call where the card launches one, and
+# a shape-only run (meta tensors: the dry-run, ``launch/dryrun.py``) gets
+# its output's shape from ``_k5_fake`` instead of reaching the build and
+# the pointers.  The wrapper checks the operands before it calls it.
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _k5_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           causal: bool) -> torch.Tensor:
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal)
+    return _launch(q, k, v, causal)
+
+
+@_k5_op.register_fake
+def _k5_fake(q, k, v, causal):
+    return torch.empty_like(q)
+
+
+def k5_flops(q_shape, k_shape, causal: bool) -> int:
+    """K5's tensor-core work: ``q k^T`` and ``p v``, 2 flops a
+    multiply-add each, over the pairs the mask keeps, ``2·B·H·D·S(S+1)``
+    for a causal launch (``Sq == Sk == S``), ``4·B·H·D·Sq·Sk``
+    otherwise."""
+    b, h, sq, d = q_shape
+    sk = k_shape[2]
+    if causal:
+        return 2 * b * h * d * sq * (sq + 1)
+    return 4 * b * h * d * sq * sk
+
+
+def _k5_flop_formula(q_shape, k_shape, v_shape, causal, *args,
+                     out_shape=None, **kwargs) -> int:
+    return k5_flops(q_shape, k_shape, causal)
+
+
+from torch.utils.flop_counter import register_flop_formula  # noqa: E402
+
+register_flop_formula(torch.ops.repro_torch.flash_attention)(
+    _k5_flop_formula)

@@ -4,7 +4,9 @@ The role of the reference's ``repro.launch.mesh``: every mesh of the
 generative stack (the server's under ``--dp/--mp``, the sharded train
 step's, the tests') comes from :func:`make_dev_mesh`, which runs over an
 initialised default process group of ``n_data * n_model`` ranks and
-returns this rank's :class:`~repro_torch.distributed.Mesh`.  The caller
+returns this rank's :class:`~repro_torch.distributed.Mesh` (with a
+``'pod'`` axis ahead where ``n_pod > 1``); :func:`make_production_mesh`
+is the reference's 16 x 16 and 2 x 16 x 16 layout, for the dry-run.  The caller
 names the transport (``"nccl"`` or ``"gloo"``) and the device; nothing
 here picks either on its own.  :func:`spawn` starts ``world`` ranks on
 this host with a ``file://`` store in a temporary directory, each with a
@@ -53,35 +55,49 @@ def _check_backend(backend: Optional[str]) -> str:
 
 
 def make_dev_mesh(n_data: int = 1, n_model: int = 1, *,
-                  backend: str, device: DeviceLike,
+                  backend: str, device: DeviceLike, n_pod: int = 1,
                   timeout_s: float = TIMEOUT_S) -> Mesh:
     """This rank's (data, model) mesh over the default process group,
-    whose world size must be ``n_data * n_model`` (the reference checks
-    the device count the same way).  Makes one process group per row
-    (the model axis) and per column (the data axis) of the row-major
-    grid; every rank of the world must call this, in the same order, as
-    ``torch.distributed.new_group`` requires.  ``backend`` and ``device``
-    are the caller's; nothing here changes them."""
+    whose world size must be ``n_pod * n_data * n_model`` (the reference
+    checks the device count the same way); ``n_pod > 1`` adds the
+    outermost ``'pod'`` axis of the production two-pod mesh.  Makes one
+    process group per line of the row-major grid along each axis of
+    size > 1 (the model axis: ranks that share their pod and data
+    indices; the data axis; the pod axis); every rank of the world must
+    call this, in the same order, as ``torch.distributed.new_group``
+    requires.  ``backend`` and ``device`` are the caller's; nothing here
+    changes them."""
     import torch.distributed as dist
     _check_backend(backend)
-    dp, mp = int(n_data), int(n_model)
-    if dp < 1 or mp < 1:
-        raise ValueError(f"mesh degrees must be >= 1, got dp {dp} mp {mp}")
+    pod, dp, mp = int(n_pod), int(n_data), int(n_model)
+    if pod < 1 or dp < 1 or mp < 1:
+        raise ValueError(f"mesh degrees must be >= 1, got pod {pod} dp {dp} "
+                         f"mp {mp}")
+    shape = f"{'pod%dx' % pod if pod > 1 else ''}dp{dp}xmp{mp}"
+    n = pod * dp * mp
     if not dist.is_initialized():
         raise ValueError(
-            f"a dp{dp}xmp{mp} mesh needs {dp * mp} ranks in an initialised "
+            f"a {shape} mesh needs {n} ranks in an initialised "
             "torch.distributed process group; start them with "
             "repro_torch.launch.mesh.spawn (or torchrun) first")
     world, rank = dist.get_world_size(), dist.get_rank()
-    if world != dp * mp:
-        raise ValueError(f"--dp {dp} --mp {mp} needs {dp * mp} ranks, the "
-                         f"process group has {world}")
+    if world != n:
+        raise ValueError(f"a {shape} mesh needs {n} ranks, the process "
+                         f"group has {world}")
     dev = resolve_device(device)
     timeout = datetime.timedelta(seconds=timeout_s)
     groups = {}
-    rows = [[d * mp + m for m in range(mp)] for d in range(dp)]
-    cols = [[d * mp + m for d in range(dp)] for m in range(mp)]
-    for axis, blocks in (("model", rows), ("data", cols)):
+
+    def at(p, d, m):
+        return (p * dp + d) * mp + m
+    lines = {
+        "model": [[at(p, d, m) for m in range(mp)]
+                  for p in range(pod) for d in range(dp)],
+        "data": [[at(p, d, m) for d in range(dp)]
+                 for p in range(pod) for m in range(mp)],
+        "pod": [[at(p, d, m) for p in range(pod)]
+                for d in range(dp) for m in range(mp)]}
+    for axis, blocks in lines.items():
         if len(blocks[0]) == 1:
             continue
         for ranks in blocks:
@@ -89,7 +105,20 @@ def make_dev_mesh(n_data: int = 1, n_model: int = 1, *,
             if rank in ranks:
                 groups[axis] = g
     return Mesh(dp, mp, rank=rank, backend=backend, device=dev,
-                groups=groups)
+                groups=groups, pod=pod)
+
+
+def make_production_mesh(*, multi_pod: bool = False, rank: int = 0) -> Mesh:
+    """The reference's production topology as a layout for ``rank``: 16 x
+    16 over ``('data', 'model')`` (one pod, 256 cards), or 2 x 16 x 16
+    over ``('pod', 'data', 'model')`` (two pods, 512), row-major as
+    ``jax.make_mesh`` orders them.  It touches no device and no process
+    group: the dry-run (:mod:`repro_torch.launch.dryrun`) runs a rank's
+    step on it with an abstract transport."""
+    if not 0 <= rank < (512 if multi_pod else 256):
+        raise ValueError(f"rank {rank} is not on the "
+                         f"{'2x16x16' if multi_pod else '16x16'} mesh")
+    return Mesh(16, 16, rank=rank, pod=2 if multi_pod else 1)
 
 
 def _to_host(obj):

@@ -118,8 +118,9 @@ def value_and_grad(lm: LM, params, batch: Dict[str, torch.Tensor]
     encoder ``xattn`` / ``lnx``) gets zeros, as ``jax.grad`` gives it,
     so that clipping, AdamW's decay and checkpoints see every leaf.
     ``params`` are left as they are.  On a live mesh ``params`` are the
-    rank's blocks and ``batch`` the whole batch: the grads of the leaves
-    the data axis does not split are summed over it here (those it
+    rank's blocks and ``batch`` the whole batch: over each batch axis
+    (``'data'``, and ``'pod'`` on a two-pod mesh) the grads of the
+    leaves it does not split are summed here (those the data axis
     splits were summed by their gather's adjoint), so each rank holds
     its block of the batch mean's gradient."""
     leaves = [p.detach().requires_grad_(True) for _, p in _leaves(params)]
@@ -130,11 +131,14 @@ def value_and_grad(lm: LM, params, batch: Dict[str, torch.Tensor]
              for p, g in zip(leaves, grads)]
     mc = SH.current()
     mesh = SH.live_mesh(mc)
-    if mesh is not None and mesh.dp > 1:
+    axes = [] if mesh is None else [a for a in mc.batch_axes
+                                    if mesh.axis_size(a) > 1]
+    if axes:
         specs = SH.param_specs(params, mc)
-        grads = [g if _splits(_at(specs, path), "data")
-                 else mesh.all_reduce(g, "data")
-                 for (path, _), g in zip(_leaves(params), grads)]
+        for axis in axes:
+            grads = [g if _splits(_at(specs, path), axis)
+                     else mesh.all_reduce(g, axis)
+                     for (path, _), g in zip(_leaves(params), grads)]
     return loss.detach(), _unflatten(params, grads)
 
 
@@ -197,7 +201,7 @@ def greedy(logits: torch.Tensor, batch: int) -> torch.Tensor:
     ``batch`` rows.  On a live mesh, ``logits`` is the rank's block: the
     ranks' vocab blocks are searched as one (the lowest index among
     equal maxima, as one argmax over the whole vocabulary), and the
-    tokens are gathered over the data axis where it splits the batch,
+    tokens are gathered over the batch axes where they split the batch,
     so every rank returns the whole batch's."""
     mc = SH.current()
     mesh = SH.live_mesh(mc)
@@ -211,8 +215,7 @@ def greedy(logits: torch.Tensor, batch: int) -> torch.Tensor:
         [val, (idx + mesh.model_index * n).float()], -1), "model", -2)
     best = torch.argmax(both[..., 0], -1, keepdim=True)
     tok = both[..., 1].gather(-1, best)[..., 0]
-    if SH.constrain((batch,), "batch", mc=mc)[0] is not None:
-        tok = mesh.all_gather(tok, "data", 0)
+    tok = SH.gather_block(tok, SH.constrain((batch,), "batch", mc=mc), mesh)
     return tok.to(torch.int32)
 
 

@@ -16,7 +16,11 @@ gathered K/V, decode gathers q and attends each rank's slots for every
 head, and the ranks combine their partials by log-sum-exp
 (FlashDecoding).  :func:`moe` runs its experts' FFN dim split over the
 model axis (the layout the reference's rules give both MoE kinds).
-The reference's ``constrain`` calls have no op here: the split a
+Where the model axis does not divide the heads (:func:`attention_tp`),
+the reference's ``constrain`` replicates them: each rank gets every kv
+head, and every q head too where those do not divide, by one gather
+(:func:`qkv_tp`), and keeps its columns of the output for its rows of
+``wo``.  The reference's ``constrain`` calls have no op here: the split a
 tensor takes follows from the blocks the LM passes in.
 
 Long-sequence attention (:func:`blockwise_attention`) calls K5,
@@ -248,24 +252,142 @@ def attention(p: Params, x: torch.Tensor, *, n_heads: int, n_kv: int,
             q = apply_rope(q, cos, sin)
             k = apply_rope(k, cos, sin)
 
+    o = _attend(q, k, v, causal=causal, window=window,
+                attn_block=attn_block, use_blockwise=use_blockwise,
+                dtype=x.dtype)
+    out = o.to(x.dtype).reshape(b, s, n_heads * head_dim) @ p["wo"]
+    return out, (k, v)
+
+
+def _attend(q, k, v, *, causal: bool, window: Optional[int],
+            attn_block: int, use_blockwise: Optional[bool],
+            dtype) -> torch.Tensor:
+    """The attention of :func:`attention` on its q (B, Sq, H, D) and k /
+    v (B, Sk, Hkv, D): past 2,048 keys (or with ``use_blockwise``)
+    :func:`blockwise_attention`, else the quadratic masked path, its
+    mask aligned at the ends."""
     if use_blockwise is None:
         use_blockwise = k.shape[1] > 2048
     if use_blockwise:
-        o = blockwise_attention(q, k, v, causal=causal, window=window,
-                                q_offset=0, kv_len=None, block=attn_block)
-    else:
-        sq, sk = q.shape[1], k.shape[1]
-        qpos = (sk - sq) + torch.arange(sq, device=x.device)
-        kpos = torch.arange(sk, device=x.device)
-        msk = torch.ones((sq, sk), dtype=torch.bool, device=x.device)
-        if causal:
-            msk &= kpos[None, :] <= qpos[:, None]
-        if window is not None:
-            msk &= kpos[None, :] > qpos[:, None] - window
-        o = _gqa_scores_combine(q, k, v, msk[None], x.dtype)
+        return blockwise_attention(q, k, v, causal=causal, window=window,
+                                   q_offset=0, kv_len=None,
+                                   block=attn_block)
+    dev = q.device
+    sq, sk = q.shape[1], k.shape[1]
+    qpos = (sk - sq) + torch.arange(sq, device=dev)
+    kpos = torch.arange(sk, device=dev)
+    msk = torch.ones((sq, sk), dtype=torch.bool, device=dev)
+    if causal:
+        msk &= kpos[None, :] <= qpos[:, None]
+    if window is not None:
+        msk &= kpos[None, :] > qpos[:, None] - window
+    return _gqa_scores_combine(q, k, v, msk[None], dtype)
 
-    out = o.to(x.dtype).reshape(b, s, n_heads * head_dim) @ p["wo"]
-    return out, (k, v)
+
+# ---------------------------------------------------------------------------
+# Heads a model axis does not divide (40 heads, or 8 kv heads, on 16
+# ranks): the reference's constrain degrades them to replicated.
+# ---------------------------------------------------------------------------
+
+def heads_divide(n_heads: int, n_kv: int, mp: int) -> bool:
+    """Whether ``mp`` model ranks divide both the q and the kv heads (the
+    layout where each rank runs its own heads)."""
+    return n_heads % mp == 0 and n_kv % mp == 0
+
+
+def qkv_tp(p: Params, x: torch.Tensor, mesh: SH.Mesh, *, n_heads: int,
+           n_kv: int, head_dim: int, q_whole: bool):
+    """q, k, v (B, S, heads, D) on a model rank where ``mesh`` does not
+    divide the heads: k and v for every kv head, and q for every head
+    (``q_whole``) or for the rank's ``n_heads / mp`` (its own columns of
+    ``wq``, whole heads where the q heads divide).  The whole ones come
+    from the rank's column blocks of ``wq`` / ``wk`` / ``wv`` by one
+    gather of the smaller of the weights and the products
+    (:func:`~repro_torch.distributed.sharding.whole_cols`), the biases'
+    blocks by one more."""
+    b, s, _ = x.shape
+    ws = ([p["wq"]] if q_whole else []) + [p["wk"], p["wv"]]
+    outs = SH.whole_cols(x, ws, mesh)
+    q = outs[0] if q_whole else x @ p["wq"]
+    k, v = outs[-2:]
+    if "bq" in p:
+        bs = [p["bq"]] if q_whole else []
+        bw = SH.whole_blocks(bs + [p["bk"], p["bv"]], mesh)
+        q = q + (bw[0] if q_whole else p["bq"])
+        k, v = k + bw[-2], v + bw[-1]
+    hq = n_heads if q_whole else n_heads // mesh.mp
+    return (q.reshape(b, s, hq, head_dim), k.reshape(b, s, n_kv, head_dim),
+            v.reshape(b, s, n_kv, head_dim))
+
+
+def kv_for_heads(k: torch.Tensor, v: torch.Tensor, lo: int, hq: int,
+                 n_heads: int):
+    """The kv heads that q heads ``lo .. lo + hq`` read (q head h reads
+    kv head ``h // (n_heads / n_kv)``), from k / v (B, S, n_kv, D) of
+    every kv head: a contiguous run where each of them serves the same
+    number of the rank's q heads (2 q / 1 kv on StableLM-2-12B at 16
+    ranks), else one kv head per q head."""
+    g = n_heads // k.shape[2]
+    idx = [h // g for h in range(lo, lo + hq)]
+    first, nk = idx[0], idx[-1] - idx[0] + 1
+    if hq % nk == 0 and idx == [first + i // (hq // nk) for i in range(hq)]:
+        return k.narrow(2, first, nk), v.narrow(2, first, nk)
+    sel = torch.tensor(idx, device=k.device)
+    return k.index_select(2, sel), v.index_select(2, sel)
+
+
+def own_cols(o: torch.Tensor, width: int, mesh: SH.Mesh) -> torch.Tensor:
+    """This model rank's contiguous ``width`` columns of ``o`` (..., H·D),
+    every head's output: the rows of ``wo`` the rank holds."""
+    return o.narrow(-1, mesh.model_index * width, width)
+
+
+def attention_tp(p: Params, x: torch.Tensor, mesh: SH.Mesh, *,
+                 n_heads: int, n_kv: int, head_dim: int,
+                 rope_theta: float, window: Optional[int] = None,
+                 causal: bool = True,
+                 cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]]
+                 = None, attn_block: int = 1024,
+                 use_rope: bool = True) -> torch.Tensor:
+    """:func:`attention` on a model rank whose mesh does not divide the
+    heads (``p`` the rank's blocks; ``n_heads`` / ``n_kv`` the whole
+    model's; ``cross_kv`` every kv head's K / V).  Where the q heads
+    divide, the rank runs its own q heads against the kv heads they
+    read; else every rank runs every head (the reference's
+    degrade-to-replicated: the attention's work is ``mp`` times
+    redundant) and keeps its columns of the output.  Returns this rank's
+    partial of the output projection (its rows of ``wo``)."""
+    b, s, _ = x.shape
+    q_whole = n_heads % mesh.mp != 0
+    if cross_kv is not None:
+        if q_whole:
+            q = SH.whole_cols(x, [p["wq"]], mesh)[0]
+            if "bq" in p:
+                q = q + SH.whole_blocks([p["bq"]], mesh)[0]
+        else:
+            q = x @ p["wq"]
+            if "bq" in p:
+                q = q + p["bq"]
+        q = q.reshape(b, s, -1, head_dim)
+        k, v = cross_kv
+        causal = False
+    else:
+        q, k, v = qkv_tp(p, x, mesh, n_heads=n_heads, n_kv=n_kv,
+                         head_dim=head_dim, q_whole=q_whole)
+        if use_rope:
+            cos, sin = rope_tables(torch.arange(s, device=x.device),
+                                   head_dim, rope_theta)
+            q = apply_rope(q, cos, sin)
+            k = apply_rope(k, cos, sin)
+    if not q_whole:
+        hq = q.shape[2]
+        k, v = kv_for_heads(k, v, mesh.model_index * hq, hq, n_heads)
+    o = _attend(q, k, v, causal=causal, window=window,
+                attn_block=attn_block, use_blockwise=None, dtype=x.dtype)
+    o = o.to(x.dtype).reshape(b, s, -1)
+    if q_whole:
+        o = own_cols(o, p["wo"].shape[0], mesh)
+    return o @ p["wo"]
 
 
 def attention_cached(p: Params, x: torch.Tensor, cache: dict, pos: int, *,
@@ -372,29 +494,43 @@ def _combine_partials(o, m, l, mesh: SH.Mesh, split: bool) -> torch.Tensor:
 
 def cross_attention_cached_tp(p: Params, x: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, mesh: SH.Mesh, *,
-                              n_heads: int, head_dim: int) -> torch.Tensor:
+                              n_heads: int, head_dim: int,
+                              split: bool = True) -> torch.Tensor:
     """Cross-attention of ``x`` (B, S, d) on a model rank against the
-    cache's ``cross_k`` / ``cross_v`` block: ``k`` / ``v`` (B, W/mp, Hkv,
-    D) hold the rank's contiguous W/mp of the encoder's positions for
-    every kv head (the LM refuses a model axis that does not divide W),
-    ``p`` the rank's heads of ``xattn``.  As
-    :func:`attention_cached_tp`'s decode: q gathered over the model
-    axis, every rank attends its positions for every head (no mask), the
-    partials combined by log-sum-exp, the rank keeps its heads for
-    ``wo``.  Returns this rank's partial of the output projection."""
+    cache's ``cross_k`` / ``cross_v`` block: with ``split``, ``k`` / ``v``
+    (B, W/mp, Hkv, D) hold the rank's contiguous W/mp of the encoder's
+    positions for every kv head, else all W of them (a model axis that
+    does not divide W: the cache replicates them, as the reference's
+    specs do); ``p`` holds the rank's blocks of ``xattn``.  As
+    :func:`attention_cached_tp`'s decode: q of every head (the rank's
+    heads gathered over the model axis, or :func:`qkv_tp`'s whole q
+    where the axis does not divide the heads), every rank attends its
+    positions for every head (no mask), the partials combined by
+    log-sum-exp where they are split, and the rank keeps its columns
+    for ``wo``.  Returns this rank's partial of the output
+    projection."""
     mi = mesh.model_index
-    hq = n_heads // mesh.mp
     b, s, _ = x.shape
-    q = x @ p["wq"]
-    if "bq" in p:
-        q = q + p["bq"]
-    q_all = mesh.all_gather(q.reshape(b, s, hq, head_dim), "model", 2)
+    if n_heads % mesh.mp == 0:
+        hq = n_heads // mesh.mp
+        q = x @ p["wq"]
+        if "bq" in p:
+            q = q + p["bq"]
+        q_all = mesh.all_gather(q.reshape(b, s, hq, head_dim), "model", 2)
+    else:
+        q_all = SH.whole_cols(x, [p["wq"]], mesh)[0]
+        if "bq" in p:
+            q_all = q_all + SH.whole_blocks([p["bq"]], mesh)[0]
+        q_all = q_all.reshape(b, s, n_heads, head_dim)
     w_loc = k.shape[1]
     msk = torch.ones((1, s, w_loc), dtype=torch.bool, device=x.device)
     o, m, l = _slot_partials(q_all, k, v, msk)
-    o = _combine_partials(o, m, l, mesh, mesh.mp > 1)
-    o = o[:, :, mi * hq:(mi + 1) * hq].to(x.dtype)
-    return o.reshape(b, s, hq * head_dim) @ p["wo"]
+    o = _combine_partials(o, m, l, mesh, split and mesh.mp > 1)
+    if n_heads % mesh.mp == 0:
+        o = o[:, :, mi * hq:(mi + 1) * hq].to(x.dtype)
+        return o.reshape(b, s, hq * head_dim) @ p["wo"]
+    o = own_cols(o.to(x.dtype).reshape(b, s, -1), p["wo"].shape[0], mesh)
+    return o @ p["wo"]
 
 
 def attention_cached_tp(p: Params, x: torch.Tensor, cache: dict, pos: int,
@@ -421,13 +557,30 @@ def attention_cached_tp(p: Params, x: torch.Tensor, cache: dict, pos: int,
       attends its slots for every head, the ranks' partials are combined
       by log-sum-exp (one gather of ``(o, max, sum)``), and the rank
       keeps its heads for ``wo``.
+
+    Where the model axis does not divide the q or the kv heads, the
+    rank's column blocks of ``wq`` / ``wk`` / ``wv`` are not whole heads:
+    :func:`qkv_tp` gives every kv head (and q of every head to decode,
+    or where the q heads do not divide) by one gather, so the cache
+    writes need none; a prefill runs the rank's q heads against the kv
+    heads they read (:func:`kv_for_heads`), or every head where the q
+    heads do not divide, and the rank keeps its columns of the output
+    (:func:`own_cols`).
     """
     mp, mi = mesh.mp, mesh.model_index
-    hq, hk = n_heads // mp, n_kv // mp
     b, s, _ = x.shape
     w, w_loc = cache["kpos"].shape[0], cache["k"].shape[1]
     lo = mi * w_loc if w_loc < w else 0
-    q, k, v = _qkv(p, x, hq, hk, head_dim)
+    even = heads_divide(n_heads, n_kv, mp)
+    if even:
+        hq, hk = n_heads // mp, n_kv // mp
+        q, k, v = _qkv(p, x, hq, hk, head_dim)
+    else:
+        # every kv head; q of every head to decode (each rank attends its
+        # slots for every head) or where the q heads do not divide
+        q_whole = s == 1 or n_heads % mp != 0
+        q, k, v = qkv_tp(p, x, mesh, n_heads=n_heads, n_kv=n_kv,
+                         head_dim=head_dim, q_whole=q_whole)
     positions = pos + torch.arange(s, device=x.device)
     if use_rope:
         cos, sin = rope_tables(positions, head_dim, rope_theta)
@@ -437,13 +590,16 @@ def attention_cached_tp(p: Params, x: torch.Tensor, cache: dict, pos: int,
     vd = v.to(cache["v"].dtype)
 
     if s == 1:
-        qkv = mesh.all_gather(torch.cat([q.reshape(b, 1, -1),
-                                         kd.reshape(b, 1, -1).to(q.dtype),
-                                         vd.reshape(b, 1, -1).to(q.dtype)],
-                                        -1), "model", 1)
-        parts = qkv.reshape(b, mp, -1).split(
-            [hq * head_dim, hk * head_dim, hk * head_dim], -1)
-        q_all, k_all, v_all = (t.reshape(b, 1, -1, head_dim) for t in parts)
+        if even:
+            qkv = mesh.all_gather(torch.cat(
+                [q.reshape(b, 1, -1), kd.reshape(b, 1, -1).to(q.dtype),
+                 vd.reshape(b, 1, -1).to(q.dtype)], -1), "model", 1)
+            parts = qkv.reshape(b, mp, -1).split(
+                [hq * head_dim, hk * head_dim, hk * head_dim], -1)
+            q_all, k_all, v_all = (t.reshape(b, 1, -1, head_dim)
+                                   for t in parts)
+        else:
+            q_all, k_all, v_all = q, kd, vd
         idx = pos % w
         cache["kpos"][idx] = pos
         if lo <= idx < lo + w_loc:
@@ -456,20 +612,35 @@ def attention_cached_tp(p: Params, x: torch.Tensor, cache: dict, pos: int,
             msk = msk & (kpos[None, :] > qpos - window)
         o, m, l = _slot_partials(q_all, cache["k"], cache["v"], msk[None])
         o = _combine_partials(o, m, l, mesh, w_loc < w)
-        o = o[:, :, mi * hq:(mi + 1) * hq].to(x.dtype)
+        if even:
+            o = o[:, :, mi * hq:(mi + 1) * hq].to(x.dtype)
+        else:
+            o = own_cols(o.to(x.dtype).reshape(b, 1, -1), p["wo"].shape[0],
+                         mesh)
     else:
+        ks, vs = k, v
+        if not even and not q_whole:
+            ks, vs = kv_for_heads(k, v, mi * q.shape[2], q.shape[2],
+                                  n_heads)
         if s > 2048:
-            o = blockwise_attention(q, k, v, causal=True, window=window,
+            o = blockwise_attention(q, ks, vs, causal=True, window=window,
                                     q_offset=0, kv_len=None,
                                     block=attn_block)
         else:
-            o = _gqa_scores_combine(q, k, v, _causal_mask(
+            o = _gqa_scores_combine(q, ks, vs, _causal_mask(
                 s, window, x.device)[None], x.dtype)
+        if not even and q_whole:
+            o = own_cols(o.to(x.dtype).reshape(b, s, -1), p["wo"].shape[0],
+                         mesh)
         # the positions that land in the ring (the last W), every kv
         # head of them; this rank keeps its slots
         tail = max(s - w, 0)
-        kv = mesh.all_gather(torch.cat([kd, vd], -1)[:, tail:], "model", 2)
-        k_all, v_all = kv[..., :head_dim], kv[..., head_dim:]
+        if even:
+            kv = mesh.all_gather(torch.cat([kd, vd], -1)[:, tail:], "model",
+                                 2)
+            k_all, v_all = kv[..., :head_dim], kv[..., head_dim:]
+        else:
+            k_all, v_all = kd[:, tail:], vd[:, tail:]
         if s >= w:
             assert s % w == 0 or s == w, (s, w)
             cache["k"].copy_(k_all[:, lo:lo + w_loc])
@@ -483,7 +654,7 @@ def attention_cached_tp(p: Params, x: torch.Tensor, cache: dict, pos: int,
                 cache["v"][:, a - lo:e - lo] = v_all[:, a - start:e - start]
             cache["kpos"][start:start + s] = positions
 
-    out = o.to(x.dtype).reshape(b, s, hq * head_dim) @ p["wo"]
+    out = o.to(x.dtype).reshape(b, s, -1) @ p["wo"]
     return out, cache
 
 

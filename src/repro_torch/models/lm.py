@@ -62,11 +62,20 @@ makes alike, in the mesh's dispatch groups.  Params split over
 ``'data'`` (FSDP: ``fsdp_train``, or ``fsdp_serve`` as DBRX sets it) are
 cast and put together at use, one leaf at a time.  The logits stay
 vocab-split: :meth:`LM.loss` sums its log-sum-exp over the model axis
-and averages over the data axis; ``prefill``, ``decode_step`` and
+and averages over the batch axes; ``prefill``, ``decode_step`` and
 ``forward_train`` return the rank's block of the logits (its rows, its
-vocab columns).  Where the model axis does not divide the heads, the kv
-heads, ``d_ff`` or the padded vocabulary, a ``ValueError`` names the
-dim (the reference's GSPMD pads instead).  A context whose mesh is a
+vocab columns).  Where the model axis does not divide the heads or the
+kv heads, they run replicated over it, as the reference's ``constrain``
+degrades them: the param blocks stay the specs' column blocks (not
+whole heads), each rank gets every kv head by one gather
+(:func:`~repro_torch.distributed.sharding.whole_cols`) and runs its own
+q heads against the kv heads they read (so a long prefill still runs K5
+on them), or every head where the q heads do not divide (the
+attention's work then ``mp`` times redundant), and keeps its columns of
+the output for its rows of ``wo``
+(:func:`~repro_torch.models.layers.attention_tp`).  Where it does not
+divide ``d_ff``, the padded vocabulary or another dim the param specs
+split into blocks, a ``ValueError`` names the dim.  A context whose mesh is a
 layout only (``Mesh(2, 2)``, no groups) leaves the model in one
 process; the MoE then reads its dispatch groups from it, as the
 reference's does.
@@ -82,10 +91,13 @@ rank); Whisper's encoder runs heads- and FFN-parallel; the decoder's
 cross-attention runs the rank's heads, against the rank's kv heads in
 training and prefill and, in decode, against the cache's ``cross_k`` /
 ``cross_v``, which split the encoder positions over the model axis for
-every head (partials combined by log-sum-exp).  The model axis must
-also divide Mamba's ``d_inner``, the sLSTM's inner width, ``d_model``
-where the patch projector or the position tables split it, and
-``enc_positions``.
+every head (partials combined by log-sum-exp), or all of them on
+every rank where the model axis does not divide ``enc_positions`` (the
+cache's specs replicate them then; no combine).  The mLSTM runs every
+head on every rank where the model axis does not divide its heads.  The
+model axis must also divide Mamba's ``d_inner``, the sLSTM's inner
+width and ``d_model`` where the patch projector or the position tables
+split it.
 
 Long prompts (more than 2,048 tokens) attend through K5
 (:mod:`repro_torch.kernels.flash_attn`) in serving; training at any
@@ -332,12 +344,14 @@ class LM:
     def _tp(self, batch: int, params=None) -> Optional["_Tp"]:
         """The sharded run of a call on ``batch`` rows under the active
         mesh context, or None where it has no live mesh (one process).
-        Refuses a model axis that does not divide a dim the rules split
-        over it: the heads, the kv heads, ``d_ff``, the padded
-        vocabulary, Mamba's ``d_inner`` (``mamba_expand*d_model``), the
-        sLSTM's ``slstm_inner_dim``, ``d_model`` where the patch
-        projector or the position tables split it, and an
-        encoder-decoder's ``enc_positions`` (its cross K/V cache)."""
+        Refuses a model axis that does not divide a dim the param specs
+        split into blocks: ``d_ff``, the padded vocabulary, the q and kv
+        projections' columns (``n_heads*head_dim``,
+        ``n_kv_heads*head_dim``), Mamba's ``d_inner``
+        (``mamba_expand*d_model``), the sLSTM's ``slstm_inner_dim`` and
+        ``d_model`` where the patch projector or the position tables
+        split it.  Heads, kv heads and ``enc_positions`` that it does
+        not divide run replicated over the model axis (module doc)."""
         mc = SH.current()
         mesh = SH.live_mesh(mc)
         if mesh is None:
@@ -347,8 +361,11 @@ class LM:
             raise NotImplementedError(
                 f"mesh strategy {mc.strategy!r}: its rules are ported "
                 "(param_specs), its execution is not; the LM runs 'tp'")
-        dims = {name: getattr(cfg, name) for name in (
-            "n_heads", "n_kv_heads", "d_ff", "vocab_padded")}
+        dims = {name: getattr(cfg, name) for name in ("d_ff",
+                                                       "vocab_padded")}
+        if "a" in self.pattern or cfg.enc_dec:
+            dims["n_heads*head_dim"] = cfg.n_heads * cfg.hd
+            dims["n_kv_heads*head_dim"] = cfg.n_kv_heads * cfg.hd
         if "m" in self.pattern:
             dims["mamba_expand*d_model"] = cfg.mamba_expand * cfg.d_model
         if "s" in self.pattern:
@@ -356,14 +373,13 @@ class LM:
                 cfg.d_model, cfg.n_heads, cfg.slstm_proj)
         if cfg.frontend == "patch" or cfg.enc_dec:
             dims["d_model"] = cfg.d_model
-        if cfg.enc_dec:
-            dims["enc_positions"] = cfg.enc_positions
         for name, n in dims.items():
             if n % mesh.mp:
                 raise ValueError(
                     f"{cfg.name}: the model axis of {mesh.mp} ranks does "
-                    f"not divide {name} = {n} (the reference's GSPMD pads "
-                    "or reshards there; the port needs whole blocks)")
+                    f"not divide {name} = {n}, which the param specs split "
+                    "into blocks (the reference's params could not split "
+                    "it either)")
         return _Tp(self, mc, mesh, batch, params)
 
     # ------------------------------------------------------------------
@@ -410,13 +426,8 @@ class LM:
         cfg, kind = self.cfg, self.pattern[j]
         h = L.rms_norm(p["ln1"], x)
         if kind == "a":
-            hq, hk = _heads(cfg, tp)
-            out, _ = L.attention(
-                p["attn"], _into(h, tp), n_heads=hq, n_kv=hk,
-                head_dim=cfg.hd, rope_theta=cfg.rope_theta,
-                window=cfg.sliding_window, causal=True,
-                attn_block=cfg.attn_block, use_rope=use_rope)
-            out = _out_of(out, tp)
+            out = self._self_attn(p["attn"], h, True, use_rope,
+                                  cfg.sliding_window, tp)
         else:
             out, _ = self._recurrent(p, h, kind, None, tp)
         x = x + out
@@ -475,17 +486,30 @@ class LM:
                 x = self._super_block(x, ps, tp)
         return L.rms_norm(params["final_ln"], x)
 
+    def _self_attn(self, p: Params, h: torch.Tensor, causal: bool,
+                   use_rope: bool, window: Optional[int],
+                   tp: Optional["_Tp"] = None) -> torch.Tensor:
+        """Cache-free self-attention on the normed ``h``; on a mesh the
+        rank's heads (or, where the model axis does not divide them,
+        :func:`~repro_torch.models.layers.attention_tp`), summed over the
+        model axis."""
+        cfg = self.cfg
+        kw = dict(head_dim=cfg.hd, rope_theta=cfg.rope_theta, window=window,
+                  causal=causal, attn_block=cfg.attn_block,
+                  use_rope=use_rope)
+        if tp is not None and tp.uneven:
+            return _out_of(L.attention_tp(
+                p, _into(h, tp), tp.mesh, n_heads=cfg.n_heads,
+                n_kv=cfg.n_kv_heads, **kw), tp)
+        hq, hk = _heads(cfg, tp)
+        out, _ = L.attention(p, _into(h, tp), n_heads=hq, n_kv=hk, **kw)
+        return _out_of(out, tp)
+
     def _attend(self, p: Params, x: torch.Tensor, causal: bool,
                 tp: Optional["_Tp"] = None) -> torch.Tensor:
         """An encoder-decoder's cache-free self-attention (no rope); on a
         mesh the rank's heads, summed over the model axis."""
-        cfg = self.cfg
-        hq, hk = _heads(cfg, tp)
-        out, _ = L.attention(p["attn"], _into(x, tp), n_heads=hq, n_kv=hk,
-                             head_dim=cfg.hd, rope_theta=cfg.rope_theta,
-                             causal=causal, attn_block=cfg.attn_block,
-                             use_rope=False)
-        return _out_of(out, tp)
+        return self._self_attn(p["attn"], x, causal, False, None, tp)
 
     def _cross(self, p: Params, x: torch.Tensor, cross_kv,
                tp: Optional["_Tp"] = None, split: bool = False
@@ -502,7 +526,12 @@ class LM:
         if split:
             out = L.cross_attention_cached_tp(
                 p["xattn"], h, *cross_kv, tp.mesh, n_heads=cfg.n_heads,
-                head_dim=cfg.hd)
+                head_dim=cfg.hd, split=tp.cross_split)
+        elif tp is not None and tp.uneven:
+            out = L.attention_tp(p["xattn"], h, tp.mesh,
+                                 n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+                                 head_dim=cfg.hd, rope_theta=cfg.rope_theta,
+                                 cross_kv=cross_kv, use_rope=False)
         else:
             hq, hk = _heads(cfg, tp)
             out, _ = L.attention(p["xattn"], h, n_heads=hq, n_kv=hk,
@@ -514,9 +543,15 @@ class LM:
                   tp: Optional["_Tp"] = None):
         """The encoder output's K and V for one decoder block's
         ``xattn``, (B, S_enc, Hkv, hd) each; on a mesh the rank's kv
-        heads (``enc`` behind :func:`_into`)."""
+        heads (``enc`` behind :func:`_into`), or every kv head where the
+        model axis does not divide the heads."""
         cfg = self.cfg
         b, s, _ = enc.shape
+        if tp is not None and tp.uneven:
+            return tuple(t.reshape(b, s, cfg.n_kv_heads, cfg.hd)
+                         for t in SH.whole_cols(
+                             enc, [p["xattn"]["wk"], p["xattn"]["wv"]],
+                             tp.mesh))
         hk = _heads(cfg, tp)[1]
         return tuple((enc @ p["xattn"][w]).reshape(b, s, hk, cfg.hd)
                      for w in ("wk", "wv"))
@@ -631,8 +666,10 @@ class LM:
         gold = torch.gather(lg, -1, idx.clamp(0, n - 1)[..., None])[..., 0]
         gold = SH.reduce_from(gold.masked_fill(~inside, 0), mesh, "model")
         loss = torch.mean(lse - gold)
-        if mesh.dp > 1:
-            loss = SH.reduce_from(loss, mesh, "data") / mesh.dp
+        for axis in tp.mc.batch_axes:
+            n = mesh.axis_size(axis)
+            if n > 1:
+                loss = SH.reduce_from(loss, mesh, axis) / n
         return loss
 
     # ------------------------------------------------------------------
@@ -783,29 +820,37 @@ class LM:
 
     def _write_cross(self, cache, fresh, tp: Optional["_Tp"]) -> None:
         """Each repeat's cross K/V (``fresh``: (B, S_enc, Hkv, hd), on a
-        mesh the rank's kv heads) into the cache, in place (tensors of
-        another frame count replaced).  On a mesh the heads are gathered
-        over the model axis (one call a layer) and the rank keeps its
-        block of the encoder positions for every head."""
+        mesh the rank's kv heads, or all of them where the model axis does
+        not divide the heads) into the cache, in place (tensors of another
+        frame count replaced).  On a mesh the rank's heads are gathered
+        over the model axis (one call a layer), and the rank keeps its
+        block of the encoder positions for every head, or all of them
+        where the model axis does not divide ``enc_positions`` (the
+        cache's specs replicate them then)."""
         cfg = self.cfg
         b, s_enc = fresh[0][0].shape[:2]
-        w = s_enc
-        if tp is not None and tp.mesh.mp > 1:
-            if s_enc % tp.mesh.mp:
+        w, mesh = s_enc, None if tp is None else tp.mesh
+        if tp is not None and tp.cross_split:
+            if s_enc % mesh.mp:
                 raise ValueError(
-                    f"{cfg.name}: the model axis of {tp.mesh.mp} ranks does "
-                    f"not divide the {s_enc} encoder positions of the "
-                    "cross K/V cache")
-            w = s_enc // tp.mesh.mp
+                    f"{cfg.name}: the model axis of {mesh.mp} ranks does "
+                    f"not divide the {s_enc} encoder frames, while it "
+                    f"divides enc_positions = {cfg.enc_positions}")
+            w = s_enc // mesh.mp
+        heads = fresh[0][0].shape[2] < cfg.n_kv_heads   # the rank's only
         shape = (self.repeats, b, w, cfg.n_kv_heads, cfg.hd)
         for name in ("cross_k", "cross_v"):
             if tuple(cache[name].shape) != shape:
                 cache[name] = cache[name].new_empty(shape)
         for r, (k, v) in enumerate(fresh):
-            if w < s_enc:
-                lo = tp.mesh.model_index * w
-                kv = tp.mesh.all_gather(torch.cat([k, v], -1), "model", 2)
-                k, v = kv[:, lo:lo + w].split(cfg.hd, -1)
+            if heads or w < s_enc:
+                kv = torch.cat([k, v], -1)
+                if heads:
+                    kv = mesh.all_gather(kv, "model", 2)
+                if w < s_enc:
+                    lo = mesh.model_index * w
+                    kv = kv[:, lo:lo + w]
+                k, v = kv.split(cfg.hd, -1)
             cache["cross_k"][r].copy_(k)
             cache["cross_v"][r].copy_(v)
 
@@ -875,21 +920,30 @@ class _Blocks(Mapping):
 
 class _Tp:
     """One sharded call: the mesh context, the rank's rows of a batch of
-    ``batch`` (all of them where the data axis does not divide it), the
+    ``batch`` (all of them where the batch axes do not divide it), the
     MoE's dispatch groups on those rows (one where each data rank holds
     its own rows: the mesh's groups, one per data rank), the rank's q
-    and kv head counts, and ``blocks``, the params as the layers read
+    and kv head counts (``uneven`` where the model axis does not divide
+    both), whether Whisper's cross K/V cache splits its positions
+    (``cross_split``), and ``blocks``, the params as the layers read
     them (:class:`_Blocks`)."""
 
     def __init__(self, lm: LM, mc, mesh, batch: int, params=None):
         self.mc, self.mesh = mc, mesh
-        split = SH.constrain((batch,), "batch", mc=mc)[0] is not None
-        n = batch // mesh.dp if split else batch
-        start = mesh.data_index * n if split else 0
-        self.rows = slice(start, start + n)
-        self.groups = 1 if split else None
-        self.hq = lm.cfg.n_heads // mesh.mp
-        self.hk = lm.cfg.n_kv_heads // mesh.mp
+        entry = SH.constrain((batch,), "batch", mc=mc)[0]
+        blocks, idx = SH._entry_split(mesh, entry)
+        n = batch // blocks
+        self.rows = slice(idx * n, (idx + 1) * n)
+        self.groups = 1 if entry is not None else None
+        cfg = lm.cfg
+        self.uneven = not L.heads_divide(cfg.n_heads, cfg.n_kv_heads,
+                                         mesh.mp)
+        self.hq = cfg.n_heads // mesh.mp
+        self.hk = cfg.n_kv_heads // mesh.mp
+        # Whisper's cross K/V cache: the encoder positions split over the
+        # model axis where it divides them, else whole on every rank
+        self.cross_split = bool(cfg.enc_dec and mesh.mp > 1
+                                and cfg.enc_positions % mesh.mp == 0)
         self.blocks = None
         if params is not None:
             use = (lambda name, t, spec: SH.gather_axis(

@@ -38,6 +38,10 @@ runs inside a time or chunk loop: every exchange is once per call.
   heads' gates.  Its cache splits ``c`` on ``dv`` with ``n`` and ``m``
   whole: one gather turns the cache's block into the rank's heads at the
   read, one gather of the new ``(c, n, m)`` puts it back at the write.
+  Where the model axis does not divide the heads (xLSTM-350M's 4 on 16
+  ranks), every rank runs every head (q, k, v whole by one gather, the
+  reference's degrade-to-replicated) and keeps its columns of the output
+  and its ``dv`` block of the new ``c``.
 * The sLSTM gathers ``wx`` / ``wh`` (one ``all_gather`` for both) and
   runs its serial loop replicated over ``'model'`` (its state is
   replicated there); the rank multiplies its ``d_inner`` block of the
@@ -280,7 +284,9 @@ def _mlstm_heads(p: Params, x: torch.Tensor, n_heads: int,
     """q, k, v (B, h, S, dh), the gates' logs (B, h, S) and ``z`` of the
     block's ``h`` heads: all ``n_heads``, or with ``mesh`` the rank's
     ``n_heads / mp`` (its columns of ``wq`` / ``wk`` / ``wv``) and its
-    block of ``z``."""
+    block of ``z``; where the model axis does not divide the heads,
+    every head (q, k, v whole by one gather) and the rank's columns of
+    ``z``."""
     b, s, _ = x.shape
     di = p["wq"].shape[0]
     dh = di // n_heads
@@ -288,6 +294,13 @@ def _mlstm_heads(p: Params, x: torch.Tensor, n_heads: int,
     if mesh is None:
         h = n_heads
         xi, z = (x @ p["up"]).split(di, dim=-1)
+    elif n_heads % mesh.mp:
+        # every head on every rank; z's block is the rank's columns
+        h, c = n_heads, di // mesh.mp
+        lo = mesh.model_index * c
+        xi, z = SH.cols_matmul(x, p["up"], mesh,
+                               [(0, di), (di + lo, di + lo + c)])
+        wif, bif = (SH.copy_to(t, mesh, "model") for t in (wif, bif))
     else:
         h = n_heads // mesh.mp
         lo = mesh.model_index * h
@@ -300,9 +313,13 @@ def _mlstm_heads(p: Params, x: torch.Tensor, n_heads: int,
                                t[..., n_heads + lo:n_heads + lo + h]], -1)
                     for t in (wif, bif))
 
-    def heads(w):
-        return (xi @ w).reshape(b, s, h, dh).transpose(1, 2)
-    q, k, v = heads(p["wq"]), heads(p["wk"]), heads(p["wv"])
+    def heads(t):
+        return t.reshape(b, s, h, dh).transpose(1, 2)
+    if mesh is not None and n_heads % mesh.mp:
+        q, k, v = (heads(t) for t in SH.whole_cols(
+            xi, [p["wq"], p["wk"], p["wv"]], mesh))
+    else:
+        q, k, v = (heads(xi @ p[w]) for w in ("wq", "wk", "wv"))
     gif = xi.float() @ wif + bif
     ig, fg = gif.split(h, dim=-1)                    # (B, S, h)
     log_i = ig.transpose(1, 2)                       # pre-activation
@@ -311,10 +328,16 @@ def _mlstm_heads(p: Params, x: torch.Tensor, n_heads: int,
 
 
 def _mlstm_out(p: Params, hs: torch.Tensor, z: torch.Tensor,
-               x: torch.Tensor) -> torch.Tensor:
-    """(B, H, S, dh) head outputs -> (B, S, d_model)."""
+               x: torch.Tensor,
+               mesh: Optional[SH.Mesh] = None) -> torch.Tensor:
+    """(B, H, S, dh) head outputs -> (B, S, d_model); on a rank that ran
+    every head (a model axis that does not divide them), its columns of
+    them for its rows of ``down``."""
     b, _, s, _ = hs.shape
     hs = hs.transpose(1, 2).reshape(b, s, -1)
+    c = p["down"].shape[0]
+    if mesh is not None and hs.shape[-1] > c:
+        hs = hs.narrow(-1, mesh.model_index * c, c)
     return (hs.to(x.dtype) * F.silu(z)) @ p["down"]
 
 
@@ -322,27 +345,30 @@ def _mlstm_state_in(state: MLSTMState, mesh: SH.Mesh, h: int
                     ) -> MLSTMState:
     """The rank's ``h`` heads of a cache block (``c`` split on ``dv``
     over the model axis where it divides, ``n`` / ``m`` whole): one
-    gather of ``c`` (none where it is whole)."""
+    gather of ``c`` (none where it is whole); every head where ``h`` is
+    all of them."""
     c, n, m = state
-    lo = mesh.model_index * h
+    lo = mesh.model_index * h if h < n.shape[1] else 0
     if c.shape[-1] < c.shape[-2]:
         c = mesh.all_gather(c, "model", -1)
     return MLSTMState(c[:, lo:lo + h], n[:, lo:lo + h], m[:, lo:lo + h])
 
 
-def _mlstm_state_out(state: MLSTMState, mesh: SH.Mesh, dv: int
-                     ) -> MLSTMState:
+def _mlstm_state_out(state: MLSTMState, mesh: SH.Mesh, dv: int,
+                     n_heads: int) -> MLSTMState:
     """The rank's heads' new state put back into the cache's layout
     (every head; ``c``'s ``dv`` block of width ``dv``): one gather of
-    ``(c, n, m)`` packed per head."""
+    ``(c, n, m)`` packed per head, none where the rank ran every head
+    (a model axis that does not divide them)."""
     c, n, m = state
     b, h, dk, dvw = c.shape
-    packed = torch.cat([c.reshape(b, h, -1), n, m[..., None]], -1)
-    c, n, m = mesh.all_gather(packed, "model", 1).split(
-        [dk * dvw, dk, 1], -1)
-    c = c.reshape(b, -1, dk, dvw)
     lo = mesh.model_index * dv if dv < dvw else 0
-    return MLSTMState(c[..., lo:lo + dv], n, m[..., 0])
+    if h * mesh.mp == n_heads:
+        packed = torch.cat([c.reshape(b, h, -1), n, m[..., None]], -1)
+        c, n, m = mesh.all_gather(packed, "model", 1).split(
+            [dk * dvw, dk, 1], -1)
+        c, m = c.reshape(b, -1, dk, dvw), m[..., 0]
+    return MLSTMState(c[..., lo:lo + dv], n, m)
 
 
 def mlstm_recurrent(p: Params, x: torch.Tensor, state: MLSTMState, *,
@@ -377,8 +403,8 @@ def mlstm_recurrent(p: Params, x: torch.Tensor, state: MLSTMState, *,
         hs.append(num / den)
     new = MLSTMState(c, n, m)
     if mesh is not None:
-        new = _mlstm_state_out(new, mesh, dv)
-    return _mlstm_out(p, torch.stack(hs, 2), z, x), new
+        new = _mlstm_state_out(new, mesh, dv, n_heads)
+    return _mlstm_out(p, torch.stack(hs, 2), z, x, mesh), new
 
 
 def _mlstm_chunk(c, n, m, qb, kb, vb, li, lf, scale: float):
@@ -455,11 +481,12 @@ def mlstm_chunkwise(p: Params, x: torch.Tensor,
             log_i[..., sl], log_f[..., sl], scale)
         hs.append(hout)
     hs = torch.cat(hs, 2)[:, :, :s]
-    out = _mlstm_out(p, hs, z, x)
+    out = _mlstm_out(p, hs, z, x, mesh)
     if state is None:
         return out, None
     new = MLSTMState(c, n, m)
-    return out, (new if mesh is None else _mlstm_state_out(new, mesh, dv))
+    return out, (new if mesh is None
+                 else _mlstm_state_out(new, mesh, dv, n_heads))
 
 
 def init_mlstm_state(batch: int, p: Params, n_heads: int) -> MLSTMState:

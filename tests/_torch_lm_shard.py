@@ -46,13 +46,37 @@ RECURRENT = {
     "internvl2": ("internvl2-76b", {}, 12, 24),
     "whisper": ("whisper-small", {}, 12, 24),
 }
-TABLES = {"CASES": CASES, "RECURRENT": RECURRENT}
+# A model axis that does not divide the heads, the kv heads or
+# Whisper's encoder positions: they run replicated over it, as the
+# reference's constrain degrades them.  name -> (arch, overrides,
+# prompt, max_len); UNEVEN_MESH gives each its (dp, mp).  StableLM at 6
+# heads on mp 4 (neither the q nor the kv heads divide), at 6 q / 3 kv
+# heads on mp 2 (the q heads divide, the kv heads do not, and the
+# rank's q heads read 1.5 kv heads: one kv head per q head), and as
+# reduced on mp 4 (1 q head and half a kv head a rank, the layout of
+# StableLM-2-12B at 16 ranks); Whisper's 30 encoder positions on mp 4;
+# xLSTM's mLSTM at 2 heads on mp 4.
+UNEVEN = {
+    "stablelm_h6": ("stablelm-12b", {"n_heads": 6}, 12, 24),
+    "stablelm_kv3": ("stablelm-12b", {"n_heads": 6, "n_kv_heads": 3}, 12,
+                     24),
+    "stablelm_mp4": ("stablelm-12b", {}, 12, 24),
+    "whisper_enc30": ("whisper-small", {"enc_positions": 30}, 12, 24),
+    "xlstm_h2": ("xlstm-350m", {"n_heads": 2, "n_kv_heads": 2}, 12, 24),
+}
+UNEVEN_MESH = {"stablelm_h6": (1, 4), "stablelm_kv3": (1, 2),
+               "stablelm_mp4": (1, 4), "whisper_enc30": (1, 4),
+               "xlstm_h2": (1, 4)}
+TABLES = {"CASES": CASES, "RECURRENT": RECURRENT, "UNEVEN": UNEVEN}
 TRAIN_SEQ = 16
 LONG = 2064                # a prefill past 2,048 positions: K5's
 
 
 def _entry(case: str):
-    return CASES[case] if case in CASES else RECURRENT[case]
+    for table in TABLES.values():
+        if case in table:
+            return table[case]
+    raise KeyError(case)
 
 
 def config(case: str, get):
@@ -434,6 +458,61 @@ def recurrent_rank_main(rank: int, world: int, dp: int, mp: int) -> dict:
                                       "k5_calls")}
 
 
+def uneven_rank_main(rank: int, world: int, dp: int, mp: int) -> dict:
+    """One gloo rank of a ``dp x mp`` mesh on the CPU for the ``UNEVEN``
+    cases of that mesh: each case (:func:`run_case`, flattened) with the
+    collectives it issued, and on mp 4 the K5 calls (through the
+    wrapper's CPU oracle) of a 2,064-token prefill of the reduced
+    StableLM, whose rank runs 1 q head against half a kv head's
+    columns, with their q / kv head counts and the logits."""
+    import torch
+
+    import repro_torch.models.layers as L
+    from repro_torch.configs import get
+    from repro_torch.convert import _lm_shapes, lm_params_from_numpy
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch.mesh import make_dev_mesh
+    from repro_torch.models.lm import build_lm
+
+    torch.set_num_threads(1)
+    mesh = make_dev_mesh(dp, mp, backend="gloo", device="cpu")
+    out = {}
+    for case in UNEVEN:
+        if UNEVEN_MESH[case] != (dp, mp):
+            continue
+        before = dict(mesh.counts)
+        out.update({f"{case}/{k}": v for k, v in flat(run_case(case, mesh))
+                    .items()})
+        out[f"{case}/collectives"] = {k: n - before.get(k, 0)
+                                      for k, n in mesh.counts.items()}
+    if (dp, mp) == UNEVEN_MESH["stablelm_mp4"]:
+        cfg = config("stablelm_mp4", get)
+        lm = build_lm(cfg, device="cpu")
+        full = lm_params_from_numpy(draw(_lm_shapes(cfg)), cfg, "cpu")
+        calls = []
+        real = L.flash_attention
+
+        def counted(q, k, v, **kw):
+            calls.append((q.shape[1], k.shape[1]))
+            return real(q, k, v, **kw)
+        L.flash_attention = counted
+        try:
+            with torch.no_grad(), SH.mesh_context(mesh) as mc:
+                params = SH.place(full, SH.param_specs(full, mc), mesh)
+                logits, _ = lm.prefill(
+                    params, {"inputs": torch.from_numpy(
+                        tokens(cfg, 2, LONG, 4))}, lm.init_cache(2, LONG + 16))
+                spec = SH.constrain((2,), "batch") + (None, "model")
+                out["k5_logits"] = SH.gather_block(logits, spec,
+                                                   mesh).numpy()
+        finally:
+            L.flash_attention = real
+        out["k5_calls"] = calls
+    if rank == 0:
+        return out
+    return {k: v for k, v in out.items() if k == "k5_calls"}
+
+
 # ---------------------------------------------------------------------------
 # The reference's side: jitted with its shardings under mesh_context on
 # forced host devices (run as ``python -c REF_CODE.format(...)``, one
@@ -471,6 +550,8 @@ out = {{}}
 for dp, mp in {meshes!r}:
     mesh = make_dev_mesh(dp, mp)
     for case in H.TABLES[{table!r}]:
+        if H.UNEVEN_MESH.get(case, (dp, mp)) != (dp, mp):
+            continue
         cfg = H.config(case, get)
         lm = build_lm(cfg)
         params = jax.tree.map(jnp.asarray, H.draw(shapes(
@@ -579,3 +660,53 @@ def blocked_worker(rank: int, world: int) -> dict:
             "embed": specs["embed"], "inputs": bspecs["inputs"],
             "jamba": tok[:, 0].tolist(),
             "jamba_finite": bool(torch.isfinite(logits).all())}
+
+
+# ---------------------------------------------------------------------------
+# The dry-run against live ranks (tests/test_torch_dryrun.py).
+# ---------------------------------------------------------------------------
+
+# (name, step, seq, batch): a train step, a prefill past 2,048 tokens
+# (K5's) and a decode step, at the reduced StableLM's widths
+DRY_CELLS = (("train", "train", 32, 4), ("prefill", "prefill", LONG, 2),
+             ("decode", "decode", 64, 4))
+DRY_MESHES = ((1, 2, 2), (1, 1, 4), (2, 1, 2))      # (pod, dp, mp)
+
+
+def dry_cell(name: str):
+    from repro_torch.configs import ShapeCell
+    for n, step, seq, batch in DRY_CELLS:
+        if n == name:
+            return ShapeCell(n, step, seq, batch)
+    raise KeyError(name)
+
+
+def dryrun_rank_main(rank: int, world: int, pod: int, dp: int,
+                     mp: int) -> dict:
+    """One gloo rank of a ``pod x dp x mp`` mesh on the CPU: each
+    ``DRY_CELLS`` step of the reduced StableLM on random inputs
+    (``dryrun.live_inputs``), run once under ``dryrun.run_step``'s
+    trace; per cell the collectives it issued (calls and traffic), the
+    tensor-core FLOPs and the K5 calls."""
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_dev_mesh
+
+    torch.set_num_threads(1)
+    mesh = make_dev_mesh(dp, mp, n_pod=pod, backend="gloo", device="cpu")
+    cfg = get("stablelm-12b").reduced()
+    out = {}
+    for name, *_ in DRY_CELLS:
+        cell = dry_cell(name)
+        mc = D.cell_context(cfg, cell, mesh)
+        lm, args = D.live_inputs(cfg, cell, mesh, mc, "cpu", seed=rank)
+        mesh.counts.clear()
+        mesh.traffic.clear()
+        _, tr, _ = D.run_step(lm, cfg, cell, mc, args)
+        out[name] = {"counts": dict(mesh.counts),
+                     "traffic": {k: dict(v) for k, v in mesh.traffic.items()},
+                     "flops": tr.flops, "k5": tr.k5,
+                     "k5_shapes": tr.k5_shapes}
+    return out

@@ -329,7 +329,6 @@ def _live(dp: int, mp: int) -> Mesh:
      "slstm_inner_dim", 3),
     ("internvl2-76b", {"d_model": 65}, "d_model", 2),
     ("whisper-small", {"d_model": 65}, "d_model", 2),
-    ("whisper-small", {"enc_positions": 30}, "enc_positions", 4),
 ])
 def test_a_model_axis_that_does_not_divide_is_refused(arch, over, name, mp):
     cfg = dataclasses.replace(get(arch).reduced(), **over)

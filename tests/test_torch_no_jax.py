@@ -30,7 +30,10 @@ decode, grads and train step, and one prefill and one decode step of
 the reduced Jamba's Mamba, attention and MoE slots,
 ``tests/_torch_lm_shard.py``) and the full DBRX's param and batch specs
 from the meta device (``launch/steps.abstract_params``,
-``input_specs``).
+``input_specs``).  A fourth runs the dry-run (``launch/dryrun.py``,
+``launch/hlo_analysis.py``) on a single- and a two-pod cell and
+``examples/train_dcgan_torch.py --small --steps 2`` on the CPU, with
+the same two blocked.
 """
 
 import os
@@ -186,11 +189,57 @@ def test_scale_out_runs_with_jax_unimportable():
     assert "NO_JAX_OK" in out.stdout
 
 
+DRYRUN_CODE = """
+import json, os, runpy, sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+import torch
+from repro_torch.launch import dryrun, hlo_analysis
+dryrun.main(["--arch", "whisper-small", "--shape", "decode_32k",
+             "--multi-pod", "both", "--out", {out!r}])
+for tag in ("sp", "mp"):
+    with open(os.path.join({out!r},
+                           f"whisper-small__decode_32k__{{tag}}.json")) as f:
+        rec = json.load(f)
+    assert rec["status"] == "ok", rec
+    assert rec["roofline"]["dominant"] in ("compute", "memory",
+                                           "collective"), rec
+sys.argv = ["train_dcgan_torch.py", "--small", "--steps", "2", "--device",
+            "cpu", "--out", {gan_out!r}]
+d_hist, g_hist = runpy.run_path({example!r}, run_name="__main__")["main"](
+    sys.argv[1:])
+assert len(g_hist) == 2 and all(x == x for x in g_hist), g_hist
+from repro_torch.checkpoint import CheckpointManager
+assert CheckpointManager({gan_out!r} + "/ckpt").steps() == [2]
+bad = sorted(m for m in sys.modules
+             if (m == "jax" or m.startswith("jax.") or m == "repro"
+                 or m.startswith("repro.")) and sys.modules[m] is not None)
+assert not bad, bad
+print("NO_JAX_OK")
+"""
+
+
+def test_dryrun_and_dcgan_example_run_with_jax_unimportable(tmp_path):
+    """``launch/dryrun.py`` (with ``launch/hlo_analysis.py``) traces a
+    single- and a two-pod Whisper decode cell, and
+    ``examples/train_dcgan_torch.py --small --steps 2`` trains on the
+    CPU and checkpoints, with ``jax`` and ``repro`` unimportable."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    code = DRYRUN_CODE.format(
+        out=str(tmp_path / "dry"), gan_out=str(tmp_path / "dcgan"),
+        example=os.path.join(REPO, "examples", "train_dcgan_torch.py"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=REPO, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "NO_JAX_OK" in out.stdout
+
+
 def test_sources_import_nothing_of_jax():
     pat = re.compile(r"^\s*(import jax|from jax|import repro(\.|$| )"
                      r"|from repro(\.| ))")
     files = [os.path.join(REPO, "chip_smoke.py"),
-             os.path.join(REPO, "examples", "quickstart_torch.py")]
+             os.path.join(REPO, "examples", "quickstart_torch.py"),
+             os.path.join(REPO, "examples", "train_dcgan_torch.py")]
     for root, _, names in os.walk(os.path.join(REPO, "src", "repro_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     hits = [f"{f}:{i}" for f in files
