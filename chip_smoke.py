@@ -324,7 +324,7 @@ Drives ``repro_torch`` only (never JAX, never the JAX package ``repro``):
    larger (rounding amplified through the mLSTM layers), host ms per
    group and step, one profiled prefill and decode step, peak memory;
    (c) xLSTM-350M
-   training at full size, f32 params and AdamW, batch 8 x 512, 3
+   training at full size, f32 params and AdamW, batch 8 x 512, 2
    ``make_train_step`` steps: finite losses, host ms, busy share, peak
    memory; (d) Jamba-1.5-Large at full width, its first 4 of 72 layers
    (3 Mamba, 1 attention, MoE at slots 1 and 3), bf16, serving 8
@@ -373,15 +373,15 @@ Drives ``repro_torch`` only (never JAX, never the JAX package ``repro``):
    scale-out speed), each rank's weights drawn from the one-process seed
    as its blocks, the ranks in turn.  (a) StableLM-2-12B at 2 of 40
    layers, bf16, on dp1 x mp2 and on dp2 x mp2:
-   one prefill group of 4 x 4,080 tokens and 16 decode steps fed the
+   one prefill group of 4 x 4,080 tokens and 8 decode steps fed the
    one-process run's tokens,
    every step's logits within ``5e-2 * max|ref|`` of that run's, the
    greedy tokens that agree counted, on every rank one K5 launch per
    layer (on its H/mp q and Hkv/mp kv heads), param and cache bytes
    equal to the blocks of ``param_specs`` / ``cache_specs``; (b)
-   DBRX-132B at 2 of 40 layers, f32, ``moe_ep`` with ``fsdp_serve``, on
+   DBRX-132B at 1 of 40 layers, f32, ``moe_ep`` with ``fsdp_serve``, on
    dp2 x mp2, as (a) with 2 decode steps (``fsdp_serve`` gathers every
-   data-split leaf each step, about 13 GB through gloo's host copies)
+   data-split leaf each step, about 7 GB through gloo's host copies)
    at ``1e-4 * max(1, max|ref|)``, and the entries each
    dispatch group drops per layer equal to the one-process run's under
    a layout-only ``mesh_context(Mesh(2, 2))`` (two groups); (c)
@@ -445,7 +445,19 @@ Drives ``repro_torch`` only (never JAX, never the JAX package ``repro``):
    StableLM and Whisper against the one-process run on the card at the
    bf16 gate; (d) ``python -m repro_torch.launch.dryrun`` on
    StableLM-2-12B ``prefill_32k`` (16 x 16) and Yi-34B ``decode_32k``
-   (2 x 16 x 16), each ending ``ok``.
+   (2 x 16 x 16), each ending ``ok``; (f) on (a)'s 16 ranks, a train
+   step of StableLM-2-12B at 2 layers on 2 x 4,096 tokens with the
+   sequence-parallel residual stream (``act_shard="seq"``: each rank
+   holds 256 positions between attention blocks; reduce-scatters at the
+   blocks' exits), held by (c) against its trace, and the loss and
+   grads of its first microbatch under ``"seq"`` against ``"batch"`` on
+   every rank within the bf16 gate, printing which transport gloo took
+   for the reduce-scatters; (g) one Mamba layer at Jamba-1.5-Large's
+   width on phase 17 (d)'s prefill shape through Mamba's chunk-scan
+   operator (``repro_torch::mamba_chunk_scan``) against the plain
+   checkpointed loop, output and state bit-identical, and one chunk's
+   backward operator against autograd through the plain body,
+   bit-identical.
 
 Every printed number carries the card's name and power limit.  The line
 before the last is ``{"kernels": [...]}``; the last is ``{"ok": true,
@@ -5973,7 +5985,7 @@ HYB_X_REQUESTS, HYB_X_PROMPT_LEN, HYB_SLOTS = 8, 2048, 4
 HYB_X_MAX_LEN, HYB_MAX_NEW = 2064, 16  # xLSTM's prompts cut from 4,096
 #                                        so that phase 21 fits the time
 HYB_X_F32_GATE = 1e-4        # (b): served vs forward_train, f32, 8 layers
-HYB_X_TRAIN_BATCH, HYB_X_TRAIN_SEQ, HYB_X_TRAIN_STEPS = 8, 512, 3
+HYB_X_TRAIN_BATCH, HYB_X_TRAIN_SEQ, HYB_X_TRAIN_STEPS = 8, 512, 2
 HYB_JAMBA_LAYERS = 4          # (d): the first half of Jamba's 8-layer period
 HYB_J_REQUESTS, HYB_J_PROMPT_LEN, HYB_J_MAX_LEN = 8, 4080, 4096
 HYB_K5_SHAPE = (4, 64, 8, 4080, 128)    # (d): Jamba's prefill group
@@ -7140,11 +7152,13 @@ SHARD_LAYERS = 2           # (a): 2 of StableLM-2-12B's 40 layers, so
                            # that phases 20 and 21 fit the script's time
 SHARD_PROMPT_LEN = 4080    # one prefill group of SHARD_SLOTS prompts
 SHARD_SLOTS = 4
-SHARD_DECODE = 16          # decode steps, fed the one-process tokens
+SHARD_DECODE = 8           # decode steps, fed the one-process tokens
+                           # (16 before PR 40; cut for the script's time)
 SHARD_MAX_LEN = 4096
-SHARD_DBRX_LAYERS = 2      # (b): 2 of DBRX's 40 layers, f32 compute
+SHARD_DBRX_LAYERS = 1      # (b): 1 of DBRX's 40 layers, f32 compute (2
+                           # before PR 40; cut for the script's time)
 SHARD_DBRX_DECODE = 2      # (b): fsdp_serve gathers every data-split leaf
-                           # each step, ~13 GB through gloo's host copies
+                           # each step, ~7 GB through gloo's host copies
 SHARD_F32_GATE = 1e-4      # f32 logits, sharded vs one process, rel.
                            # max(1, max|ref|)
 SHARD_MIX_CFS = (1.0, 0.5, 0.25)   # (c): lowered until entries drop
@@ -8062,20 +8076,28 @@ DRY_K5_SHAPE = (4, 2, 1, 4080, 160)   # (a)'s per-rank K5 launch
 DRY_MEM_RATIO = (0.85, 1.30)  # live max_memory_allocated / dry peak_hbm
 DRY_CLI = (("stablelm-12b", "prefill_32k", "single"),
            ("yi-34b", "decode_32k", "multi"))
+DRY_F_TOKENS = (2, 4096)   # (f): StableLM's train step on (a)'s 16 ranks
+#                            (its trace: 2.47 GiB a rank under "seq")
+DRY_F_LABEL = "stablelm_train"
+DRY_G_CHUNK = 128          # (g): Jamba's mamba_chunk, one chunk's backward
 
 
 def _dry_cells():
     """(label, config, cell) of phase 21's live runs: (a) StableLM-2-12B
-    cut to DRY_S_LAYERS layers on mp DRY_S_MP, a prefill through K5;
-    (b) Whisper-small and xLSTM-350M whole on mp DRY_B_MP, a prefill and
-    a decode step each and an xLSTM train step."""
+    cut to DRY_S_LAYERS layers on mp DRY_S_MP, a prefill through K5, and
+    (f) its train step of DRY_F_TOKENS under ``act_shard="seq"``; (b)
+    Whisper-small and xLSTM-350M whole on mp DRY_B_MP, a prefill and a
+    decode step each and an xLSTM train step."""
     import dataclasses
     from repro_torch.configs import ShapeCell, get
-    s = dataclasses.replace(get("stablelm-12b"), n_layers=DRY_S_LAYERS)
+    s = dataclasses.replace(get("stablelm-12b"), n_layers=DRY_S_LAYERS,
+                            act_shard="seq")
     w, x = get("whisper-small"), get("xlstm-350m")
     return {
         "a": [("stablelm_prefill", s,
-               ShapeCell("p", "prefill", DRY_PROMPT_LEN, DRY_SLOTS))],
+               ShapeCell("p", "prefill", DRY_PROMPT_LEN, DRY_SLOTS)),
+              (DRY_F_LABEL, s,
+               ShapeCell("t", "train", DRY_F_TOKENS[1], DRY_F_TOKENS[0]))],
         "b": [("whisper_prefill", w,
                ShapeCell("p", "prefill", DRY_ASR_PROMPT, DRY_SLOTS)),
               ("whisper_decode", w,
@@ -8111,6 +8133,9 @@ def _dry_rank(rank: int, world: int, job: dict) -> dict:
     for label, cfg, cell in job["cells"]:
         mc = D.cell_context(cfg, cell, mesh)
         lm, args = D.live_inputs(cfg, cell, mesh, mc, dev, seed=SEED)
+        seq = None
+        if label == DRY_F_LABEL:
+            seq = _dry_seq_vs_batch(cfg, mc, args, dev)
         mesh.counts.clear()
         mesh.traffic.clear()
         torch.cuda.synchronize()
@@ -8128,6 +8153,9 @@ def _dry_rank(rank: int, world: int, job: dict) -> dict:
                "max_alloc": torch.cuda.max_memory_allocated()}
         if cell.step == "train":
             rec["finite"] = bool(torch.isfinite(res[2]["loss"]).item())
+            if seq is not None:
+                rec["seq"] = dict(seq, transport=f"{mesh.backend} on "
+                                  f"{dev.type} tensors")
         else:
             logits = res[0] if cell.step == "prefill" else res[1]
             rec["finite"] = bool(torch.isfinite(
@@ -8141,6 +8169,45 @@ def _dry_rank(rank: int, world: int, job: dict) -> dict:
         del args, res, lm
         torch.cuda.empty_cache()
     return out
+
+
+def _dry_seq_vs_batch(cfg, mc, args, dev) -> dict:
+    """(f) on one rank: the loss and grads of the step's first
+    microbatch under ``act_shard="seq"`` and ``"batch"`` on the rank's
+    blocks (no trace): the loss's error of ``max(1, |batch's|)``, the
+    worst grad leaf's of its max, and each layout's model-axis
+    collectives."""
+    import dataclasses
+    import torch
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models.lm import build_lm
+    params, _, batch = args
+    first = {k: torch.chunk(v, max(cfg.microbatch, 1))[0]
+             for k, v in batch.items()}
+    got, counts = {}, {}
+    with SH.mesh_context(mc):
+        for act in ("seq", "batch"):
+            lm = build_lm(dataclasses.replace(cfg, act_shard=act),
+                          device=dev)
+            snap = dict(mc.mesh.counts)
+            got[act] = value_and_grad(lm, params, first)
+            counts[act] = {k: n - snap.get(k, 0)
+                           for k, n in mc.mesh.counts.items()
+                           if k.endswith("/model") and n != snap.get(k, 0)}
+    (ls, gs), (lb, gb) = got["seq"], got["batch"]
+    from repro_torch.optim.adamw import _leaves
+    worst = 0.0
+    for (_, a), (_, b) in zip(_leaves(gs), _leaves(gb)):
+        scale = float(b.float().abs().max())
+        if scale > 0:
+            worst = max(worst, float((a.float() - b.float()).abs().max())
+                        / scale)
+    loss_err = abs(float(ls) - float(lb)) / max(1.0, abs(float(lb)))
+    del got, gs, gb
+    torch.cuda.empty_cache()
+    return {"loss_err": loss_err, "grad_err": worst, "counts": counts,
+            "loss": float(ls)}
 
 
 def _dry_one(cfg, cell, dev):
@@ -8229,6 +8296,114 @@ def _dry_check(part: str, label: str, cfg, cell, mp: int, recs: list,
     return rec
 
 
+def _dry_seq_check(label: str, mp: int, recs: list, tag) -> dict:
+    """(f): every rank's ``"seq"`` loss and grads against ``"batch"``'s
+    within LM_BF16_GATE (of the loss's ``max(1, |ref|)``, of each grad
+    leaf's max), reduce-scatters where ``"batch"`` has none, and the
+    transport they ran on (gloo takes the card's tensors for
+    ``reduce_scatter``; nothing is staged through host memory)."""
+    seqs = [r[label]["seq"] for r in recs]
+    loss_err = max(q["loss_err"] for q in seqs)
+    grad_err = max(q["grad_err"] for q in seqs)
+    c = seqs[0]["counts"]
+    transport = sorted({q["transport"] for q in seqs})
+    print(f"dryrun (f) {label}: act_shard 'seq' vs 'batch' on the {mp} "
+          f"ranks' blocks, the step's first microbatch: loss "
+          f"{seqs[0]['loss']:.6f}, worst |d| over ranks {loss_err:.3e} of "
+          f"max(1, |loss|), worst grad leaf {grad_err:.3e} of its max (gate "
+          f"{LM_BF16_GATE}); model-axis collectives of its loss's grads: "
+          f"seq {_coll_txt(c['seq'])}, batch {_coll_txt(c['batch'])}; "
+          f"reduce_scatter transport {transport} {tag}")
+    ok = (loss_err <= LM_BF16_GATE and grad_err <= LM_BF16_GATE
+          and c["seq"].get("reduce_scatter/model", 0) > 0
+          and "reduce_scatter/model" not in c["batch"])
+    if not ok:
+        raise SystemExit(f"chip_smoke: phase 21 (f) {label}: 'seq' against "
+                         f"'batch': loss {loss_err:.3e}, grads {grad_err:.3e}"
+                         f", collectives {c}, transport {transport}")
+    return {"loss_err": loss_err, "grad_err": grad_err, "counts": c,
+            "transport": transport}
+
+
+def _dry_mamba_op(dev, tag) -> dict:
+    """(g): one Mamba layer at Jamba-1.5-Large's width (d 8,192, d_inner
+    16,384, bf16) on phase 17 (d)'s prefill shape (HYB_SLOTS x
+    HYB_J_PROMPT_LEN) from a random state, through the scan operator
+    and through the plain checkpointed loop: output and new state
+    bit-identical; one chunk of DRY_G_CHUNK steps in f32 (the scan's
+    dtype), the backward operator's gradients against autograd through
+    the plain body: bit-identical."""
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.models import ssm as S
+    cfg = get(HYB_JAMBA)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    p = S.init_mamba(gen, cfg.d_model, expand=cfg.mamba_expand,
+                     d_state=cfg.mamba_d_state, d_conv=cfg.mamba_d_conv,
+                     dtype=torch.bfloat16)
+    di, ds = p["A_log"].shape
+    x = torch.randn(HYB_SLOTS, HYB_J_PROMPT_LEN, cfg.d_model, device=dev,
+                    generator=gen).to(torch.bfloat16)
+    st = S.MambaState(
+        torch.randn(HYB_SLOTS, cfg.mamba_d_conv - 1, di, device=dev,
+                    generator=gen).to(torch.bfloat16),
+        torch.randn(HYB_SLOTS, di, ds, device=dev, generator=gen))
+
+    def plain_scan(dt, x_c, A, bmat, cmat, h0, chunk):
+        h, ys = h0, []
+        for i in range(dt.shape[1] // chunk):
+            sl = slice(i * chunk, (i + 1) * chunk)
+            h, y = S._recompute(S._mamba_chunk, h, dt[:, sl], x_c[:, sl],
+                                bmat[:, sl], cmat[:, sl], A)
+            ys.append(y)
+        return torch.cat(ys, 1), h
+    op_scan = S._mamba_scan_chunked
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        y_op, new_op = S.mamba_forward(p, x, st, chunk=cfg.mamba_chunk)
+        S._mamba_scan_chunked = plain_scan
+        try:
+            y_pl, new_pl = S.mamba_forward(p, x, st, chunk=cfg.mamba_chunk)
+        finally:
+            S._mamba_scan_chunked = op_scan
+    fwd_same = (torch.equal(y_op, y_pl) and torch.equal(new_op.ssm,
+                                                        new_pl.ssm)
+                and torch.equal(new_op.conv, new_pl.conv))
+    del p, x, st, y_op, y_pl, new_op, new_pl
+    torch.cuda.empty_cache()
+    b, l = HYB_SLOTS, DRY_G_CHUNK
+
+    def leaf(*shape):
+        return torch.randn(shape, device=dev, generator=gen)
+    h, xb, bb, cb = leaf(b, di, ds), leaf(b, l, di), leaf(b, l, ds), \
+        leaf(b, l, ds)
+    dtb = torch.nn.functional.softplus(leaf(b, l, di) - 4)
+    a = -torch.exp(leaf(di, ds).clamp(-2, 2))
+    g_h, g_y = leaf(b, di, ds), leaf(b, l, di)
+    ins = [t.requires_grad_(True) for t in (h, dtb, xb, bb, cb, a)]
+    outs = torch.ops.repro_torch.mamba_chunk_scan(*ins)
+    g_op = torch.autograd.grad(outs, ins, (g_h, g_y))
+    outs = S._mamba_chunk(*ins)
+    g_pl = torch.autograd.grad(outs, ins, (g_h, g_y))
+    bwd_same = all(torch.equal(u, v) for u, v in zip(g_op, g_pl))
+    secs = time.perf_counter() - t0
+    del ins, outs, g_op, g_pl
+    torch.cuda.empty_cache()
+    print(f"dryrun (g): one Mamba layer at {HYB_JAMBA}'s width (d "
+          f"{cfg.d_model}, d_inner {di}, bf16) on {HYB_SLOTS} x "
+          f"{HYB_J_PROMPT_LEN} tokens from a random state, chunk "
+          f"{cfg.mamba_chunk}, through repro_torch::mamba_chunk_scan vs the "
+          f"plain checkpointed loop: output and state bit-identical "
+          f"{fwd_same}; one {b} x {l} x {di} x {ds} f32 chunk's backward "
+          f"operator vs autograd through the plain body: gradients "
+          f"bit-identical {bwd_same} ({secs:.1f} s host clock) {tag}")
+    if not (fwd_same and bwd_same):
+        raise SystemExit("chip_smoke: phase 21 (g): the scan operator "
+                         "differs from the plain loop on the card")
+    return {"forward_bit_identical": fwd_same,
+            "backward_bit_identical": bwd_same, "seconds": secs}
+
+
 def _dry_cli(tag) -> dict:
     """(d): ``python -m repro_torch.launch.dryrun`` on DRY_CLI's cells, in
     fresh processes started together (no jax there), each ending
@@ -8288,6 +8463,7 @@ def _dryrun_phase(dev, tag, rank_fn=None) -> dict:
         dev, tag, DRY_K5_SHAPE, "StableLM-2-12B's per-rank heads at mp 16 "
         "(the model axis does not divide its 8 kv heads)", f"{name} (e)")}
     torch.cuda.empty_cache()
+    report["mamba_op"] = _dry_mamba_op(dev, tag)
     cells = _dry_cells()
     for part, mp in (("a", DRY_S_MP), ("b", DRY_B_MP)):
         job = {"mp": mp, "device": str(dev), "cells": cells[part]}
@@ -8312,6 +8488,8 @@ def _dryrun_phase(dev, tag, rank_fn=None) -> dict:
         for label, cfg, cell in cells[part]:
             report[label] = _dry_check(part, label, cfg, cell, mp, recs, dev,
                                        tag)
+            if "seq" in recs[0][label]:
+                report[label]["seq"] = _dry_seq_check(label, mp, recs, tag)
         del recs
         torch.cuda.empty_cache()
     report["cli"] = _dry_cli(tag)

@@ -55,7 +55,10 @@ axis narrowed to this rank's block), :func:`gather_dim` (one dim's
 blocks put together, the adjoint summed or not by how the ranks use
 the whole) and :func:`cols_matmul` (any columns of ``x @ W`` from a
 column-split ``W``, by one gather of the smaller of the weight and the
-product).
+product); those of the sequence-parallel residual stream (Megatron-SP,
+``act_shard="seq"``) pair :meth:`Mesh.reduce_scatter` with
+:meth:`Mesh.all_gather` both ways: :func:`seq_gather`,
+:func:`seq_scatter` and :func:`seq_split`.
 """
 
 from __future__ import annotations
@@ -107,9 +110,10 @@ class Mesh:
     (:func:`repro_torch.launch.mesh.make_dev_mesh`); nothing here changes
     either.  ``counts`` tallies the collectives this rank issued,
     ``"all_gather/model"`` and the like (an axis of size 1 issues none);
-    ``traffic`` records, per such key, the result's bytes, the group size
-    ``g`` and the ring-accounted wire bytes (:func:`ring_wire_bytes`),
-    summed over the calls."""
+    ``traffic`` records, per such key, the result's bytes (a
+    reduce-scatter's: its operand's), the group size ``g`` and the
+    ring-accounted wire bytes (:func:`ring_wire_bytes`), summed over the
+    calls."""
     dp: int
     mp: int
     rank: int = 0
@@ -205,6 +209,25 @@ class Mesh:
         self._count("all_gather", axis, out)
         return out
 
+    def reduce_scatter(self, t: torch.Tensor, axis: str, dim: int
+                       ) -> torch.Tensor:
+        """The sum of ``t`` over the ranks along ``axis``, of which this
+        rank keeps its block on ``dim`` (axis-index order: the
+        reference's tiled ``psum_scatter``), as a new tensor."""
+        n = self.axis_size(axis)
+        if n == 1:
+            return t
+        if t.shape[dim] % n:
+            raise ValueError(f"dim {dim} of size {t.shape[dim]} does not "
+                             f"split {n} ways over mesh axis {axis!r}")
+        parts = [p.contiguous() for p in t.chunk(n, dim)]
+        out = torch.empty_like(parts[0])
+        if not self.abstract:
+            import torch.distributed as dist
+            dist.reduce_scatter(out, parts, group=self.group(axis))
+        self._count("reduce_scatter", axis, t)
+        return out
+
     def all_reduce(self, t: torch.Tensor, axis: str,
                    op: str = "sum") -> torch.Tensor:
         """The sum (``op="sum"``, ``psum``) or the largest value
@@ -222,6 +245,8 @@ class Mesh:
         return out
 
     def _count(self, op: str, axis: str, out: torch.Tensor) -> None:
+        """Tally one call; ``out`` its result (a reduce-scatter's
+        operand, whose size the ring accounting reads)."""
         key = f"{op}/{axis}"
         self.counts[key] = self.counts.get(key, 0) + 1
         g = self.axis_size(axis)
@@ -817,6 +842,74 @@ def gather_dim(t: torch.Tensor, mesh: Mesh, axis: str, dim: int, *,
     if mesh.axis_size(axis) == 1:
         return t
     return _GatherAxis.apply(t, mesh, axis, (dim % t.ndim,), partial)
+
+
+class _SeqGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return mesh.all_gather(t, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.reduce_scatter(g, ctx.axis, ctx.dim), None, None, None
+
+
+class _SeqScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return mesh.reduce_scatter(t, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_gather(g, ctx.axis, ctx.dim), None, None, None
+
+
+class _SeqSplit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        n = t.shape[dim] // mesh.axis_size(axis)
+        return t.narrow(dim, mesh.axis_index(axis) * n, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return (ctx.mesh.all_gather(g.contiguous(), ctx.axis, ctx.dim), None,
+                None, None)
+
+
+def seq_gather(t: torch.Tensor, mesh: Mesh, dim: int = 1, *,
+               axis: str = "model") -> torch.Tensor:
+    """The ranks' blocks of a sequence-sharded ``t`` put together on
+    ``dim``, entering per-rank work (heads, an FFN slice): Megatron-SP's
+    all-gather, whose adjoint reduce-scatters the ranks' partial
+    gradients, so each rank gets the sum's block.  (Where every rank
+    computes the same from the whole, :func:`gather_dim` with
+    ``partial=False``.)"""
+    if mesh.axis_size(axis) == 1:
+        return t
+    return _SeqGather.apply(t, mesh, axis, dim % t.ndim)
+
+
+def seq_scatter(y: torch.Tensor, mesh: Mesh, dim: int = 1, *,
+                axis: str = "model") -> torch.Tensor:
+    """The ranks' partial ``y`` summed, of which this rank keeps its
+    block on ``dim``: Megatron-SP's reduce-scatter at a block's exit,
+    whose adjoint all-gathers the blocks' gradients."""
+    if mesh.axis_size(axis) == 1:
+        return y
+    return _SeqScatter.apply(y, mesh, axis, dim % y.ndim)
+
+
+def seq_split(t: torch.Tensor, mesh: Mesh, dim: int = 1, *,
+              axis: str = "model") -> torch.Tensor:
+    """This rank's block on ``dim`` of a ``t`` replicated over ``axis``
+    (no communication); the adjoint all-gathers the blocks' gradients,
+    so each rank holds the whole tensor's."""
+    if mesh.axis_size(axis) == 1:
+        return t
+    return _SeqSplit.apply(t, mesh, axis, dim % t.ndim)
 
 
 def cols_matmul(x: torch.Tensor, w: torch.Tensor, mesh: Mesh,

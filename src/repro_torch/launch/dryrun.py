@@ -50,6 +50,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses as dc
+import functools
 import json
 import os
 import time
@@ -73,6 +74,7 @@ from repro_torch.launch.steps import (abstract_opt_state, abstract_params,
                                       effective_seq, input_specs,
                                       make_decode_step, make_prefill_step,
                                       make_train_step)
+from repro_torch.models.ssm import SCAN_BODIES, above_autograd
 
 K5_OP = torch.ops.repro_torch.flash_attention.default
 _EMPTY = {torch.ops.aten.empty.memory_format, torch.ops.aten.empty_like.default,
@@ -94,7 +96,11 @@ class StepTrace(TorchDispatchMode):
     shapes), ``ops`` (dispatched ops), and ``peak`` (the most storage
     the ops allocated that was alive at once; ``live`` at the end).
     Storage that existed before the trace (the step's arguments) is not
-    counted."""
+    counted.  An operator whose implementation runs a plain body the
+    mode cannot see (Mamba's chunk scan and its backward,
+    ``ssm.SCAN_BODIES``) is one op, its FLOPs by its registered formula,
+    charged the bytes its body dispatches and, on top of what is live at
+    the call, the peak its body allocates (:func:`body_costs`)."""
 
     def __init__(self):
         super().__init__()
@@ -139,7 +145,11 @@ class StepTrace(TorchDispatchMode):
                                    tuple(args[1].shape)))
         outs = [t for t in tree_flatten(out)[0]
                 if isinstance(t, torch.Tensor)]
-        if not func.is_view and func not in _EMPTY:
+        if func in SCAN_BODIES:
+            byts, peak = body_costs(func, *_signature(args, kwargs))
+            self.bytes += byts
+            self.peak = max(self.peak, self.live + peak)
+        elif not func.is_view and func not in _EMPTY:
             ins = [t for t in tree_flatten((args, kwargs))[0]
                    if isinstance(t, torch.Tensor)]
             ids = {id(t) for t in ins}
@@ -148,6 +158,37 @@ class StepTrace(TorchDispatchMode):
         for t in outs:
             self._own(t)
         return out
+
+
+def _signature(args, kwargs):
+    """``args`` and ``kwargs`` hashable: each tensor as (shape, stride,
+    dtype), lists as tuples."""
+    def key(a):
+        if isinstance(a, torch.Tensor):
+            return ("t", tuple(a.shape), tuple(a.stride()), a.dtype)
+        return tuple(a) if isinstance(a, list) else a
+    return (tuple(key(a) for a in args),
+            tuple(sorted((k, key(v)) for k, v in kwargs.items())))
+
+
+@functools.lru_cache(maxsize=None)
+def body_costs(func, args, kwargs):
+    """(bytes, peak) of ``func``'s plain body (``SCAN_BODIES``) on meta
+    tensors of the call's shapes, strides and dtypes (:func:`_signature`),
+    traced by a :class:`StepTrace` of its own once per signature."""
+    def make(a):
+        if isinstance(a, tuple) and a[:1] == ("t",):
+            return torch.empty_strided(a[1], a[2], dtype=a[3], device="meta")
+        return list(a) if isinstance(a, tuple) else a
+    real = [make(a) for a in args]
+    kw = {k: make(v) for k, v in kwargs}
+    tr = StepTrace()
+    tr.exclude(real, kw)
+    # traced as the body runs at the top level, not as this handler
+    # would run it (below autograd, where einsum is one op)
+    with above_autograd(), tr:
+        SCAN_BODIES[func](*real, **kw)
+    return tr.bytes, tr.peak
 
 
 def _tree_bytes(*trees) -> int:

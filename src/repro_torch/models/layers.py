@@ -842,7 +842,8 @@ def moe_route(p: Params, x: torch.Tensor, *, top_k: int, n_experts: int,
 def moe(p: Params, x: torch.Tensor, *, top_k: int, n_experts: int,
         capacity_factor: float = 1.25, ep: bool = True,
         groups: Optional[int] = None,
-        mesh: Optional[SH.Mesh] = None) -> torch.Tensor:
+        mesh: Optional[SH.Mesh] = None,
+        partial: bool = False) -> torch.Tensor:
     """Top-k MoE with group-local, capacity-bounded dispatch (the
     reference's ``moe``): each token goes to its top-k experts
     (:func:`moe_route`); an expert takes at most ``cap`` entries per
@@ -864,10 +865,17 @@ def moe(p: Params, x: torch.Tensor, *, top_k: int, n_experts: int,
     ``wg``/``wu``/``wd`` rules match first), so ``ep`` does not change
     the math and is accepted for the reference's signature.  Dispatch
     and combine are gathers both ways (:class:`_Permute`): no float
-    atomics."""
+    atomics.  ``partial`` (with ``mesh``: a sequence-parallel slot, whose
+    caller reduce-scatters the output): no sum over the model axis here;
+    each rank combines its partial expert outputs and returns its
+    partial ``y``, and the router, read for that partial combine, gets
+    a partial gradient, summed over the axis by ``copy_to``."""
     del ep
     b, s, d = x.shape
-    r = moe_route(p, x, top_k=top_k, n_experts=n_experts,
+    rp = p
+    if partial:
+        rp = {"router": SH.copy_to(p["router"], mesh, "model")}
+    r = moe_route(rp, x, top_k=top_k, n_experts=n_experts,
                   capacity_factor=capacity_factor, groups=groups)
     g, cap, keep = r["groups"], r["cap"], r["keep"]
     n_tok = b * s
@@ -888,12 +896,12 @@ def moe(p: Params, x: torch.Tensor, *, top_k: int, n_experts: int,
     buf = _Permute.apply(x.reshape(n_tok, d), slot_tok,
                          slot.reshape(n_tok, top_k))
     buf = buf.reshape(n_experts, g * cap, d)
-    if mesh is not None:
+    if mesh is not None and not partial:
         buf = SH.copy_to(buf, mesh, "model")
     h = torch.matmul(buf, p["wg"])
     u = torch.matmul(buf, p["wu"])
     yb = torch.matmul(F.silu(h) * u, p["wd"])
-    if mesh is not None:
+    if mesh is not None and not partial:
         yb = SH.reduce_from(yb, mesh, "model")
     contrib = _Permute.apply(yb.reshape(n_slot, d), slot, slot_ent[:, None])
     w = torch.where(keep, r["topg"].reshape(g, -1), 0.0)

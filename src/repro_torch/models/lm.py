@@ -51,11 +51,18 @@ Megatron-style: each rank holds its blocks of the params under
 under ``cache_specs`` (:meth:`LM.init_cache` allocates them), and takes
 the whole batch, of which it keeps its data rank's rows where the data
 axis divides the batch (``batch_specs``).  The residual stream is
-replicated over the model axis; the embedding looks up the rank's vocab
-rows and sums over the model axis; each attention block runs the rank's
-``H/mp`` q and ``Hkv/mp`` kv heads (so a prefill past 2,048 tokens runs
-K5 on them) and each MLP the rank's ``d_ff/mp`` columns, and ends in one
-sum over ``'model'``; the KV cache holds the rank's W/mp ring slots for
+replicated over the model axis, but in training under ``act_shard ==
+"seq"`` (every config's default, the reference's ``constrain_act``):
+where the model axis divides the sequence, an attention slot leaves each
+rank its block of the positions, gathering its normed input into the
+rank's heads and reduce-scattering their output (Megatron-SP,
+:meth:`LM._attn_block_sp`), a Mamba / mLSTM / sLSTM slot gathers the
+residual whole, and the final norm runs on the gathered sequence.  The
+embedding looks up the rank's vocab rows and sums over the model axis;
+each attention block runs the rank's ``H/mp`` q and ``Hkv/mp`` kv heads
+(so a prefill past 2,048 tokens runs K5 on them) and each MLP the
+rank's ``d_ff/mp`` columns, and ends in one sum over ``'model'`` (or
+that reduce-scatter); the KV cache holds the rank's W/mp ring slots for
 every kv head (:func:`~repro_torch.models.layers.attention_cached_tp`);
 the MoE runs its experts' FFN slice after a dispatch every model rank
 makes alike, in the mesh's dispatch groups.  Params split over
@@ -299,13 +306,28 @@ class LM:
         return slot
 
     def _ffn(self, p: Params, x: torch.Tensor, j: int,
-             tp: Optional["_Tp"] = None) -> torch.Tensor:
+             tp: Optional["_Tp"] = None, seq: bool = False) -> torch.Tensor:
         """Slot ``j``'s FFN on ``rms_norm(p["ln2"], x)``: the SwiGLU MLP,
         or in an MoE slot the top-k MoE; on a mesh (``tp``) the rank's
-        slice of the FFN dim, summed over the model axis."""
+        slice of the FFN dim, summed over the model axis.  ``seq``: ``x``
+        is the rank's block of a sequence-parallel residual stream; the
+        normed block is all-gathered in (the MoE routes the whole
+        sequence, as every model rank does without ``seq``) and the
+        rank's partial output reduce-scattered back to its block."""
         cfg = self.cfg
-        h = L.rms_norm(p["ln2"], x)
         key = ffn_key(cfg, j)
+        if seq:
+            h = SH.seq_gather(_sp_norm(p["ln2"], x, tp), tp.mesh)
+            if key == "mlp":
+                y = L.mlp(p[key], h)
+            else:
+                y = L.moe(p[key], h, top_k=cfg.top_k,
+                          n_experts=cfg.n_experts,
+                          capacity_factor=cfg.capacity_factor,
+                          ep=key == "moe_ep", groups=tp.groups,
+                          mesh=tp.mesh, partial=True)
+            return SH.seq_scatter(y, tp.mesh)
+        h = L.rms_norm(p["ln2"], x)
         if key == "mlp":
             return _out_of(L.mlp(p[key], _into(h, tp)), tp)
         return L.moe(p[key], h, top_k=cfg.top_k, n_experts=cfg.n_experts,
@@ -419,11 +441,22 @@ class LM:
     # ------------------------------------------------------------------
     def _block_train(self, p: Params, x: torch.Tensor, j: int,
                      use_rope: bool = True,
-                     tp: Optional["_Tp"] = None) -> torch.Tensor:
+                     tp: Optional["_Tp"] = None, seq: bool = False,
+                     sharded: bool = False) -> torch.Tensor:
         """Slot ``j``'s block, cache-free: its mixer by kind, then its
         FFN where it has one (on a mesh, the rank's heads and FFN
-        slice)."""
+        slice).  ``seq``: the residual stream is sequence-parallel
+        (:meth:`_seq_parallel`), so an attention slot runs
+        :meth:`_attn_block_sp` and returns the rank's block of the
+        sequence, any other slot the whole; ``sharded``: ``x`` is the
+        rank's block."""
         cfg, kind = self.cfg, self.pattern[j]
+        if seq and kind == "a":
+            return self._attn_block_sp(p, x, j, use_rope, tp, sharded)
+        if sharded:
+            # a recurrent mixer runs over the whole sequence, which every
+            # rank then computes alike: the adjoint is the rank's block
+            x = SH.gather_dim(x, tp.mesh, "model", 1, partial=False)
         h = L.rms_norm(p["ln1"], x)
         if kind == "a":
             out = self._self_attn(p["attn"], h, True, use_rope,
@@ -434,6 +467,43 @@ class LM:
         if ffn_key(cfg, j) is not None:
             x = x + self._ffn(p, x, j, tp)
         return x
+
+    def _attn_block_sp(self, p: Params, x: torch.Tensor, j: int,
+                       use_rope: bool, tp: "_Tp",
+                       sharded: bool) -> torch.Tensor:
+        """Attention slot ``j`` on the sequence-parallel residual stream
+        (Megatron-SP, the reference's ``constrain_act(x, seq=True)``):
+        ``ln1`` on the rank's block of the sequence, all-gathered into
+        the rank's heads (from a whole ``x``: ``ln1`` on it behind
+        :func:`_into`, and the residual cut to the rank's block); the
+        heads' partial output reduce-scattered to the rank's block,
+        where the residual adds; the FFN alike (:meth:`_ffn`).  Returns
+        the rank's block."""
+        cfg, mesh = self.cfg, tp.mesh
+        if sharded:
+            h = SH.seq_gather(_sp_norm(p["ln1"], x, tp), mesh)
+        else:
+            h = _into(L.rms_norm(p["ln1"], x), tp)
+            x = SH.seq_split(x, mesh)
+        out = self._self_attn(p["attn"], h, True, use_rope,
+                              cfg.sliding_window, tp, entered=True)
+        x = x + SH.seq_scatter(out, mesh)
+        if ffn_key(cfg, j) is not None:
+            x = x + self._ffn(p, x, j, tp, seq=True)
+        return x
+
+    def _seq_parallel(self, x: torch.Tensor, tp: Optional["_Tp"]) -> bool:
+        """Whether the residual stream ``x`` (B, S, d) runs
+        sequence-parallel: under ``act_shard="seq"`` on a mesh whose
+        model axis has ranks and, by the reference's ``constrain``, where
+        that axis divides S (else it stays whole, as the reference's
+        degrades)."""
+        if (tp is None or tp.mesh.mp == 1
+                or self.cfg.act_shard != "seq"):
+            return False
+        spec = SH.constrain(tuple(x.shape), "batch", "tensor", None,
+                            mc=tp.mc)
+        return spec[1] is not None
 
     def _recurrent(self, p: Params, h: torch.Tensor, kind: str, state,
                    tp: Optional["_Tp"] = None):
@@ -464,11 +534,14 @@ class LM:
         return _out_of(out, tp), new
 
     def _super_block(self, x: torch.Tensor, slot_ps,
-                     tp: Optional["_Tp"] = None) -> torch.Tensor:
+                     tp: Optional["_Tp"] = None, seq: bool = False,
+                     sharded: bool = False) -> torch.Tensor:
         """All slots of one repeat, in order (the reference's
-        ``super_block``)."""
+        ``super_block``); ``seq`` and ``sharded`` as
+        :meth:`_block_train`'s."""
         for j, p in enumerate(slot_ps):
-            x = self._block_train(p, x, j, tp=tp)
+            x = self._block_train(p, x, j, tp=tp, seq=seq, sharded=sharded)
+            sharded = seq and self.pattern[j] == "a"
         return x
 
     def _backbone_train(self, params: Params, x: torch.Tensor,
@@ -476,34 +549,45 @@ class LM:
         """The repeats in order (the reference's ``lax.scan``), each
         repeat's super-block recomputed in the backward when
         ``cfg.remat == "block"`` (its collectives too, in the same order
-        on every rank); then the final norm."""
+        on every rank; it saves the residual in the layout it has
+        there); then the final norm, on the whole sequence."""
+        seq = self._seq_parallel(x, tp)
+        sharded = False
         for r in range(self.repeats):
             ps = [_at(slot, r) for slot in params["slots"]]
             if self.cfg.remat == "block":
-                x = checkpoint(self._super_block, x, ps, tp,
+                x = checkpoint(self._super_block, x, ps, tp, seq, sharded,
                                use_reentrant=False)
             else:
-                x = self._super_block(x, ps, tp)
+                x = self._super_block(x, ps, tp, seq, sharded)
+            sharded = seq and self.pattern[-1] == "a"
+        if sharded:
+            x = SH.gather_dim(x, tp.mesh, "model", 1, partial=False)
         return L.rms_norm(params["final_ln"], x)
 
     def _self_attn(self, p: Params, h: torch.Tensor, causal: bool,
                    use_rope: bool, window: Optional[int],
-                   tp: Optional["_Tp"] = None) -> torch.Tensor:
+                   tp: Optional["_Tp"] = None,
+                   entered: bool = False) -> torch.Tensor:
         """Cache-free self-attention on the normed ``h``; on a mesh the
         rank's heads (or, where the model axis does not divide them,
         :func:`~repro_torch.models.layers.attention_tp`), summed over the
-        model axis."""
+        model axis.  ``entered``: ``h`` already entered the rank's heads
+        (a sequence-parallel slot's gather), and the rank's partial
+        output is returned unsummed."""
         cfg = self.cfg
         kw = dict(head_dim=cfg.hd, rope_theta=cfg.rope_theta, window=window,
                   causal=causal, attn_block=cfg.attn_block,
                   use_rope=use_rope)
+        if not entered:
+            h = _into(h, tp)
         if tp is not None and tp.uneven:
-            return _out_of(L.attention_tp(
-                p, _into(h, tp), tp.mesh, n_heads=cfg.n_heads,
-                n_kv=cfg.n_kv_heads, **kw), tp)
-        hq, hk = _heads(cfg, tp)
-        out, _ = L.attention(p, _into(h, tp), n_heads=hq, n_kv=hk, **kw)
-        return _out_of(out, tp)
+            out = L.attention_tp(p, h, tp.mesh, n_heads=cfg.n_heads,
+                                 n_kv=cfg.n_kv_heads, **kw)
+        else:
+            hq, hk = _heads(cfg, tp)
+            out, _ = L.attention(p, h, n_heads=hq, n_kv=hk, **kw)
+        return out if entered else _out_of(out, tp)
 
     def _attend(self, p: Params, x: torch.Tensor, causal: bool,
                 tp: Optional["_Tp"] = None) -> torch.Tensor:
@@ -976,6 +1060,15 @@ def _local_cache(tree, specs, mesh, device, name: str = ""):
             S.NEG if name == "m" else 0)
     return torch.full(SH.local_shape(tree.shape, specs, mesh), fill,
                       dtype=tree.dtype, device=device)
+
+
+def _sp_norm(p: Params, x: torch.Tensor, tp: _Tp) -> torch.Tensor:
+    """``rms_norm(p, x)`` on the rank's block of a sequence-parallel
+    residual stream: its scale, replicated over the model axis, gets the
+    block's share of its gradient, summed over the axis by
+    :func:`~repro_torch.distributed.sharding.copy_to`'s adjoint."""
+    return L.rms_norm({"scale": SH.copy_to(p["scale"], tp.mesh, "model")},
+                      x)
 
 
 def _into(h: torch.Tensor, tp: Optional[_Tp]) -> torch.Tensor:

@@ -50,8 +50,9 @@ runs inside a time or chunk loop: every exchange is once per call.
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -157,20 +158,148 @@ def _mamba_chunk(h, dtb, xb, bb, cb, A):
     return h, y
 
 
+# One chunk of the scan as an operator of its own
+# (``repro_torch::mamba_chunk_scan``) and its backward as a second one
+# (``repro_torch::mamba_chunk_scan_backward``), so that a dispatch mode
+# (the dry-run's ``StepTrace``) sees one call a chunk where the plain
+# body dispatches one ``addcmul`` a step, and a shape-only run on the
+# meta device takes the fakes' shapes.  Both run :func:`_mamba_chunk`,
+# the plain body, on every device: the backward saves the inputs alone
+# and recomputes the body under autograd (the reference's checkpointed
+# scan body), so its gradients are those of the body.  An operator's
+# implementation runs below the autograd keys, which the backward
+# re-enables around its recompute (:func:`above_autograd`).
+_AUTOGRAD_KEYS = (torch._C.DispatchKey.AutogradFunctionality,
+                  torch._C.DispatchKey.AutogradOther,
+                  torch._C.DispatchKey.AutogradNestedTensor,
+                  torch._C.DispatchKey.ADInplaceOrView)
+
+
+@torch.library.custom_op("repro_torch::mamba_chunk_scan", mutates_args=())
+def _scan_op(h: torch.Tensor, dtb: torch.Tensor, xb: torch.Tensor,
+             bb: torch.Tensor, cb: torch.Tensor, A: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _mamba_chunk(h, dtb, xb, bb, cb, A)
+
+
+@_scan_op.register_fake
+def _scan_fake(h, dtb, xb, bb, cb, A):
+    b, l, di = dtb.shape
+    return torch.empty_like(h), dtb.new_empty((b, l, di))
+
+
+@contextlib.contextmanager
+def above_autograd():
+    """Autograd's dispatch keys and grad mode back on, where the code
+    runs below them (an operator's implementation, a dispatch mode's
+    handler): ops record their graph and decompose as they do at the
+    top level (``einsum`` into its ``bmm``)."""
+    exclude = torch._C._dispatch_tls_local_exclude_set()
+    for key in _AUTOGRAD_KEYS:
+        exclude = exclude.remove(key)
+    with torch._C._ForceDispatchKeyGuard(
+            torch._C._dispatch_tls_local_include_set(), exclude), \
+            torch.enable_grad():
+        yield
+
+
+def _scan_grads(h, dtb, xb, bb, cb, A, g_h: Optional[torch.Tensor],
+                g_y: Optional[torch.Tensor], needs: List[bool]
+                ) -> List[torch.Tensor]:
+    """The body's gradients of the inputs ``needs`` marks (in the order
+    h, dtb, xb, bb, cb, A) against the defined ones of ``g_h`` (h at the
+    chunk's end) and ``g_y``: the body recomputed under autograd."""
+    with above_autograd():
+        ins = [t.detach().requires_grad_(n)
+               for t, n in zip((h, dtb, xb, bb, cb, A), needs)]
+        outs = _mamba_chunk(*ins)
+        pairs = [(o, g) for o, g in zip(outs, (g_h, g_y)) if g is not None]
+        # without g_y, C reaches no output: its gradient is zeros
+        return list(torch.autograd.grad(
+            [o for o, _ in pairs], [t for t, n in zip(ins, needs) if n],
+            [g for _, g in pairs], allow_unused=True,
+            materialize_grads=True))
+
+
+@torch.library.custom_op("repro_torch::mamba_chunk_scan_backward",
+                         mutates_args=())
+def _scan_bwd_op(h: torch.Tensor, dtb: torch.Tensor, xb: torch.Tensor,
+                 bb: torch.Tensor, cb: torch.Tensor, A: torch.Tensor,
+                 g_h: Optional[torch.Tensor], g_y: Optional[torch.Tensor],
+                 needs: List[bool]) -> List[torch.Tensor]:
+    return _scan_grads(h, dtb, xb, bb, cb, A, g_h, g_y, needs)
+
+
+@_scan_bwd_op.register_fake
+def _scan_bwd_fake(h, dtb, xb, bb, cb, A, g_h, g_y, needs):
+    return [torch.empty_like(t) for t, n in zip((h, dtb, xb, bb, cb, A),
+                                                needs) if n]
+
+
+def _scan_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+    ctx.set_materialize_grads(False)
+
+
+def _scan_backward(ctx, g_h, g_y):
+    needs = list(ctx.needs_input_grad)
+    if not any(needs) or (g_h is None and g_y is None):
+        return (None,) * len(needs)
+    grads = iter(torch.ops.repro_torch.mamba_chunk_scan_backward(
+        *ctx.saved_tensors, g_h, g_y, needs))
+    return tuple(next(grads) if n else None for n in needs)
+
+
+_scan_op.register_autograd(_scan_backward, setup_context=_scan_setup)
+
+
+def scan_flops(dtb_shape, ds: int, backward: bool = False) -> int:
+    """The tensor-core work of one chunk: the C contraction's ``bmm``,
+    ``2·B·L·di·ds``; the backward recomputes it and takes the two
+    products of its adjoint, three times that."""
+    b, l, di = dtb_shape
+    return (3 if backward else 1) * 2 * b * l * di * ds
+
+
+def _scan_flop_formula(h_shape, dtb_shape, *args, out_shape=None,
+                       **kwargs) -> int:
+    return scan_flops(dtb_shape, h_shape[-1])
+
+
+def _scan_bwd_flop_formula(h_shape, dtb_shape, *args, out_shape=None,
+                           **kwargs) -> int:
+    return scan_flops(dtb_shape, h_shape[-1], backward=True)
+
+
+from torch.utils.flop_counter import register_flop_formula  # noqa: E402
+
+register_flop_formula(torch.ops.repro_torch.mamba_chunk_scan)(
+    _scan_flop_formula)
+register_flop_formula(torch.ops.repro_torch.mamba_chunk_scan_backward)(
+    _scan_bwd_flop_formula)
+
+# the plain body each operator runs: what a dispatch mode is to charge a
+# call with, since the calls the implementation makes are hidden from it
+SCAN_BODIES = {torch.ops.repro_torch.mamba_chunk_scan.default: _mamba_chunk,
+               torch.ops.repro_torch.mamba_chunk_scan_backward.default:
+               _scan_grads}
+
+
 def _mamba_scan_chunked(dt, x_c, A, bmat, cmat, h0, chunk: int):
     """Selective scan over chunks with everything big kept chunk-local.
 
     dt, x_c: (B, S, di) f32; bmat, cmat: (B, S, ds) f32; A: (di, ds);
     S a multiple of ``chunk``.  Returns (y (B, S, di) f32, h_last (B,
-    di, ds) f32).  Each chunk (:func:`_mamba_chunk`) is recomputed in
-    the backward under autograd, as the reference's checkpointed body."""
+    di, ds) f32).  Each chunk is one call of the scan operator, whose
+    backward recomputes the body (:func:`_mamba_chunk`), as the
+    reference's checkpointed body."""
     s = dt.shape[1]
     h = h0
     ys = []
     for i in range(s // chunk):
         sl = slice(i * chunk, (i + 1) * chunk)
-        h, y = _recompute(_mamba_chunk, h, dt[:, sl], x_c[:, sl],
-                          bmat[:, sl], cmat[:, sl], A)
+        h, y = torch.ops.repro_torch.mamba_chunk_scan(
+            h, dt[:, sl], x_c[:, sl], bmat[:, sl], cmat[:, sl], A)
         ys.append(y)
     return torch.cat(ys, 1), h
 

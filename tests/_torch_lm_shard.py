@@ -710,3 +710,160 @@ def dryrun_rank_main(rank: int, world: int, pod: int, dp: int,
                      "flops": tr.flops, "k5": tr.k5,
                      "k5_shapes": tr.k5_shapes}
     return out
+
+
+# ---------------------------------------------------------------------------
+# The sequence-parallel residual stream (tests/test_torch_seq_parallel.py).
+# ---------------------------------------------------------------------------
+
+# A dense decoder, MoE (moe_tp), Mamba <-> attention transitions with an
+# MoE attention slot, and the patches ahead of the text (8 + 16 = 24
+# positions); ``odd``: a 15-token batch, which the model axis of 2 does
+# not divide, so the residual stream stays whole.
+SEQ_CASES = ("stablelm", "mixtral", "jamba", "internvl2")
+SEQ_ODD = ("stablelm", 15)
+SEQ_ACTS = ("seq", "batch")
+# (name, case, step, seq, batch) of the live steps the dry-run's trace is
+# held against, at microbatch 1: Jamba's reaches every rule (Mamba and
+# attention slots, an MoE attention slot)
+SEQ_DRY = (("jamba", "jamba", "train", 16, 2),)
+
+
+def seq_config(case: str, act: str, get):
+    return dataclasses.replace(config(case, get), act_shard=act)
+
+
+def dry_config(case: str, get):
+    return dataclasses.replace(config(case, get), microbatch=1)
+
+
+def ulp_draw(shapes, seed: int = SEED, prefix: str = ""):
+    """:func:`draw`'s tree with every element moved by one f32 ulp up or
+    down (signs from a seed of the leaf's path): the params of a
+    case's spread."""
+    tree = draw(shapes, seed, prefix)
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            return {k: walk(v, f"{path}/{k}") for k, v in t.items()}
+        if isinstance(t, list):
+            return [walk(v, f"{path}/{i}") for i, v in enumerate(t)]
+        rng = np.random.RandomState(sum(map(ord, path)) % 2 ** 31)
+        step = np.float32(2.0 ** -23) * rng.choice([-1, 1], t.shape)
+        return (t * (1 + step)).astype(np.float32)
+    return walk(tree, prefix)
+
+
+def train_case(case: str, act: str, mesh=None, length: int = TRAIN_SEQ,
+               ulp: bool = False) -> dict:
+    """The loss and its grads of ``case`` (reduced, ``act_shard=act``) on
+    a ``length``-token batch, and one AdamW train step: sharded under a
+    live ``mesh`` (grads and params gathered whole, and the collectives
+    of the loss's grads), else in one process (under a layout-only
+    context where ``mesh`` is one: the MoE's dispatch groups follow
+    it).  ``ulp``: from :func:`ulp_draw`'s params."""
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.convert import _lm_shapes, lm_params_from_numpy
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch.steps import make_train_step, value_and_grad
+    from repro_torch.models.lm import build_lm
+    from repro_torch.optim import adamw_init
+
+    cfg = seq_config(case, act, get)
+    lm = build_lm(cfg, device="cpu")
+    full = lm_params_from_numpy((ulp_draw if ulp else draw)(
+        _lm_shapes(cfg)), cfg, "cpu")
+    batch = {"inputs": tokens(cfg, BATCH, length, 2),
+             "targets": tokens(cfg, BATCH, length, 3),
+             **embeds(cfg, BATCH, 6)}
+    batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    live = mesh is not None and mesh.live
+    out = {}
+    with SH.mesh_context(mesh, fsdp=cfg.fsdp_train) as mc:
+        specs = SH.param_specs(full, mc) if live else None
+        params = SH.place(full, specs, mesh) if live else full
+        before = dict(mesh.counts) if live else {}
+        loss, grads = value_and_grad(lm, params, batch)
+        if live:
+            out["collectives"] = {k: n - before.get(k, 0)
+                                  for k, n in mesh.counts.items()
+                                  if n != before.get(k, 0)}
+        out["loss"] = loss
+        out["grads"] = SH.gather(grads, specs, mesh) if live else grads
+        step = make_train_step(lm, base_lr=LR, warmup=WARMUP, total=TOTAL)
+        new, _, metrics = step(params, adamw_init(params), batch)
+        out["new_params"] = SH.gather(new, specs, mesh) if live else new
+        out["gnorm"] = metrics["gnorm"]
+    return out
+
+
+SEQ_MESHES = ((1, 2), (2, 2))
+
+
+def seq_rank_main(rank: int, world: int) -> dict:
+    """One of 4 gloo ranks on the CPU, on two meshes: dp2 x mp2, then
+    (ranks 0 and 1) dp1 x mp2 over their pair, so that one spawn serves
+    both.  On each mesh (``{(dp, mp): ...}``), :func:`seq_mesh_run`."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed.sharding import Mesh
+    from repro_torch.launch.mesh import make_dev_mesh
+
+    torch.set_num_threads(1)
+    wide = make_dev_mesh(2, 2, backend="gloo", device="cpu")
+    # every rank of the world makes the pair's group
+    pair = dist.new_group([0, 1], backend="gloo",
+                          timeout=datetime.timedelta(seconds=300))
+    out = {(2, 2): seq_mesh_run(wide)}
+    if rank < 2:
+        out[(1, 2)] = seq_mesh_run(Mesh(1, 2, rank=rank, backend="gloo",
+                                        device=torch.device("cpu"),
+                                        groups={"model": pair}))
+    return out
+
+
+def seq_mesh_run(mesh) -> dict:
+    """One rank's work on ``mesh``: every ``SEQ_CASES`` case under each
+    ``SEQ_ACTS`` layout (:func:`train_case`, flattened, with the
+    collectives of its loss's grads), the ``SEQ_ODD`` case under both,
+    and each ``SEQ_DRY`` step on random inputs (``dryrun.live_inputs``)
+    run once under ``dryrun.run_step``'s trace: its collectives and
+    FLOPs.  The mesh's rank 0 returns everything, the others their
+    tallies."""
+    from repro_torch.configs import ShapeCell, get
+    from repro_torch.launch import dryrun as D
+
+    out = {}
+    for case in SEQ_CASES:
+        for act in SEQ_ACTS:
+            res = train_case(case, act, mesh)
+            out[f"{case}/{act}/collectives"] = res.pop("collectives")
+            out.update({f"{case}/{act}/{k}": v
+                        for k, v in flat(res).items()})
+    case, length = SEQ_ODD
+    for act in SEQ_ACTS:
+        res = train_case(case, act, mesh, length)
+        out[f"odd/{act}/collectives"] = res.pop("collectives")
+        out.update({f"odd/{act}/{k}": v for k, v in flat(res).items()})
+    for name, case, step, seq, rows in SEQ_DRY:
+        cfg = dry_config(case, get)
+        cell = ShapeCell(name, step, seq, rows)
+        mc = D.cell_context(cfg, cell, mesh)
+        lm, args = D.live_inputs(cfg, cell, mesh, mc, "cpu",
+                                 seed=mesh.rank)
+        mesh.counts.clear()
+        mesh.traffic.clear()
+        _, tr, _ = D.run_step(lm, cfg, cell, mc, args)
+        out[f"dry/{name}"] = {
+            "counts": dict(mesh.counts),
+            "traffic": {k: dict(v) for k, v in mesh.traffic.items()},
+            "flops": tr.flops}
+    if mesh.rank == 0:
+        return out
+    return {k: v for k, v in out.items()
+            if k.endswith("/collectives") or k.startswith("dry/")}
